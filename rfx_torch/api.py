@@ -1,0 +1,146 @@
+"""User-facing facade (port of rfx/api.py): the reference's `Tracer` call
+shape, `Tracer(mesh, c, rate, window, max_bounces, n_rays)` then
+`compute_cir(tx_pos, tx_power, rx_pos, rx_radius) -> (paths, ir)`, on an
+explicit device.
+
+Backends: `brute` (all-triangle Moller-Trumbore, rfx_torch.tracer) and
+`fused` (the fused bounce-loop kernel, rfx_torch.ops.fused); `auto` takes
+`brute` up to 2048 triangles and `fused` above, as the JAX facade does on an
+accelerator.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from rfx.geometry import TriangleMesh
+from rfx.utils.logging import get_logger, log_trace_stats
+from rfx_torch import cir as cir_mod
+from rfx_torch import sampler
+from rfx_torch.device import resolve_device
+from rfx_torch.ops.fused import make_fused_tracer
+from rfx_torch.tracer import Scene, extract_paths, trace_to_rx
+
+__all__ = ["Tracer"]
+
+BRUTE_MAX_FACES = 2048
+
+
+class Tracer:
+    """RF ray tracer with the reference's call shape, on `device`."""
+
+    #: record_paths="auto" records paths only for batches at or below this
+    #: ray count (the JAX facade's bound, rfx/api.py:169).
+    AUTO_PATHS_MAX_RAYS = 262_144
+
+    def __init__(
+        self,
+        environment: TriangleMesh,
+        light_speed_mps: float = 2.998e8,
+        sample_rate_hz: float = 100e9,
+        sample_window_s: float = 200.0e-9,
+        max_bounces: int = 4,
+        tx_num_rays: int = 5_000_000,
+        *,
+        n1: float = 5.0,
+        n2: float = 1.0,
+        rx_mode: str = "analytic",
+        backend: str = "auto",
+        seed: int = 0,
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        self.mesh = environment
+        self.scene = Scene.from_mesh(environment, self.device)
+        self.light_speed_mps = float(light_speed_mps)
+        self.sample_rate_hz = float(sample_rate_hz)
+        self.sample_window_s = float(sample_window_s)
+        self.max_bounces = int(max_bounces)
+        self.tx_num_rays = int(tx_num_rays)
+        self.n1 = float(n1)
+        self.n2 = float(n2)
+        if rx_mode not in ("analytic", "icosphere"):
+            raise ValueError(f"unknown rx_mode: {rx_mode}")
+        self.rx_mode = rx_mode
+        self.nbins = int(sample_window_s * sample_rate_hz)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.log = get_logger("rfx_torch.api")
+
+        if backend == "auto":
+            backend = "brute" if environment.num_faces <= BRUTE_MAX_FACES else "fused"
+        if backend == "bvh":
+            raise NotImplementedError(
+                "backend='bvh' (the stackless BVH walk in plain PyTorch) is not ported yet "
+                "(ROADMAP A8)")
+        if backend not in ("brute", "fused"):
+            raise ValueError(f"unknown backend: {backend}")
+        if backend == "fused" and rx_mode != "analytic":
+            # The fused kernel bakes in the analytic sphere; the JAX facade
+            # serves the icosphere receiver on large meshes through the
+            # per-query BVH kernel.
+            raise NotImplementedError(
+                "rx_mode='icosphere' on a fused-backend mesh needs the per-query BVH "
+                "kernel, which is not ported yet (ROADMAP B3)")
+        self.backend = backend
+        self._fused = (make_fused_tracer(environment, max_bounces=self.max_bounces,
+                                         device=self.device)
+                       if backend == "fused" else None)
+
+    def _directions(self, directions) -> torch.Tensor:
+        if directions is None:
+            return sampler.sphere_directions(self.tx_num_rays, generator=self.generator,
+                                             device=self.device)
+        return torch.as_tensor(directions, dtype=torch.float32, device=self.device)
+
+    def _cir(self, result, tx_power) -> torch.Tensor:
+        return cir_mod.cir_from_trace(
+            result, tx_power=tx_power, num_rays=self.tx_num_rays, nbins=self.nbins,
+            light_speed_mps=self.light_speed_mps, sample_rate_hz=self.sample_rate_hz)
+
+    def compute_cir(self, tx_pos, tx_power, rx_pos, rx_radius, *, directions=None,
+                    record_paths="auto", max_paths: int = 10_000):
+        """(paths, impulse_response) with the reference's semantics (ref
+        tracer.py:63): a list of (k, 3) numpy paths and a numpy (nbins,) IR.
+
+        `directions` is an optional (N, 3) array; by default tx_num_rays
+        fresh directions come from this tracer's generator. record_paths
+        "auto" records paths for batches of at most AUTO_PATHS_MAX_RAYS rays;
+        on the fused backend recording paths needs the per-query BVH kernel
+        (ROADMAP B3) and raises NotImplementedError."""
+        t0 = time.perf_counter()
+        dirs = self._directions(directions)
+        if record_paths == "auto":
+            record_paths = dirs.shape[0] <= self.AUTO_PATHS_MAX_RAYS
+        if self._fused is not None:
+            if record_paths:
+                raise NotImplementedError(
+                    "record_paths on a fused-backend mesh needs the per-query BVH kernel, "
+                    "which is not ported yet (ROADMAP B3); pass record_paths=False")
+            result = self._fused(dirs, tx_pos, rx_pos, rx_radius, n1=self.n1, n2=self.n2)
+        else:
+            result = trace_to_rx(self.scene, tx_pos, dirs, rx_pos, rx_radius,
+                                 max_bounces=self.max_bounces, n1=self.n1, n2=self.n2,
+                                 rx_mode=self.rx_mode, record_paths=bool(record_paths))
+        ir = self._cir(result, tx_power).cpu().numpy()
+        log_trace_stats(self.log, n_rays=int(dirs.shape[0]), bounces=self.max_bounces,
+                        captured=int(result.captured.sum()),
+                        seconds=time.perf_counter() - t0)
+        paths = (extract_paths(np.asarray(tx_pos, np.float32), result, max_paths)
+                 if record_paths else [])
+        return paths, ir
+
+    def compute_coverage(self, *args, **kwargs):
+        raise NotImplementedError("coverage is not ported yet (ROADMAP A9)")
+
+    compute_coverage_dbm_fast = compute_coverage
+    compute_coverage_dbm_hybrid = compute_coverage
+
+    def rx_power_dbm(self, impulse_response, carrier_hz: float = 2.4e9):
+        """Reference RX-power metric (ref main.py:46-55), as numpy."""
+        ir = torch.as_tensor(impulse_response, dtype=torch.float32, device=self.device)
+        dbm, _ = cir_mod.rx_power_dbm(ir, self.sample_window_s, carrier_hz)
+        return dbm.cpu().numpy()

@@ -1,0 +1,192 @@
+"""Impulse-response assembly and RX-power metric (port of rfx/cir.py).
+
+`bin_impulse_response` runs the IR histogram kernel
+(rfx_torch/csrc/histogram.cu) on a CUDA tensor and its plain version,
+`histogram_plain` (a masked `index_add_`), on a CPU tensor. Soft binning is
+two hard histograms, the low and the high half, through the same kernel.
+
+`rx_power_dbm` is a direct convolution, so exact zeros stay zero: the metric
+averages over the nonzero samples only, and an FFT would fill them with
+roundoff.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from rfx_torch.ops._build import CudaKernel, F, I, P
+
+__all__ = ["bin_impulse_response", "cir_from_trace", "histogram", "histogram_plain",
+           "rx_power_dbm", "to_dbm", "HISTOGRAM_KERNEL"]
+
+HARD, SOFT_LO, SOFT_HI = 0, 1, 2
+
+HISTOGRAM_KERNEL = CudaKernel(
+    "histogram.cu", "rfx_ir_histogram",
+    [P, P, P, I, F, F, I, I, I, I, P, P, P],
+)
+
+# Pass 1 of the kernel uses at most this many blocks, each over a fixed,
+# contiguous range of rays; the grid depends only on the ray count, so the
+# summation order (and the result) does not change from run to run or card
+# to card.
+_MAX_BLOCKS = 256
+_MIN_RAYS_PER_BLOCK = 4096
+
+
+def _check_inputs(amplitude, distance, captured):
+    n = amplitude.shape[0]
+    if amplitude.dtype != torch.float32 or distance.dtype != torch.float32:
+        raise TypeError("amplitude and distance must be float32")
+    if captured.dtype != torch.bool:
+        raise TypeError("captured must be bool")
+    if amplitude.shape != (n,) or distance.shape != (n,) or captured.shape != (n,):
+        raise ValueError("amplitude, distance and captured must be (N,) each")
+    if not (amplitude.device == distance.device == captured.device):
+        raise ValueError("amplitude, distance and captured must be on one device")
+
+
+def histogram_plain(amplitude, distance, captured, *, nbins: int, light_speed_mps: float,
+                    sample_rate_hz: float, mode: int = HARD) -> torch.Tensor:
+    """Plain PyTorch version of the histogram kernel: (nbins,) f32. The
+    divisors are 0-dim tensors on the data's device, so the bins come from a
+    true IEEE division, as in the kernel (a Python-scalar divisor would let
+    PyTorch's CUDA path multiply by its reciprocal)."""
+    dev = amplitude.device
+    c = torch.tensor(light_speed_mps, dtype=torch.float32, device=dev)
+    rate = torch.tensor(sample_rate_hz, dtype=torch.float32, device=dev)
+    delay = distance / c * rate
+    if mode == HARD:
+        bins = delay.to(torch.int32)
+        w = amplitude
+    else:
+        lo = torch.floor(delay)
+        frac = delay - lo
+        bins = lo.to(torch.int32) + (1 if mode == SOFT_HI else 0)
+        w = amplitude * frac if mode == SOFT_HI else amplitude * (1.0 - frac)
+    valid = captured & (bins >= 0) & (bins < nbins)
+    ir = torch.zeros(nbins, dtype=torch.float32, device=dev)
+    return ir.index_add_(0, bins[valid].long(), w[valid])
+
+
+def histogram(amplitude, distance, captured, *, nbins: int, light_speed_mps: float,
+              sample_rate_hz: float, mode: int = HARD) -> torch.Tensor:
+    """Weighted histogram of captured paths into delay bins, (nbins,) f32.
+
+    A CPU tensor goes to `histogram_plain`; a CUDA tensor launches the
+    kernel, which is bit-identical from run to run."""
+    _check_inputs(amplitude, distance, captured)
+    if nbins < 1:
+        raise ValueError("nbins must be at least 1")
+    dev = amplitude.device
+    if dev.type == "cpu":
+        return histogram_plain(amplitude, distance, captured, nbins=nbins,
+                               light_speed_mps=light_speed_mps,
+                               sample_rate_hz=sample_rate_hz, mode=mode)
+    if dev.type != "cuda":
+        raise ValueError(f"no histogram for device {dev}")
+    kern = HISTOGRAM_KERNEL
+    max_bins = kern.symbol_of("rfx_ir_histogram_max_bins")()
+    if nbins > max_bins:
+        raise ValueError(f"the histogram kernel holds at most {max_bins} bins in shared "
+                         f"memory on this card, got {nbins}")
+    amplitude, distance, captured = (t.contiguous() for t in (amplitude, distance, captured))
+    n = amplitude.shape[0]
+    if n >= 2**31:
+        raise ValueError(f"at most 2^31 - 1 paths per launch, got {n}")
+    nblocks = max(1, min(_MAX_BLOCKS, -(-n // _MIN_RAYS_PER_BLOCK)))
+    rays_per_block = -(-n // nblocks)
+    partials = torch.empty((nblocks, nbins), dtype=torch.float32, device=dev)
+    out = torch.empty(nbins, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        kern.launch(amplitude.data_ptr(), distance.data_ptr(), captured.data_ptr(), n,
+                    float(light_speed_mps), float(sample_rate_hz), nbins, mode, nblocks,
+                    rays_per_block, partials.data_ptr(), out.data_ptr(), stream)
+    return out
+
+
+def bin_impulse_response(amplitude, distance, captured, *, nbins: int, light_speed_mps: float,
+                         sample_rate_hz: float, soft: bool = False) -> torch.Tensor:
+    """Scatter per-path amplitudes into delay bins. Hard mode is the
+    reference's bin = int(distance / c * rate), out-of-window paths dropped;
+    soft mode splits each amplitude linearly between the two neighbouring
+    bins."""
+    kw = dict(nbins=nbins, light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz)
+    if not soft:
+        return histogram(amplitude, distance, captured, mode=HARD, **kw)
+    return (histogram(amplitude, distance, captured, mode=SOFT_LO, **kw)
+            + histogram(amplitude, distance, captured, mode=SOFT_HI, **kw))
+
+
+def cir_from_trace(result, *, tx_power, num_rays: int, nbins: int, light_speed_mps: float,
+                   sample_rate_hz: float, soft: bool = False) -> torch.Tensor:
+    """TraceResult -> impulse response; a path's amplitude starts at
+    tx_power / num_rays (f32) times its Fresnel product."""
+    scale = torch.as_tensor(tx_power, dtype=torch.float32).cpu() / num_rays
+    amp = result.amplitude * scale.to(result.amplitude.device)
+    return bin_impulse_response(amp, result.distance, result.captured, nbins=nbins,
+                                light_speed_mps=light_speed_mps,
+                                sample_rate_hz=sample_rate_hz, soft=soft)
+
+
+def to_dbm(power: torch.Tensor) -> torch.Tensor:
+    return 10.0 * torch.log10(power / 1e-3)
+
+
+def _carrier(nbins: int, sample_window_s: float, carrier_hz: float, device) -> torch.Tensor:
+    """sin(2 pi f t) on the reference's grid t = linspace(0, window, nbins),
+    in f32 as rfx's compiled linspace rounds it: t_i = (window / (nbins-1))
+    * i, the last sample = window (other groupings move about a quarter of
+    the samples by an ulp, which the 2.4 GHz carrier turns into 2.4e-4)."""
+    stop = torch.tensor(sample_window_s, dtype=torch.float32, device=device)
+    if nbins > 1:
+        dt = stop / torch.tensor(nbins - 1, dtype=torch.float32, device=device)
+        t = torch.cat([dt * torch.arange(nbins - 1, dtype=torch.float32, device=device),
+                       stop[None]])
+    else:
+        t = torch.zeros(nbins, dtype=torch.float32, device=device)
+    return torch.sin(2.0 * math.pi * carrier_hz * t)
+
+
+# Nonzero IR bins per step of the gathered convolution (rows x nbins values).
+_CONV_ROWS = 256
+
+
+def rx_power_dbm(impulse_response: torch.Tensor, sample_window_s: float,
+                 carrier_hz: float = 2.4e9):
+    """Reference RX-power metric (ref main.py:46-55): convolve the IR with a
+    carrier sine ('same' mode), mean square over the nonzero samples, dBm.
+
+    A direct convolution over the IR's nonzero bins only: each nonzero bin k
+    adds ir[k] * carrier[j + lo - k] to output sample j, summed by an
+    elementwise product and a sum over a (rows x nbins) gather (no matmul,
+    so TF32 cannot apply). Accepts (nbins,) or (M, nbins); returns (dBm,
+    convolved signal), with -inf dBm where nothing was received."""
+    squeeze = impulse_response.ndim == 1
+    ir = impulse_response.reshape(-1, impulse_response.shape[-1]).to(torch.float32)
+    m, nbins = ir.shape
+    dev = ir.device
+    kern = _carrier(nbins, sample_window_s, carrier_hz, dev)
+    lo = (nbins - 1) // 2
+    j = torch.arange(nbins, device=dev)
+    out = torch.zeros((m, nbins), dtype=torch.float32, device=dev)
+    for r in range(m):
+        nz = torch.nonzero(ir[r]).flatten()
+        for s in range(0, nz.shape[0], _CONV_ROWS):
+            k = nz[s:s + _CONV_ROWS]
+            idx = j[None, :] + lo - k[:, None]
+            inside = (idx >= 0) & (idx < nbins)
+            taps = torch.where(inside, kern[idx.clamp(0, nbins - 1)], torch.zeros((), device=dev))
+            out[r] += (ir[r, k][:, None] * taps).sum(dim=0)
+    nzmask = out != 0.0
+    count = nzmask.sum(dim=1)
+    sq = torch.where(nzmask, out * out, torch.zeros((), device=dev)).sum(dim=1)
+    power = torch.where(count > 0, sq / count.clamp_min(1), torch.zeros((), device=dev))
+    dbm = torch.where(count > 0, to_dbm(power.clamp_min(1e-300)),
+                      torch.full_like(power, -math.inf))
+    if squeeze:
+        return dbm[0], out[0]
+    return dbm, out

@@ -1,0 +1,82 @@
+"""Where the time of one rfx_torch compute_cir request goes, on a CUDA card.
+
+Runs the bench workload (bench.py: 32,258-triangle terrain, 5,242,880
+Morton-ordered rays, 4 bounces, 20,000-bin IR) through
+rfx_torch.api.Tracer.compute_cir under torch.profiler and prints the device
+time by kernel, the device busy share of the profiled window, and the
+CUDA-event time of each request. Run from the root of a checkout:
+
+    python3 scripts/torch_profile_cir.py [--requests 5] [--trace out.json]
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--requests", type=int, default=5)
+    ap.add_argument("--trace", help="write a Chrome trace of the profiled window here")
+    a = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from rfx.geometry import make_terrain
+    from rfx_torch.api import Tracer
+    from rfx_torch.sampler import morton_sphere_directions
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    dev = torch.device("cuda", 0)
+    n = 5_242_880
+    tracer = Tracer(make_terrain(grid=128, extent=60.0, seed=0), max_bounces=4, tx_num_rays=n,
+                    device=dev)
+    dirs = morton_sphere_directions(n, generator=torch.Generator(dev).manual_seed(0),
+                                    device=dev)
+    rx = (-10.0, 0.0, 8.0)
+
+    def request(i):
+        return tracer.compute_cir((10.0, 0.0, 25.0 + i), 1.0, rx, 1.0, directions=dirs,
+                                  record_paths=False)
+
+    for i in range(2):  # build the kernels, warm up
+        request(i)
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(a.requests):
+            request(i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    print(events.table(sort_by="cuda_time_total", row_limit=15))
+    device_us = sum(e.self_device_time_total for e in events)
+    print(f"profiled window: {a.requests} requests, {wall_ms:.3f} ms host wall, "
+          f"{device_us / 1e3:.3f} ms device busy ({100 * device_us / 1e3 / wall_ms:.1f}%)")
+    if a.trace:
+        prof.export_chrome_trace(a.trace)
+
+    for i in range(a.requests):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        request(i)
+        end.record()
+        torch.cuda.synchronize()
+        print(f"request tx z={25.0 + i}: {start.elapsed_time(end):.4f} ms (CUDA events), "
+              f"{n / start.elapsed_time(end) / 1e3:.1f} Mrays/s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,113 @@
+"""rfx_torch.cir against rfx.cir on the same numpy inputs: hard and soft
+binning (the histogram's plain version, what a CPU tensor runs) against
+rfx.cir's scatter path, and the RX-power metric."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from oracle import OracleTracer, sample_sphere_directions
+from rfx import cir as jcir
+from rfx_torch import cir
+
+torch.set_num_threads(1)
+
+KW = dict(nbins=20_000, light_speed_mps=2.998e8, sample_rate_hz=100e9)
+
+
+def _paths(n=100_000, seed=17):
+    rng = np.random.default_rng(seed)
+    amp = rng.random(n).astype(np.float32)
+    # Up to 70 m: ~23,000 delay bins, so some paths fall outside the window.
+    dist = (rng.random(n) * 70.0).astype(np.float32)
+    cap = rng.random(n) < 0.3
+    return amp, dist, cap
+
+
+@pytest.mark.parametrize("soft", [False, True])
+def test_binning_matches_rfx_scatter(soft):
+    amp, dist, cap = _paths()
+    got = cir.bin_impulse_response(torch.from_numpy(amp), torch.from_numpy(dist),
+                                   torch.from_numpy(cap), soft=soft, **KW).numpy()
+    want = np.asarray(jcir.bin_impulse_response(jnp.asarray(amp), jnp.asarray(dist),
+                                                jnp.asarray(cap), soft=soft, method="scatter",
+                                                **KW))
+    assert got.shape == (20_000,) and got.dtype == np.float32
+    np.testing.assert_array_equal(got != 0, want != 0)  # identical bins
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_binning_truncates_and_drops_out_of_window():
+    c, rate = KW["light_speed_mps"], KW["sample_rate_hz"]
+    # delays 0.5, 1.99, 19999.5 (last bin), 20000.2 (dropped), -1 (dropped)
+    delays = np.array([0.5, 1.99, 19999.5, 20000.2, -1.0, 3.0])
+    dist = (delays / rate * c).astype(np.float32)
+    amp = np.array([1.0, 2.0, 3.0, 4.0, 5.0, 6.0], np.float32)
+    cap = np.array([True, True, True, True, True, False])
+    ir = cir.bin_impulse_response(torch.from_numpy(amp), torch.from_numpy(dist),
+                                  torch.from_numpy(cap), **KW).numpy()
+    assert ir[0] == 1.0 and ir[1] == 2.0 and ir[19999] == 3.0 and ir[3] == 0.0
+    assert ir.sum() == 6.0
+
+
+def test_cir_from_trace_scales_by_tx_power_over_rays():
+    from rfx_torch.tracer import TraceResult
+
+    amp, dist, cap = _paths(n=5000, seed=3)
+    res = TraceResult(torch.from_numpy(cap), torch.from_numpy(amp), torch.from_numpy(dist),
+                      torch.zeros(5000, dtype=torch.int32))
+    got = cir.cir_from_trace(res, tx_power=2.0, num_rays=5000, **KW).numpy()
+    from rfx.tracer import TraceResult as JTraceResult
+
+    jres = JTraceResult(jnp.asarray(cap), jnp.asarray(amp), jnp.asarray(dist),
+                        jnp.zeros(5000, jnp.int32))
+    want = np.asarray(jcir.cir_from_trace(jres, tx_power=2.0, num_rays=5000, method="scatter",
+                                          **KW))
+    np.testing.assert_array_equal(got != 0, want != 0)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-12)
+
+
+def test_histogram_checks_inputs():
+    amp, dist, cap = (torch.from_numpy(a) for a in _paths(n=10))
+    with pytest.raises(TypeError):
+        cir.histogram(amp.double(), dist, cap, **KW)
+    with pytest.raises(TypeError):
+        cir.histogram(amp, dist, cap.int(), **KW)
+    with pytest.raises(ValueError):
+        cir.histogram(amp, dist[:5], cap, **KW)
+    before = cir.HISTOGRAM_KERNEL.launches
+    cir.histogram(amp, dist, cap, **KW)
+    assert cir.HISTOGRAM_KERNEL.launches == before  # a CPU tensor runs the plain version
+
+
+def _oracle_ir(room, n_rays, seed):
+    dirs = sample_sphere_directions(n_rays, seed=seed)
+    tr = OracleTracer(room, 2.998e8, 100e9, 200e-9, 4)
+    _, ir = tr.compute_cir(np.array([10.0, 0.0, 5.0]), 1.0, np.array([-10.0, 0.0, 5.0]), 1.0,
+                           dirs)
+    return ir.astype(np.float32)
+
+
+def test_rx_power_dbm_matches_rfx(box_room):
+    ir = _oracle_ir(box_room, 4000, 5)
+    assert (ir != 0).sum() > 10
+    dbm, sig = cir.rx_power_dbm(torch.from_numpy(ir), 200e-9)
+    jdbm, jsig = jcir.rx_power_dbm(jnp.asarray(ir), 200e-9)
+    sig, jsig = sig.numpy(), np.asarray(jsig)
+    assert (sig != 0).sum() == (jsig != 0).sum()
+    np.testing.assert_allclose(sig, jsig, rtol=0, atol=1e-4 * np.abs(jsig).max())
+    assert abs(float(dbm) - float(jdbm)) < 1e-3
+
+
+def test_rx_power_dbm_batched_and_empty(box_room):
+    ir = _oracle_ir(box_room, 2000, 9)
+    batch = np.stack([ir, np.zeros_like(ir), ir * 0.5])
+    dbm, out = cir.rx_power_dbm(torch.from_numpy(batch), 200e-9)
+    jdbm, _ = jcir.rx_power_dbm(jnp.asarray(batch), 200e-9)
+    assert out.shape == batch.shape
+    assert dbm[1] == -np.inf and np.asarray(jdbm)[1] == -np.inf
+    np.testing.assert_allclose(dbm.numpy()[[0, 2]], np.asarray(jdbm)[[0, 2]], atol=1e-3)
+    # Half the amplitude is a quarter of the power: -6.02 dB.
+    assert float(dbm[0] - dbm[2]) == pytest.approx(20 * np.log10(2.0), abs=1e-3)

@@ -1,0 +1,44 @@
+"""rfx_torch never imports JAX: a fresh interpreter imports the port, runs a
+tiny CPU compute_cir through both backends, and finds no `jax` module."""
+
+import os
+import subprocess
+import sys
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SCRIPT = """
+import sys
+import torch
+torch.set_num_threads(1)
+import rfx_torch
+from rfx_torch import convert, sampler
+from rfx_torch.api import Tracer
+from rfx_torch.ops import fused
+from rfx.geometry import make_room, make_terrain
+dirs = sampler.morton_sphere_directions(512, generator=torch.Generator().manual_seed(0),
+                                        device="cpu")
+_, ir = Tracer(make_room(), max_bounces=2, tx_num_rays=512, device="cpu").compute_cir(
+    [10.0, 0.0, 5.0], 1.0, [-10.0, 0.0, 5.0], 2.0, directions=dirs, record_paths=False)
+tr = Tracer(make_terrain(grid=34, extent=30.0, seed=1), max_bounces=2, tx_num_rays=512,
+            device="cpu")
+assert tr.backend == "fused"
+_, ir2 = tr.compute_cir([0.0, 0.0, 9.0], 1.0, [3.0, 0.0, 6.0], 2.0, directions=dirs,
+                        record_paths=False)
+print(float(ir.sum()), float(ir2.sum()), tr.rx_power_dbm(ir2))
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+print("JAX_MODULES", bad)
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[-1] == "JAX_MODULES []", proc.stdout
+    ir_sum, ir2_sum = (float(x) for x in lines[-2].split()[:2])
+    assert ir_sum > 0 and ir2_sum > 0
