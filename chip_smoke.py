@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's forward CIR main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's forward CIR path and its gradient path once on
+one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card and the CUDA
 toolkit (nvcc):
@@ -10,7 +11,8 @@ Phases, each ending in torch.cuda.synchronize() so a fault shows where it
 happened, and none catching its own failure:
 
 1. the card's name and power limit (nvidia-smi);
-2. build both kernels from rfx_torch/csrc/ into build/rfx_torch/;
+2. build the three kernels from rfx_torch/csrc/ into build/rfx_torch/, one
+   nvcc each, all started together;
 3. the bench workload (bench.py): make_terrain(grid=128, extent=60, seed=0),
    32,258 triangles, 5,242,880 Morton-ordered rays, 4 bounces, a 20,000-bin
    IR, tx (10, 0, 25), rx (-10, 0, 8), rx radius 1.0;
@@ -21,12 +23,39 @@ happened, and none catching its own failure:
 5. the IR histogram kernel against its plain version on the full trace's
    outputs (rtol 1e-4, atol 1e-9, the same nonzero bins), hard and soft, and
    bit-identical across two runs;
-6. the main path: rfx_torch.api.Tracer(...).compute_cir answers three
+6. the forward path: rfx_torch.api.Tracer(...).compute_cir answers three
    requests, the tx raised by 1 m each time, and rx_power_dbm reads each IR.
-   Both kernels' launch counts are reset just before and must be > 0 after;
-   the first IR must equal phase 5's bit for bit.
+   The launch counts are reset just before and must be > 0 after; the first
+   IR must equal phase 5's bit for bit;
+7. the per-query closest-hit kernel against its plain version on the bench
+   scene: the 65,536 rays of phase 4 from tx, their reflected second-bounce
+   queries from the terrain, and 1,024 parked rays; identical t, indices,
+   faces and normals;
+8. the fused-trace kernel's face record against its plain version on the
+   phase-4 rays: identical face tables (and an unchanged trace);
+9. the gradient path at scripts/bench_gradients.py's width (2,621,440 Morton
+   rays, 4 bounces, 20,000 soft bins, loss sum(ir^2) * 1e12): d loss / d tx
+   through the scan tracer on the closest-hit kernel and through the
+   differentiable fused tracer; both finite and nonzero, capture flips
+   between them <= max(4, N/500), relative gradient difference < 0.06
+   (that script's bars, :95-112); CUDA-event times and peak memory;
+10. the gradient checks of tests/test_tpu_compiled.py:170-376 on the card:
+    room vertex FD through differentiable-tris closest hit (8%), room tx FD
+    on a linear loss (8%), room soft-IR tx gradient kernel vs brute (3%),
+    terrain n1 FD (5%), differentiable-tris vs baked n1 (2%), terrain vertex
+    gradient differentiable-tris vs the brute intersector's backward (2% of
+    the norm);
+11. five steps of the inverse solve: the terrain, 1,048,576 Morton rays,
+    4 bounces, 64 receivers on an 8x8 grid at z = 8 over x, y in [-20, 20],
+    radius 1.0, 20,000 bins at 100 GHz, target energies from tx (10, 0, 25),
+    start (12, -2, 26), lr 0.05: finite losses, finite nonzero gradients,
+    parameters that moved;
+12. the facade: compute_cir(record_paths=True) at 262,144 rays through the
+    closest-hit kernel (paths start at tx, captures within the flip budget
+    of the fused kernel's), and compute_coverage of 16 receivers.
+The launch counts are reset before phase 9 and must be > 0 after phase 12.
 
-Prints CUDA-event times of both kernels beside their plain versions, one JSON
+Prints CUDA-event times of the kernels beside their plain versions, one JSON
 line of the kernels, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, where CUDA is unavailable or the port's
@@ -40,6 +69,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 N_RAYS = 5_242_880
 SUBSET = 65_536
@@ -51,6 +81,9 @@ C = 2.998e8
 RATE = 100e9
 WINDOW = 200e-9
 NBINS = int(WINDOW * RATE)
+GRAD_RAYS = 2_621_440
+SOLVER_RAYS = 1_048_576
+FACADE_RAYS = 262_144
 
 
 def _sync():
@@ -78,6 +111,337 @@ def _require(cond: bool, what: str):
         raise AssertionError(what)
 
 
+def _flip_budget(n: int) -> int:
+    return max(4, n // 500)
+
+
+def _closest_hit_phase(bvh, sub):
+    """Phase 7: the closest-hit kernel against its plain version on three
+    query sets; returns (max |error|, kernel ms, plain ms) on the tx set."""
+    import torch
+
+    from rfx_torch.ops import bvh_trace
+    from rfx_torch.ops.intersect import dot3
+
+    dev = sub.device
+    o1 = torch.tensor(TX, device=dev).expand(sub.shape[0], 3).contiguous()
+    t1, _, _, n1 = bvh_trace.closest_hit_plain(bvh, o1, sub)
+    hit = t1 < 1e29
+    o2 = (o1 + sub * t1[:, None])[hit].contiguous()
+    d2 = (sub - 2.0 * dot3(sub, n1)[:, None] * n1)[hit].contiguous()
+    parked = torch.full((1024, 3), 1e9, device=dev)
+    sets = {"tx": (o1, sub), "bounce2": (o2, d2), "parked": (parked, sub[:1024].contiguous())}
+    err = 0.0
+    for name, (o, d) in sets.items():
+        k = bvh_trace.closest_hit(bvh, o, d)
+        p = bvh_trace.closest_hit_plain(bvh, o, d)
+        _sync()
+        for what, a, b in zip(("t", "idx", "face", "nrm"), k, p):
+            _require(torch.equal(a, b), f"closest hit, {name} rays: {what} differs from plain")
+        err = max(err, float((k[0] - p[0]).abs().max()), float((k[3] - p[3]).abs().max()))
+        n_hit = int((k[1] >= 0).sum())
+        _require(n_hit == 0 if name == "parked" else n_hit > 0, f"closest hit, {name}: {n_hit} hits")
+        print(f"# closest hit, {o.shape[0]} {name} rays: kernel == plain ({n_hit} hits)")
+    ms = _cuda_ms(lambda: bvh_trace.closest_hit(bvh, o1, sub), 20)
+    plain_ms = _cuda_ms(lambda: bvh_trace.closest_hit_plain(bvh, o1, sub), 1)
+    print(f"# closest hit, {sub.shape[0]} rays from tx: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms",
+          flush=True)
+    return err, ms, plain_ms
+
+
+def _gradient_phase(mesh, flat, bvh, dev):
+    """Phase 9: d loss / d tx through both differentiation paths at full
+    width; returns a dict of what it measured."""
+    import numpy as np
+    import torch
+
+    from rfx_torch.cir import cir_from_trace
+    from rfx_torch.ops.bvh_trace import make_kernel_env_hit
+    from rfx_torch.ops.fused import make_diff_fused_tracer
+    from rfx_torch.sampler import morton_sphere_directions
+    from rfx_torch.tracer import Scene, trace_to_rx
+
+    scene = Scene.from_mesh(mesh, dev)
+    dirs = morton_sphere_directions(GRAD_RAYS, generator=torch.Generator(dev).manual_seed(0),
+                                    device=dev)
+    env = make_kernel_env_hit(bvh)
+    dt = make_diff_fused_tracer(flat, scene.faces, max_bounces=BOUNCES, device=dev)
+
+    def ir_loss(r):
+        ir = cir_from_trace(r, tx_power=1.0, num_rays=GRAD_RAYS, nbins=NBINS, light_speed_mps=C,
+                            sample_rate_hz=RATE, soft=True)
+        return torch.sum(ir * ir) * 1e12
+
+    traces = {
+        "scan": lambda txp: trace_to_rx(scene, txp, dirs, RX, RX_RADIUS, max_bounces=BOUNCES,
+                                        rx_mode="analytic", env_hit=env),
+        "fused": lambda txp: dt(scene.vertices, txp, dirs, RX, RX_RADIUS),
+    }
+    out = {}
+    for name, trace in traces.items():
+        tx_c = torch.tensor(TX, device=dev)
+        with torch.no_grad():
+            ir_loss(trace(tx_c))  # warm-up
+            fwd_ms = _cuda_ms(lambda: ir_loss(trace(tx_c)), 3)
+
+        def valgrad():
+            tx = torch.tensor(TX, device=dev, requires_grad=True)
+            loss = ir_loss(trace(tx))
+            loss.backward()
+            return loss.detach(), tx.grad
+
+        valgrad()
+        _sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+        vg_ms = _cuda_ms(valgrad, 3)
+        peak = torch.cuda.max_memory_allocated(dev)
+        loss, grad = valgrad()
+        with torch.no_grad():
+            captured = trace(tx_c).captured
+        _sync()
+        g = grad.cpu().numpy()
+        _require(np.all(np.isfinite(g)) and np.abs(g).sum() > 0, f"{name} gradient {g}")
+        out[name] = dict(forward_ms=fwd_ms, valgrad_ms=vg_ms, peak_bytes=peak,
+                         loss=float(loss), grad=g, captured=captured)
+        print(f"# gradient path {name}, {GRAD_RAYS} rays: loss {float(loss):.6e}, d/d tx {g}; "
+              f"forward {fwd_ms:.3f} ms, value+grad {vg_ms:.3f} ms "
+              f"({GRAD_RAYS / vg_ms / 1e3:.2f} Mrays/s), peak {peak / 2**30:.3f} GiB", flush=True)
+    g_s, g_f = out["scan"]["grad"], out["fused"]["grad"]
+    rel = float((np.abs(g_f - g_s) / np.maximum(np.abs(g_s), 1e-3)).max())
+    flips = int((out["scan"]["captured"] != out["fused"]["captured"]).sum())
+    n_cap = int(out["scan"]["captured"].sum())
+    print(f"# gradient path: scan vs fused max rel diff {rel:.5f} (< 0.06), capture flips "
+          f"{flips} of {n_cap} captures (<= {_flip_budget(GRAD_RAYS)})", flush=True)
+    _require(flips <= _flip_budget(GRAD_RAYS), f"{flips} capture flips")
+    _require(rel < 0.06, f"fused vs scan gradients {g_f} vs {g_s}")
+    for v in out.values():
+        del v["captured"]
+    out["rel_diff"], out["flips"], out["captured"] = rel, flips, n_cap
+    return out
+
+
+def _fd_phase(terrain, terrain_bvh, dev):
+    """Phase 10: the FD and cross-implementation gradient checks of
+    tests/test_tpu_compiled.py:170-376, on the same direction sets (the
+    oracle's numpy sampler)."""
+    import numpy as np
+    import torch
+
+    from oracle import sample_sphere_directions
+    from rfx.geometry import make_room
+    from rfx_torch.cir import cir_from_trace
+    from rfx_torch.ops.bvh_trace import make_kernel_env_hit
+    from rfx_torch.ops.intersect import make_env_intersector
+    from rfx_torch.tracer import Scene, trace_to_rx
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def grad_of(f, x):
+        x = x.detach().clone().requires_grad_()
+        f(x).backward()
+        return x.grad
+
+    def value(f, x):
+        with torch.no_grad():
+            return float(f(x))
+
+    def check(cond, what):
+        _require(cond, what)
+        print(f"# FD check: {what}", flush=True)
+
+    room = make_room()
+    scene = Scene.from_mesh(room, dev)
+    dirs = t(sample_sphere_directions(2048, seed=21))
+    tx0, rxp = t([4.0, 3.0, 6.0]), t([-6.0, -4.0, 5.0])
+    env_dt = make_env_intersector("kernel", mesh=room, differentiable_tris=True, device=dev)
+    env_nd = make_kernel_env_hit(env_dt.bvh)
+
+    def trace(env, scn=scene, txp=tx0):
+        return trace_to_rx(scn, txp, dirs, rxp, 2.0, max_bounces=2, rx_mode="analytic",
+                           env_hit=env)
+
+    def loss_v(v):
+        r = trace(env_dt, Scene(v, scene.faces))
+        return torch.where(r.captured, r.amplitude * r.distance, 0.0).sum()
+
+    v0 = scene.vertices
+    g = grad_of(loss_v, v0)
+    _require(bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0, "room vertex grad")
+    u = t(np.random.default_rng(5).normal(size=v0.shape))
+    u = u / torch.linalg.norm(u)
+    fd = (value(loss_v, v0 + 2e-3 * u) - value(loss_v, v0 - 2e-3 * u)) / 4e-3
+    ad = float((g * u).sum())
+    check(abs(ad - fd) < 0.08 * max(abs(fd), abs(ad), 1e-3),
+          f"room vertex grad, differentiable-tris closest hit: ad {ad:.6g} fd {fd:.6g} (8%)")
+
+    rngw = np.random.default_rng(7)
+    w, uw = t(rngw.normal(size=2048)), t(rngw.normal(size=2048))
+
+    def loss_smooth(txp):
+        r = trace(env_nd, txp=txp)
+        return (r.captured.float() * (w * r.distance + 10.0 * uw * r.amplitude)).sum()
+
+    gtx = grad_of(loss_smooth, tx0)
+    for a in range(3):
+        e = torch.zeros(3, device=dev)
+        e[a] = 1e-3
+        fd = (value(loss_smooth, tx0 + e) - value(loss_smooth, tx0 - e)) / 2e-3
+        ga = float(gtx[a])
+        check(abs(ga - fd) < 0.08 * max(abs(fd), abs(ga), 1e-3),
+              f"room tx grad axis {a}, linear loss: ad {ga:.6g} fd {fd:.6g} (8%)")
+
+    def loss_ir(env):
+        def f(txp):
+            ir = cir_from_trace(trace(env, txp=txp), tx_power=5.0, num_rays=2048, nbins=512,
+                                light_speed_mps=C, sample_rate_hz=10e9, soft=True)
+            return torch.sum(ir * ir) * 1e12
+        return f
+
+    g_k = grad_of(loss_ir(env_nd), tx0).cpu().numpy()
+    g_b = grad_of(loss_ir(make_env_intersector("brute")), tx0).cpu().numpy()
+    rel = float((np.abs(g_k - g_b) / np.maximum(np.abs(g_b), 1e-3)).max())
+    check(np.all(np.isfinite(g_k)) and rel < 0.03,
+          f"room soft-IR tx grad, closest hit vs brute: {g_k} vs {g_b}, rel {rel:.5f} (3%)")
+
+    tscene = Scene.from_mesh(terrain, dev)
+    tdirs = t(sample_sphere_directions(16384, seed=33))
+    ttx, trx = t([10.0, 0.0, 25.0]), t([-10.0, 0.0, 8.0])
+    env_t_nd = make_kernel_env_hit(terrain_bvh)
+    env_t_dt = make_kernel_env_hit(terrain_bvh, differentiable_tris=True)
+
+    def ttrace(env, scn=tscene, n1=5.0):
+        return trace_to_rx(scn, ttx, tdirs, trx, 1.5, max_bounces=3, rx_mode="analytic",
+                           env_hit=env, n1=n1)
+
+    def loss_n1(env):
+        def f(n1):
+            r = ttrace(env, n1=n1)
+            return torch.where(r.captured, r.amplitude, 0.0).sum() * 1e3
+        return f
+
+    five = t(5.0)
+    g_n1 = float(grad_of(loss_n1(env_t_nd), five))
+    fd = (value(loss_n1(env_t_nd), five + 1e-2) - value(loss_n1(env_t_nd), five - 1e-2)) / 2e-2
+    check(np.isfinite(g_n1) and g_n1 != 0.0 and abs(g_n1 - fd) < 0.05 * max(abs(fd), 1e-6),
+          f"terrain n1 grad: ad {g_n1:.6g} fd {fd:.6g} (5%)")
+    g_n1_dt = float(grad_of(loss_n1(env_t_dt), five))
+    check(np.isfinite(g_n1_dt) and abs(g_n1_dt - g_n1) < 0.02 * max(abs(g_n1), 1e-6),
+          f"terrain n1 grad, differentiable-tris {g_n1_dt:.6g} vs baked {g_n1:.6g} (2%)")
+
+    wt = t(np.random.default_rng(11).normal(size=16384))
+
+    def loss_vt(env):
+        def f(v):
+            r = ttrace(env, Scene(v, tscene.faces))
+            return (r.captured.float() * (wt * r.distance + 10.0 * r.amplitude)).sum()
+        return f
+
+    g_v = grad_of(loss_vt(env_t_dt), tscene.vertices)
+    g_ref = grad_of(loss_vt(make_env_intersector("brute")), tscene.vertices)
+    num, den = float(torch.linalg.norm(g_v - g_ref)), float(torch.linalg.norm(g_ref))
+    check(bool(torch.isfinite(g_v).all()) and float(g_v.abs().sum()) > 0 and num < 0.02 * den,
+          f"terrain vertex grad, differentiable-tris closest hit vs brute backward: "
+          f"|diff| {num:.6g}, |ref| {den:.6g} (2%)")
+
+
+def _solver_phase(mesh, bvh, dev):
+    """Phase 11: five steps of the inverse solve; returns what it measured."""
+    import numpy as np
+    import torch
+
+    from rfx_torch.coverage import make_grid
+    from rfx_torch.ops.bvh_trace import make_kernel_env_hit
+    from rfx_torch.sampler import morton_sphere_directions
+    from rfx_torch.solver import coverage_irs_soft, make_inverse_solver
+    from rfx_torch.tracer import Scene
+
+    scene = Scene.from_mesh(mesh, dev)
+    dirs = morton_sphere_directions(SOLVER_RAYS, generator=torch.Generator(dev).manual_seed(1),
+                                    device=dev)
+    axis = np.linspace(-20.0, 20.0, 8)
+    centers = torch.as_tensor(make_grid(axis, axis, [8.0]), device=dev)
+    env = make_kernel_env_hit(bvh)
+    kw = dict(max_bounces=BOUNCES, nbins=NBINS, light_speed_mps=C, sample_rate_hz=RATE)
+    with torch.no_grad():
+        irs = coverage_irs_soft(scene.vertices, scene.faces, torch.tensor(TX, device=dev), 5.0,
+                                dirs, centers, 1.0, num_rays=SOLVER_RAYS, env_hit=env, **kw)
+        target = torch.sum(irs * irs, dim=1)
+    _sync()
+    n_lit = int((target > 0).sum())
+    _require(bool(torch.isfinite(target).all()) and n_lit > 0, "solver target is empty")
+    init_fn, step_fn = make_inverse_solver(scene, dirs, centers, 1.0, target, learning_rate=0.05,
+                                           env_hit=env, **kw)
+    params, opt = init_fn([12.0, -2.0, 26.0])
+    leaves = list(params[:2])
+    start = [p.detach().double().cpu() for p in leaves]
+    adam_total = [torch.zeros_like(s) for s in start]  # Adam's own steps, in f64
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_ms = [], []
+    for _ in range(5):
+        h0 = time.perf_counter()
+        params, opt, loss = step_fn(params, opt)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - h0) * 1e3)
+        for k, p in enumerate(leaves):
+            st = opt.state[p]
+            n = float(st["step"])
+            m = st["exp_avg"].double().cpu() / (1 - 0.9 ** n)
+            v = st["exp_avg_sq"].double().cpu() / (1 - 0.999 ** n)
+            adam_total[k] -= 0.05 * m / (v.sqrt() + 1e-8)
+    peak = torch.cuda.max_memory_allocated(dev)
+    grads = [p.grad.cpu().numpy() for p in leaves]
+    _require(all(np.isfinite(losses)), f"solver losses {losses}")
+    for name, g in zip(("tx", "log_n1"), grads):
+        _require(np.all(np.isfinite(g)) and np.abs(g).sum() > 0, f"solver {name} grad {g}")
+    # The parameters moved by Adam's steps, to f32 resolution: the loss of
+    # rfx/solver.py scales as (1/N)^4, so at 1M rays its gradients are tiny
+    # and Adam's eps (1e-8) can shrink a step below an f32 ulp.
+    moved = [p.detach().double().cpu() - s for p, s in zip(leaves, start)]
+    for name, mv, want, s in zip(("tx", "log_n1"), moved, adam_total, start):
+        ulp = torch.as_tensor(np.spacing(np.abs(s.numpy()).astype(np.float32)), dtype=torch.float64)
+        _require(bool(((mv - want).abs() <= 5 * ulp).all()),
+                 f"solver {name} moved {mv.numpy()}, Adam's steps sum to {want.numpy()}")
+    moved_max = [float(mv.abs().max()) for mv in moved]
+    adam_max = [float(w.abs().max()) for w in adam_total]
+    print(f"# inverse solve, {SOLVER_RAYS} rays x {centers.shape[0]} receivers ({n_lit} lit): "
+          f"losses {losses}; ms per step {[round(x, 3) for x in step_ms]}; tx "
+          f"{params.tx_pos.detach().cpu().numpy()}, n1 {float(params.log_n1.detach().exp()):.6f}; "
+          f"last grads tx {grads[0]}, log_n1 {grads[1]}; max |moved| tx {moved_max[0]:.6g}, "
+          f"log_n1 {moved_max[1]:.6g} (Adam's steps {adam_max[0]:.6g}, {adam_max[1]:.6g}); "
+          f"peak {peak / 2**30:.3f} GiB", flush=True)
+    return dict(losses=losses, step_ms=step_ms, peak_bytes=peak, moved_max=moved_max,
+                adam_step_max=adam_max)
+
+
+def _facade_phase(mesh, dirs, dev):
+    """Phase 12: recorded paths and coverage through the facade."""
+    import numpy as np
+
+    from rfx_torch.api import Tracer
+    from rfx_torch.coverage import make_grid
+
+    tracer = Tracer(mesh, C, RATE, WINDOW, max_bounces=BOUNCES, tx_num_rays=FACADE_RAYS,
+                    device=dev)
+    d = dirs[:: dirs.shape[0] // FACADE_RAYS].contiguous()
+    paths, ir = tracer.compute_cir(TX, 1.0, RX, RX_RADIUS, directions=d, record_paths=True)
+    n_fused = int(tracer._fused(d, TX, RX, RX_RADIUS).captured.sum())
+    _sync()
+    _require(len(paths) > 0 and all(np.allclose(p[0], TX) for p in paths),
+             "recorded paths do not start at tx")
+    _require(abs(len(paths) - n_fused) <= _flip_budget(FACADE_RAYS),
+             f"{len(paths)} recorded paths vs {n_fused} fused captures")
+    _require(ir.shape == (NBINS,) and np.all(np.isfinite(ir)) and ir.sum() > 0, "paths IR")
+    centers = make_grid([-12.0, -4.0, 4.0, 12.0], [-12.0, -4.0, 4.0, 12.0], [8.0])
+    irs = tracer.compute_coverage(TX, 1.0, centers, 2.0, directions=d)
+    _sync()
+    _require(irs.shape == (16, NBINS) and np.all(np.isfinite(irs)) and irs.sum() > 0,
+             "coverage IRs")
+    print(f"# facade, {FACADE_RAYS} rays: {len(paths)} recorded paths from tx (fused kernel: "
+          f"{n_fused} captures); coverage of 16 receivers, {int((irs.sum(axis=1) > 0).sum())} "
+          f"lit, IR sums {float(irs.sum()):.6e}", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -92,6 +456,7 @@ def main() -> int:
     from rfx.geometry import make_terrain
     from rfx_torch import cir
     from rfx_torch.api import Tracer
+    from rfx_torch.ops.bvh_trace import CLOSEST_HIT_KERNEL
     from rfx_torch.ops.fused import FUSED_TRACE_KERNEL, FusedTracer, fused_trace, fused_trace_plain
     from rfx_torch.sampler import morton_sphere_directions
 
@@ -108,10 +473,13 @@ def main() -> int:
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     print(card, flush=True)
 
-    # 2. Build both kernels from the sources in this checkout.
+    # 2. Build the three kernels from the sources in this checkout, one nvcc
+    #    each, all started together.
     t0 = time.perf_counter()
-    for k in (FUSED_TRACE_KERNEL, cir.HISTOGRAM_KERNEL):
-        k.load()
+    kernels_built = (FUSED_TRACE_KERNEL, CLOSEST_HIT_KERNEL, cir.HISTOGRAM_KERNEL)
+    with ThreadPoolExecutor(len(kernels_built)) as pool:
+        list(pool.map(lambda k: k.load(), kernels_built))
+    for k in kernels_built:
         print(f"# built {k.source}: {k.build_log.strip()}")
     print(f"# kernel build: {time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -217,18 +585,68 @@ def main() -> int:
               f"{host_s * 1e3:.3f} ms host, {N_RAYS / host_s / 1e6:.2f} Mrays/s")
     print(f"# main path: captures {n_cap} at tx={TX}; launches {launches}", flush=True)
 
+    # 7. The closest-hit kernel against its plain version.
+    k2_err, k2_ms, k2_plain_ms = _closest_hit_phase(bvh, sub)
+
+    # 8. The fused kernel's face record against its plain version.
+    k_res, k_faces = fused_trace(bvh, sub, *args, max_bounces=BOUNCES, record_faces=True)
+    p_res, p_faces = fused_trace_plain(bvh, sub, *args, max_bounces=BOUNCES, record_faces=True)
+    _sync()
+    _require(torch.equal(k_faces, p_faces), "fused trace: face records differ from plain")
+    for a, b in zip(k_res[:4], k_out[:4]):
+        _require(torch.equal(a, b), "the face record changed the fused trace")
+    _require(torch.equal((k_faces >= 0).sum(0).int(), k_res.num_bounces),
+             "face record and bounce counts disagree")
+    k1_faces_ms = _cuda_ms(lambda: fused_trace(bvh, sub, *args, max_bounces=BOUNCES,
+                                               record_faces=True), 20)
+    fused_trace(bvh, dirs, *args, max_bounces=BOUNCES, record_faces=True)  # warm-up: allocates
+    k1_faces_ms_full = _cuda_ms(lambda: fused_trace(bvh, dirs, *args, max_bounces=BOUNCES,
+                                                    record_faces=True), 10)
+    print(f"# fused trace face record, {SUBSET} rays: kernel == plain "
+          f"({int((k_faces >= 0).sum())} bounces recorded); kernel {k1_faces_ms:.4f} ms, "
+          f"{N_RAYS} rays {k1_faces_ms_full:.4f} ms", flush=True)
+    del full, k_res, p_res, k_faces, p_faces
+    torch.cuda.empty_cache()
+
+    # 9-12. The gradient path, its checks, the inverse solve and the facade.
+    for k in kernels_built:
+        k.launches = 0
+    grad = _gradient_phase(mesh, flat, bvh, dev)
+    _fd_phase(mesh, bvh, dev)
+    solve = _solver_phase(mesh, bvh, dev)
+    _facade_phase(mesh, dirs, dev)
+    grad_launches = {k.source: k.launches for k in kernels_built}
+    _require(all(v > 0 for v in grad_launches.values()),
+             f"a kernel did not run on the gradient path: {grad_launches}")
+    print(f"# gradient path launches {grad_launches}", flush=True)
+
     kernels = [
         {"name": "fused_trace", "route": "cuda", "source": "rfx_torch/csrc/fused_trace.cu",
-         "replaces": "rfx/ops/pallas_fused.py:62", "launches": launches["fused_trace"],
+         "replaces": "rfx/ops/pallas_fused.py:62", "launches": grad_launches["fused_trace.cu"],
+         "launches_forward_path": launches["fused_trace"],
          "max_abs_err": max(amp_err, dist_err), "ms": k1_ms_sub, "plain_ms": k1_plain_ms_sub,
-         "ms_full": k1_ms_full,
-         "shape": f"ms, plain_ms: {SUBSET} rays; ms_full: {N_RAYS} rays; {BOUNCES} bounces"},
+         "ms_full": k1_ms_full, "ms_record_faces": k1_faces_ms,
+         "ms_record_faces_full": k1_faces_ms_full,
+         "shape": f"ms, plain_ms, ms_record_faces: {SUBSET} rays; *_full: {N_RAYS} rays; "
+                  f"{BOUNCES} bounces; face records identical to plain"},
+        {"name": "closest_hit", "route": "cuda", "source": "rfx_torch/csrc/closest_hit.cu",
+         "replaces": "rfx/ops/pallas_trace.py:100", "launches": grad_launches["closest_hit.cu"],
+         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "shape": f"{SUBSET} rays from tx; also checked on their second-bounce queries and "
+                  f"1,024 parked rays"},
         {"name": "ir_histogram", "route": "cuda", "source": "rfx_torch/csrc/histogram.cu",
-         "replaces": "rfx/cir.py:32", "launches": launches["ir_histogram"],
+         "replaces": "rfx/cir.py:32", "launches": grad_launches["histogram.cu"],
+         "launches_forward_path": launches["ir_histogram"],
          "max_abs_err": ir_err, "ms": kh_ms, "plain_ms": kh_plain_ms,
          "shape": f"{N_RAYS} rays, {NBINS} bins, hard"},
     ]
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"gradient_path": {
+        "rays": GRAD_RAYS, "rel_diff": grad["rel_diff"], "flips": grad["flips"],
+        "captured": grad["captured"],
+        **{f"{p}_{k}": grad[p][k] for p in ("scan", "fused")
+           for k in ("forward_ms", "valgrad_ms", "peak_bytes")}},
+        "solver": {"rays": SOLVER_RAYS, "receivers": 64, **solve}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

@@ -6,7 +6,10 @@ never `jax`; host code that is plain numpy (`rfx.geometry`,
 from `rfx`, not copied.
 
 Every public entry point takes `device=` (default `"cuda"`). On a CUDA tensor
-the two kernels of the forward CIR path run (rfx_torch/csrc/*.cu, built with
-nvcc on first use); on a CPU tensor their plain PyTorch versions run. Asking
-for CUDA where there is no card raises.
+the three kernels run (rfx_torch/csrc/*.cu, built with nvcc on first use):
+the fused bounce loop, the per-query closest hit and the IR histogram; on a
+CPU tensor their plain PyTorch versions run. Asking for CUDA where there is
+no card raises. Gradients flow through the scan tracer (`tracer.py`), the
+differentiable fused tracer (`ops/fused.py`), the coverage engine
+(`coverage.py`) and the inverse solver (`solver.py`).
 """

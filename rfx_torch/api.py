@@ -1,12 +1,16 @@
 """User-facing facade (port of rfx/api.py): the reference's `Tracer` call
 shape, `Tracer(mesh, c, rate, window, max_bounces, n_rays)` then
-`compute_cir(tx_pos, tx_power, rx_pos, rx_radius) -> (paths, ir)`, on an
-explicit device.
+`compute_cir(tx_pos, tx_power, rx_pos, rx_radius) -> (paths, ir)` and
+`compute_coverage(...) -> (M, nbins)`, on an explicit device.
 
 Backends: `brute` (all-triangle Moller-Trumbore, rfx_torch.tracer) and
-`fused` (the fused bounce-loop kernel, rfx_torch.ops.fused); `auto` takes
-`brute` up to 2048 triangles and `fused` above, as the JAX facade does on an
-accelerator.
+`fused`; `auto` takes `brute` up to 2048 triangles and `fused` above, as the
+JAX facade does on an accelerator. The fused backend builds one BVH and one
+packing for two kernels: the fused bounce-loop kernel
+(rfx_torch.ops.fused) answers `compute_cir` with the analytic receiver and
+no recorded paths; the per-query BVH kernel (rfx_torch.ops.bvh_trace), under
+the scan tracer, answers recorded paths, the icosphere receiver and
+coverage, as rfx/api.py:222-244 does with its `pallas` backend.
 """
 
 from __future__ import annotations
@@ -16,12 +20,17 @@ import time
 import numpy as np
 import torch
 
+from rfx.bvh import build_bvh
 from rfx.geometry import TriangleMesh
 from rfx.utils.logging import get_logger, log_trace_stats
 from rfx_torch import cir as cir_mod
 from rfx_torch import sampler
+from rfx_torch.coverage import coverage_irs
 from rfx_torch.device import resolve_device
-from rfx_torch.ops.fused import make_fused_tracer
+from rfx_torch.ops.bvh_pack import pack_bvh
+from rfx_torch.ops.bvh_trace import make_kernel_env_hit
+from rfx_torch.ops.fused import FusedTracer
+from rfx_torch.ops.intersect import make_env_intersector
 from rfx_torch.tracer import Scene, extract_paths, trace_to_rx
 
 __all__ = ["Tracer"]
@@ -78,17 +87,21 @@ class Tracer:
                 "(ROADMAP A8)")
         if backend not in ("brute", "fused"):
             raise ValueError(f"unknown backend: {backend}")
-        if backend == "fused" and rx_mode != "analytic":
-            # The fused kernel bakes in the analytic sphere; the JAX facade
-            # serves the icosphere receiver on large meshes through the
-            # per-query BVH kernel.
-            raise NotImplementedError(
-                "rx_mode='icosphere' on a fused-backend mesh needs the per-query BVH "
-                "kernel, which is not ported yet (ROADMAP B3)")
         self.backend = backend
-        self._fused = (make_fused_tracer(environment, max_bounces=self.max_bounces,
-                                         device=self.device)
-                       if backend == "fused" else None)
+        self._fused = None
+        if backend == "brute":
+            self.env_hit = make_env_intersector("brute")
+        else:
+            flat = build_bvh(environment, leaf_size=8, method="numpy")
+            if rx_mode == "analytic":
+                # The fused kernel bakes in the analytic sphere; the
+                # per-query kernel shares its packed tables.
+                self._fused = FusedTracer(flat, max_bounces=self.max_bounces,
+                                          device=self.device)
+                bvh = self._fused.bvh
+            else:
+                bvh = pack_bvh(flat, self.device)
+            self.env_hit = make_kernel_env_hit(bvh)
 
     def _directions(self, directions) -> torch.Tensor:
         if directions is None:
@@ -108,23 +121,21 @@ class Tracer:
 
         `directions` is an optional (N, 3) array; by default tx_num_rays
         fresh directions come from this tracer's generator. record_paths
-        "auto" records paths for batches of at most AUTO_PATHS_MAX_RAYS rays;
-        on the fused backend recording paths needs the per-query BVH kernel
-        (ROADMAP B3) and raises NotImplementedError."""
+        "auto" records paths for batches of at most AUTO_PATHS_MAX_RAYS rays.
+        The fused kernel answers only the analytic receiver without recorded
+        paths; everything else runs the scan tracer on this tracer's
+        `env_hit`."""
         t0 = time.perf_counter()
         dirs = self._directions(directions)
         if record_paths == "auto":
             record_paths = dirs.shape[0] <= self.AUTO_PATHS_MAX_RAYS
-        if self._fused is not None:
-            if record_paths:
-                raise NotImplementedError(
-                    "record_paths on a fused-backend mesh needs the per-query BVH kernel, "
-                    "which is not ported yet (ROADMAP B3); pass record_paths=False")
+        if self._fused is not None and not record_paths:
             result = self._fused(dirs, tx_pos, rx_pos, rx_radius, n1=self.n1, n2=self.n2)
         else:
             result = trace_to_rx(self.scene, tx_pos, dirs, rx_pos, rx_radius,
                                  max_bounces=self.max_bounces, n1=self.n1, n2=self.n2,
-                                 rx_mode=self.rx_mode, record_paths=bool(record_paths))
+                                 rx_mode=self.rx_mode, env_hit=self.env_hit,
+                                 record_paths=bool(record_paths))
         ir = self._cir(result, tx_power).cpu().numpy()
         log_trace_stats(self.log, n_rays=int(dirs.shape[0]), bounces=self.max_bounces,
                         captured=int(result.captured.sum()),
@@ -133,11 +144,24 @@ class Tracer:
                  if record_paths else [])
         return paths, ir
 
-    def compute_coverage(self, *args, **kwargs):
-        raise NotImplementedError("coverage is not ported yet (ROADMAP A9)")
+    def compute_coverage(self, tx_pos, tx_power, rx_centers, rx_radius, *, directions=None,
+                         rx_batch: int = 64):
+        """(M, nbins) numpy impulse responses for M receivers from one env
+        trace (rfx/api.py:246-279), through the map engine on this tracer's
+        `env_hit` and rx_mode."""
+        dirs = self._directions(directions)
+        irs = coverage_irs(
+            self.scene, tx_pos, dirs, rx_centers, rx_radius, max_bounces=self.max_bounces,
+            nbins=self.nbins, num_rays=self.tx_num_rays, light_speed_mps=self.light_speed_mps,
+            sample_rate_hz=self.sample_rate_hz, tx_power=tx_power, n1=self.n1, n2=self.n2,
+            rx_batch=rx_batch, env_hit=self.env_hit, rx_mode=self.rx_mode)
+        return irs.cpu().numpy()
 
-    compute_coverage_dbm_fast = compute_coverage
-    compute_coverage_dbm_hybrid = compute_coverage
+    def compute_coverage_dbm_fast(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the phasor coverage metric is not ported yet (ROADMAP A9)")
+
+    compute_coverage_dbm_hybrid = compute_coverage_dbm_fast
 
     def rx_power_dbm(self, impulse_response, carrier_hz: float = 2.4e9):
         """Reference RX-power metric (ref main.py:46-55), as numpy."""

@@ -5,6 +5,12 @@
 `histogram_plain` (a masked `index_add_`), on a CPU tensor. Soft binning is
 two hard histograms, the low and the high half, through the same kernel.
 
+Both branches go through one `torch.autograd.Function`, so the IR carries
+the same gradient on either device: the backward is plain PyTorch (the
+reference's gradient is XLA's autodiff of the binning, not a kernel) and
+reads back the bins the forward used. Hard binning is piecewise constant in
+the distance; soft binning is linear in it between bin centres.
+
 `rx_power_dbm` is a direct convolution, so exact zeros stay zero: the metric
 averages over the nonzero samples only, and an FFT would fill them with
 roundoff.
@@ -71,15 +77,10 @@ def histogram_plain(amplitude, distance, captured, *, nbins: int, light_speed_mp
     return ir.index_add_(0, bins[valid].long(), w[valid])
 
 
-def histogram(amplitude, distance, captured, *, nbins: int, light_speed_mps: float,
-              sample_rate_hz: float, mode: int = HARD) -> torch.Tensor:
-    """Weighted histogram of captured paths into delay bins, (nbins,) f32.
-
-    A CPU tensor goes to `histogram_plain`; a CUDA tensor launches the
-    kernel, which is bit-identical from run to run."""
-    _check_inputs(amplitude, distance, captured)
-    if nbins < 1:
-        raise ValueError("nbins must be at least 1")
+def _launch(amplitude, distance, captured, *, nbins: int, light_speed_mps: float,
+            sample_rate_hz: float, mode: int) -> torch.Tensor:
+    """One histogram of `mode`: the kernel on a CUDA tensor, the plain
+    version on a CPU tensor; no autograd."""
     dev = amplitude.device
     if dev.type == "cpu":
         return histogram_plain(amplitude, distance, captured, nbins=nbins,
@@ -108,17 +109,91 @@ def histogram(amplitude, distance, captured, *, nbins: int, light_speed_mps: flo
     return out
 
 
+class _Histogram(torch.autograd.Function):
+    """Sum of the histograms of `modes` ((HARD,) or (SOFT_LO, SOFT_HI)), with
+    the gradient of rfx.cir.bin_impulse_response (method="scatter"):
+
+    - hard: g_amp = g[bin] where the path is valid, else 0; g_dist = 0;
+    - soft, with delay = distance / c * rate and w = delay - floor(delay):
+      g_amp = (1 - w) g[lo] valid_lo + w g[hi] valid_hi,
+      g_dist = amp (g[hi] valid_hi - g[lo] valid_lo) rate / c.
+    """
+
+    @staticmethod
+    def forward(ctx, amplitude, distance, captured, nbins, light_speed_mps, sample_rate_hz,
+                modes):
+        kw = dict(nbins=nbins, light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz)
+        ir = _launch(amplitude, distance, captured, mode=modes[0], **kw)
+        for mode in modes[1:]:
+            ir = ir + _launch(amplitude, distance, captured, mode=mode, **kw)
+        ctx.save_for_backward(amplitude, distance, captured)
+        ctx.kw = kw
+        ctx.modes = modes
+        return ir
+
+    @staticmethod
+    def backward(ctx, g):
+        amplitude, distance, captured = ctx.saved_tensors
+        nbins = ctx.kw["nbins"]
+        dev = amplitude.device
+        c = torch.tensor(ctx.kw["light_speed_mps"], dtype=torch.float32, device=dev)
+        rate = torch.tensor(ctx.kw["sample_rate_hz"], dtype=torch.float32, device=dev)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        delay = distance / c * rate
+
+        def g_at(bins):
+            valid = captured & (bins >= 0) & (bins < nbins)
+            return torch.where(valid, g[bins.clamp(0, nbins - 1).long()], zero)
+
+        g_amp = torch.zeros_like(amplitude)
+        slope = None  # d(weight)/d(delay) / amplitude, summed over the soft halves
+        lo = torch.floor(delay)
+        w = delay - lo
+        lo_i = lo.to(torch.int32)
+        for mode in ctx.modes:
+            if mode == HARD:
+                g_amp = g_amp + g_at(delay.to(torch.int32))
+            elif mode == SOFT_LO:
+                g_lo = g_at(lo_i)
+                g_amp = g_amp + (1.0 - w) * g_lo
+                slope = -g_lo if slope is None else slope - g_lo
+            else:
+                g_hi = g_at(lo_i + 1)
+                g_amp = g_amp + w * g_hi
+                slope = g_hi if slope is None else slope + g_hi
+        g_dist = (torch.zeros_like(distance) if slope is None
+                  else amplitude * slope * rate / c)
+        return g_amp, g_dist, None, None, None, None, None
+
+
+def histogram(amplitude, distance, captured, *, nbins: int, light_speed_mps: float,
+              sample_rate_hz: float, mode: int = HARD) -> torch.Tensor:
+    """Weighted histogram of captured paths into delay bins, (nbins,) f32,
+    differentiable in amplitude and distance.
+
+    A CPU tensor goes to `histogram_plain`; a CUDA tensor launches the
+    kernel, which is bit-identical from run to run."""
+    _check_inputs(amplitude, distance, captured)
+    if nbins < 1:
+        raise ValueError("nbins must be at least 1")
+    return _Histogram.apply(amplitude, distance, captured, nbins, light_speed_mps,
+                            sample_rate_hz, (mode,))
+
+
 def bin_impulse_response(amplitude, distance, captured, *, nbins: int, light_speed_mps: float,
                          sample_rate_hz: float, soft: bool = False) -> torch.Tensor:
     """Scatter per-path amplitudes into delay bins. Hard mode is the
     reference's bin = int(distance / c * rate), out-of-window paths dropped;
     soft mode splits each amplitude linearly between the two neighbouring
-    bins."""
-    kw = dict(nbins=nbins, light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz)
+    bins, so the IR has a gradient in the distance."""
     if not soft:
-        return histogram(amplitude, distance, captured, mode=HARD, **kw)
-    return (histogram(amplitude, distance, captured, mode=SOFT_LO, **kw)
-            + histogram(amplitude, distance, captured, mode=SOFT_HI, **kw))
+        return histogram(amplitude, distance, captured, nbins=nbins,
+                         light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz)
+    _check_inputs(amplitude, distance, captured)
+    if nbins < 1:
+        raise ValueError("nbins must be at least 1")
+    return _Histogram.apply(amplitude, distance, captured, nbins, light_speed_mps,
+                            sample_rate_hz, (SOFT_LO, SOFT_HI))
 
 
 def cir_from_trace(result, *, tx_power, num_rays: int, nbins: int, light_speed_mps: float,

@@ -5,7 +5,9 @@
 - the BVH: an `rfx.bvh.FlatBVH` is host numpy and is shared as it is, packed
   for the device by `rfx_torch.ops.bvh_pack.pack_bvh`;
 - a tracer's configuration, read from an `rfx.api.Tracer` instance's
-  attributes, and a port `Tracer` built from it.
+  attributes, and a port `Tracer` built from it;
+- the inverse solver's parameters, an `rfx.solver.InverseParams`, as a
+  `rfx_torch.solver.InverseParams` of leaf tensors.
 
 Arrays are read with `numpy.array`, which takes JAX arrays as they are.
 """
@@ -19,9 +21,11 @@ from rfx.bvh import FlatBVH
 from rfx_torch.api import Tracer
 from rfx_torch.ops.bvh_pack import PackedBVH, pack_bvh
 from rfx_torch.device import resolve_device
+from rfx_torch.solver import InverseParams
 from rfx_torch.tracer import Scene
 
-__all__ = ["scene_arrays", "scene_from_rfx", "bvh_from_rfx", "tracer_config", "tracer_from_rfx"]
+__all__ = ["scene_arrays", "scene_from_rfx", "bvh_from_rfx", "tracer_config", "tracer_from_rfx",
+           "inverse_params_from_rfx"]
 
 #: The `rfx.api.Tracer` attributes that make up its configuration.
 TRACER_CONFIG_KEYS = ("light_speed_mps", "sample_rate_hz", "sample_window_s", "max_bounces",
@@ -68,3 +72,15 @@ def tracer_from_rfx(tracer, *, backend: str = "auto", device="cuda") -> Tracer:
         tracer.mesh, cfg["light_speed_mps"], cfg["sample_rate_hz"], cfg["sample_window_s"],
         cfg["max_bounces"], cfg["tx_num_rays"], n1=cfg["n1"], n2=cfg["n2"],
         rx_mode=cfg["rx_mode"], backend=backend, device=device)
+
+
+def inverse_params_from_rfx(params, device="cuda") -> InverseParams:
+    """The port's InverseParams (f32 leaf tensors that require grad) from an
+    `rfx.solver.InverseParams` (tx_pos (3,), log_n1 (), optional vertices)."""
+    dev = resolve_device(device)
+
+    def leaf(a, shape):
+        return torch.as_tensor(np.array(a, np.float32).reshape(shape), device=dev).requires_grad_()
+
+    verts = None if params.vertices is None else leaf(params.vertices, (-1, 3))
+    return InverseParams(leaf(params.tx_pos, (3,)), leaf(params.log_n1, ()), verts)

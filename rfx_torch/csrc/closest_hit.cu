@@ -1,0 +1,93 @@
+// Per-query closest hit: one thread per ray, from arbitrary origins.
+//
+// Replaces rfx/ops/pallas_trace.py:_kernel, the TPU kernel launched by
+// _pallas_hit_tiled (via pallas_hit_planes / pallas_closest_hit /
+// make_pallas_env_hit): one closest-hit query per ray, returning t, the
+// padded-triangle index, the original face id and the unit normal of the
+// hit; a miss gives 1e30 / -1 / -1 / (0, 0, 0) (:117-119). It serves the
+// bounce-loop tracers that need a per-bounce query (the scan tracer's
+// gradients, recorded paths, the icosphere receiver, the coverage engine's
+// env trace). The walk is rfx::bvh_closest_hit (bvh_walk.cuh), the same
+// function the fused bounce-loop kernel runs, so the two agree on every hit.
+// A ray parked far outside the scene (|o| ~ 1e9) misses the root box and
+// stops at once.
+//
+// The triangle table is either the packed one or a live repack from the
+// caller's vertices (rfx_torch.ops.bvh_trace.live_tri, differentiable
+// triangles); the normal returned is that table's lanes 9-11. The node boxes
+// stay the host-built ones either way, as in the reference
+// (pallas_trace.py:735-738).
+//
+// Not carried over from the TPU kernel: the per-tile cone table, the
+// tile-uniform walk, the k_spec node windows and HBM streaming, which exist
+// because a TPU core has no per-lane control flow or lane-dynamic loads.
+//
+// What bounds it on an H100: dependent node and triangle loads along each
+// walk, with the scene far inside the 50 MB L2 (the 32,258-triangle bench
+// terrain is about 0.3 MB of nodes and 2.6 MB of triangles); a query does
+// little arithmetic per visit. The rays' own traffic is 24 bytes in and 24
+// out. What the design does about it: callers pass Morton-ordered rays, so a
+// warp's walks stay coherent; node and triangle loads are aligned float4 /
+// int4 through `const __restrict__` pointers.
+
+#include <cuda_runtime.h>
+
+#include "bvh_walk.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+
+__global__ void __launch_bounds__(kThreads) closest_hit_kernel(
+    const float* __restrict__ orig, const float* __restrict__ dirs, int n,
+    const float4* __restrict__ node_box, const int4* __restrict__ node_meta, int n_nodes,
+    const float4* __restrict__ tris, const int* __restrict__ tri_face,
+    float* __restrict__ t_out, int* __restrict__ idx_out, int* __restrict__ face_out,
+    float* __restrict__ nrm_out) {
+  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
+  if (ray >= n) return;
+  const float ox = orig[3 * ray], oy = orig[3 * ray + 1], oz = orig[3 * ray + 2];
+  const float dx = dirs[3 * ray], dy = dirs[3 * ray + 1], dz = dirs[3 * ray + 2];
+  int best;
+  const float t = rfx::bvh_closest_hit(ox, oy, oz, dx, dy, dz, node_box, node_meta, n_nodes,
+                                       tris, &best);
+  float nx = 0.0f, ny = 0.0f, nz = 0.0f;
+  int face = -1;
+  if (best >= 0) {
+    const float4 e = tris[3 * best + 2];
+    nx = e.y;
+    ny = e.z;
+    nz = e.w;
+    face = tri_face[best];
+  }
+  t_out[ray] = t;
+  idx_out[ray] = best;
+  face_out[ray] = face;
+  nrm_out[3 * ray] = nx;
+  nrm_out[3 * ray + 1] = ny;
+  nrm_out[3 * ray + 2] = nz;
+}
+
+}  // namespace
+
+// orig, dirs: (n, 3) f32; tris: (P, 12) f32; tri_face: (P,) i32.
+// Outputs: t (n,) f32, idx (n,) i32, face (n,) i32, nrm (n, 3) f32.
+extern "C" int rfx_closest_hit(const void* orig, const void* dirs, int n, const void* node_box,
+                               const void* node_meta, int n_nodes, const void* tris,
+                               const void* tri_face, void* t, void* idx, void* face, void* nrm,
+                               void* stream) {
+  if (n > 0) {
+    const int blocks = (n + kThreads - 1) / kThreads;
+    closest_hit_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(orig), static_cast<const float*>(dirs), n,
+        static_cast<const float4*>(node_box), static_cast<const int4*>(node_meta), n_nodes,
+        static_cast<const float4*>(tris), static_cast<const int*>(tri_face),
+        static_cast<float*>(t), static_cast<int*>(idx), static_cast<int*>(face),
+        static_cast<float*>(nrm));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* rfx_closest_hit_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -3,19 +3,17 @@
 //
 // Replaces rfx/ops/pallas_fused.py:_fused_kernel, the TPU kernel launched by
 // fused_trace_planes. Per bounce and per ray:
-//   1. closest hit over the flat preorder/skip-pointer BVH (rfx/bvh.py):
-//      a box that is hit sends the walk to node i+1, a missed box to skip[i],
-//      a leaf tests its tri_count triangles and then goes to skip[i];
-//      slab test `t_near <= min(t_far, t_best) && t_far >= T_MIN_EPS`
-//      (pallas_fused.py:249-263), Moller-Trumbore exactly as row_work
-//      (:192-208) with |det| > 1e-12 and t > 1e-4, and a strict `<` update
-//      in increasing padded-triangle index, so ties go to the lowest index as
-//      in the Pallas select-min fold (:209-220);
+//   1. closest hit over the flat BVH: rfx::bvh_closest_hit (bvh_walk.cuh),
+//      the walk the per-query kernel (closest_hit.cu) runs too;
 //   2. analytic receiver sphere and the capture rule
 //      alive & t_rx < 1e29 & t_env > t_rx (:509-523);
 //   3. specular reflection and the algebraic s-pol Fresnel factor
 //      (:535-549). A ray that is captured or escapes leaves the loop; its
 //      outputs are those the Pallas kernel gives the parked ray.
+// With a face table (record_faces, :531-533), bounce b of a ray records the
+// original face id of its hit where the ray env-bounced at b, and -1
+// otherwise, including every bounce after the ray left the loop: the record
+// the differentiable replay backward reads (rfx_torch/ops/fused.py).
 //
 // The TPU kernel's tile-uniform walk, speculative node windows, SMEM leaf
 // ring and HBM streaming all exist because of TPU limits (no per-lane
@@ -30,6 +28,8 @@
 // 32 walks of a warp coherent, nodes are two aligned float4 loads plus one
 // int4, triangles three float4 loads, and every table is read through
 // `const __restrict__` pointers so the loads can use the read-only path.
+// The face record is (B, N) int32, so a warp's writes for one bounce are
+// contiguous.
 //
 // Rounding: the source is built with -fmad=false (rfx_torch/ops/_build.py),
 // so every product and sum rounds as PyTorch's elementwise operations do in
@@ -39,31 +39,25 @@
 
 #include <cuda_runtime.h>
 
+#include "bvh_walk.cuh"
+
 namespace {
 
-constexpr float kTMin = 1e-4f;            // rfx.ops.intersect.T_MIN_EPS
-constexpr float kMiss = 1e30f;            // rfx.ops.intersect.MISS
-constexpr float kMissThreshold = 1e29f;   // rfx.ops.intersect.MISS_THRESHOLD
-constexpr float kDetEps = 1e-12f;
-constexpr float kInvEps = 1e-30f;
+using rfx::kMiss;
+using rfx::kMissThreshold;
+using rfx::kTMin;
+
 constexpr int kThreads = 128;
 
-__device__ __forceinline__ float inv_dir(float v) {
-  return fabsf(v) > kInvEps ? 1.0f / v : kMiss;
-}
-
-// node_box: 2 float4 per node, (lo.x, lo.y, lo.z, 0), (hi.x, hi.y, hi.z, 0).
-// node_meta: int4 per node, (tri_start, tri_count, skip, 0); tri_count == 0
-//            marks an internal node.
-// tris: 3 float4 per padded triangle, the 12 floats v0, e1, e2, unit normal.
+// tri_face and faces are null unless the face record is asked for.
 __global__ void __launch_bounds__(kThreads) fused_trace_kernel(
     const float* __restrict__ dirs, int n,
     const float4* __restrict__ node_box, const int4* __restrict__ node_meta,
-    int n_nodes, const float4* __restrict__ tris,
+    int n_nodes, const float4* __restrict__ tris, const int* __restrict__ tri_face,
     float tx0, float tx1, float tx2, float rx0, float rx1, float rx2,
     float r2, float n1, float n2, int max_bounces,
     bool* __restrict__ captured, float* __restrict__ cap_amp,
-    float* __restrict__ cap_dist, int* __restrict__ num_bounces) {
+    float* __restrict__ cap_dist, int* __restrict__ num_bounces, int* __restrict__ faces) {
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
   if (ray >= n) return;
 
@@ -75,57 +69,9 @@ __global__ void __launch_bounds__(kThreads) fused_trace_kernel(
   int nb = 0;
 
   for (int b = 0; b < max_bounces; ++b) {
-    const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
-    float t_best = kMiss;
-    int best = -1;
-    int node = 0;
-    while (node < n_nodes) {
-      const float4 lo = node_box[2 * node];
-      const float4 hi = node_box[2 * node + 1];
-      const int4 meta = node_meta[node];
-      const float lox = (lo.x - ox) * ix, hix = (hi.x - ox) * ix;
-      const float loy = (lo.y - oy) * iy, hiy = (hi.y - oy) * iy;
-      const float loz = (lo.z - oz) * iz, hiz = (hi.z - oz) * iz;
-      const float t_near = fmaxf(fmaxf(fminf(lox, hix), fminf(loy, hiy)), fminf(loz, hiz));
-      const float t_far = fminf(fminf(fmaxf(lox, hix), fmaxf(loy, hiy)), fmaxf(loz, hiz));
-      const bool box_hit = (t_near <= fminf(t_far, t_best)) && (t_far >= kTMin);
-      if (!box_hit) {
-        node = meta.z;
-        continue;
-      }
-      if (meta.y == 0) {
-        node = node + 1;
-        continue;
-      }
-      for (int k = 0; k < meta.y; ++k) {
-        const int j = meta.x + k;
-        const float4 a = tris[3 * j];      // v0.xyz, e1.x
-        const float4 c = tris[3 * j + 1];  // e1.yz, e2.xy
-        const float4 e = tris[3 * j + 2];  // e2.z, normal
-        const float v0x = a.x, v0y = a.y, v0z = a.z;
-        const float e1x = a.w, e1y = c.x, e1z = c.y;
-        const float e2x = c.z, e2y = c.w, e2z = e.x;
-        const float px = e2z * dy - e2y * dz;
-        const float py = e2x * dz - e2z * dx;
-        const float pz = e2y * dx - e2x * dy;
-        const float det = e1x * px + e1y * py + e1z * pz;
-        const bool valid = fabsf(det) > kDetEps;
-        const float inv_det = valid ? 1.0f / det : 0.0f;
-        const float tvx = ox - v0x, tvy = oy - v0y, tvz = oz - v0z;
-        const float u = (tvx * px + tvy * py + tvz * pz) * inv_det;
-        const float qx = tvy * e1z - tvz * e1y;
-        const float qy = tvz * e1x - tvx * e1z;
-        const float qz = tvx * e1y - tvy * e1x;
-        const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
-        const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-        const bool ok = valid && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > kTMin);
-        if (ok && t < t_best) {
-          t_best = t;
-          best = j;
-        }
-      }
-      node = meta.z;
-    }
+    int best;
+    const float t_best = rfx::bvh_closest_hit(ox, oy, oz, dx, dy, dz, node_box, node_meta,
+                                              n_nodes, tris, &best);
 
     // Analytic receiver sphere (rfx.ops.intersect.ray_sphere_hit).
     const float ocx = ox - rx0, ocy = oy - rx1, ocz = oz - rx2;
@@ -147,6 +93,7 @@ __global__ void __launch_bounds__(kThreads) fused_trace_kernel(
       break;
     }
     if (!(t_best < kMissThreshold)) break;  // escaped
+    if (faces != nullptr) faces[static_cast<size_t>(b) * n + ray] = tri_face[best];
     nb += 1;
 
     // Specular reflection + algebraic s-pol Fresnel:
@@ -177,6 +124,9 @@ __global__ void __launch_bounds__(kThreads) fused_trace_kernel(
     dist = dist + t_best;
   }
 
+  if (faces != nullptr) {
+    for (int b = nb; b < max_bounces; ++b) faces[static_cast<size_t>(b) * n + ray] = -1;
+  }
   captured[ray] = capt;
   cap_amp[ray] = camp;
   cap_dist[ray] = cdist;
@@ -185,20 +135,22 @@ __global__ void __launch_bounds__(kThreads) fused_trace_kernel(
 
 }  // namespace
 
+// tri_face and faces may be null (no face record); faces is (max_bounces, n).
 extern "C" int rfx_fused_trace(
     const void* dirs, int n, const void* node_box, const void* node_meta,
-    int n_nodes, const void* tris, float tx0, float tx1, float tx2,
+    int n_nodes, const void* tris, const void* tri_face, float tx0, float tx1, float tx2,
     float rx0, float rx1, float rx2, float r2, float n1, float n2,
     int max_bounces, void* captured, void* cap_amp, void* cap_dist,
-    void* num_bounces, void* stream) {
+    void* num_bounces, void* faces, void* stream) {
   if (n > 0) {
     const int blocks = (n + kThreads - 1) / kThreads;
     fused_trace_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(dirs), n, static_cast<const float4*>(node_box),
         static_cast<const int4*>(node_meta), n_nodes, static_cast<const float4*>(tris),
-        tx0, tx1, tx2, rx0, rx1, rx2, r2, n1, n2, max_bounces,
+        static_cast<const int*>(tri_face), tx0, tx1, tx2, rx0, rx1, rx2, r2, n1, n2, max_bounces,
         static_cast<bool*>(captured), static_cast<float*>(cap_amp),
-        static_cast<float*>(cap_dist), static_cast<int*>(num_bounces));
+        static_cast<float*>(cap_dist), static_cast<int*>(num_bounces),
+        static_cast<int*>(faces));
   }
   return static_cast<int>(cudaGetLastError());
 }

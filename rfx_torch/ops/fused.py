@@ -1,4 +1,5 @@
-"""Fused multi-bounce forward trace (port of rfx/ops/pallas_fused.py).
+"""Fused multi-bounce trace and its differentiable replay (port of
+rfx/ops/pallas_fused.py).
 
 `fused_trace` runs the whole bounce loop of every ray in one CUDA kernel
 (rfx_torch/csrc/fused_trace.cu) on a CUDA tensor, and its plain PyTorch
@@ -6,11 +7,17 @@ version `fused_trace_plain` on a CPU tensor. The receiver is the analytic
 sphere. Semantics are those of rfx.tracer.trace_to_rx(rx_mode="analytic"),
 with the algebraic s-pol Fresnel factor of the TPU kernel (no arccos or
 arcsin), equal to rfx.physics.fresnel_bounce_amplitude within f32 rounding.
+With `record_faces` it also returns the (B, N) int32 table of the original
+face each ray hit at each bounce where it env-bounced (-1 elsewhere).
 
-Not ported yet: `record_faces` (per-bounce face ids, for the differentiable
-replay) and `count_stats` (walk counters); see ROADMAP B1. The TPU tuning
-knobs (tile_rays, k_spec, pack, cone_filter, force_stream, stream_depth,
-arity) have no counterpart here.
+`make_diff_fused_tracer` is the differentiable fused path: the forward is
+the kernel with `record_faces`, the backward replays the captured rays on
+their recorded faces in closed form (`replay_from_faces`, plain PyTorch
+under autograd), with no BVH walk.
+
+Not ported yet: `count_stats` (walk counters); see ROADMAP B1. The TPU
+tuning knobs (tile_rays, k_spec, pack, cone_filter, force_stream,
+stream_depth, arity) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -19,31 +26,37 @@ import numpy as np
 import torch
 
 from rfx.bvh import FlatBVH, build_bvh
+from rfx_torch import physics
 from rfx_torch.device import resolve_device
 from rfx_torch.ops._build import CudaKernel, F, I, P
 from rfx_torch.ops.bvh_pack import PackedBVH, pack_bvh
-from rfx_torch.ops.intersect import MISS, MISS_THRESHOLD, T_MIN_EPS, dot3, sphere_t
+from rfx_torch.ops.bvh_trace import padded_closest_hit
+from rfx_torch.ops.intersect import (
+    MISS_THRESHOLD,
+    closed_form_t,
+    cross3,
+    dot3,
+    ray_sphere_hit,
+    sphere_t,
+)
 from rfx_torch.tracer import TraceResult
 
 __all__ = ["FusedTracer", "make_fused_tracer", "fused_trace", "fused_trace_plain",
-           "FUSED_TRACE_KERNEL"]
+           "replay_from_faces", "make_diff_fused_tracer", "FUSED_TRACE_KERNEL"]
 
 FUSED_TRACE_KERNEL = CudaKernel(
     "fused_trace.cu", "rfx_fused_trace",
-    [P, I, P, P, I, P, F, F, F, F, F, F, F, F, F, I, P, P, P, P, P],
+    [P, I, P, P, I, P, P, F, F, F, F, F, F, F, F, F, I, P, P, P, P, P, P],
 )
-
-# Upper bound on rays x padded triangles per brute-force chunk of the plain
-# version (each of its ~25 intermediates is this many f32 values).
-_PLAIN_PAIRS = 1 << 22
 
 
 def _scalars(tx_pos, rx_pos, rx_radius, n1, n2):
     """The kernel's f32 scalars: tx (3), rx (3), r^2, n1, n2, with r^2
     rounded in f32 as the reference computes it."""
-    tx = np.asarray(torch.as_tensor(tx_pos, dtype=torch.float32).cpu(), np.float32).reshape(3)
-    rx = np.asarray(torch.as_tensor(rx_pos, dtype=torch.float32).cpu(), np.float32).reshape(3)
-    r = np.float32(torch.as_tensor(rx_radius, dtype=torch.float32).cpu())
+    host = lambda a: torch.as_tensor(a, dtype=torch.float32).detach().cpu().numpy()  # noqa: E731
+    tx = host(tx_pos).reshape(3)
+    rx = host(rx_pos).reshape(3)
+    r = np.float32(host(rx_radius))
     return tx, rx, np.float32(r * r), np.float32(n1), np.float32(n2)
 
 
@@ -62,43 +75,15 @@ def _fresnel_algebraic(w, n1, n2):
     return torch.where((sr <= 1.0) & den_ok, torch.clamp_max(ratio * ratio, 1.0), zero)
 
 
-def _closest_hit_plain(o, d, tri):
-    """Closest hit of rays (C, 3) over all padded triangles (P, 12), with the
-    kernel's Moller-Trumbore algebra: (t (C,), index (C,) int64), MISS and
-    the index of the first minimum (0) on a miss."""
-    v0, e1, e2 = tri[None, :, 0:3], tri[None, :, 3:6], tri[None, :, 6:9]
-    e1x, e1y, e1z = e1[..., 0], e1[..., 1], e1[..., 2]
-    e2x, e2y, e2z = e2[..., 0], e2[..., 1], e2[..., 2]
-    dx, dy, dz = d[:, None, 0], d[:, None, 1], d[:, None, 2]
-    px = e2z * dy - e2y * dz
-    py = e2x * dz - e2z * dx
-    pz = e2y * dx - e2x * dy
-    det = e1x * px + e1y * py + e1z * pz
-    valid = torch.abs(det) > 1e-12
-    zero = torch.zeros((), dtype=det.dtype, device=det.device)
-    inv_det = torch.where(valid, 1.0 / torch.where(valid, det, torch.ones_like(det)), zero)
-    tvx = o[:, None, 0] - v0[..., 0]
-    tvy = o[:, None, 1] - v0[..., 1]
-    tvz = o[:, None, 2] - v0[..., 2]
-    u = (tvx * px + tvy * py + tvz * pz) * inv_det
-    qx = tvy * e1z - tvz * e1y
-    qy = tvz * e1x - tvx * e1z
-    qz = tvx * e1y - tvy * e1x
-    v = (dx * qx + dy * qy + dz * qz) * inv_det
-    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-    ok = valid & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > T_MIN_EPS)
-    t = torch.where(ok, t, torch.full((), MISS, dtype=t.dtype, device=t.device))
-    idx = torch.argmin(t, dim=1)  # first minimum: the lowest padded index
-    return torch.gather(t, 1, idx[:, None])[:, 0], idx
-
-
 def fused_trace_plain(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, rx_radius,
-                      n1=5.0, n2=1.0, *, max_bounces: int) -> TraceResult:
+                      n1=5.0, n2=1.0, *, max_bounces: int, record_faces: bool = False):
     """Plain PyTorch version of the fused kernel: brute-force closest hit over
     the packed triangles in padded order (ties to the lowest index, as the
     kernel's preorder walk gives them), the same receiver sphere, capture
     fold, reflection and algebraic Fresnel, one Python iteration per bounce
-    over the rays still alive. Chunked over rays to bound the intermediates."""
+    over the rays still alive. Chunked over rays to bound the intermediates.
+    Returns a TraceResult, or (TraceResult, (B, N) int32 faces) with
+    `record_faces`."""
     dev = directions.device
     f32 = torch.float32
     tx, rx, r2, n1s, n2s = _scalars(tx_pos, rx_pos, rx_radius, n1, n2)
@@ -106,7 +91,6 @@ def fused_trace_plain(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, 
     rx_t, r2_t, n1_t, n2_t = as_dev(rx), as_dev(r2), as_dev(n1s), as_dev(n2s)
     n = directions.shape[0]
     tri = bvh.tri
-    chunk = max(1, _PLAIN_PAIRS // bvh.n_padded_tris)
 
     o = as_dev(tx)[None, :].expand(n, 3).contiguous()
     d = directions.to(f32).clone()  # updated in place below
@@ -116,18 +100,14 @@ def fused_trace_plain(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, 
     cap_amp = torch.zeros(n, dtype=f32, device=dev)
     cap_dist = torch.zeros(n, dtype=f32, device=dev)
     nb = torch.zeros(n, dtype=torch.int32, device=dev)
+    faces = torch.full((max_bounces, n), -1, dtype=torch.int32, device=dev)
     alive = torch.arange(n, device=dev)  # indices of the rays still bouncing
 
-    for _ in range(max_bounces):
+    for b in range(max_bounces):
         if alive.numel() == 0:
             break
         oa, da = o[alive], d[alive]
-        ts, idxs = [], []
-        for s in range(0, alive.numel(), chunk):
-            t, i = _closest_hit_plain(oa[s:s + chunk], da[s:s + chunk], tri)
-            ts.append(t)
-            idxs.append(i)
-        t_env, best = torch.cat(ts), torch.cat(idxs)
+        t_env, best = padded_closest_hit(oa, da, tri)
         t_rx = sphere_t(oa, da, rx_t, r2_t)
         rx_win = (t_rx < MISS_THRESHOLD) & (t_env > t_rx)
         env_b = ~rx_win & (t_env < MISS_THRESHOLD)
@@ -138,6 +118,7 @@ def fused_trace_plain(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, 
         cap_dist[won] = dist[won] + t_rx[rx_win]
 
         go = alive[env_b]
+        faces[b, go] = bvh.tri_face[best[env_b]]
         t_adv = t_env[env_b]
         nrm = tri[best[env_b], 9:12]
         db = da[env_b]
@@ -151,15 +132,18 @@ def fused_trace_plain(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, 
         nb[go] += 1
         alive = go
 
-    return TraceResult(captured, cap_amp, cap_dist, nb)
+    result = TraceResult(captured, cap_amp, cap_dist, nb)
+    return (result, faces) if record_faces else result
 
 
 def fused_trace(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, rx_radius,
-                n1=5.0, n2=1.0, *, max_bounces: int) -> TraceResult:
+                n1=5.0, n2=1.0, *, max_bounces: int, record_faces: bool = False):
     """Trace (N, 3) f32 directions from tx_pos through `max_bounces` bounces
     against the packed scene: TraceResult of (N,) captured, amplitude,
-    distance, num_bounces. A CPU tensor runs `fused_trace_plain`; a CUDA
-    tensor launches the kernel, or raises."""
+    distance, num_bounces, and with `record_faces` also the (B, N) int32
+    per-bounce face table. A CPU tensor runs `fused_trace_plain`; a CUDA
+    tensor launches the kernel, or raises. No autograd: see
+    `make_diff_fused_tracer`."""
     dev = directions.device
     if directions.ndim != 2 or directions.shape[1] != 3:
         raise ValueError(f"directions must be (N, 3), got {tuple(directions.shape)}")
@@ -169,7 +153,7 @@ def fused_trace(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, rx_rad
         raise ValueError(f"BVH tables are on {bvh.tri.device}, directions on {dev}")
     if dev.type == "cpu":
         return fused_trace_plain(bvh, directions, tx_pos, rx_pos, rx_radius, n1, n2,
-                                 max_bounces=max_bounces)
+                                 max_bounces=max_bounces, record_faces=record_faces)
     if dev.type != "cuda":
         raise ValueError(f"no fused trace for device {dev}")
     tx, rx, r2, n1s, n2s = _scalars(tx_pos, rx_pos, rx_radius, n1, n2)
@@ -181,23 +165,28 @@ def fused_trace(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, rx_rad
     cap_amp = torch.empty(n, dtype=torch.float32, device=dev)
     cap_dist = torch.empty(n, dtype=torch.float32, device=dev)
     nb = torch.empty(n, dtype=torch.int32, device=dev)
+    faces = (torch.empty((max_bounces, n), dtype=torch.int32, device=dev)
+             if record_faces else None)
+    result = TraceResult(captured, cap_amp, cap_dist, nb)
     if n == 0:
-        return TraceResult(captured, cap_amp, cap_dist, nb)
+        return (result, faces) if record_faces else result
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         FUSED_TRACE_KERNEL.launch(
             d.data_ptr(), n, bvh.node_box.data_ptr(), bvh.node_meta.data_ptr(), bvh.n_nodes,
-            bvh.tri.data_ptr(), *map(float, tx), *map(float, rx), float(r2), float(n1s),
-            float(n2s), int(max_bounces), captured.data_ptr(), cap_amp.data_ptr(),
-            cap_dist.data_ptr(), nb.data_ptr(), stream)
-    return TraceResult(captured, cap_amp, cap_dist, nb)
+            bvh.tri.data_ptr(), bvh.tri_face.data_ptr() if record_faces else None,
+            *map(float, tx), *map(float, rx), float(r2), float(n1s), float(n2s),
+            int(max_bounces), captured.data_ptr(), cap_amp.data_ptr(), cap_dist.data_ptr(),
+            nb.data_ptr(), faces.data_ptr() if record_faces else None, stream)
+    return (result, faces) if record_faces else result
 
 
 class FusedTracer:
     """Fused tracer bound to one scene's BVH on one device.
 
     fused(directions (N, 3), tx (3,), rx (3,), rx_radius, n1, n2)
-      -> TraceResult (captured, amplitude, distance, num_bounces), each (N,).
+      -> TraceResult (captured, amplitude, distance, num_bounces), each (N,);
+    with record_faces=True, (TraceResult, (B, N) int32 face table).
     """
 
     def __init__(self, flat: FlatBVH, *, max_bounces: int, device="cuda"):
@@ -205,10 +194,11 @@ class FusedTracer:
         self.bvh = pack_bvh(flat, self.device)
         self.max_bounces = int(max_bounces)
 
-    def __call__(self, directions, tx_pos, rx_pos, rx_radius, n1=5.0, n2=1.0) -> TraceResult:
+    def __call__(self, directions, tx_pos, rx_pos, rx_radius, n1=5.0, n2=1.0,
+                 record_faces: bool = False):
         d = torch.as_tensor(directions, dtype=torch.float32, device=self.device)
         return fused_trace(self.bvh, d, tx_pos, rx_pos, rx_radius, n1, n2,
-                           max_bounces=self.max_bounces)
+                           max_bounces=self.max_bounces, record_faces=record_faces)
 
 
 def make_fused_tracer(mesh_or_flat, *, max_bounces: int, leaf_size: int = 8,
@@ -221,3 +211,142 @@ def make_fused_tracer(mesh_or_flat, *, max_bounces: int, leaf_size: int = 8,
     else:
         flat = build_bvh(mesh_or_flat, leaf_size=leaf_size, method="numpy")
     return FusedTracer(flat, max_bounces=max_bounces, device=device)
+
+
+def replay_from_faces(vertices, faces_tbl, tx_pos, directions, rx_pos, rx_radius,
+                      bounce_faces, captured, num_bounces, *, n1=5.0, n2=1.0):
+    """Differentiable closed-form replay of a recorded fused trace
+    (rfx/ops/pallas_fused.py:815-874): per bounce, the closed-form
+    Moller-Trumbore t on the recorded face, the edge-derived normal, the
+    specular reflection and the Fresnel factor; at the capture step, the
+    analytic sphere hit. Hit selection is frozen (straight-through); there is
+    no BVH walk. Returns (amplitude, distance), each (N,), differentiable in
+    vertices, tx_pos, directions, rx_pos and rx_radius."""
+    f32 = torch.float32
+    d = directions.to(f32)
+    dev = d.device
+    n = d.shape[0]
+    zero = torch.zeros((), dtype=f32, device=dev)
+    tx = torch.as_tensor(tx_pos, dtype=f32, device=dev)
+    o = tx[None, :].expand(n, 3)
+    amp = torch.ones(n, dtype=f32, device=dev)
+    dist = torch.zeros(n, dtype=f32, device=dev)
+    cap_amp = torch.zeros(n, dtype=f32, device=dev)
+    cap_dist = torch.zeros(n, dtype=f32, device=dev)
+    ftbl = torch.as_tensor(faces_tbl, device=dev).long()
+    v0_all = vertices[ftbl[:, 0]]
+    e1_all = vertices[ftbl[:, 1]] - v0_all
+    e2_all = vertices[ftbl[:, 2]] - v0_all
+    rx = torch.as_tensor(rx_pos, dtype=f32, device=dev)
+
+    for b in range(bounce_faces.shape[0]):
+        env_b = bounce_faces[b] >= 0
+        cap_b = captured & (num_bounces == b)
+        t_rx = ray_sphere_hit(o, d, rx, rx_radius)
+        t_rx_safe = torch.where(cap_b & (t_rx < MISS_THRESHOLD), t_rx, zero)
+        cap_amp = torch.where(cap_b, amp, cap_amp)
+        cap_dist = torch.where(cap_b, dist + t_rx_safe, cap_dist)
+        f = bounce_faces[b].clamp_min(0).long()
+        fv0, fe1, fe2 = v0_all[f], e1_all[f], e2_all[f]
+        t_adv = torch.where(env_b, closed_form_t(o, d, fv0, fe1, fe2), zero)
+        nrm = cross3(fe1, fe2)
+        nrm = nrm / torch.linalg.norm(nrm, dim=1, keepdim=True).clamp_min(1e-30)
+        d_out = physics.reflect(d, nrm)
+        fres = physics.fresnel_bounce_amplitude(physics.bend_angle(d, d_out), n1, n2)
+        o = torch.where(env_b[:, None], o + d * t_adv[:, None], o)
+        d = torch.where(env_b[:, None], d_out, d)
+        amp = torch.where(env_b, amp * fres, amp)
+        dist = dist + t_adv
+    # A captured ray was captured at a bounce below B (the kernel's loop runs
+    # B iterations), so its capture step is always inside the loop above.
+    return cap_amp, cap_dist
+
+
+_DIFF_ARGS = ("vertices", "tx_pos", "directions", "rx_pos", "rx_radius")
+
+
+class _DiffFused(torch.autograd.Function):
+    """The fused kernel with `record_faces` forward; the replay backward on
+    the captured rays (rfx/ops/pallas_fused.py:913-966)."""
+
+    @staticmethod
+    def forward(ctx, vertices, tx_pos, directions, rx_pos, rx_radius, cfg):
+        result, bf = cfg["fused"](directions, tx_pos, rx_pos, rx_radius, n1=cfg["n1"],
+                                  n2=cfg["n2"], record_faces=True)
+        ctx.mark_non_differentiable(result.captured, result.num_bounces)
+        ctx.save_for_backward(vertices, tx_pos, directions, rx_pos, rx_radius, bf,
+                              result.captured, result.num_bounces)
+        ctx.cfg = cfg
+        return tuple(result[:4])
+
+    @staticmethod
+    def backward(ctx, _g_cap, g_amp, g_dist, _g_nb):
+        vertices, tx_pos, directions, rx_pos, rx_radius, bf, cap, nb = ctx.saved_tensors
+        cfg = ctx.cfg
+        want = [ctx.needs_input_grad[i] and name in cfg["grad_args"]
+                for i, name in enumerate(_DIFF_ARGS)]
+        grads = [torch.zeros_like(a) if ctx.needs_input_grad[i] else None
+                 for i, a in enumerate((vertices, tx_pos, directions, rx_pos, rx_radius))]
+        if not any(want):
+            return (*grads, None)
+        cap_idx = torch.nonzero(cap).flatten()
+        if cap_idx.numel() > cfg["bwd_max_captured"]:
+            # Over the bound every cotangent is NaN, so a truncated backward
+            # can never pass silently (the reference's poisoning).
+            nan = float("nan")
+            return (*[g.fill_(nan) if g is not None and w else g
+                      for g, w in zip(grads, want)], None)
+        zero = torch.zeros((), dtype=torch.float32, device=cap.device)
+        g_amp = zero.expand(cap.shape) if g_amp is None else g_amp
+        g_dist = zero.expand(cap.shape) if g_dist is None else g_dist
+        args = [vertices, tx_pos, directions[cap_idx], rx_pos, rx_radius]
+        args = [a.detach().requires_grad_(w) for a, w in zip(args, want)]
+        with torch.enable_grad():
+            amp, dist = replay_from_faces(
+                args[0], cfg["faces_tbl"], args[1], args[2], args[3], args[4],
+                bf[:, cap_idx], torch.ones_like(cap_idx, dtype=torch.bool), nb[cap_idx],
+                n1=cfg["n1"], n2=cfg["n2"])
+            live = [a for a, w in zip(args, want) if w]
+            outs = [(y, gy[cap_idx]) for y, gy in ((amp, g_amp), (dist, g_dist))
+                    if y.requires_grad]
+            got = iter(torch.autograd.grad([y for y, _ in outs], live, [gy for _, gy in outs],
+                                           allow_unused=True) if outs else [None] * len(live))
+        for i, w in enumerate(want):
+            if not w:
+                continue
+            g = next(got)
+            if g is None:
+                continue
+            if i == 2:  # directions: scatter the captured rows back
+                grads[i].index_add_(0, cap_idx, g)
+            else:
+                grads[i] = g
+        return (*grads, None)
+
+
+def make_diff_fused_tracer(flat_or_mesh, faces_tbl, *, max_bounces: int, n1=5.0, n2=1.0,
+                           grad_args=_DIFF_ARGS, bwd_max_captured: int = 1 << 17,
+                           device="cuda"):
+    """Differentiable fused tracer: the fused kernel's forward with the face
+    record, and the closed-form replay backward (no BVH walk).
+
+    Returns diff_trace(vertices, tx_pos, directions, rx_pos, rx_radius) ->
+    TraceResult. Gradients reach the arguments named in `grad_args` (the
+    others get zeros) through `replay_from_faces`; capture, bounce counts and
+    faces are straight-through. The backward compacts to the captured rays
+    and scatters the direction cotangent back; above `bwd_max_captured`
+    captures every cotangent is NaN. `faces_tbl` is the scene's (F, 3) face
+    table; the BVH is built once from `flat_or_mesh`, so a caller that moves
+    vertices materially rebuilds it."""
+    fused = make_fused_tracer(flat_or_mesh, max_bounces=max_bounces, device=device)
+    dev = fused.device
+    cfg = dict(fused=fused, faces_tbl=torch.as_tensor(faces_tbl, device=dev).long(),
+               n1=n1, n2=n2, grad_args=tuple(grad_args), bwd_max_captured=int(bwd_max_captured))
+
+    def diff_trace(vertices, tx_pos, directions, rx_pos, rx_radius) -> TraceResult:
+        as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+        out = _DiffFused.apply(as_t(vertices), as_t(tx_pos), as_t(directions), as_t(rx_pos),
+                               as_t(rx_radius), cfg)
+        return TraceResult(*out)
+
+    return diff_trace

@@ -1,15 +1,22 @@
-"""Ray-primitive intersection, forward (port of rfx/ops/intersect.py).
+"""Ray-primitive intersection with the reference's custom gradients (port
+of rfx/ops/intersect.py).
 
 - `ray_mesh_closest_hit_brute`: Moller-Trumbore of every ray against every
   triangle, chunked over rays so the (rays x triangles) intermediates stay
   bounded. The closest-hit path of small meshes (the facade's `brute`
-  backend) and of the icosphere receiver.
-- `ray_sphere_hit`: closed-form sphere hit of the analytic receiver.
+  backend) and of the icosphere receiver. Its backward is the reference's
+  custom VJP: hit selection is straight-through, and the closed-form t of
+  the selected face is differentiated at sanitized lanes.
+- `ray_sphere_hit`: closed-form sphere hit of the analytic receiver, with
+  the implicit-function backward of the reference.
+- `make_env_intersector`: the `env_hit(o, d, v0, e1, e2, normals) -> (t,
+  face, nrm)` factory of the bounce-loop tracers, with the `brute` backend
+  and the `kernel` backend (the per-query BVH kernel of
+  rfx_torch.ops.bvh_trace, the counterpart of the reference's `pallas`).
 
 Constants and the finite miss sentinel are the reference's
 (`rfx/ops/intersect.py:27-39`). Dot products are written out left to right,
-so they round as the fused kernel's do. The autograd of the reference's
-custom VJPs is not ported yet.
+so they round as the kernels' do.
 """
 
 from __future__ import annotations
@@ -92,12 +99,7 @@ def _mt_chunk(o, d, v0, e1, e2, t_min, t_max):
     return t_best, face
 
 
-def ray_mesh_closest_hit_brute(o, d, v0, e1, e2, t_min: float = T_MIN_EPS,
-                               t_max: float = T_MAX, ray_chunk: int | None = None):
-    """Closest hit of (N, 3) rays against all T triangles: (t (N,), face (N,)
-    int32), with t = MISS and face = -1 on a miss and ties going to the lowest
-    face index. Rays are processed `ray_chunk` at a time (default: enough to
-    keep chunk x T near 4M pairs)."""
+def _brute_forward(o, d, v0, e1, e2, t_min, t_max, ray_chunk):
     n, n_tris = o.shape[0], v0.shape[0]
     if ray_chunk is None:
         ray_chunk = max(1, _BRUTE_PAIRS // max(n_tris, 1))
@@ -112,6 +114,56 @@ def ray_mesh_closest_hit_brute(o, d, v0, e1, e2, t_min: float = T_MIN_EPS,
     if not ts:
         return o.new_empty((0,)), torch.empty((0,), dtype=torch.int32, device=o.device)
     return torch.cat(ts), torch.cat(fs)
+
+
+def sanitized_t_vjp(o, d, v0, e1, e2, g, hit):
+    """VJP of `closed_form_t` for (ray, selected triangle) rows, evaluated with
+    o -> 0 and d -> 1 where `hit` is False: a parked ray (|o| ~ 1e9) overflows
+    the derivative's intermediates to inf, and a zero cotangent times inf is
+    NaN (rfx/ops/intersect.py:170-174). Returns (go, gd, gv0, ge1, ge2)."""
+    zero = torch.zeros((), dtype=o.dtype, device=o.device)
+    one = torch.ones((), dtype=o.dtype, device=o.device)
+    g = torch.where(hit, g, zero)
+    args = [torch.where(hit[:, None], o, zero).detach().requires_grad_(),
+            torch.where(hit[:, None], d, one).detach().requires_grad_(),
+            v0.detach().requires_grad_(), e1.detach().requires_grad_(),
+            e2.detach().requires_grad_()]
+    with torch.enable_grad():
+        t = closed_form_t(*args)
+        return torch.autograd.grad(t, args, g)
+
+
+class _BruteHit(torch.autograd.Function):
+    """Brute closest hit with the reference's custom VJP
+    (rfx/ops/intersect.py:159-185); face is an integer output."""
+
+    @staticmethod
+    def forward(ctx, o, d, v0, e1, e2, t_min, t_max, ray_chunk):
+        t, face = _brute_forward(o, d, v0, e1, e2, t_min, t_max, ray_chunk)
+        ctx.mark_non_differentiable(face)
+        ctx.save_for_backward(o, d, v0, e1, e2, face, t)
+        return t, face
+
+    @staticmethod
+    def backward(ctx, g_t, _g_face):
+        o, d, v0, e1, e2, face, t = ctx.saved_tensors
+        sel = face.clamp_min(0).long()
+        hit = (face >= 0) & is_hit(t)
+        go, gd, gv0, ge1, ge2 = sanitized_t_vjp(o, d, v0[sel], e1[sel], e2[sel], g_t, hit)
+        keep = hit[:, None].to(o.dtype)
+        full = [torch.zeros_like(a).index_add_(0, sel, ga * keep)
+                for a, ga in ((v0, gv0), (e1, ge1), (e2, ge2))]
+        return go, gd, *full, None, None, None
+
+
+def ray_mesh_closest_hit_brute(o, d, v0, e1, e2, t_min: float = T_MIN_EPS,
+                               t_max: float = T_MAX, ray_chunk: int | None = None):
+    """Closest hit of (N, 3) rays against all T triangles: (t (N,), face (N,)
+    int32), with t = MISS and face = -1 on a miss and ties going to the lowest
+    face index. Rays are processed `ray_chunk` at a time (default: enough to
+    keep chunk x T near 4M pairs). Differentiable in o, d, v0, e1 and e2
+    through the selected face's closed-form t (straight-through selection)."""
+    return _BruteHit.apply(o, d, v0, e1, e2, float(t_min), float(t_max), ray_chunk)
 
 
 def sphere_t(o, d, center, r2):
@@ -131,9 +183,82 @@ def sphere_t(o, d, center, r2):
     return torch.where(hit, t, miss)
 
 
+def _sum_to(x: torch.Tensor, shape) -> torch.Tensor:
+    return x.sum_to_size(shape) if x.shape != shape else x
+
+
+class _SphereHit(torch.autograd.Function):
+    """Sphere hit with the implicit-function backward of the reference
+    (rfx/ops/intersect.py:229-248): with p = o + t d and q = p - C,
+    dt/do = -q / (q.d), dt/dd = -t q / (q.d), dt/dC = q / (q.d),
+    dt/dr = r / (q.d), where |q.d| is clamped to 1e-6 max(r, 1e-6).
+
+    o and d are (..., 3) and broadcast against the center (..., 3), so one
+    call tests a batch of receivers (centers (R, 1, 3), rays (N, 3))."""
+
+    @staticmethod
+    def forward(ctx, o, d, center, radius):
+        t = sphere_t(o, d, center, radius * radius)
+        ctx.save_for_backward(o, d, center, radius, t)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        o, d, center, radius, t = ctx.saved_tensors
+        hit = is_hit(t)
+        zero = torch.zeros((), dtype=t.dtype, device=t.device)
+        t_safe = torch.where(hit, t, zero)
+        q = o + t_safe[..., None] * d - center
+        qd = dot3(q, d)
+        mag = torch.maximum(qd.abs(), 1e-6 * radius.clamp_min(1e-6))
+        qd_safe = torch.where(qd < 0.0, -mag, mag)
+        gg = torch.where(hit, g, zero) / qd_safe
+        go = -gg[..., None] * q
+        gd = -(gg * t_safe)[..., None] * q
+        gc = -go
+        gr = gg.sum() * radius
+        return (_sum_to(go, o.shape), _sum_to(gd, d.shape), _sum_to(gc, center.shape),
+                gr.reshape(radius.shape))
+
+
 def ray_sphere_hit(o, d, center, radius):
-    """Receiver-sphere hit of unit-direction rays (N, 3): smallest t >
-    T_MIN_EPS, MISS on a miss (forward of rfx.ops.intersect.ray_sphere_hit)."""
+    """Receiver-sphere hit of unit-direction rays (..., 3): smallest t >
+    T_MIN_EPS, MISS on a miss (rfx.ops.intersect.ray_sphere_hit), with its
+    custom gradient in o, d, center and radius."""
     center = torch.as_tensor(center, dtype=torch.float32, device=o.device)
     r = torch.as_tensor(radius, dtype=torch.float32, device=o.device)
-    return sphere_t(o, d, center, r * r)
+    return _SphereHit.apply(o, d, center, r)
+
+
+def make_env_intersector(backend: str = "brute", *, mesh=None, flat_bvh=None,
+                         differentiable_tris: bool = False, device="cuda"):
+    """env_hit(o, d, v0, e1, e2, normals) -> (t, face, nrm), the bounce-loop
+    tracers' closest-hit query (rfx/ops/intersect.py:254-303).
+
+    backend:
+      'brute'  - Moller-Trumbore over all triangles; the normal is
+                 unit(cross(e1[f], e2[f])), differentiable in the edges;
+      'kernel' - the per-query BVH kernel (rfx_torch.ops.bvh_trace), from
+                 `flat_bvh` or `mesh`: the kernel on a CUDA tensor, its plain
+                 version on a CPU tensor. The counterpart of the reference's
+                 'pallas' backend, with `differentiable_tris` as there;
+      'bvh'    - the plain-PyTorch stackless walk: not ported (ROADMAP A8).
+    """
+    if backend == "brute":
+        def env_hit(o, d, v0, e1, e2, normals):
+            t, face = ray_mesh_closest_hit_brute(o, d, v0, e1, e2)
+            return t, face, hit_normal_from_edges(e1, e2, face)
+
+        return env_hit
+    if backend == "kernel":
+        if mesh is None and flat_bvh is None:
+            raise ValueError("backend 'kernel' needs mesh= or flat_bvh=")
+        from rfx_torch.ops.bvh_trace import make_kernel_env_hit
+
+        return make_kernel_env_hit(flat_bvh if flat_bvh is not None else mesh,
+                                   differentiable_tris=differentiable_tris, device=device)
+    if backend == "bvh":
+        raise NotImplementedError(
+            "backend 'bvh' (the stackless BVH walk in plain PyTorch) is not ported yet "
+            "(ROADMAP A8); use 'kernel'")
+    raise ValueError(f"unknown intersector backend: {backend}")

@@ -12,8 +12,11 @@ __all__ = ["reflect", "bend_angle", "fresnel_bounce_amplitude"]
 
 
 def reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
-    """Specular reflection d - 2 (d.n) n; invariant to the sign of n."""
-    return d - 2.0 * torch.sum(d * n, dim=-1, keepdim=True) * n
+    """Specular reflection d - 2 (d.n) n; invariant to the sign of n. The dot
+    product sums x + y + z in that order, as the fused kernel does, so the
+    scan tracer's bounce points round as the kernel's."""
+    w = d[..., 0] * n[..., 0] + d[..., 1] * n[..., 1] + d[..., 2] * n[..., 2]
+    return d - 2.0 * w[..., None] * n
 
 
 def bend_angle(d_in: torch.Tensor, d_out: torch.Tensor) -> torch.Tensor:

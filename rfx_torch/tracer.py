@@ -1,12 +1,16 @@
-"""Bounce-loop tracer, forward (port of rfx/tracer.py:trace_to_rx).
+"""Bounce-loop tracer (port of rfx/tracer.py): `trace_to_rx` and the
+coverage engine's env-only `trace_env`.
 
 A plain Python loop over bounces carries per-ray position, direction, alive
-mask, amplitude and path length; the environment hit is the brute-force
-Moller-Trumbore of rfx_torch.ops.intersect. It serves the facade's `brute`
-backend (meshes of at most 2048 triangles) and its `record_paths` branch.
-Semantics are the reference's: the receiver wins iff hit and t_env > t_rx,
-an env hit advances and reflects specularly, a double miss escapes, and dead
-rays are parked at 1e9.
+mask, amplitude and path length; the environment hit is an `env_hit(o, d,
+v0, e1, e2, normals) -> (t, face, nrm)` from
+rfx_torch.ops.intersect.make_env_intersector: brute-force Moller-Trumbore by
+default, or the per-query BVH kernel. Semantics are the reference's: the
+receiver wins iff hit and t_env > t_rx, an env hit advances and reflects
+specularly, a double miss escapes, and dead rays are parked at 1e9. Every
+step is differentiable PyTorch (the intersectors carry the reference's
+custom gradients), so autograd through the loop is the scan tracer's
+gradient path.
 """
 
 from __future__ import annotations
@@ -20,14 +24,14 @@ from rfx.geometry import icosphere
 from rfx_torch import physics
 from rfx_torch.device import resolve_device
 from rfx_torch.ops.intersect import (
-    hit_normal_from_edges,
     is_hit,
+    make_env_intersector,
     mesh_soa,
     ray_mesh_closest_hit_brute,
     ray_sphere_hit,
 )
 
-__all__ = ["Scene", "TraceResult", "trace_to_rx", "extract_paths"]
+__all__ = ["Scene", "TraceResult", "EnvSegments", "trace_to_rx", "trace_env", "extract_paths"]
 
 
 class Scene(NamedTuple):
@@ -49,39 +53,59 @@ class TraceResult(NamedTuple):
     path_vertices: torch.Tensor | None = None  # (B, N, 3) when record_paths
 
 
+class EnvSegments(NamedTuple):
+    """Per-bounce segments of an env-only trace (the coverage engine's)."""
+
+    origin: torch.Tensor  # (B, N, 3) segment start
+    direction: torch.Tensor  # (B, N, 3) unit direction
+    t_env: torch.Tensor  # (B, N) env-hit distance, MISS where the segment escapes
+    amplitude: torch.Tensor  # (B, N) amplitude at the segment start
+    distance: torch.Tensor  # (B, N) path length at the segment start
+    alive: torch.Tensor  # (B, N) bool: the segment exists
+
+
 # Unit icosphere (42 vertices / 80 faces): the reference receiver's
 # tessellation (ref tracer.py:27).
 _UNIT_ICO_TRI = icosphere(center=(0.0, 0.0, 0.0), radius=1.0, subdivisions=1).triangles()
 
 
+def icosphere_soa(rx_pos: torch.Tensor, rx_radius):
+    """(v0, e1, e2) of the reference's 80-face receiver icosphere at rx_pos."""
+    tri = torch.as_tensor(_UNIT_ICO_TRI, dtype=torch.float32, device=rx_pos.device)
+    r = torch.as_tensor(rx_radius, dtype=torch.float32, device=rx_pos.device)
+    return tri[:, 0] * r + rx_pos[None, :], (tri[:, 1] - tri[:, 0]) * r, (tri[:, 2] - tri[:, 0]) * r
+
+
 def _rx_query(rx_pos: torch.Tensor, rx_radius, rx_mode: str):
+    """t_rx(o, d) of the analytic or the icosphere receiver."""
     if rx_mode == "analytic":
         return lambda o, d: ray_sphere_hit(o, d, rx_pos, rx_radius)
     if rx_mode == "icosphere":
-        tri = torch.as_tensor(_UNIT_ICO_TRI, dtype=torch.float32, device=rx_pos.device)
-        r = torch.as_tensor(rx_radius, dtype=torch.float32, device=rx_pos.device)
-        v0 = tri[:, 0] * r + rx_pos[None, :]
-        e1 = (tri[:, 1] - tri[:, 0]) * r
-        e2 = (tri[:, 2] - tri[:, 0]) * r
+        v0, e1, e2 = icosphere_soa(rx_pos, rx_radius)
         return lambda o, d: ray_mesh_closest_hit_brute(o, d, v0, e1, e2)[0]
     raise ValueError(f"unknown rx_mode: {rx_mode}")
 
 
 def trace_to_rx(scene: Scene, tx_pos, directions: torch.Tensor, rx_pos, rx_radius, *,
                 max_bounces: int, n1=5.0, n2=1.0, rx_mode: str = "icosphere",
-                record_paths: bool = False, active: torch.Tensor | None = None,
+                env_hit=None, record_paths: bool = False, active: torch.Tensor | None = None,
                 warp_quirk_compat: bool = False) -> TraceResult:
     """Trace N rays from tx_pos; per-ray capture, amplitude, distance and
     bounce count, on the device of `directions`. `tx_pos` is (3,) or (N, 3);
-    `active` masks out padding rays."""
+    `env_hit` is the closest-hit query (None: brute force); `active` masks
+    out padding rays. Differentiable in tx_pos, directions, rx_pos,
+    rx_radius, n1, n2 and the scene's vertices (through `env_hit`'s
+    gradient)."""
     if warp_quirk_compat:
         raise NotImplementedError(
             "warp_quirk_compat is not ported yet (ROADMAP A8: the rest of trace_to_rx)")
+    if env_hit is None:
+        env_hit = make_env_intersector("brute")
     dev = directions.device
     f32 = torch.float32
-    v0, e1, e2, _ = mesh_soa(scene.vertices, scene.faces)
+    v0, e1, e2, normals = mesh_soa(scene.vertices, scene.faces)
     rx = torch.as_tensor(rx_pos, dtype=f32, device=dev)
-    rx_query = _rx_query(rx, rx_radius, rx_mode)
+    t_rx_of = _rx_query(rx, rx_radius, rx_mode)
 
     d = directions.to(f32)
     n = d.shape[0]
@@ -99,9 +123,8 @@ def trace_to_rx(scene: Scene, tx_pos, directions: torch.Tensor, rx_pos, rx_radiu
     parked = torch.full((), 1e9, dtype=f32, device=dev)
 
     for _ in range(max_bounces):
-        t_rx = rx_query(pos, d)
-        t_env, face = ray_mesh_closest_hit_brute(pos, d, v0, e1, e2)
-        nrm = hit_normal_from_edges(e1, e2, face)
+        t_rx = t_rx_of(pos, d)
+        t_env, _face, nrm = env_hit(pos, d, v0, e1, e2, normals)
         rx_win = alive & is_hit(t_rx) & (t_env > t_rx)
         env_bounce = alive & ~rx_win & is_hit(t_env)
 
@@ -111,6 +134,10 @@ def trace_to_rx(scene: Scene, tx_pos, directions: torch.Tensor, rx_pos, rx_radiu
 
         t_adv = torch.where(env_bounce, t_env, zero)
         new_pos = torch.where(env_bounce[:, None], pos + d * t_adv[:, None], parked)
+        # Lanes that do not env-bounce get a zero normal: their Fresnel value
+        # is discarded below, but its backward still multiplies a zero
+        # cotangent by the branch's derivative, and 0 x inf is NaN
+        # (rfx/tracer.py:192-200).
         nrm_safe = torch.where(env_bounce[:, None], nrm, zero)
         d_out = physics.reflect(d, nrm_safe)
         fres = physics.fresnel_bounce_amplitude(physics.bend_angle(d, d_out), n1, n2)
@@ -130,6 +157,46 @@ def trace_to_rx(scene: Scene, tx_pos, directions: torch.Tensor, rx_pos, rx_radiu
     if record_paths:
         paths = torch.stack(verts) if verts else torch.empty((0, n, 3), dtype=f32, device=dev)
     return TraceResult(captured, cap_amp, cap_dist, nb, paths)
+
+
+def trace_env(scene: Scene, tx_pos, directions: torch.Tensor, *, max_bounces: int, n1=5.0,
+              n2=1.0, env_hit=None, active: torch.Tensor | None = None) -> EnvSegments:
+    """Environment-only trace recording every bounce's segment
+    (rfx/tracer.py:263-336): the coverage engine intersects these with each
+    receiver afterwards, since a receiver never alters the environment path
+    and capture only truncates that receiver's own view of it."""
+    if env_hit is None:
+        env_hit = make_env_intersector("brute")
+    dev = directions.device
+    f32 = torch.float32
+    v0, e1, e2, normals = mesh_soa(scene.vertices, scene.faces)
+    d = directions.to(f32)
+    n = d.shape[0]
+    pos = torch.as_tensor(tx_pos, dtype=f32, device=dev)[None, :].expand(n, 3)
+    alive = torch.ones(n, dtype=torch.bool, device=dev) if active is None else active.to(torch.bool)
+    amp = torch.ones(n, dtype=f32, device=dev)
+    dist = torch.zeros(n, dtype=f32, device=dev)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    parked = torch.full((), 1e9, dtype=f32, device=dev)
+    segs = []
+    for _ in range(max_bounces):
+        t_env, _face, nrm = env_hit(pos, d, v0, e1, e2, normals)
+        segs.append((pos, d, t_env, amp, dist, alive))
+        env_bounce = alive & is_hit(t_env)
+        t_adv = torch.where(env_bounce, t_env, zero)
+        new_pos = torch.where(env_bounce[:, None], pos + d * t_adv[:, None], parked)
+        d_out = physics.reflect(d, nrm)
+        fres = physics.fresnel_bounce_amplitude(physics.bend_angle(d, d_out), n1, n2)
+        d = torch.where(env_bounce[:, None], d_out, d)
+        amp = torch.where(env_bounce, amp * fres, amp)
+        dist = dist + t_adv
+        pos = new_pos
+        alive = env_bounce
+    if not segs:
+        empty3 = torch.empty((0, n, 3), dtype=f32, device=dev)
+        empty = torch.empty((0, n), dtype=f32, device=dev)
+        return EnvSegments(empty3, empty3, empty, empty, empty, empty.bool())
+    return EnvSegments(*(torch.stack(x) for x in zip(*segs)))
 
 
 def extract_paths(tx_pos, result: TraceResult, max_paths: int = 10_000) -> list[np.ndarray]:

@@ -59,15 +59,10 @@ def test_fused_branch_matches_rfx():
 def test_fused_branch_refuses_what_needs_unported_kernels():
     mesh = make_terrain(grid=40, extent=40.0, seed=5)
     t = Tracer(mesh, max_bounces=2, tx_num_rays=64, device="cpu")
-    dirs = np.tile([[0.0, 0.0, -1.0]], (64, 1))
-    with pytest.raises(NotImplementedError, match="B3"):
-        t.compute_cir(TX, 1.0, RX, 1.0, directions=dirs, record_paths=True)
-    with pytest.raises(NotImplementedError, match="B3"):
-        t.compute_cir(TX, 1.0, RX, 1.0, directions=dirs)  # "auto" records paths at 64 rays
-    with pytest.raises(NotImplementedError, match="B3"):
-        Tracer(mesh, rx_mode="icosphere", device="cpu")
     with pytest.raises(NotImplementedError, match="A9"):
-        t.compute_coverage(TX, 1.0, RX[None], 1.0)
+        t.compute_coverage_dbm_fast(TX, 1.0, RX[None], 1.0)
+    with pytest.raises(NotImplementedError, match="A9"):
+        t.compute_coverage_dbm_hybrid(TX, 1.0, RX[None], 1.0)
     with pytest.raises(NotImplementedError, match="A8"):
         Tracer(mesh, backend="bvh", device="cpu")
     with pytest.raises(ValueError):

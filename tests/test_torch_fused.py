@@ -17,7 +17,7 @@ from rfx.bvh import build_bvh
 from rfx.geometry import make_terrain
 from rfx.tracer import Scene as JScene
 from rfx.tracer import trace_to_rx as jtrace_to_rx
-from rfx_torch.ops import fused
+from rfx_torch.ops import bvh_trace, fused
 from rfx_torch.ops.bvh_pack import pack_bvh
 
 torch.set_num_threads(1)
@@ -60,7 +60,7 @@ def test_fused_plain_chunking_and_empty_batch(monkeypatch):
     d = torch.from_numpy(np.array(jsampler.morton_sphere_directions(jax.random.PRNGKey(1), 700)))
     args = ([1.0, -2.0, 7.0], [-4.0, 3.0, 5.0], 1.5)
     whole = ft(d, *args)
-    monkeypatch.setattr(fused, "_PLAIN_PAIRS", 37 * ft.bvh.n_padded_tris)  # 37-ray chunks
+    monkeypatch.setattr(bvh_trace, "_PLAIN_PAIRS", 37 * ft.bvh.n_padded_tris)  # 37-ray chunks
     chunked = ft(d, *args)
     assert int(whole.captured.sum()) > 0
     for a, b in zip(whole[:4], chunked[:4]):

@@ -13,11 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from rfx.geometry import make_terrain
+from rfx.geometry import make_room, make_terrain
 from rfx_torch import cir
 from rfx_torch.api import Tracer
-from rfx_torch.ops import fused
+from rfx_torch.ops import bvh_trace, fused, intersect
 from rfx_torch.sampler import morton_sphere_directions
+from rfx_torch.tracer import Scene, trace_to_rx
 
 pytestmark = pytest.mark.cuda
 
@@ -114,3 +115,100 @@ def test_facade_on_card_matches_cpu(cuda):
     assert ir_cpu.sum() > 0
     np.testing.assert_array_equal(ir_gpu != 0, ir_cpu != 0)
     np.testing.assert_allclose(ir_gpu, ir_cpu, rtol=1e-4, atol=1e-9)
+
+
+def _query_sets(cuda, bvh, n):
+    """Rays from a transmitter, their reflected second-bounce queries from
+    the terrain, and parked rays (|o| = 1e9)."""
+    d = morton_sphere_directions(n, generator=torch.Generator(cuda).manual_seed(9), device=cuda)
+    o = torch.tensor([2.0, 1.0, 12.0], device=cuda).expand(n, 3).contiguous()
+    t, _, _, nrm = bvh_trace.closest_hit_plain(bvh, o, d)
+    hit = t < 1e29
+    o2 = (o + d * t[:, None])[hit]
+    d2 = (d - 2.0 * intersect.dot3(d, nrm)[:, None] * nrm)[hit]
+    parked = torch.full((1024, 3), 1e9, device=cuda)
+    return {"tx": (o, d), "bounce2": (o2.contiguous(), d2.contiguous()),
+            "parked": (parked, d[:1024].contiguous())}
+
+
+@pytest.mark.parametrize("live", [False, True], ids=["packed", "live_tri"])
+def test_closest_hit_kernel_matches_plain(cuda, live):
+    mesh = make_terrain(grid=48, extent=40.0, seed=3)
+    env = bvh_trace.make_kernel_env_hit(mesh, device=cuda)
+    bvh = env.bvh
+    tri = None
+    if live:
+        v0, e1, e2, _ = intersect.mesh_soa(torch.as_tensor(mesh.vertices, device=cuda),
+                                           torch.as_tensor(mesh.faces, device=cuda))
+        tri = bvh_trace.live_tri(bvh, v0, e1, e2)
+    for name, (o, d) in _query_sets(cuda, bvh, 20_000).items():
+        before = bvh_trace.CLOSEST_HIT_KERNEL.launches
+        k = bvh_trace.closest_hit(bvh, o, d, tri)
+        assert bvh_trace.CLOSEST_HIT_KERNEL.launches == before + 1
+        p = bvh_trace.closest_hit_plain(bvh, o, d, tri)
+        torch.cuda.synchronize()
+        for a, b in zip(k, p):
+            assert torch.equal(a, b), name
+        if name == "parked":
+            assert (k[1] == -1).all()
+        else:
+            assert int((k[1] >= 0).sum()) > 0, name
+
+
+def test_fused_record_faces_kernel_matches_plain(cuda):
+    ft = fused.make_fused_tracer(make_terrain(grid=48, extent=40.0, seed=3), max_bounces=4,
+                                 device=cuda)
+    dirs = morton_sphere_directions(65_536, generator=torch.Generator(cuda).manual_seed(4),
+                                    device=cuda)
+    args = ([2.0, 1.0, 12.0], [-5.0, 2.0, 6.0], 2.0)
+    k, kf = fused.fused_trace(ft.bvh, dirs, *args, max_bounces=4, record_faces=True)
+    p, pf = fused.fused_trace_plain(ft.bvh, dirs, *args, max_bounces=4, record_faces=True)
+    plain = fused.fused_trace(ft.bvh, dirs, *args, max_bounces=4)
+    torch.cuda.synchronize()
+    assert kf.shape == (4, 65_536) and torch.equal(kf, pf)
+    assert torch.equal((kf >= 0).sum(0).int(), k.num_bounces)
+    _assert_trace_equal(k, p)
+    for a, b in zip(k[:4], plain[:4]):  # the record leaves the trace as it was
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+def test_histogram_backward_on_card_matches_plain(cuda, soft):
+    g = np.random.default_rng(18)
+    n = 300_000
+    host = [torch.from_numpy(g.random(n).astype(np.float32)),
+            torch.from_numpy((g.random(n) * 70.0).astype(np.float32))]
+    cap = torch.from_numpy(g.random(n) < 0.3)
+    w = torch.from_numpy(g.normal(size=20_000).astype(np.float32))
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        amp, dist = (a.to(dev).requires_grad_() for a in host)
+        ir = cir.bin_impulse_response(amp, dist, cap.to(dev), nbins=20_000,
+                                      light_speed_mps=2.998e8, sample_rate_hz=100e9, soft=soft)
+        assert ir.requires_grad
+        (ir * w.to(dev)).sum().backward()
+        grads.append((amp.grad.cpu(), dist.grad.cpu()))
+    torch.cuda.synchronize()
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))
+
+
+def test_scan_gradients_on_card_match_cpu(cuda):
+    room = make_room()
+    dirs = morton_sphere_directions(4096, generator=torch.Generator().manual_seed(5), device="cpu")
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        env = intersect.make_env_intersector("kernel", mesh=room, differentiable_tris=True,
+                                             device=dev)
+        tx = torch.tensor([4.0, 3.0, 6.0], device=dev, requires_grad=True)
+        verts = torch.as_tensor(room.vertices, device=dev).clone().requires_grad_()
+        r = trace_to_rx(Scene(verts, torch.as_tensor(room.faces, device=dev)), tx,
+                        dirs.to(dev), [-6.0, -4.0, 5.0], 2.0, max_bounces=2, rx_mode="analytic",
+                        env_hit=env)
+        torch.where(r.captured, r.amplitude * r.distance, 0.0).sum().backward()
+        out.append((r.captured.cpu(), tx.grad.cpu(), verts.grad.cpu()))
+    torch.cuda.synchronize()
+    assert torch.equal(out[0][0], out[1][0]) and int(out[0][0].sum()) > 0
+    torch.testing.assert_close(out[0][1], out[1][1], rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(out[0][2], out[1][2], rtol=1e-3,
+                               atol=1e-6 * float(out[1][2].abs().max()))

@@ -26,6 +26,17 @@ tr = Tracer(make_terrain(grid=34, extent=30.0, seed=1), max_bounces=2, tx_num_ra
 assert tr.backend == "fused"
 _, ir2 = tr.compute_cir([0.0, 0.0, 9.0], 1.0, [3.0, 0.0, 6.0], 2.0, directions=dirs,
                         record_paths=False)
+from rfx_torch import coverage, solver
+from rfx_torch.tracer import Scene
+room = make_room()
+scene = Scene.from_mesh(room, "cpu")
+tx = torch.tensor([4.0, 3.0, 6.0], requires_grad=True)
+irs = solver.coverage_irs_soft(scene.vertices, scene.faces, tx, 5.0, dirs[:256],
+                               coverage.make_grid([-6.0], [-4.0, 4.0], [5.0]), 2.0,
+                               num_rays=256, max_bounces=2, nbins=512,
+                               light_speed_mps=2.998e8, sample_rate_hz=10e9)
+(irs * irs).sum().backward()
+assert torch.isfinite(tx.grad).all() and float(tx.grad.abs().sum()) > 0
 print(float(ir.sum()), float(ir2.sum()), tr.rx_power_dbm(ir2))
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", bad)
