@@ -30,7 +30,8 @@ happened, and none catching its own failure:
 7. the per-query closest-hit kernel against its plain version on the bench
    scene: the 65,536 rays of phase 4 from tx, their reflected second-bounce
    queries from the terrain, and 1,024 parked rays; identical t, indices,
-   faces and normals;
+   faces and normals; the first two sets again with a live triangle table
+   (`live_tri`, the differentiable-tris route's repack);
 8. the fused-trace kernel's face record against its plain version on the
    phase-4 rays: identical face tables (and an unchanged trace);
 9. the gradient path at scripts/bench_gradients.py's width (2,621,440 Morton
@@ -45,15 +46,25 @@ happened, and none catching its own failure:
     terrain n1 FD (5%), differentiable-tris vs baked n1 (2%), terrain vertex
     gradient differentiable-tris vs the brute intersector's backward (2% of
     the norm);
-11. five steps of the inverse solve: the terrain, 1,048,576 Morton rays,
-    4 bounces, 64 receivers on an 8x8 grid at z = 8 over x, y in [-20, 20],
-    radius 1.0, 20,000 bins at 100 GHz, target energies from tx (10, 0, 25),
-    start (12, -2, 26), lr 0.05: finite losses, finite nonzero gradients,
-    parameters that moved;
+11. the inverse solve: first three steps in the room of
+    tests/test_torch_solver.py, where the parameters move, on the card
+    through the closest-hit kernel, each held against the same step on the
+    CPU through its plain version from the card's parameters and Adam state:
+    loss and gradients within rtol 1e-4, updated parameters within atol
+    1e-5; then five steps at full width: the
+    terrain, 1,048,576 Morton rays, 4 bounces, 64 receivers on an 8x8 grid
+    at z = 8 over x, y in [-20, 20], radius 1.0, 20,000 bins at 100 GHz,
+    target energies from tx (10, 0, 25), start (12, -2, 26), lr 0.05: finite
+    losses, finite nonzero gradients, time per step and peak memory;
 12. the facade: compute_cir(record_paths=True) at 262,144 rays through the
     closest-hit kernel (paths start at tx, captures within the flip budget
     of the fused kernel's), and compute_coverage of 16 receivers.
-The launch counts are reset before phase 9 and must be > 0 after phase 12.
+Each main-path run is counted on its own: every launch count is set to 0
+just before it and read just after, and each kernel the path runs must have
+launched (the forward requests: fused trace and histogram; the scan
+value+grad and the five full-width solver steps: closest hit and histogram;
+the fused value+grad: fused trace and histogram). The comparisons with the
+plain versions, the checks of phase 10 and the facade are not counted.
 
 Prints CUDA-event times of the kernels beside their plain versions, one JSON
 line of the kernels, and as its last line
@@ -64,6 +75,7 @@ sources are missing.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -115,13 +127,32 @@ def _flip_budget(n: int) -> int:
     return max(4, n // 500)
 
 
-def _closest_hit_phase(bvh, sub):
+def _counted(kernels, path: str, needs, fn):
+    """Run `fn` once as one main-path run: every launch count set to 0 just
+    before, read just after. Fails unless each kernel source in `needs`
+    launched. Returns (fn's result, {kernel source: launches})."""
+    _sync()
+    for k in kernels:
+        k.launches = 0
+    out = fn()
+    _sync()
+    counts = {k.source: k.launches for k in kernels}
+    _require(all(counts[s] > 0 for s in needs), f"{path}: a kernel did not run: {counts}")
+    print(f"# {path} launches {counts}", flush=True)
+    return out, counts
+
+
+def _closest_hit_phase(mesh, bvh, sub):
     """Phase 7: the closest-hit kernel against its plain version on three
-    query sets; returns (max |error|, kernel ms, plain ms) on the tx set."""
+    query sets, with the packed triangle table, and on two of them with a
+    live repack (`live_tri`) of triangles shrunk by 0.1% about their
+    centroids (a table unlike the packed one whose triangles stay inside the
+    host-built boxes); returns (max |error|, kernel ms, plain ms) on the tx
+    set."""
     import torch
 
     from rfx_torch.ops import bvh_trace
-    from rfx_torch.ops.intersect import dot3
+    from rfx_torch.ops.intersect import dot3, mesh_soa
 
     dev = sub.device
     o1 = torch.tensor(TX, device=dev).expand(sub.shape[0], 3).contiguous()
@@ -130,18 +161,30 @@ def _closest_hit_phase(bvh, sub):
     o2 = (o1 + sub * t1[:, None])[hit].contiguous()
     d2 = (sub - 2.0 * dot3(sub, n1)[:, None] * n1)[hit].contiguous()
     parked = torch.full((1024, 3), 1e9, device=dev)
-    sets = {"tx": (o1, sub), "bounce2": (o2, d2), "parked": (parked, sub[:1024].contiguous())}
+    v0, e1, e2, _ = mesh_soa(torch.as_tensor(mesh.vertices, device=dev),
+                             torch.as_tensor(mesh.faces, device=dev))
+    shrink = 0.999
+    live = bvh_trace.live_tri(bvh, v0 + (1.0 - shrink) / 3.0 * (e1 + e2), shrink * e1,
+                              shrink * e2)
+    sets = {"tx": (o1, sub, None), "bounce2": (o2, d2, None),
+            "parked": (parked, sub[:1024].contiguous(), None),
+            "tx, live table": (o1, sub, live), "bounce2, live table": (o2, d2, live)}
     err = 0.0
-    for name, (o, d) in sets.items():
-        k = bvh_trace.closest_hit(bvh, o, d)
-        p = bvh_trace.closest_hit_plain(bvh, o, d)
+    for name, (o, d, tri) in sets.items():
+        k = bvh_trace.closest_hit(bvh, o, d, tri)
+        p = bvh_trace.closest_hit_plain(bvh, o, d, tri)
         _sync()
         for what, a, b in zip(("t", "idx", "face", "nrm"), k, p):
             _require(torch.equal(a, b), f"closest hit, {name} rays: {what} differs from plain")
         err = max(err, float((k[0] - p[0]).abs().max()), float((k[3] - p[3]).abs().max()))
         n_hit = int((k[1] >= 0).sum())
         _require(n_hit == 0 if name == "parked" else n_hit > 0, f"closest hit, {name}: {n_hit} hits")
-        print(f"# closest hit, {o.shape[0]} {name} rays: kernel == plain ({n_hit} hits)")
+        note = ""
+        if tri is not None:  # the live table must answer differently from the packed one
+            n_diff = int((k[0] != bvh_trace.closest_hit(bvh, o, d)[0]).sum())
+            _require(n_diff > 0, f"closest hit, {name}: the live table answers as the packed one")
+            note = f", {n_diff} t differ from the packed table's"
+        print(f"# closest hit, {o.shape[0]} {name} rays: kernel == plain ({n_hit} hits{note})")
     ms = _cuda_ms(lambda: bvh_trace.closest_hit(bvh, o1, sub), 20)
     plain_ms = _cuda_ms(lambda: bvh_trace.closest_hit_plain(bvh, o1, sub), 1)
     print(f"# closest hit, {sub.shape[0]} rays from tx: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms",
@@ -149,9 +192,10 @@ def _closest_hit_phase(bvh, sub):
     return err, ms, plain_ms
 
 
-def _gradient_phase(mesh, flat, bvh, dev):
+def _gradient_phase(mesh, flat, bvh, dev, kernels):
     """Phase 9: d loss / d tx through both differentiation paths at full
-    width; returns a dict of what it measured."""
+    width; returns a dict of what it measured, the launch counts of each
+    path's counted value+grad among it."""
     import numpy as np
     import torch
 
@@ -177,6 +221,8 @@ def _gradient_phase(mesh, flat, bvh, dev):
                                         rx_mode="analytic", env_hit=env),
         "fused": lambda txp: dt(scene.vertices, txp, dirs, RX, RX_RADIUS),
     }
+    needs = {"scan": ("closest_hit.cu", "histogram.cu"),
+             "fused": ("fused_trace.cu", "histogram.cu")}
     out = {}
     for name, trace in traces.items():
         tx_c = torch.tensor(TX, device=dev)
@@ -195,14 +241,14 @@ def _gradient_phase(mesh, flat, bvh, dev):
         torch.cuda.reset_peak_memory_stats(dev)
         vg_ms = _cuda_ms(valgrad, 3)
         peak = torch.cuda.max_memory_allocated(dev)
-        loss, grad = valgrad()
+        (loss, grad), launches = _counted(kernels, f"{name} value+grad", needs[name], valgrad)
         with torch.no_grad():
             captured = trace(tx_c).captured
         _sync()
         g = grad.cpu().numpy()
         _require(np.all(np.isfinite(g)) and np.abs(g).sum() > 0, f"{name} gradient {g}")
         out[name] = dict(forward_ms=fwd_ms, valgrad_ms=vg_ms, peak_bytes=peak,
-                         loss=float(loss), grad=g, captured=captured)
+                         loss=float(loss), grad=g, captured=captured, launches=launches)
         print(f"# gradient path {name}, {GRAD_RAYS} rays: loss {float(loss):.6e}, d/d tx {g}; "
               f"forward {fwd_ms:.3f} ms, value+grad {vg_ms:.3f} ms "
               f"({GRAD_RAYS / vg_ms / 1e3:.2f} Mrays/s), peak {peak / 2**30:.3f} GiB", flush=True)
@@ -345,8 +391,80 @@ def _fd_phase(terrain, terrain_bvh, dev):
           f"|diff| {num:.6g}, |ref| {den:.6g} (2%)")
 
 
-def _solver_phase(mesh, bvh, dev):
-    """Phase 11: five steps of the inverse solve; returns what it measured."""
+def _solver_step_vs_plain(dev):
+    """Phase 11, first part: three solver steps where the parameters move
+    (the room of tests/test_torch_solver.py: 2,048 rays, 2 bounces, two
+    receivers, 512 bins at 10 GHz, lr 0.1), on the card through the
+    closest-hit kernel. Each step is held against the same step on the CPU
+    through the kernel's plain version, started from the card's parameters
+    and Adam state: the loss, the gradients and the updated parameters must
+    agree. (Two trajectories would drift apart: the soft-binned loss's
+    gradient jumps where a path's delay crosses a bin centre, so ulp-level
+    differences in the parameters can change it by ~1%.)"""
+    import numpy as np
+    import torch
+
+    from oracle import sample_sphere_directions
+    from rfx.geometry import make_room
+    from rfx_torch.ops.bvh_trace import make_kernel_env_hit
+    from rfx_torch.solver import coverage_irs_soft, make_inverse_solver
+    from rfx_torch.tracer import Scene
+
+    room = make_room()
+    dirs = torch.from_numpy(sample_sphere_directions(2048, seed=13))
+    rxc = torch.tensor([[-6.0, 0.0, 5.0], [6.0, 0.0, 5.0]])
+    kw = dict(max_bounces=2, nbins=512, light_speed_mps=C, sample_rate_hz=10e9)
+    cpu = torch.device("cpu")
+    scene_c = Scene.from_mesh(room, cpu)
+    with torch.no_grad():
+        irs = coverage_irs_soft(scene_c.vertices, scene_c.faces, torch.tensor([3.0, 0.0, 5.0]),
+                                5.0, dirs, rxc, 2.5, num_rays=2048,
+                                env_hit=make_kernel_env_hit(room, device=cpu), **kw)
+        target = torch.sum(irs * irs, dim=1)
+    tx0 = [-2.0, 1.5, 4.0]
+    (pk, ok, step_k), (pc, oc, step_c) = (
+        (*init_fn(tx0), step_fn) for init_fn, step_fn in (
+            make_inverse_solver(Scene.from_mesh(room, dv), dirs, rxc, 2.5, target,
+                                learning_rate=0.1, env_hit=make_kernel_env_hit(room, device=dv),
+                                **kw) for dv in (dev, cpu)))
+
+    def state(params, loss):
+        return [np.asarray(float(loss))] + [
+            a.detach().cpu().numpy().copy()
+            for a in (params.tx_pos.grad, params.log_n1.grad, params.tx_pos, params.log_n1)]
+
+    worst = [0.0] * 5
+    losses = []
+    for i in range(3):
+        with torch.no_grad():  # the CPU starts from the card's parameters and Adam state
+            for c, k in zip(pc[:2], pk[:2]):
+                c.copy_(k.cpu())
+        oc.load_state_dict(copy.deepcopy(ok.state_dict()))
+        pk, ok, loss_k = step_k(pk, ok)
+        pc, oc, loss_c = step_c(pc, oc)
+        k, p = state(pk, loss_k), state(pc, loss_c)
+        _sync()
+        losses.append(float(k[0]))
+        for j, (what, a, b, rtol, atol) in enumerate(zip(
+                ("loss", "tx grad", "log_n1 grad", "tx", "log_n1"), k, p,
+                (1e-4, 1e-4, 1e-4, 0.0, 0.0),
+                (0.0, 1e-6 * np.abs(p[1]).max(), 1e-6 * np.abs(p[2]).max(), 1e-5, 1e-5))):
+            _require(np.all(np.isfinite(a)) and np.allclose(a, b, rtol=rtol, atol=atol),
+                     f"solver step {i + 1} on the card vs the CPU: {what} {a} vs {b}")
+            worst[j] = max(worst[j], float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30))))
+        _require(float(np.abs(k[1]).min()) > 0, f"room solver step {i + 1}: tx grad {k[1]}")
+    moved = float(np.abs(pk.tx_pos.detach().cpu().numpy() - np.asarray(tx0, np.float32)).max())
+    _require(moved > 0.1, f"room solver: tx moved {moved} in 3 steps")
+    print(f"# inverse solve, room, 3 steps on the card == the same steps on the CPU (plain): "
+          f"losses {losses}, tx {pk.tx_pos.detach().cpu().numpy()} (moved {moved:.6g}); max rel "
+          f"diff loss {worst[0]:.3e}, tx grad {worst[1]:.3e}, log_n1 grad {worst[2]:.3e}, tx "
+          f"{worst[3]:.3e}, log_n1 {worst[4]:.3e}", flush=True)
+    return dict(room_losses=losses, room_tx_moved=moved, room_max_rel_diff=worst)
+
+
+def _solver_phase(mesh, bvh, dev, kernels):
+    """Phase 11: the room steps against their CPU version, then five steps
+    of the inverse solve at full width; returns what it measured."""
     import numpy as np
     import torch
 
@@ -356,6 +474,7 @@ def _solver_phase(mesh, bvh, dev):
     from rfx_torch.solver import coverage_irs_soft, make_inverse_solver
     from rfx_torch.tracer import Scene
 
+    room = _solver_step_vs_plain(dev)
     scene = Scene.from_mesh(mesh, dev)
     dirs = morton_sphere_directions(SOLVER_RAYS, generator=torch.Generator(dev).manual_seed(1),
                                     device=dev)
@@ -374,44 +493,35 @@ def _solver_phase(mesh, bvh, dev):
                                            env_hit=env, **kw)
     params, opt = init_fn([12.0, -2.0, 26.0])
     leaves = list(params[:2])
-    start = [p.detach().double().cpu() for p in leaves]
-    adam_total = [torch.zeros_like(s) for s in start]  # Adam's own steps, in f64
+    start = [p.detach().clone() for p in leaves]
     torch.cuda.reset_peak_memory_stats(dev)
     losses, step_ms = [], []
-    for _ in range(5):
-        h0 = time.perf_counter()
-        params, opt, loss = step_fn(params, opt)
-        losses.append(float(loss))
-        step_ms.append((time.perf_counter() - h0) * 1e3)
-        for k, p in enumerate(leaves):
-            st = opt.state[p]
-            n = float(st["step"])
-            m = st["exp_avg"].double().cpu() / (1 - 0.9 ** n)
-            v = st["exp_avg_sq"].double().cpu() / (1 - 0.999 ** n)
-            adam_total[k] -= 0.05 * m / (v.sqrt() + 1e-8)
+
+    def steps():
+        nonlocal params, opt
+        for _ in range(5):
+            h0 = time.perf_counter()
+            params, opt, loss = step_fn(params, opt)
+            losses.append(float(loss))
+            step_ms.append((time.perf_counter() - h0) * 1e3)
+
+    _, launches = _counted(kernels, "inverse solve", ("closest_hit.cu", "histogram.cu"), steps)
     peak = torch.cuda.max_memory_allocated(dev)
     grads = [p.grad.cpu().numpy() for p in leaves]
     _require(all(np.isfinite(losses)), f"solver losses {losses}")
     for name, g in zip(("tx", "log_n1"), grads):
         _require(np.all(np.isfinite(g)) and np.abs(g).sum() > 0, f"solver {name} grad {g}")
-    # The parameters moved by Adam's steps, to f32 resolution: the loss of
-    # rfx/solver.py scales as (1/N)^4, so at 1M rays its gradients are tiny
-    # and Adam's eps (1e-8) can shrink a step below an f32 ulp.
-    moved = [p.detach().double().cpu() - s for p, s in zip(leaves, start)]
-    for name, mv, want, s in zip(("tx", "log_n1"), moved, adam_total, start):
-        ulp = torch.as_tensor(np.spacing(np.abs(s.numpy()).astype(np.float32)), dtype=torch.float64)
-        _require(bool(((mv - want).abs() <= 5 * ulp).all()),
-                 f"solver {name} moved {mv.numpy()}, Adam's steps sum to {want.numpy()}")
-    moved_max = [float(mv.abs().max()) for mv in moved]
-    adam_max = [float(w.abs().max()) for w in adam_total]
+    # At this width the reference's loss (scaled as (1/N)^4) gives gradients
+    # near 1e-18, so Adam's eps (1e-8) keeps each step below an f32 ulp of
+    # the parameters; the room steps above are where they move.
+    moved_max = [float((p.detach() - s).abs().max()) for p, s in zip(leaves, start)]
     print(f"# inverse solve, {SOLVER_RAYS} rays x {centers.shape[0]} receivers ({n_lit} lit): "
           f"losses {losses}; ms per step {[round(x, 3) for x in step_ms]}; tx "
           f"{params.tx_pos.detach().cpu().numpy()}, n1 {float(params.log_n1.detach().exp()):.6f}; "
           f"last grads tx {grads[0]}, log_n1 {grads[1]}; max |moved| tx {moved_max[0]:.6g}, "
-          f"log_n1 {moved_max[1]:.6g} (Adam's steps {adam_max[0]:.6g}, {adam_max[1]:.6g}); "
-          f"peak {peak / 2**30:.3f} GiB", flush=True)
+          f"log_n1 {moved_max[1]:.6g}; peak {peak / 2**30:.3f} GiB", flush=True)
     return dict(losses=losses, step_ms=step_ms, peak_bytes=peak, moved_max=moved_max,
-                adam_step_max=adam_max)
+                launches=launches, **room)
 
 
 def _facade_phase(mesh, dirs, dev):
@@ -528,21 +638,20 @@ def main() -> int:
     amp = full.amplitude * (torch.tensor(1.0) / N_RAYS).to(dev)
     hkw = dict(nbins=NBINS, light_speed_mps=C, sample_rate_hz=RATE)
     h_args = (amp, full.distance, full.captured)
-    ir_k = cir.histogram(*h_args, **hkw)
-    ir_k2 = cir.histogram(*h_args, **hkw)
+    ir_k = cir.bin_impulse_response(*h_args, **hkw)
+    ir_k2 = cir.bin_impulse_response(*h_args, **hkw)
     ir_p = cir.histogram_plain(*h_args, **hkw)
     _sync()
     _require(torch.equal(ir_k, ir_k2), "IR histogram: two kernel runs differ")
     _require(torch.equal(ir_k != 0, ir_p != 0), "IR histogram: nonzero bins differ from plain")
     _require(torch.allclose(ir_k, ir_p, rtol=1e-4, atol=1e-9), "IR histogram: kernel != plain")
     ir_err = float((ir_k - ir_p).abs().max())
-    for mode in (cir.SOFT_LO, cir.SOFT_HI):
-        s_k = cir.histogram(*h_args, mode=mode, **hkw)
-        s_p = cir.histogram_plain(*h_args, mode=mode, **hkw)
-        _require(torch.allclose(s_k, s_p, rtol=1e-4, atol=1e-9), f"soft histogram {mode} differs")
-        ir_err = max(ir_err, float((s_k - s_p).abs().max()))
+    s_k = cir.bin_impulse_response(*h_args, soft=True, **hkw)
+    s_p = sum(cir.histogram_plain(*h_args, mode=m, **hkw) for m in (cir.SOFT_LO, cir.SOFT_HI))
+    _require(torch.allclose(s_k, s_p, rtol=1e-4, atol=1e-9), "soft histogram differs")
+    ir_err = max(ir_err, float((s_k - s_p).abs().max()))
     _sync()
-    kh_ms = _cuda_ms(lambda: cir.histogram(*h_args, **hkw), 20)
+    kh_ms = _cuda_ms(lambda: cir.bin_impulse_response(*h_args, **hkw), 20)
     kh_plain_ms = _cuda_ms(lambda: cir.histogram_plain(*h_args, **hkw), 20)
     n_cap = int(full.captured.sum())
     print(f"# IR histogram, {N_RAYS} rays ({n_cap} captured), {NBINS} bins: kernel == plain "
@@ -586,7 +695,7 @@ def main() -> int:
     print(f"# main path: captures {n_cap} at tx={TX}; launches {launches}", flush=True)
 
     # 7. The closest-hit kernel against its plain version.
-    k2_err, k2_ms, k2_plain_ms = _closest_hit_phase(bvh, sub)
+    k2_err, k2_ms, k2_plain_ms = _closest_hit_phase(mesh, bvh, sub)
 
     # 8. The fused kernel's face record against its plain version.
     k_res, k_faces = fused_trace(bvh, sub, *args, max_bounces=BOUNCES, record_faces=True)
@@ -609,34 +718,40 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 9-12. The gradient path, its checks, the inverse solve and the facade.
-    for k in kernels_built:
-        k.launches = 0
-    grad = _gradient_phase(mesh, flat, bvh, dev)
+    #       Each main-path run (the forward requests above, each gradient
+    #       path's value+grad, the solver's five steps) is counted on its own;
+    #       the checks' and the facade's launches are not counted.
+    grad = _gradient_phase(mesh, flat, bvh, dev, kernels_built)
     _fd_phase(mesh, bvh, dev)
-    solve = _solver_phase(mesh, bvh, dev)
+    solve = _solver_phase(mesh, bvh, dev, kernels_built)
     _facade_phase(mesh, dirs, dev)
-    grad_launches = {k.source: k.launches for k in kernels_built}
-    _require(all(v > 0 for v in grad_launches.values()),
-             f"a kernel did not run on the gradient path: {grad_launches}")
-    print(f"# gradient path launches {grad_launches}", flush=True)
+    by_path = {
+        "forward": {"fused_trace.cu": launches["fused_trace"],
+                    "histogram.cu": launches["ir_histogram"]},
+        "scan_grad": grad["scan"].pop("launches"),
+        "fused_grad": grad["fused"].pop("launches"),
+        "solver": solve.pop("launches"),
+    }
+
+    def counts(source):
+        per_path = {p: c.get(source, 0) for p, c in by_path.items()}
+        return {"launches": sum(per_path.values()), "launches_by_path": per_path}
 
     kernels = [
         {"name": "fused_trace", "route": "cuda", "source": "rfx_torch/csrc/fused_trace.cu",
-         "replaces": "rfx/ops/pallas_fused.py:62", "launches": grad_launches["fused_trace.cu"],
-         "launches_forward_path": launches["fused_trace"],
+         "replaces": "rfx/ops/pallas_fused.py:62", **counts("fused_trace.cu"),
          "max_abs_err": max(amp_err, dist_err), "ms": k1_ms_sub, "plain_ms": k1_plain_ms_sub,
          "ms_full": k1_ms_full, "ms_record_faces": k1_faces_ms,
          "ms_record_faces_full": k1_faces_ms_full,
          "shape": f"ms, plain_ms, ms_record_faces: {SUBSET} rays; *_full: {N_RAYS} rays; "
                   f"{BOUNCES} bounces; face records identical to plain"},
         {"name": "closest_hit", "route": "cuda", "source": "rfx_torch/csrc/closest_hit.cu",
-         "replaces": "rfx/ops/pallas_trace.py:100", "launches": grad_launches["closest_hit.cu"],
+         "replaces": "rfx/ops/pallas_trace.py:100", **counts("closest_hit.cu"),
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
-         "shape": f"{SUBSET} rays from tx; also checked on their second-bounce queries and "
-                  f"1,024 parked rays"},
+         "shape": f"{SUBSET} rays from tx; also checked on their second-bounce queries, "
+                  f"1,024 parked rays and a live triangle table"},
         {"name": "ir_histogram", "route": "cuda", "source": "rfx_torch/csrc/histogram.cu",
-         "replaces": "rfx/cir.py:32", "launches": grad_launches["histogram.cu"],
-         "launches_forward_path": launches["ir_histogram"],
+         "replaces": "rfx/cir.py:32", **counts("histogram.cu"),
          "max_abs_err": ir_err, "ms": kh_ms, "plain_ms": kh_plain_ms,
          "shape": f"{N_RAYS} rays, {NBINS} bins, hard"},
     ]

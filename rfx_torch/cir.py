@@ -24,7 +24,7 @@ import torch
 
 from rfx_torch.ops._build import CudaKernel, F, I, P
 
-__all__ = ["bin_impulse_response", "cir_from_trace", "histogram", "histogram_plain",
+__all__ = ["bin_impulse_response", "cir_from_trace", "histogram_plain",
            "rx_power_dbm", "to_dbm", "HISTOGRAM_KERNEL"]
 
 HARD, SOFT_LO, SOFT_HI = 0, 1, 2
@@ -166,10 +166,13 @@ class _Histogram(torch.autograd.Function):
         return g_amp, g_dist, None, None, None, None, None
 
 
-def histogram(amplitude, distance, captured, *, nbins: int, light_speed_mps: float,
-              sample_rate_hz: float, mode: int = HARD) -> torch.Tensor:
-    """Weighted histogram of captured paths into delay bins, (nbins,) f32,
-    differentiable in amplitude and distance.
+def bin_impulse_response(amplitude, distance, captured, *, nbins: int, light_speed_mps: float,
+                         sample_rate_hz: float, soft: bool = False) -> torch.Tensor:
+    """Scatter per-path amplitudes into delay bins, (nbins,) f32,
+    differentiable in amplitude and distance. Hard mode is the reference's
+    bin = int(distance / c * rate), out-of-window paths dropped; soft mode
+    splits each amplitude linearly between the two neighbouring bins, so the
+    IR has a gradient in the distance.
 
     A CPU tensor goes to `histogram_plain`; a CUDA tensor launches the
     kernel, which is bit-identical from run to run."""
@@ -177,23 +180,7 @@ def histogram(amplitude, distance, captured, *, nbins: int, light_speed_mps: flo
     if nbins < 1:
         raise ValueError("nbins must be at least 1")
     return _Histogram.apply(amplitude, distance, captured, nbins, light_speed_mps,
-                            sample_rate_hz, (mode,))
-
-
-def bin_impulse_response(amplitude, distance, captured, *, nbins: int, light_speed_mps: float,
-                         sample_rate_hz: float, soft: bool = False) -> torch.Tensor:
-    """Scatter per-path amplitudes into delay bins. Hard mode is the
-    reference's bin = int(distance / c * rate), out-of-window paths dropped;
-    soft mode splits each amplitude linearly between the two neighbouring
-    bins, so the IR has a gradient in the distance."""
-    if not soft:
-        return histogram(amplitude, distance, captured, nbins=nbins,
-                         light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz)
-    _check_inputs(amplitude, distance, captured)
-    if nbins < 1:
-        raise ValueError("nbins must be at least 1")
-    return _Histogram.apply(amplitude, distance, captured, nbins, light_speed_mps,
-                            sample_rate_hz, (SOFT_LO, SOFT_HI))
+                            sample_rate_hz, (SOFT_LO, SOFT_HI) if soft else (HARD,))
 
 
 def cir_from_trace(result, *, tx_power, num_rays: int, nbins: int, light_speed_mps: float,

@@ -262,9 +262,6 @@ def replay_from_faces(vertices, faces_tbl, tx_pos, directions, rx_pos, rx_radius
     return cap_amp, cap_dist
 
 
-_DIFF_ARGS = ("vertices", "tx_pos", "directions", "rx_pos", "rx_radius")
-
-
 class _DiffFused(torch.autograd.Function):
     """The fused kernel with `record_faces` forward; the replay backward on
     the captured rays (rfx/ops/pallas_fused.py:913-966)."""
@@ -283,19 +280,12 @@ class _DiffFused(torch.autograd.Function):
     def backward(ctx, _g_cap, g_amp, g_dist, _g_nb):
         vertices, tx_pos, directions, rx_pos, rx_radius, bf, cap, nb = ctx.saved_tensors
         cfg = ctx.cfg
-        want = [ctx.needs_input_grad[i] and name in cfg["grad_args"]
-                for i, name in enumerate(_DIFF_ARGS)]
-        grads = [torch.zeros_like(a) if ctx.needs_input_grad[i] else None
-                 for i, a in enumerate((vertices, tx_pos, directions, rx_pos, rx_radius))]
+        want = ctx.needs_input_grad[:5]
+        grads = [torch.zeros_like(a) if w else None
+                 for a, w in zip((vertices, tx_pos, directions, rx_pos, rx_radius), want)]
         if not any(want):
             return (*grads, None)
         cap_idx = torch.nonzero(cap).flatten()
-        if cap_idx.numel() > cfg["bwd_max_captured"]:
-            # Over the bound every cotangent is NaN, so a truncated backward
-            # can never pass silently (the reference's poisoning).
-            nan = float("nan")
-            return (*[g.fill_(nan) if g is not None and w else g
-                      for g, w in zip(grads, want)], None)
         zero = torch.zeros((), dtype=torch.float32, device=cap.device)
         g_amp = zero.expand(cap.shape) if g_amp is None else g_amp
         g_dist = zero.expand(cap.shape) if g_dist is None else g_dist
@@ -325,23 +315,20 @@ class _DiffFused(torch.autograd.Function):
 
 
 def make_diff_fused_tracer(flat_or_mesh, faces_tbl, *, max_bounces: int, n1=5.0, n2=1.0,
-                           grad_args=_DIFF_ARGS, bwd_max_captured: int = 1 << 17,
                            device="cuda"):
     """Differentiable fused tracer: the fused kernel's forward with the face
     record, and the closed-form replay backward (no BVH walk).
 
     Returns diff_trace(vertices, tx_pos, directions, rx_pos, rx_radius) ->
-    TraceResult. Gradients reach the arguments named in `grad_args` (the
-    others get zeros) through `replay_from_faces`; capture, bounce counts and
-    faces are straight-through. The backward compacts to the captured rays
-    and scatters the direction cotangent back; above `bwd_max_captured`
-    captures every cotangent is NaN. `faces_tbl` is the scene's (F, 3) face
-    table; the BVH is built once from `flat_or_mesh`, so a caller that moves
-    vertices materially rebuilds it."""
+    TraceResult. Gradients reach the arguments that require them through
+    `replay_from_faces`; capture, bounce counts and faces are
+    straight-through. The backward replays only the captured rays and
+    scatters the direction cotangent back. `faces_tbl` is the scene's (F, 3)
+    face table; the BVH is built once from `flat_or_mesh`, so a caller that
+    moves vertices materially rebuilds it."""
     fused = make_fused_tracer(flat_or_mesh, max_bounces=max_bounces, device=device)
     dev = fused.device
-    cfg = dict(fused=fused, faces_tbl=torch.as_tensor(faces_tbl, device=dev).long(),
-               n1=n1, n2=n2, grad_args=tuple(grad_args), bwd_max_captured=int(bwd_max_captured))
+    cfg = dict(fused=fused, faces_tbl=torch.as_tensor(faces_tbl, device=dev).long(), n1=n1, n2=n2)
 
     def diff_trace(vertices, tx_pos, directions, rx_pos, rx_radius) -> TraceResult:
         as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731

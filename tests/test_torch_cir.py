@@ -72,13 +72,13 @@ def test_cir_from_trace_scales_by_tx_power_over_rays():
 def test_histogram_checks_inputs():
     amp, dist, cap = (torch.from_numpy(a) for a in _paths(n=10))
     with pytest.raises(TypeError):
-        cir.histogram(amp.double(), dist, cap, **KW)
+        cir.bin_impulse_response(amp.double(), dist, cap, **KW)
     with pytest.raises(TypeError):
-        cir.histogram(amp, dist, cap.int(), **KW)
+        cir.bin_impulse_response(amp, dist, cap.int(), **KW)
     with pytest.raises(ValueError):
-        cir.histogram(amp, dist[:5], cap, **KW)
+        cir.bin_impulse_response(amp, dist[:5], cap, **KW)
     before = cir.HISTOGRAM_KERNEL.launches
-    cir.histogram(amp, dist, cap, **KW)
+    cir.bin_impulse_response(amp, dist, cap, **KW)
     assert cir.HISTOGRAM_KERNEL.launches == before  # a CPU tensor runs the plain version
 
 

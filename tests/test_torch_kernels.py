@@ -72,19 +72,20 @@ def test_fused_kernel_materials_and_grazing_scene(cuda):
     _assert_trace_equal(k, p)
 
 
-@pytest.mark.parametrize("mode", [cir.HARD, cir.SOFT_LO, cir.SOFT_HI])
-def test_histogram_kernel_matches_plain_and_is_deterministic(cuda, mode):
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+def test_histogram_kernel_matches_plain_and_is_deterministic(cuda, soft):
     g = np.random.default_rng(17)
     n = 300_000
     amp = torch.from_numpy(g.random(n).astype(np.float32)).to(cuda)
     dist = torch.from_numpy((g.random(n) * 70.0).astype(np.float32)).to(cuda)
     cap = torch.from_numpy(g.random(n) < 0.3).to(cuda)
-    kw = dict(nbins=20_000, light_speed_mps=2.998e8, sample_rate_hz=100e9, mode=mode)
+    kw = dict(nbins=20_000, light_speed_mps=2.998e8, sample_rate_hz=100e9)
+    modes = (cir.SOFT_LO, cir.SOFT_HI) if soft else (cir.HARD,)
     before = cir.HISTOGRAM_KERNEL.launches
-    a = cir.histogram(amp, dist, cap, **kw)
-    b = cir.histogram(amp, dist, cap, **kw)
-    assert cir.HISTOGRAM_KERNEL.launches == before + 2
-    p = cir.histogram_plain(amp, dist, cap, **kw)
+    a = cir.bin_impulse_response(amp, dist, cap, soft=soft, **kw)
+    b = cir.bin_impulse_response(amp, dist, cap, soft=soft, **kw)
+    assert cir.HISTOGRAM_KERNEL.launches == before + 2 * len(modes)
+    p = sum(cir.histogram_plain(amp, dist, cap, mode=m, **kw) for m in modes)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
     assert torch.equal(a != 0, p != 0)
@@ -93,13 +94,13 @@ def test_histogram_kernel_matches_plain_and_is_deterministic(cuda, mode):
 
 def test_histogram_kernel_edges(cuda):
     empty = torch.zeros(0, device=cuda)
-    ir = cir.histogram(empty, empty, empty.bool(), nbins=100, light_speed_mps=1.0,
-                       sample_rate_hz=1.0)
+    ir = cir.bin_impulse_response(empty, empty, empty.bool(), nbins=100, light_speed_mps=1.0,
+                                  sample_rate_hz=1.0)
     torch.cuda.synchronize()
     assert torch.equal(ir, torch.zeros(100, device=cuda))
     with pytest.raises(ValueError, match="bins"):
-        cir.histogram(empty, empty, empty.bool(), nbins=1_000_000, light_speed_mps=1.0,
-                      sample_rate_hz=1.0)
+        cir.bin_impulse_response(empty, empty, empty.bool(), nbins=1_000_000,
+                                 light_speed_mps=1.0, sample_rate_hz=1.0)
 
 
 def test_facade_on_card_matches_cpu(cuda):
