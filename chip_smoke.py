@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's forward CIR path and its gradient path once on
-one NVIDIA GPU.
+"""Drive the PyTorch port's forward CIR path, its gradient path and its
+coverage path once on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card and the CUDA
 toolkit (nvcc):
@@ -11,7 +11,7 @@ Phases, each ending in torch.cuda.synchronize() so a fault shows where it
 happened, and none catching its own failure:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the three kernels from rfx_torch/csrc/ into build/rfx_torch/, one
+2. build the four kernels from rfx_torch/csrc/ into build/rfx_torch/, one
    nvcc each, all started together;
 3. the bench workload (bench.py): make_terrain(grid=128, extent=60, seed=0),
    32,258 triangles, 5,242,880 Morton-ordered rays, 4 bounces, a 20,000-bin
@@ -58,13 +58,30 @@ happened, and none catching its own failure:
     losses, finite nonzero gradients, time per step and peak memory;
 12. the facade: compute_cir(record_paths=True) at 262,144 rays through the
     closest-hit kernel (paths start at tx, captures within the flip budget
-    of the fused kernel's), and compute_coverage of 16 receivers.
+    of the fused kernel's), and compute_coverage of 16 receivers;
+13. coverage (scripts/coverage_exact_tpu.py, scripts/hybrid_coverage_r5.py):
+    2,048 receivers of radius 0.5, 1,048,576 Morton rays, 2 bounces, 10,000
+    bins at 100 GHz, on the room (tx (3, 2, 2), z 0..14) and the terrain
+    (tx (10, 0, 25), z 10..24): the coverage kernel against its plain version
+    on the card's segments (the same nonzero bins, rtol 1e-5 / atol 1e-12,
+    bit-identical across runs); the exact metric through
+    `rfx_torch.cli.main(["coverage", ...])` (room), whose saved dBm must equal
+    the facade's and be finite exactly where an IR is nonzero, with
+    rx_power_dbm bit-identical across two card runs and within 1e-3 dB of the
+    CPU; the fast and hybrid metrics through the facade, the fast one's dBm
+    (1e-3 dB), ratio and spread (rtol 1e-4) held against the CPU on the same
+    segments, the hybrid's flagged set against the CPU's (bar receivers
+    within 1e-4 of a threshold), the hybrid exact where it fell back and fast
+    elsewhere; wall and CUDA-event times of each metric.
 Each main-path run is counted on its own: every launch count is set to 0
 just before it and read just after, and each kernel the path runs must have
 launched (the forward requests: fused trace and histogram; the scan
 value+grad and the five full-width solver steps: closest hit and histogram;
-the fused value+grad: fused trace and histogram). The comparisons with the
-plain versions, the checks of phase 10 and the facade are not counted.
+the fused value+grad: fused trace and histogram; the coverage CLI's exact
+sweep: the coverage kernel; each hybrid sweep: the coverage kernel, and on
+the terrain the closest hit; each fast sweep: on the terrain the closest hit,
+and never the coverage kernel). The comparisons with the plain versions, the
+checks of phase 10 and the facade are not counted.
 
 Prints CUDA-event times of the kernels beside their plain versions, one JSON
 line of the kernels, and as its last line
@@ -96,6 +113,14 @@ NBINS = int(WINDOW * RATE)
 GRAD_RAYS = 2_621_440
 SOLVER_RAYS = 1_048_576
 FACADE_RAYS = 262_144
+COV_RAYS = 1_048_576
+COV_WINDOW = 100e-9
+COV_BINS = int(COV_WINDOW * RATE)
+COV_RADIUS = 0.5
+# Phase 13 holds rx_power_dbm against the CPU on all 2,048 IRs (about 20 s
+# of CPU time) and the fast metric on every CPU_FAST_STRIDE-th receiver: all
+# 2,048 would add about 60 s of CPU time per configuration.
+CPU_FAST_STRIDE = 32
 
 
 def _sync():
@@ -552,6 +577,197 @@ def _facade_phase(mesh, dirs, dev):
           f"lit, IR sums {float(irs.sum()):.6e}", flush=True)
 
 
+def _timed(fn):
+    """(fn(), host seconds, CUDA-event ms) of one call that ends synchronized."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    _sync()
+    h0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    _sync()
+    return out, time.perf_counter() - h0, start.elapsed_time(end)
+
+
+def _coverage_phase(terrain, dev, kernels):
+    """Phase 13: exact, fast and hybrid coverage on the room and the terrain
+    at full width; returns what it measured, with the launch counts of each
+    counted path."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from rfx.geometry import make_room
+    from rfx_torch import cir, cli
+    from rfx_torch.api import Tracer
+    from rfx_torch.coverage import _dbm_cancel_from_segments, make_grid
+    from rfx_torch.ops.coverage_hist import coverage_hist, coverage_hist_plain
+    from rfx_torch.sampler import morton_sphere_directions
+    from rfx_torch.tracer import EnvSegments, trace_env
+
+    dirs = morton_sphere_directions(COV_RAYS, generator=torch.Generator(dev).manual_seed(0),
+                                    device=dev)
+    hkw = dict(nbins=COV_BINS, light_speed_mps=C, sample_rate_hz=RATE)
+    fkw = dict(num_rays=COV_RAYS, sample_window_s=COV_WINDOW, sample_rate_hz=RATE,
+               carrier_hz=2.4e9, light_speed_mps=C, tx_power=1.0, rx_batch=64)
+    out = {"launches": {}}
+    for name, mesh, tx, zs in (("room", make_room(), (3.0, 2.0, 2.0), range(0, 16, 2)),
+                               ("terrain", terrain, (10.0, 0.0, 25.0), range(10, 26, 2))):
+        res = out[name] = {}
+        tracer = Tracer(mesh, C, RATE, COV_WINDOW, max_bounces=2, tx_num_rays=COV_RAYS,
+                        device=dev)
+        grid = make_grid(range(-15, 16, 2), range(-15, 16, 2), zs)
+        m = grid.shape[0]
+        centers = torch.as_tensor(grid, device=dev)
+        segs = trace_env(tracer.scene, tx, dirs, max_bounces=2, env_hit=tracer.env_hit)
+        scaled = segs._replace(amplitude=segs.amplitude * (torch.tensor(1.0) / COV_RAYS).to(dev))
+        _sync()
+        _require(m == 2048 and tracer.backend == ("brute" if name == "room" else "fused"),
+                 f"coverage {name}: {m} receivers, backend {tracer.backend}")
+
+        # 1. K3 against its plain version on the card's own segments.
+        k1 = coverage_hist(scaled, centers, COV_RADIUS, **hkw)
+        k2 = coverage_hist(scaled, centers, COV_RADIUS, **hkw)
+        p = coverage_hist_plain(scaled, centers, COV_RADIUS, **hkw)
+        _sync()
+        _require(torch.equal(k1, k2), f"coverage kernel, {name}: two runs differ")
+        _require(torch.equal(k1 != 0, p != 0), f"coverage kernel, {name}: nonzero bins differ")
+        _require(torch.allclose(k1, p, rtol=1e-5, atol=1e-12),
+                 f"coverage kernel, {name}: kernel != plain")
+        res["max_abs_err"] = float((k1 - p).abs().max())
+        res["k3_ms"] = _cuda_ms(lambda: coverage_hist(scaled, centers, COV_RADIUS, **hkw), 5)
+        res["plain_ms"] = _cuda_ms(lambda: coverage_hist_plain(scaled, centers, COV_RADIUS, **hkw), 1)
+        n_lit = int((k1 != 0).any(dim=1).sum())
+        print(f"# coverage kernel, {name}, {m} receivers x 2 x {COV_RAYS} segments, {COV_BINS} "
+              f"bins: kernel == plain ({int((k1 != 0).sum())} nonzero bins, {n_lit} receivers "
+              f"lit, max |d| {res['max_abs_err']:.3e}), bit-identical across runs; kernel "
+              f"{res['k3_ms']:.3f} ms, plain {res['plain_ms']:.1f} ms", flush=True)
+        del k2, p
+
+        # 2. The exact metric through the command line (room), with
+        #    rx_power_dbm on the card twice and on the CPU.
+        if name == "room":
+            with tempfile.TemporaryDirectory() as tmp:
+                save = os.path.join(tmp, "dbm.npy")
+                argv = ["coverage", "--scene", "room", "--rays", str(COV_RAYS), "--tx", "3", "2",
+                        "2", "--rx-radius", str(COV_RADIUS), "--metric", "exact", "--no-viz",
+                        "--save-dbm", save, "--device", "cuda"]
+                (rc, launches), host_s, ev_ms = _timed(lambda: _counted(
+                    kernels, "coverage_exact", ("coverage_hist.cu",), lambda: cli.main(argv)))
+                rows = np.load(save)
+            out["launches"]["coverage_exact"] = launches
+            _require(rc == 0 and rows.shape == (2048, 4), f"coverage CLI: rc {rc}, {rows.shape}")
+            # The same request through the facade (its generator redraws the
+            # CLI's directions): the IRs, and the same dBm bit for bit.
+            cli_tracer = Tracer(mesh, C, RATE, COV_WINDOW, max_bounces=2, tx_num_rays=COV_RAYS,
+                                device=dev)
+            irs = torch.as_tensor(cli_tracer.compute_coverage(tx, 1.0, grid, COV_RADIUS), device=dev)
+            d1, _ = cir.rx_power_dbm(irs, COV_WINDOW)
+            d2, _ = cir.rx_power_dbm(irs, COV_WINDOW)
+            _sync()
+            lit = (irs != 0).any(dim=1).cpu().numpy()
+            d1 = d1.cpu().numpy()
+            _require(np.array_equal(rows[:, :3], grid) and np.array_equal(rows[:, 3], d1),
+                     "coverage CLI: saved rows differ from the facade's")
+            _require(np.array_equal(np.isfinite(rows[:, 3]), lit) and lit.sum() > 1000,
+                     f"coverage CLI: dBm finite at {int(np.isfinite(rows[:, 3]).sum())} "
+                     f"receivers, IR nonzero at {int(lit.sum())}")
+            _require(np.array_equal(d1, d2.cpu().numpy()), "rx_power_dbm: two card runs differ")
+            d_cpu, _ = cir.rx_power_dbm(irs.cpu(), COV_WINDOW)
+            d_cpu = d_cpu.numpy()
+            fin = np.isfinite(d_cpu)
+            _require(np.array_equal(np.isfinite(d1), fin), "rx_power_dbm: card vs CPU -inf")
+            dbm_err = float(np.abs(d1[fin] - d_cpu[fin]).max())
+            _require(dbm_err < 1e-3, f"rx_power_dbm: card vs CPU differ by {dbm_err} dB")
+            res.update(cli_host_s=host_s, cli_ms=ev_ms, rx_dbm_card_vs_cpu_db=dbm_err,
+                       rx_dbm_bits_differ=int((d1 != d_cpu).sum()))
+            print(f"# coverage CLI --metric exact, room: {host_s:.3f} s ({ev_ms:.1f} ms CUDA "
+                  f"events), {int(lit.sum())} of 2048 receivers reached, dBm "
+                  f"[{np.nanmin(np.where(lit, d1, np.nan)):.2f}, {np.nanmax(d1):.2f}]; "
+                  f"rx_power_dbm bit-identical across two card runs, card vs CPU on "
+                  f"{int(fin.size)} receivers max |d| {dbm_err:.3e} dB "
+                  f"({res['rx_dbm_bits_differ']} differ in any bit)", flush=True)
+            del irs
+
+        # 3. Fast and hybrid through the facade, each counted; the fast
+        #    metric's diagnostics against the CPU on every CPU_FAST_STRIDE-th
+        #    receiver of the same segments.
+        env_needs = () if name == "room" else ("closest_hit.cu",)
+        req = (tx, 1.0, grid, COV_RADIUS)
+        (fast, launches), res["fast_host_s"], res["fast_ms"] = _timed(lambda: _counted(
+            kernels, f"coverage_fast_{name}", env_needs,
+            lambda: tracer.compute_coverage_dbm_fast(*req, directions=dirs)))
+        _require(launches["coverage_hist.cu"] == 0, f"fast metric, {name}: the coverage kernel ran")
+        out["launches"][f"coverage_fast_{name}"] = launches
+        (hybrid, n_flagged), launches = _counted(
+            kernels, f"coverage_hybrid_{name}", ("coverage_hist.cu",) + env_needs,
+            lambda: tracer.compute_coverage_dbm_hybrid(*req, directions=dirs))
+        out["launches"][f"coverage_hybrid_{name}"] = launches
+        dbm_k, ratio_k, spread_k = (x.cpu().numpy() for x in _dbm_cancel_from_segments(
+            segs, centers, COV_RADIUS, **fkw))
+        _require(np.array_equal(fast, dbm_k), f"fast metric, {name}: facade != its segments'")
+        sub = slice(0, 2048, CPU_FAST_STRIDE)
+        segs_cpu = EnvSegments(*(t.cpu() for t in segs))
+        dbm_c, ratio_c, spread_c = (x.numpy() for x in _dbm_cancel_from_segments(
+            segs_cpu, grid[sub], COV_RADIUS, **fkw))
+        fin = np.isfinite(dbm_c)
+        _require(np.array_equal(np.isfinite(dbm_k[sub]), fin), f"fast metric, {name}: -inf")
+        fast_err = float(np.abs(dbm_k[sub][fin] - dbm_c[fin]).max())
+        _require(fast_err < 1e-3, f"fast metric, {name}: card vs CPU {fast_err} dB")
+        for what, a, b in (("ratio", ratio_k[sub], ratio_c), ("spread", spread_k[sub], spread_c)):
+            _require(np.allclose(a, b, rtol=1e-4, atol=0), f"fast metric, {name}: {what} differs")
+        flags_k = (ratio_k < 0.5) | (spread_k > 10e-9)
+        flags_c = (ratio_c < 0.5) | (spread_c > 10e-9)
+        edge = ((np.abs(ratio_c - 0.5) <= 1e-4 * 0.5)
+                | (np.abs(spread_c - 10e-9) <= 1e-4 * 10e-9))
+        _require(np.array_equal(flags_k[sub][~edge], flags_c[~edge]),
+                 f"hybrid, {name}: flagged set differs from the CPU's")
+        _require(n_flagged == int(flags_k.sum()), f"hybrid, {name}: n_flagged {n_flagged}")
+        wholesale = n_flagged > 0.15 * m
+
+        # 4. Exact through the facade, split into K3 and rx_power_dbm; the
+        #    hybrid against it and the fast metric.
+        irs_np, res["exact_host_s"], res["exact_ms"] = _timed(
+            lambda: tracer.compute_coverage(*req, directions=dirs))
+        irs = torch.as_tensor(irs_np, device=dev)
+        (exact, _), _, res["rx_dbm_ms"] = _timed(lambda: cir.rx_power_dbm(irs, COV_WINDOW))
+        exact = exact.cpu().numpy()
+        _require(np.array_equal(irs_np, k1.cpu().numpy()), f"exact, {name}: IRs differ from K3's")
+        redo = np.ones(m, bool) if wholesale else flags_k
+        ok = np.isfinite(exact)
+        _require(np.array_equal(np.isfinite(hybrid), ok), f"hybrid, {name}: -inf pattern")
+        _require(np.allclose(hybrid[redo & ok], exact[redo & ok], rtol=0, atol=1e-3)
+                 and np.array_equal(hybrid[~redo], fast[~redo]),
+                 f"hybrid, {name}: not exact where flagged and fast elsewhere")
+        _, res["hybrid_host_s"], res["hybrid_ms"] = _timed(
+            lambda: tracer.compute_coverage_dbm_hybrid(*req, directions=dirs))
+        gap = np.abs(fast[ok] - exact[ok])
+        res.update(fast_card_vs_cpu_db=fast_err, n_flagged=n_flagged, flag_rate=n_flagged / m,
+                   wholesale=bool(wholesale), reached=int(ok.sum()),
+                   fast_vs_exact_db={"median": float(np.median(gap)),
+                                     "p95": float(np.percentile(gap, 95)),
+                                     "max": float(gap.max())},
+                   hybrid_vs_exact_db_max=float(np.abs(hybrid[ok] - exact[ok]).max()))
+        print(f"# coverage, {name}: {n_flagged} of {m} receivers flagged "
+              f"({100.0 * n_flagged / m:.1f}%), {'wholesale' if wholesale else 'subset'} exact "
+              f"fallback; fast card vs CPU on {int(fin.size)} receivers max |d| "
+              f"{fast_err:.3e} dB; fast vs exact median {res['fast_vs_exact_db']['median']:.3f} "
+              f"/ max {res['fast_vs_exact_db']['max']:.3f} dB, hybrid vs exact max "
+              f"{res['hybrid_vs_exact_db_max']:.3f} dB", flush=True)
+        print(f"# coverage times, {name}: exact {res['exact_host_s'] * 1e3:.1f} ms host / "
+              f"{res['exact_ms']:.1f} ms events for the IRs (K3 {res['k3_ms']:.3f} ms) + "
+              f"rx_power_dbm {res['rx_dbm_ms']:.1f} ms; fast {res['fast_host_s'] * 1e3:.1f} / "
+              f"{res['fast_ms']:.1f} ms; hybrid {res['hybrid_host_s'] * 1e3:.1f} / "
+              f"{res['hybrid_ms']:.1f} ms", flush=True)
+        del segs, scaled, segs_cpu, k1, irs
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -567,6 +783,7 @@ def main() -> int:
     from rfx_torch import cir
     from rfx_torch.api import Tracer
     from rfx_torch.ops.bvh_trace import CLOSEST_HIT_KERNEL
+    from rfx_torch.ops.coverage_hist import COVERAGE_HIST_KERNEL
     from rfx_torch.ops.fused import FUSED_TRACE_KERNEL, FusedTracer, fused_trace, fused_trace_plain
     from rfx_torch.sampler import morton_sphere_directions
 
@@ -583,10 +800,11 @@ def main() -> int:
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     print(card, flush=True)
 
-    # 2. Build the three kernels from the sources in this checkout, one nvcc
+    # 2. Build the four kernels from the sources in this checkout, one nvcc
     #    each, all started together.
     t0 = time.perf_counter()
-    kernels_built = (FUSED_TRACE_KERNEL, CLOSEST_HIT_KERNEL, cir.HISTOGRAM_KERNEL)
+    kernels_built = (FUSED_TRACE_KERNEL, CLOSEST_HIT_KERNEL, cir.HISTOGRAM_KERNEL,
+                     COVERAGE_HIST_KERNEL)
     with ThreadPoolExecutor(len(kernels_built)) as pool:
         list(pool.map(lambda k: k.load(), kernels_built))
     for k in kernels_built:
@@ -717,20 +935,25 @@ def main() -> int:
     del full, k_res, p_res, k_faces, p_faces
     torch.cuda.empty_cache()
 
-    # 9-12. The gradient path, its checks, the inverse solve and the facade.
-    #       Each main-path run (the forward requests above, each gradient
-    #       path's value+grad, the solver's five steps) is counted on its own;
-    #       the checks' and the facade's launches are not counted.
+    # 9-13. The gradient path, its checks, the inverse solve, the facade and
+    #       coverage. Each main-path run (the forward requests above, each
+    #       gradient path's value+grad, the solver's five steps, the coverage
+    #       CLI's exact sweep, each fast and hybrid sweep) is counted on its
+    #       own; the checks' and the facade's launches are not counted.
     grad = _gradient_phase(mesh, flat, bvh, dev, kernels_built)
     _fd_phase(mesh, bvh, dev)
     solve = _solver_phase(mesh, bvh, dev, kernels_built)
     _facade_phase(mesh, dirs, dev)
+    del dirs, fused, tracer
+    torch.cuda.empty_cache()
+    cov = _coverage_phase(mesh, dev, kernels_built)
     by_path = {
         "forward": {"fused_trace.cu": launches["fused_trace"],
                     "histogram.cu": launches["ir_histogram"]},
         "scan_grad": grad["scan"].pop("launches"),
         "fused_grad": grad["fused"].pop("launches"),
         "solver": solve.pop("launches"),
+        **cov.pop("launches"),
     }
 
     def counts(source):
@@ -754,6 +977,13 @@ def main() -> int:
          "replaces": "rfx/cir.py:32", **counts("histogram.cu"),
          "max_abs_err": ir_err, "ms": kh_ms, "plain_ms": kh_plain_ms,
          "shape": f"{N_RAYS} rays, {NBINS} bins, hard"},
+        {"name": "coverage_hist", "route": "cuda", "source": "rfx_torch/csrc/coverage_hist.cu",
+         "replaces": "rfx/ops/pallas_coverage.py:64", **counts("coverage_hist.cu"),
+         "max_abs_err": max(cov["room"]["max_abs_err"], cov["terrain"]["max_abs_err"]),
+         "ms": cov["room"]["k3_ms"], "plain_ms": cov["room"]["plain_ms"],
+         "ms_terrain": cov["terrain"]["k3_ms"], "plain_ms_terrain": cov["terrain"]["plain_ms"],
+         "shape": f"2048 receivers x 2 bounces x {COV_RAYS} rays, {COV_BINS} bins, radius "
+                  f"{COV_RADIUS}; ms, plain_ms: the room; *_terrain: the terrain"},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"gradient_path": {
@@ -761,7 +991,8 @@ def main() -> int:
         "captured": grad["captured"],
         **{f"{p}_{k}": grad[p][k] for p in ("scan", "fused")
            for k in ("forward_ms", "valgrad_ms", "peak_bytes")}},
-        "solver": {"rays": SOLVER_RAYS, "receivers": 64, **solve}}))
+        "solver": {"rays": SOLVER_RAYS, "receivers": 64, **solve},
+        "coverage": {"rays": COV_RAYS, "receivers": 2048, "bins": COV_BINS, **cov}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

@@ -1,7 +1,9 @@
 """User-facing facade (port of rfx/api.py): the reference's `Tracer` call
 shape, `Tracer(mesh, c, rate, window, max_bounces, n_rays)` then
-`compute_cir(tx_pos, tx_power, rx_pos, rx_radius) -> (paths, ir)` and
-`compute_coverage(...) -> (M, nbins)`, on an explicit device.
+`compute_cir(tx_pos, tx_power, rx_pos, rx_radius) -> (paths, ir)`,
+`compute_coverage(...) -> (M, nbins)` and the coverage metrics
+`compute_coverage_dbm_fast` / `compute_coverage_dbm_hybrid`, on an explicit
+device.
 
 Backends: `brute` (all-triangle Moller-Trumbore, rfx_torch.tracer) and
 `fused`; `auto` takes `brute` up to 2048 triangles and `fused` above, as the
@@ -25,7 +27,7 @@ from rfx.geometry import TriangleMesh
 from rfx.utils.logging import get_logger, log_trace_stats
 from rfx_torch import cir as cir_mod
 from rfx_torch import sampler
-from rfx_torch.coverage import coverage_irs
+from rfx_torch.coverage import coverage_dbm_fast, coverage_dbm_hybrid, coverage_irs
 from rfx_torch.device import resolve_device
 from rfx_torch.ops.bvh_pack import pack_bvh
 from rfx_torch.ops.bvh_trace import make_kernel_env_hit
@@ -147,8 +149,10 @@ class Tracer:
     def compute_coverage(self, tx_pos, tx_power, rx_centers, rx_radius, *, directions=None,
                          rx_batch: int = 64):
         """(M, nbins) numpy impulse responses for M receivers from one env
-        trace (rfx/api.py:246-279), through the map engine on this tracer's
-        `env_hit` and rx_mode."""
+        trace (rfx/api.py:246-279) on this tracer's `env_hit` and rx_mode.
+        The engine is 'auto': the coverage kernel on a CUDA device with the
+        analytic receiver, the map engine otherwise (the icosphere receiver
+        runs only there)."""
         dirs = self._directions(directions)
         irs = coverage_irs(
             self.scene, tx_pos, dirs, rx_centers, rx_radius, max_bounces=self.max_bounces,
@@ -157,11 +161,38 @@ class Tracer:
             rx_batch=rx_batch, env_hit=self.env_hit, rx_mode=self.rx_mode)
         return irs.cpu().numpy()
 
-    def compute_coverage_dbm_fast(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the phasor coverage metric is not ported yet (ROADMAP A9)")
+    def _coverage_kw(self, tx_power, carrier_hz, rx_batch) -> dict:
+        return dict(max_bounces=self.max_bounces, num_rays=self.tx_num_rays,
+                    sample_window_s=self.sample_window_s, sample_rate_hz=self.sample_rate_hz,
+                    carrier_hz=carrier_hz, light_speed_mps=self.light_speed_mps,
+                    tx_power=tx_power, n1=self.n1, n2=self.n2, rx_batch=rx_batch,
+                    env_hit=self.env_hit)
 
-    compute_coverage_dbm_hybrid = compute_coverage_dbm_fast
+    def compute_coverage_dbm_fast(self, tx_pos, tx_power, rx_centers, rx_radius, *,
+                                  carrier_hz: float = 2.4e9, directions=None,
+                                  rx_batch: int = 64):
+        """(M,) numpy dBm per receiver through the phasor metric, with no
+        per-receiver IR (rfx/api.py:281-306; see
+        rfx_torch.coverage.coverage_dbm_fast for its accuracy)."""
+        dbm = coverage_dbm_fast(self.scene, tx_pos, self._directions(directions), rx_centers,
+                                rx_radius, **self._coverage_kw(tx_power, carrier_hz, rx_batch))
+        return dbm.cpu().numpy()
+
+    def compute_coverage_dbm_hybrid(self, tx_pos, tx_power, rx_centers, rx_radius, *,
+                                    carrier_hz: float = 2.4e9, directions=None,
+                                    rx_batch: int = 64, cancel_threshold: float = 0.5,
+                                    spread_threshold_s: float = 10e-9,
+                                    exact_fallback_frac: float = 0.15):
+        """((M,) numpy dBm, n_flagged): the phasor metric with the exact one
+        for the receivers it flags, or for all of them when more than
+        `exact_fallback_frac` are flagged (rfx/api.py:308-345; see
+        rfx_torch.coverage.coverage_dbm_hybrid)."""
+        dbm, n_flagged = coverage_dbm_hybrid(
+            self.scene, tx_pos, self._directions(directions), rx_centers, rx_radius,
+            cancel_threshold=cancel_threshold, spread_threshold_s=spread_threshold_s,
+            exact_fallback_frac=exact_fallback_frac,
+            **self._coverage_kw(tx_power, carrier_hz, rx_batch))
+        return dbm.cpu().numpy(), n_flagged
 
     def rx_power_dbm(self, impulse_response, carrier_hz: float = 2.4e9):
         """Reference RX-power metric (ref main.py:46-55), as numpy."""

@@ -13,7 +13,8 @@ the distance; soft binning is linear in it between bin centres.
 
 `rx_power_dbm` is a direct convolution, so exact zeros stay zero: the metric
 averages over the nonzero samples only, and an FFT would fill them with
-roundoff.
+roundoff. `rx_power_dbm_phasor` is the coverage engine's fast metric: the
+same power from the paths' phasors, with no impulse response.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 from rfx_torch.ops._build import CudaKernel, F, I, P
 
 __all__ = ["bin_impulse_response", "cir_from_trace", "histogram_plain",
-           "rx_power_dbm", "to_dbm", "HISTOGRAM_KERNEL"]
+           "rx_power_dbm", "rx_power_dbm_phasor", "to_dbm", "HISTOGRAM_KERNEL"]
 
 HARD, SOFT_LO, SOFT_HI = 0, 1, 2
 
@@ -252,3 +253,60 @@ def rx_power_dbm(impulse_response: torch.Tensor, sample_window_s: float,
     if squeeze:
         return dbm[0], out[0]
     return dbm, out
+
+
+def rx_power_dbm_phasor(amplitude, distance, captured, *, sample_window_s: float, nbins: int,
+                        light_speed_mps: float, sample_rate_hz: float,
+                        carrier_hz: float = 2.4e9, return_cancellation: bool = False):
+    """RX power without the impulse response (rfx/cir.py:204-274), reduced
+    over the last axis of (..., K) paths: the carrier-convolved IR is one
+    sinusoid, so its mean square is |A|^2 / 2 with A = sum_k amp_k sqrt(s_k)
+    e^{-i w t_k}, s_k the 'same'-mode support of bin k, normalised by the
+    largest support. Returns dBm (-inf where nothing was captured) or, with
+    `return_cancellation`, (dBm, coherent / incoherent power ratio, power-
+    weighted delay spread in s), the hybrid metric's two trust diagnostics.
+
+    Rounded as the reference rounds: the bin is distance / c * rate with
+    0-dim f32 divisors; window / (nbins - 1) and 2 pi f are Python-float
+    quotient and product, each rounded to f32 once, then multiplied with the
+    f32 tensors (the phase reaches ~1,500 rad at 100 ns, so every rounding
+    shows)."""
+    dev = amplitude.device
+    f32 = torch.float32
+    zero = torch.zeros((), dtype=f32, device=dev)
+    c = torch.tensor(light_speed_mps, dtype=f32, device=dev)
+    rate = torch.tensor(sample_rate_hz, dtype=f32, device=dev)
+    delay_bins = (distance / c * rate).to(torch.int32)
+    valid = captured & (delay_bins >= 0) & (delay_bins < nbins)
+    amp = torch.where(valid, amplitude, zero)
+    t_k = delay_bins.to(f32) * torch.tensor(sample_window_s / (nbins - 1), dtype=f32, device=dev)
+    phase = torch.tensor(2.0 * math.pi * carrier_hz, dtype=f32, device=dev) * t_k
+    hi = nbins - 1 - (nbins - 1) // 2
+    s_k = torch.where(valid, torch.clamp_max(delay_bins + hi + 1, nbins).to(f32), zero)
+    w_k = torch.sqrt(s_k)
+    a_re = torch.sum(amp * w_k * torch.cos(phase), dim=-1)
+    a_im = torch.sum(amp * w_k * torch.sin(phase), dim=-1)
+    if s_k.shape[-1]:
+        n_nz = torch.clamp_min(torch.amax(s_k, dim=-1), 1.0)
+    else:
+        n_nz = torch.ones(s_k.shape[:-1], dtype=f32, device=dev)
+    coherent = a_re * a_re + a_im * a_im
+    power = 0.5 * coherent / n_nz
+    any_hit = valid.any(dim=-1)
+    dbm = torch.where(any_hit, to_dbm(torch.clamp_min(power, 1e-300)),
+                      torch.full_like(power, -math.inf))
+    if not return_cancellation:
+        return dbm
+    # 1e-300 rounds to 0 in f32, as in the reference: a receiver with no
+    # path gives 0 / 0 here and takes the where's other branch.
+    aw = amp * w_k
+    wgt = aw * aw
+    incoherent = torch.sum(wgt, dim=-1)
+    ratio = torch.where(any_hit, coherent / torch.clamp_min(incoherent, 1e-300),
+                        torch.ones_like(coherent))
+    wsum = torch.clamp_min(torch.sum(wgt, dim=-1), 1e-300)
+    t_mean = torch.sum(wgt * t_k, dim=-1) / wsum
+    dt = t_k - t_mean[..., None]
+    spread = torch.sqrt(torch.clamp_min(torch.sum(wgt * (dt * dt), dim=-1) / wsum, 0.0))
+    spread = torch.where(any_hit, spread, torch.zeros_like(spread))
+    return dbm, ratio, spread

@@ -7,7 +7,10 @@
 - a tracer's configuration, read from an `rfx.api.Tracer` instance's
   attributes, and a port `Tracer` built from it;
 - the inverse solver's parameters, an `rfx.solver.InverseParams`, as a
-  `rfx_torch.solver.InverseParams` of leaf tensors.
+  `rfx_torch.solver.InverseParams` of leaf tensors;
+- an env-only trace's segments, an `rfx.tracer.EnvSegments`, as a
+  `rfx_torch.tracer.EnvSegments`, so both coverage engines can be fed the
+  same segments.
 
 Arrays are read with `numpy.array`, which takes JAX arrays as they are.
 """
@@ -22,10 +25,10 @@ from rfx_torch.api import Tracer
 from rfx_torch.ops.bvh_pack import PackedBVH, pack_bvh
 from rfx_torch.device import resolve_device
 from rfx_torch.solver import InverseParams
-from rfx_torch.tracer import Scene
+from rfx_torch.tracer import EnvSegments, Scene
 
 __all__ = ["scene_arrays", "scene_from_rfx", "bvh_from_rfx", "tracer_config", "tracer_from_rfx",
-           "inverse_params_from_rfx"]
+           "segments_from_rfx", "inverse_params_from_rfx"]
 
 #: The `rfx.api.Tracer` attributes that make up its configuration.
 TRACER_CONFIG_KEYS = ("light_speed_mps", "sample_rate_hz", "sample_window_s", "max_bounces",
@@ -72,6 +75,23 @@ def tracer_from_rfx(tracer, *, backend: str = "auto", device="cuda") -> Tracer:
         tracer.mesh, cfg["light_speed_mps"], cfg["sample_rate_hz"], cfg["sample_window_s"],
         cfg["max_bounces"], cfg["tx_num_rays"], n1=cfg["n1"], n2=cfg["n2"],
         rx_mode=cfg["rx_mode"], backend=backend, device=device)
+
+
+def segments_from_rfx(segs, device="cuda") -> EnvSegments:
+    """The port's EnvSegments from an `rfx.tracer.EnvSegments` (or any
+    object with its six fields): origin and direction (B, N, 3) f32, t_env,
+    amplitude and distance (B, N) f32, alive (B, N) bool."""
+    dev = resolve_device(device)
+
+    def field(name, dtype, ndim):
+        a = np.array(getattr(segs, name), dtype)
+        if a.ndim != ndim:
+            raise ValueError(f"segments: {name} must have {ndim} dimensions, got {a.shape}")
+        return torch.as_tensor(a, device=dev)
+
+    return EnvSegments(field("origin", np.float32, 3), field("direction", np.float32, 3),
+                       field("t_env", np.float32, 2), field("amplitude", np.float32, 2),
+                       field("distance", np.float32, 2), field("alive", np.bool_, 2))
 
 
 def inverse_params_from_rfx(params, device="cuda") -> InverseParams:

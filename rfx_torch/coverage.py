@@ -1,19 +1,28 @@
-"""Coverage engine: one trace, every receiver (port of rfx/coverage.py, the
-map engine).
+"""Coverage engine: one trace, every receiver (port of rfx/coverage.py).
 
 The environment is traced once (`rfx_torch.tracer.trace_env`), and each
 receiver sphere is then intersected with the recorded segments: exactly the
 per-receiver trace, since a receiver never alters the environment path and
-capture only truncates that receiver's own view of it. Receivers go in
-batches of `rx_batch`: one broadcast sphere test over the B x N segments for
-the whole batch, the first capture along the bounce axis, then each
-receiver's IR through the histogram Function of rfx_torch.cir (the IR
-histogram kernel on a CUDA tensor). Hard or soft binning, analytic or
-icosphere receiver; differentiable throughout, which the inverse solver
-needs.
+capture only truncates that receiver's own view of it.
 
-Not ported yet: the `batched` engine on the coverage kernel (ROADMAP B4),
-and `coverage_dbm_fast` / `coverage_dbm_hybrid` (ROADMAP A9).
+Two engines build the impulse responses:
+
+- `map`: receivers in batches of `rx_batch`, one broadcast sphere test over
+  the B x N segments per batch, the first capture along the bounce axis,
+  then each receiver's IR through the histogram Function of rfx_torch.cir.
+  Hard or soft binning, analytic or icosphere receiver; differentiable,
+  which the inverse solver needs.
+- `batched`: the coverage kernel (rfx_torch.ops.coverage_hist) on a CUDA
+  tensor, its plain version on a CPU tensor. Hard binning and the analytic
+  receiver only; forward only.
+
+`auto` takes `batched` on a CUDA tensor for hard, analytic coverage and
+`map` otherwise (the reference's rule, with CUDA where it says TPU).
+
+The phasor metric (`coverage_dbm_fast`) gives each receiver's dBm from its
+captured paths without an IR; the hybrid metric (`coverage_dbm_hybrid`)
+re-evaluates exactly the receivers whose phasor diagnostics flag
+cancellation or delay spread, or every receiver when too many are flagged.
 """
 
 from __future__ import annotations
@@ -21,11 +30,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rfx_torch.cir import bin_impulse_response, rx_power_dbm
+from rfx_torch.cir import bin_impulse_response, rx_power_dbm, rx_power_dbm_phasor
+from rfx_torch.ops.coverage_hist import coverage_hist
 from rfx_torch.ops.intersect import is_hit, ray_mesh_closest_hit_brute, ray_sphere_hit
 from rfx_torch.tracer import EnvSegments, Scene, icosphere_soa, trace_env
 
-__all__ = ["make_grid", "coverage_irs", "coverage_dbm"]
+__all__ = ["make_grid", "coverage_irs", "coverage_dbm", "coverage_dbm_fast",
+           "coverage_dbm_hybrid"]
 
 
 def make_grid(x_range, y_range, z_range) -> np.ndarray:
@@ -50,32 +61,54 @@ def _t_rx(segs: EnvSegments, centers: torch.Tensor, rx_radius, rx_mode: str) -> 
     raise ValueError(f"unknown rx_mode: {rx_mode}")
 
 
-def _check_engine(engine: str) -> None:
-    if engine in ("auto", "map"):
-        return  # 'auto' takes the coverage kernel once it is ported (B4)
-    if engine == "batched":
-        raise NotImplementedError(
-            "engine='batched' needs the coverage kernel, which is not ported yet (ROADMAP B4)")
-    raise ValueError(f"unknown coverage engine: {engine}")
+def _first_capture(segs: EnvSegments, centers: torch.Tensor, rx_radius, rx_mode: str):
+    """(t_rx, first), each (R, B, N): a receiver wins a segment iff it is hit
+    and t_env > t_rx (a miss compares as the 1e30 sentinel), dead segments
+    are gated, and the first win along the bounce axis ends its view."""
+    t_rx = _t_rx(segs, centers, rx_radius, rx_mode)
+    win = segs.alive & is_hit(t_rx) & (segs.t_env > t_rx)
+    win_i = win.to(torch.int32)
+    return t_rx, win & (torch.cumsum(win_i, dim=1) - win_i == 0)
+
+
+def _amp_scale(tx_power, num_rays: int, device) -> torch.Tensor:
+    """tx_power / num_rays as an f32 0-dim tensor, divided on the host (a
+    CUDA division by a Python scalar multiplies by its reciprocal)."""
+    return (torch.as_tensor(tx_power, dtype=torch.float32).cpu() / num_rays).to(device)
+
+
+def _resolve_engine(engine: str, *, soft: bool, rx_mode: str, device: torch.device) -> str:
+    if engine == "auto":
+        batched = device.type == "cuda" and not soft and rx_mode == "analytic"
+        return "batched" if batched else "map"
+    if engine not in ("map", "batched"):
+        raise ValueError(f"unknown coverage engine: {engine}")
+    if engine == "batched" and soft:
+        raise ValueError("engine='batched' supports hard binning only")
+    if engine == "batched" and rx_mode != "analytic":
+        raise ValueError("engine='batched' supports the analytic receiver only")
+    return engine
 
 
 def _irs_from_segments(segs: EnvSegments, rx_centers, rx_radius, *, nbins: int,
                        num_rays: int, light_speed_mps: float, sample_rate_hz: float,
-                       tx_power, rx_batch: int, soft: bool, rx_mode: str) -> torch.Tensor:
+                       tx_power, rx_batch: int, soft: bool, rx_mode: str,
+                       engine: str = "auto") -> torch.Tensor:
     """(M, nbins) impulse responses of M receivers from shared env segments
     (rfx/coverage.py:56-81, :155-191)."""
     dev = segs.t_env.device
     centers = torch.as_tensor(rx_centers, dtype=torch.float32, device=dev).reshape(-1, 3)
-    scale = torch.as_tensor(tx_power, dtype=torch.float32, device=dev) / num_rays
+    scale = _amp_scale(tx_power, num_rays, dev)
+    engine = _resolve_engine(engine, soft=soft, rx_mode=rx_mode, device=dev)
+    if engine == "batched":
+        scaled = segs._replace(amplitude=segs.amplitude * scale)
+        return coverage_hist(scaled, centers, rx_radius, nbins=nbins,
+                             light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz,
+                             rx_batch=rx_batch)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     irs = []
     for s in range(0, centers.shape[0], rx_batch):
-        t_rx = _t_rx(segs, centers[s:s + rx_batch], rx_radius, rx_mode)  # (R, B, N)
-        # The receiver wins a segment iff it is hit and t_env > t_rx
-        # (a miss compares as the 1e30 sentinel); dead segments are gated.
-        win = segs.alive & is_hit(t_rx) & (segs.t_env > t_rx)
-        win_i = win.to(torch.int32)
-        first = win & (torch.cumsum(win_i, dim=1) - win_i == 0)
+        t_rx, first = _first_capture(segs, centers[s:s + rx_batch], rx_radius, rx_mode)
         amp = torch.where(first, segs.amplitude, zero) * scale
         dist = torch.where(first, segs.distance + t_rx, zero)
         for r in range(t_rx.shape[0]):
@@ -96,14 +129,15 @@ def coverage_irs(scene: Scene, tx_pos, directions: torch.Tensor, rx_centers, rx_
     """(M, nbins) impulse responses for M receiver spheres from one trace
     (rfx/coverage.py:91-143). `soft=True` bins linearly between neighbouring
     bins, so the IRs have a gradient in the path lengths (the inverse
-    solver's mode). engine: 'map' (this one) or 'auto' (= 'map' until the
-    coverage kernel is ported); 'batched' raises (ROADMAP B4)."""
-    _check_engine(engine)
+    solver's mode). engine: 'map', 'batched' (the coverage kernel; hard
+    binning, analytic receiver) or 'auto' (see the module docstring)."""
+    _resolve_engine(engine, soft=soft, rx_mode=rx_mode, device=directions.device)
     segs = trace_env(scene, tx_pos, directions, max_bounces=max_bounces, n1=n1, n2=n2,
                      env_hit=env_hit, active=active)
     return _irs_from_segments(segs, rx_centers, rx_radius, nbins=nbins, num_rays=num_rays,
                               light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz,
-                              tx_power=tx_power, rx_batch=rx_batch, soft=soft, rx_mode=rx_mode)
+                              tx_power=tx_power, rx_batch=rx_batch, soft=soft, rx_mode=rx_mode,
+                              engine=engine)
 
 
 def coverage_dbm(scene: Scene, tx_pos, directions, rx_centers, rx_radius, *,
@@ -115,3 +149,87 @@ def coverage_dbm(scene: Scene, tx_pos, directions, rx_centers, rx_radius, *,
                        sample_rate_hz=sample_rate_hz, **kwargs)
     dbm, _ = rx_power_dbm(irs, sample_window_s, carrier_hz)
     return dbm
+
+
+def _dbm_cancel_from_segments(segs: EnvSegments, rx_centers, rx_radius, *, num_rays: int,
+                              sample_window_s: float, sample_rate_hz: float, carrier_hz: float,
+                              light_speed_mps: float, tx_power, rx_batch: int):
+    """((M,) dBm, (M,) cancellation ratio, (M,) delay spread in s) of the
+    phasor metric from shared env segments (rfx/coverage.py:229-246,
+    :336-351), `rx_batch` receivers per broadcast sphere test."""
+    dev = segs.t_env.device
+    centers = torch.as_tensor(rx_centers, dtype=torch.float32, device=dev).reshape(-1, 3)
+    nbins = int(sample_window_s * sample_rate_hz)
+    scale = _amp_scale(tx_power, num_rays, dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    out = []
+    for s in range(0, centers.shape[0], rx_batch):
+        t_rx, first = _first_capture(segs, centers[s:s + rx_batch], rx_radius, "analytic")
+        r = t_rx.shape[0]
+        amp = torch.where(first, segs.amplitude, zero).reshape(r, -1) * scale
+        dist = torch.where(first, segs.distance + t_rx, zero).reshape(r, -1)
+        out.append(rx_power_dbm_phasor(
+            amp, dist, first.reshape(r, -1), sample_window_s=sample_window_s, nbins=nbins,
+            light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz,
+            carrier_hz=carrier_hz, return_cancellation=True))
+    if not out:
+        empty = torch.zeros(0, dtype=torch.float32, device=dev)
+        return empty, empty, empty
+    return tuple(torch.cat(x) for x in zip(*out))
+
+
+def coverage_dbm_fast(scene: Scene, tx_pos, directions, rx_centers, rx_radius, *,
+                      max_bounces: int, num_rays: int, sample_window_s: float,
+                      sample_rate_hz: float = 100e9, carrier_hz: float = 2.4e9,
+                      light_speed_mps: float = 2.998e8, tx_power=1.0, n1=5.0, n2=1.0,
+                      rx_batch: int = 64, env_hit=None, active=None) -> torch.Tensor:
+    """(M,) dBm per receiver from the shared env segments through the phasor
+    identity (rx_power_dbm_phasor): no per-receiver IR, no histogram. It
+    departs from the exact metric where paths cancel (the reference measured
+    a median of 0.27 dB and a maximum of 20 dB, rfx/coverage.py:279-285);
+    `coverage_dbm_hybrid` bounds that."""
+    segs = trace_env(scene, tx_pos, directions, max_bounces=max_bounces, n1=n1, n2=n2,
+                     env_hit=env_hit, active=active)
+    dbm, _, _ = _dbm_cancel_from_segments(
+        segs, rx_centers, rx_radius, num_rays=num_rays, sample_window_s=sample_window_s,
+        sample_rate_hz=sample_rate_hz, carrier_hz=carrier_hz, light_speed_mps=light_speed_mps,
+        tx_power=tx_power, rx_batch=rx_batch)
+    return dbm
+
+
+def coverage_dbm_hybrid(scene: Scene, tx_pos, directions, rx_centers, rx_radius, *,
+                        max_bounces: int, num_rays: int, sample_window_s: float,
+                        sample_rate_hz: float = 100e9, carrier_hz: float = 2.4e9,
+                        light_speed_mps: float = 2.998e8, tx_power=1.0, n1=5.0, n2=1.0,
+                        rx_batch: int = 64, env_hit=None, active=None,
+                        cancel_threshold: float = 0.5, spread_threshold_s: float = 10e-9,
+                        exact_fallback_frac: float = 0.15):
+    """((M,) dBm, n_flagged): the phasor metric, with the exact metric (IR
+    and convolution, engine 'auto') for the receivers it cannot trust
+    (rfx/coverage.py:361-454): coherent / incoherent ratio below
+    `cancel_threshold` (destructive interference) or delay spread above
+    `spread_threshold_s` (well-separated arrivals). When more than
+    `exact_fallback_frac` of the receivers are flagged, every receiver is
+    re-evaluated exactly. The scene is traced once; both passes share its
+    segments. Exactly the flagged receivers are evaluated (the reference
+    pads them to a power of two to reuse a compilation)."""
+    segs = trace_env(scene, tx_pos, directions, max_bounces=max_bounces, n1=n1, n2=n2,
+                     env_hit=env_hit, active=active)
+    dev = segs.t_env.device
+    centers = torch.as_tensor(rx_centers, dtype=torch.float32, device=dev).reshape(-1, 3)
+    kw = dict(num_rays=num_rays, light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz,
+              tx_power=tx_power, rx_batch=rx_batch)
+    dbm, ratio, spread = _dbm_cancel_from_segments(
+        segs, centers, rx_radius, sample_window_s=sample_window_s, carrier_hz=carrier_hz, **kw)
+    flagged = torch.nonzero((ratio < cancel_threshold) | (spread > spread_threshold_s)).flatten()
+    n_flagged = int(flagged.shape[0])
+    nbins = int(sample_window_s * sample_rate_hz)
+    if n_flagged > exact_fallback_frac * centers.shape[0]:
+        # Above this flag rate the subset costs about as much as everyone.
+        flagged = torch.arange(centers.shape[0], device=dev)
+    if flagged.shape[0]:
+        irs = _irs_from_segments(segs, centers[flagged], rx_radius, nbins=nbins, soft=False,
+                                 rx_mode="analytic", **kw)
+        exact, _ = rx_power_dbm(irs, sample_window_s, carrier_hz)
+        dbm = dbm.index_put((flagged,), exact)
+    return dbm, n_flagged

@@ -6,11 +6,16 @@ rfx_torch.api.Tracer.compute_cir. `--path scan-grad` and `--path fused-grad`
 run one value + gradient of scripts/bench_gradients.py's loss (sum(ir^2) *
 1e12 over a 20,000-bin soft IR of 2,621,440 rays, 4 bounces) with respect to
 tx, through the scan tracer on the closest-hit kernel or through the
-differentiable fused tracer. Each runs under torch.profiler and prints the
-device time by kernel, the device busy share of the profiled window, and the
-CUDA-event time of each request. Run from the root of a checkout:
+differentiable fused tracer. `--path coverage-exact|coverage-fast|coverage-hybrid`
+runs one coverage sweep through the facade (2,048 receivers of radius 0.5,
+1,048,576 Morton rays, 2 bounces, 10,000 bins) on `--scene room` (tx
+(3, 2, 2), z 0..14) or `--scene terrain` (tx (10, 0, 25), z 10..24); the
+exact sweep includes rx_power_dbm. Each runs under torch.profiler and prints
+the device time by kernel, the device busy share of the profiled window, and
+the CUDA-event time of each request. Run from the root of a checkout:
 
-    python3 scripts/torch_profile_cir.py [--path cir] [--requests 5] [--trace out.json]
+    python3 scripts/torch_profile_cir.py [--path cir] [--scene terrain] [--requests 5]
+                                         [--trace out.json]
 """
 
 from __future__ import annotations
@@ -24,7 +29,10 @@ import time
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("cir", "scan-grad", "fused-grad"), default="cir")
+    ap.add_argument("--path", default="cir", choices=(
+        "cir", "scan-grad", "fused-grad", "coverage-exact", "coverage-fast", "coverage-hybrid"))
+    ap.add_argument("--scene", choices=("room", "terrain"), default="terrain",
+                    help="the coverage paths' scene")
     ap.add_argument("--requests", type=int, default=5)
     ap.add_argument("--trace", help="write a Chrome trace of the profiled window here")
     a = ap.parse_args()
@@ -38,9 +46,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from rfx.bvh import build_bvh
-    from rfx.geometry import make_terrain
+    from rfx.geometry import make_room, make_terrain
     from rfx_torch.api import Tracer
     from rfx_torch.cir import cir_from_trace
+    from rfx_torch.coverage import make_grid
     from rfx_torch.ops.bvh_trace import make_kernel_env_hit
     from rfx_torch.ops.fused import make_diff_fused_tracer
     from rfx_torch.sampler import morton_sphere_directions
@@ -49,13 +58,28 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     dev = torch.device("cuda", 0)
-    mesh = make_terrain(grid=128, extent=60.0, seed=0)
-    n = 5_242_880 if a.path == "cir" else 2_621_440
+    coverage = a.path.startswith("coverage")
+    room = coverage and a.scene == "room"
+    mesh = make_room() if room else make_terrain(grid=128, extent=60.0, seed=0)
+    n = {"cir": 5_242_880, "scan-grad": 2_621_440, "fused-grad": 2_621_440}.get(a.path, 1_048_576)
     dirs = morton_sphere_directions(n, generator=torch.Generator(dev).manual_seed(0),
                                     device=dev)
     rx = (-10.0, 0.0, 8.0)
 
-    if a.path == "cir":
+    if coverage:
+        tracer = Tracer(mesh, 2.998e8, 100e9, 100e-9, max_bounces=2, tx_num_rays=n, device=dev)
+        tx = (3.0, 2.0, 2.0) if room else (10.0, 0.0, 25.0)
+        grid = make_grid(range(-15, 16, 2), range(-15, 16, 2),
+                         range(0, 16, 2) if room else range(10, 26, 2))
+
+        def request(i):
+            req = (tx, 1.0, grid, 0.5)
+            if a.path == "coverage-exact":
+                return tracer.rx_power_dbm(tracer.compute_coverage(*req, directions=dirs))
+            if a.path == "coverage-fast":
+                return tracer.compute_coverage_dbm_fast(*req, directions=dirs)
+            return tracer.compute_coverage_dbm_hybrid(*req, directions=dirs)
+    elif a.path == "cir":
         tracer = Tracer(mesh, max_bounces=4, tx_num_rays=n, device=dev)
 
         def request(i):
@@ -111,7 +135,7 @@ def main() -> int:
         request(i)
         end.record()
         torch.cuda.synchronize()
-        print(f"request tx z={25.0 + i}: {start.elapsed_time(end):.4f} ms (CUDA events), "
+        print(f"request {i}: {start.elapsed_time(end):.4f} ms (CUDA events), "
               f"{n / start.elapsed_time(end) / 1e3:.1f} Mrays/s")
     return 0
 

@@ -12,7 +12,7 @@ from oracle import sample_sphere_directions
 from rfx import sampler as jsampler
 from rfx.api import Tracer as JTracer
 from rfx.geometry import make_terrain
-from rfx_torch import convert
+from rfx_torch import convert, coverage
 from rfx_torch.api import Tracer
 
 torch.set_num_threads(1)
@@ -39,6 +39,40 @@ def test_brute_branch_matches_rfx(box_room, rx_mode):
     np.testing.assert_allclose(t.rx_power_dbm(ir), jt.rx_power_dbm(j_ir), atol=1e-3)
 
 
+def test_coverage_metrics_match_rfx_facade(box_room):
+    """Tracer.compute_coverage_dbm_fast / _hybrid against the JAX facade's on
+    the same directions (the brute branch, 20 receivers)."""
+    dirs = sample_sphere_directions(4096, seed=12)
+    centers = np.asarray([[x, y, z] for x in (-8.0, -3.0, 2.0, 7.0, 12.0) for y in (-5.0, 5.0)
+                          for z in (2.0, 8.0)], np.float32)
+    jt = JTracer(box_room, C, 10e9, 100e-9, max_bounces=2, tx_num_rays=4096)
+    t = convert.tracer_from_rfx(jt, device="cpu")
+    tx = np.asarray([3.0, 2.0, 2.0])
+    with jax.disable_jit():  # eager binning: divide, then multiply (ROADMAP C)
+        j_fast = jt.compute_coverage_dbm_fast(tx, 1.0, centers, 1.2, directions=dirs)
+        j_hyb, j_n = jt.compute_coverage_dbm_hybrid(tx, 1.0, centers, 1.2, directions=dirs)
+    fast = t.compute_coverage_dbm_fast(tx, 1.0, centers, 1.2, directions=dirs)
+    hyb, n = t.compute_coverage_dbm_hybrid(tx, 1.0, centers, 1.2, directions=dirs)
+    assert n == j_n and np.isfinite(j_fast).sum() > 10
+    for got, want in ((fast, j_fast), (hyb, np.asarray(j_hyb))):
+        ok = np.isfinite(want)
+        np.testing.assert_array_equal(np.isfinite(got), ok)
+        diff = np.abs(got[ok] - want[ok])
+        # rfx's sphere hit sums its dot products through einsum, the port x +
+        # y + z: a t_rx an ulp apart can move a path across a bin boundary,
+        # which turns its phasor by 2 pi f / rate (0.15 rad at 10 GHz). Here
+        # that moves one receiver's fast dBm by 0.2 dB (ROADMAP C).
+        assert (diff > 1e-3).sum() <= 1 and diff.max() < 0.5, diff
+    # The facade is the module functions on its own directions and env_hit.
+    kw = dict(max_bounces=2, num_rays=4096, sample_window_s=100e-9, sample_rate_hz=10e9,
+              env_hit=t.env_hit)
+    dirs_t = torch.from_numpy(dirs)
+    np.testing.assert_array_equal(
+        fast, coverage.coverage_dbm_fast(t.scene, tx, dirs_t, centers, 1.2, **kw).numpy())
+    np.testing.assert_array_equal(
+        hyb, coverage.coverage_dbm_hybrid(t.scene, tx, dirs_t, centers, 1.2, **kw)[0].numpy())
+
+
 def test_fused_branch_matches_rfx():
     mesh = make_terrain(grid=40, extent=40.0, seed=5)
     assert mesh.num_faces == 3042
@@ -59,10 +93,13 @@ def test_fused_branch_matches_rfx():
 def test_fused_branch_refuses_what_needs_unported_kernels():
     mesh = make_terrain(grid=40, extent=40.0, seed=5)
     t = Tracer(mesh, max_bounces=2, tx_num_rays=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        t.compute_coverage_dbm_fast(TX, 1.0, RX[None], 1.0)
-    with pytest.raises(NotImplementedError, match="A9"):
-        t.compute_coverage_dbm_hybrid(TX, 1.0, RX[None], 1.0)
+    # The coverage metrics are ported: they run on the fused branch's env_hit.
+    centers = np.stack([RX, RX + 3.0]).astype(np.float32)
+    fast = t.compute_coverage_dbm_fast(TX, 1.0, centers, 1.0)
+    assert isinstance(fast, np.ndarray) and fast.shape == (2,)
+    hybrid, n_flagged = t.compute_coverage_dbm_hybrid(TX, 1.0, centers, 1.0)
+    assert isinstance(hybrid, np.ndarray) and hybrid.shape == (2,)
+    assert isinstance(n_flagged, int) and 0 <= n_flagged <= 2
     with pytest.raises(NotImplementedError, match="A8"):
         Tracer(mesh, backend="bvh", device="cpu")
     with pytest.raises(ValueError):

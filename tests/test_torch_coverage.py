@@ -1,9 +1,10 @@
-"""The port's coverage engine (the map engine over `trace_env`) against
-rfx.coverage.coverage_irs(engine="map") on the same directions, hard and
-soft binning, analytic and icosphere receiver; and the facade's
-`compute_coverage` and recorded paths on a fused-backend mesh, which run
-the per-query kernel's plain version here, against the JAX facade's brute
-backend."""
+"""The port's coverage engine against rfx.coverage on the same directions:
+the map engine (hard and soft binning, analytic and icosphere receiver), the
+batched engine (the coverage kernel's plain version here, also fed rfx's own
+segments beside rfx's Pallas kernel in interpret mode), the phasor metric
+and the hybrid metric; and the facade's `compute_coverage` and recorded
+paths on a fused-backend mesh, which run the per-query kernel's plain
+version here, against the JAX facade's brute backend."""
 
 import numpy as np
 import pytest
@@ -15,12 +16,17 @@ import jax.numpy as jnp
 from oracle import sample_sphere_directions
 from rfx import sampler as jsampler
 from rfx.api import Tracer as JTracer
+from rfx.coverage import coverage_dbm_fast as jcoverage_dbm_fast
+from rfx.coverage import coverage_dbm_hybrid as jcoverage_dbm_hybrid
 from rfx.coverage import coverage_irs as jcoverage_irs
 from rfx.coverage import make_grid as jmake_grid
 from rfx.geometry import make_terrain
+from rfx.ops.pallas_coverage import coverage_hist_pallas
 from rfx.tracer import Scene as JScene
-from rfx_torch import coverage
+from rfx.tracer import trace_env as jtrace_env
+from rfx_torch import convert, coverage
 from rfx_torch.api import Tracer
+from rfx_torch.ops import coverage_hist
 from rfx_torch.tracer import Scene
 
 torch.set_num_threads(1)
@@ -63,11 +69,23 @@ def test_coverage_make_grid_dbm_and_engines(box_room):
     dbm = coverage.coverage_dbm(scene, [0.0, 0.0, 5.0], dirs, grid, 2.0,
                                 sample_window_s=WINDOW, **kw)
     assert dbm.shape == (len(grid),) and torch.isfinite(dbm).any()
-    with pytest.raises(NotImplementedError, match="B4"):
+    # On the CPU, 'batched' runs the coverage kernel's plain version.
+    irs = {e: coverage.coverage_irs(scene, [0.0, 0.0, 5.0], dirs, grid, 2.0, nbins=64,
+                                    sample_rate_hz=1e9, engine=e, **kw)
+           for e in ("batched", "map", "auto")}
+    assert irs["map"].sum() > 0
+    torch.testing.assert_close(irs["batched"], irs["map"], rtol=1e-5, atol=1e-12)
+    torch.testing.assert_close(irs["auto"], irs["map"], rtol=0, atol=0)  # 'auto' is 'map' here
+    for bad in (dict(soft=True), dict(rx_mode="icosphere")):
+        with pytest.raises(ValueError, match="batched"):
+            coverage.coverage_irs(scene, [0.0, 0.0, 5.0], dirs, grid, 2.0, nbins=64,
+                                  engine="batched", **kw, **bad)
+    with pytest.raises(ValueError, match="engine"):
         coverage.coverage_irs(scene, [0.0, 0.0, 5.0], dirs, grid, 2.0, nbins=64,
-                              engine="batched", **kw)
-    assert coverage.coverage_irs(scene, [0.0, 0.0, 5.0], dirs, grid[:0], 2.0, nbins=64,
-                                 **kw).shape == (0, 64)
+                              engine="pallas", **kw)
+    for engine in ("map", "batched"):
+        assert coverage.coverage_irs(scene, [0.0, 0.0, 5.0], dirs, grid[:0], 2.0, nbins=64,
+                                     engine=engine, **kw).shape == (0, 64)
 
 
 TERRAIN = dict(grid=40, extent=40.0, seed=5)
@@ -113,3 +131,119 @@ def test_fused_backend_compute_coverage_matches_rfx():
     j_irs = jt.compute_coverage(TX, 1.0, centers, 2.0, directions=dirs, rx_batch=2)
     assert irs.shape == (3, t.nbins) and (irs.sum(axis=1) > 0).all()
     np.testing.assert_allclose(irs, j_irs, rtol=1e-4, atol=1e-9 * float(j_irs.max()))
+
+
+# The exact coverage kernel (K3) and the phasor / hybrid metrics, held
+# against rfx at tests/test_coverage.py's sizes.
+COV_TX = np.asarray([5.0, 3.0, 5.0], np.float32)
+COV_CENTERS = np.asarray([[-10.0, 0.0, 5.0], [0.0, 8.0, 2.0], [7.0, -7.0, 9.0],
+                          [12.0, 12.0, 1.0], [0.0, 0.0, 15.0]], np.float32)
+
+
+def _jax_segments(mesh, tx, dirs, max_bounces, scale=1.0):
+    segs = jtrace_env(JScene.from_mesh(mesh), jnp.asarray(tx, jnp.float32), jnp.asarray(dirs),
+                      max_bounces=max_bounces)
+    return segs._replace(amplitude=segs.amplitude * scale)
+
+
+def test_coverage_hist_plain_matches_pallas_interpret(box_room):
+    """K3's plain version and rfx's K3 (interpret mode) on the same segments:
+    2,048 rays, 2 bounces, 3 receivers, 1,000 bins."""
+    dirs = sample_sphere_directions(2048, seed=9)
+    segs = _jax_segments(box_room, COV_TX, dirs, 2, scale=2.0 / 2048)
+    kw = dict(nbins=1000, light_speed_mps=C, sample_rate_hz=10e9)
+    want = np.asarray(coverage_hist_pallas(segs, jnp.asarray(COV_CENTERS[:3]), jnp.float32(1.5),
+                                           interpret=True, **kw))
+    psegs = convert.segments_from_rfx(segs, device="cpu")
+    got = coverage_hist.coverage_hist_plain(psegs, COV_CENTERS[:3], 1.5, **kw).numpy()
+    assert got.shape == want.shape == (3, 1000) and (want.sum(axis=1) > 0).all()
+    np.testing.assert_array_equal(got != 0, want != 0)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-12)
+    # The wrapper takes the plain version for a CPU tensor.
+    np.testing.assert_array_equal(coverage_hist.coverage_hist(psegs, COV_CENTERS[:3], 1.5,
+                                                              **kw).numpy(), got)
+
+
+def test_batched_engine_matches_rfx_map_engine(box_room):
+    """engine='batched' (K3's plain version here) against rfx's map engine,
+    5 receivers (an odd count), 3 bounces, tx_power 2."""
+    dirs = sample_sphere_directions(3000, seed=9)
+    kw = dict(max_bounces=3, nbins=10_000, num_rays=3000, light_speed_mps=C, sample_rate_hz=RATE,
+              tx_power=2.0)
+    with jax.disable_jit():  # eager binning: divide, then multiply (ROADMAP C)
+        want = np.asarray(jcoverage_irs(JScene.from_mesh(box_room), jnp.asarray(COV_TX),
+                                        jnp.asarray(dirs), jnp.asarray(COV_CENTERS), 0.8,
+                                        rx_batch=2, engine="map", **kw))
+    got = coverage.coverage_irs(Scene.from_mesh(box_room, "cpu"), COV_TX, torch.from_numpy(dirs),
+                                COV_CENTERS, 0.8, rx_batch=2, engine="batched", **kw)
+    assert got.shape == want.shape == (5, 10_000) and (want != 0).any()
+    np.testing.assert_array_equal(got.numpy() != 0, want != 0)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-12)
+
+
+FAST_KW = dict(max_bounces=2, num_rays=4096, sample_window_s=200e-9, sample_rate_hz=10e9,
+               carrier_hz=2.4e9, rx_batch=4)
+FAST_TX = np.asarray([3.0, 2.0, 2.0], np.float32)
+
+
+def test_coverage_dbm_fast_matches_rfx(box_room):
+    """tests/test_coverage.py:101-141's inputs: 12 receivers, 4,096 rays; and
+    one receiver outside the room, which nothing reaches."""
+    dirs = sample_sphere_directions(4096, seed=77)
+    centers = np.concatenate([jmake_grid(range(-12, 13, 8), [-4, 4], [2, 8])[:12],
+                              [[40.0, 40.0, 40.0]]]).astype(np.float32)
+    with jax.disable_jit():
+        want = np.asarray(jcoverage_dbm_fast(JScene.from_mesh(box_room), jnp.asarray(FAST_TX),
+                                             jnp.asarray(dirs), jnp.asarray(centers),
+                                             jnp.float32(1.5), **FAST_KW))
+    got = coverage.coverage_dbm_fast(Scene.from_mesh(box_room, "cpu"), FAST_TX,
+                                     torch.from_numpy(dirs), centers, 1.5, **FAST_KW).numpy()
+    ok = np.isfinite(want)
+    assert ok.sum() >= 6 and (~ok).any()
+    np.testing.assert_array_equal(np.isfinite(got), ok)
+    np.testing.assert_array_equal(got[~ok], want[~ok])  # -inf where nothing arrived
+    np.testing.assert_allclose(got[ok], want[ok], rtol=0, atol=1e-3)
+
+
+def test_dbm_cancel_from_segments_matches_rfx(box_room):
+    """The phasor metric's (dBm, ratio, spread) on the same segments."""
+    from rfx.coverage import _dbm_cancel_from_segments as j_cancel
+
+    dirs = sample_sphere_directions(8192, seed=77)
+    centers = jmake_grid(range(-12, 13, 6), range(-12, 13, 6), [2, 8])
+    segs = _jax_segments(box_room, FAST_TX, dirs, 2)
+    kw = dict(num_rays=8192, sample_window_s=100e-9, sample_rate_hz=10e9, carrier_hz=2.4e9,
+              light_speed_mps=C, tx_power=1.0, rx_batch=10)
+    with jax.disable_jit():
+        want = [np.asarray(x) for x in j_cancel(segs, jnp.asarray(centers), 1.0, **kw)]
+    got = [x.numpy() for x in coverage._dbm_cancel_from_segments(
+        convert.segments_from_rfx(segs, device="cpu"), centers, 1.0, **kw)]
+    ok = np.isfinite(want[0])
+    assert ok.sum() > 20 and (want[1][ok] < 0.5).any() and (want[2] > 0).any()
+    np.testing.assert_array_equal(np.isfinite(got[0]), ok)
+    np.testing.assert_allclose(got[0][ok], want[0][ok], rtol=0, atol=1e-3)
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("frac", [1.0, 0.0], ids=["subset", "wholesale"])
+def test_coverage_dbm_hybrid_matches_rfx(box_room, frac):
+    """tests/test_coverage.py:144-190's inputs: 50 receivers, 8,192 rays, of
+    which 41 are flagged; a fallback fraction of 1 re-evaluates exactly the
+    flagged subset, 0 every receiver (the default, 0.15, does too here)."""
+    dirs = sample_sphere_directions(8192, seed=77)
+    centers = jmake_grid(range(-12, 13, 6), range(-12, 13, 6), [2, 8])
+    kw = dict(max_bounces=2, num_rays=8192, sample_window_s=100e-9, sample_rate_hz=10e9,
+              rx_batch=10, exact_fallback_frac=frac)
+    with jax.disable_jit():
+        want, j_flagged = jcoverage_dbm_hybrid(JScene.from_mesh(box_room), jnp.asarray(FAST_TX),
+                                               jnp.asarray(dirs), jnp.asarray(centers),
+                                               jnp.float32(1.0), **kw)
+    got, n_flagged = coverage.coverage_dbm_hybrid(Scene.from_mesh(box_room, "cpu"), FAST_TX,
+                                                  torch.from_numpy(dirs), centers, 1.0, **kw)
+    want, got = np.asarray(want), got.numpy()
+    assert n_flagged == j_flagged > 0
+    assert n_flagged < len(centers)  # some receivers keep the phasor's dBm
+    ok = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), ok)
+    np.testing.assert_allclose(got[ok], want[ok], rtol=0, atol=1e-3)

@@ -14,11 +14,11 @@ import pytest
 import torch
 
 from rfx.geometry import make_room, make_terrain
-from rfx_torch import cir
+from rfx_torch import cir, coverage
 from rfx_torch.api import Tracer
-from rfx_torch.ops import bvh_trace, fused, intersect
+from rfx_torch.ops import bvh_trace, coverage_hist, fused, intersect
 from rfx_torch.sampler import morton_sphere_directions
-from rfx_torch.tracer import Scene, trace_to_rx
+from rfx_torch.tracer import EnvSegments, Scene, trace_env, trace_to_rx
 
 pytestmark = pytest.mark.cuda
 
@@ -213,3 +213,83 @@ def test_scan_gradients_on_card_match_cpu(cuda):
     torch.testing.assert_close(out[0][1], out[1][1], rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(out[0][2], out[1][2], rtol=1e-3,
                                atol=1e-6 * float(out[1][2].abs().max()))
+
+
+def _room_segments(cuda, n, max_bounces=3):
+    """Env segments of n Morton rays in the box room, amplitude scaled by
+    1 / n (the coverage kernel's input)."""
+    dirs = morton_sphere_directions(n, generator=torch.Generator(cuda).manual_seed(6), device=cuda)
+    segs = trace_env(Scene.from_mesh(make_room(), cuda), [3.0, 2.0, 2.0], dirs,
+                     max_bounces=max_bounces)
+    return segs._replace(amplitude=segs.amplitude * (torch.tensor(1.0) / n).to(cuda))
+
+
+def _room_receivers(m):
+    """m - 1 receivers spread over the room and one far outside it."""
+    g = np.random.default_rng(21)
+    inside = np.column_stack([g.uniform(-18, 18, m - 1), g.uniform(-18, 18, m - 1),
+                              g.uniform(0.5, 14, m - 1)])
+    return np.vstack([inside, [[100.0, 100.0, 100.0]]]).astype(np.float32)
+
+
+def test_coverage_kernel_matches_plain(cuda):
+    """531 receivers (an odd count: blocks of 5, the last one short), 100,003
+    rays (an odd count), 3 bounces, a 50 ns window that drops the longer
+    paths, and a receiver that nothing reaches."""
+    segs = _room_segments(cuda, 100_003)
+    centers = _room_receivers(531)
+    kw = dict(light_speed_mps=2.998e8, sample_rate_hz=100e9)
+    before = coverage_hist.COVERAGE_HIST_KERNEL.launches
+    k1 = coverage_hist.coverage_hist(segs, centers, 0.7, nbins=5000, **kw)
+    k2 = coverage_hist.coverage_hist(segs, centers, 0.7, nbins=5000, **kw)
+    assert coverage_hist.COVERAGE_HIST_KERNEL.launches == before + 2
+    p = coverage_hist.coverage_hist_plain(segs, centers, 0.7, nbins=5000, **kw)
+    wide = coverage_hist.coverage_hist_plain(segs, centers, 0.7, nbins=40_000, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(k1, k2)
+    assert torch.equal(k1 != 0, p != 0)
+    torch.testing.assert_close(k1, p, rtol=1e-5, atol=1e-12)
+    assert float(wide[:, 5000:].sum()) > 0  # paths beyond the window were dropped
+    torch.testing.assert_close(p, wide[:, :5000], rtol=1e-5, atol=1e-12)
+    lit = (k1 != 0).any(dim=1)
+    assert not bool(lit[-1]) and int(lit.sum()) > 200
+    # A receiver's IR does not depend on the block it shares: alone, it is
+    # the same bit for bit.
+    for i in (0, 4, 5, 530):
+        alone = coverage_hist.coverage_hist(segs, centers[i:i + 1], 0.7, nbins=5000, **kw)
+        assert torch.equal(alone[0], k1[i]), i
+    with pytest.raises(ValueError, match="bins"):
+        coverage_hist.coverage_hist(segs, centers, 0.7, nbins=1_000_000, **kw)
+
+
+def test_coverage_engines_on_card(cuda):
+    """engine='auto' takes the coverage kernel on the card and agrees with
+    the map engine; the phasor metric on the card agrees with the CPU on the
+    same segments."""
+    room = make_room()
+    n = 65_536
+    dirs = morton_sphere_directions(n, generator=torch.Generator(cuda).manual_seed(8), device=cuda)
+    centers = _room_receivers(41)
+    kw = dict(max_bounces=2, nbins=10_000, num_rays=n, light_speed_mps=2.998e8,
+              sample_rate_hz=100e9)
+    scene = Scene.from_mesh(room, cuda)
+    before = coverage_hist.COVERAGE_HIST_KERNEL.launches
+    auto = coverage.coverage_irs(scene, [3.0, 2.0, 2.0], dirs, centers, 0.8, **kw)
+    assert coverage_hist.COVERAGE_HIST_KERNEL.launches == before + 1
+    mapped = coverage.coverage_irs(scene, [3.0, 2.0, 2.0], dirs, centers, 0.8, engine="map", **kw)
+    assert coverage_hist.COVERAGE_HIST_KERNEL.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(auto != 0, mapped != 0) and int((auto != 0).any(dim=1).sum()) > 30
+    torch.testing.assert_close(auto, mapped, rtol=1e-5, atol=1e-12)
+
+    segs = trace_env(scene, [3.0, 2.0, 2.0], dirs, max_bounces=2)
+    fkw = dict(num_rays=n, sample_window_s=100e-9, sample_rate_hz=100e9, carrier_hz=2.4e9,
+               light_speed_mps=2.998e8, tx_power=1.0, rx_batch=16)
+    card = [x.cpu() for x in coverage._dbm_cancel_from_segments(segs, centers, 0.8, **fkw)]
+    host = coverage._dbm_cancel_from_segments(
+        EnvSegments(*(t.cpu() for t in segs)), centers, 0.8, **fkw)
+    ok = torch.isfinite(host[0])
+    assert torch.equal(torch.isfinite(card[0]), ok) and int(ok.sum()) > 30
+    torch.testing.assert_close(card[0][ok], host[0][ok], rtol=0, atol=1e-3)
+    for a, b in zip(card[1:], host[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=0)

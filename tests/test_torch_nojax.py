@@ -1,5 +1,8 @@
 """rfx_torch never imports JAX: a fresh interpreter imports the port, runs a
-tiny CPU compute_cir through both backends, and finds no `jax` module."""
+tiny CPU compute_cir through both backends, a soft coverage gradient, a
+hybrid coverage metric and the coverage command line, and finds no `jax`
+module. matplotlib is blocked throughout: the card's machine has none, and
+`coverage --no-viz` must not need it."""
 
 import os
 import subprocess
@@ -10,6 +13,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SCRIPT = """
 import sys
+sys.modules["matplotlib"] = None  # any import of it raises ImportError
 import torch
 torch.set_num_threads(1)
 import rfx_torch
@@ -37,6 +41,15 @@ irs = solver.coverage_irs_soft(scene.vertices, scene.faces, tx, 5.0, dirs[:256],
                                light_speed_mps=2.998e8, sample_rate_hz=10e9)
 (irs * irs).sum().backward()
 assert torch.isfinite(tx.grad).all() and float(tx.grad.abs().sum()) > 0
+dbm, n_flagged = Tracer(room, max_bounces=2, tx_num_rays=256, sample_window_s=100e-9,
+                        device="cpu").compute_coverage_dbm_hybrid(
+    [3.0, 2.0, 2.0], 1.0, coverage.make_grid([-6.0, 6.0], [-4.0, 4.0], [2.0]), 2.0,
+    directions=dirs[:256])
+assert dbm.shape == (4,) and 0 <= n_flagged <= 4
+from rfx_torch import cli
+from rfx_torch.utils import profiling
+assert cli.main(["coverage", "--rays", "256", "--device", "cpu", "--no-viz", "--metric",
+                 "exact"]) == 0
 print(float(ir.sum()), float(ir2.sum()), tr.rx_power_dbm(ir2))
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", bad)
