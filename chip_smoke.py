@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's forward CIR path, its gradient path and its
-coverage path once on one NVIDIA GPU.
+"""Drive the PyTorch port's forward CIR path, its gradient path, its coverage
+path and its large-mesh path once on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card and the CUDA
 toolkit (nvcc):
@@ -11,8 +11,9 @@ Phases, each ending in torch.cuda.synchronize() so a fault shows where it
 happened, and none catching its own failure:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the four kernels from rfx_torch/csrc/ into build/rfx_torch/, one
-   nvcc each, all started together;
+2. build the five CUDA sources of rfx_torch/csrc/ (six kernels: the fused
+   trace and its counted instantiation share one) and the native C++ BVH
+   builder into build/rfx_torch/, one compiler each, all started together;
 3. the bench workload (bench.py): make_terrain(grid=128, extent=60, seed=0),
    32,258 triangles, 5,242,880 Morton-ordered rays, 4 bounces, a 20,000-bin
    IR, tx (10, 0, 25), rx (-10, 0, 8), rx radius 1.0;
@@ -72,10 +73,32 @@ happened, and none catching its own failure:
     (1e-3 dB), ratio and spread (rtol 1e-4) held against the CPU on the same
     segments, the hybrid's flagged set against the CPU's (bar receivers
     within 1e-4 of a threshold), the hybrid exact where it fell back and fast
-    elsewhere; wall and CUDA-event times of each metric.
+    elsewhere; wall and CUDA-event times of each metric;
+14. the large-mesh path (scripts/torch_bench_large_mesh.py, whose legs this
+    phase calls): make_terrain(grid=724, extent=120, seed=0), 1,045,458
+    triangles, the native builder at leaf 8 (asserted, with its seconds,
+    nodes, padded triangles and bytes on the card), tx (10, 0, 30), rx
+    (-15, 5, 12), radius 2.0. Against the plain versions, on 8,192 of the
+    5,242,880 Morton rays: the fused kernel == the brute plain version
+    (phase 4's bars), the counted kernel's trace == the uncounted kernel's
+    bit for bit, its (4, 4) int64 counters == `fused_trace_walk_plain`'s
+    integer for integer, and that plain walk's trace == the brute plain
+    version's; the same counter check on phase 4's 65,536 rays of the bench
+    terrain. Then the path itself, counted on its own: the 16,384-ray parity
+    leg of the closest-hit kernel against the plain walk of an independent
+    leaf-16 tree; three compute_cir requests at 5,242,880 rays x 4 bounces x
+    20,000 bins (CUDA events, Mrays/s; the first again, bit-identical); the
+    walk counters at full width with the counted trace == the uncounted one
+    bit for bit, and the SIMT efficiency nodes / (32 * warp_steps); the
+    per-query cross-check at 1,048,576 rays. The same counters and times on
+    the bench terrain beside them. Last, the vote micro-kernel
+    (scripts/torch_micro_vote.py): each style's carry == the plain version's
+    after 2,000 bodies, then ns per body at 50,000 bodies, counted on its own.
 Each main-path run is counted on its own: every launch count is set to 0
 just before it and read just after, and each kernel the path runs must have
-launched (the forward requests: fused trace and histogram; the scan
+launched (the forward requests: fused trace and histogram; the large-mesh
+path: fused trace, counted fused trace, closest hit and histogram; the
+micro-kernel's timed launches: micro vote; the scan
 value+grad and the five full-width solver steps: closest hit and histogram;
 the fused value+grad: fused trace and histogram; the coverage CLI's exact
 sweep: the coverage kernel; each hybrid sweep: the coverage kernel, and on
@@ -83,8 +106,13 @@ the terrain the closest hit; each fast sweep: on the terrain the closest hit,
 and never the coverage kernel). The comparisons with the plain versions, the
 checks of phase 10 and the facade are not counted.
 
-Prints CUDA-event times of the kernels beside their plain versions, one JSON
-line of the kernels, and as its last line
+Prints CUDA-event times of the kernels beside their plain versions, JSON
+lines of what the paths measured, one JSON line of the kernels (each with its
+launches, its time at the main path's shape, its plain version's time, the
+least time the card could take for the same work, `bound_ms`, from the bytes
+the function must move at 3.35 TB/s and the f32 operations this run's data
+needs at 67 TFLOP/s, and the time of one PyTorch call that computes the same
+function where there is one), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, where CUDA is unavailable or the port's
 sources are missing.
@@ -121,6 +149,27 @@ COV_RADIUS = 0.5
 # of CPU time) and the fast metric on every CPU_FAST_STRIDE-th receiver: all
 # 2,048 would add about 60 s of CPU time per configuration.
 CPU_FAST_STRIDE = 32
+LARGE_SUBSET = 8_192
+# Launch counts are kept per C entry point (CudaKernel.symbol).
+K_FUSED = "rfx_fused_trace"
+K_COUNTED = "rfx_fused_trace_counted"
+K_HIT = "rfx_closest_hit"
+K_HIST = "rfx_ir_histogram"
+K_COV = "rfx_coverage_hist"
+K_VOTE = "rfx_micro_vote"
+# One H100 SXM's published peaks: HBM bytes/s, f32 FLOP/s outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+# f32 operations as written in rfx_torch/csrc/bvh_walk.cuh and fused_trace.cu:
+# one slab test (6 sub, 6 mul, 6 min/max, 4 to fold them, min, 2 compares),
+# one Moller-Trumbore test (two cross products, four dot products, one
+# division, three scalings, the sum u + v, six compares), one bounce's
+# receiver sphere, reflection, Fresnel factor and advance.
+SLAB_FLOPS = 25
+MT_FLOPS = 51
+BOUNCE_FLOPS = 60
+NODE_BYTES = 48  # two float4 of box, one int4 of meta
+TRI_BYTES = 48  # three float4
 
 
 def _sync():
@@ -152,16 +201,63 @@ def _flip_budget(n: int) -> int:
     return max(4, n // 500)
 
 
+def _bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take: bytes at the memory rate against
+    f32 operations at the peak rate; the larger bounds the kernel."""
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_F32_FLOPS * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes": int(n_bytes), "bound_flops": int(flops)}
+
+
+def _walk_bound(bvh, nodes: int, tris: int, io_bytes: int, extra_flops: int = 0) -> dict:
+    """Bound of a BVH-walking kernel from this run's walk counters: the
+    tables count once, and no more of them than the visits can have touched;
+    `io_bytes` are the per-ray inputs and outputs."""
+    tables = sum(int(t.numel() * t.element_size()) for t in (bvh.node_box, bvh.node_meta, bvh.tri))
+    touched = min(tables, nodes * NODE_BYTES + tris * TRI_BYTES)
+    return _bound(io_bytes + touched, nodes * SLAB_FLOPS + tris * MT_FLOPS + extra_flops)
+
+
+def _fused_bound(bvh, counters: dict) -> dict:
+    """Bound of one fused trace from `counters_leg`'s numbers: 12 bytes of
+    direction in and 13 bytes of result out per ray."""
+    n = counters["rays"]
+    return _walk_bound(bvh, sum(counters["nodes_per_bounce"]), sum(counters["tris_per_bounce"]),
+                       25 * n, BOUNCE_FLOPS * (n + counters["ray_bounces"]))
+
+
+def _suffixed(d: dict, suffix: str) -> dict:
+    return {k + suffix: v for k, v in d.items()}
+
+
+def _counted_bound(fused_bound: dict) -> dict:
+    """The counted instantiation does the fused trace's work and writes 128
+    bytes of counters more."""
+    return _bound(fused_bound["bound_bytes"] + 32 * BOUNCES, fused_bound["bound_flops"])
+
+
+def _load_script(root: str, name: str):
+    """Import scripts/<name>.py of this checkout as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(root, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _counted(kernels, path: str, needs, fn):
     """Run `fn` once as one main-path run: every launch count set to 0 just
-    before, read just after. Fails unless each kernel source in `needs`
-    launched. Returns (fn's result, {kernel source: launches})."""
+    before, read just after. Fails unless each kernel (by its C entry point)
+    in `needs` launched. Returns (fn's result, {entry point: launches})."""
     _sync()
     for k in kernels:
         k.launches = 0
     out = fn()
     _sync()
-    counts = {k.source: k.launches for k in kernels}
+    counts = {k.symbol: k.launches for k in kernels}
     _require(all(counts[s] > 0 for s in needs), f"{path}: a kernel did not run: {counts}")
     print(f"# {path} launches {counts}", flush=True)
     return out, counts
@@ -172,11 +268,13 @@ def _closest_hit_phase(mesh, bvh, sub):
     query sets, with the packed triangle table, and on two of them with a
     live repack (`live_tri`) of triangles shrunk by 0.1% about their
     centroids (a table unlike the packed one whose triangles stay inside the
-    host-built boxes); returns (max |error|, kernel ms, plain ms) on the tx
-    set."""
+    host-built boxes); returns (max |error|, kernel ms, plain ms, bound) on
+    the tx set, the bound from the counted fused kernel's one-bounce walk of
+    the same queries."""
     import torch
 
     from rfx_torch.ops import bvh_trace
+    from rfx_torch.ops.fused import fused_trace
     from rfx_torch.ops.intersect import dot3, mesh_soa
 
     dev = sub.device
@@ -212,9 +310,16 @@ def _closest_hit_phase(mesh, bvh, sub):
         print(f"# closest hit, {o.shape[0]} {name} rays: kernel == plain ({n_hit} hits{note})")
     ms = _cuda_ms(lambda: bvh_trace.closest_hit(bvh, o1, sub), 20)
     plain_ms = _cuda_ms(lambda: bvh_trace.closest_hit_plain(bvh, o1, sub), 1)
-    print(f"# closest hit, {sub.shape[0]} rays from tx: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms",
-          flush=True)
-    return err, ms, plain_ms
+    # The same walk, counted: 24 bytes of origin and direction in, 24 bytes
+    # of t, index, face and normal out per ray, and the face ids.
+    _, walk = fused_trace(bvh, sub, TX, RX, RX_RADIUS, max_bounces=1, count_stats=True)
+    nodes, _, tris, _ = (int(v) for v in walk[0])
+    n = sub.shape[0]
+    bound = _walk_bound(bvh, nodes, tris, 48 * n + min(4 * bvh.n_padded_tris, 4 * n))
+    print(f"# closest hit, {n} rays from tx: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms; "
+          f"{nodes} nodes, {tris} triangles tested: bound {bound['bound_ms']:.5f} ms by "
+          f"{bound['bound_by']}", flush=True)
+    return err, ms, plain_ms, bound
 
 
 def _gradient_phase(mesh, flat, bvh, dev, kernels):
@@ -246,8 +351,7 @@ def _gradient_phase(mesh, flat, bvh, dev, kernels):
                                         rx_mode="analytic", env_hit=env),
         "fused": lambda txp: dt(scene.vertices, txp, dirs, RX, RX_RADIUS),
     }
-    needs = {"scan": ("closest_hit.cu", "histogram.cu"),
-             "fused": ("fused_trace.cu", "histogram.cu")}
+    needs = {"scan": (K_HIT, K_HIST), "fused": (K_FUSED, K_HIST)}
     out = {}
     for name, trace in traces.items():
         tx_c = torch.tensor(TX, device=dev)
@@ -299,7 +403,7 @@ def _fd_phase(terrain, terrain_bvh, dev):
     import torch
 
     from oracle import sample_sphere_directions
-    from rfx.geometry import make_room
+    from rfx_torch.geometry import make_room
     from rfx_torch.cir import cir_from_trace
     from rfx_torch.ops.bvh_trace import make_kernel_env_hit
     from rfx_torch.ops.intersect import make_env_intersector
@@ -430,7 +534,7 @@ def _solver_step_vs_plain(dev):
     import torch
 
     from oracle import sample_sphere_directions
-    from rfx.geometry import make_room
+    from rfx_torch.geometry import make_room
     from rfx_torch.ops.bvh_trace import make_kernel_env_hit
     from rfx_torch.solver import coverage_irs_soft, make_inverse_solver
     from rfx_torch.tracer import Scene
@@ -530,7 +634,7 @@ def _solver_phase(mesh, bvh, dev, kernels):
             losses.append(float(loss))
             step_ms.append((time.perf_counter() - h0) * 1e3)
 
-    _, launches = _counted(kernels, "inverse solve", ("closest_hit.cu", "histogram.cu"), steps)
+    _, launches = _counted(kernels, "inverse solve", (K_HIT, K_HIST), steps)
     peak = torch.cuda.max_memory_allocated(dev)
     grads = [p.grad.cpu().numpy() for p in leaves]
     _require(all(np.isfinite(losses)), f"solver losses {losses}")
@@ -601,7 +705,7 @@ def _coverage_phase(terrain, dev, kernels):
     import numpy as np
     import torch
 
-    from rfx.geometry import make_room
+    from rfx_torch.geometry import make_room
     from rfx_torch import cir, cli
     from rfx_torch.api import Tracer
     from rfx_torch.coverage import _dbm_cancel_from_segments, make_grid
@@ -641,11 +745,18 @@ def _coverage_phase(terrain, dev, kernels):
         res["max_abs_err"] = float((k1 - p).abs().max())
         res["k3_ms"] = _cuda_ms(lambda: coverage_hist(scaled, centers, COV_RADIUS, **hkw), 5)
         res["plain_ms"] = _cuda_ms(lambda: coverage_hist_plain(scaled, centers, COV_RADIUS, **hkw), 1)
+        # Each live segment is tested against each receiver's sphere (3 sub,
+        # two dot products, the discriminant and its compare: 17 f32
+        # operations); segments and centers are read once, the IRs written once.
+        seg_bytes = sum(int(t.numel() * t.element_size()) for t in scaled)
+        res["bound"] = _bound(seg_bytes + 12 * m + 4 * m * COV_BINS,
+                              17 * m * int(scaled.alive.sum()))
         n_lit = int((k1 != 0).any(dim=1).sum())
         print(f"# coverage kernel, {name}, {m} receivers x 2 x {COV_RAYS} segments, {COV_BINS} "
               f"bins: kernel == plain ({int((k1 != 0).sum())} nonzero bins, {n_lit} receivers "
               f"lit, max |d| {res['max_abs_err']:.3e}), bit-identical across runs; kernel "
-              f"{res['k3_ms']:.3f} ms, plain {res['plain_ms']:.1f} ms", flush=True)
+              f"{res['k3_ms']:.3f} ms, plain {res['plain_ms']:.1f} ms, bound "
+              f"{res['bound']['bound_ms']:.3f} ms by {res['bound']['bound_by']}", flush=True)
         del k2, p
 
         # 2. The exact metric through the command line (room), with
@@ -657,7 +768,7 @@ def _coverage_phase(terrain, dev, kernels):
                         "2", "--rx-radius", str(COV_RADIUS), "--metric", "exact", "--no-viz",
                         "--save-dbm", save, "--device", "cuda"]
                 (rc, launches), host_s, ev_ms = _timed(lambda: _counted(
-                    kernels, "coverage_exact", ("coverage_hist.cu",), lambda: cli.main(argv)))
+                    kernels, "coverage_exact", (K_COV,), lambda: cli.main(argv)))
                 rows = np.load(save)
             out["launches"]["coverage_exact"] = launches
             _require(rc == 0 and rows.shape == (2048, 4), f"coverage CLI: rc {rc}, {rows.shape}")
@@ -696,15 +807,15 @@ def _coverage_phase(terrain, dev, kernels):
         # 3. Fast and hybrid through the facade, each counted; the fast
         #    metric's diagnostics against the CPU on every CPU_FAST_STRIDE-th
         #    receiver of the same segments.
-        env_needs = () if name == "room" else ("closest_hit.cu",)
+        env_needs = () if name == "room" else (K_HIT,)
         req = (tx, 1.0, grid, COV_RADIUS)
         (fast, launches), res["fast_host_s"], res["fast_ms"] = _timed(lambda: _counted(
             kernels, f"coverage_fast_{name}", env_needs,
             lambda: tracer.compute_coverage_dbm_fast(*req, directions=dirs)))
-        _require(launches["coverage_hist.cu"] == 0, f"fast metric, {name}: the coverage kernel ran")
+        _require(launches[K_COV] == 0, f"fast metric, {name}: the coverage kernel ran")
         out["launches"][f"coverage_fast_{name}"] = launches
         (hybrid, n_flagged), launches = _counted(
-            kernels, f"coverage_hybrid_{name}", ("coverage_hist.cu",) + env_needs,
+            kernels, f"coverage_hybrid_{name}", (K_COV,) + env_needs,
             lambda: tracer.compute_coverage_dbm_hybrid(*req, directions=dirs))
         out["launches"][f"coverage_hybrid_{name}"] = launches
         dbm_k, ratio_k, spread_k = (x.cpu().numpy() for x in _dbm_cancel_from_segments(
@@ -768,6 +879,170 @@ def _coverage_phase(terrain, dev, kernels):
     return out
 
 
+def _trace_close(k, p, what: str):
+    """Phase 4's bars: identical capture masks and bounce counts, amplitude
+    within rtol 2e-5 / atol 1e-7, distance within rtol 1e-5 / atol 1e-4 on
+    the captured rays; returns (max |d amp|, max |d dist|)."""
+    import torch
+
+    m = p.captured
+    _require(torch.equal(k.captured, p.captured), f"{what}: capture masks differ")
+    _require(torch.equal(k.num_bounces, p.num_bounces), f"{what}: bounce counts differ")
+    if not bool(m.any()):
+        return 0.0, 0.0
+    amp_err = float((k.amplitude[m] - p.amplitude[m]).abs().max())
+    dist_err = float((k.distance[m] - p.distance[m]).abs().max())
+    _require(torch.allclose(k.amplitude[m], p.amplitude[m], rtol=2e-5, atol=1e-7),
+             f"{what}: amplitude differs by {amp_err}")
+    _require(torch.allclose(k.distance[m], p.distance[m], rtol=1e-5, atol=1e-4),
+             f"{what}: distance differs by {dist_err}")
+    return amp_err, dist_err
+
+
+def _counters_vs_plain(bvh, sub, args, what: str, brute=None):
+    """The counted fused kernel on `sub` against `fused_trace_walk_plain`:
+    counters integer for integer, the counted trace == the uncounted
+    kernel's bit for bit, the plain walk's trace == the brute plain
+    version's (`brute`, computed here if None) and the kernel's within phase
+    4's bars. Returns a dict of what it measured."""
+    import torch
+
+    from rfx_torch.ops.fused import fused_trace, fused_trace_plain, fused_trace_walk_plain
+
+    kw = dict(max_bounces=BOUNCES)
+    uncounted = fused_trace(bvh, sub, *args, **kw)
+    counted, k_stats = fused_trace(bvh, sub, *args, count_stats=True, **kw)
+    start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    start.record()
+    walked, p_stats = fused_trace_walk_plain(bvh, sub, *args, count_stats=True, **kw)
+    mid.record()
+    if brute is None:
+        brute = fused_trace_plain(bvh, sub, *args, **kw)
+    end.record()
+    _sync()
+    for name, a, b in zip(("captured", "amplitude", "distance", "num_bounces"), counted[:4],
+                          uncounted[:4]):
+        _require(torch.equal(a, b), f"{what}: counted trace's {name} != the uncounted kernel's")
+    for name, a, b in zip(("captured", "amplitude", "distance", "num_bounces"), walked[:4],
+                          brute[:4]):
+        _require(torch.equal(a, b), f"{what}: the plain walk's {name} != the brute plain version's")
+    amp_err, dist_err = _trace_close(uncounted, brute, what)
+    _require(k_stats.dtype == torch.int64 and k_stats.shape == (BOUNCES, 4),
+             f"{what}: counters {k_stats.dtype} {tuple(k_stats.shape)}")
+    _require(torch.equal(k_stats, p_stats),
+             f"{what}: counters differ: kernel {k_stats.tolist()} plain {p_stats.tolist()}")
+    _require(int(k_stats[0, 0]) >= sub.shape[0], f"{what}: {int(k_stats[0, 0])} root visits")
+    ms = _cuda_ms(lambda: fused_trace(bvh, sub, *args, count_stats=True, **kw), 10)
+    out = dict(rays=int(sub.shape[0]), counters=k_stats.tolist(), max_abs_err=max(amp_err, dist_err),
+               captured=int(brute.captured.sum()), bounces=int(brute.num_bounces.sum()),
+               counted_ms=ms, walk_plain_ms=start.elapsed_time(mid),
+               brute_plain_ms=mid.elapsed_time(end))
+    print(f"# walk counters, {what}, {out['rays']} rays: kernel == plain walk integer for "
+          f"integer {out['counters']}; counted trace == uncounted bit for bit; plain walk's "
+          f"trace == brute plain's; kernel vs brute plain ({out['captured']} captures, "
+          f"{out['bounces']} bounces) max |d| {out['max_abs_err']:.3e}; counted kernel "
+          f"{ms:.4f} ms, plain walk {out['walk_plain_ms']:.1f} ms", flush=True)
+    return out
+
+
+def _large_mesh_phase(root, dev, kernels, bench_bvh, bench_dirs):
+    """Phase 14: the large-mesh path at full width, counted on its own, the
+    same counters on the bench terrain, and the vote micro-kernel. Returns
+    (what it measured, {path: launches})."""
+    import torch
+
+    from rfx_torch.ops.fused import fused_trace, fused_trace_plain
+
+    large = _load_script(root, "torch_bench_large_mesh")
+    micro = _load_script(root, "torch_micro_vote")
+    out, launches = {}, {}
+
+    mesh, flat, tracer, scene = large.build_scene(dev, method="native")
+    bvh = tracer._fused.bvh
+    _require(scene["triangles"] == 1_045_458, f"the terrain has {scene['triangles']} triangles")
+    out["scene"] = scene
+    print(f"# large mesh: {scene['triangles']} triangles; native build {scene['bvh_build_seconds']:.2f} s "
+          f"(mesh {scene['mesh_seconds']:.2f} s, Tracer {scene['tracer_seconds']:.2f} s): "
+          f"{scene['bvh_nodes']} nodes, {scene['padded_tris']} padded triangles, "
+          f"{scene['table_bytes']['total'] / 1e6:.1f} MB on the card {scene['table_bytes']}", flush=True)
+
+    # Against the plain versions, on a strided subset (brute force over 1.36M
+    # padded triangles bounds its size).
+    dirs = large.morton_dirs(large.N_RAYS, 0, dev)
+    sub = dirs[:: large.N_RAYS // LARGE_SUBSET].contiguous()
+    args = (large.TX, large.RX, large.RX_RADIUS, 5.0, 1.0)
+    brute, _, brute_ms = _timed(lambda: fused_trace_plain(bvh, sub, *args, max_bounces=BOUNCES))
+    k_ms = _cuda_ms(lambda: fused_trace(bvh, sub, *args, max_bounces=BOUNCES), 10)
+    out["subset"] = _counters_vs_plain(bvh, sub, args, "1M-triangle terrain", brute)
+    out["subset"].update(fused_ms=k_ms, brute_plain_ms=brute_ms)
+    del brute
+
+    # The path itself.
+    def path():
+        res = {"parity": large.parity_leg(mesh, bvh, dev)}
+        res["cir"] = large.cir_leg(tracer, dirs)
+        res["walk_counters"] = large.counters_leg(bvh, dirs)
+        res["perquery_vs_fused"] = large.perquery_leg(bvh, dirs[:large.N_PERQUERY].contiguous())
+        return res
+
+    res, launches["large_mesh"] = _counted(kernels, "large mesh", (K_FUSED, K_COUNTED, K_HIT, K_HIST),
+                                           path)
+    out.update(res)
+    par, cir_, wc, pq = res["parity"], res["cir"], res["walk_counters"], res["perquery_vs_fused"]
+    out["fused_bound"] = _fused_bound(bvh, wc)
+    print(f"# large mesh parity, {par['rays']} rays: {par['hits']} hits, hit-mask mismatch "
+          f"{par['hit_mask_mismatch']}, max |d t| {par['t_max_abs_diff']:.3e}, face mismatch "
+          f"{par['face_mismatch']} (independent leaf-16 tree, {par['independent_tree']['nodes']} "
+          f"nodes); closest hit {par['closest_hit_ms']:.3f} ms, plain walk {par['plain_walk_ms']:.1f} ms")
+    for r in cir_["requests"]:
+        print(f"# large mesh compute_cir tx={tuple(r['tx'])}: {r['nonzero_bins']} nonzero bins, IR "
+              f"sum {r['ir_sum']:.6e}, {r['dbm']:.4f} dBm; {r['ms']:.3f} ms (CUDA events), "
+              f"{r['mrays_per_s']:.2f} Mrays/s")
+    print(f"# large mesh compute_cir: the first request again is bit-identical; best "
+          f"{cir_['best_ms']:.3f} ms, {cir_['best_mrays_per_s']:.2f} Mrays/s")
+    _print_counters("1M-triangle terrain", wc, out["fused_bound"])
+    print(f"# large mesh per-query vs fused, {pq['rays']} rays: captures {pq['perquery_captured']} "
+          f"vs {pq['fused_captured']} ({pq['capture_flips']} flips), distance sums "
+          f"{pq['perquery_dist_sum']:.2f} vs {pq['fused_dist_sum']:.2f}; per-query loop "
+          f"{pq['perquery_ms']:.2f} ms, fused {pq['fused_ms']:.2f} ms", flush=True)
+    del dirs, sub, tracer, bvh
+    torch.cuda.empty_cache()
+
+    # The same counters and times on the bench terrain.
+    bench = large.counters_leg(bench_bvh, bench_dirs, tx=TX, rx=RX, rx_radius=RX_RADIUS)
+    out["bench_walk_counters"] = bench
+    out["bench_fused_bound"] = _fused_bound(bench_bvh, bench)
+    _print_counters("bench terrain", bench, out["bench_fused_bound"])
+
+    # The vote micro-kernel: every style against the plain version, then timed.
+    check = micro.check_styles(dev)
+    timed, launches["micro_vote"] = _counted(kernels, "micro vote", (K_VOTE,),
+                                             lambda: micro.time_styles(dev))
+    for style in check:
+        check[style].update(timed[style])
+        print(f"# micro vote {style}: carry {check[style]['carry']:.9e} == plain after "
+              f"{micro.CHECK_STEPS} bodies (kernel {check[style]['check_ms']:.4f} ms, plain "
+              f"{check[style]['plain_ms']:.1f} ms); {check[style]['ns_per_body']:.2f} ns per body "
+              f"at {micro.STEPS} bodies ({check[style]['ms']:.4f} ms)", flush=True)
+    carries = {check[s_]["carry"] for s_ in ("votes", "ballotfold", "sumpack")}
+    _require(len(carries) == 1 and check["novec"]["carry"] == 0.0 and min(carries) > 0.0,
+             f"micro vote: carries {check}")
+    out["micro_vote"] = {"steps": micro.STEPS, "check_steps": micro.CHECK_STEPS, "styles": check}
+    return out, launches
+
+
+def _print_counters(name, c, bound):
+    eff = ", ".join("-" if e is None else f"{e:.3f}" for e in c["simt_efficiency_per_bounce"])
+    print(f"# walk counters, {name}, {c['rays']} rays: nodes {c['nodes_per_bounce']}, leaves "
+          f"{c['leaves_per_bounce']}, triangles {c['tris_per_bounce']}, warp steps "
+          f"{c['warp_steps_per_bounce']}; SIMT efficiency {c['simt_efficiency']:.3f} (per bounce "
+          f"{eff}); {c['nodes_per_ray_bounce0']:.1f} nodes and {c['tris_per_ray_bounce0']:.1f} "
+          f"triangles per ray at bounce 0; fused trace {c['fused_trace_ms']:.3f} ms "
+          f"({c['mrays_per_s']:.2f} Mrays/s), counted {c['fused_trace_counted_ms']:.3f} ms; bound "
+          f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} ({bound['bound_flops']:.3e} f32 "
+          f"operations, {bound['bound_bytes']:.3e} bytes)", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -778,13 +1053,21 @@ def main() -> int:
         return 1
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    from rfx.bvh import build_bvh
-    from rfx.geometry import make_terrain
     from rfx_torch import cir
     from rfx_torch.api import Tracer
+    from rfx_torch.bvh import build_bvh
+    from rfx_torch.geometry import make_terrain
+    from rfx_torch.ops import native_lib
     from rfx_torch.ops.bvh_trace import CLOSEST_HIT_KERNEL
     from rfx_torch.ops.coverage_hist import COVERAGE_HIST_KERNEL
-    from rfx_torch.ops.fused import FUSED_TRACE_KERNEL, FusedTracer, fused_trace, fused_trace_plain
+    from rfx_torch.ops.fused import (
+        FUSED_TRACE_COUNTED_KERNEL,
+        FUSED_TRACE_KERNEL,
+        FusedTracer,
+        fused_trace,
+        fused_trace_plain,
+    )
+    from rfx_torch.ops.micro_vote import MICRO_VOTE_KERNEL
     from rfx_torch.sampler import morton_sphere_directions
 
     # Full f32 everywhere (no TF32 matmul or convolution), as the JAX
@@ -800,21 +1083,27 @@ def main() -> int:
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     print(card, flush=True)
 
-    # 2. Build the four kernels from the sources in this checkout, one nvcc
-    #    each, all started together.
+    # 2. Build the five CUDA sources and the native BVH builder from the
+    #    sources in this checkout, one compiler each, all started together;
+    #    the counted fused trace binds its entry in the fused trace's library.
     t0 = time.perf_counter()
-    kernels_built = (FUSED_TRACE_KERNEL, CLOSEST_HIT_KERNEL, cir.HISTOGRAM_KERNEL,
-                     COVERAGE_HIST_KERNEL)
-    with ThreadPoolExecutor(len(kernels_built)) as pool:
-        list(pool.map(lambda k: k.load(), kernels_built))
-    for k in kernels_built:
+    per_source = (FUSED_TRACE_KERNEL, CLOSEST_HIT_KERNEL, cir.HISTOGRAM_KERNEL,
+                  COVERAGE_HIST_KERNEL, MICRO_VOTE_KERNEL)
+    kernels_built = per_source + (FUSED_TRACE_COUNTED_KERNEL,)
+    with ThreadPoolExecutor(len(per_source) + 1) as pool:
+        native = pool.submit(native_lib.load)
+        list(pool.map(lambda k: k.load(), per_source))
+        native.result()
+    FUSED_TRACE_COUNTED_KERNEL.load()
+    for k in per_source:
         print(f"# built {k.source}: {k.build_log.strip()}")
+    print("# built native/bvh_builder.cpp with g++")
     print(f"# kernel build: {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. The bench workload.
     t0 = time.perf_counter()
     mesh = make_terrain(grid=128, extent=60.0, seed=0)
-    flat = build_bvh(mesh, leaf_size=8, method="numpy")
+    flat = build_bvh(mesh, leaf_size=8)
     fused = FusedTracer(flat, max_bounces=BOUNCES, device=dev)
     bvh = fused.bvh
     dirs = morton_sphere_directions(N_RAYS, generator=torch.Generator(dev).manual_seed(0),
@@ -832,17 +1121,9 @@ def main() -> int:
     k_out = fused_trace(bvh, sub, *args, max_bounces=BOUNCES)
     p_out = fused_trace_plain(bvh, sub, *args, max_bounces=BOUNCES)
     _sync()
-    m = p_out.captured
-    n_cap_sub = int(m.sum())
+    n_cap_sub = int(p_out.captured.sum())
     _require(n_cap_sub > 0, "the subset captured nothing")
-    _require(torch.equal(k_out.captured, p_out.captured), "fused trace: capture masks differ")
-    _require(torch.equal(k_out.num_bounces, p_out.num_bounces), "fused trace: bounce counts differ")
-    amp_err = float((k_out.amplitude[m] - p_out.amplitude[m]).abs().max())
-    dist_err = float((k_out.distance[m] - p_out.distance[m]).abs().max())
-    _require(torch.allclose(k_out.amplitude[m], p_out.amplitude[m], rtol=2e-5, atol=1e-7),
-             f"fused trace: amplitude differs by {amp_err}")
-    _require(torch.allclose(k_out.distance[m], p_out.distance[m], rtol=1e-5, atol=1e-4),
-             f"fused trace: distance differs by {dist_err}")
+    amp_err, dist_err = _trace_close(k_out, p_out, "fused trace")
     k1_ms_sub = _cuda_ms(lambda: fused_trace(bvh, sub, *args, max_bounces=BOUNCES), 20)
     k1_plain_ms_sub = _cuda_ms(lambda: fused_trace_plain(bvh, sub, *args, max_bounces=BOUNCES), 1)
     print(f"# fused trace, {SUBSET} rays: kernel == plain (captures {n_cap_sub}, bounces "
@@ -872,16 +1153,31 @@ def main() -> int:
     kh_ms = _cuda_ms(lambda: cir.bin_impulse_response(*h_args, **hkw), 20)
     kh_plain_ms = _cuda_ms(lambda: cir.histogram_plain(*h_args, **hkw), 20)
     n_cap = int(full.captured.sum())
+    # The library's calls for the same sums (timed here, used nowhere in the
+    # port): they take the bin of each ray and its masked weight ready-made,
+    # which the kernel computes itself, and add with atomics in no fixed order.
+    raw = (full.distance / torch.tensor(C, device=dev) * torch.tensor(RATE, device=dev)).long()
+    weight = torch.where(full.captured & (raw >= 0) & (raw < NBINS), amp,
+                         torch.zeros((), device=dev))
+    bins = raw.clamp_(0, NBINS - 1)
+    lib_add = torch.zeros(NBINS, device=dev).index_add_(0, bins, weight)
+    _require(torch.allclose(lib_add, ir_k, rtol=1e-4, atol=1e-9), "index_add_ != the IR kernel")
+    kh_lib_ms = _cuda_ms(lambda: torch.zeros(NBINS, device=dev).index_add_(0, bins, weight), 20)
+    kh_bincount_ms = _cuda_ms(lambda: torch.bincount(bins, weights=weight, minlength=NBINS), 20)
+    kh_bound = _bound(9 * N_RAYS + 4 * NBINS, 4 * N_RAYS)
+    del raw, bins, weight, lib_add
     print(f"# IR histogram, {N_RAYS} rays ({n_cap} captured), {NBINS} bins: kernel == plain "
           f"(max |d| {ir_err:.3e}, {int((ir_k != 0).sum())} nonzero bins), bit-identical "
-          f"across runs; kernel {kh_ms:.4f} ms, plain {kh_plain_ms:.4f} ms", flush=True)
+          f"across runs; kernel {kh_ms:.4f} ms, plain {kh_plain_ms:.4f} ms, index_add_ "
+          f"{kh_lib_ms:.4f} ms, bincount {kh_bincount_ms:.4f} ms, bound "
+          f"{kh_bound['bound_ms']:.4f} ms by {kh_bound['bound_by']}", flush=True)
 
     # 6. The main path, through the entry points a user calls.
     tracer = Tracer(mesh, C, RATE, WINDOW, max_bounces=BOUNCES, tx_num_rays=N_RAYS, device=dev)
     _require(tracer.backend == "fused", f"Tracer chose backend {tracer.backend}")
     _sync()
-    FUSED_TRACE_KERNEL.launches = 0
-    cir.HISTOGRAM_KERNEL.launches = 0
+    for k in kernels_built:
+        k.launches = 0
     requests = []
     for i in range(3):
         tx_i = (TX[0], TX[1], TX[2] + float(i))
@@ -901,8 +1197,7 @@ def main() -> int:
         _require(ir.shape == (NBINS,) and np.all(np.isfinite(ir)), "IR is not finite (nbins,)")
         _require(float(ir.sum()) > 0.0, f"request {i}: IR sum is 0")
         _require(np.isfinite(dbm), f"request {i}: dBm is not finite")
-    launches = {"fused_trace": FUSED_TRACE_KERNEL.launches,
-                "ir_histogram": cir.HISTOGRAM_KERNEL.launches}
+    launches = {K_FUSED: FUSED_TRACE_KERNEL.launches, K_HIST: cir.HISTOGRAM_KERNEL.launches}
     _require(all(v > 0 for v in launches.values()), f"a kernel did not run: {launches}")
     _require(np.array_equal(requests[0][3], ir_k.cpu().numpy()),
              "the main path's first IR differs from the checked kernels' IR")
@@ -913,7 +1208,7 @@ def main() -> int:
     print(f"# main path: captures {n_cap} at tx={TX}; launches {launches}", flush=True)
 
     # 7. The closest-hit kernel against its plain version.
-    k2_err, k2_ms, k2_plain_ms = _closest_hit_phase(mesh, bvh, sub)
+    k2_err, k2_ms, k2_plain_ms, k2_bound = _closest_hit_phase(mesh, bvh, sub)
 
     # 8. The fused kernel's face record against its plain version.
     k_res, k_faces = fused_trace(bvh, sub, *args, max_bounces=BOUNCES, record_faces=True)
@@ -934,6 +1229,9 @@ def main() -> int:
           f"{N_RAYS} rays {k1_faces_ms_full:.4f} ms", flush=True)
     del full, k_res, p_res, k_faces, p_faces
     torch.cuda.empty_cache()
+    # The counted instantiation against the plain walk on the same subset
+    # (phase 14 does the same on the 1M-triangle terrain).
+    bench_sub = _counters_vs_plain(bvh, sub, args, "bench terrain", p_out)
 
     # 9-13. The gradient path, its checks, the inverse solve, the facade and
     #       coverage. Each main-path run (the forward requests above, each
@@ -947,45 +1245,90 @@ def main() -> int:
     del dirs, fused, tracer
     torch.cuda.empty_cache()
     cov = _coverage_phase(mesh, dev, kernels_built)
+    large, large_launches = _large_mesh_phase(
+        root, dev, kernels_built, bvh,
+        morton_sphere_directions(N_RAYS, generator=torch.Generator(dev).manual_seed(0), device=dev))
     by_path = {
-        "forward": {"fused_trace.cu": launches["fused_trace"],
-                    "histogram.cu": launches["ir_histogram"]},
+        "forward": launches,
         "scan_grad": grad["scan"].pop("launches"),
         "fused_grad": grad["fused"].pop("launches"),
         "solver": solve.pop("launches"),
         **cov.pop("launches"),
+        **large_launches,
     }
 
-    def counts(source):
-        per_path = {p: c.get(source, 0) for p, c in by_path.items()}
+    def counts(symbol):
+        per_path = {p: c.get(symbol, 0) for p, c in by_path.items()}
         return {"launches": sum(per_path.values()), "launches_by_path": per_path}
 
+    # `ms`, `bound_ms` and `library_ms` are at the main path's shape; where the
+    # plain version cannot run at that shape, `plain_ms` is its time on the
+    # subset it was compared on and `ms_at_plain_shape` the kernel's there.
+    bench_wc, large_wc, sub14 = large["bench_walk_counters"], large["walk_counters"], large["subset"]
+    votes = large["micro_vote"]["styles"]["votes"]
+    m_steps, m_check = large["micro_vote"]["steps"], large["micro_vote"]["check_steps"]
     kernels = [
         {"name": "fused_trace", "route": "cuda", "source": "rfx_torch/csrc/fused_trace.cu",
-         "replaces": "rfx/ops/pallas_fused.py:62", **counts("fused_trace.cu"),
-         "max_abs_err": max(amp_err, dist_err), "ms": k1_ms_sub, "plain_ms": k1_plain_ms_sub,
-         "ms_full": k1_ms_full, "ms_record_faces": k1_faces_ms,
-         "ms_record_faces_full": k1_faces_ms_full,
-         "shape": f"ms, plain_ms, ms_record_faces: {SUBSET} rays; *_full: {N_RAYS} rays; "
-                  f"{BOUNCES} bounces; face records identical to plain"},
+         "replaces": "rfx/ops/pallas_fused.py:62", **counts(K_FUSED),
+         "max_abs_err": max(amp_err, dist_err, sub14["max_abs_err"]),
+         "ms": k1_ms_full, "plain_ms": k1_plain_ms_sub, "ms_at_plain_shape": k1_ms_sub,
+         **large["bench_fused_bound"], "library_ms": None,
+         "ms_record_faces": k1_faces_ms, "ms_record_faces_full": k1_faces_ms_full,
+         "ms_large_mesh": large_wc["fused_trace_ms"],
+         **_suffixed(large["fused_bound"], "_large_mesh"),
+         "plain_ms_large_mesh": sub14["brute_plain_ms"],
+         "ms_at_plain_shape_large_mesh": sub14["fused_ms"],
+         "shape": f"ms, bound_ms: {N_RAYS} rays x {BOUNCES} bounces on the bench terrain, the "
+                  f"operations from this run's walk counters; plain_ms, ms_at_plain_shape, "
+                  f"ms_record_faces: {SUBSET} rays; *_large_mesh: the 1,045,458-triangle "
+                  f"terrain, {N_RAYS} rays (plain: {LARGE_SUBSET} rays)"},
+        {"name": "fused_trace_counted", "route": "cuda",
+         "source": "rfx_torch/csrc/fused_trace.cu", "replaces": "rfx/ops/pallas_fused.py:62",
+         **counts(K_COUNTED), "max_abs_err": 0.0,
+         "ms": bench_wc["fused_trace_counted_ms"], "plain_ms": bench_sub["walk_plain_ms"],
+         "ms_at_plain_shape": bench_sub["counted_ms"],
+         **_counted_bound(large["bench_fused_bound"]), "library_ms": None,
+         "ms_large_mesh": large_wc["fused_trace_counted_ms"],
+         **_suffixed(_counted_bound(large["fused_bound"]), "_large_mesh"),
+         "plain_ms_large_mesh": sub14["walk_plain_ms"],
+         "ms_at_plain_shape_large_mesh": sub14["counted_ms"],
+         "shape": f"the count_stats option of the TPU kernel: as fused_trace, plus the "
+                  f"({BOUNCES}, 4) int64 counters; counters equal the plain walk's integer for "
+                  f"integer (max_abs_err 0) and the trace equals the uncounted kernel's bit for bit"},
         {"name": "closest_hit", "route": "cuda", "source": "rfx_torch/csrc/closest_hit.cu",
-         "replaces": "rfx/ops/pallas_trace.py:100", **counts("closest_hit.cu"),
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
-         "shape": f"{SUBSET} rays from tx; also checked on their second-bounce queries, "
-                  f"1,024 parked rays and a live triangle table"},
+         "replaces": "rfx/ops/pallas_trace.py:100", **counts(K_HIT),
+         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms, **k2_bound,
+         "library_ms": None,
+         "shape": f"{SUBSET} rays from tx on the bench terrain; also checked on their "
+                  f"second-bounce queries, 1,024 parked rays and a live triangle table"},
         {"name": "ir_histogram", "route": "cuda", "source": "rfx_torch/csrc/histogram.cu",
-         "replaces": "rfx/cir.py:32", **counts("histogram.cu"),
-         "max_abs_err": ir_err, "ms": kh_ms, "plain_ms": kh_plain_ms,
-         "shape": f"{N_RAYS} rays, {NBINS} bins, hard"},
+         "replaces": "rfx/cir.py:32", **counts(K_HIST),
+         "max_abs_err": ir_err, "ms": kh_ms, "plain_ms": kh_plain_ms, **kh_bound,
+         "library_ms": kh_lib_ms, "library_ms_bincount": kh_bincount_ms,
+         "shape": f"{N_RAYS} rays, {NBINS} bins, hard; library_ms: index_add_ on ready-made "
+                  f"bins and masked weights (not deterministic)"},
         {"name": "coverage_hist", "route": "cuda", "source": "rfx_torch/csrc/coverage_hist.cu",
-         "replaces": "rfx/ops/pallas_coverage.py:64", **counts("coverage_hist.cu"),
+         "replaces": "rfx/ops/pallas_coverage.py:64", **counts(K_COV),
          "max_abs_err": max(cov["room"]["max_abs_err"], cov["terrain"]["max_abs_err"]),
          "ms": cov["room"]["k3_ms"], "plain_ms": cov["room"]["plain_ms"],
+         **cov["room"].pop("bound"), "library_ms": None,
          "ms_terrain": cov["terrain"]["k3_ms"], "plain_ms_terrain": cov["terrain"]["plain_ms"],
+         **_suffixed(cov["terrain"].pop("bound"), "_terrain"),
          "shape": f"2048 receivers x 2 bounces x {COV_RAYS} rays, {COV_BINS} bins, radius "
-                  f"{COV_RADIUS}; ms, plain_ms: the room; *_terrain: the terrain"},
+                  f"{COV_RADIUS}; ms, plain_ms, bound_ms: the room; *_terrain: the terrain"},
+        {"name": "micro_vote", "route": "cuda", "source": "rfx_torch/csrc/micro_vote.cu",
+         "replaces": "scripts/micro_reduce.py:64", **counts(K_VOTE),
+         "max_abs_err": max(abs(v["carry"] - v["plain_carry"])
+                            for v in large["micro_vote"]["styles"].values()),
+         "ms": votes["ms"], "plain_ms": votes["plain_ms"], "ms_at_plain_shape": votes["check_ms"],
+         # One warp, per step and lane 8 x (add, add, compare) and the carry's
+         # multiply-add; 4 KB in, 4 bytes out.
+         **_bound(4 * 8 * 128 + 4, m_steps * 32 * (3 * 8 + 2)), "library_ms": None,
+         "ns_per_body": {k: v["ns_per_body"] for k, v in large["micro_vote"]["styles"].items()},
+         "shape": f"style votes, one (8, 128) f32 tile over one warp; ms: {m_steps} bodies; "
+                  f"plain_ms, ms_at_plain_shape: {m_check} bodies; a latency measurement: the "
+                  f"roofline bound says nothing about it"},
     ]
-    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"gradient_path": {
         "rays": GRAD_RAYS, "rel_diff": grad["rel_diff"], "flips": grad["flips"],
         "captured": grad["captured"],
@@ -993,6 +1336,9 @@ def main() -> int:
            for k in ("forward_ms", "valgrad_ms", "peak_bytes")}},
         "solver": {"rays": SOLVER_RAYS, "receivers": 64, **solve},
         "coverage": {"rays": COV_RAYS, "receivers": 2048, "bins": COV_BINS, **cov}}))
+    print(json.dumps({"large_mesh": large, "bench_subset_counters": bench_sub}))
+    print(card)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

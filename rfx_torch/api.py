@@ -5,9 +5,12 @@ shape, `Tracer(mesh, c, rate, window, max_bounces, n_rays)` then
 `compute_coverage_dbm_fast` / `compute_coverage_dbm_hybrid`, on an explicit
 device.
 
-Backends: `brute` (all-triangle Moller-Trumbore, rfx_torch.tracer) and
-`fused`; `auto` takes `brute` up to 2048 triangles and `fused` above, as the
-JAX facade does on an accelerator. The fused backend builds one BVH and one
+Backends: `brute` (all-triangle Moller-Trumbore, rfx_torch.tracer), `fused`
+and `bvh` (the plain stackless walk of rfx_torch.ops.bvh_traverse under the
+scan tracer, on either device); `auto` takes `brute` up to 2048 triangles
+and `fused` above, as the JAX facade does on an accelerator. The BVH comes
+from `rfx_torch.bvh.build_bvh(method="auto")`: the native C++ builder for
+large meshes. The fused backend builds one BVH and one
 packing for two kernels: the fused bounce-loop kernel
 (rfx_torch.ops.fused) answers `compute_cir` with the analytic receiver and
 no recorded paths; the per-query BVH kernel (rfx_torch.ops.bvh_trace), under
@@ -22,18 +25,18 @@ import time
 import numpy as np
 import torch
 
-from rfx.bvh import build_bvh
-from rfx.geometry import TriangleMesh
-from rfx.utils.logging import get_logger, log_trace_stats
 from rfx_torch import cir as cir_mod
 from rfx_torch import sampler
+from rfx_torch.bvh import build_bvh
 from rfx_torch.coverage import coverage_dbm_fast, coverage_dbm_hybrid, coverage_irs
 from rfx_torch.device import resolve_device
+from rfx_torch.geometry import TriangleMesh, as_mesh
 from rfx_torch.ops.bvh_pack import pack_bvh
 from rfx_torch.ops.bvh_trace import make_kernel_env_hit
 from rfx_torch.ops.fused import FusedTracer
 from rfx_torch.ops.intersect import make_env_intersector
 from rfx_torch.tracer import Scene, extract_paths, trace_to_rx
+from rfx_torch.utils.logging import get_logger, log_trace_stats
 
 __all__ = ["Tracer"]
 
@@ -64,6 +67,7 @@ class Tracer:
         device="cuda",
     ):
         self.device = resolve_device(device)
+        environment = as_mesh(environment)  # TypeError unless it has vertices and faces
         self.mesh = environment
         self.scene = Scene.from_mesh(environment, self.device)
         self.light_speed_mps = float(light_speed_mps)
@@ -83,18 +87,14 @@ class Tracer:
 
         if backend == "auto":
             backend = "brute" if environment.num_faces <= BRUTE_MAX_FACES else "fused"
-        if backend == "bvh":
-            raise NotImplementedError(
-                "backend='bvh' (the stackless BVH walk in plain PyTorch) is not ported yet "
-                "(ROADMAP A8)")
-        if backend not in ("brute", "fused"):
+        if backend not in ("brute", "fused", "bvh"):
             raise ValueError(f"unknown backend: {backend}")
         self.backend = backend
         self._fused = None
-        if backend == "brute":
-            self.env_hit = make_env_intersector("brute")
+        if backend in ("brute", "bvh"):
+            self.env_hit = make_env_intersector(backend, mesh=environment, device=self.device)
         else:
-            flat = build_bvh(environment, leaf_size=8, method="numpy")
+            flat = build_bvh(environment, leaf_size=8)
             if rx_mode == "analytic":
                 # The fused kernel bakes in the analytic sphere; the
                 # per-query kernel shares its packed tables.

@@ -3,9 +3,9 @@
     python -m rfx_torch.cli cir ...       # one receiver's CIR and dBm (ref main.py)
     python -m rfx_torch.cli coverage ...  # a receiver-grid sweep (ref coverage.py)
 
-The flags, their defaults and `--config x.json` are rfx.cli's (rfx.config's
+The flags, their defaults and `--config x.json` are rfx.cli's (rfx_torch.config's
 TraceConfig / CoverageConfig; flags override the file), with the port's
-backend names (`auto`, `brute`, `fused`; `bvh` is not ported yet) and
+backend names (`auto`, `brute`, `fused`, `bvh`) and
 `--device` (default `cuda`; `cpu` runs every kernel's plain version).
 
 matplotlib is imported only to color the coverage viewer's points and to
@@ -23,7 +23,7 @@ import time
 import numpy as np
 import torch
 
-from rfx.config import CoverageConfig, TraceConfig, resolve_scene
+from rfx_torch.config import CoverageConfig, TraceConfig, resolve_scene
 
 __all__ = ["main"]
 
@@ -118,8 +118,8 @@ def cmd_cir(args) -> int:
         if args.chunks and args.chunks > 1:
             # Each chunk traces num_rays / chunks directions of its own
             # stream; amplitudes are normalised by the whole run's ray count,
-            # so the partial IRs sum to the IR (rfx.utils.checkpoint).
-            from rfx.utils.checkpoint import run_chunked
+            # so the partial IRs sum to the IR (rfx_torch.utils.checkpoint).
+            from rfx_torch.utils.checkpoint import run_chunked
 
             n_chunk = cfg.num_rays // args.chunks
 
@@ -170,7 +170,7 @@ def cmd_cir(args) -> int:
         print(f"wrote {args.plot}")
 
     if not args.no_viz:
-        from rfx.viz import visualize
+        from rfx_torch.viz import visualize
 
         visualize(mesh=mesh, tx_pos=cfg.tx_pos, rx_pos=cfg.rx_pos, rx_radius=cfg.rx_radius,
                   paths=paths, out_path=args.out, port=args.port, serve=args.serve)
@@ -212,7 +212,7 @@ def cmd_coverage(args) -> int:
     if not args.no_viz:
         from matplotlib import cm
 
-        from rfx.viz import visualize
+        from rfx_torch.viz import visualize
 
         # viridis dBm coloring, range per ref coverage.py:32-36
         lo, hi = cfg.dbm_range

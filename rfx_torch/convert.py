@@ -1,9 +1,12 @@
-"""Carry the JAX package's state across to the port, without importing JAX.
+"""Carry the JAX package's state across to the port, importing neither JAX
+nor the JAX package: every object is read by its fields, as numpy arrays.
 
 - the scene: vertices and faces of an `rfx.tracer.Scene` (or any object with
   those two arrays) as numpy, then as a `rfx_torch.tracer.Scene`;
-- the BVH: an `rfx.bvh.FlatBVH` is host numpy and is shared as it is, packed
-  for the device by `rfx_torch.ops.bvh_pack.pack_bvh`;
+- the mesh: an `rfx.geometry.TriangleMesh` as a `rfx_torch.geometry.TriangleMesh`;
+- the BVH: an `rfx.bvh.FlatBVH` as a `rfx_torch.bvh.FlatBVH` (the two are
+  different types with the same fields), packed for the device by
+  `rfx_torch.ops.bvh_pack.pack_bvh`;
 - a tracer's configuration, read from an `rfx.api.Tracer` instance's
   attributes, and a port `Tracer` built from it;
 - the inverse solver's parameters, an `rfx.solver.InverseParams`, as a
@@ -20,15 +23,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rfx.bvh import FlatBVH
 from rfx_torch.api import Tracer
-from rfx_torch.ops.bvh_pack import PackedBVH, pack_bvh
+from rfx_torch.bvh import FlatBVH, as_flat_bvh
 from rfx_torch.device import resolve_device
+from rfx_torch.geometry import TriangleMesh, as_mesh
+from rfx_torch.ops.bvh_pack import PackedBVH, pack_bvh
 from rfx_torch.solver import InverseParams
 from rfx_torch.tracer import EnvSegments, Scene
 
-__all__ = ["scene_arrays", "scene_from_rfx", "bvh_from_rfx", "tracer_config", "tracer_from_rfx",
-           "segments_from_rfx", "inverse_params_from_rfx"]
+__all__ = ["scene_arrays", "scene_from_rfx", "mesh_from_rfx", "flat_bvh_from_rfx",
+           "bvh_from_rfx", "tracer_config", "tracer_from_rfx", "segments_from_rfx",
+           "inverse_params_from_rfx"]
 
 #: The `rfx.api.Tracer` attributes that make up its configuration.
 TRACER_CONFIG_KEYS = ("light_speed_mps", "sample_rate_hz", "sample_window_s", "max_bounces",
@@ -47,11 +52,24 @@ def scene_from_rfx(scene, device="cuda") -> Scene:
     return Scene(torch.as_tensor(vertices, device=dev), torch.as_tensor(faces, device=dev))
 
 
-def bvh_from_rfx(flat: FlatBVH, device="cuda") -> PackedBVH:
-    """The fused kernel's tables for a FlatBVH built by `rfx.bvh.build_bvh`."""
-    if not isinstance(flat, FlatBVH):
-        raise TypeError(f"expected rfx.bvh.FlatBVH, got {type(flat).__name__}")
-    return pack_bvh(flat, resolve_device(device))
+def mesh_from_rfx(mesh) -> TriangleMesh:
+    """The port's TriangleMesh from an `rfx.geometry.TriangleMesh` (or any
+    object with `vertices` and `faces`); TypeError otherwise."""
+    return as_mesh(mesh)
+
+
+def flat_bvh_from_rfx(flat) -> FlatBVH:
+    """The port's FlatBVH from an `rfx.bvh.FlatBVH` (or any object with its
+    fields); TypeError otherwise."""
+    out = as_flat_bvh(flat)
+    if out is None:
+        raise TypeError(f"expected a FlatBVH, got {type(flat).__name__}")
+    return out
+
+
+def bvh_from_rfx(flat, device="cuda") -> PackedBVH:
+    """The kernels' tables for a FlatBVH built by `rfx.bvh.build_bvh`."""
+    return pack_bvh(flat_bvh_from_rfx(flat), resolve_device(device))
 
 
 def tracer_config(tracer) -> dict:
@@ -72,7 +90,7 @@ def tracer_from_rfx(tracer, *, backend: str = "auto", device="cuda") -> Tracer:
     """A port `Tracer` over the same mesh with the same configuration."""
     cfg = tracer_config(tracer)
     return Tracer(
-        tracer.mesh, cfg["light_speed_mps"], cfg["sample_rate_hz"], cfg["sample_window_s"],
+        mesh_from_rfx(tracer.mesh), cfg["light_speed_mps"], cfg["sample_rate_hz"], cfg["sample_window_s"],
         cfg["max_bounces"], cfg["tx_num_rays"], n1=cfg["n1"], n2=cfg["n2"],
         rx_mode=cfg["rx_mode"], backend=backend, device=device)
 

@@ -18,6 +18,13 @@
 //   tris:      3 float4 per padded triangle, the 12 floats v0, e1, e2, unit
 //              normal; padding rows are degenerate and never hit.
 //
+// The walk is a template on a counting policy: NoCount's calls are empty, so
+// that instantiation compiles to the walk without counters; WalkCount tallies
+// per ray the loop's iterations (`nodes`), the leaves whose box was hit
+// (`leaves`) and the triangles tested (`tris`), what the counted fused trace
+// sums per bounce (fused_trace.cu) and what the plain stackless walk counts
+// (rfx_torch/ops/bvh_traverse.py).
+//
 // Built with -fmad=false (rfx_torch/ops/_build.py): every product and sum
 // rounds as PyTorch's elementwise operations do in the plain versions.
 
@@ -37,19 +44,35 @@ __device__ __forceinline__ float inv_dir(float v) {
   return fabsf(v) > kInvEps ? 1.0f / v : kMiss;
 }
 
+struct NoCount {
+  __device__ __forceinline__ void node() {}
+  __device__ __forceinline__ void leaf(int) {}
+};
+
+struct WalkCount {
+  unsigned nodes = 0, leaves = 0, tris = 0;
+  __device__ __forceinline__ void node() { ++nodes; }
+  __device__ __forceinline__ void leaf(int n_tris) {
+    ++leaves;
+    tris += static_cast<unsigned>(n_tris);
+  }
+};
+
 // Walks the BVH from the root for the ray (o, d); returns the closest t
 // (kMiss on a miss) and writes the padded index of its triangle to *best
 // (-1 on a miss). A ray parked far outside the scene (|o| ~ 1e9) misses the
 // root box and returns at once.
+template <class Counter>
 __device__ __forceinline__ float bvh_closest_hit(
     float ox, float oy, float oz, float dx, float dy, float dz,
     const float4* __restrict__ node_box, const int4* __restrict__ node_meta,
-    int n_nodes, const float4* __restrict__ tris, int* best_out) {
+    int n_nodes, const float4* __restrict__ tris, int* best_out, Counter& counter) {
   const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
   float t_best = kMiss;
   int best = -1;
   int node = 0;
   while (node < n_nodes) {
+    counter.node();
     const float4 lo = node_box[2 * node];
     const float4 hi = node_box[2 * node + 1];
     const int4 meta = node_meta[node];
@@ -67,6 +90,7 @@ __device__ __forceinline__ float bvh_closest_hit(
       node = node + 1;
       continue;
     }
+    counter.leaf(meta.y);
     for (int k = 0; k < meta.y; ++k) {
       const int j = meta.x + k;
       const float4 a = tris[3 * j];      // v0.xyz, e1.x
@@ -98,6 +122,15 @@ __device__ __forceinline__ float bvh_closest_hit(
   }
   *best_out = best;
   return t_best;
+}
+
+__device__ __forceinline__ float bvh_closest_hit(
+    float ox, float oy, float oz, float dx, float dy, float dz,
+    const float4* __restrict__ node_box, const int4* __restrict__ node_meta,
+    int n_nodes, const float4* __restrict__ tris, int* best_out) {
+  NoCount counter;
+  return bvh_closest_hit(ox, oy, oz, dx, dy, dz, node_box, node_meta, n_nodes, tris, best_out,
+                         counter);
 }
 
 }  // namespace rfx

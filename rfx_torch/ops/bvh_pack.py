@@ -1,4 +1,4 @@
-"""Pack a host `rfx.bvh.FlatBVH` into the fused kernel's device tables.
+"""Pack a host `rfx_torch.bvh.FlatBVH` into the fused kernel's device tables.
 
 The counterpart of rfx/ops/pallas_trace.py:_pack_bvh. Node boxes are the
 builder's `aabb_min` / `aabb_max` themselves (the TPU tables store center and
@@ -14,7 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from rfx.bvh import FlatBVH
+from rfx_torch.bvh import FlatBVH
 
 
 @dataclass
@@ -26,6 +26,7 @@ class PackedBVH:
     node_meta: torch.Tensor  # (n_nodes, 4) i32: tri_start, tri_count (0 = internal), skip, 0
     tri: torch.Tensor  # (P, 12) f32: v0, e1, e2, unit normal
     tri_face: torch.Tensor  # (P,) i32: original face id, -1 for padding
+    leaf_size: int = 8  # the builder's pad quantum: no leaf holds more triangles
 
     @property
     def n_nodes(self) -> int:
@@ -58,5 +59,7 @@ def pack_bvh(flat: FlatBVH, device: torch.device) -> PackedBVH:
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    if int(np.max(flat.tri_count)) > flat.leaf_size:
+        raise ValueError("a BVH leaf holds more triangles than its leaf_size")
     return PackedBVH(dev(node_box), dev(node_meta), dev(tri),
-                     dev(np.asarray(flat.tri_face, np.int32)))
+                     dev(np.asarray(flat.tri_face, np.int32)), int(flat.leaf_size))

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from rfx.bvh import FlatBVH, build_bvh
+from rfx_torch.bvh import resolve_flat_bvh
 from rfx_torch.device import resolve_device
 from rfx_torch.ops._build import CudaKernel, I, P
 from rfx_torch.ops.bvh_pack import PackedBVH, pack_bvh
@@ -45,7 +45,7 @@ from rfx_torch.ops.intersect import (
 )
 
 __all__ = ["CLOSEST_HIT_KERNEL", "closest_hit", "closest_hit_plain", "live_tri",
-           "make_kernel_env_hit"]
+           "make_kernel_env_hit", "mt_block"]
 
 CLOSEST_HIT_KERNEL = CudaKernel(
     "closest_hit.cu", "rfx_closest_hit",
@@ -57,11 +57,11 @@ CLOSEST_HIT_KERNEL = CudaKernel(
 _PLAIN_PAIRS = 1 << 22
 
 
-def _mt_padded(o, d, tri):
-    """Closest hit of rays (C, 3) over all padded triangles (P, 12), with the
-    kernels' Moller-Trumbore algebra: (t (C,), index (C,) int64), MISS and
-    the index of the first minimum (0) on a miss."""
-    v0, e1, e2 = tri[None, :, 0:3], tri[None, :, 3:6], tri[None, :, 6:9]
+def mt_block(o, d, tri):
+    """Moller-Trumbore t of rays (C, 3) against triangle rows `tri` (C or 1,
+    L, 12), with the kernels' algebra (csrc/bvh_walk.cuh: every dot product
+    summed x + y + z): (C, L) t, MISS where a row is not hit."""
+    v0, e1, e2 = tri[..., 0:3], tri[..., 3:6], tri[..., 6:9]
     e1x, e1y, e1z = e1[..., 0], e1[..., 1], e1[..., 2]
     e2x, e2y, e2z = e2[..., 0], e2[..., 1], e2[..., 2]
     dx, dy, dz = d[:, None, 0], d[:, None, 1], d[:, None, 2]
@@ -82,7 +82,14 @@ def _mt_padded(o, d, tri):
     v = (dx * qx + dy * qy + dz * qz) * inv_det
     t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
     ok = valid & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > T_MIN_EPS)
-    t = torch.where(ok, t, torch.full((), MISS, dtype=t.dtype, device=t.device))
+    return torch.where(ok, t, torch.full((), MISS, dtype=t.dtype, device=t.device))
+
+
+def _mt_padded(o, d, tri):
+    """Closest hit of rays (C, 3) over all padded triangles (P, 12): (t (C,),
+    index (C,) int64), MISS and the index of the first minimum (0) on a
+    miss."""
+    t = mt_block(o, d, tri[None])
     idx = torch.argmin(t, dim=1)  # first minimum: the lowest padded index
     return torch.gather(t, 1, idx[:, None])[:, 0], idx
 
@@ -239,14 +246,12 @@ class _KernelHitDiff(torch.autograd.Function):
 def make_kernel_env_hit(bvh_or_mesh, *, differentiable_tris: bool = False, device="cuda"):
     """env_hit(o, d, v0, e1, e2, normals) -> (t, face, nrm) through the
     per-query kernel, from a PackedBVH (shared with a FusedTracer), a
-    FlatBVH or a TriangleMesh (built at leaf 8 with the numpy builder). The
-    normal comes from the triangle table, not from `normals` (ignored)."""
+    FlatBVH or a TriangleMesh (built at leaf 8). The normal comes from the
+    triangle table, not from `normals` (ignored)."""
     if isinstance(bvh_or_mesh, PackedBVH):
         bvh = bvh_or_mesh
     else:
-        flat = (bvh_or_mesh if isinstance(bvh_or_mesh, FlatBVH)
-                else build_bvh(bvh_or_mesh, leaf_size=8, method="numpy"))
-        bvh = pack_bvh(flat, resolve_device(device))
+        bvh = pack_bvh(resolve_flat_bvh(bvh_or_mesh, leaf_size=8), resolve_device(device))
 
     if differentiable_tris:
         def env_hit(o, d, v0, e1, e2, normals):

@@ -15,8 +15,19 @@ the kernel with `record_faces`, the backward replays the captured rays on
 their recorded faces in closed form (`replay_from_faces`, plain PyTorch
 under autograd), with no BVH walk.
 
-Not ported yet: `count_stats` (walk counters); see ROADMAP B1. The TPU
-tuning knobs (tile_rays, k_spec, pack, cone_filter, force_stream,
+With `count_stats` it also returns the walk counters, a (B, 4) int64 tensor
+whose row b sums over the rays of bounce b: `nodes` (iterations of the
+walk's loop), `leaves` (leaf nodes whose box was hit), `tris` (triangles
+tested) and `warp_steps` (over each group of 32 consecutive rays, the
+largest `nodes` of any of them: the steps a warp spends, so that
+`nodes / (32 * warp_steps)` is the share of the SIMT width the walk uses).
+Bounces that no ray reached read 0. The counters are the card's counterpart
+of the TPU kernel's per-tile windows and leaf visits; on a CUDA tensor they
+come from the counted instantiation of the kernel, on a CPU tensor from
+`fused_trace_walk_plain`, the same bounce loop on the plain stackless walk
+(rfx_torch.ops.bvh_traverse), which visits the same nodes in the same order.
+
+The TPU tuning knobs (tile_rays, k_spec, pack, cone_filter, force_stream,
 stream_depth, arity) have no counterpart here.
 """
 
@@ -25,12 +36,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rfx.bvh import FlatBVH, build_bvh
 from rfx_torch import physics
+from rfx_torch.bvh import resolve_flat_bvh
 from rfx_torch.device import resolve_device
 from rfx_torch.ops._build import CudaKernel, F, I, P
 from rfx_torch.ops.bvh_pack import PackedBVH, pack_bvh
 from rfx_torch.ops.bvh_trace import padded_closest_hit
+from rfx_torch.ops.bvh_traverse import walk_closest_hit
 from rfx_torch.ops.intersect import (
     MISS_THRESHOLD,
     closed_form_t,
@@ -42,12 +54,17 @@ from rfx_torch.ops.intersect import (
 from rfx_torch.tracer import TraceResult
 
 __all__ = ["FusedTracer", "make_fused_tracer", "fused_trace", "fused_trace_plain",
-           "replay_from_faces", "make_diff_fused_tracer", "FUSED_TRACE_KERNEL"]
+           "fused_trace_walk_plain", "replay_from_faces", "make_diff_fused_tracer",
+           "FUSED_TRACE_KERNEL", "FUSED_TRACE_COUNTED_KERNEL", "WARP"]
 
-FUSED_TRACE_KERNEL = CudaKernel(
-    "fused_trace.cu", "rfx_fused_trace",
-    [P, I, P, P, I, P, P, F, F, F, F, F, F, F, F, F, I, P, P, P, P, P, P],
-)
+_TRACE_ARGS = [P, I, P, P, I, P, P, F, F, F, F, F, F, F, F, F, I, P, P, P, P, P]
+FUSED_TRACE_KERNEL = CudaKernel("fused_trace.cu", "rfx_fused_trace", [*_TRACE_ARGS, P])
+# The counted instantiation: the same arguments, then the (B, 4) counters.
+FUSED_TRACE_COUNTED_KERNEL = CudaKernel("fused_trace.cu", "rfx_fused_trace_counted",
+                                        [*_TRACE_ARGS, P, P])
+
+#: Rays per group of the `warp_steps` counter: the card's warp width.
+WARP = 32
 
 
 def _scalars(tx_pos, rx_pos, rx_radius, n1, n2):
@@ -75,15 +92,20 @@ def _fresnel_algebraic(w, n1, n2):
     return torch.where((sr <= 1.0) & den_ok, torch.clamp_max(ratio * ratio, 1.0), zero)
 
 
-def fused_trace_plain(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, rx_radius,
-                      n1=5.0, n2=1.0, *, max_bounces: int, record_faces: bool = False):
-    """Plain PyTorch version of the fused kernel: brute-force closest hit over
-    the packed triangles in padded order (ties to the lowest index, as the
-    kernel's preorder walk gives them), the same receiver sphere, capture
-    fold, reflection and algebraic Fresnel, one Python iteration per bounce
-    over the rays still alive. Chunked over rays to bound the intermediates.
-    Returns a TraceResult, or (TraceResult, (B, N) int32 faces) with
-    `record_faces`."""
+def _extras(result, faces, stats):
+    """(result[, faces][, stats]): the reference's return convention
+    (rfx/ops/pallas_fused.py:802-812)."""
+    out = [result] + [x for x in (faces, stats) if x is not None]
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+def _bounce_loop_plain(bvh, directions, tx_pos, rx_pos, rx_radius, n1, n2, max_bounces,
+                       closest):
+    """The fused kernel's bounce loop in plain PyTorch over `closest(o, d) ->
+    (t, padded index, per-ray walk counts (A, 3) or None)`: the same receiver
+    sphere, capture fold, reflection and algebraic Fresnel, one Python
+    iteration per bounce over the rays still alive. Returns (TraceResult,
+    (B, N) int32 faces, (B, 4) int64 counters)."""
     dev = directions.device
     f32 = torch.float32
     tx, rx, r2, n1s, n2s = _scalars(tx_pos, rx_pos, rx_radius, n1, n2)
@@ -101,13 +123,19 @@ def fused_trace_plain(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, 
     cap_dist = torch.zeros(n, dtype=f32, device=dev)
     nb = torch.zeros(n, dtype=torch.int32, device=dev)
     faces = torch.full((max_bounces, n), -1, dtype=torch.int32, device=dev)
+    stats = torch.zeros((max_bounces, 4), dtype=torch.int64, device=dev)
     alive = torch.arange(n, device=dev)  # indices of the rays still bouncing
 
     for b in range(max_bounces):
         if alive.numel() == 0:
             break
         oa, da = o[alive], d[alive]
-        t_env, best = padded_closest_hit(oa, da, tri)
+        t_env, best, walked = closest(oa, da)
+        if walked is not None:
+            stats[b, :3] = walked.sum(dim=0)
+            nodes = torch.zeros(-(-n // WARP) * WARP, dtype=torch.int64, device=dev)
+            nodes[alive] = walked[:, 0]
+            stats[b, 3] = nodes.view(-1, WARP).amax(dim=1).sum()
         t_rx = sphere_t(oa, da, rx_t, r2_t)
         rx_win = (t_rx < MISS_THRESHOLD) & (t_env > t_rx)
         env_b = ~rx_win & (t_env < MISS_THRESHOLD)
@@ -132,18 +160,47 @@ def fused_trace_plain(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, 
         nb[go] += 1
         alive = go
 
-    result = TraceResult(captured, cap_amp, cap_dist, nb)
-    return (result, faces) if record_faces else result
+    return TraceResult(captured, cap_amp, cap_dist, nb), faces, stats
+
+
+def fused_trace_plain(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, rx_radius,
+                      n1=5.0, n2=1.0, *, max_bounces: int, record_faces: bool = False):
+    """Plain PyTorch version of the fused kernel: brute-force closest hit over
+    the packed triangles in padded order (ties to the lowest index, as the
+    kernel's preorder walk gives them), chunked over rays to bound the
+    intermediates. Returns a TraceResult, or (TraceResult, (B, N) int32
+    faces) with `record_faces`. It cannot count: see `fused_trace_walk_plain`."""
+    result, faces, _ = _bounce_loop_plain(
+        bvh, directions, tx_pos, rx_pos, rx_radius, n1, n2, max_bounces,
+        lambda o, d: (*padded_closest_hit(o, d, bvh.tri), None))
+    return _extras(result, faces if record_faces else None, None)
+
+
+def fused_trace_walk_plain(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, rx_radius,
+                           n1=5.0, n2=1.0, *, max_bounces: int, record_faces: bool = False,
+                           count_stats: bool = False):
+    """Plain PyTorch version of the counted fused kernel: the same bounce
+    loop on the plain stackless walk (rfx_torch.ops.bvh_traverse), which
+    visits the nodes the kernel's walk visits in the same order. Returns
+    (TraceResult[, (B, N) int32 faces][, (B, 4) int64 counters]); the trace
+    equals `fused_trace_plain`'s."""
+    result, faces, stats = _bounce_loop_plain(
+        bvh, directions, tx_pos, rx_pos, rx_radius, n1, n2, max_bounces,
+        lambda o, d: walk_closest_hit(bvh, o, d, count=True))
+    return _extras(result, faces if record_faces else None, stats if count_stats else None)
 
 
 def fused_trace(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, rx_radius,
-                n1=5.0, n2=1.0, *, max_bounces: int, record_faces: bool = False):
+                n1=5.0, n2=1.0, *, max_bounces: int, record_faces: bool = False,
+                count_stats: bool = False):
     """Trace (N, 3) f32 directions from tx_pos through `max_bounces` bounces
     against the packed scene: TraceResult of (N,) captured, amplitude,
-    distance, num_bounces, and with `record_faces` also the (B, N) int32
-    per-bounce face table. A CPU tensor runs `fused_trace_plain`; a CUDA
-    tensor launches the kernel, or raises. No autograd: see
-    `make_diff_fused_tracer`."""
+    distance, num_bounces; with `record_faces` also the (B, N) int32
+    per-bounce face table; with `count_stats` also the (B, 4) int64 walk
+    counters (nodes, leaves, tris, warp_steps per bounce). A CPU tensor runs
+    the plain versions (`fused_trace_plain`, or `fused_trace_walk_plain` to
+    count); a CUDA tensor launches the kernel, or its counted instantiation,
+    or raises. No autograd: see `make_diff_fused_tracer`."""
     dev = directions.device
     if directions.ndim != 2 or directions.shape[1] != 3:
         raise ValueError(f"directions must be (N, 3), got {tuple(directions.shape)}")
@@ -152,6 +209,10 @@ def fused_trace(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, rx_rad
     if bvh.tri.device != dev:
         raise ValueError(f"BVH tables are on {bvh.tri.device}, directions on {dev}")
     if dev.type == "cpu":
+        if count_stats:
+            return fused_trace_walk_plain(bvh, directions, tx_pos, rx_pos, rx_radius, n1, n2,
+                                          max_bounces=max_bounces, record_faces=record_faces,
+                                          count_stats=True)
         return fused_trace_plain(bvh, directions, tx_pos, rx_pos, rx_radius, n1, n2,
                                  max_bounces=max_bounces, record_faces=record_faces)
     if dev.type != "cuda":
@@ -161,24 +222,32 @@ def fused_trace(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, rx_rad
     n = d.shape[0]
     if n >= 2**31:
         raise ValueError(f"at most 2^31 - 1 rays per launch, got {n}")
+    if count_stats and max(bvh.n_nodes, bvh.n_padded_tris) >= 2**27:
+        # A warp sums its 32 lanes' counts of one bounce in 32 bits.
+        raise ValueError("count_stats takes at most 2^27 - 1 nodes and padded triangles")
     captured = torch.empty(n, dtype=torch.bool, device=dev)
     cap_amp = torch.empty(n, dtype=torch.float32, device=dev)
     cap_dist = torch.empty(n, dtype=torch.float32, device=dev)
     nb = torch.empty(n, dtype=torch.int32, device=dev)
     faces = (torch.empty((max_bounces, n), dtype=torch.int32, device=dev)
              if record_faces else None)
+    stats = (torch.zeros((max_bounces, 4), dtype=torch.int64, device=dev)
+             if count_stats else None)
     result = TraceResult(captured, cap_amp, cap_dist, nb)
     if n == 0:
-        return (result, faces) if record_faces else result
+        return _extras(result, faces, stats)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        FUSED_TRACE_KERNEL.launch(
-            d.data_ptr(), n, bvh.node_box.data_ptr(), bvh.node_meta.data_ptr(), bvh.n_nodes,
-            bvh.tri.data_ptr(), bvh.tri_face.data_ptr() if record_faces else None,
-            *map(float, tx), *map(float, rx), float(r2), float(n1s), float(n2s),
-            int(max_bounces), captured.data_ptr(), cap_amp.data_ptr(), cap_dist.data_ptr(),
-            nb.data_ptr(), faces.data_ptr() if record_faces else None, stream)
-    return (result, faces) if record_faces else result
+        args = (d.data_ptr(), n, bvh.node_box.data_ptr(), bvh.node_meta.data_ptr(), bvh.n_nodes,
+                bvh.tri.data_ptr(), bvh.tri_face.data_ptr() if record_faces else None,
+                *map(float, tx), *map(float, rx), float(r2), float(n1s), float(n2s),
+                int(max_bounces), captured.data_ptr(), cap_amp.data_ptr(), cap_dist.data_ptr(),
+                nb.data_ptr(), faces.data_ptr() if record_faces else None)
+        if count_stats:
+            FUSED_TRACE_COUNTED_KERNEL.launch(*args, stats.data_ptr(), stream)
+        else:
+            FUSED_TRACE_KERNEL.launch(*args, stream)
+    return _extras(result, faces, stats)
 
 
 class FusedTracer:
@@ -186,31 +255,31 @@ class FusedTracer:
 
     fused(directions (N, 3), tx (3,), rx (3,), rx_radius, n1, n2)
       -> TraceResult (captured, amplitude, distance, num_bounces), each (N,);
-    with record_faces=True, (TraceResult, (B, N) int32 face table).
+    with record_faces=True, (TraceResult, (B, N) int32 face table); built
+    with count_stats=True, the (B, 4) int64 walk counters come last, as
+    rfx.ops.pallas_fused.FusedTracer returns its own.
     """
 
-    def __init__(self, flat: FlatBVH, *, max_bounces: int, device="cuda"):
+    def __init__(self, flat, *, max_bounces: int, count_stats: bool = False, device="cuda"):
         self.device = resolve_device(device)
-        self.bvh = pack_bvh(flat, self.device)
+        self.bvh = pack_bvh(resolve_flat_bvh(flat), self.device)
         self.max_bounces = int(max_bounces)
+        self.count_stats = bool(count_stats)
 
     def __call__(self, directions, tx_pos, rx_pos, rx_radius, n1=5.0, n2=1.0,
                  record_faces: bool = False):
         d = torch.as_tensor(directions, dtype=torch.float32, device=self.device)
         return fused_trace(self.bvh, d, tx_pos, rx_pos, rx_radius, n1, n2,
-                           max_bounces=self.max_bounces, record_faces=record_faces)
+                           max_bounces=self.max_bounces, record_faces=record_faces,
+                           count_stats=self.count_stats)
 
 
 def make_fused_tracer(mesh_or_flat, *, max_bounces: int, leaf_size: int = 8,
-                      device="cuda") -> FusedTracer:
-    """FusedTracer from a prebuilt FlatBVH, or from a TriangleMesh through the
-    numpy SAH builder (`method="numpy"`: the native builder's loader goes
-    through rfx.ops, which imports JAX)."""
-    if isinstance(mesh_or_flat, FlatBVH):
-        flat = mesh_or_flat
-    else:
-        flat = build_bvh(mesh_or_flat, leaf_size=leaf_size, method="numpy")
-    return FusedTracer(flat, max_bounces=max_bounces, device=device)
+                      count_stats: bool = False, device="cuda") -> FusedTracer:
+    """FusedTracer from a prebuilt FlatBVH, or from a TriangleMesh through
+    `rfx_torch.bvh.build_bvh(method="auto")` at `leaf_size`."""
+    return FusedTracer(resolve_flat_bvh(mesh_or_flat, leaf_size=leaf_size),
+                       max_bounces=max_bounces, count_stats=count_stats, device=device)
 
 
 def replay_from_faces(vertices, faces_tbl, tx_pos, directions, rx_pos, rx_radius,

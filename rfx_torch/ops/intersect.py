@@ -10,9 +10,10 @@ of rfx/ops/intersect.py).
 - `ray_sphere_hit`: closed-form sphere hit of the analytic receiver, with
   the implicit-function backward of the reference.
 - `make_env_intersector`: the `env_hit(o, d, v0, e1, e2, normals) -> (t,
-  face, nrm)` factory of the bounce-loop tracers, with the `brute` backend
-  and the `kernel` backend (the per-query BVH kernel of
-  rfx_torch.ops.bvh_trace, the counterpart of the reference's `pallas`).
+  face, nrm)` factory of the bounce-loop tracers, with the `brute` backend,
+  the `kernel` backend (the per-query BVH kernel of rfx_torch.ops.bvh_trace,
+  the counterpart of the reference's `pallas`) and the `bvh` backend (the
+  plain stackless walk of rfx_torch.ops.bvh_traverse).
 
 Constants and the finite miss sentinel are the reference's
 (`rfx/ops/intersect.py:27-39`). Dot products are written out left to right,
@@ -242,7 +243,9 @@ def make_env_intersector(backend: str = "brute", *, mesh=None, flat_bvh=None,
                  `flat_bvh` or `mesh`: the kernel on a CUDA tensor, its plain
                  version on a CPU tensor. The counterpart of the reference's
                  'pallas' backend, with `differentiable_tris` as there;
-      'bvh'    - the plain-PyTorch stackless walk: not ported (ROADMAP A8).
+      'bvh'    - the plain-PyTorch stackless walk (rfx_torch.ops.bvh_traverse),
+                 from `flat_bvh` or `mesh`, on either device, with
+                 `differentiable_tris` as there.
     """
     if backend == "brute":
         def env_hit(o, d, v0, e1, e2, normals):
@@ -250,15 +253,14 @@ def make_env_intersector(backend: str = "brute", *, mesh=None, flat_bvh=None,
             return t, face, hit_normal_from_edges(e1, e2, face)
 
         return env_hit
-    if backend == "kernel":
+    if backend in ("kernel", "bvh"):
         if mesh is None and flat_bvh is None:
-            raise ValueError("backend 'kernel' needs mesh= or flat_bvh=")
-        from rfx_torch.ops.bvh_trace import make_kernel_env_hit
+            raise ValueError(f"backend '{backend}' needs mesh= or flat_bvh=")
+        if backend == "kernel":
+            from rfx_torch.ops.bvh_trace import make_kernel_env_hit as make
+        else:
+            from rfx_torch.ops.bvh_traverse import make_bvh_env_hit as make
 
-        return make_kernel_env_hit(flat_bvh if flat_bvh is not None else mesh,
-                                   differentiable_tris=differentiable_tris, device=device)
-    if backend == "bvh":
-        raise NotImplementedError(
-            "backend 'bvh' (the stackless BVH walk in plain PyTorch) is not ported yet "
-            "(ROADMAP A8); use 'kernel'")
+        return make(flat_bvh if flat_bvh is not None else mesh,
+                    differentiable_tris=differentiable_tris, device=device)
     raise ValueError(f"unknown intersector backend: {backend}")

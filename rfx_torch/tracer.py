@@ -20,7 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from rfx.geometry import icosphere
+from rfx_torch.geometry import icosphere
 from rfx_torch import physics
 from rfx_torch.device import resolve_device
 from rfx_torch.ops.intersect import (
@@ -95,10 +95,16 @@ def trace_to_rx(scene: Scene, tx_pos, directions: torch.Tensor, rx_pos, rx_radiu
     `env_hit` is the closest-hit query (None: brute force); `active` masks
     out padding rays. Differentiable in tx_pos, directions, rx_pos,
     rx_radius, n1, n2 and the scene's vertices (through `env_hit`'s
-    gradient)."""
-    if warp_quirk_compat:
-        raise NotImplementedError(
-            "warp_quirk_compat is not ported yet (ROADMAP A8: the rest of trace_to_rx)")
+    gradient).
+
+    `warp_quirk_compat=True` reproduces the reference kernel's per-iteration
+    `ray_finished` reset (ref kernel.py:58-59; rfx/tracer.py:130-139): a
+    capture does not end the ray. It goes on from the receiver sphere's
+    surface in the same direction (as a rule capturing again where it leaves
+    the sphere), a later capture overwrites the recorded amplitude and
+    distance, and each pass-through vertex folds in the Fresnel factor of a
+    bend angle of 0. Escaped rays still die. Matches oracle.OracleTracer's
+    flag."""
     if env_hit is None:
         env_hit = make_env_intersector("brute")
     dev = directions.device
@@ -146,12 +152,20 @@ def trace_to_rx(scene: Scene, tx_pos, directions: torch.Tensor, rx_pos, rx_radiu
             nan = torch.full_like(new_pos, float("nan"))
             verts.append(torch.where(rx_win[:, None], rx_pt,
                                      torch.where(env_bounce[:, None], new_pos, nan)))
-        amp = torch.where(env_bounce, amp * fres, amp)
-        dist = dist + t_adv
+        amp_next = torch.where(env_bounce, amp * fres, amp)
+        dist_next = dist + t_adv
+        alive_next = env_bounce
+        if warp_quirk_compat:
+            f0 = physics.fresnel_bounce_amplitude(zero, n1, n2)
+            rx_pt = pos + d * torch.where(rx_win, t_rx, zero)[:, None]
+            new_pos = torch.where(rx_win[:, None], rx_pt, new_pos)
+            amp_next = torch.where(rx_win, amp * f0, amp_next)
+            dist_next = torch.where(rx_win, dist + t_rx, dist_next)
+            alive_next = env_bounce | rx_win
+        amp, dist, alive = amp_next, dist_next, alive_next
         d = torch.where(env_bounce[:, None], d_out, d)
         nb = nb + env_bounce.to(torch.int32)
         pos = new_pos
-        alive = env_bounce
 
     paths = None
     if record_paths:

@@ -1,1 +1,1 @@
-"""Host-side utilities of the port (profiling)."""
+"""Host-side utilities of the port: logging, chunked checkpointing, profiling."""

@@ -2,7 +2,9 @@
 
 `--path cir` (the default) runs the bench workload (bench.py: 32,258-triangle
 terrain, 5,242,880 Morton-ordered rays, 4 bounces, 20,000-bin IR) through
-rfx_torch.api.Tracer.compute_cir. `--path scan-grad` and `--path fused-grad`
+rfx_torch.api.Tracer.compute_cir; with `--scene large` it runs the large-mesh
+workload instead (scripts/torch_bench_large_mesh.py: the 1,045,458-triangle
+terrain, tx (10, 0, 30), rx (-15, 5, 12), radius 2.0). `--path scan-grad` and `--path fused-grad`
 run one value + gradient of scripts/bench_gradients.py's loss (sum(ir^2) *
 1e12 over a 20,000-bin soft IR of 2,621,440 rays, 4 bounces) with respect to
 tx, through the scan tracer on the closest-hit kernel or through the
@@ -31,8 +33,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", default="cir", choices=(
         "cir", "scan-grad", "fused-grad", "coverage-exact", "coverage-fast", "coverage-hybrid"))
-    ap.add_argument("--scene", choices=("room", "terrain"), default="terrain",
-                    help="the coverage paths' scene")
+    ap.add_argument("--scene", choices=("room", "terrain", "large"), default="terrain",
+                    help="the coverage paths' scene; `large` is the cir path's 1M-triangle terrain")
     ap.add_argument("--requests", type=int, default=5)
     ap.add_argument("--trace", help="write a Chrome trace of the profiled window here")
     a = ap.parse_args()
@@ -45,8 +47,8 @@ def main() -> int:
         print("needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from rfx.bvh import build_bvh
-    from rfx.geometry import make_room, make_terrain
+    from rfx_torch.bvh import build_bvh
+    from rfx_torch.geometry import make_room, make_terrain
     from rfx_torch.api import Tracer
     from rfx_torch.cir import cir_from_trace
     from rfx_torch.coverage import make_grid
@@ -60,7 +62,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     coverage = a.path.startswith("coverage")
     room = coverage and a.scene == "room"
-    mesh = make_room() if room else make_terrain(grid=128, extent=60.0, seed=0)
+    large = a.path == "cir" and a.scene == "large"
+    if a.scene == "large" and not large:
+        ap.error("--scene large goes with --path cir")
+    mesh = (make_room() if room else make_terrain(grid=724, extent=120.0, seed=0) if large
+            else make_terrain(grid=128, extent=60.0, seed=0))
     n = {"cir": 5_242_880, "scan-grad": 2_621_440, "fused-grad": 2_621_440}.get(a.path, 1_048_576)
     dirs = morton_sphere_directions(n, generator=torch.Generator(dev).manual_seed(0),
                                     device=dev)
@@ -83,11 +89,14 @@ def main() -> int:
         tracer = Tracer(mesh, max_bounces=4, tx_num_rays=n, device=dev)
 
         def request(i):
+            if large:
+                return tracer.compute_cir((10.0, 0.0, 30.0 + i), 1.0, (-15.0, 5.0, 12.0), 2.0,
+                                          directions=dirs, record_paths=False)
             return tracer.compute_cir((10.0, 0.0, 25.0 + i), 1.0, rx, 1.0, directions=dirs,
                                       record_paths=False)
     else:
         scene = Scene.from_mesh(mesh, dev)
-        flat = build_bvh(mesh, leaf_size=8, method="numpy")
+        flat = build_bvh(mesh, leaf_size=8)
         if a.path == "scan-grad":
             env = make_kernel_env_hit(flat, device=dev)
 

@@ -100,8 +100,12 @@ def test_fused_branch_refuses_what_needs_unported_kernels():
     hybrid, n_flagged = t.compute_coverage_dbm_hybrid(TX, 1.0, centers, 1.0)
     assert isinstance(hybrid, np.ndarray) and hybrid.shape == (2,)
     assert isinstance(n_flagged, int) and 0 <= n_flagged <= 2
-    with pytest.raises(NotImplementedError, match="A8"):
-        Tracer(mesh, backend="bvh", device="cpu")
+    # The `bvh` backend is the plain walk under the scan tracer: no fused
+    # tracer, the fused branch's answers.
+    walk = Tracer(mesh, max_bounces=2, tx_num_rays=64, backend="bvh", device="cpu")
+    assert walk.backend == "bvh" and walk._fused is None
+    np.testing.assert_allclose(walk.compute_coverage_dbm_fast(TX, 1.0, centers, 1.0), fast,
+                               rtol=0, atol=1e-3)
     with pytest.raises(ValueError):
         Tracer(mesh, backend="pallas", device="cpu")
 

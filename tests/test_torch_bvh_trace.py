@@ -140,8 +140,19 @@ def test_closest_hit_plain_outputs_and_live_tri():
 
 def test_make_env_intersector_backends():
     room = make_room()
-    with pytest.raises(NotImplementedError, match="A8"):
-        intersect.make_env_intersector("bvh", mesh=room, device="cpu")
+    # 'bvh' is the plain walk: the answers of the brute intersector and of
+    # the 'kernel' backend's plain version, on a tree of its own.
+    o, d = _rays(500, 3, [-8, -8, 1], [8, 8, 9])
+    soa = intersect.mesh_soa(torch.as_tensor(room.vertices), torch.as_tensor(room.faces))
+    got = {b: intersect.make_env_intersector(b, mesh=room, device="cpu")(_t(o), _t(d), *soa)
+           for b in ("bvh", "kernel", "brute")}
+    assert int(intersect.is_hit(got["brute"][0]).sum()) == 500  # a closed room
+    for b in ("bvh", "kernel"):
+        torch.testing.assert_close(got[b][0], got["brute"][0], rtol=1e-5, atol=1e-5)
+        assert int((got[b][1] != got["brute"][1]).sum()) <= 5  # ties at shared edges
+    assert torch.equal(got["bvh"][0], got["kernel"][0])
+    with pytest.raises(ValueError):
+        intersect.make_env_intersector("bvh", device="cpu")
     with pytest.raises(ValueError):
         intersect.make_env_intersector("kernel", device="cpu")
     with pytest.raises(ValueError):

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from rfx.config import CoverageConfig, resolve_scene
+from rfx_torch.config import CoverageConfig, resolve_scene
 from rfx_torch.api import Tracer
 from rfx_torch.cli import main
 from rfx_torch.utils.profiling import PhaseTimer, Throughput, block_until_ready
@@ -65,9 +65,18 @@ def test_cli_cir_profile_report(tmp_path, capsys):
     assert os.path.isfile(trace) and json.load(open(trace))["traceEvents"]
 
 
-def test_cli_refuses_unported_backend():
-    with pytest.raises(NotImplementedError, match="A8"):
-        main(CIR_ARGS + ["--rays", "64", "--backend", "bvh", "--no-viz"])
+def test_cli_bvh_backend_gives_the_brute_backend_dbm(capsys):
+    """--backend bvh runs the plain stackless walk under the scan tracer: the
+    same dBm line as --backend brute on the same seed's directions."""
+    lines = []
+    for backend in ("bvh", "brute"):
+        assert main(CIR_ARGS + ["--rays", "2048", "--backend", backend, "--no-viz"]) == 0
+        lines += _dbm_lines(capsys.readouterr().out)
+    assert len(lines) == 2
+    dbm = [float(line.split()[0]) for line in lines]
+    assert np.isfinite(dbm).all() and abs(dbm[0] - dbm[1]) < 1e-3, lines
+    with pytest.raises(SystemExit):
+        main(CIR_ARGS + ["--rays", "64", "--backend", "pallas", "--no-viz"])
 
 
 @pytest.mark.parametrize("metric", ["exact", "fast", "hybrid"])

@@ -6,17 +6,17 @@ with a card, and without JAX, run them with
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
 
 (`--noconftest`: tests/conftest.py configures JAX for the other test files;
-this file imports neither JAX nor the JAX-only parts of rfx).
+this file imports neither JAX nor the JAX package).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from rfx.geometry import make_room, make_terrain
 from rfx_torch import cir, coverage
 from rfx_torch.api import Tracer
-from rfx_torch.ops import bvh_trace, coverage_hist, fused, intersect
+from rfx_torch.geometry import make_room, make_terrain
+from rfx_torch.ops import bvh_trace, coverage_hist, fused, intersect, micro_vote
 from rfx_torch.sampler import morton_sphere_directions
 from rfx_torch.tracer import EnvSegments, Scene, trace_env, trace_to_rx
 
@@ -293,3 +293,50 @@ def test_coverage_engines_on_card(cuda):
     torch.testing.assert_close(card[0][ok], host[0][ok], rtol=0, atol=1e-3)
     for a, b in zip(card[1:], host[1:]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("n", [1, 1000, 65_536 + 7])
+def test_counted_fused_kernel_matches_plain_walk(cuda, n):
+    """The counted instantiation: counters equal the plain walk's integer for
+    integer, the trace equals the uncounted kernel's bit for bit (a ragged
+    last warp and block included)."""
+    ft = fused.make_fused_tracer(make_terrain(grid=48, extent=40.0, seed=3), max_bounces=4,
+                                 count_stats=True, device=cuda)
+    dirs = morton_sphere_directions(n, generator=torch.Generator(cuda).manual_seed(4),
+                                    device=cuda)
+    args = ([2.0, 1.0, 12.0], [-5.0, 2.0, 6.0], 2.0)
+    before = (fused.FUSED_TRACE_COUNTED_KERNEL.launches, fused.FUSED_TRACE_KERNEL.launches)
+    (k, kf, stats) = ft(dirs, *args, record_faces=True)
+    assert (fused.FUSED_TRACE_COUNTED_KERNEL.launches, fused.FUSED_TRACE_KERNEL.launches) == (
+        before[0] + 1, before[1])
+    u, uf = fused.fused_trace(ft.bvh, dirs, *args, max_bounces=4, record_faces=True)
+    p, pf, p_stats = fused.fused_trace_walk_plain(ft.bvh, dirs, *args, max_bounces=4,
+                                                  record_faces=True, count_stats=True)
+    torch.cuda.synchronize()
+    assert stats.dtype == torch.int64 and stats.shape == (4, 4)
+    assert torch.equal(stats, p_stats), (stats.tolist(), p_stats.tolist())
+    assert int(stats[0, 0]) >= n and bool((stats[:, 3] * fused.WARP >= stats[:, 0]).all())
+    for a, b in zip((*k[:4], kf), (*u[:4], uf)):
+        assert torch.equal(a, b)
+    _assert_trace_equal(k, p)
+    assert torch.equal(kf, pf)
+    stats2 = ft(dirs, *args)[1]
+    assert torch.equal(stats2, stats)  # integer atomics: the same sums every run
+
+
+@pytest.mark.parametrize("style", micro_vote.STYLES)
+def test_micro_vote_kernel_matches_plain(cuda, style):
+    x = torch.from_numpy(np.random.default_rng(0).random((8, 128)).astype(np.float32)).to(cuda)
+    before = micro_vote.MICRO_VOTE_KERNEL.launches
+    got = micro_vote.micro_vote(x, 500, style)
+    assert micro_vote.MICRO_VOTE_KERNEL.launches == before + 1
+    want = micro_vote.micro_vote_plain(x, 500, style)
+    torch.cuda.synchronize()
+    assert got.shape == () and torch.equal(got, want)
+    assert float(got) == 0.0 if style == "novec" else float(got) > 0.0
+    # A tile that passes only 7 of the 8 thresholds, and one that passes none.
+    for fill, steps in ((0.25, 300), (-9.0, 300)):
+        tile = torch.full((8, 128), fill, device=cuda)
+        assert torch.equal(micro_vote.micro_vote(tile, steps, style),
+                           micro_vote.micro_vote_plain(tile, steps, style)), fill
+    assert float(micro_vote.micro_vote(x, 0, style)) == 0.0

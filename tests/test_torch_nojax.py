@@ -1,7 +1,7 @@
-"""rfx_torch never imports JAX: a fresh interpreter imports the port, runs a
-tiny CPU compute_cir through both backends, a soft coverage gradient, a
-hybrid coverage metric and the coverage command line, and finds no `jax`
-module. matplotlib is blocked throughout: the card's machine has none, and
+"""rfx_torch imports neither JAX nor the JAX package: a fresh interpreter
+imports the port, runs a tiny CPU compute_cir through the three backends, a
+counted fused trace, a soft coverage gradient, a hybrid coverage metric and
+the coverage command line, and finds no `jax` and no `rfx` module. matplotlib is blocked throughout: the card's machine has none, and
 `coverage --no-viz` must not need it."""
 
 import os
@@ -20,7 +20,7 @@ import rfx_torch
 from rfx_torch import convert, sampler
 from rfx_torch.api import Tracer
 from rfx_torch.ops import fused
-from rfx.geometry import make_room, make_terrain
+from rfx_torch.geometry import make_room, make_terrain
 dirs = sampler.morton_sphere_directions(512, generator=torch.Generator().manual_seed(0),
                                         device="cpu")
 _, ir = Tracer(make_room(), max_bounces=2, tx_num_rays=512, device="cpu").compute_cir(
@@ -30,6 +30,13 @@ tr = Tracer(make_terrain(grid=34, extent=30.0, seed=1), max_bounces=2, tx_num_ra
 assert tr.backend == "fused"
 _, ir2 = tr.compute_cir([0.0, 0.0, 9.0], 1.0, [3.0, 0.0, 6.0], 2.0, directions=dirs,
                         record_paths=False)
+_, ir3 = Tracer(make_terrain(grid=34, extent=30.0, seed=1), max_bounces=2, tx_num_rays=512,
+                backend="bvh", device="cpu").compute_cir(
+    [0.0, 0.0, 9.0], 1.0, [3.0, 0.0, 6.0], 2.0, directions=dirs, record_paths=False)
+assert abs(float(ir3.sum()) - float(ir2.sum())) <= 1e-4 * float(ir2.sum())
+_, stats = fused.fused_trace(tr._fused.bvh, dirs, [0.0, 0.0, 9.0], [3.0, 0.0, 6.0], 2.0,
+                             max_bounces=2, count_stats=True)
+assert stats.shape == (2, 4) and int(stats[0, 0]) >= 512
 from rfx_torch import coverage, solver
 from rfx_torch.tracer import Scene
 room = make_room()
@@ -51,7 +58,8 @@ from rfx_torch.utils import profiling
 assert cli.main(["coverage", "--rays", "256", "--device", "cpu", "--no-viz", "--metric",
                  "exact"]) == 0
 print(float(ir.sum()), float(ir2.sum()), tr.rx_power_dbm(ir2))
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "rfx") or m.startswith(("jax.", "jaxlib", "rfx.")))
 print("JAX_MODULES", bad)
 """
 

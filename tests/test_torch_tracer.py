@@ -84,7 +84,21 @@ def test_per_ray_origins_match_single_emitter(box_room):
         assert torch.equal(a, b)
 
 
-def test_warp_quirk_compat_not_ported(box_room):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trace_to_rx(Scene.from_mesh(box_room, "cpu"), TX, torch.zeros(4, 3), RX, 1.0,
-                    max_bounces=1, warp_quirk_compat=True)
+def test_warp_quirk_compat_keeps_captured_rays_alive(box_room):
+    """With the quirk a capture does not end the ray: it goes on from the
+    receiver sphere in the same direction, so the recorded distance of a
+    captured ray is never shorter than without the quirk, some are longer
+    (a later capture overwrites the record), and the capture mask only grows.
+    Against rfx.tracer.trace_to_rx in the same mode, ray for ray."""
+    dirs = sample_sphere_directions(2000, seed=9)
+    scene = Scene.from_mesh(box_room, "cpu")
+    kw = dict(max_bounces=3, rx_mode="analytic")
+    quirk = trace_to_rx(scene, TX, torch.from_numpy(dirs), RX, 1.5, warp_quirk_compat=True, **kw)
+    plain = trace_to_rx(scene, TX, torch.from_numpy(dirs), RX, 1.5, **kw)
+    ref = jtrace_to_rx(JScene.from_mesh(box_room), jnp.asarray(TX), jnp.asarray(dirs),
+                       jnp.asarray(RX), 1.5, warp_quirk_compat=True, **kw)
+    _assert_match(ref, quirk)
+    both = plain.captured
+    assert bool((quirk.captured | ~both).all())
+    assert bool((quirk.distance[both] >= plain.distance[both] - 1e-4).all())
+    assert int((quirk.distance[both] > plain.distance[both] + 1.0).sum()) > 0
