@@ -11,9 +11,10 @@ Phases, each ending in torch.cuda.synchronize() so a fault shows where it
 happened, and none catching its own failure:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the five CUDA sources of rfx_torch/csrc/ (six kernels: the fused
-   trace and its counted instantiation share one) and the native C++ BVH
-   builder into build/rfx_torch/, one compiler each, all started together;
+2. build the five CUDA sources of rfx_torch/csrc/ (seven kernels: the fused
+   trace and its counted instantiation share one, the coverage histogram and
+   its slab reduction another) and the native C++ BVH builder into
+   build/rfx_torch/, one compiler each, all started together;
 3. the bench workload (bench.py): make_terrain(grid=128, extent=60, seed=0),
    32,258 triangles, 5,242,880 Morton-ordered rays, 4 bounces, a 20,000-bin
    IR, tx (10, 0, 25), rx (-10, 0, 8), rx radius 1.0;
@@ -65,7 +66,9 @@ happened, and none catching its own failure:
     bins at 100 GHz, on the room (tx (3, 2, 2), z 0..14) and the terrain
     (tx (10, 0, 25), z 10..24): the coverage kernel against its plain version
     on the card's segments (the same nonzero bins, rtol 1e-5 / atol 1e-12,
-    bit-identical across runs); the exact metric through
+    bit-identical across runs, receiver 777 alone the same bits as in the
+    group) and its slab reduction against its plain version on (12, 2048,
+    10,000) random planes (bit for bit); the exact metric through
     `rfx_torch.cli.main(["coverage", ...])` (room), whose saved dBm must equal
     the facade's and be finite exactly where an IR is nonzero, with
     rx_power_dbm bit-identical across two card runs and within 1e-3 dB of the
@@ -101,8 +104,8 @@ path: fused trace, counted fused trace, closest hit and histogram; the
 micro-kernel's timed launches: micro vote; the scan
 value+grad and the five full-width solver steps: closest hit and histogram;
 the fused value+grad: fused trace and histogram; the coverage CLI's exact
-sweep: the coverage kernel; each hybrid sweep: the coverage kernel, and on
-the terrain the closest hit; each fast sweep: on the terrain the closest hit,
+sweep: the coverage kernel and its slab reduction; each hybrid sweep: the
+same two, and on the terrain the closest hit; each fast sweep: on the terrain the closest hit,
 and never the coverage kernel). The comparisons with the plain versions, the
 checks of phase 10 and the facade are not counted.
 
@@ -145,6 +148,11 @@ COV_RAYS = 1_048_576
 COV_WINDOW = 100e-9
 COV_BINS = int(COV_WINDOW * RATE)
 COV_RADIUS = 0.5
+BENCH_TERRAIN = dict(grid=128, extent=60.0, seed=0)
+# The coverage sweeps: (scene, tx, the receiver grid's heights); the grid is
+# 16 x 16 in x and y, 2,048 receivers.
+COV_SCENES = (("room", (3.0, 2.0, 2.0), range(0, 16, 2)),
+              ("terrain", (10.0, 0.0, 25.0), range(10, 26, 2)))
 # Phase 13 holds rx_power_dbm against the CPU on all 2,048 IRs (about 20 s
 # of CPU time) and the fast metric on every CPU_FAST_STRIDE-th receiver: all
 # 2,048 would add about 60 s of CPU time per configuration.
@@ -156,6 +164,7 @@ K_COUNTED = "rfx_fused_trace_counted"
 K_HIT = "rfx_closest_hit"
 K_HIST = "rfx_ir_histogram"
 K_COV = "rfx_coverage_hist"
+K_REDUCE = "rfx_coverage_hist_reduce"
 K_VOTE = "rfx_micro_vote"
 # One H100 SXM's published peaks: HBM bytes/s, f32 FLOP/s outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
@@ -168,7 +177,7 @@ PEAK_F32_FLOPS = 67e12
 SLAB_FLOPS = 25
 MT_FLOPS = 51
 BOUNCE_FLOPS = 60
-NODE_BYTES = 48  # two float4 of box, one int4 of meta
+NODE_BYTES = 32  # two float4: the box, with skip and leaf in its w lanes
 TRI_BYTES = 48  # three float4
 
 
@@ -215,7 +224,7 @@ def _walk_bound(bvh, nodes: int, tris: int, io_bytes: int, extra_flops: int = 0)
     """Bound of a BVH-walking kernel from this run's walk counters: the
     tables count once, and no more of them than the visits can have touched;
     `io_bytes` are the per-ray inputs and outputs."""
-    tables = sum(int(t.numel() * t.element_size()) for t in (bvh.node_box, bvh.node_meta, bvh.tri))
+    tables = sum(int(t.numel() * t.element_size()) for t in (bvh.nodes, bvh.tri))
     touched = min(tables, nodes * NODE_BYTES + tris * TRI_BYTES)
     return _bound(io_bytes + touched, nodes * SLAB_FLOPS + tris * MT_FLOPS + extra_flops)
 
@@ -696,6 +705,24 @@ def _timed(fn):
     return out, time.perf_counter() - h0, start.elapsed_time(end)
 
 
+def coverage_workload(mesh, tx, zs, dirs, dev):
+    """(tracer, grid, segs, scaled) of one coverage sweep: the facade over
+    `mesh`, the receiver grid, the environment trace of `dirs` from tx and
+    the same segments with the amplitude scaled by tx_power / num_rays, as
+    the coverage kernel takes them."""
+    import torch
+
+    from rfx_torch.api import Tracer
+    from rfx_torch.coverage import make_grid
+    from rfx_torch.tracer import trace_env
+
+    tracer = Tracer(mesh, C, RATE, COV_WINDOW, max_bounces=2, tx_num_rays=COV_RAYS, device=dev)
+    grid = make_grid(range(-15, 16, 2), range(-15, 16, 2), zs)
+    segs = trace_env(tracer.scene, tx, dirs, max_bounces=2, env_hit=tracer.env_hit)
+    scaled = segs._replace(amplitude=segs.amplitude * (torch.tensor(1.0) / COV_RAYS).to(dev))
+    return tracer, grid, segs, scaled
+
+
 def _coverage_phase(terrain, dev, kernels):
     """Phase 13: exact, fast and hybrid coverage on the room and the terrain
     at full width; returns what it measured, with the launch counts of each
@@ -708,10 +735,16 @@ def _coverage_phase(terrain, dev, kernels):
     from rfx_torch.geometry import make_room
     from rfx_torch import cir, cli
     from rfx_torch.api import Tracer
-    from rfx_torch.coverage import _dbm_cancel_from_segments, make_grid
-    from rfx_torch.ops.coverage_hist import coverage_hist, coverage_hist_plain
+    from rfx_torch.coverage import _dbm_cancel_from_segments
+    from rfx_torch.ops.coverage_hist import (
+        coverage_hist,
+        coverage_hist_plain,
+        coverage_slabs,
+        reduce_planes,
+        reduce_planes_plain,
+    )
     from rfx_torch.sampler import morton_sphere_directions
-    from rfx_torch.tracer import EnvSegments, trace_env
+    from rfx_torch.tracer import EnvSegments
 
     dirs = morton_sphere_directions(COV_RAYS, generator=torch.Generator(dev).manual_seed(0),
                                     device=dev)
@@ -719,16 +752,33 @@ def _coverage_phase(terrain, dev, kernels):
     fkw = dict(num_rays=COV_RAYS, sample_window_s=COV_WINDOW, sample_rate_hz=RATE,
                carrier_hz=2.4e9, light_speed_mps=C, tx_power=1.0, rx_batch=64)
     out = {"launches": {}}
-    for name, mesh, tx, zs in (("room", make_room(), (3.0, 2.0, 2.0), range(0, 16, 2)),
-                               ("terrain", terrain, (10.0, 0.0, 25.0), range(10, 26, 2))):
-        res = out[name] = {}
-        tracer = Tracer(mesh, C, RATE, COV_WINDOW, max_bounces=2, tx_num_rays=COV_RAYS,
+
+    # 0. The slab reduction against its plain version at the sweeps' shape;
+    #    the library's call for the same sum is `sum(dim=0)`.
+    n_slabs = coverage_slabs(COV_RAYS)
+    planes = torch.rand((n_slabs, 2048, COV_BINS), generator=torch.Generator(dev).manual_seed(5),
                         device=dev)
-        grid = make_grid(range(-15, 16, 2), range(-15, 16, 2), zs)
+    got, want = reduce_planes(planes), reduce_planes_plain(planes)
+    _require(torch.equal(got, want), "slab reduction: kernel != plain")
+    red = out["reduce"] = {
+        "planes": n_slabs, "max_abs_err": float((got - want).abs().max()),
+        "ms": _cuda_ms(lambda: reduce_planes(planes), 5),
+        "plain_ms": _cuda_ms(lambda: reduce_planes_plain(planes), 2),
+        "library_ms": _cuda_ms(lambda: planes.sum(dim=0), 5),
+        "bound": _bound(4 * planes.numel() + 4 * 2048 * COV_BINS, (n_slabs - 1) * 2048 * COV_BINS)}
+    print(f"# slab reduction, {n_slabs} planes of 2048 x {COV_BINS}: kernel == plain bit for bit; "
+          f"kernel {red['ms']:.4f} ms, plain {red['plain_ms']:.4f} ms, sum(dim=0) "
+          f"{red['library_ms']:.4f} ms, bound {red['bound']['bound_ms']:.4f} ms by "
+          f"{red['bound']['bound_by']}", flush=True)
+    del planes, got, want
+    torch.cuda.empty_cache()
+    meshes = {"room": make_room(), "terrain": terrain}
+    for name, tx, zs in COV_SCENES:
+        res = out[name] = {}
+        mesh = meshes[name]
+        tracer, grid, segs, scaled = coverage_workload(mesh, tx, zs, dirs, dev)
         m = grid.shape[0]
         centers = torch.as_tensor(grid, device=dev)
-        segs = trace_env(tracer.scene, tx, dirs, max_bounces=2, env_hit=tracer.env_hit)
-        scaled = segs._replace(amplitude=segs.amplitude * (torch.tensor(1.0) / COV_RAYS).to(dev))
         _sync()
         _require(m == 2048 and tracer.backend == ("brute" if name == "room" else "fused"),
                  f"coverage {name}: {m} receivers, backend {tracer.backend}")
@@ -742,6 +792,9 @@ def _coverage_phase(terrain, dev, kernels):
         _require(torch.equal(k1 != 0, p != 0), f"coverage kernel, {name}: nonzero bins differ")
         _require(torch.allclose(k1, p, rtol=1e-5, atol=1e-12),
                  f"coverage kernel, {name}: kernel != plain")
+        alone = coverage_hist(scaled, centers[777:778], COV_RADIUS, **hkw)
+        _require(torch.equal(alone[0], k1[777]) and bool((alone != 0).any()),
+                 f"coverage kernel, {name}: receiver 777 alone differs from it in the group")
         res["max_abs_err"] = float((k1 - p).abs().max())
         res["k3_ms"] = _cuda_ms(lambda: coverage_hist(scaled, centers, COV_RADIUS, **hkw), 5)
         res["plain_ms"] = _cuda_ms(lambda: coverage_hist_plain(scaled, centers, COV_RADIUS, **hkw), 1)
@@ -754,7 +807,7 @@ def _coverage_phase(terrain, dev, kernels):
         n_lit = int((k1 != 0).any(dim=1).sum())
         print(f"# coverage kernel, {name}, {m} receivers x 2 x {COV_RAYS} segments, {COV_BINS} "
               f"bins: kernel == plain ({int((k1 != 0).sum())} nonzero bins, {n_lit} receivers "
-              f"lit, max |d| {res['max_abs_err']:.3e}), bit-identical across runs; kernel "
+              f"lit, max |d| {res['max_abs_err']:.3e}), bit-identical across runs and alone; kernel "
               f"{res['k3_ms']:.3f} ms, plain {res['plain_ms']:.1f} ms, bound "
               f"{res['bound']['bound_ms']:.3f} ms by {res['bound']['bound_by']}", flush=True)
         del k2, p
@@ -768,7 +821,7 @@ def _coverage_phase(terrain, dev, kernels):
                         "2", "--rx-radius", str(COV_RADIUS), "--metric", "exact", "--no-viz",
                         "--save-dbm", save, "--device", "cuda"]
                 (rc, launches), host_s, ev_ms = _timed(lambda: _counted(
-                    kernels, "coverage_exact", (K_COV,), lambda: cli.main(argv)))
+                    kernels, "coverage_exact", (K_COV, K_REDUCE), lambda: cli.main(argv)))
                 rows = np.load(save)
             out["launches"]["coverage_exact"] = launches
             _require(rc == 0 and rows.shape == (2048, 4), f"coverage CLI: rc {rc}, {rows.shape}")
@@ -815,7 +868,7 @@ def _coverage_phase(terrain, dev, kernels):
         _require(launches[K_COV] == 0, f"fast metric, {name}: the coverage kernel ran")
         out["launches"][f"coverage_fast_{name}"] = launches
         (hybrid, n_flagged), launches = _counted(
-            kernels, f"coverage_hybrid_{name}", (K_COV,) + env_needs,
+            kernels, f"coverage_hybrid_{name}", (K_COV, K_REDUCE) + env_needs,
             lambda: tracer.compute_coverage_dbm_hybrid(*req, directions=dirs))
         out["launches"][f"coverage_hybrid_{name}"] = launches
         dbm_k, ratio_k, spread_k = (x.cpu().numpy() for x in _dbm_cancel_from_segments(
@@ -934,6 +987,7 @@ def _counters_vs_plain(bvh, sub, args, what: str, brute=None):
     _require(int(k_stats[0, 0]) >= sub.shape[0], f"{what}: {int(k_stats[0, 0])} root visits")
     ms = _cuda_ms(lambda: fused_trace(bvh, sub, *args, count_stats=True, **kw), 10)
     out = dict(rays=int(sub.shape[0]), counters=k_stats.tolist(), max_abs_err=max(amp_err, dist_err),
+               counters_max_abs_err=float((k_stats - p_stats).abs().max()),
                captured=int(brute.captured.sum()), bounces=int(brute.num_bounces.sum()),
                counted_ms=ms, walk_plain_ms=start.elapsed_time(mid),
                brute_plain_ms=mid.elapsed_time(end))
@@ -1059,7 +1113,7 @@ def main() -> int:
     from rfx_torch.geometry import make_terrain
     from rfx_torch.ops import native_lib
     from rfx_torch.ops.bvh_trace import CLOSEST_HIT_KERNEL
-    from rfx_torch.ops.coverage_hist import COVERAGE_HIST_KERNEL
+    from rfx_torch.ops.coverage_hist import COVERAGE_HIST_KERNEL, COVERAGE_REDUCE_KERNEL
     from rfx_torch.ops.fused import (
         FUSED_TRACE_COUNTED_KERNEL,
         FUSED_TRACE_KERNEL,
@@ -1075,6 +1129,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    cards_used = {dev.index}  # every phase runs on this one card
 
     # 1. The card.
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1085,16 +1140,18 @@ def main() -> int:
 
     # 2. Build the five CUDA sources and the native BVH builder from the
     #    sources in this checkout, one compiler each, all started together;
-    #    the counted fused trace binds its entry in the fused trace's library.
+    #    the counted fused trace and the slab reduction bind their entries in
+    #    the libraries of the fused trace and the coverage histogram.
     t0 = time.perf_counter()
     per_source = (FUSED_TRACE_KERNEL, CLOSEST_HIT_KERNEL, cir.HISTOGRAM_KERNEL,
                   COVERAGE_HIST_KERNEL, MICRO_VOTE_KERNEL)
-    kernels_built = per_source + (FUSED_TRACE_COUNTED_KERNEL,)
+    kernels_built = per_source + (FUSED_TRACE_COUNTED_KERNEL, COVERAGE_REDUCE_KERNEL)
     with ThreadPoolExecutor(len(per_source) + 1) as pool:
         native = pool.submit(native_lib.load)
         list(pool.map(lambda k: k.load(), per_source))
         native.result()
     FUSED_TRACE_COUNTED_KERNEL.load()
+    COVERAGE_REDUCE_KERNEL.load()
     for k in per_source:
         print(f"# built {k.source}: {k.build_log.strip()}")
     print("# built native/bvh_builder.cpp with g++")
@@ -1102,7 +1159,7 @@ def main() -> int:
 
     # 3. The bench workload.
     t0 = time.perf_counter()
-    mesh = make_terrain(grid=128, extent=60.0, seed=0)
+    mesh = make_terrain(**BENCH_TERRAIN)
     flat = build_bvh(mesh, leaf_size=8)
     fused = FusedTracer(flat, max_bounces=BOUNCES, device=dev)
     bvh = fused.bvh
@@ -1284,7 +1341,8 @@ def main() -> int:
                   f"terrain, {N_RAYS} rays (plain: {LARGE_SUBSET} rays)"},
         {"name": "fused_trace_counted", "route": "cuda",
          "source": "rfx_torch/csrc/fused_trace.cu", "replaces": "rfx/ops/pallas_fused.py:62",
-         **counts(K_COUNTED), "max_abs_err": 0.0,
+         **counts(K_COUNTED),
+         "max_abs_err": max(bench_sub["counters_max_abs_err"], sub14["counters_max_abs_err"]),
          "ms": bench_wc["fused_trace_counted_ms"], "plain_ms": bench_sub["walk_plain_ms"],
          "ms_at_plain_shape": bench_sub["counted_ms"],
          **_counted_bound(large["bench_fused_bound"]), "library_ms": None,
@@ -1315,7 +1373,17 @@ def main() -> int:
          "ms_terrain": cov["terrain"]["k3_ms"], "plain_ms_terrain": cov["terrain"]["plain_ms"],
          **_suffixed(cov["terrain"].pop("bound"), "_terrain"),
          "shape": f"2048 receivers x 2 bounces x {COV_RAYS} rays, {COV_BINS} bins, radius "
-                  f"{COV_RADIUS}; ms, plain_ms, bound_ms: the room; *_terrain: the terrain"},
+                  f"{COV_RADIUS}; ms, plain_ms, bound_ms: the room; *_terrain: the terrain; ms "
+                  f"is the wrapper's call: zeroing the slabs' planes, the kernel and the slab "
+                  f"reduction"},
+        {"name": "coverage_hist_reduce", "route": "cuda",
+         "source": "rfx_torch/csrc/coverage_hist.cu", "replaces": "rfx/ops/pallas_coverage.py:64",
+         **counts(K_REDUCE), "max_abs_err": cov["reduce"]["max_abs_err"],
+         "ms": cov["reduce"]["ms"], "plain_ms": cov["reduce"]["plain_ms"],
+         **cov["reduce"].pop("bound"), "library_ms": cov["reduce"]["library_ms"],
+         "shape": f"{cov['reduce']['planes']} slab planes of 2048 x {COV_BINS} f32 added per bin "
+                  f"in slab order (the second launch of a coverage_hist call); library_ms: "
+                  f"sum(dim=0)"},
         {"name": "micro_vote", "route": "cuda", "source": "rfx_torch/csrc/micro_vote.cu",
          "replaces": "scripts/micro_reduce.py:64", **counts(K_VOTE),
          "max_abs_err": max(abs(v["carry"] - v["plain_carry"])
@@ -1341,7 +1409,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
-                                              "count": torch.cuda.device_count()}}))
+                                              "count": len(cards_used)}}))
     return 0
 
 

@@ -12,15 +12,33 @@
 // index as in the Pallas select-min fold (:209-220).
 //
 // Table layouts (rfx_torch/ops/bvh_pack.py):
-//   node_box:  2 float4 per node, (lo.x, lo.y, lo.z, 0), (hi.x, hi.y, hi.z, 0);
-//   node_meta: int4 per node, (tri_start, tri_count, skip, 0); tri_count == 0
-//              marks an internal node;
-//   tris:      3 float4 per padded triangle, the 12 floats v0, e1, e2, unit
-//              normal; padding rows are degenerate and never hit.
+//   nodes: 2 float4 per node, one aligned 32-byte sector:
+//          (lo.x, lo.y, lo.z, skip), (hi.x, hi.y, hi.z, leaf); `skip` and
+//          `leaf` are int32 bit patterns in the float lanes, leaf =
+//          tri_start << 6 | tri_count, and tri_count == 0 (leaf == 0) marks an
+//          internal node;
+//   tris:  3 float4 per padded triangle, the 12 floats v0, e1, e2, unit
+//          normal; padding rows are degenerate and never hit.
+//
+// What bounds the walk on an H100 is the chain of dependent loads, each an
+// L2 round trip, and the lanes of a warp that wait for each other; the
+// arithmetic per visit is small. What the walk does about it:
+//   - a node visit is two 16-byte loads of one sector (it was three loads
+//     from two arrays);
+//   - the walk has the while-while form: every lane steps through nodes until
+//     it holds a leaf or has left the tree, and then the lanes that hold a
+//     leaf test their triangles together, so a lane inside a leaf no longer
+//     holds up the lanes that are still stepping through boxes. Nothing is
+//     speculated: each lane visits the nodes it visited before, in the same
+//     order.
+// Measured on the card and not kept (PERF.md has the times): loading a leaf's
+// triangles 2, 4 or 8 at a time before the first test. It made the fused
+// trace slower: the registers that hold the batch cost more warps than the
+// round trips saved.
 //
 // The walk is a template on a counting policy: NoCount's calls are empty, so
 // that instantiation compiles to the walk without counters; WalkCount tallies
-// per ray the loop's iterations (`nodes`), the leaves whose box was hit
+// per ray the nodes visited (`nodes`), the leaves whose box was hit
 // (`leaves`) and the triangles tested (`tris`), what the counted fused trace
 // sums per bounce (fused_trace.cu) and what the plain stackless walk counts
 // (rfx_torch/ops/bvh_traverse.py).
@@ -39,6 +57,8 @@ constexpr float kMiss = 1e30f;            // rfx.ops.intersect.MISS
 constexpr float kMissThreshold = 1e29f;   // rfx.ops.intersect.MISS_THRESHOLD
 constexpr float kDetEps = 1e-12f;
 constexpr float kInvEps = 1e-30f;
+constexpr int kCountBits = 6;             // rfx_torch.ops.bvh_pack.COUNT_BITS
+constexpr int kCountMask = (1 << kCountBits) - 1;
 
 __device__ __forceinline__ float inv_dir(float v) {
   return fabsf(v) > kInvEps ? 1.0f / v : kMiss;
@@ -58,6 +78,50 @@ struct WalkCount {
   }
 };
 
+struct Hit {
+  float t = kMiss;
+  int tri = -1;
+};
+
+// Moller-Trumbore of the ray against padded triangle j, given its lanes 0-8
+// (a: v0.xyz, e1.x; c: e1.yz, e2.xy; e2z); a closer hit replaces `hit`.
+__device__ __forceinline__ void test_triangle(
+    float ox, float oy, float oz, float dx, float dy, float dz,
+    const float4 a, const float4 c, const float e2z, int j, Hit& hit) {
+  const float v0x = a.x, v0y = a.y, v0z = a.z;
+  const float e1x = a.w, e1y = c.x, e1z = c.y;
+  const float e2x = c.z, e2y = c.w;
+  const float px = e2z * dy - e2y * dz;
+  const float py = e2x * dz - e2z * dx;
+  const float pz = e2y * dx - e2x * dy;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const bool valid = fabsf(det) > kDetEps;
+  const float inv_det = valid ? 1.0f / det : 0.0f;
+  const float tvx = ox - v0x, tvy = oy - v0y, tvz = oz - v0z;
+  const float u = (tvx * px + tvy * py + tvz * pz) * inv_det;
+  const float qx = tvy * e1z - tvz * e1y;
+  const float qy = tvz * e1x - tvx * e1z;
+  const float qz = tvx * e1y - tvy * e1x;
+  const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
+  const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  const bool ok = valid && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > kTMin);
+  if (ok && t < hit.t) {
+    hit.t = t;
+    hit.tri = j;
+  }
+}
+
+// The `count` triangles from padded index `start`, in increasing index.
+__device__ __forceinline__ void test_leaf(
+    float ox, float oy, float oz, float dx, float dy, float dz,
+    const float4* __restrict__ tris, int start, int count, Hit& hit) {
+  for (int j = start; j < start + count; ++j) {
+    const float4* row = tris + 3 * static_cast<size_t>(j);
+    test_triangle(ox, oy, oz, dx, dy, dz, row[0], row[1],
+                  reinterpret_cast<const float*>(row + 2)[0], j, hit);
+  }
+}
+
 // Walks the BVH from the root for the ray (o, d); returns the closest t
 // (kMiss on a miss) and writes the padded index of its triangle to *best
 // (-1 on a miss). A ray parked far outside the scene (|o| ~ 1e9) misses the
@@ -65,72 +129,51 @@ struct WalkCount {
 template <class Counter>
 __device__ __forceinline__ float bvh_closest_hit(
     float ox, float oy, float oz, float dx, float dy, float dz,
-    const float4* __restrict__ node_box, const int4* __restrict__ node_meta,
-    int n_nodes, const float4* __restrict__ tris, int* best_out, Counter& counter) {
+    const float4* __restrict__ nodes, int n_nodes, const float4* __restrict__ tris,
+    int* best_out, Counter& counter) {
   const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
-  float t_best = kMiss;
-  int best = -1;
+  Hit hit;
   int node = 0;
   while (node < n_nodes) {
-    counter.node();
-    const float4 lo = node_box[2 * node];
-    const float4 hi = node_box[2 * node + 1];
-    const int4 meta = node_meta[node];
-    const float lox = (lo.x - ox) * ix, hix = (hi.x - ox) * ix;
-    const float loy = (lo.y - oy) * iy, hiy = (hi.y - oy) * iy;
-    const float loz = (lo.z - oz) * iz, hiz = (hi.z - oz) * iz;
-    const float t_near = fmaxf(fmaxf(fminf(lox, hix), fminf(loy, hiy)), fminf(loz, hiz));
-    const float t_far = fminf(fminf(fmaxf(lox, hix), fmaxf(loy, hiy)), fmaxf(loz, hiz));
-    const bool box_hit = (t_near <= fminf(t_far, t_best)) && (t_far >= kTMin);
-    if (!box_hit) {
-      node = meta.z;
-      continue;
-    }
-    if (meta.y == 0) {
-      node = node + 1;
-      continue;
-    }
-    counter.leaf(meta.y);
-    for (int k = 0; k < meta.y; ++k) {
-      const int j = meta.x + k;
-      const float4 a = tris[3 * j];      // v0.xyz, e1.x
-      const float4 c = tris[3 * j + 1];  // e1.yz, e2.xy
-      const float4 e = tris[3 * j + 2];  // e2.z, normal
-      const float v0x = a.x, v0y = a.y, v0z = a.z;
-      const float e1x = a.w, e1y = c.x, e1z = c.y;
-      const float e2x = c.z, e2y = c.w, e2z = e.x;
-      const float px = e2z * dy - e2y * dz;
-      const float py = e2x * dz - e2z * dx;
-      const float pz = e2y * dx - e2x * dy;
-      const float det = e1x * px + e1y * py + e1z * pz;
-      const bool valid = fabsf(det) > kDetEps;
-      const float inv_det = valid ? 1.0f / det : 0.0f;
-      const float tvx = ox - v0x, tvy = oy - v0y, tvz = oz - v0z;
-      const float u = (tvx * px + tvy * py + tvz * pz) * inv_det;
-      const float qx = tvy * e1z - tvz * e1y;
-      const float qy = tvz * e1x - tvx * e1z;
-      const float qz = tvx * e1y - tvy * e1x;
-      const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
-      const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-      const bool ok = valid && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > kTMin);
-      if (ok && t < t_best) {
-        t_best = t;
-        best = j;
+    // Step through nodes until this lane holds a leaf (`leaf` != 0) or has
+    // left the tree.
+    int leaf = 0;
+    do {
+      counter.node();
+      const float4 lo = nodes[2 * node];
+      const float4 hi = nodes[2 * node + 1];
+      const float lox = (lo.x - ox) * ix, hix = (hi.x - ox) * ix;
+      const float loy = (lo.y - oy) * iy, hiy = (hi.y - oy) * iy;
+      const float loz = (lo.z - oz) * iz, hiz = (hi.z - oz) * iz;
+      const float t_near = fmaxf(fmaxf(fminf(lox, hix), fminf(loy, hiy)), fminf(loz, hiz));
+      const float t_far = fminf(fminf(fmaxf(lox, hix), fmaxf(loy, hiy)), fmaxf(loz, hiz));
+      const bool box_hit = (t_near <= fminf(t_far, hit.t)) && (t_far >= kTMin);
+      const int packed = __float_as_int(hi.w);
+      if (!box_hit) {
+        node = __float_as_int(lo.w);
+      } else if (packed == 0) {
+        node = node + 1;
+      } else {
+        leaf = packed;
+        node = __float_as_int(lo.w);
       }
+    } while (leaf == 0 && node < n_nodes);
+    if (leaf != 0) {
+      const int count = leaf & kCountMask;
+      counter.leaf(count);
+      test_leaf(ox, oy, oz, dx, dy, dz, tris, leaf >> kCountBits, count, hit);
     }
-    node = meta.z;
   }
-  *best_out = best;
-  return t_best;
+  *best_out = hit.tri;
+  return hit.t;
 }
 
 __device__ __forceinline__ float bvh_closest_hit(
     float ox, float oy, float oz, float dx, float dy, float dz,
-    const float4* __restrict__ node_box, const int4* __restrict__ node_meta,
-    int n_nodes, const float4* __restrict__ tris, int* best_out) {
+    const float4* __restrict__ nodes, int n_nodes, const float4* __restrict__ tris,
+    int* best_out) {
   NoCount counter;
-  return bvh_closest_hit(ox, oy, oz, dx, dy, dz, node_box, node_meta, n_nodes, tris, best_out,
-                         counter);
+  return bvh_closest_hit(ox, oy, oz, dx, dy, dz, nodes, n_nodes, tris, best_out, counter);
 }
 
 }  // namespace rfx

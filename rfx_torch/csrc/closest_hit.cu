@@ -22,13 +22,16 @@
 // tile-uniform walk, the k_spec node windows and HBM streaming, which exist
 // because a TPU core has no per-lane control flow or lane-dynamic loads.
 //
-// What bounds it on an H100: dependent node and triangle loads along each
-// walk, with the scene far inside the 50 MB L2 (the 32,258-triangle bench
-// terrain is about 0.3 MB of nodes and 2.6 MB of triangles); a query does
-// little arithmetic per visit. The rays' own traffic is 24 bytes in and 24
-// out. What the design does about it: callers pass Morton-ordered rays, so a
-// warp's walks stay coherent; node and triangle loads are aligned float4 /
-// int4 through `const __restrict__` pointers.
+// What bounds it on an H100: the latency of one walk. The dependent node and
+// triangle loads along a walk are L2 round trips (the 32,258-triangle bench
+// terrain is about 0.2 MB of nodes and 2.6 MB of triangles, far inside the
+// 50 MB L2), a query does little arithmetic per visit, and at 65,536 rays
+// there are too few warps to hide any of it. The rays' own traffic is 24
+// bytes in and 24 out. What the design does about it: the walk of
+// bvh_walk.cuh (a node visit is two 16-byte loads of one 32-byte sector;
+// lanes step through boxes together and test leaves together); callers pass
+// Morton-ordered rays, so a warp's walks stay coherent; the tables are read
+// through `const __restrict__` pointers.
 
 #include <cuda_runtime.h>
 
@@ -40,8 +43,8 @@ constexpr int kThreads = 128;
 
 __global__ void __launch_bounds__(kThreads) closest_hit_kernel(
     const float* __restrict__ orig, const float* __restrict__ dirs, int n,
-    const float4* __restrict__ node_box, const int4* __restrict__ node_meta, int n_nodes,
-    const float4* __restrict__ tris, const int* __restrict__ tri_face,
+    const float4* __restrict__ nodes, int n_nodes, const float4* __restrict__ tris,
+    const int* __restrict__ tri_face,
     float* __restrict__ t_out, int* __restrict__ idx_out, int* __restrict__ face_out,
     float* __restrict__ nrm_out) {
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
@@ -49,8 +52,7 @@ __global__ void __launch_bounds__(kThreads) closest_hit_kernel(
   const float ox = orig[3 * ray], oy = orig[3 * ray + 1], oz = orig[3 * ray + 2];
   const float dx = dirs[3 * ray], dy = dirs[3 * ray + 1], dz = dirs[3 * ray + 2];
   int best;
-  const float t = rfx::bvh_closest_hit(ox, oy, oz, dx, dy, dz, node_box, node_meta, n_nodes,
-                                       tris, &best);
+  const float t = rfx::bvh_closest_hit(ox, oy, oz, dx, dy, dz, nodes, n_nodes, tris, &best);
   float nx = 0.0f, ny = 0.0f, nz = 0.0f;
   int face = -1;
   if (best >= 0) {
@@ -72,16 +74,15 @@ __global__ void __launch_bounds__(kThreads) closest_hit_kernel(
 
 // orig, dirs: (n, 3) f32; tris: (P, 12) f32; tri_face: (P,) i32.
 // Outputs: t (n,) f32, idx (n,) i32, face (n,) i32, nrm (n, 3) f32.
-extern "C" int rfx_closest_hit(const void* orig, const void* dirs, int n, const void* node_box,
-                               const void* node_meta, int n_nodes, const void* tris,
-                               const void* tri_face, void* t, void* idx, void* face, void* nrm,
+extern "C" int rfx_closest_hit(const void* orig, const void* dirs, int n, const void* nodes,
+                               int n_nodes, const void* tris, const void* tri_face, void* t, void* idx, void* face, void* nrm,
                                void* stream) {
   if (n > 0) {
     const int blocks = (n + kThreads - 1) / kThreads;
     closest_hit_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(orig), static_cast<const float*>(dirs), n,
-        static_cast<const float4*>(node_box), static_cast<const int4*>(node_meta), n_nodes,
-        static_cast<const float4*>(tris), static_cast<const int*>(tri_face),
+        static_cast<const float4*>(nodes), n_nodes, static_cast<const float4*>(tris),
+        static_cast<const int*>(tri_face),
         static_cast<float*>(t), static_cast<int*>(idx), static_cast<int*>(face),
         static_cast<float*>(nrm));
   }

@@ -20,16 +20,25 @@
 // control flow, no lane-dynamic loads) and are not carried over.
 //
 // What bounds it on an H100: dependent, divergent loads of BVH nodes and
-// triangles; the arithmetic per visit is small. The bench scene (32,258
-// triangles at leaf 8) is about 0.3 MB of nodes and 2.6 MB of triangles, far
-// inside the 50 MB L2, so the walk is bound by load latency and warp
-// divergence, not by DRAM bandwidth. What the design does about it:
+// triangles, each an L2 round trip; the arithmetic per visit is small. The
+// bench scene (32,258 triangles at leaf 8) is about 0.2 MB of nodes and 2.6 MB
+// of triangles, far inside the 50 MB L2, and even the 1,045,458-triangle
+// terrain's 10.9 MB of nodes are, so the walk is bound by load latency and by
+// the lanes of a warp that wait for each other, not by DRAM bandwidth. What
+// the design does about it: the walk of bvh_walk.cuh (a node is one 32-byte
+// sector, lanes step through boxes together and test leaves together);
 // Morton-ordered rays (rfx_torch.sampler.morton_sphere_directions) keep the
-// 32 walks of a warp coherent, nodes are two aligned float4 loads plus one
-// int4, triangles three float4 loads, and every table is read through
-// `const __restrict__` pointers so the loads can use the read-only path.
-// The face record is (B, N) int32, so a warp's writes for one bounce are
+// 32 walks of a warp coherent; every table is read through
+// `const __restrict__` pointers so the loads can use the read-only path; the
+// face record is (B, N) int32, so a warp's writes for one bounce are
 // contiguous.
+//
+// Measured on the card and not kept (PERF.md has the times): a persistent
+// grid whose warps take new rays from a global counter once half their lanes
+// idle (the refilled lanes walk from the root while their neighbours are deep
+// in the tree, and the coherence lost costs what the full warps gain), an
+// access-policy window that keeps the node table resident in the L2, and
+// blocks of 64 or 256 threads.
 //
 // Walk counters (the TPU kernel's count_stats, :484-492: windows and leaf
 // visits per tile and bounce). fused_trace_counted_kernel is the same bounce
@@ -71,8 +80,7 @@ constexpr int kStatsPerBounce = 4;  // nodes, leaves, tris, warp_steps
 // (which stay `const __restrict__` pointers, so the tables' loads can take the
 // read-only path). tri_face is null unless the face record is asked for.
 struct Scene {
-  const float4* node_box;
-  const int4* node_meta;
+  const float4* nodes;
   int n_nodes;
   const float4* tris;
   const int* tri_face;
@@ -93,8 +101,8 @@ template <class Counter>
 __device__ __forceinline__ bool bounce(Ray& r, const Scene& s, int b, int ray, int n,
                                        int* __restrict__ faces, Counter& counter) {
   int best;
-  const float t_best = rfx::bvh_closest_hit(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, s.node_box,
-                                            s.node_meta, s.n_nodes, s.tris, &best, counter);
+  const float t_best = rfx::bvh_closest_hit(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, s.nodes,
+                                            s.n_nodes, s.tris, &best, counter);
 
   // Analytic receiver sphere (rfx.ops.intersect.ray_sphere_hit).
   const float ocx = r.ox - s.rx0, ocy = r.oy - s.rx1, ocz = r.oz - s.rx2;
@@ -175,15 +183,15 @@ __device__ __forceinline__ void store(const Ray& r, int ray, int n, int max_boun
 
 __global__ void __launch_bounds__(kThreads) fused_trace_kernel(
     const float* __restrict__ dirs, int n,
-    const float4* __restrict__ node_box, const int4* __restrict__ node_meta,
-    int n_nodes, const float4* __restrict__ tris, const int* __restrict__ tri_face,
+    const float4* __restrict__ nodes, int n_nodes, const float4* __restrict__ tris,
+    const int* __restrict__ tri_face,
     float tx0, float tx1, float tx2, float rx0, float rx1, float rx2,
     float r2, float n1, float n2, int max_bounces,
     bool* __restrict__ captured, float* __restrict__ cap_amp,
     float* __restrict__ cap_dist, int* __restrict__ num_bounces, int* __restrict__ faces) {
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
   if (ray >= n) return;
-  const Scene scene{node_box, node_meta, n_nodes, tris, tri_face, rx0, rx1, rx2, r2, n1, n2};
+  const Scene scene{nodes, n_nodes, tris, tri_face, rx0, rx1, rx2, r2, n1, n2};
   Ray r = ray_from(dirs, ray, tx0, tx1, tx2);
   rfx::NoCount counter;
   for (int b = 0; b < max_bounces; ++b) {
@@ -196,8 +204,8 @@ __global__ void __launch_bounds__(kThreads) fused_trace_kernel(
 // caller; dynamic shared memory holds the block's copy of it.
 __global__ void __launch_bounds__(kThreads) fused_trace_counted_kernel(
     const float* __restrict__ dirs, int n,
-    const float4* __restrict__ node_box, const int4* __restrict__ node_meta,
-    int n_nodes, const float4* __restrict__ tris, const int* __restrict__ tri_face,
+    const float4* __restrict__ nodes, int n_nodes, const float4* __restrict__ tris,
+    const int* __restrict__ tri_face,
     float tx0, float tx1, float tx2, float rx0, float rx1, float rx2,
     float r2, float n1, float n2, int max_bounces,
     bool* __restrict__ captured, float* __restrict__ cap_amp,
@@ -211,7 +219,7 @@ __global__ void __launch_bounds__(kThreads) fused_trace_counted_kernel(
   // No lane returns early: every vote below names all 32 lanes of the warp.
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
   bool live = ray < n;
-  const Scene scene{node_box, node_meta, n_nodes, tris, tri_face, rx0, rx1, rx2, r2, n1, n2};
+  const Scene scene{nodes, n_nodes, tris, tri_face, rx0, rx1, rx2, r2, n1, n2};
   Ray r;
   if (live) r = ray_from(dirs, ray, tx0, tx1, tx2);
   for (int b = 0; b < max_bounces; ++b) {
@@ -241,19 +249,19 @@ __global__ void __launch_bounds__(kThreads) fused_trace_counted_kernel(
 
 // tri_face and faces may be null (no face record); faces is (max_bounces, n).
 extern "C" int rfx_fused_trace(
-    const void* dirs, int n, const void* node_box, const void* node_meta,
-    int n_nodes, const void* tris, const void* tri_face, float tx0, float tx1, float tx2,
+    const void* dirs, int n, const void* nodes, int n_nodes, const void* tris,
+    const void* tri_face, float tx0, float tx1, float tx2,
     float rx0, float rx1, float rx2, float r2, float n1, float n2,
     int max_bounces, void* captured, void* cap_amp, void* cap_dist,
     void* num_bounces, void* faces, void* stream) {
   if (n > 0) {
     const int blocks = (n + kThreads - 1) / kThreads;
     fused_trace_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(dirs), n, static_cast<const float4*>(node_box),
-        static_cast<const int4*>(node_meta), n_nodes, static_cast<const float4*>(tris),
-        static_cast<const int*>(tri_face), tx0, tx1, tx2, rx0, rx1, rx2, r2, n1, n2, max_bounces, static_cast<bool*>(captured), static_cast<float*>(cap_amp),
-        static_cast<float*>(cap_dist), static_cast<int*>(num_bounces),
-        static_cast<int*>(faces));
+        static_cast<const float*>(dirs), n, static_cast<const float4*>(nodes), n_nodes,
+        static_cast<const float4*>(tris), static_cast<const int*>(tri_face), tx0, tx1, tx2, rx0,
+        rx1, rx2, r2, n1, n2, max_bounces, static_cast<bool*>(captured),
+        static_cast<float*>(cap_amp), static_cast<float*>(cap_dist),
+        static_cast<int*>(num_bounces), static_cast<int*>(faces));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -262,8 +270,8 @@ extern "C" int rfx_fused_trace(
 // (nodes, leaves, tris, warp_steps) to stats, (max_bounces, 4) unsigned
 // 64-bit that the caller has zeroed.
 extern "C" int rfx_fused_trace_counted(
-    const void* dirs, int n, const void* node_box, const void* node_meta,
-    int n_nodes, const void* tris, const void* tri_face, float tx0, float tx1, float tx2,
+    const void* dirs, int n, const void* nodes, int n_nodes, const void* tris,
+    const void* tri_face, float tx0, float tx1, float tx2,
     float rx0, float rx1, float rx2, float r2, float n1, float n2,
     int max_bounces, void* captured, void* cap_amp, void* cap_dist,
     void* num_bounces, void* faces, void* stats, void* stream) {
@@ -271,11 +279,12 @@ extern "C" int rfx_fused_trace_counted(
     const int blocks = (n + kThreads - 1) / kThreads;
     const size_t shared = sizeof(unsigned long long) * kStatsPerBounce * max_bounces;
     fused_trace_counted_kernel<<<blocks, kThreads, shared, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(dirs), n, static_cast<const float4*>(node_box),
-        static_cast<const int4*>(node_meta), n_nodes, static_cast<const float4*>(tris),
-        static_cast<const int*>(tri_face), tx0, tx1, tx2, rx0, rx1, rx2, r2, n1, n2, max_bounces, static_cast<bool*>(captured), static_cast<float*>(cap_amp),
-        static_cast<float*>(cap_dist), static_cast<int*>(num_bounces),
-        static_cast<int*>(faces), static_cast<unsigned long long*>(stats));
+        static_cast<const float*>(dirs), n, static_cast<const float4*>(nodes), n_nodes,
+        static_cast<const float4*>(tris), static_cast<const int*>(tri_face), tx0, tx1, tx2, rx0,
+        rx1, rx2, r2, n1, n2, max_bounces, static_cast<bool*>(captured),
+        static_cast<float*>(cap_amp), static_cast<float*>(cap_dist),
+        static_cast<int*>(num_bounces), static_cast<int*>(faces),
+        static_cast<unsigned long long*>(stats));
   }
   return static_cast<int>(cudaGetLastError());
 }

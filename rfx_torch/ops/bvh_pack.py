@@ -17,24 +17,49 @@ import torch
 from rfx_torch.bvh import FlatBVH
 
 
+#: Bits of a node's `leaf` lane that hold tri_count; tri_start takes the rest.
+COUNT_BITS = 6
+MAX_LEAF_TRIS = (1 << COUNT_BITS) - 1
+#: Keeps every `leaf` pattern below 0x7F800000, a finite float32: a NaN
+#: pattern's payload need not survive a copy that treats the row as floats.
+MAX_PADDED_TRIS = 0x7F800000 >> COUNT_BITS
+
+
 @dataclass
 class PackedBVH:
     """Device tables of one scene's BVH (layouts documented in
-    rfx_torch/csrc/fused_trace.cu)."""
+    rfx_torch/csrc/bvh_walk.cuh). A node is one 32-byte row: its box, and in
+    the two lanes a box leaves free the int32 bit patterns of its skip
+    pointer and of `tri_start << COUNT_BITS | tri_count` (0 for an internal
+    node), so that a visit reads one sector."""
 
-    node_box: torch.Tensor  # (n_nodes, 8) f32: lo xyz, 0, hi xyz, 0
-    node_meta: torch.Tensor  # (n_nodes, 4) i32: tri_start, tri_count (0 = internal), skip, 0
+    nodes: torch.Tensor  # (n_nodes, 8) f32: lo xyz, skip bits, hi xyz, leaf bits
     tri: torch.Tensor  # (P, 12) f32: v0, e1, e2, unit normal
     tri_face: torch.Tensor  # (P,) i32: original face id, -1 for padding
     leaf_size: int = 8  # the builder's pad quantum: no leaf holds more triangles
 
     @property
     def n_nodes(self) -> int:
-        return int(self.node_box.shape[0])
+        return int(self.nodes.shape[0])
 
     @property
     def n_padded_tris(self) -> int:
         return int(self.tri.shape[0])
+
+    @property
+    def skip(self) -> torch.Tensor:
+        """(n_nodes,) i32 skip pointers, read back from the nodes' lane 3."""
+        return self.nodes.view(torch.int32)[:, 3]
+
+    @property
+    def tri_start(self) -> torch.Tensor:
+        """(n_nodes,) i32 first padded triangle of each leaf (0 for internal nodes)."""
+        return self.nodes.view(torch.int32)[:, 7] >> COUNT_BITS
+
+    @property
+    def tri_count(self) -> torch.Tensor:
+        """(n_nodes,) i32 triangles of each leaf; 0 marks an internal node."""
+        return self.nodes.view(torch.int32)[:, 7] & MAX_LEAF_TRIS
 
 
 def pack_bvh(flat: FlatBVH, device: torch.device) -> PackedBVH:
@@ -44,13 +69,20 @@ def pack_bvh(flat: FlatBVH, device: torch.device) -> PackedBVH:
     skip = np.asarray(flat.skip, np.int64)
     if np.any(skip <= np.arange(n)) or np.any(skip > n):
         raise ValueError("BVH skip pointers must point forward and end at n_nodes")
-    node_box = np.zeros((n, 8), np.float32)
-    node_box[:, 0:3] = flat.aabb_min
-    node_box[:, 4:7] = flat.aabb_max
-    node_meta = np.zeros((n, 4), np.int32)
-    node_meta[:, 0] = flat.tri_start
-    node_meta[:, 1] = flat.tri_count
-    node_meta[:, 2] = flat.skip
+    count = np.asarray(flat.tri_count, np.int64)
+    if int(count.max()) > flat.leaf_size:
+        raise ValueError("a BVH leaf holds more triangles than its leaf_size")
+    if int(count.max()) > MAX_LEAF_TRIS or flat.n_padded_tris > MAX_PADDED_TRIS:
+        raise ValueError(f"the packed node holds at most {MAX_LEAF_TRIS} triangles per leaf and "
+                         f"{MAX_PADDED_TRIS} padded triangles, got {int(count.max())} and "
+                         f"{flat.n_padded_tris}")
+    start = np.where(count > 0, np.asarray(flat.tri_start, np.int64), 0)
+    nodes = np.zeros((n, 8), np.float32)
+    nodes[:, 0:3] = flat.aabb_min
+    nodes[:, 4:7] = flat.aabb_max
+    bits = nodes.view(np.int32)
+    bits[:, 3] = skip
+    bits[:, 7] = start << COUNT_BITS | count
 
     nrm = np.cross(flat.tri_e1, flat.tri_e2)
     nrm = nrm / np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-30)
@@ -59,7 +91,5 @@ def pack_bvh(flat: FlatBVH, device: torch.device) -> PackedBVH:
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    if int(np.max(flat.tri_count)) > flat.leaf_size:
-        raise ValueError("a BVH leaf holds more triangles than its leaf_size")
-    return PackedBVH(dev(node_box), dev(node_meta), dev(tri),
-                     dev(np.asarray(flat.tri_face, np.int32)), int(flat.leaf_size))
+    return PackedBVH(dev(nodes), dev(tri), dev(np.asarray(flat.tri_face, np.int32)),
+                     int(flat.leaf_size))

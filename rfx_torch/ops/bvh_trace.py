@@ -49,7 +49,7 @@ __all__ = ["CLOSEST_HIT_KERNEL", "closest_hit", "closest_hit_plain", "live_tri",
 
 CLOSEST_HIT_KERNEL = CudaKernel(
     "closest_hit.cu", "rfx_closest_hit",
-    [P, P, I, P, P, I, P, P, P, P, P, P, P],
+    [P, P, I, P, I, P, P, P, P, P, P, P],
 )
 
 # Upper bound on rays x padded triangles per brute-force chunk of the plain
@@ -166,9 +166,9 @@ def closest_hit(bvh: PackedBVH, o, d, tri=None):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         CLOSEST_HIT_KERNEL.launch(
-            o.data_ptr(), d.data_ptr(), n, bvh.node_box.data_ptr(), bvh.node_meta.data_ptr(),
-            bvh.n_nodes, tri.data_ptr(), bvh.tri_face.data_ptr(), t.data_ptr(),
-            idx.data_ptr(), face.data_ptr(), nrm.data_ptr(), stream)
+            o.data_ptr(), d.data_ptr(), n, bvh.nodes.data_ptr(), bvh.n_nodes, tri.data_ptr(),
+            bvh.tri_face.data_ptr(), t.data_ptr(), idx.data_ptr(), face.data_ptr(),
+            nrm.data_ptr(), stream)
     return t, idx, face, nrm
 
 

@@ -36,7 +36,7 @@ import torch
 
 from rfx_torch.bvh import LEAF_SIZE, resolve_flat_bvh
 from rfx_torch.device import resolve_device
-from rfx_torch.ops.bvh_pack import PackedBVH, pack_bvh
+from rfx_torch.ops.bvh_pack import COUNT_BITS, MAX_LEAF_TRIS, PackedBVH, pack_bvh
 from rfx_torch.ops.bvh_trace import live_tri, mt_block
 from rfx_torch.ops.intersect import (
     MISS,
@@ -72,21 +72,21 @@ def walk_closest_hit(bvh: PackedBVH, o, d, tri=None, *, count: bool = False):
 
     while act.numel() > 0:
         node = cursor[act]
-        box = bvh.node_box[node]
-        meta = bvh.node_meta[node].long()
+        box = bvh.nodes[node]
+        packed = box.view(torch.int32)[:, 7].long()  # tri_start << COUNT_BITS | tri_count
         oa, ia = o[act], inv_d[act]
         lo = (box[:, 0:3] - oa) * ia
         hi = (box[:, 4:7] - oa) * ia
         t_near = torch.minimum(lo, hi).amax(dim=1)
         t_far = torch.maximum(lo, hi).amin(dim=1)
         box_hit = (t_near <= torch.minimum(t_far, t_best[act])) & (t_far >= T_MIN_EPS)
-        n_tri = meta[:, 1]
+        n_tri = packed & MAX_LEAF_TRIS
         leaf = n_tri > 0
 
         at_leaf = torch.nonzero(box_hit & leaf).flatten()
         if at_leaf.numel() > 0:
             rows = act[at_leaf]
-            block = (meta[at_leaf, 0, None] + lanes[None, :]).clamp_max(last_row)
+            block = ((packed[at_leaf, None] >> COUNT_BITS) + lanes[None, :]).clamp_max(last_row)
             t_leaf = mt_block(o[rows], d[rows], tri[block])
             t_leaf = torch.where(lanes[None, :] < n_tri[at_leaf, None], t_leaf,
                                  torch.full((), MISS, dtype=t_leaf.dtype, device=dev))
@@ -101,7 +101,7 @@ def walk_closest_hit(bvh: PackedBVH, o, d, tri=None, *, count: bool = False):
         if count:
             counts[act, 0] += 1
 
-        nxt = torch.where(box_hit & ~leaf, node + 1, meta[:, 2])
+        nxt = torch.where(box_hit & ~leaf, node + 1, box.view(torch.int32)[:, 3].long())
         cursor[act] = nxt
         act = act[nxt < n_nodes]
     return (t_best, best, counts) if count else (t_best, best)

@@ -2,17 +2,26 @@
 the segments of one environment trace (port of
 rfx/ops/pallas_coverage.py:coverage_hist_pallas).
 
-`coverage_hist` launches the CUDA kernel rfx_torch/csrc/coverage_hist.cu on
-CUDA tensors and runs its plain PyTorch version, `coverage_hist_plain`, on
-CPU tensors. Both take segments whose amplitude the caller has already
+`coverage_hist` launches the CUDA kernels of rfx_torch/csrc/coverage_hist.cu
+on CUDA tensors and runs their plain PyTorch version, `coverage_hist_plain`,
+on CPU tensors. Both take segments whose amplitude the caller has already
 scaled by tx_power / num_rays, and give the IRs of the map engine's hard,
 analytic branch (rfx_torch.coverage), the same nonzero bins and the same
-values up to the order of each receiver's sum: the kernel sums in ray order,
-the plain version in (bounce, ray) order. The kernel's IRs are
-bit-identical from run to run.
+values up to the order of each receiver's sum.
+
+On the card the rays are cut into slabs (`coverage_slabs`, a function of the
+ray count alone: chunks of 128 rays dealt out in turn): `rfx_coverage_hist`
+fills one (M, nbins) plane per slab, each warp adding alone to its receivers'
+rows, and `rfx_coverage_hist_reduce` adds the planes per bin in slab order
+(its plain version is `reduce_planes_plain`). A receiver's IR is therefore
+the same bits from run to run and whether it is computed alone or in any
+group of receivers; so the wrapper may take the receivers in groups that keep
+the planes under `PLANES_BYTES`.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -20,12 +29,40 @@ from rfx_torch.ops._build import CudaKernel, F, I, P
 from rfx_torch.ops.intersect import is_hit, sphere_t
 from rfx_torch.tracer import EnvSegments
 
-__all__ = ["COVERAGE_HIST_KERNEL", "coverage_hist", "coverage_hist_plain"]
+__all__ = ["COVERAGE_HIST_KERNEL", "COVERAGE_REDUCE_KERNEL", "coverage_hist",
+           "coverage_hist_plain", "coverage_slabs", "slab_of_ray", "reduce_planes",
+           "reduce_planes_plain"]
 
 COVERAGE_HIST_KERNEL = CudaKernel(
     "coverage_hist.cu", "rfx_coverage_hist",
     [P, P, P, P, P, P, I, I, P, I, F, F, F, I, I, P, P],
 )
+COVERAGE_REDUCE_KERNEL = CudaKernel(
+    "coverage_hist.cu", "rfx_coverage_hist_reduce", [P, I, ctypes.c_longlong, P, P],
+)
+
+#: Rays of one chunk: the 32 lanes of a warp times the segments a lane holds
+#: (kRays of coverage_hist.cu).
+CHUNK_RAYS = 128
+#: One slab per MIN_SLAB_RAYS rays (rounded up), at most MAX_SLABS.
+MIN_SLAB_RAYS = 32_768
+MAX_SLABS = 12
+#: The slabs' planes of one launch take at most this much device memory;
+#: more receivers than fit go in several launches.
+PLANES_BYTES = 2 << 30
+
+
+def coverage_slabs(num_rays: int) -> int:
+    """The number of slabs the rays are cut into: chunk j (the rays
+    [j * CHUNK_RAYS, (j + 1) * CHUNK_RAYS)) belongs to slab j % n_slabs. A
+    function of the ray count alone, never of the receivers, so that a
+    receiver's sum has one order."""
+    return max(1, min(MAX_SLABS, -(-int(num_rays) // MIN_SLAB_RAYS)))
+
+
+def slab_of_ray(num_rays: int) -> torch.Tensor:
+    """(num_rays,) int64: the slab of each ray under `coverage_slabs`."""
+    return (torch.arange(int(num_rays)) // CHUNK_RAYS) % coverage_slabs(num_rays)
 
 
 def _centers(rx_centers, device) -> torch.Tensor:
@@ -100,24 +137,52 @@ def coverage_hist(segs: EnvSegments, rx_centers, rx_radius, *, nbins: int,
     b, n = segs.t_env.shape
     if n >= 2**31 or b >= 2**31 or m >= 2**31:
         raise ValueError(f"at most 2^31 - 1 rays, bounces and receivers, got {n}, {b}, {m}")
-    kern = COVERAGE_HIST_KERNEL
+    if nbins >= 2**31:
+        raise ValueError(f"at most 2^31 - 1 bins, got {nbins}")
+    if m == 0 or n == 0 or b == 0:
+        return torch.zeros((m, nbins), dtype=torch.float32, device=dev)
+    n_slabs = coverage_slabs(n)
+    planes = [t.contiguous() for t in (segs.origin, segs.direction, segs.t_env,
+                                       segs.amplitude, segs.distance, segs.alive)]
+    group = max(1, PLANES_BYTES // (4 * n_slabs * nbins))
+    out = []
     with torch.cuda.device(dev):
-        max_rpb = kern.symbol_of("rfx_coverage_hist_receivers_per_block")(nbins)
-        if max_rpb < 1:
-            raise ValueError(f"the coverage kernel holds at most "
-                             f"{kern.symbol_of('rfx_coverage_hist_max_bins')()} bins per "
-                             f"receiver in shared memory on this card, got {nbins}")
-        if m == 0 or n == 0 or b == 0:
-            return torch.zeros((m, nbins), dtype=torch.float32, device=dev)
-        # Enough blocks to fill the card before a block takes more
-        # receivers: each block reads every segment, so fewer blocks read less.
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        rpb = max(1, min(max_rpb, -(-m // sms)))
-        planes = [t.contiguous() for t in (segs.origin, segs.direction, segs.t_env,
-                                           segs.amplitude, segs.distance, segs.alive)]
-        out = torch.empty((m, nbins), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        kern.launch(*(t.data_ptr() for t in planes), b, n, centers.data_ptr(), m,
-                    float(rx_radius), float(light_speed_mps), float(sample_rate_hz), nbins, rpb,
-                    out.data_ptr(), stream)
+        for s in range(0, m, group):
+            mine = centers[s:s + group]
+            partial = torch.zeros((n_slabs, mine.shape[0], nbins), dtype=torch.float32, device=dev)
+            COVERAGE_HIST_KERNEL.launch(
+                *(t.data_ptr() for t in planes), b, n, mine.data_ptr(), mine.shape[0],
+                float(rx_radius), float(light_speed_mps), float(sample_rate_hz), nbins, n_slabs,
+                partial.data_ptr(), stream)
+            out.append(partial[0] if n_slabs == 1 else reduce_planes(partial))
+    return out[0] if len(out) == 1 else torch.cat(out)
+
+
+def reduce_planes_plain(planes: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the slab reduction: planes[0] + planes[1] +
+    ... in that order."""
+    out = planes[0].clone()
+    for h in range(1, planes.shape[0]):
+        out += planes[h]
+    return out
+
+
+def reduce_planes(planes: torch.Tensor) -> torch.Tensor:
+    """Sum of (H, ...) f32 planes over H in plane order. A CPU tensor runs
+    `reduce_planes_plain`; a CUDA tensor launches the kernel, or raises."""
+    if planes.ndim < 2 or planes.shape[0] < 1 or planes.dtype != torch.float32:
+        raise ValueError(f"planes must be (H >= 1, ...) float32, got {tuple(planes.shape)} "
+                         f"{planes.dtype}")
+    dev = planes.device
+    if dev.type == "cpu":
+        return reduce_planes_plain(planes)
+    if dev.type != "cuda":
+        raise ValueError(f"no plane reduction for device {dev}")
+    planes = planes.contiguous()
+    out = torch.empty(planes.shape[1:], dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        COVERAGE_REDUCE_KERNEL.launch(planes.data_ptr(), planes.shape[0], out.numel(),
+                                      out.data_ptr(), stream)
     return out

@@ -57,7 +57,7 @@ __all__ = ["FusedTracer", "make_fused_tracer", "fused_trace", "fused_trace_plain
            "fused_trace_walk_plain", "replay_from_faces", "make_diff_fused_tracer",
            "FUSED_TRACE_KERNEL", "FUSED_TRACE_COUNTED_KERNEL", "WARP"]
 
-_TRACE_ARGS = [P, I, P, P, I, P, P, F, F, F, F, F, F, F, F, F, I, P, P, P, P, P]
+_TRACE_ARGS = [P, I, P, I, P, P, F, F, F, F, F, F, F, F, F, I, P, P, P, P, P]
 FUSED_TRACE_KERNEL = CudaKernel("fused_trace.cu", "rfx_fused_trace", [*_TRACE_ARGS, P])
 # The counted instantiation: the same arguments, then the (B, 4) counters.
 FUSED_TRACE_COUNTED_KERNEL = CudaKernel("fused_trace.cu", "rfx_fused_trace_counted",
@@ -238,8 +238,8 @@ def fused_trace(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, rx_rad
         return _extras(result, faces, stats)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        args = (d.data_ptr(), n, bvh.node_box.data_ptr(), bvh.node_meta.data_ptr(), bvh.n_nodes,
-                bvh.tri.data_ptr(), bvh.tri_face.data_ptr() if record_faces else None,
+        args = (d.data_ptr(), n, bvh.nodes.data_ptr(), bvh.n_nodes, bvh.tri.data_ptr(),
+                bvh.tri_face.data_ptr() if record_faces else None,
                 *map(float, tx), *map(float, rx), float(r2), float(n1s), float(n2s),
                 int(max_bounces), captured.data_ptr(), cap_amp.data_ptr(), cap_dist.data_ptr(),
                 nb.data_ptr(), faces.data_ptr() if record_faces else None)

@@ -110,11 +110,10 @@ def build_scene(dev, *, grid: int = GRID, extent: float = EXTENT, n_rays: int = 
     t_tracer = time.perf_counter() - t0
     bvh = tracer._fused.bvh
     if tracer.backend != "fused" or not np.array_equal(
-            bvh.node_meta[:, 2].cpu().numpy(), flat.skip):
+            bvh.skip.cpu().numpy(), flat.skip):
         raise AssertionError(f"the facade's tree is not the {method} builder's "
                              f"(backend {tracer.backend}, {bvh.n_nodes} vs {flat.n_nodes} nodes)")
-    tables = {"tri": bvh.tri, "tri_face": bvh.tri_face, "node_box": bvh.node_box,
-              "node_meta": bvh.node_meta}
+    tables = {"tri": bvh.tri, "tri_face": bvh.tri_face, "nodes": bvh.nodes}
     info = {"triangles": int(mesh.num_faces), "build_method": method,
             "mesh_seconds": t_mesh, "bvh_build_seconds": t_build,
             "tracer_seconds": t_tracer, "bvh_nodes": int(flat.n_nodes),

@@ -164,6 +164,68 @@ def test_coverage_hist_plain_matches_pallas_interpret(box_room):
                                                               **kw).numpy(), got)
 
 
+@pytest.mark.parametrize("n_rays", [1, 127, 128, 129, 32_768, 32_769, 100_003, 1_048_576,
+                                    5_242_880])
+def test_coverage_slabs_depend_on_the_ray_count_alone(n_rays):
+    """The card's slab partition: chunk j of CHUNK_RAYS rays belongs to slab
+    j % n_slabs, one slab per MIN_SLAB_RAYS rays up to MAX_SLABS. Nothing of
+    the receivers enters it, so M = 1 and M = 2,048 get the same edges."""
+    ch = coverage_hist
+    n_slabs = ch.coverage_slabs(n_rays)
+    assert n_slabs == max(1, min(ch.MAX_SLABS, -(-n_rays // ch.MIN_SLAB_RAYS)))
+    slab = ch.slab_of_ray(n_rays)
+    assert slab.shape == (n_rays,) and int(slab.min()) == 0 and int(slab.max()) <= n_slabs - 1
+    assert torch.equal(slab, ch.slab_of_ray(n_rays))
+    # Whole chunks, dealt out in turn.
+    probe = torch.arange(0, n_rays, max(1, n_rays // 1000))
+    assert torch.equal(slab[probe], (probe // ch.CHUNK_RAYS) % n_slabs)
+    if n_rays >= ch.CHUNK_RAYS * n_slabs:
+        assert len(torch.unique(slab)) == n_slabs
+    import inspect
+    for fn in (ch.coverage_slabs, ch.slab_of_ray):
+        assert list(inspect.signature(fn).parameters) == ["num_rays"]
+
+
+@pytest.mark.parametrize("n_rays, m", [(70_000, 1), (70_000, 5), (2048, 3)])
+def test_coverage_hist_plain_summed_slab_by_slab(box_room, n_rays, m):
+    """The order of the card's sum, spelled with the plain versions: the
+    plain histogram of each slab's rays alone, the planes added in slab
+    order (`reduce_planes_plain`, which `reduce_planes` takes for a CPU
+    tensor), equals the one-pass plain version within rtol 1e-5, on the
+    same nonzero bins; a receiver alone gets the row it gets in the group."""
+    ch = coverage_hist
+    dirs = sample_sphere_directions(n_rays, seed=11)
+    segs = convert.segments_from_rfx(_jax_segments(box_room, COV_TX, dirs, 2, scale=1.0 / n_rays),
+                                     device="cpu")
+    kw = dict(nbins=2000, light_speed_mps=C, sample_rate_hz=20e9)
+    centers = COV_CENTERS[:m]
+    want = ch.coverage_hist_plain(segs, centers, 1.2, **kw)
+    assert (want != 0).any()
+    n_slabs = ch.coverage_slabs(n_rays)
+    assert n_slabs == (3 if n_rays == 70_000 else 1)
+    slab = ch.slab_of_ray(n_rays)
+    planes = torch.stack([
+        ch.coverage_hist_plain(type(segs)(*(t[:, slab == h] for t in segs)), centers, 1.2, **kw)
+        for h in range(n_slabs)])
+    got = ch.reduce_planes(planes)
+    assert torch.equal(got, ch.reduce_planes_plain(planes)) and got.shape == want.shape
+    assert torch.equal(got != 0, want != 0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-12)
+    alone = torch.stack([
+        ch.coverage_hist_plain(type(segs)(*(t[:, slab == h] for t in segs)), centers[:1], 1.2, **kw)
+        for h in range(n_slabs)])
+    assert torch.equal(ch.reduce_planes(alone)[0], got[0])
+
+
+def test_reduce_planes_refuses_what_it_cannot_add():
+    with pytest.raises(ValueError, match="planes"):
+        coverage_hist.reduce_planes(torch.zeros(4))
+    with pytest.raises(ValueError, match="planes"):
+        coverage_hist.reduce_planes(torch.zeros((2, 3), dtype=torch.float64))
+    one = torch.arange(6, dtype=torch.float32).reshape(1, 2, 3)
+    assert torch.equal(coverage_hist.reduce_planes(one), one[0])
+
+
 def test_batched_engine_matches_rfx_map_engine(box_room):
     """engine='batched' (K3's plain version here) against rfx's map engine,
     5 receivers (an odd count), 3 bounces, tx_power 2."""

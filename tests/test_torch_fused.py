@@ -75,19 +75,61 @@ def test_pack_bvh_layout():
     p = pack_bvh(flat, torch.device("cpu"))
     assert p.n_nodes == flat.n_nodes and p.n_padded_tris == flat.n_padded_tris
     # Boxes are the builder's min/max, not center +- half extent.
-    np.testing.assert_array_equal(p.node_box[:, 0:3].numpy(), flat.aabb_min)
-    np.testing.assert_array_equal(p.node_box[:, 4:7].numpy(), flat.aabb_max)
-    np.testing.assert_array_equal(p.node_meta[:, 0].numpy(), flat.tri_start)
-    np.testing.assert_array_equal(p.node_meta[:, 1].numpy(), flat.tri_count)
-    np.testing.assert_array_equal(p.node_meta[:, 2].numpy(), flat.skip)
+    np.testing.assert_array_equal(p.nodes[:, 0:3].numpy(), flat.aabb_min)
+    np.testing.assert_array_equal(p.nodes[:, 4:7].numpy(), flat.aabb_max)
+    np.testing.assert_array_equal(p.tri_start.numpy(), flat.tri_start)
+    np.testing.assert_array_equal(p.tri_count.numpy(), flat.tri_count)
+    np.testing.assert_array_equal(p.skip.numpy(), flat.skip)
     assert p.tri_face.dtype == torch.int32
     np.testing.assert_array_equal(p.tri_face.numpy(), flat.tri_face)
     np.testing.assert_array_equal(p.tri[:, 0:9].numpy(),
                                   np.concatenate([flat.tri_v0, flat.tri_e1, flat.tri_e2], 1))
     real = flat.tri_face >= 0
     np.testing.assert_allclose(np.linalg.norm(p.tri[real, 9:12].numpy(), axis=1), 1.0, atol=1e-6)
-    for t in (p.node_box, p.node_meta, p.tri):
+    for t in (p.nodes, p.tri):
         assert t.is_contiguous()
+
+
+@pytest.mark.parametrize("method, leaf_size", [("numpy", 8), ("numpy", 16), ("native", 8)])
+def test_packed_nodes_round_trip(method, leaf_size):
+    """A node is one 32-byte row: skip, tri_start and tri_count read back
+    from the int32 bit patterns in the box's two free lanes equal the
+    FlatBVH's, an internal node's leaf lane is 0, and the box lanes are the
+    builder's floats untouched."""
+    from rfx_torch import bvh as tbvh
+    from rfx_torch.ops import bvh_pack, native_lib
+
+    if method == "native" and not native_lib.native_available():
+        pytest.skip(f"no native builder here: {native_lib.unavailable_reason()}")
+    flat = tbvh.build_bvh(make_terrain(grid=20, extent=30.0, seed=4), leaf_size=leaf_size,
+                          method=method)
+    p = pack_bvh(flat, torch.device("cpu"))
+    assert p.nodes.shape == (flat.n_nodes, 8) and p.nodes.dtype == torch.float32
+    bits = p.nodes.numpy().view(np.int32)
+    leaf = flat.tri_count > 0
+    assert leaf.any() and (~leaf).any()
+    np.testing.assert_array_equal(bits[:, 3], flat.skip)
+    np.testing.assert_array_equal(bits[:, 7] >> bvh_pack.COUNT_BITS,
+                                  np.where(leaf, flat.tri_start, 0))
+    np.testing.assert_array_equal(bits[:, 7] & bvh_pack.MAX_LEAF_TRIS, flat.tri_count)
+    assert np.all(bits[~leaf, 7] == 0) and np.all(bits[leaf, 7] != 0)
+    for got, want in ((p.skip, flat.skip), (p.tri_count, flat.tri_count),
+                      (p.tri_start[torch.from_numpy(leaf)], flat.tri_start[leaf])):
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(p.nodes[:, [0, 1, 2, 4, 5, 6]].numpy(),
+                                  np.concatenate([flat.aabb_min, flat.aabb_max], 1))
+
+
+def test_pack_bvh_rejects_what_a_node_cannot_hold():
+    from rfx_torch.ops import bvh_pack
+
+    flat = build_bvh(make_terrain(grid=6, extent=10.0, seed=1), leaf_size=8, method="numpy")
+    flat.leaf_size = 128
+    flat.tri_count = flat.tri_count.copy()
+    flat.tri_count[flat.tri_count > 0] = bvh_pack.MAX_LEAF_TRIS + 1
+    with pytest.raises(ValueError, match="per leaf"):
+        pack_bvh(flat, torch.device("cpu"))
 
 
 def test_pack_bvh_rejects_broken_skips():

@@ -41,8 +41,11 @@ def _assert_trace_equal(k, p):
     assert torch.allclose(k.distance[m], p.distance[m], rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("n", [1, 1000, 65_536])
+@pytest.mark.parametrize("n", [1, 1000, 65_536, 65_536 + 7, 300_007])
 def test_fused_kernel_matches_plain(cuda, n):
+    """Ray counts below one warp, ragged against a warp and a block, and
+    (300,007) above what the card holds at once: more blocks than are
+    resident."""
     ft = fused.make_fused_tracer(make_terrain(grid=48, extent=40.0, seed=3), max_bounces=4,
                                  device=cuda)
     dirs = morton_sphere_directions(n, generator=torch.Generator(cuda).manual_seed(4),
@@ -56,6 +59,9 @@ def test_fused_kernel_matches_plain(cuda, n):
     if n >= 1000:
         assert int(p.captured.sum()) > 0
     _assert_trace_equal(k, p)
+    again = fused.fused_trace(ft.bvh, dirs, *args, max_bounces=4)
+    for a, b in zip(k[:4], again[:4]):  # the same bits from run to run
+        assert torch.equal(a, b)
 
 
 def test_fused_kernel_materials_and_grazing_scene(cuda):
@@ -233,16 +239,20 @@ def _room_receivers(m):
 
 
 def test_coverage_kernel_matches_plain(cuda):
-    """531 receivers (an odd count: blocks of 5, the last one short), 100,003
-    rays (an odd count), 3 bounces, a 50 ns window that drops the longer
-    paths, and a receiver that nothing reaches."""
+    """531 receivers (an odd count: the last warp's tile is short, and the
+    last block has fewer warps at work), 100,003 rays (an odd count, four
+    slabs, the last one short), 3 bounces, a 50 ns window that drops the
+    longer paths, and a receiver that nothing reaches."""
     segs = _room_segments(cuda, 100_003)
+    assert coverage_hist.coverage_slabs(100_003) == 4
     centers = _room_receivers(531)
     kw = dict(light_speed_mps=2.998e8, sample_rate_hz=100e9)
-    before = coverage_hist.COVERAGE_HIST_KERNEL.launches
+    before = (coverage_hist.COVERAGE_HIST_KERNEL.launches,
+              coverage_hist.COVERAGE_REDUCE_KERNEL.launches)
     k1 = coverage_hist.coverage_hist(segs, centers, 0.7, nbins=5000, **kw)
     k2 = coverage_hist.coverage_hist(segs, centers, 0.7, nbins=5000, **kw)
-    assert coverage_hist.COVERAGE_HIST_KERNEL.launches == before + 2
+    assert (coverage_hist.COVERAGE_HIST_KERNEL.launches,
+            coverage_hist.COVERAGE_REDUCE_KERNEL.launches) == (before[0] + 2, before[1] + 2)
     p = coverage_hist.coverage_hist_plain(segs, centers, 0.7, nbins=5000, **kw)
     wide = coverage_hist.coverage_hist_plain(segs, centers, 0.7, nbins=40_000, **kw)
     torch.cuda.synchronize()
@@ -253,13 +263,61 @@ def test_coverage_kernel_matches_plain(cuda):
     torch.testing.assert_close(p, wide[:, :5000], rtol=1e-5, atol=1e-12)
     lit = (k1 != 0).any(dim=1)
     assert not bool(lit[-1]) and int(lit.sum()) > 200
-    # A receiver's IR does not depend on the block it shares: alone, it is
-    # the same bit for bit.
-    for i in (0, 4, 5, 530):
+    # A receiver's IR does not depend on the warp or block it shares: alone,
+    # or in a group that is no multiple of a warp's tile, it is the same bit
+    # for bit.
+    for i in (0, 4, 5, 15, 16, 530):
         alone = coverage_hist.coverage_hist(segs, centers[i:i + 1], 0.7, nbins=5000, **kw)
         assert torch.equal(alone[0], k1[i]), i
+    group = coverage_hist.coverage_hist(segs, centers[7:44], 0.7, nbins=5000, **kw)
+    assert torch.equal(group, k1[7:44])
+    # Fewer rays than one slab: one plane, no reduction, and the same rules.
+    short = EnvSegments(*(t[:, :20_011].contiguous() for t in segs))
+    assert coverage_hist.coverage_slabs(20_011) == 1
+    before = coverage_hist.COVERAGE_REDUCE_KERNEL.launches
+    ks = coverage_hist.coverage_hist(short, centers, 0.7, nbins=5000, **kw)
+    assert coverage_hist.COVERAGE_REDUCE_KERNEL.launches == before
+    ps = coverage_hist.coverage_hist_plain(short, centers, 0.7, nbins=5000, **kw)
+    assert torch.equal(ks != 0, ps != 0) and int((ks != 0).sum()) > 0
+    torch.testing.assert_close(ks, ps, rtol=1e-5, atol=1e-12)
+    # The histograms live in global memory: a million bins run, and equal plain.
+    few = centers[:3]
+    big = coverage_hist.coverage_hist(segs, few, 0.7, nbins=1_000_000, **kw)
+    big_p = coverage_hist.coverage_hist_plain(segs, few, 0.7, nbins=1_000_000, **kw)
+    assert torch.equal(big != 0, big_p != 0) and int((big != 0).sum()) > 0
+    torch.testing.assert_close(big, big_p, rtol=1e-5, atol=1e-12)
     with pytest.raises(ValueError, match="bins"):
-        coverage_hist.coverage_hist(segs, centers, 0.7, nbins=1_000_000, **kw)
+        coverage_hist.coverage_hist(segs, few, 0.7, nbins=2**31, **kw)
+
+
+def test_coverage_kernel_takes_receivers_in_groups(cuda, monkeypatch):
+    """More receivers than the planes' memory budget allows go in several
+    launches, and nothing in the result shows it: each row is the same bits."""
+    segs = _room_segments(cuda, 70_000)
+    centers = _room_receivers(100)
+    kw = dict(nbins=4000, light_speed_mps=2.998e8, sample_rate_hz=100e9)
+    whole = coverage_hist.coverage_hist(segs, centers, 0.7, **kw)
+    n_slabs = coverage_hist.coverage_slabs(70_000)
+    monkeypatch.setattr(coverage_hist, "PLANES_BYTES", 4 * n_slabs * 4000 * 7)  # 7 receivers
+    before = coverage_hist.COVERAGE_HIST_KERNEL.launches
+    parts = coverage_hist.coverage_hist(segs, centers, 0.7, **kw)
+    assert coverage_hist.COVERAGE_HIST_KERNEL.launches == before + 15
+    assert parts.shape == whole.shape == (100, 4000) and int((whole != 0).sum()) > 0
+    assert torch.equal(parts, whole)
+
+
+def test_coverage_reduce_kernel_matches_plain(cuda):
+    """The slab reduction: planes added per bin in plane order, an element
+    count that is no multiple of a block."""
+    planes = torch.from_numpy(np.random.default_rng(3).random((5, 37, 1001)).astype(np.float32))
+    before = coverage_hist.COVERAGE_REDUCE_KERNEL.launches
+    got = coverage_hist.reduce_planes(planes.to(cuda))
+    assert coverage_hist.COVERAGE_REDUCE_KERNEL.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.shape == (37, 1001)
+    assert torch.equal(got.cpu(), coverage_hist.reduce_planes_plain(planes))
+    one = coverage_hist.reduce_planes(planes[:1].to(cuda))
+    assert torch.equal(one.cpu(), planes[0])
 
 
 def test_coverage_engines_on_card(cuda):
@@ -273,6 +331,7 @@ def test_coverage_engines_on_card(cuda):
     kw = dict(max_bounces=2, nbins=10_000, num_rays=n, light_speed_mps=2.998e8,
               sample_rate_hz=100e9)
     scene = Scene.from_mesh(room, cuda)
+    assert coverage_hist.coverage_slabs(n) > 1
     before = coverage_hist.COVERAGE_HIST_KERNEL.launches
     auto = coverage.coverage_irs(scene, [3.0, 2.0, 2.0], dirs, centers, 0.8, **kw)
     assert coverage_hist.COVERAGE_HIST_KERNEL.launches == before + 1
