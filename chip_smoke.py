@@ -11,9 +11,10 @@ Phases, each ending in torch.cuda.synchronize() so a fault shows where it
 happened, and none catching its own failure:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the five CUDA sources of rfx_torch/csrc/ (seven kernels: the fused
-   trace and its counted instantiation share one, the coverage histogram and
-   its slab reduction another) and the native C++ BVH builder into
+2. build the five CUDA sources of rfx_torch/csrc/ (eight C entry points:
+   the fused trace and its counted instantiation share a source, so do the
+   closest hit and its counted instantiation, and the coverage histogram
+   and its slab reduction) and the native C++ BVH builder into
    build/rfx_torch/, one compiler each, all started together;
 3. the bench workload (bench.py): make_terrain(grid=128, extent=60, seed=0),
    32,258 triangles, 5,242,880 Morton-ordered rays, 4 bounces, a 20,000-bin
@@ -24,7 +25,8 @@ happened, and none catching its own failure:
    atol 1e-4 (tests/test_fused.py:15-26);
 5. the IR histogram kernel against its plain version on the full trace's
    outputs (rtol 1e-4, atol 1e-9, the same nonzero bins), hard and soft, and
-   bit-identical across two runs;
+   bit-identical across two runs, beside `index_add_`, `bincount` and two
+   bounds (every input read once; the bytes this run's captures need);
 6. the forward path: rfx_torch.api.Tracer(...).compute_cir answers three
    requests, the tx raised by 1 m each time, and rx_power_dbm reads each IR.
    The launch counts are reset just before and must be > 0 after; the first
@@ -33,7 +35,10 @@ happened, and none catching its own failure:
    scene: the 65,536 rays of phase 4 from tx, their reflected second-bounce
    queries from the terrain, and 1,024 parked rays; identical t, indices,
    faces and normals; the first two sets again with a live triangle table
-   (`live_tri`, the differentiable-tris route's repack);
+   (`live_tri`, the differentiable-tris route's repack); then the counted
+   entry point on the first two sets against the plain walk: the same hits,
+   counters integer for integer, and from them each set's bound, the mean
+   and the maximum of the nodes a query visits and the per-warp maximum;
 8. the fused-trace kernel's face record against its plain version on the
    phase-4 rays: identical face tables (and an unchanged trace);
 9. the gradient path at scripts/bench_gradients.py's width (2,621,440 Morton
@@ -53,11 +58,16 @@ happened, and none catching its own failure:
     through the closest-hit kernel, each held against the same step on the
     CPU through its plain version from the card's parameters and Adam state:
     loss and gradients within rtol 1e-4, updated parameters within atol
-    1e-5; then five steps at full width: the
+    1e-5; then, at full width, the histogram kernel on the planes the map
+    engine hands it (64 rows x 4,194,304 entries in one launch, and one row)
+    against its plain version, hard and soft: the same nonzero bins, rtol
+    1e-5, bit-identical across runs, a row alone == the row in the batch ==
+    the CPU's plain version; then five steps at full width: the
     terrain, 1,048,576 Morton rays, 4 bounces, 64 receivers on an 8x8 grid
     at z = 8 over x, y in [-20, 20], radius 1.0, 20,000 bins at 100 GHz,
     target energies from tx (10, 0, 25), start (12, -2, 26), lr 0.05: finite
-    losses, finite nonzero gradients, time per step and peak memory;
+    losses, finite nonzero gradients, time per step and peak memory, and at
+    most 10 histogram launches in the five steps;
 12. the facade: compute_cir(record_paths=True) at 262,144 rays through the
     closest-hit kernel (paths start at tx, captures within the flip budget
     of the fused kernel's), and compute_coverage of 16 receivers;
@@ -93,15 +103,16 @@ happened, and none catching its own failure:
     20,000 bins (CUDA events, Mrays/s; the first again, bit-identical); the
     walk counters at full width with the counted trace == the uncounted one
     bit for bit, and the SIMT efficiency nodes / (32 * warp_steps); the
-    per-query cross-check at 1,048,576 rays. The same counters and times on
+    per-query cross-check at 1,048,576 rays, and the counted closest hit on
+    those rays and their second-bounce queries. The same counters and times on
     the bench terrain beside them. Last, the vote micro-kernel
     (scripts/torch_micro_vote.py): each style's carry == the plain version's
     after 2,000 bodies, then ns per body at 50,000 bodies, counted on its own.
 Each main-path run is counted on its own: every launch count is set to 0
 just before it and read just after, and each kernel the path runs must have
 launched (the forward requests: fused trace and histogram; the large-mesh
-path: fused trace, counted fused trace, closest hit and histogram; the
-micro-kernel's timed launches: micro vote; the scan
+path: fused trace, counted fused trace, closest hit, counted closest hit
+and histogram; the micro-kernel's timed launches: micro vote; the scan
 value+grad and the five full-width solver steps: closest hit and histogram;
 the fused value+grad: fused trace and histogram; the coverage CLI's exact
 sweep: the coverage kernel and its slab reduction; each hybrid sweep: the
@@ -162,6 +173,7 @@ LARGE_SUBSET = 8_192
 K_FUSED = "rfx_fused_trace"
 K_COUNTED = "rfx_fused_trace_counted"
 K_HIT = "rfx_closest_hit"
+K_HIT_COUNTED = "rfx_closest_hit_counted"
 K_HIST = "rfx_ir_histogram"
 K_COV = "rfx_coverage_hist"
 K_REDUCE = "rfx_coverage_hist_reduce"
@@ -201,6 +213,26 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device time of one call of `fn`: the kernels', memsets' and copies' own
+    time under torch.profiler, summed and divided by the calls. Beside the
+    CUDA-event time of back-to-back calls it says whether a small kernel's
+    call is bound by the device or by the host that enqueues it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    return busy_us / 1e3 / reps
+
+
 def _require(cond: bool, what: str):
     if not cond:
         raise AssertionError(what)
@@ -229,6 +261,49 @@ def _walk_bound(bvh, nodes: int, tris: int, io_bytes: int, extra_flops: int = 0)
     return _bound(io_bytes + touched, nodes * SLAB_FLOPS + tris * MT_FLOPS + extra_flops)
 
 
+def closest_hit_stats(bvh, o, d) -> dict:
+    """The counted closest hit on one query set: the walk's totals, the bound
+    they give (24 bytes of origin and direction in, 24 of t, index, face and
+    normal out per query, and the face ids), and what says whether the tail
+    or the mean sets the kernel's time: the mean and the maximum of the nodes
+    a query visits, the mean over warps of the warp's maximum, and the share
+    of the warps' steps that do work (nodes / (32 x the warps' maxima))."""
+    import torch
+
+    from rfx_torch.ops.bvh_trace import closest_hit
+
+    counts = closest_hit(bvh, o, d, count=True)[4]
+    n = counts.shape[0]
+    nodes, leaves, tris = (int(v) for v in counts.sum(dim=0))
+    per_query = counts[:, 0]
+    warp_max = torch.cat([per_query, per_query.new_zeros((-n) % 32)]).reshape(-1, 32).amax(dim=1)
+    bound = _walk_bound(bvh, nodes, tris, 48 * n + min(4 * bvh.n_padded_tris, 4 * n))
+    return {"nodes": nodes, "leaves": leaves, "tris": tris,
+            "nodes_per_query_mean": nodes / max(n, 1), "nodes_per_query_max": int(per_query.max()),
+            "warp_max_nodes_mean": float(warp_max.float().mean()),
+            "simt_efficiency": nodes / max(32 * int(warp_max.sum()), 1), **bound}
+
+
+def histogram_bounds(captured, nbins: int, planes: int) -> dict:
+    """Two bounds of one histogram call on the (R, n) mask `captured`.
+    `bound_ms`: every input read once (9 bytes an entry: amplitude, distance,
+    mask) and the bins written once. `needed_bound_ms`: the bytes the
+    function needs with this run's data: the mask, the 32-byte sectors of
+    amplitude and distance that hold a capture, and the bins. Operations:
+    four for each capture and plane."""
+    import torch
+
+    entries, rows = captured.numel(), captured.shape[0] if captured.ndim == 2 else 1
+    flat = captured.reshape(-1).nonzero().squeeze(1)
+    sectors = int(torch.unique(flat // 8).numel())
+    out_bytes = 4 * planes * rows * nbins
+    flops = 4 * planes * int(flat.numel())
+    needed = _bound(entries + 2 * 32 * sectors + out_bytes, flops)
+    return {**_bound(9 * entries + out_bytes, flops),
+            "needed_bound_ms": needed["bound_ms"], "needed_bound_bytes": needed["bound_bytes"],
+            "captured": int(flat.numel())}
+
+
 def _fused_bound(bvh, counters: dict) -> dict:
     """Bound of one fused trace from `counters_leg`'s numbers: 12 bytes of
     direction in and 13 bytes of result out per ray."""
@@ -239,6 +314,19 @@ def _fused_bound(bvh, counters: dict) -> dict:
 
 def _suffixed(d: dict, suffix: str) -> dict:
     return {k + suffix: v for k, v in d.items()}
+
+
+def _walk_keys(stats: dict) -> dict:
+    """The bound of a counted closest-hit set and the counters behind it."""
+    keys = ("bound_ms", "bound_by", "bound_bytes", "bound_flops", "nodes", "leaves", "tris",
+            "nodes_per_query_mean", "nodes_per_query_max", "warp_max_nodes_mean", "simt_efficiency")
+    return {k: stats[k] for k in keys}
+
+
+def _counted_hit_bound(stats: dict) -> dict:
+    """The counted closest hit does the closest hit's work and writes 12
+    bytes of counters a query more."""
+    return _bound(stats["bound_bytes"] + 12 * stats["queries"], stats["bound_flops"])
 
 
 def _counted_bound(fused_bound: dict) -> dict:
@@ -277,13 +365,14 @@ def _closest_hit_phase(mesh, bvh, sub):
     query sets, with the packed triangle table, and on two of them with a
     live repack (`live_tri`) of triangles shrunk by 0.1% about their
     centroids (a table unlike the packed one whose triangles stay inside the
-    host-built boxes); returns (max |error|, kernel ms, plain ms, bound) on
-    the tx set, the bound from the counted fused kernel's one-bounce walk of
-    the same queries."""
+    host-built boxes); then the counted entry point against the plain walk
+    on the tx and the second-bounce set. Returns a dict: the largest |error|,
+    the brute plain version's ms on the tx set, and per set the kernel's and
+    the counted kernel's ms, the plain walk's, the walk's totals and the
+    bound they give."""
     import torch
 
-    from rfx_torch.ops import bvh_trace
-    from rfx_torch.ops.fused import fused_trace
+    from rfx_torch.ops import bvh_trace, bvh_traverse
     from rfx_torch.ops.intersect import dot3, mesh_soa
 
     dev = sub.device
@@ -317,18 +406,41 @@ def _closest_hit_phase(mesh, bvh, sub):
             _require(n_diff > 0, f"closest hit, {name}: the live table answers as the packed one")
             note = f", {n_diff} t differ from the packed table's"
         print(f"# closest hit, {o.shape[0]} {name} rays: kernel == plain ({n_hit} hits{note})")
-    ms = _cuda_ms(lambda: bvh_trace.closest_hit(bvh, o1, sub), 20)
-    plain_ms = _cuda_ms(lambda: bvh_trace.closest_hit_plain(bvh, o1, sub), 1)
-    # The same walk, counted: 24 bytes of origin and direction in, 24 bytes
-    # of t, index, face and normal out per ray, and the face ids.
-    _, walk = fused_trace(bvh, sub, TX, RX, RX_RADIUS, max_bounces=1, count_stats=True)
-    nodes, _, tris, _ = (int(v) for v in walk[0])
-    n = sub.shape[0]
-    bound = _walk_bound(bvh, nodes, tris, 48 * n + min(4 * bvh.n_padded_tris, 4 * n))
-    print(f"# closest hit, {n} rays from tx: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms; "
-          f"{nodes} nodes, {tris} triangles tested: bound {bound['bound_ms']:.5f} ms by "
-          f"{bound['bound_by']}", flush=True)
-    return err, ms, plain_ms, bound
+    # The counted entry point against the plain walk, integer for integer,
+    # on the tx and the second-bounce set; its totals give each set's bound.
+    out = {"max_abs_err": err}
+    for name in ("tx", "bounce2"):
+        o, d, _ = sets[name]
+        plain = bvh_trace.closest_hit(bvh, o, d)
+        *counted, counts = bvh_trace.closest_hit(bvh, o, d, count=True)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        walk_t, walk_idx, walk_counts = bvh_traverse.walk_closest_hit(bvh, o, d, count=True)
+        end.record()
+        _sync()
+        for what, a, b in zip(("t", "idx", "face", "nrm"), counted, plain):
+            _require(torch.equal(a, b), f"counted closest hit, {name}: {what} differs from the uncounted")
+        _require(counts.dtype == torch.int64 and torch.equal(counts, walk_counts),
+                 f"counted closest hit, {name}: counters differ from the plain walk's: "
+                 f"{counts.sum(0).tolist()} vs {walk_counts.sum(0).tolist()}")
+        _require(torch.equal(walk_t, plain[0]) and torch.equal(walk_idx.int(), plain[1]),
+                 f"closest hit, {name}: the plain walk's hits differ from the kernel's")
+        res = out[name] = closest_hit_stats(bvh, o, d)
+        res.update(queries=int(o.shape[0]),
+                   ms=_cuda_ms(lambda: bvh_trace.closest_hit(bvh, o, d), 20),
+                   counted_ms=_cuda_ms(lambda: bvh_trace.closest_hit(bvh, o, d, count=True), 20),
+                   walk_plain_ms=start.elapsed_time(end),
+                   counters_max_abs_err=float((counts - walk_counts).abs().max()))
+        print(f"# closest hit, {res['queries']} {name} queries: counted == plain walk integer for "
+              f"integer ({res['nodes']} nodes, {res['leaves']} leaves, {res['tris']} triangles; "
+              f"{res['nodes_per_query_mean']:.2f} nodes a query, max {res['nodes_per_query_max']}, "
+              f"per-warp max {res['warp_max_nodes_mean']:.2f}); kernel {res['ms']:.4f} ms, counted "
+              f"{res['counted_ms']:.4f} ms, plain walk {res['walk_plain_ms']:.1f} ms; bound "
+              f"{res['bound_ms']:.5f} ms by {res['bound_by']}", flush=True)
+    out["plain_ms"] = _cuda_ms(lambda: bvh_trace.closest_hit_plain(bvh, o1, sub), 1)
+    print(f"# closest hit, {sub.shape[0]} rays from tx: brute plain version {out['plain_ms']:.2f} ms",
+          flush=True)
+    return out
 
 
 def _gradient_phase(mesh, flat, bvh, dev, kernels):
@@ -600,6 +712,95 @@ def _solver_step_vs_plain(dev):
     return dict(room_losses=losses, room_tx_moved=moved, room_max_rel_diff=worst)
 
 
+def _batched_histogram_check(scene, dirs, centers, env, dev):
+    """The histogram kernel at the inverse solve's shapes, on the planes the
+    map engine hands it (1,048,576 rays x 4 bounces flattened: 4,194,304
+    entries a row, one row a receiver): all 64 rows in one launch and the
+    best-lit row alone, hard and soft, against the plain version (the same
+    nonzero bins, rtol 1e-5 / atol 1e-12), bit-identical from run to run, a
+    row alone == the row in the batch, and a row of at most 2,048 captures
+    == the CPU's plain version bit for bit (both sum in ray order). Returns
+    the times beside `index_add_` and both bounds."""
+    import torch
+
+    from rfx_torch import cir
+    from rfx_torch.coverage import _amp_scale, _first_capture
+    from rfx_torch.tracer import trace_env
+
+    zero = torch.zeros((), device=dev)
+    with torch.no_grad():
+        segs = trace_env(scene, torch.tensor(TX, device=dev), dirs, max_bounces=BOUNCES, env_hit=env)
+        t_rx, first = _first_capture(segs, centers, 1.0, "analytic")
+        rows = centers.shape[0]
+        amp = (torch.where(first, segs.amplitude, zero)
+               * _amp_scale(1.0, SOLVER_RAYS, dev)).reshape(rows, -1)
+        dist = torch.where(first, segs.distance + t_rx, zero).reshape(rows, -1)
+        first = first.reshape(rows, -1)
+        del segs, t_rx
+    kw = dict(nbins=NBINS, light_speed_mps=C, sample_rate_hz=RATE)
+    per_row = first.sum(dim=1)
+    lit = int(per_row.argmax())
+    out = {"rows": rows, "entries_per_row": int(amp.shape[1]), "captured": int(per_row.sum()),
+           "captured_max_row": int(per_row[lit]), "max_abs_err": 0.0}
+    one = tuple(t[lit:lit + 1] for t in (amp, dist, first))
+    for soft in (False, True):
+        tag = "soft" if soft else "hard"
+        modes = (cir.SOFT_LO, cir.SOFT_HI) if soft else (cir.HARD,)
+        before = cir.HISTOGRAM_KERNEL.launches
+        k1 = cir.bin_impulse_response(amp, dist, first, soft=soft, **kw)
+        _require(cir.HISTOGRAM_KERNEL.launches == before + 1, "the batch took more than one launch")
+        k2 = cir.bin_impulse_response(amp, dist, first, soft=soft, **kw)
+        p = sum(cir.histogram_plain(amp, dist, first, mode=m, **kw) for m in modes)
+        alone = cir.bin_impulse_response(*one, soft=soft, **kw)
+        p_cpu = sum(cir.histogram_plain(*(t.cpu() for t in one), mode=m, **kw) for m in modes)
+        _sync()
+        what = f"batched histogram, {tag}"
+        _require(k1.shape == (rows, NBINS) and torch.equal(k1, k2), f"{what}: two runs differ")
+        _require(torch.equal(k1 != 0, p != 0), f"{what}: nonzero bins differ from plain")
+        _require(torch.allclose(k1, p, rtol=1e-5, atol=1e-12), f"{what}: kernel != plain")
+        _require(torch.equal(alone[0], k1[lit]) and bool((alone != 0).any()),
+                 f"{what}: row {lit} alone differs from it in the batch")
+        _require(out["captured_max_row"] > 2048 or torch.equal(alone.cpu(), p_cpu),
+                 f"{what}: row {lit} differs from the CPU's plain version")
+        out["max_abs_err"] = max(out["max_abs_err"], float((k1 - p).abs().max()))
+        out[f"{tag}_ms"] = _cuda_ms(lambda: cir.bin_impulse_response(amp, dist, first, soft=soft, **kw), 10)
+        out[f"{tag}_plain_ms"] = _cuda_ms(
+            lambda: sum(cir.histogram_plain(amp, dist, first, mode=m, **kw) for m in modes), 3)
+        out[f"{tag}_one_row_ms"] = _cuda_ms(lambda: cir.bin_impulse_response(*one, soft=soft, **kw), 20)
+        out[f"{tag}_device_ms"] = device_ms(
+            lambda: cir.bin_impulse_response(amp, dist, first, soft=soft, **kw), 10)
+        out[f"{tag}_one_row_device_ms"] = device_ms(
+            lambda: cir.bin_impulse_response(*one, soft=soft, **kw), 20)
+        out[f"{tag}_one_row_plain_ms"] = _cuda_ms(
+            lambda: sum(cir.histogram_plain(*one, mode=m, **kw) for m in modes), 5)
+        out[f"bounds_{tag}"] = histogram_bounds(first, NBINS, planes=len(modes))
+        out[f"bounds_{tag}_one_row"] = histogram_bounds(one[2], NBINS, planes=len(modes))
+    # The library's call for the hard sums: `index_add_` on ready-made flat
+    # bins and masked weights (not deterministic; used nowhere in the port).
+    for tag, (a, d, c) in (("", (amp, dist, first)), ("_one_row", one)):
+        raw = (d / torch.tensor(C, device=dev) * torch.tensor(RATE, device=dev)).long()
+        weight = torch.where(c & (raw >= 0) & (raw < NBINS), a, zero).reshape(-1)
+        key = (raw.clamp_(0, NBINS - 1) + NBINS * torch.arange(a.shape[0], device=dev)[:, None]).reshape(-1)
+        out[f"index_add{tag}_ms"] = _cuda_ms(
+            lambda: torch.zeros(a.shape[0] * NBINS, device=dev).index_add_(0, key, weight), 5)
+        del raw, weight, key
+    print(f"# batched histogram, {rows} rows x {out['entries_per_row']} entries "
+          f"({out['captured']} captured, {out['captured_max_row']} in row {lit}), {NBINS} bins: one "
+          f"launch == plain (max |d| {out['max_abs_err']:.3e}), bit-identical across runs, row {lit} "
+          f"alone == in the batch == the CPU's plain version; hard {out['hard_ms']:.4f} ms, soft "
+          f"{out['soft_ms']:.4f} ms a call, {out['hard_device_ms']:.4f} / {out['soft_device_ms']:.4f} "
+          f"ms of it on the device (plain {out['hard_plain_ms']:.3f} / {out['soft_plain_ms']:.3f} ms, "
+          f"index_add_ {out['index_add_ms']:.3f} ms; bound {out['bounds_soft']['bound_ms']:.4f} ms "
+          f"at 9 bytes an entry, {out['bounds_soft']['needed_bound_ms']:.4f} ms by the bytes it "
+          f"needs); one row: hard {out['hard_one_row_ms']:.4f} ms, soft {out['soft_one_row_ms']:.4f} "
+          f"ms a call, {out['hard_one_row_device_ms']:.4f} / {out['soft_one_row_device_ms']:.4f} ms "
+          f"on the device (plain {out['hard_one_row_plain_ms']:.3f} / {out['soft_one_row_plain_ms']:.3f} ms, "
+          f"index_add_ {out['index_add_one_row_ms']:.3f} ms; bound "
+          f"{out['bounds_hard_one_row']['bound_ms']:.4f} / "
+          f"{out['bounds_hard_one_row']['needed_bound_ms']:.5f} ms)", flush=True)
+    return out
+
+
 def _solver_phase(mesh, bvh, dev, kernels):
     """Phase 11: the room steps against their CPU version, then five steps
     of the inverse solve at full width; returns what it measured."""
@@ -620,6 +821,8 @@ def _solver_phase(mesh, bvh, dev, kernels):
     centers = torch.as_tensor(make_grid(axis, axis, [8.0]), device=dev)
     env = make_kernel_env_hit(bvh)
     kw = dict(max_bounces=BOUNCES, nbins=NBINS, light_speed_mps=C, sample_rate_hz=RATE)
+    kh_batch = _batched_histogram_check(scene, dirs, centers, env, dev)
+    torch.cuda.empty_cache()
     with torch.no_grad():
         irs = coverage_irs_soft(scene.vertices, scene.faces, torch.tensor(TX, device=dev), 5.0,
                                 dirs, centers, 1.0, num_rays=SOLVER_RAYS, env_hit=env, **kw)
@@ -645,6 +848,9 @@ def _solver_phase(mesh, bvh, dev, kernels):
 
     _, launches = _counted(kernels, "inverse solve", (K_HIT, K_HIST), steps)
     peak = torch.cuda.max_memory_allocated(dev)
+    # One histogram launch for each receiver batch and step (64 receivers,
+    # rx_batch 64): the map engine no longer calls it once per receiver.
+    _require(launches[K_HIST] <= 10, f"inverse solve: {launches[K_HIST]} histogram launches in 5 steps")
     grads = [p.grad.cpu().numpy() for p in leaves]
     _require(all(np.isfinite(losses)), f"solver losses {losses}")
     for name, g in zip(("tx", "log_n1"), grads):
@@ -659,7 +865,7 @@ def _solver_phase(mesh, bvh, dev, kernels):
           f"last grads tx {grads[0]}, log_n1 {grads[1]}; max |moved| tx {moved_max[0]:.6g}, "
           f"log_n1 {moved_max[1]:.6g}; peak {peak / 2**30:.3f} GiB", flush=True)
     return dict(losses=losses, step_ms=step_ms, peak_bytes=peak, moved_max=moved_max,
-                launches=launches, **room)
+                launches=launches, histogram_batch=kh_batch, **room)
 
 
 def _facade_phase(mesh, dirs, dev):
@@ -1037,10 +1243,12 @@ def _large_mesh_phase(root, dev, kernels, bench_bvh, bench_dirs):
         res["cir"] = large.cir_leg(tracer, dirs)
         res["walk_counters"] = large.counters_leg(bvh, dirs)
         res["perquery_vs_fused"] = large.perquery_leg(bvh, dirs[:large.N_PERQUERY].contiguous())
+        res["perquery_counters"] = large.perquery_counters_leg(
+            bvh, dirs[:large.N_PERQUERY].contiguous())
         return res
 
-    res, launches["large_mesh"] = _counted(kernels, "large mesh", (K_FUSED, K_COUNTED, K_HIT, K_HIST),
-                                           path)
+    res, launches["large_mesh"] = _counted(
+        kernels, "large mesh", (K_FUSED, K_COUNTED, K_HIT, K_HIT_COUNTED, K_HIST), path)
     out.update(res)
     par, cir_, wc, pq = res["parity"], res["cir"], res["walk_counters"], res["perquery_vs_fused"]
     out["fused_bound"] = _fused_bound(bvh, wc)
@@ -1059,6 +1267,11 @@ def _large_mesh_phase(root, dev, kernels, bench_bvh, bench_dirs):
           f"vs {pq['fused_captured']} ({pq['capture_flips']} flips), distance sums "
           f"{pq['perquery_dist_sum']:.2f} vs {pq['fused_dist_sum']:.2f}; per-query loop "
           f"{pq['perquery_ms']:.2f} ms, fused {pq['fused_ms']:.2f} ms", flush=True)
+    for name, c in res["perquery_counters"].items():
+        print(f"# large mesh counted closest hit, {c['queries']} {name} queries: == the uncounted "
+              f"kernel; {c['nodes']} nodes, {c['leaves']} leaves, {c['tris']} triangles, max "
+              f"{c['nodes_per_query_max']} nodes a query; counted kernel {c['counted_ms']:.4f} ms",
+              flush=True)
     del dirs, sub, tracer, bvh
     torch.cuda.empty_cache()
 
@@ -1112,7 +1325,7 @@ def main() -> int:
     from rfx_torch.bvh import build_bvh
     from rfx_torch.geometry import make_terrain
     from rfx_torch.ops import native_lib
-    from rfx_torch.ops.bvh_trace import CLOSEST_HIT_KERNEL
+    from rfx_torch.ops.bvh_trace import CLOSEST_HIT_COUNTED_KERNEL, CLOSEST_HIT_KERNEL
     from rfx_torch.ops.coverage_hist import COVERAGE_HIST_KERNEL, COVERAGE_REDUCE_KERNEL
     from rfx_torch.ops.fused import (
         FUSED_TRACE_COUNTED_KERNEL,
@@ -1140,17 +1353,20 @@ def main() -> int:
 
     # 2. Build the five CUDA sources and the native BVH builder from the
     #    sources in this checkout, one compiler each, all started together;
-    #    the counted fused trace and the slab reduction bind their entries in
-    #    the libraries of the fused trace and the coverage histogram.
+    #    the counted fused trace, the counted closest hit and the slab
+    #    reduction bind their entries in the libraries of the fused trace, the
+    #    closest hit and the coverage histogram.
     t0 = time.perf_counter()
     per_source = (FUSED_TRACE_KERNEL, CLOSEST_HIT_KERNEL, cir.HISTOGRAM_KERNEL,
                   COVERAGE_HIST_KERNEL, MICRO_VOTE_KERNEL)
-    kernels_built = per_source + (FUSED_TRACE_COUNTED_KERNEL, COVERAGE_REDUCE_KERNEL)
+    kernels_built = per_source + (FUSED_TRACE_COUNTED_KERNEL, CLOSEST_HIT_COUNTED_KERNEL,
+                                  COVERAGE_REDUCE_KERNEL)
     with ThreadPoolExecutor(len(per_source) + 1) as pool:
         native = pool.submit(native_lib.load)
         list(pool.map(lambda k: k.load(), per_source))
         native.result()
     FUSED_TRACE_COUNTED_KERNEL.load()
+    CLOSEST_HIT_COUNTED_KERNEL.load()
     COVERAGE_REDUCE_KERNEL.load()
     for k in per_source:
         print(f"# built {k.source}: {k.build_log.strip()}")
@@ -1208,6 +1424,7 @@ def main() -> int:
     ir_err = max(ir_err, float((s_k - s_p).abs().max()))
     _sync()
     kh_ms = _cuda_ms(lambda: cir.bin_impulse_response(*h_args, **hkw), 20)
+    kh_device_ms = device_ms(lambda: cir.bin_impulse_response(*h_args, **hkw), 20)
     kh_plain_ms = _cuda_ms(lambda: cir.histogram_plain(*h_args, **hkw), 20)
     n_cap = int(full.captured.sum())
     # The library's calls for the same sums (timed here, used nowhere in the
@@ -1221,13 +1438,16 @@ def main() -> int:
     _require(torch.allclose(lib_add, ir_k, rtol=1e-4, atol=1e-9), "index_add_ != the IR kernel")
     kh_lib_ms = _cuda_ms(lambda: torch.zeros(NBINS, device=dev).index_add_(0, bins, weight), 20)
     kh_bincount_ms = _cuda_ms(lambda: torch.bincount(bins, weights=weight, minlength=NBINS), 20)
-    kh_bound = _bound(9 * N_RAYS + 4 * NBINS, 4 * N_RAYS)
+    kh_bound = histogram_bounds(full.captured, NBINS, planes=1)
     del raw, bins, weight, lib_add
     print(f"# IR histogram, {N_RAYS} rays ({n_cap} captured), {NBINS} bins: kernel == plain "
           f"(max |d| {ir_err:.3e}, {int((ir_k != 0).sum())} nonzero bins), bit-identical "
-          f"across runs; kernel {kh_ms:.4f} ms, plain {kh_plain_ms:.4f} ms, index_add_ "
+          f"across runs; kernel {kh_ms:.4f} ms a call ({kh_device_ms:.4f} ms of it on the device), "
+          f"plain {kh_plain_ms:.4f} ms, index_add_ "
           f"{kh_lib_ms:.4f} ms, bincount {kh_bincount_ms:.4f} ms, bound "
-          f"{kh_bound['bound_ms']:.4f} ms by {kh_bound['bound_by']}", flush=True)
+          f"{kh_bound['bound_ms']:.4f} ms by {kh_bound['bound_by']} (9 bytes a ray and the bins), "
+          f"{kh_bound['needed_bound_ms']:.5f} ms by the bytes it needs (the mask, the captures' "
+          f"sectors, the bins)", flush=True)
 
     # 6. The main path, through the entry points a user calls.
     tracer = Tracer(mesh, C, RATE, WINDOW, max_bounces=BOUNCES, tx_num_rays=N_RAYS, device=dev)
@@ -1265,7 +1485,7 @@ def main() -> int:
     print(f"# main path: captures {n_cap} at tx={TX}; launches {launches}", flush=True)
 
     # 7. The closest-hit kernel against its plain version.
-    k2_err, k2_ms, k2_plain_ms, k2_bound = _closest_hit_phase(mesh, bvh, sub)
+    k2 = _closest_hit_phase(mesh, bvh, sub)
 
     # 8. The fused kernel's face record against its plain version.
     k_res, k_faces = fused_trace(bvh, sub, *args, max_bounces=BOUNCES, record_faces=True)
@@ -1321,6 +1541,7 @@ def main() -> int:
     # `ms`, `bound_ms` and `library_ms` are at the main path's shape; where the
     # plain version cannot run at that shape, `plain_ms` is its time on the
     # subset it was compared on and `ms_at_plain_shape` the kernel's there.
+    kh_batch = solve["histogram_batch"]
     bench_wc, large_wc, sub14 = large["bench_walk_counters"], large["walk_counters"], large["subset"]
     votes = large["micro_vote"]["styles"]["votes"]
     m_steps, m_check = large["micro_vote"]["steps"], large["micro_vote"]["check_steps"]
@@ -1355,16 +1576,52 @@ def main() -> int:
                   f"integer (max_abs_err 0) and the trace equals the uncounted kernel's bit for bit"},
         {"name": "closest_hit", "route": "cuda", "source": "rfx_torch/csrc/closest_hit.cu",
          "replaces": "rfx/ops/pallas_trace.py:100", **counts(K_HIT),
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms, **k2_bound,
-         "library_ms": None,
-         "shape": f"{SUBSET} rays from tx on the bench terrain; also checked on their "
-                  f"second-bounce queries, 1,024 parked rays and a live triangle table"},
+         "max_abs_err": k2["max_abs_err"], "ms": k2["tx"]["ms"], "plain_ms": k2["plain_ms"],
+         **_walk_keys(k2["tx"]), "library_ms": None,
+         "ms_bounce2": k2["bounce2"]["ms"], "plain_ms_bounce2": k2["bounce2"]["walk_plain_ms"],
+         **_suffixed(_walk_keys(k2["bounce2"]), "_bounce2"),
+         "shape": f"{SUBSET} rays from tx on the bench terrain (plain_ms: brute force over the "
+                  f"padded triangles); *_bounce2: their {k2['bounce2']['queries']} second-bounce "
+                  f"queries (plain: the plain walk); bounds from the counted entry point's "
+                  f"totals; also checked on 1,024 parked rays and a live triangle table"},
+        {"name": "closest_hit_counted", "route": "cuda",
+         "source": "rfx_torch/csrc/closest_hit.cu", "replaces": "rfx/ops/pallas_trace.py:100",
+         **counts(K_HIT_COUNTED),
+         "max_abs_err": max(k2["tx"]["counters_max_abs_err"], k2["bounce2"]["counters_max_abs_err"]),
+         "ms": k2["tx"]["counted_ms"], "plain_ms": k2["tx"]["walk_plain_ms"],
+         **_counted_hit_bound(k2["tx"]), "library_ms": None,
+         "ms_bounce2": k2["bounce2"]["counted_ms"],
+         "plain_ms_bounce2": k2["bounce2"]["walk_plain_ms"],
+         **_suffixed(_counted_hit_bound(k2["bounce2"]), "_bounce2"),
+         "shape": f"the WalkCount instantiation of closest_hit: as closest_hit, plus (n, 3) "
+                  f"counters (nodes, leaves, triangles a query) that equal the plain walk's "
+                  f"integer for integer (max_abs_err 0); {SUBSET} rays from tx and their "
+                  f"second-bounce queries"},
         {"name": "ir_histogram", "route": "cuda", "source": "rfx_torch/csrc/histogram.cu",
          "replaces": "rfx/cir.py:32", **counts(K_HIST),
-         "max_abs_err": ir_err, "ms": kh_ms, "plain_ms": kh_plain_ms, **kh_bound,
-         "library_ms": kh_lib_ms, "library_ms_bincount": kh_bincount_ms,
-         "shape": f"{N_RAYS} rays, {NBINS} bins, hard; library_ms: index_add_ on ready-made "
-                  f"bins and masked weights (not deterministic)"},
+         "max_abs_err": max(ir_err, kh_batch["max_abs_err"]), "ms": kh_ms,
+         "device_ms": kh_device_ms, "plain_ms": kh_plain_ms,
+         **kh_bound, "library_ms": kh_lib_ms, "library_ms_bincount": kh_bincount_ms,
+         "ms_solver_batch": kh_batch["soft_ms"], "ms_solver_batch_hard": kh_batch["hard_ms"],
+         "device_ms_solver_batch": kh_batch["soft_device_ms"],
+         "device_ms_solver_row": kh_batch["soft_one_row_device_ms"],
+         "plain_ms_solver_batch": kh_batch["soft_plain_ms"],
+         "plain_ms_solver_batch_hard": kh_batch["hard_plain_ms"],
+         "library_ms_solver_batch_hard": kh_batch["index_add_ms"],
+         **_suffixed(kh_batch["bounds_soft"], "_solver_batch"),
+         "ms_solver_row": kh_batch["soft_one_row_ms"], "ms_solver_row_hard": kh_batch["hard_one_row_ms"],
+         "plain_ms_solver_row": kh_batch["soft_one_row_plain_ms"],
+         "plain_ms_solver_row_hard": kh_batch["hard_one_row_plain_ms"],
+         "library_ms_solver_row_hard": kh_batch["index_add_one_row_ms"],
+         **_suffixed(kh_batch["bounds_soft_one_row"], "_solver_row"),
+         "shape": f"ms, plain_ms, bound_ms, library_ms: {N_RAYS} rays, one row, {NBINS} bins, hard; "
+                  f"*_solver_batch: the inverse solve's call, {kh_batch['rows']} rows x "
+                  f"{kh_batch['entries_per_row']} entries, soft (two planes), one launch; "
+                  f"*_solver_row: one of those rows; bound_ms reads every input once (9 bytes an "
+                  f"entry) and writes the bins, needed_bound_ms counts the mask, the captures' "
+                  f"32-byte sectors and the bins; ms is the CUDA-event time of back-to-back "
+                  f"calls of the wrapper, device_ms the device's own time a call; library_ms: index_add_ on ready-made bins and "
+                  f"masked weights (hard sums, not deterministic)"},
         {"name": "coverage_hist", "route": "cuda", "source": "rfx_torch/csrc/coverage_hist.cu",
          "replaces": "rfx/ops/pallas_coverage.py:64", **counts(K_COV),
          "max_abs_err": max(cov["room"]["max_abs_err"], cov["terrain"]["max_abs_err"]),

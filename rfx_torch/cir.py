@@ -1,15 +1,19 @@
 """Impulse-response assembly and RX-power metric (port of rfx/cir.py).
 
-`bin_impulse_response` runs the IR histogram kernel
-(rfx_torch/csrc/histogram.cu) on a CUDA tensor and its plain version,
-`histogram_plain` (a masked `index_add_`), on a CPU tensor. Soft binning is
-two hard histograms, the low and the high half, through the same kernel.
+`bin_impulse_response` bins one row of paths, `(n,)`, or a batch of rows,
+`(R, n)`, in one call: the IR histogram kernel (rfx_torch/csrc/histogram.cu)
+on a CUDA tensor, one launch whatever R, and its plain version,
+`histogram_plain` (an `index_add_` over the captured paths), on a CPU
+tensor. Soft binning is two hard histograms, the low and the high half: two
+planes of the same launch, added afterwards.
 
 Both branches go through one `torch.autograd.Function`, so the IR carries
 the same gradient on either device: the backward is plain PyTorch (the
-reference's gradient is XLA's autodiff of the binning, not a kernel) and
-reads back the bins the forward used. Hard binning is piecewise constant in
-the distance; soft binning is linear in it between bin centres.
+reference's gradient is XLA's autodiff of the binning, not a kernel). It
+works on the list of captured paths that the forward saved and writes their
+gradients into zeros, so its temporaries have the size of the captures, not
+of the inputs. Hard binning is piecewise constant in the distance; soft
+binning is linear in it between bin centres.
 
 `rx_power_dbm` is a direct convolution, so exact zeros stay zero: the metric
 averages over the nonzero samples only, and an FFT would fill them with
@@ -19,100 +23,132 @@ same power from the paths' phasors, with no impulse response.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
 from rfx_torch.ops._build import CudaKernel, F, I, P
 
-__all__ = ["bin_impulse_response", "cir_from_trace", "histogram_plain",
+__all__ = ["bin_impulse_response", "cir_from_trace", "histogram_plain", "mask_tiles",
            "rx_power_dbm", "rx_power_dbm_phasor", "to_dbm", "HISTOGRAM_KERNEL"]
 
 HARD, SOFT_LO, SOFT_HI = 0, 1, 2
 
 HISTOGRAM_KERNEL = CudaKernel(
     "histogram.cu", "rfx_ir_histogram",
-    [P, P, P, I, F, F, I, I, I, I, P, P, P],
+    [P, P, P, I, I, F, F, I, I, I, P, P, P, ctypes.c_longlong, P],
 )
 
-# Pass 1 of the kernel uses at most this many blocks, each over a fixed,
-# contiguous range of rays; the grid depends only on the ray count, so the
-# summation order (and the result) does not change from run to run or card
-# to card.
-_MAX_BLOCKS = 256
-_MIN_RAYS_PER_BLOCK = 4096
+# The kernel's constants (csrc/histogram.cu): a warp counts a tile of 128
+# 16-byte words of mask; a block sorts a chunk of 2,048 captures.
+_TILE_WORDS = 128
+_CHUNK = 2048
+_CTRL_INTS = 4
+
+
+def mask_tiles(n: int) -> int:
+    """Tiles a row of n mask bytes can span: its first 16-byte word may start
+    up to 15 bytes before the row."""
+    return -(-((n + 30) // 16) // _TILE_WORDS)
 
 
 def _check_inputs(amplitude, distance, captured):
-    n = amplitude.shape[0]
     if amplitude.dtype != torch.float32 or distance.dtype != torch.float32:
         raise TypeError("amplitude and distance must be float32")
     if captured.dtype != torch.bool:
         raise TypeError("captured must be bool")
-    if amplitude.shape != (n,) or distance.shape != (n,) or captured.shape != (n,):
-        raise ValueError("amplitude, distance and captured must be (N,) each")
+    if amplitude.ndim not in (1, 2) or not (amplitude.shape == distance.shape == captured.shape):
+        raise ValueError("amplitude, distance and captured must be (N,) or (R, N) each")
     if not (amplitude.device == distance.device == captured.device):
         raise ValueError("amplitude, distance and captured must be on one device")
 
 
-def histogram_plain(amplitude, distance, captured, *, nbins: int, light_speed_mps: float,
-                    sample_rate_hz: float, mode: int = HARD) -> torch.Tensor:
-    """Plain PyTorch version of the histogram kernel: (nbins,) f32. The
-    divisors are 0-dim tensors on the data's device, so the bins come from a
-    true IEEE division, as in the kernel (a Python-scalar divisor would let
-    PyTorch's CUDA path multiply by its reciprocal)."""
+def _rows(t: torch.Tensor) -> int:
+    return 1 if t.ndim == 1 else t.shape[0]
+
+
+def _capture_list(captured: torch.Tensor) -> torch.Tensor:
+    """Flat indices of the captured paths, in row-major (ray) order."""
+    return captured.reshape(-1).nonzero().squeeze(1)
+
+
+def _plain_from_list(amplitude, distance, flat, *, nbins: int, light_speed_mps: float,
+                     sample_rate_hz: float, mode: int) -> torch.Tensor:
+    """`histogram_plain` given the capture list `flat`."""
     dev = amplitude.device
+    rows, n = _rows(amplitude), amplitude.shape[-1]
     c = torch.tensor(light_speed_mps, dtype=torch.float32, device=dev)
     rate = torch.tensor(sample_rate_hz, dtype=torch.float32, device=dev)
-    delay = distance / c * rate
+    delay = distance.reshape(-1)[flat] / c * rate
+    w = amplitude.reshape(-1)[flat]
     if mode == HARD:
         bins = delay.to(torch.int32)
-        w = amplitude
     else:
         lo = torch.floor(delay)
         frac = delay - lo
         bins = lo.to(torch.int32) + (1 if mode == SOFT_HI else 0)
-        w = amplitude * frac if mode == SOFT_HI else amplitude * (1.0 - frac)
-    valid = captured & (bins >= 0) & (bins < nbins)
-    ir = torch.zeros(nbins, dtype=torch.float32, device=dev)
-    return ir.index_add_(0, bins[valid].long(), w[valid])
+        w = w * frac if mode == SOFT_HI else w * (1.0 - frac)
+    valid = (bins >= 0) & (bins < nbins)
+    row = torch.div(flat, max(n, 1), rounding_mode="floor")
+    ir = torch.zeros(rows * nbins, dtype=torch.float32, device=dev)
+    ir.index_add_(0, (row * nbins + bins)[valid], w[valid])
+    return ir.reshape(nbins) if amplitude.ndim == 1 else ir.reshape(rows, nbins)
+
+
+def histogram_plain(amplitude, distance, captured, *, nbins: int, light_speed_mps: float,
+                    sample_rate_hz: float, mode: int = HARD) -> torch.Tensor:
+    """Plain PyTorch version of the histogram kernel: (nbins,) f32 of (N,)
+    inputs, (R, nbins) of (R, N). The divisors are 0-dim tensors on the
+    data's device, so the bins come from a true IEEE division, as in the
+    kernel (a Python-scalar divisor would let PyTorch's CUDA path multiply
+    by its reciprocal). Only the captured paths are gathered and binned."""
+    return _plain_from_list(amplitude, distance, _capture_list(captured), nbins=nbins,
+                            light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz,
+                            mode=mode)
 
 
 def _launch(amplitude, distance, captured, *, nbins: int, light_speed_mps: float,
-            sample_rate_hz: float, mode: int) -> torch.Tensor:
-    """One histogram of `mode`: the kernel on a CUDA tensor, the plain
-    version on a CPU tensor; no autograd."""
+            sample_rate_hz: float, soft: bool) -> list:
+    """One launch of the kernel on (N,) or (R, N) CUDA tensors, R, N > 0: the
+    histograms, (nbins,) or (R, nbins) each, one in hard mode, the low and
+    the high half in soft mode; no autograd."""
     dev = amplitude.device
-    if dev.type == "cpu":
-        return histogram_plain(amplitude, distance, captured, nbins=nbins,
-                               light_speed_mps=light_speed_mps,
-                               sample_rate_hz=sample_rate_hz, mode=mode)
     if dev.type != "cuda":
-        raise ValueError(f"no histogram for device {dev}")
-    kern = HISTOGRAM_KERNEL
-    max_bins = kern.symbol_of("rfx_ir_histogram_max_bins")()
-    if nbins > max_bins:
-        raise ValueError(f"the histogram kernel holds at most {max_bins} bins in shared "
-                         f"memory on this card, got {nbins}")
-    amplitude, distance, captured = (t.contiguous() for t in (amplitude, distance, captured))
-    n = amplitude.shape[0]
-    if n >= 2**31:
-        raise ValueError(f"at most 2^31 - 1 paths per launch, got {n}")
-    nblocks = max(1, min(_MAX_BLOCKS, -(-n // _MIN_RAYS_PER_BLOCK)))
-    rays_per_block = -(-n // nblocks)
-    partials = torch.empty((nblocks, nbins), dtype=torch.float32, device=dev)
-    out = torch.empty(nbins, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        kern.launch(amplitude.data_ptr(), distance.data_ptr(), captured.data_ptr(), n,
-                    float(light_speed_mps), float(sample_rate_hz), nbins, mode, nblocks,
-                    rays_per_block, partials.data_ptr(), out.data_ptr(), stream)
-    return out
+        raise ValueError(f"no histogram kernel for device {dev}")
+    amplitude, distance, captured = amplitude.contiguous(), distance.contiguous(), captured.contiguous()
+    rows, n = _rows(amplitude), amplitude.shape[-1]
+    planes = 2 if soft else 1
+    if n > 2**31 - 64 or nbins >= 2**31 - 1:
+        raise ValueError(f"at most 2^31 - 64 paths a row and 2^31 - 2 bins, got {n} and {nbins}")
+    tmax = mask_tiles(n)
+    if planes * rows * -(-n // _CHUNK) >= 2**31 or rows * (tmax + 1) >= 2**31:
+        raise ValueError(f"too many paths for one launch: {rows} rows of {n}")
+    # One buffer: the histograms, behind them the kernel's counters (one
+    # memset zeroes both), then its scratch (tile counts, offsets, the rows'
+    # chunk counts, and before them 4 uint16 slots a tile), all 4-byte words.
+    n_plane = rows * nbins
+    n_out = planes * n_plane
+    n_zero = n_out + _CTRL_INTS + planes * rows
+    n_zero += n_zero & 1  # the scratch starts on 8 bytes
+    buf = torch.empty(n_zero + rows * (4 * tmax + 2) + 1, dtype=torch.float32, device=dev)
+    ptr = buf.data_ptr()
+    args = (amplitude.data_ptr(), distance.data_ptr(), captured.data_ptr(), n, rows,
+            float(light_speed_mps), float(sample_rate_hz), nbins, int(soft), tmax,
+            ptr + 4 * n_zero, ptr, ptr + 4 * n_out, 4 * n_zero)
+    if torch.cuda.current_device() == dev.index:  # spare a single-row call the context's host time
+        HISTOGRAM_KERNEL.launch(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            HISTOGRAM_KERNEL.launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+    shape = amplitude.shape[:-1] + (nbins,)
+    return [buf.narrow(0, h * n_plane, n_plane).view(shape) for h in range(planes)]
 
 
 class _Histogram(torch.autograd.Function):
-    """Sum of the histograms of `modes` ((HARD,) or (SOFT_LO, SOFT_HI)), with
-    the gradient of rfx.cir.bin_impulse_response (method="scatter"):
+    """The histogram of (N,) or (R, N) paths, hard or soft (the sum of the
+    low and the high half), with the gradient of rfx.cir.bin_impulse_response
+    (method="scatter"):
 
     - hard: g_amp = g[bin] where the path is valid, else 0; g_dist = 0;
     - soft, with delay = distance / c * rate and w = delay - floor(delay):
@@ -122,66 +158,84 @@ class _Histogram(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, amplitude, distance, captured, nbins, light_speed_mps, sample_rate_hz,
-                modes):
+                soft):
         kw = dict(nbins=nbins, light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz)
-        ir = _launch(amplitude, distance, captured, mode=modes[0], **kw)
-        for mode in modes[1:]:
-            ir = ir + _launch(amplitude, distance, captured, mode=mode, **kw)
-        ctx.save_for_backward(amplitude, distance, captured)
+        rows, n = _rows(amplitude), amplitude.shape[-1]
+        dev = amplitude.device
+        needs_grad = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
+        flat = _capture_list(captured) if needs_grad or dev.type == "cpu" else None
+        if dev.type == "cpu":
+            modes = (SOFT_LO, SOFT_HI) if soft else (HARD,)
+            halves = [_plain_from_list(amplitude, distance, flat, mode=m, **kw) for m in modes]
+        elif rows * n == 0:
+            halves = [torch.zeros(amplitude.shape[:-1] + (nbins,), dtype=torch.float32,
+                                  device=dev)]
+        else:
+            halves = _launch(amplitude, distance, captured, soft=soft, **kw)
+        if needs_grad:
+            ctx.save_for_backward(amplitude, distance, flat)
         ctx.kw = kw
-        ctx.modes = modes
-        return ir
+        ctx.soft = soft
+        return halves[0] + halves[1] if len(halves) == 2 else halves[0]
 
     @staticmethod
     def backward(ctx, g):
-        amplitude, distance, captured = ctx.saved_tensors
+        amplitude, distance, flat = ctx.saved_tensors
         nbins = ctx.kw["nbins"]
         dev = amplitude.device
+        n = amplitude.shape[-1]
         c = torch.tensor(ctx.kw["light_speed_mps"], dtype=torch.float32, device=dev)
         rate = torch.tensor(ctx.kw["sample_rate_hz"], dtype=torch.float32, device=dev)
         zero = torch.zeros((), dtype=torch.float32, device=dev)
-        delay = distance / c * rate
+        # Everything below has one entry per captured path.
+        amp = amplitude.reshape(-1)[flat]
+        delay = distance.reshape(-1)[flat] / c * rate
+        first_bin = torch.div(flat, max(n, 1), rounding_mode="floor") * nbins
+        g_bins = g.reshape(-1)
 
         def g_at(bins):
-            valid = captured & (bins >= 0) & (bins < nbins)
-            return torch.where(valid, g[bins.clamp(0, nbins - 1).long()], zero)
+            valid = (bins >= 0) & (bins < nbins)
+            return torch.where(valid, g_bins[first_bin + bins.clamp(0, nbins - 1)], zero)
 
-        g_amp = torch.zeros_like(amplitude)
-        slope = None  # d(weight)/d(delay) / amplitude, summed over the soft halves
-        lo = torch.floor(delay)
-        w = delay - lo
-        lo_i = lo.to(torch.int32)
-        for mode in ctx.modes:
-            if mode == HARD:
-                g_amp = g_amp + g_at(delay.to(torch.int32))
-            elif mode == SOFT_LO:
-                g_lo = g_at(lo_i)
-                g_amp = g_amp + (1.0 - w) * g_lo
-                slope = -g_lo if slope is None else slope - g_lo
-            else:
-                g_hi = g_at(lo_i + 1)
-                g_amp = g_amp + w * g_hi
-                slope = g_hi if slope is None else slope + g_hi
-        g_dist = (torch.zeros_like(distance) if slope is None
-                  else amplitude * slope * rate / c)
-        return g_amp, g_dist, None, None, None, None, None
+        def scattered(values):
+            out = torch.zeros(amplitude.shape, dtype=torch.float32, device=dev)
+            out.reshape(-1)[flat] = values
+            return out
+
+        if not ctx.soft:
+            g_amp = g_at(delay.to(torch.int32))
+            g_dist = None
+        else:
+            lo = torch.floor(delay)
+            w = delay - lo
+            lo_i = lo.to(torch.int32)
+            g_lo, g_hi = g_at(lo_i), g_at(lo_i + 1)
+            g_amp = (1.0 - w) * g_lo + w * g_hi
+            g_dist = amp * (g_hi - g_lo) * rate / c
+        return (scattered(g_amp) if ctx.needs_input_grad[0] else None,
+                None if not ctx.needs_input_grad[1]
+                else torch.zeros_like(distance) if g_dist is None else scattered(g_dist),
+                None, None, None, None, None)
 
 
 def bin_impulse_response(amplitude, distance, captured, *, nbins: int, light_speed_mps: float,
                          sample_rate_hz: float, soft: bool = False) -> torch.Tensor:
-    """Scatter per-path amplitudes into delay bins, (nbins,) f32,
-    differentiable in amplitude and distance. Hard mode is the reference's
+    """Scatter per-path amplitudes into delay bins, differentiable in
+    amplitude and distance: (nbins,) f32 of (N,) inputs, or (R, nbins) of
+    (R, N) inputs, each row binned on its own. Hard mode is the reference's
     bin = int(distance / c * rate), out-of-window paths dropped; soft mode
     splits each amplitude linearly between the two neighbouring bins, so the
     IR has a gradient in the distance.
 
     A CPU tensor goes to `histogram_plain`; a CUDA tensor launches the
-    kernel, which is bit-identical from run to run."""
+    kernel, once for all rows and both soft halves. The kernel's result is
+    bit-identical from run to run, and a row's IR is the same bits alone or
+    in a batch."""
     _check_inputs(amplitude, distance, captured)
     if nbins < 1:
         raise ValueError("nbins must be at least 1")
     return _Histogram.apply(amplitude, distance, captured, nbins, light_speed_mps,
-                            sample_rate_hz, (SOFT_LO, SOFT_HI) if soft else (HARD,))
+                            sample_rate_hz, bool(soft))
 
 
 def cir_from_trace(result, *, tx_power, num_rays: int, nbins: int, light_speed_mps: float,

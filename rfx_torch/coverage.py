@@ -9,7 +9,8 @@ Two engines build the impulse responses:
 
 - `map`: receivers in batches of `rx_batch`, one broadcast sphere test over
   the B x N segments per batch, the first capture along the bounce axis,
-  then each receiver's IR through the histogram Function of rfx_torch.cir.
+  then the batch's IRs in one call of the histogram Function of
+  rfx_torch.cir (one row a receiver, bounces and rays flattened).
   Hard or soft binning, analytic or icosphere receiver; differentiable,
   which the inverse solver needs.
 - `batched`: the coverage kernel (rfx_torch.ops.coverage_hist) on a CUDA
@@ -111,13 +112,13 @@ def _irs_from_segments(segs: EnvSegments, rx_centers, rx_radius, *, nbins: int,
         t_rx, first = _first_capture(segs, centers[s:s + rx_batch], rx_radius, rx_mode)
         amp = torch.where(first, segs.amplitude, zero) * scale
         dist = torch.where(first, segs.distance + t_rx, zero)
-        for r in range(t_rx.shape[0]):
-            irs.append(bin_impulse_response(
-                amp[r].reshape(-1), dist[r].reshape(-1), first[r].reshape(-1), nbins=nbins,
-                light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz, soft=soft))
+        r = t_rx.shape[0]
+        irs.append(bin_impulse_response(
+            amp.reshape(r, -1), dist.reshape(r, -1), first.reshape(r, -1), nbins=nbins,
+            light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz, soft=soft))
     if not irs:
         return torch.zeros((0, nbins), dtype=torch.float32, device=dev)
-    return torch.stack(irs)
+    return torch.cat(irs)
 
 
 def coverage_irs(scene: Scene, tx_pos, directions: torch.Tensor, rx_centers, rx_radius, *,

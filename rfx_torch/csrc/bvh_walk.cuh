@@ -31,10 +31,15 @@
 //     holds up the lanes that are still stepping through boxes. Nothing is
 //     speculated: each lane visits the nodes it visited before, in the same
 //     order.
-// Measured on the card and not kept (PERF.md has the times): loading a leaf's
-// triangles 2, 4 or 8 at a time before the first test. It made the fused
-// trace slower: the registers that hold the batch cost more warps than the
-// round trips saved.
+//   - a leaf's triangles can be loaded several at a time before the first
+//     test (`WalkLoads`, a template parameter). Measured on the card (PERF.md
+//     has the times): it made the fused trace slower, because the registers
+//     that hold the batch cost more warps than the round trips saved, so the
+//     fused trace keeps one at a time; the per-query kernel, whose grids are
+//     small or whose walks are long and incoherent, gains 2-11% from four.
+// Measured for the per-query kernel and not kept: loading a node together
+// with its preorder successor (one 64-byte request; 5-19% slower: most steps
+// skip, and the second box is wasted traffic and registers).
 //
 // The walk is a template on a counting policy: NoCount's calls are empty, so
 // that instantiation compiles to the walk without counters; WalkCount tallies
@@ -111,14 +116,38 @@ __device__ __forceinline__ void test_triangle(
   }
 }
 
+// How a walk loads a leaf: its triangles are loaded kLeafBatch at a time
+// before the first of them is tested, so a leaf of n triangles waits for
+// ceil(n / kLeafBatch) round trips instead of n. The results do not depend on
+// it: every policy tests the same triangles in the same order. The fused
+// trace keeps 1 (the batch's registers cost it more warps than the round
+// trips saved); the per-query kernel takes 4 (closest_hit.cu).
+struct WalkLoads {
+  static constexpr int kLeafBatch = 1;
+};
+
 // The `count` triangles from padded index `start`, in increasing index.
+template <class Loads>
 __device__ __forceinline__ void test_leaf(
     float ox, float oy, float oz, float dx, float dy, float dz,
     const float4* __restrict__ tris, int start, int count, Hit& hit) {
-  for (int j = start; j < start + count; ++j) {
-    const float4* row = tris + 3 * static_cast<size_t>(j);
-    test_triangle(ox, oy, oz, dx, dy, dz, row[0], row[1],
-                  reinterpret_cast<const float*>(row + 2)[0], j, hit);
+  constexpr int kBatch = Loads::kLeafBatch;
+  const int end = start + count;
+  for (int j0 = start; j0 < end; j0 += kBatch) {
+    float4 a[kBatch], c[kBatch];
+    float e2z[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int j = j0 + b < end ? j0 + b : end - 1;
+      const float4* row = tris + 3 * static_cast<size_t>(j);
+      a[b] = row[0];
+      c[b] = row[1];
+      e2z[b] = reinterpret_cast<const float*>(row + 2)[0];
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      if (j0 + b < end) test_triangle(ox, oy, oz, dx, dy, dz, a[b], c[b], e2z[b], j0 + b, hit);
+    }
   }
 }
 
@@ -126,7 +155,7 @@ __device__ __forceinline__ void test_leaf(
 // (kMiss on a miss) and writes the padded index of its triangle to *best
 // (-1 on a miss). A ray parked far outside the scene (|o| ~ 1e9) misses the
 // root box and returns at once.
-template <class Counter>
+template <class Counter, class Loads = WalkLoads>
 __device__ __forceinline__ float bvh_closest_hit(
     float ox, float oy, float oz, float dx, float dy, float dz,
     const float4* __restrict__ nodes, int n_nodes, const float4* __restrict__ tris,
@@ -161,7 +190,7 @@ __device__ __forceinline__ float bvh_closest_hit(
     if (leaf != 0) {
       const int count = leaf & kCountMask;
       counter.leaf(count);
-      test_leaf(ox, oy, oz, dx, dy, dz, tris, leaf >> kCountBits, count, hit);
+      test_leaf<Loads>(ox, oy, oz, dx, dy, dz, tris, leaf >> kCountBits, count, hit);
     }
   }
   *best_out = hit.tri;

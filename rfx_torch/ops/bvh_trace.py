@@ -44,12 +44,17 @@ from rfx_torch.ops.intersect import (
     sanitized_t_vjp,
 )
 
-__all__ = ["CLOSEST_HIT_KERNEL", "closest_hit", "closest_hit_plain", "live_tri",
+__all__ = ["CLOSEST_HIT_KERNEL", "CLOSEST_HIT_COUNTED_KERNEL", "closest_hit", "closest_hit_plain", "live_tri",
            "make_kernel_env_hit", "mt_block"]
 
 CLOSEST_HIT_KERNEL = CudaKernel(
     "closest_hit.cu", "rfx_closest_hit",
     [P, P, I, P, I, P, P, P, P, P, P, P],
+)
+# The same kernel with the walk's counters (one more output).
+CLOSEST_HIT_COUNTED_KERNEL = CudaKernel(
+    "closest_hit.cu", "rfx_closest_hit_counted",
+    [P, P, I, P, I, P, P, P, P, P, P, P, P],
 )
 
 # Upper bound on rays x padded triangles per brute-force chunk of the plain
@@ -136,11 +141,14 @@ def _check_rays(o, d):
         raise ValueError(f"at most 2^31 - 1 rays per launch, got {n}")
 
 
-def closest_hit(bvh: PackedBVH, o, d, tri=None):
+def closest_hit(bvh: PackedBVH, o, d, tri=None, *, count: bool = False):
     """Closest hit of (N, 3) f32 rays over the packed BVH: (t, idx, face,
     nrm) as `closest_hit_plain`. `tri` (P, 12) replaces the packed triangle
-    table (a `live_tri` repack). A CPU tensor runs the plain version; a CUDA
-    tensor launches the kernel, or raises. No autograd: see
+    table (a `live_tri` repack). With `count`, a fifth output: (N, 3) int64,
+    per query the nodes visited, the leaves entered and the triangles tested
+    (the counted entry point of the kernel; on a CPU tensor the counters of
+    the plain walk, rfx_torch.ops.bvh_traverse). A CPU tensor runs the plain
+    version; a CUDA tensor launches the kernel, or raises. No autograd: see
     `make_kernel_env_hit`."""
     _check_rays(o, d)
     tri = bvh.tri if tri is None else tri
@@ -150,7 +158,12 @@ def closest_hit(bvh: PackedBVH, o, d, tri=None):
     if bvh.tri.device != dev or tri.device != dev:
         raise ValueError(f"BVH tables are on {bvh.tri.device}, rays on {dev}")
     if dev.type == "cpu":
-        return closest_hit_plain(bvh, o, d, tri)
+        out = closest_hit_plain(bvh, o, d, tri)
+        if count:
+            from rfx_torch.ops.bvh_traverse import walk_closest_hit
+
+            out += (walk_closest_hit(bvh, o, d, tri, count=True)[2],)
+        return out
     if dev.type != "cuda":
         raise ValueError(f"no closest-hit query for device {dev}")
     o, d, tri = o.contiguous(), d.contiguous(), tri.contiguous()
@@ -161,15 +174,18 @@ def closest_hit(bvh: PackedBVH, o, d, tri=None):
     idx = torch.empty(n, dtype=torch.int32, device=dev)
     face = torch.empty(n, dtype=torch.int32, device=dev)
     nrm = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    if n == 0:
-        return t, idx, face, nrm
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        CLOSEST_HIT_KERNEL.launch(
-            o.data_ptr(), d.data_ptr(), n, bvh.nodes.data_ptr(), bvh.n_nodes, tri.data_ptr(),
-            bvh.tri_face.data_ptr(), t.data_ptr(), idx.data_ptr(), face.data_ptr(),
-            nrm.data_ptr(), stream)
-    return t, idx, face, nrm
+    counts = torch.empty((n, 3), dtype=torch.int32, device=dev) if count else None
+    if n > 0:
+        args = (o.data_ptr(), d.data_ptr(), n, bvh.nodes.data_ptr(), bvh.n_nodes, tri.data_ptr(),
+                bvh.tri_face.data_ptr(), t.data_ptr(), idx.data_ptr(), face.data_ptr(),
+                nrm.data_ptr())
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if count:
+                CLOSEST_HIT_COUNTED_KERNEL.launch(*args, counts.data_ptr(), stream)
+            else:
+                CLOSEST_HIT_KERNEL.launch(*args, stream)
+    return (t, idx, face, nrm, counts.long()) if count else (t, idx, face, nrm)
 
 
 def _unit(n):

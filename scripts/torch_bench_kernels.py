@@ -14,17 +14,32 @@ events, the mean of `--reps` calls after one warm-up):
 - K2, the per-query closest hit, on the bench terrain at 65,536, 1,048,576
   and 2,621,440 rays from tx (the shapes of the checks, of the solver and
   the coverage trace, of the scan gradient path) and on their second-bounce
-  queries, and on the large terrain at 16,384 and 1,048,576 rays;
+  queries, and on the large terrain at 16,384 and 1,048,576 rays; each set
+  again through the counted entry point, which gives its bound (the formula
+  of chip_smoke.py), the mean and the maximum of the nodes a query visits
+  and the mean of the per-warp maximum; at 1,048,576 rays also the
+  second-bounce queries left in place among parked lanes (as the tracers
+  pass them) and compacted and sorted by a Morton code of their origins;
 - K3, the coverage histogram, 2,048 receivers x 2 bounces x 1,048,576 rays x
   10,000 bins on the room and on the bench terrain;
-- K-H, the IR histogram, at the solver's shape: 1,048,576 rays, 20,000
-  bins, one receiver's captures, hard and soft.
+- K-H, the IR histogram, 20,000 bins, hard and soft: the forward shape
+  (5,242,880 rays of the bench workload, one row) and the solver's shapes
+  (the map engine's planes of 1,048,576 rays x 4 bounces for the 64
+  receivers of chip_smoke.py's inverse solve: 4,194,304 entries a row; one
+  row, and all 64 in one call), each with the plain version's time,
+  `index_add_` on ready-made bins and weights, and two bounds: 9 bytes an
+  entry plus the bins, and the bytes the function needs (the mask, 8 bytes a
+  capture by 32-byte sector, the bins). `*_ms` is the CUDA-event time of
+  back-to-back calls of the wrapper, `*_device_ms` the device's own time a
+  call under torch.profiler: where the first is the larger, the call is
+  bound by the host that enqueues it.
 
-`--other DIR` runs K1, K2 and K3 in a child process on the checkout in DIR
-(another commit of this repository, unpacked there), before and after this
-checkout's runs, and compares: K1's four outputs bit for bit on both
-terrains, K3's nonzero bins exactly and its values within rtol 1e-5 / atol
-1e-12. Prints one JSON object and writes the whole record to `--out`; `card`
+`--other DIR` runs K1, K2, K3 and K-H in a child process on the checkout in
+DIR (another commit of this repository, unpacked there), before and after
+this checkout's runs, and compares: K1's four outputs bit for bit on both
+terrains, K3's and K-H's nonzero bins exactly and their values within rtol
+1e-5 / atol 1e-12 (a checkout whose histogram takes one row a call is given
+the rows one by one). Prints one JSON object and writes the whole record to `--out`; `card`
 is nvidia-smi's name and power limit.
 """
 
@@ -78,7 +93,7 @@ class Workloads:
 
         self.dev = dev
         self.dirs = large.morton_dirs(smoke.N_RAYS, 0, dev)
-        meshes = {name: make_terrain(**s["terrain"]) for name, s in SCENES.items()}
+        meshes = self.meshes = {name: make_terrain(**s["terrain"]) for name, s in SCENES.items()}
         self.bvh = {name: pack_bvh(build_bvh(mesh, leaf_size=large.LEAF), dev)
                     for name, mesh in meshes.items()}
         cov_meshes = {"room": make_room(), "terrain": meshes["bench"]}
@@ -109,6 +124,37 @@ def run_k1(w: Workloads, reps: int, keep: dict) -> dict:
     return out
 
 
+def _morton_order(o):
+    """Order of (N, 3) points along a 30-bit Morton curve over their box."""
+    import torch
+
+    lo, hi = o.min(0).values, o.max(0).values
+    q = ((o - lo) / (hi - lo + 1e-9) * 1023).long().clamp(0, 1023)
+
+    def spread(v):
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        return (v | (v << 2)) & 0x09249249
+
+    return torch.argsort(spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2))
+
+
+def _k2_set(bvh, o, d, reps: int) -> dict:
+    """Time one query set, and count it where the checkout has the counted
+    entry point."""
+    import inspect
+
+    from rfx_torch.ops.bvh_trace import closest_hit
+
+    (t, idx, _, _), ms = _ms(lambda: closest_hit(bvh, o, d), reps)
+    out = {"queries": int(o.shape[0]), "ms": ms, "hits": int((t < 1e29).sum()),
+           "digest": _digest([t, idx])}
+    if "count" in inspect.signature(closest_hit).parameters:
+        out.update(smoke.closest_hit_stats(bvh, o, d))
+    return out
+
+
 def run_k2(w: Workloads, reps: int) -> dict:
     import torch
 
@@ -121,15 +167,20 @@ def run_k2(w: Workloads, reps: int) -> dict:
         for n in sizes:
             d = w.dirs[:: smoke.N_RAYS // n][:n].contiguous()
             o = torch.tensor(s["tx"], device=w.dev).expand(n, 3).contiguous()
-            (t, idx, _, nrm), ms = _ms(lambda: closest_hit(bvh, o, d), reps)
+            t, _, _, nrm = closest_hit(bvh, o, d)
             hit = t < 1e29
-            o2 = (o + d * t[:, None])[hit].contiguous()
-            d2 = (d - 2.0 * dot3(d, nrm)[:, None] * nrm)[hit].contiguous()
-            (t2, idx2, _, _), ms2 = _ms(lambda: closest_hit(bvh, o2, d2), reps)
-            out[f"{name}, {n} rays from tx"] = {"ms": ms, "hits": int(hit.sum()),
-                                                "digest": _digest([t, idx])}
-            out[f"{name}, {int(hit.sum())} second-bounce queries"] = {
-                "ms": ms2, "hits": int((t2 < 1e29).sum()), "digest": _digest([t2, idx2])}
+            parked = torch.full((), 1e9, device=w.dev)
+            o2 = torch.where(hit[:, None], o + d * t[:, None], parked)
+            d2 = d - 2.0 * dot3(d, nrm)[:, None] * nrm
+            oc, dc = o2[hit].contiguous(), d2[hit].contiguous()
+            out[f"{name}, {n} rays from tx"] = _k2_set(bvh, o, d, reps)
+            out[f"{name}, {int(hit.sum())} second-bounce queries"] = _k2_set(bvh, oc, dc, reps)
+            if n == smoke.SOLVER_RAYS:
+                out[f"{name}, {n} second-bounce queries in place, misses parked"] = _k2_set(
+                    bvh, o2.contiguous(), d2.contiguous(), reps)
+                order = _morton_order(oc)
+                out[f"{name}, {int(hit.sum())} second-bounce queries sorted by origin"] = _k2_set(
+                    bvh, oc[order].contiguous(), dc[order].contiguous(), reps)
     return out
 
 
@@ -150,26 +201,86 @@ def run_k3(w: Workloads, reps: int, keep: dict) -> dict:
     return out
 
 
-def run_kh(w: Workloads, reps: int) -> dict:
-    from rfx_torch import cir
-    from rfx_torch.ops.fused import fused_trace
+def _rows_fn(cir, fn):
+    """`fn` (bin_impulse_response or histogram_plain) over (R, n) rows; a
+    checkout whose histogram takes one row a call gets them one by one."""
+    import torch
 
-    n, nbins = smoke.SOLVER_RAYS, smoke.NBINS
-    r = fused_trace(w.bvh["bench"], large.morton_dirs(n, 1, w.dev), smoke.TX, (-20.0, -20.0, 8.0),
-                    smoke.RX_RADIUS, 5.0, 1.0, max_bounces=smoke.BOUNCES)
+    if hasattr(cir, "mask_tiles"):
+        return fn
+    return lambda amp, dist, cap, **kw: torch.stack(
+        [fn(a, d, c, **kw) for a, d, c in zip(amp, dist, cap)])
+
+
+def run_kh(w: Workloads, reps: int, keep: dict) -> dict:
+    import torch
+
+    from rfx_torch import cir
+    from rfx_torch.coverage import _amp_scale, _first_capture, make_grid
+    from rfx_torch.ops.bvh_trace import make_kernel_env_hit
+    from rfx_torch.ops.fused import fused_trace
+    from rfx_torch.tracer import Scene, trace_env
+    import numpy as np
+
+    nbins = smoke.NBINS
     kw = dict(nbins=nbins, light_speed_mps=smoke.C, sample_rate_hz=smoke.RATE)
-    args = (r.amplitude * (1.0 / n), r.distance, r.captured)
-    out = {"rays": n, "captured": int(r.captured.sum())}
-    for soft in (False, True):
-        _, ms = _ms(lambda: cir.bin_impulse_response(*args, soft=soft, **kw), reps)
-        out["soft_ms" if soft else "hard_ms"] = ms
-    # 9 bytes a ray in, the bins out, at the card's memory rate.
-    out["bound_ms"] = (9 * n + 4 * nbins) / smoke.PEAK_BYTES_PER_S * 1e3
+    zero = torch.zeros((), device=w.dev)
+    r = fused_trace(w.bvh["bench"], w.dirs, smoke.TX, smoke.RX, smoke.RX_RADIUS, 5.0, 1.0,
+                    max_bounces=smoke.BOUNCES)
+    shapes = {"forward": (r.amplitude[None] * (1.0 / smoke.N_RAYS), r.distance[None],
+                          r.captured[None])}
+    # The inverse solve's planes (chip_smoke.py phase 11), as the map engine
+    # hands them to the histogram: bounces and rays flattened, one row a receiver.
+    n = smoke.SOLVER_RAYS
+    mesh = w.meshes["bench"]
+    scene = Scene.from_mesh(mesh, w.dev)
+    segs = trace_env(scene, smoke.TX, large.morton_dirs(n, 1, w.dev), max_bounces=smoke.BOUNCES,
+                     env_hit=make_kernel_env_hit(w.bvh["bench"]))
+    axis = np.linspace(-20.0, 20.0, 8)
+    centers = torch.as_tensor(make_grid(axis, axis, [8.0]), device=w.dev)
+    t_rx, first = _first_capture(segs, centers, 1.0, "analytic")
+    rows = centers.shape[0]
+    amp = (torch.where(first, segs.amplitude, zero) * _amp_scale(1.0, n, w.dev)).reshape(rows, -1)
+    dist = torch.where(first, segs.distance + t_rx, zero).reshape(rows, -1)
+    first = first.reshape(rows, -1)
+    del t_rx, segs
+    lit = int(first.sum(dim=1).argmax())
+    shapes["solver, one receiver"] = (amp[lit:lit + 1], dist[lit:lit + 1], first[lit:lit + 1])
+    shapes[f"solver, {rows} receivers"] = (amp, dist, first)
+
+    out = {}
+    bin_rows = _rows_fn(cir, cir.bin_impulse_response)
+    plain_rows = _rows_fn(cir, cir.histogram_plain)
+    for name, (a, d, c) in shapes.items():
+        res = {"rows": a.shape[0], "entries_per_row": a.shape[1], "captured": int(c.sum())}
+        for soft in (False, True):
+            tag = "soft" if soft else "hard"
+            ir, res[f"{tag}_ms"] = _ms(lambda: bin_rows(a, d, c, soft=soft, **kw), reps)
+            res[f"{tag}_device_ms"] = smoke.device_ms(lambda: bin_rows(a, d, c, soft=soft, **kw), reps)
+            again = bin_rows(a, d, c, soft=soft, **kw)
+            res[f"{tag}_run_to_run_equal"] = bool(torch.equal(ir, again))
+            res[f"{tag}_digest"] = _digest([ir])
+            keep[f"kh_{name}_{tag}"] = ir.cpu()
+        for tag, modes in (("hard", (cir.HARD,)), ("soft", (cir.SOFT_LO, cir.SOFT_HI))):
+            _, res[f"{tag}_plain_ms"] = _ms(
+                lambda: sum(plain_rows(a, d, c, mode=m, **kw) for m in modes), max(1, reps // 5))
+        # The library's call for the same sums: `index_add_` on ready-made
+        # flat bins and masked weights (hard mode), not deterministic.
+        raw = (d / torch.tensor(smoke.C, device=w.dev) * torch.tensor(smoke.RATE, device=w.dev)).long()
+        weight = torch.where(c & (raw >= 0) & (raw < nbins), a, zero).reshape(-1)
+        key = (raw.clamp_(0, nbins - 1)
+               + nbins * torch.arange(a.shape[0], device=w.dev)[:, None]).reshape(-1)
+        _, res["index_add_ms"] = _ms(
+            lambda: torch.zeros(a.shape[0] * nbins, device=w.dev).index_add_(0, key, weight), reps)
+        del raw, weight, key
+        res["bounds_hard"] = smoke.histogram_bounds(c, nbins, planes=1)
+        res["bounds_soft"] = smoke.histogram_bounds(c, nbins, planes=2)
+        out[name] = res
     return out
 
 
 def child(args) -> int:
-    """Run K1, K2 and K3 on the checkout at --root; save times and outputs."""
+    """Run K1, K2, K3 and K-H on the checkout at --root; save times and outputs."""
     import torch
 
     sys.path.insert(0, args.root)
@@ -181,7 +292,7 @@ def child(args) -> int:
     w = Workloads(torch.device("cuda", 0))
     keep = {}
     out = {"k1": run_k1(w, args.reps, keep), "k2": run_k2(w, args.reps),
-           "k3": run_k3(w, args.reps, keep)}
+           "k3": run_k3(w, args.reps, keep), "kh": run_kh(w, args.reps, keep)}
     torch.save({"times": out, "outputs": keep}, args.dump)
     return 0
 
@@ -243,7 +354,7 @@ def main(argv=None) -> int:
     w = Workloads(torch.device("cuda", 0))
     keep = {}
     out["here"] = {"k1": run_k1(w, args.reps, keep), "k2": run_k2(w, args.reps),
-                   "k3": run_k3(w, args.reps, keep), "kh": run_kh(w, args.reps)}
+                   "k3": run_k3(w, args.reps, keep), "kh": run_kh(w, args.reps, keep)}
     if args.other:
         out["here_vs_other"] = _compare(keep, other["outputs"])
         out["other_last"] = _run_other(os.path.abspath(args.other), args.reps)["times"]
@@ -255,7 +366,15 @@ def main(argv=None) -> int:
     def brief(r):
         return {k: {s: v["ms"] for s, v in r[k].items()} for k in r if k in ("k1", "k2", "k3")}
 
-    print(json.dumps({"card": card, "here": brief(out["here"]), "kh": out["here"]["kh"],
+    def kh(r):
+        return {s: {k: v for k, v in t.items() if not k.endswith("digest")}
+                for s, t in r.get("kh", {}).items()}
+
+    print(json.dumps({"card": card, "here": brief(out["here"]), "kh": kh(out["here"]),
+                      "kh_other_first": kh(out.get("other_first", {})),
+                      "kh_other_last": kh(out.get("other_last", {})),
+                      "k2_walks": {s: {k: v for k, v in t.items() if k not in ("ms", "digest")}
+                                   for s, t in out["here"]["k2"].items()},
                       "k1_counted_ms": {s: v["counted_ms"] for s, v in out["here"]["k1"].items()},
                       "other_first": brief(out.get("other_first", {})),
                       "other_last": brief(out.get("other_last", {})),

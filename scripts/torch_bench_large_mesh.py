@@ -106,7 +106,10 @@ def build_scene(dev, *, grid: int = GRID, extent: float = EXTENT, n_rays: int = 
     flat = build_bvh(mesh, leaf_size=LEAF, method=method)
     t_build = time.perf_counter() - t0
     t0 = time.perf_counter()
-    tracer = Tracer(mesh, C, RATE, WINDOW, max_bounces=BOUNCES, tx_num_rays=n_rays, device=dev)
+    # `auto` takes the fused kernel on a card; the CPU rehearsal asks for its
+    # plain version by name (`auto` would take the plain walk there).
+    tracer = Tracer(mesh, C, RATE, WINDOW, max_bounces=BOUNCES, tx_num_rays=n_rays,
+                    backend="auto" if dev.type == "cuda" else "fused", device=dev)
     t_tracer = time.perf_counter() - t0
     bvh = tracer._fused.bvh
     if tracer.backend != "fused" or not np.array_equal(
@@ -289,6 +292,40 @@ def perquery_leg(bvh, dirs, *, tx=TX, rx=RX, rx_radius=RX_RADIUS,
     return out
 
 
+def perquery_counters_leg(bvh, dirs, *, tx=TX) -> dict:
+    """The counted closest hit on `dirs` from tx and on their second-bounce
+    queries: t, index, face and normal equal the uncounted kernel's, and per
+    set the walk's totals and the most nodes a query visits."""
+    import torch
+
+    from rfx_torch.ops.bvh_trace import closest_hit
+    from rfx_torch.ops.intersect import dot3
+
+    dev = dirs.device
+    n = int(dirs.shape[0])
+    o = torch.tensor(tx, dtype=torch.float32, device=dev).expand(n, 3).contiguous()
+    t, _, _, nrm = closest_hit(bvh, o, dirs)
+    hit = t < 1e29
+    sets = {"tx": (o, dirs),
+            "bounce2": ((o + dirs * t[:, None])[hit].contiguous(),
+                        (dirs - 2.0 * dot3(dirs, nrm)[:, None] * nrm)[hit].contiguous())}
+    out = {}
+    for name, (oo, dd) in sets.items():
+        plain = closest_hit(bvh, oo, dd)
+        (*counted, counts), ms = timed_ms(lambda: closest_hit(bvh, oo, dd, count=True), dev,
+                                          warm=True)
+        for what, a, b in zip(("t", "idx", "face", "nrm"), counted, plain):
+            if not torch.equal(a, b):
+                raise AssertionError(f"counted closest hit, {name}: {what} differs from the uncounted")
+        m = int(oo.shape[0])
+        nodes, leaves, tris = (int(v) for v in counts.sum(dim=0))
+        out[name] = {"queries": m, "nodes": nodes, "leaves": leaves, "tris": tris,
+                     "nodes_per_query_max": int(counts[:, 0].max()), "counted_ms": ms}
+        if out[name]["nodes"] < m:
+            raise AssertionError(f"counted closest hit, {name}: {out[name]['nodes']} root visits")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
@@ -322,6 +359,7 @@ def main(argv=None) -> int:
     out["cir"] = cir_leg(tracer, dirs)
     out["walk_counters"] = counters_leg(bvh, dirs)
     out["perquery_vs_fused"] = perquery_leg(bvh, dirs[:args.perquery_rays].contiguous())
+    out["perquery_counters"] = perquery_counters_leg(bvh, dirs[:args.perquery_rays].contiguous())
     print(json.dumps(out))
     return 0
 

@@ -13,7 +13,7 @@ from rfx import sampler as jsampler
 from rfx.api import Tracer as JTracer
 from rfx.geometry import make_terrain
 from rfx_torch import convert, coverage
-from rfx_torch.api import Tracer
+from rfx_torch.api import Tracer, auto_backend
 
 torch.set_num_threads(1)
 
@@ -79,7 +79,15 @@ def test_fused_branch_matches_rfx():
     n = 4096
     dirs = np.array(jsampler.morton_sphere_directions(jax.random.PRNGKey(3), n))
     tx, rx = np.array([4.0, 0.0, 14.0]), np.array([-6.0, 1.0, 7.0])
-    t = Tracer(mesh, C, RATE, WINDOW, max_bounces=3, tx_num_rays=n, device="cpu")
+    # `auto` on a CPU device takes the plain walk, as rfx.api does; on a CUDA
+    # device the fused kernel. The fused branch is asked for by name here.
+    auto = Tracer(mesh, C, RATE, WINDOW, max_bounces=3, tx_num_rays=n, device="cpu")
+    assert auto.backend == "bvh" and auto._fused is None
+    assert auto_backend(mesh.num_faces, torch.device("cuda", 0)) == "fused"
+    assert auto_backend(2048, torch.device("cuda", 0)) == "brute"
+    assert auto_backend(2049, torch.device("cpu")) == "bvh"
+    t = Tracer(mesh, C, RATE, WINDOW, max_bounces=3, tx_num_rays=n, backend="fused",
+               device="cpu")
     assert t.backend == "fused"
     paths, ir = t.compute_cir(tx, 1.0, rx, 1.5, directions=dirs, record_paths=False)
     # The JAX side takes its brute scan path: the same semantics, fast on the CPU.
@@ -88,11 +96,14 @@ def test_fused_branch_matches_rfx():
     assert paths == [] and ir.sum() > 0
     np.testing.assert_array_equal(ir != 0, j_ir != 0)
     np.testing.assert_allclose(ir, j_ir, rtol=1e-4, atol=1e-9)
+    _, ir_auto = auto.compute_cir(tx, 1.0, rx, 1.5, directions=dirs, record_paths=False)
+    np.testing.assert_array_equal(ir_auto != 0, j_ir != 0)
+    np.testing.assert_allclose(ir_auto, j_ir, rtol=1e-4, atol=1e-9)
 
 
 def test_fused_branch_refuses_what_needs_unported_kernels():
     mesh = make_terrain(grid=40, extent=40.0, seed=5)
-    t = Tracer(mesh, max_bounces=2, tx_num_rays=64, device="cpu")
+    t = Tracer(mesh, max_bounces=2, tx_num_rays=64, backend="fused", device="cpu")
     # The coverage metrics are ported: they run on the fused branch's env_hit.
     centers = np.stack([RX, RX + 3.0]).astype(np.float32)
     fast = t.compute_coverage_dbm_fast(TX, 1.0, centers, 1.0)

@@ -165,3 +165,53 @@ def test_make_env_intersector_backends():
     assert bvh_trace.make_kernel_env_hit(packed).bvh is packed
     env = intersect.make_env_intersector("kernel", flat_bvh=flat, device="cpu")
     assert env.bvh.n_padded_tris == flat.n_padded_tris
+
+
+def _scalar_walk_counts(bvh, o, d):
+    """One ray's walk, node by node in numpy f32: (nodes visited, leaves
+    entered, triangles tested, t of the closest hit)."""
+    nodes = bvh.nodes.numpy()
+    skip, start, count = (a.numpy() for a in (bvh.skip, bvh.tri_start, bvh.tri_count))
+    ok = np.abs(d) > F32(1e-30)
+    inv = np.where(ok, F32(1.0) / np.where(ok, d, F32(1.0)), F32(1e30)).astype(F32)
+    t_best, n_nodes, n_leaves, n_tris, i = F32(1e30), 0, 0, 0, 0
+    while i < len(nodes):
+        n_nodes += 1
+        lo = (nodes[i, 0:3] - o) * inv
+        hi = (nodes[i, 4:7] - o) * inv
+        t_near, t_far = np.minimum(lo, hi).max(), np.maximum(lo, hi).min()
+        if not (t_near <= min(t_far, t_best) and t_far >= F32(1e-4)):
+            i = skip[i]
+        elif count[i] == 0:
+            i += 1
+        else:
+            n_leaves += 1
+            n_tris += int(count[i])
+            rows = bvh.tri[start[i]:start[i] + count[i]][None]
+            t = float(bvh_trace.mt_block(_t(o[None]), _t(d[None]), rows).min())
+            t_best = min(t_best, F32(t))
+            i = skip[i]
+    return n_nodes, n_leaves, n_tris, t_best
+
+
+def test_counted_closest_hit_counts_the_walk_ray_by_ray():
+    """`closest_hit(count=True)` on a CPU tensor: `closest_hit_plain`'s four
+    outputs unchanged, and per query the nodes, leaves and triangles that a
+    scalar walk of the same tree visits."""
+    mesh = make_terrain(grid=12, extent=30.0, seed=4)
+    bvh = pack_bvh(build_bvh(mesh, leaf_size=8), torch.device("cpu"))
+    o, d = _rays(48, 5, [-12, -12, 6], [12, 12, 14])
+    d[:, 2] = -np.abs(d[:, 2])  # downwards: most rays reach the terrain
+    o[::7] = 1e9  # parked rays stop at the root box
+    *hit, counts = bvh_trace.closest_hit(bvh, _t(o), _t(d), count=True)
+    plain = bvh_trace.closest_hit_plain(bvh, _t(o), _t(d))
+    for a, b in zip(hit, plain):
+        assert torch.equal(a, b)
+    assert counts.dtype == torch.int64 and counts.shape == (48, 3)
+    assert int((hit[1] >= 0).sum()) > 10
+    for r in range(48):
+        n_nodes, n_leaves, n_tris, t = _scalar_walk_counts(bvh, o[r], d[r])
+        assert counts[r].tolist() == [n_nodes, n_leaves, n_tris], r
+        assert float(hit[0][r]) == float(t), r
+    assert counts[::7].tolist() == [[1, 0, 0]] * 7
+    assert len(bvh_trace.closest_hit(bvh, _t(o), _t(d))) == 4  # uncounted: four outputs

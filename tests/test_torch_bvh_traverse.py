@@ -177,7 +177,7 @@ def test_facade_bvh_backend_matches_rfx():
         np.testing.assert_allclose(p, jp, rtol=1e-5, atol=1e-4)
     # The fused backend answers the same request within f32 rounding.
     _, ir_f = Tracer(mesh, 2.998e8, 100e9, 200e-9, max_bounces=3, tx_num_rays=n,
-                     device="cpu").compute_cir(tx, 1.0, rx, 1.5, directions=dirs,
+                     backend="fused", device="cpu").compute_cir(tx, 1.0, rx, 1.5, directions=dirs,
                                                record_paths=False)
     np.testing.assert_array_equal(ir != 0, ir_f != 0)
     np.testing.assert_allclose(ir, ir_f, rtol=1e-4, atol=1e-9)

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from oracle import OracleTracer, sample_sphere_directions
@@ -37,6 +38,63 @@ def test_binning_matches_rfx_scatter(soft):
     assert got.shape == (20_000,) and got.dtype == np.float32
     np.testing.assert_array_equal(got != 0, want != 0)  # identical bins
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _rows(n=5003, seed=23):
+    """(6, n) rows: dense, sparse, empty, one path, everything in one bin,
+    and paths around the window's last bin. n is no multiple of 16."""
+    rng = np.random.default_rng(seed)
+    amp = rng.random((6, n)).astype(np.float32)
+    dist = (rng.random((6, n)) * 70.0).astype(np.float32)
+    cap = rng.random((6, n)) < np.array([0.6, 0.01, 0.0, 0.0, 1.0, 0.5])[:, None]
+    cap[3, n - 682] = True
+    dist[4] = np.float32(31.0)
+    last = np.float32(20_000 * 2.998e8 / 100e9)
+    dist[5] = last - (rng.random(n) * 0.01 - 0.004).astype(np.float32)
+    return amp, dist, cap
+
+
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+def test_batched_binning_matches_vmap_of_rfx_scatter(soft):
+    amp, dist, cap = _rows()
+    got = cir.bin_impulse_response(torch.from_numpy(amp), torch.from_numpy(dist),
+                                   torch.from_numpy(cap), soft=soft, **KW)
+    one = jax.vmap(lambda a, d, c: jcir.bin_impulse_response(a, d, c, soft=soft,
+                                                            method="scatter", **KW))
+    with jax.disable_jit():  # eager binning: divide, then multiply (ROADMAP C)
+        want = np.asarray(one(jnp.asarray(amp), jnp.asarray(dist), jnp.asarray(cap)))
+    assert got.shape == (6, 20_000) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy() != 0, want != 0)  # identical bins
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert not got[2].any() and int((got[3] != 0).sum()) == (2 if soft else 1)
+    assert int((got[4] != 0).sum()) == (2 if soft else 1)
+    for r in range(6):  # a row alone is the row in the batch, bit for bit
+        alone = cir.bin_impulse_response(torch.from_numpy(amp[r]), torch.from_numpy(dist[r]),
+                                         torch.from_numpy(cap[r]), soft=soft, **KW)
+        assert alone.shape == (20_000,) and torch.equal(alone, got[r]), r
+
+
+@pytest.mark.parametrize("mode", [cir.HARD, cir.SOFT_LO, cir.SOFT_HI])
+def test_histogram_plain_rows_are_the_single_row_calls(mode):
+    amp, dist, cap = (torch.from_numpy(a) for a in _rows(n=1001))
+    rows = cir.histogram_plain(amp, dist, cap, mode=mode, **KW)
+    assert rows.shape == (6, 20_000)
+    for r in range(6):
+        assert torch.equal(rows[r], cir.histogram_plain(amp[r], dist[r], cap[r], mode=mode, **KW))
+    none = cir.histogram_plain(amp[:0], dist[:0], cap[:0], mode=mode, **KW)
+    assert none.shape == (0, 20_000)
+    empty = cir.bin_impulse_response(amp[:, :0], dist[:, :0], cap[:, :0], soft=mode != cir.HARD,
+                                     **KW)
+    assert empty.shape == (6, 20_000) and not empty.any()
+
+
+@pytest.mark.parametrize("n, tiles", [(1, 1), (2033, 1), (2034, 2), (4_194_304, 2049),
+                                      (5_242_880, 2561)])
+def test_mask_tiles_cover_an_unaligned_row(n, tiles):
+    """A row of n mask bytes that starts 15 bytes into a 16-byte word spans
+    ceil((n + 15) / 16) words, 128 words a tile."""
+    assert cir.mask_tiles(n) == tiles
+    assert cir.mask_tiles(n) * 128 * 16 >= n + 15
 
 
 def test_binning_truncates_and_drops_out_of_window():
@@ -77,6 +135,11 @@ def test_histogram_checks_inputs():
         cir.bin_impulse_response(amp, dist, cap.int(), **KW)
     with pytest.raises(ValueError):
         cir.bin_impulse_response(amp, dist[:5], cap, **KW)
+    with pytest.raises(ValueError):  # (N,) or (R, N) only
+        cir.bin_impulse_response(amp.reshape(1, 2, 5), dist.reshape(1, 2, 5),
+                                 cap.reshape(1, 2, 5), **KW)
+    with pytest.raises(ValueError):
+        cir.bin_impulse_response(amp, dist, cap, nbins=0, light_speed_mps=1.0, sample_rate_hz=1.0)
     before = cir.HISTOGRAM_KERNEL.launches
     cir.bin_impulse_response(amp, dist, cap, **KW)
     assert cir.HISTOGRAM_KERNEL.launches == before  # a CPU tensor runs the plain version

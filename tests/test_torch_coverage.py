@@ -59,6 +59,30 @@ def test_coverage_irs_matches_rfx_map_engine(box_room, soft, rx_mode):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=atol)
 
 
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+def test_map_engine_bins_a_receiver_batch_in_one_call(box_room, soft):
+    """The map engine hands each batch of receivers to the histogram as rows
+    of one call: the IRs and their gradient in tx do not depend on how the
+    five receivers are cut into batches (1, 2 + 2 + 1, 3 + 2, all five)."""
+    dirs = torch.from_numpy(sample_sphere_directions(1024, seed=32))
+    scene = Scene.from_mesh(box_room, "cpu")
+    kw = dict(max_bounces=2, nbins=512, num_rays=1024, light_speed_mps=C, sample_rate_hz=10e9,
+              soft=soft, engine="map")
+    w = torch.from_numpy(np.random.default_rng(2).normal(size=(5, 512)).astype(np.float32))
+    out = []
+    for rx_batch in (1, 2, 3, 5):
+        tx = torch.tensor([4.0, 3.0, 6.0], requires_grad=True)
+        irs = coverage.coverage_irs(scene, tx, dirs, CENTERS, 2.0, rx_batch=rx_batch, **kw)
+        (irs * w).sum().backward()
+        out.append((irs.detach(), tx.grad))
+    assert out[0][0].shape == (5, 512) and bool((out[0][0].sum(dim=1) > 0).all())
+    # Flat walls: the Fresnel amplitudes do not depend on tx, the delays do.
+    assert (float(out[0][1].abs().sum()) > 0) == soft
+    for irs, grad in out[1:]:
+        assert torch.equal(irs, out[0][0])
+        torch.testing.assert_close(grad, out[0][1], rtol=1e-5, atol=0)
+
+
 def test_coverage_make_grid_dbm_and_engines(box_room):
     grid = coverage.make_grid(range(-3, 4, 3), range(-2, 3, 2), range(2, 7, 4))
     np.testing.assert_array_equal(grid, jmake_grid(range(-3, 4, 3), range(-2, 3, 2),
@@ -96,7 +120,8 @@ def test_fused_backend_records_paths_through_the_kernel():
     mesh = make_terrain(**TERRAIN)
     n = 2048
     dirs = np.array(jsampler.morton_sphere_directions(jax.random.PRNGKey(3), n))
-    t = Tracer(mesh, C, RATE, WINDOW, max_bounces=3, tx_num_rays=n, device="cpu")
+    t = Tracer(mesh, C, RATE, WINDOW, max_bounces=3, tx_num_rays=n, backend="fused",
+               device="cpu")
     assert t.backend == "fused"
     paths, ir = t.compute_cir(TX, 1.0, RX, 1.5, directions=dirs)  # "auto" records paths
     jt = JTracer(mesh, C, RATE, WINDOW, max_bounces=3, tx_num_rays=n, backend="brute")
@@ -110,7 +135,7 @@ def test_fused_backend_records_paths_through_the_kernel():
     np.testing.assert_array_equal(ir_fused != 0, ir != 0)
 
     ico = Tracer(mesh, C, RATE, WINDOW, max_bounces=3, tx_num_rays=n, rx_mode="icosphere",
-                 device="cpu")
+                 backend="fused", device="cpu")
     assert ico.backend == "fused" and ico._fused is None
     paths_i, ir_i = ico.compute_cir(TX, 1.0, RX, 1.5, directions=dirs)
     jt_i = JTracer(mesh, C, RATE, WINDOW, max_bounces=3, tx_num_rays=n, backend="brute",
@@ -125,7 +150,8 @@ def test_fused_backend_compute_coverage_matches_rfx():
     n = 2048
     dirs = np.array(jsampler.morton_sphere_directions(jax.random.PRNGKey(5), n))
     centers = np.asarray([RX, [0.0, -6.0, 6.0], [8.0, 8.0, 9.0]], np.float32)
-    t = Tracer(mesh, C, RATE, WINDOW, max_bounces=3, tx_num_rays=n, device="cpu")
+    t = Tracer(mesh, C, RATE, WINDOW, max_bounces=3, tx_num_rays=n, backend="fused",
+               device="cpu")
     irs = t.compute_coverage(TX, 1.0, centers, 2.0, directions=dirs, rx_batch=2)
     jt = JTracer(mesh, C, RATE, WINDOW, max_bounces=3, tx_num_rays=n, backend="brute")
     j_irs = jt.compute_coverage(TX, 1.0, centers, 2.0, directions=dirs, rx_batch=2)

@@ -64,6 +64,60 @@ def test_histogram_gradient_matches_jax(soft):
 
 
 @pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+def test_batched_histogram_gradient_matches_jax(soft):
+    """(R, n) rows through the sparse backward against jax.grad of the vmapped
+    scatter: a dense row, a sparse one, a row with no capture, and a row
+    whose paths sit in the window's last bin, where the high half leaves it
+    and the low half stays."""
+    g = np.random.default_rng(8)
+    n = 3001
+    amp = g.random((4, n)).astype(F32)
+    dist = (g.random((4, n)) * 70.0).astype(F32)
+    cap = g.random((4, n)) < np.array([0.6, 0.01, 0.0, 0.4])[:, None]
+    dist[3] = np.float32(20_000 * 2.998e8 / 100e9) - (g.random(n) * 2e-3).astype(F32)
+    w = g.normal(size=(4, HKW["nbins"])).astype(F32)
+
+    def jloss(a, d):
+        irs = jax.vmap(lambda a_, d_, c_: jcir.bin_impulse_response(
+            a_, d_, c_, soft=soft, method="scatter", **HKW))(a, d, jnp.asarray(cap))
+        return jnp.sum(irs * w)
+
+    with jax.disable_jit():
+        ga, gd = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(amp), jnp.asarray(dist))
+    a, d = _t(amp, True), _t(dist, True)
+    irs = cir.bin_impulse_response(a, d, torch.from_numpy(cap), soft=soft, **HKW)
+    assert irs.shape == (4, HKW["nbins"]) and irs.requires_grad
+    (irs * torch.from_numpy(w)).sum().backward()
+    _close(a.grad, ga, rtol=1e-5)
+    _close(d.grad, gd, rtol=1e-5)
+    assert not a.grad[2].any() and not d.grad[2].any()  # nothing captured, no gradient
+    assert not a.grad[~torch.from_numpy(cap)].any()
+    if soft:  # in the last bin only the low half counts: d ir / d dist < 0 for w > 0
+        last = torch.from_numpy(cap[3]) & (irs[3, -1] != 0)
+        assert bool(last.any()) and float(d.grad[3].abs().max()) > 0
+    # Each row's gradient is that of the row alone.
+    for r in range(4):
+        a1, d1 = _t(amp[r], True), _t(dist[r], True)
+        ir = cir.bin_impulse_response(a1, d1, torch.from_numpy(cap[r]), soft=soft, **HKW)
+        (ir * torch.from_numpy(w[r])).sum().backward()
+        assert torch.equal(a1.grad, a.grad[r]) and torch.equal(d1.grad, d.grad[r]), r
+
+
+def test_histogram_backward_needs_no_dense_temporaries():
+    """Only the inputs that ask for a gradient get one, and a tensor that
+    asks for none saves nothing."""
+    g = np.random.default_rng(9)
+    amp, dist = _t(g.random((2, 500)), True), _t(g.random((2, 500)) * 50.0)
+    cap = torch.from_numpy(g.random((2, 500)) < 0.1)
+    ir = cir.bin_impulse_response(amp, dist, cap, soft=True, **HKW)
+    ir.sum().backward()
+    assert dist.grad is None and amp.grad.shape == (2, 500)
+    assert int((amp.grad != 0).sum()) <= int(cap.sum())
+    plain = cir.bin_impulse_response(amp.detach(), dist, cap, soft=True, **HKW)
+    assert not plain.requires_grad and torch.equal(plain, ir.detach())
+
+
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
 def test_histogram_gradient_matches_autograd_of_plain(soft):
     """The Function's backward equals autograd through the plain version's
     index_add_ (floor is flat, so the soft halves' fraction carries d/d dist)."""

@@ -188,3 +188,22 @@ def test_no_file_of_the_port_imports_rfx_or_jax():
     assert not found, f"the port imports the JAX package or JAX: {found}"
     assert _IMPORT.search("import rfx\n") and _IMPORT.search("    from rfx.bvh import x\n")
     assert _IMPORT.search("import jax.numpy as jnp\n") and not _IMPORT.search("import rfx_torch\n")
+
+
+def test_package_docstring_names_the_sources_and_entry_points():
+    """The package's account of itself follows the code: it imports nothing of
+    rfx, and it names every CUDA source and the number of C entry points."""
+    import re
+
+    import rfx_torch
+    from rfx_torch.ops._build import CSRC_DIR
+
+    doc = " ".join(rfx_torch.__doc__.split())
+    assert "nothing of `rfx`" in doc and "imported from" not in doc
+    sources = sorted(p.name for p in CSRC_DIR.glob("*.cu"))
+    entries = [m for p in CSRC_DIR.glob("*.cu")
+               for m in re.findall(r'extern "C" int (rfx_\w+)\(', p.read_text())]
+    words = {5: "five", 6: "six", 7: "seven", 8: "eight", 9: "nine", 10: "ten"}
+    assert f"{words[len(entries)]} C entry points in {words[len(sources)]} sources" in doc
+    for name in sources:
+        assert f"`{name}`" in doc, name

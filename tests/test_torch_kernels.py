@@ -16,7 +16,7 @@ import torch
 from rfx_torch import cir, coverage
 from rfx_torch.api import Tracer
 from rfx_torch.geometry import make_room, make_terrain
-from rfx_torch.ops import bvh_trace, coverage_hist, fused, intersect, micro_vote
+from rfx_torch.ops import bvh_trace, bvh_traverse, coverage_hist, fused, intersect, micro_vote
 from rfx_torch.sampler import morton_sphere_directions
 from rfx_torch.tracer import EnvSegments, Scene, trace_env, trace_to_rx
 
@@ -90,12 +90,82 @@ def test_histogram_kernel_matches_plain_and_is_deterministic(cuda, soft):
     before = cir.HISTOGRAM_KERNEL.launches
     a = cir.bin_impulse_response(amp, dist, cap, soft=soft, **kw)
     b = cir.bin_impulse_response(amp, dist, cap, soft=soft, **kw)
-    assert cir.HISTOGRAM_KERNEL.launches == before + 2 * len(modes)
+    assert cir.HISTOGRAM_KERNEL.launches == before + 2  # one launch a call, both soft halves
     p = sum(cir.histogram_plain(amp, dist, cap, mode=m, **kw) for m in modes)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
     assert torch.equal(a != 0, p != 0)
     assert torch.allclose(a, p, rtol=1e-5, atol=1e-5)
+    # The same inputs from an address that is no multiple of 16.
+    c = cir.bin_impulse_response(amp[3:], dist[3:], cap[3:], soft=soft, **kw)
+    pc = sum(cir.histogram_plain(amp[3:], dist[3:], cap[3:], mode=m, **kw) for m in modes)
+    assert torch.equal(c != 0, pc != 0) and torch.allclose(c, pc, rtol=1e-5, atol=1e-5)
+
+
+def _rows_on_card(cuda, n=100_003, seed=19):
+    """(7, n) rows, n no multiple of 16: dense, sparse (under 2,048
+    captures), empty, a twentieth, every path, a fiftieth, and half; row 4's
+    paths all fall into one bin."""
+    g = np.random.default_rng(seed)
+    share = np.array([0.3, 0.001, 0.0, 0.05, 1.0, 0.02, 0.5])[:, None]
+    amp = torch.from_numpy(g.random((7, n)).astype(np.float32)).to(cuda)
+    dist = torch.from_numpy((g.random((7, n)) * 70.0).astype(np.float32))
+    dist[4] = 31.0
+    cap = torch.from_numpy(g.random((7, n)) < share).to(cuda)
+    return amp, dist.to(cuda), cap
+
+
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+def test_batched_histogram_kernel_matches_plain(cuda, soft):
+    """One launch for (7, n) rows of every density: equal to the plain
+    version, bit-identical from run to run, each row the same bits alone; a
+    row of at most 2,048 captures is the ray-order sum, as on the CPU."""
+    amp, dist, cap = _rows_on_card(cuda)
+    kw = dict(nbins=20_000, light_speed_mps=2.998e8, sample_rate_hz=100e9)
+    modes = (cir.SOFT_LO, cir.SOFT_HI) if soft else (cir.HARD,)
+    before = cir.HISTOGRAM_KERNEL.launches
+    a = cir.bin_impulse_response(amp, dist, cap, soft=soft, **kw)
+    b = cir.bin_impulse_response(amp, dist, cap, soft=soft, **kw)
+    assert cir.HISTOGRAM_KERNEL.launches == before + 2
+    p = sum(cir.histogram_plain(amp, dist, cap, mode=m, **kw) for m in modes)
+    torch.cuda.synchronize()
+    assert a.shape == (7, 20_000) and torch.equal(a, b)
+    assert torch.equal(a != 0, p != 0)
+    spread = [0, 1, 2, 3, 5, 6]
+    assert torch.allclose(a[spread], p[spread], rtol=1e-5, atol=1e-5)
+    # Row 4 piles 100,003 paths into one bin (two in soft mode). The plain
+    # version adds them with float atomics in no fixed order, which alone
+    # costs about 1e-5 of the sum: hold the kernel against the sum in float64
+    # of the same float32 weights.
+    assert not a[2].any() and int((a[4] != 0).sum()) == len(modes)
+    delay = dist[4] / torch.tensor(2.998e8, device=cuda) * torch.tensor(100e9, device=cuda)
+    frac = delay - torch.floor(delay)
+    weights = [amp[4]] if not soft else [amp[4] * (1.0 - frac), amp[4] * frac]
+    want = torch.stack([w.double().sum() for w in weights])
+    torch.testing.assert_close(a[4][a[4] != 0].double(), want, rtol=1e-5, atol=0)
+    torch.testing.assert_close(p[4][p[4] != 0].double(), want, rtol=1e-4, atol=0)
+    for r in range(7):
+        alone = cir.bin_impulse_response(amp[r], dist[r], cap[r], soft=soft, **kw)
+        assert torch.equal(alone, a[r]), r
+    assert 0 < int(cap[1].sum()) <= 2048
+    on_cpu = sum(cir.histogram_plain(amp[1].cpu(), dist[1].cpu(), cap[1].cpu(), mode=m, **kw)
+                 for m in modes)
+    assert torch.equal(a[1].cpu(), on_cpu)
+
+
+def test_histogram_kernel_reads_any_nonzero_byte(cuda):
+    """A bool tensor may hold any nonzero byte (a reinterpreted uint8)."""
+    g = np.random.default_rng(20)
+    n = 50_001
+    amp = torch.from_numpy(g.random(n).astype(np.float32)).to(cuda)
+    dist = torch.from_numpy((g.random(n) * 60.0).astype(np.float32)).to(cuda)
+    raw = torch.from_numpy(g.integers(1, 256, n).astype(np.uint8) * (g.random(n) < 0.1)).to(cuda)
+    kw = dict(nbins=20_000, light_speed_mps=2.998e8, sample_rate_hz=100e9)
+    a = cir.bin_impulse_response(amp, dist, raw.view(torch.bool), **kw)
+    p = cir.histogram_plain(amp, dist, raw != 0, **kw)
+    torch.cuda.synchronize()
+    assert int((raw > 1).sum()) > 1000
+    assert torch.equal(a != 0, p != 0) and torch.allclose(a, p, rtol=1e-5, atol=1e-5)
 
 
 def test_histogram_kernel_edges(cuda):
@@ -104,9 +174,25 @@ def test_histogram_kernel_edges(cuda):
                                   sample_rate_hz=1.0)
     torch.cuda.synchronize()
     assert torch.equal(ir, torch.zeros(100, device=cuda))
+    none = cir.bin_impulse_response(empty.reshape(0, 5), empty.reshape(0, 5),
+                                    empty.bool().reshape(0, 5), nbins=100, light_speed_mps=1.0,
+                                    sample_rate_hz=1.0)
+    assert none.shape == (0, 100)
+    # The histograms live in global memory: a million bins run, and equal plain.
+    g = np.random.default_rng(22)
+    n = 300_000
+    amp = torch.from_numpy(g.random(n).astype(np.float32)).to(cuda)
+    dist = torch.from_numpy((g.random(n) * 70.0).astype(np.float32)).to(cuda)
+    cap = torch.from_numpy(g.random(n) < 0.3).to(cuda)
+    kw = dict(nbins=1_000_000, light_speed_mps=2.998e8, sample_rate_hz=4e12)
+    big = cir.bin_impulse_response(amp, dist, cap, **kw)
+    big_p = cir.histogram_plain(amp, dist, cap, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(big != 0, big_p != 0) and int((big != 0).sum()) > 50_000
+    assert torch.allclose(big, big_p, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="bins"):
-        cir.bin_impulse_response(empty, empty, empty.bool(), nbins=1_000_000,
-                                 light_speed_mps=1.0, sample_rate_hz=1.0)
+        cir.bin_impulse_response(amp, dist, cap, nbins=2**31, light_speed_mps=1.0,
+                                 sample_rate_hz=1.0)
 
 
 def test_facade_on_card_matches_cpu(cuda):
@@ -160,6 +246,30 @@ def test_closest_hit_kernel_matches_plain(cuda, live):
             assert (k[1] == -1).all()
         else:
             assert int((k[1] >= 0).sum()) > 0, name
+
+
+def test_counted_closest_hit_kernel_matches_plain_walk(cuda):
+    """The counted entry point: the uncounted kernel's hits, and per query the
+    plain walk's nodes, leaves and triangles, integer for integer."""
+    mesh = make_terrain(grid=48, extent=40.0, seed=3)
+    bvh = bvh_trace.make_kernel_env_hit(mesh, device=cuda).bvh
+    for name, (o, d) in _query_sets(cuda, bvh, 20_000).items():
+        before = (bvh_trace.CLOSEST_HIT_COUNTED_KERNEL.launches,
+                  bvh_trace.CLOSEST_HIT_KERNEL.launches)
+        *k, counts = bvh_trace.closest_hit(bvh, o, d, count=True)
+        assert (bvh_trace.CLOSEST_HIT_COUNTED_KERNEL.launches,
+                bvh_trace.CLOSEST_HIT_KERNEL.launches) == (before[0] + 1, before[1])
+        u = bvh_trace.closest_hit(bvh, o, d)
+        t, idx, walk = bvh_traverse.walk_closest_hit(bvh, o, d, count=True)
+        torch.cuda.synchronize()
+        for a, b in zip(k, u):
+            assert torch.equal(a, b), name
+        assert counts.dtype == torch.int64 and counts.shape == (o.shape[0], 3)
+        assert torch.equal(counts, walk), (name, counts.sum(0).tolist(), walk.sum(0).tolist())
+        assert torch.equal(t, k[0]) and torch.equal(idx.int(), k[1]), name
+        assert bool((counts[:, 0] >= 1).all())  # every query visits the root
+        if name == "parked":
+            assert int(counts.sum()) == o.shape[0]  # and a parked one nothing else
 
 
 def test_fused_record_faces_kernel_matches_plain(cuda):

@@ -26,7 +26,7 @@ dirs = sampler.morton_sphere_directions(512, generator=torch.Generator().manual_
 _, ir = Tracer(make_room(), max_bounces=2, tx_num_rays=512, device="cpu").compute_cir(
     [10.0, 0.0, 5.0], 1.0, [-10.0, 0.0, 5.0], 2.0, directions=dirs, record_paths=False)
 tr = Tracer(make_terrain(grid=34, extent=30.0, seed=1), max_bounces=2, tx_num_rays=512,
-            device="cpu")
+            backend="fused", device="cpu")
 assert tr.backend == "fused"
 _, ir2 = tr.compute_cir([0.0, 0.0, 9.0], 1.0, [3.0, 0.0, 6.0], 2.0, directions=dirs,
                         record_paths=False)
