@@ -107,7 +107,24 @@ happened, and none catching its own failure:
     those rays and their second-bounce queries. The same counters and times on
     the bench terrain beside them. Last, the vote micro-kernel
     (scripts/torch_micro_vote.py): each style's carry == the plain version's
-    after 2,000 bodies, then ns per body at 50,000 bodies, counted on its own.
+    after 2,000 bodies, then ns per body at 50,000 bodies, counted on its own;
+15. the sharded paths (rfx_torch.parallel). One rank in this process (NCCL
+    where torch has it, else gloo): sharded_cir == trace_to_rx +
+    cir_from_trace bit for bit at phase 3's width through the closest-hit
+    kernel, hard and soft, both timed, and the all-reduce of (20,000,) and
+    (32, 20,000) f32. Then four ranks on this card over gloo (NCCL refuses
+    two ranks on one card), worker processes of
+    scripts/torch_multiproc_worker.py that load the kernels built in phase
+    2, each held against this process's unsharded run: sharded_cir on
+    {'rays': 4} at phase 3's width (the same nonzero bins, rtol 1e-5 / atol
+    1e-12; the ranks and two runs bit-identical), sharded_coverage_irs on
+    {'rays': 2, 'rx': 2} through the coverage kernel at phase 13's room
+    shape (tiles assembled in rank order, the same bars), one inverse-solve
+    step on {'rays': 2, 'rx': 2} from phase 11's start (loss rtol 1e-4, the
+    tx and log_n1 gradients within 1e-4 of their largest entry, the
+    parameters the same bits on every rank, at most 2 IR-sized and 2 small
+    all-reduces a step); per-rank times and peak memory. The four ranks
+    time-slice one card: their times measure the protocol, not scaling.
 Each main-path run is counted on its own: every launch count is set to 0
 just before it and read just after, and each kernel the path runs must have
 launched (the forward requests: fused trace and histogram; the large-mesh
@@ -117,7 +134,9 @@ value+grad and the five full-width solver steps: closest hit and histogram;
 the fused value+grad: fused trace and histogram; the coverage CLI's exact
 sweep: the coverage kernel and its slab reduction; each hybrid sweep: the
 same two, and on the terrain the closest hit; each fast sweep: on the terrain the closest hit,
-and never the coverage kernel). The comparisons with the plain versions, the
+and never the coverage kernel; each rank's sharded CIR, coverage and
+solver step: closest hit and histogram, and the coverage kernel on the
+coverage). The comparisons with the plain versions, the
 checks of phase 10 and the facade are not counted.
 
 Prints CUDA-event times of the kernels beside their plain versions, JSON
@@ -333,6 +352,19 @@ def _counted_bound(fused_bound: dict) -> dict:
     """The counted instantiation does the fused trace's work and writes 128
     bytes of counters more."""
     return _bound(fused_bound["bound_bytes"] + 32 * BOUNCES, fused_bound["bound_flops"])
+
+
+def port_kernels() -> tuple:
+    """The port's eight C entry points (rfx_torch/csrc/), each with its launch count."""
+    from rfx_torch import cir
+    from rfx_torch.ops.bvh_trace import CLOSEST_HIT_COUNTED_KERNEL, CLOSEST_HIT_KERNEL
+    from rfx_torch.ops.coverage_hist import COVERAGE_HIST_KERNEL, COVERAGE_REDUCE_KERNEL
+    from rfx_torch.ops.fused import FUSED_TRACE_COUNTED_KERNEL, FUSED_TRACE_KERNEL
+    from rfx_torch.ops.micro_vote import MICRO_VOTE_KERNEL
+
+    return (FUSED_TRACE_KERNEL, CLOSEST_HIT_KERNEL, cir.HISTOGRAM_KERNEL, COVERAGE_HIST_KERNEL,
+            MICRO_VOTE_KERNEL, FUSED_TRACE_COUNTED_KERNEL, CLOSEST_HIT_COUNTED_KERNEL,
+            COVERAGE_REDUCE_KERNEL)
 
 
 def _load_script(root: str, name: str):
@@ -807,29 +839,17 @@ def _solver_phase(mesh, bvh, dev, kernels):
     import numpy as np
     import torch
 
-    from rfx_torch.coverage import make_grid
     from rfx_torch.ops.bvh_trace import make_kernel_env_hit
-    from rfx_torch.sampler import morton_sphere_directions
-    from rfx_torch.solver import coverage_irs_soft, make_inverse_solver
-    from rfx_torch.tracer import Scene
+    from rfx_torch.solver import make_inverse_solver
 
     room = _solver_step_vs_plain(dev)
-    scene = Scene.from_mesh(mesh, dev)
-    dirs = morton_sphere_directions(SOLVER_RAYS, generator=torch.Generator(dev).manual_seed(1),
-                                    device=dev)
-    axis = np.linspace(-20.0, 20.0, 8)
-    centers = torch.as_tensor(make_grid(axis, axis, [8.0]), device=dev)
     env = make_kernel_env_hit(bvh)
+    scene, dirs, centers = solver_inputs(mesh, dev)
+    target = _solver_target(scene, dirs, centers, env)
+    n_lit = int((target > 0).sum())
     kw = dict(max_bounces=BOUNCES, nbins=NBINS, light_speed_mps=C, sample_rate_hz=RATE)
     kh_batch = _batched_histogram_check(scene, dirs, centers, env, dev)
     torch.cuda.empty_cache()
-    with torch.no_grad():
-        irs = coverage_irs_soft(scene.vertices, scene.faces, torch.tensor(TX, device=dev), 5.0,
-                                dirs, centers, 1.0, num_rays=SOLVER_RAYS, env_hit=env, **kw)
-        target = torch.sum(irs * irs, dim=1)
-    _sync()
-    n_lit = int((target > 0).sum())
-    _require(bool(torch.isfinite(target).all()) and n_lit > 0, "solver target is empty")
     init_fn, step_fn = make_inverse_solver(scene, dirs, centers, 1.0, target, learning_rate=0.05,
                                            env_hit=env, **kw)
     params, opt = init_fn([12.0, -2.0, 26.0])
@@ -1298,6 +1318,248 @@ def _large_mesh_phase(root, dev, kernels, bench_bvh, bench_dirs):
     return out, launches
 
 
+def solver_inputs(mesh, dev):
+    """Phase 11's inverse solve on `mesh`: 1,048,576 Morton rays (seed 1) and
+    64 receivers of radius 1.0 on an 8 x 8 grid at z = 8 over x, y in
+    [-20, 20]; (scene, dirs, centers)."""
+    import numpy as np
+    import torch
+
+    from rfx_torch.coverage import make_grid
+    from rfx_torch.sampler import morton_sphere_directions
+    from rfx_torch.tracer import Scene
+
+    dirs = morton_sphere_directions(SOLVER_RAYS, generator=torch.Generator(dev).manual_seed(1),
+                                    device=dev)
+    axis = np.linspace(-20.0, 20.0, 8)
+    return Scene.from_mesh(mesh, dev), dirs, torch.as_tensor(make_grid(axis, axis, [8.0]), device=dev)
+
+
+def _solver_target(scene, dirs, centers, env):
+    """The receivers' IR energies of tx, the inverse solve's target."""
+    import torch
+
+    from rfx_torch.solver import coverage_irs_soft
+
+    with torch.no_grad():
+        irs = coverage_irs_soft(scene.vertices, scene.faces, torch.tensor(TX, device=dirs.device),
+                                5.0, dirs, centers, 1.0, num_rays=SOLVER_RAYS, env_hit=env,
+                                max_bounces=BOUNCES, nbins=NBINS, light_speed_mps=C,
+                                sample_rate_hz=RATE)
+        target = torch.sum(irs * irs, dim=1)
+    _sync()
+    _require(bool(torch.isfinite(target).all()) and int((target > 0).sum()) > 0,
+             "solver target is empty")
+    return target
+
+
+def _close_irs(got, want, what: str, rtol: float = 1e-5):
+    """The same nonzero bins, and the values within rtol / atol 1e-12
+    (tests/test_multiprocess.py:93: a shard's partial sums group
+    differently); returns the largest |difference|."""
+    import numpy as np
+
+    _require(got.shape == want.shape and np.array_equal(got != 0, want != 0),
+             f"{what}: nonzero bins differ ({int((got != 0).sum())} vs {int((want != 0).sum())})")
+    _require(np.allclose(got, want, rtol=rtol, atol=1e-12), f"{what}: values differ")
+    return float(np.abs(got - want).max())
+
+
+def _dist_phase(root, dev, mesh, bvh):
+    """Phase 15: the sharded paths of rfx_torch.parallel. One rank in this
+    process, then four ranks on this card, each against this process's
+    unsharded run; returns (what it measured, {path: launches summed over
+    the ranks})."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from rfx_torch.cir import cir_from_trace
+    from rfx_torch.coverage import coverage_irs, make_grid
+    from rfx_torch.geometry import make_room
+    from rfx_torch.ops.bvh_trace import make_kernel_env_hit
+    from rfx_torch.parallel import dist as pdist
+    from rfx_torch.parallel import make_mesh, sharded_cir
+    from rfx_torch.parallel.launch import one_rank_group, result_of, run_ranks
+    from rfx_torch.sampler import morton_sphere_directions
+    from rfx_torch.solver import make_inverse_solver
+    from rfx_torch.tracer import Scene, trace_to_rx
+
+    out = {}
+    scene, env = Scene.from_mesh(mesh, dev), make_kernel_env_hit(bvh)
+    dirs = morton_sphere_directions(N_RAYS, generator=torch.Generator(dev).manual_seed(0),
+                                    device=dev)
+    kw = dict(max_bounces=BOUNCES, nbins=NBINS, light_speed_mps=C, sample_rate_hz=RATE,
+              env_hit=env)
+
+    def unsharded(soft):
+        with torch.no_grad():
+            r = trace_to_rx(scene, TX, dirs, RX, RX_RADIUS, max_bounces=BOUNCES,
+                            rx_mode="analytic", env_hit=env)
+            return cir_from_trace(r, tx_power=1.0, num_rays=N_RAYS, nbins=NBINS,
+                                  light_speed_mps=C, sample_rate_hz=RATE, soft=soft)
+
+    def host_ms(fn, reps):
+        return [_timed(fn)[1] * 1e3 for _ in range(reps)]
+
+    # 1. One rank in this process: the sharded path == the unsharded path
+    #    bit for bit, and what the sharding costs on one card.
+    backend = pdist.default_backend(1)
+    one = out["one_rank"] = {"backend": backend}
+    with one_rank_group(backend):
+        one_mesh = make_mesh(device=dev)
+        for soft in (False, True):
+            tag = "soft" if soft else "hard"
+
+            def sharded():
+                with torch.no_grad():
+                    return sharded_cir(scene, TX, dirs, RX, RX_RADIUS, one_mesh, soft=soft, **kw)
+
+            got, want = sharded(), unsharded(soft)
+            _sync()
+            _require(torch.equal(got, want) and float(got.sum()) > 0,
+                     f"one-rank sharded_cir, {tag}: differs from the unsharded path")
+            one[f"{tag}_ms"], one[f"{tag}_unsharded_ms"] = host_ms(sharded, 5), host_ms(
+                lambda: unsharded(soft), 5)
+        for shape in ((20_000,), (32, 20_000)):
+            x = torch.ones(shape, device=dev)
+            one[f"all_reduce_ms_{shape}"] = host_ms(lambda: pdist._all_reduce(x, one_mesh, "rays"), 10)
+    ir_ref = unsharded(False).cpu().numpy()
+    print(f"# sharded, one rank ({backend}), {N_RAYS} rays: sharded_cir == trace_to_rx + "
+          f"cir_from_trace bit for bit, hard and soft; hard {min(one['hard_ms']):.3f} ms against "
+          f"{min(one['hard_unsharded_ms']):.3f} unsharded, soft {min(one['soft_ms']):.3f} against "
+          f"{min(one['soft_unsharded_ms']):.3f} (host clock, synchronized, best of 5); all-reduce "
+          f"(20000,) {min(one['all_reduce_ms_(20000,)']):.4f} ms, (32, 20000) "
+          f"{min(one['all_reduce_ms_(32, 20000)']):.4f} ms", flush=True)
+    del dirs
+
+    # 2. This process's unsharded runs of the four ranks' workloads.
+    room = make_room()
+    (_, tx_room, zs), = [s for s in COV_SCENES if s[0] == "room"]
+    grid = make_grid(range(-15, 16, 2), range(-15, 16, 2), zs)
+    with torch.no_grad():
+        cov_ref = coverage_irs(Scene.from_mesh(room, dev), tx_room,
+                               morton_sphere_directions(COV_RAYS, generator=torch.Generator(dev)
+                                                        .manual_seed(0), device=dev),
+                               grid, COV_RADIUS, max_bounces=2, nbins=COV_BINS, num_rays=COV_RAYS,
+                               light_speed_mps=C, sample_rate_hz=RATE,
+                               env_hit=make_kernel_env_hit(room, device=dev),
+                               engine="batched").cpu().numpy()
+    s_scene, s_dirs, centers = solver_inputs(mesh, dev)
+    target = _solver_target(s_scene, s_dirs, centers, env)
+    init_fn, step_fn = make_inverse_solver(s_scene, s_dirs, centers, 1.0, target, max_bounces=BOUNCES,
+                                           nbins=NBINS, light_speed_mps=C, sample_rate_hz=RATE,
+                                           learning_rate=0.05, env_hit=env)
+    # One step from phase 11's start, twice (the ranks do the same).
+    steps = [_timed(lambda: step_fn(*init_fn([12.0, -2.0, 26.0]))) for _ in range(2)]
+    params, opt, loss = steps[-1][0]
+    step_ref = {"loss": float(loss), "grad_tx": params.tx_pos.grad.cpu().numpy(),
+                "grad_log_n1": params.log_n1.grad.cpu().numpy(),
+                "ms": [t[1] * 1e3 for t in steps]}
+    target = target.cpu().numpy()
+    del s_scene, s_dirs, centers, params, opt, loss, scene, env
+    torch.cuda.empty_cache()
+
+    # 3. Four ranks on this card, over gloo (NCCL refuses two ranks on one
+    #    card), built kernels loaded from build/rfx_torch/.
+    world = 4
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "inputs.npz")
+        np.savez(inputs, target=target)
+        worker = os.path.join(root, "scripts", "torch_multiproc_worker.py")
+        env_vars = dict(os.environ, PYTHONPATH=root)
+        (outs, host_s, _) = _timed(lambda: run_ranks(
+            lambda r, c: [sys.executable, worker, c, str(world), str(r),
+                          os.path.join(tmp, f"rank{r}.npz"), "--device", "cuda", "--workload",
+                          "chip", "--cases", "cir,coverage,solver", "--inputs", inputs],
+            world, timeout=600, env=env_vars, cwd=root))
+        infos = [result_of(o) for o in outs]
+        ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(world)]
+    _require(all(i["backend"] == "gloo" and i["device"] == torch.cuda.get_device_name(dev)
+                 for i in infos), f"four ranks: backends {[i['backend'] for i in infos]}")
+    four = out["four_ranks"] = {"world": world, "backend": "gloo", "host_s": host_s}
+
+    # sharded_cir on {'rays': 4}: every rank the same bits, two runs the same.
+    irs = [r["cir_ir"] for r in ranks]
+    _require(all(np.array_equal(ir, irs[0]) for ir in irs), "four-rank CIR: the ranks differ")
+    _require(all(i[case]["repeat_equal"] for i in infos for case in ("cir", "solver")),
+             "four ranks: two runs of the CIR or of the solver step differ")
+    four["cir_max_abs_err"] = _close_irs(irs[0], ir_ref, "four-rank CIR vs unsharded")
+
+    # sharded_coverage_irs on {'rays': 2, 'rx': 2}, tiles in rank order.
+    _require([i["coverage"]["coords"] for i in infos]
+             == [{"rays": r, "rx": x} for r in range(2) for x in range(2)], "coverage coords")
+    tiles = [r["coverage_tile"] for r in ranks]
+    _require(all(np.array_equal(tiles[r], tiles[r - 2]) for r in (2, 3))
+             and all(i["coverage"]["repeat_equal"] for i in infos),
+             "four-rank coverage: a tile's replicas or two runs differ")
+    four["coverage_max_abs_err"] = _close_irs(np.concatenate(tiles[:2]), cov_ref,
+                                              "four-rank coverage vs unsharded")
+    map_tiles = np.concatenate([r["coverage_tile_map"] for r in ranks[:2]])
+    _require(np.allclose(map_tiles, cov_ref, rtol=1e-5, atol=1e-12),
+             "four-rank coverage, engine 'map' vs the coverage kernel")
+    four["coverage_map_nonzero_mismatch"] = int(((map_tiles != 0) != (cov_ref != 0)).sum())
+
+    # One solver step on {'rays': 2, 'rx': 2} from phase 11's start.
+    rows = [np.concatenate([r["solver_tx"].ravel(), r["solver_log_n1"].ravel(),
+                            r["solver_loss"].ravel()]) for r in ranks]
+    _require(all(np.array_equal(row, rows[0]) for row in rows),
+             "four-rank solver: the ranks' parameters or losses differ")
+    loss4 = float(ranks[0]["solver_loss"])
+    _require(np.isfinite(loss4) and abs(loss4 - step_ref["loss"]) <= 1e-4 * abs(step_ref["loss"]),
+             f"four-rank solver: loss {loss4} vs unsharded {step_ref['loss']}")
+    for name in ("grad_tx", "grad_log_n1"):
+        g, ref = ranks[0][f"solver_{name}"], step_ref[name]
+        _require(np.all(np.isfinite(g)) and np.abs(ref).max() > 0
+                 and np.abs(g - ref).max() <= 1e-4 * np.abs(ref).max(),
+                 f"four-rank solver: {name} {g} vs unsharded {ref}")
+    ir_shape = tuple(infos[0]["solver"]["ir_shape"])
+    reduces = [(a, tuple(s)) for a, s in infos[0]["solver"]["all_reduces"]]
+    n_ir = sum(1 for _, s in reduces if s == ir_shape)
+    _require(all(i["solver"]["all_reduces"] == infos[0]["solver"]["all_reduces"] for i in infos)
+             and n_ir <= 2 and len(reduces) - n_ir <= 2,
+             f"four-rank solver: all-reduces a step {reduces}")
+    four.update(solver_loss=loss4, solver_loss_unsharded=step_ref["loss"],
+                solver_step_ms_unsharded=step_ref["ms"], solver_all_reduces=reduces,
+                per_rank={case: {k: [i[case][k] for i in infos] for k in ("ms", "peak_bytes")}
+                          for case in ("cir", "coverage", "solver")},
+                all_reduce_ms=infos[0]["cir"]["all_reduce_ms"],
+                solver_grad_max_rel={n: float(np.abs(ranks[0][f"solver_{n}"] - step_ref[n]).max()
+                                              / np.abs(step_ref[n]).max())
+                                     for n in ("grad_tx", "grad_log_n1")})
+    launches = {f"sharded_{case}": {k: sum(i[case]["launches"][k] for i in infos)
+                                    for k in infos[0][case]["launches"]}
+                for case in ("cir", "coverage", "solver")}
+    for path, needs in (("sharded_cir", (K_HIT, K_HIST)), ("sharded_coverage", (K_HIT, K_HIST, K_COV)),
+                        ("sharded_solver", (K_HIT, K_HIST))):
+        _require(all(launches[path][k] > 0 for k in needs), f"{path}: a kernel did not run: {launches[path]}")
+        print(f"# {path} launches, summed over the ranks: {launches[path]}", flush=True)
+    pr = four["per_rank"]
+
+    def warm(case, call=1):  # the ranks' times of one call (the first warms up), ms
+        return [round(ms[call], 1) for ms in pr[case]["ms"]]
+
+    print(f"# sharded, four ranks on one card (gloo, which stages the CUDA tensors through the "
+          f"host itself; the port copies nothing), {host_s:.1f} s with start-up: sharded_cir "
+          f"{{'rays': 4}}, {N_RAYS} rays: ranks bit-identical, two runs bit-identical, == unsharded "
+          f"on the same nonzero bins (max |d| {four['cir_max_abs_err']:.3e}); {warm('cir')} ms a "
+          f"call per rank", flush=True)
+    print(f"# sharded coverage {{'rays': 2, 'rx': 2}}, 2048 receivers x {COV_RAYS} rays, "
+          f"coverage kernel: tiles == unsharded on the same nonzero bins (max |d| "
+          f"{four['coverage_max_abs_err']:.3e}), replicas and two runs bit-identical; engine "
+          f"'map' within rtol 1e-5 ({four['coverage_map_nonzero_mismatch']} nonzero bins differ); "
+          f"a sweep per rank {warm('coverage')} ms (coverage kernel), {warm('coverage', 2)} ms "
+          f"(map engine)", flush=True)
+    print(f"# sharded solver step {{'rays': 2, 'rx': 2}}, {SOLVER_RAYS} rays x 64 receivers: loss "
+          f"{loss4:.9e} vs unsharded {step_ref['loss']:.9e}, grads max rel "
+          f"{four['solver_grad_max_rel']}, parameters bit-identical on every rank and in two runs; "
+          f"all-reduces a step {reduces}; {warm('solver')} ms per rank (unsharded "
+          f"{step_ref['ms'][1]:.1f} ms); peak {[round(b / 2**30, 3) for b in pr['solver']['peak_bytes']]} "
+          f"GiB per rank; gloo all-reduce ms {four['all_reduce_ms']}", flush=True)
+    return out, launches
+
+
 def _print_counters(name, c, bound):
     eff = ", ".join("-" if e is None else f"{e:.3f}" for e in c["simt_efficiency_per_bounce"])
     print(f"# walk counters, {name}, {c['rays']} rays: nodes {c['nodes_per_bounce']}, leaves "
@@ -1525,6 +1787,10 @@ def main() -> int:
     large, large_launches = _large_mesh_phase(
         root, dev, kernels_built, bvh,
         morton_sphere_directions(N_RAYS, generator=torch.Generator(dev).manual_seed(0), device=dev))
+    # 15. The sharded paths: one rank in this process, then four ranks on
+    #     this card (each rank counts its own launches; they are summed here).
+    torch.cuda.empty_cache()
+    dist_out, dist_launches = _dist_phase(root, dev, mesh, bvh)
     by_path = {
         "forward": launches,
         "scan_grad": grad["scan"].pop("launches"),
@@ -1532,6 +1798,7 @@ def main() -> int:
         "solver": solve.pop("launches"),
         **cov.pop("launches"),
         **large_launches,
+        **dist_launches,
     }
 
     def counts(symbol):
@@ -1662,6 +1929,7 @@ def main() -> int:
         "solver": {"rays": SOLVER_RAYS, "receivers": 64, **solve},
         "coverage": {"rays": COV_RAYS, "receivers": 2048, "bins": COV_BINS, **cov}}))
     print(json.dumps({"large_mesh": large, "bench_subset_counters": bench_sub}))
+    print(json.dumps({"distribution": dist_out}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -19,4 +19,10 @@ On a CPU tensor their plain PyTorch versions run. Asking for CUDA where there
 is no card raises. Gradients flow through the scan tracer (`tracer.py`), the
 differentiable fused tracer (`ops/fused.py`), the coverage engine
 (`coverage.py`) and the inverse solver (`solver.py`).
+
+`parallel/` distributes over ranks with torch.distributed: `dist.py` shards
+the CIR, coverage and (through `solver.py`'s `mesh=`) the inverse solve over
+'rays' and 'rx' axes of ranks, and `launch.py` starts the ranks of one host.
+`graft_entry.py` holds the entry points `entry()` and
+`dryrun_multichip(n)`.
 """

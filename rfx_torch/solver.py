@@ -8,7 +8,11 @@ receivers' sphere tests and the IR histogram. The optimizer is
 `torch.optim.Adam`, whose defaults (betas 0.9 / 0.999, eps 1e-8 added
 outside the square root) are `optax.adam`'s.
 
-Not ported yet: the sharded solve over a device mesh (`mesh=`, ROADMAP A11).
+With `mesh=` (rfx_torch.parallel.make_mesh, axes 'rays' and 'rx') each rank
+traces its block of the rays for its tile of the receivers; the partial IRs
+are summed over 'rays' before the energy square, the squared errors over
+'rx', and the parameters' gradients over every rank in one all-reduce
+(rfx_torch/parallel/dist.py has the autograd of the collectives).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from rfx_torch.coverage import coverage_irs
+from rfx_torch.parallel.dist import replicated, sum_over
 from rfx_torch.tracer import Scene
 
 __all__ = ["InverseParams", "coverage_irs_soft", "make_inverse_solver"]
@@ -53,10 +58,14 @@ def make_inverse_solver(scene: Scene, directions, rx_centers, rx_radius, target_
     Adam step on loss = mean((sum(irs^2, axis=1) - target)^2) and returns the
     loss before the step, as the reference does; params are updated in
     place. With geometry as a leaf, use the brute intersector or a
-    differentiable-tris kernel intersector so vertex gradients flow."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded inverse solve (mesh=) is not ported yet (ROADMAP A11)")
+    differentiable-tris kernel intersector so vertex gradients flow.
+
+    `mesh`: a rfx_torch.parallel Mesh with axes 'rays' and 'rx'. The
+    arguments stay global (all rays, all receivers and their targets); each
+    rank takes its blocks, and a step makes three all-reduces: the partial
+    IRs of its receiver tile over 'rays', the squared error over 'rx' and
+    the gradients over every rank. Every rank returns the same loss and
+    holds the same parameters after the step, bit for bit."""
     dev = scene.vertices.device
 
     def as_dev(a):
@@ -64,16 +73,29 @@ def make_inverse_solver(scene: Scene, directions, rx_centers, rx_radius, target_
         return torch.as_tensor(a, dtype=torch.float32, device=dev)
 
     dirs, centers, target = as_dev(directions), as_dev(rx_centers), as_dev(target_energy)
-    num_rays = int(dirs.shape[0])
+    num_rays, num_rx = int(dirs.shape[0]), int(centers.shape[0])
+    if mesh is not None:
+        if num_rays % mesh.shape["rays"]:
+            raise ValueError(f"ray count {num_rays} not divisible over 'rays' axis")
+        if num_rx % mesh.shape["rx"]:
+            raise ValueError(f"receiver count {num_rx} not divisible over 'rx' axis")
+        dirs = mesh.block(dirs, "rays")
+        centers, target = mesh.block(centers, "rx"), mesh.block(target, "rx")
 
     def loss_fn(params: InverseParams) -> torch.Tensor:
+        if mesh is not None:  # the gradients of the leaves sum over every rank
+            params = InverseParams(*replicated(mesh, None, *params))
         verts = scene.vertices if params.vertices is None else params.vertices
         irs = coverage_irs_soft(
             verts, scene.faces, params.tx_pos, torch.exp(params.log_n1), dirs, centers,
             rx_radius, num_rays=num_rays, max_bounces=max_bounces, nbins=nbins,
             light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz, env_hit=env_hit)
+        if mesh is None:
+            energy = torch.sum(irs * irs, dim=1)
+            return torch.mean((energy - target) ** 2)
+        irs = sum_over(irs, mesh, "rays")  # complete each receiver of the tile
         energy = torch.sum(irs * irs, dim=1)
-        return torch.mean((energy - target) ** 2)
+        return sum_over(torch.sum((energy - target) ** 2), mesh, "rx") / num_rx
 
     def init_fn(tx0, n1_0=5.0, vertices0=None):
         params = InverseParams(

@@ -160,6 +160,17 @@ def test_chunk_accumulator_copy_resumes_as_rfx(tmp_path):
     np.testing.assert_allclose(results[0], np.sum(parts, axis=0), rtol=1e-6)
 
 
+@pytest.mark.parametrize("n,seed", [(1, 0), (2048, 0), (4096, 31)])
+def test_graft_entry_sampler_copy_matches_oracle(n, seed):
+    from oracle import sample_sphere_directions
+
+    from rfx_torch.graft_entry import uniform_sphere_directions
+
+    ours = uniform_sphere_directions(n, seed=seed)
+    assert ours.dtype == np.float32 and ours.shape == (n, 3)
+    np.testing.assert_array_equal(ours, sample_sphere_directions(n, seed=seed))
+
+
 def test_viz_copy_matches_rfx(tmp_path):
     mesh = geometry.make_room()
     kw = dict(tx_pos=(1.0, 2.0, 3.0), rx_pos=(-1.0, 0.0, 2.0), rx_radius=0.5,

@@ -509,3 +509,50 @@ def test_micro_vote_kernel_matches_plain(cuda, style):
         assert torch.equal(micro_vote.micro_vote(tile, steps, style),
                            micro_vote.micro_vote_plain(tile, steps, style)), fill
     assert float(micro_vote.micro_vote(x, 0, style)) == 0.0
+
+
+def test_two_rank_sharded_paths_on_card(cuda, tmp_path):
+    """Two gloo ranks sharing the card (scripts/torch_multiproc_worker.py,
+    the CPU tests' room workload): sharded_cir on {'rays': 2} and the
+    coverage tiles on {'rays': 1, 'rx': 2} through the histogram kernel,
+    against the unsharded paths on the card; the ranks hold the same IR bits."""
+    import os
+    import sys
+
+    from rfx_torch.parallel.launch import result_of, run_ranks
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cir.HISTOGRAM_KERNEL.load()  # built once, before the ranks load it
+    outs = run_ranks(lambda r, c: [sys.executable, os.path.join(repo, "scripts",
+                                                                "torch_multiproc_worker.py"),
+                                   c, "2", str(r), str(tmp_path / f"rank{r}.npz"), "--device",
+                                   "cuda", "--cases", "cir,coverage"],
+                     2, timeout=300, env=dict(os.environ, PYTHONPATH=repo))
+    infos = [result_of(o) for o in outs]
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    assert all(i["backend"] == "gloo" and i["cir"]["launches"]["rfx_ir_histogram"] > 0
+               and i["coverage"]["launches"]["rfx_ir_histogram"] > 0 for i in infos)
+    assert np.array_equal(ranks[0]["cir_ir"], ranks[1]["cir_ir"])
+
+    from rfx_torch.graft_entry import uniform_sphere_directions
+
+    c, rate = 2.998e8, 100e9
+    nbins = int(100e-9 * rate)
+    scene = Scene.from_mesh(make_room(), cuda)
+    dirs = torch.from_numpy(uniform_sphere_directions(4096, seed=31)).to(cuda)
+    r = trace_to_rx(scene, [5.0, 0.0, 5.0], dirs, [-8.0, 2.0, 4.0], 0.8, max_bounces=3,
+                    rx_mode="analytic")
+    want = cir.cir_from_trace(r, tx_power=1.0, num_rays=4096, nbins=nbins, light_speed_mps=c,
+                              sample_rate_hz=rate).cpu().numpy()
+    got = ranks[0]["cir_ir"]
+    assert np.array_equal(got != 0, want != 0) and got.sum() > 0
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-12)
+
+    centers = coverage.make_grid(range(-12, 13, 6), [-6, 6], [2, 8])[:16]
+    cdirs = torch.from_numpy(uniform_sphere_directions(2048, seed=13)).to(cuda)
+    want = coverage.coverage_irs(scene, [5.0, 0.0, 5.0], cdirs, centers, 0.8, max_bounces=2,
+                                 nbins=nbins, num_rays=2048, light_speed_mps=c,
+                                 sample_rate_hz=rate, rx_batch=4, engine="map").cpu().numpy()
+    got = np.concatenate([ranks[0]["coverage_tile"], ranks[1]["coverage_tile"]])
+    assert np.array_equal(got != 0, want != 0)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-12)

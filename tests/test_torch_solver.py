@@ -1,10 +1,11 @@
 """The port's inverse solver against rfx.solver on the same inputs: one Adam
 step's parameters and loss, through rfx_torch.convert.inverse_params_from_rfx;
 the 20-step loss decrease of tests/test_gradients.py:109-137; the vertex
-leaf; and the FD checks of the soft-IR energy gradients."""
+leaf, and `mesh=` on a one-rank group (tests/test_torch_dist.py has the
+sharded step over several ranks); and the FD checks of the soft-IR energy
+gradients."""
 
 import numpy as np
-import pytest
 import torch
 
 import jax.numpy as jnp
@@ -14,6 +15,8 @@ from rfx.solver import coverage_irs_soft as jcoverage_irs_soft
 from rfx.solver import make_inverse_solver as jmake_inverse_solver
 from rfx.tracer import Scene as JScene
 from rfx_torch import convert
+from rfx_torch.parallel import make_mesh
+from rfx_torch.parallel.launch import one_rank_group
 from rfx_torch.solver import InverseParams, coverage_irs_soft, make_inverse_solver
 from rfx_torch.tracer import Scene
 
@@ -92,8 +95,17 @@ def test_inverse_solver_vertex_leaf_and_mesh(box_room):
     params, opt, loss = step_fn(params, opt)
     assert np.isfinite(float(loss))
     assert float((params.vertices.detach() - v0).abs().max()) > 0
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_inverse_solver(scene, dirs, RXC, 2.5, target, mesh=object(), **KW)
+    # mesh= on a one-rank group: the same step through the collectives and
+    # their autograd, the vertex leaf's gradient included.
+    with one_rank_group("gloo"):
+        init_m, step_m = make_inverse_solver(scene, dirs, RXC, 2.5, target, learning_rate=0.01,
+                                             mesh=make_mesh({"rays": 1, "rx": 1}, device="cpu"),
+                                             **KW)
+        pm, om = init_m(tx0=[3.0, 0.0, 5.0], vertices0=v0)
+        pm, om, loss_m = step_m(pm, om)
+    assert torch.equal(loss_m, loss)
+    for got, want in zip(pm, params):
+        assert torch.equal(got.detach(), want.detach()) and torch.equal(got.grad, want.grad)
 
 
 def _energy_fn(box_room, seed):
