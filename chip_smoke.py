@@ -11,11 +11,11 @@ Phases, each ending in torch.cuda.synchronize() so a fault shows where it
 happened, and none catching its own failure:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the five CUDA sources of rfx_torch/csrc/ (eight C entry points:
+2. build the six CUDA sources of rfx_torch/csrc/ (ten C entry points:
    the fused trace and its counted instantiation share a source, so do the
-   closest hit and its counted instantiation, and the coverage histogram
-   and its slab reduction) and the native C++ BVH builder into
-   build/rfx_torch/, one compiler each, all started together;
+   closest hit and its counted instantiation, and the coverage histogram,
+   its slab reduction and the phasor sums) and the native C++ BVH builder
+   into build/rfx_torch/, one compiler each, all started together;
 3. the bench workload (bench.py): make_terrain(grid=128, extent=60, seed=0),
    32,258 triangles, 5,242,880 Morton-ordered rays, 4 bounces, a 20,000-bin
    IR, tx (10, 0, 25), rx (-10, 0, 8), rx radius 1.0;
@@ -28,9 +28,13 @@ happened, and none catching its own failure:
    bit-identical across two runs, beside `index_add_`, `bincount` and two
    bounds (every input read once; the bytes this run's captures need);
 6. the forward path: rfx_torch.api.Tracer(...).compute_cir answers three
-   requests, the tx raised by 1 m each time, and rx_power_dbm reads each IR.
-   The launch counts are reset just before and must be > 0 after; the first
-   IR must equal phase 5's bit for bit;
+   requests, the tx raised by 1 m each time, and rx_power_dbm reads each IR
+   through the RX-power kernel. The launch counts are reset just before and
+   must be > 0 after; the first IR must equal phase 5's bit for bit. Then the
+   RX-power kernel against its plain version on that IR (20,000 bins: the
+   same nonzero samples, the signal within rtol 1e-5 and an absolute floor
+   of 1e-5 of its largest sample, dBm within 1e-4 dB, two runs the same
+   bits), beside conv1d;
 7. the per-query closest-hit kernel against its plain version on the bench
    scene: the 65,536 rays of phase 4 from tx, their reflected second-bounce
    queries from the terrain, and 1,024 parked rays; identical t, indices,
@@ -78,15 +82,21 @@ happened, and none catching its own failure:
     on the card's segments (the same nonzero bins, rtol 1e-5 / atol 1e-12,
     bit-identical across runs, receiver 777 alone the same bits as in the
     group) and its slab reduction against its plain version on (12, 2048,
-    10,000) random planes (bit for bit); the exact metric through
+    10,000) random planes (bit for bit); the RX-power kernel against its
+    plain version on all 2,048 IRs (phase 6's bars, row 777 alone the same
+    bits) and the phasor kernel against its plain version on all 2,048
+    receivers (dBm 1e-3 dB, ratio and spread rtol 1e-4, the flagged set
+    alike away from the thresholds, two runs and receiver 777 alone the same
+    bits), each on the card; the exact metric through
     `rfx_torch.cli.main(["coverage", ...])` (room), whose saved dBm must equal
     the facade's and be finite exactly where an IR is nonzero, with
     rx_power_dbm bit-identical across two card runs and within 1e-3 dB of the
-    CPU; the fast and hybrid metrics through the facade, the fast one's dBm
-    (1e-3 dB), ratio and spread (rtol 1e-4) held against the CPU on the same
-    segments, the hybrid's flagged set against the CPU's (bar receivers
-    within 1e-4 of a threshold), the hybrid exact where it fell back and fast
-    elsewhere; wall and CUDA-event times of each metric;
+    CPU on all 2,048 IRs; the fast and hybrid metrics through the facade, the
+    fast one's dBm (1e-3 dB), ratio and spread (rtol 1e-4) held against the
+    CPU on the same segments, the hybrid's flagged set against the CPU's (bar
+    receivers within 1e-4 of a threshold), the hybrid the exact sweep's bits
+    where it re-evaluated and fast elsewhere; wall and CUDA-event times of
+    each metric;
 14. the large-mesh path (scripts/torch_bench_large_mesh.py, whose legs this
     phase calls): make_terrain(grid=724, extent=120, seed=0), 1,045,458
     triangles, the native builder at leaf 8 (asserted, with its seconds,
@@ -127,14 +137,15 @@ happened, and none catching its own failure:
     time-slice one card: their times measure the protocol, not scaling.
 Each main-path run is counted on its own: every launch count is set to 0
 just before it and read just after, and each kernel the path runs must have
-launched (the forward requests: fused trace and histogram; the large-mesh
-path: fused trace, counted fused trace, closest hit, counted closest hit
-and histogram; the micro-kernel's timed launches: micro vote; the scan
-value+grad and the five full-width solver steps: closest hit and histogram;
-the fused value+grad: fused trace and histogram; the coverage CLI's exact
-sweep: the coverage kernel and its slab reduction; each hybrid sweep: the
-same two, and on the terrain the closest hit; each fast sweep: on the terrain the closest hit,
-and never the coverage kernel; each rank's sharded CIR, coverage and
+launched (the forward requests: fused trace, histogram and RX power; the
+large-mesh path: fused trace, counted fused trace, closest hit, counted
+closest hit and histogram; the micro-kernel's timed launches: micro vote;
+the scan value+grad and the five full-width solver steps: closest hit and
+histogram; the fused value+grad: fused trace and histogram; the coverage
+CLI's exact sweep: the coverage kernel, its slab reduction and RX power;
+each hybrid sweep: the phasor sums, the same three, and on the terrain the
+closest hit; each fast sweep: the phasor sums, on the terrain the closest
+hit, and never the coverage kernel; each rank's sharded CIR, coverage and
 solver step: closest hit and histogram, and the coverage kernel on the
 coverage). The comparisons with the plain versions, the
 checks of phase 10 and the facade are not counted.
@@ -197,6 +208,8 @@ K_HIST = "rfx_ir_histogram"
 K_COV = "rfx_coverage_hist"
 K_REDUCE = "rfx_coverage_hist_reduce"
 K_VOTE = "rfx_micro_vote"
+K_POWER = "rfx_rx_power"
+K_PHASOR = "rfx_coverage_phasor"
 # One H100 SXM's published peaks: HBM bytes/s, f32 FLOP/s outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -355,16 +368,137 @@ def _counted_bound(fused_bound: dict) -> dict:
 
 
 def port_kernels() -> tuple:
-    """The port's eight C entry points (rfx_torch/csrc/), each with its launch count."""
+    """The port's ten C entry points (rfx_torch/csrc/), each with its launch count."""
     from rfx_torch import cir
     from rfx_torch.ops.bvh_trace import CLOSEST_HIT_COUNTED_KERNEL, CLOSEST_HIT_KERNEL
-    from rfx_torch.ops.coverage_hist import COVERAGE_HIST_KERNEL, COVERAGE_REDUCE_KERNEL
+    from rfx_torch.ops.coverage_hist import (
+        COVERAGE_HIST_KERNEL,
+        COVERAGE_PHASOR_KERNEL,
+        COVERAGE_REDUCE_KERNEL,
+    )
     from rfx_torch.ops.fused import FUSED_TRACE_COUNTED_KERNEL, FUSED_TRACE_KERNEL
     from rfx_torch.ops.micro_vote import MICRO_VOTE_KERNEL
 
     return (FUSED_TRACE_KERNEL, CLOSEST_HIT_KERNEL, cir.HISTOGRAM_KERNEL, COVERAGE_HIST_KERNEL,
-            MICRO_VOTE_KERNEL, FUSED_TRACE_COUNTED_KERNEL, CLOSEST_HIT_COUNTED_KERNEL,
-            COVERAGE_REDUCE_KERNEL)
+            MICRO_VOTE_KERNEL, cir.RX_POWER_KERNEL, FUSED_TRACE_COUNTED_KERNEL,
+            CLOSEST_HIT_COUNTED_KERNEL, COVERAGE_REDUCE_KERNEL, COVERAGE_PHASOR_KERNEL)
+
+
+def rx_power_taps(irs) -> int:
+    """The in-range taps of the 'same' convolution of (nbins,) or (M, nbins)
+    IRs: for each nonzero bin k, the output samples j with 0 <= j + lo - k <
+    nbins (lo = (nbins - 1) // 2). Two f32 operations each."""
+    nbins = irs.shape[-1]
+    lo = (nbins - 1) // 2
+    k = irs.reshape(-1, nbins).nonzero()[:, 1]
+    return int(((k - lo + nbins - 1).clamp_max(nbins - 1) - (k - lo).clamp_min(0) + 1).sum())
+
+
+def _rx_power_leg(irs, window: float, what: str) -> dict:
+    """K-P against its plain version on the card, on IRs of a main path:
+    the same nonzero samples, the signal within rtol 1e-5 (atol 1e-5 of the
+    largest sample: the two add a sample's taps in other orders), dBm within
+    1e-4 dB, two runs the same bits, a row alone (the 778th, where there are
+    that many) the same bits as in the batch. Times: the kernel's call, the
+    plain version's, and conv1d's (the flipped carrier, 'same' padding, no
+    TF32: the library's call for the same signal, timed here only); the bound
+    counts each in-range tap."""
+    import torch
+    import torch.nn.functional as F
+
+    from rfx_torch import cir
+
+    a = cir.rx_power_dbm(irs, window)
+    b = cir.rx_power_dbm(irs, window)
+    p = cir.rx_power_dbm_plain(irs, window)
+    _sync()
+    _require(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), f"{what}: two runs differ")
+    _require(torch.equal(a[1] != 0, p[1] != 0), f"{what}: nonzero samples differ from plain")
+    scale = float(p[1].abs().max())
+    _require(torch.allclose(a[1], p[1], rtol=1e-5, atol=1e-5 * scale), f"{what}: signal != plain")
+    fin = torch.isfinite(p[0])
+    _require(torch.equal(torch.isfinite(a[0]), fin) and bool(fin.any()), f"{what}: -inf pattern")
+    dbm_err = float((a[0][fin] - p[0][fin]).abs().max())
+    _require(dbm_err < 1e-4, f"{what}: dBm differs from plain by {dbm_err}")
+    rows = irs.reshape(-1, irs.shape[-1])
+    m, nbins = rows.shape
+    if m > 777:
+        alone = cir.rx_power_dbm(rows[777], window)
+        _require(torch.equal(alone[1], a[1][777]) and torch.equal(alone[0], a[0][777]),
+                 f"{what}: row 777 alone differs from it in the batch")
+    hi = nbins - 1 - (nbins - 1) // 2
+    flipped = cir._carrier(nbins, window, 2.4e9, rows.device).flip(0)[None, None]
+
+    def library():
+        return F.conv1d(rows[:, None], flipped, padding=hi)[:, 0, :nbins]
+
+    lib = library()
+    out = {"rows": m, "nbins": nbins, "nonzero_bins": int((rows != 0).sum()),
+           "max_abs_err": float((a[1] - p[1]).abs().max()), "max_abs_signal": scale,
+           "dbm_err_vs_plain": dbm_err, "dbm_bits_differ": int((a[0] != p[0]).sum()),
+           "ms": _cuda_ms(lambda: cir.rx_power_dbm(irs, window), 10),
+           "plain_ms": _cuda_ms(lambda: cir.rx_power_dbm_plain(irs, window), 1),
+           "library_ms": _cuda_ms(library, 3),
+           "library_max_abs_err": float((lib.reshape(a[1].shape) - p[1]).abs().max()),
+           "library_nonzero_samples_differ": int(((lib.reshape(a[1].shape) != 0) != (p[1] != 0)).sum()),
+           "taps": rx_power_taps(rows)}
+    out["bound"] = _bound(8 * rows.numel() + 4 * nbins + 4 * m, 2 * out["taps"])
+    print(f"# {what}, {m} x {nbins} bins ({out['nonzero_bins']} nonzero): kernel == plain (max |d| "
+          f"{out['max_abs_err']:.3e} of {scale:.3e}, dBm {dbm_err:.3e}), bit-identical across runs"
+          f"{' and alone' if m > 777 else ''}; kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.1f} "
+          f"ms, conv1d {out['library_ms']:.3f} ms (max |d| {out['library_max_abs_err']:.3e}, "
+          f"{out['library_nonzero_samples_differ']} zeros differ), bound {out['bound']['bound_ms']:.4f} "
+          f"ms by {out['bound']['bound_by']} ({out['taps']} taps)", flush=True)
+    return out
+
+
+def _phasor_leg(segs, centers, fkw: dict, what: str) -> dict:
+    """K-F against its plain version on all receivers of a sweep, on the
+    card's segments: -inf alike, dBm within 1e-3 dB, ratio and spread within
+    rtol 1e-4, the flagged set alike away from the thresholds, two runs and
+    receiver 777 alone the same bits. The bound is the function's work, one
+    sphere test per live segment and receiver (17 f32 operations, as K3's)
+    and one read of the segments and centers; the kernel's second pass (the
+    spread about the mean delay) is its design's cost, not counted."""
+    import torch
+
+    from rfx_torch.coverage import _dbm_cancel_from_segments, _dbm_cancel_plain
+
+    def kernel(c=centers):
+        return _dbm_cancel_from_segments(segs, c, COV_RADIUS, **fkw)
+
+    k1, k2 = kernel(), kernel()
+    p = _dbm_cancel_plain(segs, centers, COV_RADIUS, **fkw)
+    _sync()
+    _require(all(torch.equal(a, b) for a, b in zip(k1, k2)), f"{what}: two runs differ")
+    ok = torch.isfinite(p[0])
+    _require(torch.equal(torch.isfinite(k1[0]), ok), f"{what}: -inf pattern")
+    dbm_err = float((k1[0][ok] - p[0][ok]).abs().max())
+    _require(dbm_err < 1e-3, f"{what}: dBm differs from plain by {dbm_err}")
+    for name, a, b in (("ratio", k1[1], p[1]), ("spread", k1[2], p[2])):
+        _require(torch.allclose(a, b, rtol=1e-4, atol=0), f"{what}: {name} differs from plain")
+    flags_k, flags_p = (k1[1] < 0.5) | (k1[2] > 10e-9), (p[1] < 0.5) | (p[2] > 10e-9)
+    edge = ((p[1] - 0.5).abs() <= 1e-4 * 0.5) | ((p[2] - 10e-9).abs() <= 1e-4 * 10e-9)
+    _require(torch.equal(flags_k[~edge], flags_p[~edge]), f"{what}: flagged set differs")
+    alone = kernel(centers[777:778])
+    _require(all(torch.equal(a[0], b[777]) for a, b in zip(alone, k1)),
+             f"{what}: receiver 777 alone differs from it in the group")
+    m = centers.shape[0]
+    seg_bytes = sum(int(t.numel() * t.element_size()) for t in segs)
+    out = {"dbm_err_vs_plain": dbm_err,
+           "ratio_max_rel_err": float(((k1[1] - p[1]).abs() / p[1].abs().clamp_min(1e-30)).max()),
+           "spread_max_rel_err": float(((k1[2] - p[2]).abs()
+                                        / p[2].abs().clamp_min(1e-30))[p[2] > 0].max()),
+           "flagged": int(flags_k.sum()), "flags_at_threshold": int(edge.sum()),
+           "ms": _cuda_ms(kernel, 5), "plain_ms": _cuda_ms(
+               lambda: _dbm_cancel_plain(segs, centers, COV_RADIUS, **fkw), 1),
+           "bound": _bound(seg_bytes + 12 * m + 12 * m, 17 * m * int(segs.alive.sum()))}
+    print(f"# {what}, {m} receivers: kernel == plain (dBm max |d| {dbm_err:.3e}, ratio rel "
+          f"{out['ratio_max_rel_err']:.3e}, spread rel {out['spread_max_rel_err']:.3e}, "
+          f"{out['flagged']} flagged), bit-identical across runs and alone; kernel {out['ms']:.3f} "
+          f"ms, plain {out['plain_ms']:.1f} ms, bound {out['bound']['bound_ms']:.3f} ms by "
+          f"{out['bound']['bound_by']}", flush=True)
+    return out
 
 
 def _load_script(root: str, name: str):
@@ -1038,6 +1172,12 @@ def _coverage_phase(terrain, dev, kernels):
               f"{res['bound']['bound_ms']:.3f} ms by {res['bound']['bound_by']}", flush=True)
         del k2, p
 
+        # 1b. K-P on K3's IRs (the exact sweep's) and K-F on the segments,
+        #     each against its plain version on the card.
+        res["rx_power"] = _rx_power_leg(k1, COV_WINDOW, f"rx_power kernel, {name}")
+        res["phasor"] = _phasor_leg(segs, centers, fkw, f"phasor kernel, {name}")
+        torch.cuda.empty_cache()
+
         # 2. The exact metric through the command line (room), with
         #    rx_power_dbm on the card twice and on the CPU.
         if name == "room":
@@ -1047,7 +1187,7 @@ def _coverage_phase(terrain, dev, kernels):
                         "2", "--rx-radius", str(COV_RADIUS), "--metric", "exact", "--no-viz",
                         "--save-dbm", save, "--device", "cuda"]
                 (rc, launches), host_s, ev_ms = _timed(lambda: _counted(
-                    kernels, "coverage_exact", (K_COV, K_REDUCE), lambda: cli.main(argv)))
+                    kernels, "coverage_exact", (K_COV, K_REDUCE, K_POWER), lambda: cli.main(argv)))
                 rows = np.load(save)
             out["launches"]["coverage_exact"] = launches
             _require(rc == 0 and rows.shape == (2048, 4), f"coverage CLI: rc {rc}, {rows.shape}")
@@ -1078,8 +1218,8 @@ def _coverage_phase(terrain, dev, kernels):
             print(f"# coverage CLI --metric exact, room: {host_s:.3f} s ({ev_ms:.1f} ms CUDA "
                   f"events), {int(lit.sum())} of 2048 receivers reached, dBm "
                   f"[{np.nanmin(np.where(lit, d1, np.nan)):.2f}, {np.nanmax(d1):.2f}]; "
-                  f"rx_power_dbm bit-identical across two card runs, card vs CPU on "
-                  f"{int(fin.size)} receivers max |d| {dbm_err:.3e} dB "
+                  f"rx_power_dbm (the kernel) bit-identical across two card runs, card vs CPU "
+                  f"on {int(fin.size)} receivers max |d| {dbm_err:.3e} dB "
                   f"({res['rx_dbm_bits_differ']} differ in any bit)", flush=True)
             del irs
 
@@ -1089,12 +1229,12 @@ def _coverage_phase(terrain, dev, kernels):
         env_needs = () if name == "room" else (K_HIT,)
         req = (tx, 1.0, grid, COV_RADIUS)
         (fast, launches), res["fast_host_s"], res["fast_ms"] = _timed(lambda: _counted(
-            kernels, f"coverage_fast_{name}", env_needs,
+            kernels, f"coverage_fast_{name}", (K_PHASOR,) + env_needs,
             lambda: tracer.compute_coverage_dbm_fast(*req, directions=dirs)))
         _require(launches[K_COV] == 0, f"fast metric, {name}: the coverage kernel ran")
         out["launches"][f"coverage_fast_{name}"] = launches
         (hybrid, n_flagged), launches = _counted(
-            kernels, f"coverage_hybrid_{name}", (K_COV, K_REDUCE) + env_needs,
+            kernels, f"coverage_hybrid_{name}", (K_PHASOR, K_COV, K_REDUCE, K_POWER) + env_needs,
             lambda: tracer.compute_coverage_dbm_hybrid(*req, directions=dirs))
         out["launches"][f"coverage_hybrid_{name}"] = launches
         dbm_k, ratio_k, spread_k = (x.cpu().numpy() for x in _dbm_cancel_from_segments(
@@ -1130,9 +1270,11 @@ def _coverage_phase(terrain, dev, kernels):
         redo = np.ones(m, bool) if wholesale else flags_k
         ok = np.isfinite(exact)
         _require(np.array_equal(np.isfinite(hybrid), ok), f"hybrid, {name}: -inf pattern")
-        _require(np.allclose(hybrid[redo & ok], exact[redo & ok], rtol=0, atol=1e-3)
+        # K3 and K-P give a receiver the same bits alone as in any group, so
+        # the re-evaluated receivers equal the exact sweep's bit for bit.
+        _require(np.array_equal(hybrid[redo], exact[redo])
                  and np.array_equal(hybrid[~redo], fast[~redo]),
-                 f"hybrid, {name}: not exact where flagged and fast elsewhere")
+                 f"hybrid, {name}: not the exact bits where re-evaluated and fast elsewhere")
         _, res["hybrid_host_s"], res["hybrid_ms"] = _timed(
             lambda: tracer.compute_coverage_dbm_hybrid(*req, directions=dirs))
         gap = np.abs(fast[ok] - exact[ok])
@@ -1588,7 +1730,11 @@ def main() -> int:
     from rfx_torch.geometry import make_terrain
     from rfx_torch.ops import native_lib
     from rfx_torch.ops.bvh_trace import CLOSEST_HIT_COUNTED_KERNEL, CLOSEST_HIT_KERNEL
-    from rfx_torch.ops.coverage_hist import COVERAGE_HIST_KERNEL, COVERAGE_REDUCE_KERNEL
+    from rfx_torch.ops.coverage_hist import (
+        COVERAGE_HIST_KERNEL,
+        COVERAGE_PHASOR_KERNEL,
+        COVERAGE_REDUCE_KERNEL,
+    )
     from rfx_torch.ops.fused import (
         FUSED_TRACE_COUNTED_KERNEL,
         FUSED_TRACE_KERNEL,
@@ -1613,23 +1759,22 @@ def main() -> int:
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     print(card, flush=True)
 
-    # 2. Build the five CUDA sources and the native BVH builder from the
+    # 2. Build the six CUDA sources and the native BVH builder from the
     #    sources in this checkout, one compiler each, all started together;
-    #    the counted fused trace, the counted closest hit and the slab
-    #    reduction bind their entries in the libraries of the fused trace, the
-    #    closest hit and the coverage histogram.
+    #    the counted fused trace, the counted closest hit, the slab reduction
+    #    and the phasor sums bind their entries in the libraries of the fused
+    #    trace, the closest hit and the coverage histogram.
     t0 = time.perf_counter()
     per_source = (FUSED_TRACE_KERNEL, CLOSEST_HIT_KERNEL, cir.HISTOGRAM_KERNEL,
-                  COVERAGE_HIST_KERNEL, MICRO_VOTE_KERNEL)
+                  COVERAGE_HIST_KERNEL, MICRO_VOTE_KERNEL, cir.RX_POWER_KERNEL)
     kernels_built = per_source + (FUSED_TRACE_COUNTED_KERNEL, CLOSEST_HIT_COUNTED_KERNEL,
-                                  COVERAGE_REDUCE_KERNEL)
+                                  COVERAGE_REDUCE_KERNEL, COVERAGE_PHASOR_KERNEL)
     with ThreadPoolExecutor(len(per_source) + 1) as pool:
         native = pool.submit(native_lib.load)
         list(pool.map(lambda k: k.load(), per_source))
         native.result()
-    FUSED_TRACE_COUNTED_KERNEL.load()
-    CLOSEST_HIT_COUNTED_KERNEL.load()
-    COVERAGE_REDUCE_KERNEL.load()
+    for k in kernels_built[len(per_source):]:
+        k.load()
     for k in per_source:
         print(f"# built {k.source}: {k.build_log.strip()}")
     print("# built native/bvh_builder.cpp with g++")
@@ -1736,10 +1881,15 @@ def main() -> int:
         _require(ir.shape == (NBINS,) and np.all(np.isfinite(ir)), "IR is not finite (nbins,)")
         _require(float(ir.sum()) > 0.0, f"request {i}: IR sum is 0")
         _require(np.isfinite(dbm), f"request {i}: dBm is not finite")
-    launches = {K_FUSED: FUSED_TRACE_KERNEL.launches, K_HIST: cir.HISTOGRAM_KERNEL.launches}
+    launches = {K_FUSED: FUSED_TRACE_KERNEL.launches, K_HIST: cir.HISTOGRAM_KERNEL.launches,
+                K_POWER: cir.RX_POWER_KERNEL.launches}
     _require(all(v > 0 for v in launches.values()), f"a kernel did not run: {launches}")
     _require(np.array_equal(requests[0][3], ir_k.cpu().numpy()),
              "the main path's first IR differs from the checked kernels' IR")
+    # K-P on that IR, the `cir` command's single-IR call.
+    kp_cir = _rx_power_leg(ir_k, WINDOW, "rx_power kernel, the request's IR")
+    _require(float(cir.rx_power_dbm(ir_k, WINDOW)[0]) == requests[0][4],
+             "rx_power_dbm of the checked IR differs from the first request's")
     for tx_i, ev_ms, host_s, ir, dbm in requests:
         print(f"# compute_cir tx={tx_i}: {int((ir != 0).sum())} nonzero bins, IR sum "
               f"{float(ir.sum()):.6e}, {dbm:.4f} dBm; {ev_ms:.3f} ms (CUDA events), "
@@ -1809,6 +1959,8 @@ def main() -> int:
     # plain version cannot run at that shape, `plain_ms` is its time on the
     # subset it was compared on and `ms_at_plain_shape` the kernel's there.
     kh_batch = solve["histogram_batch"]
+    kp_room, kp_terrain = cov["room"].pop("rx_power"), cov["terrain"].pop("rx_power")
+    kf_room, kf_terrain = cov["room"].pop("phasor"), cov["terrain"].pop("phasor")
     bench_wc, large_wc, sub14 = large["bench_walk_counters"], large["walk_counters"], large["subset"]
     votes = large["micro_vote"]["styles"]["votes"]
     m_steps, m_check = large["micro_vote"]["steps"], large["micro_vote"]["check_steps"]
@@ -1908,6 +2060,34 @@ def main() -> int:
          "shape": f"{cov['reduce']['planes']} slab planes of 2048 x {COV_BINS} f32 added per bin "
                   f"in slab order (the second launch of a coverage_hist call); library_ms: "
                   f"sum(dim=0)"},
+        {"name": "rx_power", "route": "cuda", "source": "rfx_torch/csrc/rx_power.cu",
+         "replaces": "rfx/cir.py:160", **counts(K_POWER),
+         "max_abs_err": max(kp["max_abs_err"] for kp in (kp_room, kp_terrain, kp_cir)),
+         "ms": kp_room["ms"], "plain_ms": kp_room["plain_ms"], **kp_room["bound"],
+         "library_ms": kp_room["library_ms"],
+         "ms_terrain": kp_terrain["ms"], "plain_ms_terrain": kp_terrain["plain_ms"],
+         **_suffixed(kp_terrain["bound"], "_terrain"), "library_ms_terrain": kp_terrain["library_ms"],
+         "ms_cir": kp_cir["ms"], "plain_ms_cir": kp_cir["plain_ms"],
+         **_suffixed(kp_cir["bound"], "_cir"), "library_ms_cir": kp_cir["library_ms"],
+         "dbm_err_vs_plain": max(kp["dbm_err_vs_plain"] for kp in (kp_room, kp_terrain, kp_cir)),
+         "shape": f"ms, plain_ms, bound_ms, library_ms: the room's 2048 exact IRs x {COV_BINS} "
+                  f"bins; *_terrain: the terrain's; *_cir: the forward request's IR, {NBINS} bins; "
+                  f"ms is the wrapper's call (three kernels in one launch sequence, the dBm in "
+                  f"torch); bound_ms counts 2 f32 operations per in-range tap of the nonzero "
+                  f"bins; max_abs_err on the signal; library_ms: conv1d with the flipped carrier, "
+                  f"no TF32"},
+        {"name": "coverage_phasor", "route": "cuda", "source": "rfx_torch/csrc/coverage_hist.cu",
+         "replaces": "rfx/coverage.py:229", **counts(K_PHASOR),
+         "max_abs_err": max(kf["dbm_err_vs_plain"] for kf in (kf_room, kf_terrain)),
+         "ms": kf_room["ms"], "plain_ms": kf_room["plain_ms"], **kf_room["bound"],
+         "library_ms": None,
+         "ms_terrain": kf_terrain["ms"], "plain_ms_terrain": kf_terrain["plain_ms"],
+         **_suffixed(kf_terrain["bound"], "_terrain"),
+         "shape": f"2048 receivers x 2 bounces x {COV_RAYS} rays, radius {COV_RADIUS}, "
+                  f"{COV_BINS} bins; ms, plain_ms, bound_ms: the room; *_terrain: the terrain; ms "
+                  f"is the fast metric's call from the segments (two launches of two kernels "
+                  f"each, the formulas in torch); max_abs_err in dB against the plain version; "
+                  f"launches count two a sweep"},
         {"name": "micro_vote", "route": "cuda", "source": "rfx_torch/csrc/micro_vote.cu",
          "replaces": "scripts/micro_reduce.py:64", **counts(K_VOTE),
          "max_abs_err": max(abs(v["carry"] - v["plain_carry"])
@@ -1927,7 +2107,9 @@ def main() -> int:
         **{f"{p}_{k}": grad[p][k] for p in ("scan", "fused")
            for k in ("forward_ms", "valgrad_ms", "peak_bytes")}},
         "solver": {"rays": SOLVER_RAYS, "receivers": 64, **solve},
-        "coverage": {"rays": COV_RAYS, "receivers": 2048, "bins": COV_BINS, **cov}}))
+        "coverage": {"rays": COV_RAYS, "receivers": 2048, "bins": COV_BINS, **cov},
+        "rx_power": {"room": kp_room, "terrain": kp_terrain, "cir": kp_cir},
+        "phasor": {"room": kf_room, "terrain": kf_terrain}}))
     print(json.dumps({"large_mesh": large, "bench_subset_counters": bench_sub}))
     print(json.dumps({"distribution": dist_out}))
     print(card)

@@ -15,10 +15,13 @@ gradients into zeros, so its temporaries have the size of the captures, not
 of the inputs. Hard binning is piecewise constant in the distance; soft
 binning is linear in it between bin centres.
 
-`rx_power_dbm` is a direct convolution, so exact zeros stay zero: the metric
-averages over the nonzero samples only, and an FFT would fill them with
-roundoff. `rx_power_dbm_phasor` is the coverage engine's fast metric: the
-same power from the paths' phasors, with no impulse response.
+`rx_power_dbm` is a direct convolution over each IR's nonzero bins, so exact
+zeros stay zero: the metric averages over the nonzero samples only, and an
+FFT would fill them with roundoff. On a CUDA tensor it launches the RX-power
+kernel (rfx_torch/csrc/rx_power.cu), one launch whatever the rows; on a CPU
+tensor, or where a gradient is wanted, it runs its plain version,
+`rx_power_dbm_plain`. `rx_power_dbm_phasor` is the coverage engine's fast
+metric: the same power from the paths' phasors, with no impulse response.
 """
 
 from __future__ import annotations
@@ -30,8 +33,10 @@ import torch
 
 from rfx_torch.ops._build import CudaKernel, F, I, P
 
-__all__ = ["bin_impulse_response", "cir_from_trace", "histogram_plain", "mask_tiles",
-           "rx_power_dbm", "rx_power_dbm_phasor", "to_dbm", "HISTOGRAM_KERNEL"]
+__all__ = ["bin_impulse_response", "cir_from_trace", "convolve_carrier_plain", "histogram_plain",
+           "mask_tiles", "phasor_metric", "rx_power_dbm", "rx_power_dbm_phasor",
+           "rx_power_dbm_plain", "to_dbm",
+           "HISTOGRAM_KERNEL", "RX_POWER_KERNEL"]
 
 HARD, SOFT_LO, SOFT_HI = 0, 1, 2
 
@@ -39,6 +44,7 @@ HISTOGRAM_KERNEL = CudaKernel(
     "histogram.cu", "rfx_ir_histogram",
     [P, P, P, I, I, F, F, I, I, I, P, P, P, ctypes.c_longlong, P],
 )
+RX_POWER_KERNEL = CudaKernel("rx_power.cu", "rfx_rx_power", [P, P, I, I, P, P, P, P, P, P])
 
 # The kernel's constants (csrc/histogram.cu): a warp counts a tile of 128
 # 16-byte words of mask; a block sorts a chunk of 2,048 captures.
@@ -270,43 +276,163 @@ def _carrier(nbins: int, sample_window_s: float, carrier_hz: float, device) -> t
 
 # Nonzero IR bins per step of the gathered convolution (rows x nbins values).
 _CONV_ROWS = 256
+# Output samples of one block of the RX-power kernel (csrc/rx_power.cu).
+_POWER_TILE = 256
+
+
+def _gathered_taps(x: torch.Tensor, kern: torch.Tensor, reflect: bool) -> torch.Tensor:
+    """Rows of sum_p x[r, p] * kern[i + lo - p] (reflect=False: the 'same'
+    convolution) or sum_p x[r, p] * kern[p + lo - i] (reflect=True: its
+    adjoint), over each row's nonzero p with the kernel index in range: an
+    elementwise product and a sum over a (rows x nbins) gather per step of
+    _CONV_ROWS nonzero p (no matmul, so TF32 cannot apply)."""
+    m, nbins = x.shape
+    dev = x.device
+    lo = (nbins - 1) // 2
+    i = torch.arange(nbins, device=dev)
+    out = torch.zeros((m, nbins), dtype=x.dtype, device=dev)
+    for r in range(m):
+        nz = torch.nonzero(x[r]).flatten()
+        for s in range(0, nz.shape[0], _CONV_ROWS):
+            p = nz[s:s + _CONV_ROWS]
+            idx = p[:, None] + lo - i[None, :] if reflect else i[None, :] + lo - p[:, None]
+            inside = (idx >= 0) & (idx < nbins)
+            taps = torch.where(inside, kern[idx.clamp(0, nbins - 1)],
+                               torch.zeros((), dtype=kern.dtype, device=dev))
+            out[r] += (x[r, p][:, None] * taps).sum(dim=0)
+    return out
+
+
+class _ConvolveCarrier(torch.autograd.Function):
+    """`convolve_carrier_plain` with the gradient of a dense convolution, as
+    rfx.cir.rx_power_dbm's lax.conv has it: d out[j] / d ir[k] = carrier[j +
+    lo - k] for every bin k, zero or not (the forward skips the zero bins,
+    so autograd through it would give them none). The adjoint runs in float64."""
+
+    @staticmethod
+    def forward(ctx, ir, kern):
+        ctx.save_for_backward(kern)
+        return _gathered_taps(ir, kern, reflect=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        (kern,) = ctx.saved_tensors
+        g_ir = _gathered_taps(g.double(), kern.double(), reflect=True).to(g.dtype)
+        return g_ir, None
+
+
+def convolve_carrier_plain(ir: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the RX-power kernel's convolution: (M, nbins)
+    f32 rows, out[r, j] = sum_k ir[r, k] * kern[j + lo - k] over the row's
+    nonzero bins k, lo = (nbins - 1) // 2; differentiable in `ir`."""
+    return _ConvolveCarrier.apply(ir, kern)
+
+
+def _power_sums_plain(out: torch.Tensor):
+    """(count, sum of squares) of each row's nonzero samples."""
+    nzmask = out != 0.0
+    zero = torch.zeros((), dtype=out.dtype, device=out.device)
+    return nzmask.sum(dim=1), torch.where(nzmask, out * out, zero).sum(dim=1)
+
+
+def _dbm_of_sums(count: torch.Tensor, sq: torch.Tensor) -> torch.Tensor:
+    """Mean square over the nonzero samples in dBm, -inf where there is none."""
+    zero = torch.zeros((), dtype=sq.dtype, device=sq.device)
+    power = torch.where(count > 0, sq / count.clamp_min(1), zero)
+    return torch.where(count > 0, to_dbm(power.clamp_min(1e-300)),
+                       torch.full_like(power, -math.inf))
+
+
+def _rows_of(impulse_response: torch.Tensor) -> torch.Tensor:
+    return impulse_response.reshape(-1, impulse_response.shape[-1]).to(torch.float32)
+
+
+def rx_power_dbm_plain(impulse_response: torch.Tensor, sample_window_s: float,
+                       carrier_hz: float = 2.4e9):
+    """Plain PyTorch version of `rx_power_dbm`, on either device and
+    differentiable in the IR: (dBm, convolved signal) of (nbins,) or
+    (M, nbins) IRs, the convolution by `convolve_carrier_plain`."""
+    ir = _rows_of(impulse_response)
+    out = convolve_carrier_plain(ir, _carrier(ir.shape[1], sample_window_s, carrier_hz, ir.device))
+    dbm = _dbm_of_sums(*_power_sums_plain(out))
+    if impulse_response.ndim == 1:
+        return dbm[0], out[0]
+    return dbm, out
+
+
+def _rx_power_launch(ir: torch.Tensor, kern: torch.Tensor):
+    """One launch of the RX-power kernel on (M, nbins) CUDA rows: (out,
+    count, sum of squares); no autograd."""
+    dev = ir.device
+    m, nbins = ir.shape
+    if m == 0 or nbins == 0:
+        return (torch.zeros((m, nbins), dtype=torch.float32, device=dev),
+                torch.zeros(m, dtype=torch.int32, device=dev),
+                torch.zeros(m, dtype=torch.float32, device=dev))
+    if -(-nbins // _POWER_TILE) > 65535:
+        raise ValueError(f"at most {65535 * _POWER_TILE} bins, got {nbins}")
+    ir = ir.contiguous()
+    out = torch.empty((m, nbins), dtype=torch.float32, device=dev)
+    sq = torch.empty(m, dtype=torch.float32, device=dev)
+    # int32 words: each row's list of nonzero bins, the lists' lengths, the counts.
+    ints = torch.empty(m * nbins + 2 * m, dtype=torch.int32, device=dev)
+    lists = ints.data_ptr()
+    with torch.cuda.device(dev):
+        RX_POWER_KERNEL.launch(ir.data_ptr(), kern.data_ptr(), m, nbins, out.data_ptr(),
+                               lists + 4 * (m * nbins + m), sq.data_ptr(), lists,
+                               lists + 4 * m * nbins, torch.cuda.current_stream(dev).cuda_stream)
+    return out, ints[m * nbins + m:], sq
 
 
 def rx_power_dbm(impulse_response: torch.Tensor, sample_window_s: float,
                  carrier_hz: float = 2.4e9):
     """Reference RX-power metric (ref main.py:46-55): convolve the IR with a
     carrier sine ('same' mode), mean square over the nonzero samples, dBm.
+    Accepts (nbins,) or (M, nbins); returns (dBm, convolved signal), with
+    -inf dBm where nothing was received.
 
-    A direct convolution over the IR's nonzero bins only: each nonzero bin k
-    adds ir[k] * carrier[j + lo - k] to output sample j, summed by an
-    elementwise product and a sum over a (rows x nbins) gather (no matmul,
-    so TF32 cannot apply). Accepts (nbins,) or (M, nbins); returns (dBm,
-    convolved signal), with -inf dBm where nothing was received."""
-    squeeze = impulse_response.ndim == 1
-    ir = impulse_response.reshape(-1, impulse_response.shape[-1]).to(torch.float32)
-    m, nbins = ir.shape
+    A CUDA tensor launches the RX-power kernel, once for all rows: the same
+    bits from run to run, and a row's the same alone or in a batch. The
+    kernel has no backward, so a CUDA IR that requires grad raises (call
+    `rx_power_dbm_plain` for a gradient on the card). A CPU tensor runs
+    `rx_power_dbm_plain`, differentiable as rfx.cir.rx_power_dbm is."""
+    ir = _rows_of(impulse_response)
     dev = ir.device
-    kern = _carrier(nbins, sample_window_s, carrier_hz, dev)
-    lo = (nbins - 1) // 2
-    j = torch.arange(nbins, device=dev)
-    out = torch.zeros((m, nbins), dtype=torch.float32, device=dev)
-    for r in range(m):
-        nz = torch.nonzero(ir[r]).flatten()
-        for s in range(0, nz.shape[0], _CONV_ROWS):
-            k = nz[s:s + _CONV_ROWS]
-            idx = j[None, :] + lo - k[:, None]
-            inside = (idx >= 0) & (idx < nbins)
-            taps = torch.where(inside, kern[idx.clamp(0, nbins - 1)], torch.zeros((), device=dev))
-            out[r] += (ir[r, k][:, None] * taps).sum(dim=0)
-    nzmask = out != 0.0
-    count = nzmask.sum(dim=1)
-    sq = torch.where(nzmask, out * out, torch.zeros((), device=dev)).sum(dim=1)
-    power = torch.where(count > 0, sq / count.clamp_min(1), torch.zeros((), device=dev))
-    dbm = torch.where(count > 0, to_dbm(power.clamp_min(1e-300)),
-                      torch.full_like(power, -math.inf))
-    if squeeze:
+    if dev.type == "cpu":
+        return rx_power_dbm_plain(impulse_response, sample_window_s, carrier_hz)
+    if dev.type != "cuda":
+        raise ValueError(f"no RX-power kernel for device {dev}")
+    if torch.is_grad_enabled() and ir.requires_grad:
+        raise RuntimeError("rfx_rx_power (the RX-power kernel) has no backward: detach the IR, "
+                           "or call rx_power_dbm_plain for a gradient")
+    out, count, sq = _rx_power_launch(ir, _carrier(ir.shape[1], sample_window_s, carrier_hz, dev))
+    dbm = _dbm_of_sums(count, sq)
+    if impulse_response.ndim == 1:
         return dbm[0], out[0]
     return dbm, out
+
+
+def phasor_metric(re, im, s_max, any_hit, w2=None, w2t=None, deviation=None):
+    """The phasor metric from its per-receiver sums, shared by
+    `rx_power_dbm_phasor` and the phasor kernel's wrapper
+    (rfx_torch.ops.coverage_hist.coverage_phasor). From Re A, Im A, max s_k and
+    `any_hit` (bool): dBm, -inf where nothing was captured. Given also w2 =
+    sum (amp w)^2, w2t = sum (amp w)^2 t_k and `deviation`, a function of the
+    mean delay t_mean giving sum (amp w)^2 (t_k - t_mean)^2: (dBm, coherent /
+    incoherent power ratio, power-weighted delay spread in s), ratio 1 and
+    spread 0 where nothing was captured."""
+    coherent = re * re + im * im
+    power = 0.5 * coherent / torch.clamp_min(s_max, 1.0)
+    dbm = torch.where(any_hit, to_dbm(torch.clamp_min(power, 1e-300)),
+                      torch.full_like(power, -math.inf))
+    if deviation is None:
+        return dbm
+    # 1e-300 rounds to 0 in f32, as in the reference: a receiver with no
+    # path gives 0 / 0 here and takes the where's other branch.
+    wsum = torch.clamp_min(w2, 1e-300)
+    ratio = torch.where(any_hit, coherent / wsum, torch.ones_like(coherent))
+    spread = torch.sqrt(torch.clamp_min(deviation(w2t / wsum) / wsum, 0.0))
+    return dbm, ratio, torch.where(any_hit, spread, torch.zeros_like(spread))
 
 
 def rx_power_dbm_phasor(amplitude, distance, captured, *, sample_window_s: float, nbins: int,
@@ -318,7 +444,8 @@ def rx_power_dbm_phasor(amplitude, distance, captured, *, sample_window_s: float
     e^{-i w t_k}, s_k the 'same'-mode support of bin k, normalised by the
     largest support. Returns dBm (-inf where nothing was captured) or, with
     `return_cancellation`, (dBm, coherent / incoherent power ratio, power-
-    weighted delay spread in s), the hybrid metric's two trust diagnostics.
+    weighted delay spread in s), the hybrid metric's two trust diagnostics
+    (`phasor_metric` on the sums).
 
     Rounded as the reference rounds: the bin is distance / c * rate with
     0-dim f32 divisors; window / (nbins - 1) and 2 pi f are Python-float
@@ -337,30 +464,21 @@ def rx_power_dbm_phasor(amplitude, distance, captured, *, sample_window_s: float
     phase = torch.tensor(2.0 * math.pi * carrier_hz, dtype=f32, device=dev) * t_k
     hi = nbins - 1 - (nbins - 1) // 2
     s_k = torch.where(valid, torch.clamp_max(delay_bins + hi + 1, nbins).to(f32), zero)
-    w_k = torch.sqrt(s_k)
-    a_re = torch.sum(amp * w_k * torch.cos(phase), dim=-1)
-    a_im = torch.sum(amp * w_k * torch.sin(phase), dim=-1)
+    aw = amp * torch.sqrt(s_k)
+    a_re = torch.sum(aw * torch.cos(phase), dim=-1)
+    a_im = torch.sum(aw * torch.sin(phase), dim=-1)
     if s_k.shape[-1]:
-        n_nz = torch.clamp_min(torch.amax(s_k, dim=-1), 1.0)
+        s_max = torch.amax(s_k, dim=-1)
     else:
-        n_nz = torch.ones(s_k.shape[:-1], dtype=f32, device=dev)
-    coherent = a_re * a_re + a_im * a_im
-    power = 0.5 * coherent / n_nz
+        s_max = torch.zeros(s_k.shape[:-1], dtype=f32, device=dev)
     any_hit = valid.any(dim=-1)
-    dbm = torch.where(any_hit, to_dbm(torch.clamp_min(power, 1e-300)),
-                      torch.full_like(power, -math.inf))
     if not return_cancellation:
-        return dbm
-    # 1e-300 rounds to 0 in f32, as in the reference: a receiver with no
-    # path gives 0 / 0 here and takes the where's other branch.
-    aw = amp * w_k
+        return phasor_metric(a_re, a_im, s_max, any_hit)
     wgt = aw * aw
-    incoherent = torch.sum(wgt, dim=-1)
-    ratio = torch.where(any_hit, coherent / torch.clamp_min(incoherent, 1e-300),
-                        torch.ones_like(coherent))
-    wsum = torch.clamp_min(torch.sum(wgt, dim=-1), 1e-300)
-    t_mean = torch.sum(wgt * t_k, dim=-1) / wsum
-    dt = t_k - t_mean[..., None]
-    spread = torch.sqrt(torch.clamp_min(torch.sum(wgt * (dt * dt), dim=-1) / wsum, 0.0))
-    spread = torch.where(any_hit, spread, torch.zeros_like(spread))
-    return dbm, ratio, spread
+
+    def deviation(t_mean):
+        dt = t_k - t_mean[..., None]
+        return torch.sum(wgt * (dt * dt), dim=-1)
+
+    return phasor_metric(a_re, a_im, s_max, any_hit, torch.sum(wgt, dim=-1),
+                         torch.sum(wgt * t_k, dim=-1), deviation)

@@ -21,9 +21,13 @@ Two engines build the impulse responses:
 `map` otherwise (the reference's rule, with CUDA where it says TPU).
 
 The phasor metric (`coverage_dbm_fast`) gives each receiver's dBm from its
-captured paths without an IR; the hybrid metric (`coverage_dbm_hybrid`)
-re-evaluates exactly the receivers whose phasor diagnostics flag
-cancellation or delay spread, or every receiver when too many are flagged.
+captured paths without an IR: on a CUDA tensor through the phasor kernel
+(rfx_torch.ops.coverage_hist.coverage_phasor, K3's walk with per-receiver
+sums; forward only), on a CPU tensor through its plain version, a broadcast
+sphere test `rx_batch` receivers at a time. The hybrid metric
+(`coverage_dbm_hybrid`) re-evaluates exactly the receivers whose phasor
+diagnostics flag cancellation or delay spread, or every receiver when too
+many are flagged.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import numpy as np
 import torch
 
 from rfx_torch.cir import bin_impulse_response, rx_power_dbm, rx_power_dbm_phasor
-from rfx_torch.ops.coverage_hist import coverage_hist
+from rfx_torch.ops.coverage_hist import coverage_hist, coverage_phasor
 from rfx_torch.ops.intersect import is_hit, ray_mesh_closest_hit_brute, ray_sphere_hit
 from rfx_torch.tracer import EnvSegments, Scene, icosphere_soa, trace_env
 
@@ -157,7 +161,28 @@ def _dbm_cancel_from_segments(segs: EnvSegments, rx_centers, rx_radius, *, num_r
                               light_speed_mps: float, tx_power, rx_batch: int):
     """((M,) dBm, (M,) cancellation ratio, (M,) delay spread in s) of the
     phasor metric from shared env segments (rfx/coverage.py:229-246,
-    :336-351), `rx_batch` receivers per broadcast sphere test."""
+    :336-351). A CPU tensor runs `_dbm_cancel_plain`; a CUDA tensor the
+    phasor kernel, which has no backward: there an input that requires grad
+    raises."""
+    dev = segs.t_env.device
+    if dev.type == "cpu":
+        return _dbm_cancel_plain(segs, rx_centers, rx_radius, num_rays=num_rays,
+                                 sample_window_s=sample_window_s, sample_rate_hz=sample_rate_hz,
+                                 carrier_hz=carrier_hz, light_speed_mps=light_speed_mps,
+                                 tx_power=tx_power, rx_batch=rx_batch)
+    scaled = segs._replace(amplitude=segs.amplitude * _amp_scale(tx_power, num_rays, dev))
+    return coverage_phasor(scaled, rx_centers, rx_radius,
+                           nbins=int(sample_window_s * sample_rate_hz),
+                           light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz,
+                           sample_window_s=sample_window_s, carrier_hz=carrier_hz)
+
+
+def _dbm_cancel_plain(segs: EnvSegments, rx_centers, rx_radius, *, num_rays: int,
+                      sample_window_s: float, sample_rate_hz: float, carrier_hz: float,
+                      light_speed_mps: float, tx_power, rx_batch: int):
+    """Plain PyTorch version of the phasor kernel's metric, on either device
+    and differentiable: `rx_batch` receivers per broadcast sphere test, then
+    rfx_torch.cir.rx_power_dbm_phasor on their first captures."""
     dev = segs.t_env.device
     centers = torch.as_tensor(rx_centers, dtype=torch.float32, device=dev).reshape(-1, 3)
     nbins = int(sample_window_s * sample_rate_hz)

@@ -35,7 +35,7 @@
 //   in its order, and notes `disc > 0` in a bit mask; dead segments never set
 //   a bit, and a chunk whose segments are all dead (Morton-ordered rays leave
 //   the scene together) is skipped by the whole warp.
-// - The rare lanes with a bit set finish those tests (`finish`: the roots,
+// - The rare lanes with a bit set finish those tests (`capture`: the roots,
 //   the rule t_rx < 1e29 && t_env > t_rx, the first win per ray, the bin) and
 //   leave bin and amplitude in the warp's scratch in shared memory. Then, per
 //   ray slot and receiver that was won, the winning lanes group by bin
@@ -66,6 +66,21 @@
 // transposed accumulator, the 128-segment subtile gating and the padding of
 // receivers (R_TILE) and rays (C_CHUNK), which exist for the TPU's matrix
 // unit and tiling.
+//
+// The phasor metric's reduction (rfx_coverage_phasor) replaces the XLA
+// program of rfx/coverage.py:229 _rx_dbm_phasor_from_segments under the vmap
+// of :350 with rfx/cir.py:204 rx_power_dbm_phasor: per receiver, from its
+// first captures, the sums behind the fast metric's dBm, cancellation ratio
+// and delay spread. It is the same walk (`walk_slab`, `capture`) with another
+// sink (`PhasorSums`): each lane owns a receiver of its warp's tile and takes
+// that receiver's wins of a step in ray slot and lane order, so K3 and it
+// cannot disagree on a capture. The spread needs the power-weighted mean delay
+// first (a one-pass sum of w t^2 - (sum w t)^2 / sum w cancels in f32 at 10-100
+// ns), so the walk runs twice, the second time with each receiver's mean. Each
+// pass writes per-slab partials that `phasor_reduce_kernel` combines in slab
+// order: an order fixed by the ray count alone, as the histogram's. It is
+// bound as K3 is, by the sphere tests of each pass; the captures' cosf / sinf /
+// sqrtf (IEEE, the phase reaches ~1,500 rad) are a few per thousand tests.
 
 #include <cuda_runtime.h>
 
@@ -146,16 +161,19 @@ struct Tile {
   unsigned all_rx;        // bit r set: receiver r of the tile exists
   float r2, c, rate;
   int nbins, lane;
-  float* rows;  // row of the tile's first receiver in the slab's plane
 };
 
-// Finishes the tests whose discriminant was positive (`cand`, per ray slot)
-// and adds the wins: `done` gains the receivers that won. Every lane of the
-// warp calls it.
-__device__ __forceinline__ void finish(const Segment (&seg)[kRays], const unsigned (&cand)[kRays],
-                                       unsigned (&done)[kRays], const Tile& t) {
+// Finishes the tests whose discriminant was positive (`cand`, per ray slot):
+// `win` gets the receivers each lane won per ray slot, the winners leave bin
+// (-1 to drop) and amplitude in the warp's scratch, and `done` gains the wins.
+// Every lane of the warp calls it; it ends with the scratch visible to all.
+// This is the capture rule of both kernels of this file: they cannot disagree
+// on a capture.
+__device__ __forceinline__ void capture(const Segment (&seg)[kRays], const unsigned (&cand)[kRays],
+                                        unsigned (&done)[kRays], unsigned (&win)[kRays],
+                                        const Tile& t) {
   Scratch& scratch = *t.scratch;
-  unsigned todo[kRays], win[kRays];
+  unsigned todo[kRays];
 #pragma unroll
   for (int k = 0; k < kRays; ++k) {
     todo[k] = cand[k] & ~done[k];
@@ -191,36 +209,204 @@ __device__ __forceinline__ void finish(const Segment (&seg)[kRays], const unsign
     }
   }
   __syncwarp();
-  // The adds: per ray slot and receiver, the lanes that won it group by bin;
-  // a group's lowest lane sums the group's amplitudes in lane order and adds
-  // the sum to the receiver's row. Within one such step every add goes to
-  // another bin, and the __syncwarp between steps orders the steps' adds, so
-  // a bin is added to in one order: slab, chunk, bounce, ray slot.
 #pragma unroll
-  for (int k = 0; k < kRays; ++k) {
-    done[k] |= win[k];
-    unsigned receivers = __reduce_or_sync(kFullWarp, win[k]);
-    while (receivers != 0u) {  // warp-uniform
-      const int r = __ffs(receivers) - 1;
-      receivers &= receivers - 1u;
-      const unsigned lanes = __ballot_sync(kFullWarp, (win[k] >> r) & 1u);
-      if ((lanes >> t.lane) & 1u) {
-        const int bin = scratch.bin[k][r][t.lane];
-        unsigned group = __match_any_sync(lanes, bin);
-        const bool lowest = __ffs(group) - 1 == t.lane;
-        float sum = 0.0f;
-        while (group != 0u) {
-          sum += scratch.amp[k][__ffs(group) - 1];
-          group &= group - 1u;
+  for (int k = 0; k < kRays; ++k) done[k] |= win[k];
+}
+
+// The coverage histogram's adds. Per ray slot and receiver that was won, the
+// lanes that won it group by bin; a group's lowest lane sums the group's
+// amplitudes in lane order and adds the sum to the receiver's row. Within one
+// such step every add goes to another bin, and the __syncwarp between steps
+// orders the steps' adds, so a bin is added to in one order: slab, chunk,
+// bounce, ray slot.
+struct HistRows {
+  float* rows;  // row of the tile's first receiver in the slab's plane
+
+  __device__ __forceinline__ void add(const unsigned (&win)[kRays], const Tile& t) {
+    const Scratch& scratch = *t.scratch;
+#pragma unroll
+    for (int k = 0; k < kRays; ++k) {
+      unsigned receivers = __reduce_or_sync(kFullWarp, win[k]);
+      while (receivers != 0u) {  // warp-uniform
+        const int r = __ffs(receivers) - 1;
+        receivers &= receivers - 1u;
+        const unsigned lanes = __ballot_sync(kFullWarp, (win[k] >> r) & 1u);
+        if ((lanes >> t.lane) & 1u) {
+          const int bin = scratch.bin[k][r][t.lane];
+          unsigned group = __match_any_sync(lanes, bin);
+          const bool lowest = __ffs(group) - 1 == t.lane;
+          float sum = 0.0f;
+          while (group != 0u) {
+            sum += scratch.amp[k][__ffs(group) - 1];
+            group &= group - 1u;
+          }
+          if (lowest && bin >= 0) {
+            float* at = rows + static_cast<size_t>(r) * t.nbins + bin;
+            *at = *at + sum;
+          }
         }
-        if (lowest && bin >= 0) {
-          float* at = t.rows + static_cast<size_t>(r) * t.nbins + bin;
-          *at = *at + sum;
-        }
+        __syncwarp();
       }
-      __syncwarp();
     }
   }
+};
+
+// The phasor metric's sums (rfx_torch/cir.py:rx_power_dbm_phasor) of the
+// receiver that lane `t.lane` owns, over its captures in the order of the
+// walk. A capture in bin k has t_k = k * step, phase omega * t_k, support
+// s_k = min(k + hi + 1, nbins) and weight w = amp * sqrt(s_k). Pass 1
+// (kSpread false) adds w cos, w sin, w^2 and w^2 t_k and keeps max s_k and
+// whether anything was captured; pass 2 adds w^2 (t_k - t_mean)^2 with the
+// receiver's t_mean from pass 1.
+template <bool kSpread>
+struct PhasorSums {
+  float step, omega, t_mean;
+  int hi, nbins;
+  float re = 0.0f, im = 0.0f, s_max = 0.0f, any = 0.0f, w2 = 0.0f, w2t = 0.0f, dev = 0.0f;
+
+  __device__ __forceinline__ void take(float amp, int bin) {
+    const float t_k = static_cast<float>(bin) * step;
+    const float s = static_cast<float>(min(static_cast<long long>(bin) + hi + 1,
+                                           static_cast<long long>(nbins)));
+    const float aw = amp * sqrtf(s);
+    const float wgt = aw * aw;
+    if (kSpread) {
+      const float dt = t_k - t_mean;
+      dev = dev + wgt * (dt * dt);
+    } else {
+      const float phase = omega * t_k;
+      re = re + aw * cosf(phase);
+      im = im + aw * sinf(phase);
+      s_max = fmaxf(s_max, s);
+      any = 1.0f;
+      w2 = w2 + wgt;
+      w2t = w2t + wgt * t_k;
+    }
+  }
+
+  // Per ray slot, each owner lane takes its receiver's wins in lane order.
+  __device__ __forceinline__ void add(const unsigned (&win)[kRays], const Tile& t) {
+    const Scratch& scratch = *t.scratch;
+#pragma unroll
+    for (int k = 0; k < kRays; ++k) {
+      unsigned mine = 0u;  // the lanes that won this lane's receiver in slot k
+      for (unsigned rs = __reduce_or_sync(kFullWarp, win[k]); rs != 0u; rs &= rs - 1u) {
+        const int r = __ffs(rs) - 1;  // warp-uniform
+        const unsigned lanes = __ballot_sync(kFullWarp, (win[k] >> r) & 1u);
+        if (t.lane == r) mine = lanes;
+      }
+      for (; mine != 0u; mine &= mine - 1u) {
+        const int l = __ffs(mine) - 1;
+        const int bin = scratch.bin[k][t.lane][l];
+        if (bin >= 0) take(scratch.amp[k][l], bin);
+      }
+    }
+    __syncwarp();  // the scratch is read before the next step writes it
+  }
+};
+
+// One warp's walk over its slab for its tile of receivers, the sink taking
+// the wins: the steps are (chunk, bounce) pairs, and the next step's segments
+// are loaded before this step's tests, so that their latency passes behind
+// the arithmetic.
+template <class Sink>
+__device__ __forceinline__ void walk_slab(const float* __restrict__ origin,
+                                          const float* __restrict__ dir,
+                                          const float* __restrict__ t_env,
+                                          const float* __restrict__ amp,
+                                          const float* __restrict__ dist,
+                                          const bool* __restrict__ alive, int nb, int n,
+                                          long long base, long long stride, const Tile& tile,
+                                          Sink& sink) {
+  Segment next[kRays];
+  unsigned done[kRays];
+  int b = 0;
+  load_segments(next, base, b, n, tile.lane, origin, dir, t_env, amp, dist, alive);
+  while (true) {
+    Segment seg[kRays];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < kRays; ++k) {
+      seg[k] = next[k];
+      any = any || seg[k].live;
+      if (b == 0) done[k] = 0u;
+    }
+    const bool last_bounce = b + 1 == nb;
+    const long long next_base = last_bounce ? base + stride : base;
+    const bool more = next_base < n;
+    if (more) {
+      load_segments(next, next_base, last_bounce ? 0 : b + 1, n, tile.lane, origin, dir, t_env,
+                    amp, dist, alive);
+    }
+    if (__any_sync(kFullWarp, any)) {
+      unsigned cand[kRays];
+#pragma unroll
+      for (int k = 0; k < kRays; ++k) cand[k] = 0u;
+#pragma unroll
+      for (int r = 0; r < kRx; ++r) {
+        const float4 ctr = tile.centers[r];
+#pragma unroll
+        for (int k = 0; k < kRays; ++k) {
+          const float ocx = seg[k].ox - ctr.x, ocy = seg[k].oy - ctr.y, ocz = seg[k].oz - ctr.z;
+          const float bq = ocx * seg[k].dx + ocy * seg[k].dy + ocz * seg[k].dz;
+          const float cq = ocx * ocx + ocy * ocy + ocz * ocz - tile.r2;
+          const float disc = bq * bq - cq;
+          if (disc > 0.0f) cand[k] |= 1u << r;
+        }
+      }
+      bool some = false;
+#pragma unroll
+      for (int k = 0; k < kRays; ++k) {
+        cand[k] = seg[k].live ? cand[k] & tile.all_rx : 0u;
+        some = some || (cand[k] & ~done[k]) != 0u;
+      }
+      if (__any_sync(kFullWarp, some)) {
+        unsigned win[kRays];
+        capture(seg, cand, done, win, tile);
+        sink.add(win, tile);
+      }
+    }
+    if (!more) break;
+    base = next_base;
+    b = last_bounce ? 0 : b + 1;
+  }
+}
+
+// A block's set-up: the warp's tile of receivers (centers in shared memory)
+// and its first chunk. Returns false (for the whole warp; no barrier
+// follows) where the warp has no receiver or its slab no ray.
+__device__ __forceinline__ bool setup_tile(Tile& tile, float4 (&shared_centers)[kWarps][kRx],
+                                           Scratch (&shared_scratch)[kWarps],
+                                           const float* __restrict__ centers, int m, int n,
+                                           float r2, float c, float rate, int nbins, int& rx0,
+                                           long long& base, long long& stride) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  rx0 = (blockIdx.x * kWarps + warp) * kRx;
+  // Chunk j of 32 * kRays rays belongs to slab j % gridDim.y: rays that are
+  // neighbours in Morton order reach the same receivers, and so the captures
+  // of a receiver near the transmitter spread over all slabs.
+  const long long chunk = 32 * kRays;
+  stride = gridDim.y * chunk;
+  base = blockIdx.y * chunk;
+  if (rx0 >= m || base >= n) return false;
+  const int nrx = min(kRx, m - rx0);
+  tile.centers = shared_centers[warp];
+  tile.scratch = &shared_scratch[warp];
+  tile.all_rx = nrx == 32 ? kFullWarp : (1u << nrx) - 1u;
+  tile.r2 = r2;
+  tile.c = c;
+  tile.rate = rate;
+  tile.nbins = nbins;
+  tile.lane = lane;
+  if (lane < kRx) {
+    shared_centers[warp][lane] =
+        lane < nrx ? make_float4(centers[3 * (rx0 + lane)], centers[3 * (rx0 + lane) + 1],
+                                 centers[3 * (rx0 + lane) + 2], 0.0f)
+                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  __syncwarp();
+  return true;
 }
 
 // Segment (b, i) of the (B, N) planes is element b * n + i; origin and
@@ -235,88 +421,79 @@ __global__ void __launch_bounds__(kWarps * 32) coverage_hist_kernel(
     float* planes) {
   __shared__ float4 shared_centers[kWarps][kRx];
   __shared__ Scratch shared_scratch[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int rx0 = (blockIdx.x * kWarps + warp) * kRx;
-  // Chunk j of 32 * kRays rays belongs to slab j % gridDim.y: rays that are
-  // neighbours in Morton order reach the same receivers, and so the captures
-  // of a receiver near the transmitter spread over all slabs.
-  const long long chunk = 32 * kRays;
-  const long long stride = gridDim.y * chunk;
-  long long base = blockIdx.y * chunk;
-  if (rx0 >= m || base >= n) return;  // the whole warp; no barrier follows
-  const int nrx = min(kRx, m - rx0);
-
   Tile tile;
-  tile.centers = shared_centers[warp];
-  tile.scratch = &shared_scratch[warp];
-  tile.all_rx = nrx == 32 ? kFullWarp : (1u << nrx) - 1u;
-  tile.r2 = r2;
-  tile.c = c;
-  tile.rate = rate;
-  tile.nbins = nbins;
-  tile.lane = lane;
-  const bool mine = lane < nrx;
-  if (lane < kRx) {
-    shared_centers[warp][lane] =
-        mine ? make_float4(centers[3 * (rx0 + lane)], centers[3 * (rx0 + lane) + 1],
-                           centers[3 * (rx0 + lane) + 2], 0.0f)
-             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  int rx0;
+  long long base, stride;
+  if (!setup_tile(tile, shared_centers, shared_scratch, centers, m, n, r2, c, rate, nbins, rx0,
+                  base, stride)) {
+    return;
   }
-  __syncwarp();
-  tile.rows = planes + (static_cast<size_t>(blockIdx.y) * m + rx0) * nbins;
+  HistRows sink{planes + (static_cast<size_t>(blockIdx.y) * m + rx0) * nbins};
+  walk_slab(origin, dir, t_env, amp, dist, alive, nb, n, base, stride, tile, sink);
+}
 
-  // The steps are (chunk, bounce) pairs; the next step's segments are loaded
-  // before this step's tests, so that their latency passes behind the
-  // arithmetic.
-  Segment next[kRays];
-  unsigned done[kRays];
-  int b = 0;
-  load_segments(next, base, b, n, lane, origin, dir, t_env, amp, dist, alive);
-  while (true) {
-    Segment seg[kRays];
-    bool any = false;
-#pragma unroll
-    for (int k = 0; k < kRays; ++k) {
-      seg[k] = next[k];
-      any = any || seg[k].live;
-      if (b == 0) done[k] = 0u;
-    }
-    const bool last_bounce = b + 1 == nb;
-    const long long next_base = last_bounce ? base + stride : base;
-    const bool more = next_base < n;
-    if (more) {
-      load_segments(next, next_base, last_bounce ? 0 : b + 1, n, lane, origin, dir, t_env, amp,
-                    dist, alive);
-    }
-    if (__any_sync(kFullWarp, any)) {
-      unsigned cand[kRays];
-#pragma unroll
-      for (int k = 0; k < kRays; ++k) cand[k] = 0u;
-#pragma unroll
-      for (int r = 0; r < kRx; ++r) {
-        const float4 ctr = tile.centers[r];
-#pragma unroll
-        for (int k = 0; k < kRays; ++k) {
-          const float ocx = seg[k].ox - ctr.x, ocy = seg[k].oy - ctr.y, ocz = seg[k].oz - ctr.z;
-          const float bq = ocx * seg[k].dx + ocy * seg[k].dy + ocz * seg[k].dz;
-          const float cq = ocx * ocx + ocy * ocy + ocz * ocz - r2;
-          const float disc = bq * bq - cq;
-          if (disc > 0.0f) cand[k] |= 1u << r;
-        }
-      }
-      bool some = false;
-#pragma unroll
-      for (int k = 0; k < kRays; ++k) {
-        cand[k] = seg[k].live ? cand[k] & tile.all_rx : 0u;
-        some = some || (cand[k] & ~done[k]) != 0u;
-      }
-      if (__any_sync(kFullWarp, some)) finish(seg, cand, done, tile);
-    }
-    if (!more) break;
-    base = next_base;
-    b = last_bounce ? 0 : b + 1;
+// The phasor metric's sums per receiver and slab: the walk and the capture
+// rule of coverage_hist_kernel, each capture taken by PhasorSums. partials:
+// (gridDim.y, m, kSumFields) in pass 1 (re, im, max s_k, any, w^2, w^2 t_k),
+// (gridDim.y, m) in pass 2 (w^2 (t_k - t_mean)^2); every entry of a warp's
+// receivers is written, a slab with no ray leaves the caller's zeros.
+constexpr int kSumFields = 6;
+
+template <bool kSpread>
+__global__ void __launch_bounds__(kWarps * 32) coverage_phasor_kernel(
+    const float* __restrict__ origin, const float* __restrict__ dir,
+    const float* __restrict__ t_env, const float* __restrict__ amp,
+    const float* __restrict__ dist, const bool* __restrict__ alive, int nb, int n,
+    const float* __restrict__ centers, int m, float r2, float c, float rate, int nbins,
+    float step, float omega, const float* __restrict__ t_mean, float* __restrict__ partials) {
+  __shared__ float4 shared_centers[kWarps][kRx];
+  __shared__ Scratch shared_scratch[kWarps];
+  Tile tile;
+  int rx0;
+  long long base, stride;
+  if (!setup_tile(tile, shared_centers, shared_scratch, centers, m, n, r2, c, rate, nbins, rx0,
+                  base, stride)) {
+    return;
   }
+  const bool mine = tile.lane < min(kRx, m - rx0);
+  PhasorSums<kSpread> sink;
+  sink.step = step;
+  sink.omega = omega;
+  sink.hi = nbins - 1 - (nbins - 1) / 2;
+  sink.nbins = nbins;
+  sink.t_mean = kSpread && mine ? t_mean[rx0 + tile.lane] : 0.0f;
+  walk_slab(origin, dir, t_env, amp, dist, alive, nb, n, base, stride, tile, sink);
+  if (!mine) return;
+  const size_t at = static_cast<size_t>(blockIdx.y) * m + rx0 + tile.lane;
+  if (kSpread) {
+    partials[at] = sink.dev;
+  } else {
+    float* p = partials + at * kSumFields;
+    p[0] = sink.re;
+    p[1] = sink.im;
+    p[2] = sink.s_max;
+    p[3] = sink.any;
+    p[4] = sink.w2;
+    p[5] = sink.w2t;
+  }
+}
+
+// out[i] = the slabs' partials of entry i, (n_planes, total), combined in
+// slab order: summed, but the maximum for fields 2 and 3 of kSumFields (max
+// s_k and any), which no order changes.
+__global__ void __launch_bounds__(256) phasor_reduce_kernel(const float* __restrict__ planes,
+                                                            int n_planes, long long total,
+                                                            int fields, float* __restrict__ out) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int f = static_cast<int>(i % fields);
+  const bool is_max = fields == kSumFields && (f == 2 || f == 3);
+  float acc = planes[i];
+  for (int h = 1; h < n_planes; ++h) {
+    const float v = planes[static_cast<long long>(h) * total + i];
+    acc = is_max ? fmaxf(acc, v) : acc + v;
+  }
+  out[i] = acc;
 }
 
 // out[i] = planes[0][i] + planes[1][i] + ... in that order, i < total.
@@ -363,6 +540,43 @@ extern "C" int rfx_coverage_hist_reduce(const void* planes, int n_planes, long l
         static_cast<const float*>(planes), n_planes, total, static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The phasor metric's per-receiver sums, one pass: the segments and centers as
+// rfx_coverage_hist takes them; step = f32(window / (nbins - 1)), omega =
+// f32(2 pi carrier); t_mean null for pass 1, else (m,) f32 for pass 2.
+// partials: (n_slabs, m, fields) f32 scratch, zeroed here; sums: (m, fields)
+// f32, the slabs' partials combined in slab order; fields = 6 in pass 1 (re,
+// im, max s_k, any, w^2, w^2 t_k), 1 in pass 2 (w^2 (t_k - t_mean)^2).
+// m, n, nb, n_slabs >= 1.
+extern "C" int rfx_coverage_phasor(const void* origin, const void* dir, const void* t_env,
+                                   const void* amp, const void* dist, const void* alive, int nb,
+                                   int n, const void* centers, int m, float radius, float c,
+                                   float rate, int nbins, float step, float omega, int n_slabs,
+                                   const void* t_mean, void* partials, void* sums, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool spread = t_mean != nullptr;
+  const int fields = spread ? 1 : kSumFields;
+  const long long total = static_cast<long long>(m) * fields;
+  cudaError_t err = cudaMemsetAsync(partials, 0, sizeof(float) * n_slabs * total, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((m + kWarps * kRx - 1) / (kWarps * kRx), n_slabs);
+  auto kernel = spread ? coverage_phasor_kernel<true> : coverage_phasor_kernel<false>;
+  kernel<<<grid, kWarps * 32, 0, s>>>(
+      static_cast<const float*>(origin), static_cast<const float*>(dir),
+      static_cast<const float*>(t_env), static_cast<const float*>(amp),
+      static_cast<const float*>(dist), static_cast<const bool*>(alive), nb, n,
+      static_cast<const float*>(centers), m, radius * radius, c, rate, nbins, step, omega,
+      static_cast<const float*>(t_mean), static_cast<float*>(partials));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  phasor_reduce_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(partials), n_slabs, total, fields, static_cast<float*>(sums));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* rfx_coverage_phasor_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 extern "C" const char* rfx_coverage_hist_error_string(int err) {

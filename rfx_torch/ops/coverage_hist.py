@@ -17,21 +17,34 @@ rows, and `rfx_coverage_hist_reduce` adds the planes per bin in slab order
 the same bits from run to run and whether it is computed alone or in any
 group of receivers; so the wrapper may take the receivers in groups that keep
 the planes under `PLANES_BYTES`.
+
+`coverage_phasor` gives the phasor metric's (dBm, cancellation ratio, delay
+spread) of every receiver from the same segments (rfx/coverage.py:229-246
+under the vmap of :350) through `rfx_coverage_phasor`: the same walk and
+capture rule as `rfx_coverage_hist` with per-receiver sums in place of the
+histogram, run twice (the spread needs the mean delay first), then
+rfx_torch.cir.phasor_metric on the sums. A receiver's sums have an order
+fixed by the ray count alone, as its IR's. It runs on CUDA tensors only and
+has no backward; the metric's plain version, which a CPU tensor runs, is
+rfx_torch.coverage._dbm_cancel_plain (per-path sums, the same
+`phasor_metric`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
+from rfx_torch.cir import phasor_metric
 from rfx_torch.ops._build import CudaKernel, F, I, P
 from rfx_torch.ops.intersect import is_hit, sphere_t
 from rfx_torch.tracer import EnvSegments
 
-__all__ = ["COVERAGE_HIST_KERNEL", "COVERAGE_REDUCE_KERNEL", "coverage_hist",
-           "coverage_hist_plain", "coverage_slabs", "slab_of_ray", "reduce_planes",
-           "reduce_planes_plain"]
+__all__ = ["COVERAGE_HIST_KERNEL", "COVERAGE_PHASOR_KERNEL", "COVERAGE_REDUCE_KERNEL",
+           "coverage_hist", "coverage_hist_plain", "coverage_phasor", "coverage_slabs",
+           "slab_of_ray", "reduce_planes", "reduce_planes_plain"]
 
 COVERAGE_HIST_KERNEL = CudaKernel(
     "coverage_hist.cu", "rfx_coverage_hist",
@@ -40,6 +53,12 @@ COVERAGE_HIST_KERNEL = CudaKernel(
 COVERAGE_REDUCE_KERNEL = CudaKernel(
     "coverage_hist.cu", "rfx_coverage_hist_reduce", [P, I, ctypes.c_longlong, P, P],
 )
+COVERAGE_PHASOR_KERNEL = CudaKernel(
+    "coverage_hist.cu", "rfx_coverage_phasor",
+    [P, P, P, P, P, P, I, I, P, I, F, F, F, I, F, F, I, P, P, P, P],
+)
+#: The phasor sums of pass 1, per receiver (kSumFields of coverage_hist.cu).
+PHASOR_FIELDS = ("re", "im", "s_max", "any", "w2", "w2t")
 
 #: Rays of one chunk: the 32 lanes of a warp times the segments a lane holds
 #: (kRays of coverage_hist.cu).
@@ -186,3 +205,70 @@ def reduce_planes(planes: torch.Tensor) -> torch.Tensor:
         COVERAGE_REDUCE_KERNEL.launch(planes.data_ptr(), planes.shape[0], out.numel(),
                                       out.data_ptr(), stream)
     return out
+
+
+def _phasor_constants(nbins: int, sample_window_s: float, carrier_hz: float):
+    """(step, omega) of the phasor metric, as rfx_torch.cir.rx_power_dbm_phasor
+    rounds them: window / (nbins - 1) and 2 pi f in Python floats, each to
+    f32 once."""
+    step = float(torch.tensor(sample_window_s / (nbins - 1), dtype=torch.float32))
+    omega = float(torch.tensor(2.0 * math.pi * carrier_hz, dtype=torch.float32))
+    return step, omega
+
+
+def _phasor_pass(segs: EnvSegments, centers: torch.Tensor, rx_radius, *, nbins: int,
+                 light_speed_mps: float, sample_rate_hz: float, sample_window_s: float,
+                 carrier_hz: float, t_mean=None) -> torch.Tensor:
+    """One launch of `rfx_coverage_phasor` on CUDA tensors: per receiver, over
+    its captures (amp already scaled), pass 1 ((M, 6) f32, PHASOR_FIELDS: sum
+    w cos, sum w sin, max s_k, any capture as 1.0, sum w^2, sum w^2 t_k) or,
+    with `t_mean` (M,), pass 2 ((M,) f32: sum w^2 (t_k - t_mean)^2); w = amp
+    sqrt(s_k), the quantities of rfx_torch.cir.rx_power_dbm_phasor. The sums
+    of each receiver per slab, then the slabs combined in slab order."""
+    dev = segs.t_env.device
+    if dev.type != "cuda":
+        raise ValueError(f"the phasor kernel runs on CUDA tensors, got {dev}; the metric's plain "
+                         "version is rfx_torch.coverage._dbm_cancel_plain")
+    m = centers.shape[0]
+    b, n = segs.t_env.shape
+    if n >= 2**31 or b >= 2**31 or m >= 2**31 or nbins >= 2**31:
+        raise ValueError(f"at most 2^31 - 1 rays, bounces, receivers and bins, got {n}, {b}, {m}, "
+                         f"{nbins}")
+    fields = len(PHASOR_FIELDS) if t_mean is None else 1
+    sums = torch.zeros((m, fields), dtype=torch.float32, device=dev)
+    if m and n and b:
+        step, omega = _phasor_constants(nbins, sample_window_s, carrier_hz)
+        n_slabs = coverage_slabs(n)
+        planes = [t.contiguous() for t in (segs.origin, segs.direction, segs.t_env,
+                                           segs.amplitude, segs.distance, segs.alive)]
+        partials = torch.empty(n_slabs * m * fields, dtype=torch.float32, device=dev)
+        mean = None if t_mean is None else t_mean.to(torch.float32).contiguous()
+        with torch.cuda.device(dev):
+            COVERAGE_PHASOR_KERNEL.launch(
+                *(t.data_ptr() for t in planes), b, n, centers.data_ptr(), m, float(rx_radius),
+                float(light_speed_mps), float(sample_rate_hz), nbins, step, omega, n_slabs,
+                None if mean is None else mean.data_ptr(), partials.data_ptr(), sums.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    return sums if t_mean is None else sums[:, 0]
+
+
+def coverage_phasor(segs: EnvSegments, rx_centers, rx_radius, *, nbins: int,
+                    light_speed_mps: float, sample_rate_hz: float, sample_window_s: float,
+                    carrier_hz: float = 2.4e9):
+    """((M,) dBm, (M,) coherent / incoherent power ratio, (M,) power-weighted
+    delay spread in s) of M receiver spheres of one radius from the env
+    segments `segs` (amplitude pre-scaled) on CUDA tensors: two launches of
+    the phasor kernel, then rfx_torch.cir.phasor_metric. -inf dBm, ratio 1
+    and spread 0 where nothing was captured. Forward only: an input that
+    requires grad raises, as does a tensor off the card."""
+    _check_segments(segs)
+    if torch.is_grad_enabled() and any(isinstance(v, torch.Tensor) and v.requires_grad
+                                       for v in (*segs, rx_centers, rx_radius)):
+        raise RuntimeError("rfx_coverage_phasor (the phasor kernel) has no backward: detach the "
+                           "segments, or call rfx_torch.coverage._dbm_cancel_plain for a gradient")
+    centers = _centers(rx_centers, segs.t_env.device).contiguous()
+    kw = dict(nbins=nbins, light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz,
+              sample_window_s=sample_window_s, carrier_hz=carrier_hz)
+    re, im, s_max, any_f, w2, w2t = _phasor_pass(segs, centers, rx_radius, **kw).unbind(1)
+    return phasor_metric(re, im, s_max, any_f > 0, w2, w2t,
+                         lambda t_mean: _phasor_pass(segs, centers, rx_radius, t_mean=t_mean, **kw))

@@ -2,7 +2,8 @@
 """Time the port's hand-written kernels at the shapes of their main paths on
 one NVIDIA GPU, and hold them against another checkout's kernels.
 
-    python3 scripts/torch_bench_kernels.py [--other DIR] [--out build/bench_kernels.json]
+    python3 scripts/torch_bench_kernels.py [--other DIR] [--only k3,kf] [--reps N]
+                                           [--out build/bench_kernels.json]
 
 The scenes, transmitters, receivers and sizes are those of chip_smoke.py (the
 bench terrain, the coverage sweeps) and of scripts/torch_bench_large_mesh.py
@@ -32,15 +33,26 @@ events, the mean of `--reps` calls after one warm-up):
   capture by 32-byte sector, the bins). `*_ms` is the CUDA-event time of
   back-to-back calls of the wrapper, `*_device_ms` the device's own time a
   call under torch.profiler: where the first is the larger, the call is
-  bound by the host that enqueues it.
+  bound by the host that enqueues it;
+- K-P, rx_power_dbm, on K3's IRs of both coverage sweeps (2,048 x 10,000
+  bins) and on the bench workload's IR (20,000 bins), the call's time and
+  its device time, with the plain version's time, conv1d's (the flipped
+  carrier, 'same' padding, no TF32) and the bound of chip_smoke.py (two
+  operations per in-range tap);
+- K-F, the phasor metric of both coverage sweeps from their segments
+  (rfx_torch.coverage._dbm_cancel_from_segments), with the plain version's
+  time and the bound of chip_smoke.py (one sphere test per live segment and
+  receiver, as K3's).
 
-`--other DIR` runs K1, K2, K3 and K-H in a child process on the checkout in
-DIR (another commit of this repository, unpacked there), before and after
-this checkout's runs, and compares: K1's four outputs bit for bit on both
+`--other DIR` runs every row in a child process on the checkout in DIR
+(another commit of this repository, unpacked there), before and after this
+checkout's runs, and compares: K1's four outputs bit for bit on both
 terrains, K3's and K-H's nonzero bins exactly and their values within rtol
 1e-5 / atol 1e-12 (a checkout whose histogram takes one row a call is given
-the rows one by one). Prints one JSON object and writes the whole record to `--out`; `card`
-is nvidia-smi's name and power limit.
+the rows one by one), K-P's and K-F's dBm where finite (a checkout without
+the kernels times its host loops under the same names). Prints one JSON
+object and writes the whole record to `--out`; `card` is nvidia-smi's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -279,8 +291,93 @@ def run_kh(w: Workloads, reps: int, keep: dict) -> dict:
     return out
 
 
+def _power_irs(w: Workloads, keep: dict) -> dict:
+    """(IRs, window) of K-P's rows: K3's IRs of the coverage sweeps (kept by
+    run_k3) and the bench workload's IR, all on the card."""
+    import torch
+
+    from rfx_torch import cir
+    from rfx_torch.ops.fused import fused_trace
+
+    r = fused_trace(w.bvh["bench"], w.dirs, smoke.TX, smoke.RX, smoke.RX_RADIUS, 5.0, 1.0,
+                    max_bounces=smoke.BOUNCES)
+    ir = cir.bin_impulse_response(r.amplitude * (torch.tensor(1.0) / smoke.N_RAYS).to(w.dev),
+                                  r.distance, r.captured, nbins=smoke.NBINS,
+                                  light_speed_mps=smoke.C, sample_rate_hz=smoke.RATE)
+    out = {name: (keep[f"k3_{name}"].to(w.dev), smoke.COV_WINDOW) for name in w.cov}
+    out["bench IR"] = (ir, smoke.WINDOW)
+    return out
+
+
+def run_kp(w: Workloads, reps: int, keep: dict) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from rfx_torch import cir
+
+    kernel = hasattr(cir, "rx_power_dbm_plain")  # else a checkout whose rx_power_dbm loops on the host
+    out = {}
+    for name, (irs, window) in _power_irs(w, keep).items():
+        (dbm, _), ms = _ms(lambda: cir.rx_power_dbm(irs, window),
+                           reps if kernel or irs.ndim == 1 else 2)
+        res = {"ms": ms, "nonzero_bins": int((irs != 0).sum()), "digest": _digest([dbm])}
+        keep[f"kp_{name}"] = dbm.reshape(-1).cpu()
+        if kernel:
+            res["device_ms"] = smoke.device_ms(lambda: cir.rx_power_dbm(irs, window), reps)
+            _, res["plain_ms"] = _ms(lambda: cir.rx_power_dbm_plain(irs, window), 1)
+            rows = irs.reshape(-1, irs.shape[-1])
+            nbins = rows.shape[1]
+            flipped = cir._carrier(nbins, window, 2.4e9, w.dev).flip(0)[None, None]
+            hi = nbins - 1 - (nbins - 1) // 2
+            _, res["library_ms"] = _ms(
+                lambda: F.conv1d(rows[:, None], flipped, padding=hi)[:, 0, :nbins], 3)
+            res["taps"] = smoke.rx_power_taps(rows)
+            res["bound"] = smoke._bound(8 * rows.numel() + 4 * nbins + 4 * rows.shape[0],
+                                        2 * res["taps"])
+        out[name] = res
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_kf(w: Workloads, reps: int, keep: dict) -> dict:
+    from rfx_torch import coverage
+
+    kw = dict(num_rays=1, sample_window_s=smoke.COV_WINDOW, sample_rate_hz=smoke.RATE,
+              carrier_hz=2.4e9, light_speed_mps=smoke.C, tx_power=1.0, rx_batch=64)
+    out = {}
+    for name, (segs, centers) in w.cov.items():
+        def call():  # the amplitude is scaled already: tx_power / num_rays = 1
+            return coverage._dbm_cancel_from_segments(segs, centers, smoke.COV_RADIUS, **kw)
+
+        kernel = hasattr(coverage, "_dbm_cancel_plain")  # else the plain sweep is the call
+        res_out, ms = _ms(call, reps if kernel else 1)
+        res = {"ms": ms, "digest": _digest(res_out)}
+        keep[f"kf_{name}"] = res_out[0].cpu()
+        if kernel:
+            _, res["plain_ms"] = _ms(
+                lambda: coverage._dbm_cancel_plain(segs, centers, smoke.COV_RADIUS, **kw), 1)
+            seg_bytes = sum(int(t.numel() * t.element_size()) for t in segs)
+            m = centers.shape[0]
+            res["bound"] = smoke._bound(seg_bytes + 12 * m + 12 * m,
+                                        17 * m * int(segs.alive.sum()))
+        out[name] = res
+    return out
+
+
+ROWS = ("k1", "k2", "k3", "kh", "kp", "kf")
+
+
+def _run_all(w: Workloads, reps: int, keep: dict, only=ROWS) -> dict:
+    """The rows named in `only` (K-P's rows take K3's IRs: "kp" runs "k3")."""
+    runs = {"k1": lambda: run_k1(w, reps, keep), "k2": lambda: run_k2(w, reps),
+            "k3": lambda: run_k3(w, reps, keep), "kh": lambda: run_kh(w, reps, keep),
+            "kp": lambda: run_kp(w, reps, keep), "kf": lambda: run_kf(w, reps, keep)}
+    only = set(only) | ({"k3"} if "kp" in only else set())
+    return {row: runs[row]() for row in ROWS if row in only}
+
+
 def child(args) -> int:
-    """Run K1, K2, K3 and K-H on the checkout at --root; save times and outputs."""
+    """Run every row on the checkout at --root; save times and outputs."""
     import torch
 
     sys.path.insert(0, args.root)
@@ -291,19 +388,19 @@ def child(args) -> int:
         raise AssertionError(f"imported rfx_torch from {rfx_torch.__file__}, not from {args.root}")
     w = Workloads(torch.device("cuda", 0))
     keep = {}
-    out = {"k1": run_k1(w, args.reps, keep), "k2": run_k2(w, args.reps),
-           "k3": run_k3(w, args.reps, keep), "kh": run_kh(w, args.reps, keep)}
+    out = _run_all(w, args.reps, keep, args.only)
     torch.save({"times": out, "outputs": keep}, args.dump)
     return 0
 
 
-def _run_other(root_other: str, reps: int) -> dict:
+def _run_other(root_other: str, reps: int, only) -> dict:
     import torch
 
     with tempfile.TemporaryDirectory() as tmp:
         dump = os.path.join(tmp, "other.pt")
         subprocess.run([sys.executable, os.path.abspath(__file__), "--child", "--root", root_other,
-                        "--dump", dump, "--reps", str(reps)], check=True, cwd=HERE, timeout=1500)
+                        "--dump", dump, "--reps", str(reps), "--only", ",".join(only)],
+                       check=True, cwd=HERE, timeout=1500)
         return torch.load(dump)
 
 
@@ -316,6 +413,11 @@ def _compare(mine: dict, other: dict) -> dict:
         if key.startswith("k1_"):
             out[key] = {name: bool(torch.equal(a, b)) for name, a, b in zip(
                 ("captured", "amplitude", "distance", "num_bounces"), ours, theirs)}
+        elif key.startswith(("kp_", "kf_")):  # dBm, -inf where nothing arrived
+            fin = torch.isfinite(theirs)
+            out[key] = {"same_finite": bool(torch.equal(torch.isfinite(ours), fin)),
+                        "bit_identical": bool(torch.equal(ours, theirs)),
+                        "max_abs_diff_db": float((ours[fin] - theirs[fin]).abs().max())}
         else:
             out[key] = {"same_nonzero_bins": bool(torch.equal(ours != 0, theirs != 0)),
                         "allclose_rtol_1e-5": bool(torch.allclose(ours, theirs, rtol=1e-5, atol=1e-12)),
@@ -328,6 +430,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", help="another checkout of this repository to compare with")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--only", type=lambda v: tuple(v.split(",")), default=ROWS,
+                    help=f"rows to run, comma-separated, of {','.join(ROWS)}")
     ap.add_argument("--out", default="build/bench_kernels.json")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--root", help=argparse.SUPPRESS)
@@ -349,22 +453,22 @@ def main(argv=None) -> int:
     out = {"card": card, "torch": torch.__version__, "reps": args.reps}
     t0 = time.perf_counter()
     if args.other:
-        other = _run_other(os.path.abspath(args.other), args.reps)
+        other = _run_other(os.path.abspath(args.other), args.reps, args.only)
         out["other_first"] = other["times"]
     w = Workloads(torch.device("cuda", 0))
     keep = {}
-    out["here"] = {"k1": run_k1(w, args.reps, keep), "k2": run_k2(w, args.reps),
-                   "k3": run_k3(w, args.reps, keep), "kh": run_kh(w, args.reps, keep)}
+    out["here"] = _run_all(w, args.reps, keep, args.only)
     if args.other:
         out["here_vs_other"] = _compare(keep, other["outputs"])
-        out["other_last"] = _run_other(os.path.abspath(args.other), args.reps)["times"]
+        out["other_last"] = _run_other(os.path.abspath(args.other), args.reps, args.only)["times"]
     out["seconds"] = time.perf_counter() - t0
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
 
     def brief(r):
-        return {k: {s: v["ms"] for s, v in r[k].items()} for k in r if k in ("k1", "k2", "k3")}
+        return {k: {s: v["ms"] for s, v in r[k].items()} for k in r
+                if k in ("k1", "k2", "k3", "kp", "kf")}
 
     def kh(r):
         return {s: {k: v for k, v in t.items() if not k.endswith("digest")}
@@ -374,8 +478,11 @@ def main(argv=None) -> int:
                       "kh_other_first": kh(out.get("other_first", {})),
                       "kh_other_last": kh(out.get("other_last", {})),
                       "k2_walks": {s: {k: v for k, v in t.items() if k not in ("ms", "digest")}
-                                   for s, t in out["here"]["k2"].items()},
-                      "k1_counted_ms": {s: v["counted_ms"] for s, v in out["here"]["k1"].items()},
+                                   for s, t in out["here"].get("k2", {}).items()},
+                      "k1_counted_ms": {s: v["counted_ms"]
+                                        for s, v in out["here"].get("k1", {}).items()},
+                      "kp_kf": {k: {s: {f: v for f, v in t.items() if f != "digest"}
+                                    for s, t in out["here"].get(k, {}).items()} for k in ("kp", "kf")},
                       "other_first": brief(out.get("other_first", {})),
                       "other_last": brief(out.get("other_last", {})),
                       "vs_other": out.get("here_vs_other"), "seconds": out["seconds"]}))

@@ -174,3 +174,148 @@ def test_rx_power_dbm_batched_and_empty(box_room):
     np.testing.assert_allclose(dbm.numpy()[[0, 2]], np.asarray(jdbm)[[0, 2]], atol=1e-3)
     # Half the amplitude is a quarter of the power: -6.02 dB.
     assert float(dbm[0] - dbm[2]) == pytest.approx(20 * np.log10(2.0), abs=1e-3)
+
+
+# The RX-power kernel's plain version (what a CPU tensor, or one that
+# requires grad, runs) against rfx.cir.rx_power_dbm on JAX-CPU.
+POWER_WINDOW = 200e-9
+POWER_CASES = ["sparse", "bin_0", "bin_lo", "bin_last", "zero_row", "single_ir"]
+
+
+def _power_case(nbins: int, case: str) -> np.ndarray:
+    """IRs of one case: sparse rows of either sign at 1e-9..1e-6 (0.2% to 5%
+    nonzero), beside a row of one bin at 0, at lo = (nbins - 1) // 2 or at
+    nbins - 1, or beside an all-zero row; `single_ir` is one (nbins,) IR."""
+    g = np.random.default_rng(nbins)
+    share = np.array([0.01, 0.05, 0.002])[:, None]
+    rows = np.where(g.random((3, nbins)) < share,
+                    g.uniform(1e-9, 1e-6, (3, nbins)) * g.choice([-1.0, 1.0], (3, nbins)), 0.0)
+    rows = rows.astype(np.float32)
+    if case == "single_ir":
+        return rows[1]
+    if case == "zero_row":
+        rows[1] = 0.0
+        return rows
+    if case.startswith("bin_"):
+        k = {"bin_0": 0, "bin_lo": (nbins - 1) // 2, "bin_last": nbins - 1}[case]
+        rows[2] = 0.0
+        rows[2, k] = np.float32(3.5e-7)
+    return rows
+
+
+@pytest.mark.parametrize("case", POWER_CASES)
+@pytest.mark.parametrize("nbins", [1998, 1999], ids=["even", "odd"])
+def test_rx_power_plain_matches_rfx(nbins, case):
+    """The same nonzero samples per row, the signal within 1e-4 of its
+    largest sample (test_rx_power_dbm_matches_rfx's bar), dBm within 1e-3 dB
+    and -inf alike; a CPU tensor counts no kernel launch. The sizes are ones
+    where rfx's compiled linspace rounds the carrier's grid as (window /
+    (nbins - 1)) * i, as it does at 10,000 and 20,000 bins and as the port
+    does; at some sizes (2,000 and 2,001 bins among them) XLA rounds it
+    otherwise, which moves the carrier by up to 2.4e-4 (ROADMAP C)."""
+    ir = _power_case(nbins, case)
+    before = cir.RX_POWER_KERNEL.launches
+    dbm, sig = cir.rx_power_dbm(torch.from_numpy(ir), POWER_WINDOW)
+    assert cir.RX_POWER_KERNEL.launches == before
+    jdbm, jsig = jcir.rx_power_dbm(jnp.asarray(ir), POWER_WINDOW)
+    sig, jsig = sig.numpy(), np.asarray(jsig)
+    assert sig.shape == jsig.shape == ir.shape and dbm.shape == ir.shape[:-1]
+    np.testing.assert_array_equal((sig != 0).sum(axis=-1), (jsig != 0).sum(axis=-1))
+    np.testing.assert_allclose(sig, jsig, rtol=0, atol=1e-4 * np.abs(jsig).max())
+    dbm, jdbm = np.atleast_1d(dbm.numpy()), np.atleast_1d(np.asarray(jdbm))
+    fin = np.isfinite(jdbm)
+    assert fin.sum() >= (2 if case == "zero_row" else len(fin))
+    np.testing.assert_array_equal(np.isfinite(dbm), fin)
+    np.testing.assert_array_equal(dbm[~fin], jdbm[~fin])
+    np.testing.assert_allclose(dbm[fin], jdbm[fin], rtol=0, atol=1e-3)
+    if case.startswith("bin_"):  # one tap a sample: the samples bin k reaches, no more
+        k = int(np.flatnonzero(ir[2])[0])
+        lo = (nbins - 1) // 2
+        reach = min(nbins - 1, k - lo + nbins - 1) - max(0, k - lo) + 1
+        # carrier[0] = sin(0) = 0 zeroes sample j = k - lo, where it exists.
+        assert int((sig[2] != 0).sum()) == reach - (1 if k >= lo else 0)
+
+
+def test_rx_power_plain_rows_alone_equal_the_batch():
+    """A row's (dBm, signal) in the plain version is the same bits alone as in
+    a batch, as the kernel's is."""
+    ir = np.concatenate([_power_case(1999, "sparse"), _power_case(1999, "bin_lo"),
+                         np.zeros((1, 1999), np.float32)])
+    dbm, sig = cir.rx_power_dbm_plain(torch.from_numpy(ir), POWER_WINDOW)
+    assert dbm.shape == (7,) and dbm[6] == -np.inf
+    for r in range(7):
+        d1, s1 = cir.rx_power_dbm_plain(torch.from_numpy(ir[r]), POWER_WINDOW)
+        assert torch.equal(s1, sig[r]) and torch.equal(d1, dbm[r]), r
+
+
+def test_rx_power_gradient_takes_the_plain_version_and_matches_jax():
+    """A CPU IR that requires grad runs the plain version (no launch), whose
+    gradient is the dense convolution's, as jax.grad of rfx.cir.rx_power_dbm:
+    zero bins get one too. The adjoint sums ~2,000 taps of either sign in
+    another order than XLA's, so the bar has an absolute floor of 1e-5 of the
+    largest entry."""
+    ir = _power_case(1998, "sparse")
+    x = torch.from_numpy(ir).requires_grad_()
+    before = cir.RX_POWER_KERNEL.launches
+    dbm, _ = cir.rx_power_dbm(x, POWER_WINDOW)
+    dbm.sum().backward()
+    assert cir.RX_POWER_KERNEL.launches == before
+    want = np.asarray(jax.grad(lambda a: jnp.sum(jcir.rx_power_dbm(a, POWER_WINDOW)[0]))(
+        jnp.asarray(ir)))
+    got = x.grad.numpy()
+    assert (got != 0).sum() > 2 * (ir != 0).sum()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5 * np.abs(want).max())
+
+
+def test_rx_power_dbm_refuses_a_device_without_the_kernel():
+    """Neither a kernel nor the plain version for a device that is neither
+    the CPU nor CUDA: the call raises rather than guess."""
+    with pytest.raises(ValueError, match="no RX-power kernel for device meta"):
+        cir.rx_power_dbm(torch.zeros((2, 100), device="meta"), 1e-9)
+
+
+PHASOR_CASES = ["dbm_only", "diagnostics", "rows", "out_of_window"]
+
+
+@pytest.mark.parametrize("case", PHASOR_CASES)
+def test_rx_power_dbm_phasor_matches_rfx(case):
+    """The phasor metric on paths (rx_power_dbm_phasor: per-path sums, then
+    phasor_metric, the formulas the phasor kernel's wrapper applies to its
+    sums) against rfx.cir.rx_power_dbm_phasor: dBm within 1e-3 dB, -inf alike;
+    ratio and spread within rtol 1e-4, 1 and 0 where nothing lands in the
+    window. `rows` reduces (4, K) paths row by row, one row with no capture;
+    `out_of_window` has every path beyond the last bin."""
+    g = np.random.default_rng(41)
+    k, nbins = 60, 1999
+    kw = dict(sample_window_s=POWER_WINDOW, nbins=nbins, light_speed_mps=2.998e8,
+              sample_rate_hz=nbins / POWER_WINDOW)
+    shape = (4, k) if case == "rows" else (k,)
+    amp = g.uniform(1e-6, 1e-4, shape).astype(np.float32)
+    reach = 70.0 if case == "out_of_window" else 55.0  # the window holds ~59.96 m
+    dist = g.uniform(3.0, reach, shape).astype(np.float32)
+    if case == "out_of_window":
+        dist += np.float32(60.0)
+    cap = g.random(shape) < 0.7
+    if case == "rows":
+        cap[2] = False
+    cancel = case != "dbm_only"
+    got = cir.rx_power_dbm_phasor(torch.from_numpy(amp), torch.from_numpy(dist),
+                                  torch.from_numpy(cap), return_cancellation=cancel, **kw)
+    got = [x.numpy() for x in (got if cancel else (got,))]
+
+    def ref(a, d, c):
+        out = jcir.rx_power_dbm_phasor(jnp.asarray(a), jnp.asarray(d), jnp.asarray(c),
+                                       return_cancellation=cancel, **kw)
+        return [np.asarray(x) for x in (out if cancel else (out,))]
+
+    want = ([np.stack(x) for x in zip(*(ref(*row) for row in zip(amp, dist, cap)))]
+            if case == "rows" else ref(amp, dist, cap))
+    assert [x.shape for x in got] == [x.shape for x in want] == [shape[:-1]] * len(want)
+    fin = np.isfinite(want[0])
+    assert fin.sum() == {"rows": 3, "out_of_window": 0}.get(case, 1)
+    np.testing.assert_array_equal(np.isfinite(got[0]), fin)
+    np.testing.assert_array_equal(got[0][~fin], want[0][~fin])
+    np.testing.assert_allclose(got[0][fin], want[0][fin], rtol=0, atol=1e-3)
+    for a, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(a, w, rtol=1e-4, atol=0)
+        assert (a[~fin] == (1.0 if a is got[1] else 0.0)).all()

@@ -335,3 +335,110 @@ def test_coverage_dbm_hybrid_matches_rfx(box_room, frac):
     ok = np.isfinite(want)
     np.testing.assert_array_equal(np.isfinite(got), ok)
     np.testing.assert_allclose(got[ok], want[ok], rtol=0, atol=1e-3)
+
+
+# The phasor kernel's wrapper (`coverage_phasor`: two passes of the kernel,
+# then the metric's formulas) and the dispatch of `_dbm_cancel_from_segments`.
+PHASOR_KW = dict(num_rays=8192, sample_window_s=100e-9, sample_rate_hz=10e9, carrier_hz=2.4e9,
+                 light_speed_mps=C, tx_power=1.0, rx_batch=10)
+
+
+def _phasor_inputs(box_room):
+    dirs = sample_sphere_directions(8192, seed=77)
+    centers = np.concatenate([jmake_grid(range(-12, 13, 6), range(-12, 13, 6), [2, 8]),
+                              [[40.0, 40.0, 40.0]]]).astype(np.float32)  # the last: outside
+    return _jax_segments(box_room, FAST_TX, dirs, 2), centers
+
+
+def _coverage_phasor_kw(kw):
+    return dict(nbins=int(kw["sample_window_s"] * kw["sample_rate_hz"]),
+                light_speed_mps=kw["light_speed_mps"], sample_rate_hz=kw["sample_rate_hz"],
+                sample_window_s=kw["sample_window_s"], carrier_hz=kw["carrier_hz"])
+
+
+def _phasor_pass_spelled_out(segs, centers, rx_radius, *, nbins, light_speed_mps, sample_rate_hz,
+                             sample_window_s, carrier_hz, t_mean=None):
+    """What one launch of the phasor kernel returns, in its field order
+    (coverage_hist.PHASOR_FIELDS), spelled out in torch on the CPU."""
+    f32 = torch.float32
+    t_rx, first = coverage._first_capture(segs, centers, rx_radius, "analytic")
+    r = centers.shape[0]
+    dist = (segs.distance + t_rx).reshape(r, -1)
+    bins = (dist / torch.tensor(light_speed_mps) * torch.tensor(sample_rate_hz)).to(torch.int32)
+    valid = first.reshape(r, -1) & (bins >= 0) & (bins < nbins)
+    amp = torch.where(valid, segs.amplitude.expand_as(t_rx).reshape(r, -1), 0.0)
+    t_k = bins.to(f32) * torch.tensor(sample_window_s / (nbins - 1), dtype=f32)
+    hi = nbins - 1 - (nbins - 1) // 2
+    s_k = torch.where(valid, torch.clamp_max(bins + hi + 1, nbins).to(f32), 0.0)
+    aw = amp * torch.sqrt(s_k)
+    wgt = aw * aw
+    if t_mean is not None:
+        dt = t_k - t_mean[:, None]
+        return torch.sum(wgt * (dt * dt), dim=1)
+    phase = torch.tensor(2.0 * np.pi * carrier_hz, dtype=f32) * t_k
+    return torch.stack([torch.sum(aw * torch.cos(phase), dim=1),
+                        torch.sum(aw * torch.sin(phase), dim=1), torch.amax(s_k, dim=1),
+                        valid.any(dim=1).to(f32), torch.sum(wgt, dim=1),
+                        torch.sum(wgt * t_k, dim=1)], dim=1)
+
+
+def test_coverage_phasor_matches_rfx(box_room, monkeypatch):
+    """What the card runs after the kernel's two passes (the first pass's
+    fields in order, the mean delay handed to the second, the shared
+    formulas), here on the passes spelled out in torch, against rfx on the
+    same segments: test_dbm_cancel_from_segments_matches_rfx's bars, ratio 1
+    and spread 0 where nothing arrived. The kernel runs on the card only: on
+    a CPU tensor its pass raises, naming the plain version, and counts no
+    launch; `_dbm_cancel_from_segments` runs the plain version."""
+    from rfx.coverage import _dbm_cancel_from_segments as j_cancel
+
+    segs, centers = _phasor_inputs(box_room)
+    with jax.disable_jit():
+        want = [np.asarray(x) for x in j_cancel(segs, jnp.asarray(centers), 1.0, **PHASOR_KW)]
+    psegs = convert.segments_from_rfx(segs, device="cpu")
+    scaled = psegs._replace(amplitude=psegs.amplitude * (torch.tensor(1.0) / 8192))
+    before = coverage_hist.COVERAGE_PHASOR_KERNEL.launches
+    with pytest.raises(ValueError, match="CUDA.*_dbm_cancel_plain"):
+        coverage_hist.coverage_phasor(scaled, centers, 1.0, **_coverage_phasor_kw(PHASOR_KW))
+    plain = [x.numpy() for x in coverage._dbm_cancel_from_segments(psegs, centers, 1.0,
+                                                                   **PHASOR_KW)]
+    assert coverage_hist.COVERAGE_PHASOR_KERNEL.launches == before
+    monkeypatch.setattr(coverage_hist, "_phasor_pass", _phasor_pass_spelled_out)
+    got = [x.numpy() for x in coverage_hist.coverage_phasor(scaled, centers, 1.0,
+                                                            **_coverage_phasor_kw(PHASOR_KW))]
+    ok = np.isfinite(want[0])
+    assert ok.sum() > 20 and (~ok).any()
+    for g in (got, plain):
+        np.testing.assert_array_equal(np.isfinite(g[0]), ok)
+        np.testing.assert_allclose(g[0][ok], want[0][ok], rtol=0, atol=1e-3)
+        for a, w in zip(g[1:], want[1:]):
+            np.testing.assert_allclose(a, w, rtol=1e-4, atol=0)
+        assert (g[1][~ok] == 1.0).all() and (g[2][~ok] == 0.0).all()
+
+
+def test_phasor_gradient_takes_the_plain_version(box_room):
+    """CPU segments whose amplitude requires grad run the plain version (no
+    launch; the kernel has no backward); its gradient of the summed dBm of the reached receivers equals
+    jax.grad of rfx's phasor metric within rtol 1e-4 (an absolute floor of
+    1e-6 of the largest entry for the near-cancelling ones)."""
+    from rfx.coverage import _dbm_cancel_from_segments as j_cancel
+
+    segs, centers = _phasor_inputs(box_room)
+    with jax.disable_jit():
+        reached = np.isfinite(np.asarray(j_cancel(segs, jnp.asarray(centers), 1.0,
+                                                  **PHASOR_KW)[0]))
+        centers = np.asarray(centers)[reached]
+        want = np.asarray(jax.grad(lambda a: jnp.sum(j_cancel(
+            segs._replace(amplitude=a), jnp.asarray(centers), 1.0, **PHASOR_KW)[0]))(
+                segs.amplitude))
+    psegs = convert.segments_from_rfx(segs, device="cpu")
+    amp = psegs.amplitude.clone().requires_grad_()
+    before = coverage_hist.COVERAGE_PHASOR_KERNEL.launches
+    dbm, _, _ = coverage._dbm_cancel_from_segments(psegs._replace(amplitude=amp), centers, 1.0,
+                                                   **PHASOR_KW)
+    assert coverage_hist.COVERAGE_PHASOR_KERNEL.launches == before
+    assert bool(torch.isfinite(dbm).all()) and len(centers) > 20
+    dbm.sum().backward()
+    got = amp.grad.numpy()
+    assert (got != 0).sum() > 100
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6 * np.abs(want).max())

@@ -454,7 +454,9 @@ def test_coverage_engines_on_card(cuda):
     segs = trace_env(scene, [3.0, 2.0, 2.0], dirs, max_bounces=2)
     fkw = dict(num_rays=n, sample_window_s=100e-9, sample_rate_hz=100e9, carrier_hz=2.4e9,
                light_speed_mps=2.998e8, tx_power=1.0, rx_batch=16)
+    before = coverage_hist.COVERAGE_PHASOR_KERNEL.launches
     card = [x.cpu() for x in coverage._dbm_cancel_from_segments(segs, centers, 0.8, **fkw)]
+    assert coverage_hist.COVERAGE_PHASOR_KERNEL.launches == before + 2  # the phasor kernel's two passes
     host = coverage._dbm_cancel_from_segments(
         EnvSegments(*(t.cpu() for t in segs)), centers, 0.8, **fkw)
     ok = torch.isfinite(host[0])
@@ -462,6 +464,146 @@ def test_coverage_engines_on_card(cuda):
     torch.testing.assert_close(card[0][ok], host[0][ok], rtol=0, atol=1e-3)
     for a, b in zip(card[1:], host[1:]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=0)
+
+
+def _sparse_irs(cuda, m, nbins, seed=25):
+    """(m, nbins) IRs shaped like the coverage sweep's: rows of 0.2% to 5%
+    nonzero bins of either sign at 1e-9..1e-6, a row of 30%, an empty row, and
+    rows of one bin at 0, at the centre lo and at nbins - 1."""
+    g = np.random.default_rng(seed)
+    share = g.uniform(0.002, 0.05, (m, 1))
+    share[1] = 0.3
+    ir = np.where(g.random((m, nbins)) < share,
+                  g.uniform(1e-9, 1e-6, (m, nbins)) * g.choice([-1.0, 1.0], (m, nbins)), 0.0)
+    ir[2:6] = 0.0
+    for row, k in ((3, 0), (4, (nbins - 1) // 2), (5, nbins - 1)):
+        ir[row, k] = 3.5e-7
+    return torch.from_numpy(ir.astype(np.float32)).to(cuda)
+
+
+def _assert_power_close(k, p):
+    """The kernel's (dBm, signal) against the plain version's: the same
+    nonzero samples; the signal within rtol 1e-5, with an absolute floor of
+    1e-5 of the largest sample where a sample's taps cancel (the two add a
+    sample's taps in other orders); dBm within 1e-4 dB, -inf alike."""
+    (dk, ok), (dp, op) = k, p
+    assert torch.equal(ok != 0, op != 0)
+    torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-5 * float(op.abs().max()))
+    fin = torch.isfinite(dp)
+    assert torch.equal(torch.isfinite(dk), fin)
+    assert float((dk[fin] - dp[fin]).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("nbins", [10_000, 20_001])
+def test_rx_power_kernel_matches_plain(cuda, nbins):
+    """The coverage sweep's bins (even) and the single IR's width, odd: one
+    launch for all rows, the plain version's nonzero samples and values, the
+    same bits from run to run, and a row the same bits alone as in the batch."""
+    irs = _sparse_irs(cuda, 37, nbins)
+    window = nbins / 100e9
+    before = cir.RX_POWER_KERNEL.launches
+    a = cir.rx_power_dbm(irs, window)
+    b = cir.rx_power_dbm(irs, window)
+    assert cir.RX_POWER_KERNEL.launches == before + 2
+    p = cir.rx_power_dbm_plain(irs, window)
+    torch.cuda.synchronize()
+    assert a[0].shape == (37,) and a[1].shape == (37, nbins)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    _assert_power_close(a, p)
+    assert int((a[1][0] != 0).sum()) > nbins // 2 and not a[1][2].any()
+    assert a[0][2] == -np.inf
+    lo = (nbins - 1) // 2
+    carrier = cir._carrier(nbins, window, 2.4e9, cuda)
+    j = torch.arange(nbins, device=cuda)
+    for row, k in ((3, 0), (4, lo), (5, nbins - 1)):  # one tap a sample: the product itself
+        idx = j + lo - k
+        inside = (idx >= 0) & (idx < nbins)
+        want = torch.where(inside, irs[row, k] * carrier[idx.clamp(0, nbins - 1)], 0.0)
+        assert torch.equal(a[1][row], want), row
+    for r in (0, 1, 2, 3, 5, 36):
+        before = cir.RX_POWER_KERNEL.launches
+        dbm, out = cir.rx_power_dbm(irs[r], window)
+        assert cir.RX_POWER_KERNEL.launches == before + 1
+        assert dbm.shape == () and out.shape == (nbins,)
+        assert torch.equal(out, a[1][r]) and torch.equal(dbm, a[0][r]), r
+    group = cir.rx_power_dbm(irs[7:30], window)
+    assert torch.equal(group[1], a[1][7:30]) and torch.equal(group[0], a[0][7:30])
+
+
+def test_rx_power_kernel_requires_grad_raises(cuda):
+    """The kernel has no backward: a CUDA IR that requires grad raises,
+    naming it, and launches nothing; under no_grad the kernel runs. The plain
+    version, called by name, gives the card the CPU's gradient."""
+    irs = _sparse_irs(cuda, 7, 2000)[[0, 1, 3, 6]]
+    before = cir.RX_POWER_KERNEL.launches
+    with pytest.raises(RuntimeError, match="rfx_rx_power"):
+        cir.rx_power_dbm(irs.clone().requires_grad_(), 20e-9)
+    assert cir.RX_POWER_KERNEL.launches == before
+    with torch.no_grad():
+        cir.rx_power_dbm(irs.clone().requires_grad_(), 20e-9)
+    assert cir.RX_POWER_KERNEL.launches == before + 1
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        x = irs.detach().to(dev).requires_grad_()
+        dbm, _ = cir.rx_power_dbm_plain(x, 20e-9)
+        dbm.sum().backward()
+        grads.append(x.grad.cpu())
+    torch.cuda.synchronize()
+    assert cir.RX_POWER_KERNEL.launches == before + 1
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-6 * float(grads[1].abs().max()))
+
+
+def test_rx_power_kernel_edges(cuda):
+    none = cir.rx_power_dbm(torch.zeros((0, 100), device=cuda), 1e-9)
+    assert none[0].shape == (0,) and none[1].shape == (0, 100)
+    zeros = cir.rx_power_dbm(torch.zeros((3, 100), device=cuda), 1e-9)
+    torch.cuda.synchronize()
+    assert bool((zeros[0] == -np.inf).all()) and not zeros[1].any()
+    with pytest.raises(ValueError, match="bins"):
+        cir.rx_power_dbm(torch.zeros((1, 65535 * 256 + 1), device=cuda), 1e-6)
+
+
+def test_coverage_phasor_kernel_matches_plain(cuda):
+    """The phasor metric's kernel against its plain version on the room's
+    segments: 531 receivers (a short last tile), 100,003 rays (four slabs,
+    the last one short), 3 bounces, a receiver nothing reaches. dBm within
+    1e-3 dB, ratio and spread within rtol 1e-4, the same bits from run to run
+    and for a receiver alone or in any group; an input that requires grad
+    raises."""
+    segs = _room_segments(cuda, 100_003)
+    centers = _room_receivers(531)
+    kw = dict(nbins=10_000, light_speed_mps=2.998e8, sample_rate_hz=100e9, sample_window_s=100e-9,
+              carrier_hz=2.4e9)
+    before = coverage_hist.COVERAGE_PHASOR_KERNEL.launches
+    k1 = coverage_hist.coverage_phasor(segs, centers, 0.7, **kw)
+    k2 = coverage_hist.coverage_phasor(segs, centers, 0.7, **kw)
+    assert coverage_hist.COVERAGE_PHASOR_KERNEL.launches == before + 4
+    p = coverage._dbm_cancel_plain(segs, centers, 0.7, num_rays=1, tx_power=1.0, rx_batch=64,
+                                   **{k: v for k, v in kw.items() if k != "nbins"})
+    torch.cuda.synchronize()
+    for a, b in zip(k1, k2):
+        assert torch.equal(a, b)
+    ok = torch.isfinite(p[0])
+    assert torch.equal(torch.isfinite(k1[0]), ok) and int(ok.sum()) > 200 and not bool(ok[-1])
+    assert float((k1[0][ok] - p[0][ok]).abs().max()) < 1e-3
+    for a, b in zip(k1[1:], p[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=0)
+    assert float((p[2] > 0).sum()) > 100 and bool((p[1][ok] < 0.5).any())
+    for i in (0, 4, 5, 15, 16, 530):
+        alone = coverage_hist.coverage_phasor(segs, centers[i:i + 1], 0.7, **kw)
+        for a, b in zip(alone, k1):
+            assert torch.equal(a[0], b[i]), i
+    group = coverage_hist.coverage_phasor(segs, centers[7:44], 0.7, **kw)
+    for a, b in zip(group, k1):
+        assert torch.equal(a, b[7:44])
+    # The kernel has no backward: segments that require grad raise on the card.
+    wanted = segs._replace(amplitude=segs.amplitude.clone().requires_grad_())
+    before = coverage_hist.COVERAGE_PHASOR_KERNEL.launches
+    with pytest.raises(RuntimeError, match="rfx_coverage_phasor"):
+        coverage._dbm_cancel_from_segments(wanted, centers[:40], 0.7, num_rays=1, tx_power=1.0,
+                                           rx_batch=16, **{k: v for k, v in kw.items()
+                                                           if k != "nbins"})
+    assert coverage_hist.COVERAGE_PHASOR_KERNEL.launches == before
 
 
 @pytest.mark.parametrize("n", [1, 1000, 65_536 + 7])
