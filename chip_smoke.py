@@ -11,10 +11,11 @@ Phases, each ending in torch.cuda.synchronize() so a fault shows where it
 happened, and none catching its own failure:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the six CUDA sources of rfx_torch/csrc/ (ten C entry points:
+2. build the six CUDA sources of rfx_torch/csrc/ (twelve C entry points:
    the fused trace and its counted instantiation share a source, so do the
    closest hit and its counted instantiation, and the coverage histogram,
-   its slab reduction and the phasor sums) and the native C++ BVH builder
+   its slab reduction and the phasor metric's table, walk and spread) and
+   the native C++ BVH builder
    into build/rfx_torch/, one compiler each, all started together;
 3. the bench workload (bench.py): make_terrain(grid=128, extent=60, seed=0),
    32,258 triangles, 5,242,880 Morton-ordered rays, 4 bounces, a 20,000-bin
@@ -87,7 +88,10 @@ happened, and none catching its own failure:
     bits) and the phasor kernel against its plain version on all 2,048
     receivers (dBm 1e-3 dB, ratio and spread rtol 1e-4, the flagged set
     alike away from the thresholds, two runs and receiver 777 alone the same
-    bits), each on the card; the exact metric through
+    bits), its per-bin table against the table's torch form and its spread
+    over the walk's capture lists against the spread's plain version (with
+    the capture lists' counts: captures a (slab, receiver) region, regions
+    lost and walked again), each on the card; the exact metric through
     `rfx_torch.cli.main(["coverage", ...])` (room), whose saved dBm must equal
     the facade's and be finite exactly where an IR is nonzero, with
     rx_power_dbm bit-identical across two card runs and within 1e-3 dB of the
@@ -143,9 +147,10 @@ closest hit and histogram; the micro-kernel's timed launches: micro vote;
 the scan value+grad and the five full-width solver steps: closest hit and
 histogram; the fused value+grad: fused trace and histogram; the coverage
 CLI's exact sweep: the coverage kernel, its slab reduction and RX power;
-each hybrid sweep: the phasor sums, the same three, and on the terrain the
-closest hit; each fast sweep: the phasor sums, on the terrain the closest
-hit, and never the coverage kernel; each rank's sharded CIR, coverage and
+each hybrid sweep: the phasor metric's table, walk and spread, the same
+three, and on the terrain the closest hit; each fast sweep: the table, the
+walk and the spread once each, on the terrain the closest hit, and never the
+coverage kernel; each rank's sharded CIR, coverage and
 solver step: closest hit and histogram, and the coverage kernel on the
 coverage). The comparisons with the plain versions, the
 checks of phase 10 and the facade are not counted.
@@ -210,6 +215,10 @@ K_REDUCE = "rfx_coverage_hist_reduce"
 K_VOTE = "rfx_micro_vote"
 K_POWER = "rfx_rx_power"
 K_PHASOR = "rfx_coverage_phasor"
+K_SPREAD = "rfx_coverage_phasor_spread"
+K_TABLE = "rfx_phasor_table"
+# The phasor metric's three entry points, each launched once a sweep.
+PHASOR_NEEDS = (K_TABLE, K_PHASOR, K_SPREAD)
 # One H100 SXM's published peaks: HBM bytes/s, f32 FLOP/s outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -368,20 +377,23 @@ def _counted_bound(fused_bound: dict) -> dict:
 
 
 def port_kernels() -> tuple:
-    """The port's ten C entry points (rfx_torch/csrc/), each with its launch count."""
+    """The port's twelve C entry points (rfx_torch/csrc/), each with its launch count."""
     from rfx_torch import cir
     from rfx_torch.ops.bvh_trace import CLOSEST_HIT_COUNTED_KERNEL, CLOSEST_HIT_KERNEL
     from rfx_torch.ops.coverage_hist import (
         COVERAGE_HIST_KERNEL,
         COVERAGE_PHASOR_KERNEL,
         COVERAGE_REDUCE_KERNEL,
+        COVERAGE_SPREAD_KERNEL,
+        PHASOR_TABLE_KERNEL,
     )
     from rfx_torch.ops.fused import FUSED_TRACE_COUNTED_KERNEL, FUSED_TRACE_KERNEL
     from rfx_torch.ops.micro_vote import MICRO_VOTE_KERNEL
 
     return (FUSED_TRACE_KERNEL, CLOSEST_HIT_KERNEL, cir.HISTOGRAM_KERNEL, COVERAGE_HIST_KERNEL,
             MICRO_VOTE_KERNEL, cir.RX_POWER_KERNEL, FUSED_TRACE_COUNTED_KERNEL,
-            CLOSEST_HIT_COUNTED_KERNEL, COVERAGE_REDUCE_KERNEL, COVERAGE_PHASOR_KERNEL)
+            CLOSEST_HIT_COUNTED_KERNEL, COVERAGE_REDUCE_KERNEL, COVERAGE_PHASOR_KERNEL,
+            COVERAGE_SPREAD_KERNEL, PHASOR_TABLE_KERNEL)
 
 
 def rx_power_taps(irs) -> int:
@@ -437,6 +449,7 @@ def _rx_power_leg(irs, window: float, what: str) -> dict:
            "max_abs_err": float((a[1] - p[1]).abs().max()), "max_abs_signal": scale,
            "dbm_err_vs_plain": dbm_err, "dbm_bits_differ": int((a[0] != p[0]).sum()),
            "ms": _cuda_ms(lambda: cir.rx_power_dbm(irs, window), 10),
+           "device_ms": device_ms(lambda: cir.rx_power_dbm(irs, window), 10),
            "plain_ms": _cuda_ms(lambda: cir.rx_power_dbm_plain(irs, window), 1),
            "library_ms": _cuda_ms(library, 3),
            "library_max_abs_err": float((lib.reshape(a[1].shape) - p[1]).abs().max()),
@@ -445,8 +458,9 @@ def _rx_power_leg(irs, window: float, what: str) -> dict:
     out["bound"] = _bound(8 * rows.numel() + 4 * nbins + 4 * m, 2 * out["taps"])
     print(f"# {what}, {m} x {nbins} bins ({out['nonzero_bins']} nonzero): kernel == plain (max |d| "
           f"{out['max_abs_err']:.3e} of {scale:.3e}, dBm {dbm_err:.3e}), bit-identical across runs"
-          f"{' and alone' if m > 777 else ''}; kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.1f} "
-          f"ms, conv1d {out['library_ms']:.3f} ms (max |d| {out['library_max_abs_err']:.3e}, "
+          f"{' and alone' if m > 777 else ''}; kernel {out['ms']:.4f} ms a call ({out['device_ms']:.4f} "
+          f"ms of it on the device), plain {out['plain_ms']:.1f} ms, conv1d "
+          f"{out['library_ms']:.3f} ms (max |d| {out['library_max_abs_err']:.3e}, "
           f"{out['library_nonzero_samples_differ']} zeros differ), bound {out['bound']['bound_ms']:.4f} "
           f"ms by {out['bound']['bound_by']} ({out['taps']} taps)", flush=True)
     return out
@@ -456,13 +470,18 @@ def _phasor_leg(segs, centers, fkw: dict, what: str) -> dict:
     """K-F against its plain version on all receivers of a sweep, on the
     card's segments: -inf alike, dBm within 1e-3 dB, ratio and spread within
     rtol 1e-4, the flagged set alike away from the thresholds, two runs and
-    receiver 777 alone the same bits. The bound is the function's work, one
-    sphere test per live segment and receiver (17 f32 operations, as K3's)
-    and one read of the segments and centers; the kernel's second pass (the
-    spread about the mean delay) is its design's cost, not counted."""
+    receiver 777 alone the same bits. Then its parts: the table against its
+    torch form (sqrt s_k and t_k bit for bit, cos and sin within 2e-7), the
+    first pass's capture lists (captures a (slab, receiver) region, regions
+    whose list was lost and walk again, chunks taken), the spread over them
+    against its plain version at the kernel's mean delays (rtol 1e-4). The
+    bound is the function's work, one sphere test per live segment and
+    receiver (17 f32 operations, as K3's) and one read of the segments and
+    centers."""
     import torch
 
-    from rfx_torch.coverage import _dbm_cancel_from_segments, _dbm_cancel_plain
+    from rfx_torch.coverage import _amp_scale, _dbm_cancel_from_segments, _dbm_cancel_plain
+    from rfx_torch.ops import coverage_hist as ch
 
     def kernel(c=centers):
         return _dbm_cancel_from_segments(segs, c, COV_RADIUS, **fkw)
@@ -483,6 +502,31 @@ def _phasor_leg(segs, centers, fkw: dict, what: str) -> dict:
     alone = kernel(centers[777:778])
     _require(all(torch.equal(a[0], b[777]) for a, b in zip(alone, k1)),
              f"{what}: receiver 777 alone differs from it in the group")
+
+    # The parts, on the segments as the kernels take them (amplitude scaled).
+    scale = _amp_scale(fkw["tx_power"], fkw["num_rays"], segs.t_env.device)
+    scaled = segs._replace(amplitude=segs.amplitude * scale)
+    kw = dict(nbins=COV_BINS, light_speed_mps=C, sample_rate_hz=RATE,
+              sample_window_s=COV_WINDOW, carrier_hz=fkw["carrier_hz"])
+    step, omega = ch._phasor_constants(COV_BINS, COV_WINDOW, fkw["carrier_hz"])
+    tab, tab_p = ch.phasor_table(COV_BINS, step, omega, segs.t_env.device), ch.phasor_table_plain(
+        COV_BINS, step, omega, segs.t_env.device)
+    _sync()
+    _require(torch.equal(tab[:, 0], tab_p[:, 0]) and torch.equal(tab[:, 3], tab_p[:, 3])
+             and float((tab[:, 1:3] - tab_p[:, 1:3]).abs().max()) < 2e-7,
+             f"{what}: phasor table != its torch form")
+    sums, walks = ch._phasor_sums(scaled, centers, COV_RADIUS, **kw)
+    t_mean = sums[:, 5] / sums[:, 4]
+    spread = ch._phasor_spread(walks, t_mean)
+    spread_p = ch.phasor_spread_plain(scaled, centers, COV_RADIUS, t_mean, **kw)
+    _sync()
+    hit = sums[:, 3] > 0
+    _require(not bool(spread[~hit].any()) and torch.allclose(spread[hit], spread_p[hit], rtol=1e-4,
+                                                             atol=0),
+             f"{what}: the spread over the lists differs from its plain version")
+    captures, lost = ch.phasor_lists_spent(walks)
+    per_region = torch.cat([w.regions(1).reshape(-1) for w in walks]).float()
+    chunks = sum(int(w.ints[0]) for w in walks)
     m = centers.shape[0]
     seg_bytes = sum(int(t.numel() * t.element_size()) for t in segs)
     out = {"dbm_err_vs_plain": dbm_err,
@@ -492,12 +536,35 @@ def _phasor_leg(segs, centers, fkw: dict, what: str) -> dict:
            "flagged": int(flags_k.sum()), "flags_at_threshold": int(edge.sum()),
            "ms": _cuda_ms(kernel, 5), "plain_ms": _cuda_ms(
                lambda: _dbm_cancel_plain(segs, centers, COV_RADIUS, **fkw), 1),
-           "bound": _bound(seg_bytes + 12 * m + 12 * m, 17 * m * int(segs.alive.sum()))}
+           "walk_ms": _cuda_ms(lambda: ch._phasor_sums(scaled, centers, COV_RADIUS, **kw), 5),
+           "bound": _bound(seg_bytes + 12 * m + 12 * m, 17 * m * int(segs.alive.sum())),
+           "captures": captures, "regions": int(per_region.numel()), "regions_lost": lost,
+           "chunks_taken": chunks, "pool_chunks": sum(w.n_chunks for w in walks),
+           "captures_per_region": {q: float(torch.quantile(per_region, float(q)))
+                                   for q in ("0.5", "0.99", "1.0")},
+           "table": {"max_abs_err": float((tab - tab_p).abs().max()),
+                     "ms": _cuda_ms(lambda: ch.phasor_table(COV_BINS, step, omega,
+                                                            segs.t_env.device), 20),
+                     "plain_ms": _cuda_ms(lambda: ch.phasor_table_plain(COV_BINS, step, omega,
+                                                                        segs.t_env.device), 20),
+                     # 16 bytes a bin written; sqrt, cos, sin and four more operations a bin.
+                     "bound": _bound(16 * COV_BINS, 7 * COV_BINS)},
+           "spread": {"max_rel_err": float(((spread - spread_p).abs()
+                                            / spread_p.abs().clamp_min(1e-30))[hit].max()),
+                      "ms": _cuda_ms(lambda: ch._phasor_spread(walks, t_mean), 10),
+                      "plain_ms": _cuda_ms(lambda: ch.phasor_spread_plain(
+                          scaled, centers, COV_RADIUS, t_mean, **kw), 1),
+                      # A capture's pair read once (8 bytes), four operations.
+                      "bound": _bound(8 * captures + 8 * m, 4 * captures)}}
     print(f"# {what}, {m} receivers: kernel == plain (dBm max |d| {dbm_err:.3e}, ratio rel "
           f"{out['ratio_max_rel_err']:.3e}, spread rel {out['spread_max_rel_err']:.3e}, "
           f"{out['flagged']} flagged), bit-identical across runs and alone; kernel {out['ms']:.3f} "
-          f"ms, plain {out['plain_ms']:.1f} ms, bound {out['bound']['bound_ms']:.3f} ms by "
-          f"{out['bound']['bound_by']}", flush=True)
+          f"ms a sweep (walk {out['walk_ms']:.3f} ms, spread {out['spread']['ms']:.4f} ms, table "
+          f"{out['table']['ms']:.4f} ms), plain {out['plain_ms']:.1f} ms, bound "
+          f"{out['bound']['bound_ms']:.3f} ms by {out['bound']['bound_by']}; {captures} captures "
+          f"in {out['regions']} (slab, receiver) regions (median {out['captures_per_region']['0.5']:.0f}, "
+          f"p99 {out['captures_per_region']['0.99']:.0f}, max {out['captures_per_region']['1.0']:.0f}), "
+          f"{chunks} of {out['pool_chunks']} chunks, {lost} regions lost (walked again)", flush=True)
     return out
 
 
@@ -1229,12 +1296,15 @@ def _coverage_phase(terrain, dev, kernels):
         env_needs = () if name == "room" else (K_HIT,)
         req = (tx, 1.0, grid, COV_RADIUS)
         (fast, launches), res["fast_host_s"], res["fast_ms"] = _timed(lambda: _counted(
-            kernels, f"coverage_fast_{name}", (K_PHASOR,) + env_needs,
+            kernels, f"coverage_fast_{name}", PHASOR_NEEDS + env_needs,
             lambda: tracer.compute_coverage_dbm_fast(*req, directions=dirs)))
         _require(launches[K_COV] == 0, f"fast metric, {name}: the coverage kernel ran")
+        # One walk a sweep: the table, the walk and the spread once each.
+        _require(all(launches[k] == 1 for k in PHASOR_NEEDS),
+                 f"fast metric, {name}: the phasor metric's launches {launches}")
         out["launches"][f"coverage_fast_{name}"] = launches
         (hybrid, n_flagged), launches = _counted(
-            kernels, f"coverage_hybrid_{name}", (K_PHASOR, K_COV, K_REDUCE, K_POWER) + env_needs,
+            kernels, f"coverage_hybrid_{name}", PHASOR_NEEDS + (K_COV, K_REDUCE, K_POWER) + env_needs,
             lambda: tracer.compute_coverage_dbm_hybrid(*req, directions=dirs))
         out["launches"][f"coverage_hybrid_{name}"] = launches
         dbm_k, ratio_k, spread_k = (x.cpu().numpy() for x in _dbm_cancel_from_segments(
@@ -1734,6 +1804,8 @@ def main() -> int:
         COVERAGE_HIST_KERNEL,
         COVERAGE_PHASOR_KERNEL,
         COVERAGE_REDUCE_KERNEL,
+        COVERAGE_SPREAD_KERNEL,
+        PHASOR_TABLE_KERNEL,
     )
     from rfx_torch.ops.fused import (
         FUSED_TRACE_COUNTED_KERNEL,
@@ -1762,13 +1834,15 @@ def main() -> int:
     # 2. Build the six CUDA sources and the native BVH builder from the
     #    sources in this checkout, one compiler each, all started together;
     #    the counted fused trace, the counted closest hit, the slab reduction
-    #    and the phasor sums bind their entries in the libraries of the fused
-    #    trace, the closest hit and the coverage histogram.
+    #    and the phasor metric's walk, spread and table bind their entries in
+    #    the libraries of the fused trace, the closest hit and the coverage
+    #    histogram.
     t0 = time.perf_counter()
     per_source = (FUSED_TRACE_KERNEL, CLOSEST_HIT_KERNEL, cir.HISTOGRAM_KERNEL,
                   COVERAGE_HIST_KERNEL, MICRO_VOTE_KERNEL, cir.RX_POWER_KERNEL)
     kernels_built = per_source + (FUSED_TRACE_COUNTED_KERNEL, CLOSEST_HIT_COUNTED_KERNEL,
-                                  COVERAGE_REDUCE_KERNEL, COVERAGE_PHASOR_KERNEL)
+                                  COVERAGE_REDUCE_KERNEL, COVERAGE_PHASOR_KERNEL,
+                                  COVERAGE_SPREAD_KERNEL, PHASOR_TABLE_KERNEL)
     with ThreadPoolExecutor(len(per_source) + 1) as pool:
         native = pool.submit(native_lib.load)
         list(pool.map(lambda k: k.load(), per_source))
@@ -2067,27 +2141,53 @@ def main() -> int:
          "library_ms": kp_room["library_ms"],
          "ms_terrain": kp_terrain["ms"], "plain_ms_terrain": kp_terrain["plain_ms"],
          **_suffixed(kp_terrain["bound"], "_terrain"), "library_ms_terrain": kp_terrain["library_ms"],
-         "ms_cir": kp_cir["ms"], "plain_ms_cir": kp_cir["plain_ms"],
+         "device_ms": kp_room["device_ms"], "device_ms_terrain": kp_terrain["device_ms"],
+         "ms_cir": kp_cir["ms"], "device_ms_cir": kp_cir["device_ms"],
+         "plain_ms_cir": kp_cir["plain_ms"],
          **_suffixed(kp_cir["bound"], "_cir"), "library_ms_cir": kp_cir["library_ms"],
          "dbm_err_vs_plain": max(kp["dbm_err_vs_plain"] for kp in (kp_room, kp_terrain, kp_cir)),
          "shape": f"ms, plain_ms, bound_ms, library_ms: the room's 2048 exact IRs x {COV_BINS} "
                   f"bins; *_terrain: the terrain's; *_cir: the forward request's IR, {NBINS} bins; "
-                  f"ms is the wrapper's call (three kernels in one launch sequence, the dBm in "
-                  f"torch); bound_ms counts 2 f32 operations per in-range tap of the nonzero "
+                  f"ms is the wrapper's call (three kernels in one launch sequence, the dBm "
+                  f"included), device_ms the device's own time a call; bound_ms counts 2 f32 operations per in-range tap of the nonzero "
                   f"bins; max_abs_err on the signal; library_ms: conv1d with the flipped carrier, "
                   f"no TF32"},
         {"name": "coverage_phasor", "route": "cuda", "source": "rfx_torch/csrc/coverage_hist.cu",
          "replaces": "rfx/coverage.py:229", **counts(K_PHASOR),
          "max_abs_err": max(kf["dbm_err_vs_plain"] for kf in (kf_room, kf_terrain)),
          "ms": kf_room["ms"], "plain_ms": kf_room["plain_ms"], **kf_room["bound"],
-         "library_ms": None,
+         "library_ms": None, "walk_ms": kf_room["walk_ms"],
          "ms_terrain": kf_terrain["ms"], "plain_ms_terrain": kf_terrain["plain_ms"],
+         "walk_ms_terrain": kf_terrain["walk_ms"],
          **_suffixed(kf_terrain["bound"], "_terrain"),
+         "regions_lost": kf_room["regions_lost"], "regions_lost_terrain": kf_terrain["regions_lost"],
          "shape": f"2048 receivers x 2 bounces x {COV_RAYS} rays, radius {COV_RADIUS}, "
                   f"{COV_BINS} bins; ms, plain_ms, bound_ms: the room; *_terrain: the terrain; ms "
-                  f"is the fast metric's call from the segments (two launches of two kernels "
-                  f"each, the formulas in torch); max_abs_err in dB against the plain version; "
-                  f"launches count two a sweep"},
+                  f"is the fast metric's call from the segments (the table, the walk with its "
+                  f"slab reduction, the spread over the walk's capture lists, the formulas in "
+                  f"torch), walk_ms the walk's call alone; max_abs_err in dB against the plain "
+                  f"version; launches count one a sweep; regions_lost: (slab, receiver) "
+                  f"regions whose list was lost and walked again"},
+        {"name": "coverage_phasor_spread", "route": "cuda",
+         "source": "rfx_torch/csrc/coverage_hist.cu", "replaces": "rfx/coverage.py:229",
+         **counts(K_SPREAD),
+         "max_abs_err": max(kf["spread"]["max_rel_err"] for kf in (kf_room, kf_terrain)),
+         "ms": kf_room["spread"]["ms"], "plain_ms": kf_room["spread"]["plain_ms"],
+         **kf_room["spread"]["bound"], "library_ms": None,
+         "ms_terrain": kf_terrain["spread"]["ms"],
+         "plain_ms_terrain": kf_terrain["spread"]["plain_ms"],
+         **_suffixed(kf_terrain["spread"]["bound"], "_terrain"),
+         "shape": f"the phasor metric's spread about each receiver's mean delay over the "
+                  f"walk's capture lists, 2048 receivers ({kf_room['captures']} / "
+                  f"{kf_terrain['captures']} captures, room / terrain); max_abs_err is relative "
+                  f"to the plain version (phasor_spread_plain) at the kernel's mean delays"},
+        {"name": "phasor_table", "route": "cuda", "source": "rfx_torch/csrc/coverage_hist.cu",
+         "replaces": "rfx/cir.py:204", **counts(K_TABLE),
+         "max_abs_err": max(kf["table"]["max_abs_err"] for kf in (kf_room, kf_terrain)),
+         "ms": kf_room["table"]["ms"], "plain_ms": kf_room["table"]["plain_ms"],
+         **kf_room["table"]["bound"], "library_ms": None,
+         "shape": f"the phasor metric's per-bin (sqrt s_k, cos, sin, t_k), {COV_BINS} bins; "
+                  f"max_abs_err against its torch form on the card (cos and sin)"},
         {"name": "micro_vote", "route": "cuda", "source": "rfx_torch/csrc/micro_vote.cu",
          "replaces": "scripts/micro_reduce.py:64", **counts(K_VOTE),
          "max_abs_err": max(abs(v["carry"] - v["plain_carry"])

@@ -6,16 +6,17 @@ host modules (`geometry.py`, `bvh.py`, `config.py`, `viz/`, `utils/`), and an
 `rfx` mesh or BVH crosses by field through `convert.py`.
 
 Every public entry point takes `device=` (default `"cuda"`). On a CUDA tensor
-the hand-written kernels run, ten C entry points in six sources of
+the hand-written kernels run, twelve C entry points in six sources of
 rfx_torch/csrc/, built with nvcc at first use (`ops/_build.py`):
 
 - `fused_trace.cu`: the fused bounce loop and its counted instantiation;
 - `closest_hit.cu`: the per-query closest hit and its counted instantiation;
 - `histogram.cu`: the IR histogram, one launch for a batch of rows;
 - `coverage_hist.cu`: the coverage histogram, its slab reduction, and the
-  phasor metric's sums over the same walk and capture rule;
+  phasor metric: its per-bin table, its sums over the same walk and capture
+  rule, and its delay spread over the capture lists that walk leaves;
 - `rx_power.cu`: the RX-power metric's convolution with the carrier and its
-  sums, one launch for a batch of IRs;
+  dBm, one call for a batch of IRs;
 - `micro_vote.cu`: the vote micro-kernel, a latency probe.
 
 On a CPU tensor their plain PyTorch versions run. The RX-power and phasor

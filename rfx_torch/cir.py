@@ -18,7 +18,8 @@ binning is linear in it between bin centres.
 `rx_power_dbm` is a direct convolution over each IR's nonzero bins, so exact
 zeros stay zero: the metric averages over the nonzero samples only, and an
 FFT would fill them with roundoff. On a CUDA tensor it launches the RX-power
-kernel (rfx_torch/csrc/rx_power.cu), one launch whatever the rows; on a CPU
+kernel (rfx_torch/csrc/rx_power.cu), one call whatever the rows, the dBm
+included, on a carrier made once per size (`carrier_cached`); on a CPU
 tensor, or where a gradient is wanted, it runs its plain version,
 `rx_power_dbm_plain`. `rx_power_dbm_phasor` is the coverage engine's fast
 metric: the same power from the paths' phasors, with no impulse response.
@@ -27,13 +28,14 @@ metric: the same power from the paths' phasors, with no impulse response.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 from rfx_torch.ops._build import CudaKernel, F, I, P
 
-__all__ = ["bin_impulse_response", "cir_from_trace", "convolve_carrier_plain", "histogram_plain",
+__all__ = ["bin_impulse_response", "carrier_cached", "cir_from_trace", "convolve_carrier_plain", "histogram_plain",
            "mask_tiles", "phasor_metric", "rx_power_dbm", "rx_power_dbm_phasor",
            "rx_power_dbm_plain", "to_dbm",
            "HISTOGRAM_KERNEL", "RX_POWER_KERNEL"]
@@ -44,7 +46,7 @@ HISTOGRAM_KERNEL = CudaKernel(
     "histogram.cu", "rfx_ir_histogram",
     [P, P, P, I, I, F, F, I, I, I, P, P, P, ctypes.c_longlong, P],
 )
-RX_POWER_KERNEL = CudaKernel("rx_power.cu", "rfx_rx_power", [P, P, I, I, P, P, P, P, P, P])
+RX_POWER_KERNEL = CudaKernel("rx_power.cu", "rfx_rx_power", [P, P, I, I, P, P, P, P, P])
 
 # The kernel's constants (csrc/histogram.cu): a warp counts a tile of 128
 # 16-byte words of mask; a block sorts a chunk of 2,048 captures.
@@ -274,9 +276,20 @@ def _carrier(nbins: int, sample_window_s: float, carrier_hz: float, device) -> t
     return torch.sin(2.0 * math.pi * carrier_hz * t)
 
 
+@functools.lru_cache(maxsize=16)
+def carrier_cached(nbins: int, sample_window_s: float, carrier_hz: float,
+                   device: torch.device) -> torch.Tensor:
+    """`_carrier`'s tensor, made once per (nbins, window, carrier, device):
+    the RX-power kernel reads it on every call, and making it is a handful
+    of launches. Callers must not write to it."""
+    return _carrier(nbins, sample_window_s, carrier_hz, device)
+
+
 # Nonzero IR bins per step of the gathered convolution (rows x nbins values).
 _CONV_ROWS = 256
-# Output samples of one block of the RX-power kernel (csrc/rx_power.cu).
+# The RX-power kernel's bins a segment of the nonzero list (kSeg of
+# csrc/rx_power.cu), and the bound on its bins (ceil(nbins / 256) <= 65535).
+_POWER_SEGMENT = 1024
 _POWER_TILE = 256
 
 
@@ -361,27 +374,33 @@ def rx_power_dbm_plain(impulse_response: torch.Tensor, sample_window_s: float,
 
 
 def _rx_power_launch(ir: torch.Tensor, kern: torch.Tensor):
-    """One launch of the RX-power kernel on (M, nbins) CUDA rows: (out,
-    count, sum of squares); no autograd."""
+    """One launch sequence of the RX-power kernel on (M, nbins) CUDA rows:
+    (out, dBm); no autograd."""
     dev = ir.device
     m, nbins = ir.shape
     if m == 0 or nbins == 0:
         return (torch.zeros((m, nbins), dtype=torch.float32, device=dev),
-                torch.zeros(m, dtype=torch.int32, device=dev),
-                torch.zeros(m, dtype=torch.float32, device=dev))
+                torch.full((m,), -math.inf, dtype=torch.float32, device=dev))
     if -(-nbins // _POWER_TILE) > 65535:
         raise ValueError(f"at most {65535 * _POWER_TILE} bins, got {nbins}")
+    if m * -(-nbins // 128) >= 2**31:  # the blocks of the narrowest tiling
+        raise ValueError(f"too many rows for one launch: {m} of {nbins} bins")
     ir = ir.contiguous()
-    out = torch.empty((m, nbins), dtype=torch.float32, device=dev)
-    sq = torch.empty(m, dtype=torch.float32, device=dev)
-    # int32 words: each row's list of nonzero bins, the lists' lengths, the counts.
-    ints = torch.empty(m * nbins + 2 * m, dtype=torch.int32, device=dev)
-    lists = ints.data_ptr()
-    with torch.cuda.device(dev):
-        RX_POWER_KERNEL.launch(ir.data_ptr(), kern.data_ptr(), m, nbins, out.data_ptr(),
-                               lists + 4 * (m * nbins + m), sq.data_ptr(), lists,
-                               lists + 4 * m * nbins, torch.cuda.current_stream(dev).cuda_stream)
-    return out, ints[m * nbins + m:], sq
+    # The signal and the dBm in one buffer; the kernel's scratch in another
+    # (each row's (k, value) pairs, two words a bin, and the segments' counts),
+    # so that a kept signal does not keep the scratch.
+    n_seg = -(-nbins // _POWER_SEGMENT)
+    res = torch.empty(m * nbins + m, dtype=torch.float32, device=dev)
+    scratch = torch.empty(2 * m * nbins + m * n_seg, dtype=torch.int32, device=dev)
+    ptr, sp = res.data_ptr(), scratch.data_ptr()
+    args = (ir.data_ptr(), kern.data_ptr(), m, nbins, ptr, ptr + 4 * m * nbins, sp,
+            sp + 8 * m * nbins)
+    if torch.cuda.current_device() == dev.index:  # spare a single-row call the context's host time
+        RX_POWER_KERNEL.launch(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            RX_POWER_KERNEL.launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+    return res[:m * nbins].view(m, nbins), res[m * nbins:]
 
 
 def rx_power_dbm(impulse_response: torch.Tensor, sample_window_s: float,
@@ -405,8 +424,7 @@ def rx_power_dbm(impulse_response: torch.Tensor, sample_window_s: float,
     if torch.is_grad_enabled() and ir.requires_grad:
         raise RuntimeError("rfx_rx_power (the RX-power kernel) has no backward: detach the IR, "
                            "or call rx_power_dbm_plain for a gradient")
-    out, count, sq = _rx_power_launch(ir, _carrier(ir.shape[1], sample_window_s, carrier_hz, dev))
-    dbm = _dbm_of_sums(count, sq)
+    out, dbm = _rx_power_launch(ir, carrier_cached(ir.shape[1], sample_window_s, carrier_hz, dev))
     if impulse_response.ndim == 1:
         return dbm[0], out[0]
     return dbm, out

@@ -67,20 +67,39 @@
 // receivers (R_TILE) and rays (C_CHUNK), which exist for the TPU's matrix
 // unit and tiling.
 //
-// The phasor metric's reduction (rfx_coverage_phasor) replaces the XLA
-// program of rfx/coverage.py:229 _rx_dbm_phasor_from_segments under the vmap
-// of :350 with rfx/cir.py:204 rx_power_dbm_phasor: per receiver, from its
-// first captures, the sums behind the fast metric's dBm, cancellation ratio
-// and delay spread. It is the same walk (`walk_slab`, `capture`) with another
-// sink (`PhasorSums`): each lane owns a receiver of its warp's tile and takes
-// that receiver's wins of a step in ray slot and lane order, so K3 and it
-// cannot disagree on a capture. The spread needs the power-weighted mean delay
-// first (a one-pass sum of w t^2 - (sum w t)^2 / sum w cancels in f32 at 10-100
-// ns), so the walk runs twice, the second time with each receiver's mean. Each
-// pass writes per-slab partials that `phasor_reduce_kernel` combines in slab
-// order: an order fixed by the ray count alone, as the histogram's. It is
-// bound as K3 is, by the sphere tests of each pass; the captures' cosf / sinf /
-// sqrtf (IEEE, the phase reaches ~1,500 rad) are a few per thousand tests.
+// The phasor metric (rfx_coverage_phasor, rfx_coverage_phasor_spread and the
+// table of rfx_phasor_table) replaces the XLA program of rfx/coverage.py:229
+// _rx_dbm_phasor_from_segments under the vmap of :350 with rfx/cir.py:204
+// rx_power_dbm_phasor: per receiver, from its first captures, the sums behind
+// the fast metric's dBm, cancellation ratio and delay spread. It is the same
+// walk (`walk_slab`, `capture`) with another sink (`PhasorSums`): each lane
+// owns a receiver of its warp's tile and takes that receiver's wins of a step
+// in ray slot and lane order, so K3 and it cannot disagree on a capture.
+//
+// What bounds it: the sphere tests of one walk, as K3. What the design does
+// about the rest:
+//
+// - One walk. The spread needs the power-weighted mean delay first (a
+//   one-pass sum of w t^2 - (sum w t)^2 / sum w cancels in f32 at 10-100 ns,
+//   and a running mean would take the spread about another mean than the
+//   metric's w2t / w2). So the walk records each capture's (w^2, t_k) in its
+//   (slab, receiver) list, in the order it takes them, and the spread is a
+//   pass over the lists about each receiver's mean from the first pass's
+//   sums: the sums of a walk about that mean, term for term. The lists are
+//   chunks of a pool, taken as a lane needs them (a receiver near the
+//   transmitter captures thousands of paths a slab, most a few dozen); where
+//   the pool runs out, the region is flagged and only the warps whose tile
+//   holds a flag walk their slab again.
+// - No serial work per capture on one lane. A table of (sqrt s_k, cos, sin,
+//   t_k) per bin, made once a call, holds what a capture evaluated for
+//   itself (cosf / sinf of phases up to ~1,500 rad); the lanes that won a
+//   receiver in a step each load their entry and form their terms at once,
+//   and the receiver's owner lane only adds the terms, handed over by
+//   shuffles, in the order it took them before: the same terms in the same
+//   order, so the same bits.
+//
+// Each pass writes per-slab partials that are combined in slab order: an
+// order fixed by the ray count alone, as the histogram's.
 
 #include <cuda_runtime.h>
 
@@ -251,54 +270,140 @@ struct HistRows {
   }
 };
 
+// The phasor metric's per-bin table (rfx_torch/cir.py:rx_power_dbm_phasor):
+// for bin k, t_k = k * step, s_k = min(k + hi + 1, nbins), phase omega * t_k;
+// entry k is (sqrt(s_k), cos(phase), sin(phase), t_k), the f32 expressions
+// each capture evaluated for itself before the table.
+__global__ void __launch_bounds__(256) phasor_table_kernel(int nbins, float step, float omega,
+                                                           float4* __restrict__ table) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= nbins) return;
+  const int hi = nbins - 1 - (nbins - 1) / 2;
+  const float t_k = static_cast<float>(k) * step;
+  const float s = static_cast<float>(min(static_cast<long long>(k) + hi + 1,
+                                         static_cast<long long>(nbins)));
+  const float phase = omega * t_k;
+  table[k] = make_float4(sqrtf(s), cosf(phase), sinf(phase), t_k);
+}
+
+// The capture lists of the first pass: each (slab, receiver) region's
+// (w^2, t_k) pairs in the order the walk takes them, in chunks of
+// `chunk` pairs that the owner lane takes from a pool as it needs them
+// (`next` links a region's chunks; which chunk a region gets depends on the
+// order in which lanes ask, what a chunk holds does not). A region that finds
+// the pool spent stops recording and is flagged: the spread walks its tile
+// again.
+struct CaptureList {
+  float2* pool;
+  int* top;    // chunks taken so far
+  int* next;   // per chunk: the region's next chunk
+  int* first;  // per region: its first chunk, -1 for none
+  int n_chunks, chunk;
+  int cur = -1;             // the chunk being filled
+  float2* dst = nullptr;    // its next pair
+  int left = 0;             // pairs it has room for
+  bool lost = false;        // the pool ran out for this region
+
+  __device__ __forceinline__ void push(float wgt, float t_k, int region) {
+    if (left == 0) {
+      if (lost) return;
+      const int c = atomicAdd(top, 1);
+      if (c >= n_chunks) {
+        lost = true;
+        return;
+      }
+      if (cur < 0) {
+        first[region] = c;
+      } else {
+        next[cur] = c;
+      }
+      cur = c;
+      dst = pool + static_cast<size_t>(c) * chunk;
+      left = chunk;
+    }
+    *dst++ = make_float2(wgt, t_k);
+    --left;
+  }
+};
+
 // The phasor metric's sums (rfx_torch/cir.py:rx_power_dbm_phasor) of the
 // receiver that lane `t.lane` owns, over its captures in the order of the
-// walk. A capture in bin k has t_k = k * step, phase omega * t_k, support
-// s_k = min(k + hi + 1, nbins) and weight w = amp * sqrt(s_k). Pass 1
-// (kSpread false) adds w cos, w sin, w^2 and w^2 t_k and keeps max s_k and
-// whether anything was captured; pass 2 adds w^2 (t_k - t_mean)^2 with the
-// receiver's t_mean from pass 1.
+// walk. A capture of amplitude amp in bin k reads the table's entry k: weight
+// w = amp sqrt(s_k). The first pass (kSpread false) adds w cos, w sin, w^2
+// and w^2 t_k, keeps the largest bin and the count of captures, and records
+// (w^2, t_k) in the region's list; the spread (kSpread true, a tile walked
+// again) adds w^2 (t_k - t_mean)^2 with the receiver's t_mean.
 template <bool kSpread>
 struct PhasorSums {
-  float step, omega, t_mean;
-  int hi, nbins;
-  float re = 0.0f, im = 0.0f, s_max = 0.0f, any = 0.0f, w2 = 0.0f, w2t = 0.0f, dev = 0.0f;
+  const float4* table;
+  float t_mean;
+  int hi, nbins, region;
+  CaptureList list;
+  int count = 0, max_bin = -1;
+  float re = 0.0f, im = 0.0f, w2 = 0.0f, w2t = 0.0f, dev = 0.0f;
 
-  __device__ __forceinline__ void take(float amp, int bin) {
-    const float t_k = static_cast<float>(bin) * step;
-    const float s = static_cast<float>(min(static_cast<long long>(bin) + hi + 1,
-                                           static_cast<long long>(nbins)));
-    const float aw = amp * sqrtf(s);
-    const float wgt = aw * aw;
-    if (kSpread) {
-      const float dt = t_k - t_mean;
-      dev = dev + wgt * (dt * dt);
-    } else {
-      const float phase = omega * t_k;
-      re = re + aw * cosf(phase);
-      im = im + aw * sinf(phase);
-      s_max = fmaxf(s_max, s);
-      any = 1.0f;
-      w2 = w2 + wgt;
-      w2t = w2t + wgt * t_k;
-    }
+  // max s_k over the captures (s_k grows with k: the largest bin's), 0 for
+  // none; and whether anything was captured, as 1.0 or 0.0.
+  __device__ __forceinline__ float s_max() const {
+    return count > 0 ? static_cast<float>(min(static_cast<long long>(max_bin) + hi + 1,
+                                              static_cast<long long>(nbins)))
+                     : 0.0f;
   }
+  __device__ __forceinline__ float any() const { return count > 0 ? 1.0f : 0.0f; }
 
-  // Per ray slot, each owner lane takes its receiver's wins in lane order.
+  // Per ray slot and receiver won (in turn, warp-uniform), the lanes that
+  // won it each work out what their win adds (a table load and a few
+  // products, all lanes at once), and the owner lane adds those terms in
+  // lane order: the order and the terms of one lane taking each win in turn,
+  // without a chain of loads on one lane (a receiver near the transmitter
+  // wins most of a step's rays). A lane's first won receiver has its entry
+  // loaded before the receivers are taken.
   __device__ __forceinline__ void add(const unsigned (&win)[kRays], const Tile& t) {
     const Scratch& scratch = *t.scratch;
 #pragma unroll
     for (int k = 0; k < kRays; ++k) {
-      unsigned mine = 0u;  // the lanes that won this lane's receiver in slot k
-      for (unsigned rs = __reduce_or_sync(kFullWarp, win[k]); rs != 0u; rs &= rs - 1u) {
+      const unsigned mine = win[k];  // the receivers this lane won in slot k
+      const int r0 = __ffs(mine) - 1;
+      const int bin0 = r0 >= 0 ? scratch.bin[k][r0][t.lane] : -1;
+      const float4 e0 = bin0 >= 0 ? __ldg(table + bin0) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const float amp = mine != 0u ? scratch.amp[k][t.lane] : 0.0f;
+      for (unsigned rs = __reduce_or_sync(kFullWarp, mine); rs != 0u; rs &= rs - 1u) {
         const int r = __ffs(rs) - 1;  // warp-uniform
-        const unsigned lanes = __ballot_sync(kFullWarp, (win[k] >> r) & 1u);
-        if (t.lane == r) mine = lanes;
-      }
-      for (; mine != 0u; mine &= mine - 1u) {
-        const int l = __ffs(mine) - 1;
-        const int bin = scratch.bin[k][t.lane][l];
-        if (bin >= 0) take(scratch.amp[k][l], bin);
+        int bin = r == r0 ? bin0 : -1;
+        float4 e = e0;
+        if (r != r0 && ((mine >> r) & 1u)) {
+          bin = scratch.bin[k][r][t.lane];
+          if (bin >= 0) e = __ldg(table + bin);
+        }
+        const unsigned takers = __ballot_sync(kFullWarp, bin >= 0);  // dropped bins add nothing
+        const float aw = amp * e.x;
+        const float wgt = aw * aw;
+        if (kSpread) {
+          const float dt = e.w - __shfl_sync(kFullWarp, t_mean, r);
+          const float term = wgt * (dt * dt);
+          for (unsigned ls = takers; ls != 0u; ls &= ls - 1u) {
+            const float v = __shfl_sync(kFullWarp, term, __ffs(ls) - 1);
+            if (t.lane == r) dev = dev + v;
+          }
+        } else {
+          const float c = aw * e.y, sn = aw * e.z, wt = wgt * e.w;
+          const int top_bin = __reduce_max_sync(kFullWarp, bin);
+          for (unsigned ls = takers; ls != 0u; ls &= ls - 1u) {
+            const int l = __ffs(ls) - 1;
+            const float vc = __shfl_sync(kFullWarp, c, l), vs = __shfl_sync(kFullWarp, sn, l);
+            const float vw = __shfl_sync(kFullWarp, wgt, l), vwt = __shfl_sync(kFullWarp, wt, l);
+            const float vt = __shfl_sync(kFullWarp, e.w, l);
+            if (t.lane == r) {
+              re = re + vc;
+              im = im + vs;
+              w2 = w2 + vw;
+              w2t = w2t + vwt;
+              list.push(vw, vt, region);
+              ++count;
+            }
+          }
+          if (t.lane == r) max_bin = max(max_bin, top_bin);
+        }
       }
     }
     __syncwarp();  // the scratch is read before the next step writes it
@@ -432,20 +537,81 @@ __global__ void __launch_bounds__(kWarps * 32) coverage_hist_kernel(
   walk_slab(origin, dir, t_env, amp, dist, alive, nb, n, base, stride, tile, sink);
 }
 
-// The phasor metric's sums per receiver and slab: the walk and the capture
-// rule of coverage_hist_kernel, each capture taken by PhasorSums. partials:
-// (gridDim.y, m, kSumFields) in pass 1 (re, im, max s_k, any, w^2, w^2 t_k),
-// (gridDim.y, m) in pass 2 (w^2 (t_k - t_mean)^2); every entry of a warp's
-// receivers is written, a slab with no ray leaves the caller's zeros.
 constexpr int kSumFields = 6;
 
-template <bool kSpread>
+// The first pass's scratch: the capture lists' pool of chunks and, in one
+// int buffer, the pool's count of chunks taken, each chunk's link, and per
+// region (slab h, receiver i: h * m + i) its first chunk, its captures and
+// whether its list was lost.
+struct PhasorLists {
+  float2* pool;
+  int* top;
+  int* next;
+  int* first;
+  int* count;
+  int* lost;
+  int n_chunks, chunk;
+
+  __host__ __device__ PhasorLists(void* pool_, void* ints, int n_chunks_, int chunk_,
+                                  long long regions)
+      : pool(static_cast<float2*>(pool_)), top(static_cast<int*>(ints)), next(top + 1),
+        first(next + n_chunks_), count(first + regions), lost(count + regions),
+        n_chunks(n_chunks_), chunk(chunk_) {}
+};
+
+// The phasor metric's first pass per receiver and slab: the walk and the
+// capture rule of coverage_hist_kernel, each capture taken by PhasorSums.
+// partials: (gridDim.y, m, kSumFields) (re, im, max s_k, any, w^2, w^2 t_k);
+// every entry of the warp's receivers is written, and every region's first
+// chunk, count and lost flag, zeros where the slab has no ray.
 __global__ void __launch_bounds__(kWarps * 32) coverage_phasor_kernel(
     const float* __restrict__ origin, const float* __restrict__ dir,
     const float* __restrict__ t_env, const float* __restrict__ amp,
     const float* __restrict__ dist, const bool* __restrict__ alive, int nb, int n,
     const float* __restrict__ centers, int m, float r2, float c, float rate, int nbins,
-    float step, float omega, const float* __restrict__ t_mean, float* __restrict__ partials) {
+    const float4* __restrict__ table, PhasorLists lists, float* __restrict__ partials) {
+  __shared__ float4 shared_centers[kWarps][kRx];
+  __shared__ Scratch shared_scratch[kWarps];
+  Tile tile;
+  int rx0;
+  long long base, stride;
+  const bool walks = setup_tile(tile, shared_centers, shared_scratch, centers, m, n, r2, c, rate,
+                                nbins, rx0, base, stride);
+  const int lane = threadIdx.x & 31;
+  const bool mine = rx0 < m && lane < min(kRx, m - rx0);
+  const long long region = static_cast<long long>(blockIdx.y) * m + rx0 + lane;
+  if (mine) lists.first[region] = -1;
+  PhasorSums<false> sink;
+  sink.table = table;
+  sink.hi = nbins - 1 - (nbins - 1) / 2;
+  sink.nbins = nbins;
+  sink.region = static_cast<int>(region);
+  sink.list = CaptureList{lists.pool, lists.top, lists.next, lists.first, lists.n_chunks,
+                          lists.chunk};
+  if (walks) walk_slab(origin, dir, t_env, amp, dist, alive, nb, n, base, stride, tile, sink);
+  if (!mine) return;
+  float* p = partials + region * kSumFields;
+  p[0] = sink.re;
+  p[1] = sink.im;
+  p[2] = sink.s_max();
+  p[3] = sink.any();
+  p[4] = sink.w2;
+  p[5] = sink.w2t;
+  lists.count[region] = sink.count;
+  lists.lost[region] = sink.list.lost ? 1 : 0;
+}
+
+// The spread of the regions whose list was lost: a warp whose tile holds one
+// walks its slab again with the receivers' t_mean (the first pass's walk,
+// so the same captures in the same order) and writes those regions' w^2 (t_k
+// - t_mean)^2 to dev_partials. Every other warp returns at once.
+__global__ void __launch_bounds__(kWarps * 32) coverage_phasor_rewalk_kernel(
+    const float* __restrict__ origin, const float* __restrict__ dir,
+    const float* __restrict__ t_env, const float* __restrict__ amp,
+    const float* __restrict__ dist, const bool* __restrict__ alive, int nb, int n,
+    const float* __restrict__ centers, int m, float r2, float c, float rate, int nbins,
+    const float4* __restrict__ table, const int* __restrict__ lost,
+    const float* __restrict__ t_mean, float* __restrict__ dev_partials) {
   __shared__ float4 shared_centers[kWarps][kRx];
   __shared__ Scratch shared_scratch[kWarps];
   Tile tile;
@@ -455,27 +621,67 @@ __global__ void __launch_bounds__(kWarps * 32) coverage_phasor_kernel(
                   base, stride)) {
     return;
   }
-  const bool mine = tile.lane < min(kRx, m - rx0);
-  PhasorSums<kSpread> sink;
-  sink.step = step;
-  sink.omega = omega;
-  sink.hi = nbins - 1 - (nbins - 1) / 2;
-  sink.nbins = nbins;
-  sink.t_mean = kSpread && mine ? t_mean[rx0 + tile.lane] : 0.0f;
+  const int lane = tile.lane;
+  const bool mine = lane < min(kRx, m - rx0);
+  const long long region = static_cast<long long>(blockIdx.y) * m + rx0 + lane;
+  const bool flagged = mine && lost[region] != 0;
+  if (!__any_sync(kFullWarp, flagged)) return;
+  PhasorSums<true> sink;
+  sink.table = table;
+  sink.t_mean = mine ? t_mean[rx0 + lane] : 0.0f;
   walk_slab(origin, dir, t_env, amp, dist, alive, nb, n, base, stride, tile, sink);
-  if (!mine) return;
-  const size_t at = static_cast<size_t>(blockIdx.y) * m + rx0 + tile.lane;
-  if (kSpread) {
-    partials[at] = sink.dev;
-  } else {
-    float* p = partials + at * kSumFields;
-    p[0] = sink.re;
-    p[1] = sink.im;
-    p[2] = sink.s_max;
-    p[3] = sink.any;
-    p[4] = sink.w2;
-    p[5] = sink.w2t;
+  if (flagged) dev_partials[region] = sink.dev;
+}
+
+// out[i] = the spread sum of receiver i, sum w^2 (t_k - t_mean)^2, one warp
+// a receiver: lane h adds slab h's list in its recorded order (or takes the
+// walk's sum where the list was lost), and the slabs' sums are combined in
+// slab order. n_slabs <= 32.
+__global__ void __launch_bounds__(256) phasor_spread_kernel(
+    int m, int n_slabs, const float* __restrict__ t_mean, PhasorLists lists,
+    const float* __restrict__ dev_partials, float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long i = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (i >= m) return;  // warp-uniform
+  float part = 0.0f;
+  if (lane < n_slabs) {
+    const long long g = static_cast<long long>(lane) * m + i;
+    if (lists.lost[g] != 0) {
+      part = dev_partials[g];
+    } else {
+      // Sixteen loads in flight (the list is in the L2, written by the first
+      // pass), then their terms added one by one in the recorded order.
+      constexpr int kAhead = 16;
+      const float tm = t_mean[i];
+      const int n = lists.count[g];
+      int chunk = lists.first[g];
+      for (int q0 = 0; q0 < n; q0 += lists.chunk) {
+        const float2* e = lists.pool + static_cast<size_t>(chunk) * lists.chunk;
+        const int len = min(lists.chunk, n - q0);
+        int q = 0;
+        for (; q + 2 * kAhead <= len; q += 2 * kAhead) {
+          float4 v[kAhead];  // two pairs each: a chunk starts on 16 bytes, q is even
+#pragma unroll
+          for (int u = 0; u < kAhead; ++u) v[u] = reinterpret_cast<const float4*>(e + q)[u];
+#pragma unroll
+          for (int u = 0; u < kAhead; ++u) {
+            const float d0 = v[u].y - tm;
+            part = part + v[u].x * (d0 * d0);
+            const float d1 = v[u].w - tm;
+            part = part + v[u].z * (d1 * d1);
+          }
+        }
+        for (; q < len; ++q) {
+          const float dt = e[q].y - tm;
+          part = part + e[q].x * (dt * dt);
+        }
+        if (q0 + lists.chunk < n) chunk = lists.next[chunk];
+      }
+    }
   }
+  float acc = __shfl_sync(kFullWarp, part, 0);
+  for (int h = 1; h < n_slabs; ++h) acc = acc + __shfl_sync(kFullWarp, part, h);
+  if (lane == 0) out[i] = acc;
 }
 
 // out[i] = the slabs' partials of entry i, (n_planes, total), combined in
@@ -483,11 +689,11 @@ __global__ void __launch_bounds__(kWarps * 32) coverage_phasor_kernel(
 // s_k and any), which no order changes.
 __global__ void __launch_bounds__(256) phasor_reduce_kernel(const float* __restrict__ planes,
                                                             int n_planes, long long total,
-                                                            int fields, float* __restrict__ out) {
+                                                            float* __restrict__ out) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= total) return;
-  const int f = static_cast<int>(i % fields);
-  const bool is_max = fields == kSumFields && (f == 2 || f == 3);
+  const int f = static_cast<int>(i % kSumFields);
+  const bool is_max = f == 2 || f == 3;
   float acc = planes[i];
   for (int h = 1; h < n_planes; ++h) {
     const float v = planes[static_cast<long long>(h) * total + i];
@@ -542,40 +748,90 @@ extern "C" int rfx_coverage_hist_reduce(const void* planes, int n_planes, long l
   return static_cast<int>(cudaGetLastError());
 }
 
-// The phasor metric's per-receiver sums, one pass: the segments and centers as
-// rfx_coverage_hist takes them; step = f32(window / (nbins - 1)), omega =
-// f32(2 pi carrier); t_mean null for pass 1, else (m,) f32 for pass 2.
-// partials: (n_slabs, m, fields) f32 scratch, zeroed here; sums: (m, fields)
-// f32, the slabs' partials combined in slab order; fields = 6 in pass 1 (re,
-// im, max s_k, any, w^2, w^2 t_k), 1 in pass 2 (w^2 (t_k - t_mean)^2).
-// m, n, nb, n_slabs >= 1.
+// The phasor metric's per-bin table: table (nbins, 4) f32, entry k (sqrt
+// s_k, cos(omega t_k), sin(omega t_k), t_k) with t_k = k * step, step =
+// f32(window / (nbins - 1)), omega = f32(2 pi carrier). nbins >= 1.
+extern "C" int rfx_phasor_table(int nbins, float step, float omega, void* table, void* stream) {
+  phasor_table_kernel<<<(nbins + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      nbins, step, omega, static_cast<float4*>(table));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The phasor metric's first pass: the segments and centers as
+// rfx_coverage_hist takes them, the table of rfx_phasor_table. sums: (m,
+// kSumFields) f32 (re, im, max s_k, any, w^2, w^2 t_k), the slabs' partials
+// (partials: (n_slabs, m, kSumFields) f32 scratch) combined in slab order.
+// The capture lists: pool (n_chunks * chunk) float2, ints (1 + n_chunks + 3 *
+// n_slabs * m) int32, both scratch, kept for rfx_coverage_phasor_spread.
+// m, n, nb >= 1, 1 <= n_slabs <= 32.
 extern "C" int rfx_coverage_phasor(const void* origin, const void* dir, const void* t_env,
                                    const void* amp, const void* dist, const void* alive, int nb,
                                    int n, const void* centers, int m, float radius, float c,
-                                   float rate, int nbins, float step, float omega, int n_slabs,
-                                   const void* t_mean, void* partials, void* sums, void* stream) {
+                                   float rate, int nbins, const void* table, int n_slabs,
+                                   int chunk, int n_chunks, void* pool, void* ints,
+                                   void* partials, void* sums, void* stream) {
+  if (n_slabs < 1 || n_slabs > 32) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool spread = t_mean != nullptr;
-  const int fields = spread ? 1 : kSumFields;
-  const long long total = static_cast<long long>(m) * fields;
-  cudaError_t err = cudaMemsetAsync(partials, 0, sizeof(float) * n_slabs * total, s);
+  const PhasorLists lists(pool, ints, n_chunks, chunk, static_cast<long long>(n_slabs) * m);
+  cudaError_t err = cudaMemsetAsync(lists.top, 0, sizeof(int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((m + kWarps * kRx - 1) / (kWarps * kRx), n_slabs);
-  auto kernel = spread ? coverage_phasor_kernel<true> : coverage_phasor_kernel<false>;
-  kernel<<<grid, kWarps * 32, 0, s>>>(
+  coverage_phasor_kernel<<<grid, kWarps * 32, 0, s>>>(
       static_cast<const float*>(origin), static_cast<const float*>(dir),
       static_cast<const float*>(t_env), static_cast<const float*>(amp),
       static_cast<const float*>(dist), static_cast<const bool*>(alive), nb, n,
-      static_cast<const float*>(centers), m, radius * radius, c, rate, nbins, step, omega,
-      static_cast<const float*>(t_mean), static_cast<float*>(partials));
+      static_cast<const float*>(centers), m, radius * radius, c, rate, nbins,
+      static_cast<const float4*>(table), lists, static_cast<float*>(partials));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  const long long total = static_cast<long long>(m) * kSumFields;
   phasor_reduce_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
-      static_cast<const float*>(partials), n_slabs, total, fields, static_cast<float*>(sums));
+      static_cast<const float*>(partials), n_slabs, total, static_cast<float*>(sums));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The phasor metric's spread: out (m,) f32, sum w^2 (t_k - t_mean)^2 per
+// receiver with t_mean (m,) f32, from the lists that rfx_coverage_phasor left
+// in pool and ints (the same arguments as that call); the tiles of the
+// regions whose list was lost walk again (dev_partials: (n_slabs, m) f32
+// scratch).
+extern "C" int rfx_coverage_phasor_spread(const void* origin, const void* dir, const void* t_env,
+                                          const void* amp, const void* dist, const void* alive,
+                                          int nb, int n, const void* centers, int m,
+                                          float radius, float c, float rate, int nbins,
+                                          const void* table, int n_slabs, int chunk,
+                                          int n_chunks, void* pool, void* ints,
+                                          const void* t_mean, void* dev_partials, void* out,
+                                          void* stream) {
+  if (n_slabs < 1 || n_slabs > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const PhasorLists lists(pool, ints, n_chunks, chunk, static_cast<long long>(n_slabs) * m);
+  const dim3 grid((m + kWarps * kRx - 1) / (kWarps * kRx), n_slabs);
+  coverage_phasor_rewalk_kernel<<<grid, kWarps * 32, 0, s>>>(
+      static_cast<const float*>(origin), static_cast<const float*>(dir),
+      static_cast<const float*>(t_env), static_cast<const float*>(amp),
+      static_cast<const float*>(dist), static_cast<const bool*>(alive), nb, n,
+      static_cast<const float*>(centers), m, radius * radius, c, rate, nbins,
+      static_cast<const float4*>(table), lists.lost, static_cast<const float*>(t_mean),
+      static_cast<float*>(dev_partials));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long threads = 32LL * m;
+  phasor_spread_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256, 0, s>>>(
+      m, n_slabs, static_cast<const float*>(t_mean), lists,
+      static_cast<const float*>(dev_partials), static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* rfx_coverage_phasor_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+extern "C" const char* rfx_coverage_phasor_spread_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+extern "C" const char* rfx_phasor_table_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -1,6 +1,6 @@
 // RX power of a batch of impulse responses (IRs): each row convolved with the
-// carrier sine in 'same' mode, then the count and the sum of squares of the
-// row's nonzero samples.
+// carrier sine in 'same' mode, then the mean square of the row's nonzero
+// samples in dBm.
 //
 // Replaces the XLA program of rfx/cir.py:160 rx_power_dbm: one
 // lax.conv_general_dilated of all (M, nbins) IRs with the flipped carrier
@@ -18,135 +18,215 @@
 // so a sweep is ~6e9 in-range taps (a multiply and an add each) against
 // 164 MB of IRs in and signal out. The metric averages over exactly nonzero
 // samples, so zeros must stay exact zeros: no FFT, no matrix product, no TF32.
+// A tap's multiply and add are two of the SM's 128 f32 lanes a cycle, but a
+// tap also needs its carrier value, and the shared-memory pipe gives a warp
+// one 32-word access a cycle: one load a tap per lane is the most the SM can
+// feed, which makes the load, not the arithmetic, the limit to design for.
 // What the design does about it:
 //
-//   1. `compact_rows`: one block a row lists the row's nonzero bins in
-//      ascending k, in the row's own slot of `list` (a block-wide scan of the
-//      nonzero flags, 256 bins a step), and their number in `list_len`.
-//   2. `convolve`: one block a (row, tile of 256 output samples), one thread
-//      an output sample. The block stages the row's list 256 bins at a time in
-//      shared memory (k and ir[r, k]) and every thread adds the taps of the
-//      chunk in list order; a chunk that lies wholly outside the tile's reach
-//      is skipped, and one that every sample of the tile reaches runs without
-//      the range test. The carrier is read through the L1: for one k the
-//      threads of a warp read neighbouring samples.
+//   1. `compact_segments`: the row is cut into segments of kSeg bins, one
+//      block a (row, segment). The block lists the segment's nonzero bins in
+//      ascending k, with their values, as (k, value) pairs in the segment's
+//      own slot of `list`, and their number in `seg_count`: a fixed-order
+//      scan of warp ballots, no atomic, and every block of a row at work at
+//      once (a lone 20,000-bin IR is 20 blocks, not one block stepping
+//      through the row).
+//   2. `convolve<R>`: one block a (row, tile of 128 R output samples), each
+//      lane R samples 32 apart, so that the lanes of a warp read 32
+//      neighbouring carrier words for one k. For each segment that reaches
+//      the tile, the block copies with cp.async the segment's pairs and the
+//      carrier window that they reach from the tile into shared memory,
+//      double-buffered: the next segment's copy runs while this one's taps
+//      are added. The window holds zeros where the carrier index leaves
+//      [0, nbins), so a tap needs no range test: one 8-byte broadcast of
+//      (k, value) serves R taps, and a tap is then one shared load, a
+//      multiply and an add. R is 8 where the launch has enough blocks to
+//      fill the card, else 1 (a lone row: 157 blocks of 128 samples for
+//      20,000 bins).
 //   3. `row_power`: one block a row counts the nonzero samples of `out` and
-//      sums their squares, each thread over a fixed stride, then a fixed tree.
+//      sums their squares, each thread over a fixed stride, then a fixed
+//      tree; its epilogue writes the row's dBm, 10 log10((sum / count) /
+//      1e-3), -inf where no sample is nonzero.
 //
-// Every sum has an order fixed by the row alone (ascending k for a sample, the
-// stride and the tree for the row), and there is no atomic: the result is the
-// same bits from run to run, and a row computed alone is the same bits as in
-// a batch. The plain version (rfx_torch/cir.py:convolve_carrier_plain) adds a
-// sample's taps in chunks of 256 nonzero bins by torch.sum; the two differ by
-// rounding only.
+// Every sum has an order fixed by the row alone: a sample adds its row's taps
+// in ascending k whatever R and the tiling (a tap that lies outside the carrier
+// adds +-0 to a sum that is never -0, which changes no bit), and the row's
+// count and squares go by the stride and the tree. There is no atomic: the
+// result is the same bits from run to run, and a row computed alone is the
+// same bits as in a batch. The plain version (rfx_torch/cir.py:
+// convolve_carrier_plain) adds a sample's taps in chunks of 256 nonzero bins
+// by torch.sum; the two differ by rounding only.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;  // one thread an output sample; also the chunk of listed bins
+constexpr int kSeg = 1024;       // bins of a compaction segment, and of a staged chunk of pairs
+constexpr int kThreads = 128;    // threads of a convolve or compaction block
+constexpr int kPowerThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFullWarp = 0xffffffffu;
 
-__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums, int* total) {
+// Shared words of one stage of convolve<R>: the carrier window (tile + kSeg
+// - 1 words, rounded up to an even count) and up to kSeg (k, value) pairs.
+template <int R>
+__host__ __device__ constexpr int stage_words() {
+  return ((32 * kWarps * R + kSeg - 1 + 1) & ~1) + 2 * kSeg;
+}
+
+// list[r * nbins + s * kSeg + i] = (k, bits of ir[r, k]) for the i-th nonzero
+// bin k of segment s of row r, ascending; seg_count[r * n_seg + s] their
+// number. A NaN counts as nonzero, -0.0 as zero (as torch.nonzero).
+__global__ void __launch_bounds__(kThreads) compact_segments(const float* __restrict__ ir,
+                                                             int nbins, int n_seg,
+                                                             int2* __restrict__ list,
+                                                             int* __restrict__ seg_count) {
+  __shared__ int warp_counts[kWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = v;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int up = __shfl_up_sync(0xffffffffu, incl, d);
-    if (lane >= d) incl += up;
-  }
-  if (lane == 31) warp_sums[warp] = incl;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int run = 0;
-    for (int w = 0; w < kThreads / 32; ++w) {
-      const int s = warp_sums[w];
-      warp_sums[w] = run;
-      run += s;
-    }
-    *total = run;
-  }
-  __syncthreads();
-  return warp_sums[warp] + incl - v;
-}
-
-// list[r * nbins + i] = the i-th nonzero bin of row r, ascending; list_len[r]
-// their number. A NaN counts as nonzero, -0.0 as zero (as torch.nonzero).
-__global__ void __launch_bounds__(kThreads) compact_rows(const float* __restrict__ ir, int nbins,
-                                                         int* __restrict__ list,
-                                                         int* __restrict__ list_len) {
-  __shared__ int warp_sums[kThreads / 32];
-  __shared__ int step_total;
-  const size_t row = static_cast<size_t>(blockIdx.x) * nbins;
+  const long long row = blockIdx.x / n_seg;
+  const int seg = static_cast<int>(blockIdx.x - row * n_seg);
+  const int k0 = seg * kSeg;
+  const int k_end = min(k0 + kSeg, nbins);
+  const float* row_ir = ir + row * nbins;
+  int2* out = list + row * nbins + k0;
   int carry = 0;
-  for (int base = 0; base < nbins; base += kThreads) {
+  for (int base = k0; base < k_end; base += kThreads) {
     const int k = base + threadIdx.x;
-    const int nz = k < nbins && ir[row + k] != 0.0f;
-    const int at = block_exclusive_scan(nz, warp_sums, &step_total);
-    if (nz) list[row + carry + at] = k;
-    carry += step_total;
-    __syncthreads();  // warp_sums and step_total are reused by the next step
+    const float v = k < k_end ? row_ir[k] : 0.0f;
+    const bool nz = v != 0.0f;
+    const unsigned ballot = __ballot_sync(kFullWarp, nz);
+    if (lane == 0) warp_counts[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      before += w < warp ? warp_counts[w] : 0;
+      total += warp_counts[w];
+    }
+    if (nz) {
+      out[carry + before + __popc(ballot & ((1u << lane) - 1u))] =
+          make_int2(k, __float_as_int(v));
+    }
+    carry += total;
+    __syncthreads();  // warp_counts is rewritten by the next step
   }
-  if (threadIdx.x == 0) list_len[blockIdx.x] = carry;
+  if (threadIdx.x == 0) seg_count[row * n_seg + seg] = carry;
 }
 
-// out[r, j] for the tile of samples [blockIdx.y * kThreads, ...) of row
-// blockIdx.x; see the note at the top.
-__global__ void __launch_bounds__(kThreads) convolve(const float* __restrict__ ir,
-                                                     const float* __restrict__ carrier, int nbins,
-                                                     const int* __restrict__ list,
-                                                     const int* __restrict__ list_len,
+// An asynchronous copy of kBytes (4 or 8) from global to shared memory;
+// where `valid` is false nothing is read and the destination is zeroed.
+template <int kBytes>
+__device__ __forceinline__ void copy_async(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(gmem),
+               "n"(kBytes), "r"(valid ? kBytes : 0));
+}
+
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// out[r, j] for one tile of 32 * kWarps * R samples of one row; see the note
+// at the top. Block b takes row b / n_tiles, tile b % n_tiles.
+template <int R>
+__global__ void __launch_bounds__(kThreads) convolve(const float* __restrict__ carrier, int nbins,
+                                                     int n_seg, int n_tiles,
+                                                     const int2* __restrict__ list,
+                                                     const int* __restrict__ seg_count,
                                                      float* __restrict__ out) {
-  __shared__ int s_k[kThreads];
-  __shared__ float s_v[kThreads];
-  const size_t row = static_cast<size_t>(blockIdx.x) * nbins;
+  constexpr int kTile = 32 * kWarps * R;
+  constexpr int kWindow = kTile + kSeg - 1;
+  constexpr int kStage = stage_words<R>();
+  constexpr int kPairs = kStage - 2 * kSeg;  // word offset of the pairs in a stage
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long row = blockIdx.x / n_tiles;
+  const int j0 = static_cast<int>(blockIdx.x - row * n_tiles) * kTile;
   const int lo = (nbins - 1) / 2;
-  const int j0 = blockIdx.y * kThreads;
-  const int j1 = min(j0 + kThreads, nbins) - 1;  // the tile's last sample
-  const int j = j0 + threadIdx.x;
-  // A thread past the row's end computes the last sample's sum, so that its
-  // reads stay inside the carrier, and writes nothing.
-  const int jl = min(j, nbins - 1) + lo;
-  // Bin k reaches sample j iff j + lo - nbins < k <= j + lo: some sample of
-  // the tile iff reach_lo <= k <= reach_hi, every one iff all_lo <= k <= all_hi.
-  const int reach_lo = j0 + lo - nbins + 1, reach_hi = j1 + lo;
-  const int all_lo = j1 + lo - nbins + 1, all_hi = j0 + lo;
-  const int len = list_len[blockIdx.x];
-  const int* row_list = list + row;
-  float acc = 0.0f;
-  for (int s = 0; s < len; s += kThreads) {
-    const int count = min(kThreads, len - s);
-    __syncthreads();  // the previous chunk is read by every thread
-    if (threadIdx.x < count) {
-      const int k = row_list[s + threadIdx.x];
-      s_k[threadIdx.x] = k;
-      s_v[threadIdx.x] = ir[row + k];
+  const int* counts = seg_count + row * n_seg;
+  const int2* row_list = list + row * nbins;
+  // Bin k reaches some sample of the tile iff j0 + lo - nbins < k <= j0 +
+  // kTile - 1 + lo: the segments s_lo..s_hi.
+  const int s_lo = max(0, j0 + lo - nbins + 1) / kSeg;
+  const int s_hi = min(nbins - 1, j0 + kTile - 1 + lo) / kSeg;
+
+  // Stage segment s into buffer b: window word x is carrier[wb + x] (zero
+  // outside the carrier), wb = j0 + lo - (s * kSeg + kSeg - 1), so that
+  // sample j0 + t and bin s * kSeg + kl meet at word t + kSeg - 1 - kl.
+  auto stage = [&](int s, int b) {
+    float* win = smem + b * kStage;
+    int2* pairs = reinterpret_cast<int2*>(win + kPairs);
+    const int wb = j0 + lo - (s * kSeg + kSeg - 1);
+    for (int x = threadIdx.x; x < kWindow; x += kThreads) {
+      const int idx = wb + x;
+      const bool in = idx >= 0 && idx < nbins;
+      copy_async<4>(win + x, carrier + (in ? idx : 0), in);
+    }
+    const int n = counts[s];
+    const int2* src = row_list + s * kSeg;
+    for (int q = threadIdx.x; q < n; q += kThreads) copy_async<8>(pairs + q, src + q, true);
+    copy_commit();
+  };
+  auto next_segment = [&](int s) {
+    do {
+      ++s;
+    } while (s <= s_hi && counts[s] == 0);
+    return s;
+  };
+
+  float acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+  const int t0 = warp * 32 * R + lane;  // this lane's first sample in the tile
+  int s = next_segment(s_lo - 1);
+  int b = 0;
+  if (s <= s_hi) stage(s, 0);
+  while (s <= s_hi) {
+    const int s_next = next_segment(s);
+    if (s_next <= s_hi) {
+      stage(s_next, b ^ 1);
+      copy_wait<1>();
+    } else {
+      copy_wait<0>();
     }
     __syncthreads();
-    const int first = s_k[0], last = s_k[count - 1];
-    if (first > reach_hi) break;  // ascending: no later bin reaches the tile
-    if (last < reach_lo) continue;
-    if (first >= all_lo && last <= all_hi) {
-#pragma unroll 4
-      for (int q = 0; q < count; ++q) acc = acc + s_v[q] * __ldg(carrier + (jl - s_k[q]));
-    } else {
-      for (int q = 0; q < count; ++q) {
-        const int idx = jl - s_k[q];
-        if (idx >= 0 && idx < nbins) acc = acc + s_v[q] * __ldg(carrier + idx);
-      }
+    const float* win = smem + b * kStage;
+    const int2* pairs = reinterpret_cast<const int2*>(win + kPairs);
+    const int n = counts[s];
+    const int first = t0 + kSeg - 1 + s * kSeg;
+    for (int q = 0; q < n; ++q) {
+      const int2 e = pairs[q];
+      const float v = __int_as_float(e.y);
+      const float* c = win + (first - e.x);
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = acc[r] + v * c[32 * r];
     }
+    __syncthreads();  // buffer b is read before it is staged again
+    s = s_next;
+    b ^= 1;
   }
-  if (j < nbins) out[row + j] = acc;
+  float* row_out = out + row * nbins;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int j = j0 + t0 + 32 * r;
+    if (j < nbins) row_out[j] = acc[r];
+  }
 }
 
-// count[r] = nonzero samples of out[r], sumsq[r] = the sum of their squares.
-__global__ void __launch_bounds__(kThreads) row_power(const float* __restrict__ out, int nbins,
-                                                      int* __restrict__ count,
-                                                      float* __restrict__ sumsq) {
-  __shared__ int s_n[kThreads];
-  __shared__ float s_sq[kThreads];
+// dbm[r] = the mean square of the nonzero samples of out[r] in dBm, -inf
+// where there is none: the count and the sum of squares each thread takes
+// over a fixed stride, then a fixed tree.
+__global__ void __launch_bounds__(kPowerThreads) row_power(const float* __restrict__ out, int nbins,
+                                                           float* __restrict__ dbm) {
+  __shared__ int s_n[kPowerThreads];
+  __shared__ float s_sq[kPowerThreads];
   const size_t row = static_cast<size_t>(blockIdx.x) * nbins;
   int n = 0;
   float sq = 0.0f;
-  for (int j = threadIdx.x; j < nbins; j += kThreads) {
+  for (int j = threadIdx.x; j < nbins; j += kPowerThreads) {
     const float v = out[row + j];
     if (v != 0.0f) {
       ++n;
@@ -156,7 +236,7 @@ __global__ void __launch_bounds__(kThreads) row_power(const float* __restrict__ 
   s_n[threadIdx.x] = n;
   s_sq[threadIdx.x] = sq;
   __syncthreads();
-  for (int half = kThreads / 2; half > 0; half >>= 1) {
+  for (int half = kPowerThreads / 2; half > 0; half >>= 1) {
     if (threadIdx.x < half) {
       s_n[threadIdx.x] += s_n[threadIdx.x + half];
       s_sq[threadIdx.x] = s_sq[threadIdx.x] + s_sq[threadIdx.x + half];
@@ -164,33 +244,59 @@ __global__ void __launch_bounds__(kThreads) row_power(const float* __restrict__ 
     __syncthreads();
   }
   if (threadIdx.x == 0) {
-    count[blockIdx.x] = s_n[0];
-    sumsq[blockIdx.x] = s_sq[0];
+    // rfx_torch/cir.py:_dbm_of_sums as PyTorch rounds it on the card: sq /
+    // count, then to_dbm, whose division by the scalar 1e-3 PyTorch takes as
+    // a product with its f32 reciprocal.
+    constexpr float kPerMilliwatt = 1.0f / 1e-3f;
+    const int count = s_n[0];
+    dbm[blockIdx.x] = count > 0
+                          ? 10.0f * log10f(s_sq[0] / static_cast<float>(count) * kPerMilliwatt)
+                          : -__int_as_float(0x7f800000);
   }
+}
+
+template <int R>
+cudaError_t launch_convolve(const float* carrier, int m, int nbins, int n_seg, const int2* list,
+                            const int* seg_count, float* out, cudaStream_t s) {
+  constexpr int kTile = 32 * kWarps * R;
+  constexpr size_t kBytes = 2 * sizeof(float) * stage_words<R>();
+  static_assert(kBytes <= 48 * 1024, "two stages fit the default dynamic shared memory");
+  const int n_tiles = (nbins + kTile - 1) / kTile;
+  convolve<R><<<static_cast<unsigned>(static_cast<long long>(m) * n_tiles), kThreads, kBytes, s>>>(
+      carrier, nbins, n_seg, n_tiles, list, seg_count, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// ir: (m, nbins) f32; carrier: (nbins,) f32; out: (m, nbins) f32, every
-// element written; count: (m,) int32; sumsq: (m,) f32; list: (m, nbins) int32
-// and list_len: (m,) int32, scratch. m >= 1, 1 <= nbins, and ceil(nbins / 256)
-// <= 65535.
+// ir: (m, nbins) f32; carrier: (nbins,) f32; out: (m, nbins) f32 and dbm:
+// (m,) f32, every element written; list: (m, nbins) int2 and seg_count: (m,
+// ceil(nbins / 1024)) int32, scratch. m >= 1, nbins >= 1, m * ceil(nbins /
+// 128) < 2^31.
 extern "C" int rfx_rx_power(const void* ir, const void* carrier, int m, int nbins, void* out,
-                            void* count, void* sumsq, void* list, void* list_len, void* stream) {
+                            void* dbm, void* list, void* seg_count, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  compact_rows<<<m, kThreads, 0, s>>>(static_cast<const float*>(ir), nbins,
-                                      static_cast<int*>(list), static_cast<int*>(list_len));
+  const int n_seg = (nbins + kSeg - 1) / kSeg;
+  compact_segments<<<static_cast<unsigned>(static_cast<long long>(m) * n_seg), kThreads, 0, s>>>(
+      static_cast<const float*>(ir), nbins, n_seg, static_cast<int2*>(list),
+      static_cast<int*>(seg_count));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(m, (nbins + kThreads - 1) / kThreads);
-  convolve<<<grid, kThreads, 0, s>>>(static_cast<const float*>(ir),
-                                     static_cast<const float*>(carrier), nbins,
-                                     static_cast<const int*>(list),
-                                     static_cast<const int*>(list_len), static_cast<float*>(out));
-  err = cudaGetLastError();
+  // Eight samples a lane where that leaves eight blocks an SM or more on an
+  // H100's 132; else one, so that a few rows still fill the card. Either
+  // gives the same bits.
+  const long long wide_blocks = static_cast<long long>(m) * ((nbins + 32 * kWarps * 8 - 1) /
+                                                            (32 * kWarps * 8));
+  err = wide_blocks >= 8 * 132
+            ? launch_convolve<8>(static_cast<const float*>(carrier), m, nbins, n_seg,
+                                 static_cast<const int2*>(list), static_cast<const int*>(seg_count),
+                                 static_cast<float*>(out), s)
+            : launch_convolve<1>(static_cast<const float*>(carrier), m, nbins, n_seg,
+                                 static_cast<const int2*>(list), static_cast<const int*>(seg_count),
+                                 static_cast<float*>(out), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  row_power<<<m, kThreads, 0, s>>>(static_cast<const float*>(out), nbins,
-                                   static_cast<int*>(count), static_cast<float*>(sumsq));
+  row_power<<<m, kPowerThreads, 0, s>>>(static_cast<const float*>(out), nbins,
+                                        static_cast<float*>(dbm));
   return static_cast<int>(cudaGetLastError());
 }
 

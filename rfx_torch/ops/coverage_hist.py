@@ -20,20 +20,23 @@ the planes under `PLANES_BYTES`.
 
 `coverage_phasor` gives the phasor metric's (dBm, cancellation ratio, delay
 spread) of every receiver from the same segments (rfx/coverage.py:229-246
-under the vmap of :350) through `rfx_coverage_phasor`: the same walk and
-capture rule as `rfx_coverage_hist` with per-receiver sums in place of the
-histogram, run twice (the spread needs the mean delay first), then
-rfx_torch.cir.phasor_metric on the sums. A receiver's sums have an order
-fixed by the ray count alone, as its IR's. It runs on CUDA tensors only and
-has no backward; the metric's plain version, which a CPU tensor runs, is
-rfx_torch.coverage._dbm_cancel_plain (per-path sums, the same
-`phasor_metric`).
+under the vmap of :350): a per-bin table (`rfx_phasor_table`, plain version
+`phasor_table_plain`), one walk (`rfx_coverage_phasor`: the walk and capture
+rule of `rfx_coverage_hist` with per-receiver sums in place of the histogram,
+which also lists each capture's weight and delay), then
+rfx_torch.cir.phasor_metric on the sums, whose spread about each receiver's
+mean delay `rfx_coverage_phasor_spread` takes over the lists. A receiver's
+sums have an order fixed by the ray count alone, as its IR's. It runs on
+CUDA tensors only and has no backward; the metric's plain version, which a
+CPU tensor runs, is rfx_torch.coverage._dbm_cancel_plain (per-path sums, the
+same `phasor_metric`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -43,8 +46,10 @@ from rfx_torch.ops.intersect import is_hit, sphere_t
 from rfx_torch.tracer import EnvSegments
 
 __all__ = ["COVERAGE_HIST_KERNEL", "COVERAGE_PHASOR_KERNEL", "COVERAGE_REDUCE_KERNEL",
-           "coverage_hist", "coverage_hist_plain", "coverage_phasor", "coverage_slabs",
-           "slab_of_ray", "reduce_planes", "reduce_planes_plain"]
+           "COVERAGE_SPREAD_KERNEL", "PHASOR_TABLE_KERNEL", "PhasorWalk", "coverage_hist",
+           "coverage_hist_plain", "coverage_phasor", "coverage_slabs", "phasor_lists_spent",
+           "phasor_spread_plain", "phasor_table", "phasor_table_plain", "slab_of_ray", "reduce_planes",
+           "reduce_planes_plain"]
 
 COVERAGE_HIST_KERNEL = CudaKernel(
     "coverage_hist.cu", "rfx_coverage_hist",
@@ -53,12 +58,28 @@ COVERAGE_HIST_KERNEL = CudaKernel(
 COVERAGE_REDUCE_KERNEL = CudaKernel(
     "coverage_hist.cu", "rfx_coverage_hist_reduce", [P, I, ctypes.c_longlong, P, P],
 )
+PHASOR_TABLE_KERNEL = CudaKernel("coverage_hist.cu", "rfx_phasor_table", [I, F, F, P, P])
 COVERAGE_PHASOR_KERNEL = CudaKernel(
     "coverage_hist.cu", "rfx_coverage_phasor",
-    [P, P, P, P, P, P, I, I, P, I, F, F, F, I, F, F, I, P, P, P, P],
+    [P, P, P, P, P, P, I, I, P, I, F, F, F, I, P, I, I, I, P, P, P, P, P],
 )
-#: The phasor sums of pass 1, per receiver (kSumFields of coverage_hist.cu).
+COVERAGE_SPREAD_KERNEL = CudaKernel(
+    "coverage_hist.cu", "rfx_coverage_phasor_spread",
+    [P, P, P, P, P, P, I, I, P, I, F, F, F, I, P, I, I, I, P, P, P, P, P, P],
+)
+#: The phasor sums of the first pass, per receiver (kSumFields of coverage_hist.cu).
 PHASOR_FIELDS = ("re", "im", "s_max", "any", "w2", "w2t")
+#: The first pass's capture lists: chunks of PHASOR_CHUNK (w^2, t_k) pairs
+#: from a pool of PHASOR_CHUNKS_A_REGION chunks per (slab, receiver) and
+#: PHASOR_SPARE_CHUNKS more. On the 2,048-receiver sweeps of chip_smoke.py a
+#: region holds 63 captures at the median and 6,810 at most (room), and the
+#: pool is never spent there; a region that finds it spent is walked again.
+PHASOR_CHUNK = 256
+PHASOR_CHUNKS_A_REGION = 2
+PHASOR_SPARE_CHUNKS = 4096
+#: The lists of one launch take at most about this much device memory; more
+#: receivers go in several launches.
+PHASOR_LISTS_BYTES = 2 << 30
 
 #: Rays of one chunk: the 32 lanes of a warp times the segments a lane holds
 #: (kRays of coverage_hist.cu).
@@ -88,6 +109,27 @@ def _centers(rx_centers, device) -> torch.Tensor:
     return torch.as_tensor(rx_centers, dtype=torch.float32, device=device).reshape(-1, 3)
 
 
+def _first_wins(segs: EnvSegments, batch: torch.Tensor, rx_radius, *, nbins: int,
+                light_speed_mps: float, sample_rate_hz: float):
+    """(bins, valid), each (R, B, N), of R receivers: a receiver wins a live
+    segment it hits before the environment does, its first win along the
+    bounce axis counts, in bin int((dist + t_rx) / c * rate), dropped outside
+    [0, nbins)."""
+    dev = segs.t_env.device
+    b, n = segs.t_env.shape
+    o = segs.origin.reshape(b * n, 3)
+    d = segs.direction.reshape(b * n, 3)
+    r = torch.as_tensor(rx_radius, dtype=torch.float32, device=dev)
+    c = torch.tensor(light_speed_mps, dtype=torch.float32, device=dev)
+    rate = torch.tensor(sample_rate_hz, dtype=torch.float32, device=dev)
+    t_rx = sphere_t(o, d, batch[:, None, :], r * r).reshape(-1, b, n)
+    win = segs.alive & is_hit(t_rx) & (segs.t_env > t_rx)
+    win_i = win.to(torch.int32)
+    first = win & (torch.cumsum(win_i, dim=1) - win_i == 0)
+    bins = ((segs.distance + t_rx) / c * rate).to(torch.int32)
+    return bins, first & (bins >= 0) & (bins < nbins)
+
+
 def coverage_hist_plain(segs: EnvSegments, rx_centers, rx_radius, *, nbins: int,
                         light_speed_mps: float, sample_rate_hz: float,
                         rx_batch: int = 64) -> torch.Tensor:
@@ -97,24 +139,14 @@ def coverage_hist_plain(segs: EnvSegments, rx_centers, rx_radius, *, nbins: int,
     into the batch's flattened (R * nbins) rows."""
     dev = segs.t_env.device
     centers = _centers(rx_centers, dev)
-    b, n = segs.t_env.shape
-    o = segs.origin.reshape(b * n, 3)
-    d = segs.direction.reshape(b * n, 3)
-    r = torch.as_tensor(rx_radius, dtype=torch.float32, device=dev)
-    c = torch.tensor(light_speed_mps, dtype=torch.float32, device=dev)
-    rate = torch.tensor(sample_rate_hz, dtype=torch.float32, device=dev)
     out = torch.zeros((centers.shape[0], nbins), dtype=torch.float32, device=dev)
     for s in range(0, centers.shape[0], rx_batch):
         batch = centers[s:s + rx_batch]
-        t_rx = sphere_t(o, d, batch[:, None, :], r * r).reshape(-1, b, n)
-        win = segs.alive & is_hit(t_rx) & (segs.t_env > t_rx)
-        win_i = win.to(torch.int32)
-        first = win & (torch.cumsum(win_i, dim=1) - win_i == 0)
-        bins = ((segs.distance + t_rx) / c * rate).to(torch.int32)
-        valid = first & (bins >= 0) & (bins < nbins)
+        bins, valid = _first_wins(segs, batch, rx_radius, nbins=nbins,
+                                  light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz)
         row = torch.arange(batch.shape[0], device=dev)[:, None, None] * nbins
         out[s:s + batch.shape[0]].view(-1).index_add_(
-            0, (row + bins)[valid], segs.amplitude.expand_as(t_rx)[valid])
+            0, (row + bins)[valid], segs.amplitude.expand_as(bins)[valid])
     return out
 
 
@@ -216,40 +248,162 @@ def _phasor_constants(nbins: int, sample_window_s: float, carrier_hz: float):
     return step, omega
 
 
-def _phasor_pass(segs: EnvSegments, centers: torch.Tensor, rx_radius, *, nbins: int,
+def phasor_table_plain(nbins: int, step: float, omega: float, device="cpu") -> torch.Tensor:
+    """Plain PyTorch version of the phasor table kernel: (nbins, 4) f32, row
+    k (sqrt s_k, cos(omega t_k), sin(omega t_k), t_k), the per-capture
+    quantities of rfx_torch.cir.rx_power_dbm_phasor for bin k (t_k = k *
+    step, s_k = min(k + hi + 1, nbins)) in its f32 expressions."""
+    f32 = torch.float32
+    bins = torch.arange(nbins, dtype=torch.int32, device=device)
+    t_k = bins.to(f32) * torch.tensor(step, dtype=f32, device=device)
+    hi = nbins - 1 - (nbins - 1) // 2
+    s_k = torch.clamp_max(bins + hi + 1, nbins).to(f32)
+    phase = torch.tensor(omega, dtype=f32, device=device) * t_k
+    return torch.stack([torch.sqrt(s_k), torch.cos(phase), torch.sin(phase), t_k], dim=1)
+
+
+def phasor_table(nbins: int, step: float, omega: float, device) -> torch.Tensor:
+    """The phasor metric's per-bin table, (nbins, 4) f32 (`phasor_table_plain`'s
+    rows): on the CPU the plain version, on a CUDA device one launch of
+    `rfx_phasor_table`, whose cosf / sinf may differ from PyTorch's by
+    rounding."""
+    device = torch.device(device)
+    if nbins < 1 or nbins >= 2**31:
+        raise ValueError(f"nbins must be in [1, 2^31), got {nbins}")
+    if device.type == "cpu":
+        return phasor_table_plain(nbins, step, omega)
+    if device.type != "cuda":
+        raise ValueError(f"no phasor table kernel for device {device}")
+    table = torch.empty((nbins, 4), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        PHASOR_TABLE_KERNEL.launch(nbins, step, omega, table.data_ptr(),
+                                   torch.cuda.current_stream(device).cuda_stream)
+    return table
+
+
+class PhasorWalk(NamedTuple):
+    """What the phasor kernel's first pass leaves for the spread, for one
+    group of receivers: the launch's arguments up to the table, the capture
+    lists (`pool`, and `ints`: the pool's count of chunks taken, the chunks'
+    links, then per (slab, receiver) region its first chunk, its captures
+    and whether its list was lost) and the pool's size in chunks."""
+    args: tuple
+    n_slabs: int
+    n_chunks: int
+    pool: torch.Tensor
+    ints: torch.Tensor
+
+    def regions(self, k: int) -> torch.Tensor:
+        """(n_slabs, m) int32 field k of the regions: 0 first chunk, 1
+        captures, 2 lost."""
+        r = self.n_slabs * self.args[9]
+        at = 1 + self.n_chunks + k * r
+        return self.ints[at:at + r].view(self.n_slabs, -1)
+
+
+def phasor_lists_spent(walks) -> tuple:
+    """(captures, regions whose list was lost) of a first pass's walks: the
+    second is the number of (slab, receiver) pairs whose tile the spread
+    walks again."""
+    return (sum(int(w.regions(1).sum()) for w in walks),
+            sum(int(w.regions(2).sum()) for w in walks))
+
+
+def _phasor_sums(segs: EnvSegments, centers: torch.Tensor, rx_radius, *, nbins: int,
                  light_speed_mps: float, sample_rate_hz: float, sample_window_s: float,
-                 carrier_hz: float, t_mean=None) -> torch.Tensor:
-    """One launch of `rfx_coverage_phasor` on CUDA tensors: per receiver, over
-    its captures (amp already scaled), pass 1 ((M, 6) f32, PHASOR_FIELDS: sum
-    w cos, sum w sin, max s_k, any capture as 1.0, sum w^2, sum w^2 t_k) or,
-    with `t_mean` (M,), pass 2 ((M,) f32: sum w^2 (t_k - t_mean)^2); w = amp
-    sqrt(s_k), the quantities of rfx_torch.cir.rx_power_dbm_phasor. The sums
-    of each receiver per slab, then the slabs combined in slab order."""
+                 carrier_hz: float):
+    """The phasor kernel's first pass on CUDA tensors: ((M, 6) f32 sums in
+    PHASOR_FIELDS order (sum w cos, sum w sin, max s_k, any capture as 1.0,
+    sum w^2, sum w^2 t_k; w = amp sqrt(s_k), the quantities of
+    rfx_torch.cir.rx_power_dbm_phasor, amp already scaled), [PhasorWalk] for
+    `_phasor_spread`). One launch of the table, then one of
+    `rfx_coverage_phasor` a group of receivers: each receiver's sums per
+    slab, the slabs combined in slab order, and its captures' (w^2, t_k) in
+    each slab's walk order."""
     dev = segs.t_env.device
     if dev.type != "cuda":
         raise ValueError(f"the phasor kernel runs on CUDA tensors, got {dev}; the metric's plain "
                          "version is rfx_torch.coverage._dbm_cancel_plain")
     m = centers.shape[0]
     b, n = segs.t_env.shape
-    if n >= 2**31 or b >= 2**31 or m >= 2**31 or nbins >= 2**31:
-        raise ValueError(f"at most 2^31 - 1 rays, bounces, receivers and bins, got {n}, {b}, {m}, "
-                         f"{nbins}")
-    fields = len(PHASOR_FIELDS) if t_mean is None else 1
-    sums = torch.zeros((m, fields), dtype=torch.float32, device=dev)
-    if m and n and b:
-        step, omega = _phasor_constants(nbins, sample_window_s, carrier_hz)
-        n_slabs = coverage_slabs(n)
-        planes = [t.contiguous() for t in (segs.origin, segs.direction, segs.t_env,
-                                           segs.amplitude, segs.distance, segs.alive)]
-        partials = torch.empty(n_slabs * m * fields, dtype=torch.float32, device=dev)
-        mean = None if t_mean is None else t_mean.to(torch.float32).contiguous()
-        with torch.cuda.device(dev):
-            COVERAGE_PHASOR_KERNEL.launch(
-                *(t.data_ptr() for t in planes), b, n, centers.data_ptr(), m, float(rx_radius),
-                float(light_speed_mps), float(sample_rate_hz), nbins, step, omega, n_slabs,
-                None if mean is None else mean.data_ptr(), partials.data_ptr(), sums.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-    return sums if t_mean is None else sums[:, 0]
+    if n >= 2**31 or b >= 2**31 or m >= 2**26 or nbins >= 2**31:
+        raise ValueError(f"at most 2^31 - 1 rays, bounces and bins and 2^26 - 1 receivers, got "
+                         f"{n}, {b}, {nbins}, {m}")
+    sums = torch.zeros((m, len(PHASOR_FIELDS)), dtype=torch.float32, device=dev)
+    if not (m and n and b):
+        return sums, []
+    step, omega = _phasor_constants(nbins, sample_window_s, carrier_hz)
+    table = phasor_table(nbins, step, omega, dev)
+    n_slabs = coverage_slabs(n)
+    planes = [t.contiguous() for t in (segs.origin, segs.direction, segs.t_env,
+                                       segs.amplitude, segs.distance, segs.alive)]
+    per_rx = n_slabs * (PHASOR_CHUNKS_A_REGION * PHASOR_CHUNK * 8 + 4 * (4 + len(PHASOR_FIELDS)))
+    group = max(1, PHASOR_LISTS_BYTES // per_rx)
+    walks = []
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for s in range(0, m, group):
+            mine = centers[s:s + group]
+            g = mine.shape[0]
+            regions = n_slabs * g
+            n_chunks = PHASOR_CHUNKS_A_REGION * regions + PHASOR_SPARE_CHUNKS
+            pool = torch.empty(2 * n_chunks * PHASOR_CHUNK, dtype=torch.float32, device=dev)
+            ints = torch.empty(1 + n_chunks + 3 * regions, dtype=torch.int32, device=dev)
+            partials = torch.empty(regions * len(PHASOR_FIELDS), dtype=torch.float32, device=dev)
+            args = (*(t.data_ptr() for t in planes), b, n, mine.data_ptr(), g, float(rx_radius),
+                    float(light_speed_mps), float(sample_rate_hz), nbins, table.data_ptr(),
+                    n_slabs, PHASOR_CHUNK, n_chunks, pool.data_ptr(), ints.data_ptr())
+            COVERAGE_PHASOR_KERNEL.launch(*args, partials.data_ptr(), sums[s:s + g].data_ptr(),
+                                          stream)
+            # The walk's inputs stay referenced until the spread has run.
+            walks.append(PhasorWalk(args + ((planes, mine, table),), n_slabs, n_chunks, pool,
+                                    ints))
+    return sums, walks
+
+
+def _phasor_spread(walks, t_mean: torch.Tensor) -> torch.Tensor:
+    """(M,) f32 sum w^2 (t_k - t_mean)^2 per receiver, from the first pass's
+    lists (`_phasor_sums`) about `t_mean` (M,): one launch of
+    `rfx_coverage_phasor_spread` a group of receivers. Each slab's list is
+    added in its recorded order, the tiles of lost lists walk again, and the
+    slabs are combined in slab order: the sums of a second walk, bit for
+    bit."""
+    mean = t_mean.to(torch.float32).contiguous()
+    out = torch.zeros(mean.shape[0], dtype=torch.float32, device=mean.device)
+    s = 0
+    with torch.cuda.device(mean.device):
+        stream = torch.cuda.current_stream(mean.device).cuda_stream
+        for w in walks:
+            g = w.args[9]
+            dev_partials = torch.empty(w.n_slabs * g, dtype=torch.float32, device=mean.device)
+            COVERAGE_SPREAD_KERNEL.launch(*w.args[:-1], mean[s:s + g].data_ptr(),
+                                          dev_partials.data_ptr(), out[s:s + g].data_ptr(),
+                                          stream)
+            s += g
+    return out
+
+
+def phasor_spread_plain(segs: EnvSegments, rx_centers, rx_radius, t_mean: torch.Tensor, *,
+                        nbins: int, light_speed_mps: float, sample_rate_hz: float,
+                        sample_window_s: float, carrier_hz: float,
+                        rx_batch: int = 64) -> torch.Tensor:
+    """Plain PyTorch version of the spread (`_phasor_spread`): (M,) f32 sum
+    w^2 (t_k - t_mean)^2 over each receiver's first captures (amp already
+    scaled), w = amp sqrt(s_k) and t_k from `phasor_table_plain`, `rx_batch`
+    receivers a broadcast sphere test, on either device."""
+    dev = segs.t_env.device
+    centers = _centers(rx_centers, dev)
+    table = phasor_table_plain(nbins, *_phasor_constants(nbins, sample_window_s, carrier_hz), dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    out = []
+    for s in range(0, centers.shape[0], rx_batch):
+        bins, valid = _first_wins(segs, centers[s:s + rx_batch], rx_radius, nbins=nbins,
+                                  light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz)
+        rows = table[bins.clamp(0, nbins - 1)]
+        aw = segs.amplitude * rows[..., 0]
+        dt = rows[..., 3] - t_mean[s:s + rx_batch, None, None]
+        out.append(torch.sum(torch.where(valid, aw * aw * (dt * dt), zero), dim=(1, 2)))
+    return torch.cat(out) if out else torch.zeros(0, dtype=torch.float32, device=dev)
 
 
 def coverage_phasor(segs: EnvSegments, rx_centers, rx_radius, *, nbins: int,
@@ -257,9 +411,11 @@ def coverage_phasor(segs: EnvSegments, rx_centers, rx_radius, *, nbins: int,
                     carrier_hz: float = 2.4e9):
     """((M,) dBm, (M,) coherent / incoherent power ratio, (M,) power-weighted
     delay spread in s) of M receiver spheres of one radius from the env
-    segments `segs` (amplitude pre-scaled) on CUDA tensors: two launches of
-    the phasor kernel, then rfx_torch.cir.phasor_metric. -inf dBm, ratio 1
-    and spread 0 where nothing was captured. Forward only: an input that
+    segments `segs` (amplitude pre-scaled) on CUDA tensors: the phasor
+    kernel's first pass (`_phasor_sums`), rfx_torch.cir.phasor_metric on its
+    sums, which hands each receiver's mean delay to the spread over the
+    first pass's capture lists (`_phasor_spread`). -inf dBm, ratio 1 and
+    spread 0 where nothing was captured. Forward only: an input that
     requires grad raises, as does a tensor off the card."""
     _check_segments(segs)
     if torch.is_grad_enabled() and any(isinstance(v, torch.Tensor) and v.requires_grad
@@ -267,8 +423,9 @@ def coverage_phasor(segs: EnvSegments, rx_centers, rx_radius, *, nbins: int,
         raise RuntimeError("rfx_coverage_phasor (the phasor kernel) has no backward: detach the "
                            "segments, or call rfx_torch.coverage._dbm_cancel_plain for a gradient")
     centers = _centers(rx_centers, segs.t_env.device).contiguous()
-    kw = dict(nbins=nbins, light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz,
-              sample_window_s=sample_window_s, carrier_hz=carrier_hz)
-    re, im, s_max, any_f, w2, w2t = _phasor_pass(segs, centers, rx_radius, **kw).unbind(1)
+    sums, walks = _phasor_sums(segs, centers, rx_radius, nbins=nbins,
+                               light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz,
+                               sample_window_s=sample_window_s, carrier_hz=carrier_hz)
+    re, im, s_max, any_f, w2, w2t = sums.unbind(1)
     return phasor_metric(re, im, s_max, any_f > 0, w2, w2t,
-                         lambda t_mean: _phasor_pass(segs, centers, rx_radius, t_mean=t_mean, **kw))
+                         lambda t_mean: _phasor_spread(walks, t_mean))

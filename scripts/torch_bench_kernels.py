@@ -47,12 +47,15 @@ events, the mean of `--reps` calls after one warm-up):
 `--other DIR` runs every row in a child process on the checkout in DIR
 (another commit of this repository, unpacked there), before and after this
 checkout's runs, and compares: K1's four outputs bit for bit on both
-terrains, K3's and K-H's nonzero bins exactly and their values within rtol
-1e-5 / atol 1e-12 (a checkout whose histogram takes one row a call is given
-the rows one by one), K-P's and K-F's dBm where finite (a checkout without
-the kernels times its host loops under the same names). Prints one JSON
-object and writes the whole record to `--out`; `card` is nvidia-smi's name
-and power limit.
+terrains, K3's and K-H's nonzero bins (and K-P's nonzero samples) exactly
+and their values within rtol 1e-5 / atol 1e-12 (a checkout whose histogram
+takes one row a call is given the rows one by one), K-P's and K-F's dBm
+where finite (a checkout without
+the kernels times its host loops under the same names), and every row's
+digest of its outputs (`digest_equal_other`: K-P's dBm and signal, K-F's
+dBm, ratio and spread, K3's IRs, K1's four outputs). Prints one JSON object
+and writes the whole record to `--out`; `card` is nvidia-smi's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -318,10 +321,11 @@ def run_kp(w: Workloads, reps: int, keep: dict) -> dict:
     kernel = hasattr(cir, "rx_power_dbm_plain")  # else a checkout whose rx_power_dbm loops on the host
     out = {}
     for name, (irs, window) in _power_irs(w, keep).items():
-        (dbm, _), ms = _ms(lambda: cir.rx_power_dbm(irs, window),
-                           reps if kernel or irs.ndim == 1 else 2)
-        res = {"ms": ms, "nonzero_bins": int((irs != 0).sum()), "digest": _digest([dbm])}
+        (dbm, sig), ms = _ms(lambda: cir.rx_power_dbm(irs, window),
+                             reps if kernel or irs.ndim == 1 else 2)
+        res = {"ms": ms, "nonzero_bins": int((irs != 0).sum()), "digest": _digest([dbm, sig])}
         keep[f"kp_{name}"] = dbm.reshape(-1).cpu()
+        keep[f"kpsignal_{name}"] = sig.cpu()
         if kernel:
             res["device_ms"] = smoke.device_ms(lambda: cir.rx_power_dbm(irs, window), reps)
             _, res["plain_ms"] = _ms(lambda: cir.rx_power_dbm_plain(irs, window), 1)
@@ -418,7 +422,7 @@ def _compare(mine: dict, other: dict) -> dict:
             out[key] = {"same_finite": bool(torch.equal(torch.isfinite(ours), fin)),
                         "bit_identical": bool(torch.equal(ours, theirs)),
                         "max_abs_diff_db": float((ours[fin] - theirs[fin]).abs().max())}
-        else:
+        else:  # K3's IRs, K-H's and K-P's signal
             out[key] = {"same_nonzero_bins": bool(torch.equal(ours != 0, theirs != 0)),
                         "allclose_rtol_1e-5": bool(torch.allclose(ours, theirs, rtol=1e-5, atol=1e-12)),
                         "bit_identical": bool(torch.equal(ours, theirs)),
@@ -474,7 +478,12 @@ def main(argv=None) -> int:
         return {s: {k: v for k, v in t.items() if not k.endswith("digest")}
                 for s, t in r.get("kh", {}).items()}
 
+    def digests(mine, theirs):
+        return {k: {s: t.get("digest") == theirs.get(k, {}).get(s, {}).get("digest")
+                    for s, t in mine[k].items()} for k in ("k1", "k3", "kp", "kf") if k in mine}
+
     print(json.dumps({"card": card, "here": brief(out["here"]), "kh": kh(out["here"]),
+                      "digest_equal_other": digests(out["here"], out.get("other_first", {})),
                       "kh_other_first": kh(out.get("other_first", {})),
                       "kh_other_last": kh(out.get("other_last", {})),
                       "k2_walks": {s: {k: v for k, v in t.items() if k not in ("ms", "digest")}

@@ -236,6 +236,21 @@ def test_rx_power_plain_matches_rfx(nbins, case):
         assert int((sig[2] != 0).sum()) == reach - (1 if k >= lo else 0)
 
 
+def test_carrier_cache_returns_the_carrier():
+    """The RX-power kernel's carrier comes from a cache keyed by (nbins,
+    window, carrier, device): `_carrier`'s tensor bit for bit, the same
+    object on a second call, and a new one for another size or window."""
+    a = cir.carrier_cached(1999, POWER_WINDOW, 2.4e9, torch.device("cpu"))
+    assert torch.equal(a, cir._carrier(1999, POWER_WINDOW, 2.4e9, "cpu"))
+    assert cir.carrier_cached(1999, POWER_WINDOW, 2.4e9, torch.device("cpu")) is a
+    for args in ((1998, POWER_WINDOW), (1999, 2 * POWER_WINDOW)):
+        b = cir.carrier_cached(*args, 2.4e9, torch.device("cpu"))
+        assert b is not a and b.shape == (args[0],)
+        assert torch.equal(b, cir._carrier(*args, 2.4e9, "cpu"))
+    assert not torch.equal(cir.carrier_cached(1999, 2 * POWER_WINDOW, 2.4e9, torch.device("cpu")),
+                           a)
+
+
 def test_rx_power_plain_rows_alone_equal_the_batch():
     """A row's (dBm, signal) in the plain version is the same bits alone as in
     a batch, as the kernel's is."""

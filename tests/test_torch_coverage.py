@@ -24,6 +24,7 @@ from rfx.geometry import make_terrain
 from rfx.ops.pallas_coverage import coverage_hist_pallas
 from rfx.tracer import Scene as JScene
 from rfx.tracer import trace_env as jtrace_env
+from rfx_torch import cir as cir_mod
 from rfx_torch import convert, coverage
 from rfx_torch.api import Tracer
 from rfx_torch.ops import coverage_hist
@@ -337,8 +338,9 @@ def test_coverage_dbm_hybrid_matches_rfx(box_room, frac):
     np.testing.assert_allclose(got[ok], want[ok], rtol=0, atol=1e-3)
 
 
-# The phasor kernel's wrapper (`coverage_phasor`: two passes of the kernel,
-# then the metric's formulas) and the dispatch of `_dbm_cancel_from_segments`.
+# The phasor kernel's wrapper (`coverage_phasor`: the first pass's sums and
+# capture lists, the metric's formulas, the spread over the lists) and the
+# dispatch of `_dbm_cancel_from_segments`.
 PHASOR_KW = dict(num_rays=8192, sample_window_s=100e-9, sample_rate_hz=10e9, carrier_hz=2.4e9,
                  light_speed_mps=C, tx_power=1.0, rx_batch=10)
 
@@ -356,40 +358,103 @@ def _coverage_phasor_kw(kw):
                 sample_window_s=kw["sample_window_s"], carrier_hz=kw["carrier_hz"])
 
 
-def _phasor_pass_spelled_out(segs, centers, rx_radius, *, nbins, light_speed_mps, sample_rate_hz,
-                             sample_window_s, carrier_hz, t_mean=None):
-    """What one launch of the phasor kernel returns, in its field order
-    (coverage_hist.PHASOR_FIELDS), spelled out in torch on the CPU."""
-    f32 = torch.float32
+def _seq(x):
+    """The f32 sum of x in its order, one add after another (as a lane adds)."""
+    return np.cumsum(np.asarray(x, np.float32), dtype=np.float32)[-1] if len(x) else np.float32(0)
+
+
+def _walk_captures(segs, centers, rx_radius, *, nbins, light_speed_mps, sample_rate_hz,
+                   sample_window_s, carrier_hz):
+    """Per (slab, receiver) region, its first captures in the phasor kernel's
+    walk order (chunk, bounce, ray slot, lane: within a chunk of 128 rays,
+    bounce before ray), each as the table's row of its bin and its amplitude."""
     t_rx, first = coverage._first_capture(segs, centers, rx_radius, "analytic")
-    r = centers.shape[0]
-    dist = (segs.distance + t_rx).reshape(r, -1)
-    bins = (dist / torch.tensor(light_speed_mps) * torch.tensor(sample_rate_hz)).to(torch.int32)
-    valid = first.reshape(r, -1) & (bins >= 0) & (bins < nbins)
-    amp = torch.where(valid, segs.amplitude.expand_as(t_rx).reshape(r, -1), 0.0)
-    t_k = bins.to(f32) * torch.tensor(sample_window_s / (nbins - 1), dtype=f32)
-    hi = nbins - 1 - (nbins - 1) // 2
-    s_k = torch.where(valid, torch.clamp_max(bins + hi + 1, nbins).to(f32), 0.0)
-    aw = amp * torch.sqrt(s_k)
-    wgt = aw * aw
-    if t_mean is not None:
-        dt = t_k - t_mean[:, None]
-        return torch.sum(wgt * (dt * dt), dim=1)
-    phase = torch.tensor(2.0 * np.pi * carrier_hz, dtype=f32) * t_k
-    return torch.stack([torch.sum(aw * torch.cos(phase), dim=1),
-                        torch.sum(aw * torch.sin(phase), dim=1), torch.amax(s_k, dim=1),
-                        valid.any(dim=1).to(f32), torch.sum(wgt, dim=1),
-                        torch.sum(wgt * t_k, dim=1)], dim=1)
+    bins = ((segs.distance + t_rx) / torch.tensor(light_speed_mps)
+            * torch.tensor(sample_rate_hz)).to(torch.int32)
+    valid = (first & (bins >= 0) & (bins < nbins)).numpy()
+    step, omega = coverage_hist._phasor_constants(nbins, sample_window_s, carrier_hz)
+    table = coverage_hist.phasor_table_plain(nbins, step, omega).numpy()
+    b, n = segs.t_env.shape
+    n_slabs = coverage_hist.coverage_slabs(n)
+    chunk = np.arange(n) // coverage_hist.CHUNK_RAYS
+    key = (chunk[None, :] * b + np.arange(b)[:, None]) * coverage_hist.CHUNK_RAYS + (
+        np.arange(n) % coverage_hist.CHUNK_RAYS)[None, :]
+    amp = segs.amplitude.numpy()
+    regions = {}
+    for r in range(centers.shape[0]):
+        for h in range(n_slabs):
+            bb, ii = np.nonzero(valid[r] & (chunk % n_slabs == h)[None, :])
+            order = np.argsort(key[bb, ii], kind="stable")
+            bb, ii = bb[order], ii[order]
+            regions[h, r] = (table[bins[r, bb, ii].numpy()], amp[bb, ii])
+    return regions, n_slabs
+
+
+def _phasor_sums_spelled_out(segs, centers, rx_radius, **kw):
+    """What the phasor kernel's first pass gives, spelled out in torch and
+    numpy on the CPU: per region, over its captures in walk order, w = amp
+    sqrt(s_k) from the table, sums of w cos, w sin, w^2 and w^2 t_k added one
+    after another, max s_k and any capture; the slabs combined in slab order;
+    and each region's list of (w^2, t_k), taken from a pool of chunks of
+    PHASOR_CHUNK pairs (PHASOR_CHUNKS_A_REGION a region and
+    PHASOR_SPARE_CHUNKS more) in region order here: a region that finds the
+    pool spent keeps no list."""
+    regions, n_slabs = _walk_captures(segs, centers, rx_radius, **kw)
+    m = centers.shape[0]
+    hi = kw["nbins"] - 1 - (kw["nbins"] - 1) // 2
+    left = coverage_hist.PHASOR_CHUNKS_A_REGION * n_slabs * m + coverage_hist.PHASOR_SPARE_CHUNKS
+    partials = np.zeros((n_slabs, m, 6), np.float32)
+    lists = {}
+    for (h, r), (rows, amp) in regions.items():
+        aw = amp * rows[:, 0]
+        wgt = aw * aw
+        s_k = np.minimum(np.round(rows[:, 0] ** 2), kw["nbins"])  # s_k, exactly, from sqrt(s_k)
+        assert (s_k >= hi + 1).all()
+        partials[h, r] = [_seq(aw * rows[:, 1]), _seq(aw * rows[:, 2]),
+                          s_k.max() if len(s_k) else 0.0, float(len(s_k) > 0), _seq(wgt),
+                          _seq(wgt * rows[:, 3])]
+        chunks = -(-len(wgt) // coverage_hist.PHASOR_CHUNK)
+        if chunks <= left:
+            left -= chunks
+            lists[h, r] = np.stack([wgt, rows[:, 3]], axis=1)
+    sums = partials[0].copy()
+    for h in range(1, n_slabs):
+        sums[:, [0, 1, 4, 5]] += partials[h][:, [0, 1, 4, 5]]
+        sums[:, [2, 3]] = np.maximum(sums[:, [2, 3]], partials[h][:, [2, 3]])
+    return torch.from_numpy(sums), (regions, lists, n_slabs, m)
+
+
+def _phasor_spread_spelled_out(walks, t_mean):
+    """The spread pass over `_phasor_sums_spelled_out`'s lists: per region,
+    sum w^2 (t_k - t_mean)^2 in the recorded order, or, where the region kept
+    no list, the same terms from its captures walked again; the slabs
+    combined in slab order."""
+    regions, lists, n_slabs, m = walks
+    tm = t_mean.numpy()
+    parts = np.zeros((n_slabs, m), np.float32)
+    for (h, r), (rows, amp) in regions.items():
+        if (h, r) in lists:
+            wgt, t_k = lists[h, r][:, 0], lists[h, r][:, 1]
+        else:
+            aw = amp * rows[:, 0]
+            wgt, t_k = aw * aw, rows[:, 3]
+        dt = t_k - tm[r]
+        parts[h, r] = _seq(wgt * (dt * dt))
+    out = parts[0].copy()
+    for h in range(1, n_slabs):
+        out += parts[h]
+    return torch.from_numpy(out)
 
 
 def test_coverage_phasor_matches_rfx(box_room, monkeypatch):
-    """What the card runs after the kernel's two passes (the first pass's
-    fields in order, the mean delay handed to the second, the shared
-    formulas), here on the passes spelled out in torch, against rfx on the
-    same segments: test_dbm_cancel_from_segments_matches_rfx's bars, ratio 1
-    and spread 0 where nothing arrived. The kernel runs on the card only: on
-    a CPU tensor its pass raises, naming the plain version, and counts no
-    launch; `_dbm_cancel_from_segments` runs the plain version."""
+    """What the card runs around the kernel's passes (the first pass's fields
+    in order, the mean delay the metric hands to the spread, the shared
+    formulas), here on the passes spelled out in torch and numpy, with the
+    rays in four slabs, against rfx on the same segments:
+    test_dbm_cancel_from_segments_matches_rfx's bars, ratio 1 and spread 0
+    where nothing arrived. The kernel runs on the card only: on a CPU tensor
+    its first pass raises, naming the plain version, and counts no launch;
+    `_dbm_cancel_from_segments` runs the plain version."""
     from rfx.coverage import _dbm_cancel_from_segments as j_cancel
 
     segs, centers = _phasor_inputs(box_room)
@@ -397,13 +462,18 @@ def test_coverage_phasor_matches_rfx(box_room, monkeypatch):
         want = [np.asarray(x) for x in j_cancel(segs, jnp.asarray(centers), 1.0, **PHASOR_KW)]
     psegs = convert.segments_from_rfx(segs, device="cpu")
     scaled = psegs._replace(amplitude=psegs.amplitude * (torch.tensor(1.0) / 8192))
-    before = coverage_hist.COVERAGE_PHASOR_KERNEL.launches
+    kernels = (coverage_hist.PHASOR_TABLE_KERNEL, coverage_hist.COVERAGE_PHASOR_KERNEL,
+               coverage_hist.COVERAGE_SPREAD_KERNEL)
+    before = [k.launches for k in kernels]
     with pytest.raises(ValueError, match="CUDA.*_dbm_cancel_plain"):
         coverage_hist.coverage_phasor(scaled, centers, 1.0, **_coverage_phasor_kw(PHASOR_KW))
     plain = [x.numpy() for x in coverage._dbm_cancel_from_segments(psegs, centers, 1.0,
                                                                    **PHASOR_KW)]
-    assert coverage_hist.COVERAGE_PHASOR_KERNEL.launches == before
-    monkeypatch.setattr(coverage_hist, "_phasor_pass", _phasor_pass_spelled_out)
+    assert [k.launches for k in kernels] == before
+    monkeypatch.setattr(coverage_hist, "MIN_SLAB_RAYS", 2048)
+    assert coverage_hist.coverage_slabs(8192) == 4
+    monkeypatch.setattr(coverage_hist, "_phasor_sums", _phasor_sums_spelled_out)
+    monkeypatch.setattr(coverage_hist, "_phasor_spread", _phasor_spread_spelled_out)
     got = [x.numpy() for x in coverage_hist.coverage_phasor(scaled, centers, 1.0,
                                                             **_coverage_phasor_kw(PHASOR_KW))]
     ok = np.isfinite(want[0])
@@ -414,6 +484,95 @@ def test_coverage_phasor_matches_rfx(box_room, monkeypatch):
         for a, w in zip(g[1:], want[1:]):
             np.testing.assert_allclose(a, w, rtol=1e-4, atol=0)
         assert (g[1][~ok] == 1.0).all() and (g[2][~ok] == 0.0).all()
+
+
+def test_coverage_phasor_lost_lists_walk_again(box_room, monkeypatch):
+    """The spread is the same bits whether the lists hold every capture or
+    the pool runs out (one chunk in all; every other region walks again),
+    spelled out as in test_coverage_phasor_matches_rfx."""
+    segs, centers = _phasor_inputs(box_room)
+    psegs = convert.segments_from_rfx(segs, device="cpu")
+    scaled = psegs._replace(amplitude=psegs.amplitude * (torch.tensor(1.0) / 8192))
+    kw = _coverage_phasor_kw(PHASOR_KW)
+    monkeypatch.setattr(coverage_hist, "MIN_SLAB_RAYS", 2048)
+    monkeypatch.setattr(coverage_hist, "_phasor_sums", _phasor_sums_spelled_out)
+    monkeypatch.setattr(coverage_hist, "_phasor_spread", _phasor_spread_spelled_out)
+    whole = coverage_hist.coverage_phasor(scaled, centers, 1.0, **kw)
+    _, (_, lists, n_slabs, m) = _phasor_sums_spelled_out(scaled, torch.from_numpy(centers), 1.0,
+                                                         **kw)
+    assert len(lists) == n_slabs * m
+    monkeypatch.setattr(coverage_hist, "PHASOR_CHUNKS_A_REGION", 0)
+    monkeypatch.setattr(coverage_hist, "PHASOR_SPARE_CHUNKS", 1)
+    _, (regions, lists, _, _) = _phasor_sums_spelled_out(scaled, torch.from_numpy(centers), 1.0,
+                                                         **kw)
+    lost = [key for key, (rows, _) in regions.items() if len(rows) and key not in lists]
+    assert len(lost) > 100
+    spent = coverage_hist.coverage_phasor(scaled, centers, 1.0, **kw)
+    assert float((whole[2] > 0).sum()) > 20
+    for a, b in zip(whole, spent):
+        assert torch.equal(a, b)
+
+
+def test_phasor_spread_plain_matches_the_lists(box_room):
+    """The spread's plain version (broadcast sphere tests, a torch.sum per
+    receiver) against the spread over the first pass's lists spelled out, at
+    each receiver's mean delay from the spelled-out sums: rtol 1e-5 (other
+    orders of the same f32 terms)."""
+    segs, centers = _phasor_inputs(box_room)
+    psegs = convert.segments_from_rfx(segs, device="cpu")
+    scaled = psegs._replace(amplitude=psegs.amplitude * (torch.tensor(1.0) / 8192))
+    kw = _coverage_phasor_kw(PHASOR_KW)
+    sums, walks = _phasor_sums_spelled_out(scaled, torch.from_numpy(centers), 1.0, **kw)
+    t_mean = sums[:, 5] / sums[:, 4]
+    want = _phasor_spread_spelled_out(walks, t_mean)
+    got = coverage_hist.phasor_spread_plain(scaled, centers, 1.0, t_mean, rx_batch=7, **kw)
+    hit = sums[:, 3] > 0
+    assert int(hit.sum()) > 20 and int((want[hit] > 0).sum()) > 20
+    torch.testing.assert_close(got[hit], want[hit], rtol=1e-5, atol=0)
+    assert not bool(got[~hit].any())
+
+
+def test_phasor_table_plain_is_the_per_capture_arithmetic():
+    """The table's torch form gives, bit for bit, what
+    rfx_torch.cir.rx_power_dbm_phasor evaluates for a capture in bin k: the
+    inputs of its sqrt (s_k) and cos (the phase) and the outputs of its sqrt,
+    cos and sin, recorded while it runs on one path per bin; t_k is the
+    phase's factor."""
+    from torch.overrides import TorchFunctionMode
+
+    class Record(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = {}
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in (torch.sqrt, torch.cos, torch.sin):
+                self.seen[func.__name__] = (args[0].clone(), out.clone())
+            return out
+
+    for nbins in (1998, 1999, 10_000):
+        window = nbins / 10e9
+        step, omega = coverage_hist._phasor_constants(nbins, window, 2.4e9)
+        # One path in each bin: distance (k + 0.5) / rate * c, checked below.
+        k = torch.arange(nbins)
+        dist = ((k.double() + 0.5) / 10e9 * C).float()[None]
+        assert torch.equal((dist / torch.tensor(C) * torch.tensor(10e9)).to(torch.int32)[0],
+                           k.to(torch.int32))
+        with Record() as rec:
+            cir_mod.rx_power_dbm_phasor(torch.ones_like(dist), dist,
+                                        torch.ones_like(dist, dtype=torch.bool),
+                                        sample_window_s=window, nbins=nbins, light_speed_mps=C,
+                                        sample_rate_hz=10e9)
+        table = coverage_hist.phasor_table_plain(nbins, step, omega)
+        s_k, sqrt_s = rec.seen["sqrt"]
+        phase, cos = rec.seen["cos"]
+        hi = nbins - 1 - (nbins - 1) // 2
+        assert torch.equal(s_k[0], torch.clamp_max(k + hi + 1, nbins).float())  # bin k's path
+        assert torch.equal(table[:, 0], sqrt_s[0])
+        assert torch.equal(table[:, 1], cos[0]) and torch.equal(table[:, 2], rec.seen["sin"][1][0])
+        assert torch.equal(torch.tensor(omega, dtype=torch.float32) * table[:, 3], phase[0])
+        assert torch.equal(table[:, 3], k.float() * torch.tensor(step, dtype=torch.float32))
 
 
 def test_phasor_gradient_takes_the_plain_version(box_room):

@@ -214,7 +214,8 @@ def test_package_docstring_names_the_sources_and_entry_points():
     sources = sorted(p.name for p in CSRC_DIR.glob("*.cu"))
     entries = [m for p in CSRC_DIR.glob("*.cu")
                for m in re.findall(r'extern "C" int (rfx_\w+)\(', p.read_text())]
-    words = {5: "five", 6: "six", 7: "seven", 8: "eight", 9: "nine", 10: "ten"}
+    words = {5: "five", 6: "six", 7: "seven", 8: "eight", 9: "nine", 10: "ten", 11: "eleven",
+             12: "twelve"}
     assert f"{words[len(entries)]} C entry points in {words[len(sources)]} sources" in doc
     for name in sources:
         assert f"`{name}`" in doc, name

@@ -454,9 +454,12 @@ def test_coverage_engines_on_card(cuda):
     segs = trace_env(scene, [3.0, 2.0, 2.0], dirs, max_bounces=2)
     fkw = dict(num_rays=n, sample_window_s=100e-9, sample_rate_hz=100e9, carrier_hz=2.4e9,
                light_speed_mps=2.998e8, tx_power=1.0, rx_batch=16)
-    before = coverage_hist.COVERAGE_PHASOR_KERNEL.launches
+    phasor = (coverage_hist.PHASOR_TABLE_KERNEL, coverage_hist.COVERAGE_PHASOR_KERNEL,
+              coverage_hist.COVERAGE_SPREAD_KERNEL)
+    before = [k.launches for k in phasor]
     card = [x.cpu() for x in coverage._dbm_cancel_from_segments(segs, centers, 0.8, **fkw)]
-    assert coverage_hist.COVERAGE_PHASOR_KERNEL.launches == before + 2  # the phasor kernel's two passes
+    # The table, one walk, the spread over its lists.
+    assert [k.launches - b for k, b in zip(phasor, before)] == [1, 1, 1]
     host = coverage._dbm_cancel_from_segments(
         EnvSegments(*(t.cpu() for t in segs)), centers, 0.8, **fkw)
     ok = torch.isfinite(host[0])
@@ -563,21 +566,31 @@ def test_rx_power_kernel_edges(cuda):
         cir.rx_power_dbm(torch.zeros((1, 65535 * 256 + 1), device=cuda), 1e-6)
 
 
+def _phasor_launches():
+    return [k.launches for k in (coverage_hist.PHASOR_TABLE_KERNEL,
+                                 coverage_hist.COVERAGE_PHASOR_KERNEL,
+                                 coverage_hist.COVERAGE_SPREAD_KERNEL)]
+
+
+PHASOR_CARD_KW = dict(nbins=10_000, light_speed_mps=2.998e8, sample_rate_hz=100e9,
+                      sample_window_s=100e-9, carrier_hz=2.4e9)
+
+
 def test_coverage_phasor_kernel_matches_plain(cuda):
-    """The phasor metric's kernel against its plain version on the room's
+    """The phasor metric's kernels against their plain version on the room's
     segments: 531 receivers (a short last tile), 100,003 rays (four slabs,
-    the last one short), 3 bounces, a receiver nothing reaches. dBm within
-    1e-3 dB, ratio and spread within rtol 1e-4, the same bits from run to run
-    and for a receiver alone or in any group; an input that requires grad
-    raises."""
+    the last one short), 3 bounces, a receiver nothing reaches. A call is
+    one launch each of the table, the walk and the spread over its lists.
+    dBm within 1e-3 dB, ratio and spread within rtol 1e-4, the same bits from
+    run to run and for a receiver alone or in any group; an input that
+    requires grad raises."""
     segs = _room_segments(cuda, 100_003)
     centers = _room_receivers(531)
-    kw = dict(nbins=10_000, light_speed_mps=2.998e8, sample_rate_hz=100e9, sample_window_s=100e-9,
-              carrier_hz=2.4e9)
-    before = coverage_hist.COVERAGE_PHASOR_KERNEL.launches
+    kw = PHASOR_CARD_KW
+    before = _phasor_launches()
     k1 = coverage_hist.coverage_phasor(segs, centers, 0.7, **kw)
     k2 = coverage_hist.coverage_phasor(segs, centers, 0.7, **kw)
-    assert coverage_hist.COVERAGE_PHASOR_KERNEL.launches == before + 4
+    assert [a - b for a, b in zip(_phasor_launches(), before)] == [2, 2, 2]
     p = coverage._dbm_cancel_plain(segs, centers, 0.7, num_rays=1, tx_power=1.0, rx_batch=64,
                                    **{k: v for k, v in kw.items() if k != "nbins"})
     torch.cuda.synchronize()
@@ -598,12 +611,94 @@ def test_coverage_phasor_kernel_matches_plain(cuda):
         assert torch.equal(a, b[7:44])
     # The kernel has no backward: segments that require grad raise on the card.
     wanted = segs._replace(amplitude=segs.amplitude.clone().requires_grad_())
-    before = coverage_hist.COVERAGE_PHASOR_KERNEL.launches
+    before = _phasor_launches()
     with pytest.raises(RuntimeError, match="rfx_coverage_phasor"):
         coverage._dbm_cancel_from_segments(wanted, centers[:40], 0.7, num_rays=1, tx_power=1.0,
                                            rx_batch=16, **{k: v for k, v in kw.items()
                                                            if k != "nbins"})
-    assert coverage_hist.COVERAGE_PHASOR_KERNEL.launches == before
+    assert _phasor_launches() == before
+
+
+@pytest.mark.parametrize("pool", [(0, 1), (0, 40)], ids=["one_chunk", "some_chunks"])
+def test_coverage_phasor_kernel_lost_lists_walk_again(cuda, monkeypatch, pool):
+    """Where the capture lists' pool runs out (one chunk in all, or forty),
+    the regions that found it spent are walked again, and the three outputs
+    are the same bits as with every list kept; with the default pool no list
+    is lost here."""
+    segs = _room_segments(cuda, 100_003)
+    centers = _room_receivers(531)
+    kept = coverage_hist.coverage_phasor(segs, centers, 0.7, **PHASOR_CARD_KW)
+    _, walks = coverage_hist._phasor_sums(segs, torch.as_tensor(centers, device=cuda), 0.7,
+                                          **PHASOR_CARD_KW)
+    captures, lost = coverage_hist.phasor_lists_spent(walks)
+    assert captures > 10_000 and lost == 0
+    monkeypatch.setattr(coverage_hist, "PHASOR_CHUNKS_A_REGION", pool[0])
+    monkeypatch.setattr(coverage_hist, "PHASOR_SPARE_CHUNKS", pool[1])
+    _, walks = coverage_hist._phasor_sums(segs, torch.as_tensor(centers, device=cuda), 0.7,
+                                          **PHASOR_CARD_KW)
+    assert coverage_hist.phasor_lists_spent(walks)[1] > 500
+    spent = coverage_hist.coverage_phasor(segs, centers, 0.7, **PHASOR_CARD_KW)
+    torch.cuda.synchronize()
+    for a, b in zip(kept, spent):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("nbins", [1998, 10_000, 20_001])
+def test_phasor_table_kernel_matches_plain(cuda, nbins):
+    """The table on the card against its torch form on the card: sqrt s_k and
+    t_k bit for bit (IEEE operations), cos and sin within 2e-7 (both are the
+    card's single-precision cos and sin, the phase up to ~1,500 rad)."""
+    step, omega = coverage_hist._phasor_constants(nbins, nbins / 100e9, 2.4e9)
+    before = coverage_hist.PHASOR_TABLE_KERNEL.launches
+    k = coverage_hist.phasor_table(nbins, step, omega, cuda)
+    assert coverage_hist.PHASOR_TABLE_KERNEL.launches == before + 1
+    p = coverage_hist.phasor_table_plain(nbins, step, omega, cuda)
+    torch.cuda.synchronize()
+    assert k.shape == (nbins, 4)
+    assert torch.equal(k[:, 0], p[:, 0]) and torch.equal(k[:, 3], p[:, 3])
+    torch.testing.assert_close(k[:, 1:3], p[:, 1:3], rtol=0, atol=2e-7)
+
+
+def test_rx_power_kernel_single_long_row(cuda):
+    """One 20,000-bin IR like the forward request's, whose nonzero bins span
+    every segment of the kernel's list (1,260 of them, in a band and spread
+    out), against the plain version, and the same bits as in a batch."""
+    g = np.random.default_rng(41)
+    ir = np.zeros(20_000, np.float32)
+    ir[g.choice(np.arange(1500, 4000), 900, replace=False)] = g.uniform(1e-9, 1e-6, 900)
+    ir[g.choice(np.arange(4000, 20_000), 360, replace=False)] = -g.uniform(1e-9, 1e-6, 360)
+    x = torch.from_numpy(ir).to(cuda)
+    before = cir.RX_POWER_KERNEL.launches
+    a = cir.rx_power_dbm(x, 200e-9)
+    assert cir.RX_POWER_KERNEL.launches == before + 1
+    p = cir.rx_power_dbm_plain(x, 200e-9)
+    batch = cir.rx_power_dbm(torch.stack([x.flip(0), x, x * 0.5]), 200e-9)
+    torch.cuda.synchronize()
+    assert a[0].shape == () and a[1].shape == (20_000,) and int((x != 0).sum()) == 1260
+    _assert_power_close(a, p)
+    assert torch.equal(batch[1][1], a[1]) and torch.equal(batch[0][1], a[0])
+
+
+@pytest.mark.parametrize("m", [1, 2, 2048])
+def test_rx_power_kernel_rows_alone_equal_the_batch(cuda, m):
+    """The kernel tiles a launch of few rows otherwise than one of many; a
+    row's signal and dBm are the same bits whichever the launch took. At m
+    = 1 and 2 the rows match the plain version by _assert_power_close; of
+    the 2,048 the first 64 match its signal within the same tolerance (among
+    so many random rows one sample's taps cancel: row 27, sample 4,697 is
+    1.7e-13 added in ascending k and exactly 0 in the plain version's order,
+    so the count of nonzero samples, and with it the dBm, differs there)."""
+    irs = _sparse_irs(cuda, max(m, 7), 10_000)[:m]
+    a = cir.rx_power_dbm(irs, 100e-9)
+    torch.cuda.synchronize()
+    for r in range(m) if m <= 64 else range(0, m, 31):
+        alone = cir.rx_power_dbm(irs[r], 100e-9)
+        assert torch.equal(alone[1], a[1][r]) and torch.equal(alone[0], a[0][r]), r
+    if m <= 64:
+        _assert_power_close(a, cir.rx_power_dbm_plain(irs, 100e-9))
+    else:
+        p = cir.rx_power_dbm_plain(irs[:64], 100e-9)[1]
+        torch.testing.assert_close(a[1][:64], p, rtol=1e-5, atol=1e-5 * float(p.abs().max()))
 
 
 @pytest.mark.parametrize("n", [1, 1000, 65_536 + 7])
