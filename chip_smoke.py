@@ -11,11 +11,11 @@ Phases, each ending in torch.cuda.synchronize() so a fault shows where it
 happened, and none catching its own failure:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the six CUDA sources of rfx_torch/csrc/ (twelve C entry points:
+2. build the six CUDA sources of rfx_torch/csrc/ (fourteen C entry points:
    the fused trace and its counted instantiation share a source, so do the
-   closest hit and its counted instantiation, and the coverage histogram,
-   its slab reduction and the phasor metric's table, walk and spread) and
-   the native C++ BVH builder
+   closest hit and its counted instantiation, the coverage histogram, its
+   slab reduction and the phasor metric's table, walk, spread and backward,
+   and the RX power and its backward) and the native C++ BVH builder
    into build/rfx_torch/, one compiler each, all started together;
 3. the bench workload (bench.py): make_terrain(grid=128, extent=60, seed=0),
    32,258 triangles, 5,242,880 Morton-ordered rays, 4 bounces, a 20,000-bin
@@ -35,7 +35,9 @@ happened, and none catching its own failure:
    RX-power kernel against its plain version on that IR (20,000 bins: the
    same nonzero samples, the signal within rtol 1e-5 and an absolute floor
    of 1e-5 of its largest sample, dBm within 1e-4 dB, two runs the same
-   bits), beside conv1d;
+   bits), beside conv1d; and its backward with g_dbm = 1 against its plain
+   version (rtol 1e-4, an absolute floor of 1e-5 of the largest entry, two
+   runs the same bits), beside conv1d of the effective cotangent;
 7. the per-query closest-hit kernel against its plain version on the bench
    scene: the 65,536 rays of phase 4 from tx, their reflected second-bounce
    queries from the terrain, and 1,024 parked rays; identical t, indices,
@@ -91,7 +93,11 @@ happened, and none catching its own failure:
     bits), its per-bin table against the table's torch form and its spread
     over the walk's capture lists against the spread's plain version (with
     the capture lists' counts: captures a (slab, receiver) region, regions
-    lost and walked again), each on the card; the exact metric through
+    lost and walked again), each on the card; both kernels' backwards with
+    g_dbm = 1 on all rows / receivers against their plain versions (K-P's on
+    16 of the rows; K-F's rtol 1e-4 with an absolute floor of 1e-6 of the
+    largest entry), two runs the same bits, with their times; the exact
+    metric through
     `rfx_torch.cli.main(["coverage", ...])` (room), whose saved dBm must equal
     the facade's and be finite exactly where an IR is nonzero, with
     rx_power_dbm bit-identical across two card runs and within 1e-3 dB of the
@@ -139,6 +145,19 @@ happened, and none catching its own failure:
     parameters the same bits on every rank, at most 2 IR-sized and 2 small
     all-reduces a step); per-rank times and peak memory. The four ranks
     time-slice one card: their times measure the protocol, not scaling.
+16. (run after 13) the coverage metrics' value+grad at full width, loss the
+    mean of the finite dBm, d / d (log n1, tx): the fast metric
+    (rfx_torch.coverage.coverage_dbm_fast) on phase 13's room and terrain
+    (2,048 receivers, 1,048,576 rays, 2 bounces): d / d tx exactly 0 (only
+    the amplitudes carry a gradient), d / d log n1 within 1% of a central
+    difference of step 2e-3 (on the terrain both are exactly 0: every path
+    inside the 100 ns window is direct), the K-F backward's g_amplitude
+    against phasor_backward_plain on the same forward, two runs the same
+    bits; the exact metric with soft binning (coverage_dbm(soft=True),
+    engine "map") on 64 of the room's receivers: d / d tx finite and
+    nonzero, the same central difference in log n1, K-P's g_ir against
+    rx_power_backward_plain on all 64 rows, two runs the same bits; times
+    and peak memory.
 Each main-path run is counted on its own: every launch count is set to 0
 just before it and read just after, and each kernel the path runs must have
 launched (the forward requests: fused trace, histogram and RX power; the
@@ -150,7 +169,10 @@ CLI's exact sweep: the coverage kernel, its slab reduction and RX power;
 each hybrid sweep: the phasor metric's table, walk and spread, the same
 three, and on the terrain the closest hit; each fast sweep: the table, the
 walk and the spread once each, on the terrain the closest hit, and never the
-coverage kernel; each rank's sharded CIR, coverage and
+coverage kernel; each fast value+grad: those three and the phasor backward
+once each, on the terrain the closest hit; the exact value+grad: the
+histogram, RX power and its backward once each (the histogram's backward is
+plain PyTorch, as rfx's is XLA's autodiff); each rank's sharded CIR, coverage and
 solver step: closest hit and histogram, and the coverage kernel on the
 coverage). The comparisons with the plain versions, the
 checks of phase 10 and the facade are not counted.
@@ -217,6 +239,8 @@ K_POWER = "rfx_rx_power"
 K_PHASOR = "rfx_coverage_phasor"
 K_SPREAD = "rfx_coverage_phasor_spread"
 K_TABLE = "rfx_phasor_table"
+K_POWER_BACKWARD = "rfx_rx_power_backward"
+K_PHASOR_BACKWARD = "rfx_coverage_phasor_backward"
 # The phasor metric's three entry points, each launched once a sweep.
 PHASOR_NEEDS = (K_TABLE, K_PHASOR, K_SPREAD)
 # One H100 SXM's published peaks: HBM bytes/s, f32 FLOP/s outside the tensor cores.
@@ -377,7 +401,7 @@ def _counted_bound(fused_bound: dict) -> dict:
 
 
 def port_kernels() -> tuple:
-    """The port's twelve C entry points (rfx_torch/csrc/), each with its launch count."""
+    """The port's fourteen C entry points (rfx_torch/csrc/), each with its launch count."""
     from rfx_torch import cir
     from rfx_torch.ops.bvh_trace import CLOSEST_HIT_COUNTED_KERNEL, CLOSEST_HIT_KERNEL
     from rfx_torch.ops.coverage_hist import (
@@ -385,6 +409,7 @@ def port_kernels() -> tuple:
         COVERAGE_PHASOR_KERNEL,
         COVERAGE_REDUCE_KERNEL,
         COVERAGE_SPREAD_KERNEL,
+        PHASOR_BACKWARD_KERNEL,
         PHASOR_TABLE_KERNEL,
     )
     from rfx_torch.ops.fused import FUSED_TRACE_COUNTED_KERNEL, FUSED_TRACE_KERNEL
@@ -393,15 +418,18 @@ def port_kernels() -> tuple:
     return (FUSED_TRACE_KERNEL, CLOSEST_HIT_KERNEL, cir.HISTOGRAM_KERNEL, COVERAGE_HIST_KERNEL,
             MICRO_VOTE_KERNEL, cir.RX_POWER_KERNEL, FUSED_TRACE_COUNTED_KERNEL,
             CLOSEST_HIT_COUNTED_KERNEL, COVERAGE_REDUCE_KERNEL, COVERAGE_PHASOR_KERNEL,
-            COVERAGE_SPREAD_KERNEL, PHASOR_TABLE_KERNEL)
+            COVERAGE_SPREAD_KERNEL, PHASOR_TABLE_KERNEL, cir.RX_POWER_BACKWARD_KERNEL,
+            PHASOR_BACKWARD_KERNEL)
 
 
-def rx_power_taps(irs) -> int:
+def rx_power_taps(irs, lo=None) -> int:
     """The in-range taps of the 'same' convolution of (nbins,) or (M, nbins)
     IRs: for each nonzero bin k, the output samples j with 0 <= j + lo - k <
-    nbins (lo = (nbins - 1) // 2). Two f32 operations each."""
+    nbins (lo = (nbins - 1) // 2). Two f32 operations each. With lo = hi =
+    nbins - 1 - (nbins - 1) // 2, the backward's taps over the nonzero
+    entries of g_eff (its convolution runs with the offset hi)."""
     nbins = irs.shape[-1]
-    lo = (nbins - 1) // 2
+    lo = (nbins - 1) // 2 if lo is None else lo
     k = irs.reshape(-1, nbins).nonzero()[:, 1]
     return int(((k - lo + nbins - 1).clamp_max(nbins - 1) - (k - lo).clamp_min(0) + 1).sum())
 
@@ -466,6 +494,77 @@ def _rx_power_leg(irs, window: float, what: str) -> dict:
     return out
 
 
+def _rx_power_backward_leg(irs, window: float, what: str, plain_rows: int = 16) -> dict:
+    """K-P's backward against its plain version on the card, on IRs of a main
+    path, with g_dbm = 1 on every row (the gradient of the summed dBm): the
+    forward's signal and row sums from the kernel, the backward twice (the
+    same bits), the plain version on `plain_rows` rows spread over the batch
+    (rtol 1e-4, an absolute floor of 1e-5 of the largest entry: float64
+    against the kernel's f32 in ascending j), row 777 alone the same bits as
+    in the batch. Times: the kernel's call and its device time, the plain
+    version's on its rows, and conv1d's (g_eff padded by lo and hi, the
+    carrier as the filter, no TF32: the library's call for the same
+    gradient, timed here only); the bound counts two operations for each
+    in-range tap of the nonzero g_eff, every input read once (g_dbm, the
+    signal, the sums, the carrier) and g_ir written once."""
+    import torch
+    import torch.nn.functional as F
+
+    from rfx_torch import cir
+
+    rows = irs.reshape(-1, irs.shape[-1])
+    m, nbins = rows.shape
+    dev = rows.device
+    kern = cir.carrier_cached(nbins, window, 2.4e9, dev)
+    sig, _, sums = cir._rx_power_launch(rows, kern)
+    g_dbm = torch.ones(m, dtype=torch.float32, device=dev)
+
+    def call():
+        return cir.rx_power_backward(g_dbm, None, sig, sums, window)
+
+    a, b = call(), call()
+    pick = torch.linspace(0, m - 1, min(m, plain_rows), device=dev).round().long().unique()
+    p = cir.rx_power_backward_plain(g_dbm[pick], None, sig[pick], sums[pick], kern)
+    _sync()
+    _require(torch.equal(a, b), f"{what}: two backward runs differ")
+    scale = float(p.abs().max())
+    _require(torch.allclose(a[pick], p, rtol=1e-4, atol=1e-5 * scale),
+             f"{what}: backward kernel != plain")
+    if m > 777:
+        alone = cir.rx_power_backward(g_dbm[777:778], None, sig[777:778], sums[777:778], window)
+        _require(torch.equal(alone[0], a[777]), f"{what}: backward row 777 alone differs")
+    lo, hi = (nbins - 1) // 2, nbins - 1 - (nbins - 1) // 2
+    g_eff = cir._effective_cotangent(g_dbm, None, sig, sums)
+
+    def library():
+        return F.conv1d(F.pad(g_eff[:, None], (lo, hi)), kern[None, None])[:, 0]
+
+    lib = library()
+    taps = rx_power_taps(g_eff, lo=hi)
+    out = {"rows": m, "nbins": nbins, "plain_rows": int(pick.numel()),
+           "nonzero_g_eff": int((g_eff != 0).sum()), "max_abs_err": float((a[pick] - p).abs().max()),
+           "max_abs_g_ir": scale, "ms": _cuda_ms(call, 5),
+           # A single row's call is short enough for the profiler's device
+           # time to matter; on 2,048 rows it dropped kernel records in some
+           # windows, and the call is device-bound (CUDA events).
+           "device_ms": device_ms(call, 5) if m == 1 else None,
+           "plain_ms": _cuda_ms(lambda: cir.rx_power_backward_plain(
+               g_dbm[pick], None, sig[pick], sums[pick], kern), 1),
+           "library_ms": _cuda_ms(library, 3),
+           "library_max_abs_err": float((lib - a).abs().max()), "taps": taps,
+           "bound": _bound(4 * m + 4 * rows.numel() + 8 * m + 4 * nbins + 4 * rows.numel(),
+                           2 * taps)}
+    on_device = "" if m > 1 else f" ({out['device_ms']:.4f} ms on the device)"
+    print(f"# {what} backward, {m} x {nbins} bins (g_eff {out['nonzero_g_eff']} nonzero): kernel "
+          f"== plain on {out['plain_rows']} rows (max |d| {out['max_abs_err']:.3e} of {scale:.3e}), "
+          f"bit-identical across runs{' and alone' if m > 777 else ''}; kernel {out['ms']:.4f} ms a "
+          f"call{on_device}, plain {out['plain_ms']:.1f} ms on its rows, conv1d "
+          f"{out['library_ms']:.3f} ms (max |d| {out['library_max_abs_err']:.3e}), "
+          f"bound {out['bound']['bound_ms']:.4f} ms by {out['bound']['bound_by']} ({taps} taps)",
+          flush=True)
+    return out
+
+
 def _phasor_leg(segs, centers, fkw: dict, what: str) -> dict:
     """K-F against its plain version on all receivers of a sweep, on the
     card's segments: -inf alike, dBm within 1e-3 dB, ratio and spread within
@@ -524,6 +623,22 @@ def _phasor_leg(segs, centers, fkw: dict, what: str) -> dict:
     _require(not bool(spread[~hit].any()) and torch.allclose(spread[hit], spread_p[hit], rtol=1e-4,
                                                              atol=0),
              f"{what}: the spread over the lists differs from its plain version")
+    # The backward, with g_dbm = 1 on every receiver (the summed dBm), on
+    # the coefficients of this forward: twice the same bits, and its plain
+    # version (rtol 1e-4, an absolute floor of 1e-6 of the largest entry).
+    coef = ch.phasor_coefficients(sums, k1[2], torch.ones(centers.shape[0], device=centers.device))
+
+    def backward():
+        return ch.phasor_backward(scaled, centers, COV_RADIUS, coef, **kw)
+
+    gb, gb2 = backward(), backward()
+    gp = ch.phasor_backward_plain(scaled, centers, COV_RADIUS, coef, **kw)
+    _sync()
+    _require(torch.equal(gb, gb2), f"{what}: two backward runs differ")
+    g_scale = float(gp.abs().max())
+    _require(bool(torch.isfinite(gb).all()) and torch.allclose(gb, gp, rtol=1e-4,
+                                                                atol=1e-6 * g_scale),
+             f"{what}: backward kernel != plain")
     captures, lost = ch.phasor_lists_spent(walks)
     per_region = torch.cat([w.regions(1).reshape(-1) for w in walks]).float()
     chunks = sum(int(w.ints[0]) for w in walks)
@@ -555,7 +670,16 @@ def _phasor_leg(segs, centers, fkw: dict, what: str) -> dict:
                       "plain_ms": _cuda_ms(lambda: ch.phasor_spread_plain(
                           scaled, centers, COV_RADIUS, t_mean, **kw), 1),
                       # A capture's pair read once (8 bytes), four operations.
-                      "bound": _bound(8 * captures + 8 * m, 4 * captures)}}
+                      "bound": _bound(8 * captures + 8 * m, 4 * captures)},
+           # The backward does the walk's sphere tests; it reads the
+           # segments, the centers and 32 bytes of coefficients a receiver
+           # and writes one gradient a segment.
+           "backward": {"max_abs_err": float((gb - gp).abs().max()), "max_abs_grad": g_scale,
+                        "ms": _cuda_ms(backward, 5),
+                        "plain_ms": _cuda_ms(lambda: ch.phasor_backward_plain(
+                            scaled, centers, COV_RADIUS, coef, **kw), 1),
+                        "bound": _bound(seg_bytes + 12 * m + 32 * m + 4 * segs.t_env.numel(),
+                                        17 * m * int(segs.alive.sum()))}}
     print(f"# {what}, {m} receivers: kernel == plain (dBm max |d| {dbm_err:.3e}, ratio rel "
           f"{out['ratio_max_rel_err']:.3e}, spread rel {out['spread_max_rel_err']:.3e}, "
           f"{out['flagged']} flagged), bit-identical across runs and alone; kernel {out['ms']:.3f} "
@@ -565,6 +689,12 @@ def _phasor_leg(segs, centers, fkw: dict, what: str) -> dict:
           f"in {out['regions']} (slab, receiver) regions (median {out['captures_per_region']['0.5']:.0f}, "
           f"p99 {out['captures_per_region']['0.99']:.0f}, max {out['captures_per_region']['1.0']:.0f}), "
           f"{chunks} of {out['pool_chunks']} chunks, {lost} regions lost (walked again)", flush=True)
+    bw = out["backward"]
+    print(f"# {what} backward, {m} receivers, g_dbm = 1: kernel == plain (max |d| "
+          f"{bw['max_abs_err']:.3e} of {g_scale:.3e}), bit-identical across runs; kernel "
+          f"{bw['ms']:.3f} ms a call (one launch), plain "
+          f"{bw['plain_ms']:.1f} ms, bound {bw['bound']['bound_ms']:.3f} ms by "
+          f"{bw['bound']['bound_by']}", flush=True)
     return out
 
 
@@ -1242,6 +1372,8 @@ def _coverage_phase(terrain, dev, kernels):
         # 1b. K-P on K3's IRs (the exact sweep's) and K-F on the segments,
         #     each against its plain version on the card.
         res["rx_power"] = _rx_power_leg(k1, COV_WINDOW, f"rx_power kernel, {name}")
+        res["rx_power_backward"] = _rx_power_backward_leg(k1, COV_WINDOW,
+                                                          f"rx_power kernel, {name}")
         res["phasor"] = _phasor_leg(segs, centers, fkw, f"phasor kernel, {name}")
         torch.cuda.empty_cache()
 
@@ -1366,6 +1498,185 @@ def _coverage_phase(terrain, dev, kernels):
               f"{res['fast_ms']:.1f} ms; hybrid {res['hybrid_host_s'] * 1e3:.1f} / "
               f"{res['hybrid_ms']:.1f} ms", flush=True)
         del segs, scaled, segs_cpu, k1, irs
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mean_finite(dbm):
+    import torch
+
+    fin = torch.isfinite(dbm)
+    return torch.where(fin, dbm, torch.zeros((), device=dbm.device)).sum() / fin.sum()
+
+
+def _fd_check(loss_at, log_n1: float, grad: float, h: float, what: str) -> dict:
+    """A central difference of `loss_at` (a forward without autograd) in
+    log n1 with step h against the autograd derivative: within 1%."""
+    import torch
+
+    with torch.no_grad():
+        fd = (float(loss_at(log_n1 + h)) - float(loss_at(log_n1 - h))) / (2 * h)
+    rel = abs(grad - fd) / max(abs(fd), 1e-30)
+    _require(rel < 0.01, f"{what}: d/d log n1 {grad} vs central difference {fd} (step {h})")
+    return {"fd": fd, "autograd": grad, "step": h, "rel_err": rel}
+
+
+def _coverage_grad_phase(terrain, dev, kernels):
+    """Phase 16: the coverage metrics' value+grad at full width, counted on
+    their own; returns what it measured, with the launch counts of each path."""
+    import math
+
+    import torch
+
+    from rfx_torch import cir
+    from rfx_torch.coverage import coverage_dbm, coverage_dbm_fast, coverage_irs
+    from rfx_torch.geometry import make_room
+    from rfx_torch.ops import coverage_hist as ch
+    from rfx_torch.sampler import morton_sphere_directions
+
+    dirs = morton_sphere_directions(COV_RAYS, generator=torch.Generator(dev).manual_seed(0),
+                                    device=dev)
+    log_n1_0 = math.log(5.0)
+    base = dict(max_bounces=2, num_rays=COV_RAYS, sample_window_s=COV_WINDOW,
+                sample_rate_hz=RATE)
+    kw = dict(nbins=COV_BINS, light_speed_mps=C, sample_rate_hz=RATE, sample_window_s=COV_WINDOW,
+              carrier_hz=2.4e9)
+    out = {"launches": {}}
+    meshes = {"room": make_room(), "terrain": terrain}
+    for name, tx, zs in COV_SCENES:
+        tracer, grid, segs, scaled = coverage_workload(meshes[name], tx, zs, dirs, dev)
+        centers = torch.as_tensor(grid, device=dev)
+        fast_kw = dict(base, env_hit=tracer.env_hit)
+
+        def fast_loss(log_n1, tx_p, c=centers):
+            return _mean_finite(coverage_dbm_fast(tracer.scene, tx_p, dirs, c, COV_RADIUS,
+                                                  n1=torch.exp(log_n1), **fast_kw))
+
+        def fast_valgrad():
+            log_n1 = torch.tensor(log_n1_0, device=dev, requires_grad=True)
+            tx_p = torch.tensor(tx, device=dev, requires_grad=True)
+            loss = fast_loss(log_n1, tx_p)
+            g = torch.autograd.grad(loss, [log_n1, tx_p], allow_unused=True,
+                                    materialize_grads=True)
+            return loss.detach(), g[0], g[1]
+
+        fast_valgrad()  # warm-up
+        needs = (*PHASOR_NEEDS, K_PHASOR_BACKWARD) + (() if name == "room" else (K_HIT,))
+        (loss, g_n1, g_tx), launches = _counted(kernels, f"coverage_fast_grad_{name}", needs,
+                                                fast_valgrad)
+        out["launches"][f"coverage_fast_grad_{name}"] = launches
+        _require(all(launches[k] == 1 for k in (*PHASOR_NEEDS, K_PHASOR_BACKWARD))
+                 and launches[K_COV] == 0,
+                 f"fast metric value+grad, {name}: launches {launches}")
+        again = fast_valgrad()
+        _sync()
+        _require(all(torch.equal(a, b) for a, b in zip((loss, g_n1, g_tx), again)),
+                 f"fast metric value+grad, {name}: two runs differ")
+        _require(torch.equal(g_tx, torch.zeros_like(g_tx)),
+                 f"fast metric, {name}: d/d tx is {g_tx.tolist()}, not exactly 0")
+        fd = _fd_check(lambda v: fast_loss(torch.tensor(v, device=dev),
+                                           torch.tensor(tx, device=dev)),
+                       log_n1_0, float(g_n1), 2e-3, f"fast metric, {name}")
+        # The kernel's g_amplitude against its plain version on the same
+        # forward, for this loss's cotangent (1 / n on the reached receivers).
+        amp = scaled.amplitude.detach().clone().requires_grad_()
+        fwd = ch.coverage_phasor(scaled._replace(amplitude=amp), centers, COV_RADIUS, **kw)
+        fin = torch.isfinite(fwd[0])
+        g_dbm = torch.where(fin, 1.0 / fin.sum(), torch.zeros((), device=dev)).float()
+        (g_amp,) = torch.autograd.grad(fwd[0], amp, grad_outputs=g_dbm)
+        sums, _ = ch._phasor_sums(scaled, centers, COV_RADIUS, **kw)
+        g_plain = ch.phasor_backward_plain(
+            scaled, centers, COV_RADIUS, ch.phasor_coefficients(sums, fwd[2].detach(), g_dbm), **kw)
+        _sync()
+        g_scale = float(g_plain.abs().max())
+        _require(torch.allclose(g_amp, g_plain, rtol=1e-4, atol=1e-6 * g_scale),
+                 f"fast metric, {name}: g_amplitude != phasor_backward_plain")
+        res = out[f"fast_{name}"] = {
+            "loss": float(loss), "d_log_n1": float(g_n1), "d_tx": g_tx.tolist(), "fd": fd,
+            "g_amp_max_abs_err": float((g_amp - g_plain).abs().max()), "g_amp_max": g_scale,
+            "valgrad_ms": _cuda_ms(fast_valgrad, 3),
+            "forward_ms": _cuda_ms(lambda: fast_loss(torch.tensor(log_n1_0, device=dev),
+                                                     torch.tensor(tx, device=dev)), 3)}
+        print(f"# coverage fast value+grad, {name}, {centers.shape[0]} receivers x 2 x {COV_RAYS}: "
+              f"loss {res['loss']:.6f} dBm, d/d log n1 {res['d_log_n1']:.6e} (central difference, "
+              f"step {fd['step']}: {fd['fd']:.6e}, rel {fd['rel_err']:.2e}), d/d tx exactly 0; "
+              f"g_amplitude == plain (max |d| {res['g_amp_max_abs_err']:.3e} of {g_scale:.3e}), "
+              f"bit-identical across runs; value+grad {res['valgrad_ms']:.2f} ms, forward "
+              f"{res['forward_ms']:.2f} ms", flush=True)
+        del amp, fwd, g_amp, g_plain, segs, scaled
+
+        if name != "room":
+            continue
+        # The exact metric with soft binning on 64 of the room's receivers
+        # (every 32nd): the map engine, K-H, K-P and their backwards.
+        few = centers[::32].contiguous()
+        exact_kw = dict(base, env_hit=tracer.env_hit, soft=True, rx_batch=64, engine="map")
+
+        def exact_loss(log_n1, tx_p):
+            return _mean_finite(coverage_dbm(tracer.scene, tx_p, dirs, few, COV_RADIUS,
+                                             n1=torch.exp(log_n1), **exact_kw))
+
+        def exact_valgrad():
+            log_n1 = torch.tensor(log_n1_0, device=dev, requires_grad=True)
+            tx_p = torch.tensor(tx, device=dev, requires_grad=True)
+            loss = exact_loss(log_n1, tx_p)
+            g = torch.autograd.grad(loss, [log_n1, tx_p])
+            return loss.detach(), g[0], g[1]
+
+        exact_valgrad()  # warm-up
+        (loss, g_n1, g_tx), launches = _counted(
+            kernels, "coverage_exact_grad_room", (K_HIST, K_POWER, K_POWER_BACKWARD), exact_valgrad)
+        out["launches"]["coverage_exact_grad_room"] = launches
+        # K-H's backward is plain PyTorch (a gather, as rfx's is XLA's
+        # autodiff): the histogram launches once, in the forward.
+        _require(launches[K_HIST] == 1 and launches[K_POWER] == 1
+                 and launches[K_POWER_BACKWARD] == 1 and launches[K_COV] == 0,
+                 f"exact metric value+grad: launches {launches}")
+        again = exact_valgrad()
+        _sync()
+        _require(all(torch.equal(a, b) for a, b in zip((loss, g_n1, g_tx), again)),
+                 "exact metric value+grad: two runs differ")
+        _require(bool(torch.isfinite(g_tx).all()) and bool((g_tx != 0).any()),
+                 f"exact metric: d/d tx {g_tx.tolist()}")
+        fd = _fd_check(lambda v: exact_loss(torch.tensor(v, device=dev),
+                                            torch.tensor(tx, device=dev)),
+                       log_n1_0, float(g_n1), 2e-3, "exact metric")
+        # K-P's backward against its plain version on all 64 rows, for this
+        # loss's cotangent, on the same forward.
+        with torch.no_grad():
+            irs = coverage_irs(tracer.scene, torch.tensor(tx, device=dev), dirs, few, COV_RADIUS,
+                               nbins=COV_BINS, n1=5.0, **{k: v for k, v in exact_kw.items()
+                                                          if k != "sample_window_s"})
+        x = irs.clone().requires_grad_()
+        dbm, _ = cir.rx_power_dbm(x, COV_WINDOW)
+        fin = torch.isfinite(dbm)
+        g_dbm = torch.where(fin, 1.0 / fin.sum(), torch.zeros((), device=dev)).float()
+        (g_ir,) = torch.autograd.grad(dbm, x, grad_outputs=g_dbm)
+        kern = cir.carrier_cached(COV_BINS, COV_WINDOW, 2.4e9, dev)
+        sig, _, sums = cir._rx_power_launch(irs, kern)
+        g_plain = cir.rx_power_backward_plain(g_dbm, None, sig, sums, kern)
+        _sync()
+        g_scale = float(g_plain.abs().max())
+        _require(torch.allclose(g_ir, g_plain, rtol=1e-4, atol=1e-5 * g_scale),
+                 "exact metric: K-P's g_ir != rx_power_backward_plain")
+        res = out["exact_room"] = {
+            "receivers": int(few.shape[0]), "loss": float(loss), "d_log_n1": float(g_n1),
+            "d_tx": g_tx.tolist(), "fd": fd,
+            "g_ir_max_abs_err": float((g_ir - g_plain).abs().max()), "g_ir_max": g_scale,
+            "valgrad_ms": _cuda_ms(exact_valgrad, 3),
+            "forward_ms": _cuda_ms(lambda: exact_loss(torch.tensor(log_n1_0, device=dev),
+                                                      torch.tensor(tx, device=dev)), 3)}
+        torch.cuda.reset_peak_memory_stats(dev)
+        exact_valgrad()
+        res["valgrad_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        print(f"# coverage exact (soft) value+grad, room, {few.shape[0]} receivers x 2 x "
+              f"{COV_RAYS}: loss {res['loss']:.6f} dBm, d/d log n1 {res['d_log_n1']:.6e} (central "
+              f"difference, step {fd['step']}: {fd['fd']:.6e}, rel {fd['rel_err']:.2e}), d/d tx "
+              f"{[round(v, 6) for v in res['d_tx']]}; K-P g_ir == plain on all rows (max |d| "
+              f"{res['g_ir_max_abs_err']:.3e} of {g_scale:.3e}), bit-identical across runs; "
+              f"value+grad {res['valgrad_ms']:.2f} ms, forward {res['forward_ms']:.2f} ms, peak "
+              f"{res['valgrad_peak_bytes'] / 2**30:.2f} GiB", flush=True)
+        del irs, x, g_ir, g_plain
         torch.cuda.empty_cache()
     return out
 
@@ -1805,6 +2116,7 @@ def main() -> int:
         COVERAGE_PHASOR_KERNEL,
         COVERAGE_REDUCE_KERNEL,
         COVERAGE_SPREAD_KERNEL,
+        PHASOR_BACKWARD_KERNEL,
         PHASOR_TABLE_KERNEL,
     )
     from rfx_torch.ops.fused import (
@@ -1833,16 +2145,17 @@ def main() -> int:
 
     # 2. Build the six CUDA sources and the native BVH builder from the
     #    sources in this checkout, one compiler each, all started together;
-    #    the counted fused trace, the counted closest hit, the slab reduction
-    #    and the phasor metric's walk, spread and table bind their entries in
-    #    the libraries of the fused trace, the closest hit and the coverage
-    #    histogram.
+    #    the counted fused trace, the counted closest hit, the slab reduction,
+    #    the phasor metric's walk, spread, table and backward, and the
+    #    RX-power backward bind their entries in the libraries of the fused
+    #    trace, the closest hit, the coverage histogram and the RX power.
     t0 = time.perf_counter()
     per_source = (FUSED_TRACE_KERNEL, CLOSEST_HIT_KERNEL, cir.HISTOGRAM_KERNEL,
                   COVERAGE_HIST_KERNEL, MICRO_VOTE_KERNEL, cir.RX_POWER_KERNEL)
     kernels_built = per_source + (FUSED_TRACE_COUNTED_KERNEL, CLOSEST_HIT_COUNTED_KERNEL,
                                   COVERAGE_REDUCE_KERNEL, COVERAGE_PHASOR_KERNEL,
-                                  COVERAGE_SPREAD_KERNEL, PHASOR_TABLE_KERNEL)
+                                  COVERAGE_SPREAD_KERNEL, PHASOR_TABLE_KERNEL,
+                                  cir.RX_POWER_BACKWARD_KERNEL, PHASOR_BACKWARD_KERNEL)
     with ThreadPoolExecutor(len(per_source) + 1) as pool:
         native = pool.submit(native_lib.load)
         list(pool.map(lambda k: k.load(), per_source))
@@ -1962,6 +2275,7 @@ def main() -> int:
              "the main path's first IR differs from the checked kernels' IR")
     # K-P on that IR, the `cir` command's single-IR call.
     kp_cir = _rx_power_leg(ir_k, WINDOW, "rx_power kernel, the request's IR")
+    kpb_cir = _rx_power_backward_leg(ir_k, WINDOW, "rx_power kernel, the request's IR")
     _require(float(cir.rx_power_dbm(ir_k, WINDOW)[0]) == requests[0][4],
              "rx_power_dbm of the checked IR differs from the first request's")
     for tx_i, ev_ms, host_s, ir, dbm in requests:
@@ -2008,6 +2322,11 @@ def main() -> int:
     del dirs, fused, tracer
     torch.cuda.empty_cache()
     cov = _coverage_phase(mesh, dev, kernels_built)
+    # 16. The coverage metrics' value+grad (before phase 14, whose tables
+    #     would otherwise share the card with its tensors).
+    torch.cuda.empty_cache()
+    cov_grad = _coverage_grad_phase(mesh, dev, kernels_built)
+    torch.cuda.empty_cache()
     large, large_launches = _large_mesh_phase(
         root, dev, kernels_built, bvh,
         morton_sphere_directions(N_RAYS, generator=torch.Generator(dev).manual_seed(0), device=dev))
@@ -2021,6 +2340,7 @@ def main() -> int:
         "fused_grad": grad["fused"].pop("launches"),
         "solver": solve.pop("launches"),
         **cov.pop("launches"),
+        **cov_grad.pop("launches"),
         **large_launches,
         **dist_launches,
     }
@@ -2035,6 +2355,9 @@ def main() -> int:
     kh_batch = solve["histogram_batch"]
     kp_room, kp_terrain = cov["room"].pop("rx_power"), cov["terrain"].pop("rx_power")
     kf_room, kf_terrain = cov["room"].pop("phasor"), cov["terrain"].pop("phasor")
+    kpb_room = cov["room"].pop("rx_power_backward")
+    kpb_terrain = cov["terrain"].pop("rx_power_backward")
+    kfb_room, kfb_terrain = kf_room.pop("backward"), kf_terrain.pop("backward")
     bench_wc, large_wc, sub14 = large["bench_walk_counters"], large["walk_counters"], large["subset"]
     votes = large["micro_vote"]["styles"]["votes"]
     m_steps, m_check = large["micro_vote"]["steps"], large["micro_vote"]["check_steps"]
@@ -2188,6 +2511,38 @@ def main() -> int:
          **kf_room["table"]["bound"], "library_ms": None,
          "shape": f"the phasor metric's per-bin (sqrt s_k, cos, sin, t_k), {COV_BINS} bins; "
                   f"max_abs_err against its torch form on the card (cos and sin)"},
+        {"name": "rx_power_backward", "route": "cuda", "source": "rfx_torch/csrc/rx_power.cu",
+         "replaces": "rfx/cir.py:184", **counts(K_POWER_BACKWARD),
+         "max_abs_err": max(kp["max_abs_err"] for kp in (kpb_room, kpb_terrain, kpb_cir)),
+         "ms": kpb_room["ms"], "plain_ms": kpb_room["plain_ms"], **kpb_room["bound"],
+         "library_ms": kpb_room["library_ms"],
+         "ms_terrain": kpb_terrain["ms"], "plain_ms_terrain": kpb_terrain["plain_ms"],
+         **_suffixed(kpb_terrain["bound"], "_terrain"),
+         "library_ms_terrain": kpb_terrain["library_ms"],
+         "ms_cir": kpb_cir["ms"], "device_ms_cir": kpb_cir["device_ms"],
+         "plain_ms_cir": kpb_cir["plain_ms"], **_suffixed(kpb_cir["bound"], "_cir"),
+         "library_ms_cir": kpb_cir["library_ms"],
+         "shape": f"the transpose of rfx/cir.py:184's lax.conv under jax.grad, g_dbm = 1 on "
+                  f"every row: ms, bound_ms, library_ms: the room's 2048 exact IRs x {COV_BINS} "
+                  f"bins; *_terrain: the terrain's; *_cir: the forward request's IR, {NBINS} bins; "
+                  f"plain_ms: rx_power_backward_plain on {kpb_room['plain_rows']} of the rows; ms "
+                  f"is the wrapper's call (the cotangent's compaction and the transposed "
+                  f"convolution), device_ms_cir the device's own time a call; bound_ms counts 2 f32 "
+                  f"operations per in-range tap of the nonzero g_eff; max_abs_err on g_ir; "
+                  f"library_ms: conv1d of g_eff with the carrier, no TF32"},
+        {"name": "coverage_phasor_backward", "route": "cuda",
+         "source": "rfx_torch/csrc/coverage_hist.cu", "replaces": "rfx/coverage.py:229",
+         **counts(K_PHASOR_BACKWARD),
+         "max_abs_err": max(kf["max_abs_err"] for kf in (kfb_room, kfb_terrain)),
+         "ms": kfb_room["ms"], "plain_ms": kfb_room["plain_ms"], **kfb_room["bound"],
+         "library_ms": None, "ms_terrain": kfb_terrain["ms"],
+         "plain_ms_terrain": kfb_terrain["plain_ms"],
+         **_suffixed(kfb_terrain["bound"], "_terrain"),
+         "shape": f"the phasor metric's d / d amplitude under jax.grad, g_dbm = 1 on every "
+                  f"receiver, 2048 receivers x 2 bounces x {COV_RAYS} rays, radius {COV_RADIUS}, "
+                  f"{COV_BINS} bins: ms, plain_ms, bound_ms: the room; *_terrain: the terrain; "
+                  f"max_abs_err on g_amplitude against phasor_backward_plain; bound_ms: the "
+                  f"forward walk's sphere tests"},
         {"name": "micro_vote", "route": "cuda", "source": "rfx_torch/csrc/micro_vote.cu",
          "replaces": "scripts/micro_reduce.py:64", **counts(K_VOTE),
          "max_abs_err": max(abs(v["carry"] - v["plain_carry"])
@@ -2209,7 +2564,10 @@ def main() -> int:
         "solver": {"rays": SOLVER_RAYS, "receivers": 64, **solve},
         "coverage": {"rays": COV_RAYS, "receivers": 2048, "bins": COV_BINS, **cov},
         "rx_power": {"room": kp_room, "terrain": kp_terrain, "cir": kp_cir},
-        "phasor": {"room": kf_room, "terrain": kf_terrain}}))
+        "phasor": {"room": kf_room, "terrain": kf_terrain},
+        "rx_power_backward": {"room": kpb_room, "terrain": kpb_terrain, "cir": kpb_cir},
+        "phasor_backward": {"room": kfb_room, "terrain": kfb_terrain},
+        "coverage_grad": cov_grad}))
     print(json.dumps({"large_mesh": large, "bench_subset_counters": bench_sub}))
     print(json.dumps({"distribution": dist_out}))
     print(card)

@@ -6,7 +6,7 @@ host modules (`geometry.py`, `bvh.py`, `config.py`, `viz/`, `utils/`), and an
 `rfx` mesh or BVH crosses by field through `convert.py`.
 
 Every public entry point takes `device=` (default `"cuda"`). On a CUDA tensor
-the hand-written kernels run, twelve C entry points in six sources of
+the hand-written kernels run, fourteen C entry points in six sources of
 rfx_torch/csrc/, built with nvcc at first use (`ops/_build.py`):
 
 - `fused_trace.cu`: the fused bounce loop and its counted instantiation;
@@ -14,16 +14,22 @@ rfx_torch/csrc/, built with nvcc at first use (`ops/_build.py`):
 - `histogram.cu`: the IR histogram, one launch for a batch of rows;
 - `coverage_hist.cu`: the coverage histogram, its slab reduction, and the
   phasor metric: its per-bin table, its sums over the same walk and capture
-  rule, and its delay spread over the capture lists that walk leaves;
+  rule, its delay spread over the capture lists that walk leaves, and its
+  backward (d / d amplitude, a thread a ray over the receivers in order);
 - `rx_power.cu`: the RX-power metric's convolution with the carrier and its
-  dBm, one call for a batch of IRs;
+  dBm, one call for a batch of IRs, and its backward (the transposed
+  convolution of the metric's cotangent);
 - `micro_vote.cu`: the vote micro-kernel, a latency probe.
 
 On a CPU tensor their plain PyTorch versions run. The RX-power and phasor
-kernels have no backward: on the card an input that requires grad raises
-there. Asking for CUDA where there is no card raises. Gradients flow through the scan tracer (`tracer.py`), the
-differentiable fused tracer (`ops/fused.py`), the coverage engine
-(`coverage.py`) and the inverse solver (`solver.py`).
+metrics differentiate on either device through one autograd Function each,
+whose backward is the backward kernel on the card and its plain version on
+the CPU; the coverage histogram has no backward (nor has rfx's batched
+engine): on the card an input that requires grad raises there. Asking for
+CUDA where there is no card raises. Gradients flow through the scan tracer
+(`tracer.py`), the differentiable fused tracer (`ops/fused.py`), the
+coverage engine (`coverage.py`: the map engine, the RX-power and the phasor
+metrics) and the inverse solver (`solver.py`).
 
 `parallel/` distributes over ranks with torch.distributed: `dist.py` shards
 the CIR, coverage and (through `solver.py`'s `mesh=`) the inverse solve over

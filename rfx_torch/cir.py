@@ -17,12 +17,18 @@ binning is linear in it between bin centres.
 
 `rx_power_dbm` is a direct convolution over each IR's nonzero bins, so exact
 zeros stay zero: the metric averages over the nonzero samples only, and an
-FFT would fill them with roundoff. On a CUDA tensor it launches the RX-power
-kernel (rfx_torch/csrc/rx_power.cu), one call whatever the rows, the dBm
-included, on a carrier made once per size (`carrier_cached`); on a CPU
-tensor, or where a gradient is wanted, it runs its plain version,
-`rx_power_dbm_plain`. `rx_power_dbm_phasor` is the coverage engine's fast
-metric: the same power from the paths' phasors, with no impulse response.
+FFT would fill them with roundoff. Where a gradient is wanted, both devices
+go through one `torch.autograd.Function` (without one, its forward alone
+runs). On a CUDA tensor the forward launches the RX-power kernel
+(rfx_torch/csrc/rx_power.cu), one call whatever the rows, the dBm and each
+row's count and sum of squares included, on a carrier made once per size
+(`carrier_cached`), and the backward launches its backward kernel
+(`rx_power_backward`); on a CPU tensor the forward is its plain version's
+(`rx_power_dbm_plain`) and the backward `rx_power_backward_plain`. The
+gradient is jax.grad's of rfx.cir.rx_power_dbm: the transposed 'same'
+convolution, dense in the bins. `rx_power_dbm_phasor` is the coverage
+engine's fast metric: the same power from the paths' phasors, with no
+impulse response.
 """
 
 from __future__ import annotations
@@ -36,9 +42,9 @@ import torch
 from rfx_torch.ops._build import CudaKernel, F, I, P
 
 __all__ = ["bin_impulse_response", "carrier_cached", "cir_from_trace", "convolve_carrier_plain", "histogram_plain",
-           "mask_tiles", "phasor_metric", "rx_power_dbm", "rx_power_dbm_phasor",
-           "rx_power_dbm_plain", "to_dbm",
-           "HISTOGRAM_KERNEL", "RX_POWER_KERNEL"]
+           "mask_tiles", "phasor_metric", "rx_power_backward", "rx_power_backward_plain",
+           "rx_power_dbm", "rx_power_dbm_phasor", "rx_power_dbm_plain", "to_dbm",
+           "HISTOGRAM_KERNEL", "RX_POWER_BACKWARD_KERNEL", "RX_POWER_KERNEL"]
 
 HARD, SOFT_LO, SOFT_HI = 0, 1, 2
 
@@ -46,7 +52,9 @@ HISTOGRAM_KERNEL = CudaKernel(
     "histogram.cu", "rfx_ir_histogram",
     [P, P, P, I, I, F, F, I, I, I, P, P, P, ctypes.c_longlong, P],
 )
-RX_POWER_KERNEL = CudaKernel("rx_power.cu", "rfx_rx_power", [P, P, I, I, P, P, P, P, P])
+RX_POWER_KERNEL = CudaKernel("rx_power.cu", "rfx_rx_power", [P, P, I, I, P, P, P, P, P, P])
+RX_POWER_BACKWARD_KERNEL = CudaKernel("rx_power.cu", "rfx_rx_power_backward",
+                                      [P, P, P, P, P, I, I, P, P, P, P])
 
 # The kernel's constants (csrc/histogram.cu): a warp counts a tile of 128
 # 16-byte words of mask; a block sorts a chunk of 2,048 captures.
@@ -116,6 +124,15 @@ def histogram_plain(amplitude, distance, captured, *, nbins: int, light_speed_mp
                             mode=mode)
 
 
+def _launch_on(kernel: CudaKernel, dev: torch.device, args: tuple):
+    """Launch `kernel` with `args` on `dev`'s current stream."""
+    if torch.cuda.current_device() == dev.index:  # spare a single-row call the context's host time
+        kernel.launch(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            kernel.launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+
+
 def _launch(amplitude, distance, captured, *, nbins: int, light_speed_mps: float,
             sample_rate_hz: float, soft: bool) -> list:
     """One launch of the kernel on (N,) or (R, N) CUDA tensors, R, N > 0: the
@@ -141,14 +158,10 @@ def _launch(amplitude, distance, captured, *, nbins: int, light_speed_mps: float
     n_zero += n_zero & 1  # the scratch starts on 8 bytes
     buf = torch.empty(n_zero + rows * (4 * tmax + 2) + 1, dtype=torch.float32, device=dev)
     ptr = buf.data_ptr()
-    args = (amplitude.data_ptr(), distance.data_ptr(), captured.data_ptr(), n, rows,
-            float(light_speed_mps), float(sample_rate_hz), nbins, int(soft), tmax,
-            ptr + 4 * n_zero, ptr, ptr + 4 * n_out, 4 * n_zero)
-    if torch.cuda.current_device() == dev.index:  # spare a single-row call the context's host time
-        HISTOGRAM_KERNEL.launch(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(dev):
-            HISTOGRAM_KERNEL.launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+    _launch_on(HISTOGRAM_KERNEL, dev, (
+        amplitude.data_ptr(), distance.data_ptr(), captured.data_ptr(), n, rows,
+        float(light_speed_mps), float(sample_rate_hz), nbins, int(soft), tmax, ptr + 4 * n_zero,
+        ptr, ptr + 4 * n_out, 4 * n_zero))
     shape = amplitude.shape[:-1] + (nbins,)
     return [buf.narrow(0, h * n_plane, n_plane).view(shape) for h in range(planes)]
 
@@ -373,34 +386,160 @@ def rx_power_dbm_plain(impulse_response: torch.Tensor, sample_window_s: float,
     return dbm, out
 
 
-def _rx_power_launch(ir: torch.Tensor, kern: torch.Tensor):
-    """One launch sequence of the RX-power kernel on (M, nbins) CUDA rows:
-    (out, dBm); no autograd."""
-    dev = ir.device
-    m, nbins = ir.shape
-    if m == 0 or nbins == 0:
-        return (torch.zeros((m, nbins), dtype=torch.float32, device=dev),
-                torch.full((m,), -math.inf, dtype=torch.float32, device=dev))
+def _power_scratch(m: int, nbins: int, dev) -> torch.Tensor:
+    """The RX-power kernels' scratch: each row's (k, value) pairs, two words
+    a bin, and the segments' counts."""
+    return torch.empty(2 * m * nbins + m * -(-nbins // _POWER_SEGMENT), dtype=torch.int32,
+                       device=dev)
+
+
+def _check_power_launch(m: int, nbins: int):
     if -(-nbins // _POWER_TILE) > 65535:
         raise ValueError(f"at most {65535 * _POWER_TILE} bins, got {nbins}")
     if m * -(-nbins // 128) >= 2**31:  # the blocks of the narrowest tiling
         raise ValueError(f"too many rows for one launch: {m} of {nbins} bins")
+
+
+def _rx_power_launch(ir: torch.Tensor, kern: torch.Tensor):
+    """One launch sequence of the RX-power kernel on (M, nbins) CUDA rows:
+    (out, dBm, (M, 2) sums: each row's sum of squares and count of nonzero
+    samples); no autograd."""
+    dev = ir.device
+    m, nbins = ir.shape
+    if m == 0 or nbins == 0:
+        return (torch.zeros((m, nbins), dtype=torch.float32, device=dev),
+                torch.full((m,), -math.inf, dtype=torch.float32, device=dev),
+                torch.zeros((m, 2), dtype=torch.float32, device=dev))
+    _check_power_launch(m, nbins)
     ir = ir.contiguous()
-    # The signal and the dBm in one buffer; the kernel's scratch in another
-    # (each row's (k, value) pairs, two words a bin, and the segments' counts),
-    # so that a kept signal does not keep the scratch.
-    n_seg = -(-nbins // _POWER_SEGMENT)
-    res = torch.empty(m * nbins + m, dtype=torch.float32, device=dev)
-    scratch = torch.empty(2 * m * nbins + m * n_seg, dtype=torch.int32, device=dev)
+    # The signal, the dBm and the sums (on 8 bytes) in one buffer; the
+    # kernel's scratch in another, so that a kept signal does not keep it.
+    at_sums = m * nbins + m + ((m * nbins + m) & 1)
+    res = torch.empty(at_sums + 2 * m, dtype=torch.float32, device=dev)
+    scratch = _power_scratch(m, nbins, dev)
     ptr, sp = res.data_ptr(), scratch.data_ptr()
-    args = (ir.data_ptr(), kern.data_ptr(), m, nbins, ptr, ptr + 4 * m * nbins, sp,
-            sp + 8 * m * nbins)
-    if torch.cuda.current_device() == dev.index:  # spare a single-row call the context's host time
-        RX_POWER_KERNEL.launch(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(dev):
-            RX_POWER_KERNEL.launch(*args, torch.cuda.current_stream(dev).cuda_stream)
-    return res[:m * nbins].view(m, nbins), res[m * nbins:]
+    _launch_on(RX_POWER_KERNEL, dev, (ir.data_ptr(), kern.data_ptr(), m, nbins, ptr,
+                                      ptr + 4 * m * nbins, ptr + 4 * at_sums, sp,
+                                      sp + 8 * m * nbins))
+    return (res[:m * nbins].view(m, nbins), res[m * nbins:m * nbins + m],
+            res[at_sums:].view(m, 2))
+
+
+# 20 / ln 10: d dBm / d sum of squares, times the sum of squares, over 1/2.
+_DB_PER_POWER = 20.0 / math.log(10.0)
+
+
+def _effective_cotangent(g_dbm, g_signal, signal: torch.Tensor, sums: torch.Tensor):
+    """g_eff of the backward, f32 (M, nbins): g_signal + g_dbm (20 / ln 10) /
+    sq * signal, the second term only where the row has a nonzero sample,
+    g_dbm != 0 and the sample is nonzero (a zero cotangent is skipped, not
+    multiplied: jax.grad prunes it). The kernel forms the same f32
+    expressions."""
+    zero = torch.zeros((), dtype=torch.float32, device=signal.device)
+    g_eff = (torch.zeros_like(signal) if g_signal is None
+             else g_signal.to(torch.float32).expand_as(signal))
+    if g_dbm is not None:
+        g = g_dbm.to(torch.float32).reshape(-1)
+        k = torch.tensor(_DB_PER_POWER, dtype=torch.float32, device=signal.device)
+        scale = torch.where((g != 0) & (sums[:, 1] > 0), g * k / sums[:, 0], zero)
+        term = torch.where((scale[:, None] != 0) & (signal != 0), scale[:, None] * signal, zero)
+        g_eff = g_eff + term
+    return g_eff
+
+
+def rx_power_backward_plain(g_dbm, g_signal, signal: torch.Tensor, sums: torch.Tensor,
+                            kern: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the RX-power backward kernel, on either
+    device: g_ir (M, nbins) f32 from the cotangents g_dbm (M,) and g_signal
+    (M, nbins), either None for none, the forward's signal (M, nbins) and sums
+    (M, 2) (sum of squares, count) and the carrier. g_ir[r, k] = sum_j
+    g_eff[r, j] carrier[j + lo - k] (`_effective_cotangent`), the 'same'
+    convolution's adjoint, dense in k, summed in float64."""
+    g_eff = _effective_cotangent(g_dbm, g_signal, signal, sums)
+    return _gathered_taps(g_eff.double(), kern.double(), reflect=True).to(torch.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _reversed_carrier_cached(nbins: int, sample_window_s: float, carrier_hz: float,
+                             device: torch.device) -> torch.Tensor:
+    """The carrier back to front, made once per key: the backward kernel's
+    convolution runs the forward's on it (rfx_torch/csrc/rx_power.cu)."""
+    return carrier_cached(nbins, sample_window_s, carrier_hz, device).flip(0).contiguous()
+
+
+def _rx_power_backward_launch(g_dbm, g_signal, signal: torch.Tensor, sums: torch.Tensor,
+                              reversed_carrier: torch.Tensor) -> torch.Tensor:
+    """One launch sequence of the backward kernel on CUDA tensors: g_ir."""
+    dev = signal.device
+    m, nbins = signal.shape
+    if m == 0 or nbins == 0 or (g_dbm is None and g_signal is None):
+        return torch.zeros((m, nbins), dtype=torch.float32, device=dev)
+    _check_power_launch(m, nbins)
+    # Kept referenced until the launch is enqueued.
+    g_dbm = None if g_dbm is None else g_dbm.to(torch.float32).reshape(m).contiguous()
+    g_signal = None if g_signal is None else g_signal.to(torch.float32).expand(m, nbins).contiguous()
+    signal, sums = signal.contiguous(), sums.contiguous()
+    g_ir = torch.empty((m, nbins), dtype=torch.float32, device=dev)
+    scratch = _power_scratch(m, nbins, dev)
+    sp = scratch.data_ptr()
+    _launch_on(RX_POWER_BACKWARD_KERNEL, dev, (
+        None if g_dbm is None else g_dbm.data_ptr(),
+        None if g_signal is None else g_signal.data_ptr(), signal.data_ptr(), sums.data_ptr(),
+        reversed_carrier.data_ptr(), m, nbins, g_ir.data_ptr(), sp, sp + 8 * m * nbins))
+    return g_ir
+
+
+def rx_power_backward(g_dbm, g_signal, signal: torch.Tensor, sums: torch.Tensor,
+                      sample_window_s: float, carrier_hz: float = 2.4e9) -> torch.Tensor:
+    """The gradient of `rx_power_dbm` in the (M, nbins) IRs, from the
+    cotangents of its dBm (M,) and signal (M, nbins) (either None) and what
+    its forward kept: the signal and the (M, 2) sums. A CUDA tensor launches
+    the backward kernel, once for all rows (the same bits from run to run,
+    and a row's the same alone or in a batch); a CPU tensor runs
+    `rx_power_backward_plain`."""
+    dev = signal.device
+    kern = carrier_cached(signal.shape[1], sample_window_s, carrier_hz, dev)
+    if dev.type == "cpu":
+        return rx_power_backward_plain(g_dbm, g_signal, signal, sums, kern)
+    if dev.type != "cuda":
+        raise ValueError(f"no RX-power backward kernel for device {dev}")
+    return _rx_power_backward_launch(
+        g_dbm, g_signal, signal, sums,
+        _reversed_carrier_cached(signal.shape[1], sample_window_s, carrier_hz, dev))
+
+
+def _rx_power_forward(ir: torch.Tensor, sample_window_s: float, carrier_hz: float):
+    """(signal, dBm, (M, 2) sums) of (M, nbins) IRs, no autograd: the kernel
+    on a CUDA tensor, the plain version's arithmetic on a CPU tensor."""
+    dev = ir.device
+    if dev.type == "cpu":
+        out = _gathered_taps(ir, _carrier(ir.shape[1], sample_window_s, carrier_hz, dev),
+                             reflect=False)
+        count, sq = _power_sums_plain(out)
+        return out, _dbm_of_sums(count, sq), torch.stack([sq, count.to(sq.dtype)], dim=1)
+    return _rx_power_launch(ir, carrier_cached(ir.shape[1], sample_window_s, carrier_hz, dev))
+
+
+class _RxPower(torch.autograd.Function):
+    """(dBm, signal) of (M, nbins) IRs, with the gradient of
+    rfx.cir.rx_power_dbm: the RX-power kernel and its backward on a CUDA
+    tensor, the plain versions on a CPU tensor. The forward keeps the signal
+    and each row's sum of squares and count (never re-derived from the dBm)."""
+
+    @staticmethod
+    def forward(ctx, ir, sample_window_s, carrier_hz):
+        ctx.set_materialize_grads(False)
+        out, dbm, sums = _rx_power_forward(ir, sample_window_s, carrier_hz)
+        ctx.save_for_backward(out, sums)
+        ctx.window, ctx.carrier_hz = sample_window_s, carrier_hz
+        return dbm, out
+
+    @staticmethod
+    def backward(ctx, g_dbm, g_out):
+        out, sums = ctx.saved_tensors
+        if g_dbm is None and g_out is None:
+            return None, None, None
+        return rx_power_backward(g_dbm, g_out, out, sums, ctx.window, ctx.carrier_hz), None, None
 
 
 def rx_power_dbm(impulse_response: torch.Tensor, sample_window_s: float,
@@ -408,23 +547,21 @@ def rx_power_dbm(impulse_response: torch.Tensor, sample_window_s: float,
     """Reference RX-power metric (ref main.py:46-55): convolve the IR with a
     carrier sine ('same' mode), mean square over the nonzero samples, dBm.
     Accepts (nbins,) or (M, nbins); returns (dBm, convolved signal), with
-    -inf dBm where nothing was received.
+    -inf dBm where nothing was received; differentiable in the IR as
+    rfx.cir.rx_power_dbm is under jax.grad.
 
-    A CUDA tensor launches the RX-power kernel, once for all rows: the same
-    bits from run to run, and a row's the same alone or in a batch. The
-    kernel has no backward, so a CUDA IR that requires grad raises (call
-    `rx_power_dbm_plain` for a gradient on the card). A CPU tensor runs
-    `rx_power_dbm_plain`, differentiable as rfx.cir.rx_power_dbm is."""
+    A CUDA tensor launches the RX-power kernel, once for all rows, and its
+    backward kernel, once for all rows: the same bits from run to run, and a
+    row's the same alone or in a batch. A CPU tensor runs
+    `rx_power_dbm_plain` and `rx_power_backward_plain`."""
     ir = _rows_of(impulse_response)
     dev = ir.device
-    if dev.type == "cpu":
-        return rx_power_dbm_plain(impulse_response, sample_window_s, carrier_hz)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no RX-power kernel for device {dev}")
     if torch.is_grad_enabled() and ir.requires_grad:
-        raise RuntimeError("rfx_rx_power (the RX-power kernel) has no backward: detach the IR, "
-                           "or call rx_power_dbm_plain for a gradient")
-    out, dbm = _rx_power_launch(ir, carrier_cached(ir.shape[1], sample_window_s, carrier_hz, dev))
+        dbm, out = _RxPower.apply(ir, sample_window_s, carrier_hz)
+    else:  # the same forward, without the Function's host time (a lone IR is host-bound)
+        out, dbm, _ = _rx_power_forward(ir, sample_window_s, carrier_hz)
     if impulse_response.ndim == 1:
         return dbm[0], out[0]
     return dbm, out

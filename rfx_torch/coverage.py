@@ -15,7 +15,8 @@ Two engines build the impulse responses:
   which the inverse solver needs.
 - `batched`: the coverage kernel (rfx_torch.ops.coverage_hist) on a CUDA
   tensor, its plain version on a CPU tensor. Hard binning and the analytic
-  receiver only; forward only.
+  receiver only; forward only, as rfx's batched engine: on the card an input
+  that requires grad raises (take `map` for a gradient).
 
 `auto` takes `batched` on a CUDA tensor for hard, analytic coverage and
 `map` otherwise (the reference's rule, with CUDA where it says TPU).
@@ -23,8 +24,11 @@ Two engines build the impulse responses:
 The phasor metric (`coverage_dbm_fast`) gives each receiver's dBm from its
 captured paths without an IR: on a CUDA tensor through the phasor kernel
 (rfx_torch.ops.coverage_hist.coverage_phasor, K3's walk with per-receiver
-sums; forward only), on a CPU tensor through its plain version, a broadcast
-sphere test `rx_batch` receivers at a time. The hybrid metric
+sums, differentiable in the paths' amplitudes through its backward kernel),
+on a CPU tensor through its plain version, a broadcast sphere test
+`rx_batch` receivers at a time. `coverage_dbm` (soft binning or the map
+engine) and `coverage_dbm_fast` differentiate on either device as rfx's do
+under jax.grad; the hybrid does not, as rfx's host-side hybrid does not. The hybrid metric
 (`coverage_dbm_hybrid`) re-evaluates exactly the receivers whose phasor
 diagnostics flag cancellation or delay spread, or every receiver when too
 many are flagged.
@@ -161,9 +165,9 @@ def _dbm_cancel_from_segments(segs: EnvSegments, rx_centers, rx_radius, *, num_r
                               light_speed_mps: float, tx_power, rx_batch: int):
     """((M,) dBm, (M,) cancellation ratio, (M,) delay spread in s) of the
     phasor metric from shared env segments (rfx/coverage.py:229-246,
-    :336-351). A CPU tensor runs `_dbm_cancel_plain`; a CUDA tensor the
-    phasor kernel, which has no backward: there an input that requires grad
-    raises."""
+    :336-351). A CPU tensor runs `_dbm_cancel_plain` (differentiable by
+    autograd); a CUDA tensor the phasor kernel, whose autograd Function's
+    backward is the phasor backward kernel."""
     dev = segs.t_env.device
     if dev.type == "cpu":
         return _dbm_cancel_plain(segs, rx_centers, rx_radius, num_rays=num_rays,

@@ -100,6 +100,12 @@
 //
 // Each pass writes per-slab partials that are combined in slab order: an
 // order fixed by the ray count alone, as the histogram's.
+//
+// The phasor metric's backward (rfx_coverage_phasor_backward, its note below)
+// replaces what jax.grad takes through the same XLA program: d / d amp of
+// every segment. It finds the forward's captures with the same device code
+// (`disc_positive`, `sphere_win`, `phasor_entry`) and adds each segment's
+// terms over the receivers in ascending order.
 
 #include <cuda_runtime.h>
 
@@ -166,6 +172,29 @@ __device__ __forceinline__ void load_segments(
   }
 }
 
+// The hot loop's test of a segment against a receiver: the discriminant of
+// sphere_t, in its expressions and order, above zero. Only a segment that
+// passes it can be won.
+__device__ __forceinline__ bool disc_positive(const Segment& s, float4 ctr, float r2) {
+  const float ocx = s.ox - ctr.x, ocy = s.oy - ctr.y, ocz = s.oz - ctr.z;
+  const float bq = ocx * s.dx + ocy * s.dy + ocz * s.dz;
+  const float cq = ocx * ocx + ocy * ocy + ocz * ocz - r2;
+  const float disc = bq * bq - cq;
+  return disc > 0.0f;
+}
+
+// The capture rule for a segment whose discriminant was positive: a win iff
+// the sphere's root is a hit (t_rx < 1e29) before the environment's (t_env >
+// t_rx); `bin` gets the win's delay bin, -1 to drop it (outside [0, nbins)).
+__device__ __forceinline__ bool sphere_win(const Segment& s, float4 ctr, float r2, float c,
+                                           float rate, int nbins, int& bin) {
+  const float t_rx = sphere_t(s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, ctr.x, ctr.y, ctr.z, r2);
+  if (!(t_rx < kMissThreshold && s.te > t_rx)) return false;
+  const int b = delay_bin((s.dist + t_rx) / c * rate);
+  bin = b < nbins ? b : -1;
+  return true;
+}
+
 // A warp's scratch in shared memory, where the lanes that won leave what the
 // adds need.
 struct Scratch {
@@ -217,13 +246,11 @@ __device__ __forceinline__ void capture(const Segment (&seg)[kRays], const unsig
     const int r = __ffs(bits) - 1;
 #pragma unroll
     for (int j = 0; j < kRays; ++j) todo[j] = k == j ? bits & (bits - 1u) : todo[j];
-    const float4 ctr = t.centers[r];
-    const float t_rx = sphere_t(s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, ctr.x, ctr.y, ctr.z, t.r2);
-    if (t_rx < kMissThreshold && s.te > t_rx) {
+    int bin;
+    if (sphere_win(s, t.centers[r], t.r2, t.c, t.rate, t.nbins, bin)) {
 #pragma unroll
       for (int j = 0; j < kRays; ++j) win[j] |= k == j ? 1u << r : 0u;
-      const int bin = delay_bin((s.dist + t_rx) / t.c * t.rate);
-      scratch.bin[k][r][t.lane] = bin < t.nbins ? bin : -1;
+      scratch.bin[k][r][t.lane] = bin;
       scratch.amp[k][t.lane] = s.amp;
     }
   }
@@ -274,16 +301,20 @@ struct HistRows {
 // for bin k, t_k = k * step, s_k = min(k + hi + 1, nbins), phase omega * t_k;
 // entry k is (sqrt(s_k), cos(phase), sin(phase), t_k), the f32 expressions
 // each capture evaluated for itself before the table.
-__global__ void __launch_bounds__(256) phasor_table_kernel(int nbins, float step, float omega,
-                                                           float4* __restrict__ table) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= nbins) return;
+__device__ __forceinline__ float4 phasor_entry(int k, int nbins, float step, float omega) {
   const int hi = nbins - 1 - (nbins - 1) / 2;
   const float t_k = static_cast<float>(k) * step;
   const float s = static_cast<float>(min(static_cast<long long>(k) + hi + 1,
                                          static_cast<long long>(nbins)));
   const float phase = omega * t_k;
-  table[k] = make_float4(sqrtf(s), cosf(phase), sinf(phase), t_k);
+  return make_float4(sqrtf(s), cosf(phase), sinf(phase), t_k);
+}
+
+__global__ void __launch_bounds__(256) phasor_table_kernel(int nbins, float step, float omega,
+                                                           float4* __restrict__ table) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= nbins) return;
+  table[k] = phasor_entry(k, nbins, step, omega);
 }
 
 // The capture lists of the first pass: each (slab, receiver) region's
@@ -452,11 +483,7 @@ __device__ __forceinline__ void walk_slab(const float* __restrict__ origin,
         const float4 ctr = tile.centers[r];
 #pragma unroll
         for (int k = 0; k < kRays; ++k) {
-          const float ocx = seg[k].ox - ctr.x, ocy = seg[k].oy - ctr.y, ocz = seg[k].oz - ctr.z;
-          const float bq = ocx * seg[k].dx + ocy * seg[k].dy + ocz * seg[k].dz;
-          const float cq = ocx * ocx + ocy * ocy + ocz * ocz - tile.r2;
-          const float disc = bq * bq - cq;
-          if (disc > 0.0f) cand[k] |= 1u << r;
+          if (disc_positive(seg[k], ctr, tile.r2)) cand[k] |= 1u << r;
         }
       }
       bool some = false;
@@ -702,6 +729,147 @@ __global__ void __launch_bounds__(256) phasor_reduce_kernel(const float* __restr
   out[i] = acc;
 }
 
+// The backward of the phasor metric (rfx_coverage_phasor_backward): d / d
+// amp of every segment, given per receiver r the forward's sums and the
+// cotangents folded into coefficients (rfx_torch/ops/coverage_hist.py:
+// phasor_coefficients): coef[r] = (re, im, A, B, S, t_mean, var, 0). A first
+// capture of r in bin k, of amplitude a, with (w, cos, sin, t) the table's
+// entry k, adds
+//
+//   w (re cos + im sin) A  +  a w^2 (B + S ((t - t_mean)^2 - var)),
+//
+// each part only where its coefficients are nonzero (a coefficient whose
+// cotangent is zero is 0, and its part is skipped, not multiplied: jax.grad
+// prunes it, and 0 * inf would be NaN). One thread a ray holds the ray's
+// bounces (origin, direction, life; in registers for kB > 0, read again for
+// each receiver where kB is 0) and takes the receivers in ascending order, in
+// tiles staged in shared memory; for each receiver its bounces in order until
+// the first win, by the hot loop's test (`disc_positive`), the capture rule
+// (`sphere_win`) and the table's entry (`phasor_entry`): the forward's
+// device code, so the captures are the forward's. Each thread writes its
+// segments' sums once, added in ascending receiver order: no atomic, the same
+// bits from run to run. What bounds it: the forward walk's sphere tests, one
+// per live segment and receiver.
+constexpr int kBackThreads = 256;  // rays of a block
+constexpr int kBackRx = 256;       // receivers of a staged tile
+
+template <int kB>
+__global__ void __launch_bounds__(kBackThreads) coverage_phasor_backward_kernel(
+    const float* __restrict__ origin, const float* __restrict__ dir,
+    const float* __restrict__ t_env, const float* __restrict__ amp,
+    const float* __restrict__ dist, const bool* __restrict__ alive, int nb, int n,
+    const float* __restrict__ centers, int m, float r2, float c, float rate, int nbins, float step,
+    float omega, const float4* __restrict__ coef, float* __restrict__ g_amp) {
+  __shared__ float4 s_ctr[kBackRx];
+  __shared__ float4 s_k0[kBackRx];  // (re, im, A, B)
+  __shared__ float4 s_k1[kBackRx];  // (S, t_mean, var, 0)
+  const long long i = static_cast<long long>(blockIdx.x) * kBackThreads + threadIdx.x;
+  const bool in = i < n;
+  constexpr int kHeld = kB > 0 ? kB : 1;
+  // Origin, direction and life of bounce b (b < nb).
+  auto geometry = [&](int b) {
+    Segment s;
+    const long long at = static_cast<long long>(b) * n + (in ? i : 0);
+    s.ox = origin[3 * at];
+    s.oy = origin[3 * at + 1];
+    s.oz = origin[3 * at + 2];
+    s.dx = dir[3 * at];
+    s.dy = dir[3 * at + 1];
+    s.dz = dir[3 * at + 2];
+    s.live = in && alive[at];
+    return s;
+  };
+  Segment held[kHeld];
+  float acc[kHeld];
+  bool any_live = false;
+#pragma unroll
+  for (int b = 0; b < kHeld; ++b) {
+    acc[b] = 0.0f;
+    if (kB > 0) {
+      held[b] = geometry(b < nb ? b : 0);
+      held[b].live = held[b].live && b < nb;
+      any_live = any_live || held[b].live;
+    }
+  }
+  if (kB == 0) {
+    for (int b = 0; b < nb; ++b) {
+      const long long at = static_cast<long long>(b) * n + i;
+      if (in) {
+        any_live = any_live || alive[at];
+        g_amp[at] = 0.0f;  // the sums go to g_amp directly
+      }
+    }
+  }
+  if (!__syncthreads_or(any_live)) {  // block-uniform: no live segment, no capture
+    if (in && kB > 0) {
+      for (int b = 0; b < nb; ++b) g_amp[static_cast<long long>(b) * n + i] = 0.0f;
+    }
+    return;
+  }
+  // Receiver q of the tile against segment s of bounce b: true on a win (the
+  // ray's view for that receiver ends), whose term goes to bounce b's sum.
+  auto take = [&](const Segment& geom, int b, int q) {
+    const float4 ctr = s_ctr[q];
+    if (!geom.live || !disc_positive(geom, ctr, r2)) return false;
+    const long long at = static_cast<long long>(b) * n + i;
+    Segment s = geom;
+    s.te = t_env[at];
+    s.dist = dist[at];
+    int bin;
+    if (!sphere_win(s, ctr, r2, c, rate, nbins, bin)) return false;
+    if (bin < 0) return true;  // dropped: the win counts, its path adds nothing
+    const float4 e = phasor_entry(bin, nbins, step, omega);
+    const float4 k0 = s_k0[q], k1 = s_k1[q];
+    float g = 0.0f;
+    if (k0.z != 0.0f) g = e.x * (k0.x * e.y + k0.y * e.z) * k0.z;
+    if (k0.w != 0.0f || k1.x != 0.0f) {
+      float u = k0.w;
+      if (k1.x != 0.0f) {
+        const float dt = e.w - k1.y;
+        u = u + k1.x * (dt * dt - k1.z);
+      }
+      const float aw = amp[at] * e.x;
+      g = g + aw * e.x * u;
+    }
+    if (kB > 0) {
+      acc[b] = acc[b] + g;
+    } else {
+      g_amp[at] = g_amp[at] + g;
+    }
+    return true;
+  };
+  for (int r0 = 0; r0 < m; r0 += kBackRx) {
+    const int nr = min(kBackRx, m - r0);
+    __syncthreads();  // the previous tile is read
+    for (int q = threadIdx.x; q < nr; q += kBackThreads) {
+      const long long r = r0 + q;
+      s_ctr[q] = make_float4(centers[3 * r], centers[3 * r + 1], centers[3 * r + 2], 0.0f);
+      s_k0[q] = coef[2 * r];
+      s_k1[q] = coef[2 * r + 1];
+    }
+    __syncthreads();
+    if (!any_live) continue;
+    for (int q = 0; q < nr; ++q) {
+      if (kB > 0) {
+#pragma unroll
+        for (int b = 0; b < kHeld; ++b) {
+          if (take(held[b], b, q)) break;
+        }
+      } else {
+        for (int b = 0; b < nb; ++b) {
+          if (take(geometry(b), b, q)) break;
+        }
+      }
+    }
+  }
+  if (in && kB > 0) {
+#pragma unroll
+    for (int b = 0; b < kHeld; ++b) {
+      if (b < nb) g_amp[static_cast<long long>(b) * n + i] = acc[b];
+    }
+  }
+}
+
 // out[i] = planes[0][i] + planes[1][i] + ... in that order, i < total.
 __global__ void __launch_bounds__(256) coverage_reduce_kernel(const float* __restrict__ planes,
                                                               int n_planes, long long total,
@@ -821,6 +989,47 @@ extern "C" int rfx_coverage_phasor_spread(const void* origin, const void* dir, c
       m, n_slabs, static_cast<const float*>(t_mean), lists,
       static_cast<const float*>(dev_partials), static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The phasor metric's backward: the segments and centers as
+// rfx_coverage_hist takes them (amp already scaled), step and omega as
+// rfx_phasor_table takes them, coef: (m, 8) f32 per receiver (re, im, A, B,
+// S, t_mean, var, unused); g_amp: (nb, n) f32, every element written. m, n,
+// nb >= 1.
+extern "C" int rfx_coverage_phasor_backward(const void* origin, const void* dir,
+                                            const void* t_env, const void* amp, const void* dist,
+                                            const void* alive, int nb, int n, const void* centers,
+                                            int m, float radius, float c, float rate, int nbins,
+                                            float step, float omega, const void* coef,
+                                            void* g_amp, void* stream) {
+  const unsigned blocks = static_cast<unsigned>((static_cast<long long>(n) + kBackThreads - 1) /
+                                                kBackThreads);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // The bounces of a ray in registers where there are at most eight of them.
+#define RFX_PHASOR_BACKWARD(KB)                                                                \
+  coverage_phasor_backward_kernel<KB><<<blocks, kBackThreads, 0, s>>>(                         \
+      static_cast<const float*>(origin), static_cast<const float*>(dir),                       \
+      static_cast<const float*>(t_env), static_cast<const float*>(amp),                        \
+      static_cast<const float*>(dist), static_cast<const bool*>(alive), nb, n,                 \
+      static_cast<const float*>(centers), m, radius * radius, c, rate, nbins, step, omega,      \
+      static_cast<const float4*>(coef), static_cast<float*>(g_amp))
+  if (nb <= 1) {
+    RFX_PHASOR_BACKWARD(1);
+  } else if (nb <= 2) {
+    RFX_PHASOR_BACKWARD(2);
+  } else if (nb <= 4) {
+    RFX_PHASOR_BACKWARD(4);
+  } else if (nb <= 8) {
+    RFX_PHASOR_BACKWARD(8);
+  } else {
+    RFX_PHASOR_BACKWARD(0);
+  }
+#undef RFX_PHASOR_BACKWARD
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* rfx_coverage_phasor_backward_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 extern "C" const char* rfx_coverage_phasor_error_string(int err) {

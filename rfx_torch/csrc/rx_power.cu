@@ -56,6 +56,28 @@
 // same bits as in a batch. The plain version (rfx_torch/cir.py:
 // convolve_carrier_plain) adds a sample's taps in chunks of 256 nonzero bins
 // by torch.sum; the two differ by rounding only.
+//
+// The backward (rfx_rx_power_backward) replaces the transpose that jax.grad
+// takes of the same lax.conv and mean square. With the row's count n and
+// sum of squares sq from the forward's `row_power`, and the cotangents of the
+// dBm (g_dbm, one a row) and of the signal (g_out, one a sample), each
+// possibly absent:
+//
+//   g_eff[r, j] = g_out[r, j] + g_dbm[r] (20 / ln 10) / sq[r] * out[r, j]
+//                 (the second term only where n > 0, g_dbm != 0, out != 0),
+//   g_ir[r, k]  = sum_j g_eff[r, j] * carrier[j + lo - k],
+//
+// the transposed 'same' convolution: dense in k (a zero bin gets a gradient,
+// as under lax.conv's transpose). It is the forward's convolution of g_eff
+// with the reversed carrier, carrier'[x] = carrier[nbins - 1 - x], and hi =
+// nbins - 1 - lo in place of lo: carrier'[k + hi - j] = carrier[j + lo - k].
+// So it runs the forward's two kernels on g_eff: `compact_segments` lists the
+// nonzero g_eff[j], formed on the fly from out and the cotangents, and
+// `convolve<R>` adds each output's taps in ascending j. What bounds it:
+// operations again, now two a tap over every nonzero j (g_eff is dense where
+// the signal is: ~1.5e11 in-range taps for 2,048 rows of 10,000 bins, 20x the
+// forward's). The same order rules make it the same bits from run to run and
+// for a row alone or in a batch.
 
 #include <cuda_runtime.h>
 
@@ -74,11 +96,52 @@ __host__ __device__ constexpr int stage_words() {
   return ((32 * kWarps * R + kSeg - 1 + 1) & ~1) + 2 * kSeg;
 }
 
-// list[r * nbins + s * kSeg + i] = (k, bits of ir[r, k]) for the i-th nonzero
-// bin k of segment s of row r, ascending; seg_count[r * n_seg + s] their
-// number. A NaN counts as nonzero, -0.0 as zero (as torch.nonzero).
-__global__ void __launch_bounds__(kThreads) compact_segments(const float* __restrict__ ir,
-                                                             int nbins, int n_seg,
+// The forward's input: bin k of row r of the IRs.
+struct IrValues {
+  const float* ir;
+  int nbins;
+
+  __device__ __forceinline__ void start_row(long long) {}
+  __device__ __forceinline__ float operator()(long long row, int k) const {
+    return ir[row * nbins + k];
+  }
+};
+
+// The backward's input, g_eff (see the note at the top), formed from the
+// forward's signal and row sums and the cotangents; g_dbm and g_out may be
+// null (no cotangent). `sums` holds (sq, count) a row, as row_power writes it.
+struct CotangentValues {
+  const float* g_dbm;
+  const float* g_out;
+  const float* out;
+  const float* sums;
+  int nbins;
+  float scale = 0.0f;  // g_dbm (20 / ln 10) / sq of the row, 0 where that term is skipped
+
+  __device__ __forceinline__ void start_row(long long row) {
+    constexpr float kDbPerPower = 8.685889638065035f;  // 20 / ln 10
+    scale = 0.0f;
+    if (g_dbm != nullptr) {
+      const float g = g_dbm[row];
+      if (g != 0.0f && sums[2 * row + 1] > 0.0f) scale = g * kDbPerPower / sums[2 * row];
+    }
+  }
+  __device__ __forceinline__ float operator()(long long row, int k) const {
+    const long long at = row * nbins + k;
+    float v = g_out != nullptr ? g_out[at] : 0.0f;
+    if (scale != 0.0f) {
+      const float o = out[at];
+      if (o != 0.0f) v = v + scale * o;
+    }
+    return v;
+  }
+};
+
+// list[r * nbins + s * kSeg + i] = (k, bits of value(r, k)) for the i-th
+// nonzero value k of segment s of row r, ascending; seg_count[r * n_seg + s]
+// their number. A NaN counts as nonzero, -0.0 as zero (as torch.nonzero).
+template <class Values>
+__global__ void __launch_bounds__(kThreads) compact_segments(Values values, int nbins, int n_seg,
                                                              int2* __restrict__ list,
                                                              int* __restrict__ seg_count) {
   __shared__ int warp_counts[kWarps];
@@ -87,12 +150,12 @@ __global__ void __launch_bounds__(kThreads) compact_segments(const float* __rest
   const int seg = static_cast<int>(blockIdx.x - row * n_seg);
   const int k0 = seg * kSeg;
   const int k_end = min(k0 + kSeg, nbins);
-  const float* row_ir = ir + row * nbins;
+  values.start_row(row);
   int2* out = list + row * nbins + k0;
   int carry = 0;
   for (int base = k0; base < k_end; base += kThreads) {
     const int k = base + threadIdx.x;
-    const float v = k < k_end ? row_ir[k] : 0.0f;
+    const float v = k < k_end ? values(row, k) : 0.0f;
     const bool nz = v != 0.0f;
     const unsigned ballot = __ballot_sync(kFullWarp, nz);
     if (lane == 0) warp_counts[warp] = __popc(ballot);
@@ -130,10 +193,11 @@ __device__ __forceinline__ void copy_wait() {
 }
 
 // out[r, j] for one tile of 32 * kWarps * R samples of one row; see the note
-// at the top. Block b takes row b / n_tiles, tile b % n_tiles.
+// at the top (lo = (nbins - 1) / 2 in the forward, hi in the backward). Block
+// b takes row b / n_tiles, tile b % n_tiles.
 template <int R>
 __global__ void __launch_bounds__(kThreads) convolve(const float* __restrict__ carrier, int nbins,
-                                                     int n_seg, int n_tiles,
+                                                     int lo, int n_seg, int n_tiles,
                                                      const int2* __restrict__ list,
                                                      const int* __restrict__ seg_count,
                                                      float* __restrict__ out) {
@@ -145,7 +209,6 @@ __global__ void __launch_bounds__(kThreads) convolve(const float* __restrict__ c
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long row = blockIdx.x / n_tiles;
   const int j0 = static_cast<int>(blockIdx.x - row * n_tiles) * kTile;
-  const int lo = (nbins - 1) / 2;
   const int* counts = seg_count + row * n_seg;
   const int2* row_list = list + row * nbins;
   // Bin k reaches some sample of the tile iff j0 + lo - nbins < k <= j0 +
@@ -218,9 +281,11 @@ __global__ void __launch_bounds__(kThreads) convolve(const float* __restrict__ c
 
 // dbm[r] = the mean square of the nonzero samples of out[r] in dBm, -inf
 // where there is none: the count and the sum of squares each thread takes
-// over a fixed stride, then a fixed tree.
+// over a fixed stride, then a fixed tree. sums[r] = (sum of squares, count),
+// what the backward reads.
 __global__ void __launch_bounds__(kPowerThreads) row_power(const float* __restrict__ out, int nbins,
-                                                           float* __restrict__ dbm) {
+                                                           float* __restrict__ dbm,
+                                                           float2* __restrict__ sums) {
   __shared__ int s_n[kPowerThreads];
   __shared__ float s_sq[kPowerThreads];
   const size_t row = static_cast<size_t>(blockIdx.x) * nbins;
@@ -249,6 +314,7 @@ __global__ void __launch_bounds__(kPowerThreads) row_power(const float* __restri
     // a product with its f32 reciprocal.
     constexpr float kPerMilliwatt = 1.0f / 1e-3f;
     const int count = s_n[0];
+    sums[blockIdx.x] = make_float2(s_sq[0], static_cast<float>(count));  // count < 2^24: exact
     dbm[blockIdx.x] = count > 0
                           ? 10.0f * log10f(s_sq[0] / static_cast<float>(count) * kPerMilliwatt)
                           : -__int_as_float(0x7f800000);
@@ -256,50 +322,80 @@ __global__ void __launch_bounds__(kPowerThreads) row_power(const float* __restri
 }
 
 template <int R>
-cudaError_t launch_convolve(const float* carrier, int m, int nbins, int n_seg, const int2* list,
-                            const int* seg_count, float* out, cudaStream_t s) {
+cudaError_t launch_convolve(const float* carrier, int m, int nbins, int lo, int n_seg,
+                            const int2* list, const int* seg_count, float* out, cudaStream_t s) {
   constexpr int kTile = 32 * kWarps * R;
   constexpr size_t kBytes = 2 * sizeof(float) * stage_words<R>();
   static_assert(kBytes <= 48 * 1024, "two stages fit the default dynamic shared memory");
   const int n_tiles = (nbins + kTile - 1) / kTile;
   convolve<R><<<static_cast<unsigned>(static_cast<long long>(m) * n_tiles), kThreads, kBytes, s>>>(
-      carrier, nbins, n_seg, n_tiles, list, seg_count, out);
+      carrier, nbins, lo, n_seg, n_tiles, list, seg_count, out);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// ir: (m, nbins) f32; carrier: (nbins,) f32; out: (m, nbins) f32 and dbm:
-// (m,) f32, every element written; list: (m, nbins) int2 and seg_count: (m,
-// ceil(nbins / 1024)) int32, scratch. m >= 1, nbins >= 1, m * ceil(nbins /
-// 128) < 2^31.
-extern "C" int rfx_rx_power(const void* ir, const void* carrier, int m, int nbins, void* out,
-                            void* dbm, void* list, void* seg_count, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+// Compaction of `values` and the convolution of the list with `carrier` at
+// offset lo, into out: the forward's and the backward's common launches.
+template <class Values>
+cudaError_t compact_and_convolve(Values values, const float* carrier, int m, int nbins, int lo,
+                                 void* list, void* seg_count, float* out, cudaStream_t s) {
   const int n_seg = (nbins + kSeg - 1) / kSeg;
   compact_segments<<<static_cast<unsigned>(static_cast<long long>(m) * n_seg), kThreads, 0, s>>>(
-      static_cast<const float*>(ir), nbins, n_seg, static_cast<int2*>(list),
-      static_cast<int*>(seg_count));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+      values, nbins, n_seg, static_cast<int2*>(list), static_cast<int*>(seg_count));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
   // Eight samples a lane where that leaves eight blocks an SM or more on an
   // H100's 132; else one, so that a few rows still fill the card. Either
   // gives the same bits.
   const long long wide_blocks = static_cast<long long>(m) * ((nbins + 32 * kWarps * 8 - 1) /
                                                             (32 * kWarps * 8));
-  err = wide_blocks >= 8 * 132
-            ? launch_convolve<8>(static_cast<const float*>(carrier), m, nbins, n_seg,
-                                 static_cast<const int2*>(list), static_cast<const int*>(seg_count),
-                                 static_cast<float*>(out), s)
-            : launch_convolve<1>(static_cast<const float*>(carrier), m, nbins, n_seg,
-                                 static_cast<const int2*>(list), static_cast<const int*>(seg_count),
-                                 static_cast<float*>(out), s);
+  return wide_blocks >= 8 * 132
+             ? launch_convolve<8>(carrier, m, nbins, lo, n_seg, static_cast<const int2*>(list),
+                                  static_cast<const int*>(seg_count), out, s)
+             : launch_convolve<1>(carrier, m, nbins, lo, n_seg, static_cast<const int2*>(list),
+                                  static_cast<const int*>(seg_count), out, s);
+}
+
+}  // namespace
+
+// ir: (m, nbins) f32; carrier: (nbins,) f32; out: (m, nbins) f32, dbm: (m,)
+// f32 and sums: (m, 2) f32 (sum of squares, count), every element written;
+// list: (m, nbins) int2 and seg_count: (m, ceil(nbins / 1024)) int32, scratch.
+// m >= 1, nbins >= 1, m * ceil(nbins / 128) < 2^31.
+extern "C" int rfx_rx_power(const void* ir, const void* carrier, int m, int nbins, void* out,
+                            void* dbm, void* sums, void* list, void* seg_count, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = compact_and_convolve(IrValues{static_cast<const float*>(ir), nbins},
+                                         static_cast<const float*>(carrier), m, nbins,
+                                         (nbins - 1) / 2, list, seg_count,
+                                         static_cast<float*>(out), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   row_power<<<m, kPowerThreads, 0, s>>>(static_cast<const float*>(out), nbins,
-                                        static_cast<float*>(dbm));
+                                        static_cast<float*>(dbm), static_cast<float2*>(sums));
   return static_cast<int>(cudaGetLastError());
 }
 
+// The backward of rfx_rx_power: g_dbm (m,) f32 and g_out (m, nbins) f32, the
+// cotangents of dbm and out, each null where absent; out and sums as
+// rfx_rx_power wrote them; reversed_carrier: (nbins,) f32, the carrier back
+// to front. g_ir: (m, nbins) f32, every element written; list and seg_count
+// as rfx_rx_power's scratch. The bounds of rfx_rx_power.
+extern "C" int rfx_rx_power_backward(const void* g_dbm, const void* g_out, const void* out,
+                                     const void* sums, const void* reversed_carrier, int m,
+                                     int nbins, void* g_ir, void* list, void* seg_count,
+                                     void* stream) {
+  const CotangentValues values{static_cast<const float*>(g_dbm), static_cast<const float*>(g_out),
+                               static_cast<const float*>(out), static_cast<const float*>(sums),
+                               nbins};
+  return static_cast<int>(compact_and_convolve(values, static_cast<const float*>(reversed_carrier),
+                                               m, nbins, nbins - 1 - (nbins - 1) / 2, list,
+                                               seg_count, static_cast<float*>(g_ir),
+                                               static_cast<cudaStream_t>(stream)));
+}
+
 extern "C" const char* rfx_rx_power_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+extern "C" const char* rfx_rx_power_backward_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

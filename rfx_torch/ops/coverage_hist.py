@@ -26,10 +26,20 @@ rule of `rfx_coverage_hist` with per-receiver sums in place of the histogram,
 which also lists each capture's weight and delay), then
 rfx_torch.cir.phasor_metric on the sums, whose spread about each receiver's
 mean delay `rfx_coverage_phasor_spread` takes over the lists. A receiver's
-sums have an order fixed by the ray count alone, as its IR's. It runs on
-CUDA tensors only and has no backward; the metric's plain version, which a
-CPU tensor runs, is rfx_torch.coverage._dbm_cancel_plain (per-path sums, the
-same `phasor_metric`).
+sums have an order fixed by the ray count alone, as its IR's. Its forward
+runs on CUDA tensors only; the metric's plain version, which a CPU tensor
+runs, is rfx_torch.coverage._dbm_cancel_plain (per-path sums, the same
+`phasor_metric`). It is differentiable in the segments' amplitude, as rfx's
+metric is under jax.grad (the bins are integer casts and the capture a
+boolean, so nothing else has a gradient): the backward folds the cotangents
+into per-receiver coefficients (`phasor_coefficients`) and launches
+`rfx_coverage_phasor_backward`, one thread a ray adding each capture's term
+over the receivers in ascending order; its plain version is
+`phasor_backward_plain`, which a CPU tensor runs.
+
+The coverage histogram has no backward, as rfx's batched engine has none: on
+the card it refuses an input that requires grad (the map engine,
+rfx_torch.coverage with engine="map", is differentiable).
 """
 
 from __future__ import annotations
@@ -40,14 +50,15 @@ from typing import NamedTuple
 
 import torch
 
-from rfx_torch.cir import phasor_metric
+from rfx_torch.cir import _DB_PER_POWER, phasor_metric
 from rfx_torch.ops._build import CudaKernel, F, I, P
 from rfx_torch.ops.intersect import is_hit, sphere_t
 from rfx_torch.tracer import EnvSegments
 
 __all__ = ["COVERAGE_HIST_KERNEL", "COVERAGE_PHASOR_KERNEL", "COVERAGE_REDUCE_KERNEL",
-           "COVERAGE_SPREAD_KERNEL", "PHASOR_TABLE_KERNEL", "PhasorWalk", "coverage_hist",
-           "coverage_hist_plain", "coverage_phasor", "coverage_slabs", "phasor_lists_spent",
+           "COVERAGE_SPREAD_KERNEL", "PHASOR_BACKWARD_KERNEL", "PHASOR_TABLE_KERNEL", "PhasorWalk",
+           "coverage_hist", "coverage_hist_plain", "coverage_phasor", "coverage_slabs",
+           "phasor_backward", "phasor_backward_plain", "phasor_coefficients", "phasor_lists_spent",
            "phasor_spread_plain", "phasor_table", "phasor_table_plain", "slab_of_ray", "reduce_planes",
            "reduce_planes_plain"]
 
@@ -66,6 +77,10 @@ COVERAGE_PHASOR_KERNEL = CudaKernel(
 COVERAGE_SPREAD_KERNEL = CudaKernel(
     "coverage_hist.cu", "rfx_coverage_phasor_spread",
     [P, P, P, P, P, P, I, I, P, I, F, F, F, I, P, I, I, I, P, P, P, P, P, P],
+)
+PHASOR_BACKWARD_KERNEL = CudaKernel(
+    "coverage_hist.cu", "rfx_coverage_phasor_backward",
+    [P, P, P, P, P, P, I, I, P, I, F, F, F, I, F, F, P, P, P],
 )
 #: The phasor sums of the first pass, per receiver (kSumFields of coverage_hist.cu).
 PHASOR_FIELDS = ("re", "im", "s_max", "any", "w2", "w2t")
@@ -172,11 +187,17 @@ def coverage_hist(segs: EnvSegments, rx_centers, rx_radius, *, nbins: int,
     """(M, nbins) hard impulse responses of M receiver spheres of one radius
     from the env segments `segs` (amplitude pre-scaled). A CPU tensor runs
     `coverage_hist_plain` (`rx_batch` receivers at a time); a CUDA tensor
-    launches the kernel, or raises. Forward only."""
+    launches the kernel, or raises. Forward only, as rfx's batched engine: on
+    the card an input that requires grad, under grad mode, raises."""
     _check_segments(segs)
     if nbins < 1:
         raise ValueError("nbins must be at least 1")
     dev = segs.t_env.device
+    if dev.type == "cuda" and torch.is_grad_enabled() and any(
+            isinstance(v, torch.Tensor) and v.requires_grad for v in (*segs, rx_centers, rx_radius)):
+        raise RuntimeError("rfx_coverage_hist (the coverage kernel) has no backward, as rfx's "
+                           "batched engine has none: detach the segments, or take engine=\"map\" "
+                           "for a gradient")
     if dev.type == "cpu":
         return coverage_hist_plain(segs, rx_centers, rx_radius, nbins=nbins,
                                    light_speed_mps=light_speed_mps,
@@ -406,6 +427,155 @@ def phasor_spread_plain(segs: EnvSegments, rx_centers, rx_radius, t_mean: torch.
     return torch.cat(out) if out else torch.zeros(0, dtype=torch.float32, device=dev)
 
 
+def phasor_coefficients(sums: torch.Tensor, spread: torch.Tensor, g_dbm=None, g_ratio=None,
+                        g_spread=None) -> torch.Tensor:
+    """The backward's (M, 8) f32 per-receiver coefficients (re, im, A, B, S,
+    t_mean, var, 0) from the forward's sums (`_phasor_sums`' fields), its
+    spread and the cotangents of (dBm, ratio, spread), each (M,) or None. With
+    C = re^2 + im^2, W = w2 and var = spread^2, a capture of amplitude a with
+    (w, cos, sin, t) from the table adds to d / d a
+
+        w (re cos + im sin) A + a w^2 (B + S ((t - t_mean)^2 - var)),
+
+    A = g_dbm 20 / (ln 10 C) + g_ratio 2 / W, B = -g_ratio 2 C / W^2 and S =
+    g_spread / (spread W): the derivatives of rfx.cir.rx_power_dbm_phasor's
+    dBm, ratio and spread. A part whose cotangent is zero is 0 (and the
+    capture's term skips it), never a product with it: jax.grad prunes a zero
+    cotangent, so an unused ratio or spread must not turn 0 * inf into NaN. A
+    receiver with no capture gets zeros."""
+    f32 = torch.float32
+    dev = sums.device
+    re, im, _, any_f, w2, w2t = sums.to(f32).unbind(1)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    hit = any_f > 0
+    coherent = re * re + im * im
+    spread = spread.to(f32)
+
+    def part(g, value):
+        if g is None:
+            return torch.zeros_like(re)
+        g = g.to(f32)
+        return torch.where(hit & (g != 0), value(g), zero)
+
+    db_per_power = torch.tensor(_DB_PER_POWER, dtype=f32, device=dev)
+    a = (part(g_dbm, lambda g: g * db_per_power / coherent)
+         + part(g_ratio, lambda g: g * 2.0 / w2))
+    b = part(g_ratio, lambda g: -(g * 2.0) * (coherent / w2) / w2)
+    s = part(g_spread, lambda g: g / (spread * w2))
+    t_mean = torch.where(hit, w2t / w2, zero)
+    return torch.stack([re, im, a, b, s, t_mean, spread * spread, torch.zeros_like(re)],
+                       dim=1).contiguous()
+
+
+def _phasor_terms(coef: torch.Tensor, rows: torch.Tensor, amp: torch.Tensor) -> torch.Tensor:
+    """Each capture's term of d / d amplitude (`phasor_coefficients`), from
+    its receiver's coefficients (K, 8), its table row (K, 4) and its
+    amplitude (K,), in the f32 expressions of the backward kernel."""
+    re, im, a, b, s, t_mean, var, _ = coef.unbind(1)
+    w, cos, sin, t = rows.unbind(1)
+    zero = torch.zeros((), dtype=torch.float32, device=coef.device)
+    dt = t - t_mean
+    u = b + torch.where(s != 0, s * (dt * dt - var), zero)
+    return (torch.where(a != 0, w * (re * cos + im * sin) * a, zero)
+            + torch.where((b != 0) | (s != 0), amp * w * w * u, zero))
+
+
+def phasor_backward_plain(segs: EnvSegments, rx_centers, rx_radius, coef: torch.Tensor, *,
+                          nbins: int, light_speed_mps: float, sample_rate_hz: float,
+                          sample_window_s: float, carrier_hz: float,
+                          rx_batch: int = 64) -> torch.Tensor:
+    """Plain PyTorch version of the phasor backward kernel, on either device:
+    (B, N) f32 d / d amplitude of the segments (amp already scaled) given the
+    per-receiver coefficients `coef` (`phasor_coefficients`). Receivers go
+    `rx_batch` at a time through the broadcast sphere test and first-capture
+    rule of `coverage_hist_plain`; each batch's captures are listed
+    (receiver, then segment) and their terms added to their segments with
+    `index_add_`, which on the CPU adds them in that order, receivers
+    ascending, as the kernel does."""
+    dev = segs.t_env.device
+    centers = _centers(rx_centers, dev)
+    table = phasor_table_plain(nbins, *_phasor_constants(nbins, sample_window_s, carrier_hz), dev)
+    b, n = segs.t_env.shape
+    amp = segs.amplitude.reshape(-1).to(torch.float32)
+    coef = coef.to(torch.float32)
+    out = torch.zeros(b * n, dtype=torch.float32, device=dev)
+    for s in range(0, centers.shape[0], rx_batch):
+        bins, valid = _first_wins(segs, centers[s:s + rx_batch], rx_radius, nbins=nbins,
+                                  light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz)
+        r, at = valid.reshape(valid.shape[0], -1).nonzero(as_tuple=True)
+        rows = table[bins.reshape(bins.shape[0], -1)[r, at]]
+        out.index_add_(0, at, _phasor_terms(coef[s + r], rows, amp[at]))
+    return out.view(b, n)
+
+
+def phasor_backward(segs: EnvSegments, rx_centers, rx_radius, coef: torch.Tensor, *, nbins: int,
+                    light_speed_mps: float, sample_rate_hz: float, sample_window_s: float,
+                    carrier_hz: float, rx_batch: int = 64) -> torch.Tensor:
+    """(B, N) f32 d / d amplitude of the phasor metric given the coefficients
+    `coef` (`phasor_coefficients`). A CUDA tensor launches
+    `rfx_coverage_phasor_backward` once for all receivers: the forward's
+    captures (its device code), each segment's terms added in ascending
+    receiver order, the same bits from run to run. A CPU tensor runs
+    `phasor_backward_plain` (`rx_batch` receivers at a time)."""
+    kw = dict(nbins=nbins, light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz,
+              sample_window_s=sample_window_s, carrier_hz=carrier_hz)
+    dev = segs.t_env.device
+    if dev.type == "cpu":
+        return phasor_backward_plain(segs, rx_centers, rx_radius, coef, rx_batch=rx_batch, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"no phasor backward kernel for device {dev}")
+    centers = _centers(rx_centers, dev).contiguous()
+    m = centers.shape[0]
+    b, n = segs.t_env.shape
+    if n >= 2**31 or b >= 2**31 or m >= 2**31 or nbins >= 2**31:
+        raise ValueError(f"at most 2^31 - 1 rays, bounces, receivers and bins, got {n}, {b}, {m}, "
+                         f"{nbins}")
+    if not (m and n and b):
+        return torch.zeros((b, n), dtype=torch.float32, device=dev)
+    if tuple(coef.shape) != (m, 8):
+        raise ValueError(f"coef must be ({m}, 8), got {tuple(coef.shape)}")
+    planes = [t.detach().contiguous() for t in (segs.origin, segs.direction, segs.t_env,
+                                                segs.amplitude, segs.distance, segs.alive)]
+    coef = coef.to(torch.float32).contiguous()
+    g_amp = torch.empty((b, n), dtype=torch.float32, device=dev)
+    step, omega = _phasor_constants(nbins, sample_window_s, carrier_hz)
+    with torch.cuda.device(dev):
+        PHASOR_BACKWARD_KERNEL.launch(
+            *(t.data_ptr() for t in planes), b, n, centers.data_ptr(), m, float(rx_radius),
+            float(light_speed_mps), float(sample_rate_hz), nbins, step, omega, coef.data_ptr(),
+            g_amp.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    return g_amp
+
+
+class _Phasor(torch.autograd.Function):
+    """(dBm, ratio, spread) of the phasor metric from segments whose
+    amplitude is pre-scaled, differentiable in the amplitude alone (the other
+    segment fields ride in `segs` and get no gradient, as in rfx). The
+    forward keeps the segments, the centers, the first pass's sums and the
+    spread; never an (R, B, N) tensor."""
+
+    @staticmethod
+    def forward(ctx, amplitude, segs, centers, rx_radius, kw):
+        ctx.set_materialize_grads(False)
+        segs = EnvSegments(*(t.detach() for t in segs._replace(amplitude=amplitude)))
+        sums, walks = _phasor_sums(segs, centers, rx_radius, **kw)
+        re, im, s_max, any_f, w2, w2t = sums.unbind(1)
+        dbm, ratio, spread = phasor_metric(re, im, s_max, any_f > 0, w2, w2t,
+                                           lambda t_mean: _phasor_spread(walks, t_mean))
+        ctx.save_for_backward(*segs, centers, sums, spread)
+        ctx.rx_radius, ctx.kw = rx_radius, kw
+        return dbm, ratio, spread
+
+    @staticmethod
+    def backward(ctx, g_dbm, g_ratio, g_spread):
+        *planes, centers, sums, spread = ctx.saved_tensors
+        if g_dbm is None and g_ratio is None and g_spread is None:
+            return None, None, None, None, None
+        coef = phasor_coefficients(sums, spread, g_dbm, g_ratio, g_spread)
+        g_amp = phasor_backward(EnvSegments(*planes), centers, ctx.rx_radius, coef, **ctx.kw)
+        return g_amp, None, None, None, None
+
+
 def coverage_phasor(segs: EnvSegments, rx_centers, rx_radius, *, nbins: int,
                     light_speed_mps: float, sample_rate_hz: float, sample_window_s: float,
                     carrier_hz: float = 2.4e9):
@@ -415,17 +585,11 @@ def coverage_phasor(segs: EnvSegments, rx_centers, rx_radius, *, nbins: int,
     kernel's first pass (`_phasor_sums`), rfx_torch.cir.phasor_metric on its
     sums, which hands each receiver's mean delay to the spread over the
     first pass's capture lists (`_phasor_spread`). -inf dBm, ratio 1 and
-    spread 0 where nothing was captured. Forward only: an input that
-    requires grad raises, as does a tensor off the card."""
+    spread 0 where nothing was captured. Differentiable in
+    `segs.amplitude` (`_Phasor`): the backward launches
+    `rfx_coverage_phasor_backward` once. A tensor off the card raises."""
     _check_segments(segs)
-    if torch.is_grad_enabled() and any(isinstance(v, torch.Tensor) and v.requires_grad
-                                       for v in (*segs, rx_centers, rx_radius)):
-        raise RuntimeError("rfx_coverage_phasor (the phasor kernel) has no backward: detach the "
-                           "segments, or call rfx_torch.coverage._dbm_cancel_plain for a gradient")
     centers = _centers(rx_centers, segs.t_env.device).contiguous()
-    sums, walks = _phasor_sums(segs, centers, rx_radius, nbins=nbins,
-                               light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz,
-                               sample_window_s=sample_window_s, carrier_hz=carrier_hz)
-    re, im, s_max, any_f, w2, w2t = sums.unbind(1)
-    return phasor_metric(re, im, s_max, any_f > 0, w2, w2t,
-                         lambda t_mean: _phasor_spread(walks, t_mean))
+    kw = dict(nbins=nbins, light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz,
+              sample_window_s=sample_window_s, carrier_hz=carrier_hz)
+    return _Phasor.apply(segs.amplitude, segs, centers, rx_radius, kw)

@@ -2,7 +2,7 @@
 """Time the port's hand-written kernels at the shapes of their main paths on
 one NVIDIA GPU, and hold them against another checkout's kernels.
 
-    python3 scripts/torch_bench_kernels.py [--other DIR] [--only k3,kf] [--reps N]
+    python3 scripts/torch_bench_kernels.py [--other DIR] [--only k3,kf,kpb,kfb] [--reps N]
                                            [--out build/bench_kernels.json]
 
 The scenes, transmitters, receivers and sizes are those of chip_smoke.py (the
@@ -42,7 +42,15 @@ events, the mean of `--reps` calls after one warm-up):
 - K-F, the phasor metric of both coverage sweeps from their segments
   (rfx_torch.coverage._dbm_cancel_from_segments), with the plain version's
   time and the bound of chip_smoke.py (one sphere test per live segment and
-  receiver, as K3's).
+  receiver, as K3's);
+- K-P's backward (`kpb`), rx_power_backward with g_dbm = 1 on K-P's rows
+  (the forward's signal and row sums from the kernel), with its device time,
+  the plain version's time on 16 of the rows, conv1d's (g_eff with the
+  carrier, no TF32) and chip_smoke.py's bound (two operations per in-range
+  tap of the nonzero g_eff);
+- K-F's backward (`kfb`), phasor_backward with g_dbm = 1 on both coverage
+  sweeps' segments, with the plain version's time and the forward walk's
+  bound. A checkout without the backwards skips these two rows.
 
 `--other DIR` runs every row in a child process on the checkout in DIR
 (another commit of this repository, unpacked there), before and after this
@@ -368,15 +376,78 @@ def run_kf(w: Workloads, reps: int, keep: dict) -> dict:
     return out
 
 
-ROWS = ("k1", "k2", "k3", "kh", "kp", "kf")
+def run_kpb(w: Workloads, reps: int, keep: dict) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from rfx_torch import cir
+
+    if not hasattr(cir, "rx_power_backward"):
+        return {}
+    out = {}
+    for name, (irs, window) in _power_irs(w, keep).items():
+        rows = irs.reshape(-1, irs.shape[-1])
+        m, nbins = rows.shape
+        kern = cir.carrier_cached(nbins, window, 2.4e9, w.dev)
+        sig, _, sums = cir._rx_power_launch(rows, kern)
+        g_dbm = torch.ones(m, dtype=torch.float32, device=w.dev)
+        g_ir, ms = _ms(lambda: cir.rx_power_backward(g_dbm, None, sig, sums, window), reps)
+        pick = torch.linspace(0, m - 1, min(m, 16), device=w.dev).round().long().unique()
+        _, plain_ms = _ms(lambda: cir.rx_power_backward_plain(g_dbm[pick], None, sig[pick],
+                                                              sums[pick], kern), 1)
+        g_eff = cir._effective_cotangent(g_dbm, None, sig, sums)
+        lo, hi = (nbins - 1) // 2, nbins - 1 - (nbins - 1) // 2
+        _, lib_ms = _ms(lambda: F.conv1d(F.pad(g_eff[:, None], (lo, hi)), kern[None, None]), 3)
+        taps = smoke.rx_power_taps(g_eff, lo=hi)
+        out[name] = {"ms": ms, "digest": _digest([g_ir]), "plain_ms": plain_ms,
+                     "plain_rows": int(pick.numel()), "library_ms": lib_ms, "taps": taps,
+                     # On many rows the call is device-bound and the
+                     # profiler's window dropped kernel records: CUDA events.
+                     "device_ms": smoke.device_ms(
+                         lambda: cir.rx_power_backward(g_dbm, None, sig, sums, window), reps)
+                     if m == 1 else None,
+                     "bound": smoke._bound(8 * rows.numel() + 12 * m + 4 * nbins, 2 * taps)}
+        del sig, sums, g_ir, g_eff
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_kfb(w: Workloads, reps: int, keep: dict) -> dict:
+    import torch
+
+    from rfx_torch.ops import coverage_hist as ch
+
+    if not hasattr(ch, "phasor_backward"):
+        return {}
+    kw = dict(nbins=smoke.COV_BINS, light_speed_mps=smoke.C, sample_rate_hz=smoke.RATE,
+              sample_window_s=smoke.COV_WINDOW, carrier_hz=2.4e9)
+    out = {}
+    for name, (segs, centers) in w.cov.items():
+        sums, _ = ch._phasor_sums(segs, centers, smoke.COV_RADIUS, **kw)
+        spread = ch.coverage_phasor(segs, centers, smoke.COV_RADIUS, **kw)[2]
+        coef = ch.phasor_coefficients(sums, spread, torch.ones(centers.shape[0], device=w.dev))
+        g, ms = _ms(lambda: ch.phasor_backward(segs, centers, smoke.COV_RADIUS, coef, **kw), reps)
+        _, plain_ms = _ms(lambda: ch.phasor_backward_plain(segs, centers, smoke.COV_RADIUS, coef,
+                                                           **kw), 1)
+        seg_bytes = sum(int(t.numel() * t.element_size()) for t in segs)
+        m = centers.shape[0]
+        out[name] = {"ms": ms, "digest": _digest([g]), "plain_ms": plain_ms,
+                     "bound": smoke._bound(seg_bytes + 44 * m + 4 * segs.t_env.numel(),
+                                           17 * m * int(segs.alive.sum()))}
+    return out
+
+
+ROWS = ("k1", "k2", "k3", "kh", "kp", "kf", "kpb", "kfb")
 
 
 def _run_all(w: Workloads, reps: int, keep: dict, only=ROWS) -> dict:
-    """The rows named in `only` (K-P's rows take K3's IRs: "kp" runs "k3")."""
+    """The rows named in `only` (K-P's rows and its backward's take K3's IRs:
+    "kp" and "kpb" run "k3")."""
     runs = {"k1": lambda: run_k1(w, reps, keep), "k2": lambda: run_k2(w, reps),
             "k3": lambda: run_k3(w, reps, keep), "kh": lambda: run_kh(w, reps, keep),
-            "kp": lambda: run_kp(w, reps, keep), "kf": lambda: run_kf(w, reps, keep)}
-    only = set(only) | ({"k3"} if "kp" in only else set())
+            "kp": lambda: run_kp(w, reps, keep), "kf": lambda: run_kf(w, reps, keep),
+            "kpb": lambda: run_kpb(w, reps, keep), "kfb": lambda: run_kfb(w, reps, keep)}
+    only = set(only) | ({"k3"} if {"kp", "kpb"} & set(only) else set())
     return {row: runs[row]() for row in ROWS if row in only}
 
 
@@ -472,7 +543,7 @@ def main(argv=None) -> int:
 
     def brief(r):
         return {k: {s: v["ms"] for s, v in r[k].items()} for k in r
-                if k in ("k1", "k2", "k3", "kp", "kf")}
+                if k in ("k1", "k2", "k3", "kp", "kf", "kpb", "kfb")}
 
     def kh(r):
         return {s: {k: v for k, v in t.items() if not k.endswith("digest")}
@@ -480,7 +551,8 @@ def main(argv=None) -> int:
 
     def digests(mine, theirs):
         return {k: {s: t.get("digest") == theirs.get(k, {}).get(s, {}).get("digest")
-                    for s, t in mine[k].items()} for k in ("k1", "k3", "kp", "kf") if k in mine}
+                    for s, t in mine[k].items()} for k in ("k1", "k3", "kp", "kf", "kpb", "kfb")
+                if k in mine}
 
     print(json.dumps({"card": card, "here": brief(out["here"]), "kh": kh(out["here"]),
                       "digest_equal_other": digests(out["here"], out.get("other_first", {})),
@@ -491,7 +563,8 @@ def main(argv=None) -> int:
                       "k1_counted_ms": {s: v["counted_ms"]
                                         for s, v in out["here"].get("k1", {}).items()},
                       "kp_kf": {k: {s: {f: v for f, v in t.items() if f != "digest"}
-                                    for s, t in out["here"].get(k, {}).items()} for k in ("kp", "kf")},
+                                    for s, t in out["here"].get(k, {}).items()}
+                                for k in ("kp", "kf", "kpb", "kfb")},
                       "other_first": brief(out.get("other_first", {})),
                       "other_last": brief(out.get("other_last", {})),
                       "vs_other": out.get("here_vs_other"), "seconds": out["seconds"]}))

@@ -264,22 +264,92 @@ def test_rx_power_plain_rows_alone_equal_the_batch():
 
 
 def test_rx_power_gradient_takes_the_plain_version_and_matches_jax():
-    """A CPU IR that requires grad runs the plain version (no launch), whose
-    gradient is the dense convolution's, as jax.grad of rfx.cir.rx_power_dbm:
-    zero bins get one too. The adjoint sums ~2,000 taps of either sign in
+    """A CPU IR that requires grad runs the plain versions (no launch of the
+    kernel or of its backward), whose gradient is the dense convolution's, as
+    jax.grad of rfx.cir.rx_power_dbm: zero bins get one too. The adjoint sums ~2,000 taps of either sign in
     another order than XLA's, so the bar has an absolute floor of 1e-5 of the
     largest entry."""
     ir = _power_case(1998, "sparse")
     x = torch.from_numpy(ir).requires_grad_()
-    before = cir.RX_POWER_KERNEL.launches
+    before = (cir.RX_POWER_KERNEL.launches, cir.RX_POWER_BACKWARD_KERNEL.launches)
     dbm, _ = cir.rx_power_dbm(x, POWER_WINDOW)
     dbm.sum().backward()
-    assert cir.RX_POWER_KERNEL.launches == before
+    assert (cir.RX_POWER_KERNEL.launches, cir.RX_POWER_BACKWARD_KERNEL.launches) == before
     want = np.asarray(jax.grad(lambda a: jnp.sum(jcir.rx_power_dbm(a, POWER_WINDOW)[0]))(
         jnp.asarray(ir)))
     got = x.grad.numpy()
     assert (got != 0).sum() > 2 * (ir != 0).sum()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5 * np.abs(want).max())
+
+
+POWER_COTANGENTS = ["dbm", "signal", "both"]
+
+
+def _power_cotangents(shape, cotangent, seed=5):
+    """Cotangents of the dBm (one a row) and of the signal, numpy f32, None
+    where the case has none."""
+    g = np.random.default_rng(seed)
+    g_dbm = g.standard_normal(shape[:-1]).astype(np.float32)
+    g_sig = (g.standard_normal(shape) * 1e6).astype(np.float32)
+    return (g_dbm if cotangent != "signal" else None, g_sig if cotangent != "dbm" else None)
+
+
+def _power_loss(dbm, sig, g_dbm, g_sig, xp):
+    """sum g_dbm dBm over the rows that received something, plus sum g_sig
+    signal: the cotangents of the case, -inf rows given none."""
+    loss = 0.0
+    if g_dbm is not None:
+        loss = loss + xp.sum(xp.where(xp.isfinite(dbm), dbm, 0.0) * g_dbm)
+    if g_sig is not None:
+        loss = loss + xp.sum(sig * g_sig)
+    return loss
+
+
+@pytest.mark.parametrize("cotangent", POWER_COTANGENTS)
+@pytest.mark.parametrize("nbins", [1998, 1999], ids=["even", "odd"])
+def test_rx_power_backward_plain_matches_autograd_of_plain(nbins, cotangent):
+    """The closed form of the backward (rx_power_backward_plain: g_eff from
+    the forward's signal and its row sums, then the transposed convolution)
+    against autograd through rx_power_dbm_plain, on rows with an empty one
+    (its dBm term absent: g_ir from the signal's cotangent alone) and on a
+    1-D IR; rtol 1e-4 with an absolute floor of 1e-5 of the largest entry."""
+    for ir in (_power_case(nbins, "zero_row"), _power_case(nbins, "single_ir")):
+        g_dbm, g_sig = _power_cotangents(ir.shape, cotangent)
+        x = torch.from_numpy(ir).requires_grad_()
+        dbm, sig = cir.rx_power_dbm_plain(x, POWER_WINDOW)
+        t = [None if a is None else torch.from_numpy(a) for a in (g_dbm, g_sig)]
+        _power_loss(dbm, sig, *t, torch).backward()
+        rows = sig.detach().reshape(-1, nbins)
+        count, sq = cir._power_sums_plain(rows)
+        got = cir.rx_power_backward_plain(
+            None if t[0] is None else t[0].reshape(-1), None if t[1] is None else t[1].reshape(-1, nbins),
+            rows, torch.stack([sq, count.float()], dim=1), cir._carrier(nbins, POWER_WINDOW, 2.4e9, "cpu"))
+        want = x.grad.reshape(-1, nbins)
+        assert int((got != 0).sum()) > 2 * int((ir != 0).sum())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("cotangent", POWER_COTANGENTS)
+@pytest.mark.parametrize("nbins", [1998, 1999], ids=["even", "odd"])
+def test_rx_power_gradient_matches_jax(nbins, cotangent):
+    """rx_power_dbm's autograd Function on the CPU (the plain forward, the
+    plain backward, no launch) against jax.grad of rfx.cir.rx_power_dbm: rows
+    with an empty one, and a 1-D IR; cotangents on the dBm, the signal or
+    both; the bar of test_rx_power_gradient_takes_the_plain_version_and_matches_jax."""
+    for ir in (_power_case(nbins, "zero_row"), _power_case(nbins, "single_ir")):
+        g_dbm, g_sig = _power_cotangents(ir.shape, cotangent)
+        x = torch.from_numpy(ir).requires_grad_()
+        before = (cir.RX_POWER_KERNEL.launches, cir.RX_POWER_BACKWARD_KERNEL.launches)
+        dbm, sig = cir.rx_power_dbm(x, POWER_WINDOW)
+        t = [None if a is None else torch.from_numpy(a) for a in (g_dbm, g_sig)]
+        _power_loss(dbm, sig, *t, torch).backward()
+        assert (cir.RX_POWER_KERNEL.launches, cir.RX_POWER_BACKWARD_KERNEL.launches) == before
+        j = [None if a is None else jnp.asarray(a) for a in (g_dbm, g_sig)]
+        want = np.asarray(jax.grad(lambda a: _power_loss(*jcir.rx_power_dbm(a, POWER_WINDOW), *j,
+                                                         jnp))(jnp.asarray(ir)))
+        got = x.grad.numpy()
+        assert got.shape == ir.shape and np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5 * np.abs(want).max())
 
 
 def test_rx_power_dbm_refuses_a_device_without_the_kernel():

@@ -28,7 +28,7 @@ from rfx_torch import cir as cir_mod
 from rfx_torch import convert, coverage
 from rfx_torch.api import Tracer
 from rfx_torch.ops import coverage_hist
-from rfx_torch.tracer import Scene
+from rfx_torch.tracer import EnvSegments, Scene
 
 torch.set_num_threads(1)
 
@@ -577,7 +577,7 @@ def test_phasor_table_plain_is_the_per_capture_arithmetic():
 
 def test_phasor_gradient_takes_the_plain_version(box_room):
     """CPU segments whose amplitude requires grad run the plain version (no
-    launch; the kernel has no backward); its gradient of the summed dBm of the reached receivers equals
+    launch: on the CPU `_dbm_cancel_from_segments` routes there); its gradient of the summed dBm of the reached receivers equals
     jax.grad of rfx's phasor metric within rtol 1e-4 (an absolute floor of
     1e-6 of the largest entry for the near-cancelling ones)."""
     from rfx.coverage import _dbm_cancel_from_segments as j_cancel
@@ -601,3 +601,154 @@ def test_phasor_gradient_takes_the_plain_version(box_room):
     got = amp.grad.numpy()
     assert (got != 0).sum() > 100
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6 * np.abs(want).max())
+
+
+PHASOR_OUTPUTS = ["dbm", "ratio", "spread", "weighted"]
+
+
+def _phasor_loss(outs, weights, output):
+    """The loss of a case: one output (or all three) against per-receiver
+    weights, a receiver that received nothing giving its -inf dBm none."""
+    picks = {"dbm": (0,), "ratio": (1,), "spread": (2,), "weighted": (0, 1, 2)}[output]
+    return sum(torch.sum(torch.where(torch.isfinite(outs[k]), outs[k], 0.0) * weights[k])
+               for k in picks)
+
+
+def _phasor_weights(m, seed=3):
+    g = np.random.default_rng(seed)
+    return [torch.from_numpy(g.standard_normal(m).astype(np.float32)) for _ in range(3)]
+
+
+@pytest.mark.parametrize("output", PHASOR_OUTPUTS)
+def test_phasor_backward_plain_matches_autograd_of_plain(box_room, output):
+    """The phasor backward's closed form (phasor_coefficients, then
+    phasor_backward_plain over the first captures) against autograd through
+    the metric's plain version, _dbm_cancel_plain, on the same segments: each
+    output, and a weighted sum of the three; 50 receivers and one outside the
+    room (no capture: it adds nothing). The closed form takes the amplitude
+    scaled by tx_power / num_rays, as the kernel does: the chain rule's factor
+    is applied here. rtol 1e-4 with an absolute floor of 1e-6 of the largest
+    entry (the closed form and autograd round differently)."""
+    segs, centers = _phasor_inputs(box_room)
+    psegs = convert.segments_from_rfx(segs, device="cpu")
+    weights = _phasor_weights(len(centers))
+    amp = psegs.amplitude.clone().requires_grad_()
+    outs = coverage._dbm_cancel_plain(psegs._replace(amplitude=amp), centers, 1.0, **PHASOR_KW)
+    _phasor_loss(outs, weights, output).backward()
+    scale = torch.tensor(1.0) / 8192
+    scaled = psegs._replace(amplitude=psegs.amplitude * scale)
+    kw = _coverage_phasor_kw(PHASOR_KW)
+    sums, _ = _phasor_sums_spelled_out(scaled, torch.from_numpy(centers), 1.0, **kw)
+    cot = [torch.where(torch.isfinite(o), w, 0.0) if k == 0 else w
+           for k, (o, w) in enumerate(zip(outs, weights))]
+    picks = {"dbm": (0,), "ratio": (1,), "spread": (2,), "weighted": (0, 1, 2)}[output]
+    coef = coverage_hist.phasor_coefficients(
+        sums, outs[2].detach(), *(cot[k] if k in picks else None for k in range(3)))
+    assert not coef[-1].any()  # the receiver outside the room
+    got = coverage_hist.phasor_backward_plain(scaled, centers, 1.0, coef, rx_batch=7, **kw) * scale
+    want = amp.grad
+    assert int((want != 0).sum()) > 1000 and bool(torch.isfinite(want).all())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6 * float(want.abs().max()))
+
+
+def test_phasor_gradient_at_zero_spread_matches_jax():
+    """A receiver whose one capture makes its spread exactly 0, beside one
+    with two captures and one that nothing reaches. jax.grad of rfx's phasor
+    metric with a cotangent on the spread gives NaN for that capture (sqrt's
+    derivative at 0 times a zero deviation) and finite values elsewhere; the
+    port's autograd and its closed form (phasor_backward_plain) give NaN at
+    the same entries and agree elsewhere (rtol 1e-4). Without a cotangent on
+    the spread the closed form skips its part and stays finite, as jax.grad."""
+    from rfx.coverage import _dbm_cancel_from_segments as j_cancel
+    from rfx.tracer import EnvSegments as JEnvSegments
+
+    # Ray 0 crosses receiver 0 at 5 mm from its origin (delay bin 0: t = 0,
+    # so its mean delay is exactly t); rays 1 and 2 cross receiver 1 at 4.99
+    # and 21.99 m of path; ray 3 is dead.
+    origin = np.asarray([[[0, 0, 0], [0, 0, 0], [0, -10, 0], [0, 0, 0]]], np.float32)
+    direction = np.asarray([[[1, 0, 0], [0, 1, 0], [0, 1, 0], [0, 0, 1]]], np.float32)
+    fields = dict(origin=origin, direction=direction,
+                  t_env=np.full((1, 4), 1e30, np.float32),
+                  amplitude=np.asarray([[0.9, 0.7, 0.4, 0.5]], np.float32),
+                  distance=np.asarray([[0.0, 0.0, 7.0, 0.0]], np.float32),
+                  alive=np.asarray([[True, True, True, False]]))
+    centers = np.asarray([[0.015, 0, 0], [0, 5, 0], [40, 40, 40]], np.float32)
+    kw = dict(num_rays=1, sample_window_s=100e-9, sample_rate_hz=10e9, carrier_hz=2.4e9,
+              light_speed_mps=C, tx_power=1.0, rx_batch=2)
+    jsegs = JEnvSegments(**{k: jnp.asarray(v) for k, v in fields.items()})
+    psegs = EnvSegments(**{k: torch.from_numpy(v) for k, v in fields.items()})
+    w = [np.asarray([0.3, -1.2, 0.7], np.float32), np.asarray([0.5, 0.25, -2.0], np.float32),
+         np.asarray([1.5, -0.5, 1.0], np.float32)]
+    for picks in ((0, 1, 2), (0, 1)):
+        def jloss(a):
+            outs = j_cancel(jsegs._replace(amplitude=a), jnp.asarray(centers), 0.01, **kw)
+            return sum(jnp.sum(jnp.where(jnp.isfinite(outs[k]), outs[k], 0.0) * w[k])
+                       for k in picks)
+
+        with jax.disable_jit():
+            outs_j = [np.asarray(x) for x in j_cancel(jsegs, jnp.asarray(centers), 0.01, **kw)]
+            want = np.asarray(jax.grad(jloss)(jsegs.amplitude))
+        assert outs_j[2][0] == 0.0 and outs_j[2][1] > 0.0 and not np.isfinite(outs_j[0][2])
+        amp = psegs.amplitude.clone().requires_grad_()
+        outs = coverage._dbm_cancel_plain(psegs._replace(amplitude=amp), centers, 0.01, **kw)
+        assert float(outs[2][0].detach()) == 0.0
+        sum(torch.sum(torch.where(torch.isfinite(outs[k]), outs[k], 0.0) * torch.from_numpy(w[k]))
+            for k in picks).backward()
+        cot = [torch.from_numpy(np.where(np.isfinite(outs_j[0]), w[0], 0.0).astype(np.float32)),
+               torch.from_numpy(w[1]), torch.from_numpy(w[2])]
+        coef = coverage_hist.phasor_coefficients(
+            torch.from_numpy(_zero_spread_sums(psegs, centers, kw)), outs[2].detach(),
+            *(cot[k] if k in picks else None for k in range(3)))
+        closed = coverage_hist.phasor_backward_plain(psegs, centers, 0.01, coef,
+                                                     **_coverage_phasor_kw(kw)).numpy()
+        nan = np.isnan(want)
+        assert nan.tolist() == [[2 in picks, False, False, False]]
+        for got in (amp.grad.numpy(), closed):
+            np.testing.assert_array_equal(np.isnan(got), nan)
+            np.testing.assert_allclose(got[~nan], want[~nan], rtol=1e-4,
+                                       atol=1e-6 * np.abs(want[~nan]).max())
+
+
+def _zero_spread_sums(psegs, centers, kw):
+    """The first pass's per-receiver sums of the zero-spread case, from its
+    captures: the phasor kernel's fields (re, im, max s_k, any, w^2, w^2
+    t_k), in float64 then rounded (one or two captures a receiver)."""
+    kw = _coverage_phasor_kw(kw)
+    bins, valid = coverage_hist._first_wins(psegs, torch.from_numpy(centers), 0.01,
+                                            nbins=kw["nbins"], light_speed_mps=C,
+                                            sample_rate_hz=kw["sample_rate_hz"])
+    table = coverage_hist.phasor_table_plain(
+        kw["nbins"], *coverage_hist._phasor_constants(kw["nbins"], kw["sample_window_s"],
+                                                      kw["carrier_hz"]))
+    out = np.zeros((len(centers), 6), np.float32)
+    for r in range(len(centers)):
+        rows = table[bins[r][valid[r]]].numpy()
+        aw = psegs.amplitude[valid[r]].numpy() * rows[:, 0]
+        if len(aw):
+            out[r] = [_seq(aw * rows[:, 1]), _seq(aw * rows[:, 2]), rows[:, 0].max() ** 2, 1.0,
+                      _seq(aw * aw), _seq(aw * aw * rows[:, 3])]
+    return out
+
+
+def test_coverage_phasor_backward_runs_the_plain_version_on_the_cpu(box_room, monkeypatch):
+    """coverage_phasor's autograd Function on CPU tensors (its first pass
+    spelled out, as in test_coverage_phasor_matches_rfx): the backward is
+    phasor_backward_plain (no launch), and the gradient equals autograd
+    through _dbm_cancel_plain at the bar of
+    test_phasor_backward_plain_matches_autograd_of_plain."""
+    segs, centers = _phasor_inputs(box_room)
+    psegs = convert.segments_from_rfx(segs, device="cpu")
+    weights = _phasor_weights(len(centers), seed=4)
+    amp = psegs.amplitude.clone().requires_grad_()
+    _phasor_loss(coverage._dbm_cancel_plain(psegs._replace(amplitude=amp), centers, 1.0,
+                                            **PHASOR_KW), weights, "weighted").backward()
+    monkeypatch.setattr(coverage_hist, "_phasor_sums", _phasor_sums_spelled_out)
+    monkeypatch.setattr(coverage_hist, "_phasor_spread", _phasor_spread_spelled_out)
+    mine = psegs.amplitude.clone().requires_grad_()
+    before = coverage_hist.PHASOR_BACKWARD_KERNEL.launches
+    outs = coverage_hist.coverage_phasor(psegs._replace(amplitude=mine * (torch.tensor(1.0) / 8192)),
+                                         centers, 1.0, **_coverage_phasor_kw(PHASOR_KW))
+    _phasor_loss(outs, weights, "weighted").backward()
+    assert coverage_hist.PHASOR_BACKWARD_KERNEL.launches == before
+    torch.testing.assert_close(mine.grad, amp.grad, rtol=1e-4,
+                               atol=1e-6 * float(amp.grad.abs().max()))

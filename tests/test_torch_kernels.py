@@ -534,26 +534,130 @@ def test_rx_power_kernel_matches_plain(cuda, nbins):
 
 
 def test_rx_power_kernel_requires_grad_raises(cuda):
-    """The kernel has no backward: a CUDA IR that requires grad raises,
-    naming it, and launches nothing; under no_grad the kernel runs. The plain
-    version, called by name, gives the card the CPU's gradient."""
+    """A CUDA IR that requires grad no longer raises: the forward launches
+    the RX-power kernel and the backward its backward kernel, once each, and
+    the gradient equals the plain version's on the card and the CPU's
+    (autograd through rx_power_dbm_plain, the dense convolution's adjoint).
+    Under no_grad nothing is kept and no backward runs."""
     irs = _sparse_irs(cuda, 7, 2000)[[0, 1, 3, 6]]
-    before = cir.RX_POWER_KERNEL.launches
-    with pytest.raises(RuntimeError, match="rfx_rx_power"):
-        cir.rx_power_dbm(irs.clone().requires_grad_(), 20e-9)
-    assert cir.RX_POWER_KERNEL.launches == before
+    before = (cir.RX_POWER_KERNEL.launches, cir.RX_POWER_BACKWARD_KERNEL.launches)
     with torch.no_grad():
         cir.rx_power_dbm(irs.clone().requires_grad_(), 20e-9)
-    assert cir.RX_POWER_KERNEL.launches == before + 1
+    assert cir.RX_POWER_KERNEL.launches == before[0] + 1
     grads = []
-    for dev in (cuda, torch.device("cpu")):
+    for dev, fn in ((cuda, cir.rx_power_dbm), (cuda, cir.rx_power_dbm_plain),
+                    (torch.device("cpu"), cir.rx_power_dbm_plain)):
         x = irs.detach().to(dev).requires_grad_()
-        dbm, _ = cir.rx_power_dbm_plain(x, 20e-9)
+        dbm, _ = fn(x, 20e-9)
         dbm.sum().backward()
         grads.append(x.grad.cpu())
     torch.cuda.synchronize()
-    assert cir.RX_POWER_KERNEL.launches == before + 1
-    torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-6 * float(grads[1].abs().max()))
+    assert (cir.RX_POWER_KERNEL.launches, cir.RX_POWER_BACKWARD_KERNEL.launches) == (
+        before[0] + 2, before[1] + 1)
+    for g in grads[:2]:
+        torch.testing.assert_close(g, grads[2], rtol=1e-4, atol=1e-5 * float(grads[2].abs().max()))
+
+
+def _power_backward_inputs(cuda, irs, window, seed=3):
+    """The forward's signal and sums of `irs` on the card, and cotangents of
+    the dBm (one a row) and of the signal."""
+    out, _, sums = cir._rx_power_launch(irs, cir.carrier_cached(irs.shape[1], window, 2.4e9, cuda))
+    g = np.random.default_rng(seed)
+    g_dbm = torch.from_numpy(g.standard_normal(irs.shape[0]).astype(np.float32)).to(cuda)
+    g_out = torch.from_numpy(g.standard_normal(irs.shape).astype(np.float32)).to(cuda) * 1e6
+    return out, sums, g_dbm, g_out
+
+
+def _assert_backward_close(k, p):
+    """The kernel's g_ir against the plain version's: each output adds its
+    taps in ascending j in f32, the plain version in float64, so rtol 1e-4
+    with an absolute floor of 1e-5 of the largest entry (the taps of a sample
+    alternate in sign and cancel)."""
+    torch.testing.assert_close(k, p, rtol=1e-4, atol=1e-5 * float(p.abs().max()))
+
+
+@pytest.mark.parametrize("nbins", [1998, 10_000, 20_001])
+@pytest.mark.parametrize("cotangent", ["dbm", "signal", "both"])
+def test_rx_power_backward_kernel_matches_plain(cuda, nbins, cotangent):
+    """The backward kernel against its plain version on the same forward: 37
+    rows (an empty row among them, one of 30% nonzero bins, rows of one bin),
+    cotangents on the dBm, on the signal or on both; one launch for all rows,
+    the same bits from run to run, a row alone (or a group) the same bits as
+    in the batch; dense in the bins (a zero bin gets a gradient)."""
+    irs = _sparse_irs(cuda, 37, nbins)
+    window = nbins / 100e9
+    out, sums, g_dbm, g_out = _power_backward_inputs(cuda, irs, window)
+    g_dbm = g_dbm if cotangent != "signal" else None
+    g_out = g_out if cotangent != "dbm" else None
+    count, sq = cir._power_sums_plain(out)  # the forward's epilogue: each row's count and squares
+    assert torch.equal(sums[:, 1], count.float()) and float(sums[2, 1]) == 0.0
+    torch.testing.assert_close(sums[:, 0], sq, rtol=1e-5, atol=0)
+    before = cir.RX_POWER_BACKWARD_KERNEL.launches
+    a = cir.rx_power_backward(g_dbm, g_out, out, sums, window)
+    b = cir.rx_power_backward(g_dbm, g_out, out, sums, window)
+    assert cir.RX_POWER_BACKWARD_KERNEL.launches == before + 2
+    kern = cir.carrier_cached(nbins, window, 2.4e9, cuda)
+    p = cir.rx_power_backward_plain(g_dbm, g_out, out, sums, kern)
+    torch.cuda.synchronize()
+    assert a.shape == (37, nbins) and torch.equal(a, b)
+    _assert_backward_close(a, p)
+    assert int((a[0] != 0).sum()) > int((irs[0] != 0).sum())
+    if cotangent == "dbm":
+        assert not a[2].any()  # an empty row: no dBm term, no signal cotangent
+    for r in (0, 2, 5, 36):
+        alone = cir.rx_power_backward(None if g_dbm is None else g_dbm[r:r + 1],
+                                      None if g_out is None else g_out[r:r + 1], out[r:r + 1],
+                                      sums[r:r + 1], window)
+        assert torch.equal(alone[0], a[r]), r
+    group = cir.rx_power_backward(None if g_dbm is None else g_dbm[7:30],
+                                  None if g_out is None else g_out[7:30], out[7:30], sums[7:30],
+                                  window)
+    assert torch.equal(group, a[7:30])
+
+
+def test_rx_power_backward_kernel_single_long_row(cuda):
+    """The forward request's shape, one 20,000-bin IR through autograd: one
+    forward and one backward launch; the gradient equals the plain
+    version's, and a row's gradient is the same bits alone as in a batch."""
+    g = np.random.default_rng(41)
+    ir = np.zeros(20_000, np.float32)
+    ir[g.choice(np.arange(1500, 4000), 900, replace=False)] = g.uniform(1e-9, 1e-6, 900)
+    ir[g.choice(np.arange(4000, 20_000), 360, replace=False)] = -g.uniform(1e-9, 1e-6, 360)
+    x = torch.from_numpy(ir).to(cuda).requires_grad_()
+    before = (cir.RX_POWER_KERNEL.launches, cir.RX_POWER_BACKWARD_KERNEL.launches)
+    dbm, _ = cir.rx_power_dbm(x, 200e-9)
+    dbm.backward()
+    assert (cir.RX_POWER_KERNEL.launches, cir.RX_POWER_BACKWARD_KERNEL.launches) == (
+        before[0] + 1, before[1] + 1)
+    y = x.detach().clone().requires_grad_()
+    cir.rx_power_dbm_plain(y, 200e-9)[0].backward()
+    batch = torch.stack([x.detach().flip(0), x.detach(), x.detach() * 0.5]).requires_grad_()
+    cir.rx_power_dbm(batch, 200e-9)[0].sum().backward()
+    torch.cuda.synchronize()
+    _assert_backward_close(x.grad, y.grad)
+    assert torch.equal(batch.grad[1], x.grad)
+    assert int((x.grad != 0).sum()) > 15_000
+
+
+def test_rx_power_backward_kernel_edges(cuda):
+    """No rows, rows with no nonzero sample (the dBm term absent: the
+    gradient is the signal's cotangent's alone), and no cotangent at all."""
+    none = cir.rx_power_backward(torch.zeros(0, device=cuda), None,
+                                 torch.zeros((0, 100), device=cuda),
+                                 torch.zeros((0, 2), device=cuda), 1e-9)
+    assert none.shape == (0, 100)
+    zeros = torch.zeros((3, 1000), device=cuda, requires_grad=True)
+    dbm, sig = cir.rx_power_dbm(zeros, 10e-9)
+    w = torch.from_numpy(np.random.default_rng(2).standard_normal((3, 1000)).astype(np.float32))
+    (torch.where(torch.isfinite(dbm), dbm, 0.0).sum() + (sig * w.to(cuda)).sum()).backward()
+    host = torch.zeros((3, 1000), requires_grad=True)
+    d2, s2 = cir.rx_power_dbm_plain(host, 10e-9)
+    (torch.where(torch.isfinite(d2), d2, 0.0).sum() + (s2 * w).sum()).backward()
+    torch.cuda.synchronize()
+    assert bool((dbm == -np.inf).all())
+    _assert_backward_close(zeros.grad.cpu(), host.grad)
+    out, _, sums = cir._rx_power_launch(zeros.detach(), cir.carrier_cached(1000, 10e-9, 2.4e9, cuda))
+    assert not cir.rx_power_backward(None, None, out, sums, 10e-9).any()
 
 
 def test_rx_power_kernel_edges(cuda):
@@ -583,7 +687,7 @@ def test_coverage_phasor_kernel_matches_plain(cuda):
     one launch each of the table, the walk and the spread over its lists.
     dBm within 1e-3 dB, ratio and spread within rtol 1e-4, the same bits from
     run to run and for a receiver alone or in any group; an input that
-    requires grad raises."""
+    requires grad runs the same kernels, and the backward kernel once."""
     segs = _room_segments(cuda, 100_003)
     centers = _room_receivers(531)
     kw = PHASOR_CARD_KW
@@ -609,14 +713,16 @@ def test_coverage_phasor_kernel_matches_plain(cuda):
     group = coverage_hist.coverage_phasor(segs, centers[7:44], 0.7, **kw)
     for a, b in zip(group, k1):
         assert torch.equal(a, b[7:44])
-    # The kernel has no backward: segments that require grad raise on the card.
+    # Segments that require grad run the same kernels, and the backward's.
     wanted = segs._replace(amplitude=segs.amplitude.clone().requires_grad_())
-    before = _phasor_launches()
-    with pytest.raises(RuntimeError, match="rfx_coverage_phasor"):
-        coverage._dbm_cancel_from_segments(wanted, centers[:40], 0.7, num_rays=1, tx_power=1.0,
-                                           rx_batch=16, **{k: v for k, v in kw.items()
-                                                           if k != "nbins"})
-    assert _phasor_launches() == before
+    before = _phasor_launches() + [coverage_hist.PHASOR_BACKWARD_KERNEL.launches]
+    dbm, _, _ = coverage._dbm_cancel_from_segments(
+        wanted, centers[:40], 0.7, num_rays=1, tx_power=1.0, rx_batch=16,
+        **{k: v for k, v in kw.items() if k != "nbins"})
+    torch.where(torch.isfinite(dbm), dbm, 0.0).sum().backward()
+    after = _phasor_launches() + [coverage_hist.PHASOR_BACKWARD_KERNEL.launches]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
+    assert torch.equal(dbm.detach(), k1[0][:40]) and bool(wanted.amplitude.grad.any())
 
 
 @pytest.mark.parametrize("pool", [(0, 1), (0, 40)], ids=["one_chunk", "some_chunks"])
@@ -641,6 +747,110 @@ def test_coverage_phasor_kernel_lost_lists_walk_again(cuda, monkeypatch, pool):
     torch.cuda.synchronize()
     for a, b in zip(kept, spent):
         assert torch.equal(a, b)
+
+
+def _phasor_backward_case(cuda, segs, centers, radius, kw, seed=7):
+    """The forward's sums and spread of `segs` on the card and coefficients
+    for random cotangents of all three outputs."""
+    sums, walks = coverage_hist._phasor_sums(segs, torch.as_tensor(centers, device=cuda), radius,
+                                             **kw)
+    spread = coverage_hist._phasor_spread(walks, sums[:, 5] / sums[:, 4])
+    spread = torch.where(sums[:, 3] > 0, torch.sqrt(torch.clamp_min(spread / sums[:, 4], 0.0)),
+                         0.0)
+    g = np.random.default_rng(seed)
+    cot = [torch.from_numpy(g.standard_normal(len(centers)).astype(np.float32)).to(cuda)
+           for _ in range(3)]
+    return sums, coverage_hist.phasor_coefficients(sums, spread, *cot)
+
+
+def _assert_phasor_backward(cuda, segs, centers, radius, kw):
+    """The backward kernel against its plain version on the same
+    coefficients: NaN alike (a receiver whose spread is 0 with a spread
+    cotangent, as under jax.grad), rtol 1e-4 with an absolute floor of 1e-6
+    of the largest entry elsewhere (the two add a segment's receivers in
+    other orders on the card); one launch a call, the same bits twice."""
+    sums, coef = _phasor_backward_case(cuda, segs, centers, radius, kw)
+    before = coverage_hist.PHASOR_BACKWARD_KERNEL.launches
+    a = coverage_hist.phasor_backward(segs, centers, radius, coef, **kw)
+    b = coverage_hist.phasor_backward(segs, centers, radius, coef, **kw)
+    assert coverage_hist.PHASOR_BACKWARD_KERNEL.launches == before + 2
+    p = coverage_hist.phasor_backward_plain(segs, centers, radius, coef, rx_batch=64, **kw)
+    torch.cuda.synchronize()
+    assert a.shape == segs.t_env.shape and torch.equal(a.isnan(), b.isnan())
+    assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+    assert torch.equal(a.isnan(), p.isnan())
+    ok = ~p.isnan()
+    torch.testing.assert_close(a[ok], p[ok], rtol=1e-4, atol=1e-6 * float(p[ok].abs().max()))
+    assert int((a[ok] != 0).sum()) > 100 and int((sums[:, 3] > 0).sum()) > len(centers) // 4
+    return a
+
+
+def test_phasor_backward_kernel_matches_plain(cuda):
+    """The room's segments (100,003 rays, 3 bounces: a ray's bounces held in
+    registers), 531 receivers and one outside the room; the gradient through
+    coverage_phasor's autograd equals the kernel's direct call bit for bit."""
+    segs = _room_segments(cuda, 100_003)
+    centers = _room_receivers(531)
+    kw = PHASOR_CARD_KW
+    a = _assert_phasor_backward(cuda, segs, centers, 0.7, kw)
+    amp = segs.amplitude.clone().requires_grad_()
+    out = coverage_hist.coverage_phasor(segs._replace(amplitude=amp), centers, 0.7, **kw)
+    g = np.random.default_rng(7)
+    loss = sum((torch.where(torch.isfinite(o), o, 0.0) * torch.from_numpy(
+        g.standard_normal(len(centers)).astype(np.float32)).to(cuda)).sum() for o in out)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert torch.equal(torch.nan_to_num(amp.grad), torch.nan_to_num(a))
+
+
+def test_phasor_backward_kernel_many_bounces_and_terrain(cuda):
+    """Ten bounces in the room (more than the kernel holds in registers: it
+    reads them again for each receiver) and a terrain, each against the
+    plain version."""
+    _assert_phasor_backward(cuda, _room_segments(cuda, 20_000, max_bounces=10),
+                            _room_receivers(97), 0.7, PHASOR_CARD_KW)
+    terrain = make_terrain(grid=40, extent=40.0, seed=5)
+    dirs = morton_sphere_directions(65_536, generator=torch.Generator(cuda).manual_seed(4),
+                                    device=cuda)
+    segs = trace_env(Scene.from_mesh(terrain, cuda), [10.0, 0.0, 25.0], dirs, max_bounces=2)
+    segs = segs._replace(amplitude=segs.amplitude * (torch.tensor(1.0) / 65_536).to(cuda))
+    g = np.random.default_rng(12)
+    centers = np.column_stack([g.uniform(-20, 20, 300), g.uniform(-20, 20, 300),
+                               g.uniform(5, 20, 300)]).astype(np.float32)
+    _assert_phasor_backward(cuda, segs, centers, 1.0, PHASOR_CARD_KW)
+
+
+def test_coverage_kernel_refuses_a_gradient(cuda):
+    """The coverage kernel has no backward (nor has rfx's batched engine):
+    segments that require grad under grad mode raise, naming it and the map
+    engine, before any launch; the hybrid's exact branch then raises too;
+    under no_grad the kernel runs; the map engine gives the gradient."""
+    room = make_room()
+    dirs = morton_sphere_directions(8192, generator=torch.Generator(cuda).manual_seed(8),
+                                    device=cuda)
+    scene = Scene.from_mesh(room, cuda)
+    centers = _room_receivers(20)
+    n1 = torch.tensor(5.0, device=cuda, requires_grad=True)
+    segs = trace_env(scene, [3.0, 2.0, 2.0], dirs, max_bounces=2, n1=n1)
+    assert segs.amplitude.requires_grad
+    kw = dict(nbins=10_000, light_speed_mps=2.998e8, sample_rate_hz=100e9)
+    before = coverage_hist.COVERAGE_HIST_KERNEL.launches
+    with pytest.raises(RuntimeError, match='rfx_coverage_hist.*engine="map"'):
+        coverage_hist.coverage_hist(segs, centers, 0.8, **kw)
+    assert coverage_hist.COVERAGE_HIST_KERNEL.launches == before
+    with torch.no_grad():
+        coverage_hist.coverage_hist(segs, centers, 0.8, **kw)
+    assert coverage_hist.COVERAGE_HIST_KERNEL.launches == before + 1
+    # Every receiver flagged (ratio below infinity): the exact branch runs.
+    hkw = dict(max_bounces=2, num_rays=8192, sample_window_s=100e-9,
+               cancel_threshold=float("inf"))
+    with pytest.raises(RuntimeError, match="rfx_coverage_hist"):
+        coverage.coverage_dbm_hybrid(scene, [3.0, 2.0, 2.0], dirs, centers, 0.8, n1=n1, **hkw)
+    dbm = coverage.coverage_dbm(scene, [3.0, 2.0, 2.0], dirs, centers, 0.8, n1=n1, max_bounces=2,
+                                num_rays=8192, sample_window_s=100e-9, engine="map")
+    torch.where(torch.isfinite(dbm), dbm, 0.0).sum().backward()
+    torch.cuda.synchronize()
+    assert n1.grad is not None and bool(torch.isfinite(n1.grad)) and float(n1.grad) != 0.0
 
 
 @pytest.mark.parametrize("nbins", [1998, 10_000, 20_001])
