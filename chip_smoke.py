@@ -37,7 +37,9 @@ happened, and none catching its own failure:
    of 1e-5 of its largest sample, dBm within 1e-4 dB, two runs the same
    bits), beside conv1d; and its backward with g_dbm = 1 against its plain
    version (rtol 1e-4, an absolute floor of 1e-5 of the largest entry, two
-   runs the same bits), beside conv1d of the effective cotangent;
+   runs the same bits, the same bits as the IR's row in a 64-row batch: the
+   lone IR's launch is split over its segments, the batch's is not),
+   beside conv1d of the effective cotangent;
 7. the per-query closest-hit kernel against its plain version on the bench
    scene: the 65,536 rays of phase 4 from tx, their reflected second-bounce
    queries from the terrain, and 1,024 parked rays; identical t, indices,
@@ -96,7 +98,8 @@ happened, and none catching its own failure:
     lost and walked again), each on the card; both kernels' backwards with
     g_dbm = 1 on all rows / receivers against their plain versions (K-P's on
     16 of the rows; K-F's rtol 1e-4 with an absolute floor of 1e-6 of the
-    largest entry), two runs the same bits, with their times; the exact
+    largest entry), two runs the same bits, K-F's with the live rays its
+    scan listed beside the segments' live share, with their times; the exact
     metric through
     `rfx_torch.cli.main(["coverage", ...])` (room), whose saved dBm must equal
     the facade's and be finite exactly where an IR is nonzero, with
@@ -500,8 +503,8 @@ def _rx_power_backward_leg(irs, window: float, what: str, plain_rows: int = 16) 
     forward's signal and row sums from the kernel, the backward twice (the
     same bits), the plain version on `plain_rows` rows spread over the batch
     (rtol 1e-4, an absolute floor of 1e-5 of the largest entry: float64
-    against the kernel's f32 in ascending j), row 777 alone the same bits as
-    in the batch. Times: the kernel's call and its device time, the plain
+    against the kernel's f32 FMA chains), row 777 alone the same bits as in
+    the batch, a lone IR the same bits as its row in a 64-row batch. Times: the kernel's call and its device time, the plain
     version's on its rows, and conv1d's (g_eff padded by lo and hi, the
     carrier as the filter, no TF32: the library's call for the same
     gradient, timed here only); the bound counts two operations for each
@@ -533,6 +536,13 @@ def _rx_power_backward_leg(irs, window: float, what: str, plain_rows: int = 16) 
     if m > 777:
         alone = cir.rx_power_backward(g_dbm[777:778], None, sig[777:778], sums[777:778], window)
         _require(torch.equal(alone[0], a[777]), f"{what}: backward row 777 alone differs")
+    if m == 1:  # a lone IR's launch is split over the segments, a batch's is not
+        batch = torch.stack([rows[0].roll(373 * i) for i in range(64)])
+        batch[37] = rows[0]
+        sig_b, _, sums_b = cir._rx_power_launch(batch, kern)
+        in_batch = cir.rx_power_backward(torch.ones(64, device=dev), None, sig_b, sums_b, window)
+        _require(torch.equal(in_batch[37], a[0]),
+                 f"{what}: backward of the lone IR differs from its row in a 64-row batch")
     lo, hi = (nbins - 1) // 2, nbins - 1 - (nbins - 1) // 2
     g_eff = cir._effective_cotangent(g_dbm, None, sig, sums)
 
@@ -557,7 +567,8 @@ def _rx_power_backward_leg(irs, window: float, what: str, plain_rows: int = 16) 
     on_device = "" if m > 1 else f" ({out['device_ms']:.4f} ms on the device)"
     print(f"# {what} backward, {m} x {nbins} bins (g_eff {out['nonzero_g_eff']} nonzero): kernel "
           f"== plain on {out['plain_rows']} rows (max |d| {out['max_abs_err']:.3e} of {scale:.3e}), "
-          f"bit-identical across runs{' and alone' if m > 777 else ''}; kernel {out['ms']:.4f} ms a "
+          f"bit-identical across runs{' and alone' if m > 777 else ''}"
+          f"{' and in a 64-row batch' if m == 1 else ''}; kernel {out['ms']:.4f} ms a "
           f"call{on_device}, plain {out['plain_ms']:.1f} ms on its rows, conv1d "
           f"{out['library_ms']:.3f} ms (max |d| {out['library_max_abs_err']:.3e}), "
           f"bound {out['bound']['bound_ms']:.4f} ms by {out['bound']['bound_by']} ({taps} taps)",
@@ -633,8 +644,12 @@ def _phasor_leg(segs, centers, fkw: dict, what: str) -> dict:
 
     gb, gb2 = backward(), backward()
     gp = ch.phasor_backward_plain(scaled, centers, COV_RADIUS, coef, **kw)
+    gl, live_rays = ch._phasor_backward_launch(scaled, centers, COV_RADIUS, coef, **kw)
     _sync()
-    _require(torch.equal(gb, gb2), f"{what}: two backward runs differ")
+    _require(torch.equal(gb, gb2) and torch.equal(gb, gl), f"{what}: two backward runs differ")
+    live_rays = int(live_rays)
+    _require(live_rays == int(segs.alive.any(dim=0).sum()),
+             f"{what}: the backward's scan listed {live_rays} live rays")
     g_scale = float(gp.abs().max())
     _require(bool(torch.isfinite(gb).all()) and torch.allclose(gb, gp, rtol=1e-4,
                                                                 atol=1e-6 * g_scale),
@@ -675,6 +690,8 @@ def _phasor_leg(segs, centers, fkw: dict, what: str) -> dict:
            # segments, the centers and 32 bytes of coefficients a receiver
            # and writes one gradient a segment.
            "backward": {"max_abs_err": float((gb - gp).abs().max()), "max_abs_grad": g_scale,
+                        "live_rays": live_rays,
+                        "live_segment_share": float(segs.alive.float().mean()),
                         "ms": _cuda_ms(backward, 5),
                         "plain_ms": _cuda_ms(lambda: ch.phasor_backward_plain(
                             scaled, centers, COV_RADIUS, coef, **kw), 1),
@@ -691,7 +708,9 @@ def _phasor_leg(segs, centers, fkw: dict, what: str) -> dict:
           f"{chunks} of {out['pool_chunks']} chunks, {lost} regions lost (walked again)", flush=True)
     bw = out["backward"]
     print(f"# {what} backward, {m} receivers, g_dbm = 1: kernel == plain (max |d| "
-          f"{bw['max_abs_err']:.3e} of {g_scale:.3e}), bit-identical across runs; kernel "
+          f"{bw['max_abs_err']:.3e} of {g_scale:.3e}), bit-identical across runs; "
+          f"{live_rays} of {segs.t_env.shape[1]} rays live by its scan, "
+          f"{bw['live_segment_share']:.4f} of the segments live; kernel "
           f"{bw['ms']:.3f} ms a call (one launch), plain "
           f"{bw['plain_ms']:.1f} ms, bound {bw['bound']['bound_ms']:.3f} ms by "
           f"{bw['bound']['bound_by']}", flush=True)
@@ -2526,7 +2545,7 @@ def main() -> int:
                   f"every row: ms, bound_ms, library_ms: the room's 2048 exact IRs x {COV_BINS} "
                   f"bins; *_terrain: the terrain's; *_cir: the forward request's IR, {NBINS} bins; "
                   f"plain_ms: rx_power_backward_plain on {kpb_room['plain_rows']} of the rows; ms "
-                  f"is the wrapper's call (the cotangent's compaction and the transposed "
+                  f"is the wrapper's call (the cotangent's staging and the transposed "
                   f"convolution), device_ms_cir the device's own time a call; bound_ms counts 2 f32 "
                   f"operations per in-range tap of the nonzero g_eff; max_abs_err on g_ir; "
                   f"library_ms: conv1d of g_eff with the carrier, no TF32"},

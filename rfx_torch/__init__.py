@@ -15,7 +15,8 @@ rfx_torch/csrc/, built with nvcc at first use (`ops/_build.py`):
 - `coverage_hist.cu`: the coverage histogram, its slab reduction, and the
   phasor metric: its per-bin table, its sums over the same walk and capture
   rule, its delay spread over the capture lists that walk leaves, and its
-  backward (d / d amplitude, a thread a ray over the receivers in order);
+  backward (d / d amplitude, a thread a live ray over the receivers in
+  order);
 - `rx_power.cu`: the RX-power metric's convolution with the carrier and its
   dBm, one call for a batch of IRs, and its backward (the transposed
   convolution of the metric's cotangent);

@@ -54,7 +54,7 @@ HISTOGRAM_KERNEL = CudaKernel(
 )
 RX_POWER_KERNEL = CudaKernel("rx_power.cu", "rfx_rx_power", [P, P, I, I, P, P, P, P, P, P])
 RX_POWER_BACKWARD_KERNEL = CudaKernel("rx_power.cu", "rfx_rx_power_backward",
-                                      [P, P, P, P, P, I, I, P, P, P, P])
+                                      [P, P, P, P, P, I, I, P, P, P, P, P])
 
 # The kernel's constants (csrc/histogram.cu): a warp counts a tile of 128
 # 16-byte words of mask; a block sorts a chunk of 2,048 captures.
@@ -387,7 +387,7 @@ def rx_power_dbm_plain(impulse_response: torch.Tensor, sample_window_s: float,
 
 
 def _power_scratch(m: int, nbins: int, dev) -> torch.Tensor:
-    """The RX-power kernels' scratch: each row's (k, value) pairs, two words
+    """The RX-power kernel's scratch: each row's (k, value) pairs, two words
     a bin, and the segments' counts."""
     return torch.empty(2 * m * nbins + m * -(-nbins // _POWER_SEGMENT), dtype=torch.int32,
                        device=dev)
@@ -467,6 +467,25 @@ def _reversed_carrier_cached(nbins: int, sample_window_s: float, carrier_hz: flo
     return carrier_cached(nbins, sample_window_s, carrier_hz, device).flip(0).contiguous()
 
 
+# The backward kernel's tiling (csrc/rx_power.cu): a block takes 8 rows (1
+# where there are fewer) and 512 outputs; a launch of fewer blocks than
+# _BACK_SPLIT_BELOW (four an SM of an H100) is split over the 1,024-bin
+# segments, where the partials take at most _BACK_PARTIALS_BYTES.
+_BACK_ROWS = 8
+_BACK_TILE = 512
+_BACK_SPLIT_BELOW = 4 * 132
+_BACK_PARTIALS_BYTES = 256 << 20
+
+
+def _backward_partials(m: int, nbins: int) -> int:
+    """Floats of the backward's split partials for (m, nbins), 0 where the
+    launch is not split."""
+    rows = _BACK_ROWS if m >= _BACK_ROWS else 1
+    tiles = -(-nbins // _BACK_TILE)
+    n = m * -(-nbins // _POWER_SEGMENT) * tiles * _BACK_TILE
+    return n if -(-m // rows) * tiles < _BACK_SPLIT_BELOW and 4 * n <= _BACK_PARTIALS_BYTES else 0
+
+
 def _rx_power_backward_launch(g_dbm, g_signal, signal: torch.Tensor, sums: torch.Tensor,
                               reversed_carrier: torch.Tensor) -> torch.Tensor:
     """One launch sequence of the backward kernel on CUDA tensors: g_ir."""
@@ -480,12 +499,20 @@ def _rx_power_backward_launch(g_dbm, g_signal, signal: torch.Tensor, sums: torch
     g_signal = None if g_signal is None else g_signal.to(torch.float32).expand(m, nbins).contiguous()
     signal, sums = signal.contiguous(), sums.contiguous()
     g_ir = torch.empty((m, nbins), dtype=torch.float32, device=dev)
-    scratch = _power_scratch(m, nbins, dev)
+    # Scratch: g_eff padded to whole segments, the segments' flags, and the
+    # partials (on 16 bytes) of a split launch.
+    n_seg = -(-nbins // _POWER_SEGMENT)
+    n_flags = -(-m * n_seg // 4) * 4
+    split = _backward_partials(m, nbins)
+    scratch = torch.empty(m * n_seg * _POWER_SEGMENT + n_flags + split, dtype=torch.float32,
+                          device=dev)
     sp = scratch.data_ptr()
+    at_flags = sp + 4 * m * n_seg * _POWER_SEGMENT
     _launch_on(RX_POWER_BACKWARD_KERNEL, dev, (
         None if g_dbm is None else g_dbm.data_ptr(),
         None if g_signal is None else g_signal.data_ptr(), signal.data_ptr(), sums.data_ptr(),
-        reversed_carrier.data_ptr(), m, nbins, g_ir.data_ptr(), sp, sp + 8 * m * nbins))
+        reversed_carrier.data_ptr(), m, nbins, g_ir.data_ptr(), sp, at_flags,
+        at_flags + 4 * n_flags if split else None))
     return g_ir
 
 

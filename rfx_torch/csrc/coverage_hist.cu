@@ -104,8 +104,8 @@
 // The phasor metric's backward (rfx_coverage_phasor_backward, its note below)
 // replaces what jax.grad takes through the same XLA program: d / d amp of
 // every segment. It finds the forward's captures with the same device code
-// (`disc_positive`, `sphere_win`, `phasor_entry`) and adds each segment's
-// terms over the receivers in ascending order.
+// (`disc_positive`, `sphere_win`, and `phasor_entry` through the table) and
+// adds each segment's terms over the receivers in ascending order.
 
 #include <cuda_runtime.h>
 
@@ -740,36 +740,246 @@ __global__ void __launch_bounds__(256) phasor_reduce_kernel(const float* __restr
 //
 // each part only where its coefficients are nonzero (a coefficient whose
 // cotangent is zero is 0, and its part is skipped, not multiplied: jax.grad
-// prunes it, and 0 * inf would be NaN). One thread a ray holds the ray's
-// bounces (origin, direction, life; in registers for kB > 0, read again for
-// each receiver where kB is 0) and takes the receivers in ascending order, in
-// tiles staged in shared memory; for each receiver its bounces in order until
-// the first win, by the hot loop's test (`disc_positive`), the capture rule
-// (`sphere_win`) and the table's entry (`phasor_entry`): the forward's
-// device code, so the captures are the forward's. Each thread writes its
-// segments' sums once, added in ascending receiver order: no atomic, the same
-// bits from run to run. What bounds it: the forward walk's sphere tests, one
-// per live segment and receiver.
-constexpr int kBackThreads = 256;  // rays of a block
-constexpr int kBackRx = 256;       // receivers of a staged tile
+// prunes it, and 0 * inf would be NaN). A segment's terms are added over its
+// receivers in ascending order from +0, so each output is the same bits from
+// run to run, whatever thread computes it.
+//
+// What bounds it on an H100: the walk's sphere tests, one per live segment
+// and receiver (4.3e9 on the room's 2,048 receivers x 2 x 1,048,576
+// segments), 17 f32 operations each. Built without contraction (-fmad=false)
+// each operation is an instruction, and the card issues at most 132 SMs x 128
+// lanes x ~1.98 GHz = ~33.5e12 of them a second: that, not the 67 TFLOP/s of
+// fused multiply-adds, is the floor for any design that keeps the forward's
+// bits (`disc_positive` decides a capture, and a rounding there moves one).
+// What the design does about it:
+//
+// - A thread takes one ray and holds its bounces (origin, direction, life) in
+//   registers (kB > 0, up to 8 bounces). For a tile of 32 receivers the hot
+//   loop computes only `disc_positive` for every held segment, eight centers
+//   at a time from shared memory, each center load serving the ray's kB
+//   tests, and notes the results in one bit mask a bounce: no loads of t_env,
+//   dist or amp, no branch a test, and the tests of a tile independent of
+//   each other. A bounce that no lane of the warp holds alive is skipped by
+//   the whole warp.
+// - Only where a mask is nonzero does the thread walk its bits, bounce by
+//   bounce and receiver by receiver in ascending order, with the first-win
+//   rule across bounces (`done`: a win at bounce b ends that receiver for the
+//   later bounces; a dropped bin still counts as a win). There it loads what
+//   the capture needs (`sphere_win`: t_env, dist) and forms its term from the
+//   per-bin table (`rfx_phasor_table`'s `phasor_entry`, built by the entry
+//   point into scratch): no sqrt, cos or sin a capture.
+// - Threads take live rays only: a fixed-order scan lists the rays with any
+//   live segment in ascending order (`phasor_live_count`, `phasor_live_scan`,
+//   `phasor_live_list`), and the count pass writes 0 for every segment of a
+//   dead ray. A ray's sums do not depend on the thread that takes it.
+// - More than 8 bounces (kB == 0): the bounces are read again for each tile
+//   and taken one after the other, each with its mask and the same `done`
+//   rule, the sums going to g_amp directly.
+//
+// The captures are the forward's: `disc_positive`, `sphere_win` and
+// `phasor_entry` are the device code of coverage_hist_kernel and
+// coverage_phasor_kernel, unchanged.
+constexpr int kBackThreads = 256;   // rays of a walk block
+constexpr int kBackRx = 1024;       // receivers staged in shared memory at once
+constexpr int kBackGroup = 8;       // centers a thread holds in registers at once
+constexpr int kScanRays = 1024;     // rays of a scan block: 4 a thread of 256
+constexpr int kScanThreads = 256;
 
+__device__ __forceinline__ bool ray_live(const bool* __restrict__ alive, int nb, int n,
+                                         long long i) {
+  bool live = false;
+  for (int b = 0; b < nb; ++b) live = live || alive[static_cast<long long>(b) * n + i];
+  return live;
+}
+
+// counts[x] = the live rays of scan block x; every segment of a dead ray
+// gets g_amp 0.
+__global__ void __launch_bounds__(kScanThreads) phasor_live_count(const bool* __restrict__ alive,
+                                                                  int nb, int n,
+                                                                  int* __restrict__ counts,
+                                                                  float* __restrict__ g_amp) {
+  const long long base = static_cast<long long>(blockIdx.x) * kScanRays;
+  int live = 0;
+  for (int k = threadIdx.x; k < kScanRays; k += kScanThreads) {
+    const long long i = base + k;
+    if (i >= n) break;
+    if (ray_live(alive, nb, n, i)) {
+      ++live;
+    } else {
+      for (int b = 0; b < nb; ++b) g_amp[static_cast<long long>(b) * n + i] = 0.0f;
+    }
+  }
+  __shared__ int s_sum[kScanThreads / 32];
+  int v = live;
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFullWarp, v, o);
+  if ((threadIdx.x & 31) == 0) s_sum[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum = 0;
+    for (int w = 0; w < kScanThreads / 32; ++w) sum += s_sum[w];
+    counts[blockIdx.x] = sum;
+  }
+}
+
+// One block: counts[0..blocks) become their exclusive prefix sums, in block
+// order, and counts[blocks] the number of live rays.
+__global__ void __launch_bounds__(kScanThreads) phasor_live_scan(int* __restrict__ counts,
+                                                                 int blocks) {
+  __shared__ int s_warp[kScanThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int carry = 0;
+  for (int base = 0; base < blocks; base += kScanThreads) {
+    const int x = base + threadIdx.x;
+    const int v = x < blocks ? counts[x] : 0;
+    int incl = v;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(kFullWarp, incl, o);
+      if (lane >= o) incl += u;
+    }
+    if (lane == 31) s_warp[warp] = incl;
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kScanThreads / 32; ++w) {
+      before += w < warp ? s_warp[w] : 0;
+      total += s_warp[w];
+    }
+    if (x < blocks) counts[x] = carry + before + incl - v;
+    carry += total;
+    __syncthreads();  // s_warp is rewritten by the next step
+  }
+  if (threadIdx.x == 0) counts[blocks] = carry;
+}
+
+// list[offsets[x] + j] = the j-th live ray of scan block x, ascending: thread
+// t takes rays 4t .. 4t + 3 of the block, and the block's threads write in
+// thread order.
+__global__ void __launch_bounds__(kScanThreads) phasor_live_list(const bool* __restrict__ alive,
+                                                                 int nb, int n,
+                                                                 const int* __restrict__ offsets,
+                                                                 int* __restrict__ list) {
+  constexpr int kPer = kScanRays / kScanThreads;
+  __shared__ int s_warp[kScanThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long first = static_cast<long long>(blockIdx.x) * kScanRays + kPer * threadIdx.x;
+  bool live[kPer];
+  int mine = 0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    live[k] = first + k < n && ray_live(alive, nb, n, first + k);
+    mine += live[k] ? 1 : 0;
+  }
+  int incl = mine;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(kFullWarp, incl, o);
+    if (lane >= o) incl += u;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  int before = 0;
+#pragma unroll
+  for (int w = 0; w < kScanThreads / 32; ++w) before += w < warp ? s_warp[w] : 0;
+  int at = offsets[blockIdx.x] + before + incl - mine;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    if (live[k]) list[at++] = static_cast<int>(first + k);
+  }
+}
+
+// What a capture needs beside the segment: the walk's constants, the table,
+// the coefficients and the centers in shared memory.
+struct BackCapture {
+  const float* t_env;
+  const float* dist;
+  const float* amp;
+  const float4* table;
+  const float4* coef;
+  const float4* s_ctr;
+  float r2, c, rate;
+  int nbins;
+
+  // Receiver q of the staged chunk (global index r) against segment `geom`
+  // at element `at`, whose discriminant was positive: true on a win; `adds`
+  // is set where the win's bin is kept, and `g` is then its term (the
+  // expressions of _phasor_terms in rfx_torch/ops/coverage_hist.py, in its
+  // order).
+  __device__ __forceinline__ bool operator()(const Segment& geom, long long at, int q, long long r,
+                                             bool& adds, float& g) const {
+    Segment s = geom;
+    s.te = __ldg(t_env + at);
+    s.dist = __ldg(dist + at);
+    const float4 ctr = s_ctr[q];
+    int bin;
+    adds = false;
+    g = 0.0f;
+    if (!sphere_win(s, ctr, r2, c, rate, nbins, bin)) return false;
+    if (bin < 0) return true;  // dropped: the win counts, its path adds nothing
+    adds = true;
+    const float4 e = __ldg(table + bin);
+    const float4 k0 = __ldg(coef + 2 * r), k1 = __ldg(coef + 2 * r + 1);
+    if (k0.z != 0.0f) g = e.x * (k0.x * e.y + k0.y * e.z) * k0.z;
+    if (k0.w != 0.0f || k1.x != 0.0f) {
+      float u = k0.w;
+      if (k1.x != 0.0f) {
+        const float dt = e.w - k1.y;
+        u = u + k1.x * (dt * dt - k1.z);
+      }
+      const float aw = __ldg(amp + at) * e.x;
+      g = g + aw * e.x * u;
+    }
+    return true;
+  }
+};
+
+// The hot loop: bit q of the result is disc_positive(seg, center q0 + q)
+// for q < 32, centers kBackGroup at a time; no branch a test.
+template <int kHeld>
+__device__ __forceinline__ void disc_masks(const Segment (&held)[kHeld], const bool (&warp_live)[kHeld],
+                                           const float4* s_ctr, int q0, float r2,
+                                           unsigned (&mask)[kHeld]) {
+#pragma unroll
+  for (int b = 0; b < kHeld; ++b) mask[b] = 0u;
+#pragma unroll
+  for (int g0 = 0; g0 < 32; g0 += kBackGroup) {
+    float4 ctr[kBackGroup];
+#pragma unroll
+    for (int u = 0; u < kBackGroup; ++u) ctr[u] = s_ctr[q0 + g0 + u];
+#pragma unroll
+    for (int b = 0; b < kHeld; ++b) {
+      if (warp_live[b]) {  // warp-uniform
+#pragma unroll
+        for (int u = 0; u < kBackGroup; ++u) {
+          mask[b] |= disc_positive(held[b], ctr[u], r2) ? 1u << (g0 + u) : 0u;
+        }
+      }
+    }
+  }
+}
+
+// A thread a live ray (list[t] of the `live` rays). kB > 0: up to kB
+// bounces in registers; kB == 0: any count, read again for each tile.
+// The staged chunk of centers is padded with zeros to kBackRx entries, so a
+// tile of 32 never reads past it; its receivers past m are masked off.
 template <int kB>
 __global__ void __launch_bounds__(kBackThreads) coverage_phasor_backward_kernel(
     const float* __restrict__ origin, const float* __restrict__ dir,
     const float* __restrict__ t_env, const float* __restrict__ amp,
     const float* __restrict__ dist, const bool* __restrict__ alive, int nb, int n,
-    const float* __restrict__ centers, int m, float r2, float c, float rate, int nbins, float step,
-    float omega, const float4* __restrict__ coef, float* __restrict__ g_amp) {
+    const float* __restrict__ centers, int m, float r2, float c, float rate, int nbins,
+    const float4* __restrict__ table, const float4* __restrict__ coef,
+    const int* __restrict__ list, const int* __restrict__ n_live, float* __restrict__ g_amp) {
   __shared__ float4 s_ctr[kBackRx];
-  __shared__ float4 s_k0[kBackRx];  // (re, im, A, B)
-  __shared__ float4 s_k1[kBackRx];  // (S, t_mean, var, 0)
-  const long long i = static_cast<long long>(blockIdx.x) * kBackThreads + threadIdx.x;
-  const bool in = i < n;
+  const int live_rays = *n_live;
+  const long long t = static_cast<long long>(blockIdx.x) * kBackThreads + threadIdx.x;
+  if (static_cast<long long>(blockIdx.x) * kBackThreads >= live_rays) return;  // block-uniform
+  const bool in = t < live_rays;
+  const long long i = in ? list[t] : 0;
   constexpr int kHeld = kB > 0 ? kB : 1;
-  // Origin, direction and life of bounce b (b < nb).
+  const BackCapture capture{t_env, dist, amp, table, coef, s_ctr, r2, c, rate, nbins};
+  // Origin, direction and life of bounce b (b < nb) of ray i.
   auto geometry = [&](int b) {
     Segment s;
-    const long long at = static_cast<long long>(b) * n + (in ? i : 0);
+    const long long at = static_cast<long long>(b) * n + i;
     s.ox = origin[3 * at];
     s.oy = origin[3 * at + 1];
     s.oz = origin[3 * at + 2];
@@ -780,84 +990,73 @@ __global__ void __launch_bounds__(kBackThreads) coverage_phasor_backward_kernel(
     return s;
   };
   Segment held[kHeld];
+  bool warp_live[kHeld];
   float acc[kHeld];
-  bool any_live = false;
 #pragma unroll
   for (int b = 0; b < kHeld; ++b) {
     acc[b] = 0.0f;
     if (kB > 0) {
       held[b] = geometry(b < nb ? b : 0);
       held[b].live = held[b].live && b < nb;
-      any_live = any_live || held[b].live;
+      warp_live[b] = __any_sync(kFullWarp, held[b].live);
     }
   }
-  if (kB == 0) {
-    for (int b = 0; b < nb; ++b) {
-      const long long at = static_cast<long long>(b) * n + i;
-      if (in) {
-        any_live = any_live || alive[at];
-        g_amp[at] = 0.0f;  // the sums go to g_amp directly
-      }
-    }
+  if (kB == 0 && in) {
+    for (int b = 0; b < nb; ++b) g_amp[static_cast<long long>(b) * n + i] = 0.0f;
   }
-  if (!__syncthreads_or(any_live)) {  // block-uniform: no live segment, no capture
-    if (in && kB > 0) {
-      for (int b = 0; b < nb; ++b) g_amp[static_cast<long long>(b) * n + i] = 0.0f;
-    }
-    return;
-  }
-  // Receiver q of the tile against segment s of bounce b: true on a win (the
-  // ray's view for that receiver ends), whose term goes to bounce b's sum.
-  auto take = [&](const Segment& geom, int b, int q) {
-    const float4 ctr = s_ctr[q];
-    if (!geom.live || !disc_positive(geom, ctr, r2)) return false;
-    const long long at = static_cast<long long>(b) * n + i;
-    Segment s = geom;
-    s.te = t_env[at];
-    s.dist = dist[at];
-    int bin;
-    if (!sphere_win(s, ctr, r2, c, rate, nbins, bin)) return false;
-    if (bin < 0) return true;  // dropped: the win counts, its path adds nothing
-    const float4 e = phasor_entry(bin, nbins, step, omega);
-    const float4 k0 = s_k0[q], k1 = s_k1[q];
-    float g = 0.0f;
-    if (k0.z != 0.0f) g = e.x * (k0.x * e.y + k0.y * e.z) * k0.z;
-    if (k0.w != 0.0f || k1.x != 0.0f) {
-      float u = k0.w;
-      if (k1.x != 0.0f) {
-        const float dt = e.w - k1.y;
-        u = u + k1.x * (dt * dt - k1.z);
-      }
-      const float aw = amp[at] * e.x;
-      g = g + aw * e.x * u;
-    }
-    if (kB > 0) {
-      acc[b] = acc[b] + g;
-    } else {
-      g_amp[at] = g_amp[at] + g;
-    }
-    return true;
-  };
   for (int r0 = 0; r0 < m; r0 += kBackRx) {
     const int nr = min(kBackRx, m - r0);
-    __syncthreads();  // the previous tile is read
-    for (int q = threadIdx.x; q < nr; q += kBackThreads) {
+    __syncthreads();  // the previous chunk is read
+    for (int q = threadIdx.x; q < kBackRx; q += kBackThreads) {
       const long long r = r0 + q;
-      s_ctr[q] = make_float4(centers[3 * r], centers[3 * r + 1], centers[3 * r + 2], 0.0f);
-      s_k0[q] = coef[2 * r];
-      s_k1[q] = coef[2 * r + 1];
+      s_ctr[q] = q < nr ? make_float4(centers[3 * r], centers[3 * r + 1], centers[3 * r + 2], 0.0f)
+                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
     __syncthreads();
-    if (!any_live) continue;
-    for (int q = 0; q < nr; ++q) {
+    for (int q0 = 0; q0 < nr; q0 += 32) {
+      const unsigned valid = nr - q0 >= 32 ? kFullWarp : (1u << (nr - q0)) - 1u;
+      unsigned done = 0u;
       if (kB > 0) {
+        unsigned mask[kHeld];
+        disc_masks(held, warp_live, s_ctr, q0, r2, mask);
+        unsigned any = 0u;
 #pragma unroll
         for (int b = 0; b < kHeld; ++b) {
-          if (take(held[b], b, q)) break;
+          mask[b] = held[b].live ? mask[b] & valid : 0u;
+          any |= mask[b];
+        }
+        if (any == 0u) continue;  // the common case: no capture in this tile
+#pragma unroll
+        for (int b = 0; b < kHeld; ++b) {
+          const long long at = static_cast<long long>(b) * n + i;
+          for (unsigned todo = mask[b] & ~done; todo != 0u; todo &= todo - 1u) {
+            const int q = __ffs(todo) - 1;
+            bool adds;
+            float g;
+            if (capture(held[b], at, q0 + q, r0 + q0 + q, adds, g)) {
+              done |= 1u << q;
+              if (adds) acc[b] = acc[b] + g;
+            }
+          }
         }
       } else {
         for (int b = 0; b < nb; ++b) {
-          if (take(geometry(b), b, q)) break;
+          const Segment geom[1] = {geometry(b)};
+          const bool live[1] = {__any_sync(kFullWarp, geom[0].live)};
+          if (!live[0]) continue;  // warp-uniform
+          unsigned mask[1];
+          disc_masks(geom, live, s_ctr, q0, r2, mask);
+          const long long at = static_cast<long long>(b) * n + i;
+          unsigned todo = geom[0].live ? mask[0] & valid & ~done : 0u;
+          for (; todo != 0u; todo &= todo - 1u) {
+            const int q = __ffs(todo) - 1;
+            bool adds;
+            float g;
+            if (capture(geom[0], at, q0 + q, r0 + q0 + q, adds, g)) {
+              done |= 1u << q;
+              if (adds) g_amp[at] = g_amp[at] + g;
+            }
+          }
         }
       }
     }
@@ -994,25 +1193,40 @@ extern "C" int rfx_coverage_phasor_spread(const void* origin, const void* dir, c
 // The phasor metric's backward: the segments and centers as
 // rfx_coverage_hist takes them (amp already scaled), step and omega as
 // rfx_phasor_table takes them, coef: (m, 8) f32 per receiver (re, im, A, B,
-// S, t_mean, var, unused); g_amp: (nb, n) f32, every element written. m, n,
-// nb >= 1.
+// S, t_mean, var, unused); g_amp: (nb, n) f32, every element written.
+// Scratch: table (nbins, 4) f32, the per-bin table built here; ints (n +
+// ceil(n / 1024) + 1) int32: the live rays in ascending order, the scan
+// blocks' offsets, and their count last. m, n, nb, nbins >= 1.
 extern "C" int rfx_coverage_phasor_backward(const void* origin, const void* dir,
                                             const void* t_env, const void* amp, const void* dist,
                                             const void* alive, int nb, int n, const void* centers,
                                             int m, float radius, float c, float rate, int nbins,
                                             float step, float omega, const void* coef,
-                                            void* g_amp, void* stream) {
+                                            void* table, void* ints, void* g_amp, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool* live = static_cast<const bool*>(alive);
+  float* out = static_cast<float*>(g_amp);
+  int* list = static_cast<int*>(ints);
+  const int scan_blocks = static_cast<int>((static_cast<long long>(n) + kScanRays - 1) / kScanRays);
+  int* offsets = list + n;
+  phasor_table_kernel<<<(nbins + 255) / 256, 256, 0, s>>>(nbins, step, omega,
+                                                          static_cast<float4*>(table));
+  phasor_live_count<<<scan_blocks, kScanThreads, 0, s>>>(live, nb, n, offsets, out);
+  phasor_live_scan<<<1, kScanThreads, 0, s>>>(offsets, scan_blocks);
+  phasor_live_list<<<scan_blocks, kScanThreads, 0, s>>>(live, nb, n, offsets, list);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // As many threads as rays; the blocks past the live rays' count return at
+  // once. The bounces of a ray in registers where there are at most eight.
   const unsigned blocks = static_cast<unsigned>((static_cast<long long>(n) + kBackThreads - 1) /
                                                 kBackThreads);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // The bounces of a ray in registers where there are at most eight of them.
 #define RFX_PHASOR_BACKWARD(KB)                                                                \
   coverage_phasor_backward_kernel<KB><<<blocks, kBackThreads, 0, s>>>(                         \
       static_cast<const float*>(origin), static_cast<const float*>(dir),                       \
       static_cast<const float*>(t_env), static_cast<const float*>(amp),                        \
-      static_cast<const float*>(dist), static_cast<const bool*>(alive), nb, n,                 \
-      static_cast<const float*>(centers), m, radius * radius, c, rate, nbins, step, omega,      \
-      static_cast<const float4*>(coef), static_cast<float*>(g_amp))
+      static_cast<const float*>(dist), live, nb, n, static_cast<const float*>(centers), m,     \
+      radius * radius, c, rate, nbins, static_cast<const float4*>(table),                      \
+      static_cast<const float4*>(coef), list, offsets + scan_blocks, out)
   if (nb <= 1) {
     RFX_PHASOR_BACKWARD(1);
   } else if (nb <= 2) {

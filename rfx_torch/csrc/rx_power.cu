@@ -68,16 +68,49 @@
 //   g_ir[r, k]  = sum_j g_eff[r, j] * carrier[j + lo - k],
 //
 // the transposed 'same' convolution: dense in k (a zero bin gets a gradient,
-// as under lax.conv's transpose). It is the forward's convolution of g_eff
-// with the reversed carrier, carrier'[x] = carrier[nbins - 1 - x], and hi =
-// nbins - 1 - lo in place of lo: carrier'[k + hi - j] = carrier[j + lo - k].
-// So it runs the forward's two kernels on g_eff: `compact_segments` lists the
-// nonzero g_eff[j], formed on the fly from out and the cotangents, and
-// `convolve<R>` adds each output's taps in ascending j. What bounds it:
-// operations again, now two a tap over every nonzero j (g_eff is dense where
-// the signal is: ~1.5e11 in-range taps for 2,048 rows of 10,000 bins, 20x the
-// forward's). The same order rules make it the same bits from run to run and
-// for a row alone or in a batch.
+// as under lax.conv's transpose). With the reversed carrier, carrier'[x] =
+// carrier[nbins - 1 - x], and hi = nbins - 1 - lo it is a convolution like
+// the forward's: carrier'[k + hi - j] = carrier[j + lo - k].
+//
+// What bounds it on an H100: operations, and a different mix from the
+// forward's. g_eff is dense where the signal is (83-95% nonzero on the
+// coverage sweep's rows), so ~1.5e11 in-range taps for 2,048 rows of 10,000
+// bins, 20x the forward's. Feeding each tap its carrier word from shared
+// memory, one 32-word access a cycle an SM, caps it at ~8e12 taps/s, a
+// fifth of the card's FMA rate. What the design does about it:
+//
+//   1. `stage_cotangent` forms g_eff row by row into scratch, padded to whole
+//      1,024-bin segments, and flags the segments that hold a nonzero value.
+//      No compaction: a segment with any nonzero value is taken whole.
+//   2. `convolve_back<Q, kSplit>`: a block takes Q = 8 rows (1 where the
+//      launch has fewer rows) and a tile of 512 outputs, each lane 4
+//      neighbouring outputs. It stages, double-buffered with cp.async, the
+//      carrier window of a 512-bin chunk of j once for all Q rows, and the Q
+//      rows' g_eff of that chunk. For 4 values of j a lane reads 7 carrier
+//      words (two 16-byte loads: the lanes of a warp read 512 neighbouring
+//      bytes, no bank conflict) and one 16-byte broadcast of g_eff a row, and
+//      does 16 FMAs a row: 128 FMAs for 10 shared loads, so the FP32 pipe,
+//      not the shared-memory pipe, is the limit. A tap is one explicit
+//      __fmaf_rn. -fmad=false stops only the contractions the compiler
+//      chooses; the backward has no threshold event (no count of nonzero
+//      samples rests on its bits), so its taps may round once. The forward
+//      keeps its separate multiply and add: its nonzero count does rest on
+//      them.
+//   3. The order is fixed by nbins alone: for each output k, the taps of a
+//      1,024-bin segment s of j form one FMA chain in ascending j from +0
+//      (the partial p_s), and g_ir[k] = ((p_0 + p_1) + p_2) + ... in
+//      segment order. A zero tap, of a zero g_eff or of a carrier word past
+//      its ends, adds fma(0, c, acc) = acc to a chain that is never -0, and
+//      a skipped segment's partial is +0, so skipping either changes no bit.
+//      In a launch of many blocks each block loops over the segments, the
+//      partials and their sum in registers. A launch of few blocks (a lone
+//      IR: 40 tiles) splits over the segments: a block a (rows, tile,
+//      segment) writes its partials, and `combine_segments` adds them in
+//      segment order. Both give the same bits, so a row alone is the same
+//      bits as in any batch, and the same from run to run.
+//
+// The plain version (rfx_torch/cir.py:rx_power_backward_plain) sums in
+// float64; the two differ by rounding only.
 
 #include <cuda_runtime.h>
 
@@ -101,7 +134,6 @@ struct IrValues {
   const float* ir;
   int nbins;
 
-  __device__ __forceinline__ void start_row(long long) {}
   __device__ __forceinline__ float operator()(long long row, int k) const {
     return ir[row * nbins + k];
   }
@@ -140,8 +172,7 @@ struct CotangentValues {
 // list[r * nbins + s * kSeg + i] = (k, bits of value(r, k)) for the i-th
 // nonzero value k of segment s of row r, ascending; seg_count[r * n_seg + s]
 // their number. A NaN counts as nonzero, -0.0 as zero (as torch.nonzero).
-template <class Values>
-__global__ void __launch_bounds__(kThreads) compact_segments(Values values, int nbins, int n_seg,
+__global__ void __launch_bounds__(kThreads) compact_segments(IrValues values, int nbins, int n_seg,
                                                              int2* __restrict__ list,
                                                              int* __restrict__ seg_count) {
   __shared__ int warp_counts[kWarps];
@@ -150,7 +181,6 @@ __global__ void __launch_bounds__(kThreads) compact_segments(Values values, int 
   const int seg = static_cast<int>(blockIdx.x - row * n_seg);
   const int k0 = seg * kSeg;
   const int k_end = min(k0 + kSeg, nbins);
-  values.start_row(row);
   int2* out = list + row * nbins + k0;
   int carry = 0;
   for (int base = k0; base < k_end; base += kThreads) {
@@ -321,6 +351,232 @@ __global__ void __launch_bounds__(kPowerThreads) row_power(const float* __restri
   }
 }
 
+// The backward's kernels (see the note at the top): `stage_cotangent` forms
+// g_eff, `convolve_back<Q, kSplit>` the transposed convolution, and, where
+// the launch is split over segments, `combine_segments` adds the segments'
+// partials.
+constexpr int kChunk = 512;                        // bins of g_eff staged at once
+constexpr int kBackOut = 4;                        // consecutive outputs a lane
+constexpr int kBackTile = 32 * kWarps * kBackOut;  // outputs of a block
+constexpr int kBackWindow = kBackTile + kChunk;    // carrier words staged (one spare)
+static_assert(kSeg % kChunk == 0, "a segment is whole chunks");
+
+// Q rows' chunk of g_eff and its carrier window: the words of one stage.
+template <int Q>
+__host__ __device__ constexpr int back_stage_words() {
+  return kBackWindow + Q * kChunk;
+}
+
+// g_eff[r, k] for k < n_seg * kSeg (zeros past nbins), row stride n_seg *
+// kSeg; flags[r * n_seg + s] = 1 where segment s of row r has a nonzero
+// value (a NaN counts, -0.0 does not), else 0. One block a (row, segment).
+__global__ void __launch_bounds__(kThreads) stage_cotangent(CotangentValues values, int nbins,
+                                                            int n_seg, float* __restrict__ g_eff,
+                                                            int* __restrict__ flags) {
+  const long long row = blockIdx.x / n_seg;
+  const int seg = static_cast<int>(blockIdx.x - row * n_seg);
+  values.start_row(row);
+  float* out = g_eff + row * n_seg * kSeg;
+  bool any = false;
+  for (int k = seg * kSeg + threadIdx.x; k < (seg + 1) * kSeg; k += kThreads) {
+    const float v = k < nbins ? values(row, k) : 0.0f;
+    out[k] = v;
+    any = any || v != 0.0f;
+  }
+  any = __syncthreads_or(any);
+  if (threadIdx.x == 0) flags[row * n_seg + seg] = any ? 1 : 0;
+}
+
+// out[r, x] = sum_y g_eff[r, y] * carrier[x + off - y] for the rows
+// [Q * group, Q * group + Q) and one tile of kBackTile outputs x, each lane
+// kBackOut neighbouring outputs. Per output, the taps of a 1,024-bin segment
+// s of y form one chain of fused multiply-adds in ascending y from +0 (the
+// segment's partial); the outputs are ((p_0 + p_1) + p_2) + ... over the
+// segments in ascending order. A segment with no nonzero g_eff in any row of
+// the group is skipped, and a chunk of it that the tile cannot reach: both
+// would add exact zeros (see the note at the top).
+//
+// kSplit false: the block loops over the segments, partials and sums in
+// registers, and writes out (row stride nbins); blockIdx.x = group *
+// n_tiles + tile. kSplit true: the block takes one segment, blockIdx.x =
+// (group * n_tiles + tile) * n_seg + s, and writes its partials (zeros where
+// it skips the segment) to out as (rows, n_seg, n_tiles * kBackTile), for
+// combine_segments.
+template <int Q, bool kSplit>
+__global__ void __launch_bounds__(kThreads) convolve_back(const float* __restrict__ carrier,
+                                                          int nbins, int off, int n_seg,
+                                                          int n_tiles, int m,
+                                                          const float* __restrict__ g_eff,
+                                                          const int* __restrict__ flags,
+                                                          float* __restrict__ out) {
+  constexpr int kStage = back_stage_words<Q>();
+  extern __shared__ __align__(16) float smem[];
+  const long long block = blockIdx.x;
+  const int seg_only = kSplit ? static_cast<int>(block % n_seg) : -1;
+  const long long gt = kSplit ? block / n_seg : block;
+  const long long group = gt / n_tiles;
+  const int tile = static_cast<int>(gt - group * n_tiles);
+  const long long row0 = group * Q;
+  const int x0 = tile * kBackTile;
+  const int t0 = kBackOut * threadIdx.x;  // the lane's first output in the tile
+  const long long stride = static_cast<long long>(n_seg) * kSeg;
+  // Chunk c of y reaches an output of the tile iff x0 + off - (nbins - 1) <=
+  // y <= x0 + kBackTile - 1 + off for some y of it: c_lo..c_hi.
+  int c_lo = max(0, x0 + off - (nbins - 1)) / kChunk;
+  int c_hi = min(nbins - 1, x0 + kBackTile - 1 + off) / kChunk;
+  if (kSplit) {
+    c_lo = max(c_lo, seg_only * (kSeg / kChunk));
+    c_hi = min(c_hi, seg_only * (kSeg / kChunk) + kSeg / kChunk - 1);
+  }
+  auto seg_live = [&](int s) {
+    bool live = false;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      if (row0 + q < m) live = live || flags[(row0 + q) * n_seg + s] != 0;
+    }
+    return live;
+  };
+  auto next_chunk = [&](int c) {
+    do {
+      ++c;
+    } while (c <= c_hi && !seg_live(c / (kSeg / kChunk)));
+    return c;
+  };
+  // Stage chunk c into buffer b: window word w is carrier[wb + w] (zero
+  // outside the carrier), wb = x0 + off - (c * kChunk + kChunk - 1), so that
+  // output x0 + t and bin c * kChunk + yl meet at word t + kChunk - 1 - yl;
+  // then the Q rows' kChunk values of g_eff (zeros for rows past m).
+  auto stage = [&](int c, int b) {
+    float* win = smem + b * kStage;
+    const int wb = x0 + off - (c * kChunk + kChunk - 1);
+    for (int w = threadIdx.x; w < kBackWindow; w += kThreads) {
+      const int idx = wb + w;
+      const bool in = w < kBackWindow - 1 && idx >= 0 && idx < nbins;
+      copy_async<4>(win + w, carrier + (in ? idx : 0), in);
+    }
+    float* gs = win + kBackWindow;
+    for (int v = threadIdx.x; v < Q * kChunk / 4; v += kThreads) {
+      const int q = v / (kChunk / 4), y = 4 * (v - q * (kChunk / 4));
+      const bool in = row0 + q < m;
+      copy_async<16>(gs + q * kChunk + y,
+                     g_eff + (in ? (row0 + q) * stride + c * kChunk + y : 0), in);
+    }
+    copy_commit();
+  };
+
+  float part[Q][kBackOut], sum[Q][kBackOut];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+#pragma unroll
+    for (int i = 0; i < kBackOut; ++i) part[q][i] = sum[q][i] = 0.0f;
+  }
+  int c = next_chunk(c_lo - 1);
+  int b = 0;
+  if (c <= c_hi) stage(c, 0);
+  while (c <= c_hi) {
+    const int c_next = next_chunk(c);
+    if (c_next <= c_hi) {
+      stage(c_next, b ^ 1);
+      copy_wait<1>();
+    } else {
+      copy_wait<0>();
+    }
+    __syncthreads();
+    const float* win = smem + b * kStage + t0 + kChunk - kBackOut;
+    const float* gs = smem + b * kStage + kBackWindow;
+#pragma unroll 2
+    for (int u = 0; u < kChunk / 4; ++u) {
+      // Words (t0 + i) + kChunk - 1 - (4u + j) for i, j < 4: w[i - j + 3].
+      const float4 w0 = *reinterpret_cast<const float4*>(win - 4 * u);
+      const float4 w1 = *reinterpret_cast<const float4*>(win - 4 * u + 4);
+      const float w[7] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z};
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const float4 g4 = *reinterpret_cast<const float4*>(gs + q * kChunk + 4 * u);
+        const float g[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int i = 0; i < kBackOut; ++i) {
+            part[q][i] = __fmaf_rn(g[j], w[i - j + 3], part[q][i]);
+          }
+        }
+      }
+    }
+    if (!kSplit && (c_next > c_hi || c_next / (kSeg / kChunk) != c / (kSeg / kChunk))) {
+      // The segment's last chunk: its partial joins the sum, in segment order.
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+#pragma unroll
+        for (int i = 0; i < kBackOut; ++i) {
+          sum[q][i] = sum[q][i] + part[q][i];
+          part[q][i] = 0.0f;
+        }
+      }
+    }
+    __syncthreads();  // buffer b is read before it is staged again
+    c = c_next;
+    b ^= 1;
+  }
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const long long row = row0 + q;
+    if (row >= m) break;
+    if (kSplit) {
+      const long long pstride = static_cast<long long>(n_tiles) * kBackTile;
+      *reinterpret_cast<float4*>(out + (row * n_seg + seg_only) * pstride + x0 + t0) =
+          make_float4(part[q][0], part[q][1], part[q][2], part[q][3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kBackOut; ++i) {
+        const int x = x0 + t0 + i;
+        if (x < nbins) out[row * nbins + x] = sum[q][i];
+      }
+    }
+  }
+}
+
+// g_ir[r, x] = ((p_0 + p_1) + p_2) + ... of the partials of a split launch,
+// (m, n_seg, pstride), in segment order.
+__global__ void __launch_bounds__(256) combine_segments(const float* __restrict__ partials,
+                                                        int n_seg, long long pstride, int nbins,
+                                                        long long total,
+                                                        float* __restrict__ g_ir) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= total) return;
+  const long long row = e / nbins;
+  const long long x = e - row * nbins;
+  const float* p = partials + row * n_seg * pstride + x;
+  float sum = 0.0f;
+  for (int s = 0; s < n_seg; ++s) sum = sum + p[s * pstride];
+  g_ir[e] = sum;
+}
+
+template <int Q, bool kSplit>
+cudaError_t launch_convolve_back(const float* carrier, int m, int nbins, int off, int n_seg,
+                                 const float* g_eff, const int* flags, float* out,
+                                 cudaStream_t s) {
+  constexpr size_t kBytes = 2 * sizeof(float) * back_stage_words<Q>();
+  static_assert(kBytes <= 48 * 1024, "two stages fit the default dynamic shared memory");
+  const int n_tiles = (nbins + kBackTile - 1) / kBackTile;
+  const long long blocks = (static_cast<long long>(m) + Q - 1) / Q * n_tiles * (kSplit ? n_seg : 1);
+  convolve_back<Q, kSplit><<<static_cast<unsigned>(blocks), kThreads, kBytes, s>>>(
+      carrier, nbins, off, n_seg, n_tiles, m, g_eff, flags, out);
+  return cudaGetLastError();
+}
+
+template <bool kSplit>
+cudaError_t convolve_back_rows(const float* carrier, int m, int nbins, int off, int n_seg,
+                               const float* g_eff, const int* flags, float* out,
+                               cudaStream_t s) {
+  // Eight rows a block share each staged carrier word; fewer rows than that
+  // take one a block.
+  return m >= 8 ? launch_convolve_back<8, kSplit>(carrier, m, nbins, off, n_seg, g_eff, flags,
+                                                  out, s)
+                : launch_convolve_back<1, kSplit>(carrier, m, nbins, off, n_seg, g_eff, flags,
+                                                  out, s);
+}
+
 template <int R>
 cudaError_t launch_convolve(const float* carrier, int m, int nbins, int lo, int n_seg,
                             const int2* list, const int* seg_count, float* out, cudaStream_t s) {
@@ -333,10 +589,9 @@ cudaError_t launch_convolve(const float* carrier, int m, int nbins, int lo, int 
   return cudaGetLastError();
 }
 
-// Compaction of `values` and the convolution of the list with `carrier` at
-// offset lo, into out: the forward's and the backward's common launches.
-template <class Values>
-cudaError_t compact_and_convolve(Values values, const float* carrier, int m, int nbins, int lo,
+// The forward's launches: the compaction of the IRs and the convolution of
+// the lists with the carrier at offset lo, into out.
+cudaError_t compact_and_convolve(IrValues values, const float* carrier, int m, int nbins, int lo,
                                  void* list, void* seg_count, float* out, cudaStream_t s) {
   const int n_seg = (nbins + kSeg - 1) / kSeg;
   compact_segments<<<static_cast<unsigned>(static_cast<long long>(m) * n_seg), kThreads, 0, s>>>(
@@ -377,19 +632,40 @@ extern "C" int rfx_rx_power(const void* ir, const void* carrier, int m, int nbin
 // The backward of rfx_rx_power: g_dbm (m,) f32 and g_out (m, nbins) f32, the
 // cotangents of dbm and out, each null where absent; out and sums as
 // rfx_rx_power wrote them; reversed_carrier: (nbins,) f32, the carrier back
-// to front. g_ir: (m, nbins) f32, every element written; list and seg_count
-// as rfx_rx_power's scratch. The bounds of rfx_rx_power.
+// to front. g_ir: (m, nbins) f32, every element written. Scratch: g_eff (m,
+// n_seg * 1024) f32 and flags (m, n_seg) int32, n_seg = ceil(nbins / 1024);
+// partials: null, or (m, n_seg, ceil(nbins / 512) * 512) f32 to split the
+// launch over the segments (for launches of few blocks). Either way the same
+// bits. The bounds of rfx_rx_power.
 extern "C" int rfx_rx_power_backward(const void* g_dbm, const void* g_out, const void* out,
                                      const void* sums, const void* reversed_carrier, int m,
-                                     int nbins, void* g_ir, void* list, void* seg_count,
-                                     void* stream) {
+                                     int nbins, void* g_ir, void* g_eff, void* flags,
+                                     void* partials, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const CotangentValues values{static_cast<const float*>(g_dbm), static_cast<const float*>(g_out),
                                static_cast<const float*>(out), static_cast<const float*>(sums),
                                nbins};
-  return static_cast<int>(compact_and_convolve(values, static_cast<const float*>(reversed_carrier),
-                                               m, nbins, nbins - 1 - (nbins - 1) / 2, list,
-                                               seg_count, static_cast<float*>(g_ir),
-                                               static_cast<cudaStream_t>(stream)));
+  const int n_seg = (nbins + kSeg - 1) / kSeg;
+  stage_cotangent<<<static_cast<unsigned>(static_cast<long long>(m) * n_seg), kThreads, 0, s>>>(
+      values, nbins, n_seg, static_cast<float*>(g_eff), static_cast<int*>(flags));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float* carrier = static_cast<const float*>(reversed_carrier);
+  const int hi = nbins - 1 - (nbins - 1) / 2;
+  if (partials == nullptr) {
+    return static_cast<int>(convolve_back_rows<false>(carrier, m, nbins, hi, n_seg,
+                                                      static_cast<const float*>(g_eff),
+                                                      static_cast<const int*>(flags),
+                                                      static_cast<float*>(g_ir), s));
+  }
+  err = convolve_back_rows<true>(carrier, m, nbins, hi, n_seg, static_cast<const float*>(g_eff),
+                                 static_cast<const int*>(flags), static_cast<float*>(partials), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long total = static_cast<long long>(m) * nbins;
+  const long long pstride = static_cast<long long>((nbins + kBackTile - 1) / kBackTile) * kBackTile;
+  combine_segments<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(partials), n_seg, pstride, nbins, total, static_cast<float*>(g_ir));
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* rfx_rx_power_error_string(int err) {

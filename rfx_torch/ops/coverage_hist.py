@@ -80,8 +80,11 @@ COVERAGE_SPREAD_KERNEL = CudaKernel(
 )
 PHASOR_BACKWARD_KERNEL = CudaKernel(
     "coverage_hist.cu", "rfx_coverage_phasor_backward",
-    [P, P, P, P, P, P, I, I, P, I, F, F, F, I, F, F, P, P, P],
+    [P, P, P, P, P, P, I, I, P, I, F, F, F, I, F, F, P, P, P, P, P],
 )
+#: Rays of one block of the backward's live-ray scan (kScanRays of
+#: coverage_hist.cu): its scratch holds an offset per block.
+PHASOR_BACKWARD_SCAN_RAYS = 1024
 #: The phasor sums of the first pass, per receiver (kSumFields of coverage_hist.cu).
 PHASOR_FIELDS = ("re", "im", "s_max", "any", "w2", "w2t")
 #: The first pass's capture lists: chunks of PHASOR_CHUNK (w^2, t_k) pairs
@@ -513,10 +516,11 @@ def phasor_backward(segs: EnvSegments, rx_centers, rx_radius, coef: torch.Tensor
                     carrier_hz: float, rx_batch: int = 64) -> torch.Tensor:
     """(B, N) f32 d / d amplitude of the phasor metric given the coefficients
     `coef` (`phasor_coefficients`). A CUDA tensor launches
-    `rfx_coverage_phasor_backward` once for all receivers: the forward's
-    captures (its device code), each segment's terms added in ascending
-    receiver order, the same bits from run to run. A CPU tensor runs
-    `phasor_backward_plain` (`rx_batch` receivers at a time)."""
+    `rfx_coverage_phasor_backward` once for all receivers (`_phasor_backward_launch`):
+    the forward's captures (its device code and per-bin table), each
+    segment's terms added in ascending receiver order, the same bits from
+    run to run. A CPU tensor runs `phasor_backward_plain` (`rx_batch`
+    receivers at a time)."""
     kw = dict(nbins=nbins, light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz,
               sample_window_s=sample_window_s, carrier_hz=carrier_hz)
     dev = segs.t_env.device
@@ -524,6 +528,16 @@ def phasor_backward(segs: EnvSegments, rx_centers, rx_radius, coef: torch.Tensor
         return phasor_backward_plain(segs, rx_centers, rx_radius, coef, rx_batch=rx_batch, **kw)
     if dev.type != "cuda":
         raise ValueError(f"no phasor backward kernel for device {dev}")
+    return _phasor_backward_launch(segs, rx_centers, rx_radius, coef, **kw)[0]
+
+
+def _phasor_backward_launch(segs: EnvSegments, rx_centers, rx_radius, coef: torch.Tensor, *,
+                            nbins: int, light_speed_mps: float, sample_rate_hz: float,
+                            sample_window_s: float, carrier_hz: float):
+    """One launch of `rfx_coverage_phasor_backward` on CUDA tensors: (g_amp,
+    the number of live rays its scan listed as a 0-dim int32 tensor on the
+    card)."""
+    dev = segs.t_env.device
     centers = _centers(rx_centers, dev).contiguous()
     m = centers.shape[0]
     b, n = segs.t_env.shape
@@ -531,20 +545,26 @@ def phasor_backward(segs: EnvSegments, rx_centers, rx_radius, coef: torch.Tensor
         raise ValueError(f"at most 2^31 - 1 rays, bounces, receivers and bins, got {n}, {b}, {m}, "
                          f"{nbins}")
     if not (m and n and b):
-        return torch.zeros((b, n), dtype=torch.float32, device=dev)
+        return (torch.zeros((b, n), dtype=torch.float32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
     if tuple(coef.shape) != (m, 8):
         raise ValueError(f"coef must be ({m}, 8), got {tuple(coef.shape)}")
     planes = [t.detach().contiguous() for t in (segs.origin, segs.direction, segs.t_env,
                                                 segs.amplitude, segs.distance, segs.alive)]
     coef = coef.to(torch.float32).contiguous()
     g_amp = torch.empty((b, n), dtype=torch.float32, device=dev)
+    # The kernel's scratch: the per-bin table, then the live rays, the scan
+    # blocks' offsets and the live rays' count.
+    table = torch.empty((nbins, 4), dtype=torch.float32, device=dev)
+    ints = torch.empty(n + -(-n // PHASOR_BACKWARD_SCAN_RAYS) + 1, dtype=torch.int32, device=dev)
     step, omega = _phasor_constants(nbins, sample_window_s, carrier_hz)
     with torch.cuda.device(dev):
         PHASOR_BACKWARD_KERNEL.launch(
             *(t.data_ptr() for t in planes), b, n, centers.data_ptr(), m, float(rx_radius),
             float(light_speed_mps), float(sample_rate_hz), nbins, step, omega, coef.data_ptr(),
-            g_amp.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    return g_amp
+            table.data_ptr(), ints.data_ptr(), g_amp.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    return g_amp, ints[-1]
 
 
 class _Phasor(torch.autograd.Function):

@@ -660,6 +660,59 @@ def test_rx_power_backward_kernel_edges(cuda):
     assert not cir.rx_power_backward(None, None, out, sums, 10e-9).any()
 
 
+@pytest.mark.parametrize("nbins", [1024, 1025, 20_001])
+def test_rx_power_backward_kernel_last_segment_rows(cuda, nbins):
+    """One whole segment, one bin past it, and the odd single-IR width: 20
+    rows, the first ten with a cotangent only in the last 1,024-bin segment
+    of j (and none on the dBm), against the plain version; every row alone,
+    and a group, the same bits as in the batch."""
+    irs = _sparse_irs(cuda, 20, nbins)
+    window = nbins / 100e9
+    out, sums, _, g_out = _power_backward_inputs(cuda, irs, window)
+    last = (nbins - 1) // 1024 * 1024
+    g_out[:10, :last] = 0.0
+    a = cir.rx_power_backward(None, g_out, out, sums, window)
+    p = cir.rx_power_backward_plain(None, g_out, out, sums,
+                                    cir.carrier_cached(nbins, window, 2.4e9, cuda))
+    torch.cuda.synchronize()
+    _assert_backward_close(a, p)
+    assert bool(a[:10].any(dim=1).all())
+    for r in range(20):
+        alone = cir.rx_power_backward(None, g_out[r:r + 1], out[r:r + 1], sums[r:r + 1], window)
+        assert torch.equal(alone[0], a[r]), r
+    group = cir.rx_power_backward(None, g_out[3:14], out[3:14], sums[3:14], window)
+    assert torch.equal(group, a[3:14])
+
+
+def test_rx_power_backward_kernel_lone_ir_equals_its_row_in_batches(cuda):
+    """The lone 20,000-bin IR's gradient (g_dbm = 1) is the same bits as
+    its row in batches of 1, 3, 64 and 128 rows: launches split over the
+    segments (few blocks) and not split (128 rows fill the card)."""
+    g = np.random.default_rng(41)
+    ir = np.zeros(20_000, np.float32)
+    ir[g.choice(np.arange(1500, 4000), 900, replace=False)] = g.uniform(1e-9, 1e-6, 900)
+    ir[g.choice(np.arange(4000, 20_000), 360, replace=False)] = -g.uniform(1e-9, 1e-6, 360)
+    x = torch.from_numpy(ir).to(cuda)
+    kern = cir.carrier_cached(20_000, 200e-9, 2.4e9, cuda)
+    others = _sparse_irs(cuda, 128, 20_000)
+
+    def grad(rows):
+        sig, _, sums = cir._rx_power_launch(rows, kern)
+        return cir.rx_power_backward(torch.ones(rows.shape[0], device=cuda), None, sig, sums,
+                                     200e-9)
+
+    lone = grad(x[None])[0]
+    sig, _, sums = cir._rx_power_launch(x[None], kern)
+    p = cir.rx_power_backward_plain(torch.ones(1, device=cuda), None, sig, sums, kern)[0]
+    torch.cuda.synchronize()
+    _assert_backward_close(lone, p)
+    assert cir._backward_partials(1, 20_000) > 0 and cir._backward_partials(128, 20_000) == 0
+    for m, at in ((3, 1), (64, 37), (128, 100)):
+        rows = others[:m].clone()
+        rows[at] = x
+        assert torch.equal(grad(rows)[at], lone), m
+
+
 def test_rx_power_kernel_edges(cuda):
     none = cir.rx_power_dbm(torch.zeros((0, 100), device=cuda), 1e-9)
     assert none[0].shape == (0,) and none[1].shape == (0, 100)
@@ -818,6 +871,72 @@ def test_phasor_backward_kernel_many_bounces_and_terrain(cuda):
     centers = np.column_stack([g.uniform(-20, 20, 300), g.uniform(-20, 20, 300),
                                g.uniform(5, 20, 300)]).astype(np.float32)
     _assert_phasor_backward(cuda, segs, centers, 1.0, PHASOR_CARD_KW)
+
+
+def test_phasor_backward_kernel_mostly_dead_rays(cuda):
+    """Where ~70% of the rays have no live segment (a mask over the room's
+    rays) and the ray count is a multiple of neither the walk's block (256)
+    nor the scan's (1,024): the scan lists exactly the live rays, every
+    segment of a dead ray gets 0, and the rest matches the plain version."""
+    n = 100_003
+    segs = _room_segments(cuda, n)
+    g = np.random.default_rng(31)
+    keep = torch.from_numpy(g.random(n) < 0.3).to(cuda)
+    segs = segs._replace(alive=segs.alive & keep)
+    centers = _room_receivers(531)
+    _assert_phasor_backward(cuda, segs, centers, 0.7, PHASOR_CARD_KW)
+    _, coef = _phasor_backward_case(cuda, segs, centers, 0.7, PHASOR_CARD_KW)
+    got, live = coverage_hist._phasor_backward_launch(segs, centers, 0.7, coef, **PHASOR_CARD_KW)
+    torch.cuda.synchronize()
+    live_rays = segs.alive.any(dim=0)
+    assert int(live) == int(live_rays.sum()) and 0.2 * n < int(live) < 0.4 * n
+    assert not got[:, ~live_rays].any()
+
+
+def test_phasor_backward_kernel_first_win_across_bounces(cuda):
+    """Hand-made segments, 300 rays of which two are live. Ray 0 reaches
+    receiver A at bounce 0 and again at bounce 1: only bounce 0 takes A's
+    term. Ray 1's bounce-0 line meets receiver B beyond the environment's hit
+    (a positive discriminant, no win), and its bounce 1 wins B. Against the
+    plain version, and exactly: with only A's coefficients nonzero, ray 0's
+    bounce 1 gets 0; with only B's, ray 1's bounce 0 gets 0."""
+    n = 300
+    origin = torch.zeros((2, n, 3))
+    direction = torch.zeros((2, n, 3))
+    direction[..., 2] = 1.0
+    t_env = torch.full((2, n), 1e30)
+    dist = torch.zeros((2, n))
+    alive = torch.zeros((2, n), dtype=torch.bool)
+    # Ray 0: +x through A at (5, 0, 0), then back along -x through A again.
+    origin[0, 0] = torch.tensor([0.0, 0.0, 0.0])
+    direction[0, 0] = torch.tensor([1.0, 0.0, 0.0])
+    t_env[0, 0], alive[0, 0] = 20.0, True
+    origin[1, 0] = torch.tensor([20.0, 0.0, 0.0])
+    direction[1, 0] = torch.tensor([-1.0, 0.0, 0.0])
+    t_env[1, 0], dist[1, 0], alive[1, 0] = 30.0, 20.0, True
+    # Ray 1: toward B at (8, 3, 0) but the environment at t = 6, then on to B.
+    origin[0, 1] = torch.tensor([0.0, 3.0, 0.0])
+    direction[0, 1] = torch.tensor([1.0, 0.0, 0.0])
+    t_env[0, 1], alive[0, 1] = 6.0, True
+    origin[1, 1] = torch.tensor([6.0, 3.0, 0.0])
+    direction[1, 1] = torch.tensor([1.0, 0.0, 0.0])
+    t_env[1, 1], dist[1, 1], alive[1, 1] = 30.0, 6.0, True
+    amp = torch.from_numpy(np.random.default_rng(3).uniform(1e-4, 1e-3, (2, n)).astype(np.float32))
+    segs = EnvSegments(*(t.to(cuda) for t in (origin, direction, t_env, amp, dist, alive)))
+    centers = np.array([[5.0, 0.0, 0.0], [8.0, 3.0, 0.0], [50.0, 50.0, 50.0]], np.float32)
+    coef = torch.tensor([[1.0, 0.5, 2.0, 0.25, 0.5, 1e-8, 1e-17, 0.0]] * 3, device=cuda)
+    got = coverage_hist.phasor_backward(segs, centers, 0.5, coef, **PHASOR_CARD_KW)
+    want = coverage_hist.phasor_backward_plain(segs, centers, 0.5, coef, **PHASOR_CARD_KW)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6 * float(want.abs().max()))
+    assert float(got[0, 0]) != 0.0 and float(got[1, 1]) != 0.0 and not got[:, 2:].any()
+    only = torch.zeros_like(coef)
+    for r, (zero, nonzero) in ((0, ((1, 0), (0, 0))), (1, ((0, 1), (1, 1)))):
+        only.zero_()
+        only[r] = coef[r]
+        one = coverage_hist.phasor_backward(segs, centers, 0.5, only, **PHASOR_CARD_KW)
+        torch.cuda.synchronize()
+        assert float(one[zero]) == 0.0 and float(one[nonzero]) != 0.0, r
 
 
 def test_coverage_kernel_refuses_a_gradient(cuda):
