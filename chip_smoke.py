@@ -11,12 +11,13 @@ Phases, each ending in torch.cuda.synchronize() so a fault shows where it
 happened, and none catching its own failure:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the six CUDA sources of rfx_torch/csrc/ (fourteen C entry points:
+2. build the seven CUDA sources of rfx_torch/csrc/ (sixteen C entry points:
    the fused trace and its counted instantiation share a source, so do the
    closest hit and its counted instantiation, the coverage histogram, its
    slab reduction and the phasor metric's table, walk, spread and backward,
-   and the RX power and its backward) and the native C++ BVH builder
-   into build/rfx_torch/, one compiler each, all started together;
+   the RX power and its backward, and the map engine's capture pass and its
+   backward) and the native C++ BVH builder into build/rfx_torch/, one
+   compiler each, all started together;
 3. the bench workload (bench.py): make_terrain(grid=128, extent=60, seed=0),
    32,258 triangles, 5,242,880 Morton-ordered rays, 4 bounces, a 20,000-bin
    IR, tx (10, 0, 25), rx (-10, 0, 8), rx radius 1.0;
@@ -71,12 +72,20 @@ happened, and none catching its own failure:
     engine hands it (64 rows x 4,194,304 entries in one launch, and one row)
     against its plain version, hard and soft: the same nonzero bins, rtol
     1e-5, bit-identical across runs, a row alone == the row in the batch ==
-    the CPU's plain version; then five steps at full width: the
+    the CPU's plain version; then the map engine's capture kernel (K-S) and
+    its backward at that shape against their plain versions on the segments
+    of tx: the capture rows bit for bit, the IRs (soft) the plain map
+    engine's bits, the backward for a seeded (64, 20,000) cotangent within
+    rtol 1e-5 of its plain version (an absolute floor of 1e-6 of the
+    largest entry), the centers' gradient too, each the same bits in two
+    runs, with their times and bounds; then five steps at full width: the
     terrain, 1,048,576 Morton rays, 4 bounces, 64 receivers on an 8x8 grid
     at z = 8 over x, y in [-20, 20], radius 1.0, 20,000 bins at 100 GHz,
     target energies from tx (10, 0, 25), start (12, -2, 26), lr 0.05: finite
-    losses, finite nonzero gradients, time per step and peak memory, and at
-    most 10 histogram launches in the five steps;
+    losses, finite nonzero gradients, time per step and peak memory (printed
+    with the card's name and power limit), at most 10 histogram launches in
+    the five steps, one launch of K-S and of its backward a step, and no
+    call of the plain first-capture composition;
 12. the facade: compute_cir(record_paths=True) at 262,144 rays through the
     closest-hit kernel (paths start at tx, captures within the flip budget
     of the fused kernel's), and compute_coverage of 16 receivers;
@@ -159,25 +168,28 @@ happened, and none catching its own failure:
     bits; the exact metric with soft binning (coverage_dbm(soft=True),
     engine "map") on 64 of the room's receivers: d / d tx finite and
     nonzero, the same central difference in log n1, K-P's g_ir against
-    rx_power_backward_plain on all 64 rows, two runs the same bits; times
-    and peak memory.
+    rx_power_backward_plain on all 64 rows, two runs the same bits, K-S and
+    its backward once each and never the plain first-capture composition;
+    times and peak memory.
 Each main-path run is counted on its own: every launch count is set to 0
 just before it and read just after, and each kernel the path runs must have
 launched (the forward requests: fused trace, histogram and RX power; the
 large-mesh path: fused trace, counted fused trace, closest hit, counted
 closest hit and histogram; the micro-kernel's timed launches: micro vote;
-the scan value+grad and the five full-width solver steps: closest hit and
-histogram; the fused value+grad: fused trace and histogram; the coverage
+the scan value+grad: closest hit and histogram; the five full-width solver
+steps: closest hit, histogram, the map capture and its backward; the fused
+value+grad: fused trace and histogram; the coverage
 CLI's exact sweep: the coverage kernel, its slab reduction and RX power;
 each hybrid sweep: the phasor metric's table, walk and spread, the same
 three, and on the terrain the closest hit; each fast sweep: the table, the
 walk and the spread once each, on the terrain the closest hit, and never the
 coverage kernel; each fast value+grad: those three and the phasor backward
 once each, on the terrain the closest hit; the exact value+grad: the
-histogram, RX power and its backward once each (the histogram's backward is
-plain PyTorch, as rfx's is XLA's autodiff); each rank's sharded CIR, coverage and
-solver step: closest hit and histogram, and the coverage kernel on the
-coverage). The comparisons with the plain versions, the
+map capture, the histogram, RX power and their backwards (the histogram's
+in the map capture's backward) once each; each rank's sharded CIR, coverage
+and solver step: closest hit and histogram, on the coverage the coverage
+kernel and the map capture, on the solver step the map capture and its
+backward). The comparisons with the plain versions, the
 checks of phase 10 and the facade are not counted.
 
 Prints CUDA-event times of the kernels beside their plain versions, JSON
@@ -244,6 +256,8 @@ K_SPREAD = "rfx_coverage_phasor_spread"
 K_TABLE = "rfx_phasor_table"
 K_POWER_BACKWARD = "rfx_rx_power_backward"
 K_PHASOR_BACKWARD = "rfx_coverage_phasor_backward"
+K_MAP = "rfx_map_capture"
+K_MAP_BACKWARD = "rfx_map_capture_backward"
 # The phasor metric's three entry points, each launched once a sweep.
 PHASOR_NEEDS = (K_TABLE, K_PHASOR, K_SPREAD)
 # One H100 SXM's published peaks: HBM bytes/s, f32 FLOP/s outside the tensor cores.
@@ -404,7 +418,8 @@ def _counted_bound(fused_bound: dict) -> dict:
 
 
 def port_kernels() -> tuple:
-    """The port's fourteen C entry points (rfx_torch/csrc/), each with its launch count."""
+    """The port's sixteen C entry points that launch kernels (rfx_torch/csrc/), each with
+    its launch count."""
     from rfx_torch import cir
     from rfx_torch.ops.bvh_trace import CLOSEST_HIT_COUNTED_KERNEL, CLOSEST_HIT_KERNEL
     from rfx_torch.ops.coverage_hist import (
@@ -416,13 +431,14 @@ def port_kernels() -> tuple:
         PHASOR_TABLE_KERNEL,
     )
     from rfx_torch.ops.fused import FUSED_TRACE_COUNTED_KERNEL, FUSED_TRACE_KERNEL
+    from rfx_torch.ops.map_capture import MAP_CAPTURE_BACKWARD_KERNEL, MAP_CAPTURE_KERNEL
     from rfx_torch.ops.micro_vote import MICRO_VOTE_KERNEL
 
     return (FUSED_TRACE_KERNEL, CLOSEST_HIT_KERNEL, cir.HISTOGRAM_KERNEL, COVERAGE_HIST_KERNEL,
-            MICRO_VOTE_KERNEL, cir.RX_POWER_KERNEL, FUSED_TRACE_COUNTED_KERNEL,
-            CLOSEST_HIT_COUNTED_KERNEL, COVERAGE_REDUCE_KERNEL, COVERAGE_PHASOR_KERNEL,
-            COVERAGE_SPREAD_KERNEL, PHASOR_TABLE_KERNEL, cir.RX_POWER_BACKWARD_KERNEL,
-            PHASOR_BACKWARD_KERNEL)
+            MICRO_VOTE_KERNEL, cir.RX_POWER_KERNEL, MAP_CAPTURE_KERNEL,
+            FUSED_TRACE_COUNTED_KERNEL, CLOSEST_HIT_COUNTED_KERNEL, COVERAGE_REDUCE_KERNEL,
+            COVERAGE_PHASOR_KERNEL, COVERAGE_SPREAD_KERNEL, PHASOR_TABLE_KERNEL,
+            cir.RX_POWER_BACKWARD_KERNEL, PHASOR_BACKWARD_KERNEL, MAP_CAPTURE_BACKWARD_KERNEL)
 
 
 def rx_power_taps(irs, lo=None) -> int:
@@ -740,6 +756,25 @@ def _counted(kernels, path: str, needs, fn):
     _require(all(counts[s] > 0 for s in needs), f"{path}: a kernel did not run: {counts}")
     print(f"# {path} launches {counts}", flush=True)
     return out, counts
+
+
+def _plain_capture_calls(fn):
+    """(fn(), the calls that fn made of the plain first-capture composition,
+    rfx_torch.coverage._first_capture)."""
+    from rfx_torch import coverage
+
+    calls = [0]
+    first_capture = coverage._first_capture
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return first_capture(*args, **kwargs)
+
+    coverage._first_capture = counted
+    try:
+        return fn(), calls[0]
+    finally:
+        coverage._first_capture = first_capture
 
 
 def _closest_hit_phase(mesh, bvh, sub):
@@ -1183,7 +1218,97 @@ def _batched_histogram_check(scene, dirs, centers, env, dev):
     return out
 
 
-def _solver_phase(mesh, bvh, dev, kernels):
+def _map_capture_check(scene, dirs, centers, env, dev):
+    """The map engine's capture kernel (K-S) and its backward at the inverse
+    solve's shape, on the segments of tx (1,048,576 rays x 4 bounces, 64
+    receivers of radius 1.0, soft binning into 20,000 bins): the capture
+    rows == map_capture_plain's bit for bit and the same in two runs;
+    map_irs's IRs == the plain rows through K-H (the plain map engine) bit
+    for bit; the backward for a seeded (64, 20,000) cotangent (numpy seed
+    3), the centers' gradient included, within rtol 1e-5 of its plain
+    version (an absolute floor of 1e-6 of the largest entry) and the same
+    bits in two runs. Returns the times beside the bounds."""
+    import numpy as np
+    import torch
+
+    from rfx_torch import cir
+    from rfx_torch.coverage import _amp_scale
+    from rfx_torch.ops import map_capture as mc
+    from rfx_torch.tracer import trace_env
+
+    with torch.no_grad():
+        segs = trace_env(scene, torch.tensor(TX, device=dev), dirs, max_bounces=BOUNCES, env_hit=env)
+    scale = float(_amp_scale(1.0, SOLVER_RAYS, torch.device("cpu")))
+    hkw = dict(nbins=NBINS, light_speed_mps=C, sample_rate_hz=RATE)
+    m = centers.shape[0]
+    rows = mc.map_capture(segs, centers, 1.0, scale)
+    again = mc.map_capture(segs, centers, 1.0, scale)
+    plain = mc.map_capture_plain(segs, centers, 1.0, scale)
+    _sync()
+    for name, a, b, p in zip(("amplitude", "distance", "mask"), rows, again, plain):
+        _require(torch.equal(a, b), f"map capture: two runs differ ({name})")
+        _require(torch.equal(a, p), f"map capture: rows differ from the plain version's ({name})")
+    captured = int(rows[2].sum())
+    err = max(float((a - b).abs().max()) for a, b in zip(rows[:2], plain[:2]))
+    del rows, again
+    irs = mc.map_irs(segs, centers, 1.0, scale=scale, soft=True, **hkw)
+    irs_plain = cir.histogram_rows(*plain, soft=True, **hkw)
+    del plain
+    _sync()
+    _require(torch.equal(irs, irs_plain) and float(irs.sum()) > 0,
+             "map capture: the IRs differ from the plain map engine's")
+    g = torch.from_numpy(np.random.default_rng(3).normal(size=(m, NBINS)).astype(np.float32)).to(dev)
+    bkw = dict(scale=scale, soft=True, **hkw)
+    k1 = mc.map_capture_backward(segs, centers, 1.0, g, **bkw)
+    k2 = mc.map_capture_backward(segs, centers, 1.0, g, **bkw)
+    p = mc.map_capture_backward_plain(segs, centers, 1.0, g, **bkw)
+    _sync()
+    errs = {}
+    names = ("origin", "direction", "amplitude", "distance", "centers", "scale", "radius")
+    _require(len(k1) == len(p) == len(names), "map capture backward: outputs missing")
+    for name, a, b, c in zip(names, k1, k2, p):
+        _require(torch.equal(a, b), f"map capture backward: two runs differ ({name})")
+        _require(torch.allclose(a, c, rtol=1e-5, atol=1e-6 * float(c.abs().max())),
+                 f"map capture backward != its plain version ({name})")
+        errs[name] = float((a - c).abs().max())
+    del k1, k2, p
+    live = int(segs.alive.sum())
+    n_seg = segs.t_env.numel()
+    # Each live segment is tested against each receiver (17 f32 operations,
+    # as K3's); the segments (37 bytes each) and the centers are read once.
+    # The forward writes 9 bytes a receiver and segment; the backward reads
+    # the cotangent and writes 32 bytes a segment. The function K-S serves,
+    # segments to IRs (K-S with K-H), writes the IRs once instead.
+    tests = 17 * m * live
+    out = {"receivers": m, "segments": n_seg, "live_segments": live, "captured": captured,
+           "max_abs_err": err, "backward_max_abs_err": errs,
+           "ms": _cuda_ms(lambda: mc.map_capture(segs, centers, 1.0, scale), 10),
+           "irs_ms": _cuda_ms(lambda: mc.map_irs(segs, centers, 1.0, scale=scale, soft=True, **hkw), 10),
+           "plain_ms": _cuda_ms(lambda: mc.map_capture_plain(segs, centers, 1.0, scale), 2),
+           "backward_ms": _cuda_ms(lambda: mc.map_capture_backward(
+               segs, centers, 1.0, g, centers_grad=False, scalars_grad=False, **bkw), 10),
+           "backward_centers_ms": _cuda_ms(lambda: mc.map_capture_backward(
+               segs, centers, 1.0, g, **bkw), 3),
+           "backward_plain_ms": _cuda_ms(lambda: mc.map_capture_backward_plain(
+               segs, centers, 1.0, g, centers_grad=False, scalars_grad=False, **bkw), 1),
+           "bound": _bound(37 * n_seg + 12 * m + 9 * m * n_seg, tests),
+           "function_bound": _bound(37 * n_seg + 12 * m + 4 * m * NBINS, tests),
+           "backward_bound": _bound(37 * n_seg + 12 * m + 4 * m * NBINS + 32 * n_seg, tests)}
+    print(f"# map capture (K-S), {m} receivers x {BOUNCES} x {SOLVER_RAYS} segments ({live} live, "
+          f"{captured} captured): rows == plain bit for bit, IRs == the plain map engine's bit for "
+          f"bit, two runs the same; kernel {out['ms']:.4f} ms ({out['irs_ms']:.4f} ms with K-H), "
+          f"plain {out['plain_ms']:.3f} ms, bound {out['bound']['bound_ms']:.4f} ms by "
+          f"{out['bound']['bound_by']} (segments to IRs, K-S with K-H: bound "
+          f"{out['function_bound']['bound_ms']:.4f} ms by {out['function_bound']['bound_by']}); "
+          f"backward == plain (max |d| {errs}), two runs the same; "
+          f"kernel {out['backward_ms']:.4f} ms ({out['backward_centers_ms']:.4f} ms with the "
+          f"centers', scale's and radius's gradients), plain {out['backward_plain_ms']:.3f} ms, bound "
+          f"{out['backward_bound']['bound_ms']:.4f} ms by {out['backward_bound']['bound_by']}",
+          flush=True)
+    return out
+
+
+def _solver_phase(mesh, bvh, dev, kernels, card):
     """Phase 11: the room steps against their CPU version, then five steps
     of the inverse solve at full width; returns what it measured."""
     import numpy as np
@@ -1199,6 +1324,8 @@ def _solver_phase(mesh, bvh, dev, kernels):
     n_lit = int((target > 0).sum())
     kw = dict(max_bounces=BOUNCES, nbins=NBINS, light_speed_mps=C, sample_rate_hz=RATE)
     kh_batch = _batched_histogram_check(scene, dirs, centers, env, dev)
+    torch.cuda.empty_cache()
+    ks = _map_capture_check(scene, dirs, centers, env, dev)
     torch.cuda.empty_cache()
     init_fn, step_fn = make_inverse_solver(scene, dirs, centers, 1.0, target, learning_rate=0.05,
                                            env_hit=env, **kw)
@@ -1216,11 +1343,16 @@ def _solver_phase(mesh, bvh, dev, kernels):
             losses.append(float(loss))
             step_ms.append((time.perf_counter() - h0) * 1e3)
 
-    _, launches = _counted(kernels, "inverse solve", (K_HIT, K_HIST), steps)
+    (_, plain_calls), launches = _counted(kernels, "inverse solve",
+                                          (K_HIT, K_HIST, K_MAP, K_MAP_BACKWARD),
+                                          lambda: _plain_capture_calls(steps))
     peak = torch.cuda.max_memory_allocated(dev)
     # One histogram launch for each receiver batch and step (64 receivers,
     # rx_batch 64): the map engine no longer calls it once per receiver.
     _require(launches[K_HIST] <= 10, f"inverse solve: {launches[K_HIST]} histogram launches in 5 steps")
+    _require(launches[K_MAP] == 5 and launches[K_MAP_BACKWARD] == 5 and plain_calls == 0,
+             f"inverse solve: {launches[K_MAP]} / {launches[K_MAP_BACKWARD]} map capture launches "
+             f"and {plain_calls} plain first-capture calls in 5 steps")
     grads = [p.grad.cpu().numpy() for p in leaves]
     _require(all(np.isfinite(losses)), f"solver losses {losses}")
     for name, g in zip(("tx", "log_n1"), grads):
@@ -1233,9 +1365,9 @@ def _solver_phase(mesh, bvh, dev, kernels):
           f"losses {losses}; ms per step {[round(x, 3) for x in step_ms]}; tx "
           f"{params.tx_pos.detach().cpu().numpy()}, n1 {float(params.log_n1.detach().exp()):.6f}; "
           f"last grads tx {grads[0]}, log_n1 {grads[1]}; max |moved| tx {moved_max[0]:.6g}, "
-          f"log_n1 {moved_max[1]:.6g}; peak {peak / 2**30:.3f} GiB", flush=True)
+          f"log_n1 {moved_max[1]:.6g}; peak {peak / 2**30:.3f} GiB; {card}", flush=True)
     return dict(losses=losses, step_ms=step_ms, peak_bytes=peak, moved_max=moved_max,
-                launches=launches, histogram_batch=kh_batch, **room)
+                launches=launches, histogram_batch=kh_batch, map_capture=ks, **room)
 
 
 def _facade_phase(mesh, dirs, dev):
@@ -1643,14 +1775,18 @@ def _coverage_grad_phase(terrain, dev, kernels):
             return loss.detach(), g[0], g[1]
 
         exact_valgrad()  # warm-up
-        (loss, g_n1, g_tx), launches = _counted(
-            kernels, "coverage_exact_grad_room", (K_HIST, K_POWER, K_POWER_BACKWARD), exact_valgrad)
+        ((loss, g_n1, g_tx), plain_calls), launches = _counted(
+            kernels, "coverage_exact_grad_room",
+            (K_MAP, K_HIST, K_POWER, K_POWER_BACKWARD, K_MAP_BACKWARD),
+            lambda: _plain_capture_calls(exact_valgrad))
         out["launches"]["coverage_exact_grad_room"] = launches
-        # K-H's backward is plain PyTorch (a gather, as rfx's is XLA's
-        # autodiff): the histogram launches once, in the forward.
-        _require(launches[K_HIST] == 1 and launches[K_POWER] == 1
-                 and launches[K_POWER_BACKWARD] == 1 and launches[K_COV] == 0,
-                 f"exact metric value+grad: launches {launches}")
+        # The histogram's backward is in the map capture's backward: the
+        # histogram launches once, in the forward.
+        _require(all(launches[k] == 1 for k in (K_MAP, K_HIST, K_POWER, K_POWER_BACKWARD,
+                                                K_MAP_BACKWARD))
+                 and launches[K_COV] == 0 and plain_calls == 0,
+                 f"exact metric value+grad: launches {launches}, {plain_calls} plain "
+                 f"first-capture calls")
         again = exact_valgrad()
         _sync()
         _require(all(torch.equal(a, b) for a, b in zip((loss, g_n1, g_tx), again)),
@@ -2073,8 +2209,9 @@ def _dist_phase(root, dev, mesh, bvh):
     launches = {f"sharded_{case}": {k: sum(i[case]["launches"][k] for i in infos)
                                     for k in infos[0][case]["launches"]}
                 for case in ("cir", "coverage", "solver")}
-    for path, needs in (("sharded_cir", (K_HIT, K_HIST)), ("sharded_coverage", (K_HIT, K_HIST, K_COV)),
-                        ("sharded_solver", (K_HIT, K_HIST))):
+    for path, needs in (("sharded_cir", (K_HIT, K_HIST)),
+                        ("sharded_coverage", (K_HIT, K_HIST, K_COV, K_MAP)),
+                        ("sharded_solver", (K_HIT, K_HIST, K_MAP, K_MAP_BACKWARD))):
         _require(all(launches[path][k] > 0 for k in needs), f"{path}: a kernel did not run: {launches[path]}")
         print(f"# {path} launches, summed over the ranks: {launches[path]}", flush=True)
     pr = four["per_rank"]
@@ -2145,6 +2282,7 @@ def main() -> int:
         fused_trace,
         fused_trace_plain,
     )
+    from rfx_torch.ops.map_capture import MAP_CAPTURE_BACKWARD_KERNEL, MAP_CAPTURE_KERNEL
     from rfx_torch.ops.micro_vote import MICRO_VOTE_KERNEL
     from rfx_torch.sampler import morton_sphere_directions
 
@@ -2162,19 +2300,21 @@ def main() -> int:
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     print(card, flush=True)
 
-    # 2. Build the six CUDA sources and the native BVH builder from the
+    # 2. Build the seven CUDA sources and the native BVH builder from the
     #    sources in this checkout, one compiler each, all started together;
     #    the counted fused trace, the counted closest hit, the slab reduction,
-    #    the phasor metric's walk, spread, table and backward, and the
-    #    RX-power backward bind their entries in the libraries of the fused
-    #    trace, the closest hit, the coverage histogram and the RX power.
+    #    the phasor metric's walk, spread, table and backward, the RX-power
+    #    backward and the map capture's backward bind their entries in the
+    #    libraries of the fused trace, the closest hit, the coverage
+    #    histogram, the RX power and the map capture.
     t0 = time.perf_counter()
     per_source = (FUSED_TRACE_KERNEL, CLOSEST_HIT_KERNEL, cir.HISTOGRAM_KERNEL,
-                  COVERAGE_HIST_KERNEL, MICRO_VOTE_KERNEL, cir.RX_POWER_KERNEL)
+                  COVERAGE_HIST_KERNEL, MICRO_VOTE_KERNEL, cir.RX_POWER_KERNEL, MAP_CAPTURE_KERNEL)
     kernels_built = per_source + (FUSED_TRACE_COUNTED_KERNEL, CLOSEST_HIT_COUNTED_KERNEL,
                                   COVERAGE_REDUCE_KERNEL, COVERAGE_PHASOR_KERNEL,
                                   COVERAGE_SPREAD_KERNEL, PHASOR_TABLE_KERNEL,
-                                  cir.RX_POWER_BACKWARD_KERNEL, PHASOR_BACKWARD_KERNEL)
+                                  cir.RX_POWER_BACKWARD_KERNEL, PHASOR_BACKWARD_KERNEL,
+                                  MAP_CAPTURE_BACKWARD_KERNEL)
     with ThreadPoolExecutor(len(per_source) + 1) as pool:
         native = pool.submit(native_lib.load)
         list(pool.map(lambda k: k.load(), per_source))
@@ -2336,7 +2476,7 @@ def main() -> int:
     #       own; the checks' and the facade's launches are not counted.
     grad = _gradient_phase(mesh, flat, bvh, dev, kernels_built)
     _fd_phase(mesh, bvh, dev)
-    solve = _solver_phase(mesh, bvh, dev, kernels_built)
+    solve = _solver_phase(mesh, bvh, dev, kernels_built, card)
     _facade_phase(mesh, dirs, dev)
     del dirs, fused, tracer
     torch.cuda.empty_cache()
@@ -2372,6 +2512,7 @@ def main() -> int:
     # plain version cannot run at that shape, `plain_ms` is its time on the
     # subset it was compared on and `ms_at_plain_shape` the kernel's there.
     kh_batch = solve["histogram_batch"]
+    ks = solve.pop("map_capture")
     kp_room, kp_terrain = cov["room"].pop("rx_power"), cov["terrain"].pop("rx_power")
     kf_room, kf_terrain = cov["room"].pop("phasor"), cov["terrain"].pop("phasor")
     kpb_room = cov["room"].pop("rx_power_backward")
@@ -2562,6 +2703,35 @@ def main() -> int:
                   f"{COV_BINS} bins: ms, plain_ms, bound_ms: the room; *_terrain: the terrain; "
                   f"max_abs_err on g_amplitude against phasor_backward_plain; bound_ms: the "
                   f"forward walk's sphere tests"},
+        {"name": "map_capture", "route": "cuda", "source": "rfx_torch/csrc/map_capture.cu",
+         "replaces": "rfx/coverage.py:56", **counts(K_MAP), "max_abs_err": ks["max_abs_err"],
+         "ms": ks["ms"], "plain_ms": ks["plain_ms"], **ks["bound"], "library_ms": None,
+         "ms_with_histogram": ks["irs_ms"],
+         "function_bound_ms": ks["function_bound"]["bound_ms"],
+         "function_bound_by": ks["function_bound"]["bound_by"],
+         "shape": f"the inverse solve's {ks['receivers']} receivers x {BOUNCES} bounces x "
+                  f"{SOLVER_RAYS} rays (radius 1.0) on the segments of tx: the capture rows "
+                  f"(amp * scale, dist + t_rx, the mask; 9 bytes a receiver and segment) that K-H "
+                  f"bins, bit for bit the plain version's; ms_with_histogram: "
+                  f"map_irs's forward, K-S and K-H (soft); bound_ms: 17 f32 operations per live "
+                  f"segment and receiver, the segments read once and the rows written once; "
+                  f"function_bound_ms: the same operations, the segments read once and the "
+                  f"(64, {NBINS}) IRs written once (segments to IRs, what K-S with K-H computes); "
+                  f"rfx/coverage.py:56-81 under the vmap / lax.map of :185-203 (XLA)"},
+        {"name": "map_capture_backward", "route": "cuda",
+         "source": "rfx_torch/csrc/map_capture.cu", "replaces": "rfx/ops/intersect.py:234",
+         **counts(K_MAP_BACKWARD), "max_abs_err": max(ks["backward_max_abs_err"].values()),
+         "ms": ks["backward_ms"], "plain_ms": ks["backward_plain_ms"], **ks["backward_bound"],
+         "library_ms": None, "ms_with_centers": ks["backward_centers_ms"],
+         "max_abs_err_by_output": ks["backward_max_abs_err"],
+         "shape": f"jax.grad through rfx/coverage.py:56-81 (the sphere's VJP, "
+                  f"rfx/ops/intersect.py:234-248, and the transposes of the capture's where and "
+                  f"the histogram's scatter), soft: d / d origin, direction, amplitude, distance "
+                  f"of the solver's {ks['receivers']} x {BOUNCES} x {SOLVER_RAYS} segments for a "
+                  f"seeded (64, {NBINS}) cotangent; ms_with_centers: also d / d the centers, "
+                  f"the scale and the radius; "
+                  f"bound_ms: the forward's sphere tests, the segments and the cotangent read "
+                  f"once, 32 bytes a segment written"},
         {"name": "micro_vote", "route": "cuda", "source": "rfx_torch/csrc/micro_vote.cu",
          "replaces": "scripts/micro_reduce.py:64", **counts(K_VOTE),
          "max_abs_err": max(abs(v["carry"] - v["plain_carry"])
@@ -2580,7 +2750,7 @@ def main() -> int:
         "captured": grad["captured"],
         **{f"{p}_{k}": grad[p][k] for p in ("scan", "fused")
            for k in ("forward_ms", "valgrad_ms", "peak_bytes")}},
-        "solver": {"rays": SOLVER_RAYS, "receivers": 64, **solve},
+        "solver": {"rays": SOLVER_RAYS, "receivers": 64, **solve, "map_capture": ks},
         "coverage": {"rays": COV_RAYS, "receivers": 2048, "bins": COV_BINS, **cov},
         "rx_power": {"room": kp_room, "terrain": kp_terrain, "cir": kp_cir},
         "phasor": {"room": kf_room, "terrain": kf_terrain},
@@ -2589,6 +2759,11 @@ def main() -> int:
         "coverage_grad": cov_grad}))
     print(json.dumps({"large_mesh": large, "bench_subset_counters": bench_sub}))
     print(json.dumps({"distribution": dist_out}))
+    print(f"# inverse solve at full width: {[round(x, 3) for x in solve['step_ms']]} ms a step, "
+          f"peak {solve['peak_bytes'] / 2**30:.3f} GiB; map capture {ks['ms']:.4f} ms (bound "
+          f"{ks['bound']['bound_ms']:.4f}; segments to IRs "
+          f"{ks['function_bound']['bound_ms']:.4f}), its backward {ks['backward_ms']:.4f} ms (bound "
+          f"{ks['backward_bound']['bound_ms']:.4f}); on {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,8 +6,10 @@ host modules (`geometry.py`, `bvh.py`, `config.py`, `viz/`, `utils/`), and an
 `rfx` mesh or BVH crosses by field through `convert.py`.
 
 Every public entry point takes `device=` (default `"cuda"`). On a CUDA tensor
-the hand-written kernels run, fourteen C entry points in six sources of
-rfx_torch/csrc/, built with nvcc at first use (`ops/_build.py`):
+the hand-written kernels run, seventeen C entry points in seven sources of
+rfx_torch/csrc/, built with nvcc at first use (`ops/_build.py`): sixteen
+launch kernels, and `rfx_map_capture_backward_blocks` gives the map capture
+backward's block count, which sizes its scratch. The sources:
 
 - `fused_trace.cu`: the fused bounce loop and its counted instantiation;
 - `closest_hit.cu`: the per-query closest hit and its counted instantiation;
@@ -20,10 +22,16 @@ rfx_torch/csrc/, built with nvcc at first use (`ops/_build.py`):
 - `rx_power.cu`: the RX-power metric's convolution with the carrier and its
   dBm, one call for a batch of IRs, and its backward (the transposed
   convolution of the metric's cotangent);
+- `map_capture.cu`: the map engine's capture pass (each receiver's first
+  captures, written as the rows the IR histogram bins) and its backward (d /
+  d the segments, the centers, the amplitude scale and the radius, a thread
+  a ray over the receivers in order); it shares the capture rule with `coverage_hist.cu` through
+  `sphere.cuh`;
 - `micro_vote.cu`: the vote micro-kernel, a latency probe.
 
-On a CPU tensor their plain PyTorch versions run. The RX-power and phasor
-metrics differentiate on either device through one autograd Function each,
+On a CPU tensor their plain PyTorch versions run. The map engine's capture
+pass (`ops/map_capture.py`), the RX-power and the phasor metrics
+differentiate on either device through one autograd Function each,
 whose backward is the backward kernel on the card and its plain version on
 the CPU; the coverage histogram has no backward (nor has rfx's batched
 engine): on the card an input that requires grad raises there. Asking for

@@ -41,9 +41,9 @@ import torch
 
 from rfx_torch.ops._build import CudaKernel, F, I, P
 
-__all__ = ["bin_impulse_response", "carrier_cached", "cir_from_trace", "convolve_carrier_plain", "histogram_plain",
-           "mask_tiles", "phasor_metric", "rx_power_backward", "rx_power_backward_plain",
-           "rx_power_dbm", "rx_power_dbm_phasor", "rx_power_dbm_plain", "to_dbm",
+__all__ = ["bin_impulse_response", "carrier_cached", "cir_from_trace", "convolve_carrier_plain",
+           "histogram_plain", "histogram_rows", "mask_tiles", "phasor_metric", "rx_power_backward",
+           "rx_power_backward_plain", "rx_power_dbm", "rx_power_dbm_phasor", "rx_power_dbm_plain", "to_dbm",
            "HISTOGRAM_KERNEL", "RX_POWER_BACKWARD_KERNEL", "RX_POWER_KERNEL"]
 
 HARD, SOFT_LO, SOFT_HI = 0, 1, 2
@@ -166,6 +166,25 @@ def _launch(amplitude, distance, captured, *, nbins: int, light_speed_mps: float
     return [buf.narrow(0, h * n_plane, n_plane).view(shape) for h in range(planes)]
 
 
+def histogram_rows(amplitude, distance, captured, *, nbins: int, light_speed_mps: float,
+                   sample_rate_hz: float, soft: bool, flat=None) -> torch.Tensor:
+    """The histogram of (N,) or (R, N) paths without autograd, hard or soft
+    (the low and the high half added): `histogram_plain` on a CPU tensor
+    (given the capture list `flat` where the caller has it), one launch of
+    the kernel on a CUDA tensor."""
+    kw = dict(nbins=nbins, light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz)
+    dev = amplitude.device
+    if dev.type == "cpu":
+        flat = _capture_list(captured) if flat is None else flat
+        modes = (SOFT_LO, SOFT_HI) if soft else (HARD,)
+        halves = [_plain_from_list(amplitude, distance, flat, mode=m, **kw) for m in modes]
+    elif _rows(amplitude) * amplitude.shape[-1] == 0:
+        halves = [torch.zeros(amplitude.shape[:-1] + (nbins,), dtype=torch.float32, device=dev)]
+    else:
+        halves = _launch(amplitude, distance, captured, soft=soft, **kw)
+    return halves[0] + halves[1] if len(halves) == 2 else halves[0]
+
+
 class _Histogram(torch.autograd.Function):
     """The histogram of (N,) or (R, N) paths, hard or soft (the sum of the
     low and the high half), with the gradient of rfx.cir.bin_impulse_response
@@ -181,23 +200,13 @@ class _Histogram(torch.autograd.Function):
     def forward(ctx, amplitude, distance, captured, nbins, light_speed_mps, sample_rate_hz,
                 soft):
         kw = dict(nbins=nbins, light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz)
-        rows, n = _rows(amplitude), amplitude.shape[-1]
-        dev = amplitude.device
         needs_grad = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
-        flat = _capture_list(captured) if needs_grad or dev.type == "cpu" else None
-        if dev.type == "cpu":
-            modes = (SOFT_LO, SOFT_HI) if soft else (HARD,)
-            halves = [_plain_from_list(amplitude, distance, flat, mode=m, **kw) for m in modes]
-        elif rows * n == 0:
-            halves = [torch.zeros(amplitude.shape[:-1] + (nbins,), dtype=torch.float32,
-                                  device=dev)]
-        else:
-            halves = _launch(amplitude, distance, captured, soft=soft, **kw)
+        flat = _capture_list(captured) if needs_grad or amplitude.device.type == "cpu" else None
         if needs_grad:
             ctx.save_for_backward(amplitude, distance, flat)
         ctx.kw = kw
         ctx.soft = soft
-        return halves[0] + halves[1] if len(halves) == 2 else halves[0]
+        return histogram_rows(amplitude, distance, captured, soft=soft, flat=flat, **kw)
 
     @staticmethod
     def backward(ctx, g):

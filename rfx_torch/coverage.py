@@ -7,12 +7,17 @@ capture only truncates that receiver's own view of it.
 
 Two engines build the impulse responses:
 
-- `map`: receivers in batches of `rx_batch`, one broadcast sphere test over
-  the B x N segments per batch, the first capture along the bounce axis,
-  then the batch's IRs in one call of the histogram Function of
-  rfx_torch.cir (one row a receiver, bounces and rays flattened).
-  Hard or soft binning, analytic or icosphere receiver; differentiable,
-  which the inverse solver needs.
+- `map`: receivers in batches of `rx_batch`, the sphere test over the B x N
+  segments per batch, the first capture along the bounce axis, then the
+  batch's IRs in one call of the IR histogram (one row a receiver, bounces
+  and rays flattened). Hard or soft binning, analytic or icosphere
+  receiver; differentiable, which the inverse solver needs. With the
+  analytic receiver a batch is one call of rfx_torch.ops.map_capture.map_irs
+  (the capture kernel, the histogram kernel and, in the backward, the
+  capture backward kernel on a CUDA tensor; their plain versions on a CPU
+  tensor); the icosphere receiver, and a tx_power or radius that requires
+  grad, take the plain composition (broadcast test, `where`s and the
+  histogram Function of rfx_torch.cir) on either device.
 - `batched`: the coverage kernel (rfx_torch.ops.coverage_hist) on a CUDA
   tensor, its plain version on a CPU tensor. Hard binning and the analytic
   receiver only; forward only, as rfx's batched engine: on the card an input
@@ -40,8 +45,9 @@ import numpy as np
 import torch
 
 from rfx_torch.cir import bin_impulse_response, rx_power_dbm, rx_power_dbm_phasor
-from rfx_torch.ops.coverage_hist import coverage_hist, coverage_phasor
-from rfx_torch.ops.intersect import is_hit, ray_mesh_closest_hit_brute, ray_sphere_hit
+from rfx_torch.ops.coverage_hist import coverage_hist, coverage_phasor, first_captures
+from rfx_torch.ops.intersect import ray_mesh_closest_hit_brute, ray_sphere_hit
+from rfx_torch.ops.map_capture import map_irs
 from rfx_torch.tracer import EnvSegments, Scene, icosphere_soa, trace_env
 
 __all__ = ["make_grid", "coverage_irs", "coverage_dbm", "coverage_dbm_fast",
@@ -75,9 +81,7 @@ def _first_capture(segs: EnvSegments, centers: torch.Tensor, rx_radius, rx_mode:
     and t_env > t_rx (a miss compares as the 1e30 sentinel), dead segments
     are gated, and the first win along the bounce axis ends its view."""
     t_rx = _t_rx(segs, centers, rx_radius, rx_mode)
-    win = segs.alive & is_hit(t_rx) & (segs.t_env > t_rx)
-    win_i = win.to(torch.int32)
-    return t_rx, win & (torch.cumsum(win_i, dim=1) - win_i == 0)
+    return t_rx, first_captures(segs, t_rx)
 
 
 def _amp_scale(tx_power, num_rays: int, device) -> torch.Tensor:
@@ -104,26 +108,37 @@ def _irs_from_segments(segs: EnvSegments, rx_centers, rx_radius, *, nbins: int,
                        tx_power, rx_batch: int, soft: bool, rx_mode: str,
                        engine: str = "auto") -> torch.Tensor:
     """(M, nbins) impulse responses of M receivers from shared env segments
-    (rfx/coverage.py:56-81, :155-191)."""
+    (rfx/coverage.py:56-81, :155-191). The map engine takes `rx_batch`
+    receivers a call: with the analytic receiver, of `map_irs` (the map
+    capture kernels on the card); with the icosphere receiver, of the plain
+    composition (the icosphere test, the first captures and the histogram
+    Function)."""
     dev = segs.t_env.device
     centers = torch.as_tensor(rx_centers, dtype=torch.float32, device=dev).reshape(-1, 3)
-    scale = _amp_scale(tx_power, num_rays, dev)
     engine = _resolve_engine(engine, soft=soft, rx_mode=rx_mode, device=dev)
     if engine == "batched":
-        scaled = segs._replace(amplitude=segs.amplitude * scale)
+        scaled = segs._replace(amplitude=segs.amplitude * _amp_scale(tx_power, num_rays, dev))
         return coverage_hist(scaled, centers, rx_radius, nbins=nbins,
                              light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz,
                              rx_batch=rx_batch)
+    hist_kw = dict(nbins=nbins, light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz,
+                   soft=soft)
+    analytic = rx_mode == "analytic"
+    # map_irs reads the scale on the host: kept there, it costs no wait.
+    scale = _amp_scale(tx_power, num_rays, torch.device("cpu") if analytic else dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     irs = []
     for s in range(0, centers.shape[0], rx_batch):
-        t_rx, first = _first_capture(segs, centers[s:s + rx_batch], rx_radius, rx_mode)
+        batch = centers[s:s + rx_batch]
+        if analytic:
+            irs.append(map_irs(segs, batch, rx_radius, scale=scale, **hist_kw))
+            continue
+        t_rx, first = _first_capture(segs, batch, rx_radius, rx_mode)
         amp = torch.where(first, segs.amplitude, zero) * scale
         dist = torch.where(first, segs.distance + t_rx, zero)
         r = t_rx.shape[0]
-        irs.append(bin_impulse_response(
-            amp.reshape(r, -1), dist.reshape(r, -1), first.reshape(r, -1), nbins=nbins,
-            light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz, soft=soft))
+        irs.append(bin_impulse_response(amp.reshape(r, -1), dist.reshape(r, -1),
+                                        first.reshape(r, -1), **hist_kw))
     if not irs:
         return torch.zeros((0, nbins), dtype=torch.float32, device=dev)
     return torch.cat(irs)

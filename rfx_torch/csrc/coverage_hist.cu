@@ -109,41 +109,18 @@
 
 #include <cuda_runtime.h>
 
+#include "sphere.cuh"
+
 namespace {
+
+using namespace rfx_capture;  // sphere_t, delay_bin, Segment, disc_positive, sphere_win
 
 constexpr int kRx = 16;    // receivers of one warp, at most 32
 constexpr int kRays = 4;   // segments a lane holds at once
 constexpr int kWarps = 4;  // warps of one block
 constexpr unsigned kFullWarp = 0xffffffffu;
-constexpr float kTMin = 1e-4f;
-constexpr float kMiss = 1e30f;
-constexpr float kMissThreshold = 1e29f;
 
 static_assert(kRx >= 1 && kRx <= 32, "a ray slot's wins are one bit a receiver");
-
-__device__ __forceinline__ float sphere_t(float ox, float oy, float oz, float dx, float dy,
-                                          float dz, float cx, float cy, float cz, float r2) {
-  const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
-  const float b = ocx * dx + ocy * dy + ocz * dz;
-  const float c = ocx * ocx + ocy * ocy + ocz * ocz - r2;
-  const float disc = b * b - c;
-  if (!(disc > 0.0f)) return kMiss;
-  const float s = sqrtf(disc);
-  const float t0 = -b - s;
-  const float t1 = -b + s;
-  return t0 > kTMin ? t0 : (t1 > kTMin ? t1 : kMiss);
-}
-
-// Truncation toward zero; -1 (dropped) where the delay is NaN or outside
-// the int range.
-__device__ __forceinline__ int delay_bin(float binf) {
-  return (binf > -1.0f && binf < 2147483648.0f) ? static_cast<int>(binf) : -1;
-}
-
-struct Segment {
-  float ox, oy, oz, dx, dy, dz, te, dist, amp;
-  bool live;
-};
 
 // The kRays segments of bounce b that lane `lane` holds of the chunk at
 // `base`: ray base + 32 * k + lane. Every load is started whether the segment
@@ -170,29 +147,6 @@ __device__ __forceinline__ void load_segments(
     seg[k].amp = amp[at];
     seg[k].live = in && alive[at];
   }
-}
-
-// The hot loop's test of a segment against a receiver: the discriminant of
-// sphere_t, in its expressions and order, above zero. Only a segment that
-// passes it can be won.
-__device__ __forceinline__ bool disc_positive(const Segment& s, float4 ctr, float r2) {
-  const float ocx = s.ox - ctr.x, ocy = s.oy - ctr.y, ocz = s.oz - ctr.z;
-  const float bq = ocx * s.dx + ocy * s.dy + ocz * s.dz;
-  const float cq = ocx * ocx + ocy * ocy + ocz * ocz - r2;
-  const float disc = bq * bq - cq;
-  return disc > 0.0f;
-}
-
-// The capture rule for a segment whose discriminant was positive: a win iff
-// the sphere's root is a hit (t_rx < 1e29) before the environment's (t_env >
-// t_rx); `bin` gets the win's delay bin, -1 to drop it (outside [0, nbins)).
-__device__ __forceinline__ bool sphere_win(const Segment& s, float4 ctr, float r2, float c,
-                                           float rate, int nbins, int& bin) {
-  const float t_rx = sphere_t(s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, ctr.x, ctr.y, ctr.z, r2);
-  if (!(t_rx < kMissThreshold && s.te > t_rx)) return false;
-  const int b = delay_bin((s.dist + t_rx) / c * rate);
-  bin = b < nbins ? b : -1;
-  return true;
 }
 
 // A warp's scratch in shared memory, where the lanes that won leave what the

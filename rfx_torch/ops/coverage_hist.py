@@ -58,7 +58,7 @@ from rfx_torch.tracer import EnvSegments
 __all__ = ["COVERAGE_HIST_KERNEL", "COVERAGE_PHASOR_KERNEL", "COVERAGE_REDUCE_KERNEL",
            "COVERAGE_SPREAD_KERNEL", "PHASOR_BACKWARD_KERNEL", "PHASOR_TABLE_KERNEL", "PhasorWalk",
            "coverage_hist", "coverage_hist_plain", "coverage_phasor", "coverage_slabs",
-           "phasor_backward", "phasor_backward_plain", "phasor_coefficients", "phasor_lists_spent",
+           "first_captures", "phasor_backward", "phasor_backward_plain", "phasor_coefficients", "phasor_lists_spent",
            "phasor_spread_plain", "phasor_table", "phasor_table_plain", "slab_of_ray", "reduce_planes",
            "reduce_planes_plain"]
 
@@ -127,6 +127,15 @@ def _centers(rx_centers, device) -> torch.Tensor:
     return torch.as_tensor(rx_centers, dtype=torch.float32, device=device).reshape(-1, 3)
 
 
+def first_captures(segs: EnvSegments, t_rx: torch.Tensor) -> torch.Tensor:
+    """(R, B, N) bool: a receiver captures a live segment it hits (t_rx, (R,
+    B, N), below the miss sentinel) before the environment does, and its
+    first capture along the bounce axis ends its view of the ray."""
+    win = segs.alive & is_hit(t_rx) & (segs.t_env > t_rx)
+    win_i = win.to(torch.int32)
+    return win & (torch.cumsum(win_i, dim=1) - win_i == 0)
+
+
 def _first_wins(segs: EnvSegments, batch: torch.Tensor, rx_radius, *, nbins: int,
                 light_speed_mps: float, sample_rate_hz: float):
     """(bins, valid), each (R, B, N), of R receivers: a receiver wins a live
@@ -141,9 +150,7 @@ def _first_wins(segs: EnvSegments, batch: torch.Tensor, rx_radius, *, nbins: int
     c = torch.tensor(light_speed_mps, dtype=torch.float32, device=dev)
     rate = torch.tensor(sample_rate_hz, dtype=torch.float32, device=dev)
     t_rx = sphere_t(o, d, batch[:, None, :], r * r).reshape(-1, b, n)
-    win = segs.alive & is_hit(t_rx) & (segs.t_env > t_rx)
-    win_i = win.to(torch.int32)
-    first = win & (torch.cumsum(win_i, dim=1) - win_i == 0)
+    first = first_captures(segs, t_rx)
     bins = ((segs.distance + t_rx) / c * rate).to(torch.int32)
     return bins, first & (bins >= 0) & (bins < nbins)
 

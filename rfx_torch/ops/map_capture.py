@@ -1,0 +1,311 @@
+"""The map engine's capture pass: the impulse responses of a chunk of
+receiver spheres from the segments of one environment trace, differentiable
+in the segments, the centers, the amplitude scale and the radius (port of
+the XLA program of
+rfx/coverage.py:56-81 under the vmap / lax.map of :185-203, with the
+receiver sphere's custom VJP, rfx/ops/intersect.py:206-251).
+
+`map_irs` is one autograd Function (`_MapIRs`) on either device. Its forward
+finds each receiver's first capture along each ray's bounces and writes, per
+receiver, a row of the B x N segments in their (b, n) order: amp * scale
+and dist + t_rx at the captures, 0 elsewhere, and the capture mask; the IR
+histogram (rfx_torch.cir.histogram_rows) bins the rows, one launch for the
+chunk. Nothing of size (R, B, N) is kept: the backward finds the captures
+again and adds each capture's terms to its segment, over the receivers in
+ascending order (the gradient of the histogram's scatter, of the capture's
+`where`s and of the sphere's implicit-function derivative).
+
+On a CUDA tensor the forward launches `rfx_map_capture` and the backward
+`rfx_map_capture_backward` (rfx_torch/csrc/map_capture.cu); on a CPU tensor
+their plain versions run, `map_capture_plain` (the broadcast sphere test and
+first-capture rule of the plain map engine) and `map_capture_backward_plain`
+(the backward's arithmetic written out per receiver). The kernel writes the
+plain version's rows bit for bit, so the IRs are the plain map engine's.
+Nothing falls back: a build or launch failure raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rfx_torch import cir
+from rfx_torch.ops._build import CudaKernel, F, I, P
+from rfx_torch.ops.coverage_hist import _check_segments, first_captures
+from rfx_torch.ops.intersect import dot3, sphere_t
+from rfx_torch.tracer import EnvSegments
+
+__all__ = ["MAP_CAPTURE_BACKWARD_KERNEL", "MAP_CAPTURE_KERNEL", "map_capture",
+           "map_capture_backward", "map_capture_backward_plain", "map_capture_plain", "map_irs"]
+
+MAP_CAPTURE_KERNEL = CudaKernel("map_capture.cu", "rfx_map_capture",
+                                [P, P, P, P, P, P, I, I, P, I, F, F, P, P, P, P])
+MAP_CAPTURE_BACKWARD_KERNEL = CudaKernel(
+    "map_capture.cu", "rfx_map_capture_backward",
+    [P, P, P, P, P, P, I, I, P, I, F, F, F, F, I, I, F, P, P, P, P, P, P, P, P, P, P],
+)
+
+
+def _radius(rx_radius, device) -> torch.Tensor:
+    return torch.as_tensor(rx_radius, dtype=torch.float32).to(device)
+
+
+def map_capture_plain(segs: EnvSegments, centers: torch.Tensor, rx_radius, scale: float):
+    """Plain PyTorch version of `rfx_map_capture`: (amp, dist, captured),
+    each (R, B * N), for the (R, 3) centers: the broadcast sphere test and
+    the first-capture rule, amp * scale and dist + t_rx at the captures, 0
+    elsewhere."""
+    dev = segs.t_env.device
+    b, n = segs.t_env.shape
+    r = _radius(rx_radius, dev)
+    t_rx = sphere_t(segs.origin.reshape(b * n, 3), segs.direction.reshape(b * n, 3),
+                    centers[:, None, :], r * r).reshape(-1, b, n)
+    first = first_captures(segs, t_rx)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    rows = t_rx.shape[0]
+    amp = torch.where(first, segs.amplitude, zero) * torch.tensor(scale, dtype=torch.float32,
+                                                                   device=dev)
+    dist = torch.where(first, segs.distance + t_rx, zero)
+    return amp.reshape(rows, -1), dist.reshape(rows, -1), first.reshape(rows, -1)
+
+
+def _planes(segs: EnvSegments) -> list:
+    return [t.detach().contiguous() for t in segs]
+
+
+def _check_sizes(b: int, n: int, m: int, nbins: int = 1):
+    if max(n, b, m, nbins) >= 2**31:
+        raise ValueError(f"at most 2^31 - 1 rays, bounces, receivers and bins, got {n}, {b}, {m} "
+                         f"and {nbins}")
+
+
+def _backward_blocks(n: int) -> int:
+    """The backward's block count for n rays (its scratch's first dimension),
+    as map_capture.cu decides it."""
+    fn = MAP_CAPTURE_BACKWARD_KERNEL.symbol_of("rfx_map_capture_backward_blocks")
+    fn.argtypes, fn.restype = [I], I
+    return int(fn(n))
+
+
+def map_capture(segs: EnvSegments, centers: torch.Tensor, rx_radius, scale: float):
+    """(amp, dist, captured), each (R, B * N), of `map_capture_plain`: on a
+    CPU tensor that plain version, on a CUDA tensor one launch of
+    `rfx_map_capture` (the same bits)."""
+    dev = segs.t_env.device
+    if dev.type == "cpu":
+        return map_capture_plain(segs, centers, rx_radius, scale)
+    if dev.type != "cuda":
+        raise ValueError(f"no map capture kernel for device {dev}")
+    b, n = segs.t_env.shape
+    m = centers.shape[0]
+    _check_sizes(b, n, m)
+    amp = torch.empty((m, b * n), dtype=torch.float32, device=dev)  # the kernel writes every entry
+    dist = torch.empty_like(amp)
+    cap = torch.empty((m, b * n), dtype=torch.bool, device=dev)
+    if m and n and b:
+        centers = centers.detach().to(torch.float32).contiguous()
+        with torch.cuda.device(dev):
+            MAP_CAPTURE_KERNEL.launch(
+                *(t.data_ptr() for t in _planes(segs)), b, n, centers.data_ptr(), m,
+                float(rx_radius), float(scale), amp.data_ptr(), dist.data_ptr(), cap.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    return amp, dist, cap
+
+
+def _g_at(g_row: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
+    """g_row[bins] where 0 <= bins < nbins, else 0."""
+    nbins = g_row.shape[0]
+    valid = (bins >= 0) & (bins < nbins)
+    return torch.where(valid, g_row[bins.clamp(0, nbins - 1)],
+                       torch.zeros((), dtype=g_row.dtype, device=g_row.device))
+
+
+def map_capture_backward_plain(segs: EnvSegments, centers: torch.Tensor, rx_radius,
+                               g: torch.Tensor, *, scale: float, nbins: int,
+                               light_speed_mps: float, sample_rate_hz: float, soft: bool,
+                               centers_grad: bool = True, scalars_grad: bool = True):
+    """Plain PyTorch version of `rfx_map_capture_backward`, on either device:
+    (g_origin (B, N, 3), g_direction (B, N, 3), g_amplitude (B, N),
+    g_distance (B, N), g_centers (R, 3), g_scale (), g_radius ()) of the IRs'
+    cotangent g (R, nbins); g_centers is None unless `centers_grad`, g_scale
+    and g_radius None unless `scalars_grad`. A receiver at a time, in
+    ascending order, finds its first captures and adds their terms to the
+    segments (the expressions of the kernel, in its order):
+
+    - hard: g_a = g[r, int(delay)], 0 outside the window; nothing else;
+    - soft, lo = floor(delay), w = delay - lo: g_a = (1 - w) g[r, lo] + w
+      g[r, lo + 1], g_dist = amp scale (g[r, lo + 1] - g[r, lo]) rate / c;
+      with q = o + t_rx d - C and q.d clamped at 1e-6 max(radius, 1e-6), gg
+      = g_dist / q.d: g_origin += -gg q, g_direction += -(gg t_rx) q, and
+      the receiver's center gains gg q (summed over its segments);
+
+    g_amplitude += g_a scale, g_distance += g_dist, with delay = (dist +
+    t_rx) / c * rate. g_scale is the sum of g_a amp over every capture, and
+    g_radius that of gg times the radius (dt/dr = r / q.d); each sum adds its
+    f32 terms in double and rounds once."""
+    dev = segs.t_env.device
+    f32 = torch.float32
+    segs = EnvSegments(*(t.detach() for t in segs))
+    b, n = segs.t_env.shape
+    r = _radius(rx_radius, dev)
+    r2 = r * r
+    qd_floor = 1e-6 * r.clamp_min(1e-6)
+    c = torch.tensor(light_speed_mps, dtype=f32, device=dev)
+    rate = torch.tensor(sample_rate_hz, dtype=f32, device=dev)
+    k_scale = torch.tensor(scale, dtype=f32, device=dev)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    o, d = segs.origin, segs.direction
+    g_o = torch.zeros((b, n, 3), dtype=f32, device=dev)
+    g_d = torch.zeros((b, n, 3), dtype=f32, device=dev)
+    g_a = torch.zeros((b, n), dtype=f32, device=dev)
+    g_dist = torch.zeros((b, n), dtype=f32, device=dev)
+    g_c = torch.zeros((centers.shape[0], 3), dtype=f32, device=dev) if centers_grad else None
+    f64 = torch.float64
+    sum_amp = torch.zeros((), dtype=f64, device=dev)
+    sum_gg = torch.zeros((), dtype=f64, device=dev)
+    g = g.to(f32)
+    for k in range(centers.shape[0]):
+        ctr = centers[k].detach().to(f32)
+        t_rx = sphere_t(o, d, ctr, r2)
+        first = first_captures(segs, t_rx[None])[0]
+        t = torch.where(first, t_rx, zero)
+        delay = (segs.distance + t) / c * rate
+        if not soft:
+            ga = _g_at(g[k], delay.to(torch.int32))
+            g_a = g_a + torch.where(first, ga * k_scale, zero)
+            sum_amp = sum_amp + torch.where(first, ga * segs.amplitude, zero).to(f64).sum()
+            continue
+        lo = torch.floor(delay)
+        w = delay - lo
+        lo_i = lo.to(torch.int32)
+        g_lo, g_hi = _g_at(g[k], lo_i), _g_at(g[k], lo_i + 1)
+        ga = (1.0 - w) * g_lo + w * g_hi
+        gd = segs.amplitude * k_scale * (g_hi - g_lo) * rate / c
+        q = o + t[..., None] * d - ctr
+        qd = dot3(q, d)
+        mag = torch.maximum(qd.abs(), qd_floor)
+        gg = gd / torch.where(qd < 0.0, -mag, mag)
+        cap = first[..., None]
+        g_a = g_a + torch.where(first, ga * k_scale, zero)
+        g_dist = g_dist + torch.where(first, gd, zero)
+        g_o = g_o + torch.where(cap, -gg[..., None] * q, zero)
+        g_d = g_d + torch.where(cap, -(gg * t)[..., None] * q, zero)
+        sum_amp = sum_amp + torch.where(first, ga * segs.amplitude, zero).to(f64).sum()
+        sum_gg = sum_gg + torch.where(first, gg, zero).to(f64).sum()
+        if centers_grad:
+            g_c[k] = torch.where(cap, gg[..., None] * q, zero).sum(dim=(0, 1))
+    if not scalars_grad:
+        return g_o, g_d, g_a, g_dist, g_c, None, None
+    return g_o, g_d, g_a, g_dist, g_c, sum_amp.to(f32), sum_gg.to(f32) * r
+
+
+def map_capture_backward(segs: EnvSegments, centers: torch.Tensor, rx_radius, g: torch.Tensor, *,
+                         scale: float, nbins: int, light_speed_mps: float, sample_rate_hz: float,
+                         soft: bool, centers_grad: bool = True, scalars_grad: bool = True):
+    """The tuple of `map_capture_backward_plain`: that plain version on a CPU
+    tensor, one call of `rfx_map_capture_backward` on a CUDA tensor (each
+    segment's sums over the receivers in ascending order, the same bits from
+    run to run; the centers' gradient and the scale's and radius's sums,
+    where asked for, per-block partials added in a fixed order)."""
+    kw = dict(scale=scale, nbins=nbins, light_speed_mps=light_speed_mps,
+              sample_rate_hz=sample_rate_hz, soft=soft, centers_grad=centers_grad,
+              scalars_grad=scalars_grad)
+    dev = segs.t_env.device
+    if dev.type == "cpu":
+        return map_capture_backward_plain(segs, centers, rx_radius, g, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"no map capture backward kernel for device {dev}")
+    b, n = segs.t_env.shape
+    m = centers.shape[0]
+    _check_sizes(b, n, m, nbins)
+    if tuple(g.shape) != (m, nbins):
+        raise ValueError(f"g must be ({m}, {nbins}), got {tuple(g.shape)}")
+    f32 = torch.float32
+    r = _radius(rx_radius, "cpu")
+    shapes = ((b, n, 3), (b, n, 3), (b, n), (b, n))
+    if not (m and n and b):
+        zeros = [torch.zeros(x, dtype=f32, device=dev) for x in (*shapes, (m, 3), (), ())]
+        return (*zeros[:4], zeros[4] if centers_grad else None,
+                *(zeros[5:] if scalars_grad else (None, None)))
+    # The kernel writes every element of its outputs.
+    outs = [torch.empty(x, dtype=f32, device=dev) for x in shapes]
+    blocks = _backward_blocks(n)
+    g_c = gc_partials = sums = sums_partials = None
+    if centers_grad:
+        g_c = torch.empty((m, 3), dtype=f32, device=dev)
+        gc_partials = torch.empty((blocks, m, 3), dtype=f32, device=dev)
+    if scalars_grad:
+        sums = torch.empty(2, dtype=f32, device=dev)
+        sums_partials = torch.empty((blocks, 2), dtype=torch.float64, device=dev)
+    qd_floor = float(1e-6 * r.clamp_min(1e-6))
+    centers = centers.detach().to(f32).contiguous()
+    g = g.detach().to(f32).contiguous()
+    with torch.cuda.device(dev):
+        MAP_CAPTURE_BACKWARD_KERNEL.launch(
+            *(t.data_ptr() for t in _planes(segs)), b, n, centers.data_ptr(), m, float(r),
+            float(scale), float(light_speed_mps), float(sample_rate_hz), nbins, int(soft), qd_floor,
+            g.data_ptr(), *(t.data_ptr() for t in outs),
+            *(None if t is None else t.data_ptr() for t in (gc_partials, g_c, sums_partials, sums)),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if not scalars_grad:
+        return (*outs, g_c, None, None)
+    return (*outs, g_c, sums[0], sums[1] * r)
+
+
+class _MapIRs(torch.autograd.Function):
+    """(R, nbins) IRs of R receivers from the segments, hard or soft, with
+    the gradient of the plain map engine in origin, direction, amplitude,
+    distance, the centers, the scale and the radius (0-dim tensors; t_env
+    and alive enter comparisons only). The forward keeps the segments and
+    the centers; never an (R, B, N) tensor."""
+
+    @staticmethod
+    def forward(ctx, origin, direction, t_env, amplitude, distance, alive, centers, scale, radius,
+                kw):
+        segs = EnvSegments(origin, direction, t_env, amplitude, distance, alive)
+        rows = map_capture(segs, centers, kw["radius"], kw["scale"])
+        irs = cir.histogram_rows(*rows, nbins=kw["nbins"], light_speed_mps=kw["light_speed_mps"],
+                                 sample_rate_hz=kw["sample_rate_hz"], soft=kw["soft"])
+        ctx.save_for_backward(origin, direction, t_env, amplitude, distance, alive, centers)
+        ctx.kw = kw
+        ctx.scalars = scale, radius
+        return irs
+
+    @staticmethod
+    def backward(ctx, g):
+        *planes, centers = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        if not any(need[k] for k in (0, 1, 3, 4, 6, 7, 8)):
+            return (None,) * 10
+        kw = dict(ctx.kw)
+        radius = kw.pop("radius")
+        g_o, g_d, g_a, g_dist, g_c, g_scale, g_radius = map_capture_backward(
+            EnvSegments(*planes), centers, radius, g, centers_grad=need[6],
+            scalars_grad=need[7] or need[8], **kw)
+        scale, radius = ctx.scalars
+        return (g_o if need[0] else None, g_d if need[1] else None, None,
+                g_a if need[3] else None, g_dist if need[4] else None, None, g_c,
+                g_scale.to(scale.device) if need[7] else None,
+                g_radius.to(radius.device) if need[8] else None, None)
+
+
+def map_irs(segs: EnvSegments, rx_centers, rx_radius, *, scale, nbins: int,
+            light_speed_mps: float, sample_rate_hz: float, soft: bool = False) -> torch.Tensor:
+    """(R, nbins) impulse responses of R receiver spheres of one radius from
+    the env segments `segs` (amplitude unscaled; `scale` = tx_power /
+    num_rays as an f32 value, rfx_torch.coverage._amp_scale), hard or soft
+    binning: the map engine's chunk, differentiable in the segments' origin,
+    direction, amplitude and distance, in the centers, and in `scale` and
+    `rx_radius` where they are tensors (0-dim; on the host, they cost the
+    card no wait). A CPU tensor runs the plain versions, a CUDA tensor the
+    kernels."""
+    _check_segments(segs)
+    if nbins < 1:
+        raise ValueError("nbins must be at least 1")
+    dev = segs.t_env.device
+    centers = torch.as_tensor(rx_centers, dtype=torch.float32, device=dev).reshape(-1, 3)
+    scale = torch.as_tensor(scale, dtype=torch.float32).reshape(())
+    radius = torch.as_tensor(rx_radius, dtype=torch.float32).reshape(())
+    kw = dict(scale=float(scale.detach()), radius=float(radius.detach()), nbins=int(nbins),
+              light_speed_mps=float(light_speed_mps), sample_rate_hz=float(sample_rate_hz),
+              soft=bool(soft))
+    return _MapIRs.apply(*segs, centers, scale, radius, kw)

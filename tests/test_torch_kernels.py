@@ -16,7 +16,8 @@ import torch
 from rfx_torch import cir, coverage
 from rfx_torch.api import Tracer
 from rfx_torch.geometry import make_room, make_terrain
-from rfx_torch.ops import bvh_trace, bvh_traverse, coverage_hist, fused, intersect, micro_vote
+from rfx_torch.ops import (bvh_trace, bvh_traverse, coverage_hist, fused, intersect, map_capture,
+                           micro_vote)
 from rfx_torch.sampler import morton_sphere_directions
 from rfx_torch.tracer import EnvSegments, Scene, trace_env, trace_to_rx
 
@@ -1122,3 +1123,199 @@ def test_two_rank_sharded_paths_on_card(cuda, tmp_path):
     got = np.concatenate([ranks[0]["coverage_tile"], ranks[1]["coverage_tile"]])
     assert np.array_equal(got != 0, want != 0)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-12)
+
+
+MAP_KW = dict(nbins=10_000, light_speed_mps=2.998e8, sample_rate_hz=100e9)
+MAP_SCALE = 1.0 / 1024  # tx_power / num_rays, exact in f32
+
+
+def _map_launches():
+    return (map_capture.MAP_CAPTURE_KERNEL.launches,
+            map_capture.MAP_CAPTURE_BACKWARD_KERNEL.launches, cir.HISTOGRAM_KERNEL.launches)
+
+
+def _assert_map_backward(segs, centers, radius, soft, seed=5):
+    """The backward kernel against its plain version for a seeded cotangent:
+    every output, the scale's and radius's sums too, within rtol 1e-5 (an
+    absolute floor of 1e-6 of the largest entry, for the centers' sums,
+    which add in another order), the same bits from run to run; returns the
+    kernel's outputs."""
+    g = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(centers.shape[0], MAP_KW["nbins"])).astype(np.float32)).to(centers.device)
+    kw = dict(scale=MAP_SCALE, soft=soft, **MAP_KW)
+    before = map_capture.MAP_CAPTURE_BACKWARD_KERNEL.launches
+    k1 = map_capture.map_capture_backward(segs, centers, radius, g, **kw)
+    k2 = map_capture.map_capture_backward(segs, centers, radius, g, **kw)
+    assert map_capture.MAP_CAPTURE_BACKWARD_KERNEL.launches == before + 2
+    p = map_capture.map_capture_backward_plain(segs, centers, radius, g, **kw)
+    torch.cuda.synchronize()
+    names = ("origin", "direction", "amplitude", "distance", "centers", "scale", "radius")
+    assert len(k1) == len(k2) == len(p) == len(names)
+    for name, a, b, c in zip(names, k1, k2, p):
+        assert torch.equal(a, b), name
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-6 * float(c.abs().max()), msg=name)
+    assert float(k1[2].abs().max()) > 0 and (float(k1[0].abs().max()) > 0) == soft
+    assert float(k1[5]) != 0.0 and (float(k1[6]) != 0.0) == soft
+    return k1, g
+
+
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+def test_map_capture_kernel_matches_plain(cuda, soft):
+    """K-S on the room's segments: 100,003 rays (ragged against a block), 3
+    bounces, 71 receivers (three tiles, the last short, and one outside the
+    room), a 100 ns window that drops the longer paths. The capture rows are
+    map_capture_plain's bit for bit; map_irs is one launch of K-S and one of
+    K-H, and its IRs are the plain map engine's bits; the backward kernel
+    against its plain version, and through map_irs's autograd (the scale and
+    the radius host tensors that require grad) the same bits as its direct
+    call."""
+    segs = _room_segments(cuda, 100_003)
+    centers = torch.from_numpy(_room_receivers(71)).to(cuda)
+    rows = map_capture.map_capture(segs, centers, 0.7, MAP_SCALE)
+    plain = map_capture.map_capture_plain(segs, centers, 0.7, MAP_SCALE)
+    torch.cuda.synchronize()
+    for a, b in zip(rows, plain):
+        assert torch.equal(a, b)
+    assert int(rows[2].sum()) > 10_000 and not bool(rows[2][-1].any())
+    before = _map_launches()
+    irs = map_capture.map_irs(segs, centers, 0.7, scale=MAP_SCALE, soft=soft, **MAP_KW)
+    assert [a - b for a, b in zip(_map_launches(), before)] == [1, 0, 1]
+    want = cir.histogram_rows(*plain, soft=soft, **MAP_KW)
+    torch.cuda.synchronize()
+    assert torch.equal(irs, want) and int((irs != 0).any(dim=1).sum()) > 40
+    want, g = _assert_map_backward(segs, centers, 0.7, soft)
+    leaves = [t.clone().requires_grad_() for t in (segs.origin, segs.direction, segs.amplitude,
+                                                    segs.distance, centers)] + [
+        torch.tensor(v, requires_grad=True) for v in (MAP_SCALE, 0.7)]
+    s = segs._replace(origin=leaves[0], direction=leaves[1], amplitude=leaves[2],
+                      distance=leaves[3])
+    out = map_capture.map_irs(s, leaves[4], leaves[6], scale=leaves[5], soft=soft, **MAP_KW)
+    before = _map_launches()
+    got = torch.autograd.grad(out, leaves, g)
+    assert [a - b for a, b in zip(_map_launches(), before)] == [0, 1, 0]
+    torch.cuda.synchronize()
+    assert got[5].device.type == got[6].device.type == "cpu"
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+def test_map_capture_kernel_many_receivers_and_bounces(cuda):
+    """Ten bounces, 20,011 rays and 600 receivers (two stages of the
+    backward's staged centers, the last tile short), soft binning: the rows
+    bit for bit, the backward against its plain version; a receiver alone
+    is the same bits as in the batch."""
+    segs = _room_segments(cuda, 20_011, max_bounces=10)
+    centers = torch.from_numpy(_room_receivers(600)).to(cuda)
+    rows = map_capture.map_capture(segs, centers, 0.7, MAP_SCALE)
+    plain = map_capture.map_capture_plain(segs, centers, 0.7, MAP_SCALE)
+    torch.cuda.synchronize()
+    for a, b in zip(rows, plain):
+        assert torch.equal(a, b)
+    assert int(rows[2].reshape(600, 10, -1)[:, 5:].sum()) > 0  # late bounces capture too
+    _assert_map_backward(segs, centers, 0.7, True, seed=9)
+    irs = map_capture.map_irs(segs, centers, 0.7, scale=MAP_SCALE, soft=True, **MAP_KW)
+    for k in (0, 31, 32, 599):
+        one = map_capture.map_irs(segs, centers[k:k + 1], 0.7, scale=MAP_SCALE, soft=True,
+                                  **MAP_KW)
+        assert torch.equal(one[0], irs[k]), k
+
+
+def test_map_capture_kernel_grazing_and_first_capture(cuda):
+    """Hand-made segments: 32 rays along +x at y = 1 that graze the unit
+    sphere at the origin (|q.d| under the clamp 1e-6 r where they hit), 64
+    rays through both spheres on bounce 0 and back through both on bounce 1
+    (only the first capture of each receiver counts), a fifth blocked by the
+    environment first and a tenth dead: rows and backward against the plain
+    version; the grazing rays take the clamped gradient."""
+    g = np.random.default_rng(17)
+    xs = (-3.4526698e-4 + np.arange(-3000, 3000) * 2.9e-11).astype(np.float32)
+    o = torch.from_numpy(np.stack([xs, np.ones_like(xs), np.zeros_like(xs)], 1))
+    d = torch.tensor([[1.0, 0.0, 0.0]]).expand_as(o)
+    t = intersect.sphere_t(o, d, torch.zeros(3), torch.tensor(1.0))
+    qd = intersect.dot3(o + torch.where(t < 1e29, t, 0.0)[:, None] * d, d)
+    graze = o[(t < 1e29) & (qd.abs() < 1e-6)][:32]
+    assert graze.shape[0] == 32
+    yz = torch.from_numpy(g.uniform(-1.2, 1.2, (64, 2)).astype(np.float32))
+    through = torch.cat([torch.full((64, 1), -5.0), yz], 1)
+    back = torch.cat([torch.full((64, 1), 8.0), yz.flip(0)], 1)
+    origin = torch.stack([torch.cat([through, graze]), torch.cat([back, graze])])
+    direction = torch.zeros_like(origin)
+    direction[0, :, 0], direction[1, :, 0] = 1.0, -1.0
+    n = origin.shape[1]
+    t_env = torch.from_numpy(np.where(g.random((2, n)) < 0.2, g.uniform(0.5, 3.0, (2, n)),
+                                      1e30).astype(np.float32))
+    alive = torch.from_numpy(g.random((2, n)) > 0.1)
+    t_env[:, 64:], alive[:, 64:] = 1e30, True
+    amp = torch.from_numpy(g.uniform(0.1, 1.0, (2, n)).astype(np.float32))
+    dist = torch.from_numpy(g.uniform(0.0, 12.0, (2, n)).astype(np.float32))
+    segs = EnvSegments(*(x.contiguous().to(cuda) for x in (origin, direction, t_env, amp, dist,
+                                                           alive)))
+    centers = torch.tensor([[0.0, 0.0, 0.0], [3.0, 0.0, 0.0]], device=cuda)
+    rows = map_capture.map_capture(segs, centers, 1.0, MAP_SCALE)
+    plain = map_capture.map_capture_plain(segs, centers, 1.0, MAP_SCALE)
+    torch.cuda.synchronize()
+    for a, b in zip(rows, plain):
+        assert torch.equal(a, b)
+    cap = rows[2].reshape(2, 2, n)
+    assert bool(cap[0, 0, 64:].all()) and int(cap[:, 1, :64].sum()) > 0  # grazed; bounce 1 won
+    assert not bool((cap[:, 0] & cap[:, 1]).any())  # one capture a ray and receiver
+    (g_o, *_), _ = _assert_map_backward(segs, centers, 1.0, True, seed=13)
+    assert float(g_o[0, 64:].abs().max()) > 1e3 * float(g_o[0, :64].abs().max())
+
+
+def test_map_engine_on_card_takes_the_capture_kernels(cuda, monkeypatch):
+    """coverage_irs(engine='map', soft=True) on the card: one launch of K-S
+    and K-H per receiver batch, one of the backward kernel per batch in the
+    backward, never the plain first-capture composition, also where
+    tx_power requires grad; the IRs and the tx gradient are the same bits
+    either way, and the tx_power gradient is within rtol 1e-5 of the plain
+    backward's on the same segments."""
+    n = 65_536
+    dirs = morton_sphere_directions(n, generator=torch.Generator(cuda).manual_seed(8), device=cuda)
+    centers = _room_receivers(41)
+    kw = dict(max_bounces=2, nbins=10_000, num_rays=n, light_speed_mps=2.998e8,
+              sample_rate_hz=100e9, soft=True, engine="map", rx_batch=16)
+    scene = Scene.from_mesh(make_room(), cuda)
+    w = torch.from_numpy(np.random.default_rng(4).normal(size=(41, 10_000)).astype(np.float32)).to(cuda)
+    calls = []
+    first_capture = coverage._first_capture
+    monkeypatch.setattr(coverage, "_first_capture",
+                        lambda *a, **k: calls.append(1) or first_capture(*a, **k))
+
+    def run(tx_power):
+        tx = torch.tensor([3.0, 2.0, 2.0], device=cuda, requires_grad=True)
+        irs = coverage.coverage_irs(scene, tx, dirs, centers, 0.8, tx_power=tx_power, **kw)
+        grads = torch.autograd.grad((irs * w).sum(), [tx] + (
+            [tx_power] if isinstance(tx_power, torch.Tensor) else []))
+        return irs.detach(), grads
+
+    before = _map_launches()
+    irs, (g_tx,) = run(1.0)
+    assert [a - b for a, b in zip(_map_launches(), before)] == [3, 3, 3]
+    before = _map_launches()
+    irs_p, (g_p, g_power) = run(torch.tensor(1.0, device=cuda, requires_grad=True))
+    assert [a - b for a, b in zip(_map_launches(), before)] == [3, 3, 3] and calls == []
+    torch.cuda.synchronize()
+    assert int((irs != 0).any(dim=1).sum()) > 30 and float(g_tx.abs().max()) > 0
+    assert torch.equal(irs, irs_p) and torch.equal(g_tx, g_p)
+    with torch.no_grad():
+        segs = trace_env(scene, [3.0, 2.0, 2.0], dirs, max_bounces=2)
+    centers = torch.from_numpy(centers).to(cuda)
+    g_scale = sum(map_capture.map_capture_backward_plain(
+        segs, centers[k:k + 16], 0.8, w[k:k + 16], scale=1.0 / n, soft=True,
+        **MAP_KW)[5].cpu() for k in range(0, 41, 16))
+    assert g_power.device.type == "cuda" and float(g_power) != 0.0
+    torch.testing.assert_close(g_power.cpu(), g_scale / n, rtol=1e-5, atol=0)
+
+
+def test_capture_rule_shared_with_the_coverage_kernel(cuda):
+    """K3 and K-S take their capture rule from one header (sphere.cuh): on
+    the room's segments K3's hard IRs have exactly K-S's nonzero bins, and
+    agree within rtol 1e-5 (their sums run in other orders)."""
+    segs = _room_segments(cuda, 100_003)
+    centers = _room_receivers(71)
+    k3 = coverage_hist.coverage_hist(segs, centers, 0.7, **MAP_KW)
+    ks = map_capture.map_irs(segs, centers, 0.7, scale=1.0, soft=False, **MAP_KW)
+    torch.cuda.synchronize()
+    assert torch.equal(k3 != 0, ks != 0) and int((ks != 0).sum()) > 1000
+    torch.testing.assert_close(k3, ks, rtol=1e-5, atol=1e-12)
