@@ -247,6 +247,7 @@ K_COUNTED = "rfx_fused_trace_counted"
 K_HIT = "rfx_closest_hit"
 K_HIT_COUNTED = "rfx_closest_hit_counted"
 K_HIST = "rfx_ir_histogram"
+K_HIST_RECORD = "rfx_ir_histogram_record"
 K_COV = "rfx_coverage_hist"
 K_REDUCE = "rfx_coverage_hist_reduce"
 K_VOTE = "rfx_micro_vote"
@@ -418,7 +419,7 @@ def _counted_bound(fused_bound: dict) -> dict:
 
 
 def port_kernels() -> tuple:
-    """The port's sixteen C entry points that launch kernels (rfx_torch/csrc/), each with
+    """The port's seventeen C entry points that launch kernels (rfx_torch/csrc/), each with
     its launch count."""
     from rfx_torch import cir
     from rfx_torch.ops.bvh_trace import CLOSEST_HIT_COUNTED_KERNEL, CLOSEST_HIT_KERNEL
@@ -438,7 +439,8 @@ def port_kernels() -> tuple:
             MICRO_VOTE_KERNEL, cir.RX_POWER_KERNEL, MAP_CAPTURE_KERNEL,
             FUSED_TRACE_COUNTED_KERNEL, CLOSEST_HIT_COUNTED_KERNEL, COVERAGE_REDUCE_KERNEL,
             COVERAGE_PHASOR_KERNEL, COVERAGE_SPREAD_KERNEL, PHASOR_TABLE_KERNEL,
-            cir.RX_POWER_BACKWARD_KERNEL, PHASOR_BACKWARD_KERNEL, MAP_CAPTURE_BACKWARD_KERNEL)
+            cir.RX_POWER_BACKWARD_KERNEL, PHASOR_BACKWARD_KERNEL, MAP_CAPTURE_BACKWARD_KERNEL,
+            cir.HISTOGRAM_RECORD_KERNEL)
 
 
 def rx_power_taps(irs, lo=None) -> int:
@@ -1130,9 +1132,10 @@ def _solver_step_vs_plain(dev):
 
 
 def _batched_histogram_check(scene, dirs, centers, env, dev):
-    """The histogram kernel at the inverse solve's shapes, on the planes the
-    map engine hands it (1,048,576 rays x 4 bounces flattened: 4,194,304
-    entries a row, one row a receiver): all 64 rows in one launch and the
+    """The histogram kernel's dense entry at the inverse solve's shapes, on
+    the plain map engine's dense rows (1,048,576 rays x 4 bounces
+    flattened: 4,194,304 entries a row, one row a receiver; the map engine
+    itself bins its first-capture record): all 64 rows in one launch and the
     best-lit row alone, hard and soft, against the plain version (the same
     nonzero bins, rtol 1e-5 / atol 1e-12), bit-identical from run to run, a
     row alone == the row in the batch, and a row of at most 2,048 captures
@@ -1218,16 +1221,20 @@ def _batched_histogram_check(scene, dirs, centers, env, dev):
     return out
 
 
-def _map_capture_check(scene, dirs, centers, env, dev):
-    """The map engine's capture kernel (K-S) and its backward at the inverse
-    solve's shape, on the segments of tx (1,048,576 rays x 4 bounces, 64
-    receivers of radius 1.0, soft binning into 20,000 bins): the capture
-    rows == map_capture_plain's bit for bit and the same in two runs;
-    map_irs's IRs == the plain rows through K-H (the plain map engine) bit
-    for bit; the backward for a seeded (64, 20,000) cotangent (numpy seed
-    3), the centers' gradient included, within rtol 1e-5 of its plain
-    version (an absolute floor of 1e-6 of the largest entry) and the same
-    bits in two runs. Returns the times beside the bounds."""
+def _map_capture_check(scene, dirs, centers, env, dev, card):
+    """The map engine's capture pass at the inverse solve's shape, on the
+    segments of tx (1,048,576 rays x 4 bounces, 64 receivers of radius 1.0,
+    20,000 bins): K-S's first-capture record == map_record_plain's byte for
+    byte and the same in two runs; the histogram's record entry, hard and
+    soft, == the plain map engine's IRs (map_capture_plain's rows through
+    the dense entry) bit for bit, the same in two runs, and within rtol 1e-5
+    of its plain version (histogram_record_plain, on the same nonzero bins);
+    map_irs's IRs == those bits; the backward given the record, for a seeded
+    (64, 20,000) cotangent (numpy seed 3), soft: the segments' gradients ==
+    map_capture_backward_plain's bit for bit, the centers', the scale's and
+    the radius's within rtol 1e-5 (an absolute floor of 1e-6 of the largest
+    entry), every output the same bits in two runs. Returns the times
+    beside the bounds."""
     import numpy as np
     import torch
 
@@ -1241,26 +1248,39 @@ def _map_capture_check(scene, dirs, centers, env, dev):
     scale = float(_amp_scale(1.0, SOLVER_RAYS, torch.device("cpu")))
     hkw = dict(nbins=NBINS, light_speed_mps=C, sample_rate_hz=RATE)
     m = centers.shape[0]
-    rows = mc.map_capture(segs, centers, 1.0, scale)
-    again = mc.map_capture(segs, centers, 1.0, scale)
-    plain = mc.map_capture_plain(segs, centers, 1.0, scale)
+    record = mc.map_record(segs, centers, 1.0)
+    again = mc.map_record(segs, centers, 1.0)
+    plain = mc.map_record_plain(segs, centers, 1.0)
     _sync()
-    for name, a, b, p in zip(("amplitude", "distance", "mask"), rows, again, plain):
-        _require(torch.equal(a, b), f"map capture: two runs differ ({name})")
-        _require(torch.equal(a, p), f"map capture: rows differ from the plain version's ({name})")
-    captured = int(rows[2].sum())
-    err = max(float((a - b).abs().max()) for a, b in zip(rows[:2], plain[:2]))
-    del rows, again
-    irs = mc.map_irs(segs, centers, 1.0, scale=scale, soft=True, **hkw)
-    irs_plain = cir.histogram_rows(*plain, soft=True, **hkw)
-    del plain
-    _sync()
-    _require(torch.equal(irs, irs_plain) and float(irs.sum()) > 0,
-             "map capture: the IRs differ from the plain map engine's")
+    _require(torch.equal(record, again), "map capture: two runs differ (record)")
+    _require(torch.equal(record, plain), "map capture: the record differs from the plain version's")
+    captured = int((record != mc.NO_CAPTURE).sum())
+    record_err = int((record.int() - plain.int()).abs().max())
+    del again, plain
+    rows = mc.map_capture_plain(segs, centers, 1.0, scale)
+    per_row = rows[2].sum(dim=1)
+    kh = {"captured_max_row": int(per_row.max()), "max_abs_err": 0.0}
+    for soft in (False, True):
+        tag = "soft" if soft else "hard"
+        k1 = cir.histogram_record(record, segs, centers, 1.0, scale, soft=soft, **hkw)
+        k2 = cir.histogram_record(record, segs, centers, 1.0, scale, soft=soft, **hkw)
+        irs = mc.map_irs(segs, centers, 1.0, scale=scale, soft=soft, **hkw)
+        want = cir.histogram_rows(*rows, soft=soft, **hkw)
+        p = mc.histogram_record_plain(record, segs, centers, 1.0, scale, soft=soft, **hkw)
+        _sync()
+        what = f"histogram record entry, {tag}"
+        _require(torch.equal(k1, k2), f"{what}: two runs differ")
+        _require(torch.equal(k1, want) and float(k1.sum()) > 0,
+                 f"{what}: the IRs differ from the plain map engine's")
+        _require(torch.equal(irs, want), f"map_irs, {tag}: the IRs differ from the plain map engine's")
+        _require(torch.equal(k1 != 0, p != 0) and torch.allclose(k1, p, rtol=1e-5, atol=1e-12),
+                 f"{what}: kernel != plain")
+        kh["max_abs_err"] = max(kh["max_abs_err"], float((k1 - p).abs().max()))
+    del rows, k1, k2, irs, want, p
     g = torch.from_numpy(np.random.default_rng(3).normal(size=(m, NBINS)).astype(np.float32)).to(dev)
     bkw = dict(scale=scale, soft=True, **hkw)
-    k1 = mc.map_capture_backward(segs, centers, 1.0, g, **bkw)
-    k2 = mc.map_capture_backward(segs, centers, 1.0, g, **bkw)
+    k1 = mc.map_capture_backward(segs, centers, 1.0, g, record, **bkw)
+    k2 = mc.map_capture_backward(segs, centers, 1.0, g, record, **bkw)
     p = mc.map_capture_backward_plain(segs, centers, 1.0, g, **bkw)
     _sync()
     errs = {}
@@ -1268,43 +1288,87 @@ def _map_capture_check(scene, dirs, centers, env, dev):
     _require(len(k1) == len(p) == len(names), "map capture backward: outputs missing")
     for name, a, b, c in zip(names, k1, k2, p):
         _require(torch.equal(a, b), f"map capture backward: two runs differ ({name})")
+        _require(name not in names[:4] or torch.equal(a, c),
+                 f"map capture backward: the segments' gradient differs from the plain version's "
+                 f"bits ({name})")
         _require(torch.allclose(a, c, rtol=1e-5, atol=1e-6 * float(c.abs().max())),
                  f"map capture backward != its plain version ({name})")
         errs[name] = float((a - c).abs().max())
     del k1, k2, p
     live = int(segs.alive.sum())
     n_seg = segs.t_env.numel()
-    # Each live segment is tested against each receiver (17 f32 operations,
-    # as K3's); the segments (37 bytes each) and the centers are read once.
-    # The forward writes 9 bytes a receiver and segment; the backward reads
-    # the cotangent and writes 32 bytes a segment. The function K-S serves,
-    # segments to IRs (K-S with K-H), writes the IRs once instead.
+    n = segs.t_env.shape[1]
+    # K-S tests each live segment against each receiver (17 f32 operations,
+    # as K3's), reads the segments' geometry, t_env and life (29 bytes each)
+    # and the centers once, and writes the (64, N) record. The record entry
+    # reads the record, and at each capture 32 bytes of its segment (amp,
+    # dist, origin, direction), recomputes t_rx (17 operations) and bins it
+    # (4 a plane), and writes the IRs. The function the pair serves,
+    # segments to IRs, reads the segments once (37 bytes each) and writes the
+    # IRs once. The backward reads the record, the cotangent and 32 bytes of
+    # each captured segment, and writes 32 bytes a segment.
     tests = 17 * m * live
+    rec_bytes = m * n
+    ir_bytes = 4 * m * NBINS
+    hist_bound = {tag: _bound(rec_bytes + 32 * captured + 12 * m + planes * ir_bytes,
+                              (17 + 4 * planes) * captured)
+                  for tag, planes in (("hard", 1), ("soft", 2))}
+
+    def hist(soft):
+        return lambda: cir.histogram_record(record, segs, centers, 1.0, scale, soft=soft, **hkw)
+
+    for soft, tag in ((False, "hard"), (True, "soft")):
+        kh[f"{tag}_ms"] = _cuda_ms(hist(soft), 10)
+        kh[f"{tag}_device_ms"] = device_ms(hist(soft), 10)
+        kh[f"{tag}_plain_ms"] = _cuda_ms(lambda: mc.histogram_record_plain(
+            record, segs, centers, 1.0, scale, soft=soft, **hkw), 2)
+        kh[f"bound_{tag}"] = hist_bound[tag]
+
+    def backward(full):
+        return lambda: mc.map_capture_backward(segs, centers, 1.0, g, record, centers_grad=full,
+                                               scalars_grad=full, **bkw)
+
     out = {"receivers": m, "segments": n_seg, "live_segments": live, "captured": captured,
-           "max_abs_err": err, "backward_max_abs_err": errs,
-           "ms": _cuda_ms(lambda: mc.map_capture(segs, centers, 1.0, scale), 10),
+           "max_abs_err": record_err, "backward_max_abs_err": errs, "histogram": kh,
+           "ms": _cuda_ms(lambda: mc.map_record(segs, centers, 1.0), 10),
+           "device_ms": device_ms(lambda: mc.map_record(segs, centers, 1.0), 10),
            "irs_ms": _cuda_ms(lambda: mc.map_irs(segs, centers, 1.0, scale=scale, soft=True, **hkw), 10),
-           "plain_ms": _cuda_ms(lambda: mc.map_capture_plain(segs, centers, 1.0, scale), 2),
-           "backward_ms": _cuda_ms(lambda: mc.map_capture_backward(
-               segs, centers, 1.0, g, centers_grad=False, scalars_grad=False, **bkw), 10),
-           "backward_centers_ms": _cuda_ms(lambda: mc.map_capture_backward(
-               segs, centers, 1.0, g, **bkw), 3),
+           "irs_ms_hard": _cuda_ms(lambda: mc.map_irs(segs, centers, 1.0, scale=scale, soft=False,
+                                                      **hkw), 10),
+           "irs_device_ms": device_ms(lambda: mc.map_irs(segs, centers, 1.0, scale=scale, soft=True,
+                                                         **hkw), 10),
+           "plain_ms": _cuda_ms(lambda: mc.map_record_plain(segs, centers, 1.0), 2),
+           "backward_ms": _cuda_ms(backward(False), 10),
+           "backward_centers_ms": _cuda_ms(backward(True), 10),
+           "backward_device_ms": device_ms(backward(False), 10),
+           "backward_centers_device_ms": device_ms(backward(True), 10),
            "backward_plain_ms": _cuda_ms(lambda: mc.map_capture_backward_plain(
                segs, centers, 1.0, g, centers_grad=False, scalars_grad=False, **bkw), 1),
-           "bound": _bound(37 * n_seg + 12 * m + 9 * m * n_seg, tests),
-           "function_bound": _bound(37 * n_seg + 12 * m + 4 * m * NBINS, tests),
-           "backward_bound": _bound(37 * n_seg + 12 * m + 4 * m * NBINS + 32 * n_seg, tests)}
+           "bound": _bound(29 * n_seg + 12 * m + rec_bytes, tests),
+           "function_bound": _bound(37 * n_seg + 12 * m + ir_bytes, tests),
+           "backward_bound": _bound(rec_bytes + ir_bytes + 32 * captured + 12 * m + 32 * n_seg,
+                                    60 * captured)}
     print(f"# map capture (K-S), {m} receivers x {BOUNCES} x {SOLVER_RAYS} segments ({live} live, "
-          f"{captured} captured): rows == plain bit for bit, IRs == the plain map engine's bit for "
-          f"bit, two runs the same; kernel {out['ms']:.4f} ms ({out['irs_ms']:.4f} ms with K-H), "
-          f"plain {out['plain_ms']:.3f} ms, bound {out['bound']['bound_ms']:.4f} ms by "
-          f"{out['bound']['bound_by']} (segments to IRs, K-S with K-H: bound "
+          f"{captured} captured, at most {kh['captured_max_row']} in a row): the record == plain "
+          f"byte for byte, two runs the same; the histogram's record entry == the plain map "
+          f"engine's IRs bit for bit, hard and soft, two runs the same (max |d| against its plain "
+          f"version {kh['max_abs_err']:.3e}); K-S {out['ms']:.4f} ms a call, "
+          f"{out['device_ms']:.4f} ms on the device (bound "
+          f"{out['bound']['bound_ms']:.4f} ms by {out['bound']['bound_by']}; plain "
+          f"{out['plain_ms']:.3f} ms); record entry hard / soft {kh['hard_ms']:.4f} / "
+          f"{kh['soft_ms']:.4f} ms a call, {kh['hard_device_ms']:.4f} / {kh['soft_device_ms']:.4f} ms "
+          f"on the device (bound {hist_bound['hard']['bound_ms']:.4f} / "
+          f"{hist_bound['soft']['bound_ms']:.4f} ms; plain {kh['hard_plain_ms']:.3f} / "
+          f"{kh['soft_plain_ms']:.3f} ms); map_irs (K-S with the record entry) soft "
+          f"{out['irs_ms']:.4f} ms ({out['irs_device_ms']:.4f} on the device), hard "
+          f"{out['irs_ms_hard']:.4f} ms (segments to IRs: bound "
           f"{out['function_bound']['bound_ms']:.4f} ms by {out['function_bound']['bound_by']}); "
-          f"backward == plain (max |d| {errs}), two runs the same; "
-          f"kernel {out['backward_ms']:.4f} ms ({out['backward_centers_ms']:.4f} ms with the "
+          f"backward == plain (segments bit for bit; max |d| {errs}), two runs the same; "
+          f"{out['backward_ms']:.4f} ms a call, {out['backward_device_ms']:.4f} ms on the device "
+          f"({out['backward_centers_ms']:.4f} / {out['backward_centers_device_ms']:.4f} ms with the "
           f"centers', scale's and radius's gradients), plain {out['backward_plain_ms']:.3f} ms, bound "
-          f"{out['backward_bound']['bound_ms']:.4f} ms by {out['backward_bound']['bound_by']}",
-          flush=True)
+          f"{out['backward_bound']['bound_ms']:.4f} ms by {out['backward_bound']['bound_by']}; "
+          f"{card}", flush=True)
     return out
 
 
@@ -1325,7 +1389,7 @@ def _solver_phase(mesh, bvh, dev, kernels, card):
     kw = dict(max_bounces=BOUNCES, nbins=NBINS, light_speed_mps=C, sample_rate_hz=RATE)
     kh_batch = _batched_histogram_check(scene, dirs, centers, env, dev)
     torch.cuda.empty_cache()
-    ks = _map_capture_check(scene, dirs, centers, env, dev)
+    ks = _map_capture_check(scene, dirs, centers, env, dev, card)
     torch.cuda.empty_cache()
     init_fn, step_fn = make_inverse_solver(scene, dirs, centers, 1.0, target, learning_rate=0.05,
                                            env_hit=env, **kw)
@@ -1344,15 +1408,18 @@ def _solver_phase(mesh, bvh, dev, kernels, card):
             step_ms.append((time.perf_counter() - h0) * 1e3)
 
     (_, plain_calls), launches = _counted(kernels, "inverse solve",
-                                          (K_HIT, K_HIST, K_MAP, K_MAP_BACKWARD),
+                                          (K_HIT, K_HIST_RECORD, K_MAP, K_MAP_BACKWARD),
                                           lambda: _plain_capture_calls(steps))
     peak = torch.cuda.max_memory_allocated(dev)
-    # One histogram launch for each receiver batch and step (64 receivers,
-    # rx_batch 64): the map engine no longer calls it once per receiver.
-    _require(launches[K_HIST] <= 10, f"inverse solve: {launches[K_HIST]} histogram launches in 5 steps")
-    _require(launches[K_MAP] == 5 and launches[K_MAP_BACKWARD] == 5 and plain_calls == 0,
-             f"inverse solve: {launches[K_MAP]} / {launches[K_MAP_BACKWARD]} map capture launches "
-             f"and {plain_calls} plain first-capture calls in 5 steps")
+    # One launch each of K-S, the histogram's record entry and K-S's
+    # backward for each receiver batch and step (64 receivers, rx_batch 64);
+    # the dense rows and the histogram's dense entry are not on this path.
+    _require(all(launches[k] == 5 for k in (K_MAP, K_HIST_RECORD, K_MAP_BACKWARD))
+             and launches[K_HIST] == 0 and plain_calls == 0,
+             f"inverse solve: {launches[K_MAP]} / {launches[K_HIST_RECORD]} / "
+             f"{launches[K_MAP_BACKWARD]} launches of K-S / the record entry / K-S's backward, "
+             f"{launches[K_HIST]} of the dense histogram and {plain_calls} plain first-capture "
+             f"calls in 5 steps")
     grads = [p.grad.cpu().numpy() for p in leaves]
     _require(all(np.isfinite(losses)), f"solver losses {losses}")
     for name, g in zip(("tx", "log_n1"), grads):
@@ -1777,14 +1844,14 @@ def _coverage_grad_phase(terrain, dev, kernels):
         exact_valgrad()  # warm-up
         ((loss, g_n1, g_tx), plain_calls), launches = _counted(
             kernels, "coverage_exact_grad_room",
-            (K_MAP, K_HIST, K_POWER, K_POWER_BACKWARD, K_MAP_BACKWARD),
+            (K_MAP, K_HIST_RECORD, K_POWER, K_POWER_BACKWARD, K_MAP_BACKWARD),
             lambda: _plain_capture_calls(exact_valgrad))
         out["launches"]["coverage_exact_grad_room"] = launches
         # The histogram's backward is in the map capture's backward: the
-        # histogram launches once, in the forward.
-        _require(all(launches[k] == 1 for k in (K_MAP, K_HIST, K_POWER, K_POWER_BACKWARD,
+        # histogram's record entry launches once, in the forward.
+        _require(all(launches[k] == 1 for k in (K_MAP, K_HIST_RECORD, K_POWER, K_POWER_BACKWARD,
                                                 K_MAP_BACKWARD))
-                 and launches[K_COV] == 0 and plain_calls == 0,
+                 and launches[K_COV] == launches[K_HIST] == 0 and plain_calls == 0,
                  f"exact metric value+grad: launches {launches}, {plain_calls} plain "
                  f"first-capture calls")
         again = exact_valgrad()
@@ -2210,8 +2277,8 @@ def _dist_phase(root, dev, mesh, bvh):
                                     for k in infos[0][case]["launches"]}
                 for case in ("cir", "coverage", "solver")}
     for path, needs in (("sharded_cir", (K_HIT, K_HIST)),
-                        ("sharded_coverage", (K_HIT, K_HIST, K_COV, K_MAP)),
-                        ("sharded_solver", (K_HIT, K_HIST, K_MAP, K_MAP_BACKWARD))):
+                        ("sharded_coverage", (K_HIT, K_HIST_RECORD, K_COV, K_MAP)),
+                        ("sharded_solver", (K_HIT, K_HIST_RECORD, K_MAP, K_MAP_BACKWARD))):
         _require(all(launches[path][k] > 0 for k in needs), f"{path}: a kernel did not run: {launches[path]}")
         print(f"# {path} launches, summed over the ranks: {launches[path]}", flush=True)
     pr = four["per_rank"]
@@ -2304,9 +2371,10 @@ def main() -> int:
     #    sources in this checkout, one compiler each, all started together;
     #    the counted fused trace, the counted closest hit, the slab reduction,
     #    the phasor metric's walk, spread, table and backward, the RX-power
-    #    backward and the map capture's backward bind their entries in the
-    #    libraries of the fused trace, the closest hit, the coverage
-    #    histogram, the RX power and the map capture.
+    #    backward, the map capture's backward and the histogram's record
+    #    entry bind their entries in the libraries of the fused trace, the
+    #    closest hit, the coverage histogram, the RX power, the map capture
+    #    and the IR histogram.
     t0 = time.perf_counter()
     per_source = (FUSED_TRACE_KERNEL, CLOSEST_HIT_KERNEL, cir.HISTOGRAM_KERNEL,
                   COVERAGE_HIST_KERNEL, MICRO_VOTE_KERNEL, cir.RX_POWER_KERNEL, MAP_CAPTURE_KERNEL)
@@ -2314,7 +2382,7 @@ def main() -> int:
                                   COVERAGE_REDUCE_KERNEL, COVERAGE_PHASOR_KERNEL,
                                   COVERAGE_SPREAD_KERNEL, PHASOR_TABLE_KERNEL,
                                   cir.RX_POWER_BACKWARD_KERNEL, PHASOR_BACKWARD_KERNEL,
-                                  MAP_CAPTURE_BACKWARD_KERNEL)
+                                  MAP_CAPTURE_BACKWARD_KERNEL, cir.HISTOGRAM_RECORD_KERNEL)
     with ThreadPoolExecutor(len(per_source) + 1) as pool:
         native = pool.submit(native_lib.load)
         list(pool.map(lambda k: k.load(), per_source))
@@ -2705,33 +2773,59 @@ def main() -> int:
                   f"forward walk's sphere tests"},
         {"name": "map_capture", "route": "cuda", "source": "rfx_torch/csrc/map_capture.cu",
          "replaces": "rfx/coverage.py:56", **counts(K_MAP), "max_abs_err": ks["max_abs_err"],
-         "ms": ks["ms"], "plain_ms": ks["plain_ms"], **ks["bound"], "library_ms": None,
-         "ms_with_histogram": ks["irs_ms"],
+         "ms": ks["ms"], "device_ms": ks["device_ms"], "plain_ms": ks["plain_ms"], **ks["bound"],
+         "library_ms": None,
+         "ms_with_histogram": ks["irs_ms"], "ms_with_histogram_hard": ks["irs_ms_hard"],
+         "device_ms_with_histogram": ks["irs_device_ms"],
          "function_bound_ms": ks["function_bound"]["bound_ms"],
          "function_bound_by": ks["function_bound"]["bound_by"],
          "shape": f"the inverse solve's {ks['receivers']} receivers x {BOUNCES} bounces x "
-                  f"{SOLVER_RAYS} rays (radius 1.0) on the segments of tx: the capture rows "
-                  f"(amp * scale, dist + t_rx, the mask; 9 bytes a receiver and segment) that K-H "
-                  f"bins, bit for bit the plain version's; ms_with_histogram: "
-                  f"map_irs's forward, K-S and K-H (soft); bound_ms: 17 f32 operations per live "
-                  f"segment and receiver, the segments read once and the rows written once; "
-                  f"function_bound_ms: the same operations, the segments read once and the "
-                  f"(64, {NBINS}) IRs written once (segments to IRs, what K-S with K-H computes); "
+                  f"{SOLVER_RAYS} rays (radius 1.0) on the segments of tx: the first-capture "
+                  f"record, ({ks['receivers']}, {SOLVER_RAYS}) uint8, the bounce of each "
+                  f"receiver's first capture along each ray or 0xFF, equal to the plain version's "
+                  f"byte for byte (max_abs_err: the largest byte difference); "
+                  f"ms_with_histogram(_hard): map_irs's forward, K-S and the histogram's record "
+                  f"entry, soft (hard); bound_ms: 17 f32 operations per live segment and "
+                  f"receiver, the segments' geometry, t_env and life read once (29 bytes each) "
+                  f"and the record written once; function_bound_ms: the same operations, the "
+                  f"segments read once (37 bytes each) and the ({ks['receivers']}, {NBINS}) IRs "
+                  f"written once (segments to IRs, what K-S with the record entry computes); "
                   f"rfx/coverage.py:56-81 under the vmap / lax.map of :185-203 (XLA)"},
+        {"name": "ir_histogram_record", "route": "cuda", "source": "rfx_torch/csrc/histogram.cu",
+         "replaces": "rfx/cir.py:32", **counts(K_HIST_RECORD),
+         "max_abs_err": ks["histogram"]["max_abs_err"], "ms": ks["histogram"]["soft_ms"],
+         "device_ms": ks["histogram"]["soft_device_ms"], "plain_ms": ks["histogram"]["soft_plain_ms"],
+         **ks["histogram"]["bound_soft"], "library_ms": None,
+         "ms_hard": ks["histogram"]["hard_ms"], "device_ms_hard": ks["histogram"]["hard_device_ms"],
+         "plain_ms_hard": ks["histogram"]["hard_plain_ms"],
+         **_suffixed(ks["histogram"]["bound_hard"], "_hard"),
+         "shape": f"the IR histogram's record entry at the inverse solve's shape: the "
+                  f"({ks['receivers']}, {SOLVER_RAYS}) first-capture record of K-S on the "
+                  f"segments of tx ({ks['captured']} captures, at most "
+                  f"{ks['histogram']['captured_max_row']} in a row), {NBINS} bins, soft (two "
+                  f"planes; *_hard: hard), one launch; the IRs equal the plain map engine's (its "
+                  f"dense rows through the dense entry) bit for bit; max_abs_err against "
+                  f"histogram_record_plain (index_add_ on the record expanded to rows); bound_ms: "
+                  f"the record read once, 32 bytes of each capture's segment, the centers, the "
+                  f"IRs written once; 21 (25) f32 operations a capture; ms is the CUDA-event time "
+                  f"of back-to-back calls of the wrapper, device_ms the device's own time a call; "
+                  f"no PyTorch call bins the record: library_ms null"},
         {"name": "map_capture_backward", "route": "cuda",
          "source": "rfx_torch/csrc/map_capture.cu", "replaces": "rfx/ops/intersect.py:234",
          **counts(K_MAP_BACKWARD), "max_abs_err": max(ks["backward_max_abs_err"].values()),
-         "ms": ks["backward_ms"], "plain_ms": ks["backward_plain_ms"], **ks["backward_bound"],
+         "ms": ks["backward_ms"], "device_ms": ks["backward_device_ms"],
+         "plain_ms": ks["backward_plain_ms"], **ks["backward_bound"],
          "library_ms": None, "ms_with_centers": ks["backward_centers_ms"],
+         "device_ms_with_centers": ks["backward_centers_device_ms"],
          "max_abs_err_by_output": ks["backward_max_abs_err"],
          "shape": f"jax.grad through rfx/coverage.py:56-81 (the sphere's VJP, "
                   f"rfx/ops/intersect.py:234-248, and the transposes of the capture's where and "
                   f"the histogram's scatter), soft: d / d origin, direction, amplitude, distance "
                   f"of the solver's {ks['receivers']} x {BOUNCES} x {SOLVER_RAYS} segments for a "
-                  f"seeded (64, {NBINS}) cotangent; ms_with_centers: also d / d the centers, "
-                  f"the scale and the radius; "
-                  f"bound_ms: the forward's sphere tests, the segments and the cotangent read "
-                  f"once, 32 bytes a segment written"},
+                  f"seeded ({ks['receivers']}, {NBINS}) cotangent, given K-S's record; "
+                  f"ms_with_centers: also d / d the centers, the scale and the radius; bound_ms: "
+                  f"the record, the cotangent and 32 bytes of each captured segment read once, "
+                  f"32 bytes a segment written, 60 f32 operations a capture"},
         {"name": "micro_vote", "route": "cuda", "source": "rfx_torch/csrc/micro_vote.cu",
          "replaces": "scripts/micro_reduce.py:64", **counts(K_VOTE),
          "max_abs_err": max(abs(v["carry"] - v["plain_carry"])
@@ -2761,9 +2855,10 @@ def main() -> int:
     print(json.dumps({"distribution": dist_out}))
     print(f"# inverse solve at full width: {[round(x, 3) for x in solve['step_ms']]} ms a step, "
           f"peak {solve['peak_bytes'] / 2**30:.3f} GiB; map capture {ks['ms']:.4f} ms (bound "
-          f"{ks['bound']['bound_ms']:.4f}; segments to IRs "
-          f"{ks['function_bound']['bound_ms']:.4f}), its backward {ks['backward_ms']:.4f} ms (bound "
-          f"{ks['backward_bound']['bound_ms']:.4f}); on {card}")
+          f"{ks['bound']['bound_ms']:.4f}), with the record entry {ks['irs_ms']:.4f} ms (segments "
+          f"to IRs {ks['function_bound']['bound_ms']:.4f}), its backward {ks['backward_ms']:.4f} / "
+          f"{ks['backward_centers_ms']:.4f} ms (bound {ks['backward_bound']['bound_ms']:.4f}); on "
+          f"{card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,14 +6,15 @@ host modules (`geometry.py`, `bvh.py`, `config.py`, `viz/`, `utils/`), and an
 `rfx` mesh or BVH crosses by field through `convert.py`.
 
 Every public entry point takes `device=` (default `"cuda"`). On a CUDA tensor
-the hand-written kernels run, seventeen C entry points in seven sources of
-rfx_torch/csrc/, built with nvcc at first use (`ops/_build.py`): sixteen
-launch kernels, and `rfx_map_capture_backward_blocks` gives the map capture
-backward's block count, which sizes its scratch. The sources:
+the hand-written kernels run, eighteen C entry points in seven sources of
+rfx_torch/csrc/, built with nvcc at first use (`ops/_build.py`): seventeen
+launch kernels, and `rfx_map_capture_backward_blocks` gives the rows of the
+map capture backward's scratch. The sources:
 
 - `fused_trace.cu`: the fused bounce loop and its counted instantiation;
 - `closest_hit.cu`: the per-query closest hit and its counted instantiation;
-- `histogram.cu`: the IR histogram, one launch for a batch of rows;
+- `histogram.cu`: the IR histogram, one launch for a batch of rows, and
+  its record entry, which bins the map engine's first-capture record;
 - `coverage_hist.cu`: the coverage histogram, its slab reduction, and the
   phasor metric: its per-bin table, its sums over the same walk and capture
   rule, its delay spread over the capture lists that walk leaves, and its
@@ -23,9 +24,10 @@ backward's block count, which sizes its scratch. The sources:
   dBm, one call for a batch of IRs, and its backward (the transposed
   convolution of the metric's cotangent);
 - `map_capture.cu`: the map engine's capture pass (each receiver's first
-  captures, written as the rows the IR histogram bins) and its backward (d /
-  d the segments, the centers, the amplitude scale and the radius, a thread
-  a ray over the receivers in order); it shares the capture rule with `coverage_hist.cu` through
+  capture along each ray, written as a one-byte record, the bounce or none)
+  and its backward from that record (d / d the segments, the centers, the
+  amplitude scale and the radius, a thread a ray over the receivers in
+  order); it shares the capture rule with `coverage_hist.cu` through
   `sphere.cuh`;
 - `micro_vote.cu`: the vote micro-kernel, a latency probe.
 

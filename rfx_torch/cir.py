@@ -5,7 +5,10 @@
 on a CUDA tensor, one launch whatever R, and its plain version,
 `histogram_plain` (an `index_add_` over the captured paths), on a CPU
 tensor. Soft binning is two hard histograms, the low and the high half: two
-planes of the same launch, added afterwards.
+planes of the same launch, added afterwards. `histogram_record` is the
+kernel's other entry, for the map engine: it bins a first-capture record
+(rfx_torch.ops.map_capture) with the segments it indexes, the dense rows'
+bits without the dense rows.
 
 Both branches go through one `torch.autograd.Function`, so the IR carries
 the same gradient on either device: the backward is plain PyTorch (the
@@ -42,15 +45,22 @@ import torch
 from rfx_torch.ops._build import CudaKernel, F, I, P
 
 __all__ = ["bin_impulse_response", "carrier_cached", "cir_from_trace", "convolve_carrier_plain",
-           "histogram_plain", "histogram_rows", "mask_tiles", "phasor_metric", "rx_power_backward",
-           "rx_power_backward_plain", "rx_power_dbm", "rx_power_dbm_phasor", "rx_power_dbm_plain", "to_dbm",
-           "HISTOGRAM_KERNEL", "RX_POWER_BACKWARD_KERNEL", "RX_POWER_KERNEL"]
+           "histogram_plain", "histogram_record", "histogram_rows", "mask_tiles", "phasor_metric",
+           "rx_power_backward", "rx_power_backward_plain", "rx_power_dbm", "rx_power_dbm_phasor",
+           "rx_power_dbm_plain", "to_dbm", "HISTOGRAM_KERNEL", "HISTOGRAM_RECORD_KERNEL",
+           "RX_POWER_BACKWARD_KERNEL", "RX_POWER_KERNEL"]
 
 HARD, SOFT_LO, SOFT_HI = 0, 1, 2
 
 HISTOGRAM_KERNEL = CudaKernel(
     "histogram.cu", "rfx_ir_histogram",
     [P, P, P, I, I, F, F, I, I, I, P, P, P, ctypes.c_longlong, P],
+)
+# The record entry: the map engine's first-capture record binned with the
+# segments it indexes (rfx_torch.ops.map_capture.map_irs).
+HISTOGRAM_RECORD_KERNEL = CudaKernel(
+    "histogram.cu", "rfx_ir_histogram_record",
+    [P, I, I, I, P, P, P, P, P, F, F, F, F, I, I, I, P, P, P, ctypes.c_longlong, P],
 )
 RX_POWER_KERNEL = CudaKernel("rx_power.cu", "rfx_rx_power", [P, P, I, I, P, P, P, P, P, P])
 RX_POWER_BACKWARD_KERNEL = CudaKernel("rx_power.cu", "rfx_rx_power_backward",
@@ -133,6 +143,29 @@ def _launch_on(kernel: CudaKernel, dev: torch.device, args: tuple):
             kernel.launch(*args, torch.cuda.current_stream(dev).cuda_stream)
 
 
+def _histogram_buffer(rows: int, nbins: int, planes: int, tiles: int, dev) -> tuple:
+    """One buffer for a launch of either entry over `rows` rows of `tiles`
+    tiles each: the histograms, behind them the kernel's counters (one
+    memset zeroes both), then its scratch (tile counts, offsets, the rows'
+    chunk counts, and before them 4 uint16 slots a tile), all 4-byte words.
+    Returns (buffer, the kernel's pointer arguments (scratch, out, ctrl,
+    bytes to zero), the plane's size)."""
+    n_plane = rows * nbins
+    n_out = planes * n_plane
+    n_zero = n_out + _CTRL_INTS + planes * rows
+    n_zero += n_zero & 1  # the scratch starts on 8 bytes
+    buf = torch.empty(n_zero + rows * (4 * tiles + 2) + 1, dtype=torch.float32, device=dev)
+    ptr = buf.data_ptr()
+    return buf, (ptr + 4 * n_zero, ptr, ptr + 4 * n_out, 4 * n_zero), n_plane
+
+
+def _check_launch(rows: int, row_len: int, tiles: int, nbins: int, planes: int):
+    if row_len > 2**31 - 64 or nbins >= 2**31 - 1:
+        raise ValueError(f"at most 2^31 - 64 paths a row and 2^31 - 2 bins, got {row_len} and {nbins}")
+    if planes * rows * -(-row_len // _CHUNK) >= 2**31 or rows * (tiles + 1) >= 2**31:
+        raise ValueError(f"too many paths for one launch: {rows} rows of {row_len}")
+
+
 def _launch(amplitude, distance, captured, *, nbins: int, light_speed_mps: float,
             sample_rate_hz: float, soft: bool) -> list:
     """One launch of the kernel on (N,) or (R, N) CUDA tensors, R, N > 0: the
@@ -144,26 +177,55 @@ def _launch(amplitude, distance, captured, *, nbins: int, light_speed_mps: float
     amplitude, distance, captured = amplitude.contiguous(), distance.contiguous(), captured.contiguous()
     rows, n = _rows(amplitude), amplitude.shape[-1]
     planes = 2 if soft else 1
-    if n > 2**31 - 64 or nbins >= 2**31 - 1:
-        raise ValueError(f"at most 2^31 - 64 paths a row and 2^31 - 2 bins, got {n} and {nbins}")
     tmax = mask_tiles(n)
-    if planes * rows * -(-n // _CHUNK) >= 2**31 or rows * (tmax + 1) >= 2**31:
-        raise ValueError(f"too many paths for one launch: {rows} rows of {n}")
-    # One buffer: the histograms, behind them the kernel's counters (one
-    # memset zeroes both), then its scratch (tile counts, offsets, the rows'
-    # chunk counts, and before them 4 uint16 slots a tile), all 4-byte words.
-    n_plane = rows * nbins
-    n_out = planes * n_plane
-    n_zero = n_out + _CTRL_INTS + planes * rows
-    n_zero += n_zero & 1  # the scratch starts on 8 bytes
-    buf = torch.empty(n_zero + rows * (4 * tmax + 2) + 1, dtype=torch.float32, device=dev)
-    ptr = buf.data_ptr()
+    _check_launch(rows, n, tmax, nbins, planes)
+    buf, (scratch, out, ctrl, zero), n_plane = _histogram_buffer(rows, nbins, planes, tmax, dev)
     _launch_on(HISTOGRAM_KERNEL, dev, (
         amplitude.data_ptr(), distance.data_ptr(), captured.data_ptr(), n, rows,
-        float(light_speed_mps), float(sample_rate_hz), nbins, int(soft), tmax, ptr + 4 * n_zero,
-        ptr, ptr + 4 * n_out, 4 * n_zero))
+        float(light_speed_mps), float(sample_rate_hz), nbins, int(soft), tmax, scratch, out, ctrl,
+        zero))
     shape = amplitude.shape[:-1] + (nbins,)
     return [buf.narrow(0, h * n_plane, n_plane).view(shape) for h in range(planes)]
+
+
+def histogram_record(record: torch.Tensor, segments, centers: torch.Tensor, radius: float,
+                     scale: float, *, nbins: int, light_speed_mps: float, sample_rate_hz: float,
+                     soft: bool) -> torch.Tensor:
+    """(R, nbins) IRs of the map engine's first-capture record (R, N) uint8
+    (0xFF: no capture, else the bounce of the receiver's first capture
+    along the ray) on CUDA tensors, one launch of the record entry, hard or
+    soft (the low and the high half added); no autograd. `segments` is the
+    env trace's (origin, direction, t_env, amplitude, distance, alive), its
+    B <= 254 bounces of N rays; `centers` (R, 3) f32. Row r bins the list
+    `histogram_rows` bins from the map engine's dense rows of r: amplitude
+    * scale and distance + t_rx at each capture, in (b, n) order, t_rx the
+    capture pass's; so the IRs are those rows' bits."""
+    dev = record.device
+    if dev.type != "cuda":
+        raise ValueError(f"no histogram record kernel for device {dev}")
+    origin, direction, _, amplitude, distance, _ = (t.detach().contiguous() for t in segments)
+    b, n = amplitude.shape
+    rows = record.shape[0]
+    if record.dtype != torch.uint8 or tuple(record.shape) != (rows, n):
+        raise ValueError(f"record must be ({rows}, {n}) uint8, got {tuple(record.shape)} "
+                         f"{record.dtype}")
+    if b > 254:
+        raise ValueError(f"the record holds at most 254 bounces, got {b}")
+    if rows == 0 or n == 0 or b == 0:
+        return torch.zeros((rows, nbins), dtype=torch.float32, device=dev)
+    planes = 2 if soft else 1
+    tmax = mask_tiles(n)
+    _check_launch(rows, b * n, b * tmax, nbins, planes)
+    centers = centers.detach().to(torch.float32).contiguous()
+    record = record.contiguous()
+    buf, (scratch, out, ctrl, zero), n_plane = _histogram_buffer(rows, nbins, planes, b * tmax, dev)
+    _launch_on(HISTOGRAM_RECORD_KERNEL, dev, (
+        record.data_ptr(), n, rows, b, origin.data_ptr(), direction.data_ptr(),
+        amplitude.data_ptr(), distance.data_ptr(), centers.data_ptr(), float(radius),
+        float(scale), float(light_speed_mps), float(sample_rate_hz), nbins, int(soft), tmax,
+        scratch, out, ctrl, zero))
+    halves = [buf.narrow(0, h * n_plane, n_plane).view(rows, nbins) for h in range(planes)]
+    return halves[0] + halves[1] if soft else halves[0]
 
 
 def histogram_rows(amplitude, distance, captured, *, nbins: int, light_speed_mps: float,

@@ -13,11 +13,11 @@ Two engines build the impulse responses:
   and rays flattened). Hard or soft binning, analytic or icosphere
   receiver; differentiable, which the inverse solver needs. With the
   analytic receiver a batch is one call of rfx_torch.ops.map_capture.map_irs
-  (the capture kernel, the histogram kernel and, in the backward, the
-  capture backward kernel on a CUDA tensor; their plain versions on a CPU
-  tensor); the icosphere receiver, and a tx_power or radius that requires
-  grad, take the plain composition (broadcast test, `where`s and the
-  histogram Function of rfx_torch.cir) on either device.
+  (the capture kernel, the IR histogram's record entry and, in the
+  backward, the capture backward kernel on a CUDA tensor; their plain
+  versions on a CPU tensor); the icosphere receiver takes the plain
+  composition (broadcast test, `where`s and the histogram Function of
+  rfx_torch.cir) on either device.
 - `batched`: the coverage kernel (rfx_torch.ops.coverage_hist) on a CUDA
   tensor, its plain version on a CPU tensor. Hard binning and the analytic
   receiver only; forward only, as rfx's batched engine: on the card an input

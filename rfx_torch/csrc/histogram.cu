@@ -43,6 +43,20 @@
 //      the row's bins with plain loads and stores: bins are distinct inside a
 //      chunk, and chunks of a row take turns.
 //
+// The record entry, rfx_ir_histogram_record, bins the map engine's
+// first-capture record (map_capture.cu): one byte per receiver and ray, the
+// bounce b of the receiver's first capture or 0xFF. Row r's list is the
+// list that the dense entry takes from the map engine's dense rows (the
+// (b, n) order of the B x N segments): a capture's weight is amp[b, n] *
+// scale and its length dist[b, n] + t_rx, t_rx recomputed with sphere.cuh's
+// sphere_t, the capture pass's bits. Pass 1 reads each record tile once and
+// counts it per bounce, so a row's tiles run (bounce, tile) and the scan
+// gives (b, n) ranks; passes 2 and 3 are the dense entry's, with the loader
+// and the tile reader templated on the source. So the record's IRs are the
+// dense rows' bits, and the 9 bytes an entry of the rows are never written
+// (2.4 GB at the inverse solve's 64 receivers x 4 bounces x 1,048,576 rays,
+// against a 64 MB record).
+//
 // There is no float atomic: a bin's value is the sum, in chunk order, of the
 // chunks' ray-order sums, fixed by the row's own inputs. It is bit-identical
 // from run to run, under any grid, and for a row alone or in a batch; for a
@@ -59,6 +73,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "sphere.cuh"
 
 namespace {
 
@@ -77,9 +93,29 @@ constexpr unsigned kNoBin = 0xFFFFFFFFu;
 // unused, then one turn counter per (plane, row).
 constexpr int kCtrlHead = 4;
 
+// What passes 1 and 3 read: the dense rows (the capture mask, amplitude
+// and distance of each entry) or the record with the segments it indexes.
+struct Source {
+  const unsigned char* mask;  // (rows, n) bytes: the capture mask, or the record
+  int n;                      // bytes a row
+  int nb;                     // record: bounces (a row's tiles run bounce-major); dense: 1
+  int tmax;                   // tiles a row of n bytes can span
+  const float* amp;           // dense: (rows, n); record: (nb, n), scaled here
+  const float* dist;          // dense: (rows, n); record: (nb, n), t_rx added here
+  const float* origin;        // record: (nb, n, 3)
+  const float* dir;           // record: (nb, n, 3)
+  const float* centers;       // record: (rows, 3)
+  float r2, scale;            // record: radius^2, amplitude scale
+};
+
 // Bit 7 of every nonzero byte of x (a bool tensor may hold any nonzero byte).
 __device__ __forceinline__ unsigned nonzero_bytes(unsigned x) {
   return (x | ((x & 0x7f7f7f7fu) + 0x7f7f7f7fu)) & 0x80808080u;
+}
+
+// Bit 7 of every zero byte of x.
+__device__ __forceinline__ unsigned zero_byte_bits(unsigned x) {
+  return ~nonzero_bytes(x) & 0x80808080u;
 }
 
 // Bits 7, 15, 23, 31 gathered into bits 0-3.
@@ -87,13 +123,24 @@ __device__ __forceinline__ unsigned gather4(unsigned y) {
   return (((y >> 7) * 0x01020408u) >> 24) & 0xFu;
 }
 
-// Bit b set iff byte b of the word is nonzero and belongs to the row: `first`
-// is the row's element index of byte 0 (negative in the row's first word when
-// the row starts inside it), n the row's length.
-__device__ __forceinline__ unsigned word_mask(const uint4 v, long long first, int n) {
-  if ((v.x | v.y | v.z | v.w) == 0u) return 0u;
-  unsigned m = gather4(nonzero_bytes(v.x)) | (gather4(nonzero_bytes(v.y)) << 4) |
-               (gather4(nonzero_bytes(v.z)) << 8) | (gather4(nonzero_bytes(v.w)) << 12);
+// Bit k set iff byte k of the word is a capture and belongs to the row: a
+// nonzero byte of the mask, or a record byte equal to the bounce b whose
+// copies fill `pattern`. `first` is the row's element index of byte 0
+// (negative in the row's first word when the row starts inside it), n the
+// row's length.
+template <bool kRecord>
+__device__ __forceinline__ unsigned word_mask(const uint4 v, unsigned pattern, long long first,
+                                              int n) {
+  unsigned m;
+  if (kRecord) {
+    if ((v.x & v.y & v.z & v.w) == 0xFFFFFFFFu) return 0u;  // no capture at all
+    m = gather4(zero_byte_bits(v.x ^ pattern)) | (gather4(zero_byte_bits(v.y ^ pattern)) << 4) |
+        (gather4(zero_byte_bits(v.z ^ pattern)) << 8) | (gather4(zero_byte_bits(v.w ^ pattern)) << 12);
+  } else {
+    if ((v.x | v.y | v.z | v.w) == 0u) return 0u;
+    m = gather4(nonzero_bytes(v.x)) | (gather4(nonzero_bytes(v.y)) << 4) |
+        (gather4(nonzero_bytes(v.z)) << 8) | (gather4(nonzero_bytes(v.w)) << 12);
+  }
   if (first < 0) m &= 0xFFFFu << static_cast<int>(-first);
   const long long over = first + 16 - n;
   if (over > 0) m &= 0xFFFFu >> static_cast<int>(over);
@@ -123,49 +170,67 @@ __device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
   return v;
 }
 
-// Pass 1: cnt[r * tmax + t] = captures in tile t of row r. A tile of at
-// most kSlots captures also leaves their byte offsets in the tile, in ray
-// order, in slots[tile]: pass 3 then lists a sparse row's captures without
-// reading the mask again.
-__global__ void __launch_bounds__(kCountThreads) count_tiles(
-    const unsigned char* __restrict__ mask, int n, long long n_tiles, int tmax,
-    int* __restrict__ cnt, unsigned short* __restrict__ slots) {
+// Pass 1: a warp reads tile t of row r (2 KB) once. Dense: cnt[r * tmax +
+// t] = its captures; record: cnt[(r * nb + b) * tmax + t] = its captures at
+// bounce b, for every b (a row's tiles run bounce-major, so the scan of a
+// row's counts gives (b, n) ranks). A (tile, bounce) of at most kSlots
+// captures also leaves their byte offsets in the tile, in ray order, in its
+// slots: pass 3 then lists a sparse row's captures without reading the mask
+// again.
+template <bool kRecord>
+__global__ void __launch_bounds__(kCountThreads) count_tiles(const Source src, long long n_tiles,
+                                                             int* __restrict__ cnt,
+                                                             unsigned short* __restrict__ slots) {
   const int lane = threadIdx.x & 31;
   const long long tile =
       static_cast<long long>(blockIdx.x) * (kCountThreads / 32) + (threadIdx.x >> 5);
   if (tile >= n_tiles) return;
-  const int r = static_cast<int>(tile / tmax);
-  const int t = static_cast<int>(tile % tmax);
-  const Row row = row_of(mask, r, n);
+  const int r = static_cast<int>(tile / src.tmax);
+  const int t = static_cast<int>(tile % src.tmax);
+  const int nb = kRecord ? src.nb : 1;
+  const Row row = row_of(src.mask, r, src.n);
   uint4 v[kLaneWords];
+  bool some = false;
 #pragma unroll
   for (int j = 0; j < kLaneWords; ++j) {
     const int w = t * kTileWords + j * 32 + lane;
-    v[j] = w < row.n_words ? row.words[w] : make_uint4(0u, 0u, 0u, 0u);
+    const unsigned pad = kRecord ? 0xFFFFFFFFu : 0u;  // reads as no capture
+    v[j] = w < row.n_words ? row.words[w] : make_uint4(pad, pad, pad, pad);
+    some |= kRecord ? (v[j].x & v[j].y & v[j].z & v[j].w) != 0xFFFFFFFFu
+                    : (v[j].x | v[j].y | v[j].z | v[j].w) != 0u;
   }
-  unsigned m[kLaneWords];
-  int mine = 0;
-#pragma unroll
-  for (int j = 0; j < kLaneWords; ++j) {
-    const long long first =
-        static_cast<long long>(t * kTileWords + j * 32 + lane) * 16 - row.shift;
-    m[j] = word_mask(v[j], first, n);
-    mine += __popc(m[j]);
+  const long long vt0 = static_cast<long long>(r) * nb * src.tmax + t;  // bounce 0's tile
+  if (!__any_sync(0xffffffffu, some)) {  // no capture in the tile
+    for (int b = lane; b < nb; b += 32) cnt[vt0 + static_cast<long long>(b) * src.tmax] = 0;
+    return;
   }
-  const int c = __reduce_add_sync(0xffffffffu, mine);
-  if (lane == 0) cnt[tile] = c;
-  if (c == 0 || c > kSlots) return;
-  int before = 0;
+  for (int b = 0; b < nb; ++b) {
+    const long long vt = vt0 + static_cast<long long>(b) * src.tmax;
+    const unsigned pattern = static_cast<unsigned>(b) * 0x01010101u;
+    unsigned m[kLaneWords];
+    int mine = 0;
 #pragma unroll
-  for (int j = 0; j < kLaneWords; ++j) {
-    const int here = __popc(m[j]);
-    const int incl = warp_inclusive_scan(here, lane);
-    int pos = before + incl - here;
-    for (unsigned mm = m[j]; mm != 0u; mm &= mm - 1u) {
-      slots[tile * kSlots + pos++] =
-          static_cast<unsigned short>((j * 32 + lane) * 16 + __ffs(mm) - 1);
+    for (int j = 0; j < kLaneWords; ++j) {
+      const long long first =
+          static_cast<long long>(t * kTileWords + j * 32 + lane) * 16 - row.shift;
+      m[j] = word_mask<kRecord>(v[j], pattern, first, src.n);
+      mine += __popc(m[j]);
     }
-    before += __shfl_sync(0xffffffffu, incl, 31);
+    const int c = __reduce_add_sync(0xffffffffu, mine);
+    if (lane == 0) cnt[vt] = c;
+    if (c == 0 || c > kSlots) continue;
+    int before = 0;
+#pragma unroll
+    for (int j = 0; j < kLaneWords; ++j) {
+      const int here = __popc(m[j]);
+      const int incl = warp_inclusive_scan(here, lane);
+      int pos = before + incl - here;
+      for (unsigned mm = m[j]; mm != 0u; mm &= mm - 1u) {
+        slots[vt * kSlots + pos++] =
+            static_cast<unsigned short>((j * 32 + lane) * 16 + __ffs(mm) - 1);
+      }
+      before += __shfl_sync(0xffffffffu, incl, 31);
+    }
   }
 }
 
@@ -273,11 +338,35 @@ __device__ __forceinline__ unsigned bin_and_weight(float amp, float dist, float 
   return bin >= 0 && bin < nbins ? static_cast<unsigned>(bin) : kNoBin;
 }
 
-// Pass 3: see the note at the top. out: (planes, n_rows, nbins), zeroed.
+// A capture's weight and length, *a and *d, from its index in the row's
+// list: dense, entry idx of row r; record, segment idx = b * n + ray of the
+// segments, scaled and lengthened as the capture pass's rows would hold it.
+template <bool kRecord>
+__device__ __forceinline__ void load_capture(const Source& src, int r, float4 ctr, int idx,
+                                             float* a, float* d) {
+  if (kRecord) {
+    const long long at = idx;
+    const float amp = src.amp[at], dist = src.dist[at];
+    const float t_rx = rfx_capture::sphere_t(src.origin[3 * at], src.origin[3 * at + 1],
+                                             src.origin[3 * at + 2], src.dir[3 * at],
+                                             src.dir[3 * at + 1], src.dir[3 * at + 2], ctr.x,
+                                             ctr.y, ctr.z, src.r2);
+    *a = amp * src.scale;
+    *d = dist + t_rx;
+  } else {
+    const long long g = static_cast<long long>(r) * src.n + idx;
+    *a = src.amp[g];
+    *d = src.dist[g];
+  }
+}
+
+// Pass 3: see the note at the top. A row has tiles = nb * tmax tiles (dense:
+// nb = 1), tile vt holding bounce vt / tmax of the row's bytes of tile vt %
+// tmax. out: (planes, n_rows, nbins), zeroed.
+template <bool kRecord>
 __global__ void __launch_bounds__(kSortThreads) bin_chunks(
-    const float* __restrict__ amp, const float* __restrict__ dist,
-    const unsigned char* __restrict__ mask, int n, int n_rows, int planes, float c, float rate,
-    int nbins, int tmax, const int* __restrict__ off, const int* __restrict__ cpre,
+    const Source src, int n_rows, int planes, float c, float rate, int nbins,
+    const int* __restrict__ off, const int* __restrict__ cpre,
     const unsigned short* __restrict__ slots, int* __restrict__ ctrl, float* __restrict__ out) {
   __shared__ int s_idx[kChunk];
   __shared__ unsigned long long s_key[kChunk];
@@ -288,6 +377,8 @@ __global__ void __launch_bounds__(kSortThreads) bin_chunks(
   __shared__ int s_work;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int chunks = ctrl[2];
+  const int n = src.n, tmax = src.tmax;
+  const int tiles = (kRecord ? src.nb : 1) * tmax;
   for (;;) {
     if (threadIdx.x == 0) s_work = atomicAdd(&ctrl[1], 1);
     __syncthreads();
@@ -297,15 +388,15 @@ __global__ void __launch_bounds__(kSortThreads) bin_chunks(
     const int chunk = work - plane * chunks;
     const int r = block_last_at_most(cpre, n_rows + 1, chunk, &s_pos);
     const int k = chunk - cpre[r];
-    const int* row_off = off + static_cast<long long>(r) * (tmax + 1);
+    const int* row_off = off + static_cast<long long>(r) * (tiles + 1);
     const int lo = k * kChunk;
-    const int count = min(kChunk, row_off[tmax] - lo);
-    const Row row = row_of(mask, r, n);
+    const int count = min(kChunk, row_off[tiles] - lo);
+    const Row row = row_of(src.mask, r, n);
 
-    // The chunk's captures, in ray order: a sparse tile's from the offsets
-    // that pass 1 left, a dense tile's from the mask, a warp a tile.
-    const int t_first = block_last_at_most(row_off, tmax + 1, lo, &s_pos);
-    const int t_end = block_last_at_most(row_off, tmax + 1, lo + count - 1, &s_pos) + 1;
+    // The chunk's captures, in (b, n) order: a sparse tile's from the
+    // offsets that pass 1 left, a dense tile's from the mask, a warp a tile.
+    const int t_first = block_last_at_most(row_off, tiles + 1, lo, &s_pos);
+    const int t_end = block_last_at_most(row_off, tiles + 1, lo + count - 1, &s_pos) + 1;
     if (threadIdx.x == 0) s_dense = 0;
     __syncthreads();
     // kTileBatch tiles a thread at a time, their loads issued together.
@@ -318,7 +409,7 @@ __global__ void __launch_bounds__(kSortThreads) bin_chunks(
         rank[u] = t < t_end ? row_off[t] : 0;
         c[u] = t < t_end ? row_off[t + 1] - rank[u] : 0;
         // All of a tile's slots, whether pass 1 wrote them or not: 8 aligned bytes.
-        slot[u] = t < t_end ? reinterpret_cast<const uint2*>(slots)[static_cast<long long>(r) * tmax + t]
+        slot[u] = t < t_end ? reinterpret_cast<const uint2*>(slots)[static_cast<long long>(r) * tiles + t]
                             : make_uint2(0u, 0u);
       }
 #pragma unroll
@@ -326,13 +417,14 @@ __global__ void __launch_bounds__(kSortThreads) bin_chunks(
         const int t = t0 + u * kSortThreads;
         if (c[u] > kSlots) {
           s_tiles[atomicAdd(&s_dense, 1)] = t;
-        } else {
+        } else if (c[u] > 0) {
+          const int b = t / tmax;  // dense: 0
+          const int base = b * n + (t - b * tmax) * (kTileWords * 16) - row.shift;
           for (int q = 0; q < c[u]; ++q) {
             const unsigned pair = q < 2 ? slot[u].x : slot[u].y;
             const int pos = rank[u] + q - lo;
             if (pos >= 0 && pos < count) {
-              s_idx[pos] = t * (kTileWords * 16) + static_cast<int>((pair >> (16 * (q & 1))) & 0xFFFFu) -
-                           row.shift;
+              s_idx[pos] = base + static_cast<int>((pair >> (16 * (q & 1))) & 0xFFFFu);
             }
           }
         }
@@ -340,21 +432,24 @@ __global__ void __launch_bounds__(kSortThreads) bin_chunks(
     }
     __syncthreads();
     for (int d = warp; d < s_dense; d += kSortThreads / 32) {
-      const int t = s_tiles[d];
+      const int vt = s_tiles[d];
+      const int b = vt / tmax;  // dense: 0
+      const int t = vt - b * tmax;
+      const unsigned pattern = static_cast<unsigned>(b) * 0x01010101u;
       unsigned m[kLaneWords];
 #pragma unroll
       for (int j = 0; j < kLaneWords; ++j) {
         const int w = t * kTileWords + j * 32 + lane;
         const long long first = static_cast<long long>(w) * 16 - row.shift;
-        m[j] = w < row.n_words ? word_mask(row.words[w], first, n) : 0u;
+        m[j] = w < row.n_words ? word_mask<kRecord>(row.words[w], pattern, first, n) : 0u;
       }
-      int rank = row_off[t] - lo;
+      int rank = row_off[vt] - lo;
 #pragma unroll
       for (int j = 0; j < kLaneWords; ++j) {
         const int here = __popc(m[j]);
         const int incl = warp_inclusive_scan(here, lane);
         int pos = rank + incl - here;
-        const int first = (t * kTileWords + j * 32 + lane) * 16 - row.shift;
+        const int first = b * n + (t * kTileWords + j * 32 + lane) * 16 - row.shift;
         for (unsigned mm = m[j]; mm != 0u; mm &= mm - 1u, ++pos) {
           if (pos >= 0 && pos < count) s_idx[pos] = first + __ffs(mm) - 1;
         }
@@ -367,14 +462,15 @@ __global__ void __launch_bounds__(kSortThreads) bin_chunks(
     int size = 32;
     while (size < count) size <<= 1;
     const int mode = planes == 1 ? 0 : 1 + plane;
-    const long long base = static_cast<long long>(r) * n;
+    const float4 ctr = kRecord ? make_float4(src.centers[3 * r], src.centers[3 * r + 1],
+                                             src.centers[3 * r + 2], 0.0f)
+                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     float a_in[kPerThread], d_in[kPerThread];
 #pragma unroll
     for (int q = 0; q < kPerThread; ++q) {  // the gathers of a thread, issued together
       const int i = threadIdx.x + q * kSortThreads;
-      const long long g = base + (i < count ? s_idx[i] : 0);
-      a_in[q] = i < count ? amp[g] : 0.0f;
-      d_in[q] = i < count ? dist[g] : 0.0f;
+      a_in[q] = d_in[q] = 0.0f;
+      if (i < count) load_capture<kRecord>(src, r, ctr, s_idx[i], &a_in[q], &d_in[q]);
     }
 #pragma unroll
     for (int q = 0; q < kPerThread; ++q) {
@@ -407,7 +503,7 @@ __global__ void __launch_bounds__(kSortThreads) bin_chunks(
       }
     }
 
-    // The head of each run of equal bins adds the run in ray order.
+    // The head of each run of equal bins adds the run in list order.
     unsigned bins[kPerThread];
     float sums[kPerThread];
 #pragma unroll
@@ -458,6 +554,37 @@ int sm_count() {
   return count;
 }
 
+// The three passes over `src`'s n_rows rows; the layouts of the C entries.
+template <bool kRecord>
+int histogram(const Source& src, int n_rows, float c, float rate, int nbins, int soft,
+              void* scratch, void* out, void* ctrl, long long zero_bytes, cudaStream_t s) {
+  const int planes = soft ? 2 : 1;
+  const long long tiles = static_cast<long long>(kRecord ? src.nb : 1) * src.tmax;
+  unsigned short* slots = static_cast<unsigned short*>(scratch);
+  int* cnt = static_cast<int*>(scratch) + 2LL * n_rows * tiles;
+  int* off = cnt + n_rows * tiles;
+  int* cpre = off + n_rows * (tiles + 1);
+  cudaError_t err = cudaMemsetAsync(out, 0, static_cast<size_t>(zero_bytes), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n_tiles = static_cast<long long>(n_rows) * src.tmax;  // a warp each
+  const int warps = kCountThreads / 32;
+  count_tiles<kRecord><<<static_cast<unsigned>((n_tiles + warps - 1) / warps), kCountThreads, 0,
+                         s>>>(src, n_tiles, cnt, slots);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  scan_rows<<<n_rows, kScanThreads, 0, s>>>(cnt, static_cast<int>(tiles), n_rows, off, cpre,
+                                            static_cast<int*>(ctrl));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long row_len = static_cast<long long>(kRecord ? src.nb : 1) * src.n;
+  const long long most = static_cast<long long>(planes) * n_rows * ((row_len + kChunk - 1) / kChunk);
+  const long long resident = 4LL * sm_count();
+  bin_chunks<kRecord><<<static_cast<unsigned>(most < resident ? most : resident), kSortThreads,
+                        0, s>>>(src, n_rows, planes, c, rate, nbins, off, cpre, slots,
+                                static_cast<int*>(ctrl), static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // amp, dist: (n_rows, n) f32; captured: (n_rows, n) bool, rows back to back.
@@ -471,33 +598,50 @@ extern "C" int rfx_ir_histogram(const void* amp, const void* dist, const void* c
                                 int n_rows, float c, float rate, int nbins, int soft, int tmax,
                                 void* scratch, void* out, void* ctrl, long long zero_bytes,
                                 void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int planes = soft ? 2 : 1;
-  unsigned short* slots = static_cast<unsigned short*>(scratch);
-  int* cnt = static_cast<int*>(scratch) + 2LL * n_rows * tmax;
-  int* off = cnt + static_cast<long long>(n_rows) * tmax;
-  int* cpre = off + static_cast<long long>(n_rows) * (tmax + 1);
-  cudaError_t err = cudaMemsetAsync(out, 0, static_cast<size_t>(zero_bytes), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n_tiles = static_cast<long long>(n_rows) * tmax;
-  const int warps = kCountThreads / 32;
-  count_tiles<<<static_cast<unsigned>((n_tiles + warps - 1) / warps), kCountThreads, 0, s>>>(
-      static_cast<const unsigned char*>(captured), n, n_tiles, tmax, cnt, slots);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scan_rows<<<n_rows, kScanThreads, 0, s>>>(cnt, tmax, n_rows, off, cpre,
-                                            static_cast<int*>(ctrl));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long most = static_cast<long long>(planes) * n_rows * ((n + kChunk - 1) / kChunk);
-  const long long resident = 4LL * sm_count();
-  bin_chunks<<<static_cast<unsigned>(most < resident ? most : resident), kSortThreads, 0, s>>>(
-      static_cast<const float*>(amp), static_cast<const float*>(dist),
-      static_cast<const unsigned char*>(captured), n, n_rows, planes, c, rate, nbins, tmax, off,
-      cpre, slots, static_cast<int*>(ctrl), static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  Source src{};
+  src.mask = static_cast<const unsigned char*>(captured);
+  src.n = n;
+  src.nb = 1;
+  src.tmax = tmax;
+  src.amp = static_cast<const float*>(amp);
+  src.dist = static_cast<const float*>(dist);
+  return histogram<false>(src, n_rows, c, rate, nbins, soft, scratch, out, ctrl, zero_bytes,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// record: (n_rows, n) uint8, rfx_map_capture's first-capture record of the
+// n_rows receivers `centers` ((n_rows, 3) f32) on the segments origin, dir
+// ((nb, n, 3) f32), amp and dist ((nb, n) f32); radius and scale as the
+// capture pass takes them. out, ctrl, zero_bytes: as rfx_ir_histogram's;
+// scratch as its, with nb * tmax tiles a row in place of tmax (tmax =
+// rfx_torch.cir.mask_tiles(n)). n_rows > 0, n > 0, 1 <= nb <= 254, nb * n
+// < 2^31.
+extern "C" int rfx_ir_histogram_record(const void* record, int n, int n_rows, int nb,
+                                       const void* origin, const void* dir, const void* amp,
+                                       const void* dist, const void* centers, float radius,
+                                       float scale, float c, float rate, int nbins, int soft,
+                                       int tmax, void* scratch, void* out, void* ctrl,
+                                       long long zero_bytes, void* stream) {
+  Source src{};
+  src.mask = static_cast<const unsigned char*>(record);
+  src.n = n;
+  src.nb = nb;
+  src.tmax = tmax;
+  src.amp = static_cast<const float*>(amp);
+  src.dist = static_cast<const float*>(dist);
+  src.origin = static_cast<const float*>(origin);
+  src.dir = static_cast<const float*>(dir);
+  src.centers = static_cast<const float*>(centers);
+  src.r2 = radius * radius;
+  src.scale = scale;
+  return histogram<true>(src, n_rows, c, rate, nbins, soft, scratch, out, ctrl, zero_bytes,
+                         static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* rfx_ir_histogram_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+extern "C" const char* rfx_ir_histogram_record_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -6,22 +6,27 @@ rfx/coverage.py:56-81 under the vmap / lax.map of :185-203, with the
 receiver sphere's custom VJP, rfx/ops/intersect.py:206-251).
 
 `map_irs` is one autograd Function (`_MapIRs`) on either device. Its forward
-finds each receiver's first capture along each ray's bounces and writes, per
-receiver, a row of the B x N segments in their (b, n) order: amp * scale
-and dist + t_rx at the captures, 0 elsewhere, and the capture mask; the IR
-histogram (rfx_torch.cir.histogram_rows) bins the rows, one launch for the
-chunk. Nothing of size (R, B, N) is kept: the backward finds the captures
-again and adds each capture's terms to its segment, over the receivers in
-ascending order (the gradient of the histogram's scatter, of the capture's
-`where`s and of the sphere's implicit-function derivative).
+finds each receiver's first capture along each ray's bounces and writes the
+first-capture record, (R, N) uint8: the bounce of the receiver's first
+capture along the ray, 0xFF for none. The IR histogram's record entry
+(rfx_torch.cir.histogram_record) bins it, one launch for the chunk: each
+capture's amp * scale and dist + t_rx in the (b, n) order of the B x N
+segments, the list the plain map engine's dense rows hold, so the IRs are
+its bits. The record is all the backward keeps of the forward: it adds each
+capture's terms to its segment, over the receivers in ascending order (the
+gradient of the histogram's scatter, of the capture's `where`s and of the
+sphere's implicit-function derivative).
 
-On a CUDA tensor the forward launches `rfx_map_capture` and the backward
-`rfx_map_capture_backward` (rfx_torch/csrc/map_capture.cu); on a CPU tensor
-their plain versions run, `map_capture_plain` (the broadcast sphere test and
-first-capture rule of the plain map engine) and `map_capture_backward_plain`
-(the backward's arithmetic written out per receiver). The kernel writes the
-plain version's rows bit for bit, so the IRs are the plain map engine's.
-Nothing falls back: a build or launch failure raises.
+On a CUDA tensor the forward launches `rfx_map_capture`
+(rfx_torch/csrc/map_capture.cu) and `rfx_ir_histogram_record`
+(rfx_torch/csrc/histogram.cu), and the backward `rfx_map_capture_backward`;
+on a CPU tensor their plain versions run: `map_record_plain` (the broadcast
+sphere test and first-capture rule of the plain map engine),
+`histogram_record_plain` (the record expanded to the plain map engine's
+rows, `map_capture_plain`'s bits, then the plain histogram) and
+`map_capture_backward_plain` (the backward's arithmetic written out per
+receiver, finding the captures again). Nothing falls back: a build or
+launch failure raises.
 """
 
 from __future__ import annotations
@@ -34,32 +39,50 @@ from rfx_torch.ops.coverage_hist import _check_segments, first_captures
 from rfx_torch.ops.intersect import dot3, sphere_t
 from rfx_torch.tracer import EnvSegments
 
-__all__ = ["MAP_CAPTURE_BACKWARD_KERNEL", "MAP_CAPTURE_KERNEL", "map_capture",
-           "map_capture_backward", "map_capture_backward_plain", "map_capture_plain", "map_irs"]
+__all__ = ["MAP_CAPTURE_BACKWARD_KERNEL", "MAP_CAPTURE_KERNEL", "NO_CAPTURE",
+           "histogram_record_plain", "map_capture_backward", "map_capture_backward_plain",
+           "map_capture_plain", "map_irs", "map_record", "map_record_plain", "record_rows"]
 
 MAP_CAPTURE_KERNEL = CudaKernel("map_capture.cu", "rfx_map_capture",
-                                [P, P, P, P, P, P, I, I, P, I, F, F, P, P, P, P])
+                                [P, P, P, P, I, I, P, I, F, P, P])
 MAP_CAPTURE_BACKWARD_KERNEL = CudaKernel(
     "map_capture.cu", "rfx_map_capture_backward",
-    [P, P, P, P, P, P, I, I, P, I, F, F, F, F, I, I, F, P, P, P, P, P, P, P, P, P, P],
+    [P, P, P, P, P, I, I, P, I, F, F, F, F, I, I, F, P, P, P, P, P, P, P, P, P, P],
 )
+
+NO_CAPTURE = 0xFF  # the record's byte where a receiver captures nothing along a ray
+MAX_BOUNCES = 254  # the bounces a record byte can name
 
 
 def _radius(rx_radius, device) -> torch.Tensor:
     return torch.as_tensor(rx_radius, dtype=torch.float32).to(device)
 
 
-def map_capture_plain(segs: EnvSegments, centers: torch.Tensor, rx_radius, scale: float):
-    """Plain PyTorch version of `rfx_map_capture`: (amp, dist, captured),
-    each (R, B * N), for the (R, 3) centers: the broadcast sphere test and
-    the first-capture rule, amp * scale and dist + t_rx at the captures, 0
-    elsewhere."""
-    dev = segs.t_env.device
+def _check_sizes(b: int, n: int, m: int, nbins: int = 1):
+    if max(n, b, m, nbins) >= 2**31:
+        raise ValueError(f"at most 2^31 - 1 rays, bounces, receivers and bins, got {n}, {b}, {m} "
+                         f"and {nbins}")
+    if b > MAX_BOUNCES:
+        raise ValueError(f"the first-capture record holds at most {MAX_BOUNCES} bounces, got {b}")
+
+
+def _plain_captures(segs: EnvSegments, centers: torch.Tensor, rx_radius) -> tuple:
+    """(t_rx, first), each (R, B, N), of the (R, 3) centers: the broadcast
+    sphere test and the first-capture rule of the plain map engine."""
     b, n = segs.t_env.shape
-    r = _radius(rx_radius, dev)
+    r = _radius(rx_radius, segs.t_env.device)
     t_rx = sphere_t(segs.origin.reshape(b * n, 3), segs.direction.reshape(b * n, 3),
                     centers[:, None, :], r * r).reshape(-1, b, n)
-    first = first_captures(segs, t_rx)
+    return t_rx, first_captures(segs, t_rx)
+
+
+def map_capture_plain(segs: EnvSegments, centers: torch.Tensor, rx_radius, scale: float):
+    """The plain map engine's dense rows: (amp, dist, captured), each (R, B *
+    N), for the (R, 3) centers: amp * scale and dist + t_rx at the first
+    captures, 0 elsewhere. What the IR histogram bins; the record's
+    reference."""
+    dev = segs.t_env.device
+    t_rx, first = _plain_captures(segs, centers, rx_radius)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     rows = t_rx.shape[0]
     amp = torch.where(first, segs.amplitude, zero) * torch.tensor(scale, dtype=torch.float32,
@@ -68,47 +91,94 @@ def map_capture_plain(segs: EnvSegments, centers: torch.Tensor, rx_radius, scale
     return amp.reshape(rows, -1), dist.reshape(rows, -1), first.reshape(rows, -1)
 
 
+def map_record_plain(segs: EnvSegments, centers: torch.Tensor, rx_radius) -> torch.Tensor:
+    """Plain PyTorch version of `rfx_map_capture`: the (R, N) uint8
+    first-capture record of the (R, 3) centers, the bounce of each
+    receiver's first capture along each ray (`first_captures`), NO_CAPTURE
+    where there is none."""
+    dev = segs.t_env.device
+    b, n = segs.t_env.shape
+    _check_sizes(b, n, centers.shape[0])
+    centers = centers.to(torch.float32)
+    none = torch.full((), NO_CAPTURE, dtype=torch.int32, device=dev)
+    if b == 0:
+        return none.expand(centers.shape[0], n).to(torch.uint8)
+    _, first = _plain_captures(segs, centers, rx_radius)
+    bounce = torch.arange(b, dtype=torch.int32, device=dev)[None, :, None]
+    return torch.where(first, bounce, none).amin(dim=1).to(torch.uint8)
+
+
+def record_rows(record: torch.Tensor, segs: EnvSegments, centers: torch.Tensor, rx_radius,
+                scale: float):
+    """The record expanded to the plain map engine's rows, `map_capture_plain`'s
+    (amp, dist, captured) bit for bit: t_rx recomputed at the captures
+    alone, with the same elementwise arithmetic."""
+    dev = segs.t_env.device
+    b, n = segs.t_env.shape
+    rows = record.shape[0]
+    first = record.to(torch.int32)[:, None, :] == torch.arange(b, dtype=torch.int32,
+                                                                device=dev)[None, :, None]
+    k, bb, i = first.nonzero(as_tuple=True)
+    r = _radius(rx_radius, dev)
+    t_rx = sphere_t(segs.origin[bb, i], segs.direction[bb, i], centers.to(torch.float32)[k], r * r)
+    amp = torch.zeros((rows, b, n), dtype=torch.float32, device=dev)
+    dist = torch.zeros_like(amp)
+    amp[k, bb, i] = segs.amplitude[bb, i] * torch.tensor(scale, dtype=torch.float32, device=dev)
+    dist[k, bb, i] = segs.distance[bb, i] + t_rx
+    return amp.reshape(rows, -1), dist.reshape(rows, -1), first.reshape(rows, -1)
+
+
+def histogram_record_plain(record: torch.Tensor, segs: EnvSegments, centers: torch.Tensor,
+                           rx_radius, scale: float, *, nbins: int, light_speed_mps: float,
+                           sample_rate_hz: float, soft: bool) -> torch.Tensor:
+    """Plain PyTorch version of `rfx_ir_histogram_record`: the record
+    expanded to rows (`record_rows`), then `histogram_plain`, hard or the
+    two soft halves added."""
+    rows = record_rows(record, segs, centers, rx_radius, scale)
+    kw = dict(nbins=nbins, light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz)
+    modes = (cir.SOFT_LO, cir.SOFT_HI) if soft else (cir.HARD,)
+    halves = [cir.histogram_plain(*rows, mode=m, **kw) for m in modes]
+    return halves[0] + halves[1] if soft else halves[0]
+
+
 def _planes(segs: EnvSegments) -> list:
     return [t.detach().contiguous() for t in segs]
 
 
-def _check_sizes(b: int, n: int, m: int, nbins: int = 1):
-    if max(n, b, m, nbins) >= 2**31:
-        raise ValueError(f"at most 2^31 - 1 rays, bounces, receivers and bins, got {n}, {b}, {m} "
-                         f"and {nbins}")
-
-
-def _backward_blocks(n: int) -> int:
-    """The backward's block count for n rays (its scratch's first dimension),
-    as map_capture.cu decides it."""
+def _backward_scratch_rows(n: int) -> int:
+    """The rows of the backward's scratch for n rays (a row a block, then a
+    row a chunk of blocks), as map_capture.cu decides them."""
     fn = MAP_CAPTURE_BACKWARD_KERNEL.symbol_of("rfx_map_capture_backward_blocks")
     fn.argtypes, fn.restype = [I], I
     return int(fn(n))
 
 
-def map_capture(segs: EnvSegments, centers: torch.Tensor, rx_radius, scale: float):
-    """(amp, dist, captured), each (R, B * N), of `map_capture_plain`: on a
-    CPU tensor that plain version, on a CUDA tensor one launch of
-    `rfx_map_capture` (the same bits)."""
+def map_record(segs: EnvSegments, centers: torch.Tensor, rx_radius) -> torch.Tensor:
+    """The (R, N) uint8 first-capture record of `map_record_plain`: on a CPU
+    tensor that plain version, on a CUDA tensor one launch of
+    `rfx_map_capture` (the same bytes)."""
     dev = segs.t_env.device
     if dev.type == "cpu":
-        return map_capture_plain(segs, centers, rx_radius, scale)
+        return map_record_plain(segs, centers, rx_radius)
     if dev.type != "cuda":
         raise ValueError(f"no map capture kernel for device {dev}")
     b, n = segs.t_env.shape
     m = centers.shape[0]
     _check_sizes(b, n, m)
-    amp = torch.empty((m, b * n), dtype=torch.float32, device=dev)  # the kernel writes every entry
-    dist = torch.empty_like(amp)
-    cap = torch.empty((m, b * n), dtype=torch.bool, device=dev)
+    if -(-n // 256) * -(-m // 32) >= 2**31:
+        raise ValueError(f"too many rays x receivers for one launch: {n} x {m}")
+    record = torch.empty((m, n), dtype=torch.uint8, device=dev)  # the kernel writes every byte
     if m and n and b:
+        origin, direction, t_env, _, _, alive = _planes(segs)
         centers = centers.detach().to(torch.float32).contiguous()
         with torch.cuda.device(dev):
             MAP_CAPTURE_KERNEL.launch(
-                *(t.data_ptr() for t in _planes(segs)), b, n, centers.data_ptr(), m,
-                float(rx_radius), float(scale), amp.data_ptr(), dist.data_ptr(), cap.data_ptr(),
+                origin.data_ptr(), direction.data_ptr(), t_env.data_ptr(), alive.data_ptr(), b, n,
+                centers.data_ptr(), m, float(rx_radius), record.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
-    return amp, dist, cap
+    elif m and n:
+        record.fill_(NO_CAPTURE)
+    return record
 
 
 def _g_at(g_row: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
@@ -198,14 +268,18 @@ def map_capture_backward_plain(segs: EnvSegments, centers: torch.Tensor, rx_radi
     return g_o, g_d, g_a, g_dist, g_c, sum_amp.to(f32), sum_gg.to(f32) * r
 
 
-def map_capture_backward(segs: EnvSegments, centers: torch.Tensor, rx_radius, g: torch.Tensor, *,
-                         scale: float, nbins: int, light_speed_mps: float, sample_rate_hz: float,
-                         soft: bool, centers_grad: bool = True, scalars_grad: bool = True):
+def map_capture_backward(segs: EnvSegments, centers: torch.Tensor, rx_radius, g: torch.Tensor,
+                         record: torch.Tensor, *, scale: float, nbins: int,
+                         light_speed_mps: float, sample_rate_hz: float, soft: bool,
+                         centers_grad: bool = True, scalars_grad: bool = True):
     """The tuple of `map_capture_backward_plain`: that plain version on a CPU
-    tensor, one call of `rfx_map_capture_backward` on a CUDA tensor (each
-    segment's sums over the receivers in ascending order, the same bits from
-    run to run; the centers' gradient and the scale's and radius's sums,
-    where asked for, per-block partials added in a fixed order)."""
+    tensor (it finds the captures again), one call of
+    `rfx_map_capture_backward` on a CUDA tensor, which reads where the
+    captures are from `record`, the forward's first-capture record of these
+    segments and centers (`map_record`): each segment's sums over the
+    receivers in ascending order, the same bits from run to run; the
+    centers' gradient and the scale's and radius's sums, where asked for,
+    in a fixed order."""
     kw = dict(scale=scale, nbins=nbins, light_speed_mps=light_speed_mps,
               sample_rate_hz=sample_rate_hz, soft=soft, centers_grad=centers_grad,
               scalars_grad=scalars_grad)
@@ -219,6 +293,9 @@ def map_capture_backward(segs: EnvSegments, centers: torch.Tensor, rx_radius, g:
     _check_sizes(b, n, m, nbins)
     if tuple(g.shape) != (m, nbins):
         raise ValueError(f"g must be ({m}, {nbins}), got {tuple(g.shape)}")
+    if record.dtype != torch.uint8 or tuple(record.shape) != (m, n):
+        raise ValueError(f"record must be ({m}, {n}) uint8, got {tuple(record.shape)} "
+                         f"{record.dtype}")
     f32 = torch.float32
     r = _radius(rx_radius, "cpu")
     shapes = ((b, n, 3), (b, n, 3), (b, n), (b, n))
@@ -228,21 +305,24 @@ def map_capture_backward(segs: EnvSegments, centers: torch.Tensor, rx_radius, g:
                 *(zeros[5:] if scalars_grad else (None, None)))
     # The kernel writes every element of its outputs.
     outs = [torch.empty(x, dtype=f32, device=dev) for x in shapes]
-    blocks = _backward_blocks(n)
+    rows = _backward_scratch_rows(n)
     g_c = gc_partials = sums = sums_partials = None
     if centers_grad:
         g_c = torch.empty((m, 3), dtype=f32, device=dev)
-        gc_partials = torch.empty((blocks, m, 3), dtype=f32, device=dev)
+        gc_partials = torch.empty((rows, m, 3), dtype=f32, device=dev)
     if scalars_grad:
         sums = torch.empty(2, dtype=f32, device=dev)
-        sums_partials = torch.empty((blocks, 2), dtype=torch.float64, device=dev)
+        sums_partials = torch.empty((rows, 2), dtype=torch.float64, device=dev)
     qd_floor = float(1e-6 * r.clamp_min(1e-6))
+    origin, direction, _, amplitude, distance, _ = _planes(segs)
     centers = centers.detach().to(f32).contiguous()
     g = g.detach().to(f32).contiguous()
+    record = record.contiguous()
     with torch.cuda.device(dev):
         MAP_CAPTURE_BACKWARD_KERNEL.launch(
-            *(t.data_ptr() for t in _planes(segs)), b, n, centers.data_ptr(), m, float(r),
-            float(scale), float(light_speed_mps), float(sample_rate_hz), nbins, int(soft), qd_floor,
+            origin.data_ptr(), direction.data_ptr(), amplitude.data_ptr(), distance.data_ptr(),
+            record.data_ptr(), b, n, centers.data_ptr(), m, float(r), float(scale),
+            float(light_speed_mps), float(sample_rate_hz), nbins, int(soft), qd_floor,
             g.data_ptr(), *(t.data_ptr() for t in outs),
             *(None if t is None else t.data_ptr() for t in (gc_partials, g_c, sums_partials, sums)),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -255,31 +335,35 @@ class _MapIRs(torch.autograd.Function):
     """(R, nbins) IRs of R receivers from the segments, hard or soft, with
     the gradient of the plain map engine in origin, direction, amplitude,
     distance, the centers, the scale and the radius (0-dim tensors; t_env
-    and alive enter comparisons only). The forward keeps the segments and
-    the centers; never an (R, B, N) tensor."""
+    and alive enter comparisons only). The forward keeps the segments, the
+    centers and the (R, N) first-capture record; never an (R, B, N) tensor."""
 
     @staticmethod
     def forward(ctx, origin, direction, t_env, amplitude, distance, alive, centers, scale, radius,
                 kw):
         segs = EnvSegments(origin, direction, t_env, amplitude, distance, alive)
-        rows = map_capture(segs, centers, kw["radius"], kw["scale"])
-        irs = cir.histogram_rows(*rows, nbins=kw["nbins"], light_speed_mps=kw["light_speed_mps"],
-                                 sample_rate_hz=kw["sample_rate_hz"], soft=kw["soft"])
-        ctx.save_for_backward(origin, direction, t_env, amplitude, distance, alive, centers)
+        record = map_record(segs, centers, kw["radius"])
+        hkw = dict(nbins=kw["nbins"], light_speed_mps=kw["light_speed_mps"],
+                   sample_rate_hz=kw["sample_rate_hz"], soft=kw["soft"])
+        if record.device.type == "cpu":
+            irs = histogram_record_plain(record, segs, centers, kw["radius"], kw["scale"], **hkw)
+        else:
+            irs = cir.histogram_record(record, segs, centers, kw["radius"], kw["scale"], **hkw)
+        ctx.save_for_backward(origin, direction, t_env, amplitude, distance, alive, centers, record)
         ctx.kw = kw
         ctx.scalars = scale, radius
         return irs
 
     @staticmethod
     def backward(ctx, g):
-        *planes, centers = ctx.saved_tensors
+        *planes, centers, record = ctx.saved_tensors
         need = ctx.needs_input_grad
         if not any(need[k] for k in (0, 1, 3, 4, 6, 7, 8)):
             return (None,) * 10
         kw = dict(ctx.kw)
         radius = kw.pop("radius")
         g_o, g_d, g_a, g_dist, g_c, g_scale, g_radius = map_capture_backward(
-            EnvSegments(*planes), centers, radius, g, centers_grad=need[6],
+            EnvSegments(*planes), centers, radius, g, record, centers_grad=need[6],
             scalars_grad=need[7] or need[8], **kw)
         scale, radius = ctx.scalars
         return (g_o if need[0] else None, g_d if need[1] else None, None,
@@ -297,12 +381,15 @@ def map_irs(segs: EnvSegments, rx_centers, rx_radius, *, scale, nbins: int,
     direction, amplitude and distance, in the centers, and in `scale` and
     `rx_radius` where they are tensors (0-dim; on the host, they cost the
     card no wait). A CPU tensor runs the plain versions, a CUDA tensor the
-    kernels."""
+    kernels: one launch of the capture pass and one of the histogram's
+    record entry. At most 254 bounces (the record's byte)."""
     _check_segments(segs)
     if nbins < 1:
         raise ValueError("nbins must be at least 1")
+    b, n = segs.t_env.shape
     dev = segs.t_env.device
     centers = torch.as_tensor(rx_centers, dtype=torch.float32, device=dev).reshape(-1, 3)
+    _check_sizes(b, n, centers.shape[0], nbins)
     scale = torch.as_tensor(scale, dtype=torch.float32).reshape(())
     radius = torch.as_tensor(rx_radius, dtype=torch.float32).reshape(())
     kw = dict(scale=float(scale.detach()), radius=float(radius.detach()), nbins=int(nbins),

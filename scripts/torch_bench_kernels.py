@@ -2,7 +2,7 @@
 """Time the port's hand-written kernels at the shapes of their main paths on
 one NVIDIA GPU, and hold them against another checkout's kernels.
 
-    python3 scripts/torch_bench_kernels.py [--other DIR] [--only k3,kf,kpb,kfb] [--reps N]
+    python3 scripts/torch_bench_kernels.py [--other DIR] [--only k3,kf,kpb,kfb,ks,ksb] [--reps N]
                                            [--out build/bench_kernels.json]
 
 The scenes, transmitters, receivers and sizes are those of chip_smoke.py (the
@@ -25,9 +25,9 @@ events, the mean of `--reps` calls after one warm-up):
   10,000 bins on the room and on the bench terrain;
 - K-H, the IR histogram, 20,000 bins, hard and soft: the forward shape
   (5,242,880 rays of the bench workload, one row) and the solver's shapes
-  (the map engine's planes of 1,048,576 rays x 4 bounces for the 64
-  receivers of chip_smoke.py's inverse solve: 4,194,304 entries a row; one
-  row, and all 64 in one call), each with the plain version's time,
+  (the plain map engine's dense rows of 1,048,576 rays x 4 bounces for the
+  64 receivers of chip_smoke.py's inverse solve: 4,194,304 entries a row;
+  one row, and all 64 in one call), each with the plain version's time,
   `index_add_` on ready-made bins and weights, and two bounds: 9 bytes an
   entry plus the bins, and the bytes the function needs (the mask, 8 bytes a
   capture by 32-byte sector, the bins). `*_ms` is the CUDA-event time of
@@ -50,7 +50,17 @@ events, the mean of `--reps` calls after one warm-up):
   tap of the nonzero g_eff);
 - K-F's backward (`kfb`), phasor_backward with g_dbm = 1 on both coverage
   sweeps' segments, with the plain version's time and the forward walk's
-  bound. A checkout without the backwards skips these two rows.
+  bound. A checkout without the backwards skips these two rows;
+- the map engine's capture pass (`ks`): `map_irs`, hard and soft, on
+  chip_smoke.py phase 11's segments (the inverse solve: 1,048,576 rays x 4
+  bounces on the bench terrain, 64 receivers of radius 1.0, 20,000 bins),
+  the call's time and its device time, and the capture pass alone
+  (`map_record`, or a checkout's dense-rows `map_capture`);
+- its backward (`ksb`), `map_capture_backward` on the same segments for a
+  seeded (64, 20,000) cotangent (numpy seed 3), soft, the segments'
+  gradients alone and with the centers', scale's and radius's (given K-S's
+  record where the checkout's backward takes one). A checkout without the
+  capture pass skips these two rows.
 
 `--other DIR` runs every row in a child process on the checkout in DIR
 (another commit of this repository, unpacked there), before and after this
@@ -61,7 +71,8 @@ takes one row a call is given the rows one by one), K-P's and K-F's dBm
 where finite (a checkout without
 the kernels times its host loops under the same names), and every row's
 digest of its outputs (`digest_equal_other`: K-P's dBm and signal, K-F's
-dBm, ratio and spread, K3's IRs, K1's four outputs). Prints one JSON object
+dBm, ratio and spread, K3's IRs, K1's four outputs, the map engine's IRs
+and its backward's segment gradients). Prints one JSON object
 and writes the whole record to `--out`; `card` is nvidia-smi's name and
 power limit.
 """
@@ -97,6 +108,15 @@ def _ms(fn, reps):
     return large.timed_ms(fn, torch.device("cuda", 0), reps, warm=True)
 
 
+def _ms_held(fn, reps):
+    """`_ms` after two untimed calls whose results are both held: each timed
+    call runs while the last one's result is alive, and so finds two
+    results' device memory cached instead of allocating in the timed loop."""
+    first, second = fn(), fn()
+    del first, second
+    return _ms(fn, reps)
+
+
 def _digest(tensors) -> str:
     h = hashlib.sha256()
     for t in tensors:
@@ -125,7 +145,24 @@ class Workloads:
         for name, tx, zs in smoke.COV_SCENES:
             _, grid, _, scaled = smoke.coverage_workload(cov_meshes[name], tx, zs, cov_dirs, dev)
             self.cov[name] = (scaled, torch.as_tensor(grid, device=dev))
+        self._solver = None
         torch.cuda.synchronize()
+
+    def solver(self):
+        """chip_smoke.py phase 11's segments of tx and its 64 receivers."""
+        import torch
+
+        from rfx_torch.ops.bvh_trace import make_kernel_env_hit
+        from rfx_torch.tracer import trace_env
+
+        if self._solver is None:
+            scene, dirs, centers = smoke.solver_inputs(self.meshes["bench"], self.dev)
+            with torch.no_grad():
+                segs = trace_env(scene, torch.tensor(smoke.TX, device=self.dev), dirs,
+                                 max_bounces=smoke.BOUNCES,
+                                 env_hit=make_kernel_env_hit(self.bvh["bench"]))
+            self._solver = (segs, centers)
+        return self._solver
 
 
 def run_k1(w: Workloads, reps: int, keep: dict) -> dict:
@@ -252,8 +289,8 @@ def run_kh(w: Workloads, reps: int, keep: dict) -> dict:
                     max_bounces=smoke.BOUNCES)
     shapes = {"forward": (r.amplitude[None] * (1.0 / smoke.N_RAYS), r.distance[None],
                           r.captured[None])}
-    # The inverse solve's planes (chip_smoke.py phase 11), as the map engine
-    # hands them to the histogram: bounces and rays flattened, one row a receiver.
+    # The inverse solve's dense rows (chip_smoke.py phase 11), as the plain
+    # map engine writes them: bounces and rays flattened, one row a receiver.
     n = smoke.SOLVER_RAYS
     mesh = w.meshes["bench"]
     scene = Scene.from_mesh(mesh, w.dev)
@@ -437,7 +474,72 @@ def run_kfb(w: Workloads, reps: int, keep: dict) -> dict:
     return out
 
 
-ROWS = ("k1", "k2", "k3", "kh", "kp", "kf", "kpb", "kfb")
+def _map_kw(soft: bool) -> dict:
+    import torch
+
+    from rfx_torch.coverage import _amp_scale
+
+    return dict(scale=float(_amp_scale(1.0, smoke.SOLVER_RAYS, torch.device("cpu"))), soft=soft,
+                nbins=smoke.NBINS, light_speed_mps=smoke.C, sample_rate_hz=smoke.RATE)
+
+
+def run_ks(w: Workloads, reps: int, keep: dict) -> dict:
+    try:
+        from rfx_torch.ops import map_capture as mc
+    except ImportError:
+        return {}
+    segs, centers = w.solver()
+    out = {}
+    for soft in (False, True):
+        tag = "soft" if soft else "hard"
+        kw = _map_kw(soft)
+        irs, ms = _ms_held(lambda: mc.map_irs(segs, centers, 1.0, **kw), reps)
+        out[tag] = {"ms": ms, "digest": _digest([irs]), "nonzero": int((irs != 0).sum()),
+                    "device_ms": smoke.device_ms(lambda: mc.map_irs(segs, centers, 1.0, **kw), reps)}
+        keep[f"ks_{tag}"] = irs.cpu()
+    if hasattr(mc, "map_record"):
+        _, out["capture_pass_ms"] = _ms_held(lambda: mc.map_record(segs, centers, 1.0), reps)
+    else:  # a checkout whose capture pass writes the dense rows
+        _, out["capture_pass_ms"] = _ms_held(
+            lambda: mc.map_capture(segs, centers, 1.0, _map_kw(True)["scale"]), reps)
+    return out
+
+
+def run_ksb(w: Workloads, reps: int, keep: dict) -> dict:
+    import inspect
+
+    import numpy as np
+    import torch
+
+    try:
+        from rfx_torch.ops import map_capture as mc
+    except ImportError:
+        return {}
+    segs, centers = w.solver()
+    g = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(centers.shape[0], smoke.NBINS)).astype(np.float32)).to(w.dev)
+    extra = ()
+    if "record" in inspect.signature(mc.map_capture_backward).parameters:
+        extra = (mc.map_record(segs, centers, 1.0),)
+    kw = _map_kw(True)
+
+    def call(full):
+        return lambda: mc.map_capture_backward(segs, centers, 1.0, g, *extra, centers_grad=full,
+                                               scalars_grad=full, **kw)
+
+    grads, ms = _ms_held(call(False), reps)
+    full, full_ms = _ms_held(call(True), reps)
+    for name, t in zip(("origin", "direction", "amplitude", "distance"), grads[:4]):
+        keep[f"ksb_{name}"] = t.cpu()
+    for name, t in zip(("centers", "scale", "radius"), full[4:]):
+        keep[f"ksb_{name}"] = t.reshape(-1).cpu()
+    return {"segments": {"ms": ms, "digest": _digest(grads[:4]),
+                         "device_ms": smoke.device_ms(call(False), reps)},
+            "all": {"ms": full_ms, "digest": _digest(full[4:]),
+                    "device_ms": smoke.device_ms(call(True), reps)}}
+
+
+ROWS = ("k1", "k2", "k3", "kh", "kp", "kf", "kpb", "kfb", "ks", "ksb")
 
 
 def _run_all(w: Workloads, reps: int, keep: dict, only=ROWS) -> dict:
@@ -446,7 +548,8 @@ def _run_all(w: Workloads, reps: int, keep: dict, only=ROWS) -> dict:
     runs = {"k1": lambda: run_k1(w, reps, keep), "k2": lambda: run_k2(w, reps),
             "k3": lambda: run_k3(w, reps, keep), "kh": lambda: run_kh(w, reps, keep),
             "kp": lambda: run_kp(w, reps, keep), "kf": lambda: run_kf(w, reps, keep),
-            "kpb": lambda: run_kpb(w, reps, keep), "kfb": lambda: run_kfb(w, reps, keep)}
+            "kpb": lambda: run_kpb(w, reps, keep), "kfb": lambda: run_kfb(w, reps, keep),
+            "ks": lambda: run_ks(w, reps, keep), "ksb": lambda: run_ksb(w, reps, keep)}
     only = set(only) | ({"k3"} if {"kp", "kpb"} & set(only) else set())
     return {row: runs[row]() for row in ROWS if row in only}
 
@@ -542,8 +645,8 @@ def main(argv=None) -> int:
         json.dump(out, f, indent=1)
 
     def brief(r):
-        return {k: {s: v["ms"] for s, v in r[k].items()} for k in r
-                if k in ("k1", "k2", "k3", "kp", "kf", "kpb", "kfb")}
+        return {k: {s: v["ms"] for s, v in r[k].items() if isinstance(v, dict)} for k in r
+                if k in ("k1", "k2", "k3", "kp", "kf", "kpb", "kfb", "ks", "ksb")}
 
     def kh(r):
         return {s: {k: v for k, v in t.items() if not k.endswith("digest")}
@@ -551,8 +654,8 @@ def main(argv=None) -> int:
 
     def digests(mine, theirs):
         return {k: {s: t.get("digest") == theirs.get(k, {}).get(s, {}).get("digest")
-                    for s, t in mine[k].items()} for k in ("k1", "k3", "kp", "kf", "kpb", "kfb")
-                if k in mine}
+                    for s, t in mine[k].items() if isinstance(t, dict)}
+                for k in ("k1", "k3", "kp", "kf", "kpb", "kfb", "ks", "ksb") if k in mine}
 
     print(json.dumps({"card": card, "here": brief(out["here"]), "kh": kh(out["here"]),
                       "digest_equal_other": digests(out["here"], out.get("other_first", {})),
@@ -565,6 +668,9 @@ def main(argv=None) -> int:
                       "kp_kf": {k: {s: {f: v for f, v in t.items() if f != "digest"}
                                     for s, t in out["here"].get(k, {}).items()}
                                 for k in ("kp", "kf", "kpb", "kfb")},
+                      "ks": {k: out["here"].get(k) for k in ("ks", "ksb")},
+                      "ks_other_first": {k: out.get("other_first", {}).get(k) for k in ("ks", "ksb")},
+                      "ks_other_last": {k: out.get("other_last", {}).get(k) for k in ("ks", "ksb")},
                       "other_first": brief(out.get("other_first", {})),
                       "other_last": brief(out.get("other_last", {})),
                       "vs_other": out.get("here_vs_other"), "seconds": out["seconds"]}))

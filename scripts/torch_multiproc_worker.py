@@ -20,7 +20,7 @@ Cases (the mesh over the world's ranks):
 - `coverage`, {'rays': num_procs / 2, 'rx': 2}: this rank's tile of
   `sharded_coverage_irs`, through engine 'map' twice, or with `--workload
   chip` through engine 'batched' (the coverage kernel) twice and 'map' (the
-  IR histogram) once;
+  capture pass and the IR histogram's record entry) once;
 - `solver`, {'rays': num_procs / 2, 'rx': 2}: one step of
   `make_inverse_solver(mesh=)` from the start, twice (the same bits;
   scripts/torch_multiproc_solver_worker.py runs this case alone): the loss,

@@ -1080,9 +1080,10 @@ def test_micro_vote_kernel_matches_plain(cuda, style):
 
 def test_two_rank_sharded_paths_on_card(cuda, tmp_path):
     """Two gloo ranks sharing the card (scripts/torch_multiproc_worker.py,
-    the CPU tests' room workload): sharded_cir on {'rays': 2} and the
-    coverage tiles on {'rays': 1, 'rx': 2} through the histogram kernel,
-    against the unsharded paths on the card; the ranks hold the same IR bits."""
+    the CPU tests' room workload): sharded_cir on {'rays': 2} through the
+    histogram kernel and the coverage tiles on {'rays': 1, 'rx': 2} through
+    the map engine (K-S and the histogram's record entry), against the
+    unsharded paths on the card; the ranks hold the same IR bits."""
     import os
     import sys
 
@@ -1098,7 +1099,7 @@ def test_two_rank_sharded_paths_on_card(cuda, tmp_path):
     infos = [result_of(o) for o in outs]
     ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
     assert all(i["backend"] == "gloo" and i["cir"]["launches"]["rfx_ir_histogram"] > 0
-               and i["coverage"]["launches"]["rfx_ir_histogram"] > 0 for i in infos)
+               and i["coverage"]["launches"]["rfx_ir_histogram_record"] > 0 for i in infos)
     assert np.array_equal(ranks[0]["cir_ir"], ranks[1]["cir_ir"])
 
     from rfx_torch.graft_entry import uniform_sphere_directions
@@ -1130,22 +1131,41 @@ MAP_SCALE = 1.0 / 1024  # tx_power / num_rays, exact in f32
 
 
 def _map_launches():
+    """Launches of K-S, its backward, the histogram's record entry and its
+    dense entry."""
     return (map_capture.MAP_CAPTURE_KERNEL.launches,
-            map_capture.MAP_CAPTURE_BACKWARD_KERNEL.launches, cir.HISTOGRAM_KERNEL.launches)
+            map_capture.MAP_CAPTURE_BACKWARD_KERNEL.launches,
+            cir.HISTOGRAM_RECORD_KERNEL.launches, cir.HISTOGRAM_KERNEL.launches)
+
+
+def _assert_map_record(segs, centers, radius):
+    """K-S's record == map_record_plain's byte for byte, two runs the same;
+    returns it."""
+    before = map_capture.MAP_CAPTURE_KERNEL.launches
+    k1 = map_capture.map_record(segs, centers, radius)
+    k2 = map_capture.map_record(segs, centers, radius)
+    assert map_capture.MAP_CAPTURE_KERNEL.launches == before + 2
+    p = map_capture.map_record_plain(segs, centers, radius)
+    torch.cuda.synchronize()
+    assert k1.dtype == torch.uint8 and k1.shape == (centers.shape[0], segs.t_env.shape[1])
+    assert torch.equal(k1, k2) and torch.equal(k1, p)
+    return k1
 
 
 def _assert_map_backward(segs, centers, radius, soft, seed=5):
-    """The backward kernel against its plain version for a seeded cotangent:
-    every output, the scale's and radius's sums too, within rtol 1e-5 (an
-    absolute floor of 1e-6 of the largest entry, for the centers' sums,
-    which add in another order), the same bits from run to run; returns the
-    kernel's outputs."""
+    """The backward kernel, given K-S's record, against its plain version for
+    a seeded cotangent: the segments' gradients (origin, direction,
+    amplitude, distance) bit for bit; the centers' and the scale's and
+    radius's sums within rtol 1e-5 (an absolute floor of 1e-6 of the largest
+    entry, for the centers' sums, which add in another order); every output
+    the same bits from run to run; returns the kernel's outputs."""
     g = torch.from_numpy(np.random.default_rng(seed).normal(
         size=(centers.shape[0], MAP_KW["nbins"])).astype(np.float32)).to(centers.device)
     kw = dict(scale=MAP_SCALE, soft=soft, **MAP_KW)
+    record = map_capture.map_record(segs, centers, radius)
     before = map_capture.MAP_CAPTURE_BACKWARD_KERNEL.launches
-    k1 = map_capture.map_capture_backward(segs, centers, radius, g, **kw)
-    k2 = map_capture.map_capture_backward(segs, centers, radius, g, **kw)
+    k1 = map_capture.map_capture_backward(segs, centers, radius, g, record, **kw)
+    k2 = map_capture.map_capture_backward(segs, centers, radius, g, record, **kw)
     assert map_capture.MAP_CAPTURE_BACKWARD_KERNEL.launches == before + 2
     p = map_capture.map_capture_backward_plain(segs, centers, radius, g, **kw)
     torch.cuda.synchronize()
@@ -1153,6 +1173,8 @@ def _assert_map_backward(segs, centers, radius, soft, seed=5):
     assert len(k1) == len(k2) == len(p) == len(names)
     for name, a, b, c in zip(names, k1, k2, p):
         assert torch.equal(a, b), name
+        if name in names[:4]:
+            assert torch.equal(a, c), name
         torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-6 * float(c.abs().max()), msg=name)
     assert float(k1[2].abs().max()) > 0 and (float(k1[0].abs().max()) > 0) == soft
     assert float(k1[5]) != 0.0 and (float(k1[6]) != 0.0) == soft
@@ -1163,23 +1185,22 @@ def _assert_map_backward(segs, centers, radius, soft, seed=5):
 def test_map_capture_kernel_matches_plain(cuda, soft):
     """K-S on the room's segments: 100,003 rays (ragged against a block), 3
     bounces, 71 receivers (three tiles, the last short, and one outside the
-    room), a 100 ns window that drops the longer paths. The capture rows are
-    map_capture_plain's bit for bit; map_irs is one launch of K-S and one of
-    K-H, and its IRs are the plain map engine's bits; the backward kernel
+    room), a 100 ns window that drops the longer paths. The record is
+    map_record_plain's byte for byte; map_irs is one launch of K-S and one
+    of the histogram's record entry, and its IRs are the plain map engine's
+    bits (its dense rows through the dense entry); the backward kernel
     against its plain version, and through map_irs's autograd (the scale and
     the radius host tensors that require grad) the same bits as its direct
     call."""
     segs = _room_segments(cuda, 100_003)
     centers = torch.from_numpy(_room_receivers(71)).to(cuda)
-    rows = map_capture.map_capture(segs, centers, 0.7, MAP_SCALE)
+    record = _assert_map_record(segs, centers, 0.7)
     plain = map_capture.map_capture_plain(segs, centers, 0.7, MAP_SCALE)
-    torch.cuda.synchronize()
-    for a, b in zip(rows, plain):
-        assert torch.equal(a, b)
-    assert int(rows[2].sum()) > 10_000 and not bool(rows[2][-1].any())
+    assert int((record != map_capture.NO_CAPTURE).sum()) > 10_000
+    assert bool((record[-1] == map_capture.NO_CAPTURE).all())
     before = _map_launches()
     irs = map_capture.map_irs(segs, centers, 0.7, scale=MAP_SCALE, soft=soft, **MAP_KW)
-    assert [a - b for a, b in zip(_map_launches(), before)] == [1, 0, 1]
+    assert [a - b for a, b in zip(_map_launches(), before)] == [1, 0, 1, 0]
     want = cir.histogram_rows(*plain, soft=soft, **MAP_KW)
     torch.cuda.synchronize()
     assert torch.equal(irs, want) and int((irs != 0).any(dim=1).sum()) > 40
@@ -1192,28 +1213,55 @@ def test_map_capture_kernel_matches_plain(cuda, soft):
     out = map_capture.map_irs(s, leaves[4], leaves[6], scale=leaves[5], soft=soft, **MAP_KW)
     before = _map_launches()
     got = torch.autograd.grad(out, leaves, g)
-    assert [a - b for a, b in zip(_map_launches(), before)] == [0, 1, 0]
+    assert [a - b for a, b in zip(_map_launches(), before)] == [0, 1, 0, 0]
     torch.cuda.synchronize()
     assert got[5].device.type == got[6].device.type == "cpu"
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b.cpu())
 
 
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+def test_histogram_record_kernel_matches_the_rows_histogram(cuda, soft):
+    """The histogram's record entry against the dense entry on the plain map
+    engine's rows, bit for bit: 100,003 room rays x 3 bounces, a receiver
+    around tx (every ray's first capture on bounce 0: 100,003 captures, 49
+    chunks of its row taking turns), one far outside the room (an empty
+    row) and 30 others; two runs the same."""
+    segs = _room_segments(cuda, 100_003)
+    ring = np.vstack([[[3.0, 2.0, 2.0]], _room_receivers(31)]).astype(np.float32)
+    centers = torch.from_numpy(ring).to(cuda)
+    record = map_capture.map_record(segs, centers, 0.7)
+    rows = map_capture.map_capture_plain(segs, centers, 0.7, MAP_SCALE)
+    hkw = dict(soft=soft, **MAP_KW)
+    before = cir.HISTOGRAM_RECORD_KERNEL.launches
+    k1 = cir.histogram_record(record, segs, centers, 0.7, MAP_SCALE, **hkw)
+    k2 = cir.histogram_record(record, segs, centers, 0.7, MAP_SCALE, **hkw)
+    assert cir.HISTOGRAM_RECORD_KERNEL.launches == before + 2
+    want = cir.histogram_rows(*rows, **hkw)
+    torch.cuda.synchronize()
+    per_row = rows[2].sum(dim=1)
+    assert int(per_row[0]) == 100_003 and int(per_row[-1]) == 0
+    assert torch.equal(k1, k2) and torch.equal(k1, want)
+    assert float(k1[0].sum()) > 0 and not bool(k1[-1].any())
+
+
 def test_map_capture_kernel_many_receivers_and_bounces(cuda):
-    """Ten bounces, 20,011 rays and 600 receivers (two stages of the
-    backward's staged centers, the last tile short), soft binning: the rows
-    bit for bit, the backward against its plain version; a receiver alone
-    is the same bits as in the batch."""
+    """Ten bounces, 20,011 rays and 600 receivers (three groups of the
+    backward's bounces, three stages of its staged centers, the last short;
+    K-S's last tile short), soft binning: the record byte for byte, the IRs
+    the plain rows' bits, the backward against its plain version; a
+    receiver alone is the same bits as in the batch."""
     segs = _room_segments(cuda, 20_011, max_bounces=10)
     centers = torch.from_numpy(_room_receivers(600)).to(cuda)
-    rows = map_capture.map_capture(segs, centers, 0.7, MAP_SCALE)
-    plain = map_capture.map_capture_plain(segs, centers, 0.7, MAP_SCALE)
-    torch.cuda.synchronize()
-    for a, b in zip(rows, plain):
-        assert torch.equal(a, b)
-    assert int(rows[2].reshape(600, 10, -1)[:, 5:].sum()) > 0  # late bounces capture too
+    record = _assert_map_record(segs, centers, 0.7)
+    late = (record >= 5) & (record != map_capture.NO_CAPTURE)
+    assert int(late.sum()) > 0  # late bounces capture too
     _assert_map_backward(segs, centers, 0.7, True, seed=9)
     irs = map_capture.map_irs(segs, centers, 0.7, scale=MAP_SCALE, soft=True, **MAP_KW)
+    want = cir.histogram_rows(*map_capture.map_capture_plain(segs, centers, 0.7, MAP_SCALE),
+                              soft=True, **MAP_KW)
+    torch.cuda.synchronize()
+    assert torch.equal(irs, want)
     for k in (0, 31, 32, 599):
         one = map_capture.map_irs(segs, centers[k:k + 1], 0.7, scale=MAP_SCALE, soft=True,
                                   **MAP_KW)
@@ -1225,8 +1273,8 @@ def test_map_capture_kernel_grazing_and_first_capture(cuda):
     sphere at the origin (|q.d| under the clamp 1e-6 r where they hit), 64
     rays through both spheres on bounce 0 and back through both on bounce 1
     (only the first capture of each receiver counts), a fifth blocked by the
-    environment first and a tenth dead: rows and backward against the plain
-    version; the grazing rays take the clamped gradient."""
+    environment first and a tenth dead: record and backward against the
+    plain version; the grazing rays take the clamped gradient."""
     g = np.random.default_rng(17)
     xs = (-3.4526698e-4 + np.arange(-3000, 3000) * 2.9e-11).astype(np.float32)
     o = torch.from_numpy(np.stack([xs, np.ones_like(xs), np.zeros_like(xs)], 1))
@@ -1251,13 +1299,10 @@ def test_map_capture_kernel_grazing_and_first_capture(cuda):
     segs = EnvSegments(*(x.contiguous().to(cuda) for x in (origin, direction, t_env, amp, dist,
                                                            alive)))
     centers = torch.tensor([[0.0, 0.0, 0.0], [3.0, 0.0, 0.0]], device=cuda)
-    rows = map_capture.map_capture(segs, centers, 1.0, MAP_SCALE)
-    plain = map_capture.map_capture_plain(segs, centers, 1.0, MAP_SCALE)
-    torch.cuda.synchronize()
-    for a, b in zip(rows, plain):
-        assert torch.equal(a, b)
-    cap = rows[2].reshape(2, 2, n)
-    assert bool(cap[0, 0, 64:].all()) and int(cap[:, 1, :64].sum()) > 0  # grazed; bounce 1 won
+    record = _assert_map_record(segs, centers, 1.0)
+    cap = map_capture.map_capture_plain(segs, centers, 1.0, MAP_SCALE)[2].reshape(2, 2, n)
+    assert bool((record[0, 64:] == 0).all())  # grazed
+    assert int((record[:, :64] == 1).sum()) > 0  # bounce 1 won
     assert not bool((cap[:, 0] & cap[:, 1]).any())  # one capture a ray and receiver
     (g_o, *_), _ = _assert_map_backward(segs, centers, 1.0, True, seed=13)
     assert float(g_o[0, 64:].abs().max()) > 1e3 * float(g_o[0, :64].abs().max())
@@ -1265,8 +1310,9 @@ def test_map_capture_kernel_grazing_and_first_capture(cuda):
 
 def test_map_engine_on_card_takes_the_capture_kernels(cuda, monkeypatch):
     """coverage_irs(engine='map', soft=True) on the card: one launch of K-S
-    and K-H per receiver batch, one of the backward kernel per batch in the
-    backward, never the plain first-capture composition, also where
+    and of the histogram's record entry per receiver batch (none of the
+    dense entry), one of the backward kernel per batch in the backward,
+    never the plain first-capture composition, also where
     tx_power requires grad; the IRs and the tx gradient are the same bits
     either way, and the tx_power gradient is within rtol 1e-5 of the plain
     backward's on the same segments."""
@@ -1291,10 +1337,10 @@ def test_map_engine_on_card_takes_the_capture_kernels(cuda, monkeypatch):
 
     before = _map_launches()
     irs, (g_tx,) = run(1.0)
-    assert [a - b for a, b in zip(_map_launches(), before)] == [3, 3, 3]
+    assert [a - b for a, b in zip(_map_launches(), before)] == [3, 3, 3, 0]
     before = _map_launches()
     irs_p, (g_p, g_power) = run(torch.tensor(1.0, device=cuda, requires_grad=True))
-    assert [a - b for a, b in zip(_map_launches(), before)] == [3, 3, 3] and calls == []
+    assert [a - b for a, b in zip(_map_launches(), before)] == [3, 3, 3, 0] and calls == []
     torch.cuda.synchronize()
     assert int((irs != 0).any(dim=1).sum()) > 30 and float(g_tx.abs().max()) > 0
     assert torch.equal(irs, irs_p) and torch.equal(g_tx, g_p)

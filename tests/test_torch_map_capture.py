@@ -4,7 +4,9 @@ rfx's map engine maps over the receivers, rfx.coverage._rx_ir_from_segments,
 forward and through jax.vjp, and against torch autograd of the port's plain
 composition (coverage._first_capture, the `where`s and the histogram
 Function); the gradients in the segments, the centers, tx_power and the
-radius.
+radius. The first-capture record (`map_record_plain`) against rfx's first
+captures, bounce for bounce, and its histogram (`histogram_record_plain`)
+against the plain map engine's rows through the histogram.
 
 Two sets of segments, each from a numpy seed: the port's trace_env of the
 box room (2,048 rays, 2 bounces, four receivers), and a synthetic set of
@@ -26,6 +28,7 @@ import jax.numpy as jnp
 
 from oracle import sample_sphere_directions
 from rfx.coverage import _rx_ir_from_segments as jone
+from rfx.ops.intersect import is_hit, ray_sphere_hit
 from rfx.tracer import EnvSegments as JSegments
 from rfx_torch import cir, coverage
 from rfx_torch.ops import map_capture as mc
@@ -220,14 +223,14 @@ def test_map_capture_matches_the_old_plain_composition(box_room, case, soft):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_map_capture_receiver_alone_equals_it_in_a_batch(box_room, case):
-    """A receiver's capture rows, IR and gradients are the same bits alone
-    and in the batch (the other receivers' cotangent rows zero)."""
+    """A receiver's first-capture record, IR and gradients are the same bits
+    alone and in the batch (the other receivers' cotangent rows zero)."""
     segs, centers = _segments(case, box_room)
     k = 1
-    batch_rows = mc.map_capture(segs, centers, CASES[case], SCALE)
-    alone_rows = mc.map_capture(segs, centers[k:k + 1], CASES[case], SCALE)
-    for a, b in zip(alone_rows, batch_rows):
-        assert torch.equal(a[0], b[k])
+    batch_record = mc.map_record(segs, centers, CASES[case])
+    alone_record = mc.map_record(segs, centers[k:k + 1], CASES[case])
+    assert torch.equal(alone_record[0], batch_record[k])
+    assert int((batch_record[k] != mc.NO_CAPTURE).sum()) > 0
     g = torch.zeros((centers.shape[0], NBINS))
     g[k] = torch.from_numpy(_cotangent(1)[0])
     for soft in (False, True):
@@ -242,13 +245,106 @@ def test_map_capture_receiver_alone_equals_it_in_a_batch(box_room, case):
         assert torch.equal(alone[4][0], batch[4][k])
 
 
+def _rfx_record(segs: EnvSegments, centers: np.ndarray, radius: float) -> np.ndarray:
+    """(R, N) uint8: rfx's first capture of each receiver along each ray, by
+    _rx_ir_from_segments's rule (the sphere through ray_sphere_hit, a win
+    where alive, hit and before the environment, the first win along the
+    bounce axis), receiver by receiver, eager; 255 where none."""
+    b, n = segs.t_env.shape
+    o = jnp.asarray(segs.origin.numpy().reshape(b * n, 3))
+    d = jnp.asarray(segs.direction.numpy().reshape(b * n, 3))
+    t_env, alive = jnp.asarray(segs.t_env.numpy()), jnp.asarray(segs.alive.numpy())
+    out = []
+    with jax.disable_jit():
+        for ctr in centers:
+            t_rx = ray_sphere_hit(o, d, jnp.asarray(ctr), jnp.float32(radius)).reshape(b, n)
+            win = alive & is_hit(t_rx) & (t_env > t_rx)
+            seen_before = jnp.cumsum(win.astype(jnp.int32), axis=0) - win.astype(jnp.int32)
+            first = np.asarray(win & (seen_before == 0))
+            out.append(np.where(first.any(axis=0), first.argmax(axis=0), 255).astype(np.uint8))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_map_record_plain_matches_rfx_first_captures(box_room, case):
+    """The first-capture record names the bounce of rfx's first capture for
+    every receiver and ray, exactly: the box room's four receivers, and the
+    synthetic set's grazing rays, rays through both spheres on both bounces
+    (the second pass is no capture) and segments the environment blocks."""
+    segs, centers = _segments(case, box_room)
+    got = mc.map_record_plain(segs, centers, CASES[case])
+    want = _rfx_record(segs, centers.numpy(), CASES[case])
+    assert got.dtype == torch.uint8 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    captured = got != mc.NO_CAPTURE
+    assert bool(captured.any(dim=1).all()) and int((got == 1).sum()) > 0  # bounce 1 captures too
+    if case == "synthetic":
+        assert bool((got[0, -8:] == 0).all())  # the grazing rays, captured on bounce 0
+
+
+def _wide_case(box_room) -> tuple:
+    """4,096 rays from tx over 2 bounces of the box room; receivers: one
+    around tx (every ray's first capture, 4,096 in its row), one far outside
+    the room (none), and the room's four; radius 1.5."""
+    dirs = sample_sphere_directions(4096, seed=5)
+    with torch.no_grad():
+        segs = trace_env(Scene.from_mesh(box_room, "cpu"), [4.0, 3.0, 6.0], torch.from_numpy(dirs),
+                         max_bounces=2)
+    centers = torch.from_numpy(np.concatenate(
+        [np.asarray([[4.0, 3.0, 6.0], [100.0, 100.0, 100.0]], np.float32), ROOM_CENTERS]))
+    return segs, centers, 1.5
+
+
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+def test_histogram_record_plain_equals_the_rows_histogram(box_room, soft):
+    """The record expanded to rows is map_capture_plain's rows bit for bit,
+    and its histogram is cir.histogram_rows of those rows bit for bit, with
+    a row of more than 2,048 captures and a row of none; map_irs on the CPU
+    is that composition."""
+    segs, centers, radius = _wide_case(box_room)
+    record = mc.map_record_plain(segs, centers, radius)
+    rows = mc.map_capture_plain(segs, centers, radius, SCALE)
+    per_row = rows[2].sum(dim=1)
+    assert int(per_row[0]) > 2048 and int(per_row[1]) == 0 and int(per_row[2:].sum()) > 0
+    for a, b in zip(mc.record_rows(record, segs, centers, radius, SCALE), rows):
+        assert torch.equal(a, b)
+    got = mc.histogram_record_plain(record, segs, centers, radius, SCALE, soft=soft, **KW)
+    want = cir.histogram_rows(*rows, soft=soft, **KW)
+    assert torch.equal(got, want)
+    assert float(got[0].sum()) > 0 and not bool(got[1].any())
+    irs = mc.map_irs(segs, centers, radius, scale=SCALE, soft=soft, **KW)
+    assert torch.equal(irs, want)
+
+
+def test_map_capture_more_than_254_bounces_raises():
+    """A record byte names at most 254 bounces: 255 raise in map_irs and in
+    the record's plain version, on the CPU too; 254 do not."""
+    def segs_of(b):
+        g = np.random.default_rng(3)
+        origin = torch.from_numpy(g.normal(size=(b, 4, 3)).astype(np.float32))
+        direction = torch.nn.functional.normalize(torch.from_numpy(
+            g.normal(size=(b, 4, 3)).astype(np.float32)), dim=-1)
+        full = torch.full((b, 4), 1e30)
+        return EnvSegments(origin, direction, full, torch.ones(b, 4), torch.zeros(b, 4),
+                           torch.ones(b, 4, dtype=torch.bool))
+
+    centers = torch.zeros((1, 3))
+    with pytest.raises(ValueError, match="254 bounces"):
+        mc.map_irs(segs_of(255), centers, 1.0, scale=SCALE, **KW)
+    with pytest.raises(ValueError, match="254 bounces"):
+        mc.map_record_plain(segs_of(255), centers, 1.0)
+    record = mc.map_record_plain(segs_of(254), centers, 1.0)
+    assert tuple(record.shape) == (1, 4) and bool(((record < 254) | (record == mc.NO_CAPTURE)).all())
+
+
 def test_map_capture_cpu_never_touches_a_kernel(box_room, monkeypatch):
     """On CPU tensors map_irs, its backward and the coverage engine's map
     branch run the plain versions: no kernel handle is loaded or launched."""
     def refuse(*args, **kwargs):
         raise AssertionError("a CPU tensor reached a kernel handle")
 
-    for kernel in (mc.MAP_CAPTURE_KERNEL, mc.MAP_CAPTURE_BACKWARD_KERNEL, cir.HISTOGRAM_KERNEL):
+    for kernel in (mc.MAP_CAPTURE_KERNEL, mc.MAP_CAPTURE_BACKWARD_KERNEL, cir.HISTOGRAM_KERNEL,
+                   cir.HISTOGRAM_RECORD_KERNEL):
         monkeypatch.setattr(kernel, "launch", refuse)
         monkeypatch.setattr(kernel, "load", refuse)
     segs, centers = _segments("room", box_room)
