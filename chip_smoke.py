@@ -11,13 +11,16 @@ Phases, each ending in torch.cuda.synchronize() so a fault shows where it
 happened, and none catching its own failure:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the seven CUDA sources of rfx_torch/csrc/ (sixteen C entry points:
-   the fused trace and its counted instantiation share a source, so do the
-   closest hit and its counted instantiation, the coverage histogram, its
-   slab reduction and the phasor metric's table, walk, spread and backward,
-   the RX power and its backward, and the map engine's capture pass and its
-   backward) and the native C++ BVH builder into build/rfx_torch/, one
-   compiler each, all started together;
+2. build the eight CUDA sources of rfx_torch/csrc/ (twenty-one C entry
+   points that launch kernels: the fused trace and its counted
+   instantiation share a source, so do the closest hit and its counted
+   instantiation, the coverage histogram, its slab reduction and the phasor
+   metric's table, walk, spread and backward, the RX power and its
+   backward, the IR histogram and its record entries, and the map engine's
+   capture pass and its backward, each of these last three also
+   instantiated for the icosphere receiver; the brute closest hit has its
+   own) and the native C++ BVH builder into build/rfx_torch/, one compiler
+   each, all started together;
 3. the bench workload (bench.py): make_terrain(grid=128, extent=60, seed=0),
    32,258 triangles, 5,242,880 Morton-ordered rays, 4 bounces, a 20,000-bin
    IR, tx (10, 0, 25), rx (-10, 0, 8), rx radius 1.0;
@@ -171,6 +174,31 @@ happened, and none catching its own failure:
     rx_power_backward_plain on all 64 rows, two runs the same bits, K-S and
     its backward once each and never the plain first-capture composition;
     times and peak memory.
+17. (run after 16) the reference's 80-face icosphere receiver at full
+    width. The request: Tracer(bench terrain, rx_mode="icosphere")
+    .compute_cir on phase 3's workload at radius 1.0 and 0.1 (the scan
+    tracer: K2 for the terrain, the brute closest hit K-B for the receiver,
+    one launch a bounce with the icosphere's bounding-sphere cull, K-H), the
+    IR the same bits in eight runs and with the plain receiver test; every
+    80th ray's trace against the same trace_to_rx with the plain receiver
+    test (phase 4's bars, the IR within rtol 1e-4); request times (CUDA
+    events, seven runs) beside the scan tracer with the analytic receiver
+    and the request with the plain receiver test; K-B alone on the first
+    bounce's 5,242,880 rays == `_brute_forward`. Coverage: the facade's
+    compute_coverage with rx_mode="icosphere" on phase 13's room (its
+    environment through K-B, held against its plain version) and terrain
+    (2,048 receivers x 1,048,576 rays x 2 bounces x 10,000 bins, one
+    launch of K-S/ico and of the record entry/ico a 64-receiver batch, no
+    plain call; three sweeps the same bits); on the first 64 receivers
+    K-S/ico's record == map_record_plain's byte for byte and the record
+    entry/ico's IRs == the plain composition's (`_first_capture` and the
+    dense histogram) bit for bit, hard and soft, the composition timed once
+    as the "before". Value+grad: coverage_dbm(soft=True, rx_mode=
+    "icosphere", engine "map") on 64 room receivers as phase 16's exact
+    leg (K-S/ico, the record entry/ico, B11/ico, K-P and its backward once
+    each), and B11/ico against its plain version (rtol 1e-5, a floor of
+    1e-6 of the largest entry), two runs the same bits; times, bounds and
+    peak memory.
 Each main-path run is counted on its own: every launch count is set to 0
 just before it and read just after, and each kernel the path runs must have
 launched (the forward requests: fused trace, histogram and RX power; the
@@ -189,7 +217,14 @@ map capture, the histogram, RX power and their backwards (the histogram's
 in the map capture's backward) once each; each rank's sharded CIR, coverage
 and solver step: closest hit and histogram, on the coverage the coverage
 kernel and the map capture, on the solver step the map capture and its
-backward). The comparisons with the plain versions, the
+backward; the room's sweeps and value+grads: the brute closest hit; the
+icosphere requests: the brute closest hit, one launch a bounce, the closest
+hit and the histogram; each icosphere sweep: the icosphere capture pass
+and record entry, one launch each a receiver batch, on the room the brute
+closest hit, on the terrain the closest hit; the icosphere value+grad: the
+icosphere capture pass, record entry and backward, RX power and its
+backward, once each, and the brute closest hit). The comparisons with the
+plain versions, the
 checks of phase 10 and the facade are not counted.
 
 Prints CUDA-event times of the kernels beside their plain versions, JSON
@@ -259,6 +294,10 @@ K_POWER_BACKWARD = "rfx_rx_power_backward"
 K_PHASOR_BACKWARD = "rfx_coverage_phasor_backward"
 K_MAP = "rfx_map_capture"
 K_MAP_BACKWARD = "rfx_map_capture_backward"
+K_BRUTE = "rfx_brute_hit"
+K_MAP_ICO = "rfx_map_capture_ico"
+K_HIST_RECORD_ICO = "rfx_ir_histogram_record_ico"
+K_MAP_BACKWARD_ICO = "rfx_map_capture_backward_ico"
 # The phasor metric's three entry points, each launched once a sweep.
 PHASOR_NEEDS = (K_TABLE, K_PHASOR, K_SPREAD)
 # One H100 SXM's published peaks: HBM bytes/s, f32 FLOP/s outside the tensor cores.
@@ -271,6 +310,15 @@ PEAK_F32_FLOPS = 67e12
 # receiver sphere, reflection, Fresnel factor and advance.
 SLAB_FLOPS = 25
 MT_FLOPS = 51
+# The brute closest hit (brute_hit.cuh): a Moller-Trumbore test in the plain
+# version's order; the icosphere's cull, per (ray, receiver), and |d|^2 once
+# a ray.
+MT_TEST_FLOPS = 54
+CULL_FLOPS = 24
+RAY_NORM_FLOPS = 5
+ICO_FACES = 80
+ICO_TRI_BYTES = 36 * ICO_FACES  # a receiver's (80, 9) f32 faces
+ICO_RADII = (1.0, 0.1)  # the request's: the bench's and the config's default
 BOUNCE_FLOPS = 60
 NODE_BYTES = 32  # two float4: the box, with skip and leaf in its w lanes
 TRI_BYTES = 48  # three float4
@@ -288,6 +336,26 @@ def _cuda_ms(fn, reps: int) -> float:
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """CUDA-event time of one of `reps` back-to-back calls of `fn` queued
+    behind a sleep of the device, so that the host's time to enqueue them is
+    hidden: the device's own time a call, where `fn` never waits for the
+    device."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of the device's clock
     start.record()
     for _ in range(reps):
         fn()
@@ -419,8 +487,8 @@ def _counted_bound(fused_bound: dict) -> dict:
 
 
 def port_kernels() -> tuple:
-    """The port's seventeen C entry points that launch kernels (rfx_torch/csrc/), each with
-    its launch count."""
+    """The port's twenty-one C entry points that launch kernels (rfx_torch/csrc/), each with
+    its launch count; the first of each source's that the build starts."""
     from rfx_torch import cir
     from rfx_torch.ops.bvh_trace import CLOSEST_HIT_COUNTED_KERNEL, CLOSEST_HIT_KERNEL
     from rfx_torch.ops.coverage_hist import (
@@ -432,15 +500,26 @@ def port_kernels() -> tuple:
         PHASOR_TABLE_KERNEL,
     )
     from rfx_torch.ops.fused import FUSED_TRACE_COUNTED_KERNEL, FUSED_TRACE_KERNEL
-    from rfx_torch.ops.map_capture import MAP_CAPTURE_BACKWARD_KERNEL, MAP_CAPTURE_KERNEL
+    from rfx_torch.ops.intersect import BRUTE_HIT_KERNEL
+    from rfx_torch.ops.map_capture import (
+        MAP_CAPTURE_BACKWARD_ICO_KERNEL,
+        MAP_CAPTURE_BACKWARD_KERNEL,
+        MAP_CAPTURE_ICO_KERNEL,
+        MAP_CAPTURE_KERNEL,
+    )
     from rfx_torch.ops.micro_vote import MICRO_VOTE_KERNEL
 
     return (FUSED_TRACE_KERNEL, CLOSEST_HIT_KERNEL, cir.HISTOGRAM_KERNEL, COVERAGE_HIST_KERNEL,
-            MICRO_VOTE_KERNEL, cir.RX_POWER_KERNEL, MAP_CAPTURE_KERNEL,
+            MICRO_VOTE_KERNEL, cir.RX_POWER_KERNEL, MAP_CAPTURE_KERNEL, BRUTE_HIT_KERNEL,
             FUSED_TRACE_COUNTED_KERNEL, CLOSEST_HIT_COUNTED_KERNEL, COVERAGE_REDUCE_KERNEL,
             COVERAGE_PHASOR_KERNEL, COVERAGE_SPREAD_KERNEL, PHASOR_TABLE_KERNEL,
             cir.RX_POWER_BACKWARD_KERNEL, PHASOR_BACKWARD_KERNEL, MAP_CAPTURE_BACKWARD_KERNEL,
-            cir.HISTOGRAM_RECORD_KERNEL)
+            cir.HISTOGRAM_RECORD_KERNEL, MAP_CAPTURE_ICO_KERNEL, MAP_CAPTURE_BACKWARD_ICO_KERNEL,
+            cir.HISTOGRAM_RECORD_ICO_KERNEL)
+
+
+#: Sources of rfx_torch/csrc/ with a C entry point that launches kernels.
+N_SOURCES = 8
 
 
 def rx_power_taps(irs, lo=None) -> int:
@@ -760,23 +839,50 @@ def _counted(kernels, path: str, needs, fn):
     return out, counts
 
 
-def _plain_capture_calls(fn):
+def _plain_calls(fn):
     """(fn(), the calls that fn made of the plain first-capture composition,
-    rfx_torch.coverage._first_capture)."""
+    rfx_torch.coverage._first_capture, and of the plain brute closest hit,
+    `_brute_forward`, wherever the port binds it)."""
     from rfx_torch import coverage
+    from rfx_torch.ops import intersect, map_capture
 
     calls = [0]
-    first_capture = coverage._first_capture
+    sites = ((coverage, "_first_capture"), (intersect, "_brute_forward"),
+             (map_capture, "_brute_forward"))
+    originals = [getattr(mod, attr) for mod, attr in sites]
 
-    def counted(*args, **kwargs):
-        calls[0] += 1
-        return first_capture(*args, **kwargs)
+    def counted(f):
+        def call(*args, **kwargs):
+            calls[0] += 1
+            return f(*args, **kwargs)
 
-    coverage._first_capture = counted
+        return call
+
+    for (mod, attr), f in zip(sites, originals):
+        setattr(mod, attr, counted(f))
     try:
         return fn(), calls[0]
     finally:
-        coverage._first_capture = first_capture
+        for (mod, attr), f in zip(sites, originals):
+            setattr(mod, attr, f)
+
+
+def _plain_receiver(fn):
+    """fn() with the brute closest hit's kernel swapped for its plain
+    version (`_brute_forward`, every ray tested): the scan tracer's plain
+    receiver test."""
+    from rfx_torch.ops import intersect
+
+    launch = intersect.brute_hit
+
+    def plain(o, d, v0, e1, e2, t_min, t_max, ray_chunk=None, cull=None):
+        return intersect._brute_forward(o, d, v0, e1, e2, t_min, t_max, ray_chunk)
+
+    intersect.brute_hit = plain
+    try:
+        return fn()
+    finally:
+        intersect.brute_hit = launch
 
 
 def _closest_hit_phase(mesh, bvh, sub):
@@ -1409,7 +1515,7 @@ def _solver_phase(mesh, bvh, dev, kernels, card):
 
     (_, plain_calls), launches = _counted(kernels, "inverse solve",
                                           (K_HIT, K_HIST_RECORD, K_MAP, K_MAP_BACKWARD),
-                                          lambda: _plain_capture_calls(steps))
+                                          lambda: _plain_calls(steps))
     peak = torch.cuda.max_memory_allocated(dev)
     # One launch each of K-S, the histogram's record entry and K-S's
     # backward for each receiver batch and step (64 receivers, rx_batch 64);
@@ -1604,7 +1710,8 @@ def _coverage_phase(terrain, dev, kernels):
                         "2", "--rx-radius", str(COV_RADIUS), "--metric", "exact", "--no-viz",
                         "--save-dbm", save, "--device", "cuda"]
                 (rc, launches), host_s, ev_ms = _timed(lambda: _counted(
-                    kernels, "coverage_exact", (K_COV, K_REDUCE, K_POWER), lambda: cli.main(argv)))
+                    kernels, "coverage_exact", (K_COV, K_REDUCE, K_POWER, K_BRUTE),
+                    lambda: cli.main(argv)))
                 rows = np.load(save)
             out["launches"]["coverage_exact"] = launches
             _require(rc == 0 and rows.shape == (2048, 4), f"coverage CLI: rc {rc}, {rows.shape}")
@@ -1643,7 +1750,7 @@ def _coverage_phase(terrain, dev, kernels):
         # 3. Fast and hybrid through the facade, each counted; the fast
         #    metric's diagnostics against the CPU on every CPU_FAST_STRIDE-th
         #    receiver of the same segments.
-        env_needs = () if name == "room" else (K_HIT,)
+        env_needs = (K_BRUTE,) if name == "room" else (K_HIT,)
         req = (tx, 1.0, grid, COV_RADIUS)
         (fast, launches), res["fast_host_s"], res["fast_ms"] = _timed(lambda: _counted(
             kernels, f"coverage_fast_{name}", PHASOR_NEEDS + env_needs,
@@ -1779,7 +1886,7 @@ def _coverage_grad_phase(terrain, dev, kernels):
             return loss.detach(), g[0], g[1]
 
         fast_valgrad()  # warm-up
-        needs = (*PHASOR_NEEDS, K_PHASOR_BACKWARD) + (() if name == "room" else (K_HIT,))
+        needs = (*PHASOR_NEEDS, K_PHASOR_BACKWARD) + ((K_BRUTE,) if name == "room" else (K_HIT,))
         (loss, g_n1, g_tx), launches = _counted(kernels, f"coverage_fast_grad_{name}", needs,
                                                 fast_valgrad)
         out["launches"][f"coverage_fast_grad_{name}"] = launches
@@ -1844,8 +1951,8 @@ def _coverage_grad_phase(terrain, dev, kernels):
         exact_valgrad()  # warm-up
         ((loss, g_n1, g_tx), plain_calls), launches = _counted(
             kernels, "coverage_exact_grad_room",
-            (K_MAP, K_HIST_RECORD, K_POWER, K_POWER_BACKWARD, K_MAP_BACKWARD),
-            lambda: _plain_capture_calls(exact_valgrad))
+            (K_MAP, K_HIST_RECORD, K_POWER, K_POWER_BACKWARD, K_MAP_BACKWARD, K_BRUTE),
+            lambda: _plain_calls(exact_valgrad))
         out["launches"]["coverage_exact_grad_room"] = launches
         # The histogram's backward is in the map capture's backward: the
         # histogram's record entry launches once, in the forward.
@@ -1900,6 +2007,439 @@ def _coverage_grad_phase(terrain, dev, kernels):
               f"{res['valgrad_peak_bytes'] / 2**30:.2f} GiB", flush=True)
         del irs, x, g_ir, g_plain
         torch.cuda.empty_cache()
+    return out
+
+
+def _brute_bound(n: int, passes: int, n_tris: int, cull: bool) -> dict:
+    """K-B's bound on n rays against n_tris faces: 24 bytes of ray in and 8
+    of t and face out a ray, the faces and the cull's sphere read once; the
+    cull's operations on every ray where there is one, and 54 a test on the
+    rays that pass it (all rays without a cull)."""
+    return _bound(32 * n + 36 * n_tris + (16 if cull else 0),
+                  ((CULL_FLOPS + RAY_NORM_FLOPS) * n if cull else 0)
+                  + MT_TEST_FLOPS * n_tris * passes)
+
+
+def _cull_passes(o, d, centers, radius) -> int:
+    """(ray, receiver) pairs of the rays (L, 3) and the (m, 3) centers that
+    pass the icosphere's cull (intersect.cull_pass, the kernel's predicate)."""
+    import torch
+
+    from rfx_torch.ops import intersect
+
+    total = 0
+    for c in centers:
+        sphere = torch.cat([c.reshape(3), torch.tensor([radius], device=c.device)])
+        total += int(intersect.cull_pass(o, d, sphere).sum())
+    return total
+
+
+def _icosphere_cir_leg(terrain, dev, kernels, card):
+    """Phase 17, the request: Tracer(bench terrain, rx_mode="icosphere")
+    .compute_cir at the bench workload, at radius 1.0 and 0.1, counted (K-B
+    once a bounce for the receiver, K2 for the terrain, K-H); the IR the
+    same bits in seven runs; the trace of every 80th ray against the same
+    trace_to_rx with the plain receiver test (phase 4's bars) and its IR
+    within rtol 1e-4; the request with the plain receiver test once, and the
+    scan tracer with the analytic receiver beside it. Then K-B alone on the
+    request's first bounce (5,242,880 rays from tx against the receiver
+    icosphere, with its cull) against `_brute_forward`, timed beside it."""
+    import numpy as np
+    import torch
+
+    from rfx_torch.api import Tracer
+    from rfx_torch.ops import intersect
+    from rfx_torch.sampler import morton_sphere_directions
+    from rfx_torch.tracer import icosphere_soa, trace_to_rx
+
+    dirs = morton_sphere_directions(N_RAYS, generator=torch.Generator(dev).manual_seed(0),
+                                    device=dev)
+    tracer = Tracer(terrain, C, RATE, WINDOW, max_bounces=BOUNCES, tx_num_rays=N_RAYS,
+                    rx_mode="icosphere", device=dev)
+    _require(tracer.backend == "fused" and tracer._fused is None,
+             f"icosphere Tracer: backend {tracer.backend}, fused kernel {tracer._fused}")
+    sub = dirs[::N_RAYS // SUBSET].contiguous()
+    out = {"launches": {}}
+    for radius in ICO_RADII:
+        tag = f"r{radius:g}"
+        res = out[tag] = {}
+
+        def request():
+            return tracer.compute_cir(TX, 1.0, RX, radius, directions=dirs, record_paths=False)[1]
+
+        request()  # warm-up
+        (ir, plain_calls), launches = _counted(kernels, f"icosphere_cir_{tag}",
+                                               (K_BRUTE, K_HIT, K_HIST),
+                                               lambda: _plain_calls(request))
+        out["launches"][f"icosphere_cir_{tag}"] = launches
+        _require(launches[K_BRUTE] == BOUNCES and launches[K_FUSED] == 0 and plain_calls == 0,
+                 f"icosphere request, radius {radius}: launches {launches}, {plain_calls} plain "
+                 f"calls")
+        _require(ir.shape == (NBINS,) and np.all(np.isfinite(ir)) and float(ir.sum()) > 0,
+                 f"icosphere request, radius {radius}: IR empty or not finite")
+        times = []
+        for _ in range(7):
+            again, _, ev_ms = _timed(request)
+            _require(np.array_equal(again, ir), f"icosphere request, radius {radius}: runs differ")
+            times.append(ev_ms)
+
+        def analytic():
+            result = trace_to_rx(tracer.scene, TX, dirs, RX, radius, max_bounces=BOUNCES,
+                                 rx_mode="analytic", env_hit=tracer.env_hit)
+            return tracer._cir(result, 1.0)
+
+        analytic()
+        analytic_times = [_timed(analytic)[2] for _ in range(5)]
+        plain_ir, _, plain_ms = _timed(lambda: _plain_receiver(request))
+        _require(np.array_equal(plain_ir, ir),
+                 f"icosphere request, radius {radius}: the plain receiver's IR differs")
+        kw = dict(max_bounces=BOUNCES, rx_mode="icosphere", env_hit=tracer.env_hit)
+        k_res = trace_to_rx(tracer.scene, TX, sub, RX, radius, **kw)
+        p_res = _plain_receiver(lambda: trace_to_rx(tracer.scene, TX, sub, RX, radius, **kw))
+        amp_err, dist_err = _trace_close(k_res, p_res, f"icosphere trace, radius {radius}")
+        ir_k, ir_p = tracer._cir(k_res, 1.0), tracer._cir(p_res, 1.0)
+        _sync()
+        _require(torch.equal(ir_k != 0, ir_p != 0)
+                 and torch.allclose(ir_k, ir_p, rtol=1e-4, atol=1e-9),
+                 f"icosphere trace, radius {radius}: the subset's IR differs")
+        res.update(captured_subset=int(p_res.captured.sum()), nonzero_bins=int((ir != 0).sum()),
+                   ir_sum=float(ir.sum()), ms=times, analytic_scan_ms=analytic_times,
+                   plain_receiver_ms=plain_ms, amp_err=amp_err, dist_err=dist_err,
+                   dbm=float(tracer.rx_power_dbm(ir)))
+        print(f"# icosphere compute_cir, radius {radius}, {N_RAYS} rays: IR sum "
+              f"{res['ir_sum']:.6e} ({res['nonzero_bins']} nonzero bins, {res['dbm']:.4f} dBm), "
+              f"the same bits in 8 runs and with the plain receiver test; K-B {launches[K_BRUTE]} "
+              f"launches (one a bounce); {SUBSET}-ray subset == the plain receiver's trace "
+              f"({res['captured_subset']} captures; max |d amp| {amp_err:.3e}, |d dist| "
+              f"{dist_err:.3e}); request min / median / max {min(times):.3f} / "
+              f"{float(np.median(times)):.3f} / {max(times):.3f} ms (CUDA events), the scan "
+              f"tracer with the analytic receiver {min(analytic_times):.3f} / "
+              f"{float(np.median(analytic_times)):.3f} / {max(analytic_times):.3f} ms, with the "
+              f"plain receiver test {plain_ms:.1f} ms; {card}", flush=True)
+        del k_res, p_res
+
+    # K-B alone at the request's first bounce, radius 1.0.
+    o = torch.tensor(TX, device=dev).expand(N_RAYS, 3).contiguous()
+    rx = torch.tensor(RX, device=dev)
+    v0, e1, e2 = icosphere_soa(rx, RX_RADIUS)
+    cull = torch.cat([rx, torch.tensor([RX_RADIUS], device=dev)])
+    k1 = intersect.brute_hit(o, dirs, v0, e1, e2, cull=cull)
+    k2 = intersect.brute_hit(o, dirs, v0, e1, e2, cull=cull)
+    p = intersect._brute_forward(o, dirs, v0, e1, e2, intersect.T_MIN_EPS, intersect.T_MAX, None)
+    _sync()
+    for a, b, c in zip(k1, k2, p):
+        _require(torch.equal(a, b) and torch.equal(a, c), "K-B: kernel != plain, request's rays")
+    passes = int(intersect.cull_pass(o, dirs, cull).sum())
+    kb = out["kernel"] = {
+        "rays": N_RAYS, "cull_passes": passes, "hits": int((k1[1] >= 0).sum()),
+        "ms": _cuda_ms(lambda: intersect.brute_hit(o, dirs, v0, e1, e2, cull=cull), 20),
+        "device_ms": device_ms(lambda: intersect.brute_hit(o, dirs, v0, e1, e2, cull=cull), 20),
+        "queued_ms": queued_ms(lambda: intersect.brute_hit(o, dirs, v0, e1, e2, cull=cull), 20),
+        "plain_ms": _cuda_ms(lambda: intersect._brute_forward(
+            o, dirs, v0, e1, e2, intersect.T_MIN_EPS, intersect.T_MAX, None), 1),
+        "no_cull_ms": _cuda_ms(lambda: intersect.brute_hit(o, dirs, v0, e1, e2), 10),
+        "bound": _brute_bound(N_RAYS, passes, ICO_FACES, True)}
+    print(f"# K-B, the request's receiver (radius {RX_RADIUS}), {N_RAYS} rays from tx: kernel == "
+          f"plain ({kb['hits']} hits; {passes} rays pass the cull); {kb['ms']:.4f} ms a call, "
+          f"{kb['device_ms']:.4f} ms on the device ({kb['queued_ms']:.4f} queued), without the cull {kb['no_cull_ms']:.4f} ms, "
+          f"plain {kb['plain_ms']:.1f} ms, bound {kb['bound']['bound_ms']:.4f} ms by "
+          f"{kb['bound']['bound_by']}; {card}", flush=True)
+    del o, k1, k2, p
+    torch.cuda.empty_cache()
+    return out
+
+
+def _icosphere_coverage_leg(terrain, dev, kernels, card):
+    """Phase 17, coverage: compute_coverage with rx_mode="icosphere" (2,048
+    receivers x 1,048,576 rays x 2 bounces x 10,000 bins, the facade's map
+    engine) on the room (its environment through K-B) and the terrain,
+    counted, three runs the same bits; on the first 64 receivers against the
+    plain composition (`_first_capture`, the dense histogram) on the same
+    segments: K-S/ico's record byte for byte, the record entry/ico's IRs
+    bit for bit hard and soft, the sweep's rows bit for bit; the composition
+    timed once as the "before". K-B on the room's environment against its
+    plain version. Then the icosphere's exact metric, soft, value+grad on 64
+    of the room's receivers (phase 16's exact leg), and B11/ico against its
+    plain version there."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from rfx_torch import cir, coverage
+    from rfx_torch.api import Tracer
+    from rfx_torch.coverage import _amp_scale, coverage_dbm, make_grid
+    from rfx_torch.geometry import make_room
+    from rfx_torch.ops import intersect
+    from rfx_torch.ops import map_capture as mc
+    from rfx_torch.sampler import morton_sphere_directions
+    from rfx_torch.tracer import icosphere_tris, mesh_soa, trace_env
+
+    dirs = morton_sphere_directions(COV_RAYS, generator=torch.Generator(dev).manual_seed(0),
+                                    device=dev)
+    hkw = dict(nbins=COV_BINS, light_speed_mps=C, sample_rate_hz=RATE)
+    scale = float(_amp_scale(1.0, COV_RAYS, torch.device("cpu")))
+    out = {"launches": {}}
+    meshes = {"room": make_room(), "terrain": terrain}
+    for name, tx, zs in COV_SCENES:
+        res = out[name] = {}
+        tracer = Tracer(meshes[name], C, RATE, COV_WINDOW, max_bounces=2, tx_num_rays=COV_RAYS,
+                        rx_mode="icosphere", device=dev)
+        grid = make_grid(range(-15, 16, 2), range(-15, 16, 2), zs)
+        m = grid.shape[0]
+
+        def sweep():
+            return tracer.compute_coverage(tx, 1.0, grid, COV_RADIUS, directions=dirs)
+
+        sweep()  # warm-up
+        env = (K_BRUTE,) if name == "room" else (K_HIT,)
+        (irs, plain_calls), launches = _counted(
+            kernels, f"coverage_ico_{name}", (K_MAP_ICO, K_HIST_RECORD_ICO) + env,
+            lambda: _plain_calls(sweep))
+        out["launches"][f"coverage_ico_{name}"] = launches
+        batches = -(-m // 64)
+        _require(launches[K_MAP_ICO] == launches[K_HIST_RECORD_ICO] == batches
+                 and launches[K_MAP] == launches[K_HIST] == launches[K_COV] == 0
+                 and plain_calls == 0,
+                 f"icosphere coverage, {name}: launches {launches}, {plain_calls} plain calls")
+        host, events = [], []
+        for _ in range(3):
+            again, host_s, ev_ms = _timed(sweep)
+            _require(np.array_equal(again, irs), f"icosphere coverage, {name}: runs differ")
+            host.append(host_s * 1e3)
+            events.append(ev_ms)
+        lit = int((irs != 0).any(axis=1).sum())
+        _require(irs.shape == (m, COV_BINS) and lit > 100,
+                 f"icosphere coverage, {name}: {lit} receivers lit")
+
+        # The first 64 receivers against the plain composition.
+        segs = trace_env(tracer.scene, tx, dirs, max_bounces=2, env_hit=tracer.env_hit)
+        few = torch.as_tensor(grid[:64], device=dev)
+        tris = icosphere_tris(few, COV_RADIUS).contiguous()
+        record = mc.map_record(segs, few, COV_RADIUS, "icosphere", tris)
+        again = mc.map_record(segs, few, COV_RADIUS, "icosphere", tris)
+        plain_record, _, ks_plain_ms = _timed(
+            lambda: mc.map_record_plain(segs, few, COV_RADIUS, "icosphere"))
+        _require(torch.equal(record, again) and torch.equal(record, plain_record),
+                 f"K-S/ico, {name}: the record differs from the plain version's or between runs")
+        captured = int((record != mc.NO_CAPTURE).sum())
+
+        def composition(soft_modes):
+            t_rx, first = coverage._first_capture(segs, few, COV_RADIUS, "icosphere")
+            zero = torch.zeros((), device=dev)
+            amp = (torch.where(first, segs.amplitude, zero)
+                   * _amp_scale(1.0, COV_RAYS, dev)).reshape(64, -1)
+            dist = torch.where(first, segs.distance + t_rx, zero).reshape(64, -1)
+            return [cir.histogram_rows(amp, dist, first.reshape(64, -1), soft=s, **hkw)
+                    for s in soft_modes]
+
+        (want_hard,), _, composition_ms = _timed(lambda: composition((False,)))
+        (want_soft,) = composition((True,))
+        _require(np.array_equal(irs[:64], want_hard.cpu().numpy()),
+                 f"icosphere coverage, {name}: the sweep's rows differ from the plain composition")
+        kh = {}
+        for soft, want in ((False, want_hard), (True, want_soft)):
+            tag = "soft" if soft else "hard"
+            k1 = cir.histogram_record(record, segs, few, COV_RADIUS, scale, soft=soft,
+                                      rx_mode="icosphere", tris=tris, **hkw)
+            k2 = cir.histogram_record(record, segs, few, COV_RADIUS, scale, soft=soft,
+                                      rx_mode="icosphere", tris=tris, **hkw)
+            irs_f = mc.map_irs(segs, few, COV_RADIUS, scale=scale, soft=soft, rx_mode="icosphere",
+                               **hkw)
+            _sync()
+            _require(torch.equal(k1, k2) and torch.equal(k1, want) and torch.equal(irs_f, want),
+                     f"record entry/ico, {name}, {tag}: IRs differ from the plain composition's")
+
+            def entry(soft=soft):
+                return cir.histogram_record(record, segs, few, COV_RADIUS, scale, soft=soft,
+                                            rx_mode="icosphere", tris=tris, **hkw)
+
+            kh[f"{tag}_ms"] = _cuda_ms(entry, 10)
+            kh[f"{tag}_device_ms"] = device_ms(entry, 10)
+            kh[f"{tag}_queued_ms"] = queued_ms(entry, 20)
+            kh[f"{tag}_plain_ms"] = _timed(lambda soft=soft: mc.histogram_record_plain(
+                record, segs, few, COV_RADIUS, scale, soft=soft, rx_mode="icosphere", **hkw))[2]
+            planes = 2 if soft else 1
+            kh[f"bound_{tag}"] = _bound(
+                64 * COV_RAYS + 32 * captured + 12 * 64 + ICO_TRI_BYTES * 64
+                + planes * 4 * 64 * COV_BINS,
+                (MT_TEST_FLOPS * ICO_FACES + 4 * planes) * captured)
+        live = segs.alive
+        o_live, d_live = segs.origin[live], segs.direction[live]
+        passes = _cull_passes(o_live, d_live, few, COV_RADIUS)
+        n_seg = segs.t_env.numel()
+        res.update(
+            receivers=m, lit=lit, sweep_host_ms=host, sweep_ms=events,
+            composition_64_ms=composition_ms, live_segments=int(live.sum()),
+            captured_64=captured, cull_passes_64=passes, histogram=kh,
+            ks_ms=_cuda_ms(lambda: mc.map_record(segs, few, COV_RADIUS, "icosphere", tris), 10),
+            ks_device_ms=device_ms(lambda: mc.map_record(segs, few, COV_RADIUS, "icosphere",
+                                                         tris), 10),
+            ks_queued_ms=queued_ms(lambda: mc.map_record(segs, few, COV_RADIUS, "icosphere",
+                                                         tris), 20),
+            ks_plain_ms=ks_plain_ms,
+            ks_bound=_bound(29 * n_seg + 12 * 64 + ICO_TRI_BYTES * 64 + 64 * COV_RAYS,
+                            (CULL_FLOPS * 64 + RAY_NORM_FLOPS) * int(live.sum())
+                            + MT_TEST_FLOPS * ICO_FACES * passes))
+        if name == "room":
+            # K-B on the room's environment (12 faces, no cull), both bounces' queries.
+            v0, e1, e2, _ = mesh_soa(tracer.scene.vertices, tracer.scene.faces)
+            o = segs.origin.reshape(-1, 3)
+            d = segs.direction.reshape(-1, 3)
+            k = intersect.brute_hit(o, d, v0, e1, e2)
+            p = intersect._brute_forward(o, d, v0, e1, e2, intersect.T_MIN_EPS, intersect.T_MAX,
+                                         None)
+            _sync()
+            _require(torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]),
+                     "K-B: kernel != plain on the room's environment")
+            n = o.shape[0]
+            res["env"] = {
+                "queries": n, "faces": int(v0.shape[0]),
+                "ms": _cuda_ms(lambda: intersect.brute_hit(o, d, v0, e1, e2), 20),
+                "queued_ms": queued_ms(lambda: intersect.brute_hit(o, d, v0, e1, e2), 20),
+                "plain_ms": _cuda_ms(lambda: intersect._brute_forward(
+                    o, d, v0, e1, e2, intersect.T_MIN_EPS, intersect.T_MAX, None), 2),
+                "bound": _brute_bound(n, n, int(v0.shape[0]), False)}
+        print(f"# icosphere coverage, {name}, {m} receivers x 2 x {COV_RAYS}, {COV_BINS} bins, "
+              f"radius {COV_RADIUS}: {lit} receivers lit, three sweeps the same bits; K-S/ico "
+              f"{launches[K_MAP_ICO]} and record entry/ico {launches[K_HIST_RECORD_ICO]} launches, "
+              f"no plain call; first 64 receivers: record == plain byte for byte ({captured} "
+              f"captures, {passes} (segment, receiver) pairs pass the cull), IRs == the plain "
+              f"composition bit for bit, hard and soft; sweep {min(host):.1f}-{max(host):.1f} ms "
+              f"host, {min(events):.1f}-{max(events):.1f} ms events; the plain composition on 64 "
+              f"receivers {composition_ms:.1f} ms; K-S/ico {res['ks_ms']:.4f} ms a call, "
+              f"{res['ks_device_ms']:.4f} on the device, {res['ks_queued_ms']:.4f} queued (plain "
+              f"{ks_plain_ms:.1f} ms, bound "
+              f"{res['ks_bound']['bound_ms']:.4f} ms by {res['ks_bound']['bound_by']}); record "
+              f"entry/ico hard / soft {kh['hard_ms']:.4f} / {kh['soft_ms']:.4f} ms a call, "
+              f"{kh['hard_device_ms']:.4f} / {kh['soft_device_ms']:.4f} on the device, "
+              f"{kh['hard_queued_ms']:.4f} / {kh['soft_queued_ms']:.4f} queued (plain "
+              f"{kh['hard_plain_ms']:.1f} / {kh['soft_plain_ms']:.1f} ms); {card}", flush=True)
+        if name == "room":
+            env = res["env"]
+            print(f"# K-B, the room's environment, {env['queries']} queries x {env['faces']} "
+                  f"faces: kernel == plain; {env['ms']:.4f} ms ({env['queued_ms']:.4f} queued), plain {env['plain_ms']:.2f} ms, "
+                  f"bound {env['bound']['bound_ms']:.4f} ms by {env['bound']['bound_by']}",
+                  flush=True)
+            out["grad"] = _icosphere_grad(tracer, dirs, segs, torch.as_tensor(grid, device=dev),
+                                          kernels, card, out["launches"])
+        del segs, record, plain_record, want_hard, want_soft, irs
+        torch.cuda.empty_cache()
+    return out
+
+
+def _icosphere_grad(tracer, dirs, segs, centers, kernels, card, launches_out):
+    """Phase 17, value+grad: coverage_dbm(soft=True, rx_mode="icosphere",
+    engine="map") on 64 of the room's receivers (every 32nd), d / d (log n1,
+    tx) of the mean finite dBm, counted (K-S/ico, the record entry/ico,
+    B11/ico, K-P and its backward once each, K-B for the room), two runs the
+    same bits, d / d log n1 against a central difference; then B11/ico
+    against its plain version on the same segments for a seeded cotangent
+    (rtol 1e-5 with a floor of 1e-6 of the largest entry), two runs the
+    same bits; times and peak memory."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from rfx_torch.coverage import _amp_scale, coverage_dbm
+    from rfx_torch.ops import map_capture as mc
+    from rfx_torch.tracer import icosphere_tris
+
+    dev = centers.device
+    tx = COV_SCENES[0][1]
+    few = centers[::32].contiguous()
+    log_n1_0 = math.log(5.0)
+    kw = dict(max_bounces=2, num_rays=COV_RAYS, sample_window_s=COV_WINDOW, sample_rate_hz=RATE,
+              env_hit=tracer.env_hit, soft=True, rx_batch=64, engine="map", rx_mode="icosphere")
+
+    def loss_at(log_n1, tx_p):
+        return _mean_finite(coverage_dbm(tracer.scene, tx_p, dirs, few, COV_RADIUS,
+                                         n1=torch.exp(log_n1), **kw))
+
+    def valgrad():
+        log_n1 = torch.tensor(log_n1_0, device=dev, requires_grad=True)
+        tx_p = torch.tensor(tx, device=dev, requires_grad=True)
+        loss = loss_at(log_n1, tx_p)
+        g = torch.autograd.grad(loss, [log_n1, tx_p])
+        return loss.detach(), g[0], g[1]
+
+    valgrad()  # warm-up
+    needs = (K_MAP_ICO, K_HIST_RECORD_ICO, K_MAP_BACKWARD_ICO, K_POWER, K_POWER_BACKWARD)
+    ((loss, g_n1, g_tx), plain_calls), launches = _counted(
+        kernels, "coverage_ico_grad_room", needs + (K_BRUTE,), lambda: _plain_calls(valgrad))
+    launches_out["coverage_ico_grad_room"] = launches
+    _require(all(launches[k] == 1 for k in needs)
+             and launches[K_MAP] == launches[K_HIST] == launches[K_COV] == 0 and plain_calls == 0,
+             f"icosphere exact value+grad: launches {launches}, {plain_calls} plain calls")
+    again = valgrad()
+    _sync()
+    _require(all(torch.equal(a, b) for a, b in zip((loss, g_n1, g_tx), again)),
+             "icosphere exact value+grad: two runs differ")
+    _require(bool(torch.isfinite(g_tx).all()) and bool((g_tx != 0).any()),
+             f"icosphere exact value+grad: d/d tx {g_tx.tolist()}")
+    # The loss is an f32 near 60 dB (ulp 3.8e-6): a step of 2e-3 leaves the
+    # difference ~70 of its ulps, good to ~1.5%; 2e-2 leaves ~700.
+    fd = _fd_check(lambda v: loss_at(torch.tensor(v, device=dev), torch.tensor(tx, device=dev)),
+                   log_n1_0, float(g_n1), 2e-2, "icosphere exact metric")
+    out = {"receivers": int(few.shape[0]), "loss": float(loss), "d_log_n1": float(g_n1),
+           "d_tx": g_tx.tolist(), "fd": fd, "valgrad_ms": _cuda_ms(valgrad, 3),
+           "forward_ms": _cuda_ms(lambda: loss_at(torch.tensor(log_n1_0, device=dev),
+                                                  torch.tensor(tx, device=dev)), 3)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    valgrad()
+    out["valgrad_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+
+    # B11/ico against its plain version on the sweep's segments.
+    scale = float(_amp_scale(1.0, COV_RAYS, torch.device("cpu")))
+    tris = icosphere_tris(few, COV_RADIUS).contiguous()
+    record = mc.map_record(segs, few, COV_RADIUS, "icosphere", tris)
+    g = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(few.shape[0], COV_BINS)).astype(np.float32)).to(dev)
+    bkw = dict(scale=scale, soft=True, rx_mode="icosphere", nbins=COV_BINS, light_speed_mps=C,
+               sample_rate_hz=RATE)
+    k1 = mc.map_capture_backward(segs, few, COV_RADIUS, g, record, tris=tris, **bkw)
+    k2 = mc.map_capture_backward(segs, few, COV_RADIUS, g, record, tris=tris, **bkw)
+    p, _, plain_ms = _timed(lambda: mc.map_capture_backward_plain(segs, few, COV_RADIUS, g, **bkw))
+    errs, same_bits = {}, {}
+    names = ("origin", "direction", "amplitude", "distance", "centers", "scale", "radius")
+    for name, a, b, c in zip(names, k1, k2, p):
+        _require(torch.equal(a, b), f"B11/ico: two runs differ ({name})")
+        _require(torch.allclose(a, c, rtol=1e-5, atol=1e-6 * float(c.abs().max())),
+                 f"B11/ico != its plain version ({name})")
+        errs[name] = float((a - c).abs().max())
+        same_bits[name] = bool(torch.equal(a, c))
+    _require(float(k1[0].abs().max()) > 0 and float(k1[6]) != 0.0, "B11/ico: no gradient")
+    captured = int((record != mc.NO_CAPTURE).sum())
+    n_seg = segs.t_env.numel()
+
+    def backward(full):
+        return lambda: mc.map_capture_backward(segs, few, COV_RADIUS, g, record, tris=tris,
+                                               centers_grad=full, scalars_grad=full, **bkw)
+
+    out["backward"] = {
+        "captured": captured, "max_abs_err": errs, "bit_equal_plain": same_bits,
+        "ms": _cuda_ms(backward(False), 10), "device_ms": device_ms(backward(False), 10),
+        "queued_ms": queued_ms(backward(False), 20),
+        "centers_ms": _cuda_ms(backward(True), 10),
+        "centers_device_ms": device_ms(backward(True), 10), "plain_ms": plain_ms,
+        # The record, the cotangent, 32 bytes of each captured segment and the
+        # receivers' faces read once, 32 bytes a segment written; at a capture
+        # the 80 tests that find the face again, its t's VJP and the bins.
+        "bound": _bound(64 * COV_RAYS + 4 * 64 * COV_BINS + 32 * captured
+                        + ICO_TRI_BYTES * 64 + 32 * n_seg,
+                        (MT_TEST_FLOPS * ICO_FACES + 120) * captured)}
+    b = out["backward"]
+    print(f"# icosphere exact (soft) value+grad, room, {few.shape[0]} receivers x 2 x {COV_RAYS}: "
+          f"loss {out['loss']:.6f} dBm, d/d log n1 {out['d_log_n1']:.6e} (central difference, step "
+          f"{fd['step']}: {fd['fd']:.6e}, rel {fd['rel_err']:.2e}), d/d tx "
+          f"{[round(v, 6) for v in out['d_tx']]}, two runs the same bits; value+grad "
+          f"{out['valgrad_ms']:.2f} ms, forward {out['forward_ms']:.2f} ms, peak "
+          f"{out['valgrad_peak_bytes'] / 2**30:.2f} GiB; B11/ico == plain within rtol 1e-5 (max |d| "
+          f"{errs}; bit-equal {same_bits}), two runs the same; {b['ms']:.4f} ms a call, "
+          f"{b['device_ms']:.4f} on the device, {b['queued_ms']:.4f} queued ({b['centers_ms']:.4f} / {b['centers_device_ms']:.4f} "
+          f"with the centers' and scalars'), plain {plain_ms:.1f} ms, bound "
+          f"{b['bound']['bound_ms']:.4f} ms by {b['bound']['bound_by']}; {card}", flush=True)
     return out
 
 
@@ -2333,24 +2873,7 @@ def main() -> int:
     from rfx_torch.bvh import build_bvh
     from rfx_torch.geometry import make_terrain
     from rfx_torch.ops import native_lib
-    from rfx_torch.ops.bvh_trace import CLOSEST_HIT_COUNTED_KERNEL, CLOSEST_HIT_KERNEL
-    from rfx_torch.ops.coverage_hist import (
-        COVERAGE_HIST_KERNEL,
-        COVERAGE_PHASOR_KERNEL,
-        COVERAGE_REDUCE_KERNEL,
-        COVERAGE_SPREAD_KERNEL,
-        PHASOR_BACKWARD_KERNEL,
-        PHASOR_TABLE_KERNEL,
-    )
-    from rfx_torch.ops.fused import (
-        FUSED_TRACE_COUNTED_KERNEL,
-        FUSED_TRACE_KERNEL,
-        FusedTracer,
-        fused_trace,
-        fused_trace_plain,
-    )
-    from rfx_torch.ops.map_capture import MAP_CAPTURE_BACKWARD_KERNEL, MAP_CAPTURE_KERNEL
-    from rfx_torch.ops.micro_vote import MICRO_VOTE_KERNEL
+    from rfx_torch.ops.fused import FUSED_TRACE_KERNEL, FusedTracer, fused_trace, fused_trace_plain
     from rfx_torch.sampler import morton_sphere_directions
 
     # Full f32 everywhere (no TF32 matmul or convolution), as the JAX
@@ -2367,22 +2890,19 @@ def main() -> int:
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     print(card, flush=True)
 
-    # 2. Build the seven CUDA sources and the native BVH builder from the
+    # 2. Build the eight CUDA sources and the native BVH builder from the
     #    sources in this checkout, one compiler each, all started together;
     #    the counted fused trace, the counted closest hit, the slab reduction,
     #    the phasor metric's walk, spread, table and backward, the RX-power
-    #    backward, the map capture's backward and the histogram's record
-    #    entry bind their entries in the libraries of the fused trace, the
-    #    closest hit, the coverage histogram, the RX power, the map capture
-    #    and the IR histogram.
+    #    backward, the map capture's backward, its icosphere instantiations
+    #    and the histogram's record entries bind their entries in the
+    #    libraries of the fused trace, the closest hit, the coverage
+    #    histogram, the RX power, the map capture and the IR histogram.
     t0 = time.perf_counter()
-    per_source = (FUSED_TRACE_KERNEL, CLOSEST_HIT_KERNEL, cir.HISTOGRAM_KERNEL,
-                  COVERAGE_HIST_KERNEL, MICRO_VOTE_KERNEL, cir.RX_POWER_KERNEL, MAP_CAPTURE_KERNEL)
-    kernels_built = per_source + (FUSED_TRACE_COUNTED_KERNEL, CLOSEST_HIT_COUNTED_KERNEL,
-                                  COVERAGE_REDUCE_KERNEL, COVERAGE_PHASOR_KERNEL,
-                                  COVERAGE_SPREAD_KERNEL, PHASOR_TABLE_KERNEL,
-                                  cir.RX_POWER_BACKWARD_KERNEL, PHASOR_BACKWARD_KERNEL,
-                                  MAP_CAPTURE_BACKWARD_KERNEL, cir.HISTOGRAM_RECORD_KERNEL)
+    kernels_built = port_kernels()
+    per_source = kernels_built[:N_SOURCES]
+    _require(len({k.source for k in per_source}) == N_SOURCES == len({k.source for k in kernels_built}),
+             "port_kernels: one kernel of each source first")
     with ThreadPoolExecutor(len(per_source) + 1) as pool:
         native = pool.submit(native_lib.load)
         list(pool.map(lambda k: k.load(), per_source))
@@ -2553,6 +3073,12 @@ def main() -> int:
     #     would otherwise share the card with its tensors).
     torch.cuda.empty_cache()
     cov_grad = _coverage_grad_phase(mesh, dev, kernels_built)
+    # 17. The icosphere receiver at full width: the request, coverage and
+    #     its value+grad.
+    torch.cuda.empty_cache()
+    ico_cir = _icosphere_cir_leg(mesh, dev, kernels_built, card)
+    torch.cuda.empty_cache()
+    ico_cov = _icosphere_coverage_leg(mesh, dev, kernels_built, card)
     torch.cuda.empty_cache()
     large, large_launches = _large_mesh_phase(
         root, dev, kernels_built, bvh,
@@ -2568,6 +3094,8 @@ def main() -> int:
         "solver": solve.pop("launches"),
         **cov.pop("launches"),
         **cov_grad.pop("launches"),
+        **ico_cir.pop("launches"),
+        **ico_cov.pop("launches"),
         **large_launches,
         **dist_launches,
     }
@@ -2588,6 +3116,9 @@ def main() -> int:
     kfb_room, kfb_terrain = kf_room.pop("backward"), kf_terrain.pop("backward")
     bench_wc, large_wc, sub14 = large["bench_walk_counters"], large["walk_counters"], large["subset"]
     votes = large["micro_vote"]["styles"]["votes"]
+    kb, kb_env = ico_cir["kernel"], ico_cov["room"]["env"]
+    ico_room, ico_terrain = ico_cov["room"], ico_cov["terrain"]
+    kbi = ico_cov["grad"]["backward"]
     m_steps, m_check = large["micro_vote"]["steps"], large["micro_vote"]["check_steps"]
     kernels = [
         {"name": "fused_trace", "route": "cuda", "source": "rfx_torch/csrc/fused_trace.cu",
@@ -2826,6 +3357,70 @@ def main() -> int:
                   f"ms_with_centers: also d / d the centers, the scale and the radius; bound_ms: "
                   f"the record, the cotangent and 32 bytes of each captured segment read once, "
                   f"32 bytes a segment written, 60 f32 operations a capture"},
+        {"name": "brute_hit", "route": "cuda", "source": "rfx_torch/csrc/brute_hit.cu",
+         "replaces": "rfx/ops/intersect.py:75", **counts(K_BRUTE), "max_abs_err": 0.0,
+         "ms": kb["ms"], "device_ms": kb["device_ms"], "queued_ms": kb["queued_ms"],
+         "plain_ms": kb["plain_ms"], **kb["bound"],
+         "library_ms": None, "ms_no_cull": kb["no_cull_ms"], "cull_passes": kb["cull_passes"],
+         "ms_room_env": kb_env["ms"], "plain_ms_room_env": kb_env["plain_ms"],
+         **_suffixed(kb_env["bound"], "_room_env"),
+         "shape": f"ms, plain_ms, bound_ms: the icosphere request's receiver test on its first "
+                  f"bounce, {N_RAYS} rays from tx against the 80-face receiver (radius "
+                  f"{RX_RADIUS}) with its cull ({kb['cull_passes']} rays pass it and test the "
+                  f"faces); *_room_env: the room's environment, {kb_env['queries']} queries of "
+                  f"the coverage trace's 2 bounces x 12 faces, no cull; t and face equal the "
+                  f"plain version's (_brute_forward) bit for bit; bound_ms: 32 bytes a ray and "
+                  f"the faces, {CULL_FLOPS + RAY_NORM_FLOPS} operations a ray for the cull and {MT_TEST_FLOPS} a "
+                  f"test; XLA's (chunk, T) broadcast in rfx"},
+        {"name": "map_capture_ico", "route": "cuda", "source": "rfx_torch/csrc/map_capture.cu",
+         "replaces": "rfx/coverage.py:38", **counts(K_MAP_ICO), "max_abs_err": 0,
+         "ms": ico_room["ks_ms"], "device_ms": ico_room["ks_device_ms"],
+         "queued_ms": ico_room["ks_queued_ms"], "queued_ms_terrain": ico_terrain["ks_queued_ms"],
+         "plain_ms": ico_room["ks_plain_ms"], **ico_room["ks_bound"], "library_ms": None,
+         "ms_terrain": ico_terrain["ks_ms"], "device_ms_terrain": ico_terrain["ks_device_ms"],
+         "plain_ms_terrain": ico_terrain["ks_plain_ms"],
+         **_suffixed(ico_terrain["ks_bound"], "_terrain"),
+         "shape": f"the icosphere coverage sweep's call: 64 receivers (radius {COV_RADIUS}) x 2 "
+                  f"bounces x {COV_RAYS} rays on the room ({ico_room['cull_passes_64']} "
+                  f"(segment, receiver) pairs pass the cull, {ico_room['captured_64']} "
+                  f"captures); *_terrain: the terrain's; the (64, {COV_RAYS}) first-capture "
+                  f"record equals map_record_plain's byte for byte (max_abs_err: the largest byte "
+                  f"difference); bound_ms: the cull on every live segment and receiver, 80 tests "
+                  f"where it passes, the segments (29 bytes), the faces and the record once; "
+                  f"rfx/coverage.py:38-81 (_rx_query_t, icosphere) under the map engine's vmap "
+                  f"(XLA)"},
+        {"name": "ir_histogram_record_ico", "route": "cuda",
+         "source": "rfx_torch/csrc/histogram.cu", "replaces": "rfx/cir.py:32",
+         **counts(K_HIST_RECORD_ICO), "max_abs_err": 0.0,
+         "ms": ico_room["histogram"]["soft_ms"], "device_ms": ico_room["histogram"]["soft_device_ms"],
+         "queued_ms": ico_room["histogram"]["soft_queued_ms"],
+         "plain_ms": ico_room["histogram"]["soft_plain_ms"], **ico_room["histogram"]["bound_soft"],
+         "library_ms": None, "ms_hard": ico_room["histogram"]["hard_ms"],
+         "device_ms_hard": ico_room["histogram"]["hard_device_ms"],
+         "plain_ms_hard": ico_room["histogram"]["hard_plain_ms"],
+         **_suffixed(ico_room["histogram"]["bound_hard"], "_hard"),
+         "shape": f"the record entry's icosphere instantiation on K-S/ico's (64, {COV_RAYS}) record "
+                  f"of the room ({ico_room['captured_64']} captures), {COV_BINS} bins, soft (two "
+                  f"planes; *_hard: hard): t_rx recomputed at each capture over its receiver's 80 "
+                  f"faces; the IRs equal the plain composition's (_first_capture and the dense "
+                  f"histogram) bit for bit (max_abs_err 0); bound_ms: the record, 32 bytes a "
+                  f"capture, the faces and the IRs once, 80 tests and the binning a capture"},
+        {"name": "map_capture_backward_ico", "route": "cuda",
+         "source": "rfx_torch/csrc/map_capture.cu", "replaces": "rfx/ops/intersect.py:159",
+         **counts(K_MAP_BACKWARD_ICO), "max_abs_err": max(kbi["max_abs_err"].values()),
+         "ms": kbi["ms"], "device_ms": kbi["device_ms"], "queued_ms": kbi["queued_ms"],
+         "plain_ms": kbi["plain_ms"],
+         **kbi["bound"], "library_ms": None, "ms_with_centers": kbi["centers_ms"],
+         "device_ms_with_centers": kbi["centers_device_ms"],
+         "max_abs_err_by_output": kbi["max_abs_err"],
+         "shape": f"jax.grad through rfx/coverage.py:38-81 with the icosphere (the brute hit's "
+                  f"custom VJP, rfx/ops/intersect.py:159-185, through v0 = unit r + C), soft: d / d "
+                  f"origin, direction, amplitude, distance of the room's 2 x {COV_RAYS} segments "
+                  f"for a seeded (64, {COV_BINS}) cotangent, given K-S/ico's record "
+                  f"({kbi['captured']} captures); ms_with_centers: also d / d the centers, the "
+                  f"scale and the radius; within rtol 1e-5 of map_capture_backward_plain; "
+                  f"bound_ms: the record, the cotangent, 32 bytes a captured segment and the "
+                  f"faces read once, 32 bytes a segment written, 80 tests and the VJP a capture"},
         {"name": "micro_vote", "route": "cuda", "source": "rfx_torch/csrc/micro_vote.cu",
          "replaces": "scripts/micro_reduce.py:64", **counts(K_VOTE),
          "max_abs_err": max(abs(v["carry"] - v["plain_carry"])
@@ -2850,7 +3445,7 @@ def main() -> int:
         "phasor": {"room": kf_room, "terrain": kf_terrain},
         "rx_power_backward": {"room": kpb_room, "terrain": kpb_terrain, "cir": kpb_cir},
         "phasor_backward": {"room": kfb_room, "terrain": kfb_terrain},
-        "coverage_grad": cov_grad}))
+        "coverage_grad": cov_grad, "icosphere": {"cir": ico_cir, "coverage": ico_cov}}))
     print(json.dumps({"large_mesh": large, "bench_subset_counters": bench_sub}))
     print(json.dumps({"distribution": dist_out}))
     print(f"# inverse solve at full width: {[round(x, 3) for x in solve['step_ms']]} ms a step, "

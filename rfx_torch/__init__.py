@@ -6,15 +6,16 @@ host modules (`geometry.py`, `bvh.py`, `config.py`, `viz/`, `utils/`), and an
 `rfx` mesh or BVH crosses by field through `convert.py`.
 
 Every public entry point takes `device=` (default `"cuda"`). On a CUDA tensor
-the hand-written kernels run, eighteen C entry points in seven sources of
-rfx_torch/csrc/, built with nvcc at first use (`ops/_build.py`): seventeen
-launch kernels, and `rfx_map_capture_backward_blocks` gives the rows of the
-map capture backward's scratch. The sources:
+the hand-written kernels run, twenty-two C entry points in eight sources of
+rfx_torch/csrc/, built with nvcc at first use (`ops/_build.py`):
+twenty-one launch kernels, and `rfx_map_capture_backward_blocks` gives the
+rows of the map capture backward's scratch. The sources:
 
 - `fused_trace.cu`: the fused bounce loop and its counted instantiation;
 - `closest_hit.cu`: the per-query closest hit and its counted instantiation;
 - `histogram.cu`: the IR histogram, one launch for a batch of rows, and
-  its record entry, which bins the map engine's first-capture record;
+  its record entry, which bins the map engine's first-capture record (and
+  its instantiation for the icosphere receiver's record);
 - `coverage_hist.cu`: the coverage histogram, its slab reduction, and the
   phasor metric: its per-bin table, its sums over the same walk and capture
   rule, its delay spread over the capture lists that walk leaves, and its
@@ -27,8 +28,13 @@ map capture backward's scratch. The sources:
   capture along each ray, written as a one-byte record, the bounce or none)
   and its backward from that record (d / d the segments, the centers, the
   amplitude scale and the radius, a thread a ray over the receivers in
-  order); it shares the capture rule with `coverage_hist.cu` through
-  `sphere.cuh`;
+  order), each also instantiated for the reference's 80-face icosphere
+  receiver; it shares the capture rule with `coverage_hist.cu` through
+  `sphere.cuh`, and the icosphere's with `brute_hit.cu` through
+  `brute_hit.cuh`;
+- `brute_hit.cu`: the brute closest hit, every ray against every triangle
+  of a short list (the `brute` backend's meshes, the icosphere receiver,
+  with its bounding-sphere cull);
 - `micro_vote.cu`: the vote micro-kernel, a latency probe.
 
 On a CPU tensor their plain PyTorch versions run. The map engine's capture

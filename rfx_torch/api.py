@@ -165,7 +165,13 @@ class Tracer:
         trace (rfx/api.py:246-279) on this tracer's `env_hit` and rx_mode.
         The engine is 'auto': the coverage kernel on a CUDA device with the
         analytic receiver, the map engine otherwise (the icosphere receiver
-        runs only there)."""
+        runs only there, on the card through the icosphere instantiations of
+        the map capture kernels). Measured by `chip_smoke.py` phase 17 on an
+        NVIDIA H100 80GB HBM3 (700 W), 2,048 receivers x 1,048,576 rays x 2
+        bounces x 10,000 bins: the icosphere sweep 62-72 ms on the room and
+        62-83 ms on the terrain, against 39-52 ms for the analytic
+        receiver's; the plain composition it replaced took 4.1-4.3 s for 64
+        of those receivers."""
         dirs = self._directions(directions)
         irs = coverage_irs(
             self.scene, tx_pos, dirs, rx_centers, rx_radius, max_bounces=self.max_bounces,

@@ -43,11 +43,13 @@ import math
 import torch
 
 from rfx_torch.ops._build import CudaKernel, F, I, P
+from rfx_torch.tracer import icosphere_tris
 
 __all__ = ["bin_impulse_response", "carrier_cached", "cir_from_trace", "convolve_carrier_plain",
            "histogram_plain", "histogram_record", "histogram_rows", "mask_tiles", "phasor_metric",
            "rx_power_backward", "rx_power_backward_plain", "rx_power_dbm", "rx_power_dbm_phasor",
-           "rx_power_dbm_plain", "to_dbm", "HISTOGRAM_KERNEL", "HISTOGRAM_RECORD_KERNEL",
+           "rx_power_dbm_plain", "to_dbm", "HISTOGRAM_KERNEL", "HISTOGRAM_RECORD_ICO_KERNEL",
+           "HISTOGRAM_RECORD_KERNEL",
            "RX_POWER_BACKWARD_KERNEL", "RX_POWER_KERNEL"]
 
 HARD, SOFT_LO, SOFT_HI = 0, 1, 2
@@ -61,6 +63,12 @@ HISTOGRAM_KERNEL = CudaKernel(
 HISTOGRAM_RECORD_KERNEL = CudaKernel(
     "histogram.cu", "rfx_ir_histogram_record",
     [P, I, I, I, P, P, P, P, P, F, F, F, F, I, I, I, P, P, P, ctypes.c_longlong, P],
+)
+# Its instantiation for the icosphere receiver's record: t_rx recomputed as
+# the closest hit over each receiver's 80 faces.
+HISTOGRAM_RECORD_ICO_KERNEL = CudaKernel(
+    "histogram.cu", "rfx_ir_histogram_record_ico",
+    [P, I, I, I, P, P, P, P, P, P, F, F, F, I, I, I, P, P, P, ctypes.c_longlong, P],
 )
 RX_POWER_KERNEL = CudaKernel("rx_power.cu", "rfx_rx_power", [P, P, I, I, P, P, P, P, P, P])
 RX_POWER_BACKWARD_KERNEL = CudaKernel("rx_power.cu", "rfx_rx_power_backward",
@@ -190,7 +198,7 @@ def _launch(amplitude, distance, captured, *, nbins: int, light_speed_mps: float
 
 def histogram_record(record: torch.Tensor, segments, centers: torch.Tensor, radius: float,
                      scale: float, *, nbins: int, light_speed_mps: float, sample_rate_hz: float,
-                     soft: bool) -> torch.Tensor:
+                     soft: bool, rx_mode: str = "analytic", tris=None) -> torch.Tensor:
     """(R, nbins) IRs of the map engine's first-capture record (R, N) uint8
     (0xFF: no capture, else the bounce of the receiver's first capture
     along the ray) on CUDA tensors, one launch of the record entry, hard or
@@ -199,7 +207,10 @@ def histogram_record(record: torch.Tensor, segments, centers: torch.Tensor, radi
     B <= 254 bounces of N rays; `centers` (R, 3) f32. Row r bins the list
     `histogram_rows` bins from the map engine's dense rows of r: amplitude
     * scale and distance + t_rx at each capture, in (b, n) order, t_rx the
-    capture pass's; so the IRs are those rows' bits."""
+    capture pass's; so the IRs are those rows' bits. rx_mode 'icosphere':
+    the record of the icosphere receivers whose (R, 80, 9) faces are `tris`
+    (rfx_torch.tracer.icosphere_tris of centers and radius, computed here
+    where None), one launch of the record entry's icosphere instantiation."""
     dev = record.device
     if dev.type != "cuda":
         raise ValueError(f"no histogram record kernel for device {dev}")
@@ -219,11 +230,21 @@ def histogram_record(record: torch.Tensor, segments, centers: torch.Tensor, radi
     centers = centers.detach().to(torch.float32).contiguous()
     record = record.contiguous()
     buf, (scratch, out, ctrl, zero), n_plane = _histogram_buffer(rows, nbins, planes, b * tmax, dev)
-    _launch_on(HISTOGRAM_RECORD_KERNEL, dev, (
-        record.data_ptr(), n, rows, b, origin.data_ptr(), direction.data_ptr(),
-        amplitude.data_ptr(), distance.data_ptr(), centers.data_ptr(), float(radius),
-        float(scale), float(light_speed_mps), float(sample_rate_hz), nbins, int(soft), tmax,
-        scratch, out, ctrl, zero))
+    head = (record.data_ptr(), n, rows, b, origin.data_ptr(), direction.data_ptr(),
+            amplitude.data_ptr(), distance.data_ptr(), centers.data_ptr())
+    tail = (float(scale), float(light_speed_mps), float(sample_rate_hz), nbins, int(soft), tmax,
+            scratch, out, ctrl, zero)
+    if rx_mode == "analytic":
+        _launch_on(HISTOGRAM_RECORD_KERNEL, dev, (*head, float(radius), *tail))
+    elif rx_mode == "icosphere":
+        if tris is None:
+            tris = icosphere_tris(centers, float(radius))
+        if tris.shape != (rows, 80, 9) or tris.dtype != torch.float32:
+            raise ValueError(f"tris must be ({rows}, 80, 9) float32, got {tuple(tris.shape)}")
+        tris = tris.detach().contiguous()
+        _launch_on(HISTOGRAM_RECORD_ICO_KERNEL, dev, (*head, tris.data_ptr(), *tail))
+    else:
+        raise ValueError(f"unknown rx_mode: {rx_mode}")
     halves = [buf.narrow(0, h * n_plane, n_plane).view(rows, nbins) for h in range(planes)]
     return halves[0] + halves[1] if soft else halves[0]
 

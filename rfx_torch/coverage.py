@@ -7,17 +7,17 @@ capture only truncates that receiver's own view of it.
 
 Two engines build the impulse responses:
 
-- `map`: receivers in batches of `rx_batch`, the sphere test over the B x N
-  segments per batch, the first capture along the bounce axis, then the
+- `map`: receivers in batches of `rx_batch`, the receiver test over the B x
+  N segments per batch, the first capture along the bounce axis, then the
   batch's IRs in one call of the IR histogram (one row a receiver, bounces
   and rays flattened). Hard or soft binning, analytic or icosphere
-  receiver; differentiable, which the inverse solver needs. With the
-  analytic receiver a batch is one call of rfx_torch.ops.map_capture.map_irs
-  (the capture kernel, the IR histogram's record entry and, in the
-  backward, the capture backward kernel on a CUDA tensor; their plain
-  versions on a CPU tensor); the icosphere receiver takes the plain
-  composition (broadcast test, `where`s and the histogram Function of
-  rfx_torch.cir) on either device.
+  receiver; differentiable, which the inverse solver needs. A batch is one
+  call of rfx_torch.ops.map_capture.map_irs (the capture kernel, the IR
+  histogram's record entry and, in the backward, the capture backward
+  kernel on a CUDA tensor, each in its icosphere instantiation for the
+  icosphere; their plain versions on a CPU tensor). `_first_capture` is
+  the plain composition they are held against (the broadcast sphere test or
+  the icosphere's plain closest hit, and the first captures).
 - `batched`: the coverage kernel (rfx_torch.ops.coverage_hist) on a CUDA
   tensor, its plain version on a CPU tensor. Hard binning and the analytic
   receiver only; forward only, as rfx's batched engine: on the card an input
@@ -44,11 +44,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rfx_torch.cir import bin_impulse_response, rx_power_dbm, rx_power_dbm_phasor
+from rfx_torch.cir import rx_power_dbm, rx_power_dbm_phasor
 from rfx_torch.ops.coverage_hist import coverage_hist, coverage_phasor, first_captures
-from rfx_torch.ops.intersect import ray_mesh_closest_hit_brute, ray_sphere_hit
-from rfx_torch.ops.map_capture import map_irs
-from rfx_torch.tracer import EnvSegments, Scene, icosphere_soa, trace_env
+from rfx_torch.ops.intersect import ray_sphere_hit
+from rfx_torch.ops.map_capture import ico_hit_plain, map_irs
+from rfx_torch.tracer import EnvSegments, Scene, trace_env
 
 __all__ = ["make_grid", "coverage_irs", "coverage_dbm", "coverage_dbm_fast",
            "coverage_dbm_hybrid"]
@@ -61,18 +61,16 @@ def make_grid(x_range, y_range, z_range) -> np.ndarray:
 
 
 def _t_rx(segs: EnvSegments, centers: torch.Tensor, rx_radius, rx_mode: str) -> torch.Tensor:
-    """(R, B, N) receiver-hit distance of every segment for R centers."""
+    """(R, B, N) receiver-hit distance of every segment for R centers: the
+    sphere hit, or each icosphere's plain closest hit (no kernel, on either
+    device)."""
     b, n = segs.t_env.shape
     o = segs.origin.reshape(b * n, 3)
     d = segs.direction.reshape(b * n, 3)
     if rx_mode == "analytic":
         return ray_sphere_hit(o, d, centers[:, None, :], rx_radius).reshape(-1, b, n)
     if rx_mode == "icosphere":
-        ts = []
-        for c in centers:
-            v0, e1, e2 = icosphere_soa(c, rx_radius)
-            ts.append(ray_mesh_closest_hit_brute(o, d, v0, e1, e2)[0].reshape(b, n))
-        return torch.stack(ts)
+        return torch.stack([ico_hit_plain(o, d, c, rx_radius)[0].reshape(b, n) for c in centers])
     raise ValueError(f"unknown rx_mode: {rx_mode}")
 
 
@@ -109,10 +107,8 @@ def _irs_from_segments(segs: EnvSegments, rx_centers, rx_radius, *, nbins: int,
                        engine: str = "auto") -> torch.Tensor:
     """(M, nbins) impulse responses of M receivers from shared env segments
     (rfx/coverage.py:56-81, :155-191). The map engine takes `rx_batch`
-    receivers a call: with the analytic receiver, of `map_irs` (the map
-    capture kernels on the card); with the icosphere receiver, of the plain
-    composition (the icosphere test, the first captures and the histogram
-    Function)."""
+    receivers a call of `map_irs` (the map capture kernels on the card),
+    either receiver."""
     dev = segs.t_env.device
     centers = torch.as_tensor(rx_centers, dtype=torch.float32, device=dev).reshape(-1, 3)
     engine = _resolve_engine(engine, soft=soft, rx_mode=rx_mode, device=dev)
@@ -122,23 +118,11 @@ def _irs_from_segments(segs: EnvSegments, rx_centers, rx_radius, *, nbins: int,
                              light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz,
                              rx_batch=rx_batch)
     hist_kw = dict(nbins=nbins, light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz,
-                   soft=soft)
-    analytic = rx_mode == "analytic"
+                   soft=soft, rx_mode=rx_mode)
     # map_irs reads the scale on the host: kept there, it costs no wait.
-    scale = _amp_scale(tx_power, num_rays, torch.device("cpu") if analytic else dev)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    irs = []
-    for s in range(0, centers.shape[0], rx_batch):
-        batch = centers[s:s + rx_batch]
-        if analytic:
-            irs.append(map_irs(segs, batch, rx_radius, scale=scale, **hist_kw))
-            continue
-        t_rx, first = _first_capture(segs, batch, rx_radius, rx_mode)
-        amp = torch.where(first, segs.amplitude, zero) * scale
-        dist = torch.where(first, segs.distance + t_rx, zero)
-        r = t_rx.shape[0]
-        irs.append(bin_impulse_response(amp.reshape(r, -1), dist.reshape(r, -1),
-                                        first.reshape(r, -1), **hist_kw))
+    scale = _amp_scale(tx_power, num_rays, torch.device("cpu"))
+    irs = [map_irs(segs, centers[s:s + rx_batch], rx_radius, scale=scale, **hist_kw)
+           for s in range(0, centers.shape[0], rx_batch)]
     if not irs:
         return torch.zeros((0, nbins), dtype=torch.float32, device=dev)
     return torch.cat(irs)

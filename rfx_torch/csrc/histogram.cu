@@ -55,7 +55,10 @@
 // and the tile reader templated on the source. So the record's IRs are the
 // dense rows' bits, and the 9 bytes an entry of the rows are never written
 // (2.4 GB at the inverse solve's 64 receivers x 4 bounces x 1,048,576 rays,
-// against a 64 MB record).
+// against a 64 MB record). rfx_ir_histogram_record_ico bins the icosphere
+// receiver's record (map_capture.cu's rfx_map_capture_ico): t_rx is the
+// closest hit over the receiver's 80 faces (brute_hit.cuh), recomputed at
+// the captures only, so the IRs are the plain icosphere rows' bits.
 //
 // There is no float atomic: a bin's value is the sum, in chunk order, of the
 // chunks' ray-order sums, fixed by the row's own inputs. It is bit-identical
@@ -74,6 +77,7 @@
 
 #include <cstdint>
 
+#include "brute_hit.cuh"
 #include "sphere.cuh"
 
 namespace {
@@ -106,6 +110,7 @@ struct Source {
   const float* dir;           // record: (nb, n, 3)
   const float* centers;       // record: (rows, 3)
   float r2, scale;            // record: radius^2, amplitude scale
+  const float* tris;          // icosphere record: (rows, 80, 9), each receiver's faces
 };
 
 // Bit 7 of every nonzero byte of x (a bool tensor may hold any nonzero byte).
@@ -340,17 +345,25 @@ __device__ __forceinline__ unsigned bin_and_weight(float amp, float dist, float 
 
 // A capture's weight and length, *a and *d, from its index in the row's
 // list: dense, entry idx of row r; record, segment idx = b * n + ray of the
-// segments, scaled and lengthened as the capture pass's rows would hold it.
-template <bool kRecord>
+// segments, scaled and lengthened as the capture pass's rows would hold it
+// (kIco: t_rx the closest hit over receiver r's 80 faces, brute_hit.cuh's,
+// which the capture's cull passed).
+template <bool kRecord, bool kIco>
 __device__ __forceinline__ void load_capture(const Source& src, int r, float4 ctr, int idx,
                                              float* a, float* d) {
   if (kRecord) {
     const long long at = idx;
     const float amp = src.amp[at], dist = src.dist[at];
-    const float t_rx = rfx_capture::sphere_t(src.origin[3 * at], src.origin[3 * at + 1],
-                                             src.origin[3 * at + 2], src.dir[3 * at],
-                                             src.dir[3 * at + 1], src.dir[3 * at + 2], ctr.x,
-                                             ctr.y, ctr.z, src.r2);
+    const rfx_brute::Ray ray{src.origin[3 * at], src.origin[3 * at + 1], src.origin[3 * at + 2],
+                             src.dir[3 * at],    src.dir[3 * at + 1],    src.dir[3 * at + 2]};
+    int face;
+    const float t_rx =
+        kIco ? rfx_brute::closest_hit(
+                   ray, src.tris + static_cast<long long>(r) * rfx_brute::kIcoFaces *
+                                       rfx_brute::kTriFloats,
+                   rfx_brute::kIcoFaces, rfx_brute::kTMin, rfx_brute::kTMax, face)
+             : rfx_capture::sphere_t(ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz, ctr.x,
+                                     ctr.y, ctr.z, src.r2);
     *a = amp * src.scale;
     *d = dist + t_rx;
   } else {
@@ -363,7 +376,7 @@ __device__ __forceinline__ void load_capture(const Source& src, int r, float4 ct
 // Pass 3: see the note at the top. A row has tiles = nb * tmax tiles (dense:
 // nb = 1), tile vt holding bounce vt / tmax of the row's bytes of tile vt %
 // tmax. out: (planes, n_rows, nbins), zeroed.
-template <bool kRecord>
+template <bool kRecord, bool kIco>
 __global__ void __launch_bounds__(kSortThreads) bin_chunks(
     const Source src, int n_rows, int planes, float c, float rate, int nbins,
     const int* __restrict__ off, const int* __restrict__ cpre,
@@ -470,7 +483,7 @@ __global__ void __launch_bounds__(kSortThreads) bin_chunks(
     for (int q = 0; q < kPerThread; ++q) {  // the gathers of a thread, issued together
       const int i = threadIdx.x + q * kSortThreads;
       a_in[q] = d_in[q] = 0.0f;
-      if (i < count) load_capture<kRecord>(src, r, ctr, s_idx[i], &a_in[q], &d_in[q]);
+      if (i < count) load_capture<kRecord, kIco>(src, r, ctr, s_idx[i], &a_in[q], &d_in[q]);
     }
 #pragma unroll
     for (int q = 0; q < kPerThread; ++q) {
@@ -555,7 +568,7 @@ int sm_count() {
 }
 
 // The three passes over `src`'s n_rows rows; the layouts of the C entries.
-template <bool kRecord>
+template <bool kRecord, bool kIco = false>
 int histogram(const Source& src, int n_rows, float c, float rate, int nbins, int soft,
               void* scratch, void* out, void* ctrl, long long zero_bytes, cudaStream_t s) {
   const int planes = soft ? 2 : 1;
@@ -579,7 +592,7 @@ int histogram(const Source& src, int n_rows, float c, float rate, int nbins, int
   const long long row_len = static_cast<long long>(kRecord ? src.nb : 1) * src.n;
   const long long most = static_cast<long long>(planes) * n_rows * ((row_len + kChunk - 1) / kChunk);
   const long long resident = 4LL * sm_count();
-  bin_chunks<kRecord><<<static_cast<unsigned>(most < resident ? most : resident), kSortThreads,
+  bin_chunks<kRecord, kIco><<<static_cast<unsigned>(most < resident ? most : resident), kSortThreads,
                         0, s>>>(src, n_rows, planes, c, rate, nbins, off, cpre, slots,
                                 static_cast<int*>(ctrl), static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
@@ -638,10 +651,41 @@ extern "C" int rfx_ir_histogram_record(const void* record, int n, int n_rows, in
                          static_cast<cudaStream_t>(stream));
 }
 
+// rfx_ir_histogram_record for rfx_map_capture_ico's record: tris (n_rows,
+// 80, 9) f32, receiver r's faces as the capture pass took them; t_rx is
+// recomputed at each capture as the closest hit over those faces. The
+// other arguments as rfx_ir_histogram_record's, with no radius.
+extern "C" int rfx_ir_histogram_record_ico(const void* record, int n, int n_rows, int nb,
+                                           const void* origin, const void* dir, const void* amp,
+                                           const void* dist, const void* centers,
+                                           const void* tris, float scale, float c, float rate,
+                                           int nbins, int soft, int tmax, void* scratch,
+                                           void* out, void* ctrl, long long zero_bytes,
+                                           void* stream) {
+  Source src{};
+  src.mask = static_cast<const unsigned char*>(record);
+  src.n = n;
+  src.nb = nb;
+  src.tmax = tmax;
+  src.amp = static_cast<const float*>(amp);
+  src.dist = static_cast<const float*>(dist);
+  src.origin = static_cast<const float*>(origin);
+  src.dir = static_cast<const float*>(dir);
+  src.centers = static_cast<const float*>(centers);
+  src.tris = static_cast<const float*>(tris);
+  src.scale = scale;
+  return histogram<true, true>(src, n_rows, c, rate, nbins, soft, scratch, out, ctrl, zero_bytes,
+                               static_cast<cudaStream_t>(stream));
+}
+
 extern "C" const char* rfx_ir_histogram_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 extern "C" const char* rfx_ir_histogram_record_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+extern "C" const char* rfx_ir_histogram_record_ico_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

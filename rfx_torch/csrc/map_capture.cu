@@ -61,16 +61,37 @@
 // captured, and holds four bounces' sums in registers, so each output is
 // written once and nothing is zeroed or read back.
 //
+// The icosphere receiver (rfx_map_capture_ico, rfx_map_capture_backward_ico;
+// rfx/coverage.py:38-54, the reference's 80-face receiver): the same
+// kernels, templated on the receiver. A receiver's t is the closest hit over
+// its 80 faces (v0, e1, e2), read from (R, 80, 9) rows that torch computes
+// as unit * r + c (rfx_torch.tracer.icosphere_tris, icosphere_soa's bits), behind
+// brute_hit.cuh's bounding-sphere cull, which skips the 80 tests for a
+// segment whose line passes outside the sphere's reach (all but about 1e-4
+// of the (segment, receiver) pairs of a coverage sweep); the record is the
+// same byte. The backward finds the selected face again at each capture
+// and applies the VJP of its closed-form t (closed_form_t_vjp,
+// rfx/ops/intersect.py:159-185) to the length's cotangent: the segment
+// gains g_o and g_d, the center g_v0 (in place of gg q) and the radius
+// g_v0.unit_v0 + g_e1.unit_e1 + g_e2.unit_e2 (in place of gg, and not
+// multiplied by the radius), in the same orders and with the same folds.
+// What bounds the icosphere's forward is the cull on every live segment and
+// receiver (33 operations, against the sphere's 17); the 80 tests run only
+// where it passes.
+//
 // Not carried over from the TPU: nothing; rfx runs this as XLA's fusion of
 // the broadcast.
 
 #include <cuda_runtime.h>
 
+#include "brute_hit.cuh"
 #include "sphere.cuh"
 
 namespace {
 
 using namespace rfx_capture;  // sphere_capture, sphere_t, delay_bin, Segment
+using rfx_brute::kIcoFaces;
+using rfx_brute::kTriFloats;
 
 constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr unsigned kNone = 0xFFu;  // the record's "no capture"
@@ -81,16 +102,38 @@ constexpr int kBackWarps = kBackThreads / 32;
 constexpr int kStage = 256;        // centers the backward stages in shared memory at once
 constexpr int kBatch = 16;         // record bytes a backward thread loads at once
 constexpr int kGroup = 4;          // bounces whose sums a backward thread holds in registers
+constexpr int kIcoFloats = kIcoFaces * kTriFloats;  // a receiver's faces in `tris`
+
+__device__ __forceinline__ rfx_brute::Ray ray_of(const Segment& s) {
+  return rfx_brute::Ray{s.ox, s.oy, s.oz, s.dx, s.dy, s.dz};
+}
+
+// The capture rule of receiver `ctr`: the analytic sphere's (sphere.cuh), or
+// kIco the icosphere's, its faces `tris` ((80, 9) f32) behind the cull of
+// brute_hit.cuh; `t_rx` gets the receiver's t.
+template <bool kIco>
+__device__ __forceinline__ bool captures(const Segment& s, float4 ctr, float r2, float radius,
+                                         const float* tris, float& t_rx) {
+  if constexpr (kIco) {
+    int face;
+    t_rx = rfx_brute::ico_t(ray_of(s), tris, ctr.x, ctr.y, ctr.z, radius, face);
+    return t_rx < kMissThreshold && s.te > t_rx;
+  } else {
+    return sphere_capture(s, ctr, r2, t_rx);
+  }
+}
 
 // A block: kThreads rays x the kTile receivers of tile blockIdx.x % tiles;
 // the tiles of one ray block are neighbouring blocks. A receiver's byte is
 // stored once: its bounce where it first captures the ray, 0xFF after the
-// last bounce where it never did.
+// last bounce where it never did. kIco: receiver r's faces are
+// tris[r * kIcoFloats, (r + 1) * kIcoFloats).
+template <bool kIco>
 __global__ void __launch_bounds__(kThreads) map_record_kernel(
     const float* __restrict__ origin, const float* __restrict__ dir,
     const float* __restrict__ t_env, const bool* __restrict__ alive, int nb, int n,
-    const float* __restrict__ centers, int m, int tiles, float r2,
-    unsigned char* __restrict__ record) {
+    const float* __restrict__ centers, int m, int tiles, float r2, float radius,
+    const float* __restrict__ tris, unsigned char* __restrict__ record) {
   __shared__ float4 s_ctr[kTile];
   const int r0 = static_cast<int>(blockIdx.x % tiles) * kTile;
   const long long i = static_cast<long long>(blockIdx.x / tiles) * kThreads + threadIdx.x;
@@ -118,7 +161,10 @@ __global__ void __launch_bounds__(kThreads) map_record_kernel(
 #pragma unroll 4
     for (int q = 0; q < tile; ++q) {
       float t_rx;
-      if (!((done >> q) & 1u) && sphere_capture(s, s_ctr[q], r2, t_rx)) {
+      if (!((done >> q) & 1u) &&
+          captures<kIco>(s, s_ctr[q], r2, radius,
+                         kIco ? tris + static_cast<long long>(r0 + q) * kIcoFloats : nullptr,
+                         t_rx)) {
         done |= 1u << q;
         out[static_cast<long long>(q) * n] = static_cast<unsigned char>(b);
       }
@@ -136,7 +182,10 @@ struct BackArgs {
   float r2, scale, c, rate, qd_floor;
   int nbins;
   bool soft;
-  double* sums_partials;  // null, or (blocks, 2): a block's sums of g_a amp and gg
+  double* sums_partials;  // null, or (blocks, 2): a block's sums of g_a amp and gg (kIco: of
+                          // g_a amp and d IR / d radius)
+  const float* tris;      // kIco: (m, 80, 9) f32, the receivers' faces
+  const float* unit;      // kIco: (80, 9) f32, the unit icosphere's (v0, e1, e2)
 };
 
 // Byte u (0 <= u < 16) of four packed words, without a local-memory index.
@@ -153,8 +202,12 @@ __device__ __forceinline__ unsigned byte_of(const unsigned (&w)[kBatch / 4], int
 // summed over the warp by a fixed shuffle tree into the warp's row of the
 // scratch (lane 0 writes every entry of its row, 0 where no lane captured),
 // the warps added in order into the block's partial (the first group stores,
-// later groups add their share).
-template <bool kCenters>
+// later groups add their share). kIco: the receiver is the icosphere; its t
+// at a capture is the closest hit over its faces (the cull passed there),
+// and the length's cotangent flows through the selected face's closed-form
+// t (brute_hit.cuh's closed_form_t_vjp) to the segment, to the center (g_v0)
+// and to the radius (g_v0.unit_v0 + g_e1.unit_e1 + g_e2.unit_e2).
+template <bool kCenters, bool kIco>
 __global__ void __launch_bounds__(kBackThreads) map_capture_backward_kernel(
     const float* __restrict__ origin, const float* __restrict__ dir,
     const unsigned char* __restrict__ record, int nb, int n, const float* __restrict__ centers,
@@ -220,7 +273,13 @@ __global__ void __launch_bounds__(kBackThreads) map_capture_backward_kernel(
             const float dx = dir[3 * at], dy = dir[3 * at + 1], dz = dir[3 * at + 2];
             const float amp = a.amp[at], dist = a.dist[at];
             const float4 ctr = s_ctr[q];
-            const float t = sphere_t(ox, oy, oz, dx, dy, dz, ctr.x, ctr.y, ctr.z, a.r2);
+            const rfx_brute::Ray ray{ox, oy, oz, dx, dy, dz};
+            const float* rtris = kIco ? a.tris + static_cast<long long>(s0 + q) * kIcoFloats
+                                      : nullptr;
+            int face = -1;
+            const float t = kIco ? rfx_brute::closest_hit(ray, rtris, kIcoFaces, rfx_brute::kTMin,
+                                                          rfx_brute::kTMax, face)
+                                 : sphere_t(ox, oy, oz, dx, dy, dz, ctr.x, ctr.y, ctr.z, a.r2);
             const float* gr = a.g + static_cast<long long>(s0 + q) * a.nbins;
             const float delay = (dist + t) / a.c * a.rate;
             if (!a.soft) {
@@ -243,21 +302,38 @@ __global__ void __launch_bounds__(kBackThreads) map_capture_backward_kernel(
               const float ga = (1.0f - wt) * g_lo + wt * g_hi;
               const float amp_row = amp * a.scale;
               const float gd = amp_row * (g_hi - g_lo) * a.rate / a.c;
-              const float qv[3] = {(ox + t * dx) - ctr.x, (oy + t * dy) - ctr.y,
-                                   (oz + t * dz) - ctr.z};
-              const float qd = qv[0] * dx + qv[1] * dy + qv[2] * dz;
-              const float mag = fmaxf(fabsf(qd), a.qd_floor);
-              const float qd_safe = qd < 0.0f ? -mag : mag;
-              const float gg = gd / qd_safe;
-              const float ggt = gg * t;
-              sum_amp += static_cast<double>(ga * amp);
-              sum_gg += static_cast<double>(gg);
               float terms[8];  // the layout of acc
+              sum_amp += static_cast<double>(ga * amp);
+              if constexpr (kIco) {
+                rfx_brute::TGrad tg;
+                const float* tri = rtris + kTriFloats * face;
+                rfx_brute::closed_form_t_vjp(ray, tri, gd, tg);
+                const float* u = a.unit + kTriFloats * face;
 #pragma unroll
-              for (int k = 0; k < 3; ++k) {
-                terms[k] = -gg * qv[k];
-                terms[3 + k] = -ggt * qv[k];
-                gq[k] = gg * qv[k];
+                for (int k = 0; k < 3; ++k) {
+                  terms[k] = tg.go[k];
+                  terms[3 + k] = tg.gd[k];
+                  gq[k] = -tg.go[k];
+                }
+                const float g_r = ((gq[0] * u[0] + gq[1] * u[1] + gq[2] * u[2]) +
+                                   (tg.ge1[0] * u[3] + tg.ge1[1] * u[4] + tg.ge1[2] * u[5])) +
+                                  (tg.ge2[0] * u[6] + tg.ge2[1] * u[7] + tg.ge2[2] * u[8]);
+                sum_gg += static_cast<double>(g_r);
+              } else {
+                const float qv[3] = {(ox + t * dx) - ctr.x, (oy + t * dy) - ctr.y,
+                                     (oz + t * dz) - ctr.z};
+                const float qd = qv[0] * dx + qv[1] * dy + qv[2] * dz;
+                const float mag = fmaxf(fabsf(qd), a.qd_floor);
+                const float qd_safe = qd < 0.0f ? -mag : mag;
+                const float gg = gd / qd_safe;
+                const float ggt = gg * t;
+                sum_gg += static_cast<double>(gg);
+#pragma unroll
+                for (int k = 0; k < 3; ++k) {
+                  terms[k] = -gg * qv[k];
+                  terms[3 + k] = -ggt * qv[k];
+                  gq[k] = gg * qv[k];
+                }
               }
               terms[6] = ga * a.scale;
               terms[7] = gd;
@@ -378,6 +454,54 @@ cudaError_t fold_blocks(T* scratch, int blocks, int total, Tout* out, cudaStream
   return cudaGetLastError();
 }
 
+// The record kernel's launch: a block a ray block and receiver tile.
+template <bool kIco>
+int launch_record(const void* origin, const void* dir, const void* t_env, const void* alive,
+                  int nb, int n, const void* centers, int m, float radius, const void* tris,
+                  void* record, void* stream) {
+  const int tiles = (m + kTile - 1) / kTile;
+  const long long blocks = static_cast<long long>((n + kThreads - 1) / kThreads) * tiles;
+  map_record_kernel<kIco><<<static_cast<unsigned>(blocks), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(origin), static_cast<const float*>(dir),
+      static_cast<const float*>(t_env), static_cast<const bool*>(alive), nb, n,
+      static_cast<const float*>(centers), m, tiles, radius * radius, radius,
+      static_cast<const float*>(tris), static_cast<unsigned char*>(record));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward kernel's launch and the folds of its partials.
+template <bool kIco>
+int launch_backward(const void* origin, const void* dir, const void* record, int nb, int n,
+                    const void* centers, int m, const BackArgs& a, void* g_origin, void* g_dir,
+                    void* g_amp, void* g_dist, void* gc_partials, void* g_centers, void* sums,
+                    cudaStream_t s) {
+  const int blocks = backward_blocks(n);
+#define RFX_MAP_BACKWARD(KC, SMEM)                                                             \
+  map_capture_backward_kernel<KC, kIco><<<blocks, kBackThreads, SMEM, s>>>(                    \
+      static_cast<const float*>(origin), static_cast<const float*>(dir),                       \
+      static_cast<const unsigned char*>(record), nb, n, static_cast<const float*>(centers), m, \
+      a, static_cast<float*>(g_origin), static_cast<float*>(g_dir),                            \
+      static_cast<float*>(g_amp), static_cast<float*>(g_dist), static_cast<float*>(gc_partials))
+  if (gc_partials == nullptr) {
+    RFX_MAP_BACKWARD(false, 0);
+  } else {
+    RFX_MAP_BACKWARD(true, static_cast<int>(sizeof(float)) * kBackWarps * kStage * 3);
+  }
+#undef RFX_MAP_BACKWARD
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (gc_partials != nullptr) {
+    err = fold_blocks(static_cast<float*>(gc_partials), blocks, 3 * m,
+                      static_cast<float*>(g_centers), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (a.sums_partials != nullptr) {
+    err = fold_blocks(a.sums_partials, blocks, 2, static_cast<float*>(sums), s);
+  }
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 // origin, dir: (nb, n, 3) f32; t_env: (nb, n) f32; alive: (nb, n) bool;
@@ -387,15 +511,19 @@ cudaError_t fold_blocks(T* scratch, int blocks, int total, Tout* out, cudaStream
 extern "C" int rfx_map_capture(const void* origin, const void* dir, const void* t_env,
                                const void* alive, int nb, int n, const void* centers, int m,
                                float radius, void* record, void* stream) {
-  const int tiles = (m + kTile - 1) / kTile;
-  const long long blocks = static_cast<long long>((n + kThreads - 1) / kThreads) * tiles;
-  map_record_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(origin), static_cast<const float*>(dir),
-      static_cast<const float*>(t_env), static_cast<const bool*>(alive), nb, n,
-      static_cast<const float*>(centers), m, tiles, radius * radius,
-      static_cast<unsigned char*>(record));
-  return static_cast<int>(cudaGetLastError());
+  return launch_record<false>(origin, dir, t_env, alive, nb, n, centers, m, radius, nullptr,
+                              record, stream);
+}
+
+// rfx_map_capture for the icosphere receiver: tris (m, 80, 9) f32, receiver
+// r's faces (v0, e1, e2) of unit * radius + centers[r]
+// (rfx_torch.tracer.icosphere_tris); the cull's sphere is (centers[r],
+// radius). The same record.
+extern "C" int rfx_map_capture_ico(const void* origin, const void* dir, const void* t_env,
+                                   const void* alive, int nb, int n, const void* centers, int m,
+                                   float radius, const void* tris, void* record, void* stream) {
+  return launch_record<true>(origin, dir, t_env, alive, nb, n, centers, m, radius, tris, record,
+                             stream);
 }
 
 // origin, dir: (nb, n, 3) f32; amp, dist: (nb, n) f32; record: (m, n) uint8
@@ -414,34 +542,33 @@ extern "C" int rfx_map_capture_backward(const void* origin, const void* dir, con
                                         const void* g, void* g_origin, void* g_dir, void* g_amp,
                                         void* g_dist, void* gc_partials, void* g_centers,
                                         void* sums_partials, void* sums, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const BackArgs a{static_cast<const float*>(amp), static_cast<const float*>(dist),
                    static_cast<const float*>(g), radius * radius, scale, c, rate, qd_floor,
-                   nbins, soft != 0, static_cast<double*>(sums_partials)};
-  const int blocks = backward_blocks(n);
-#define RFX_MAP_BACKWARD(KC, SMEM)                                                             \
-  map_capture_backward_kernel<KC><<<blocks, kBackThreads, SMEM, s>>>(                          \
-      static_cast<const float*>(origin), static_cast<const float*>(dir),                       \
-      static_cast<const unsigned char*>(record), nb, n, static_cast<const float*>(centers), m, \
-      a, static_cast<float*>(g_origin), static_cast<float*>(g_dir),                            \
-      static_cast<float*>(g_amp), static_cast<float*>(g_dist), static_cast<float*>(gc_partials))
-  if (gc_partials == nullptr) {
-    RFX_MAP_BACKWARD(false, 0);
-  } else {
-    RFX_MAP_BACKWARD(true, static_cast<int>(sizeof(float)) * kBackWarps * kStage * 3);
-  }
-#undef RFX_MAP_BACKWARD
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (gc_partials != nullptr) {
-    err = fold_blocks(static_cast<float*>(gc_partials), blocks, 3 * m,
-                      static_cast<float*>(g_centers), s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (sums_partials != nullptr) {
-    err = fold_blocks(static_cast<double*>(sums_partials), blocks, 2, static_cast<float*>(sums), s);
-  }
-  return static_cast<int>(err);
+                   nbins, soft != 0, static_cast<double*>(sums_partials), nullptr, nullptr};
+  return launch_backward<false>(origin, dir, record, nb, n, centers, m, a, g_origin, g_dir,
+                                g_amp, g_dist, gc_partials, g_centers, sums,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// rfx_map_capture_backward for the icosphere receiver, given
+// rfx_map_capture_ico's record: tris as there, unit (80, 9) f32 the unit
+// icosphere's (v0, e1, e2); sums gets the sums of g_a amp and of d IR /
+// d radius (no qd_floor: the closed-form t has no clamp).
+extern "C" int rfx_map_capture_backward_ico(const void* origin, const void* dir, const void* amp,
+                                            const void* dist, const void* record, int nb, int n,
+                                            const void* centers, int m, float scale, float c,
+                                            float rate, int nbins, int soft, const void* tris,
+                                            const void* unit, const void* g, void* g_origin,
+                                            void* g_dir, void* g_amp, void* g_dist,
+                                            void* gc_partials, void* g_centers,
+                                            void* sums_partials, void* sums, void* stream) {
+  const BackArgs a{static_cast<const float*>(amp), static_cast<const float*>(dist),
+                   static_cast<const float*>(g), 0.0f, scale, c, rate, 0.0f, nbins, soft != 0,
+                   static_cast<double*>(sums_partials), static_cast<const float*>(tris),
+                   static_cast<const float*>(unit)};
+  return launch_backward<true>(origin, dir, record, nb, n, centers, m, a, g_origin, g_dir, g_amp,
+                               g_dist, gc_partials, g_centers, sums,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // The rows of the backward's scratch for n rays: a row a block of the
@@ -455,6 +582,14 @@ extern "C" const char* rfx_map_capture_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+extern "C" const char* rfx_map_capture_ico_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
 extern "C" const char* rfx_map_capture_backward_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+extern "C" const char* rfx_map_capture_backward_ico_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -2,11 +2,16 @@
 of rfx/ops/intersect.py).
 
 - `ray_mesh_closest_hit_brute`: Moller-Trumbore of every ray against every
-  triangle, chunked over rays so the (rays x triangles) intermediates stay
-  bounded. The closest-hit path of small meshes (the facade's `brute`
-  backend) and of the icosphere receiver. Its backward is the reference's
-  custom VJP: hit selection is straight-through, and the closed-form t of
-  the selected face is differentiated at sanitized lanes.
+  triangle. The closest-hit path of small meshes (the facade's `brute`
+  backend) and of the icosphere receiver. On a CUDA tensor one launch of
+  the brute closest-hit kernel (`rfx_brute_hit`, rfx_torch/csrc/brute_hit.cu,
+  with the receiver's bounding-sphere cull where the caller gives one); on a
+  CPU tensor its plain version, `_brute_forward`, chunked over rays so the
+  (rays x triangles) intermediates stay bounded. The same t and face either
+  way. Its backward is the reference's custom VJP: hit selection is
+  straight-through, and the closed-form t of the selected face is
+  differentiated at sanitized lanes. `closed_form_t_vjp` writes that VJP
+  out, as the map engine's icosphere backward kernel computes it.
 - `ray_sphere_hit`: closed-form sphere hit of the analytic receiver, with
   the implicit-function backward of the reference.
 - `make_env_intersector`: the `env_hit(o, d, v0, e1, e2, normals) -> (t,
@@ -24,6 +29,8 @@ from __future__ import annotations
 
 import torch
 
+from rfx_torch.ops._build import CudaKernel, F, I, P
+
 T_MIN_EPS = 1e-4
 T_MAX = 1.0e6
 MISS = 1e30
@@ -32,6 +39,12 @@ MISS_THRESHOLD = 1e29
 # Upper bound on rays x triangles per brute-force chunk (each of the ~20
 # intermediates is this many f32 values).
 _BRUTE_PAIRS = 1 << 22
+
+BRUTE_HIT_KERNEL = CudaKernel("brute_hit.cu", "rfx_brute_hit", [P, P, I, P, I, F, F, P, P, P, P])
+# The receiver icosphere's bounding-sphere cull (csrc/brute_hit.cuh): its
+# reach is r (1 + CULL_DELTA) + CULL_GAMMA |c - o|_1.
+CULL_DELTA = 1e-3
+CULL_GAMMA = 1e-3
 
 
 def is_hit(t: torch.Tensor) -> torch.Tensor:
@@ -101,6 +114,8 @@ def _mt_chunk(o, d, v0, e1, e2, t_min, t_max):
 
 
 def _brute_forward(o, d, v0, e1, e2, t_min, t_max, ray_chunk):
+    """Plain PyTorch version of `rfx_brute_hit`, on either device: `_mt_chunk`
+    over chunks of `ray_chunk` rays (None: about 4M pairs a chunk)."""
     n, n_tris = o.shape[0], v0.shape[0]
     if ray_chunk is None:
         ray_chunk = max(1, _BRUTE_PAIRS // max(n_tris, 1))
@@ -115,6 +130,86 @@ def _brute_forward(o, d, v0, e1, e2, t_min, t_max, ray_chunk):
     if not ts:
         return o.new_empty((0,)), torch.empty((0,), dtype=torch.int32, device=o.device)
     return torch.cat(ts), torch.cat(fs)
+
+
+def cull_pass(o: torch.Tensor, d: torch.Tensor, cull: torch.Tensor) -> torch.Tensor:
+    """(N,) bool: the brute closest-hit kernel's cull, in its f32 expressions
+    and order (brute_hit.cuh:cull_pass), for rays (N, 3) and `cull` (4,) =
+    (cx, cy, cz, r): False where the line passes farther than the reach from
+    the center, so that no face of the icosphere can be hit."""
+    w = cull[:3] - o
+    wx, wy, wz = w[:, 0], w[:, 1], w[:, 2]
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    crx = wy * dz - wz * dy
+    cry = wz * dx - wx * dz
+    crz = wx * dy - wy * dx
+    line2 = crx * crx + cry * cry + crz * crz
+    reach = cull[3].abs() * (1.0 + CULL_DELTA) + CULL_GAMMA * (wx.abs() + wy.abs() + wz.abs())
+    dd = dx * dx + dy * dy + dz * dz
+    return line2 <= reach * reach * dd
+
+
+def brute_hit(o, d, v0, e1, e2, t_min: float = T_MIN_EPS, t_max: float = T_MAX,
+              ray_chunk: int | None = None, cull=None):
+    """(t, face) of (N, 3) rays against the (T, 3) triangles v0, e1, e2,
+    without autograd: on a CPU tensor `_brute_forward`, on a CUDA tensor one
+    launch of `rfx_brute_hit` (the same bits; `cull`, the (4,) center and
+    radius of an icosphere around the triangles, lets it skip rays whose line
+    passes outside the sphere's reach; the plain version tests every ray)."""
+    dev = o.device
+    if dev.type == "cpu":
+        return _brute_forward(o, d, v0, e1, e2, t_min, t_max, ray_chunk)
+    if dev.type != "cuda":
+        raise ValueError(f"no brute closest-hit kernel for device {dev}")
+    n, n_tris = o.shape[0], v0.shape[0]
+    if n >= 2**31:
+        raise ValueError(f"at most 2^31 - 1 rays a launch, got {n}")
+    for name, x in (("o", o), ("d", d), ("v0", v0), ("e1", e1), ("e2", e2)):
+        if x.dtype != torch.float32 or x.ndim != 2 or x.shape[1] != 3 or x.device != dev:
+            raise ValueError(f"{name} must be (n, 3) float32 on {dev}, got {tuple(x.shape)} "
+                             f"{x.dtype} on {x.device}")
+    if n_tris == 0 or n == 0:
+        return (torch.full((n,), MISS, dtype=torch.float32, device=dev),
+                torch.full((n,), -1, dtype=torch.int32, device=dev))
+    tris = torch.cat([v0, e1, e2], dim=1).detach().contiguous()
+    o, d = o.detach().contiguous(), d.detach().contiguous()
+    if cull is not None:
+        cull = cull.detach().to(device=dev, dtype=torch.float32).contiguous()
+        if cull.shape != (4,):
+            raise ValueError(f"cull must be (4,): center and radius, got {tuple(cull.shape)}")
+    t = torch.empty(n, dtype=torch.float32, device=dev)  # the kernel writes every element
+    face = torch.empty(n, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        BRUTE_HIT_KERNEL.launch(o.data_ptr(), d.data_ptr(), n, tris.data_ptr(), n_tris,
+                                float(t_min), float(t_max),
+                                None if cull is None else cull.data_ptr(), t.data_ptr(),
+                                face.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    return t, face
+
+
+def closed_form_t_vjp(o, d, v0, e1, e2, g):
+    """(g_o, g_d, g_v0, g_e1, g_e2) of `closed_form_t` for the cotangent g,
+    rows of (ray, triangle) pairs (..., 3), written out as the map engine's
+    icosphere backward kernel computes it (brute_hit.cuh): with p = d x e2,
+    det = e1.p (1 where |det| <= 1e-12), s = o - v0, q = s x e1, num = e2.q
+    and t = num / det: g_num = g / det, g_det = -g_num (num / det) (0 where
+    |det| <= 1e-12), g_q = g_num e2, g_p = g_det e1; g_o = e1 x g_q = -g_v0,
+    g_d = e2 x g_p, g_e1 = g_q x s + g_det p, g_e2 = g_num q + g_p x d."""
+    p = cross3(d, e2)
+    det = dot3(e1, p)
+    valid = det.abs() > 1e-12
+    ds = torch.where(valid, det, torch.ones_like(det))
+    s = o - v0
+    q = cross3(s, e1)
+    num = dot3(e2, q)
+    g_num = g / ds
+    g_det = torch.where(valid, -(g_num * (num / ds)), torch.zeros_like(det))
+    g_q = g_num[..., None] * e2
+    g_o = cross3(e1, g_q)
+    g_p = g_det[..., None] * e1
+    g_e1 = cross3(g_q, s) + g_det[..., None] * p
+    g_e2 = g_num[..., None] * q + cross3(g_p, d)
+    return g_o, cross3(e2, g_p), -g_o, g_e1, g_e2
 
 
 def sanitized_t_vjp(o, d, v0, e1, e2, g, hit):
@@ -139,8 +234,8 @@ class _BruteHit(torch.autograd.Function):
     (rfx/ops/intersect.py:159-185); face is an integer output."""
 
     @staticmethod
-    def forward(ctx, o, d, v0, e1, e2, t_min, t_max, ray_chunk):
-        t, face = _brute_forward(o, d, v0, e1, e2, t_min, t_max, ray_chunk)
+    def forward(ctx, o, d, v0, e1, e2, t_min, t_max, ray_chunk, cull):
+        t, face = brute_hit(o, d, v0, e1, e2, t_min, t_max, ray_chunk, cull)
         ctx.mark_non_differentiable(face)
         ctx.save_for_backward(o, d, v0, e1, e2, face, t)
         return t, face
@@ -154,17 +249,19 @@ class _BruteHit(torch.autograd.Function):
         keep = hit[:, None].to(o.dtype)
         full = [torch.zeros_like(a).index_add_(0, sel, ga * keep)
                 for a, ga in ((v0, gv0), (e1, ge1), (e2, ge2))]
-        return go, gd, *full, None, None, None
+        return go, gd, *full, None, None, None, None
 
 
 def ray_mesh_closest_hit_brute(o, d, v0, e1, e2, t_min: float = T_MIN_EPS,
-                               t_max: float = T_MAX, ray_chunk: int | None = None):
+                               t_max: float = T_MAX, ray_chunk: int | None = None, cull=None):
     """Closest hit of (N, 3) rays against all T triangles: (t (N,), face (N,)
     int32), with t = MISS and face = -1 on a miss and ties going to the lowest
-    face index. Rays are processed `ray_chunk` at a time (default: enough to
-    keep chunk x T near 4M pairs). Differentiable in o, d, v0, e1 and e2
-    through the selected face's closed-form t (straight-through selection)."""
-    return _BruteHit.apply(o, d, v0, e1, e2, float(t_min), float(t_max), ray_chunk)
+    face index (`brute_hit`: the kernel on a CUDA tensor, where `cull` may
+    name the triangles' bounding icosphere; on a CPU tensor the plain
+    version, `ray_chunk` rays at a time, by default enough to keep chunk x T
+    near 4M pairs). Differentiable in o, d, v0, e1 and e2 through the
+    selected face's closed-form t (straight-through selection)."""
+    return _BruteHit.apply(o, d, v0, e1, e2, float(t_min), float(t_max), ray_chunk, cull)
 
 
 def sphere_t(o, d, center, r2):

@@ -76,13 +76,35 @@ def icosphere_soa(rx_pos: torch.Tensor, rx_radius):
     return tri[:, 0] * r + rx_pos[None, :], (tri[:, 1] - tri[:, 0]) * r, (tri[:, 2] - tri[:, 0]) * r
 
 
+def unit_icosphere_tris(device) -> torch.Tensor:
+    """(80, 9) f32: the unit icosphere's faces as rows (v0, e1, e2)."""
+    tri = torch.as_tensor(_UNIT_ICO_TRI, dtype=torch.float32, device=device)
+    return torch.cat([tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]], dim=1)
+
+
+def icosphere_tris(centers: torch.Tensor, rx_radius) -> torch.Tensor:
+    """(R, 80, 9) f32: the faces (v0, e1, e2) of the icospheres of radius
+    rx_radius about the (R, 3) centers, each row the bits of
+    `icosphere_soa` of its center (what the map engine's icosphere kernels
+    read)."""
+    unit = unit_icosphere_tris(centers.device)
+    r = torch.as_tensor(rx_radius, dtype=torch.float32, device=centers.device)
+    v0 = unit[None, :, 0:3] * r + centers[:, None, :]
+    edges = (unit[:, 3:9] * r).expand(centers.shape[0], -1, -1)
+    return torch.cat([v0, edges], dim=2)
+
+
 def _rx_query(rx_pos: torch.Tensor, rx_radius, rx_mode: str):
-    """t_rx(o, d) of the analytic or the icosphere receiver."""
+    """t_rx(o, d) of the analytic or the icosphere receiver (on the card the
+    brute closest-hit kernel, with the icosphere's bounding sphere as its
+    cull)."""
     if rx_mode == "analytic":
         return lambda o, d: ray_sphere_hit(o, d, rx_pos, rx_radius)
     if rx_mode == "icosphere":
         v0, e1, e2 = icosphere_soa(rx_pos, rx_radius)
-        return lambda o, d: ray_mesh_closest_hit_brute(o, d, v0, e1, e2)[0]
+        r = torch.as_tensor(rx_radius, dtype=torch.float32, device=rx_pos.device).detach()
+        cull = torch.cat([rx_pos.detach().reshape(3), r.reshape(1)])
+        return lambda o, d: ray_mesh_closest_hit_brute(o, d, v0, e1, e2, cull=cull)[0]
     raise ValueError(f"unknown rx_mode: {rx_mode}")
 
 

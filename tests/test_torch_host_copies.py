@@ -216,7 +216,8 @@ def test_package_docstring_names_the_sources_and_entry_points():
                for m in re.findall(r'extern "C" int (rfx_\w+)\(', p.read_text())]
     words = {5: "five", 6: "six", 7: "seven", 8: "eight", 9: "nine", 10: "ten", 11: "eleven",
              12: "twelve", 13: "thirteen", 14: "fourteen", 15: "fifteen", 16: "sixteen",
-             17: "seventeen", 18: "eighteen"}
+             17: "seventeen", 18: "eighteen", 19: "nineteen", 20: "twenty", 21: "twenty-one",
+             22: "twenty-two", 23: "twenty-three", 24: "twenty-four"}
     assert f"{words[len(entries)]} C entry points in {words[len(sources)]} sources" in doc
     for name in sources:
         assert f"`{name}`" in doc, name

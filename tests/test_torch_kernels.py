@@ -16,6 +16,7 @@ import torch
 from rfx_torch import cir, coverage
 from rfx_torch.api import Tracer
 from rfx_torch.geometry import make_room, make_terrain
+from rfx_torch import tracer
 from rfx_torch.ops import (bvh_trace, bvh_traverse, coverage_hist, fused, intersect, map_capture,
                            micro_vote)
 from rfx_torch.sampler import morton_sphere_directions
@@ -1130,43 +1131,48 @@ MAP_KW = dict(nbins=10_000, light_speed_mps=2.998e8, sample_rate_hz=100e9)
 MAP_SCALE = 1.0 / 1024  # tx_power / num_rays, exact in f32
 
 
-def _map_launches():
+def _map_launches(rx_mode="analytic"):
     """Launches of K-S, its backward, the histogram's record entry and its
-    dense entry."""
+    dense entry (their icosphere instantiations for the icosphere)."""
+    if rx_mode == "icosphere":
+        return (map_capture.MAP_CAPTURE_ICO_KERNEL.launches,
+                map_capture.MAP_CAPTURE_BACKWARD_ICO_KERNEL.launches,
+                cir.HISTOGRAM_RECORD_ICO_KERNEL.launches, cir.HISTOGRAM_KERNEL.launches)
     return (map_capture.MAP_CAPTURE_KERNEL.launches,
             map_capture.MAP_CAPTURE_BACKWARD_KERNEL.launches,
             cir.HISTOGRAM_RECORD_KERNEL.launches, cir.HISTOGRAM_KERNEL.launches)
 
 
-def _assert_map_record(segs, centers, radius):
-    """K-S's record == map_record_plain's byte for byte, two runs the same;
-    returns it."""
-    before = map_capture.MAP_CAPTURE_KERNEL.launches
-    k1 = map_capture.map_record(segs, centers, radius)
-    k2 = map_capture.map_record(segs, centers, radius)
-    assert map_capture.MAP_CAPTURE_KERNEL.launches == before + 2
-    p = map_capture.map_record_plain(segs, centers, radius)
+def _assert_map_record(segs, centers, radius, rx_mode="analytic"):
+    """K-S's record (K-S/ico's for the icosphere) == map_record_plain's byte
+    for byte, two runs the same; returns it."""
+    before = _map_launches(rx_mode)[0]
+    k1 = map_capture.map_record(segs, centers, radius, rx_mode)
+    k2 = map_capture.map_record(segs, centers, radius, rx_mode)
+    assert _map_launches(rx_mode)[0] == before + 2
+    p = map_capture.map_record_plain(segs, centers, radius, rx_mode)
     torch.cuda.synchronize()
     assert k1.dtype == torch.uint8 and k1.shape == (centers.shape[0], segs.t_env.shape[1])
     assert torch.equal(k1, k2) and torch.equal(k1, p)
     return k1
 
 
-def _assert_map_backward(segs, centers, radius, soft, seed=5):
+def _assert_map_backward(segs, centers, radius, soft, seed=5, rx_mode="analytic"):
     """The backward kernel, given K-S's record, against its plain version for
     a seeded cotangent: the segments' gradients (origin, direction,
     amplitude, distance) bit for bit; the centers' and the scale's and
     radius's sums within rtol 1e-5 (an absolute floor of 1e-6 of the largest
     entry, for the centers' sums, which add in another order); every output
-    the same bits from run to run; returns the kernel's outputs."""
+    the same bits from run to run; returns the kernel's outputs. The
+    icosphere's (B11/ico, given K-S/ico's record) the same way."""
     g = torch.from_numpy(np.random.default_rng(seed).normal(
         size=(centers.shape[0], MAP_KW["nbins"])).astype(np.float32)).to(centers.device)
-    kw = dict(scale=MAP_SCALE, soft=soft, **MAP_KW)
-    record = map_capture.map_record(segs, centers, radius)
-    before = map_capture.MAP_CAPTURE_BACKWARD_KERNEL.launches
+    kw = dict(scale=MAP_SCALE, soft=soft, rx_mode=rx_mode, **MAP_KW)
+    record = map_capture.map_record(segs, centers, radius, rx_mode)
+    before = _map_launches(rx_mode)[1]
     k1 = map_capture.map_capture_backward(segs, centers, radius, g, record, **kw)
     k2 = map_capture.map_capture_backward(segs, centers, radius, g, record, **kw)
-    assert map_capture.MAP_CAPTURE_BACKWARD_KERNEL.launches == before + 2
+    assert _map_launches(rx_mode)[1] == before + 2
     p = map_capture.map_capture_backward_plain(segs, centers, radius, g, **kw)
     torch.cuda.synchronize()
     names = ("origin", "direction", "amplitude", "distance", "centers", "scale", "radius")
@@ -1365,3 +1371,225 @@ def test_capture_rule_shared_with_the_coverage_kernel(cuda):
     torch.cuda.synchronize()
     assert torch.equal(k3 != 0, ks != 0) and int((ks != 0).sum()) > 1000
     torch.testing.assert_close(k3, ks, rtol=1e-5, atol=1e-12)
+
+
+def _tie_mesh(n_tris, seed, reach=None):
+    """(v0, e1, e2) of n_tris random triangles, the second half copies of
+    the first (exact ties: the lower face must win). With `reach` (center,
+    radius): every vertex inside that ball, as the cull assumes."""
+    g = np.random.default_rng(seed)
+    half = (n_tris + 1) // 2
+    if reach is None:
+        verts = g.uniform(-3.0, 3.0, size=(half, 3, 3))
+    else:
+        center, radius = reach
+        p = g.normal(size=(half, 3, 3))
+        p *= (g.uniform(0.2, 0.999, size=(half, 3, 1)) ** (1 / 3)) / np.linalg.norm(
+            p, axis=2, keepdims=True)
+        verts = center + radius * p
+    verts = np.concatenate([verts, verts])[:n_tris].astype(np.float32)
+    v = torch.from_numpy(verts)
+    return v[:, 0].contiguous(), (v[:, 1] - v[:, 0]).contiguous(), (v[:, 2] - v[:, 0]).contiguous()
+
+
+def _brute_rays(cuda, n, center, radius, seed):
+    """n rays from 1.5 to 60 radii away aimed within two radii of `center`
+    (many hits, many grazing misses), and 1,024 parked at 1e9."""
+    g = np.random.default_rng(seed)
+    d = g.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    aim = center + radius * g.uniform(-2.0, 2.0, size=(n, 3))
+    o = aim - d * radius * g.uniform(1.5, 60.0, size=(n, 1))
+    o[-1024:] = 1e9
+    as_card = lambda x: torch.from_numpy(x.astype(np.float32)).to(cuda)  # noqa: E731
+    return as_card(o), as_card(d)
+
+
+@pytest.mark.parametrize("cull", [False, True], ids=["all", "cull"])
+@pytest.mark.parametrize("n_tris", [1, 12, 80, 257, 2048])
+def test_brute_hit_kernel_matches_plain(cuda, n_tris, cull):
+    """K-B against `_brute_forward` on the card, t and face torch.equal:
+    random meshes of 1, 12, 80, 257 (two tiles, the last of one face) and
+    2,048 faces whose second half repeats the first (ties go to the lower
+    face), 100,003 rays (ragged against a block) and 1,024 parked rays; with
+    the cull, every vertex inside the cull's ball. Two runs the same bits;
+    one launch a call."""
+    center, radius = np.array([1.0, -2.0, 3.0]), 1.5
+    v0, e1, e2 = (x.to(cuda) for x in _tie_mesh(n_tris, n_tris, (center, radius) if cull else None))
+    o, d = _brute_rays(cuda, 100_003, center if cull else np.zeros(3), radius if cull else 3.0,
+                       seed=n_tris)
+    c = torch.tensor([*center, radius], dtype=torch.float32, device=cuda) if cull else None
+    before = intersect.BRUTE_HIT_KERNEL.launches
+    k1 = intersect.brute_hit(o, d, v0, e1, e2, cull=c)
+    k2 = intersect.brute_hit(o, d, v0, e1, e2, cull=c)
+    assert intersect.BRUTE_HIT_KERNEL.launches == before + 2
+    p = intersect._brute_forward(o, d, v0, e1, e2, intersect.T_MIN_EPS, intersect.T_MAX, None)
+    torch.cuda.synchronize()
+    for a, b, w in zip(k1, k2, p):
+        assert torch.equal(a, b) and torch.equal(a, w)
+    assert int((k1[1] >= 0).sum()) > 100 and bool((k1[1][-1024:] == -1).all())
+    if n_tris > 1:
+        assert int(k1[1].max()) < (n_tris + 1) // 2  # ties to the lower copy
+    if cull:
+        assert not bool(intersect.cull_pass(o, d, c).all())
+
+
+@pytest.mark.parametrize("radius", [0.1, 1.0])
+def test_brute_hit_kernel_icosphere_with_its_cull(cuda, radius):
+    """K-B on the receiver icosphere with its own bounding sphere as the
+    cull: 100,000 rays through its vertices and edge midpoints, nearly
+    tangent there and pushed out or in by up to 1% of the radius, from 1.5
+    to 10^4 radii away; t and face == the plain version's, and the cull
+    rejects some."""
+    g = np.random.default_rng(int(radius * 10))
+    tri = tracer._UNIT_ICO_TRI.astype(np.float64)
+    anchors = np.concatenate([tri.reshape(-1, 3), (tri + np.roll(tri, 1, axis=1)).reshape(-1, 3)])
+    n = 100_000
+    p = anchors[g.integers(0, len(anchors), n)]
+    p /= np.linalg.norm(p, axis=1, keepdims=True)
+    side = g.normal(size=(n, 3))
+    side -= (side * p).sum(1, keepdims=True) * p
+    d = side / np.linalg.norm(side, axis=1, keepdims=True) + g.normal(size=(n, 1)) * 1e-3 * p
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    center = np.array([12.0, -7.0, 3.0])
+    dist = 10.0 ** g.uniform(np.log10(1.5), 4.0, size=(n, 1))
+    o = center + p * radius * (1.0 + g.uniform(-1e-2, 1e-2, size=(n, 1))) - d * dist * radius
+    o, d = (torch.from_numpy(x.astype(np.float32)).to(cuda) for x in (o, d))
+    c = torch.tensor([*center, radius], dtype=torch.float32, device=cuda)
+    v0, e1, e2 = tracer.icosphere_soa(c[:3], radius)
+    k = intersect.brute_hit(o, d, v0, e1, e2, cull=c)
+    p_t, p_face = intersect._brute_forward(o, d, v0, e1, e2, intersect.T_MIN_EPS,
+                                           intersect.T_MAX, None)
+    torch.cuda.synchronize()
+    assert torch.equal(k[0], p_t) and torch.equal(k[1], p_face)
+    assert int((p_face >= 0).sum()) > 1000 and not bool(intersect.cull_pass(o, d, c).all())
+
+
+def test_scan_tracer_icosphere_on_card_matches_plain(cuda, monkeypatch):
+    """trace_to_rx(rx_mode="icosphere") on the card, K-B for the receiver
+    (one launch a bounce, with the cull) and for the room's brute
+    environment, against the same trace with `brute_hit` swapped for its
+    plain version: the same captures, bounces, amplitudes and distances,
+    bit for bit; and the gradient through both the same bits."""
+    dirs = morton_sphere_directions(200_003, generator=torch.Generator(cuda).manual_seed(2),
+                                    device=cuda)
+    scene = Scene.from_mesh(make_room(), cuda)
+
+    def run():
+        tx = torch.tensor([3.0, 2.0, 2.0], device=cuda, requires_grad=True)
+        res = trace_to_rx(scene, tx, dirs, (-4.0, 1.0, 3.0), 0.5, max_bounces=3,
+                          rx_mode="icosphere")
+        (g,) = torch.autograd.grad(res.distance.sum(), tx)
+        return res, g
+
+    before = intersect.BRUTE_HIT_KERNEL.launches
+    k, gk = run()
+    assert intersect.BRUTE_HIT_KERNEL.launches == before + 6  # receiver and room, 3 bounces
+    monkeypatch.setattr(intersect, "brute_hit", lambda o, d, v0, e1, e2, t_min, t_max, chunk, cull:
+                        intersect._brute_forward(o, d, v0, e1, e2, t_min, t_max, chunk))
+    before = intersect.BRUTE_HIT_KERNEL.launches
+    p, gp = run()
+    assert intersect.BRUTE_HIT_KERNEL.launches == before
+    torch.cuda.synchronize()
+    assert int(k.captured.sum()) > 100
+    for a, b in zip(k[:4], p[:4]):
+        assert torch.equal(a, b)
+    assert torch.equal(gk, gp) and float(gk.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+def test_map_capture_ico_kernels_match_plain(cuda, soft):
+    """The icosphere's capture pass on the room's segments (100,003 rays, 3
+    bounces, 71 receivers of radius 0.7, one outside the room): K-S/ico's
+    record == map_record_plain's byte for byte; the record entry/ico's IRs ==
+    the plain map engine's dense rows through the dense entry, bit for bit;
+    B11/ico against its plain version (rtol 1e-5, the segments' gradients bit
+    for bit), two runs the same bits; map_irs one launch of each forward
+    kernel, its autograd one of B11/ico, the same bits as the direct call."""
+    segs = _room_segments(cuda, 100_003)
+    centers = torch.from_numpy(_room_receivers(71)).to(cuda)
+    record = _assert_map_record(segs, centers, 0.7, "icosphere")
+    assert int((record != map_capture.NO_CAPTURE).sum()) > 10_000
+    assert bool((record[-1] == map_capture.NO_CAPTURE).all())
+    rows = map_capture.map_capture_plain(segs, centers, 0.7, MAP_SCALE, "icosphere")
+    want = cir.histogram_rows(*rows, soft=soft, **MAP_KW)
+    before = _map_launches("icosphere")
+    k1 = cir.histogram_record(record, segs, centers, 0.7, MAP_SCALE, soft=soft,
+                              rx_mode="icosphere", **MAP_KW)
+    irs = map_capture.map_irs(segs, centers, 0.7, scale=MAP_SCALE, soft=soft, rx_mode="icosphere",
+                              **MAP_KW)
+    assert [a - b for a, b in zip(_map_launches("icosphere"), before)] == [1, 0, 2, 0]
+    torch.cuda.synchronize()
+    assert torch.equal(k1, want) and torch.equal(irs, want)
+    assert int((irs != 0).any(dim=1).sum()) > 40
+    want, g = _assert_map_backward(segs, centers, 0.7, soft, rx_mode="icosphere")
+    leaves = [t.clone().requires_grad_() for t in (segs.origin, segs.direction, segs.amplitude,
+                                                    segs.distance, centers)] + [
+        torch.tensor(v, requires_grad=True) for v in (MAP_SCALE, 0.7)]
+    s = segs._replace(origin=leaves[0], direction=leaves[1], amplitude=leaves[2],
+                      distance=leaves[3])
+    out = map_capture.map_irs(s, leaves[4], leaves[6], scale=leaves[5], soft=soft,
+                              rx_mode="icosphere", **MAP_KW)
+    before = _map_launches("icosphere")
+    got = torch.autograd.grad(out, leaves, g)
+    assert [a - b for a, b in zip(_map_launches("icosphere"), before)] == [0, 1, 0, 0]
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+def test_map_capture_ico_many_receivers_and_bounces(cuda):
+    """Ten bounces, 20,011 rays, 600 icosphere receivers (K-S/ico's last tile
+    short, three stages of B11/ico's centers), soft: the record byte for
+    byte, the backward against its plain version, a receiver alone the same
+    bits as in the batch."""
+    segs = _room_segments(cuda, 20_011, max_bounces=10)
+    centers = torch.from_numpy(_room_receivers(600)).to(cuda)
+    record = _assert_map_record(segs, centers, 0.7, "icosphere")
+    assert int(((record >= 5) & (record != map_capture.NO_CAPTURE)).sum()) > 0
+    _assert_map_backward(segs, centers, 0.7, True, seed=9, rx_mode="icosphere")
+    irs = map_capture.map_irs(segs, centers, 0.7, scale=MAP_SCALE, soft=True, rx_mode="icosphere",
+                              **MAP_KW)
+    for k in (0, 31, 32, 599):
+        one = map_capture.map_irs(segs, centers[k:k + 1], 0.7, scale=MAP_SCALE, soft=True,
+                                  rx_mode="icosphere", **MAP_KW)
+        assert torch.equal(one[0], irs[k]), k
+
+
+def test_coverage_icosphere_on_card_takes_the_ico_kernels(cuda, monkeypatch):
+    """coverage_irs(rx_mode="icosphere", soft=True) on the card: per
+    receiver batch one launch of K-S/ico and of the record entry/ico, one of
+    B11/ico in the backward, K-B for the room's environment, never the plain
+    first-capture composition nor the plain brute hit; the IRs are the plain
+    composition's bits (`_first_capture` and the dense histogram)."""
+    n = 65_536
+    dirs = morton_sphere_directions(n, generator=torch.Generator(cuda).manual_seed(8), device=cuda)
+    centers = _room_receivers(41)
+    kw = dict(max_bounces=2, nbins=10_000, num_rays=n, light_speed_mps=2.998e8,
+              sample_rate_hz=100e9, soft=True, engine="map", rx_batch=16, rx_mode="icosphere")
+    scene = Scene.from_mesh(make_room(), cuda)
+    calls = []
+    first_capture, plain_hit = coverage._first_capture, intersect._brute_forward
+    monkeypatch.setattr(coverage, "_first_capture",
+                        lambda *a, **k: calls.append(1) or first_capture(*a, **k))
+    monkeypatch.setattr(intersect, "_brute_forward",
+                        lambda *a, **k: calls.append(2) or plain_hit(*a, **k))
+    tx = torch.tensor([3.0, 2.0, 2.0], device=cuda, requires_grad=True)
+    before, b_hit = _map_launches("icosphere"), intersect.BRUTE_HIT_KERNEL.launches
+    irs = coverage.coverage_irs(scene, tx, dirs, centers, 0.8, **kw)
+    (g_tx,) = torch.autograd.grad(irs.square().sum(), tx)
+    assert [a - b for a, b in zip(_map_launches("icosphere"), before)] == [3, 3, 3, 0]
+    assert intersect.BRUTE_HIT_KERNEL.launches == b_hit + 2 and calls == []
+    monkeypatch.undo()
+    with torch.no_grad():
+        segs = trace_env(scene, [3.0, 2.0, 2.0], dirs, max_bounces=2)
+        t_rx, first = coverage._first_capture(segs, torch.from_numpy(centers).to(cuda), 0.8,
+                                              "icosphere")
+        zero = torch.zeros((), device=cuda)
+        scale = coverage._amp_scale(1.0, n, cuda)
+        amp = (torch.where(first, segs.amplitude, zero) * scale).reshape(41, -1)
+        dist = torch.where(first, segs.distance + t_rx, zero).reshape(41, -1)
+        want = cir.histogram_rows(amp, dist, first.reshape(41, -1), soft=True, nbins=10_000,
+                                  light_speed_mps=2.998e8, sample_rate_hz=100e9)
+    torch.cuda.synchronize()
+    assert torch.equal(irs.detach(), want) and int((want != 0).any(dim=1).sum()) > 20
+    assert bool(torch.isfinite(g_tx).all()) and float(g_tx.abs().max()) > 0
