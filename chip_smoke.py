@@ -190,15 +190,15 @@ happened, and none catching its own failure:
     (2,048 receivers x 1,048,576 rays x 2 bounces x 10,000 bins, one
     launch of K-S/ico and of the record entry/ico a 64-receiver batch, no
     plain call; three sweeps the same bits); on the first 64 receivers
-    K-S/ico's record == map_record_plain's byte for byte and the record
-    entry/ico's IRs == the plain composition's (`_first_capture` and the
-    dense histogram) bit for bit, hard and soft, the composition timed once
-    as the "before". Value+grad: coverage_dbm(soft=True, rx_mode=
-    "icosphere", engine "map") on 64 room receivers as phase 16's exact
-    leg (K-S/ico, the record entry/ico, B11/ico, K-P and its backward once
-    each), and B11/ico against its plain version (rtol 1e-5, a floor of
-    1e-6 of the largest entry), two runs the same bits; times, bounds and
-    peak memory.
+    K-S/ico's record == map_record_plain's byte for byte, its t_first bit
+    for bit at every capture, and the record entry/ico's IRs == the plain
+    composition's (`_first_capture` and the dense histogram) bit for bit,
+    hard and soft, the composition timed once as the "before". Value+grad:
+    coverage_dbm(soft=True, rx_mode="icosphere", engine "map") on 64 room
+    receivers as phase 16's exact leg (K-S/ico, the record entry/ico,
+    B11/ico, K-P and its backward once each), and B11/ico against its plain
+    version (rtol 1e-5, a floor of 1e-6 of the largest entry), two runs the
+    same bits; times, bounds and peak memory.
 Each main-path run is counted on its own: every launch count is set to 0
 just before it and read just after, and each kernel the path runs must have
 launched (the forward requests: fused trace, histogram and RX power; the
@@ -317,7 +317,7 @@ MT_TEST_FLOPS = 54
 CULL_FLOPS = 24
 RAY_NORM_FLOPS = 5
 ICO_FACES = 80
-ICO_TRI_BYTES = 36 * ICO_FACES  # a receiver's (80, 9) f32 faces
+ICO_TRI_BYTES = 36 * ICO_FACES  # a receiver's (80, 9) f32 faces; the unit icosphere's too
 ICO_RADII = (1.0, 0.1)  # the request's: the bench's and the config's default
 BOUNCE_FLOPS = 60
 NODE_BYTES = 32  # two float4: the box, with skip and leaf in its w lanes
@@ -841,14 +841,16 @@ def _counted(kernels, path: str, needs, fn):
 
 def _plain_calls(fn):
     """(fn(), the calls that fn made of the plain first-capture composition,
-    rfx_torch.coverage._first_capture, and of the plain brute closest hit,
-    `_brute_forward`, wherever the port binds it)."""
+    rfx_torch.coverage._first_capture, of the plain brute closest hit,
+    `_brute_forward`, wherever the port binds it, and of the map engine's
+    plain record and record entry)."""
     from rfx_torch import coverage
     from rfx_torch.ops import intersect, map_capture
 
     calls = [0]
     sites = ((coverage, "_first_capture"), (intersect, "_brute_forward"),
-             (map_capture, "_brute_forward"))
+             (map_capture, "_brute_forward"), (map_capture, "map_record_plain"),
+             (map_capture, "histogram_record_plain"))
     originals = [getattr(mod, attr) for mod, attr in sites]
 
     def counted(f):
@@ -2149,6 +2151,52 @@ def _icosphere_cir_leg(terrain, dev, kernels, card):
     return out
 
 
+def icosphere_dirs(dev):
+    """The icosphere sweeps' COV_RAYS Morton directions (seed 0)."""
+    import torch
+
+    from rfx_torch.sampler import morton_sphere_directions
+
+    return morton_sphere_directions(COV_RAYS, generator=torch.Generator(dev).manual_seed(0),
+                                    device=dev)
+
+
+def icosphere_workload(mesh, tx, zs, dirs, dev):
+    """(tracer, grid, segs, few) of one icosphere coverage sweep of phase
+    17: the facade with rx_mode="icosphere" over `mesh`, the receiver grid,
+    the environment trace of `dirs` from tx (2 bounces, the facade's
+    environment query) and the grid's first 64 receivers on the card, the
+    batch that K-S/ico and the record entry/ico are held and timed on."""
+    import torch
+
+    from rfx_torch.api import Tracer
+    from rfx_torch.coverage import make_grid
+    from rfx_torch.tracer import trace_env
+
+    tracer = Tracer(mesh, C, RATE, COV_WINDOW, max_bounces=2, tx_num_rays=COV_RAYS,
+                    rx_mode="icosphere", device=dev)
+    grid = make_grid(range(-15, 16, 2), range(-15, 16, 2), zs)
+    segs = trace_env(tracer.scene, tx, dirs, max_bounces=2, env_hit=tracer.env_hit)
+    return tracer, grid, segs, torch.as_tensor(grid[:64], device=dev)
+
+
+def ico_capture_bound(n_seg: int, live: int, passes: int, captured: int) -> dict:
+    """K-S/ico on 64 receivers: the segments (29 bytes each), the centers,
+    the unit faces, the record and each capture's t read or written once;
+    the cull on every live segment and receiver, |d|^2 a live segment, the
+    80 tests of each (segment, receiver) that passes it."""
+    return _bound(29 * n_seg + 12 * 64 + ICO_TRI_BYTES + 64 * COV_RAYS + 4 * captured,
+                  (CULL_FLOPS * 64 + RAY_NORM_FLOPS) * live + MT_TEST_FLOPS * ICO_FACES * passes)
+
+
+def ico_entry_bound(captured: int, planes: int) -> dict:
+    """The record entry/ico on K-S/ico's (64, COV_RAYS) record: the record,
+    12 bytes a capture (amplitude, distance, K-S/ico's t) and the IRs once;
+    four operations a capture and plane."""
+    return _bound(64 * COV_RAYS + 12 * captured + planes * 4 * 64 * COV_BINS,
+                  4 * planes * captured)
+
+
 def _icosphere_coverage_leg(terrain, dev, kernels, card):
     """Phase 17, coverage: compute_coverage with rx_mode="icosphere" (2,048
     receivers x 1,048,576 rays x 2 bounces x 10,000 bins, the facade's map
@@ -2167,25 +2215,20 @@ def _icosphere_coverage_leg(terrain, dev, kernels, card):
     import torch
 
     from rfx_torch import cir, coverage
-    from rfx_torch.api import Tracer
-    from rfx_torch.coverage import _amp_scale, coverage_dbm, make_grid
+    from rfx_torch.coverage import _amp_scale
     from rfx_torch.geometry import make_room
     from rfx_torch.ops import intersect
     from rfx_torch.ops import map_capture as mc
-    from rfx_torch.sampler import morton_sphere_directions
-    from rfx_torch.tracer import icosphere_tris, mesh_soa, trace_env
+    from rfx_torch.tracer import mesh_soa
 
-    dirs = morton_sphere_directions(COV_RAYS, generator=torch.Generator(dev).manual_seed(0),
-                                    device=dev)
+    dirs = icosphere_dirs(dev)
     hkw = dict(nbins=COV_BINS, light_speed_mps=C, sample_rate_hz=RATE)
     scale = float(_amp_scale(1.0, COV_RAYS, torch.device("cpu")))
     out = {"launches": {}}
     meshes = {"room": make_room(), "terrain": terrain}
     for name, tx, zs in COV_SCENES:
         res = out[name] = {}
-        tracer = Tracer(meshes[name], C, RATE, COV_WINDOW, max_bounces=2, tx_num_rays=COV_RAYS,
-                        rx_mode="icosphere", device=dev)
-        grid = make_grid(range(-15, 16, 2), range(-15, 16, 2), zs)
+        tracer, grid, segs, few = icosphere_workload(meshes[name], tx, zs, dirs, dev)
         m = grid.shape[0]
 
         def sweep():
@@ -2213,16 +2256,21 @@ def _icosphere_coverage_leg(terrain, dev, kernels, card):
                  f"icosphere coverage, {name}: {lit} receivers lit")
 
         # The first 64 receivers against the plain composition.
-        segs = trace_env(tracer.scene, tx, dirs, max_bounces=2, env_hit=tracer.env_hit)
-        few = torch.as_tensor(grid[:64], device=dev)
-        tris = icosphere_tris(few, COV_RADIUS).contiguous()
-        record = mc.map_record(segs, few, COV_RADIUS, "icosphere", tris)
-        again = mc.map_record(segs, few, COV_RADIUS, "icosphere", tris)
-        plain_record, _, ks_plain_ms = _timed(
-            lambda: mc.map_record_plain(segs, few, COV_RADIUS, "icosphere"))
-        _require(torch.equal(record, again) and torch.equal(record, plain_record),
-                 f"K-S/ico, {name}: the record differs from the plain version's or between runs")
-        captured = int((record != mc.NO_CAPTURE).sum())
+        def ks_ico():
+            return mc.map_record(segs, few, COV_RADIUS, "icosphere", t_first=True)
+
+        record, t_first = ks_ico()
+        again, t_again = ks_ico()
+        (plain_record, plain_t), _, ks_plain_ms = _timed(
+            lambda: mc.map_record_plain(segs, few, COV_RADIUS, "icosphere", t_first=True))
+        cap = plain_record != mc.NO_CAPTURE
+        _require(torch.equal(record, again) and torch.equal(record, plain_record)
+                 and torch.equal(t_first[cap], t_again[cap])
+                 and torch.equal(t_first[cap], plain_t[cap]),
+                 f"K-S/ico, {name}: the record or t_first differs from the plain version's or "
+                 f"between runs")
+        captured = int(cap.sum())
+        del plain_t, t_again
 
         def composition(soft_modes):
             t_rx, first = coverage._first_capture(segs, few, COV_RADIUS, "icosphere")
@@ -2241,9 +2289,9 @@ def _icosphere_coverage_leg(terrain, dev, kernels, card):
         for soft, want in ((False, want_hard), (True, want_soft)):
             tag = "soft" if soft else "hard"
             k1 = cir.histogram_record(record, segs, few, COV_RADIUS, scale, soft=soft,
-                                      rx_mode="icosphere", tris=tris, **hkw)
+                                      rx_mode="icosphere", t_first=t_first, **hkw)
             k2 = cir.histogram_record(record, segs, few, COV_RADIUS, scale, soft=soft,
-                                      rx_mode="icosphere", tris=tris, **hkw)
+                                      rx_mode="icosphere", t_first=t_first, **hkw)
             irs_f = mc.map_irs(segs, few, COV_RADIUS, scale=scale, soft=soft, rx_mode="icosphere",
                                **hkw)
             _sync()
@@ -2252,18 +2300,14 @@ def _icosphere_coverage_leg(terrain, dev, kernels, card):
 
             def entry(soft=soft):
                 return cir.histogram_record(record, segs, few, COV_RADIUS, scale, soft=soft,
-                                            rx_mode="icosphere", tris=tris, **hkw)
+                                            rx_mode="icosphere", t_first=t_first, **hkw)
 
             kh[f"{tag}_ms"] = _cuda_ms(entry, 10)
             kh[f"{tag}_device_ms"] = device_ms(entry, 10)
             kh[f"{tag}_queued_ms"] = queued_ms(entry, 20)
             kh[f"{tag}_plain_ms"] = _timed(lambda soft=soft: mc.histogram_record_plain(
                 record, segs, few, COV_RADIUS, scale, soft=soft, rx_mode="icosphere", **hkw))[2]
-            planes = 2 if soft else 1
-            kh[f"bound_{tag}"] = _bound(
-                64 * COV_RAYS + 32 * captured + 12 * 64 + ICO_TRI_BYTES * 64
-                + planes * 4 * 64 * COV_BINS,
-                (MT_TEST_FLOPS * ICO_FACES + 4 * planes) * captured)
+            kh[f"bound_{tag}"] = ico_entry_bound(captured, 2 if soft else 1)
         live = segs.alive
         o_live, d_live = segs.origin[live], segs.direction[live]
         passes = _cull_passes(o_live, d_live, few, COV_RADIUS)
@@ -2272,15 +2316,10 @@ def _icosphere_coverage_leg(terrain, dev, kernels, card):
             receivers=m, lit=lit, sweep_host_ms=host, sweep_ms=events,
             composition_64_ms=composition_ms, live_segments=int(live.sum()),
             captured_64=captured, cull_passes_64=passes, histogram=kh,
-            ks_ms=_cuda_ms(lambda: mc.map_record(segs, few, COV_RADIUS, "icosphere", tris), 10),
-            ks_device_ms=device_ms(lambda: mc.map_record(segs, few, COV_RADIUS, "icosphere",
-                                                         tris), 10),
-            ks_queued_ms=queued_ms(lambda: mc.map_record(segs, few, COV_RADIUS, "icosphere",
-                                                         tris), 20),
-            ks_plain_ms=ks_plain_ms,
-            ks_bound=_bound(29 * n_seg + 12 * 64 + ICO_TRI_BYTES * 64 + 64 * COV_RAYS,
-                            (CULL_FLOPS * 64 + RAY_NORM_FLOPS) * int(live.sum())
-                            + MT_TEST_FLOPS * ICO_FACES * passes))
+            ks_ms=_cuda_ms(ks_ico, 10), ks_device_ms=device_ms(ks_ico, 10),
+            ks_queued_ms=queued_ms(ks_ico, 20), ks_plain_ms=ks_plain_ms,
+            ks_bound=ico_capture_bound(n_seg, int(live.sum()), passes, captured))
+        del t_first  # 4 bytes a receiver and ray: not held into the value+grad's peak
         if name == "room":
             # K-B on the room's environment (12 faces, no cull), both bounces' queries.
             v0, e1, e2, _ = mesh_soa(tracer.scene.vertices, tracer.scene.faces)
@@ -2393,7 +2432,7 @@ def _icosphere_grad(tracer, dirs, segs, centers, kernels, card, launches_out):
     # B11/ico against its plain version on the sweep's segments.
     scale = float(_amp_scale(1.0, COV_RAYS, torch.device("cpu")))
     tris = icosphere_tris(few, COV_RADIUS).contiguous()
-    record = mc.map_record(segs, few, COV_RADIUS, "icosphere", tris)
+    record = mc.map_record(segs, few, COV_RADIUS, "icosphere")
     g = torch.from_numpy(np.random.default_rng(3).normal(
         size=(few.shape[0], COV_BINS)).astype(np.float32)).to(dev)
     bkw = dict(scale=scale, soft=True, rx_mode="icosphere", nbins=COV_BINS, light_speed_mps=C,
@@ -3385,8 +3424,10 @@ def main() -> int:
                   f"(segment, receiver) pairs pass the cull, {ico_room['captured_64']} "
                   f"captures); *_terrain: the terrain's; the (64, {COV_RAYS}) first-capture "
                   f"record equals map_record_plain's byte for byte (max_abs_err: the largest byte "
-                  f"difference); bound_ms: the cull on every live segment and receiver, 80 tests "
-                  f"where it passes, the segments (29 bytes), the faces and the record once; "
+                  f"difference), and its t_first at every capture bit for bit; a warp a 32-ray "
+                  f"group, two receivers a lane, each passing pair's 80 tests across the warp; "
+                  f"bound_ms: the cull on every live segment and receiver, 80 tests where it "
+                  f"passes, the segments (29 bytes), the unit faces, the record and t_first once; "
                   f"rfx/coverage.py:38-81 (_rx_query_t, icosphere) under the map engine's vmap "
                   f"(XLA)"},
         {"name": "ir_histogram_record_ico", "route": "cuda",
@@ -3401,10 +3442,10 @@ def main() -> int:
          **_suffixed(ico_room["histogram"]["bound_hard"], "_hard"),
          "shape": f"the record entry's icosphere instantiation on K-S/ico's (64, {COV_RAYS}) record "
                   f"of the room ({ico_room['captured_64']} captures), {COV_BINS} bins, soft (two "
-                  f"planes; *_hard: hard): t_rx recomputed at each capture over its receiver's 80 "
-                  f"faces; the IRs equal the plain composition's (_first_capture and the dense "
-                  f"histogram) bit for bit (max_abs_err 0); bound_ms: the record, 32 bytes a "
-                  f"capture, the faces and the IRs once, 80 tests and the binning a capture"},
+                  f"planes; *_hard: hard): t_rx read from K-S/ico's t_first; the IRs equal the "
+                  f"plain composition's (_first_capture and the dense histogram) bit for bit "
+                  f"(max_abs_err 0); bound_ms: the record, 12 bytes a capture and the IRs once, "
+                  f"the binning a capture"},
         {"name": "map_capture_backward_ico", "route": "cuda",
          "source": "rfx_torch/csrc/map_capture.cu", "replaces": "rfx/ops/intersect.py:159",
          **counts(K_MAP_BACKWARD_ICO), "max_abs_err": max(kbi["max_abs_err"].values()),

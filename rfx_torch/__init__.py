@@ -15,7 +15,8 @@ rows of the map capture backward's scratch. The sources:
 - `closest_hit.cu`: the per-query closest hit and its counted instantiation;
 - `histogram.cu`: the IR histogram, one launch for a batch of rows, and
   its record entry, which bins the map engine's first-capture record (and
-  its instantiation for the icosphere receiver's record);
+  its form for the icosphere receiver's record, which reads the t that the
+  capture pass wrote at each capture);
 - `coverage_hist.cu`: the coverage histogram, its slab reduction, and the
   phasor metric: its per-bin table, its sums over the same walk and capture
   rule, its delay spread over the capture lists that walk leaves, and its
@@ -28,10 +29,12 @@ rows of the map capture backward's scratch. The sources:
   capture along each ray, written as a one-byte record, the bounce or none)
   and its backward from that record (d / d the segments, the centers, the
   amplitude scale and the radius, a thread a ray over the receivers in
-  order), each also instantiated for the reference's 80-face icosphere
-  receiver; it shares the capture rule with `coverage_hist.cu` through
-  `sphere.cuh`, and the icosphere's with `brute_hit.cu` through
-  `brute_hit.cuh`;
+  order), each also for the reference's 80-face icosphere receiver (its
+  capture pass a kernel of its own: each bounce's live rays compacted, a
+  lane a ray against 64 receivers, each passing pair's 80 tests shared by
+  the warp, each capture's t written beside the record); it shares the
+  capture rule with `coverage_hist.cu` through `sphere.cuh`, and the
+  icosphere's with `brute_hit.cu` through `brute_hit.cuh`;
 - `brute_hit.cu`: the brute closest hit, every ray against every triangle
   of a short list (the `brute` backend's meshes, the icosphere receiver,
   with its bounding-sphere cull);

@@ -43,7 +43,6 @@ import math
 import torch
 
 from rfx_torch.ops._build import CudaKernel, F, I, P
-from rfx_torch.tracer import icosphere_tris
 
 __all__ = ["bin_impulse_response", "carrier_cached", "cir_from_trace", "convolve_carrier_plain",
            "histogram_plain", "histogram_record", "histogram_rows", "mask_tiles", "phasor_metric",
@@ -64,11 +63,11 @@ HISTOGRAM_RECORD_KERNEL = CudaKernel(
     "histogram.cu", "rfx_ir_histogram_record",
     [P, I, I, I, P, P, P, P, P, F, F, F, F, I, I, I, P, P, P, ctypes.c_longlong, P],
 )
-# Its instantiation for the icosphere receiver's record: t_rx recomputed as
-# the closest hit over each receiver's 80 faces.
+# Its instantiation for the icosphere receiver's record: t_rx read from the
+# t_first that the capture pass wrote at each capture.
 HISTOGRAM_RECORD_ICO_KERNEL = CudaKernel(
     "histogram.cu", "rfx_ir_histogram_record_ico",
-    [P, I, I, I, P, P, P, P, P, P, F, F, F, I, I, I, P, P, P, ctypes.c_longlong, P],
+    [P, I, I, I, P, P, P, F, F, F, I, I, I, P, P, P, ctypes.c_longlong, P],
 )
 RX_POWER_KERNEL = CudaKernel("rx_power.cu", "rfx_rx_power", [P, P, I, I, P, P, P, P, P, P])
 RX_POWER_BACKWARD_KERNEL = CudaKernel("rx_power.cu", "rfx_rx_power_backward",
@@ -198,7 +197,7 @@ def _launch(amplitude, distance, captured, *, nbins: int, light_speed_mps: float
 
 def histogram_record(record: torch.Tensor, segments, centers: torch.Tensor, radius: float,
                      scale: float, *, nbins: int, light_speed_mps: float, sample_rate_hz: float,
-                     soft: bool, rx_mode: str = "analytic", tris=None) -> torch.Tensor:
+                     soft: bool, rx_mode: str = "analytic", t_first=None) -> torch.Tensor:
     """(R, nbins) IRs of the map engine's first-capture record (R, N) uint8
     (0xFF: no capture, else the bounce of the receiver's first capture
     along the ray) on CUDA tensors, one launch of the record entry, hard or
@@ -208,18 +207,25 @@ def histogram_record(record: torch.Tensor, segments, centers: torch.Tensor, radi
     `histogram_rows` bins from the map engine's dense rows of r: amplitude
     * scale and distance + t_rx at each capture, in (b, n) order, t_rx the
     capture pass's; so the IRs are those rows' bits. rx_mode 'icosphere':
-    the record of the icosphere receivers whose (R, 80, 9) faces are `tris`
-    (rfx_torch.tracer.icosphere_tris of centers and radius, computed here
-    where None), one launch of the record entry's icosphere instantiation."""
+    the record of the icosphere receivers, with `t_first` ((R, N) f32) the
+    capture pass wrote beside it (`map_record(..., t_first=True)`), one
+    launch of the record entry's icosphere instantiation, which reads t_rx
+    there."""
     dev = record.device
     if dev.type != "cuda":
         raise ValueError(f"no histogram record kernel for device {dev}")
+    if rx_mode not in ("analytic", "icosphere"):
+        raise ValueError(f"unknown rx_mode: {rx_mode}")
     origin, direction, _, amplitude, distance, _ = (t.detach().contiguous() for t in segments)
     b, n = amplitude.shape
     rows = record.shape[0]
     if record.dtype != torch.uint8 or tuple(record.shape) != (rows, n):
         raise ValueError(f"record must be ({rows}, {n}) uint8, got {tuple(record.shape)} "
                          f"{record.dtype}")
+    if rx_mode == "icosphere" and (t_first is None or t_first.dtype != torch.float32
+                                   or tuple(t_first.shape) != (rows, n)):
+        raise ValueError(f"the icosphere's record entry needs t_first, ({rows}, {n}) float32, "
+                         f"from map_record(..., t_first=True)")
     if b > 254:
         raise ValueError(f"the record holds at most 254 bounces, got {b}")
     if rows == 0 or n == 0 or b == 0:
@@ -227,24 +233,20 @@ def histogram_record(record: torch.Tensor, segments, centers: torch.Tensor, radi
     planes = 2 if soft else 1
     tmax = mask_tiles(n)
     _check_launch(rows, b * n, b * tmax, nbins, planes)
-    centers = centers.detach().to(torch.float32).contiguous()
     record = record.contiguous()
     buf, (scratch, out, ctrl, zero), n_plane = _histogram_buffer(rows, nbins, planes, b * tmax, dev)
-    head = (record.data_ptr(), n, rows, b, origin.data_ptr(), direction.data_ptr(),
-            amplitude.data_ptr(), distance.data_ptr(), centers.data_ptr())
     tail = (float(scale), float(light_speed_mps), float(sample_rate_hz), nbins, int(soft), tmax,
             scratch, out, ctrl, zero)
     if rx_mode == "analytic":
-        _launch_on(HISTOGRAM_RECORD_KERNEL, dev, (*head, float(radius), *tail))
-    elif rx_mode == "icosphere":
-        if tris is None:
-            tris = icosphere_tris(centers, float(radius))
-        if tris.shape != (rows, 80, 9) or tris.dtype != torch.float32:
-            raise ValueError(f"tris must be ({rows}, 80, 9) float32, got {tuple(tris.shape)}")
-        tris = tris.detach().contiguous()
-        _launch_on(HISTOGRAM_RECORD_ICO_KERNEL, dev, (*head, tris.data_ptr(), *tail))
+        centers = centers.detach().to(torch.float32).contiguous()
+        _launch_on(HISTOGRAM_RECORD_KERNEL, dev, (
+            record.data_ptr(), n, rows, b, origin.data_ptr(), direction.data_ptr(),
+            amplitude.data_ptr(), distance.data_ptr(), centers.data_ptr(), float(radius), *tail))
     else:
-        raise ValueError(f"unknown rx_mode: {rx_mode}")
+        t_first = t_first.detach().contiguous()
+        _launch_on(HISTOGRAM_RECORD_ICO_KERNEL, dev, (
+            record.data_ptr(), n, rows, b, amplitude.data_ptr(), distance.data_ptr(),
+            t_first.data_ptr(), *tail))
     halves = [buf.narrow(0, h * n_plane, n_plane).view(rows, nbins) for h in range(planes)]
     return halves[0] + halves[1] if soft else halves[0]
 

@@ -1,8 +1,10 @@
 // The Moller-Trumbore closest hit of rays against a list of triangles, and
 // the receiver icosphere's bounding-sphere cull: the device code that the
-// brute closest hit (brute_hit.cu), the map engine's icosphere capture pass
-// and its backward (map_capture.cu) and the histogram's icosphere record
-// entry (histogram.cu) share, so that they cannot disagree on a hit.
+// brute closest hit (brute_hit.cu) and the map engine's icosphere capture
+// pass and its backward (map_capture.cu) share, so that they cannot disagree
+// on a hit. The capture pass runs each receiver's 80 tests across a warp
+// (warp_ico_t), the others a thread's tests in a row (closest_hit): both
+// give the first smallest t in ascending face order.
 //
 // mt_t is one test in the expressions and order of
 // rfx_torch/ops/intersect.py:_mt_chunk (rfx/ops/intersect.py:75-113):
@@ -96,28 +98,58 @@ __device__ __forceinline__ float closest_hit(const Ray& r, const float* tris, in
   return best;
 }
 
-// False where the ray's line passes farther than the reach of the cull from
-// the icosphere of radius `radius` about (cx, cy, cz): no face can be hit.
-__device__ __forceinline__ bool cull_pass(const Ray& r, float cx, float cy, float cz,
-                                          float radius) {
+// The reach's term in the radius, r (1 + kCullDelta).
+__device__ __forceinline__ float cull_reach0(float radius) {
+  return fabsf(radius) * (1.0f + kCullDelta);
+}
+
+// cull_pass given reach0 = cull_reach0(radius) and dd = |d|^2 (r.dx * r.dx +
+// r.dy * r.dy + r.dz * r.dz), which a caller that culls many rays against
+// many receivers computes once.
+__device__ __forceinline__ bool cull_within(const Ray& r, float cx, float cy, float cz,
+                                            float reach0, float dd) {
   const float wx = cx - r.ox, wy = cy - r.oy, wz = cz - r.oz;
   const float crx = wy * r.dz - wz * r.dy;
   const float cry = wz * r.dx - wx * r.dz;
   const float crz = wx * r.dy - wy * r.dx;
   const float line2 = crx * crx + cry * cry + crz * crz;
-  const float reach =
-      fabsf(radius) * (1.0f + kCullDelta) + kCullGamma * (fabsf(wx) + fabsf(wy) + fabsf(wz));
-  const float dd = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+  const float reach = reach0 + kCullGamma * (fabsf(wx) + fabsf(wy) + fabsf(wz));
   return line2 <= reach * reach * dd;
 }
 
-// The icosphere receiver's t: the cull, then the closest hit over its
-// kIcoFaces faces `tris` (kMiss where culled or missed).
-__device__ __forceinline__ float ico_t(const Ray& r, const float* tris, float cx, float cy,
-                                       float cz, float radius, int& face) {
-  face = -1;
-  if (!cull_pass(r, cx, cy, cz, radius)) return kMiss;
-  return closest_hit(r, tris, kIcoFaces, kTMin, kTMax, face);
+// False where the ray's line passes farther than the reach of the cull from
+// the icosphere of radius `radius` about (cx, cy, cz): no face can be hit.
+__device__ __forceinline__ bool cull_pass(const Ray& r, float cx, float cy, float cz,
+                                          float radius) {
+  return cull_within(r, cx, cy, cz, cull_reach0(radius),
+                     r.dx * r.dx + r.dy * r.dy + r.dz * r.dz);
+}
+
+// The icosphere receiver's closest hit t, shared by the 32 lanes of a warp,
+// which all call it with the same arguments: over the faces of the icosphere
+// about (cx, cy, cz) whose faces scaled by the radius are unit_r ((80, 9):
+// unit * radius), face f = (unit_r[f].v0 + c, e1, e2), v0 rounded as
+// rfx_torch.tracer.icosphere_tris rounds it (the product, then the sum).
+// Lane l tests faces l, l + 32 and l + 64, then a butterfly of shuffles
+// keeps the smallest t; every lane returns it, closest_hit's t (kMiss where
+// no face is hit; faces that tie give that t alike). No cull.
+__device__ __forceinline__ float warp_ico_t(const Ray& r, const float* unit_r, float cx, float cy,
+                                            float cz) {
+  const int lane = threadIdx.x & 31;
+  float best = kMiss;
+#pragma unroll
+  for (int s = 0; s < (kIcoFaces + 31) / 32; ++s) {
+    const int f = lane + 32 * s;
+    if (f < kIcoFaces) {
+      const float* u = unit_r + kTriFloats * f;
+      const float tri[kTriFloats] = {u[0] + cx, u[1] + cy, u[2] + cz, u[3], u[4],
+                                     u[5],      u[6],      u[7],      u[8]};
+      best = fminf(best, mt_t(r, tri, kTMin, kTMax));
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) best = fminf(best, __shfl_xor_sync(0xffffffffu, best, off));
+  return best;
 }
 
 // The VJP of the closed-form t of the selected face tri = (v0, e1, e2) for

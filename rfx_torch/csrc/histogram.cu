@@ -56,9 +56,11 @@
 // dense rows' bits, and the 9 bytes an entry of the rows are never written
 // (2.4 GB at the inverse solve's 64 receivers x 4 bounces x 1,048,576 rays,
 // against a 64 MB record). rfx_ir_histogram_record_ico bins the icosphere
-// receiver's record (map_capture.cu's rfx_map_capture_ico): t_rx is the
-// closest hit over the receiver's 80 faces (brute_hit.cuh), recomputed at
-// the captures only, so the IRs are the plain icosphere rows' bits.
+// receiver's record (map_capture.cu's rfx_map_capture_ico): t_rx is read
+// from the t_first that the capture pass wrote beside the record at each
+// capture (the closest hit over the receiver's 80 faces, found once there),
+// so the IRs are the plain icosphere rows' bits, hard and soft, and no face
+// is tested here.
 //
 // There is no float atomic: a bin's value is the sum, in chunk order, of the
 // chunks' ray-order sums, fixed by the row's own inputs. It is bit-identical
@@ -77,7 +79,6 @@
 
 #include <cstdint>
 
-#include "brute_hit.cuh"
 #include "sphere.cuh"
 
 namespace {
@@ -110,7 +111,7 @@ struct Source {
   const float* dir;           // record: (nb, n, 3)
   const float* centers;       // record: (rows, 3)
   float r2, scale;            // record: radius^2, amplitude scale
-  const float* tris;          // icosphere record: (rows, 80, 9), each receiver's faces
+  const float* t_first;       // icosphere record: (rows, n), each capture's t_rx
 };
 
 // Bit 7 of every nonzero byte of x (a bool tensor may hold any nonzero byte).
@@ -346,24 +347,21 @@ __device__ __forceinline__ unsigned bin_and_weight(float amp, float dist, float 
 // A capture's weight and length, *a and *d, from its index in the row's
 // list: dense, entry idx of row r; record, segment idx = b * n + ray of the
 // segments, scaled and lengthened as the capture pass's rows would hold it
-// (kIco: t_rx the closest hit over receiver r's 80 faces, brute_hit.cuh's,
-// which the capture's cull passed).
+// (kIco: t_rx the capture pass's, t_first[r, ray]).
 template <bool kRecord, bool kIco>
 __device__ __forceinline__ void load_capture(const Source& src, int r, float4 ctr, int idx,
                                              float* a, float* d) {
   if (kRecord) {
     const long long at = idx;
     const float amp = src.amp[at], dist = src.dist[at];
-    const rfx_brute::Ray ray{src.origin[3 * at], src.origin[3 * at + 1], src.origin[3 * at + 2],
-                             src.dir[3 * at],    src.dir[3 * at + 1],    src.dir[3 * at + 2]};
-    int face;
-    const float t_rx =
-        kIco ? rfx_brute::closest_hit(
-                   ray, src.tris + static_cast<long long>(r) * rfx_brute::kIcoFaces *
-                                       rfx_brute::kTriFloats,
-                   rfx_brute::kIcoFaces, rfx_brute::kTMin, rfx_brute::kTMax, face)
-             : rfx_capture::sphere_t(ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz, ctr.x,
-                                     ctr.y, ctr.z, src.r2);
+    float t_rx;
+    if constexpr (kIco) {
+      t_rx = src.t_first[static_cast<long long>(r) * src.n + idx % src.n];
+    } else {
+      t_rx = rfx_capture::sphere_t(src.origin[3 * at], src.origin[3 * at + 1],
+                                   src.origin[3 * at + 2], src.dir[3 * at], src.dir[3 * at + 1],
+                                   src.dir[3 * at + 2], ctr.x, ctr.y, ctr.z, src.r2);
+    }
     *a = amp * src.scale;
     *d = dist + t_rx;
   } else {
@@ -651,17 +649,16 @@ extern "C" int rfx_ir_histogram_record(const void* record, int n, int n_rows, in
                          static_cast<cudaStream_t>(stream));
 }
 
-// rfx_ir_histogram_record for rfx_map_capture_ico's record: tris (n_rows,
-// 80, 9) f32, receiver r's faces as the capture pass took them; t_rx is
-// recomputed at each capture as the closest hit over those faces. The
-// other arguments as rfx_ir_histogram_record's, with no radius.
+// rfx_ir_histogram_record for rfx_map_capture_ico's record: t_first (n_rows,
+// n) f32, the t that rfx_map_capture_ico wrote beside the record (read only
+// where the record names a capture). The other arguments as
+// rfx_ir_histogram_record's, without the segments' origin and direction,
+// the centers and the radius.
 extern "C" int rfx_ir_histogram_record_ico(const void* record, int n, int n_rows, int nb,
-                                           const void* origin, const void* dir, const void* amp,
-                                           const void* dist, const void* centers,
-                                           const void* tris, float scale, float c, float rate,
-                                           int nbins, int soft, int tmax, void* scratch,
-                                           void* out, void* ctrl, long long zero_bytes,
-                                           void* stream) {
+                                           const void* amp, const void* dist, const void* t_first,
+                                           float scale, float c, float rate, int nbins, int soft,
+                                           int tmax, void* scratch, void* out, void* ctrl,
+                                           long long zero_bytes, void* stream) {
   Source src{};
   src.mask = static_cast<const unsigned char*>(record);
   src.n = n;
@@ -669,10 +666,7 @@ extern "C" int rfx_ir_histogram_record_ico(const void* record, int n, int n_rows
   src.tmax = tmax;
   src.amp = static_cast<const float*>(amp);
   src.dist = static_cast<const float*>(dist);
-  src.origin = static_cast<const float*>(origin);
-  src.dir = static_cast<const float*>(dir);
-  src.centers = static_cast<const float*>(centers);
-  src.tris = static_cast<const float*>(tris);
+  src.t_first = static_cast<const float*>(t_first);
   src.scale = scale;
   return histogram<true, true>(src, n_rows, c, rate, nbins, soft, scratch, out, ctrl, zero_bytes,
                                static_cast<cudaStream_t>(stream));

@@ -62,27 +62,38 @@
 // written once and nothing is zeroed or read back.
 //
 // The icosphere receiver (rfx_map_capture_ico, rfx_map_capture_backward_ico;
-// rfx/coverage.py:38-54, the reference's 80-face receiver): the same
-// kernels, templated on the receiver. A receiver's t is the closest hit over
-// its 80 faces (v0, e1, e2), read from (R, 80, 9) rows that torch computes
-// as unit * r + c (rfx_torch.tracer.icosphere_tris, icosphere_soa's bits), behind
-// brute_hit.cuh's bounding-sphere cull, which skips the 80 tests for a
-// segment whose line passes outside the sphere's reach (all but about 1e-4
-// of the (segment, receiver) pairs of a coverage sweep); the record is the
-// same byte. The backward finds the selected face again at each capture
-// and applies the VJP of its closed-form t (closed_form_t_vjp,
-// rfx/ops/intersect.py:159-185) to the length's cotangent: the segment
-// gains g_o and g_d, the center g_v0 (in place of gg q) and the radius
-// g_v0.unit_v0 + g_e1.unit_e1 + g_e2.unit_e2 (in place of gg, and not
-// multiplied by the radius), in the same orders and with the same folds.
-// What bounds the icosphere's forward is the cull on every live segment and
-// receiver (33 operations, against the sphere's 17); the 80 tests run only
-// where it passes.
+// rfx/coverage.py:38-54, the reference's 80-face receiver). A receiver's t is
+// the closest hit over its 80 faces (v0, e1, e2) = (unit_v0 r + c, unit_e1 r,
+// unit_e2 r), behind brute_hit.cuh's bounding-sphere cull, which skips the
+// tests for a segment whose line passes outside the sphere's reach (all but
+// about 4e-4 of the (segment, receiver) pairs of a coverage sweep). The
+// forward is a kernel of its own (map_record_ico_kernel): each bounce's live
+// segments are compacted in ray order, so a dead segment costs nothing and
+// the cull runs on live ones alone, a lane a segment against 64 receivers;
+// each (segment, receiver) that passes has its 80 tests run by the whole warp
+// (brute_hit.cuh's warp_ico_t: three faces a lane from the unit faces scaled
+// in shared memory, v0 formed as torch's icosphere_tris forms it, then a
+// shuffle tree that keeps the smallest t, closest_hit's t). The block's
+// record bytes gather in shared memory and go out a receiver row at a time,
+// the same bytes as the analytic record's; the capture's t goes to t_first,
+// which the record entry/ico reads in place of finding it again. The backward
+// finds the selected face again at each capture (the faces from (R, 80, 9)
+// rows, rfx_torch.tracer.icosphere_tris) and applies the VJP of its
+// closed-form t (closed_form_t_vjp, rfx/ops/intersect.py:159-185) to the
+// length's cotangent: the segment gains g_o and g_d, the center g_v0 (in
+// place of gg q) and the radius g_v0.unit_v0 + g_e1.unit_e1 + g_e2.unit_e2
+// (in place of gg, and not multiplied by the radius), in the same orders and
+// with the same folds. What bounds the icosphere's forward is the cull on
+// every live segment and receiver (24 operations, against the sphere's 17),
+// an instruction each without contraction; the 80 tests run only where it
+// passes.
 //
 // Not carried over from the TPU: nothing; rfx runs this as XLA's fusion of
 // the broadcast.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "brute_hit.cuh"
 #include "sphere.cuh"
@@ -103,37 +114,19 @@ constexpr int kStage = 256;        // centers the backward stages in shared memo
 constexpr int kBatch = 16;         // record bytes a backward thread loads at once
 constexpr int kGroup = 4;          // bounces whose sums a backward thread holds in registers
 constexpr int kIcoFloats = kIcoFaces * kTriFloats;  // a receiver's faces in `tris`
-
-__device__ __forceinline__ rfx_brute::Ray ray_of(const Segment& s) {
-  return rfx_brute::Ray{s.ox, s.oy, s.oz, s.dx, s.dy, s.dz};
-}
-
-// The capture rule of receiver `ctr`: the analytic sphere's (sphere.cuh), or
-// kIco the icosphere's, its faces `tris` ((80, 9) f32) behind the cull of
-// brute_hit.cuh; `t_rx` gets the receiver's t.
-template <bool kIco>
-__device__ __forceinline__ bool captures(const Segment& s, float4 ctr, float r2, float radius,
-                                         const float* tris, float& t_rx) {
-  if constexpr (kIco) {
-    int face;
-    t_rx = rfx_brute::ico_t(ray_of(s), tris, ctr.x, ctr.y, ctr.z, radius, face);
-    return t_rx < kMissThreshold && s.te > t_rx;
-  } else {
-    return sphere_capture(s, ctr, r2, t_rx);
-  }
-}
+constexpr int kIcoThreads = 256;   // rays of a K-S/ico block, 32 a warp
+constexpr int kIcoTile = 64;       // receivers of a K-S/ico block: a bit each in s_done
+static_assert(kIcoTile == 64, "K-S/ico keeps a ray's receivers in one 64-bit word");
 
 // A block: kThreads rays x the kTile receivers of tile blockIdx.x % tiles;
 // the tiles of one ray block are neighbouring blocks. A receiver's byte is
 // stored once: its bounce where it first captures the ray, 0xFF after the
-// last bounce where it never did. kIco: receiver r's faces are
-// tris[r * kIcoFloats, (r + 1) * kIcoFloats).
-template <bool kIco>
+// last bounce where it never did.
 __global__ void __launch_bounds__(kThreads) map_record_kernel(
     const float* __restrict__ origin, const float* __restrict__ dir,
     const float* __restrict__ t_env, const bool* __restrict__ alive, int nb, int n,
-    const float* __restrict__ centers, int m, int tiles, float r2, float radius,
-    const float* __restrict__ tris, unsigned char* __restrict__ record) {
+    const float* __restrict__ centers, int m, int tiles, float r2,
+    unsigned char* __restrict__ record) {
   __shared__ float4 s_ctr[kTile];
   const int r0 = static_cast<int>(blockIdx.x % tiles) * kTile;
   const long long i = static_cast<long long>(blockIdx.x / tiles) * kThreads + threadIdx.x;
@@ -161,10 +154,7 @@ __global__ void __launch_bounds__(kThreads) map_record_kernel(
 #pragma unroll 4
     for (int q = 0; q < tile; ++q) {
       float t_rx;
-      if (!((done >> q) & 1u) &&
-          captures<kIco>(s, s_ctr[q], r2, radius,
-                         kIco ? tris + static_cast<long long>(r0 + q) * kIcoFloats : nullptr,
-                         t_rx)) {
+      if (!((done >> q) & 1u) && sphere_capture(s, s_ctr[q], r2, t_rx)) {
         done |= 1u << q;
         out[static_cast<long long>(q) * n] = static_cast<unsigned char>(b);
       }
@@ -172,6 +162,128 @@ __global__ void __launch_bounds__(kThreads) map_record_kernel(
   }
   for (int q = 0; q < tile; ++q) {
     if (!((done >> q) & 1u)) out[static_cast<long long>(q) * n] = static_cast<unsigned char>(kNone);
+  }
+}
+
+// K-S/ico. A block: kIcoThreads rays x the kIcoTile receivers of tile
+// blockIdx.x % tiles; s_done holds, for each of the block's rays, a bit for
+// each receiver that captured it already (and for those past the tile). At
+// each bounce the block lists its live rays in ascending order (a fixed-order
+// compaction: a ballot and a count a warp) and the warps take them 32 at a
+// time, a ray a lane: the lane culls its ray against the 64 receivers, their
+// centers broadcast from shared memory, with no branch, into a mask of those
+// that pass and have not captured the ray. Where a lane's mask is not empty
+// the warp runs the 80 tests of each of its (ray, receiver) pairs together
+// (warp_ico_t), and the lane keeps a capture: its bounce in the block's
+// record tile, its t in t_first, its bit in s_done. The tile is stored at
+// the end, 0xFF where nothing captured, a receiver row at a time.
+__global__ void __launch_bounds__(kIcoThreads) map_record_ico_kernel(
+    const float* __restrict__ origin, const float* __restrict__ dir,
+    const float* __restrict__ t_env, const bool* __restrict__ alive, int nb, int n,
+    const float* __restrict__ centers, int m, int tiles, float radius,
+    const float* __restrict__ unit, unsigned char* __restrict__ record,
+    float* __restrict__ t_first) {
+  __shared__ float s_face[kIcoFloats];                    // unit * radius
+  __shared__ float4 s_ctr[kIcoTile];                      // the tile's centers
+  __shared__ uint4 s_rec4[kIcoTile * kIcoThreads / 16];   // (kIcoTile, kIcoThreads) record bytes
+  __shared__ unsigned long long s_done[kIcoThreads];      // bit q: receiver q has the ray
+  __shared__ int s_list[kIcoThreads];                     // the bounce's live rays, ascending
+  __shared__ int s_warp[kIcoThreads / 32];
+  unsigned char* s_rec = reinterpret_cast<unsigned char*>(s_rec4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = static_cast<int>(blockIdx.x % tiles) * kIcoTile;
+  const long long ray0 = static_cast<long long>(blockIdx.x / tiles) * kIcoThreads;
+  const int tile = min(kIcoTile, m - r0);
+  for (int k = tid; k < kIcoFloats; k += kIcoThreads) s_face[k] = unit[k] * radius;
+  for (int k = tid; k < kIcoTile * kIcoThreads / 16; k += kIcoThreads) {
+    s_rec4[k] = make_uint4(~0u, ~0u, ~0u, ~0u);
+  }
+  if (tid < kIcoTile) {
+    const long long r = r0 + min(tid, tile - 1);
+    s_ctr[tid] = make_float4(centers[3 * r], centers[3 * r + 1], centers[3 * r + 2], 0.0f);
+  }
+  s_done[tid] = tile == kIcoTile ? 0ull : ~0ull << tile;  // past the tile: never tested
+  const float reach0 = rfx_brute::cull_reach0(radius);
+  const long long i = ray0 + tid;
+  for (int b = 0; b < nb; ++b) {
+    const bool mine = i < n && alive[static_cast<long long>(b) * n + i];
+    const unsigned bal = __ballot_sync(kFullWarp, mine);
+    if (lane == 0) s_warp[warp] = __popc(bal);
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kIcoThreads / 32; ++w) {
+      const int c = s_warp[w];
+      before += w < warp ? c : 0;
+      total += c;
+    }
+    if (mine) s_list[before + __popc(bal & ((1u << lane) - 1u))] = tid;
+    __syncthreads();
+    for (int base = 32 * warp; base < total; base += kIcoThreads) {
+      const int e = base + lane;
+      const bool valid = e < total;
+      const int x = valid ? s_list[e] : 0;
+      const long long at = static_cast<long long>(b) * n + ray0 + x;
+      rfx_brute::Ray ray{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      float te = 0.0f, dd = 0.0f;
+      unsigned long long done = ~0ull;
+      if (valid) {
+        ray = rfx_brute::Ray{origin[3 * at], origin[3 * at + 1], origin[3 * at + 2],
+                             dir[3 * at],    dir[3 * at + 1],    dir[3 * at + 2]};
+        te = t_env[at];
+        dd = ray.dx * ray.dx + ray.dy * ray.dy + ray.dz * ray.dz;
+        done = s_done[x];
+      }
+      unsigned near[2] = {0u, 0u};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int q = 0; q < 32; ++q) {
+          const float4 c = s_ctr[32 * h + q];
+          near[h] |= rfx_brute::cull_within(ray, c.x, c.y, c.z, reach0, dd) ? 1u << q : 0u;
+        }
+        near[h] &= ~static_cast<unsigned>(done >> (32 * h));
+      }
+      const bool some = (near[0] | near[1]) != 0u;
+      for (unsigned lanes = __ballot_sync(kFullWarp, some); lanes != 0u; lanes &= lanes - 1u) {
+        const int p = __ffs(lanes) - 1;
+        const rfx_brute::Ray rp{
+            __shfl_sync(kFullWarp, ray.ox, p), __shfl_sync(kFullWarp, ray.oy, p),
+            __shfl_sync(kFullWarp, ray.oz, p), __shfl_sync(kFullWarp, ray.dx, p),
+            __shfl_sync(kFullWarp, ray.dy, p), __shfl_sync(kFullWarp, ray.dz, p)};
+        const float tep = __shfl_sync(kFullWarp, te, p);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          for (unsigned qs = __shfl_sync(kFullWarp, near[h], p); qs != 0u; qs &= qs - 1u) {
+            const int q = 32 * h + __ffs(qs) - 1;
+            const float4 c = s_ctr[q];
+            const float t = rfx_brute::warp_ico_t(rp, s_face, c.x, c.y, c.z);
+            if (lane == p && t < kMissThreshold && tep > t) {
+              done |= 1ull << q;
+              s_rec[q * kIcoThreads + x] = static_cast<unsigned char>(b);
+              t_first[static_cast<long long>(r0 + q) * n + ray0 + x] = t;
+            }
+          }
+        }
+      }
+      if (some) s_done[x] = done;
+    }
+    __syncthreads();  // the list is written again at the next bounce
+  }
+  const int rays = static_cast<int>(min(static_cast<long long>(kIcoThreads), n - ray0));
+  constexpr int kWords = kIcoThreads / 16;  // 16-byte words of a receiver's row
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(record) | static_cast<unsigned>(n)) & 15u) == 0u;
+  if (rays == kIcoThreads && aligned) {
+    for (int k = tid; k < tile * kWords; k += kIcoThreads) {
+      const int q = k / kWords;
+      reinterpret_cast<uint4*>(record + static_cast<long long>(r0 + q) * n + ray0)[k - q * kWords] =
+          s_rec4[k];
+    }
+  } else if (tid < rays) {
+    for (int q = 0; q < tile; ++q) {
+      record[static_cast<long long>(r0 + q) * n + ray0 + tid] = s_rec[q * kIcoThreads + tid];
+    }
   }
 }
 
@@ -454,19 +566,32 @@ cudaError_t fold_blocks(T* scratch, int blocks, int total, Tout* out, cudaStream
   return cudaGetLastError();
 }
 
-// The record kernel's launch: a block a ray block and receiver tile.
-template <bool kIco>
+// The record kernels' launch: a block a ray block and receiver tile.
 int launch_record(const void* origin, const void* dir, const void* t_env, const void* alive,
-                  int nb, int n, const void* centers, int m, float radius, const void* tris,
-                  void* record, void* stream) {
+                  int nb, int n, const void* centers, int m, float radius, void* record,
+                  void* stream) {
   const int tiles = (m + kTile - 1) / kTile;
   const long long blocks = static_cast<long long>((n + kThreads - 1) / kThreads) * tiles;
-  map_record_kernel<kIco><<<static_cast<unsigned>(blocks), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+  map_record_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(origin), static_cast<const float*>(dir),
       static_cast<const float*>(t_env), static_cast<const bool*>(alive), nb, n,
-      static_cast<const float*>(centers), m, tiles, radius * radius, radius,
-      static_cast<const float*>(tris), static_cast<unsigned char*>(record));
+      static_cast<const float*>(centers), m, tiles, radius * radius,
+      static_cast<unsigned char*>(record));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_record_ico(const void* origin, const void* dir, const void* t_env, const void* alive,
+                      int nb, int n, const void* centers, int m, float radius, const void* unit,
+                      void* record, void* t_first, void* stream) {
+  const int tiles = (m + kIcoTile - 1) / kIcoTile;
+  const long long blocks = static_cast<long long>((n + kIcoThreads - 1) / kIcoThreads) * tiles;
+  map_record_ico_kernel<<<static_cast<unsigned>(blocks), kIcoThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(origin), static_cast<const float*>(dir),
+      static_cast<const float*>(t_env), static_cast<const bool*>(alive), nb, n,
+      static_cast<const float*>(centers), m, tiles, radius, static_cast<const float*>(unit),
+      static_cast<unsigned char*>(record), static_cast<float*>(t_first));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -511,19 +636,23 @@ int launch_backward(const void* origin, const void* dir, const void* record, int
 extern "C" int rfx_map_capture(const void* origin, const void* dir, const void* t_env,
                                const void* alive, int nb, int n, const void* centers, int m,
                                float radius, void* record, void* stream) {
-  return launch_record<false>(origin, dir, t_env, alive, nb, n, centers, m, radius, nullptr,
-                              record, stream);
+  return launch_record(origin, dir, t_env, alive, nb, n, centers, m, radius, record, stream);
 }
 
-// rfx_map_capture for the icosphere receiver: tris (m, 80, 9) f32, receiver
-// r's faces (v0, e1, e2) of unit * radius + centers[r]
-// (rfx_torch.tracer.icosphere_tris); the cull's sphere is (centers[r],
-// radius). The same record.
+// rfx_map_capture for the icosphere receiver: unit (80, 9) f32, the unit
+// icosphere's faces (v0, e1, e2) (rfx_torch.tracer.unit_icosphere_tris);
+// receiver r's faces are (unit_v0 * radius + centers[r], unit_e1 * radius,
+// unit_e2 * radius), rfx_torch.tracer.icosphere_tris's bits, and the cull's
+// sphere is (centers[r], radius). The same record; t_first: (m, n) f32,
+// written where the record names a capture (receiver r's t on the segment
+// of its first capture along ray i) and nowhere else.
+// ceil(n / 256) * ceil(m / 64) < 2^31 (the grid).
 extern "C" int rfx_map_capture_ico(const void* origin, const void* dir, const void* t_env,
                                    const void* alive, int nb, int n, const void* centers, int m,
-                                   float radius, const void* tris, void* record, void* stream) {
-  return launch_record<true>(origin, dir, t_env, alive, nb, n, centers, m, radius, tris, record,
-                             stream);
+                                   float radius, const void* unit, void* record, void* t_first,
+                                   void* stream) {
+  return launch_record_ico(origin, dir, t_env, alive, nb, n, centers, m, radius, unit, record,
+                           t_first, stream);
 }
 
 // origin, dir: (nb, n, 3) f32; amp, dist: (nb, n) f32; record: (m, n) uint8

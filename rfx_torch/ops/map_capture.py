@@ -29,11 +29,13 @@ receiver, finding the captures again). Nothing falls back: a build or
 launch failure raises.
 
 `rx_mode="icosphere"` takes the reference's 80-face receiver about each
-center (rfx/coverage.py:38-54) through the same record: on the card the
-icosphere instantiations `rfx_map_capture_ico`, `rfx_ir_histogram_record_ico`
-and `rfx_map_capture_backward_ico` (the closest hit over the receiver's faces
-behind a bounding-sphere cull, and the VJP of the selected face's
-closed-form t), on the CPU the same plain versions over `ico_hit_plain`.
+center (rfx/coverage.py:38-54) through the same record: on the card
+`rfx_map_capture_ico` (the closest hit over the receiver's faces behind a
+bounding-sphere cull, each pair's 80 tests shared by a warp), which also
+writes each capture's t beside the record (`t_first`, (R, N) f32),
+`rfx_ir_histogram_record_ico`, which bins the record with those t, and
+`rfx_map_capture_backward_ico` (the VJP of the selected face's closed-form
+t); on the CPU the same plain versions over `ico_hit_plain`.
 """
 
 from __future__ import annotations
@@ -65,10 +67,12 @@ MAP_CAPTURE_BACKWARD_KERNEL = CudaKernel(
     "map_capture.cu", "rfx_map_capture_backward",
     [P, P, P, P, P, I, I, P, I, F, F, F, F, I, I, F, P, P, P, P, P, P, P, P, P, P],
 )
-# The icosphere receiver's instantiations: the cull and the 80-face closest
-# hit of brute_hit.cuh in place of the analytic sphere.
+# The icosphere receiver's entry points: the cull and the 80-face closest
+# hit of brute_hit.cuh in place of the analytic sphere; the capture pass
+# forms the faces from the unit icosphere and writes t_first beside the
+# record.
 MAP_CAPTURE_ICO_KERNEL = CudaKernel("map_capture.cu", "rfx_map_capture_ico",
-                                    [P, P, P, P, I, I, P, I, F, P, P, P])
+                                    [P, P, P, P, I, I, P, I, F, P, P, P, P])
 MAP_CAPTURE_BACKWARD_ICO_KERNEL = CudaKernel(
     "map_capture.cu", "rfx_map_capture_backward_ico",
     [P, P, P, P, P, I, I, P, I, F, F, F, I, I, P, P, P, P, P, P, P, P, P, P, P, P],
@@ -143,21 +147,29 @@ def map_capture_plain(segs: EnvSegments, centers: torch.Tensor, rx_radius, scale
 
 
 def map_record_plain(segs: EnvSegments, centers: torch.Tensor, rx_radius,
-                     rx_mode: str = "analytic") -> torch.Tensor:
+                     rx_mode: str = "analytic", t_first: bool = False):
     """Plain PyTorch version of `rfx_map_capture` (analytic) and
     `rfx_map_capture_ico` (icosphere): the (R, N) uint8 first-capture record
     of the (R, 3) centers, the bounce of each receiver's first capture along
-    each ray (`first_captures`), NO_CAPTURE where there is none."""
+    each ray (`first_captures`), NO_CAPTURE where there is none. With
+    `t_first`: (record, t_first), t_first (R, N) f32 the receiver's t on the
+    segment of that capture, 0 where there is none."""
     dev = segs.t_env.device
     b, n = segs.t_env.shape
     _check_sizes(b, n, centers.shape[0])
     centers = centers.to(torch.float32)
     none = torch.full((), NO_CAPTURE, dtype=torch.int32, device=dev)
     if b == 0:
-        return none.expand(centers.shape[0], n).to(torch.uint8)
-    _, first = _plain_captures(segs, centers, rx_radius, rx_mode)
+        record = none.expand(centers.shape[0], n).to(torch.uint8)
+        t = torch.zeros((centers.shape[0], n), dtype=torch.float32, device=dev)
+        return (record, t) if t_first else record
+    t_rx, first = _plain_captures(segs, centers, rx_radius, rx_mode)
     bounce = torch.arange(b, dtype=torch.int32, device=dev)[None, :, None]
-    return torch.where(first, bounce, none).amin(dim=1).to(torch.uint8)
+    record = torch.where(first, bounce, none).amin(dim=1).to(torch.uint8)
+    if not t_first:
+        return record
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return record, torch.where(first, t_rx, zero).amax(dim=1)
 
 
 def _t_at(segs: EnvSegments, centers: torch.Tensor, rx_radius, rx_mode: str, k, bb, i):
@@ -223,16 +235,20 @@ def _backward_scratch_rows(n: int) -> int:
 
 
 def map_record(segs: EnvSegments, centers: torch.Tensor, rx_radius,
-               rx_mode: str = "analytic", tris: torch.Tensor | None = None) -> torch.Tensor:
+               rx_mode: str = "analytic", *, t_first: bool = False):
     """The (R, N) uint8 first-capture record of `map_record_plain`: on a CPU
     tensor that plain version, on a CUDA tensor one launch of
     `rfx_map_capture` or, for the icosphere, `rfx_map_capture_ico` (the same
-    bytes). `tris`: the icosphere's faces, `icosphere_tris(centers,
-    rx_radius)`, computed here where None."""
+    bytes). With `t_first` (the icosphere's): (record, t_first), t_first
+    (R, N) f32 the receiver's t at each capture the record names, what the
+    icosphere's record entry bins; on the card it is written at the captures
+    alone, and holds whatever the allocator left elsewhere."""
     _check_mode(rx_mode)
+    if t_first and rx_mode != "icosphere":
+        raise ValueError("t_first is the icosphere capture pass's")
     dev = segs.t_env.device
     if dev.type == "cpu":
-        return map_record_plain(segs, centers, rx_radius, rx_mode)
+        return map_record_plain(segs, centers, rx_radius, rx_mode, t_first)
     if dev.type != "cuda":
         raise ValueError(f"no map capture kernel for device {dev}")
     b, n = segs.t_env.shape
@@ -241,6 +257,7 @@ def map_record(segs: EnvSegments, centers: torch.Tensor, rx_radius,
     if -(-n // 256) * -(-m // 32) >= 2**31:
         raise ValueError(f"too many rays x receivers for one launch: {n} x {m}")
     record = torch.empty((m, n), dtype=torch.uint8, device=dev)  # the kernel writes every byte
+    t = torch.empty((m, n), dtype=torch.float32, device=dev) if rx_mode == "icosphere" else None
     if m and n and b:
         origin, direction, t_env, _, _, alive = _planes(segs)
         centers = centers.detach().to(torch.float32).contiguous()
@@ -251,11 +268,12 @@ def map_record(segs: EnvSegments, centers: torch.Tensor, rx_radius,
             if rx_mode == "analytic":
                 MAP_CAPTURE_KERNEL.launch(*args, record.data_ptr(), stream)
             else:
-                tris = _ico_tris(centers, rx_radius, tris)
-                MAP_CAPTURE_ICO_KERNEL.launch(*args, tris.data_ptr(), record.data_ptr(), stream)
+                unit = unit_icosphere_tris(dev).contiguous()
+                MAP_CAPTURE_ICO_KERNEL.launch(*args, unit.data_ptr(), record.data_ptr(),
+                                              t.data_ptr(), stream)
     elif m and n:
         record.fill_(NO_CAPTURE)
-    return record
+    return (record, t) if t_first else record
 
 
 def _ico_tris(centers: torch.Tensor, rx_radius, tris) -> torch.Tensor:
@@ -464,14 +482,16 @@ class _MapIRs(torch.autograd.Function):
         segs = EnvSegments(origin, direction, t_env, amplitude, distance, alive)
         mode = kw["rx_mode"]
         on_card = origin.device.type == "cuda"
-        tris = (icosphere_tris(centers.detach(), kw["radius"]).contiguous()
-                if on_card and mode == "icosphere" else None)
-        record = map_record(segs, centers, kw["radius"], mode, tris)
+        ico_card = on_card and mode == "icosphere"
+        tris = icosphere_tris(centers.detach(), kw["radius"]).contiguous() if ico_card else None
+        record, t_first = (map_record(segs, centers, kw["radius"], mode, t_first=True) if ico_card
+                           else (map_record(segs, centers, kw["radius"], mode), None))
         hkw = dict(nbins=kw["nbins"], light_speed_mps=kw["light_speed_mps"],
                    sample_rate_hz=kw["sample_rate_hz"], soft=kw["soft"], rx_mode=mode)
         if on_card:
-            irs = cir.histogram_record(record, segs, centers, kw["radius"], kw["scale"], tris=tris,
-                                       **hkw)
+            irs = cir.histogram_record(record, segs, centers, kw["radius"], kw["scale"],
+                                       t_first=t_first, **hkw)
+            del t_first
         else:
             irs = histogram_record_plain(record, segs, centers, kw["radius"], kw["scale"], **hkw)
         ctx.save_for_backward(origin, direction, t_env, amplitude, distance, alive, centers, record)

@@ -15,6 +15,7 @@ gradient path.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -77,7 +78,17 @@ def icosphere_soa(rx_pos: torch.Tensor, rx_radius):
 
 
 def unit_icosphere_tris(device) -> torch.Tensor:
-    """(80, 9) f32: the unit icosphere's faces as rows (v0, e1, e2)."""
+    """(80, 9) f32: the unit icosphere's faces as rows (v0, e1, e2); one
+    tensor a device, made once (a copy from the host would wait for the
+    device's queue). Read it; do not write to it."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _unit_icosphere_tris(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _unit_icosphere_tris(device: torch.device) -> torch.Tensor:
     tri = torch.as_tensor(_UNIT_ICO_TRI, dtype=torch.float32, device=device)
     return torch.cat([tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]], dim=1)
 

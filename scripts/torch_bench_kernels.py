@@ -2,7 +2,8 @@
 """Time the port's hand-written kernels at the shapes of their main paths on
 one NVIDIA GPU, and hold them against another checkout's kernels.
 
-    python3 scripts/torch_bench_kernels.py [--other DIR] [--only k3,kf,kpb,kfb,ks,ksb] [--reps N]
+    python3 scripts/torch_bench_kernels.py [--other DIR] [--only k3,kf,kpb,kfb,ks,ksb,ksi,khi]
+                                           [--reps N]
                                            [--out build/bench_kernels.json]
 
 The scenes, transmitters, receivers and sizes are those of chip_smoke.py (the
@@ -60,7 +61,17 @@ events, the mean of `--reps` calls after one warm-up):
   seeded (64, 20,000) cotangent (numpy seed 3), soft, the segments'
   gradients alone and with the centers', scale's and radius's (given K-S's
   record where the checkout's backward takes one). A checkout without the
-  capture pass skips these two rows.
+  capture pass skips these two rows;
+- the icosphere's capture pass (`ksi`), `map_record(rx_mode="icosphere")`
+  (K-S/ico), and its record entry (`khi`), `histogram_record(rx_mode=
+  "icosphere")` hard and soft, on the first 64 receivers of chip_smoke.py
+  phase 17's sweeps (`icosphere_workload`: 2 bounces x 1,048,576 rays on the
+  room and the bench terrain, radius 0.5, 10,000 bins), each with
+  `queued_ms` (calls queued behind a sleep of the device: the device's own
+  time, which the profiler drops for these ctypes launches) and its bound
+  (`ico_capture_bound`, `ico_entry_bound`); a checkout whose K-S/ico reads
+  the receivers' faces is given them (`icosphere_tris`), and its record
+  entry computes t again. A checkout without the icosphere skips them.
 
 `--other DIR` runs every row in a child process on the checkout in DIR
 (another commit of this repository, unpacked there), before and after this
@@ -72,7 +83,8 @@ where finite (a checkout without
 the kernels times its host loops under the same names), and every row's
 digest of its outputs (`digest_equal_other`: K-P's dBm and signal, K-F's
 dBm, ratio and spread, K3's IRs, K1's four outputs, the map engine's IRs
-and its backward's segment gradients). Prints one JSON object
+and its backward's segment gradients, the icosphere's record and IRs, which
+must be bit_identical). Prints one JSON object
 and writes the whole record to `--out`; `card` is nvidia-smi's name and
 power limit.
 """
@@ -146,6 +158,7 @@ class Workloads:
             _, grid, _, scaled = smoke.coverage_workload(cov_meshes[name], tx, zs, cov_dirs, dev)
             self.cov[name] = (scaled, torch.as_tensor(grid, device=dev))
         self._solver = None
+        self._ico = None
         torch.cuda.synchronize()
 
     def solver(self):
@@ -539,7 +552,95 @@ def run_ksb(w: Workloads, reps: int, keep: dict) -> dict:
                     "device_ms": smoke.device_ms(call(True), reps)}}
 
 
-ROWS = ("k1", "k2", "k3", "kh", "kp", "kf", "kpb", "kfb", "ks", "ksb")
+def _ico_inputs(w: Workloads) -> dict:
+    """{scene: (segments, the first 64 receivers)} of phase 17's icosphere
+    sweeps (chip_smoke.icosphere_workload), built once."""
+    from rfx_torch.geometry import make_room
+
+    if w._ico is None:
+        dirs = smoke.icosphere_dirs(w.dev)
+        meshes = {"room": make_room(), "terrain": w.meshes["bench"]}
+        w._ico = {name: smoke.icosphere_workload(meshes[name], tx, zs, dirs, w.dev)[2:]
+                  for name, tx, zs in smoke.COV_SCENES}
+    return w._ico
+
+
+def _ico_record_call(mc, segs, few):
+    """K-S/ico's call on this checkout: (a function that launches it and
+    returns the record first, the record entry/ico's extra keywords given
+    what it returned). A checkout whose kernels read the receivers' faces
+    gets them made once, outside the timed calls."""
+    import inspect
+
+    from rfx_torch.tracer import icosphere_tris
+
+    if "t_first" in inspect.signature(mc.map_record).parameters:
+        return (lambda: mc.map_record(segs, few, smoke.COV_RADIUS, "icosphere", t_first=True),
+                lambda got: {"t_first": got[1]})
+    tris = icosphere_tris(few, smoke.COV_RADIUS).contiguous()
+    return (lambda: (mc.map_record(segs, few, smoke.COV_RADIUS, "icosphere", tris),),
+            lambda got: {"tris": tris})
+
+
+def run_ksi(w: Workloads, reps: int, keep: dict) -> dict:
+    from rfx_torch.ops import map_capture as mc
+
+    if not hasattr(mc, "MAP_CAPTURE_ICO_KERNEL"):
+        return {}
+    out = {}
+    for name, (segs, few) in _ico_inputs(w).items():
+        call, extra = _ico_record_call(mc, segs, few)
+        got = call()
+        record = got[0]
+        captured = record != mc.NO_CAPTURE
+        keep[f"ksi_{name}"] = record.cpu()
+        live = int(segs.alive.sum())
+        passes = smoke._cull_passes(segs.origin[segs.alive], segs.direction[segs.alive], few,
+                                    smoke.COV_RADIUS)
+        out[name] = {"ms": _ms_held(call, reps)[1], "queued_ms": smoke.queued_ms(call, 20),
+                     "digest": _digest([record]), "captured": int(captured.sum()),
+                     "writes_t_first": "t_first" in extra(got), "live_segments": live,
+                     "cull_passes": passes,
+                     "bound": smoke.ico_capture_bound(segs.t_env.numel(), live, passes,
+                                                      int(captured.sum()))}
+    return out
+
+
+def run_khi(w: Workloads, reps: int, keep: dict) -> dict:
+    import torch
+
+    from rfx_torch import cir
+    from rfx_torch.coverage import _amp_scale
+    from rfx_torch.ops import map_capture as mc
+
+    if not hasattr(mc, "MAP_CAPTURE_ICO_KERNEL"):
+        return {}
+    scale = float(_amp_scale(1.0, smoke.COV_RAYS, torch.device("cpu")))
+    hkw = dict(nbins=smoke.COV_BINS, light_speed_mps=smoke.C, sample_rate_hz=smoke.RATE,
+               rx_mode="icosphere")
+    out = {}
+    for name, (segs, few) in _ico_inputs(w).items():
+        call, extra_of = _ico_record_call(mc, segs, few)
+        got = call()
+        record, extra = got[0], extra_of(got)
+        captured = int((record != mc.NO_CAPTURE).sum())
+        out[name] = {"captured": captured}
+        for soft in (False, True):
+            tag = "soft" if soft else "hard"
+
+            def entry(soft=soft):
+                return cir.histogram_record(record, segs, few, smoke.COV_RADIUS, scale, soft=soft,
+                                            **extra, **hkw)
+
+            irs, ms = _ms_held(entry, reps)
+            keep[f"khi_{name}_{tag}"] = irs.cpu()
+            out[name][tag] = {"ms": ms, "queued_ms": smoke.queued_ms(entry, 20),
+                              "digest": _digest([irs]),
+                              "bound": smoke.ico_entry_bound(captured, 2 if soft else 1)}
+    return out
+
+
+ROWS = ("k1", "k2", "k3", "kh", "kp", "kf", "kpb", "kfb", "ks", "ksb", "ksi", "khi")
 
 
 def _run_all(w: Workloads, reps: int, keep: dict, only=ROWS) -> dict:
@@ -549,7 +650,8 @@ def _run_all(w: Workloads, reps: int, keep: dict, only=ROWS) -> dict:
             "k3": lambda: run_k3(w, reps, keep), "kh": lambda: run_kh(w, reps, keep),
             "kp": lambda: run_kp(w, reps, keep), "kf": lambda: run_kf(w, reps, keep),
             "kpb": lambda: run_kpb(w, reps, keep), "kfb": lambda: run_kfb(w, reps, keep),
-            "ks": lambda: run_ks(w, reps, keep), "ksb": lambda: run_ksb(w, reps, keep)}
+            "ks": lambda: run_ks(w, reps, keep), "ksb": lambda: run_ksb(w, reps, keep),
+            "ksi": lambda: run_ksi(w, reps, keep), "khi": lambda: run_khi(w, reps, keep)}
     only = set(only) | ({"k3"} if {"kp", "kpb"} & set(only) else set())
     return {row: runs[row]() for row in ROWS if row in only}
 
@@ -588,7 +690,9 @@ def _compare(mine: dict, other: dict) -> dict:
     out = {}
     for key, theirs in other.items():
         ours = mine[key]
-        if key.startswith("k1_"):
+        if key.startswith(("ksi_", "khi_")):  # the icosphere's record and IRs: the same bits
+            out[key] = {"bit_identical": bool(torch.equal(ours, theirs))}
+        elif key.startswith("k1_"):
             out[key] = {name: bool(torch.equal(a, b)) for name, a, b in zip(
                 ("captured", "amplitude", "distance", "num_bounces"), ours, theirs)}
         elif key.startswith(("kp_", "kf_")):  # dBm, -inf where nothing arrived
@@ -657,8 +761,20 @@ def main(argv=None) -> int:
                     for s, t in mine[k].items() if isinstance(t, dict)}
                 for k in ("k1", "k3", "kp", "kf", "kpb", "kfb", "ks", "ksb") if k in mine}
 
+    def ico_digests(mine, theirs):
+        same = {}
+        for scene, v in mine.get("ksi", {}).items():
+            same[f"ksi_{scene}"] = v["digest"] == theirs.get("ksi", {}).get(scene, {}).get("digest")
+        for scene, v in mine.get("khi", {}).items():
+            for tag in ("hard", "soft"):
+                same[f"khi_{scene}_{tag}"] = v[tag]["digest"] == theirs.get("khi", {}).get(
+                    scene, {}).get(tag, {}).get("digest")
+        return same
+
     print(json.dumps({"card": card, "here": brief(out["here"]), "kh": kh(out["here"]),
                       "digest_equal_other": digests(out["here"], out.get("other_first", {})),
+                      "ico_digest_equal_other": ico_digests(out["here"],
+                                                            out.get("other_first", {})),
                       "kh_other_first": kh(out.get("other_first", {})),
                       "kh_other_last": kh(out.get("other_last", {})),
                       "k2_walks": {s: {k: v for k, v in t.items() if k not in ("ms", "digest")}
@@ -668,9 +784,11 @@ def main(argv=None) -> int:
                       "kp_kf": {k: {s: {f: v for f, v in t.items() if f != "digest"}
                                     for s, t in out["here"].get(k, {}).items()}
                                 for k in ("kp", "kf", "kpb", "kfb")},
-                      "ks": {k: out["here"].get(k) for k in ("ks", "ksb")},
-                      "ks_other_first": {k: out.get("other_first", {}).get(k) for k in ("ks", "ksb")},
-                      "ks_other_last": {k: out.get("other_last", {}).get(k) for k in ("ks", "ksb")},
+                      "ks": {k: out["here"].get(k) for k in ("ks", "ksb", "ksi", "khi")},
+                      "ks_other_first": {k: out.get("other_first", {}).get(k)
+                                         for k in ("ks", "ksb", "ksi", "khi")},
+                      "ks_other_last": {k: out.get("other_last", {}).get(k)
+                                        for k in ("ks", "ksb", "ksi", "khi")},
                       "other_first": brief(out.get("other_first", {})),
                       "other_last": brief(out.get("other_last", {})),
                       "vs_other": out.get("here_vs_other"), "seconds": out["seconds"]}))

@@ -39,7 +39,9 @@ from rfx_torch.tracer import (
     icosphere_tris,
     trace_env,
     trace_to_rx,
+    unit_icosphere_tris,
 )
+from tests.test_torch_kernels import _ico_tie_segments
 
 torch.set_num_threads(1)
 
@@ -129,6 +131,47 @@ def test_icosphere_tris_are_icosphere_soa_bits():
         assert torch.equal(tris[k], torch.cat([v0, e1, e2], dim=1))
 
 
+@pytest.mark.parametrize("radius", [0.1, 0.37, 0.5, 2.0])
+def test_capture_pass_forms_icosphere_tris_bits(radius):
+    """The icosphere capture pass forms each receiver's faces itself from the
+    unit faces (map_capture.cu: unit * radius staged once, then v0 + the
+    center): that order, written in torch, gives icosphere_tris's bits."""
+    centers = torch.from_numpy(np.concatenate([CENTERS, [[1e3, -2e-3, 7.25]]]).astype(np.float32))
+    scaled = unit_icosphere_tris("cpu") * torch.tensor(radius, dtype=torch.float32)
+    tris = icosphere_tris(centers, radius)
+    for k in range(centers.shape[0]):
+        assert torch.equal(scaled[:, 0:3] + centers[k], tris[k, :, 0:3])
+        assert torch.equal(scaled[:, 3:9], tris[k, :, 3:9])
+
+
+def test_card_tie_inputs_tie_in_the_plain_version():
+    """The card test's rays through the icosphere receivers' vertices and
+    edge midpoints (tests/test_torch_kernels.py: _ico_tie_segments, its
+    first case) really tie: on over a thousand of them two or more faces of
+    the receiver aimed at give the same smallest t bit for bit, and the
+    plain closest hit (`_brute_forward`) names the lowest of those faces. So
+    the card test holds the warp's shared tests (a lane's faces, then a
+    shuffle tree of the smallest t) to the plain t where faces on
+    different lanes tie."""
+    segs, centers, aim = _ico_tie_segments(12_345, 10, 37, 0.5, seed=12_345)
+    o, d, aim = segs.origin.reshape(-1, 3), segs.direction.reshape(-1, 3), aim.reshape(-1)
+    ties = 0
+    for k in range(centers.shape[0]):
+        sel = (aim == k).nonzero().squeeze(1)
+        v0, e1, e2 = icosphere_soa(centers[k], 0.5)
+        per_face = torch.stack([intersect._mt_chunk(o[sel], d[sel], v0[f:f + 1], e1[f:f + 1],
+                                                    e2[f:f + 1], intersect.T_MIN_EPS,
+                                                    intersect.T_MAX)[0] for f in range(80)], 1)
+        best = per_face.min(dim=1).values
+        at_best = per_face == best[:, None]
+        tie = (best < intersect.MISS_THRESHOLD) & (at_best.sum(dim=1) >= 2)
+        _, face = intersect._brute_forward(o[sel], d[sel], v0, e1, e2, intersect.T_MIN_EPS,
+                                           intersect.T_MAX, None)
+        assert torch.equal(face[tie].long(), at_best.int().argmax(dim=1)[tie]), k
+        ties += int(tie.sum())
+    assert ties > 1000
+
+
 def test_brute_hit_cpu_is_the_plain_version():
     """On CPU tensors the brute closest hit is `_brute_forward`, with or
     without a cull (the plain version tests every ray), ties to the lowest
@@ -171,6 +214,34 @@ def test_closed_form_t_vjp_matches_autograd_and_jax():
     for k, a in enumerate(got):
         for w in (want_torch[k].numpy(), np.asarray(want_jax[k])):
             np.testing.assert_allclose(a.numpy(), w, rtol=1e-4, atol=1e-6 * np.abs(w).max())
+
+
+def test_icosphere_t_first_plain_is_rfx_capture_t(box_room):
+    """map_record(..., t_first=True) on the CPU: beside the record, each
+    capture's t is the plain closest hit's (`ico_hit_plain`) on the segment
+    of the first capture, bit for bit, and rfx's t_rx there (_rx_query_t,
+    icosphere; its sums round otherwise) within rtol 1e-6; 0 where the
+    record names none."""
+    segs = _segments(box_room)
+    record, t_first = mc.map_record(segs, torch.from_numpy(CENTERS), RADIUS, "icosphere",
+                                    t_first=True)
+    b, n = segs.t_env.shape
+    o = jnp.asarray(segs.origin.numpy().reshape(b * n, 3))
+    d = jnp.asarray(segs.direction.numpy().reshape(b * n, 3))
+    captured = record != mc.NO_CAPTURE
+    rays = torch.arange(n)
+    with jax.disable_jit():
+        for k, ctr in enumerate(CENTERS):
+            t_rx = np.asarray(_rx_query_t(o, d, jnp.asarray(ctr), jnp.float32(RADIUS),
+                                          "icosphere")).reshape(b, n)
+            cap = captured[k]
+            bb, ii = record[k][cap].long(), rays[cap]
+            plain = mc.ico_hit_plain(segs.origin[bb, ii], segs.direction[bb, ii],
+                                     torch.from_numpy(CENTERS[k]), RADIUS)[0]
+            assert torch.equal(t_first[k][cap], plain)
+            np.testing.assert_allclose(t_first[k][cap].numpy(), t_rx[bb.numpy(), ii.numpy()],
+                                       rtol=1e-6)
+            assert bool((t_first[k][~cap] == 0).all()) and int(cap.sum()) > 0
 
 
 def test_icosphere_record_plain_matches_rfx_first_captures(box_room):

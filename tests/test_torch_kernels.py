@@ -1145,12 +1145,21 @@ def _map_launches(rx_mode="analytic"):
 
 def _assert_map_record(segs, centers, radius, rx_mode="analytic"):
     """K-S's record (K-S/ico's for the icosphere) == map_record_plain's byte
-    for byte, two runs the same; returns it."""
+    for byte, two runs the same; K-S/ico's t_first bit for bit at every
+    capture the record names; returns the record."""
     before = _map_launches(rx_mode)[0]
-    k1 = map_capture.map_record(segs, centers, radius, rx_mode)
-    k2 = map_capture.map_record(segs, centers, radius, rx_mode)
+    if rx_mode == "icosphere":
+        k1, t1 = map_capture.map_record(segs, centers, radius, rx_mode, t_first=True)
+        k2, t2 = map_capture.map_record(segs, centers, radius, rx_mode, t_first=True)
+        p, pt = map_capture.map_record_plain(segs, centers, radius, rx_mode, t_first=True)
+        cap = p != map_capture.NO_CAPTURE
+        assert t1.dtype == torch.float32 and t1.shape == p.shape
+        assert torch.equal(t1[cap], t2[cap]) and torch.equal(t1[cap], pt[cap])
+    else:
+        k1 = map_capture.map_record(segs, centers, radius, rx_mode)
+        k2 = map_capture.map_record(segs, centers, radius, rx_mode)
+        p = map_capture.map_record_plain(segs, centers, radius, rx_mode)
     assert _map_launches(rx_mode)[0] == before + 2
-    p = map_capture.map_record_plain(segs, centers, radius, rx_mode)
     torch.cuda.synchronize()
     assert k1.dtype == torch.uint8 and k1.shape == (centers.shape[0], segs.t_env.shape[1])
     assert torch.equal(k1, k2) and torch.equal(k1, p)
@@ -1513,9 +1522,10 @@ def test_map_capture_ico_kernels_match_plain(cuda, soft):
     assert bool((record[-1] == map_capture.NO_CAPTURE).all())
     rows = map_capture.map_capture_plain(segs, centers, 0.7, MAP_SCALE, "icosphere")
     want = cir.histogram_rows(*rows, soft=soft, **MAP_KW)
+    _, t_first = map_capture.map_record(segs, centers, 0.7, "icosphere", t_first=True)
     before = _map_launches("icosphere")
     k1 = cir.histogram_record(record, segs, centers, 0.7, MAP_SCALE, soft=soft,
-                              rx_mode="icosphere", **MAP_KW)
+                              rx_mode="icosphere", t_first=t_first, **MAP_KW)
     irs = map_capture.map_irs(segs, centers, 0.7, scale=MAP_SCALE, soft=soft, rx_mode="icosphere",
                               **MAP_KW)
     assert [a - b for a, b in zip(_map_launches("icosphere"), before)] == [1, 0, 2, 0]
@@ -1553,6 +1563,84 @@ def test_map_capture_ico_many_receivers_and_bounces(cuda):
         one = map_capture.map_irs(segs, centers[k:k + 1], 0.7, scale=MAP_SCALE, soft=True,
                                   rx_mode="icosphere", **MAP_KW)
         assert torch.equal(one[0], irs[k]), k
+
+
+def _ico_tie_segments(n, bounces, m, radius, seed, hot=3_000):
+    """(segments, centers, aim) on the CPU, made with numpy from `seed`: m
+    icosphere receivers of `radius` 1.6 radii apart (a 5 x 5 x 5 grid's
+    first m points), so that a line through one passes the cull of its
+    neighbours, and n rays x `bounces` segments, segment (b, i) aimed at
+    receiver aim[b, i] = (i // 8 + 3 b) % m (eight rays of a warp at one
+    receiver; receiver 0 for the first `hot` rays at bounce 0, a row of more
+    than 2,048 captures), exactly at one of its vertices or edge midpoints,
+    where adjacent faces can return an equal t, entering there, from 1.5 to
+    40 radii away. A tenth aim nowhere (aim -1); a tenth of t_env stop short
+    of the receiver, a tenth beyond it, the rest MISS; 15% of the segments
+    are dead."""
+    g = np.random.default_rng(seed)
+    grid = np.stack(np.meshgrid(*(np.arange(5),) * 3, indexing="ij"), -1).reshape(-1, 3)
+    centers = (np.array([2.0, -3.0, 4.0]) + 1.6 * radius * grid[:m]).astype(np.float32)
+    tri = tracer._UNIT_ICO_TRI.astype(np.float64)
+    anchors = np.concatenate([tri.reshape(-1, 3),
+                              0.5 * (tri + np.roll(tri, 1, axis=1)).reshape(-1, 3)])
+    shape = (bounces, n)
+    i, b = np.arange(n)[None, :], np.arange(bounces)[:, None]
+    aim = np.where((i < hot) & (b == 0), 0, (i // 8 + 3 * b) % m)
+    p = anchors[g.integers(0, len(anchors), shape)]
+    d = g.normal(size=shape + (3,))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    d = np.where(((d * p).sum(-1) > 0)[..., None], -d, d)  # entering through p
+    away = g.uniform(1.5, 40.0, shape) * radius
+    o = centers.astype(np.float64)[aim] + radius * p - d * away[..., None]
+    nowhere = g.random(shape) < 0.1
+    o = np.where(nowhere[..., None], o + 50.0 * radius, o)
+    u = g.random(shape)
+    t_env = np.where(u < 0.8, 1e30, away * np.where(u < 0.9, g.uniform(0.5, 0.99, shape),
+                                                     g.uniform(1.01, 3.0, shape)))
+    f32 = lambda x: torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))  # noqa: E731
+    segs = EnvSegments(f32(o), f32(d), f32(t_env), f32(g.uniform(0.1, 1.0, shape)),
+                       f32(g.uniform(0.0, 20.0, shape)), torch.from_numpy(g.random(shape) > 0.15))
+    return segs, torch.from_numpy(centers), torch.from_numpy(np.where(nowhere, -1, aim))
+
+
+@pytest.mark.parametrize("n, bounces, m", [(12_345, 10, 37), (16_384, 3, 71)],
+                         ids=["ragged-37rx-10b", "aligned-71rx-3b"])
+def test_map_capture_ico_ties_and_long_rows(cuda, n, bounces, m):
+    """K-S/ico and the record entry/ico on `_ico_tie_segments`: rays through
+    the receivers' vertices and edge midpoints (a tenth of the hits tie two
+    faces' t bit for bit; tests/test_torch_icosphere.py holds that in the
+    plain version), several lanes of a warp passing the cull for one
+    receiver and for several; m not a multiple of 32 (37; 71, a second tile
+    of 7), 10 bounces, ragged (12,345) and 16-byte aligned (16,384) rows:
+    the record byte for byte and t_first bit for bit at every capture
+    against map_record_plain; receiver 0's row over 2,048 captures (two
+    chunks of the record entry); the IRs, hard and soft, bit for bit against
+    the plain map engine's dense rows through the dense entry (whose chunks
+    add as the record entry's do; histogram_record_plain's index_add_ adds a
+    bin's captures in another order on the card: within rtol 1e-5 of it);
+    two runs the same bits."""
+    segs_cpu, centers_cpu, _ = _ico_tie_segments(n, bounces, m, 0.5, seed=n)
+    segs = EnvSegments(*(t.to(cuda) for t in segs_cpu))
+    centers = centers_cpu.to(cuda)
+    record = _assert_map_record(segs, centers, 0.5, "icosphere")
+    captured = record != map_capture.NO_CAPTURE
+    assert int(captured[0].sum()) > 2048 and int(captured.sum(dim=1).min()) > 0
+    assert int((record[:, :32] != map_capture.NO_CAPTURE).sum()) > 8
+    _, t_first = map_capture.map_record(segs, centers, 0.5, "icosphere", t_first=True)
+    rows = map_capture.map_capture_plain(segs, centers, 0.5, MAP_SCALE, "icosphere")
+    for soft in (False, True):
+        before = _map_launches("icosphere")[2]
+        k1, k2 = (cir.histogram_record(record, segs, centers, 0.5, MAP_SCALE, soft=soft,
+                                       rx_mode="icosphere", t_first=t_first, **MAP_KW)
+                  for _ in range(2))
+        assert _map_launches("icosphere")[2] == before + 2
+        want = cir.histogram_rows(*rows, soft=soft, **MAP_KW)
+        plain = map_capture.histogram_record_plain(record, segs, centers, 0.5, MAP_SCALE,
+                                                   soft=soft, rx_mode="icosphere", **MAP_KW)
+        torch.cuda.synchronize()
+        assert torch.equal(k1, k2) and torch.equal(k1, want), soft
+        torch.testing.assert_close(k1, plain, rtol=1e-5, atol=1e-12)
+        assert int((k1 != 0).any(dim=1).sum()) > m // 2
 
 
 def test_coverage_icosphere_on_card_takes_the_ico_kernels(cuda, monkeypatch):
