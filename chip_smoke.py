@@ -2036,6 +2036,31 @@ def _cull_passes(o, d, centers, radius) -> int:
     return total
 
 
+def brute_request_inputs(dirs):
+    """K-B's inputs at the icosphere request's first bounce: (o, d, v0, e1,
+    e2, cull), the rays `dirs` from TX against the receiver icosphere at RX
+    (radius RX_RADIUS) with its bounding sphere as the cull."""
+    import torch
+
+    from rfx_torch.tracer import icosphere_soa
+
+    dev = dirs.device
+    o = torch.tensor(TX, device=dev).expand(dirs.shape[0], 3).contiguous()
+    rx = torch.tensor(RX, device=dev)
+    cull = torch.cat([rx, torch.tensor([RX_RADIUS], device=dev)])
+    return (o, dirs, *icosphere_soa(rx, RX_RADIUS), cull)
+
+
+def brute_env_inputs(scene, segs):
+    """K-B's inputs on an environment: (o, d, v0, e1, e2, None), every
+    segment of `segs` (both bounces' queries) against the faces of `scene`,
+    no cull."""
+    from rfx_torch.tracer import mesh_soa
+
+    v0, e1, e2, _ = mesh_soa(scene.vertices, scene.faces)
+    return segs.origin.reshape(-1, 3), segs.direction.reshape(-1, 3), v0, e1, e2, None
+
+
 def _icosphere_cir_leg(terrain, dev, kernels, card):
     """Phase 17, the request: Tracer(bench terrain, rx_mode="icosphere")
     .compute_cir at the bench workload, at radius 1.0 and 0.1, counted (K-B
@@ -2052,7 +2077,7 @@ def _icosphere_cir_leg(terrain, dev, kernels, card):
     from rfx_torch.api import Tracer
     from rfx_torch.ops import intersect
     from rfx_torch.sampler import morton_sphere_directions
-    from rfx_torch.tracer import icosphere_soa, trace_to_rx
+    from rfx_torch.tracer import trace_to_rx
 
     dirs = morton_sphere_directions(N_RAYS, generator=torch.Generator(dev).manual_seed(0),
                                     device=dev)
@@ -2121,10 +2146,7 @@ def _icosphere_cir_leg(terrain, dev, kernels, card):
         del k_res, p_res
 
     # K-B alone at the request's first bounce, radius 1.0.
-    o = torch.tensor(TX, device=dev).expand(N_RAYS, 3).contiguous()
-    rx = torch.tensor(RX, device=dev)
-    v0, e1, e2 = icosphere_soa(rx, RX_RADIUS)
-    cull = torch.cat([rx, torch.tensor([RX_RADIUS], device=dev)])
+    o, _, v0, e1, e2, cull = brute_request_inputs(dirs)
     k1 = intersect.brute_hit(o, dirs, v0, e1, e2, cull=cull)
     k2 = intersect.brute_hit(o, dirs, v0, e1, e2, cull=cull)
     p = intersect._brute_forward(o, dirs, v0, e1, e2, intersect.T_MIN_EPS, intersect.T_MAX, None)
@@ -2219,7 +2241,6 @@ def _icosphere_coverage_leg(terrain, dev, kernels, card):
     from rfx_torch.geometry import make_room
     from rfx_torch.ops import intersect
     from rfx_torch.ops import map_capture as mc
-    from rfx_torch.tracer import mesh_soa
 
     dirs = icosphere_dirs(dev)
     hkw = dict(nbins=COV_BINS, light_speed_mps=C, sample_rate_hz=RATE)
@@ -2322,9 +2343,7 @@ def _icosphere_coverage_leg(terrain, dev, kernels, card):
         del t_first  # 4 bytes a receiver and ray: not held into the value+grad's peak
         if name == "room":
             # K-B on the room's environment (12 faces, no cull), both bounces' queries.
-            v0, e1, e2, _ = mesh_soa(tracer.scene.vertices, tracer.scene.faces)
-            o = segs.origin.reshape(-1, 3)
-            d = segs.direction.reshape(-1, 3)
+            o, d, v0, e1, e2, _ = brute_env_inputs(tracer.scene, segs)
             k = intersect.brute_hit(o, d, v0, e1, e2)
             p = intersect._brute_forward(o, d, v0, e1, e2, intersect.T_MIN_EPS, intersect.T_MAX,
                                          None)
@@ -2367,6 +2386,40 @@ def _icosphere_coverage_leg(terrain, dev, kernels, card):
     return out
 
 
+def ico_grad_receivers(centers):
+    """The value+grad's 64 receivers of phase 17: every 32nd of the room's
+    (2,048, 3) grid."""
+    return centers[::32].contiguous()
+
+
+def ico_backward_inputs(segs, few):
+    """B11/ico's call of phase 17 on the segments `segs` and the receivers
+    `few`: (record, g, keywords): K-S/ico's record, the seeded (64,
+    COV_BINS) cotangent (numpy seed 3) and map_capture_backward's keywords,
+    soft."""
+    import numpy as np
+    import torch
+
+    from rfx_torch.coverage import _amp_scale
+    from rfx_torch.ops import map_capture as mc
+
+    record = mc.map_record(segs, few, COV_RADIUS, "icosphere")
+    g = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(few.shape[0], COV_BINS)).astype(np.float32)).to(few.device)
+    bkw = dict(scale=float(_amp_scale(1.0, COV_RAYS, torch.device("cpu"))), soft=True,
+               rx_mode="icosphere", nbins=COV_BINS, light_speed_mps=C, sample_rate_hz=RATE)
+    return record, g, bkw
+
+
+def ico_backward_bound(n_seg: int, captured: int) -> dict:
+    """B11/ico's bound: the record, the cotangent, 32 bytes of each captured
+    segment, the centers and the unit faces read once, 32 bytes a segment
+    written; at a capture the 80 tests that find the face again, its t's VJP
+    and the bins."""
+    return _bound(64 * COV_RAYS + 4 * 64 * COV_BINS + 32 * captured + 12 * 64 + ICO_TRI_BYTES
+                  + 32 * n_seg, (MT_TEST_FLOPS * ICO_FACES + 120) * captured)
+
+
 def _icosphere_grad(tracer, dirs, segs, centers, kernels, card, launches_out):
     """Phase 17, value+grad: coverage_dbm(soft=True, rx_mode="icosphere",
     engine="map") on 64 of the room's receivers (every 32nd), d / d (log n1,
@@ -2378,16 +2431,14 @@ def _icosphere_grad(tracer, dirs, segs, centers, kernels, card, launches_out):
     same bits; times and peak memory."""
     import math
 
-    import numpy as np
     import torch
 
-    from rfx_torch.coverage import _amp_scale, coverage_dbm
+    from rfx_torch.coverage import coverage_dbm
     from rfx_torch.ops import map_capture as mc
-    from rfx_torch.tracer import icosphere_tris
 
     dev = centers.device
     tx = COV_SCENES[0][1]
-    few = centers[::32].contiguous()
+    few = ico_grad_receivers(centers)
     log_n1_0 = math.log(5.0)
     kw = dict(max_bounces=2, num_rays=COV_RAYS, sample_window_s=COV_WINDOW, sample_rate_hz=RATE,
               env_hit=tracer.env_hit, soft=True, rx_batch=64, engine="map", rx_mode="icosphere")
@@ -2430,15 +2481,9 @@ def _icosphere_grad(tracer, dirs, segs, centers, kernels, card, launches_out):
     out["valgrad_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
 
     # B11/ico against its plain version on the sweep's segments.
-    scale = float(_amp_scale(1.0, COV_RAYS, torch.device("cpu")))
-    tris = icosphere_tris(few, COV_RADIUS).contiguous()
-    record = mc.map_record(segs, few, COV_RADIUS, "icosphere")
-    g = torch.from_numpy(np.random.default_rng(3).normal(
-        size=(few.shape[0], COV_BINS)).astype(np.float32)).to(dev)
-    bkw = dict(scale=scale, soft=True, rx_mode="icosphere", nbins=COV_BINS, light_speed_mps=C,
-               sample_rate_hz=RATE)
-    k1 = mc.map_capture_backward(segs, few, COV_RADIUS, g, record, tris=tris, **bkw)
-    k2 = mc.map_capture_backward(segs, few, COV_RADIUS, g, record, tris=tris, **bkw)
+    record, g, bkw = ico_backward_inputs(segs, few)
+    k1 = mc.map_capture_backward(segs, few, COV_RADIUS, g, record, **bkw)
+    k2 = mc.map_capture_backward(segs, few, COV_RADIUS, g, record, **bkw)
     p, _, plain_ms = _timed(lambda: mc.map_capture_backward_plain(segs, few, COV_RADIUS, g, **bkw))
     errs, same_bits = {}, {}
     names = ("origin", "direction", "amplitude", "distance", "centers", "scale", "radius")
@@ -2453,7 +2498,7 @@ def _icosphere_grad(tracer, dirs, segs, centers, kernels, card, launches_out):
     n_seg = segs.t_env.numel()
 
     def backward(full):
-        return lambda: mc.map_capture_backward(segs, few, COV_RADIUS, g, record, tris=tris,
+        return lambda: mc.map_capture_backward(segs, few, COV_RADIUS, g, record,
                                                centers_grad=full, scalars_grad=full, **bkw)
 
     out["backward"] = {
@@ -2461,13 +2506,9 @@ def _icosphere_grad(tracer, dirs, segs, centers, kernels, card, launches_out):
         "ms": _cuda_ms(backward(False), 10), "device_ms": device_ms(backward(False), 10),
         "queued_ms": queued_ms(backward(False), 20),
         "centers_ms": _cuda_ms(backward(True), 10),
-        "centers_device_ms": device_ms(backward(True), 10), "plain_ms": plain_ms,
-        # The record, the cotangent, 32 bytes of each captured segment and the
-        # receivers' faces read once, 32 bytes a segment written; at a capture
-        # the 80 tests that find the face again, its t's VJP and the bins.
-        "bound": _bound(64 * COV_RAYS + 4 * 64 * COV_BINS + 32 * captured
-                        + ICO_TRI_BYTES * 64 + 32 * n_seg,
-                        (MT_TEST_FLOPS * ICO_FACES + 120) * captured)}
+        "centers_device_ms": device_ms(backward(True), 10),
+        "centers_queued_ms": queued_ms(backward(True), 20), "plain_ms": plain_ms,
+        "bound": ico_backward_bound(n_seg, captured)}
     b = out["backward"]
     print(f"# icosphere exact (soft) value+grad, room, {few.shape[0]} receivers x 2 x {COV_RAYS}: "
           f"loss {out['loss']:.6f} dBm, d/d log n1 {out['d_log_n1']:.6e} (central difference, step "
@@ -2476,9 +2517,10 @@ def _icosphere_grad(tracer, dirs, segs, centers, kernels, card, launches_out):
           f"{out['valgrad_ms']:.2f} ms, forward {out['forward_ms']:.2f} ms, peak "
           f"{out['valgrad_peak_bytes'] / 2**30:.2f} GiB; B11/ico == plain within rtol 1e-5 (max |d| "
           f"{errs}; bit-equal {same_bits}), two runs the same; {b['ms']:.4f} ms a call, "
-          f"{b['device_ms']:.4f} on the device, {b['queued_ms']:.4f} queued ({b['centers_ms']:.4f} / {b['centers_device_ms']:.4f} "
-          f"with the centers' and scalars'), plain {plain_ms:.1f} ms, bound "
-          f"{b['bound']['bound_ms']:.4f} ms by {b['bound']['bound_by']}; {card}", flush=True)
+          f"{b['device_ms']:.4f} on the device, {b['queued_ms']:.4f} queued "
+          f"({b['centers_ms']:.4f} / {b['centers_queued_ms']:.4f} queued with the centers' and "
+          f"scalars'), plain {plain_ms:.1f} ms, bound {b['bound']['bound_ms']:.4f} ms by "
+          f"{b['bound']['bound_by']}; {card}", flush=True)
     return out
 
 
@@ -3401,7 +3443,8 @@ def main() -> int:
          "ms": kb["ms"], "device_ms": kb["device_ms"], "queued_ms": kb["queued_ms"],
          "plain_ms": kb["plain_ms"], **kb["bound"],
          "library_ms": None, "ms_no_cull": kb["no_cull_ms"], "cull_passes": kb["cull_passes"],
-         "ms_room_env": kb_env["ms"], "plain_ms_room_env": kb_env["plain_ms"],
+         "ms_room_env": kb_env["ms"], "queued_ms_room_env": kb_env["queued_ms"],
+         "plain_ms_room_env": kb_env["plain_ms"],
          **_suffixed(kb_env["bound"], "_room_env"),
          "shape": f"ms, plain_ms, bound_ms: the icosphere request's receiver test on its first "
                   f"bounce, {N_RAYS} rays from tx against the 80-face receiver (radius "
@@ -3453,6 +3496,7 @@ def main() -> int:
          "plain_ms": kbi["plain_ms"],
          **kbi["bound"], "library_ms": None, "ms_with_centers": kbi["centers_ms"],
          "device_ms_with_centers": kbi["centers_device_ms"],
+         "queued_ms_with_centers": kbi["centers_queued_ms"],
          "max_abs_err_by_output": kbi["max_abs_err"],
          "shape": f"jax.grad through rfx/coverage.py:38-81 with the icosphere (the brute hit's "
                   f"custom VJP, rfx/ops/intersect.py:159-185, through v0 = unit r + C), soft: d / d "
@@ -3460,8 +3504,9 @@ def main() -> int:
                   f"for a seeded (64, {COV_BINS}) cotangent, given K-S/ico's record "
                   f"({kbi['captured']} captures); ms_with_centers: also d / d the centers, the "
                   f"scale and the radius; within rtol 1e-5 of map_capture_backward_plain; "
-                  f"bound_ms: the record, the cotangent, 32 bytes a captured segment and the "
-                  f"faces read once, 32 bytes a segment written, 80 tests and the VJP a capture"},
+                  f"bound_ms: the record, the cotangent, 32 bytes a captured segment, the centers "
+                  f"and the unit faces read once, 32 bytes a segment written, 80 tests and the "
+                  f"VJP a capture"},
         {"name": "micro_vote", "route": "cuda", "source": "rfx_torch/csrc/micro_vote.cu",
          "replaces": "scripts/micro_reduce.py:64", **counts(K_VOTE),
          "max_abs_err": max(abs(v["carry"] - v["plain_carry"])

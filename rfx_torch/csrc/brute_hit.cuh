@@ -2,9 +2,13 @@
 // the receiver icosphere's bounding-sphere cull: the device code that the
 // brute closest hit (brute_hit.cu) and the map engine's icosphere capture
 // pass and its backward (map_capture.cu) share, so that they cannot disagree
-// on a hit. The capture pass runs each receiver's 80 tests across a warp
-// (warp_ico_t), the others a thread's tests in a row (closest_hit): both
-// give the first smallest t in ascending face order.
+// on a hit. The icosphere's kernels run each receiver's 80 tests across a
+// warp: the capture pass wants the smallest t alone (warp_ico_t), the
+// backward also its face (warp_ico_hit, the first smallest t in ascending
+// face order, for as many rays at once as lanes of the warp ask). The brute
+// closest hit runs a thread's tests in a row, each in two halves (mt_head,
+// mt_tail), so that a warp can skip the second where no lane can still hit
+// the face.
 //
 // mt_t is one test in the expressions and order of
 // rfx_torch/ops/intersect.py:_mt_chunk (rfx/ops/intersect.py:75-113):
@@ -12,10 +16,10 @@
 // 0), tvec = o - v0, u = tvec.pvec * inv_det, qvec = tvec x e1, v =
 // d.qvec * inv_det, t = e2.qvec * inv_det, every dot product summed x + y +
 // z; a hit where |det| > 1e-12, u >= 0, v >= 0, u + v <= 1 and t_min < t <
-// t_max. closest_hit keeps the first smallest t in ascending face order
-// (strict <), so ties go to the lowest face index, as torch.argmin does.
-// Built with -fmad=false and IEEE division (rfx_torch/ops/_build.py): the
-// same bits as PyTorch's elementwise operations in the plain version.
+// t_max. A closest hit keeps the first smallest t in ascending face order,
+// so ties go to the lowest face index, as torch.argmin does. Built with
+// -fmad=false and IEEE division (rfx_torch/ops/_build.py): the same bits as
+// PyTorch's elementwise operations in the plain version.
 //
 // The cull (cull_pass) decides only whether the tests run: a ray whose line
 // passes farther than reach = r (1 + kCullDelta) + kCullGamma |c - o|_1
@@ -57,45 +61,54 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz;
 };
 
-// t of the ray against the triangle tri[0..8] = (v0, e1, e2), kMiss where
-// the test finds no hit.
-__device__ __forceinline__ float mt_t(const Ray& r, const float* tri, float t_min, float t_max) {
-  const float v0x = tri[0], v0y = tri[1], v0z = tri[2];
-  const float e1x = tri[3], e1y = tri[4], e1z = tri[5];
-  const float e2x = tri[6], e2y = tri[7], e2z = tri[8];
+// The first half of a test: pvec, det, inv_det, tvec and u.
+struct MtHead {
+  float inv, tx, ty, tz, u;
+  bool valid;
+};
+
+__device__ __forceinline__ MtHead mt_head(const Ray& r, float v0x, float v0y, float v0z, float e1x,
+                                          float e1y, float e1z, float e2x, float e2y, float e2z) {
   const float px = r.dy * e2z - r.dz * e2y;
   const float py = r.dz * e2x - r.dx * e2z;
   const float pz = r.dx * e2y - r.dy * e2x;
   const float det = e1x * px + e1y * py + e1z * pz;
-  const bool valid = fabsf(det) > kDetEps;
-  const float inv = valid ? 1.0f / det : 0.0f;
-  const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
-  const float u = (tx * px + ty * py + tz * pz) * inv;
-  const float qx = ty * e1z - tz * e1y;
-  const float qy = tz * e1x - tx * e1z;
-  const float qz = tx * e1y - ty * e1x;
-  const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
-  const float t = (e2x * qx + e2y * qy + e2z * qz) * inv;
-  const bool ok = valid && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > t_min && t < t_max;
+  MtHead h;
+  h.valid = fabsf(det) > kDetEps;
+  h.inv = h.valid ? 1.0f / det : 0.0f;
+  h.tx = r.ox - v0x;
+  h.ty = r.oy - v0y;
+  h.tz = r.oz - v0z;
+  h.u = (h.tx * px + h.ty * py + h.tz * pz) * h.inv;
+  return h;
+}
+
+// False where the test cannot accept, whatever v and t: |det| <= 1e-12, u
+// < 0, u > 1 (u + v rounds to at least u where v >= 0) or u NaN.
+__device__ __forceinline__ bool mt_may_hit(const MtHead& h) {
+  return h.valid && h.u >= 0.0f && h.u <= 1.0f;
+}
+
+// The second half: qvec, v, t and the hit rule; t, or kMiss where the test
+// finds no hit.
+__device__ __forceinline__ float mt_tail(const Ray& r, const MtHead& h, float e1x, float e1y,
+                                         float e1z, float e2x, float e2y, float e2z, float t_min,
+                                         float t_max) {
+  const float qx = h.ty * e1z - h.tz * e1y;
+  const float qy = h.tz * e1x - h.tx * e1z;
+  const float qz = h.tx * e1y - h.ty * e1x;
+  const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * h.inv;
+  const float t = (e2x * qx + e2y * qy + e2z * qz) * h.inv;
+  const bool ok = h.valid && h.u >= 0.0f && v >= 0.0f && h.u + v <= 1.0f && t > t_min && t < t_max;
   return ok ? t : kMiss;
 }
 
-// Closest hit over `count` triangles stored back to back from `tris`
-// (any address space); `face` gets the index of the first smallest t, -1
-// on a miss (t = kMiss).
-__device__ __forceinline__ float closest_hit(const Ray& r, const float* tris, int count,
-                                             float t_min, float t_max, int& face) {
-  float best = kMiss;
-  face = -1;
-  for (int f = 0; f < count; ++f) {
-    const float t = mt_t(r, tris + kTriFloats * f, t_min, t_max);
-    if (t < best) {
-      best = t;
-      face = f;
-    }
-  }
-  if (!(best < kMissThreshold)) face = -1;
-  return best;
+// t of the ray against the triangle tri[0..8] = (v0, e1, e2), kMiss where
+// the test finds no hit.
+__device__ __forceinline__ float mt_t(const Ray& r, const float* tri, float t_min, float t_max) {
+  const MtHead h =
+      mt_head(r, tri[0], tri[1], tri[2], tri[3], tri[4], tri[5], tri[6], tri[7], tri[8]);
+  return mt_tail(r, h, tri[3], tri[4], tri[5], tri[6], tri[7], tri[8], t_min, t_max);
 }
 
 // The reach's term in the radius, r (1 + kCullDelta).
@@ -125,14 +138,26 @@ __device__ __forceinline__ bool cull_pass(const Ray& r, float cx, float cy, floa
                      r.dx * r.dx + r.dy * r.dy + r.dz * r.dz);
 }
 
+// Face f of the icosphere about (cx, cy, cz) whose faces scaled by the
+// radius are unit_r ((80, 9): unit * radius): (unit_r[f].v0 + c, e1, e2),
+// v0 rounded as rfx_torch.tracer.icosphere_tris rounds it (the product,
+// then the sum).
+__device__ __forceinline__ void ico_face(const float* unit_r, int f, float cx, float cy, float cz,
+                                         float (&tri)[kTriFloats]) {
+  const float* u = unit_r + kTriFloats * f;
+  tri[0] = u[0] + cx;
+  tri[1] = u[1] + cy;
+  tri[2] = u[2] + cz;
+#pragma unroll
+  for (int k = 3; k < kTriFloats; ++k) tri[k] = u[k];
+}
+
 // The icosphere receiver's closest hit t, shared by the 32 lanes of a warp,
-// which all call it with the same arguments: over the faces of the icosphere
-// about (cx, cy, cz) whose faces scaled by the radius are unit_r ((80, 9):
-// unit * radius), face f = (unit_r[f].v0 + c, e1, e2), v0 rounded as
-// rfx_torch.tracer.icosphere_tris rounds it (the product, then the sum).
-// Lane l tests faces l, l + 32 and l + 64, then a butterfly of shuffles
-// keeps the smallest t; every lane returns it, closest_hit's t (kMiss where
-// no face is hit; faces that tie give that t alike). No cull.
+// which all call it with the same arguments: over the faces (ico_face) of
+// the icosphere about (cx, cy, cz). Lane l tests faces l, l + 32 and l + 64,
+// then a butterfly of shuffles keeps the smallest t; every lane returns it,
+// the closest hit's t (kMiss where no face is hit; faces that tie give that
+// t alike). No cull.
 __device__ __forceinline__ float warp_ico_t(const Ray& r, const float* unit_r, float cx, float cy,
                                             float cz) {
   const int lane = threadIdx.x & 31;
@@ -141,15 +166,70 @@ __device__ __forceinline__ float warp_ico_t(const Ray& r, const float* unit_r, f
   for (int s = 0; s < (kIcoFaces + 31) / 32; ++s) {
     const int f = lane + 32 * s;
     if (f < kIcoFaces) {
-      const float* u = unit_r + kTriFloats * f;
-      const float tri[kTriFloats] = {u[0] + cx, u[1] + cy, u[2] + cz, u[3], u[4],
-                                     u[5],      u[6],      u[7],      u[8]};
+      float tri[kTriFloats];
+      ico_face(unit_r, f, cx, cy, cz, tri);
       best = fminf(best, mt_t(r, tri, kTMin, kTMax));
     }
   }
 #pragma unroll
   for (int off = 16; off > 0; off /= 2) best = fminf(best, __shfl_xor_sync(0xffffffffu, best, off));
   return best;
+}
+
+// The icosphere receiver's closest hit t and face for each lane of a warp
+// that asks (`cap`), on its own ray `own`; all 32 lanes call it with the
+// same icosphere (ico_face's faces about (cx, cy, cz)). With k lanes
+// asking, the warp splits into groups of g = 32 / 2^ceil(log2 k) lanes, a
+// group an asking lane in lane order (k = 1: the whole warp, three faces a
+// lane, as warp_ico_t; k > 16: each asking lane alone). Lane s of a group
+// tests faces s, s + g, ... in ascending order and keeps the first
+// smallest t (strict <), then a butterfly of shuffles within the group
+// keeps the lexicographic minimum of (t, face): the lowest face that gives
+// the smallest t, the closest hit's face. Faces that tie give the same t
+// but another VJP, so the tie rule is part of the result, and it holds for
+// every g. An asking lane gets its t (kMiss where no face is hit) and
+// `face` (-1 there). No cull.
+__device__ __forceinline__ float warp_ico_hit(const Ray& own, bool cap, const float* unit_r,
+                                              float cx, float cy, float cz, int& face) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const unsigned asking = __ballot_sync(kAll, cap);
+  const int k = __popc(asking);
+  const int shift = k > 1 ? 32 - __clz(k - 1) : 0;  // ceil(log2 k)
+  const int g = 32 >> shift;                        // lanes a group
+  const int group = lane >> (5 - shift), s = lane & (g - 1);
+  unsigned rest = asking;  // the group's asking lane: the group-th of them
+  for (int j = 0; j < group && rest != 0u; ++j) rest &= rest - 1u;
+  const int src = rest != 0u ? __ffs(rest) - 1 : lane;
+  const Ray r{__shfl_sync(kAll, own.ox, src), __shfl_sync(kAll, own.oy, src),
+              __shfl_sync(kAll, own.oz, src), __shfl_sync(kAll, own.dx, src),
+              __shfl_sync(kAll, own.dy, src), __shfl_sync(kAll, own.dz, src)};
+  float best = kMiss;
+  int at = kIcoFaces;  // no face yet: above every face
+  if (group < k) {
+    for (int f = s; f < kIcoFaces; f += g) {
+      float tri[kTriFloats];
+      ico_face(unit_r, f, cx, cy, cz, tri);
+      const float t = mt_t(r, tri, kTMin, kTMax);
+      if (t < best) {
+        best = t;
+        at = f;
+      }
+    }
+  }
+  for (int off = g / 2; off > 0; off /= 2) {
+    const float t = __shfl_xor_sync(kAll, best, off);
+    const int f = __shfl_xor_sync(kAll, at, off);
+    if (t < best || (t == best && f < at)) {
+      best = t;
+      at = f;
+    }
+  }
+  const int from = cap ? g * __popc(asking & ((1u << lane) - 1u)) : 0;  // this lane's group
+  const float t = __shfl_sync(kAll, best, from);
+  const int f = __shfl_sync(kAll, at, from);
+  face = t < kMissThreshold ? f : -1;
+  return t;
 }
 
 // The VJP of the closed-form t of the selected face tri = (v0, e1, e2) for

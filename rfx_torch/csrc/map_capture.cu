@@ -73,20 +73,26 @@
 // each (segment, receiver) that passes has its 80 tests run by the whole warp
 // (brute_hit.cuh's warp_ico_t: three faces a lane from the unit faces scaled
 // in shared memory, v0 formed as torch's icosphere_tris forms it, then a
-// shuffle tree that keeps the smallest t, closest_hit's t). The block's
+// shuffle tree that keeps the smallest t, the closest hit's t). The block's
 // record bytes gather in shared memory and go out a receiver row at a time,
 // the same bytes as the analytic record's; the capture's t goes to t_first,
 // which the record entry/ico reads in place of finding it again. The backward
-// finds the selected face again at each capture (the faces from (R, 80, 9)
-// rows, rfx_torch.tracer.icosphere_tris) and applies the VJP of its
-// closed-form t (closed_form_t_vjp, rfx/ops/intersect.py:159-185) to the
-// length's cotangent: the segment gains g_o and g_d, the center g_v0 (in
-// place of gg q) and the radius g_v0.unit_v0 + g_e1.unit_e1 + g_e2.unit_e2
-// (in place of gg, and not multiplied by the radius), in the same orders and
-// with the same folds. What bounds the icosphere's forward is the cull on
-// every live segment and receiver (24 operations, against the sphere's 17),
-// an instruction each without contraction; the 80 tests run only where it
-// passes.
+// finds the selected face again at each capture, across the warp as the
+// forward finds t (brute_hit.cuh's warp_ico_hit: the same faces from the
+// unit faces scaled in shared memory, the warp split into a group of lanes
+// for each lane that captured the receiver, and a shuffle tree within each
+// group of the lexicographic minimum of (t, face), so that faces that tie
+// give the lowest face, the plain version's), and applies the VJP of its closed-form t
+// (closed_form_t_vjp, rfx/ops/intersect.py:159-185) to the length's
+// cotangent: the segment gains g_o and g_d, the center g_v0 (in place of gg
+// q) and the radius g_v0.unit_v0 + g_e1.unit_e1 + g_e2.unit_e2 (in place of
+// gg, and not multiplied by the radius), in the same orders and with the
+// same folds. What bounds the icosphere's forward is the cull on every live
+// segment and receiver (24 operations, against the sphere's 17), an
+// instruction each without contraction; the 80 tests run only where it
+// passes. The backward, like the analytic one, is bound by reading the
+// record and writing the segments' gradients; a capture's 80 tests cost the
+// warp three a lane and the shuffles.
 //
 // Not carried over from the TPU: nothing; rfx runs this as XLA's fusion of
 // the broadcast.
@@ -113,7 +119,12 @@ constexpr int kBackWarps = kBackThreads / 32;
 constexpr int kStage = 256;        // centers the backward stages in shared memory at once
 constexpr int kBatch = 16;         // record bytes a backward thread loads at once
 constexpr int kGroup = 4;          // bounces whose sums a backward thread holds in registers
-constexpr int kIcoFloats = kIcoFaces * kTriFloats;  // a receiver's faces in `tris`
+// Blocks an SM that the icosphere's backward is built for: five holds it to 96
+// registers (with a 48-byte spill), where it would take 104-106 and fit four,
+// and timed faster so on an H100: a block's warps wait on the searches of
+// the warps that captured, and a fifth block fills the gaps.
+constexpr int kIcoBackBlocks = 5;
+constexpr int kIcoFloats = kIcoFaces * kTriFloats;  // the unit icosphere's faces
 constexpr int kIcoThreads = 256;   // rays of a K-S/ico block, 32 a warp
 constexpr int kIcoTile = 64;       // receivers of a K-S/ico block: a bit each in s_done
 static_assert(kIcoTile == 64, "K-S/ico keeps a ray's receivers in one 64-bit word");
@@ -296,7 +307,7 @@ struct BackArgs {
   bool soft;
   double* sums_partials;  // null, or (blocks, 2): a block's sums of g_a amp and gg (kIco: of
                           // g_a amp and d IR / d radius)
-  const float* tris;      // kIco: (m, 80, 9) f32, the receivers' faces
+  float radius;           // kIco: the icospheres' radius
   const float* unit;      // kIco: (80, 9) f32, the unit icosphere's (v0, e1, e2)
 };
 
@@ -316,21 +327,29 @@ __device__ __forceinline__ unsigned byte_of(const unsigned (&w)[kBatch / 4], int
 // the warps added in order into the block's partial (the first group stores,
 // later groups add their share). kIco: the receiver is the icosphere; its t
 // at a capture is the closest hit over its faces (the cull passed there),
-// and the length's cotangent flows through the selected face's closed-form
-// t (brute_hit.cuh's closed_form_t_vjp) to the segment, to the center (g_v0)
-// and to the radius (g_v0.unit_v0 + g_e1.unit_e1 + g_e2.unit_e2).
+// found by the whole warp for its capturing lanes at once (warp_ico_hit: a
+// group of lanes a capturing lane, the unit faces scaled by the radius
+// staged once a block), and the length's cotangent flows through the
+// selected face's closed-form t (brute_hit.cuh's closed_form_t_vjp) to the
+// segment, to the center (g_v0) and to the radius (g_v0.unit_v0 +
+// g_e1.unit_e1 + g_e2.unit_e2). The body of the analytic kernel and of the
+// icosphere's, which differ in their launch bounds alone.
 template <bool kCenters, bool kIco>
-__global__ void __launch_bounds__(kBackThreads) map_capture_backward_kernel(
+__device__ __forceinline__ void backward_body(
     const float* __restrict__ origin, const float* __restrict__ dir,
     const unsigned char* __restrict__ record, int nb, int n, const float* __restrict__ centers,
     int m, BackArgs a, float* __restrict__ g_origin, float* __restrict__ g_dir,
     float* __restrict__ g_amp, float* __restrict__ g_dist, float* __restrict__ gc_partials) {
   __shared__ float4 s_ctr[kStage];
   __shared__ double s_sums[2][kBackWarps];
+  __shared__ float s_face[kIco ? kIcoFloats : 1];  // kIco: unit * radius
   extern __shared__ float s_gc[];  // kCenters: (kBackWarps, kStage, 3)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long i = static_cast<long long>(blockIdx.x) * kBackThreads + tid;
   const bool in = i < n;
+  if constexpr (kIco) {  // read after the first stage's barrier
+    for (int k = tid; k < kIcoFloats; k += kBackThreads) s_face[k] = a.unit[k] * a.radius;
+  }
   double sum_amp = 0.0, sum_gg = 0.0;
   for (int b0 = 0; b0 < nb; b0 += kGroup) {
     // o (3), d (3), amplitude, distance of bounce b0 + j
@@ -378,6 +397,19 @@ __global__ void __launch_bounds__(kBackThreads) map_capture_backward_kernel(
           const int u = __ffs(live) - 1;
           const int q = q0 + u;
           float gq[3] = {0.0f, 0.0f, 0.0f};
+          float t_ico = rfx_brute::kMiss;  // kIco: this lane's capture's t and face
+          int face = -1;
+          if constexpr (kIco) {  // the whole warp: the capturing lanes' 80 tests
+            const bool cap = (mine >> u) & 1u;
+            rfx_brute::Ray own{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+            if (cap) {
+              const long long at = static_cast<long long>(byte_of(w, u)) * n + i;
+              own = rfx_brute::Ray{origin[3 * at], origin[3 * at + 1], origin[3 * at + 2],
+                                   dir[3 * at],    dir[3 * at + 1],    dir[3 * at + 2]};
+            }
+            const float4 ctr = s_ctr[q];
+            t_ico = rfx_brute::warp_ico_hit(own, cap, s_face, ctr.x, ctr.y, ctr.z, face);
+          }
           if ((mine >> u) & 1u) {
             const int bb = static_cast<int>(byte_of(w, u)) - b0;
             const long long at = static_cast<long long>(b0 + bb) * n + i;
@@ -386,11 +418,7 @@ __global__ void __launch_bounds__(kBackThreads) map_capture_backward_kernel(
             const float amp = a.amp[at], dist = a.dist[at];
             const float4 ctr = s_ctr[q];
             const rfx_brute::Ray ray{ox, oy, oz, dx, dy, dz};
-            const float* rtris = kIco ? a.tris + static_cast<long long>(s0 + q) * kIcoFloats
-                                      : nullptr;
-            int face = -1;
-            const float t = kIco ? rfx_brute::closest_hit(ray, rtris, kIcoFaces, rfx_brute::kTMin,
-                                                          rfx_brute::kTMax, face)
+            const float t = kIco ? t_ico
                                  : sphere_t(ox, oy, oz, dx, dy, dz, ctr.x, ctr.y, ctr.z, a.r2);
             const float* gr = a.g + static_cast<long long>(s0 + q) * a.nbins;
             const float delay = (dist + t) / a.c * a.rate;
@@ -418,7 +446,8 @@ __global__ void __launch_bounds__(kBackThreads) map_capture_backward_kernel(
               sum_amp += static_cast<double>(ga * amp);
               if constexpr (kIco) {
                 rfx_brute::TGrad tg;
-                const float* tri = rtris + kTriFloats * face;
+                float tri[kTriFloats];
+                rfx_brute::ico_face(s_face, face, ctr.x, ctr.y, ctr.z, tri);
                 rfx_brute::closed_form_t_vjp(ray, tri, gd, tg);
                 const float* u = a.unit + kTriFloats * face;
 #pragma unroll
@@ -522,6 +551,26 @@ __global__ void __launch_bounds__(kBackThreads) map_capture_backward_kernel(
   }
 }
 
+template <bool kCenters>
+__global__ void __launch_bounds__(kBackThreads) map_capture_backward_kernel(
+    const float* __restrict__ origin, const float* __restrict__ dir,
+    const unsigned char* __restrict__ record, int nb, int n, const float* __restrict__ centers,
+    int m, BackArgs a, float* __restrict__ g_origin, float* __restrict__ g_dir,
+    float* __restrict__ g_amp, float* __restrict__ g_dist, float* __restrict__ gc_partials) {
+  backward_body<kCenters, false>(origin, dir, record, nb, n, centers, m, a, g_origin, g_dir, g_amp,
+                                 g_dist, gc_partials);
+}
+
+template <bool kCenters>
+__global__ void __launch_bounds__(kBackThreads, kIcoBackBlocks) map_capture_backward_ico_kernel(
+    const float* __restrict__ origin, const float* __restrict__ dir,
+    const unsigned char* __restrict__ record, int nb, int n, const float* __restrict__ centers,
+    int m, BackArgs a, float* __restrict__ g_origin, float* __restrict__ g_dir,
+    float* __restrict__ g_amp, float* __restrict__ g_dist, float* __restrict__ gc_partials) {
+  backward_body<kCenters, true>(origin, dir, record, nb, n, centers, m, a, g_origin, g_dir, g_amp,
+                                g_dist, gc_partials);
+}
+
 int backward_blocks(int n) {
   return static_cast<int>((static_cast<long long>(n) + kBackThreads - 1) / kBackThreads);
 }
@@ -602,16 +651,25 @@ int launch_backward(const void* origin, const void* dir, const void* record, int
                     void* g_amp, void* g_dist, void* gc_partials, void* g_centers, void* sums,
                     cudaStream_t s) {
   const int blocks = backward_blocks(n);
-#define RFX_MAP_BACKWARD(KC, SMEM)                                                             \
-  map_capture_backward_kernel<KC, kIco><<<blocks, kBackThreads, SMEM, s>>>(                    \
+  const int smem = static_cast<int>(sizeof(float)) * kBackWarps * kStage * 3;
+#define RFX_MAP_BACKWARD(KERNEL, SMEM)                                                         \
+  KERNEL<<<blocks, kBackThreads, SMEM, s>>>(                                                   \
       static_cast<const float*>(origin), static_cast<const float*>(dir),                       \
       static_cast<const unsigned char*>(record), nb, n, static_cast<const float*>(centers), m, \
       a, static_cast<float*>(g_origin), static_cast<float*>(g_dir),                            \
       static_cast<float*>(g_amp), static_cast<float*>(g_dist), static_cast<float*>(gc_partials))
-  if (gc_partials == nullptr) {
-    RFX_MAP_BACKWARD(false, 0);
+  if constexpr (kIco) {
+    if (gc_partials == nullptr) {
+      RFX_MAP_BACKWARD(map_capture_backward_ico_kernel<false>, 0);
+    } else {
+      RFX_MAP_BACKWARD(map_capture_backward_ico_kernel<true>, smem);
+    }
   } else {
-    RFX_MAP_BACKWARD(true, static_cast<int>(sizeof(float)) * kBackWarps * kStage * 3);
+    if (gc_partials == nullptr) {
+      RFX_MAP_BACKWARD(map_capture_backward_kernel<false>, 0);
+    } else {
+      RFX_MAP_BACKWARD(map_capture_backward_kernel<true>, smem);
+    }
   }
 #undef RFX_MAP_BACKWARD
   cudaError_t err = cudaGetLastError();
@@ -673,28 +731,29 @@ extern "C" int rfx_map_capture_backward(const void* origin, const void* dir, con
                                         void* sums_partials, void* sums, void* stream) {
   const BackArgs a{static_cast<const float*>(amp), static_cast<const float*>(dist),
                    static_cast<const float*>(g), radius * radius, scale, c, rate, qd_floor,
-                   nbins, soft != 0, static_cast<double*>(sums_partials), nullptr, nullptr};
+                   nbins, soft != 0, static_cast<double*>(sums_partials), 0.0f, nullptr};
   return launch_backward<false>(origin, dir, record, nb, n, centers, m, a, g_origin, g_dir,
                                 g_amp, g_dist, gc_partials, g_centers, sums,
                                 static_cast<cudaStream_t>(stream));
 }
 
 // rfx_map_capture_backward for the icosphere receiver, given
-// rfx_map_capture_ico's record: tris as there, unit (80, 9) f32 the unit
-// icosphere's (v0, e1, e2); sums gets the sums of g_a amp and of d IR /
-// d radius (no qd_floor: the closed-form t has no clamp).
+// rfx_map_capture_ico's record of the same radius and unit faces: unit (80,
+// 9) f32 the unit icosphere's (v0, e1, e2); receiver r's faces are formed
+// as rfx_map_capture_ico forms them (unit * radius, then v0 + centers[r]).
+// sums gets the sums of g_a amp and of d IR / d radius (no qd_floor: the
+// closed-form t has no clamp).
 extern "C" int rfx_map_capture_backward_ico(const void* origin, const void* dir, const void* amp,
                                             const void* dist, const void* record, int nb, int n,
-                                            const void* centers, int m, float scale, float c,
-                                            float rate, int nbins, int soft, const void* tris,
+                                            const void* centers, int m, float radius, float scale,
+                                            float c, float rate, int nbins, int soft,
                                             const void* unit, const void* g, void* g_origin,
                                             void* g_dir, void* g_amp, void* g_dist,
                                             void* gc_partials, void* g_centers,
                                             void* sums_partials, void* sums, void* stream) {
   const BackArgs a{static_cast<const float*>(amp), static_cast<const float*>(dist),
                    static_cast<const float*>(g), 0.0f, scale, c, rate, 0.0f, nbins, soft != 0,
-                   static_cast<double*>(sums_partials), static_cast<const float*>(tris),
-                   static_cast<const float*>(unit)};
+                   static_cast<double*>(sums_partials), radius, static_cast<const float*>(unit)};
   return launch_backward<true>(origin, dir, record, nb, n, centers, m, a, g_origin, g_dir, g_amp,
                                g_dist, gc_partials, g_centers, sums,
                                static_cast<cudaStream_t>(stream));

@@ -171,7 +171,9 @@ def brute_hit(o, d, v0, e1, e2, t_min: float = T_MIN_EPS, t_max: float = T_MAX,
     if n_tris == 0 or n == 0:
         return (torch.full((n,), MISS, dtype=torch.float32, device=dev),
                 torch.full((n,), -1, dtype=torch.int32, device=dev))
-    tris = torch.cat([v0, e1, e2], dim=1).detach().contiguous()
+    # The kernel's layout: v0, e1, e2 each padded to a float4.
+    pad = torch.zeros((n_tris, 1), dtype=torch.float32, device=dev)
+    tris = torch.cat([v0, pad, e1, pad, e2, pad], dim=1).detach().contiguous()
     o, d = o.detach().contiguous(), d.detach().contiguous()
     if cull is not None:
         cull = cull.detach().to(device=dev, dtype=torch.float32).contiguous()

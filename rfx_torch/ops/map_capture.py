@@ -34,8 +34,10 @@ center (rfx/coverage.py:38-54) through the same record: on the card
 bounding-sphere cull, each pair's 80 tests shared by a warp), which also
 writes each capture's t beside the record (`t_first`, (R, N) f32),
 `rfx_ir_histogram_record_ico`, which bins the record with those t, and
-`rfx_map_capture_backward_ico` (the VJP of the selected face's closed-form
-t); on the CPU the same plain versions over `ico_hit_plain`.
+`rfx_map_capture_backward_ico` (each capture's face found again by a warp,
+then the VJP of the selected face's closed-form t); both kernels form the
+faces from the unit icosphere and the radius. On the CPU the same plain
+versions run over `ico_hit_plain`.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ from rfx_torch.ops.intersect import (
     dot3,
     sphere_t,
 )
-from rfx_torch.tracer import EnvSegments, icosphere_soa, icosphere_tris, unit_icosphere_tris
+from rfx_torch.tracer import EnvSegments, icosphere_soa, unit_icosphere_tris
 
 __all__ = ["MAP_CAPTURE_BACKWARD_ICO_KERNEL", "MAP_CAPTURE_BACKWARD_KERNEL",
            "MAP_CAPTURE_ICO_KERNEL", "MAP_CAPTURE_KERNEL", "NO_CAPTURE", "RX_MODES",
@@ -68,14 +70,14 @@ MAP_CAPTURE_BACKWARD_KERNEL = CudaKernel(
     [P, P, P, P, P, I, I, P, I, F, F, F, F, I, I, F, P, P, P, P, P, P, P, P, P, P],
 )
 # The icosphere receiver's entry points: the cull and the 80-face closest
-# hit of brute_hit.cuh in place of the analytic sphere; the capture pass
-# forms the faces from the unit icosphere and writes t_first beside the
-# record.
+# hit of brute_hit.cuh in place of the analytic sphere; both form the faces
+# from the unit icosphere and the radius, and the capture pass writes
+# t_first beside the record.
 MAP_CAPTURE_ICO_KERNEL = CudaKernel("map_capture.cu", "rfx_map_capture_ico",
                                     [P, P, P, P, I, I, P, I, F, P, P, P, P])
 MAP_CAPTURE_BACKWARD_ICO_KERNEL = CudaKernel(
     "map_capture.cu", "rfx_map_capture_backward_ico",
-    [P, P, P, P, P, I, I, P, I, F, F, F, I, I, P, P, P, P, P, P, P, P, P, P, P, P],
+    [P, P, P, P, P, I, I, P, I, F, F, F, F, I, I, P, P, P, P, P, P, P, P, P, P, P],
 )
 
 RX_MODES = ("analytic", "icosphere")
@@ -276,16 +278,6 @@ def map_record(segs: EnvSegments, centers: torch.Tensor, rx_radius,
     return (record, t) if t_first else record
 
 
-def _ico_tris(centers: torch.Tensor, rx_radius, tris) -> torch.Tensor:
-    """`tris`, or the (R, 80, 9) faces of the icospheres about `centers`."""
-    if tris is None:
-        tris = icosphere_tris(centers, float(rx_radius))
-    if tris.shape != (centers.shape[0], 80, 9) or tris.dtype != torch.float32:
-        raise ValueError(f"tris must be ({centers.shape[0]}, 80, 9) float32, got "
-                         f"{tuple(tris.shape)} {tris.dtype}")
-    return tris.detach().contiguous()
-
-
 def _g_at(g_row: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
     """g_row[bins] where 0 <= bins < nbins, else 0."""
     nbins = g_row.shape[0]
@@ -400,12 +392,12 @@ def map_capture_backward(segs: EnvSegments, centers: torch.Tensor, rx_radius, g:
                          record: torch.Tensor, *, scale: float, nbins: int,
                          light_speed_mps: float, sample_rate_hz: float, soft: bool,
                          centers_grad: bool = True, scalars_grad: bool = True,
-                         rx_mode: str = "analytic", tris: torch.Tensor | None = None):
+                         rx_mode: str = "analytic"):
     """The tuple of `map_capture_backward_plain`: that plain version on a CPU
     tensor (it finds the captures again), one call of
     `rfx_map_capture_backward` (or, for the icosphere,
-    `rfx_map_capture_backward_ico`, given the faces `tris` or computing them)
-    on a CUDA tensor, which reads where the captures are from `record`, the
+    `rfx_map_capture_backward_ico`) on a CUDA tensor, which reads where the
+    captures are from `record`, the
     forward's first-capture record of these segments and centers
     (`map_record`): each segment's sums over the receivers in ascending
     order, the same bits from run to run; the centers' gradient and the
@@ -459,9 +451,8 @@ def map_capture_backward(segs: EnvSegments, centers: torch.Tensor, rx_radius, g:
             MAP_CAPTURE_BACKWARD_KERNEL.launch(*head, float(r), float(scale), *rates, qd_floor,
                                                *tail)
         else:
-            tris = _ico_tris(centers, float(r), tris)
             unit = unit_icosphere_tris(dev).contiguous()
-            MAP_CAPTURE_BACKWARD_ICO_KERNEL.launch(*head, float(scale), *rates, tris.data_ptr(),
+            MAP_CAPTURE_BACKWARD_ICO_KERNEL.launch(*head, float(r), float(scale), *rates,
                                                    unit.data_ptr(), *tail)
     if not scalars_grad:
         return (*outs, g_c, None, None)
@@ -473,8 +464,8 @@ class _MapIRs(torch.autograd.Function):
     the gradient of the plain map engine in origin, direction, amplitude,
     distance, the centers, the scale and the radius (0-dim tensors; t_env
     and alive enter comparisons only). The forward keeps the segments, the
-    centers, the (R, N) first-capture record and, for the icosphere on the
-    card, the receivers' (R, 80, 9) faces; never an (R, B, N) tensor."""
+    centers and the (R, N) first-capture record; never an (R, B, N)
+    tensor."""
 
     @staticmethod
     def forward(ctx, origin, direction, t_env, amplitude, distance, alive, centers, scale, radius,
@@ -483,7 +474,6 @@ class _MapIRs(torch.autograd.Function):
         mode = kw["rx_mode"]
         on_card = origin.device.type == "cuda"
         ico_card = on_card and mode == "icosphere"
-        tris = icosphere_tris(centers.detach(), kw["radius"]).contiguous() if ico_card else None
         record, t_first = (map_record(segs, centers, kw["radius"], mode, t_first=True) if ico_card
                            else (map_record(segs, centers, kw["radius"], mode), None))
         hkw = dict(nbins=kw["nbins"], light_speed_mps=kw["light_speed_mps"],
@@ -496,7 +486,6 @@ class _MapIRs(torch.autograd.Function):
             irs = histogram_record_plain(record, segs, centers, kw["radius"], kw["scale"], **hkw)
         ctx.save_for_backward(origin, direction, t_env, amplitude, distance, alive, centers, record)
         ctx.kw = kw
-        ctx.tris = tris
         ctx.scalars = scale, radius
         return irs
 
@@ -508,8 +497,6 @@ class _MapIRs(torch.autograd.Function):
             return (None,) * 10
         kw = dict(ctx.kw)
         radius = kw.pop("radius")
-        if ctx.tris is not None:
-            kw["tris"] = ctx.tris
         g_o, g_d, g_a, g_dist, g_c, g_scale, g_radius = map_capture_backward(
             EnvSegments(*planes), centers, radius, g, record, centers_grad=need[6],
             scalars_grad=need[7] or need[8], **kw)

@@ -2,7 +2,7 @@
 """Time the port's hand-written kernels at the shapes of their main paths on
 one NVIDIA GPU, and hold them against another checkout's kernels.
 
-    python3 scripts/torch_bench_kernels.py [--other DIR] [--only k3,kf,kpb,kfb,ks,ksb,ksi,khi]
+    python3 scripts/torch_bench_kernels.py [--other DIR] [--only k3,kf,ks,ksb,ksi,khi,kb,ksbi]
                                            [--reps N]
                                            [--out build/bench_kernels.json]
 
@@ -71,7 +71,20 @@ events, the mean of `--reps` calls after one warm-up):
   time, which the profiler drops for these ctypes launches) and its bound
   (`ico_capture_bound`, `ico_entry_bound`); a checkout whose K-S/ico reads
   the receivers' faces is given them (`icosphere_tris`), and its record
-  entry computes t again. A checkout without the icosphere skips them.
+  entry computes t again. A checkout without the icosphere skips them;
+- the brute closest hit (`kb`), `intersect.brute_hit` on chip_smoke.py
+  phase 17's two shapes (`brute_request_inputs`: the icosphere request's
+  5,242,880 rays from tx against the receiver's 80 faces with its cull;
+  `brute_env_inputs`: the room sweep's 2,097,152 queries against its 12
+  faces, no cull), each with `queued_ms` and chip_smoke.py's bound;
+- the icosphere's backward (`ksbi`), `map_capture_backward(rx_mode=
+  "icosphere")` (B11/ico) on phase 17's room segments and its 64
+  value+grad receivers (`ico_grad_receivers`, `ico_backward_inputs`: K-S/ico's
+  record, the seeded cotangent, soft), the segments' gradients alone and
+  with the centers', scale's and radius's, each with `queued_ms`, the
+  digests of all seven outputs and the bound (`ico_backward_bound`); a
+  checkout whose backward takes the receivers' faces is given them
+  (`icosphere_tris`), made once outside the timed calls.
 
 `--other DIR` runs every row in a child process on the checkout in DIR
 (another commit of this repository, unpacked there), before and after this
@@ -83,8 +96,9 @@ where finite (a checkout without
 the kernels times its host loops under the same names), and every row's
 digest of its outputs (`digest_equal_other`: K-P's dBm and signal, K-F's
 dBm, ratio and spread, K3's IRs, K1's four outputs, the map engine's IRs
-and its backward's segment gradients, the icosphere's record and IRs, which
-must be bit_identical). Prints one JSON object
+and its backward's segment gradients, the icosphere's record and IRs, K-B's
+t and face and B11/ico's seven outputs, which must be bit_identical). Prints
+one JSON object
 and writes the whole record to `--out`; `card` is nvidia-smi's name and
 power limit.
 """
@@ -158,7 +172,7 @@ class Workloads:
             _, grid, _, scaled = smoke.coverage_workload(cov_meshes[name], tx, zs, cov_dirs, dev)
             self.cov[name] = (scaled, torch.as_tensor(grid, device=dev))
         self._solver = None
-        self._ico = None
+        self._ico = self._ico_room = None
         torch.cuda.synchronize()
 
     def solver(self):
@@ -554,14 +568,21 @@ def run_ksb(w: Workloads, reps: int, keep: dict) -> dict:
 
 def _ico_inputs(w: Workloads) -> dict:
     """{scene: (segments, the first 64 receivers)} of phase 17's icosphere
-    sweeps (chip_smoke.icosphere_workload), built once."""
+    sweeps (chip_smoke.icosphere_workload), built once; `w._ico_room` keeps
+    the room's scene and its (2,048, 3) receiver grid on the card."""
+    import torch
+
     from rfx_torch.geometry import make_room
 
     if w._ico is None:
         dirs = smoke.icosphere_dirs(w.dev)
         meshes = {"room": make_room(), "terrain": w.meshes["bench"]}
-        w._ico = {name: smoke.icosphere_workload(meshes[name], tx, zs, dirs, w.dev)[2:]
-                  for name, tx, zs in smoke.COV_SCENES}
+        w._ico = {}
+        for name, tx, zs in smoke.COV_SCENES:
+            tracer, grid, segs, few = smoke.icosphere_workload(meshes[name], tx, zs, dirs, w.dev)
+            w._ico[name] = (segs, few)
+            if name == "room":
+                w._ico_room = (tracer.scene, torch.as_tensor(grid, device=w.dev))
     return w._ico
 
 
@@ -640,7 +661,64 @@ def run_khi(w: Workloads, reps: int, keep: dict) -> dict:
     return out
 
 
-ROWS = ("k1", "k2", "k3", "kh", "kp", "kf", "kpb", "kfb", "ks", "ksb", "ksi", "khi")
+def run_kb(w: Workloads, reps: int, keep: dict) -> dict:
+    from rfx_torch.ops import intersect
+
+    if not hasattr(intersect, "BRUTE_HIT_KERNEL"):
+        return {}
+    room_segs = _ico_inputs(w)["room"][0]
+    cases = {"request": smoke.brute_request_inputs(w.dirs),
+             "room_env": smoke.brute_env_inputs(w._ico_room[0], room_segs)}
+    out = {}
+    for name, (o, d, v0, e1, e2, cull) in cases.items():
+        def call(o=o, d=d, v0=v0, e1=e1, e2=e2, cull=cull):
+            return intersect.brute_hit(o, d, v0, e1, e2, cull=cull)
+
+        t, face = call()
+        keep[f"kb_{name}_t"], keep[f"kb_{name}_face"] = t.cpu(), face.cpu()
+        n = int(o.shape[0])
+        passes = n if cull is None else int(intersect.cull_pass(o, d, cull).sum())
+        out[name] = {"ms": _ms(call, reps)[1], "queued_ms": smoke.queued_ms(call, 20),
+                     "digest": _digest([t, face]), "queries": n, "faces": int(v0.shape[0]),
+                     "cull_passes": passes, "hits": int((face >= 0).sum()),
+                     "bound": smoke._brute_bound(n, passes, int(v0.shape[0]), cull is not None)}
+    return out
+
+
+def run_ksbi(w: Workloads, reps: int, keep: dict) -> dict:
+    import inspect
+
+    from rfx_torch.ops import map_capture as mc
+    from rfx_torch.tracer import icosphere_tris
+
+    if not hasattr(mc, "MAP_CAPTURE_BACKWARD_ICO_KERNEL"):
+        return {}
+    segs = _ico_inputs(w)["room"][0]
+    few = smoke.ico_grad_receivers(w._ico_room[1])
+    record, g, bkw = smoke.ico_backward_inputs(segs, few)
+    if "tris" in inspect.signature(mc.map_capture_backward).parameters:
+        bkw["tris"] = icosphere_tris(few, smoke.COV_RADIUS).contiguous()
+
+    def call(full):
+        return lambda: mc.map_capture_backward(segs, few, smoke.COV_RADIUS, g, record,
+                                               centers_grad=full, scalars_grad=full, **bkw)
+
+    captured = int((record != mc.NO_CAPTURE).sum())
+    out = {"captured": captured,
+           "bound": smoke.ico_backward_bound(segs.t_env.numel(), captured)}
+    names = ("origin", "direction", "amplitude", "distance", "centers", "scale", "radius")
+    for tag, full in (("segments", False), ("all", True)):
+        got, ms = _ms_held(call(full), reps)
+        outs = got if full else got[:4]
+        for name, t in zip(names, outs):
+            keep[f"ksbi_{tag}_{name}"] = t.reshape(-1).cpu()
+        out[tag] = {"ms": ms, "queued_ms": smoke.queued_ms(call(full), 20),
+                    "digest": _digest(outs)}
+    return out
+
+
+ROWS = ("k1", "k2", "k3", "kh", "kp", "kf", "kpb", "kfb", "ks", "ksb", "ksi", "khi", "kb", "ksbi")
+KS_ROWS = ("ks", "ksb", "ksi", "khi", "kb", "ksbi")  # printed whole
 
 
 def _run_all(w: Workloads, reps: int, keep: dict, only=ROWS) -> dict:
@@ -651,7 +729,8 @@ def _run_all(w: Workloads, reps: int, keep: dict, only=ROWS) -> dict:
             "kp": lambda: run_kp(w, reps, keep), "kf": lambda: run_kf(w, reps, keep),
             "kpb": lambda: run_kpb(w, reps, keep), "kfb": lambda: run_kfb(w, reps, keep),
             "ks": lambda: run_ks(w, reps, keep), "ksb": lambda: run_ksb(w, reps, keep),
-            "ksi": lambda: run_ksi(w, reps, keep), "khi": lambda: run_khi(w, reps, keep)}
+            "ksi": lambda: run_ksi(w, reps, keep), "khi": lambda: run_khi(w, reps, keep),
+            "kb": lambda: run_kb(w, reps, keep), "ksbi": lambda: run_ksbi(w, reps, keep)}
     only = set(only) | ({"k3"} if {"kp", "kpb"} & set(only) else set())
     return {row: runs[row]() for row in ROWS if row in only}
 
@@ -690,7 +769,7 @@ def _compare(mine: dict, other: dict) -> dict:
     out = {}
     for key, theirs in other.items():
         ours = mine[key]
-        if key.startswith(("ksi_", "khi_")):  # the icosphere's record and IRs: the same bits
+        if key.startswith(("ksi_", "khi_", "kb_", "ksbi_")):  # the same bits
             out[key] = {"bit_identical": bool(torch.equal(ours, theirs))}
         elif key.startswith("k1_"):
             out[key] = {name: bool(torch.equal(a, b)) for name, a, b in zip(
@@ -769,6 +848,11 @@ def main(argv=None) -> int:
             for tag in ("hard", "soft"):
                 same[f"khi_{scene}_{tag}"] = v[tag]["digest"] == theirs.get("khi", {}).get(
                     scene, {}).get(tag, {}).get("digest")
+        for row, tags in (("kb", ("request", "room_env")), ("ksbi", ("segments", "all"))):
+            for tag in tags:
+                if tag in mine.get(row, {}):
+                    same[f"{row}_{tag}"] = mine[row][tag]["digest"] == theirs.get(row, {}).get(
+                        tag, {}).get("digest")
         return same
 
     print(json.dumps({"card": card, "here": brief(out["here"]), "kh": kh(out["here"]),
@@ -784,11 +868,9 @@ def main(argv=None) -> int:
                       "kp_kf": {k: {s: {f: v for f, v in t.items() if f != "digest"}
                                     for s, t in out["here"].get(k, {}).items()}
                                 for k in ("kp", "kf", "kpb", "kfb")},
-                      "ks": {k: out["here"].get(k) for k in ("ks", "ksb", "ksi", "khi")},
-                      "ks_other_first": {k: out.get("other_first", {}).get(k)
-                                         for k in ("ks", "ksb", "ksi", "khi")},
-                      "ks_other_last": {k: out.get("other_last", {}).get(k)
-                                        for k in ("ks", "ksb", "ksi", "khi")},
+                      "ks": {k: out["here"].get(k) for k in KS_ROWS},
+                      "ks_other_first": {k: out.get("other_first", {}).get(k) for k in KS_ROWS},
+                      "ks_other_last": {k: out.get("other_last", {}).get(k) for k in KS_ROWS},
                       "other_first": brief(out.get("other_first", {})),
                       "other_last": brief(out.get("other_last", {})),
                       "vs_other": out.get("here_vs_other"), "seconds": out["seconds"]}))

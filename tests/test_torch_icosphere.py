@@ -9,7 +9,13 @@ numpy seed, 2 bounces) and five receivers of radius 2; rfx is called
 receiver by receiver and eagerly, as tests/test_torch_map_capture.py does
 for the analytic receiver. The cull's predicate (intersect.cull_pass, the
 kernel's expressions in torch) is held by hypothesis against the plain
-80-face test over grazing rays from 1.5 to 10^4 radii away."""
+80-face test over grazing rays from 1.5 to 10^4 radii away, and so is the
+brute closest hit's warp vote after u (`vote_pass`) against the plain
+test's hits. A torch twin of the icosphere backward's warp search
+(brute_hit.cuh: warp_ico_hit) is held against the plain closest hit's face
+on rays whose faces tie."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -41,7 +47,7 @@ from rfx_torch.tracer import (
     trace_to_rx,
     unit_icosphere_tris,
 )
-from tests.test_torch_kernels import _ico_tie_segments
+from tests.test_torch_kernels import _ico_tie_segments, vote_pass
 
 torch.set_num_threads(1)
 
@@ -170,6 +176,174 @@ def test_card_tie_inputs_tie_in_the_plain_version():
         assert torch.equal(face[tie].long(), at_best.int().argmax(dim=1)[tie]), k
         ties += int(tie.sum())
     assert ties > 1000
+
+
+def warp_ico_hit_twin(per_face: torch.Tensor, g: int = 32):
+    """(t, face) of rows of 80 per-face t (MISS where a test finds no hit),
+    reduced as brute_hit.cuh's warp_ico_hit reduces one asking lane's row in
+    its group of g lanes (g = 32 where one lane of the warp asks, down to 1
+    where more than 16 do): lane s keeps the first smallest t of faces s, s +
+    g, ... in ascending order (strict <; face 80 where it has none), then
+    butterfly steps, lane s against lane s ^ off for off = g / 2, ..., 1,
+    keep the lexicographic minimum of (t, face). Every lane of the group ends
+    with the same pair; face -1 where t is a miss."""
+    rows = per_face.shape[0]
+    best = torch.full((rows, g), intersect.MISS, dtype=per_face.dtype)
+    at = torch.full((rows, g), 80, dtype=torch.int64)
+    lanes = torch.arange(g)
+    for f0 in range(0, 80, g):
+        f = lanes + f0
+        t = per_face[:, f.clamp_max(79)]
+        take = (f < 80) & (t < best)
+        best, at = torch.where(take, t, best), torch.where(take, f, at)
+    off = g // 2
+    while off > 0:
+        t, f = best[:, lanes ^ off], at[:, lanes ^ off]
+        take = (t < best) | ((t == best) & (f < at))
+        best, at = torch.where(take, t, best), torch.where(take, f, at)
+        off //= 2
+    assert bool((best == best[:, :1]).all()) and bool((at == at[:, :1]).all())
+    return best[:, 0], torch.where(intersect.is_hit(best[:, 0]), at[:, 0], -1).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=1)
+def _tie_rays_per_face():
+    """(per-face t (rows, 80), the plain closest hit's (t, face)) of the card
+    test's rays through the receivers' vertices and edge midpoints
+    (`_ico_tie_segments`, its first case), receiver by receiver."""
+    segs, centers, aim = _ico_tie_segments(12_345, 10, 37, 0.5, seed=12_345)
+    o, d, aim = segs.origin.reshape(-1, 3), segs.direction.reshape(-1, 3), aim.reshape(-1)
+    per_face, want_t, want_face = [], [], []
+    for k in range(centers.shape[0]):
+        sel = (aim == k).nonzero().squeeze(1)
+        v0, e1, e2 = icosphere_soa(centers[k], 0.5)
+        per_face.append(torch.stack([intersect._mt_chunk(
+            o[sel], d[sel], v0[f:f + 1], e1[f:f + 1], e2[f:f + 1], intersect.T_MIN_EPS,
+            intersect.T_MAX)[0] for f in range(80)], 1))
+        t, face = intersect._brute_forward(o[sel], d[sel], v0, e1, e2, intersect.T_MIN_EPS,
+                                           intersect.T_MAX, None)
+        want_t.append(t)
+        want_face.append(face)
+    return torch.cat(per_face), torch.cat(want_t), torch.cat(want_face)
+
+
+@pytest.mark.parametrize("g", [32, 16, 8, 4, 2, 1])
+@pytest.mark.parametrize("rows", ["tie_rays", "drawn"])
+def test_warp_ico_hit_twin_takes_the_lowest_tied_face(rows, g):
+    """The backward's warp search (warp_ico_hit, in torch: a group of g
+    lanes for one asking lane, the lane split and the lexicographic (t,
+    face) butterfly) gives the plain closest hit's t and face for every
+    group size: on the card test's rays through the icosphere's vertices and
+    edge midpoints, where faces on different lanes tie (the plain version's
+    `_mt_chunk` argmin, which takes the lowest tied face), and on rows of t
+    drawn from four values and the miss, where most rows tie across lanes
+    and some miss everywhere (torch.argmin's first index)."""
+    if rows == "tie_rays":
+        per_face, want_t, want_face = _tie_rays_per_face()
+    else:
+        rng = np.random.default_rng(17)
+        per_face = torch.from_numpy(rng.choice(
+            np.float32([1.5, 2.0, 2.0 + 2**-22, 3.0, intersect.MISS]), size=(20_000, 80),
+            p=[0.01, 0.01, 0.01, 0.02, 0.95]))
+        per_face[:100] = intersect.MISS
+        want_t = per_face.min(dim=1).values
+        want_face = torch.where(intersect.is_hit(want_t), per_face.argmin(dim=1), -1).int()
+    t, face = warp_ico_hit_twin(per_face, g)
+    assert torch.equal(t, want_t) and torch.equal(face, want_face)
+    at_best = per_face == want_t[:, None]
+    lane_of = torch.arange(80) % max(g, 2)
+    tie = intersect.is_hit(want_t) & (at_best.sum(dim=1) >= 2)
+    # ties between faces that different lanes test, the butterfly's case
+    across = tie & ((at_best & (lane_of != lane_of[face.clamp_min(0).long()][:, None])).any(dim=1))
+    assert int(across.sum()) > 100
+    if rows == "drawn":
+        assert int((face == -1).sum()) >= 100
+
+
+def test_warp_ico_hit_groups_serve_each_asking_lane():
+    """warp_ico_hit's split of the warp, written in Python as the kernel
+    computes it (brute_hit.cuh): for every count k of asking lanes and
+    random masks of them, g = 32 >> ceil(log2 k) and g k <= 32; the lanes
+    of group c (lane >> (5 - shift)) take the ray of the c-th asking lane,
+    and each asking lane reads its result from lane g * (its rank among the
+    asking lanes), the first of the group that tested its ray, so every
+    asking lane gets its own ray's search and no two share a group."""
+    rng = np.random.default_rng(4)
+    for k in range(1, 33):
+        for _ in range(20):
+            asking = int(sum(1 << int(b) for b in rng.choice(32, size=k, replace=False)))
+            shift = (k - 1).bit_length()  # 32 - __clz(k - 1) for k > 1, else 0
+            g = 32 >> shift
+            assert g * k <= 32 < 2 * g * k  # the largest such power of two
+            src = []
+            for lane in range(32):
+                group, rest = lane >> (5 - shift), asking
+                for _j in range(group):
+                    if rest == 0:
+                        break
+                    rest &= rest - 1
+                src.append((rest & -rest).bit_length() - 1 if rest else lane)
+                assert (group < k) == (rest != 0)
+            for lane in range(32):
+                if asking >> lane & 1:
+                    first = g * bin(asking & ((1 << lane) - 1)).count("1")
+                    assert all(src[x] == lane for x in range(first, first + g))
+
+
+def _vote_pairs(seed: int, kind: str, scale: float, rays: int = 256, tris: int = 16):
+    """(o, d) (rays, 3) and (v0, e1, e2) (tris, 3) in f32, made with numpy
+    from `seed`: ray i aimed at a point a e1 + b e2 off v0 of triangle i %
+    tris. `random`: (a, b) in [-0.5, 1.5]; `edges`: on a vertex, an edge or
+    the line u + v = 1, where the rounded u falls on 0 or 1; `grazing`: rays
+    nearly in the triangle's plane (|det| near 1e-12 and below); `degenerate`:
+    slivers and zero triangles (e2 a multiple of e1, e1 = 0) and tiny ones.
+    `scale` sizes the scene."""
+    g = np.random.default_rng(seed)
+    v0 = g.uniform(-1.0, 1.0, size=(tris, 3)) * scale
+    e1 = g.uniform(-1.0, 1.0, size=(tris, 3)) * scale
+    e2 = g.uniform(-1.0, 1.0, size=(tris, 3)) * scale
+    if kind == "degenerate":
+        e2 = np.where(g.random((tris, 1)) < 0.5, e1 * g.choice([0.0, 1.0, -2.0, 1e-7], (tris, 1)),
+                      e2 * 1e-6)
+        e1[::4] = 0.0
+    j = np.arange(rays) % tris
+    ab = g.uniform(-0.5, 1.5, size=(rays, 2))
+    if kind == "edges":
+        pick = g.integers(0, 4, rays)
+        a = g.random(rays)
+        ab = np.stack([np.choose(pick, [a, np.zeros(rays), a, np.ones(rays)]),
+                       np.choose(pick, [np.zeros(rays), a, 1.0 - a, np.zeros(rays)])], 1)
+    p = v0[j] + ab[:, :1] * e1[j] + ab[:, 1:] * e2[j]
+    d = g.normal(size=(rays, 3))
+    if kind == "grazing":
+        n = np.cross(e1[j], e2[j])
+        n /= np.linalg.norm(n, axis=1, keepdims=True)
+        d -= (d * n).sum(1, keepdims=True) * n
+        d += n * g.choice([0.0, 1e-9, 1e-6, 1e-3], size=(rays, 1))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = p - d * g.uniform(1e-3, 10.0, size=(rays, 1)) * scale
+    as32 = lambda x: torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))  # noqa: E731
+    return as32(o), as32(d), as32(v0), as32(e1), as32(e2)
+
+
+@settings(max_examples=60, deadline=None, derandomize=True, database=None)
+@given(seed=st.integers(0, 2**31 - 1),
+       kind=st.sampled_from(["random", "edges", "grazing", "degenerate"]),
+       log_scale=st.floats(-3.0, 3.0))
+def test_brute_vote_never_skips_an_accepted_pair(seed, kind, log_scale):
+    """K-B's warp vote after u (brute_hit.cu: a warp skips the rest of a
+    face's test where no testing lane has |det| > 1e-12 and 0 <= u <= 1),
+    written in the kernel's f32 expressions (`vote_pass`), is True for
+    every (ray, triangle) pair that the plain test (`_mt_chunk`, one
+    triangle at a time) accepts: on random, edge-aimed, grazing and
+    degenerate pairs at scales 10^-3 to 10^3. So the skip drops no hit."""
+    o, d, v0, e1, e2 = _vote_pairs(seed, kind, 10.0 ** log_scale)
+    may = vote_pass(o, d, v0, e1, e2)
+    accepted = torch.stack([intersect._mt_chunk(o, d, v0[k:k + 1], e1[k:k + 1], e2[k:k + 1],
+                                                intersect.T_MIN_EPS, intersect.T_MAX)[1] >= 0
+                            for k in range(v0.shape[0])], 1)
+    assert not bool((accepted & ~may).any()), f"{int((accepted & ~may).sum())} hits skipped"
+    assert not bool(may.all())
 
 
 def test_brute_hit_cpu_is_the_plain_version():

@@ -1414,19 +1414,81 @@ def _brute_rays(cuda, n, center, radius, seed):
     return as_card(o), as_card(d)
 
 
+def vote_pass(o, d, v0, e1, e2):
+    """(N, T) bool: K-B's warp vote after u for rays (N, 3) against
+    triangles (T, 3) in brute_hit.cuh's f32 expressions and order (mt_head,
+    mt_may_hit): |det| > 1e-12, u >= 0 and u <= 1. Where it is False the
+    test cannot accept: a warp none of whose testing lanes pass skips the
+    rest of that face's test."""
+    o, d = o[:, None, :], d[:, None, :]
+    v0, e1, e2 = v0[None], e1[None], e2[None]
+    px = d[..., 1] * e2[..., 2] - d[..., 2] * e2[..., 1]
+    py = d[..., 2] * e2[..., 0] - d[..., 0] * e2[..., 2]
+    pz = d[..., 0] * e2[..., 1] - d[..., 1] * e2[..., 0]
+    det = e1[..., 0] * px + e1[..., 1] * py + e1[..., 2] * pz
+    valid = det.abs() > 1e-12
+    inv = torch.where(valid, 1.0 / torch.where(valid, det, torch.ones_like(det)),
+                      torch.zeros_like(det))
+    t = o - v0
+    u = (t[..., 0] * px + t[..., 1] * py + t[..., 2] * pz) * inv
+    return valid & (u >= 0.0) & (u <= 1.0)
+
+
+def _brute_warp_rays(cuda, n, v0, e1, e2, center, seed):
+    """n rays in warps of 32 aimed alike: warp k at one point of face k %
+    T (barycentric (a, b) drawn from [-0.3, 1.3], so that lanes fall on
+    both sides of the face's edges) from 1.5 to 20 units away, each lane
+    jittered by 2% of the face; every fifth warp aimed 10 units off
+    `center` (beside the cull's ball); rays [n // 2, n // 2 + 1024) parked
+    at 1e9. So whole warps fail the vote after u for most faces, and some
+    warps split on it; n not a multiple of 32 leaves a ragged last warp.
+    Returns (o, d, the parked slice)."""
+    g = np.random.default_rng(seed)
+    v0, e1, e2 = (x.cpu().numpy().astype(np.float64) for x in (v0, e1, e2))
+    warps = -(-n // 32)
+    f = np.arange(warps) % v0.shape[0]
+    ab = g.uniform(-0.3, 1.3, size=(warps, 2))
+    aim = v0[f] + ab[:, :1] * e1[f] + ab[:, 1:] * e2[f]
+    aim = np.where((np.arange(warps) % 5 == 4)[:, None], center + 10.0, aim)
+    src = aim + g.normal(size=(warps, 3)) * g.uniform(1.5, 20.0, size=(warps, 1))
+    lane_ab = ab[:, None, :] + 0.02 * g.normal(size=(warps, 32, 2))
+    pts = (v0[f][:, None] + lane_ab[..., :1] * e1[f][:, None] + lane_ab[..., 1:] * e2[f][:, None])
+    pts = np.where((np.arange(warps) % 5 == 4)[:, None, None], aim[:, None], pts)
+    o = np.repeat(src, 32, axis=0)[:n]
+    d = (pts.reshape(-1, 3)[:n] - o)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    parked = slice(n // 2, n // 2 + 1024)
+    o[parked] = 1e9
+    as_card = lambda x: torch.from_numpy(x.astype(np.float32)).to(cuda)  # noqa: E731
+    return as_card(o), as_card(d), parked
+
+
+@pytest.mark.parametrize("aim", ["scattered", "warps"])
 @pytest.mark.parametrize("cull", [False, True], ids=["all", "cull"])
 @pytest.mark.parametrize("n_tris", [1, 12, 80, 257, 2048])
-def test_brute_hit_kernel_matches_plain(cuda, n_tris, cull):
+def test_brute_hit_kernel_matches_plain(cuda, n_tris, cull, aim):
     """K-B against `_brute_forward` on the card, t and face torch.equal:
     random meshes of 1, 12, 80, 257 (two tiles, the last of one face) and
     2,048 faces whose second half repeats the first (ties go to the lower
-    face), 100,003 rays (ragged against a block) and 1,024 parked rays; with
-    the cull, every vertex inside the cull's ball. Two runs the same bits;
-    one launch a call."""
+    face), 100,003 rays (ragged against a block and a warp) and 1,024
+    parked rays; with the cull, every vertex inside the cull's ball.
+    `scattered`: rays from all sides within two radii of the mesh; `warps`:
+    each warp's rays aimed alike (`_brute_warp_rays`), so that whole warps
+    skip a face after the vote on u (`vote_pass`, counted on the first
+    8,192 rays) and others split on it. Two runs the same bits; one launch a
+    call."""
     center, radius = np.array([1.0, -2.0, 3.0]), 1.5
     v0, e1, e2 = (x.to(cuda) for x in _tie_mesh(n_tris, n_tris, (center, radius) if cull else None))
-    o, d = _brute_rays(cuda, 100_003, center if cull else np.zeros(3), radius if cull else 3.0,
-                       seed=n_tris)
+    n = 100_003
+    if aim == "scattered":
+        o, d = _brute_rays(cuda, n, center if cull else np.zeros(3), radius if cull else 3.0,
+                           seed=n_tris)
+        parked = slice(n - 1024, n)
+    else:
+        o, d, parked = _brute_warp_rays(cuda, n, v0, e1, e2, center, seed=n_tris)
+        votes = vote_pass(o[:8192], d[:8192], v0, e1, e2).reshape(256, 32, -1)
+        some = votes.any(dim=1)
+        assert int((~some).sum()) > 0 and int((some & ~votes.all(dim=1)).sum()) > 0
     c = torch.tensor([*center, radius], dtype=torch.float32, device=cuda) if cull else None
     before = intersect.BRUTE_HIT_KERNEL.launches
     k1 = intersect.brute_hit(o, d, v0, e1, e2, cull=c)
@@ -1436,7 +1498,7 @@ def test_brute_hit_kernel_matches_plain(cuda, n_tris, cull):
     torch.cuda.synchronize()
     for a, b, w in zip(k1, k2, p):
         assert torch.equal(a, b) and torch.equal(a, w)
-    assert int((k1[1] >= 0).sum()) > 100 and bool((k1[1][-1024:] == -1).all())
+    assert int((k1[1] >= 0).sum()) > 100 and bool((k1[1][parked] == -1).all())
     if n_tris > 1:
         assert int(k1[1].max()) < (n_tris + 1) // 2  # ties to the lower copy
     if cull:
@@ -1641,6 +1703,47 @@ def test_map_capture_ico_ties_and_long_rows(cuda, n, bounces, m):
         assert torch.equal(k1, k2) and torch.equal(k1, want), soft
         torch.testing.assert_close(k1, plain, rtol=1e-5, atol=1e-12)
         assert int((k1 != 0).any(dim=1).sum()) > m // 2
+
+
+@pytest.mark.parametrize("n, bounces, m", [(12_345, 10, 37), (16_384, 3, 71)],
+                         ids=["ragged-37rx-10b", "aligned-71rx-3b"])
+def test_map_capture_backward_ico_ties_match_plain(cuda, n, bounces, m):
+    """B11/ico on `_ico_tie_segments` (rays through the receivers' vertices
+    and edge midpoints), soft: at many captures two or more faces give the
+    capture's t bit for bit, often faces that different lanes of the warp
+    test (f and f' not equal mod 32), and the VJP of the next tied face
+    differs from the lowest's; the segments' gradients equal the plain
+    version's bit for bit (it takes the lowest tied face, torch.argmin's),
+    the centers', scale's and radius's within rtol 1e-5; two runs the same
+    bits (`_assert_map_backward`)."""
+    segs_cpu, centers_cpu, _ = _ico_tie_segments(n, bounces, m, 0.5, seed=n + 1)
+    segs = EnvSegments(*(t.to(cuda) for t in segs_cpu))
+    centers = centers_cpu.to(cuda)
+    record = map_capture.map_record(segs, centers, 0.5, "icosphere")
+    k, i = (record != map_capture.NO_CAPTURE).nonzero(as_tuple=True)
+    bb = record[k, i].long()
+    o, d = segs.origin[bb, i], segs.direction[bb, i]
+    tied = across = differs = 0
+    for r in range(m):
+        sel = (k == r).nonzero().squeeze(1)
+        v0, e1, e2 = tracer.icosphere_soa(centers[r], 0.5)
+        per_face = torch.stack([intersect._mt_chunk(o[sel], d[sel], v0[f:f + 1], e1[f:f + 1],
+                                                    e2[f:f + 1], intersect.T_MIN_EPS,
+                                                    intersect.T_MAX)[0] for f in range(80)], 1)
+        at_best = per_face == per_face.min(dim=1).values[:, None]
+        tie = at_best.sum(dim=1) >= 2
+        first = at_best.int().argmax(dim=1)
+        second = (at_best & (torch.arange(80, device=cuda) > first[:, None])).int().argmax(dim=1)
+        tied += int(tie.sum())
+        across += int((tie & (first % 32 != second % 32)).sum())
+        g = torch.ones(int(tie.sum()), device=cuda)
+        lo = intersect.closed_form_t_vjp(o[sel][tie], d[sel][tie], v0[first[tie]], e1[first[tie]],
+                                         e2[first[tie]], g)
+        hi = intersect.closed_form_t_vjp(o[sel][tie], d[sel][tie], v0[second[tie]],
+                                         e1[second[tie]], e2[second[tie]], g)
+        differs += int((lo[1] != hi[1]).any(dim=1).sum())
+    assert tied > 100 and across > 50 and differs > 50
+    _assert_map_backward(segs, centers, 0.5, True, seed=n, rx_mode="icosphere")
 
 
 def test_coverage_icosphere_on_card_takes_the_ico_kernels(cuda, monkeypatch):
