@@ -25,8 +25,6 @@ coverage, as rfx/api.py:222-244 does with its `pallas` backend.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -41,7 +39,7 @@ from rfx_torch.ops.bvh_trace import make_kernel_env_hit
 from rfx_torch.ops.fused import FusedTracer
 from rfx_torch.ops.intersect import make_env_intersector
 from rfx_torch.tracer import Scene, extract_paths, trace_to_rx
-from rfx_torch.utils.logging import get_logger, log_trace_stats
+from rfx_torch.utils.profiling import spanned, to_device, to_host
 
 __all__ = ["Tracer", "auto_backend"]
 
@@ -96,7 +94,6 @@ class Tracer:
         self.nbins = int(sample_window_s * sample_rate_hz)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        self.log = get_logger("rfx_torch.api")
 
         if backend == "auto":
             backend = auto_backend(environment.num_faces, self.device)
@@ -122,13 +119,14 @@ class Tracer:
         if directions is None:
             return sampler.sphere_directions(self.tx_num_rays, generator=self.generator,
                                              device=self.device)
-        return torch.as_tensor(directions, dtype=torch.float32, device=self.device)
+        return to_device("directions_to_device", directions, self.device)
 
     def _cir(self, result, tx_power) -> torch.Tensor:
         return cir_mod.cir_from_trace(
             result, tx_power=tx_power, num_rays=self.tx_num_rays, nbins=self.nbins,
             light_speed_mps=self.light_speed_mps, sample_rate_hz=self.sample_rate_hz)
 
+    @spanned("rfx.api.compute_cir")
     def compute_cir(self, tx_pos, tx_power, rx_pos, rx_radius, *, directions=None,
                     record_paths="auto", max_paths: int = 10_000):
         """(paths, impulse_response) with the reference's semantics (ref
@@ -140,7 +138,6 @@ class Tracer:
         The fused kernel answers only the analytic receiver without recorded
         paths; everything else runs the scan tracer on this tracer's
         `env_hit`."""
-        t0 = time.perf_counter()
         dirs = self._directions(directions)
         if record_paths == "auto":
             record_paths = dirs.shape[0] <= self.AUTO_PATHS_MAX_RAYS
@@ -151,14 +148,12 @@ class Tracer:
                                  max_bounces=self.max_bounces, n1=self.n1, n2=self.n2,
                                  rx_mode=self.rx_mode, env_hit=self.env_hit,
                                  record_paths=bool(record_paths))
-        ir = self._cir(result, tx_power).cpu().numpy()
-        log_trace_stats(self.log, n_rays=int(dirs.shape[0]), bounces=self.max_bounces,
-                        captured=int(result.captured.sum()),
-                        seconds=time.perf_counter() - t0)
+        ir = to_host("ir_to_host", self._cir(result, tx_power)).numpy()
         paths = (extract_paths(np.asarray(tx_pos, np.float32), result, max_paths)
                  if record_paths else [])
         return paths, ir
 
+    @spanned("rfx.api.compute_coverage")
     def compute_coverage(self, tx_pos, tx_power, rx_centers, rx_radius, *, directions=None,
                          rx_batch: int = 64):
         """(M, nbins) numpy impulse responses for M receivers from one env
@@ -178,7 +173,7 @@ class Tracer:
             nbins=self.nbins, num_rays=self.tx_num_rays, light_speed_mps=self.light_speed_mps,
             sample_rate_hz=self.sample_rate_hz, tx_power=tx_power, n1=self.n1, n2=self.n2,
             rx_batch=rx_batch, env_hit=self.env_hit, rx_mode=self.rx_mode)
-        return irs.cpu().numpy()
+        return to_host("irs_to_host", irs).numpy()
 
     def _coverage_kw(self, tx_power, carrier_hz, rx_batch) -> dict:
         return dict(max_bounces=self.max_bounces, num_rays=self.tx_num_rays,
@@ -213,8 +208,9 @@ class Tracer:
             **self._coverage_kw(tx_power, carrier_hz, rx_batch))
         return dbm.cpu().numpy(), n_flagged
 
+    @spanned("rfx.api.rx_power_dbm")
     def rx_power_dbm(self, impulse_response, carrier_hz: float = 2.4e9):
         """Reference RX-power metric (ref main.py:46-55), as numpy."""
-        ir = torch.as_tensor(impulse_response, dtype=torch.float32, device=self.device)
+        ir = to_device("ir_to_device", impulse_response, self.device)
         dbm, _ = cir_mod.rx_power_dbm(ir, self.sample_window_s, carrier_hz)
-        return dbm.cpu().numpy()
+        return to_host("dbm_to_host", dbm).numpy()

@@ -43,6 +43,7 @@ import math
 import torch
 
 from rfx_torch.ops._build import CudaKernel, F, I, P
+from rfx_torch.utils.profiling import spanned, to_device
 
 __all__ = ["bin_impulse_response", "carrier_cached", "cir_from_trace", "convolve_carrier_plain",
            "histogram_plain", "histogram_record", "histogram_rows", "mask_tiles", "phasor_metric",
@@ -333,6 +334,7 @@ class _Histogram(torch.autograd.Function):
                 None, None, None, None, None)
 
 
+@spanned("rfx.cir.histogram")
 def bin_impulse_response(amplitude, distance, captured, *, nbins: int, light_speed_mps: float,
                          sample_rate_hz: float, soft: bool = False) -> torch.Tensor:
     """Scatter per-path amplitudes into delay bins, differentiable in
@@ -358,7 +360,7 @@ def cir_from_trace(result, *, tx_power, num_rays: int, nbins: int, light_speed_m
     """TraceResult -> impulse response; a path's amplitude starts at
     tx_power / num_rays (f32) times its Fresnel product."""
     scale = torch.as_tensor(tx_power, dtype=torch.float32).cpu() / num_rays
-    amp = result.amplitude * scale.to(result.amplitude.device)
+    amp = result.amplitude * to_device("scale_to_device", scale, result.amplitude.device)
     return bin_impulse_response(amp, result.distance, result.captured, nbins=nbins,
                                 light_speed_mps=light_speed_mps,
                                 sample_rate_hz=sample_rate_hz, soft=soft)
@@ -373,9 +375,9 @@ def _carrier(nbins: int, sample_window_s: float, carrier_hz: float, device) -> t
     in f32 as rfx's compiled linspace rounds it: t_i = (window / (nbins-1))
     * i, the last sample = window (other groupings move about a quarter of
     the samples by an ulp, which the 2.4 GHz carrier turns into 2.4e-4)."""
-    stop = torch.tensor(sample_window_s, dtype=torch.float32, device=device)
+    stop = to_device("carrier_window_to_device", sample_window_s, device)
     if nbins > 1:
-        dt = stop / torch.tensor(nbins - 1, dtype=torch.float32, device=device)
+        dt = stop / to_device("carrier_steps_to_device", nbins - 1, device)
         t = torch.cat([dt * torch.arange(nbins - 1, dtype=torch.float32, device=device),
                        stop[None]])
     else:
@@ -663,6 +665,7 @@ class _RxPower(torch.autograd.Function):
         return rx_power_backward(g_dbm, g_out, out, sums, ctx.window, ctx.carrier_hz), None, None
 
 
+@spanned("rfx.cir.rx_power")
 def rx_power_dbm(impulse_response: torch.Tensor, sample_window_s: float,
                  carrier_hz: float = 2.4e9):
     """Reference RX-power metric (ref main.py:46-55): convolve the IR with a

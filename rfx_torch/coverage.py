@@ -49,6 +49,7 @@ from rfx_torch.ops.coverage_hist import coverage_hist, coverage_phasor, first_ca
 from rfx_torch.ops.intersect import ray_sphere_hit
 from rfx_torch.ops.map_capture import ico_hit_plain, map_irs
 from rfx_torch.tracer import EnvSegments, Scene, trace_env
+from rfx_torch.utils.profiling import to_device
 
 __all__ = ["make_grid", "coverage_irs", "coverage_dbm", "coverage_dbm_fast",
            "coverage_dbm_hybrid"]
@@ -82,10 +83,15 @@ def _first_capture(segs: EnvSegments, centers: torch.Tensor, rx_radius, rx_mode:
     return t_rx, first_captures(segs, t_rx)
 
 
-def _amp_scale(tx_power, num_rays: int, device) -> torch.Tensor:
+def _host_scale(tx_power, num_rays: int) -> torch.Tensor:
     """tx_power / num_rays as an f32 0-dim tensor, divided on the host (a
     CUDA division by a Python scalar multiplies by its reciprocal)."""
-    return (torch.as_tensor(tx_power, dtype=torch.float32).cpu() / num_rays).to(device)
+    return torch.as_tensor(tx_power, dtype=torch.float32).cpu() / num_rays
+
+
+def _amp_scale(tx_power, num_rays: int, device) -> torch.Tensor:
+    """`_host_scale` on `device`."""
+    return to_device("scale_to_device", _host_scale(tx_power, num_rays), device)
 
 
 def _resolve_engine(engine: str, *, soft: bool, rx_mode: str, device: torch.device) -> str:
@@ -110,7 +116,7 @@ def _irs_from_segments(segs: EnvSegments, rx_centers, rx_radius, *, nbins: int,
     receivers a call of `map_irs` (the map capture kernels on the card),
     either receiver."""
     dev = segs.t_env.device
-    centers = torch.as_tensor(rx_centers, dtype=torch.float32, device=dev).reshape(-1, 3)
+    centers = to_device("centers_to_device", rx_centers, dev).reshape(-1, 3)
     engine = _resolve_engine(engine, soft=soft, rx_mode=rx_mode, device=dev)
     if engine == "batched":
         scaled = segs._replace(amplitude=segs.amplitude * _amp_scale(tx_power, num_rays, dev))
@@ -120,7 +126,7 @@ def _irs_from_segments(segs: EnvSegments, rx_centers, rx_radius, *, nbins: int,
     hist_kw = dict(nbins=nbins, light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz,
                    soft=soft, rx_mode=rx_mode)
     # map_irs reads the scale on the host: kept there, it costs no wait.
-    scale = _amp_scale(tx_power, num_rays, torch.device("cpu"))
+    scale = _host_scale(tx_power, num_rays)
     irs = [map_irs(segs, centers[s:s + rx_batch], rx_radius, scale=scale, **hist_kw)
            for s in range(0, centers.shape[0], rx_batch)]
     if not irs:

@@ -43,6 +43,7 @@ from rfx_torch.ops.intersect import (
     is_hit,
     sanitized_t_vjp,
 )
+from rfx_torch.utils.profiling import spanned
 
 __all__ = ["CLOSEST_HIT_KERNEL", "CLOSEST_HIT_COUNTED_KERNEL", "closest_hit", "closest_hit_plain", "live_tri",
            "make_kernel_env_hit", "mt_block"]
@@ -270,9 +271,11 @@ def make_kernel_env_hit(bvh_or_mesh, *, differentiable_tris: bool = False, devic
         bvh = pack_bvh(resolve_flat_bvh(bvh_or_mesh, leaf_size=8), resolve_device(device))
 
     if differentiable_tris:
+        @spanned("rfx.ops.env_hit")
         def env_hit(o, d, v0, e1, e2, normals):
             return _KernelHitDiff.apply(o, d, v0, e1, e2, bvh)
     else:
+        @spanned("rfx.ops.env_hit")
         def env_hit(o, d, v0, e1, e2, normals):
             return _KernelHit.apply(o, d, bvh)
 

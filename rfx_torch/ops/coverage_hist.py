@@ -54,6 +54,7 @@ from rfx_torch.cir import _DB_PER_POWER, phasor_metric
 from rfx_torch.ops._build import CudaKernel, F, I, P
 from rfx_torch.ops.intersect import is_hit, sphere_t
 from rfx_torch.tracer import EnvSegments
+from rfx_torch.utils.profiling import spanned
 
 __all__ = ["COVERAGE_HIST_KERNEL", "COVERAGE_PHASOR_KERNEL", "COVERAGE_REDUCE_KERNEL",
            "COVERAGE_SPREAD_KERNEL", "PHASOR_BACKWARD_KERNEL", "PHASOR_TABLE_KERNEL", "PhasorWalk",
@@ -191,6 +192,7 @@ def _check_segments(segs: EnvSegments):
         raise ValueError("segments must lie on one device")
 
 
+@spanned("rfx.coverage.hist")
 def coverage_hist(segs: EnvSegments, rx_centers, rx_radius, *, nbins: int,
                   light_speed_mps: float, sample_rate_hz: float,
                   rx_batch: int = 64) -> torch.Tensor:

@@ -52,6 +52,7 @@ from rfx_torch.ops.intersect import (
     sphere_t,
 )
 from rfx_torch.tracer import TraceResult
+from rfx_torch.utils.profiling import spanned
 
 __all__ = ["FusedTracer", "make_fused_tracer", "fused_trace", "fused_trace_plain",
            "fused_trace_walk_plain", "replay_from_faces", "make_diff_fused_tracer",
@@ -217,6 +218,16 @@ def fused_trace(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, rx_rad
                                  max_bounces=max_bounces, record_faces=record_faces)
     if dev.type != "cuda":
         raise ValueError(f"no fused trace for device {dev}")
+    return _fused_launch(bvh, directions, tx_pos, rx_pos, rx_radius, n1, n2,
+                         max_bounces=max_bounces, record_faces=record_faces,
+                         count_stats=count_stats)
+
+
+@spanned("rfx.tracer.fused")
+def _fused_launch(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, rx_radius, n1, n2, *,
+                  max_bounces: int, record_faces: bool, count_stats: bool):
+    """`fused_trace`'s CUDA branch: the kernel's arguments and its launch."""
+    dev = directions.device
     tx, rx, r2, n1s, n2s = _scalars(tx_pos, rx_pos, rx_radius, n1, n2)
     d = directions.contiguous()
     n = d.shape[0]

@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from rfx_torch.ops._build import CudaKernel, F, I, P
+from rfx_torch.utils.profiling import spanned
 
 T_MIN_EPS = 1e-4
 T_MAX = 1.0e6
@@ -347,6 +348,7 @@ def make_env_intersector(backend: str = "brute", *, mesh=None, flat_bvh=None,
                  `differentiable_tris` as there.
     """
     if backend == "brute":
+        @spanned("rfx.ops.env_hit")
         def env_hit(o, d, v0, e1, e2, normals):
             t, face = ray_mesh_closest_hit_brute(o, d, v0, e1, e2)
             return t, face, hit_normal_from_edges(e1, e2, face)

@@ -512,7 +512,7 @@ def map_irs(segs: EnvSegments, rx_centers, rx_radius, *, scale, nbins: int,
             rx_mode: str = "analytic") -> torch.Tensor:
     """(R, nbins) impulse responses of R receiver spheres of one radius from
     the env segments `segs` (amplitude unscaled; `scale` = tx_power /
-    num_rays as an f32 value, rfx_torch.coverage._amp_scale), hard or soft
+    num_rays as an f32 value, rfx_torch.coverage._host_scale), hard or soft
     binning: the map engine's chunk, differentiable in the segments' origin,
     direction, amplitude and distance, in the centers, and in `scale` and
     `rx_radius` where they are tensors (0-dim; on the host, they cost the

@@ -31,6 +31,7 @@ from rfx_torch.ops.intersect import (
     ray_mesh_closest_hit_brute,
     ray_sphere_hit,
 )
+from rfx_torch.utils.profiling import spanned, to_device, to_host, wait
 
 __all__ = ["Scene", "TraceResult", "EnvSegments", "trace_to_rx", "trace_env", "extract_paths"]
 
@@ -72,8 +73,8 @@ _UNIT_ICO_TRI = icosphere(center=(0.0, 0.0, 0.0), radius=1.0, subdivisions=1).tr
 
 def icosphere_soa(rx_pos: torch.Tensor, rx_radius):
     """(v0, e1, e2) of the reference's 80-face receiver icosphere at rx_pos."""
-    tri = torch.as_tensor(_UNIT_ICO_TRI, dtype=torch.float32, device=rx_pos.device)
-    r = torch.as_tensor(rx_radius, dtype=torch.float32, device=rx_pos.device)
+    tri = to_device("ico_to_device", _UNIT_ICO_TRI, rx_pos.device)
+    r = to_device("ico_radius_to_device", rx_radius, rx_pos.device)
     return tri[:, 0] * r + rx_pos[None, :], (tri[:, 1] - tri[:, 0]) * r, (tri[:, 2] - tri[:, 0]) * r
 
 
@@ -113,12 +114,18 @@ def _rx_query(rx_pos: torch.Tensor, rx_radius, rx_mode: str):
         return lambda o, d: ray_sphere_hit(o, d, rx_pos, rx_radius)
     if rx_mode == "icosphere":
         v0, e1, e2 = icosphere_soa(rx_pos, rx_radius)
-        r = torch.as_tensor(rx_radius, dtype=torch.float32, device=rx_pos.device).detach()
+        r = to_device("cull_radius_to_device", rx_radius, rx_pos.device).detach()
         cull = torch.cat([rx_pos.detach().reshape(3), r.reshape(1)])
-        return lambda o, d: ray_mesh_closest_hit_brute(o, d, v0, e1, e2, cull=cull)[0]
+
+        @spanned("rfx.ops.rx_hit")
+        def rx_hit(o, d):
+            return ray_mesh_closest_hit_brute(o, d, v0, e1, e2, cull=cull)[0]
+
+        return rx_hit
     raise ValueError(f"unknown rx_mode: {rx_mode}")
 
 
+@spanned("rfx.tracer.scan")
 def trace_to_rx(scene: Scene, tx_pos, directions: torch.Tensor, rx_pos, rx_radius, *,
                 max_bounces: int, n1=5.0, n2=1.0, rx_mode: str = "icosphere",
                 env_hit=None, record_paths: bool = False, active: torch.Tensor | None = None,
@@ -143,12 +150,12 @@ def trace_to_rx(scene: Scene, tx_pos, directions: torch.Tensor, rx_pos, rx_radiu
     dev = directions.device
     f32 = torch.float32
     v0, e1, e2, normals = mesh_soa(scene.vertices, scene.faces)
-    rx = torch.as_tensor(rx_pos, dtype=f32, device=dev)
+    rx = to_device("rx_to_device", rx_pos, dev)
     t_rx_of = _rx_query(rx, rx_radius, rx_mode)
 
     d = directions.to(f32)
     n = d.shape[0]
-    tx = torch.as_tensor(tx_pos, dtype=f32, device=dev)
+    tx = to_device("tx_to_device", tx_pos, dev)
     pos = tx.expand(n, 3).clone() if tx.ndim == 2 else tx[None, :].expand(n, 3).clone()
     alive = torch.ones(n, dtype=torch.bool, device=dev) if active is None else active.to(torch.bool)
     amp = torch.ones(n, dtype=f32, device=dev)
@@ -206,6 +213,7 @@ def trace_to_rx(scene: Scene, tx_pos, directions: torch.Tensor, rx_pos, rx_radiu
     return TraceResult(captured, cap_amp, cap_dist, nb, paths)
 
 
+@spanned("rfx.tracer.env")
 def trace_env(scene: Scene, tx_pos, directions: torch.Tensor, *, max_bounces: int, n1=5.0,
               n2=1.0, env_hit=None, active: torch.Tensor | None = None) -> EnvSegments:
     """Environment-only trace recording every bounce's segment
@@ -219,7 +227,7 @@ def trace_env(scene: Scene, tx_pos, directions: torch.Tensor, *, max_bounces: in
     v0, e1, e2, normals = mesh_soa(scene.vertices, scene.faces)
     d = directions.to(f32)
     n = d.shape[0]
-    pos = torch.as_tensor(tx_pos, dtype=f32, device=dev)[None, :].expand(n, 3)
+    pos = to_device("env_tx_to_device", tx_pos, dev)[None, :].expand(n, 3)
     alive = torch.ones(n, dtype=torch.bool, device=dev) if active is None else active.to(torch.bool)
     amp = torch.ones(n, dtype=f32, device=dev)
     dist = torch.zeros(n, dtype=f32, device=dev)
@@ -251,8 +259,9 @@ def extract_paths(tx_pos, result: TraceResult, max_paths: int = 10_000) -> list[
     first, in ray order (the reference's cleaned path list)."""
     if result.path_vertices is None:
         raise ValueError("trace was run without record_paths=True")
-    idx = torch.nonzero(result.captured).flatten()[:max_paths]
-    verts = result.path_vertices[:, idx, :].cpu().numpy()  # (B, K, 3)
+    with wait("paths_index"):
+        idx = torch.nonzero(result.captured).flatten()[:max_paths]
+    verts = to_host("paths_to_host", result.path_vertices[:, idx, :]).numpy()  # (B, K, 3)
     tx = np.asarray(tx_pos, np.float32)
     paths = []
     for k in range(idx.shape[0]):

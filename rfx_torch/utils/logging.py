@@ -1,11 +1,11 @@
-"""Structured logging + metrics (the port's own copy of rfx/utils/logging.py,
-with `rfx_torch` as the root logger's name).
+"""Structured logging (the port's own copy of rfx/utils/logging.py, with
+`rfx_torch` as the root logger's name).
 
 The reference instruments with bare print()s, including three per bounce per
 path inside the hot Fresnel routine (ref tracer.py:41,46,59 — SURVEY.md 5
-flags this as the dominant host cost). Here: standard logging with a metrics
-helper that reports rays/s as a first-class scalar, and nothing on the hot
-path.
+flags this as the dominant host cost). Here: standard logging, and nothing on
+the hot path; a request's own measurements are the spans and counters of
+rfx_torch.utils.profiling.
 """
 
 from __future__ import annotations
@@ -32,10 +32,3 @@ def get_logger(name: str = "rfx_torch") -> logging.Logger:
         _CONFIGURED = True
     return logging.getLogger(name)
 
-
-def log_trace_stats(log: logging.Logger, *, n_rays: int, bounces: int, captured: int, seconds: float):
-    mrays = n_rays / max(seconds, 1e-12) / 1e6
-    log.info(
-        "trace n_rays=%d bounces=%d captured=%d seconds=%.4f Mrays/s=%.2f",
-        n_rays, bounces, captured, seconds, mrays,
-    )

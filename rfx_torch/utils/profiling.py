@@ -1,23 +1,119 @@
 """Profiling hooks (port of rfx/utils/profiling.py, which imports JAX): a
 `torch.profiler` trace of a region, named phase timers that wait for the
-device before they stop, and a rays/s tracker.
+device before they stop, and the port's own spans and counters.
 
 PyTorch launches CUDA work asynchronously, so a host clock around a call
-measures its enqueue. `PhaseTimer.phase(..., block_on=x)` and
-`Throughput.measure` synchronize the devices of the CUDA tensors they are
-given before the clock stops, so each phase owns its device time.
+measures its enqueue. `PhaseTimer.phase(..., block_on=x)` synchronizes the
+devices of the CUDA tensors it is given before the clock stops, so each
+phase owns its device time.
+
+Spans and counters. The port marks its layers with spans that a
+`torch.profiler` trace records as host operators, on the clock of the
+device's records (`torch._C._profiler._RecordFunctionFast`: under a
+microsecond each where no profiler records). Tracing is on exactly while a
+`torch.profiler` records (the CLI's `--profile`, the benchmark's traced
+runs); there is no switch of its own. No span or counter runs inside a
+kernel or once a ray, and no counter reads the device. The spans:
+
+- `rfx.api.compute_cir`, `rfx.api.compute_coverage`, `rfx.api.rx_power_dbm`:
+  the facade's calls (`rfx_torch.api.Tracer`);
+- `rfx.tracer.fused` (the fused trace's CUDA branch: its arguments and the
+  launch), `rfx.tracer.scan` (`trace_to_rx`), `rfx.tracer.env`
+  (`trace_env`): the tracers;
+- `rfx.ops.env_hit` (the closest-hit query of `make_kernel_env_hit` and of
+  the brute intersector), `rfx.ops.rx_hit` (the icosphere receiver's query):
+  the kernels' host wrappers;
+- `rfx.cir.histogram` (`bin_impulse_response`), `rfx.cir.rx_power`
+  (`rx_power_dbm`), `rfx.coverage.hist` (`coverage_hist` and its slab
+  reduction);
+- `rfx.wait.<site>`: each place on those paths where the host blocks on a
+  card (a copy between host data and the device, or an index the host must
+  read), each site under a name of its own (`to_device`, `to_host`). They open on every device, the CPU too,
+  where nothing waits, so that a trace shows the same sites on both.
+
+`counters()` holds the payload bytes of the `rfx.wait.*` sites,
+`bytes_to_host` and `bytes_to_device`, counted only while a profiler
+records: in a benchmark's traced run, exactly its traced units.
+
+Where the installed torch has no `_RecordFunctionFast`, a span is a
+`record_function`, entered only while a profiler records; a trace then holds
+it as a user annotation, which readers of host operators do not read.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 from dataclasses import dataclass, field
 
 import torch
 
-__all__ = ["device_trace", "PhaseTimer", "Throughput", "block_until_ready"]
+__all__ = ["device_trace", "PhaseTimer", "block_until_ready", "span", "spanned", "wait",
+           "to_device", "to_host", "counters"]
+
+try:
+    from torch._C._profiler import _RecordFunctionFast
+except ImportError:  # an older torch: record_function while a profiler records
+    _RecordFunctionFast = None
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+_COUNTERS = {"bytes_to_host": 0, "bytes_to_device": 0}
+
+
+def span(name: str):
+    """A context manager that marks a region `name` in a `torch.profiler`
+    trace; next to nothing while no profiler records."""
+    if _RecordFunctionFast is not None:
+        return _RecordFunctionFast(name)
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
+def spanned(name: str):
+    """Decorator: each call of the function runs inside `span(name)`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def wait(site: str, bytes_to_host: int = 0, bytes_to_device: int = 0):
+    """The span `rfx.wait.<site>` of a place where the host blocks on the
+    device; while a profiler records, the payload's bytes are added to the
+    counters."""
+    if _profiler_enabled():
+        _COUNTERS["bytes_to_host"] += int(bytes_to_host)
+        _COUNTERS["bytes_to_device"] += int(bytes_to_device)
+    return span("rfx.wait." + site)
+
+
+def to_device(site: str, x, device, dtype=torch.float32) -> torch.Tensor:
+    """`torch.as_tensor(x, dtype=dtype, device=device)`: host data (anything
+    but a tensor on another device than the CPU) is copied under
+    `wait(site)` with its bytes; a device tensor goes as it is."""
+    if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+        return torch.as_tensor(x, dtype=dtype, device=device)
+    host = torch.as_tensor(x, dtype=dtype)
+    with wait(site, bytes_to_device=host.nbytes):
+        return host.to(device)
+
+
+def to_host(site: str, x: torch.Tensor) -> torch.Tensor:
+    """`x.cpu()` under `wait(site)` with its bytes."""
+    with wait(site, bytes_to_host=x.nbytes):
+        return x.cpu()
+
+
+def counters() -> dict:
+    """A copy of the counters: bytes_to_host, bytes_to_device."""
+    return dict(_COUNTERS)
 
 
 def _tensors(tree):
@@ -91,28 +187,3 @@ class PhaseTimer:
             n = self.counts[name]
             lines.append(f"{name}: {total:.4f}s total, {total / n:.4f}s/call x{n}")
         return "\n".join(lines)
-
-
-@dataclass
-class Throughput:
-    """Mrays/s over timed trace calls: put the call's result in the yielded
-    dict under "result" and it is waited for before the clock stops."""
-
-    rays: int = 0
-    seconds: float = 0.0
-
-    @contextlib.contextmanager
-    def measure(self, n_rays: int):
-        t0 = time.perf_counter()
-        holder = {}
-        try:
-            yield holder
-        finally:
-            if "result" in holder:
-                block_until_ready(holder["result"])
-            self.seconds += time.perf_counter() - t0
-            self.rays += n_rays
-
-    @property
-    def mrays_per_s(self) -> float:
-        return self.rays / max(self.seconds, 1e-12) / 1e6

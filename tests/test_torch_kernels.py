@@ -1784,3 +1784,62 @@ def test_coverage_icosphere_on_card_takes_the_ico_kernels(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert torch.equal(irs.detach(), want) and int((want != 0).any(dim=1).sum()) > 20
     assert bool(torch.isfinite(g_tx).all()) and float(g_tx.abs().max()) > 0
+
+
+_SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+
+
+def _is_sync(name: str) -> bool:
+    return name in _SYNCS or (name.startswith("cudaMemcpy") and "Async" not in name)
+
+
+@pytest.mark.parametrize("unit", ["analytic", "icosphere", "sweep"])
+def test_every_host_wait_of_a_unit_is_named(cuda, unit):
+    """Under the profiler, each synchronize and synchronous copy of the
+    runtime inside the facade's spans lies inside an `rfx.wait.*` span, and
+    no device record carries an `rfx.*` name: one CIR request with each
+    receiver (the fused trace; the scan tracer on K2 and K-B) and one exact
+    sweep (K-B, K3, the batched K-P), each warmed up first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rfx_torch.utils import profiling
+
+    dirs = morton_sphere_directions(65_536, generator=torch.Generator(cuda).manual_seed(5),
+                                    device=cuda)
+    if unit == "sweep":
+        t = Tracer(make_room(), 2.998e8, 100e9, 100e-9, 2, 65_536, device=cuda)
+        centers = _room_receivers(64)
+
+        def request():
+            t.rx_power_dbm(t.compute_coverage((3.0, 2.0, 2.0), 1.0, centers, 0.5,
+                                              directions=dirs))
+    else:
+        t = Tracer(make_terrain(grid=48, extent=40.0, seed=3), 2.998e8, 100e9, 200e-9, 4,
+                   65_536, rx_mode=unit, device=cuda)
+
+        def request():
+            _, ir = t.compute_cir((2.0, 1.0, 12.0), 1.0, (-5.0, 2.0, 6.0), 1.0,
+                                  directions=dirs, record_paths=False)
+            t.rx_power_dbm(ir)
+
+    request()
+    torch.cuda.synchronize()
+    before = profiling.counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        request()
+        torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in profiling.counters().items()}
+    events = [(e.time_range.start, e.time_range.end, e.name, str(e.device_type))
+              for e in prof.events()]
+    host = [e for e in events if "CUDA" not in e[3]]
+    facade = [e for e in host if e[2].startswith("rfx.api.")]
+    waits = [e for e in host if e[2].startswith("rfx.wait.")]
+    inside = lambda e, spans: any(a <= e[0] and e[1] <= b for a, b, *_ in spans)  # noqa: E731
+    syncs = [e for e in host if _is_sync(e[2]) and inside(e, facade)]
+    assert len(facade) == 2 and syncs and waits
+    layer = {"analytic": "rfx.tracer.fused", "icosphere": "rfx.ops.rx_hit",
+             "sweep": "rfx.coverage.hist"}[unit]
+    assert layer in {e[2] for e in host}
+    assert [e[2] for e in syncs if not inside(e, waits)] == []
+    assert [e[2] for e in events if "CUDA" in e[3] and e[2].startswith("rfx.")] == []
+    assert moved["bytes_to_host"] > 0 and moved["bytes_to_device"] > 0
