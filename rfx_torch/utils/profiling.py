@@ -32,8 +32,25 @@ kernel or once a ray, and no counter reads the device. The spans:
   where nothing waits, so that a trace shows the same sites on both.
 
 `counters()` holds the payload bytes of the `rfx.wait.*` sites,
-`bytes_to_host` and `bytes_to_device`, counted only while a profiler
-records: in a benchmark's traced run, exactly its traced units.
+`bytes_to_host` and `bytes_to_device`, and of those the bytes that crossed
+through page-locked host memory, `bytes_pinned_to_host` and
+`bytes_pinned_to_device`, counted only while a profiler records: in a
+benchmark's traced run, exactly its traced units.
+
+Page-locked memory. `to_host` brings a CUDA tensor of at least
+`PINNED_MIN_BYTES` into page-locked memory from PyTorch's caching host
+allocator (`torch.empty(..., pin_memory=True)`), which the card fills by DMA;
+a smaller one, or a CPU tensor, goes through `.cpu()`. The numpy array a
+caller makes of the result keeps its block until the array is dropped: a
+block (the payload rounded up to a power of two) is held for each such
+array alive, and a dropped one goes back to the cache for the next call, so
+a returned array never changes under a later call. `to_device` copies
+straight from host data that already lives in page-locked memory (such an
+array handed back); either way the host waits for the copy. The size rule,
+`PINNED_MIN_BYTES` (1 MiB), holds both ways; it was set from crossovers
+measured on the card (`scripts/torch_host_copy_crossover.py`): a cached
+block beats `.cpu()` from 32 KiB, a block made anew for each call from 1-4
+MiB.
 
 Where the installed torch has no `_RecordFunctionFast`, a span is a
 `record_function`, entered only while a profiler records; a trace then holds
@@ -51,7 +68,7 @@ from dataclasses import dataclass, field
 import torch
 
 __all__ = ["device_trace", "PhaseTimer", "block_until_ready", "span", "spanned", "wait",
-           "to_device", "to_host", "counters"]
+           "to_device", "to_host", "counters", "PINNED_MIN_BYTES"]
 
 try:
     from torch._C._profiler import _RecordFunctionFast
@@ -60,7 +77,20 @@ except ImportError:  # an older torch: record_function while a profiler records
 
 _profiler_enabled = torch._C._autograd._profiler_enabled
 
-_COUNTERS = {"bytes_to_host": 0, "bytes_to_device": 0}
+_COUNTERS = {"bytes_to_host": 0, "bytes_to_device": 0,
+             "bytes_pinned_to_host": 0, "bytes_pinned_to_device": 0}
+
+#: Payloads of at least this many bytes cross through page-locked memory:
+#: a CUDA tensor comes to the host in a cached page-locked block, and host
+#: data is asked whether it lives in one. Measured on an NVIDIA H100 80GB
+#: HBM3 (700 W, torch 2.11.0+cu128; scripts/torch_host_copy_crossover.py),
+#: a cached block overtakes `.cpu()` from 32 KiB (37 / 118 us at 1 MiB);
+#: a block made anew for every call, as for a caller that keeps every
+#: array, breaks even between 1 and 4 MiB (510 / 1,538 us at 1 MiB, 1,004 /
+#: 990 us at 2 MiB, 1,545 / 3,688 us at 4 MiB). Below 1 MiB a copy gains a
+#: few microseconds, which is not worth the page-locked RAM a kept array
+#: would hold.
+PINNED_MIN_BYTES = 1 << 20
 
 
 def span(name: str):
@@ -84,35 +114,51 @@ def spanned(name: str):
     return wrap
 
 
-def wait(site: str, bytes_to_host: int = 0, bytes_to_device: int = 0):
+def wait(site: str, bytes_to_host: int = 0, bytes_to_device: int = 0, pinned: bool = False):
     """The span `rfx.wait.<site>` of a place where the host blocks on the
     device; while a profiler records, the payload's bytes are added to the
-    counters."""
+    counters, and to the page-locked ones where `pinned`."""
     if _profiler_enabled():
         _COUNTERS["bytes_to_host"] += int(bytes_to_host)
         _COUNTERS["bytes_to_device"] += int(bytes_to_device)
+        if pinned:
+            _COUNTERS["bytes_pinned_to_host"] += int(bytes_to_host)
+            _COUNTERS["bytes_pinned_to_device"] += int(bytes_to_device)
     return span("rfx.wait." + site)
 
 
 def to_device(site: str, x, device, dtype=torch.float32) -> torch.Tensor:
     """`torch.as_tensor(x, dtype=dtype, device=device)`: host data (anything
     but a tensor on another device than the CPU) is copied under
-    `wait(site)` with its bytes; a device tensor goes as it is."""
+    `wait(site)` with its bytes (by DMA where it lives in page-locked
+    memory, counted as such from `PINNED_MIN_BYTES`); a device tensor goes
+    as it is."""
     if isinstance(x, torch.Tensor) and x.device.type != "cpu":
         return torch.as_tensor(x, dtype=dtype, device=device)
     host = torch.as_tensor(x, dtype=dtype)
-    with wait(site, bytes_to_device=host.nbytes):
+    # A CUDA query (cudaPointerGetAttributes), so only for a CUDA device: on
+    # a CPU device it would start CUDA where a card is present.
+    pinned = (host.nbytes >= PINNED_MIN_BYTES and torch.device(device).type == "cuda"
+              and host.is_pinned())
+    with wait(site, bytes_to_device=host.nbytes, pinned=pinned):
         return host.to(device)
 
 
 def to_host(site: str, x: torch.Tensor) -> torch.Tensor:
-    """`x.cpu()` under `wait(site)` with its bytes."""
-    with wait(site, bytes_to_host=x.nbytes):
-        return x.cpu()
+    """`x` on the host under `wait(site)` with its bytes: a CUDA tensor of
+    at least `PINNED_MIN_BYTES` in a page-locked block of PyTorch's caching
+    host allocator, anything else through `x.cpu()`. It returns once the
+    copy is complete."""
+    pinned = x.device.type == "cuda" and x.nbytes >= PINNED_MIN_BYTES
+    with wait(site, bytes_to_host=x.nbytes, pinned=pinned):
+        if not pinned:
+            return x.cpu()
+        return torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x)
 
 
 def counters() -> dict:
-    """A copy of the counters: bytes_to_host, bytes_to_device."""
+    """A copy of the counters: bytes_to_host, bytes_to_device,
+    bytes_pinned_to_host, bytes_pinned_to_device."""
     return dict(_COUNTERS)
 
 

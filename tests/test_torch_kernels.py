@@ -21,6 +21,7 @@ from rfx_torch.ops import (bvh_trace, bvh_traverse, coverage_hist, fused, inters
                            micro_vote)
 from rfx_torch.sampler import morton_sphere_directions
 from rfx_torch.tracer import EnvSegments, Scene, trace_env, trace_to_rx
+from rfx_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -1802,8 +1803,6 @@ def test_every_host_wait_of_a_unit_is_named(cuda, unit):
     sweep (K-B, K3, the batched K-P), each warmed up first."""
     from torch.profiler import ProfilerActivity, profile
 
-    from rfx_torch.utils import profiling
-
     dirs = morton_sphere_directions(65_536, generator=torch.Generator(cuda).manual_seed(5),
                                     device=cuda)
     if unit == "sweep":
@@ -1843,3 +1842,85 @@ def test_every_host_wait_of_a_unit_is_named(cuda, unit):
     assert [e[2] for e in syncs if not inside(e, waits)] == []
     assert [e[2] for e in events if "CUDA" in e[3] and e[2].startswith("rfx.")] == []
     assert moved["bytes_to_host"] > 0 and moved["bytes_to_device"] > 0
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    return a.view(np.uint32)
+
+
+def test_coverage_irs_come_back_in_page_locked_memory_that_no_later_call_reuses(cuda,
+                                                                                 monkeypatch):
+    """An exact sweep of 64 room receivers x 10,000 bins (2.56 MB, over
+    `PINNED_MIN_BYTES`): the array lives in page-locked memory and holds the
+    very bits of the IRs the trace made; it keeps them while three further
+    sweeps on other rays come and go; and its dBm is the dBm of a pageable
+    copy, bit for bit."""
+    from rfx_torch import api
+
+    made = []
+
+    def keep(*args, **kwargs):
+        made.append(coverage.coverage_irs(*args, **kwargs))
+        return made[-1]
+
+    monkeypatch.setattr(api, "coverage_irs", keep)
+    t = Tracer(make_room(), 2.998e8, 100e9, 100e-9, 2, 65_536, device=cuda)
+    centers = _room_receivers(64)
+    gen = torch.Generator(cuda).manual_seed(8)
+
+    def sweep():
+        dirs = morton_sphere_directions(65_536, generator=gen, device=cuda)
+        return t.compute_coverage((3.0, 2.0, 2.0), 1.0, centers, 0.5, directions=dirs)
+
+    a = sweep()
+    assert a.nbytes >= profiling.PINNED_MIN_BYTES
+    assert torch.from_numpy(a).is_pinned()
+    want = made[0].cpu().numpy()
+    assert np.array_equal(_bits(a), _bits(want)) and int((want != 0).any(axis=1).sum()) > 20
+    for _ in range(3):
+        later = sweep()
+        assert not np.array_equal(later, want)
+        del later
+    assert np.array_equal(_bits(a), _bits(want))
+    pageable = np.array(a, copy=True)
+    assert not torch.from_numpy(pageable).is_pinned()
+    assert np.array_equal(_bits(t.rx_power_dbm(a)), _bits(t.rx_power_dbm(pageable)))
+
+
+def test_only_payloads_of_a_mebibyte_cross_through_page_locked_memory(cuda):
+    """Under the profiler the counters see the same bytes as before the
+    page-locked path: a sweep's IRs go both ways through page-locked memory
+    and nothing else does; a CIR request's 80 KB IR takes `.cpu()`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dirs = morton_sphere_directions(65_536, generator=torch.Generator(cuda).manual_seed(5),
+                                    device=cuda)
+    t = Tracer(make_room(), 2.998e8, 100e9, 100e-9, 2, 65_536, device=cuda)
+    centers = _room_receivers(64)
+
+    def sweep():
+        irs = t.compute_coverage((3.0, 2.0, 2.0), 1.0, centers, 0.5, directions=dirs)
+        return irs, t.rx_power_dbm(irs)
+
+    sweep()  # the carrier is made once, on the first call
+    before = profiling.counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        irs, dbm = sweep()
+    moved = {k: v - before[k] for k, v in profiling.counters().items()}
+    # To the card: tx (3 floats), the 64 centers, the amplitude scale and the IRs.
+    assert moved == {"bytes_to_host": irs.nbytes + dbm.nbytes,
+                     "bytes_to_device": 4 * (3 + 64 * 3 + 1) + irs.nbytes,
+                     "bytes_pinned_to_host": irs.nbytes,
+                     "bytes_pinned_to_device": irs.nbytes}
+
+    t = Tracer(make_terrain(grid=48, extent=40.0, seed=3), 2.998e8, 100e9, 200e-9, 4, 65_536,
+               device=cuda)
+    before = profiling.counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        _, ir = t.compute_cir((2.0, 1.0, 12.0), 1.0, (-5.0, 2.0, 6.0), 1.0, directions=dirs,
+                              record_paths=False)
+        t.rx_power_dbm(ir)
+    moved = {k: v - before[k] for k, v in profiling.counters().items()}
+    assert ir.nbytes == 80_000 and not torch.from_numpy(ir).is_pinned()
+    assert moved["bytes_to_host"] > ir.nbytes and moved["bytes_to_device"] > ir.nbytes
+    assert moved["bytes_pinned_to_host"] == moved["bytes_pinned_to_device"] == 0

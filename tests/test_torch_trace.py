@@ -127,6 +127,37 @@ def test_counters_count_a_wait_s_payload_only_while_a_profiler_records():
     assert [e.name for e in _rfx_events(prof)] == ["rfx.wait.probe"]
 
 
+@pytest.mark.parametrize("numel", [5, (1 << 18) + 3])
+def test_to_host_of_a_cpu_tensor_is_counted_and_never_page_locked(numel):
+    """Under and over `PINNED_MIN_BYTES`: a CPU tensor stays where it is."""
+    x = torch.arange(numel, dtype=torch.float32)
+    assert (x.nbytes >= profiling.PINNED_MIN_BYTES) == (numel > 5)
+    before = profiling.counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = profiling.to_host("probe", x)
+    moved = {k: v - before[k] for k, v in profiling.counters().items()}
+    assert torch.equal(out, x)
+    assert moved == {"bytes_to_host": x.nbytes, "bytes_to_device": 0,
+                     "bytes_pinned_to_host": 0, "bytes_pinned_to_device": 0}
+
+
+@pytest.mark.parametrize("numel", [6, (1 << 18) + 3])
+def test_to_device_on_a_cpu_device_never_asks_whether_memory_is_page_locked(numel,
+                                                                             monkeypatch):
+    def refuse(self, *args, **kwargs):
+        raise AssertionError("is_pinned asked for a CPU device")
+
+    monkeypatch.setattr(torch.Tensor, "is_pinned", refuse)
+    a = np.arange(numel, dtype=np.float32)
+    before = profiling.counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = profiling.to_device("probe", a, torch.device("cpu"))
+    moved = {k: v - before[k] for k, v in profiling.counters().items()}
+    assert np.array_equal(out.numpy(), a)
+    assert moved == {"bytes_to_host": 0, "bytes_to_device": a.nbytes,
+                     "bytes_pinned_to_host": 0, "bytes_pinned_to_device": 0}
+
+
 def test_span_takes_the_fast_record_function_where_torch_has_it():
     fast = getattr(torch._C._profiler, "_RecordFunctionFast", None)
     if fast is None:
@@ -157,8 +188,32 @@ def test_span_readers_on_a_synthetic_trace(kind, monkeypatch):
     # Tracers 5 + 1 s, less the rx_hit (1 s) and the wait (0.5 s) inside.
     assert read("tracer_self_ms") == pytest.approx(4.5 / 2 * 1e3)
     monkeypatch.setattr(profiling, "_COUNTERS", {"bytes_to_host": 3_000_000,
-                                                 "bytes_to_device": 1_000_000})
+                                                 "bytes_to_device": 1_000_000,
+                                                 "bytes_pinned_to_host": 2_000_000,
+                                                 "bytes_pinned_to_device": 0})
     assert read("host_mb") == pytest.approx(2.0)
+
+
+def test_pinned_share_reads_the_page_locked_bytes_of_all_through_the_host(monkeypatch):
+    monkeypatch.setattr(profiling, "_COUNTERS", {"bytes_to_host": 3_000_000,
+                                                 "bytes_to_device": 1_000_000,
+                                                 "bytes_pinned_to_host": 2_000_000,
+                                                 "bytes_pinned_to_device": 0})
+    assert load_metric("pinned_pct.sweep").read(_synthetic_trace(), None) == pytest.approx(50.0)
+
+
+@pytest.mark.parametrize("program", ["counters_without_pinned_keys", "no_counters", "no_units"])
+def test_pinned_share_reads_nothing_where_the_program_or_trace_has_nothing(program,
+                                                                            monkeypatch):
+    trace = _synthetic_trace()
+    if program == "counters_without_pinned_keys":
+        monkeypatch.setattr(profiling, "_COUNTERS", {"bytes_to_host": 3_000_000,
+                                                     "bytes_to_device": 1_000_000})
+    elif program == "no_counters":
+        monkeypatch.delattr(profiling, "counters")
+    else:
+        trace.units = []
+    assert load_metric("pinned_pct.sweep").read(trace, None) is None
 
 
 def test_span_readers_read_nothing_without_the_program_s_spans(monkeypatch):
