@@ -22,12 +22,14 @@ selects.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
 
 from rfx_torch.geometry import TriangleMesh
 from rfx_torch.utils.logging import get_logger
+from rfx_torch.utils.profiling import set_gauge, span
 
 __all__ = ["FlatBVH", "build_bvh", "collapse_bvh", "as_flat_bvh", "resolve_flat_bvh",
            "LEAF_SIZE", "NATIVE_MIN_FACES"]
@@ -247,7 +249,8 @@ def build_bvh(
     compiled. The two builders give the same layout contract, not the same
     tree. split: 'sah' (binned surface-area heuristic) or 'median' (centroid
     median). arity > 2 collapses the binary tree into an n-ary one (see
-    collapse_bvh)."""
+    collapse_bvh). The build runs in the span `rfx.bvh.build` and sets the
+    gauges `bvh_build_s` and `bvh_native` of `profiling.counters()`."""
     if method not in ("auto", "numpy", "native"):
         raise ValueError(f"unknown BVH build method: {method}")
     if method == "auto":
@@ -259,14 +262,24 @@ def build_bvh(
                 method = "native"
             else:
                 get_logger("rfx_torch.bvh").warning(
-                    "native BVH builder unavailable (%s): building %d faces with the numpy "
-                    "builder", native_lib.unavailable_reason(), mesh.num_faces)
-    if method == "native":
-        from rfx_torch.ops.native_lib import build_bvh_native
+                    "native BVH builder unavailable (%s): building %d faces with the recursive "
+                    "numpy builder, which is slow at this size (minutes for 10^6 faces)",
+                    native_lib.unavailable_reason(), mesh.num_faces)
+    t0 = time.perf_counter()
+    with span("rfx.bvh.build"):
+        if method == "native":
+            from rfx_torch.ops.native_lib import build_bvh_native
 
-        flat = build_bvh_native(mesh, leaf_size, split=split)
-        return collapse_bvh(flat, arity)
+            flat = build_bvh_native(mesh, leaf_size, split=split)
+        else:
+            flat = _build_numpy(mesh, leaf_size, split)
+        flat = collapse_bvh(flat, arity)
+    set_gauge("bvh_build_s", time.perf_counter() - t0)
+    set_gauge("bvh_native", int(method == "native"))
+    return flat
 
+
+def _build_numpy(mesh: TriangleMesh, leaf_size: int, split: str) -> FlatBVH:
     tri = mesh.triangles().astype(np.float32)  # (F, 3, 3)
     f = tri.shape[0]
     tmin = tri.min(axis=1)
@@ -335,7 +348,7 @@ def build_bvh(
         tri_e2[pstart : pstart + count] = t[:, 2] - t[:, 0]
         tri_face[pstart : pstart + count] = sel.astype(np.int32)
 
-    flat = FlatBVH(
+    return FlatBVH(
         aabb_min=np.asarray(aabb_min, np.float32),
         aabb_max=np.asarray(aabb_max, np.float32),
         tri_start=np.asarray(tri_start, np.int32),
@@ -347,7 +360,6 @@ def build_bvh(
         tri_face=tri_face,
         leaf_size=leaf_size,
     )
-    return collapse_bvh(flat, arity)
 
 
 _FLAT_FIELDS = ("aabb_min", "aabb_max", "tri_start", "tri_count", "skip", "tri_v0", "tri_e1",

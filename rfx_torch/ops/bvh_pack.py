@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from rfx_torch.bvh import FlatBVH
+from rfx_torch.utils.profiling import set_gauge, spanned
 
 
 #: Bits of a node's `leaf` lane that hold tri_count; tri_start takes the rest.
@@ -62,7 +63,10 @@ class PackedBVH:
         return self.nodes.view(torch.int32)[:, 7] & MAX_LEAF_TRIS
 
 
+@spanned("rfx.bvh.pack")
 def pack_bvh(flat: FlatBVH, device: torch.device) -> PackedBVH:
+    """The device tables of `flat` on `device`, in the span `rfx.bvh.pack`;
+    sets the gauge `bvh_table_bytes` of `profiling.counters()`."""
     n = flat.n_nodes
     if n == 0 or flat.n_padded_tris == 0:
         raise ValueError("cannot pack an empty BVH")
@@ -91,5 +95,7 @@ def pack_bvh(flat: FlatBVH, device: torch.device) -> PackedBVH:
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    return PackedBVH(dev(nodes), dev(tri), dev(np.asarray(flat.tri_face, np.int32)),
-                     int(flat.leaf_size))
+    packed = PackedBVH(dev(nodes), dev(tri), dev(np.asarray(flat.tri_face, np.int32)),
+                       int(flat.leaf_size))
+    set_gauge("bvh_table_bytes", packed.nodes.nbytes + packed.tri.nbytes + packed.tri_face.nbytes)
+    return packed

@@ -29,13 +29,22 @@ kernel or once a ray, and no counter reads the device. The spans:
 - `rfx.wait.<site>`: each place on those paths where the host blocks on a
   card (a copy between host data and the device, or an index the host must
   read), each site under a name of its own (`to_device`, `to_host`). They open on every device, the CPU too,
-  where nothing waits, so that a trace shows the same sites on both.
+  where nothing waits, so that a trace shows the same sites on both;
+- `rfx.bvh.build` (`rfx_torch.bvh.build_bvh`, whichever builder it takes)
+  and `rfx.bvh.pack` (`rfx_torch.ops.bvh_pack.pack_bvh`): a scene's set-up,
+  once a tracer, never inside a request.
 
-`counters()` holds the payload bytes of the `rfx.wait.*` sites,
-`bytes_to_host` and `bytes_to_device`, and of those the bytes that crossed
-through page-locked host memory, `bytes_pinned_to_host` and
-`bytes_pinned_to_device`, counted only while a profiler records: in a
-benchmark's traced run, exactly its traced units.
+`counters()` holds two kinds of entries. Tallies: the payload bytes of the
+`rfx.wait.*` sites, `bytes_to_host` and `bytes_to_device`, and of those the
+bytes that crossed through page-locked host memory, `bytes_pinned_to_host`
+and `bytes_pinned_to_device`, counted only while a profiler records: in a
+benchmark's traced run, exactly its traced units. Gauges of the last BVH
+set-up, set whether or not a profiler records (set-up runs before one
+starts), and absent until the first build: `bvh_build_s`, the host seconds
+of the last `build_bvh`; `bvh_native`, 1 if the native builder made that
+tree, else 0; `bvh_table_bytes`, the bytes of the last `pack_bvh`'s device
+tables (nodes, triangles and face ids, from the tensors' sizes, not read
+from the device).
 
 Page-locked memory. `to_host` brings a CUDA tensor of at least
 `PINNED_MIN_BYTES` into page-locked memory from PyTorch's caching host
@@ -68,7 +77,7 @@ from dataclasses import dataclass, field
 import torch
 
 __all__ = ["device_trace", "PhaseTimer", "block_until_ready", "span", "spanned", "wait",
-           "to_device", "to_host", "counters", "PINNED_MIN_BYTES"]
+           "to_device", "to_host", "counters", "set_gauge", "PINNED_MIN_BYTES"]
 
 try:
     from torch._C._profiler import _RecordFunctionFast
@@ -79,6 +88,7 @@ _profiler_enabled = torch._C._autograd._profiler_enabled
 
 _COUNTERS = {"bytes_to_host": 0, "bytes_to_device": 0,
              "bytes_pinned_to_host": 0, "bytes_pinned_to_device": 0}
+_GAUGES = {}
 
 #: Payloads of at least this many bytes cross through page-locked memory:
 #: a CUDA tensor comes to the host in a cached page-locked block, and host
@@ -156,10 +166,16 @@ def to_host(site: str, x: torch.Tensor) -> torch.Tensor:
         return torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x)
 
 
+def set_gauge(name: str, value) -> None:
+    """Set the gauge `name` of `counters()`, whether or not a profiler records."""
+    _GAUGES[name] = value
+
+
 def counters() -> dict:
-    """A copy of the counters: bytes_to_host, bytes_to_device,
-    bytes_pinned_to_host, bytes_pinned_to_device."""
-    return dict(_COUNTERS)
+    """A copy of the counters: the tallies bytes_to_host, bytes_to_device,
+    bytes_pinned_to_host, bytes_pinned_to_device, and the gauges set so far
+    (bvh_build_s, bvh_native, bvh_table_bytes)."""
+    return {**_COUNTERS, **_GAUGES}
 
 
 def _tensors(tree):
