@@ -11,15 +11,16 @@ Phases, each ending in torch.cuda.synchronize() so a fault shows where it
 happened, and none catching its own failure:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the eight CUDA sources of rfx_torch/csrc/ (twenty-one C entry
+2. build the nine CUDA sources of rfx_torch/csrc/ (twenty-two C entry
    points that launch kernels: the fused trace and its counted
    instantiation share a source, so do the closest hit and its counted
    instantiation, the coverage histogram, its slab reduction and the phasor
    metric's table, walk, spread and backward, the RX power and its
    backward, the IR histogram and its record entries, and the map engine's
    capture pass and its backward, each of these last three also
-   instantiated for the icosphere receiver; the brute closest hit has its
-   own) and the native C++ BVH builder into build/rfx_torch/, one compiler
+   instantiated for the icosphere receiver; the brute closest hit and the
+   rays' direction-cell order have their own) and the native C++ BVH
+   builder into build/rfx_torch/, one compiler
    each, all started together;
 3. the bench workload (bench.py): make_terrain(grid=128, extent=60, seed=0),
    32,258 triangles, 5,242,880 Morton-ordered rays, 4 bounces, a 20,000-bin
@@ -27,7 +28,15 @@ happened, and none catching its own failure:
 4. the fused-trace kernel against its plain PyTorch version on 65,536 of
    those rays (every 80th): identical capture masks and bounce counts,
    amplitude within rtol 2e-5 / atol 1e-7, distance within rtol 1e-5 /
-   atol 1e-4 (tests/test_fused.py:15-26);
+   atol 1e-4 (tests/test_fused.py:15-26); then the direction-cell order
+   (rfx_ray_order) of 5,242,880 i.i.d. and of the Morton rays against its
+   plain version (the same keys and cell counts, an order that is a
+   permutation with `rank` its inverse, the keys along it the plain stable
+   sort's), timed beside the plain version, argsort with a gather and its
+   bound; the fused trace in cell order against its plain version on the
+   first ORDER_MIN_RAYS i.i.d. rays, the smallest launch it orders (the same
+   bars, the face record identical), and at 5,242,880 i.i.d. and Morton rays
+   (the face record at 2,621,440) the same bits as the caller's order;
 5. the IR histogram kernel against its plain version on the full trace's
    outputs (rtol 1e-4, atol 1e-9, the same nonzero bins), hard and soft, and
    bit-identical across two runs, beside `index_add_`, `bincount` and two
@@ -35,15 +44,15 @@ happened, and none catching its own failure:
 6. the forward path: rfx_torch.api.Tracer(...).compute_cir answers three
    requests, the tx raised by 1 m each time, and rx_power_dbm reads each IR
    through the RX-power kernel. The launch counts are reset just before and
-   must be > 0 after; the first IR must equal phase 5's bit for bit. Then the
-   RX-power kernel against its plain version on that IR (20,000 bins: the
-   same nonzero samples, the signal within rtol 1e-5 and an absolute floor
-   of 1e-5 of its largest sample, dBm within 1e-4 dB, two runs the same
-   bits), beside conv1d; and its backward with g_dbm = 1 against its plain
-   version (rtol 1e-4, an absolute floor of 1e-5 of the largest entry, two
-   runs the same bits, the same bits as the IR's row in a 64-row batch: the
-   lone IR's launch is split over its segments, the batch's is not),
-   beside conv1d of the effective cotangent;
+   must be > 0 after, the order's one a request as the fused trace's; the
+   first IR must equal phase 5's bit for bit. Then the RX-power kernel against
+   its plain version on that IR (20,000 bins: the same nonzero samples, the
+   signal within rtol 1e-5 and an absolute floor of 1e-5 of its largest
+   sample, dBm within 1e-4 dB, two runs the same bits), beside conv1d; and its
+   backward with g_dbm = 1 against its plain version (rtol 1e-4, an absolute
+   floor of 1e-5 of the largest entry, two runs the same bits, the same bits
+   as the IR's row in a 64-row batch: the lone IR's launch is split over its
+   segments, the batch's is not), beside conv1d of the effective cotangent;
 7. the per-query closest-hit kernel against its plain version on the bench
    scene: the 65,536 rays of phase 4 from tx, their reflected second-bounce
    queries from the terrain, and 1,024 parked rays; identical t, indices,
@@ -125,24 +134,26 @@ happened, and none catching its own failure:
 14. the large-mesh path (scripts/torch_bench_large_mesh.py, whose legs this
     phase calls): make_terrain(grid=724, extent=120, seed=0), 1,045,458
     triangles, the native builder at leaf 8 (asserted, with its seconds,
-    nodes, padded triangles and bytes on the card), tx (10, 0, 30), rx
-    (-15, 5, 12), radius 2.0. Against the plain versions, on 8,192 of the
-    5,242,880 Morton rays: the fused kernel == the brute plain version
-    (phase 4's bars), the counted kernel's trace == the uncounted kernel's
-    bit for bit, its (4, 4) int64 counters == `fused_trace_walk_plain`'s
-    integer for integer, and that plain walk's trace == the brute plain
-    version's; the same counter check on phase 4's 65,536 rays of the bench
-    terrain. Then the path itself, counted on its own: the 16,384-ray parity
-    leg of the closest-hit kernel against the plain walk of an independent
-    leaf-16 tree; three compute_cir requests at 5,242,880 rays x 4 bounces x
-    20,000 bins (CUDA events, Mrays/s; the first again, bit-identical); the
-    walk counters at full width with the counted trace == the uncounted one
-    bit for bit, and the SIMT efficiency nodes / (32 * warp_steps); the
-    per-query cross-check at 1,048,576 rays, and the counted closest hit on
-    those rays and their second-bounce queries. The same counters and times on
-    the bench terrain beside them. Last, the vote micro-kernel
-    (scripts/torch_micro_vote.py): each style's carry == the plain version's
-    after 2,000 bodies, then ns per body at 50,000 bodies, counted on its own;
+    nodes, padded triangles and bytes on the card), tx (10, 0, 30), rx (-15,
+    5, 12), radius 2.0. Against the plain versions, on 8,192 of the 5,242,880
+    Morton rays: the fused kernel == the brute plain version (phase 4's bars),
+    the counted kernel's trace == the uncounted kernel's bit for bit, its (4,
+    4) int64 counters == `fused_trace_walk_plain`'s integer for integer, and
+    that plain walk's trace == the brute plain version's; the same counter
+    check on phase 4's 65,536 rays of the bench terrain; the fused kernel in
+    cell order at 5,242,880 i.i.d. and Morton rays, the same bits as the
+    caller's order. Then the path itself, counted on its own: the 16,384-ray
+    parity leg of the closest-hit kernel against the plain walk of an
+    independent leaf-16 tree; three compute_cir requests at 5,242,880 rays x 4
+    bounces x 20,000 bins (CUDA events, Mrays/s; the first again,
+    bit-identical); the walk counters at full width with the counted trace ==
+    the uncounted one bit for bit, and the SIMT efficiency nodes / (32 *
+    warp_steps); the per-query cross-check at 1,048,576 rays, and the counted
+    closest hit on those rays and their second-bounce queries. The same
+    counters and times on the bench terrain beside them. Last, the vote
+    micro-kernel (scripts/torch_micro_vote.py): each style's carry == the
+    plain version's after 2,000 bodies, then ns per body at 50,000 bodies,
+    counted on its own;
 15. the sharded paths (rfx_torch.parallel). One rank in this process (NCCL
     where torch has it, else gloo): sharded_cir == trace_to_rx +
     cir_from_trace bit for bit at phase 3's width through the closest-hit
@@ -241,6 +252,7 @@ sources are missing.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -298,6 +310,7 @@ K_BRUTE = "rfx_brute_hit"
 K_MAP_ICO = "rfx_map_capture_ico"
 K_HIST_RECORD_ICO = "rfx_ir_histogram_record_ico"
 K_MAP_BACKWARD_ICO = "rfx_map_capture_backward_ico"
+K_ORDER = "rfx_ray_order"
 # The phasor metric's three entry points, each launched once a sweep.
 PHASOR_NEEDS = (K_TABLE, K_PHASOR, K_SPREAD)
 # One H100 SXM's published peaks: HBM bytes/s, f32 FLOP/s outside the tensor cores.
@@ -320,6 +333,12 @@ ICO_FACES = 80
 ICO_TRI_BYTES = 36 * ICO_FACES  # a receiver's (80, 9) f32 faces; the unit icosphere's too
 ICO_RADII = (1.0, 0.1)  # the request's: the bench's and the config's default
 BOUNCE_FLOPS = 60
+# The direction-cell order (ray_order.cu), a ray: the direction read (12
+# bytes), its key and place in its cell written and read again (16), the
+# order and the rank written (8); the key's |x| + |y| + |z|, two divisions,
+# the fold and the two columns.
+ORDER_BYTES = 36
+ORDER_FLOPS = 15
 NODE_BYTES = 32  # two float4: the box, with skip and leaf in its w lanes
 TRI_BYTES = 48  # three float4
 
@@ -487,7 +506,7 @@ def _counted_bound(fused_bound: dict) -> dict:
 
 
 def port_kernels() -> tuple:
-    """The port's twenty-one C entry points that launch kernels (rfx_torch/csrc/), each with
+    """The port's twenty-two C entry points that launch kernels (rfx_torch/csrc/), each with
     its launch count; the first of each source's that the build starts."""
     from rfx_torch import cir
     from rfx_torch.ops.bvh_trace import CLOSEST_HIT_COUNTED_KERNEL, CLOSEST_HIT_KERNEL
@@ -508,10 +527,11 @@ def port_kernels() -> tuple:
         MAP_CAPTURE_KERNEL,
     )
     from rfx_torch.ops.micro_vote import MICRO_VOTE_KERNEL
+    from rfx_torch.ops.ray_order import RAY_ORDER_KERNEL
 
     return (FUSED_TRACE_KERNEL, CLOSEST_HIT_KERNEL, cir.HISTOGRAM_KERNEL, COVERAGE_HIST_KERNEL,
             MICRO_VOTE_KERNEL, cir.RX_POWER_KERNEL, MAP_CAPTURE_KERNEL, BRUTE_HIT_KERNEL,
-            FUSED_TRACE_COUNTED_KERNEL, CLOSEST_HIT_COUNTED_KERNEL, COVERAGE_REDUCE_KERNEL,
+            RAY_ORDER_KERNEL, FUSED_TRACE_COUNTED_KERNEL, CLOSEST_HIT_COUNTED_KERNEL, COVERAGE_REDUCE_KERNEL,
             COVERAGE_PHASOR_KERNEL, COVERAGE_SPREAD_KERNEL, PHASOR_TABLE_KERNEL,
             cir.RX_POWER_BACKWARD_KERNEL, PHASOR_BACKWARD_KERNEL, MAP_CAPTURE_BACKWARD_KERNEL,
             cir.HISTOGRAM_RECORD_KERNEL, MAP_CAPTURE_ICO_KERNEL, MAP_CAPTURE_BACKWARD_ICO_KERNEL,
@@ -519,7 +539,7 @@ def port_kernels() -> tuple:
 
 
 #: Sources of rfx_torch/csrc/ with a C entry point that launches kernels.
-N_SOURCES = 8
+N_SOURCES = 9
 
 
 def rx_power_taps(irs, lo=None) -> int:
@@ -999,7 +1019,7 @@ def _gradient_phase(mesh, flat, bvh, dev, kernels):
                                         rx_mode="analytic", env_hit=env),
         "fused": lambda txp: dt(scene.vertices, txp, dirs, RX, RX_RADIUS),
     }
-    needs = {"scan": (K_HIT, K_HIST), "fused": (K_FUSED, K_HIST)}
+    needs = {"scan": (K_HIT, K_HIST), "fused": (K_FUSED, K_ORDER, K_HIST)}
     out = {}
     for name, trace in traces.items():
         tx_c = torch.tensor(TX, device=dev)
@@ -2544,6 +2564,133 @@ def _trace_close(k, p, what: str):
     return amp_err, dist_err
 
 
+def iid_directions(dev):
+    """5,242,880 i.i.d. uniform directions, as the facade's default sampler
+    draws them (seed 22)."""
+    import torch
+
+    from rfx_torch.sampler import sphere_directions
+
+    return sphere_directions(N_RAYS, generator=torch.Generator(dev).manual_seed(22), device=dev)
+
+
+@contextlib.contextmanager
+def _caller_order():
+    """Within it, every uncounted fused launch walks the caller's order."""
+    from rfx_torch.ops import fused
+
+    before, fused.ORDER_MIN_RAYS = fused.ORDER_MIN_RAYS, 2**31
+    try:
+        yield
+    finally:
+        fused.ORDER_MIN_RAYS = before
+
+
+def _ordered_vs_caller(bvh, d, args, what: str, record_faces: bool = False) -> dict:
+    """The fused trace of `d` walked in direction-cell order (one launch of
+    the order) against the same launch in the caller's order (none): every
+    output, and the face record, the same bits. Returns each side's
+    CUDA-event ms a call."""
+    import torch
+
+    from rfx_torch.ops.fused import fused_trace
+    from rfx_torch.ops.ray_order import RAY_ORDER_KERNEL
+
+    def call():
+        out = fused_trace(bvh, d, *args, max_bounces=BOUNCES, record_faces=record_faces)
+        return [*out[0][:4], out[1]] if record_faces else list(out[:4])
+
+    before = RAY_ORDER_KERNEL.launches
+    ordered = call()
+    _sync()
+    _require(RAY_ORDER_KERNEL.launches == before + 1, f"{what}: the launch was not ordered once")
+    with _caller_order():
+        caller = call()
+        _sync()
+        _require(RAY_ORDER_KERNEL.launches == before + 1, f"{what}: the caller's order ordered")
+        caller_ms = _cuda_ms(call, 10)
+    _require(all(map(torch.equal, ordered, caller)),
+             f"{what}: the trace in cell order differs from the caller's order")
+    out = {"ms": _cuda_ms(call, 10), "caller_order_ms": caller_ms}
+    print(f"# fused trace in cell order, {what}, {d.shape[0]} rays"
+          f"{' with the face record' if record_faces else ''}: == the caller's order bit for bit; "
+          f"{out['ms']:.4f} ms (order, walk, put-back), {caller_ms:.4f} ms in the caller's order",
+          flush=True)
+    return out
+
+
+def _ray_order_phase(bvh, morton, args, dev) -> dict:
+    """Phase 4's direction-cell order at the main paths' shapes: the order of
+    5,242,880 i.i.d. and Morton rays against its plain version (the same keys
+    and cell counts, an order that is a permutation with `rank` its inverse,
+    the keys along it the plain stable sort's), timed beside the plain version,
+    argsort with a gather and the bound; the ordered fused trace against its
+    plain version on the first ORDER_MIN_RAYS i.i.d. rays (the smallest launch
+    it orders), with and without the face record; and at 5,242,880 rays (the
+    face record at 2,621,440) the same bits as the caller's order."""
+    import torch
+
+    from rfx_torch.ops import fused
+    from rfx_torch.ops.fused import fused_trace, fused_trace_plain
+    from rfx_torch.ops.ray_order import RAY_ORDER_KERNEL, cell_bits, ray_order, ray_order_plain
+
+    iid = iid_directions(dev)
+    bits = cell_bits(N_RAYS)
+    every = torch.arange(N_RAYS, dtype=torch.int32, device=dev)
+    out = {"rays": N_RAYS, "bits": bits}
+    for name, d in (("iid", iid), ("morton", morton)):
+        k = ray_order(d)
+        p = ray_order_plain(d.cpu(), bits)
+        _sync()
+        _require(torch.equal(k.keys.cpu(), p.keys), f"ray order, {name}: keys differ from plain")
+        _require(torch.equal(k.counts.cpu(), p.counts), f"ray order, {name}: counts differ")
+        _require(int(k.order.min()) >= 0 and int(k.order.max()) < N_RAYS,
+                 f"ray order, {name}: an index out of range")
+        _require(torch.equal(k.rank[k.order.long()], every) and torch.equal(k.order[k.rank.long()], every),
+                 f"ray order, {name}: not a permutation with rank its inverse")
+        _require(torch.equal(k.keys[k.order.long()].cpu(), p.keys[p.order.long()]),
+                 f"ray order, {name}: the keys along the order differ from the plain sort's")
+        out[name] = {"ms": _cuda_ms(lambda d=d: ray_order(d), 20),
+                     "queued_ms": queued_ms(lambda d=d: ray_order(d), 20),
+                     "largest_cell": int(k.counts.max()), "empty_cells": int((k.counts == 0).sum())}
+        del k, p
+    out["plain_ms"] = _cuda_ms(lambda: ray_order_plain(iid, bits), 3)
+    keys = ray_order(iid).keys.clone()
+    out["library_ms"] = _cuda_ms(lambda: iid[torch.argsort(keys)], 20)
+    out["bound"] = _bound(ORDER_BYTES * N_RAYS, ORDER_FLOPS * N_RAYS)
+    del keys
+    print(f"# ray order, {N_RAYS} rays on 2^{bits} x 2^{bits} cells: keys and counts == plain, "
+          f"a permutation with its inverse, sorted as plain; i.i.d. {out['iid']['ms']:.4f} ms "
+          f"({out['iid']['queued_ms']:.4f} queued), Morton {out['morton']['ms']:.4f} ms "
+          f"({out['morton']['queued_ms']:.4f} queued), plain {out['plain_ms']:.3f} ms, argsort and "
+          f"gather {out['library_ms']:.4f} ms, bound {out['bound']['bound_ms']:.4f} ms", flush=True)
+
+    m = fused.ORDER_MIN_RAYS
+    sub = iid[:m].contiguous()
+    before = RAY_ORDER_KERNEL.launches
+    k_out = fused_trace(bvh, sub, *args, max_bounces=BOUNCES)
+    k_res, k_faces = fused_trace(bvh, sub, *args, max_bounces=BOUNCES, record_faces=True)
+    _sync()
+    _require(RAY_ORDER_KERNEL.launches == before + 2, f"{m} rays: the launches were not ordered")
+    p_res, p_faces = fused_trace_plain(bvh, sub, *args, max_bounces=BOUNCES, record_faces=True)
+    _sync()
+    amp_err, dist_err = _trace_close(k_out, p_res, f"fused trace in cell order, {m} rays")
+    _require(torch.equal(k_faces, p_faces), f"{m} rays in cell order: face records differ from plain")
+    _require(all(map(torch.equal, k_res[:4], k_out[:4])), "the face record changed the ordered trace")
+    out["max_abs_err"], out["min_rays"] = max(amp_err, dist_err), m
+    print(f"# fused trace in cell order, {m} i.i.d. rays: kernel == plain (captures "
+          f"{int(p_res.captured.sum())}, bounces {int(p_res.num_bounces.sum())}), max |d amp| "
+          f"{amp_err:.3e}, max |d dist| {dist_err:.3e}; face record == plain", flush=True)
+    del k_out, k_res, k_faces, p_res, p_faces
+    out["k1_iid"] = _ordered_vs_caller(bvh, iid, args, "bench terrain, i.i.d.")
+    out["k1_morton"] = _ordered_vs_caller(bvh, morton, args, "bench terrain, Morton")
+    out["k1_faces_iid"] = _ordered_vs_caller(bvh, iid[:GRAD_RAYS].contiguous(), args,
+                                             "bench terrain, i.i.d.", record_faces=True)
+    out["k1_faces_morton"] = _ordered_vs_caller(bvh, morton[:GRAD_RAYS].contiguous(), args,
+                                                "bench terrain, Morton", record_faces=True)
+    return out
+
+
 def _counters_vs_plain(bvh, sub, args, what: str, brute=None):
     """The counted fused kernel on `sub` against `fused_trace_walk_plain`:
     counters integer for integer, the counted trace == the uncounted
@@ -2622,6 +2769,10 @@ def _large_mesh_phase(root, dev, kernels, bench_bvh, bench_dirs):
     out["subset"] = _counters_vs_plain(bvh, sub, args, "1M-triangle terrain", brute)
     out["subset"].update(fused_ms=k_ms, brute_plain_ms=brute_ms)
     del brute
+    # Cell order at the path's width: the same bits as the caller's order.
+    out["cell_order"] = {
+        "iid": _ordered_vs_caller(bvh, iid_directions(dev), args, "1M-triangle terrain, i.i.d."),
+        "morton": _ordered_vs_caller(bvh, dirs, args, "1M-triangle terrain, Morton")}
 
     # The path itself.
     def path():
@@ -2634,7 +2785,7 @@ def _large_mesh_phase(root, dev, kernels, bench_bvh, bench_dirs):
         return res
 
     res, launches["large_mesh"] = _counted(
-        kernels, "large mesh", (K_FUSED, K_COUNTED, K_HIT, K_HIT_COUNTED, K_HIST), path)
+        kernels, "large mesh", (K_FUSED, K_ORDER, K_COUNTED, K_HIT, K_HIT_COUNTED, K_HIST), path)
     out.update(res)
     par, cir_, wc, pq = res["parity"], res["cir"], res["walk_counters"], res["perquery_vs_fused"]
     out["fused_bound"] = _fused_bound(bvh, wc)
@@ -2955,6 +3106,7 @@ def main() -> int:
     from rfx_torch.geometry import make_terrain
     from rfx_torch.ops import native_lib
     from rfx_torch.ops.fused import FUSED_TRACE_KERNEL, FusedTracer, fused_trace, fused_trace_plain
+    from rfx_torch.ops.ray_order import RAY_ORDER_KERNEL
     from rfx_torch.sampler import morton_sphere_directions
 
     # Full f32 everywhere (no TF32 matmul or convolution), as the JAX
@@ -2971,7 +3123,7 @@ def main() -> int:
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     print(card, flush=True)
 
-    # 2. Build the eight CUDA sources and the native BVH builder from the
+    # 2. Build the nine CUDA sources and the native BVH builder from the
     #    sources in this checkout, one compiler each, all started together;
     #    the counted fused trace, the counted closest hit, the slab reduction,
     #    the phasor metric's walk, spread, table and backward, the RX-power
@@ -3024,6 +3176,7 @@ def main() -> int:
     print(f"# fused trace, {SUBSET} rays: kernel == plain (captures {n_cap_sub}, bounces "
           f"{int(p_out.num_bounces.sum())}), max |d amp| {amp_err:.3e}, max |d dist| "
           f"{dist_err:.3e}; kernel {k1_ms_sub:.4f} ms, plain {k1_plain_ms_sub:.2f} ms", flush=True)
+    order = _ray_order_phase(bvh, dirs, args, dev)
 
     # 5. IR histogram kernel against its plain version on the full trace.
     full = fused_trace(bvh, dirs, *args, max_bounces=BOUNCES)
@@ -3097,8 +3250,9 @@ def main() -> int:
         _require(float(ir.sum()) > 0.0, f"request {i}: IR sum is 0")
         _require(np.isfinite(dbm), f"request {i}: dBm is not finite")
     launches = {K_FUSED: FUSED_TRACE_KERNEL.launches, K_HIST: cir.HISTOGRAM_KERNEL.launches,
-                K_POWER: cir.RX_POWER_KERNEL.launches}
+                K_POWER: cir.RX_POWER_KERNEL.launches, K_ORDER: RAY_ORDER_KERNEL.launches}
     _require(all(v > 0 for v in launches.values()), f"a kernel did not run: {launches}")
+    _require(launches[K_ORDER] == launches[K_FUSED], f"a request was not ordered: {launches}")
     _require(np.array_equal(requests[0][3], ir_k.cpu().numpy()),
              "the main path's first IR differs from the checked kernels' IR")
     # K-P on that IR, the `cir` command's single-IR call.
@@ -3212,10 +3366,36 @@ def main() -> int:
          **_suffixed(large["fused_bound"], "_large_mesh"),
          "plain_ms_large_mesh": sub14["brute_plain_ms"],
          "ms_at_plain_shape_large_mesh": sub14["fused_ms"],
-         "shape": f"ms, bound_ms: {N_RAYS} rays x {BOUNCES} bounces on the bench terrain, the "
-                  f"operations from this run's walk counters; plain_ms, ms_at_plain_shape, "
-                  f"ms_record_faces: {SUBSET} rays; *_large_mesh: the 1,045,458-triangle "
-                  f"terrain, {N_RAYS} rays (plain: {LARGE_SUBSET} rays)"},
+         "max_abs_err_cell_order": order["max_abs_err"],
+         **{f"{k}_{leg}": order[leg][k] for leg in ("k1_iid", "k1_morton", "k1_faces_iid",
+                                                     "k1_faces_morton")
+            for k in ("ms", "caller_order_ms")},
+         **{f"{k}_k1_{leg}_large_mesh": large["cell_order"][leg][k] for leg in ("iid", "morton")
+            for k in ("ms", "caller_order_ms")},
+         "shape": f"ms, bound_ms: {N_RAYS} Morton rays x {BOUNCES} bounces on the bench terrain, "
+                  f"walked in direction-cell order (order, walk and put-back), the operations "
+                  f"from this run's walk counters; plain_ms, ms_at_plain_shape, ms_record_faces: "
+                  f"{SUBSET} rays, in the caller's order; *_large_mesh: the 1,045,458-triangle "
+                  f"terrain, {N_RAYS} rays (plain: {LARGE_SUBSET} rays); max_abs_err_cell_order: "
+                  f"{order['min_rays']} i.i.d. rays in cell order against the plain "
+                  f"version; *_k1_iid / *_k1_morton: {N_RAYS} i.i.d. / Morton rays, ms in cell "
+                  f"order and caller_order_ms in the caller's, the same bits; *_k1_faces_*: "
+                  f"{GRAD_RAYS} rays with the face record"},
+        {"name": "ray_order", "route": "cuda", "source": "rfx_torch/csrc/ray_order.cu",
+         "replaces": "rfx/sampler.py:86", **counts(K_ORDER), "max_abs_err": 0,
+         "ms": order["iid"]["ms"], "queued_ms": order["iid"]["queued_ms"],
+         "plain_ms": order["plain_ms"], **order["bound"], "library_ms": order["library_ms"],
+         "ms_morton": order["morton"]["ms"], "queued_ms_morton": order["morton"]["queued_ms"],
+         "largest_cell": order["iid"]["largest_cell"], "empty_cells": order["iid"]["empty_cells"],
+         "shape": f"the direction-cell order of {N_RAYS} i.i.d. rays (*_morton: Morton rays) on "
+                  f"2^{order['bits']} x 2^{order['bits']} octahedral cells: the memset and the "
+                  f"two kernels; keys and counts equal the plain version's (max_abs_err 0), the "
+                  f"order a permutation with rank its inverse, the keys along it the plain "
+                  f"stable sort's; queued_ms the device's own time a call; plain_ms: "
+                  f"ray_order_plain on the card; library_ms: argsort of the keys and a gather "
+                  f"of the directions; bound_ms: {ORDER_BYTES} bytes and {ORDER_FLOPS} f32 "
+                  f"operations a ray; the TPU path had its rays Morton-ordered by the sampler's "
+                  f"argsort"},
         {"name": "fused_trace_counted", "route": "cuda",
          "source": "rfx_torch/csrc/fused_trace.cu", "replaces": "rfx/ops/pallas_fused.py:62",
          **counts(K_COUNTED),

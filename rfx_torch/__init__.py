@@ -6,12 +6,17 @@ host modules (`geometry.py`, `bvh.py`, `config.py`, `viz/`, `utils/`), and an
 `rfx` mesh or BVH crosses by field through `convert.py`.
 
 Every public entry point takes `device=` (default `"cuda"`). On a CUDA tensor
-the hand-written kernels run, twenty-two C entry points in eight sources of
+the hand-written kernels run, twenty-three C entry points in nine sources of
 rfx_torch/csrc/, built with nvcc at first use (`ops/_build.py`):
-twenty-one launch kernels, and `rfx_map_capture_backward_blocks` gives the
+twenty-two launch kernels, and `rfx_map_capture_backward_blocks` gives the
 rows of the map capture backward's scratch. The sources:
 
-- `fused_trace.cu`: the fused bounce loop and its counted instantiation;
+- `fused_trace.cu`: the fused bounce loop, which walks its rays in the
+  order it is given and writes each ray's outputs at the ray's own index,
+  and its counted instantiation;
+- `ray_order.cu`: the rays' direction-cell order, a counting sort of the
+  ray indices by each direction's cell on an octahedral lattice, which the
+  fused trace walks (`ops/ray_order.py`);
 - `closest_hit.cu`: the per-query closest hit and its counted instantiation;
 - `histogram.cu`: the IR histogram, one launch for a batch of rows, and
   its record entry, which bins the map engine's first-capture record (and

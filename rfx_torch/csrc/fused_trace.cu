@@ -27,8 +27,16 @@
 // the lanes of a warp that wait for each other, not by DRAM bandwidth. What
 // the design does about it: the walk of bvh_walk.cuh (a node is one 32-byte
 // sector, lanes step through boxes together and test leaves together);
-// Morton-ordered rays (rfx_torch.sampler.morton_sphere_directions) keep the
-// 32 walks of a warp coherent; every table is read through
+// the rays are walked in direction-cell order, so the 32 walks of a warp
+// stay coherent whatever order the caller's rays come in: the wrapper sorts
+// the ray indices by the octahedral cell of each direction (ray_order.cu, a
+// counting sort in one memset and two kernels), thread i traces ray
+// order[i] and leaves its outputs in slot i, one 16-byte record (and its
+// faces), and walk_put_back_kernel gathers each ray's record back to the
+// ray's own index, so each output keeps its bits. Writing the outputs at
+// order[i] from the walk instead scatters 4-byte stores over 68 MB at
+// 5,242,880 rays, and measured 0.86-0.90 ms slower than the walk and the
+// gather together (PERF.md); every table is read through
 // `const __restrict__` pointers so the loads can use the read-only path; the
 // face record is (B, N) int32, so a warp's writes for one bounce are
 // contiguous.
@@ -73,6 +81,7 @@ using rfx::kMissThreshold;
 using rfx::kTMin;
 
 constexpr int kThreads = 128;
+constexpr int kPutBackThreads = 256;
 constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr int kStatsPerBounce = 4;  // nodes, leaves, tris, warp_steps
 
@@ -168,13 +177,19 @@ __device__ __forceinline__ Ray ray_from(const float* __restrict__ dirs, int ray,
   return r;
 }
 
+// -1 in the face record's rows of the bounces the ray did not make.
+__device__ __forceinline__ void fill_unbounced(const Ray& r, int slot, int n, int max_bounces,
+                                               int* __restrict__ faces) {
+  if (faces != nullptr) {
+    for (int b = r.nb; b < max_bounces; ++b) faces[static_cast<size_t>(b) * n + slot] = -1;
+  }
+}
+
 __device__ __forceinline__ void store(const Ray& r, int ray, int n, int max_bounces,
                                       bool* __restrict__ captured, float* __restrict__ cap_amp,
                                       float* __restrict__ cap_dist, int* __restrict__ num_bounces,
                                       int* __restrict__ faces) {
-  if (faces != nullptr) {
-    for (int b = r.nb; b < max_bounces; ++b) faces[static_cast<size_t>(b) * n + ray] = -1;
-  }
+  fill_unbounced(r, ray, n, max_bounces, faces);
   captured[ray] = r.capt;
   cap_amp[ray] = r.camp;
   cap_dist[ray] = r.cdist;
@@ -188,16 +203,48 @@ __global__ void __launch_bounds__(kThreads) fused_trace_kernel(
     float tx0, float tx1, float tx2, float rx0, float rx1, float rx2,
     float r2, float n1, float n2, int max_bounces,
     bool* __restrict__ captured, float* __restrict__ cap_amp,
-    float* __restrict__ cap_dist, int* __restrict__ num_bounces, int* __restrict__ faces) {
-  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ray >= n) return;
+    float* __restrict__ cap_dist, int* __restrict__ num_bounces, int* __restrict__ faces,
+    const int* __restrict__ order, float4* __restrict__ walked) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int ray = order != nullptr ? order[i] : i;
   const Scene scene{nodes, n_nodes, tris, tri_face, rx0, rx1, rx2, r2, n1, n2};
   Ray r = ray_from(dirs, ray, tx0, tx1, tx2);
   rfx::NoCount counter;
+  // The face record goes to slot i: the ray's own index in the caller's
+  // order, the walk's scratch in cell order.
   for (int b = 0; b < max_bounces; ++b) {
-    if (!bounce(r, scene, b, ray, n, faces, counter)) break;
+    if (!bounce(r, scene, b, i, n, faces, counter)) break;
   }
-  store(r, ray, n, max_bounces, captured, cap_amp, cap_dist, num_bounces, faces);
+  if (walked == nullptr) {
+    store(r, i, n, max_bounces, captured, cap_amp, cap_dist, num_bounces, faces);
+    return;
+  }
+  fill_unbounced(r, i, n, max_bounces, faces);
+  walked[i] = make_float4(r.camp, r.cdist, __int_as_float(r.nb), __int_as_float(r.capt ? 1 : 0));
+}
+
+// Cell order's outputs back at each ray's own index: ray i's record is the
+// walk's slot rank[i]. A gather, so every write is coalesced and each ray
+// reads one 16-byte record (and its faces) from where the walk left it.
+__global__ void __launch_bounds__(kPutBackThreads) walk_put_back_kernel(
+    const float4* __restrict__ walked, const int* __restrict__ walked_faces,
+    const int* __restrict__ rank, int n, int max_bounces, bool* __restrict__ captured,
+    float* __restrict__ cap_amp, float* __restrict__ cap_dist, int* __restrict__ num_bounces,
+    int* __restrict__ faces) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int j = rank[i];
+  const float4 q = walked[j];
+  captured[i] = __float_as_int(q.w) != 0;
+  cap_amp[i] = q.x;
+  cap_dist[i] = q.y;
+  num_bounces[i] = __float_as_int(q.z);
+  if (faces != nullptr) {
+    for (int b = 0; b < max_bounces; ++b) {
+      faces[static_cast<size_t>(b) * n + i] = walked_faces[static_cast<size_t>(b) * n + j];
+    }
+  }
 }
 
 // stats is (max_bounces, kStatsPerBounce) unsigned 64-bit, zeroed by the
@@ -248,20 +295,36 @@ __global__ void __launch_bounds__(kThreads) fused_trace_counted_kernel(
 }  // namespace
 
 // tri_face and faces may be null (no face record); faces is (max_bounces, n).
+// order and rank may be null (the caller's order), or an (n,) int32
+// permutation and its inverse (rfx_ray_order): thread i then traces ray
+// order[i] into slot i of walked, (n,) float4 records (amplitude, distance,
+// bounces, captured), and of walked_faces, (max_bounces, n) int32 where faces
+// are recorded, and walk_put_back_kernel puts them back at each ray's index.
 extern "C" int rfx_fused_trace(
     const void* dirs, int n, const void* nodes, int n_nodes, const void* tris,
     const void* tri_face, float tx0, float tx1, float tx2,
     float rx0, float rx1, float rx2, float r2, float n1, float n2,
     int max_bounces, void* captured, void* cap_amp, void* cap_dist,
-    void* num_bounces, void* faces, void* stream) {
+    void* num_bounces, void* faces, const void* order, const void* rank, void* walked,
+    void* walked_faces, void* stream) {
   if (n > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const bool ordered = order != nullptr;
     const int blocks = (n + kThreads - 1) / kThreads;
-    fused_trace_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    fused_trace_kernel<<<blocks, kThreads, 0, s>>>(
         static_cast<const float*>(dirs), n, static_cast<const float4*>(nodes), n_nodes,
         static_cast<const float4*>(tris), static_cast<const int*>(tri_face), tx0, tx1, tx2, rx0,
         rx1, rx2, r2, n1, n2, max_bounces, static_cast<bool*>(captured),
         static_cast<float*>(cap_amp), static_cast<float*>(cap_dist),
-        static_cast<int*>(num_bounces), static_cast<int*>(faces));
+        static_cast<int*>(num_bounces), static_cast<int*>(ordered ? walked_faces : faces),
+        static_cast<const int*>(order), ordered ? static_cast<float4*>(walked) : nullptr);
+    if (ordered) {
+      walk_put_back_kernel<<<(n + kPutBackThreads - 1) / kPutBackThreads, kPutBackThreads, 0, s>>>(
+          static_cast<const float4*>(walked), static_cast<const int*>(walked_faces),
+          static_cast<const int*>(rank), n, max_bounces, static_cast<bool*>(captured),
+          static_cast<float*>(cap_amp), static_cast<float*>(cap_dist),
+          static_cast<int*>(num_bounces), static_cast<int*>(faces));
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,6 +10,18 @@ arcsin), equal to rfx.physics.fresnel_bounce_amplitude within f32 rounding.
 With `record_faces` it also returns the (B, N) int32 table of the original
 face each ray hit at each bounce where it env-bounced (-1 elsewhere).
 
+On the card a launch of at least `ORDER_MIN_RAYS` rays is walked in
+direction-cell order: `rfx_torch.ops.ray_order` sorts the ray indices by
+the octahedral cell of each direction (a counting sort on the card), the
+kernel's thread i traces ray order[i] and leaves its outputs (and face
+record) in slot i of a scratch, and a second kernel gathers each ray's
+outputs back to the ray's own index. A ray's trace depends on nothing but
+its own direction, the scene and the scalars, so every output keeps the
+bits of the caller's order; what changes is that a warp's 32 walks leave
+the transmitter inside one small cone. Every call orders its own rays. The
+counted instantiation keeps the caller's order, since its `warp_steps` is
+defined over 32 consecutive caller rays.
+
 `make_diff_fused_tracer` is the differentiable fused path: the forward is
 the kernel with `record_faces`, the backward replays the captured rays on
 their recorded faces in closed form (`replay_from_faces`, plain PyTorch
@@ -51,21 +63,35 @@ from rfx_torch.ops.intersect import (
     ray_sphere_hit,
     sphere_t,
 )
+from rfx_torch.ops.ray_order import ray_order
 from rfx_torch.tracer import TraceResult
+from rfx_torch.utils import profiling
 from rfx_torch.utils.profiling import spanned
 
 __all__ = ["FusedTracer", "make_fused_tracer", "fused_trace", "fused_trace_plain",
            "fused_trace_walk_plain", "replay_from_faces", "make_diff_fused_tracer",
-           "FUSED_TRACE_KERNEL", "FUSED_TRACE_COUNTED_KERNEL", "WARP"]
+           "FUSED_TRACE_KERNEL", "FUSED_TRACE_COUNTED_KERNEL", "WARP", "ORDER_MIN_RAYS"]
 
 _TRACE_ARGS = [P, I, P, I, P, P, F, F, F, F, F, F, F, F, F, I, P, P, P, P, P]
-FUSED_TRACE_KERNEL = CudaKernel("fused_trace.cu", "rfx_fused_trace", [*_TRACE_ARGS, P])
+# The arguments, then the cell order, its rank, the walk's (N, 4) records and
+# (B, N) faces (all null in the caller's order), and the stream.
+FUSED_TRACE_KERNEL = CudaKernel("fused_trace.cu", "rfx_fused_trace", [*_TRACE_ARGS, P, P, P, P, P])
 # The counted instantiation: the same arguments, then the (B, 4) counters.
 FUSED_TRACE_COUNTED_KERNEL = CudaKernel("fused_trace.cu", "rfx_fused_trace_counted",
                                         [*_TRACE_ARGS, P, P])
 
 #: Rays per group of the `warp_steps` counter: the card's warp width.
 WARP = 32
+
+#: The kernel walks the rays of a launch of at least this many rays in
+#: direction-cell order (`rfx_torch.ops.ray_order`), and below it in the
+#: caller's: the crossover measured on the card, where ordering costs what
+#: it gains. On an NVIDIA H100 80GB HBM3 (700 W; scripts/torch_bench_kernels.py
+#: --only order, i.i.d. rays on the bench terrain, two rounds), the caller's
+#: order against ordering (sort, walk and put-back together): 0.245 / 0.257
+#: ms at 262,144 rays, 0.268-0.270 / 0.258-0.268 at 327,680, 0.290-0.295 /
+#: 0.273-0.275 at 393,216, 0.622-0.625 / 0.402-0.408 at 1,048,576.
+ORDER_MIN_RAYS = 393_216
 
 
 def _scalars(tx_pos, rx_pos, rx_radius, n1, n2):
@@ -247,17 +273,29 @@ def _fused_launch(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, rx_r
     result = TraceResult(captured, cap_amp, cap_dist, nb)
     if n == 0:
         return _extras(result, faces, stats)
+    # The counted walk keeps the caller's order: its `warp_steps` is defined
+    # over 32 consecutive caller rays.
+    ordered = not count_stats and n >= ORDER_MIN_RAYS
+    profiling.tally("rays_fused", n)
+    profiling.tally("rays_ordered", n if ordered else 0)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         args = (d.data_ptr(), n, bvh.nodes.data_ptr(), bvh.n_nodes, bvh.tri.data_ptr(),
-                bvh.tri_face.data_ptr() if record_faces else None,
+                ptr(bvh.tri_face if record_faces else None),
                 *map(float, tx), *map(float, rx), float(r2), float(n1s), float(n2s),
                 int(max_bounces), captured.data_ptr(), cap_amp.data_ptr(), cap_dist.data_ptr(),
-                nb.data_ptr(), faces.data_ptr() if record_faces else None)
+                nb.data_ptr(), ptr(faces))
         if count_stats:
             FUSED_TRACE_COUNTED_KERNEL.launch(*args, stats.data_ptr(), stream)
+        elif ordered:
+            cells = ray_order(d)
+            walked = torch.empty((n, 4), dtype=torch.float32, device=dev)
+            walked_faces = torch.empty_like(faces) if record_faces else None
+            FUSED_TRACE_KERNEL.launch(*args, cells.order.data_ptr(), cells.rank.data_ptr(),
+                                      walked.data_ptr(), ptr(walked_faces), stream)
         else:
-            FUSED_TRACE_KERNEL.launch(*args, stream)
+            FUSED_TRACE_KERNEL.launch(*args, None, None, None, None, stream)
     return _extras(result, faces, stats)
 
 

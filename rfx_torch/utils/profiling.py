@@ -37,8 +37,10 @@ kernel or once a ray, and no counter reads the device. The spans:
 `counters()` holds two kinds of entries. Tallies: the payload bytes of the
 `rfx.wait.*` sites, `bytes_to_host` and `bytes_to_device`, and of those the
 bytes that crossed through page-locked host memory, `bytes_pinned_to_host`
-and `bytes_pinned_to_device`, counted only while a profiler records: in a
-benchmark's traced run, exactly its traced units. Gauges of the last BVH
+and `bytes_pinned_to_device`; the rays the fused kernel walked on the card,
+`rays_fused`, and of those the rays it walked in direction-cell order,
+`rays_ordered` (rfx_torch/ops/fused.py); all counted only while a profiler
+records: in a benchmark's traced run, exactly its traced units. Gauges of the last BVH
 set-up, set whether or not a profiler records (set-up runs before one
 starts), and absent until the first build: `bvh_build_s`, the host seconds
 of the last `build_bvh`; `bvh_native`, 1 if the native builder made that
@@ -77,7 +79,7 @@ from dataclasses import dataclass, field
 import torch
 
 __all__ = ["device_trace", "PhaseTimer", "block_until_ready", "span", "spanned", "wait",
-           "to_device", "to_host", "counters", "set_gauge", "PINNED_MIN_BYTES"]
+           "to_device", "to_host", "counters", "tally", "set_gauge", "PINNED_MIN_BYTES"]
 
 try:
     from torch._C._profiler import _RecordFunctionFast
@@ -87,7 +89,8 @@ except ImportError:  # an older torch: record_function while a profiler records
 _profiler_enabled = torch._C._autograd._profiler_enabled
 
 _COUNTERS = {"bytes_to_host": 0, "bytes_to_device": 0,
-             "bytes_pinned_to_host": 0, "bytes_pinned_to_device": 0}
+             "bytes_pinned_to_host": 0, "bytes_pinned_to_device": 0,
+             "rays_fused": 0, "rays_ordered": 0}
 _GAUGES = {}
 
 #: Payloads of at least this many bytes cross through page-locked memory:
@@ -166,6 +169,12 @@ def to_host(site: str, x: torch.Tensor) -> torch.Tensor:
         return torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x)
 
 
+def tally(name: str, value: int) -> None:
+    """Add `value` to the tally `name` of `counters()` while a profiler records."""
+    if _profiler_enabled():
+        _COUNTERS[name] += int(value)
+
+
 def set_gauge(name: str, value) -> None:
     """Set the gauge `name` of `counters()`, whether or not a profiler records."""
     _GAUGES[name] = value
@@ -173,8 +182,8 @@ def set_gauge(name: str, value) -> None:
 
 def counters() -> dict:
     """A copy of the counters: the tallies bytes_to_host, bytes_to_device,
-    bytes_pinned_to_host, bytes_pinned_to_device, and the gauges set so far
-    (bvh_build_s, bvh_native, bvh_table_bytes)."""
+    bytes_pinned_to_host, bytes_pinned_to_device, rays_fused, rays_ordered,
+    and the gauges set so far (bvh_build_s, bvh_native, bvh_table_bytes)."""
     return {**_COUNTERS, **_GAUGES}
 
 

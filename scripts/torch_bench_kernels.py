@@ -2,7 +2,7 @@
 """Time the port's hand-written kernels at the shapes of their main paths on
 one NVIDIA GPU, and hold them against another checkout's kernels.
 
-    python3 scripts/torch_bench_kernels.py [--other DIR] [--only k3,kf,ks,ksb,ksi,khi,kb,ksbi]
+    python3 scripts/torch_bench_kernels.py [--other DIR] [--only k1,order,k3,kf,ks,ksb,...]
                                            [--reps N]
                                            [--out build/bench_kernels.json]
 
@@ -12,7 +12,23 @@ bench terrain, the coverage sweeps) and of scripts/torch_bench_large_mesh.py
 events, the mean of `--reps` calls after one warm-up):
 
 - K1, the fused trace, 5,242,880 Morton rays x 4 bounces on both terrains,
-  with the counted instantiation and the face record beside it;
+  with the counted instantiation and the face record beside it, and the
+  Morton rays in the caller's order (`morton_caller_ms`); then the CIR
+  cells' i.i.d. rays (gpubench's `direction_pool`, seed 0) in the
+  checkout's own order (`iid_ms`: direction-cell order, ordering included)
+  and in the caller's (`iid_caller_ms`), whether the two give the same bits,
+  and the same two ways with the face record at the scan gradient's
+  2,621,440 i.i.d. rays (`faces_iid_ms`, `faces_iid_caller_ms`);
+- the direction-cell order (`order`, a checkout without it skips the row):
+  the ordering kernels alone at 5,242,880 i.i.d. rays on each lattice of 6
+  to 10 bits a side (keys and counts against the plain version, the device
+  time of each kernel), with K1 on both terrains walking each lattice's
+  order (three rounds over the lattices, and each kernel's device time);
+  `torch.argsort` of the keys plus a gather of the directions
+  (`library_ms`); the bound (36 bytes a ray); and the crossover behind
+  `ORDER_MIN_RAYS`: K1 on the bench terrain at 16,384 to 5,242,880 i.i.d.
+  rays in the caller's order (`caller_ms`) against ordering, K1 and the
+  put-back (`ordered_ms`), two rounds each;
 - K2, the per-query closest hit, on the bench terrain at 65,536, 1,048,576
   and 2,621,440 rays from tx (the shapes of the checks, of the solver and
   the coverage trace, of the scan gradient path) and on their second-bounce
@@ -106,6 +122,7 @@ power limit.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -143,6 +160,28 @@ def _ms_held(fn, reps):
     return _ms(fn, reps)
 
 
+def _device_ops(fn, reps: int) -> dict:
+    """The device's ms a call of `fn`, by kernel, memset or copy (the part of
+    its name before the arguments), from torch.profiler's raw records, which
+    hold the kernels launched through ctypes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if "CUDA" in str(e.device_type):
+            name = e.name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+            name = name.split("::")[-1].replace("void ", "").strip()
+            out[name] = out.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / reps
+    return out
+
+
 def _digest(tensors) -> str:
     h = hashlib.sha256()
     for t in tensors:
@@ -173,7 +212,17 @@ class Workloads:
             self.cov[name] = (scaled, torch.as_tensor(grid, device=dev))
         self._solver = None
         self._ico = self._ico_room = None
+        self._iid = {}
         torch.cuda.synchronize()
+
+    def iid(self, n: int):
+        """n i.i.d. directions drawn as the benchmark's CIR cells draw each
+        of their sets (gpubench/harness/inputs.py:direction_pool, seed 0)."""
+        from gpubench.harness.inputs import direction_pool
+
+        if n not in self._iid:
+            self._iid[n] = direction_pool(n, 1, 0, self.dev)[0]
+        return self._iid[n]
 
     def solver(self):
         """chip_smoke.py phase 11's segments of tx and its 64 receivers."""
@@ -192,22 +241,150 @@ class Workloads:
         return self._solver
 
 
+@contextlib.contextmanager
+def _order_from(rays: int):
+    """Within it, the fused trace walks a launch in direction-cell order from
+    `rays` rays up (2**31: every launch in the caller's order, as a checkout
+    without the direction-cell order always does; 0: every launch ordered)."""
+    from rfx_torch.ops import fused
+
+    before = getattr(fused, "ORDER_MIN_RAYS", None)
+    if before is not None:
+        fused.ORDER_MIN_RAYS = rays
+    try:
+        yield
+    finally:
+        if before is not None:
+            fused.ORDER_MIN_RAYS = before
+
+
+CALLER = 2**31
+
+
+@contextlib.contextmanager
+def _lattice(bits: int):
+    """Within it, the direction-cell order takes the lattice of `bits`."""
+    from rfx_torch.ops import ray_order
+
+    before = ray_order.cell_bits
+    ray_order.cell_bits = lambda n: bits
+    try:
+        yield
+    finally:
+        ray_order.cell_bits = before
+
+
 def run_k1(w: Workloads, reps: int, keep: dict) -> dict:
+    """K1 on Morton rays (as before) and on the cells' i.i.d. rays, the
+    latter in the checkout's own order (`iid_ms`) and in the caller's
+    (`iid_caller_ms`), each with its digest; with the face record at the
+    scan gradient's 2,621,440 i.i.d. rays the same two ways."""
+    import torch
+
     from rfx_torch.ops.fused import fused_trace
 
     out = {}
     kw = dict(max_bounces=smoke.BOUNCES)
+    iid = w.iid(smoke.N_RAYS)
+    grad_iid = iid[:smoke.GRAD_RAYS].contiguous()
     for name, bvh in w.bvh.items():
         s = SCENES[name]
         args = (bvh, w.dirs, s["tx"], s["rx"], s["radius"], 5.0, 1.0)
         res, ms = _ms(lambda: fused_trace(*args, **kw), reps)
         (cres, stats), cms = _ms(lambda: fused_trace(*args, count_stats=True, **kw), reps)
         (fres, faces), fms = _ms(lambda: fused_trace(*args, record_faces=True, **kw), reps)
+        with _order_from(CALLER):
+            _, morton_caller_ms = _ms(lambda: fused_trace(*args, **kw), reps)
         out[name] = {"ms": ms, "counted_ms": cms, "record_faces_ms": fms,
+                     "morton_caller_ms": morton_caller_ms,
                      "digest": _digest(res[:4]), "counted_digest": _digest(cres[:4]),
                      "faces_digest": _digest([*fres[:4], faces]),
                      "counters": stats.tolist(), "captured": int(res.captured.sum())}
         keep[f"k1_{name}"] = [t.cpu() for t in res[:4]]
+        iargs = (bvh, iid, *args[2:])
+        ires, out[name]["iid_ms"] = _ms(lambda: fused_trace(*iargs, **kw), reps)
+        out[name]["iid_device_ms"] = _device_ops(lambda: fused_trace(*iargs, **kw), reps)
+        with _order_from(CALLER):
+            cres, out[name]["iid_caller_ms"] = _ms(lambda: fused_trace(*iargs, **kw), reps)
+        out[name]["iid_digest"] = _digest(ires[:4])
+        out[name]["iid_equal_caller"] = all(map(torch.equal, ires[:4], cres[:4]))
+        keep[f"k1_{name}_iid"] = [t.cpu() for t in ires[:4]]
+        gargs = (bvh, grad_iid, *args[2:])
+        (gres, gfaces), out[name]["faces_iid_ms"] = _ms(
+            lambda: fused_trace(*gargs, record_faces=True, **kw), reps)
+        out[name]["faces_iid_device_ms"] = _device_ops(
+            lambda: fused_trace(*gargs, record_faces=True, **kw), reps)
+        with _order_from(CALLER):
+            (cres, cfaces), out[name]["faces_iid_caller_ms"] = _ms(
+                lambda: fused_trace(*gargs, record_faces=True, **kw), reps)
+        out[name]["faces_iid_equal_caller"] = all(
+            map(torch.equal, [*gres[:4], gfaces], [*cres[:4], cfaces]))
+    return out
+
+
+def run_order(w: Workloads, reps: int) -> dict:
+    """The direction-cell order (a checkout without it skips this row): the
+    ordering kernels alone at the cells' 5,242,880 i.i.d. rays, on each
+    lattice of 6 to 10 bits a side, with K1 on both terrains walking that
+    lattice's order; `torch.argsort` of the same keys plus a gather of the
+    directions as the yardstick (`library_ms`); and the crossover: on the
+    bench terrain at 16,384 to 5,242,880 i.i.d. rays, K1 in the caller's order
+    against the ordering kernels and K1 in cell order (`ordered_ms`)."""
+    import torch
+
+    try:
+        from rfx_torch.ops import ray_order as ro
+    except ImportError:
+        return {}
+    from rfx_torch.ops.fused import fused_trace
+
+    kw = dict(max_bounces=smoke.BOUNCES)
+    iid = w.iid(smoke.N_RAYS)
+    n = iid.shape[0]
+    out = {"rays": n, "default_bits": ro.cell_bits(n), "lattices": {}}
+    lattices = range(ro.MIN_BITS, ro.MAX_BITS + 1)
+    for bits in lattices:
+        cells, ms = _ms(lambda: ro.ray_order(iid, bits), reps)
+        plain = ro.cell_keys_plain(iid, bits)
+        out["lattices"][bits] = {
+            "order_ms": ms, "order_device_ms": _device_ops(lambda: ro.ray_order(iid, bits), reps),
+            "keys_equal_plain": torch.equal(cells.keys, plain),
+            "counts_equal_plain": torch.equal(cells.counts, torch.bincount(
+                plain, minlength=1 << (2 * bits)).to(torch.int32)),
+            "largest_cell": int(cells.counts.max()), "empty_cells": int((cells.counts == 0).sum())}
+    for name, bvh in w.bvh.items():
+        s = SCENES[name]
+
+        def trace(bvh=bvh, s=s):
+            return fused_trace(bvh, iid, s["tx"], s["rx"], s["radius"], 5.0, 1.0, **kw)
+
+        for _ in range(3):  # rounds over the lattices, so that drift shows as spread
+            for bits in lattices:
+                with _lattice(bits):
+                    out["lattices"][bits].setdefault(f"k1_{name}_ms", []).append(_ms(trace, reps)[1])
+        for bits in lattices:
+            with _lattice(bits):
+                out["lattices"][bits][f"k1_{name}_device_ms"] = _device_ops(trace, reps)
+    keys = ro.cell_keys_plain(iid, ro.cell_bits(n))
+    _, out["library_ms"] = _ms(lambda: iid[torch.argsort(keys)], reps)
+    out["bound_ms"] = 36 * n / smoke.PEAK_BYTES_PER_S * 1e3
+    s = SCENES["bench"]
+    cross = {}
+    for m in (16_384, 65_536, 131_072, 262_144, 327_680, 393_216, 524_288, 786_432, 1_048_576,
+              2_621_440, n):
+        d = iid[:m].contiguous()
+
+        def call(d=d):
+            return fused_trace(w.bvh["bench"], d, s["tx"], s["rx"], s["radius"], 5.0, 1.0, **kw)
+
+        row = cross[m] = {"bits": ro.cell_bits(m)}
+        for _ in range(2):
+            with _order_from(CALLER):
+                row.setdefault("caller_ms", []).append(_ms(call, reps)[1])
+            with _order_from(0):
+                row.setdefault("ordered_ms", []).append(_ms(call, reps)[1])
+        row["order_ms"] = _ms(lambda: ro.ray_order(d), reps)[1]
+    out["crossover"] = cross
     return out
 
 
@@ -717,14 +894,16 @@ def run_ksbi(w: Workloads, reps: int, keep: dict) -> dict:
     return out
 
 
-ROWS = ("k1", "k2", "k3", "kh", "kp", "kf", "kpb", "kfb", "ks", "ksb", "ksi", "khi", "kb", "ksbi")
+ROWS = ("k1", "order", "k2", "k3", "kh", "kp", "kf", "kpb", "kfb", "ks", "ksb", "ksi", "khi", "kb",
+        "ksbi")
 KS_ROWS = ("ks", "ksb", "ksi", "khi", "kb", "ksbi")  # printed whole
 
 
 def _run_all(w: Workloads, reps: int, keep: dict, only=ROWS) -> dict:
     """The rows named in `only` (K-P's rows and its backward's take K3's IRs:
     "kp" and "kpb" run "k3")."""
-    runs = {"k1": lambda: run_k1(w, reps, keep), "k2": lambda: run_k2(w, reps),
+    runs = {"k1": lambda: run_k1(w, reps, keep), "order": lambda: run_order(w, reps),
+            "k2": lambda: run_k2(w, reps),
             "k3": lambda: run_k3(w, reps, keep), "kh": lambda: run_kh(w, reps, keep),
             "kp": lambda: run_kp(w, reps, keep), "kf": lambda: run_kf(w, reps, keep),
             "kpb": lambda: run_kpb(w, reps, keep), "kfb": lambda: run_kfb(w, reps, keep),
@@ -865,6 +1044,10 @@ def main(argv=None) -> int:
                                    for s, t in out["here"].get("k2", {}).items()},
                       "k1_counted_ms": {s: v["counted_ms"]
                                         for s, v in out["here"].get("k1", {}).items()},
+                      "k1_iid": {s: {k: v for k, v in t.items() if k.startswith(("iid", "faces_iid",
+                                                                                 "morton"))}
+                                 for s, t in out["here"].get("k1", {}).items()},
+                      "order": out["here"].get("order"),
                       "kp_kf": {k: {s: {f: v for f, v in t.items() if f != "digest"}
                                     for s, t in out["here"].get(k, {}).items()}
                                 for k in ("kp", "kf", "kpb", "kfb")},

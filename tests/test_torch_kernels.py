@@ -18,8 +18,8 @@ from rfx_torch.api import Tracer
 from rfx_torch.geometry import make_room, make_terrain
 from rfx_torch import tracer
 from rfx_torch.ops import (bvh_trace, bvh_traverse, coverage_hist, fused, intersect, map_capture,
-                           micro_vote)
-from rfx_torch.sampler import morton_sphere_directions
+                           micro_vote, ray_order)
+from rfx_torch.sampler import morton_sphere_directions, sphere_directions
 from rfx_torch.tracer import EnvSegments, Scene, trace_env, trace_to_rx
 from rfx_torch.utils import profiling
 
@@ -290,6 +290,107 @@ def test_fused_record_faces_kernel_matches_plain(cuda):
     _assert_trace_equal(k, p)
     for a, b in zip(k[:4], plain[:4]):  # the record leaves the trace as it was
         assert torch.equal(a, b)
+
+
+def _iid(n, cuda, seed=11):
+    return sphere_directions(n, generator=torch.Generator(cuda).manual_seed(seed), device=cuda)
+
+
+@pytest.fixture(scope="module")
+def bench_terrain():
+    """The bench terrain (chip_smoke.py's, the CIR cells' `ref_main_terrain`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: torch.cuda.is_available() is False")
+    return fused.make_fused_tracer(make_terrain(grid=128, extent=60.0, seed=0), max_bounces=4,
+                                   device=torch.device("cuda", 0))
+
+
+@pytest.mark.parametrize("n", [5_242_880, 1_000_003])
+def test_ordered_fused_kernel_keeps_every_output_bit(cuda, bench_terrain, monkeypatch, n):
+    """I.i.d. rays on the bench terrain at the cells' size and at a ragged
+    one: K1 walking the direction-cell order gives the four outputs of K1 in
+    the caller's order bit for bit, and the same bits on a second call; so
+    does the face record."""
+    ft = bench_terrain
+    dirs = _iid(n, cuda)
+    args = ([10.0, 0.0, 25.0], [-10.0, 0.0, 8.0], 1.0)
+    assert n >= fused.ORDER_MIN_RAYS
+    before = (ray_order.RAY_ORDER_KERNEL.launches, fused.FUSED_TRACE_KERNEL.launches)
+    ordered = fused.fused_trace(ft.bvh, dirs, *args, max_bounces=4)
+    again = fused.fused_trace(ft.bvh, dirs, *args, max_bounces=4)
+    assert (ray_order.RAY_ORDER_KERNEL.launches, fused.FUSED_TRACE_KERNEL.launches) == (
+        before[0] + 2, before[1] + 2)
+    of = fused.fused_trace(ft.bvh, dirs, *args, max_bounces=4, record_faces=True)
+    monkeypatch.setattr(fused, "ORDER_MIN_RAYS", 2**31)
+    caller = fused.fused_trace(ft.bvh, dirs, *args, max_bounces=4)
+    cf = fused.fused_trace(ft.bvh, dirs, *args, max_bounces=4, record_faces=True)
+    torch.cuda.synchronize()
+    assert int(caller.captured.sum()) > 0
+    for a, b, c in zip(ordered[:4], caller[:4], again[:4]):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    for a, b in zip((*of[0][:4], of[1]), (*cf[0][:4], cf[1])):
+        assert torch.equal(a, b)
+
+
+_SPECIAL = [[0.0, 0.0, 1.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0], [-1.0, 0.0, 0.0], [0.0, 1.0, 0.0],
+            [0.0, -1.0, 0.0], [0.6, 0.3, 1e-7], [0.6, 0.3, -1e-7], [-0.0, -0.0, -1.0],
+            [0.0, 0.0, 0.0], [1e-30, -1e-30, 1e-30]]
+
+
+@pytest.mark.parametrize("bits", list(range(ray_order.MIN_BITS, ray_order.MAX_BITS + 1)))
+@pytest.mark.parametrize("n", [1_000_003, 37])
+def test_ray_order_kernel_matches_plain(cuda, bits, n):
+    """The ordering kernels against their plain version on every lattice:
+    the same key for every ray (the poles, the axes, both sides of the fold,
+    a zero direction among them), the same count in every cell, an order
+    that is a permutation of the rays with non-decreasing keys, and a rank
+    that is its inverse."""
+    dirs = torch.cat([torch.tensor(_SPECIAL, device=cuda), _iid(n, cuda, seed=bits)])
+    order, rank, keys, counts = ray_order.ray_order(dirs, bits)
+    p_order, _, p_keys, p_counts = ray_order.ray_order_plain(dirs, bits)
+    torch.cuda.synchronize()
+    m = dirs.shape[0]
+    every = torch.arange(m, dtype=torch.int32, device=cuda)
+    assert order.dtype == rank.dtype == keys.dtype == counts.dtype == torch.int32
+    assert order.shape == rank.shape == keys.shape == (m,)
+    assert counts.shape == (1 << (2 * bits),)
+    assert torch.equal(keys, p_keys) and torch.equal(counts, p_counts)
+    assert torch.equal(torch.sort(order).values, every)
+    assert torch.equal(order[rank.long()], every)
+    walked = keys[order.long()]
+    assert bool((walked[1:] >= walked[:-1]).all())
+    assert torch.equal(walked, p_keys[p_order.long()])
+
+
+def test_fused_kernel_counts_the_rays_it_walks_in_cell_order(cuda):
+    """Under a profiler `rays_fused` and `rays_ordered` both count a launch's
+    rays from `ORDER_MIN_RAYS` up; below it, and in the counted walk, only
+    `rays_fused` does; with no profiler neither moves."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ft = fused.make_fused_tracer(make_terrain(grid=48, extent=40.0, seed=3), max_bounces=4,
+                                 device=cuda)
+    args = ([2.0, 1.0, 12.0], [-5.0, 2.0, 6.0], 2.0)
+    big, small = fused.ORDER_MIN_RAYS, fused.ORDER_MIN_RAYS - 1
+
+    def moved(n, **kw):
+        dirs = _iid(n, cuda)
+        before = profiling.counters()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            fused.fused_trace(ft.bvh, dirs, *args, max_bounces=4, **kw)
+            torch.cuda.synchronize()
+        after = profiling.counters()
+        return after["rays_fused"] - before["rays_fused"], after["rays_ordered"] - before[
+            "rays_ordered"]
+
+    assert moved(big) == (big, big)
+    assert moved(small) == (small, 0)
+    assert moved(big, count_stats=True) == (big, 0)
+    before = profiling.counters()
+    fused.fused_trace(ft.bvh, _iid(big, cuda), *args, max_bounces=4)
+    after = profiling.counters()
+    assert (after["rays_fused"], after["rays_ordered"]) == (before["rays_fused"],
+                                                            before["rays_ordered"])
 
 
 @pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
