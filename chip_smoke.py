@@ -929,8 +929,8 @@ def _closest_hit_phase(mesh, bvh, sub):
     o2 = (o1 + sub * t1[:, None])[hit].contiguous()
     d2 = (sub - 2.0 * dot3(sub, n1)[:, None] * n1)[hit].contiguous()
     parked = torch.full((1024, 3), 1e9, device=dev)
-    v0, e1, e2, _ = mesh_soa(torch.as_tensor(mesh.vertices, device=dev),
-                             torch.as_tensor(mesh.faces, device=dev))
+    v0, e1, e2 = mesh_soa(torch.as_tensor(mesh.vertices, device=dev),
+                          torch.as_tensor(mesh.faces, device=dev))
     shrink = 0.999
     live = bvh_trace.live_tri(bvh, v0 + (1.0 - shrink) / 3.0 * (e1 + e2), shrink * e1,
                               shrink * e2)
@@ -2062,7 +2062,7 @@ def brute_request_inputs(dirs):
     (radius RX_RADIUS) with its bounding sphere as the cull."""
     import torch
 
-    from rfx_torch.tracer import icosphere_soa
+    from rfx_torch.ops.intersect import icosphere_soa
 
     dev = dirs.device
     o = torch.tensor(TX, device=dev).expand(dirs.shape[0], 3).contiguous()
@@ -2075,10 +2075,10 @@ def brute_env_inputs(scene, segs):
     """K-B's inputs on an environment: (o, d, v0, e1, e2, None), every
     segment of `segs` (both bounces' queries) against the faces of `scene`,
     no cull."""
-    from rfx_torch.tracer import mesh_soa
+    from rfx_torch.ops.intersect import mesh_soa
 
-    v0, e1, e2, _ = mesh_soa(scene.vertices, scene.faces)
-    return segs.origin.reshape(-1, 3), segs.direction.reshape(-1, 3), v0, e1, e2, None
+    return (segs.origin.reshape(-1, 3), segs.direction.reshape(-1, 3),
+            *mesh_soa(scene.vertices, scene.faces), None)
 
 
 def _icosphere_cir_leg(terrain, dev, kernels, card):

@@ -52,7 +52,8 @@ whose backward is the backward kernel on the card and its plain version on
 the CPU; the coverage histogram has no backward (nor has rfx's batched
 engine): on the card an input that requires grad raises there. Asking for
 CUDA where there is no card raises. Gradients flow through the scan tracer
-(`tracer.py`), the differentiable fused tracer (`ops/fused.py`), the
+(`tracer.py`, whose closest hits share one backward, `ops/intersect.py`'s
+`differentiable_hit`), the differentiable fused tracer (`ops/fused.py`), the
 coverage engine (`coverage.py`: the map engine, the RX-power and the phasor
 metrics) and the inverse solver (`solver.py`).
 

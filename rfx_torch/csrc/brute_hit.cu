@@ -9,7 +9,7 @@
 // room) and the scan tracer's icosphere receiver (the reference's 80-face
 // receiver, rfx/tracer.py:87-104); the test and the cull are brute_hit.cuh's,
 // shared with the map engine's icosphere capture pass. The gradient is the
-// selected face's closed-form t (rfx_torch/ops/intersect.py:_BruteHit), which
+// selected face's closed-form t (rfx_torch/ops/intersect.py:_ClosestHit), which
 // stays elementwise PyTorch.
 //
 // What bounds it on an H100: the tests, 54 f32 operations each (an

@@ -140,7 +140,7 @@ __device__ __forceinline__ bool cull_pass(const Ray& r, float cx, float cy, floa
 
 // Face f of the icosphere about (cx, cy, cz) whose faces scaled by the
 // radius are unit_r ((80, 9): unit * radius): (unit_r[f].v0 + c, e1, e2),
-// v0 rounded as rfx_torch.tracer.icosphere_tris rounds it (the product,
+// v0 rounded as rfx_torch.ops.intersect.icosphere_tris rounds it (the product,
 // then the sum).
 __device__ __forceinline__ void ico_face(const float* unit_r, int f, float cx, float cy, float cz,
                                          float (&tri)[kTriFloats]) {

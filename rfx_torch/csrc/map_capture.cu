@@ -698,9 +698,9 @@ extern "C" int rfx_map_capture(const void* origin, const void* dir, const void* 
 }
 
 // rfx_map_capture for the icosphere receiver: unit (80, 9) f32, the unit
-// icosphere's faces (v0, e1, e2) (rfx_torch.tracer.unit_icosphere_tris);
+// icosphere's faces (v0, e1, e2) (rfx_torch.ops.intersect.unit_icosphere_tris);
 // receiver r's faces are (unit_v0 * radius + centers[r], unit_e1 * radius,
-// unit_e2 * radius), rfx_torch.tracer.icosphere_tris's bits, and the cull's
+// unit_e2 * radius), rfx_torch.ops.intersect.icosphere_tris's bits, and the cull's
 // sphere is (centers[r], radius). The same record; t_first: (m, n) f32,
 // written where the record names a capture (receiver r's t on the segment
 // of its first capture along ray i) and nowhere else.

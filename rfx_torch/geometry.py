@@ -3,7 +3,7 @@
 The port's own copy of rfx/geometry.py (numpy only; the port imports nothing
 of the JAX package), held against the original by
 tests/test_torch_host_copies.py. A host-side NumPy `TriangleMesh`; the
-device-side SoA arrays (v0 / e1 / e2 / normals) are derived from
+device-side SoA arrays (v0 / e1 / e2) are derived from
 `vertices` / `faces` by rfx_torch.ops.intersect.mesh_soa, so vertex positions
 remain differentiable parameters (ref: tracer.py:22-30 uses trimesh STL
 loading + `wp.Mesh` upload).

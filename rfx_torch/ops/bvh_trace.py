@@ -9,16 +9,16 @@ fused bounce-loop kernel, and the two share one plain version: brute force
 over the packed triangles in padded order, the first minimum winning, which
 is what the walk's strict `<` in preorder gives.
 
-`make_kernel_env_hit` wraps it as the tracers' `env_hit(o, d, v0, e1, e2,
-normals) -> (t, face, nrm)` with the backward of the reference's custom VJPs
-(:757-858): hit selection is straight-through, and the closed-form t of the
-selected triangle is differentiated at sanitized lanes (o -> 0, d -> 1 where
-there is no hit). With `differentiable_tris`, the triangles are repacked
-from the caller's (v0, e1, e2) every call (`live_tri`), and the backward
-also carries the normal's cotangent through unit(cross(e1, e2)); both are
-scatter-added into v0, e1 and e2 at the original face ids. Hit selection
-still uses the host-built node boxes: rebuild the BVH when vertices move
-materially (the reference's caveat, :735-738).
+`make_kernel_env_hit` wraps it as the tracers' `env_hit(o, d, v0, e1, e2)
+-> (t, face, nrm)`, whose backward is the reference's custom VJP
+(:757-858) through rfx_torch.ops.intersect's one `differentiable_hit`: on
+the baked triangles the selected row of the table, with cotangents to o and
+d only. With `differentiable_tris`, the triangles are repacked from the
+caller's (v0, e1, e2) every call (`live_tri`), the cotangent of t is
+scatter-added into them at the original face id, and the normal of a hit is
+unit(cross(e1[f], e2[f])), the live table's bits, differentiable by
+autograd. Hit selection still uses the host-built node boxes: rebuild the
+BVH when vertices move materially (the reference's caveat, :735-738).
 
 The reference's `optimization_barrier`s work around XLA-TPU fusion faults
 and have no counterpart here; the sanitization is mathematics and stays.
@@ -39,9 +39,10 @@ from rfx_torch.ops.bvh_pack import PackedBVH, pack_bvh
 from rfx_torch.ops.intersect import (
     MISS,
     T_MIN_EPS,
+    _unit,
     cross3,
-    is_hit,
-    sanitized_t_vjp,
+    differentiable_hit,
+    hit_normal_from_edges,
 )
 from rfx_torch.utils.profiling import spanned
 
@@ -189,10 +190,6 @@ def closest_hit(bvh: PackedBVH, o, d, tri=None, *, count: bool = False):
     return (t, idx, face, nrm, counts.long()) if count else (t, idx, face, nrm)
 
 
-def _unit(n):
-    return n / torch.linalg.norm(n, dim=-1, keepdim=True).clamp_min(1e-30)
-
-
 def live_tri(bvh: PackedBVH, v0, e1, e2):
     """(P, 12) triangle table repacked from original-order (F, 3) v0, e1, e2
     through `tri_face`, with the unit normal unit(cross(e1, e2)); padding
@@ -207,77 +204,42 @@ def live_tri(bvh: PackedBVH, v0, e1, e2):
     return torch.cat([lv0, le1, le2, _unit(cross3(le1, le2))], dim=1).contiguous()
 
 
-class _KernelHit(torch.autograd.Function):
-    """Closest hit on the baked triangles; the t backward runs on the baked
-    triangle at the padded index (pallas_trace.py:757-794). face and nrm are
-    not differentiable (the normal is piecewise constant in (o, d))."""
-
-    @staticmethod
-    def forward(ctx, o, d, bvh):
-        t, idx, face, nrm = closest_hit(bvh, o, d)
-        ctx.mark_non_differentiable(face, nrm)
-        ctx.save_for_backward(o, d, idx, t)
-        ctx.bvh = bvh
-        return t, face, nrm
-
-    @staticmethod
-    def backward(ctx, g_t, _g_face, _g_nrm):
-        o, d, idx, t = ctx.saved_tensors
-        tri = ctx.bvh.tri[idx.clamp_min(0).long()]
-        hit = (idx >= 0) & is_hit(t)
-        go, gd, *_ = sanitized_t_vjp(o, d, tri[:, 0:3], tri[:, 3:6], tri[:, 6:9], g_t, hit)
-        return go, gd, None
-
-
-class _KernelHitDiff(torch.autograd.Function):
-    """Closest hit on the triangles repacked from live (v0, e1, e2), with
-    cotangents to them through t and the normal at the original face id
-    (pallas_trace.py:801-853)."""
-
-    @staticmethod
-    def forward(ctx, o, d, v0, e1, e2, bvh):
-        t, _idx, face, nrm = closest_hit(bvh, o, d, live_tri(bvh, v0, e1, e2))
-        ctx.mark_non_differentiable(face)
-        ctx.save_for_backward(o, d, v0, e1, e2, face, t)
-        return t, face, nrm
-
-    @staticmethod
-    def backward(ctx, g_t, _g_face, g_nrm):
-        o, d, v0, e1, e2, face, t = ctx.saved_tensors
-        sel = face.clamp_min(0).long()
-        hit = (face >= 0) & is_hit(t)
-        fv0, fe1, fe2 = v0[sel], e1[sel], e2[sel]
-        go, gd, gv0, ge1, ge2 = sanitized_t_vjp(o, d, fv0, fe1, fe2, g_t, hit)
-        zero = torch.zeros((), dtype=o.dtype, device=o.device)
-        gn = torch.where(hit[:, None], g_nrm, zero)
-        b, c = fe1.detach().requires_grad_(), fe2.detach().requires_grad_()
-        with torch.enable_grad():
-            ge1n, ge2n = torch.autograd.grad(_unit(cross3(b, c)), (b, c), gn)
-        keep = hit[:, None].to(o.dtype)
-        gv0_full = torch.zeros_like(v0).index_add_(0, sel, gv0 * keep)
-        ge1_full = torch.zeros_like(e1).index_add_(0, sel, (ge1 + ge1n) * keep)
-        ge2_full = torch.zeros_like(e2).index_add_(0, sel, (ge2 + ge2n) * keep)
-        return go, gd, gv0_full, ge1_full, ge2_full, None
-
-
 def make_kernel_env_hit(bvh_or_mesh, *, differentiable_tris: bool = False, device="cuda"):
-    """env_hit(o, d, v0, e1, e2, normals) -> (t, face, nrm) through the
-    per-query kernel, from a PackedBVH (shared with a FusedTracer), a
-    FlatBVH or a TriangleMesh (built at leaf 8). The normal comes from the
-    triangle table, not from `normals` (ignored)."""
+    """env_hit(o, d, v0, e1, e2) -> (t, face, nrm) through the per-query
+    kernel, from a PackedBVH (shared with a FusedTracer), a FlatBVH or a
+    TriangleMesh (built at leaf 8), differentiable through
+    `differentiable_hit`. On the baked triangles the gradient of t reaches o
+    and d, and the normal is the table's; with `differentiable_tris` the
+    kernel walks the triangles repacked from the caller's (v0, e1, e2)
+    (`live_tri`), t's cotangent reaches them at the hit's original face id,
+    and the normal on a hit is unit(cross(e1[f], e2[f])), the table's bits,
+    differentiable in the edges."""
     if isinstance(bvh_or_mesh, PackedBVH):
         bvh = bvh_or_mesh
     else:
         bvh = pack_bvh(resolve_flat_bvh(bvh_or_mesh, leaf_size=8), resolve_device(device))
 
     if differentiable_tris:
+        def select(o, d, v0, e1, e2):
+            t, _idx, face, nrm = closest_hit(bvh, o, d, live_tri(bvh, v0, e1, e2))
+            return t, face, nrm
+
         @spanned("rfx.ops.env_hit")
-        def env_hit(o, d, v0, e1, e2, normals):
-            return _KernelHitDiff.apply(o, d, v0, e1, e2, bvh)
+        def env_hit(o, d, v0, e1, e2):
+            t, face, nrm = differentiable_hit(select, o, d, v0, e1, e2)
+            # A miss keeps the kernel's zero normal.
+            return t, face, torch.where((face >= 0)[:, None], hit_normal_from_edges(e1, e2, face),
+                                        nrm)
     else:
+        baked = (bvh.tri[:, 0:3], bvh.tri[:, 3:6], bvh.tri[:, 6:9])
+
+        def select(o, d, *_):
+            return closest_hit(bvh, o, d)
+
         @spanned("rfx.ops.env_hit")
-        def env_hit(o, d, v0, e1, e2, normals):
-            return _KernelHit.apply(o, d, bvh)
+        def env_hit(o, d, v0, e1, e2):
+            t, _idx, face, nrm = differentiable_hit(select, o, d, *baked)
+            return t, face, nrm
 
     env_hit.bvh = bvh
     return env_hit

@@ -15,10 +15,9 @@ That is the order and the arithmetic of the CUDA walk
 once), so `walk_closest_hit` serves three things:
 
 - the `bvh` backend of `make_env_intersector` and of the facade
-  (`make_bvh_env_hit`), with the reference's custom gradient: hit selection
-  is straight-through, the closed-form t of the selected triangle is
-  differentiated at sanitized lanes, and with `differentiable_tris` the
-  triangle cotangents are scatter-added into the caller's v0, e1, e2;
+  (`make_bvh_env_hit`), with the reference's custom gradient through
+  rfx_torch.ops.intersect's one `differentiable_hit`: with
+  `differentiable_tris` the cotangent of t reaches the caller's v0, e1, e2;
 - an independent reference for the kernels on meshes too large for brute
   force (another tree, another leaf size, the same closest hits off ties);
 - with `count=True`, the plain version of the fused kernel's walk counters:
@@ -41,9 +40,8 @@ from rfx_torch.ops.bvh_trace import live_tri, mt_block
 from rfx_torch.ops.intersect import (
     MISS,
     T_MIN_EPS,
+    differentiable_hit,
     hit_normal_from_edges,
-    is_hit,
-    sanitized_t_vjp,
 )
 
 __all__ = ["walk_closest_hit", "make_bvh_env_hit"]
@@ -107,55 +105,44 @@ def walk_closest_hit(bvh: PackedBVH, o, d, tri=None, *, count: bool = False):
     return (t_best, best, counts) if count else (t_best, best)
 
 
-class _WalkHit(torch.autograd.Function):
-    """The walk's closest hit over a (P, 12) triangle table, with the
-    backward of rfx/ops/bvh_traverse.py:167-212: the closed-form t on the
-    selected triangle, non-hit lanes sanitized, and the triangle cotangents
-    scatter-added into the table's rows where the table requires them."""
-
-    @staticmethod
-    def forward(ctx, o, d, tri, bvh):
-        t, idx = walk_closest_hit(bvh, o, d, tri)
-        face = torch.where(idx >= 0, bvh.tri_face[idx.clamp_min(0)],
-                           torch.full((), -1, dtype=torch.int32, device=o.device))
-        ctx.mark_non_differentiable(face)
-        ctx.save_for_backward(o, d, tri, idx, t)
-        return t, face
-
-    @staticmethod
-    def backward(ctx, g_t, _g_face):
-        o, d, tri, idx, t = ctx.saved_tensors
-        sel = idx.clamp_min(0)
-        rows = tri[sel]
-        hit = (idx >= 0) & is_hit(t)
-        go, gd, gv0, ge1, ge2 = sanitized_t_vjp(o, d, rows[:, 0:3], rows[:, 3:6], rows[:, 6:9],
-                                                g_t, hit)
-        g_tri = None
-        if ctx.needs_input_grad[2]:
-            keep = hit[:, None].to(o.dtype)
-            g_rows = torch.cat([gv0, ge1, ge2, torch.zeros_like(gv0)], dim=1) * keep
-            g_tri = torch.zeros_like(tri).index_add_(0, sel, g_rows)
-        return go, gd, g_tri, None
-
-
 def make_bvh_env_hit(bvh_or_mesh, *, differentiable_tris: bool = False, device="cuda"):
-    """env_hit(o, d, v0, e1, e2, normals) -> (t, face, nrm) through the plain
+    """env_hit(o, d, v0, e1, e2) -> (t, face, nrm) through the plain
     stackless walk (rfx/ops/bvh_traverse.py:make_bvh_env_hit), from a
-    PackedBVH, a FlatBVH or a TriangleMesh (built at the default leaf size).
-    The normal is unit(cross(e1[f], e2[f])), differentiable in the edges.
+    PackedBVH, a FlatBVH or a TriangleMesh (built at the default leaf size),
+    differentiable through `differentiable_hit`. The normal is
+    unit(cross(e1[f], e2[f])), differentiable in the edges.
 
     Hit selection ignores the caller's (v0, e1, e2): the BVH carries its own
     leaf-ordered copy. With `differentiable_tris` that copy is gathered from
-    them at every call, so the gradient of t reaches the vertices."""
+    them at every call, and the gradient of t reaches them at the hit's
+    original face id; without, it reaches o and d only."""
     if isinstance(bvh_or_mesh, PackedBVH):
         bvh = bvh_or_mesh
     else:
         bvh = pack_bvh(resolve_flat_bvh(bvh_or_mesh, leaf_size=LEAF_SIZE), resolve_device(device))
+    no_face = torch.full((), -1, dtype=torch.int32, device=bvh.tri_face.device)
 
-    def env_hit(o, d, v0, e1, e2, normals):
-        tri = live_tri(bvh, v0, e1, e2) if differentiable_tris else bvh.tri
-        t, face = _WalkHit.apply(o, d, tri, bvh)
-        return t, face, hit_normal_from_edges(e1, e2, face)
+    def face_of(idx):
+        return torch.where(idx >= 0, bvh.tri_face[idx.clamp_min(0)], no_face)
+
+    if differentiable_tris:
+        def select(o, d, v0, e1, e2):
+            t, idx = walk_closest_hit(bvh, o, d, live_tri(bvh, v0, e1, e2))
+            return t, face_of(idx)
+
+        def env_hit(o, d, v0, e1, e2):
+            t, face = differentiable_hit(select, o, d, v0, e1, e2)
+            return t, face, hit_normal_from_edges(e1, e2, face)
+    else:
+        baked = (bvh.tri[:, 0:3], bvh.tri[:, 3:6], bvh.tri[:, 6:9])
+
+        def select(o, d, *_):
+            t, idx = walk_closest_hit(bvh, o, d)
+            return t, idx, face_of(idx)
+
+        def env_hit(o, d, v0, e1, e2):
+            t, _idx, face = differentiable_hit(select, o, d, *baked)
+            return t, face, hit_normal_from_edges(e1, e2, face)
 
     env_hit.bvh = bvh
     return env_hit

@@ -1,6 +1,12 @@
 """Ray-primitive intersection with the reference's custom gradients (port
 of rfx/ops/intersect.py).
 
+- `differentiable_hit`: the one backward of every closest-hit query
+  (`_ClosestHit`). A backend's selection picks (t, row) without autograd;
+  the backward is the reference's custom VJP, hit selection straight-through
+  and the closed-form t of the selected row differentiated at sanitized
+  lanes, written out by `closed_form_t_vjp` (as the map engine's icosphere
+  backward kernel computes it) and scatter-added into the rows.
 - `ray_mesh_closest_hit_brute`: Moller-Trumbore of every ray against every
   triangle. The closest-hit path of small meshes (the facade's `brute`
   backend) and of the icosphere receiver. On a CUDA tensor one launch of
@@ -8,17 +14,17 @@ of rfx/ops/intersect.py).
   with the receiver's bounding-sphere cull where the caller gives one); on a
   CPU tensor its plain version, `_brute_forward`, chunked over rays so the
   (rays x triangles) intermediates stay bounded. The same t and face either
-  way. Its backward is the reference's custom VJP: hit selection is
-  straight-through, and the closed-form t of the selected face is
-  differentiated at sanitized lanes. `closed_form_t_vjp` writes that VJP
-  out, as the map engine's icosphere backward kernel computes it.
+  way.
+- `icosphere_tris` / `icosphere_soa`: the receiver icosphere's faces, scaled
+  on the device from the cached unit table (`unit_icosphere_tris`).
 - `ray_sphere_hit`: closed-form sphere hit of the analytic receiver, with
   the implicit-function backward of the reference.
-- `make_env_intersector`: the `env_hit(o, d, v0, e1, e2, normals) -> (t,
-  face, nrm)` factory of the bounce-loop tracers, with the `brute` backend,
-  the `kernel` backend (the per-query BVH kernel of rfx_torch.ops.bvh_trace,
-  the counterpart of the reference's `pallas`) and the `bvh` backend (the
-  plain stackless walk of rfx_torch.ops.bvh_traverse).
+- `make_env_intersector`: the `env_hit(o, d, v0, e1, e2) -> (t, face, nrm)`
+  factory of the bounce-loop tracers, with the `brute` backend, the `kernel`
+  backend (the per-query BVH kernel of rfx_torch.ops.bvh_trace, the
+  counterpart of the reference's `pallas`) and the `bvh` backend (the plain
+  stackless walk of rfx_torch.ops.bvh_traverse), all through
+  `differentiable_hit`.
 
 Constants and the finite miss sentinel are the reference's
 (`rfx/ops/intersect.py:27-39`). Dot products are written out left to right,
@@ -27,8 +33,11 @@ so they round as the kernels' do.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from rfx_torch.geometry import icosphere
 from rfx_torch.ops._build import CudaKernel, F, I, P
 from rfx_torch.utils.profiling import spanned
 
@@ -77,12 +86,53 @@ def hit_normal_from_edges(e1: torch.Tensor, e2: torch.Tensor, face: torch.Tensor
 
 
 def mesh_soa(vertices: torch.Tensor, faces: torch.Tensor):
-    """(v0, e1, e2, unit normals) of an indexed mesh, each (F, 3)."""
+    """(v0, e1, e2) of an indexed mesh, each (F, 3)."""
     faces = faces.long()
     v0 = vertices[faces[:, 0]]
     e1 = vertices[faces[:, 1]] - v0
     e2 = vertices[faces[:, 2]] - v0
-    return v0, e1, e2, _unit(cross3(e1, e2))
+    return v0, e1, e2
+
+
+# Unit icosphere (42 vertices / 80 faces): the reference receiver's
+# tessellation (ref tracer.py:27).
+_UNIT_ICO_TRI = icosphere(center=(0.0, 0.0, 0.0), radius=1.0, subdivisions=1).triangles()
+
+
+def unit_icosphere_tris(device) -> torch.Tensor:
+    """(80, 9) f32: the unit icosphere's faces as rows (v0, e1, e2); one
+    tensor a device, made once (a copy from the host would wait for the
+    device's queue). Read it; do not write to it."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _unit_icosphere_tris(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _unit_icosphere_tris(device: torch.device) -> torch.Tensor:
+    tri = torch.as_tensor(_UNIT_ICO_TRI, dtype=torch.float32, device=device)
+    return torch.cat([tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]], dim=1)
+
+
+def icosphere_tris(centers: torch.Tensor, rx_radius) -> torch.Tensor:
+    """(R, 80, 9) f32: the faces (v0, e1, e2) of the icospheres of radius
+    rx_radius about the (R, 3) centers (what the map engine's icosphere
+    kernels read), scaled on the device from `unit_icosphere_tris`: a number
+    radius crosses as a kernel's scalar operand, a tensor radius keeps its
+    autograd."""
+    unit = unit_icosphere_tris(centers.device)
+    r = rx_radius.to(torch.float32) if isinstance(rx_radius, torch.Tensor) else float(rx_radius)
+    v0 = unit[None, :, 0:3] * r + centers[:, None, :]
+    edges = (unit[:, 3:9] * r).expand(centers.shape[0], -1, -1)
+    return torch.cat([v0, edges], dim=2)
+
+
+def icosphere_soa(center: torch.Tensor, rx_radius):
+    """(v0, e1, e2), each (80, 3), of the reference's receiver icosphere
+    about `center` (3,): `icosphere_tris` of that one center."""
+    tri = icosphere_tris(center.reshape(1, 3), rx_radius)[0]
+    return tri[:, 0:3], tri[:, 3:6], tri[:, 6:9]
 
 
 def closed_form_t(o, d, v0, e1, e2):
@@ -215,44 +265,46 @@ def closed_form_t_vjp(o, d, v0, e1, e2, g):
     return g_o, cross3(e2, g_p), -g_o, g_e1, g_e2
 
 
-def sanitized_t_vjp(o, d, v0, e1, e2, g, hit):
-    """VJP of `closed_form_t` for (ray, selected triangle) rows, evaluated with
-    o -> 0 and d -> 1 where `hit` is False: a parked ray (|o| ~ 1e9) overflows
-    the derivative's intermediates to inf, and a zero cotangent times inf is
-    NaN (rfx/ops/intersect.py:170-174). Returns (go, gd, gv0, ge1, ge2)."""
-    zero = torch.zeros((), dtype=o.dtype, device=o.device)
-    one = torch.ones((), dtype=o.dtype, device=o.device)
-    g = torch.where(hit, g, zero)
-    args = [torch.where(hit[:, None], o, zero).detach().requires_grad_(),
-            torch.where(hit[:, None], d, one).detach().requires_grad_(),
-            v0.detach().requires_grad_(), e1.detach().requires_grad_(),
-            e2.detach().requires_grad_()]
-    with torch.enable_grad():
-        t = closed_form_t(*args)
-        return torch.autograd.grad(t, args, g)
-
-
-class _BruteHit(torch.autograd.Function):
-    """Brute closest hit with the reference's custom VJP
-    (rfx/ops/intersect.py:159-185); face is an integer output."""
+class _ClosestHit(torch.autograd.Function):
+    """The environment's closest hit with the reference's custom VJP
+    (rfx/ops/intersect.py:159-185), whatever the backend's selection.
+    `select(o, d, v0, e1, e2)` -> (t, row, *rest) runs without autograd; row
+    is the index of the selected row of (v0, e1, e2), -1 on a miss; row and
+    rest are integer or piecewise constant outputs. The backward is
+    `closed_form_t_vjp` on the selected rows, with hit selection
+    straight-through: off-hit lanes take o -> 0, d -> 1 and a zero cotangent
+    (the reference's sanitizing, rfx/ops/intersect.py:170-174), so that no
+    parked ray (|o| ~ 1e9) or miss can set an inf beside a zero cotangent,
+    whose product is NaN. The triangle cotangents are scatter-added into the
+    rows that require grad."""
 
     @staticmethod
-    def forward(ctx, o, d, v0, e1, e2, t_min, t_max, ray_chunk, cull):
-        t, face = brute_hit(o, d, v0, e1, e2, t_min, t_max, ray_chunk, cull)
-        ctx.mark_non_differentiable(face)
-        ctx.save_for_backward(o, d, v0, e1, e2, face, t)
-        return t, face
+    def forward(ctx, select, o, d, v0, e1, e2):
+        t, row, *rest = select(o, d, v0, e1, e2)
+        ctx.mark_non_differentiable(row, *rest)
+        ctx.save_for_backward(o, d, v0, e1, e2, row, t)
+        return (t, row, *rest)
 
     @staticmethod
-    def backward(ctx, g_t, _g_face):
-        o, d, v0, e1, e2, face, t = ctx.saved_tensors
-        sel = face.clamp_min(0).long()
-        hit = (face >= 0) & is_hit(t)
-        go, gd, gv0, ge1, ge2 = sanitized_t_vjp(o, d, v0[sel], e1[sel], e2[sel], g_t, hit)
-        keep = hit[:, None].to(o.dtype)
-        full = [torch.zeros_like(a).index_add_(0, sel, ga * keep)
-                for a, ga in ((v0, gv0), (e1, ge1), (e2, ge2))]
-        return go, gd, *full, None, None, None, None
+    def backward(ctx, g_t, *_):
+        o, d, v0, e1, e2, row, t = ctx.saved_tensors
+        hit = (row >= 0) & is_hit(t)
+        sel = row.clamp_min(0).long()
+        zero = torch.zeros((), dtype=o.dtype, device=o.device)
+        one = torch.ones((), dtype=o.dtype, device=o.device)
+        go, gd, *g_rows = closed_form_t_vjp(
+            torch.where(hit[:, None], o, zero), torch.where(hit[:, None], d, one),
+            v0[sel], e1[sel], e2[sel], torch.where(hit, g_t, zero))
+        full = [torch.zeros_like(a).index_add_(0, sel, ga) if need else None
+                for a, ga, need in zip((v0, e1, e2), g_rows, ctx.needs_input_grad[3:])]
+        return None, go, gd, *full
+
+
+def differentiable_hit(select, o, d, v0, e1, e2):
+    """`select(o, d, v0, e1, e2)` -> (t, row, *rest), differentiable in o,
+    d and the rows (v0, e1, e2) through the selected row's closed-form t
+    (`_ClosestHit`): the one backward of every closest-hit backend."""
+    return _ClosestHit.apply(select, o, d, v0, e1, e2)
 
 
 def ray_mesh_closest_hit_brute(o, d, v0, e1, e2, t_min: float = T_MIN_EPS,
@@ -264,7 +316,10 @@ def ray_mesh_closest_hit_brute(o, d, v0, e1, e2, t_min: float = T_MIN_EPS,
     version, `ray_chunk` rays at a time, by default enough to keep chunk x T
     near 4M pairs). Differentiable in o, d, v0, e1 and e2 through the
     selected face's closed-form t (straight-through selection)."""
-    return _BruteHit.apply(o, d, v0, e1, e2, float(t_min), float(t_max), ray_chunk, cull)
+    def select(o, d, v0, e1, e2):
+        return brute_hit(o, d, v0, e1, e2, t_min, t_max, ray_chunk, cull)
+
+    return differentiable_hit(select, o, d, v0, e1, e2)
 
 
 def sphere_t(o, d, center, r2):
@@ -333,12 +388,12 @@ def ray_sphere_hit(o, d, center, radius):
 
 def make_env_intersector(backend: str = "brute", *, mesh=None, flat_bvh=None,
                          differentiable_tris: bool = False, device="cuda"):
-    """env_hit(o, d, v0, e1, e2, normals) -> (t, face, nrm), the bounce-loop
-    tracers' closest-hit query (rfx/ops/intersect.py:254-303).
+    """env_hit(o, d, v0, e1, e2) -> (t, face, nrm), the bounce-loop tracers'
+    closest-hit query (rfx/ops/intersect.py:254-303), differentiable through
+    `differentiable_hit` whatever the backend.
 
     backend:
-      'brute'  - Moller-Trumbore over all triangles; the normal is
-                 unit(cross(e1[f], e2[f])), differentiable in the edges;
+      'brute'  - Moller-Trumbore over all triangles;
       'kernel' - the per-query BVH kernel (rfx_torch.ops.bvh_trace), from
                  `flat_bvh` or `mesh`: the kernel on a CUDA tensor, its plain
                  version on a CPU tensor. The counterpart of the reference's
@@ -346,10 +401,13 @@ def make_env_intersector(backend: str = "brute", *, mesh=None, flat_bvh=None,
       'bvh'    - the plain-PyTorch stackless walk (rfx_torch.ops.bvh_traverse),
                  from `flat_bvh` or `mesh`, on either device, with
                  `differentiable_tris` as there.
+
+    The normal is unit(cross(e1[f], e2[f])), differentiable in the edges,
+    except on the 'kernel' backend's baked triangles, whose table holds it.
     """
     if backend == "brute":
         @spanned("rfx.ops.env_hit")
-        def env_hit(o, d, v0, e1, e2, normals):
+        def env_hit(o, d, v0, e1, e2):
             t, face = ray_mesh_closest_hit_brute(o, d, v0, e1, e2)
             return t, face, hit_normal_from_edges(e1, e2, face)
 

@@ -53,9 +53,11 @@ from rfx_torch.ops.intersect import (
     _brute_forward,
     closed_form_t_vjp,
     dot3,
+    icosphere_soa,
     sphere_t,
+    unit_icosphere_tris,
 )
-from rfx_torch.tracer import EnvSegments, icosphere_soa, unit_icosphere_tris
+from rfx_torch.tracer import EnvSegments
 
 __all__ = ["MAP_CAPTURE_BACKWARD_ICO_KERNEL", "MAP_CAPTURE_BACKWARD_KERNEL",
            "MAP_CAPTURE_ICO_KERNEL", "MAP_CAPTURE_KERNEL", "NO_CAPTURE", "RX_MODES",

@@ -3,28 +3,29 @@ coverage engine's env-only `trace_env`.
 
 A plain Python loop over bounces carries per-ray position, direction, alive
 mask, amplitude and path length; the environment hit is an `env_hit(o, d,
-v0, e1, e2, normals) -> (t, face, nrm)` from
-rfx_torch.ops.intersect.make_env_intersector: brute-force Moller-Trumbore by
-default, or the per-query BVH kernel. Semantics are the reference's: the
-receiver wins iff hit and t_env > t_rx, an env hit advances and reflects
-specularly, a double miss escapes, and dead rays are parked at 1e9. Every
-step is differentiable PyTorch (the intersectors carry the reference's
-custom gradients), so autograd through the loop is the scan tracer's
-gradient path.
+v0, e1, e2) -> (t, face, nrm)` from
+rfx_torch.ops.intersect.make_env_intersector (brute-force Moller-Trumbore by
+default, or the per-query BVH kernel), given the scene's faces as (v0, e1,
+e2) once a trace. The icosphere receiver is the brute closest hit on
+`icosphere_soa`'s faces, built on the device from the cached unit table.
+Semantics are the reference's: the receiver wins iff hit and t_env > t_rx,
+an env hit advances and reflects specularly, a double miss escapes, and dead
+rays are parked at 1e9. Every step is differentiable PyTorch (the closest
+hits through rfx_torch.ops.intersect's one custom backward), so autograd
+through the loop is the scan tracer's gradient path.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from rfx_torch.geometry import icosphere
 from rfx_torch import physics
 from rfx_torch.device import resolve_device
 from rfx_torch.ops.intersect import (
+    icosphere_soa,
     is_hit,
     make_env_intersector,
     mesh_soa,
@@ -66,46 +67,6 @@ class EnvSegments(NamedTuple):
     alive: torch.Tensor  # (B, N) bool: the segment exists
 
 
-# Unit icosphere (42 vertices / 80 faces): the reference receiver's
-# tessellation (ref tracer.py:27).
-_UNIT_ICO_TRI = icosphere(center=(0.0, 0.0, 0.0), radius=1.0, subdivisions=1).triangles()
-
-
-def icosphere_soa(rx_pos: torch.Tensor, rx_radius):
-    """(v0, e1, e2) of the reference's 80-face receiver icosphere at rx_pos."""
-    tri = to_device("ico_to_device", _UNIT_ICO_TRI, rx_pos.device)
-    r = to_device("ico_radius_to_device", rx_radius, rx_pos.device)
-    return tri[:, 0] * r + rx_pos[None, :], (tri[:, 1] - tri[:, 0]) * r, (tri[:, 2] - tri[:, 0]) * r
-
-
-def unit_icosphere_tris(device) -> torch.Tensor:
-    """(80, 9) f32: the unit icosphere's faces as rows (v0, e1, e2); one
-    tensor a device, made once (a copy from the host would wait for the
-    device's queue). Read it; do not write to it."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return _unit_icosphere_tris(device)
-
-
-@functools.lru_cache(maxsize=None)
-def _unit_icosphere_tris(device: torch.device) -> torch.Tensor:
-    tri = torch.as_tensor(_UNIT_ICO_TRI, dtype=torch.float32, device=device)
-    return torch.cat([tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]], dim=1)
-
-
-def icosphere_tris(centers: torch.Tensor, rx_radius) -> torch.Tensor:
-    """(R, 80, 9) f32: the faces (v0, e1, e2) of the icospheres of radius
-    rx_radius about the (R, 3) centers, each row the bits of
-    `icosphere_soa` of its center (what the map engine's icosphere kernels
-    read)."""
-    unit = unit_icosphere_tris(centers.device)
-    r = torch.as_tensor(rx_radius, dtype=torch.float32, device=centers.device)
-    v0 = unit[None, :, 0:3] * r + centers[:, None, :]
-    edges = (unit[:, 3:9] * r).expand(centers.shape[0], -1, -1)
-    return torch.cat([v0, edges], dim=2)
-
-
 def _rx_query(rx_pos: torch.Tensor, rx_radius, rx_mode: str):
     """t_rx(o, d) of the analytic or the icosphere receiver (on the card the
     brute closest-hit kernel, with the icosphere's bounding sphere as its
@@ -114,8 +75,9 @@ def _rx_query(rx_pos: torch.Tensor, rx_radius, rx_mode: str):
         return lambda o, d: ray_sphere_hit(o, d, rx_pos, rx_radius)
     if rx_mode == "icosphere":
         v0, e1, e2 = icosphere_soa(rx_pos, rx_radius)
-        r = to_device("cull_radius_to_device", rx_radius, rx_pos.device).detach()
-        cull = torch.cat([rx_pos.detach().reshape(3), r.reshape(1)])
+        r = (rx_radius.detach().to(rx_pos.device, torch.float32).reshape(1)
+             if isinstance(rx_radius, torch.Tensor) else rx_pos.new_full((1,), float(rx_radius)))
+        cull = torch.cat([rx_pos.detach().reshape(3), r])
 
         @spanned("rfx.ops.rx_hit")
         def rx_hit(o, d):
@@ -149,7 +111,7 @@ def trace_to_rx(scene: Scene, tx_pos, directions: torch.Tensor, rx_pos, rx_radiu
         env_hit = make_env_intersector("brute")
     dev = directions.device
     f32 = torch.float32
-    v0, e1, e2, normals = mesh_soa(scene.vertices, scene.faces)
+    v0, e1, e2 = mesh_soa(scene.vertices, scene.faces)
     rx = to_device("rx_to_device", rx_pos, dev)
     t_rx_of = _rx_query(rx, rx_radius, rx_mode)
 
@@ -170,7 +132,7 @@ def trace_to_rx(scene: Scene, tx_pos, directions: torch.Tensor, rx_pos, rx_radiu
 
     for _ in range(max_bounces):
         t_rx = t_rx_of(pos, d)
-        t_env, _face, nrm = env_hit(pos, d, v0, e1, e2, normals)
+        t_env, _face, nrm = env_hit(pos, d, v0, e1, e2)
         rx_win = alive & is_hit(t_rx) & (t_env > t_rx)
         env_bounce = alive & ~rx_win & is_hit(t_env)
 
@@ -224,7 +186,7 @@ def trace_env(scene: Scene, tx_pos, directions: torch.Tensor, *, max_bounces: in
         env_hit = make_env_intersector("brute")
     dev = directions.device
     f32 = torch.float32
-    v0, e1, e2, normals = mesh_soa(scene.vertices, scene.faces)
+    v0, e1, e2 = mesh_soa(scene.vertices, scene.faces)
     d = directions.to(f32)
     n = d.shape[0]
     pos = to_device("env_tx_to_device", tx_pos, dev)[None, :].expand(n, 3)
@@ -235,7 +197,7 @@ def trace_env(scene: Scene, tx_pos, directions: torch.Tensor, *, max_bounces: in
     parked = torch.full((), 1e9, dtype=f32, device=dev)
     segs = []
     for _ in range(max_bounces):
-        t_env, _face, nrm = env_hit(pos, d, v0, e1, e2, normals)
+        t_env, _face, nrm = env_hit(pos, d, v0, e1, e2)
         segs.append((pos, d, t_env, amp, dist, alive))
         env_bounce = alive & is_hit(t_env)
         t_adv = torch.where(env_bounce, t_env, zero)

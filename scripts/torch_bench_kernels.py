@@ -770,7 +770,7 @@ def _ico_record_call(mc, segs, few):
     gets them made once, outside the timed calls."""
     import inspect
 
-    from rfx_torch.tracer import icosphere_tris
+    from rfx_torch.ops.intersect import icosphere_tris
 
     if "t_first" in inspect.signature(mc.map_record).parameters:
         return (lambda: mc.map_record(segs, few, smoke.COV_RADIUS, "icosphere", t_first=True),
@@ -866,7 +866,7 @@ def run_ksbi(w: Workloads, reps: int, keep: dict) -> dict:
     import inspect
 
     from rfx_torch.ops import map_capture as mc
-    from rfx_torch.tracer import icosphere_tris
+    from rfx_torch.ops.intersect import icosphere_tris
 
     if not hasattr(mc, "MAP_CAPTURE_BACKWARD_ICO_KERNEL"):
         return {}

@@ -1,8 +1,10 @@
 """The per-query BVH kernel's plain version (what a CPU tensor runs) and its
 `env_hit` wrappers against the JAX package: forward and VJP against
 `rfx`'s brute intersector in both modes, and the forward against the Pallas
-kernel in interpret mode (as tests/test_pallas.py runs it). The CUDA kernel
-itself is held against this plain version in tests/test_torch_kernels.py."""
+kernel in interpret mode (as tests/test_pallas.py runs it); and every
+`make_env_intersector` backend's gradient of t against the written-out VJP.
+The CUDA kernel itself is held against this plain version in
+tests/test_torch_kernels.py."""
 
 import numpy as np
 import pytest
@@ -73,7 +75,7 @@ def test_kernel_env_hit_plain_matches_rfx_brute(scene, differentiable_tris):
     env = intersect.make_env_intersector("kernel", mesh=mesh, device="cpu",
                                          differentiable_tris=differentiable_tris)
     args = [_t(a, True) for a in (o, d, v0, e1, e2)]
-    t, face, nrm = env(*args, _t(nn))
+    t, face, nrm = env(*args)
     hit = intersect.is_hit(t)
     jhit = jt < 1e29
     np.testing.assert_array_equal(hit.numpy(), jhit)
@@ -103,7 +105,7 @@ def test_kernel_plain_matches_pallas_interpret():
     jt, jf, jn = map(np.asarray, make_pallas_env_hit(room, interpret=True)(
         jnp.asarray(o), jnp.asarray(d), v0, e1, e2, nn))
     t, face, nrm = intersect.make_env_intersector("kernel", mesh=room, device="cpu")(
-        _t(o), _t(d), *(_t(a) for a in (v0, e1, e2, nn)))
+        _t(o), _t(d), *(_t(a) for a in (v0, e1, e2)))
     jhit = jt < 1e29
     assert jhit.all()  # every ray inside the closed room hits a wall
     np.testing.assert_allclose(t.numpy(), jt, rtol=1e-5, atol=1e-4)
@@ -165,6 +167,52 @@ def test_make_env_intersector_backends():
     assert bvh_trace.make_kernel_env_hit(packed).bvh is packed
     env = intersect.make_env_intersector("kernel", flat_bvh=flat, device="cpu")
     assert env.bvh.n_padded_tris == flat.n_padded_tris
+
+
+BACKENDS = [("brute", False), ("kernel", False), ("kernel", True), ("bvh", False), ("bvh", True)]
+
+
+@pytest.mark.parametrize("backend,differentiable_tris", BACKENDS,
+                         ids=["brute", "kernel", "kernel-difftris", "bvh", "bvh-difftris"])
+def test_env_hit_t_gradient_is_the_written_out_vjp(backend, differentiable_tris):
+    """The gradient of sum(t w) through each backend, with a cotangent on
+    every lane: at hits `closed_form_t_vjp` of the selected rows (the
+    caller's (v0, e1, e2) at the face; on baked triangles the table's row,
+    which takes no gradient), scatter-added into the faces; at misses and at
+    parked rays finite zeros."""
+    mesh = make_terrain(grid=16, extent=30.0, seed=7)
+    n = 600
+    o, d = _rays(n, 11, [-15, -15, 0], [15, 15, 15])
+    o[::9] = 1e9
+    w = _t(np.random.default_rng(12).normal(size=n))
+    env = intersect.make_env_intersector(backend, mesh=mesh, device="cpu",
+                                         differentiable_tris=differentiable_tris)
+    baked = backend != "brute" and not differentiable_tris
+    args = [_t(a, True) for a in (o, d, *_soa(mesh)[:3])]
+    t, face, _ = env(*args)
+    (t * w).sum().backward()
+    hit = intersect.is_hit(t)
+    assert 0 < int(hit.sum()) < n and not hit[::9].any()
+    f = face[hit].long()
+    if baked:
+        padded = torch.nonzero(env.bvh.tri_face >= 0).flatten()
+        row = torch.empty(len(mesh.faces), dtype=torch.long)
+        row[env.bvh.tri_face[padded].long()] = padded
+        tri = env.bvh.tri[row[f]]
+        rows = (tri[:, 0:3], tri[:, 3:6], tri[:, 6:9])
+    else:
+        rows = tuple(a.detach()[f] for a in args[2:])
+    want = intersect.closed_form_t_vjp(_t(o)[hit], _t(d)[hit], *rows, w[hit])
+    for a, wg in zip(args[:2], want[:2]):
+        assert torch.equal(a.grad[hit], wg)
+        assert torch.equal(a.grad[~hit], torch.zeros_like(a.grad[~hit]))
+    for a, wg in zip(args[2:], want[2:]):
+        if baked:
+            assert a.grad is None
+            continue
+        assert bool(torch.isfinite(a.grad).all())
+        torch.testing.assert_close(a.grad, torch.zeros_like(a.grad).index_add_(0, f, wg),
+                                   rtol=1e-6, atol=0)
 
 
 def _scalar_walk_counts(bvh, o, d):

@@ -74,7 +74,7 @@ def test_walk_matches_rfx_bvh_walk():
     jt, jf, jn = map(np.asarray, jmake_bvh_env_hit(jbuild_bvh(jmesh, method="numpy"))(
         *map(jnp.asarray, (o, d, v0, e1, e2, nn))))
     env = intersect.make_env_intersector("bvh", mesh=mesh, device="cpu")
-    t, face, nrm = env(*(_t(a) for a in (o, d, v0, e1, e2, nn)))
+    t, face, nrm = env(*(_t(a) for a in (o, d, v0, e1, e2)))
     hit = jt < 1e29
     np.testing.assert_array_equal(intersect.is_hit(t).numpy(), hit)
     assert 300 < hit.sum() < 1500 and not hit[::11].any()
@@ -117,8 +117,7 @@ def test_walk_gradients_match_jax(differentiable_tris):
     env = intersect.make_env_intersector("bvh", mesh=mesh, device="cpu",
                                          differentiable_tris=differentiable_tris)
     args = [_t(a, True) for a in (o, d, mesh.vertices)]
-    v0, e1, e2, nn = intersect.mesh_soa(args[2], torch.as_tensor(faces))
-    t, _, nrm = env(args[0], args[1], v0, e1, e2, nn)
+    t, _, nrm = env(args[0], args[1], *intersect.mesh_soa(args[2], torch.as_tensor(faces)))
     hit = intersect.is_hit(t)
     assert 0 < int(hit.sum()) < n
     ((torch.where(hit, t, 0.0) * torch.from_numpy(wt)).sum()

@@ -190,7 +190,7 @@ def test_brute_env_hit_vjp_matches_jax():
 
     want = jax.grad(jloss, argnums=tuple(range(5)))(*map(jnp.asarray, (o, d, v0, e1, e2)))
     args = [_t(a, True) for a in (o, d, v0, e1, e2)]
-    t, face, nrm = intersect.make_env_intersector("brute")(*args, _t(nn))
+    t, face, nrm = intersect.make_env_intersector("brute")(*args)
     hit = intersect.is_hit(t)
     assert 0 < int(hit.sum()) < 400
     loss = ((torch.where(hit, t, 0.0) * torch.from_numpy(wt)).sum()

@@ -37,16 +37,13 @@ from rfx.tracer import Scene as JScene
 from rfx_torch import cir, coverage
 from rfx_torch.ops import intersect
 from rfx_torch.ops import map_capture as mc
-from rfx_torch.tracer import (
+from rfx_torch.ops.intersect import (
     _UNIT_ICO_TRI,
-    EnvSegments,
-    Scene,
     icosphere_soa,
     icosphere_tris,
-    trace_env,
-    trace_to_rx,
     unit_icosphere_tris,
 )
+from rfx_torch.tracer import EnvSegments, Scene, trace_env, trace_to_rx
 from tests.test_torch_kernels import _ico_tie_segments, vote_pass
 
 torch.set_num_threads(1)

@@ -16,7 +16,6 @@ import torch
 from rfx_torch import cir, coverage
 from rfx_torch.api import Tracer
 from rfx_torch.geometry import make_room, make_terrain
-from rfx_torch import tracer
 from rfx_torch.ops import (bvh_trace, bvh_traverse, coverage_hist, fused, intersect, map_capture,
                            micro_vote, ray_order)
 from rfx_torch.sampler import morton_sphere_directions, sphere_directions
@@ -234,8 +233,8 @@ def test_closest_hit_kernel_matches_plain(cuda, live):
     bvh = env.bvh
     tri = None
     if live:
-        v0, e1, e2, _ = intersect.mesh_soa(torch.as_tensor(mesh.vertices, device=cuda),
-                                           torch.as_tensor(mesh.faces, device=cuda))
+        v0, e1, e2 = intersect.mesh_soa(torch.as_tensor(mesh.vertices, device=cuda),
+                                        torch.as_tensor(mesh.faces, device=cuda))
         tri = bvh_trace.live_tri(bvh, v0, e1, e2)
     for name, (o, d) in _query_sets(cuda, bvh, 20_000).items():
         before = bvh_trace.CLOSEST_HIT_KERNEL.launches
@@ -245,6 +244,9 @@ def test_closest_hit_kernel_matches_plain(cuda, live):
         torch.cuda.synchronize()
         for a, b in zip(k, p):
             assert torch.equal(a, b), name
+        if live:  # the differentiable_tris normal of a hit: the live table's bits
+            hit = k[2] >= 0
+            assert torch.equal(intersect.hit_normal_from_edges(e1, e2, k[2])[hit], k[3][hit]), name
         if name == "parked":
             assert (k[1] == -1).all()
         else:
@@ -1615,7 +1617,7 @@ def test_brute_hit_kernel_icosphere_with_its_cull(cuda, radius):
     to 10^4 radii away; t and face == the plain version's, and the cull
     rejects some."""
     g = np.random.default_rng(int(radius * 10))
-    tri = tracer._UNIT_ICO_TRI.astype(np.float64)
+    tri = intersect._UNIT_ICO_TRI.astype(np.float64)
     anchors = np.concatenate([tri.reshape(-1, 3), (tri + np.roll(tri, 1, axis=1)).reshape(-1, 3)])
     n = 100_000
     p = anchors[g.integers(0, len(anchors), n)]
@@ -1629,7 +1631,7 @@ def test_brute_hit_kernel_icosphere_with_its_cull(cuda, radius):
     o = center + p * radius * (1.0 + g.uniform(-1e-2, 1e-2, size=(n, 1))) - d * dist * radius
     o, d = (torch.from_numpy(x.astype(np.float32)).to(cuda) for x in (o, d))
     c = torch.tensor([*center, radius], dtype=torch.float32, device=cuda)
-    v0, e1, e2 = tracer.icosphere_soa(c[:3], radius)
+    v0, e1, e2 = intersect.icosphere_soa(c[:3], radius)
     k = intersect.brute_hit(o, d, v0, e1, e2, cull=c)
     p_t, p_face = intersect._brute_forward(o, d, v0, e1, e2, intersect.T_MIN_EPS,
                                            intersect.T_MAX, None)
@@ -1744,7 +1746,7 @@ def _ico_tie_segments(n, bounces, m, radius, seed, hot=3_000):
     g = np.random.default_rng(seed)
     grid = np.stack(np.meshgrid(*(np.arange(5),) * 3, indexing="ij"), -1).reshape(-1, 3)
     centers = (np.array([2.0, -3.0, 4.0]) + 1.6 * radius * grid[:m]).astype(np.float32)
-    tri = tracer._UNIT_ICO_TRI.astype(np.float64)
+    tri = intersect._UNIT_ICO_TRI.astype(np.float64)
     anchors = np.concatenate([tri.reshape(-1, 3),
                               0.5 * (tri + np.roll(tri, 1, axis=1)).reshape(-1, 3)])
     shape = (bounces, n)
@@ -1828,7 +1830,7 @@ def test_map_capture_backward_ico_ties_match_plain(cuda, n, bounces, m):
     tied = across = differs = 0
     for r in range(m):
         sel = (k == r).nonzero().squeeze(1)
-        v0, e1, e2 = tracer.icosphere_soa(centers[r], 0.5)
+        v0, e1, e2 = intersect.icosphere_soa(centers[r], 0.5)
         per_face = torch.stack([intersect._mt_chunk(o[sel], d[sel], v0[f:f + 1], e1[f:f + 1],
                                                     e2[f:f + 1], intersect.T_MIN_EPS,
                                                     intersect.T_MAX)[0] for f in range(80)], 1)

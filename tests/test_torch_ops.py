@@ -49,8 +49,9 @@ def _terrain_soa():
 
 
 def test_mesh_soa_and_normals_match_rfx():
-    mesh, (v0, e1, e2, nrm) = _terrain_soa()
+    mesh, (v0, e1, e2) = _terrain_soa()
     jv0, je1, je2, jn = jisect.mesh_soa(jnp.asarray(mesh.vertices), jnp.asarray(mesh.faces))
+    nrm = intersect.hit_normal_from_edges(e1, e2, torch.arange(e1.shape[0]))
     for a, b in ((v0, jv0), (e1, je1), (e2, je2)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     np.testing.assert_allclose(nrm.numpy(), np.asarray(jn), rtol=0, atol=1e-6)
@@ -62,7 +63,7 @@ def test_mesh_soa_and_normals_match_rfx():
 
 @pytest.mark.parametrize("ray_chunk", [None, 97])
 def test_brute_closest_hit_matches_rfx(ray_chunk):
-    mesh, (v0, e1, e2, _) = _terrain_soa()
+    mesh, (v0, e1, e2) = _terrain_soa()
     rng = np.random.default_rng(3)
     n = 600
     o = np.concatenate([rng.uniform(-10, 10, (n, 2)), rng.uniform(4, 9, (n, 1))], 1).astype(np.float32)
@@ -81,7 +82,7 @@ def test_brute_closest_hit_matches_rfx(ray_chunk):
 
 
 def test_closed_form_t_matches_brute_hits():
-    mesh, (v0, e1, e2, _) = _terrain_soa()
+    mesh, (v0, e1, e2) = _terrain_soa()
     o = torch.tensor([[0.5, 0.3, 9.0]]).expand(64, 3)
     d = torch.from_numpy(_rand_unit(64, 8))
     d[:, 2] = -d[:, 2].abs()

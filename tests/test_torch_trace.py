@@ -36,8 +36,7 @@ CIR = {"rfx.api.compute_cir", "rfx.tracer.scan", "rfx.wait.rx_to_device",
        "rfx.wait.ir_to_host"}
 SPANS = {
     "analytic": CIR | RX_POWER,
-    "icosphere": CIR | RX_POWER | {"rfx.wait.ico_to_device", "rfx.wait.ico_radius_to_device",
-                                   "rfx.wait.cull_radius_to_device", "rfx.ops.rx_hit"},
+    "icosphere": CIR | RX_POWER | {"rfx.ops.rx_hit"},
     "sweep": RX_POWER | {"rfx.api.compute_coverage", "rfx.tracer.env",
                          "rfx.wait.env_tx_to_device", "rfx.ops.env_hit",
                          "rfx.wait.centers_to_device", "rfx.wait.irs_to_host"},
