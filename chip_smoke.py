@@ -11,9 +11,9 @@ Phases, each ending in torch.cuda.synchronize() so a fault shows where it
 happened, and none catching its own failure:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the nine CUDA sources of rfx_torch/csrc/ (twenty-two C entry
-   points that launch kernels: the fused trace and its counted
-   instantiation share a source, so do the closest hit and its counted
+2. build the nine CUDA sources of rfx_torch/csrc/ (twenty-three C entry
+   points that launch kernels: the fused trace, its icosphere and its
+   counted instantiations share a source, so do the closest hit and its counted
    instantiation, the coverage histogram, its slab reduction and the phasor
    metric's table, walk, spread and backward, the RX power and its
    backward, the IR histogram and its record entries, and the map engine's
@@ -187,15 +187,17 @@ happened, and none catching its own failure:
     times and peak memory.
 17. (run after 16) the reference's 80-face icosphere receiver at full
     width. The request: Tracer(bench terrain, rx_mode="icosphere")
-    .compute_cir on phase 3's workload at radius 1.0 and 0.1 (the scan
-    tracer: K2 for the terrain, the brute closest hit K-B for the receiver,
-    one launch a bounce with the icosphere's bounding-sphere cull, K-H), the
-    IR the same bits in eight runs and with the plain receiver test; every
-    80th ray's trace against the same trace_to_rx with the plain receiver
-    test (phase 4's bars, the IR within rtol 1e-4); request times (CUDA
-    events, seven runs) beside the scan tracer with the analytic receiver
-    and the request with the plain receiver test; K-B alone on the first
-    bounce's 5,242,880 rays == `_brute_forward`. Coverage: the facade's
+    .compute_cir on phase 3's workload at radius 1.0 and 0.1 (the fused
+    trace with the icosphere receiver, K1/ico, one launch, in direction-cell
+    order; K-H), timed (CUDA events, seven runs), the IR the same bits in
+    eight runs and within rtol 1e-4 of the scan tracer's (K2, and K-B once a
+    bounce: what recorded paths run; counted too); K1/ico ==
+    fused_trace_plain(rx_mode="icosphere") bit for bit, the face record
+    too, on every 80th ray (the caller's order) and on the first
+    ORDER_MIN_RAYS i.i.d. rays (cell order), the plain receiver testing
+    every ray at every bounce; at 5,242,880 i.i.d. rays cell order == the
+    caller's order, and at radius 0.1 its time and bound; K-B alone on the
+    first bounce's 5,242,880 rays == `_brute_forward`. Coverage: the facade's
     compute_coverage with rx_mode="icosphere" on phase 13's room (its
     environment through K-B, held against its plain version) and terrain
     (2,048 receivers x 1,048,576 rays x 2 bounces x 10,000 bins, one
@@ -229,10 +231,13 @@ in the map capture's backward) once each; each rank's sharded CIR, coverage
 and solver step: closest hit and histogram, on the coverage the coverage
 kernel and the map capture, on the solver step the map capture and its
 backward; the room's sweeps and value+grads: the brute closest hit; the
-icosphere requests: the brute closest hit, one launch a bounce, the closest
-hit and the histogram; each icosphere sweep: the icosphere capture pass
-and record entry, one launch each a receiver batch, on the room the brute
-closest hit, on the terrain the closest hit; the icosphere value+grad: the
+icosphere requests: the fused trace's icosphere entry point, the order and
+the histogram, one launch each, and never the brute or the per-query closest
+hit; the same requests through the scan tracer: the brute closest hit, one
+launch a bounce, the closest hit and the histogram; each icosphere sweep:
+the icosphere capture pass and record entry, one launch each a receiver
+batch, on the room the brute closest hit, on the terrain the closest hit;
+the icosphere value+grad: the
 icosphere capture pass, record entry and backward, RX power and its
 backward, once each, and the brute closest hit). The comparisons with the
 plain versions, the
@@ -290,6 +295,7 @@ CPU_FAST_STRIDE = 32
 LARGE_SUBSET = 8_192
 # Launch counts are kept per C entry point (CudaKernel.symbol).
 K_FUSED = "rfx_fused_trace"
+K_FUSED_ICO = "rfx_fused_trace_ico"
 K_COUNTED = "rfx_fused_trace_counted"
 K_HIT = "rfx_closest_hit"
 K_HIT_COUNTED = "rfx_closest_hit_counted"
@@ -506,7 +512,7 @@ def _counted_bound(fused_bound: dict) -> dict:
 
 
 def port_kernels() -> tuple:
-    """The port's twenty-two C entry points that launch kernels (rfx_torch/csrc/), each with
+    """The port's twenty-three C entry points that launch kernels (rfx_torch/csrc/), each with
     its launch count; the first of each source's that the build starts."""
     from rfx_torch import cir
     from rfx_torch.ops.bvh_trace import CLOSEST_HIT_COUNTED_KERNEL, CLOSEST_HIT_KERNEL
@@ -518,7 +524,11 @@ def port_kernels() -> tuple:
         PHASOR_BACKWARD_KERNEL,
         PHASOR_TABLE_KERNEL,
     )
-    from rfx_torch.ops.fused import FUSED_TRACE_COUNTED_KERNEL, FUSED_TRACE_KERNEL
+    from rfx_torch.ops.fused import (
+        FUSED_TRACE_COUNTED_KERNEL,
+        FUSED_TRACE_ICO_KERNEL,
+        FUSED_TRACE_KERNEL,
+    )
     from rfx_torch.ops.intersect import BRUTE_HIT_KERNEL
     from rfx_torch.ops.map_capture import (
         MAP_CAPTURE_BACKWARD_ICO_KERNEL,
@@ -535,7 +545,7 @@ def port_kernels() -> tuple:
             COVERAGE_PHASOR_KERNEL, COVERAGE_SPREAD_KERNEL, PHASOR_TABLE_KERNEL,
             cir.RX_POWER_BACKWARD_KERNEL, PHASOR_BACKWARD_KERNEL, MAP_CAPTURE_BACKWARD_KERNEL,
             cir.HISTOGRAM_RECORD_KERNEL, MAP_CAPTURE_ICO_KERNEL, MAP_CAPTURE_BACKWARD_ICO_KERNEL,
-            cir.HISTOGRAM_RECORD_ICO_KERNEL)
+            cir.HISTOGRAM_RECORD_ICO_KERNEL, FUSED_TRACE_ICO_KERNEL)
 
 
 #: Sources of rfx_torch/csrc/ with a C entry point that launches kernels.
@@ -865,11 +875,12 @@ def _plain_calls(fn):
     `_brute_forward`, wherever the port binds it, and of the map engine's
     plain record and record entry)."""
     from rfx_torch import coverage
-    from rfx_torch.ops import intersect, map_capture
+    from rfx_torch.ops import fused, intersect, map_capture
 
     calls = [0]
     sites = ((coverage, "_first_capture"), (intersect, "_brute_forward"),
-             (map_capture, "_brute_forward"), (map_capture, "map_record_plain"),
+             (fused, "_brute_forward"), (map_capture, "_brute_forward"),
+             (map_capture, "map_record_plain"),
              (map_capture, "histogram_record_plain"))
     originals = [getattr(mod, attr) for mod, attr in sites]
 
@@ -887,24 +898,6 @@ def _plain_calls(fn):
     finally:
         for (mod, attr), f in zip(sites, originals):
             setattr(mod, attr, f)
-
-
-def _plain_receiver(fn):
-    """fn() with the brute closest hit's kernel swapped for its plain
-    version (`_brute_forward`, every ray tested): the scan tracer's plain
-    receiver test."""
-    from rfx_torch.ops import intersect
-
-    launch = intersect.brute_hit
-
-    def plain(o, d, v0, e1, e2, t_min, t_max, ray_chunk=None, cull=None):
-        return intersect._brute_forward(o, d, v0, e1, e2, t_min, t_max, ray_chunk)
-
-    intersect.brute_hit = plain
-    try:
-        return fn()
-    finally:
-        intersect.brute_hit = launch
 
 
 def _closest_hit_phase(mesh, bvh, sub):
@@ -2081,89 +2074,147 @@ def brute_env_inputs(scene, segs):
             *mesh_soa(scene.vertices, scene.faces), None)
 
 
+def fused_ico_bound(bvh, dirs, tx, rx, radius) -> dict:
+    """Bound of one fused trace with the icosphere receiver of `radius` on
+    `dirs`: the analytic trace's (`_fused_bound`, from the counted walk on
+    the same rays), the unit faces read once, the cull's operations on every
+    ray-bounce, and the 80 tests of each ray that passes the cull at the
+    first bounce."""
+    import torch
+
+    from rfx_torch.ops.fused import fused_trace
+    from rfx_torch.ops.intersect import cull_pass
+
+    trace, stats = fused_trace(bvh, dirs, tx, rx, radius, 5.0, 1.0, max_bounces=BOUNCES,
+                               count_stats=True)
+    s = stats.cpu()
+    n, ray_bounces = int(dirs.shape[0]), int(trace.num_bounces.sum())
+    walk = _fused_bound(bvh, {"rays": n, "ray_bounces": ray_bounces,
+                              "nodes_per_bounce": s[:, 0].tolist(),
+                              "tris_per_bounce": s[:, 2].tolist()})
+    o = torch.tensor(tx, dtype=torch.float32, device=dirs.device).expand_as(dirs)
+    cull = torch.tensor([*rx, radius], dtype=torch.float32, device=dirs.device)
+    passes = int(cull_pass(o, dirs, cull).sum())
+    return {**_bound(walk["bound_bytes"] + ICO_TRI_BYTES,
+                     walk["bound_flops"] + (CULL_FLOPS + RAY_NORM_FLOPS) * (n + ray_bounces)
+                     + MT_TEST_FLOPS * ICO_FACES * passes),
+            "cull_passes_bounce0": passes}
+
+
 def _icosphere_cir_leg(terrain, dev, kernels, card):
     """Phase 17, the request: Tracer(bench terrain, rx_mode="icosphere")
-    .compute_cir at the bench workload, at radius 1.0 and 0.1, counted (K-B
-    once a bounce for the receiver, K2 for the terrain, K-H); the IR the
-    same bits in seven runs; the trace of every 80th ray against the same
-    trace_to_rx with the plain receiver test (phase 4's bars) and its IR
-    within rtol 1e-4; the request with the plain receiver test once, and the
-    scan tracer with the analytic receiver beside it. Then K-B alone on the
+    .compute_cir at the bench workload, at radius 1.0 and 0.1, counted (K1's
+    icosphere entry point once, the order once, K-H; no K-B, no K2, no
+    analytic K1) and timed (CUDA events, seven runs); the IR the same bits in
+    eight runs, and within rtol 1e-4 (the same nonzero bins) of the scan
+    tracer's with the icosphere receiver, counted too (K2 for the terrain,
+    K-B once a bounce for the receiver: what recorded paths run); the fused
+    trace of every 80th ray (the caller's order) and of the first
+    ORDER_MIN_RAYS i.i.d. rays (cell order) == fused_trace_plain(rx_mode=
+    "icosphere")'s bit for bit, the face record too (the plain receiver
+    tests every ray at every bounce: no cull); the CIR cells' 5,242,880
+    i.i.d. rays in cell order == the caller's order bit for bit, and at
+    radius 0.1 the time of that call and its bound. Then K-B alone on the
     request's first bounce (5,242,880 rays from tx against the receiver
     icosphere, with its cull) against `_brute_forward`, timed beside it."""
     import numpy as np
     import torch
 
     from rfx_torch.api import Tracer
+    from rfx_torch.ops import fused as fused_mod
     from rfx_torch.ops import intersect
     from rfx_torch.sampler import morton_sphere_directions
     from rfx_torch.tracer import trace_to_rx
 
     dirs = morton_sphere_directions(N_RAYS, generator=torch.Generator(dev).manual_seed(0),
                                     device=dev)
+    iid = iid_directions(dev)
     tracer = Tracer(terrain, C, RATE, WINDOW, max_bounces=BOUNCES, tx_num_rays=N_RAYS,
                     rx_mode="icosphere", device=dev)
-    _require(tracer.backend == "fused" and tracer._fused is None,
+    _require(tracer.backend == "fused" and tracer._fused is not None,
              f"icosphere Tracer: backend {tracer.backend}, fused kernel {tracer._fused}")
+    bvh = tracer._fused.bvh
     sub = dirs[::N_RAYS // SUBSET].contiguous()
+    first = iid[:fused_mod.ORDER_MIN_RAYS].contiguous()
     out = {"launches": {}}
     for radius in ICO_RADII:
         tag = f"r{radius:g}"
         res = out[tag] = {}
+        args = (TX, RX, radius, 5.0, 1.0)
+        kw = dict(max_bounces=BOUNCES, rx_mode="icosphere")
 
         def request():
             return tracer.compute_cir(TX, 1.0, RX, radius, directions=dirs, record_paths=False)[1]
 
+        def scan():
+            result = trace_to_rx(tracer.scene, TX, dirs, RX, radius, max_bounces=BOUNCES,
+                                 rx_mode="icosphere", env_hit=tracer.env_hit)
+            return tracer._cir(result, 1.0).cpu().numpy()
+
         request()  # warm-up
         (ir, plain_calls), launches = _counted(kernels, f"icosphere_cir_{tag}",
-                                               (K_BRUTE, K_HIT, K_HIST),
+                                               (K_FUSED_ICO, K_ORDER, K_HIST),
                                                lambda: _plain_calls(request))
         out["launches"][f"icosphere_cir_{tag}"] = launches
-        _require(launches[K_BRUTE] == BOUNCES and launches[K_FUSED] == 0 and plain_calls == 0,
+        _require(launches[K_FUSED_ICO] == 1 and launches[K_ORDER] == 1
+                 and launches[K_BRUTE] == launches[K_HIT] == launches[K_FUSED] == 0
+                 and plain_calls == 0,
                  f"icosphere request, radius {radius}: launches {launches}, {plain_calls} plain "
                  f"calls")
         _require(ir.shape == (NBINS,) and np.all(np.isfinite(ir)) and float(ir.sum()) > 0,
-                 f"icosphere request, radius {radius}: IR empty or not finite")
+                 f"icosphere request, radius {radius}: IR shape {ir.shape}, sum {ir.sum()}")
         times = []
         for _ in range(7):
             again, _, ev_ms = _timed(request)
             _require(np.array_equal(again, ir), f"icosphere request, radius {radius}: runs differ")
             times.append(ev_ms)
-
-        def analytic():
-            result = trace_to_rx(tracer.scene, TX, dirs, RX, radius, max_bounces=BOUNCES,
-                                 rx_mode="analytic", env_hit=tracer.env_hit)
-            return tracer._cir(result, 1.0)
-
-        analytic()
-        analytic_times = [_timed(analytic)[2] for _ in range(5)]
-        plain_ir, _, plain_ms = _timed(lambda: _plain_receiver(request))
-        _require(np.array_equal(plain_ir, ir),
-                 f"icosphere request, radius {radius}: the plain receiver's IR differs")
-        kw = dict(max_bounces=BOUNCES, rx_mode="icosphere", env_hit=tracer.env_hit)
-        k_res = trace_to_rx(tracer.scene, TX, sub, RX, radius, **kw)
-        p_res = _plain_receiver(lambda: trace_to_rx(tracer.scene, TX, sub, RX, radius, **kw))
-        amp_err, dist_err = _trace_close(k_res, p_res, f"icosphere trace, radius {radius}")
-        ir_k, ir_p = tracer._cir(k_res, 1.0), tracer._cir(p_res, 1.0)
+        scan()  # warm-up
+        (scan_ir, scan_plain), scan_launches = _counted(kernels, f"icosphere_scan_{tag}",
+                                                        (K_BRUTE, K_HIT, K_HIST),
+                                                        lambda: _plain_calls(scan))
+        out["launches"][f"icosphere_scan_{tag}"] = scan_launches
+        _require(scan_launches[K_BRUTE] == BOUNCES
+                 and scan_launches[K_FUSED] == scan_launches[K_FUSED_ICO] == 0
+                 and scan_plain == 0,
+                 f"icosphere scan request, radius {radius}: launches {scan_launches}, "
+                 f"{scan_plain} plain calls")
+        _require(np.array_equal(ir != 0, scan_ir != 0)
+                 and np.allclose(ir, scan_ir, rtol=1e-4, atol=1e-9),
+                 f"icosphere request, radius {radius}: the IR differs from the scan tracer's")
+        for name, d in (("subset", sub), ("cell_order", first)):
+            k = fused_mod.fused_trace(bvh, d, *args, record_faces=True, **kw)
+            p = fused_mod.fused_trace_plain(bvh, d, *args, record_faces=True, **kw)
+            _sync()
+            _require(all(map(torch.equal, [*k[0][:4], k[1]], [*p[0][:4], p[1]])),
+                     f"icosphere fused trace, radius {radius}, {name}: kernel != plain")
+            res[f"captured_{name}"] = int(p[0].captured.sum())
+            del k, p
+        ordered = fused_mod.fused_trace(bvh, iid, *args, **kw)
+        with _caller_order():
+            caller = fused_mod.fused_trace(bvh, iid, *args, **kw)
         _sync()
-        _require(torch.equal(ir_k != 0, ir_p != 0)
-                 and torch.allclose(ir_k, ir_p, rtol=1e-4, atol=1e-9),
-                 f"icosphere trace, radius {radius}: the subset's IR differs")
-        res.update(captured_subset=int(p_res.captured.sum()), nonzero_bins=int((ir != 0).sum()),
-                   ir_sum=float(ir.sum()), ms=times, analytic_scan_ms=analytic_times,
-                   plain_receiver_ms=plain_ms, amp_err=amp_err, dist_err=dist_err,
+        _require(all(map(torch.equal, ordered[:4], caller[:4])),
+                 f"icosphere fused trace, radius {radius}: cell order != the caller's order")
+        if radius == ICO_RADII[-1]:  # the CIR cells' receivers
+            res["iid_ms"] = _cuda_ms(lambda: fused_mod.fused_trace(bvh, iid, *args, **kw), 10)
+            res["bound"] = fused_ico_bound(bvh, iid, TX, RX, radius)
+        res.update(iid_captured=int(ordered.captured.sum()),
+                   nonzero_bins=int((ir != 0).sum()), ir_sum=float(ir.sum()), ms=times,
                    dbm=float(tracer.rx_power_dbm(ir)))
+        timing = (f"; {N_RAYS} i.i.d. rays {res['iid_ms']:.4f} ms a call, bound "
+                  f"{res['bound']['bound_ms']:.4f} ms by {res['bound']['bound_by']}"
+                  if "iid_ms" in res else "")
         print(f"# icosphere compute_cir, radius {radius}, {N_RAYS} rays: IR sum "
               f"{res['ir_sum']:.6e} ({res['nonzero_bins']} nonzero bins, {res['dbm']:.4f} dBm), "
-              f"the same bits in 8 runs and with the plain receiver test; K-B {launches[K_BRUTE]} "
-              f"launches (one a bounce); {SUBSET}-ray subset == the plain receiver's trace "
-              f"({res['captured_subset']} captures; max |d amp| {amp_err:.3e}, |d dist| "
-              f"{dist_err:.3e}); request min / median / max {min(times):.3f} / "
-              f"{float(np.median(times)):.3f} / {max(times):.3f} ms (CUDA events), the scan "
-              f"tracer with the analytic receiver {min(analytic_times):.3f} / "
-              f"{float(np.median(analytic_times)):.3f} / {max(analytic_times):.3f} ms, with the "
-              f"plain receiver test {plain_ms:.1f} ms; {card}", flush=True)
-        del k_res, p_res
+              f"the same bits in 8 runs, == the scan tracer's within rtol 1e-4 (K-B "
+              f"{scan_launches[K_BRUTE]} launches, one a bounce); launches "
+              f"{launches[K_FUSED_ICO]} of K1/ico, none of K-B or K2; K1/ico == plain bit for bit "
+              f"on {SUBSET} rays (caller's order, {res['captured_subset']} captures) and "
+              f"{first.shape[0]} i.i.d. rays (cell order, {res['captured_cell_order']}); "
+              f"{N_RAYS} i.i.d. rays: cell order == the caller's{timing}; request min / median / "
+              f"max {min(times):.3f} / {float(np.median(times)):.3f} / {max(times):.3f} ms (CUDA "
+              f"events); {card}", flush=True)
+        del ordered, caller
 
     # K-B alone at the request's first bounce, radius 1.0.
     o, _, v0, e1, e2, cull = brute_request_inputs(dirs)
@@ -3634,6 +3685,19 @@ def main() -> int:
                   f"plain version's (_brute_forward) bit for bit; bound_ms: 32 bytes a ray and "
                   f"the faces, {CULL_FLOPS + RAY_NORM_FLOPS} operations a ray for the cull and {MT_TEST_FLOPS} a "
                   f"test; XLA's (chunk, T) broadcast in rfx"},
+        {"name": "fused_trace_ico", "route": "cuda", "source": "rfx_torch/csrc/fused_trace.cu",
+         "replaces": "rfx/tracer.py:87 (the icosphere receiver under the scan tracer)",
+         **counts(K_FUSED_ICO), "max_abs_err": 0.0, "ms": ico_cir["r0.1"]["iid_ms"],
+         **ico_cir["r0.1"]["bound"], "library_ms": None,
+         "shape": f"ms, bound_ms: {N_RAYS} i.i.d. rays x {BOUNCES} bounces on the bench "
+                  f"terrain in direction-cell order (order, walk and put-back), the receiver an "
+                  f"icosphere of radius 0.1; bound_ms: the analytic walk's counters on these "
+                  f"rays, the cull on every ray-bounce and the 80 tests of the rays that pass it "
+                  f"at the first bounce; the kernel equals fused_trace_plain(rx_mode="
+                  f"'icosphere') bit for bit (max_abs_err) on {SUBSET} Morton rays and on "
+                  f"ORDER_MIN_RAYS i.i.d. rays in cell order at radius 0.1 and 1.0; the TPU path "
+                  f"ran this receiver only in the scan tracer; the comparison times are "
+                  f"scripts/torch_bench_kernels.py's k1i row"},
         {"name": "map_capture_ico", "route": "cuda", "source": "rfx_torch/csrc/map_capture.cu",
          "replaces": "rfx/coverage.py:38", **counts(K_MAP_ICO), "max_abs_err": 0,
          "ms": ico_room["ks_ms"], "device_ms": ico_room["ks_device_ms"],

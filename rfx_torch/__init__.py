@@ -6,14 +6,15 @@ host modules (`geometry.py`, `bvh.py`, `config.py`, `viz/`, `utils/`), and an
 `rfx` mesh or BVH crosses by field through `convert.py`.
 
 Every public entry point takes `device=` (default `"cuda"`). On a CUDA tensor
-the hand-written kernels run, twenty-three C entry points in nine sources of
+the hand-written kernels run, twenty-four C entry points in nine sources of
 rfx_torch/csrc/, built with nvcc at first use (`ops/_build.py`):
-twenty-two launch kernels, and `rfx_map_capture_backward_blocks` gives the
+twenty-three launch kernels, and `rfx_map_capture_backward_blocks` gives the
 rows of the map capture backward's scratch. The sources:
 
 - `fused_trace.cu`: the fused bounce loop, which walks its rays in the
   order it is given and writes each ray's outputs at the ray's own index,
-  and its counted instantiation;
+  with the analytic receiver sphere or the reference's 80-face icosphere
+  (an instantiation each), and its counted instantiation;
 - `ray_order.cu`: the rays' direction-cell order, a counting sort of the
   ray indices by each direction's cell on an octahedral lattice, which the
   fused trace walks (`ops/ray_order.py`);

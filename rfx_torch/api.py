@@ -17,10 +17,11 @@ terrain, one CPU thread: `bvh` 0.10 s, `fused` 8.80 s, the same nonzero bins
 from `rfx_torch.bvh.build_bvh(method="auto")`: the native C++ builder for
 large meshes. The fused backend builds one BVH and one
 packing for two kernels: the fused bounce-loop kernel
-(rfx_torch.ops.fused) answers `compute_cir` with the analytic receiver and
-no recorded paths; the per-query BVH kernel (rfx_torch.ops.bvh_trace), under
-the scan tracer, answers recorded paths, the icosphere receiver and
-coverage, as rfx/api.py:222-244 does with its `pallas` backend.
+(rfx_torch.ops.fused) answers `compute_cir` without recorded paths, with
+either receiver (the JAX facade sends the icosphere to its scan tracer,
+rfx/api.py:96-99); the per-query BVH kernel (rfx_torch.ops.bvh_trace), under
+the scan tracer, answers recorded paths and coverage, as rfx/api.py:222-244
+does with its `pallas` backend.
 """
 
 from __future__ import annotations
@@ -34,7 +35,6 @@ from rfx_torch.bvh import build_bvh
 from rfx_torch.coverage import coverage_dbm_fast, coverage_dbm_hybrid, coverage_irs
 from rfx_torch.device import resolve_device
 from rfx_torch.geometry import TriangleMesh, as_mesh
-from rfx_torch.ops.bvh_pack import pack_bvh
 from rfx_torch.ops.bvh_trace import make_kernel_env_hit
 from rfx_torch.ops.fused import FusedTracer
 from rfx_torch.ops.intersect import make_env_intersector
@@ -88,9 +88,7 @@ class Tracer:
         self.tx_num_rays = int(tx_num_rays)
         self.n1 = float(n1)
         self.n2 = float(n2)
-        if rx_mode not in ("analytic", "icosphere"):
-            raise ValueError(f"unknown rx_mode: {rx_mode}")
-        self.rx_mode = rx_mode
+        self.rx_mode = rx_mode  # checked where a request uses it
         self.nbins = int(sample_window_s * sample_rate_hz)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -104,16 +102,11 @@ class Tracer:
         if backend in ("brute", "bvh"):
             self.env_hit = make_env_intersector(backend, mesh=environment, device=self.device)
         else:
-            flat = build_bvh(environment, leaf_size=8)
-            if rx_mode == "analytic":
-                # The fused kernel bakes in the analytic sphere; the
-                # per-query kernel shares its packed tables.
-                self._fused = FusedTracer(flat, max_bounces=self.max_bounces,
-                                          device=self.device)
-                bvh = self._fused.bvh
-            else:
-                bvh = pack_bvh(flat, self.device)
-            self.env_hit = make_kernel_env_hit(bvh)
+            # The fused kernel has both receivers; the per-query kernel
+            # shares its packed tables.
+            self._fused = FusedTracer(build_bvh(environment, leaf_size=8),
+                                      max_bounces=self.max_bounces, device=self.device)
+            self.env_hit = make_kernel_env_hit(self._fused.bvh)
 
     def _directions(self, directions) -> torch.Tensor:
         if directions is None:
@@ -135,14 +128,15 @@ class Tracer:
         `directions` is an optional (N, 3) array; by default tx_num_rays
         fresh directions come from this tracer's generator. record_paths
         "auto" records paths for batches of at most AUTO_PATHS_MAX_RAYS rays.
-        The fused kernel answers only the analytic receiver without recorded
-        paths; everything else runs the scan tracer on this tracer's
-        `env_hit`."""
+        On the fused backend the fused kernel answers a request without
+        recorded paths, with this tracer's receiver; everything else runs the
+        scan tracer on this tracer's `env_hit`."""
         dirs = self._directions(directions)
         if record_paths == "auto":
             record_paths = dirs.shape[0] <= self.AUTO_PATHS_MAX_RAYS
         if self._fused is not None and not record_paths:
-            result = self._fused(dirs, tx_pos, rx_pos, rx_radius, n1=self.n1, n2=self.n2)
+            result = self._fused(dirs, tx_pos, rx_pos, rx_radius, n1=self.n1, n2=self.n2,
+                                 rx_mode=self.rx_mode)
         else:
             result = trace_to_rx(self.scene, tx_pos, dirs, rx_pos, rx_radius,
                                  max_bounces=self.max_bounces, n1=self.n1, n2=self.n2,

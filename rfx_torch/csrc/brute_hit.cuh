@@ -152,6 +152,21 @@ __device__ __forceinline__ void ico_face(const float* unit_r, int f, float cx, f
   for (int k = 3; k < kTriFloats; ++k) tri[k] = u[k];
 }
 
+// Face f of the icosphere of radius `radius` about (cx, cy, cz) from the unit
+// faces `unit` ((80, 9)), scaled here: (unit[f].v0 * radius + c,
+// unit[f].e1 * radius, unit[f].e2 * radius), rounded as
+// rfx_torch.ops.intersect.icosphere_tris rounds it (the product, then the
+// sum); the table is read through the read-only path.
+__device__ __forceinline__ void ico_face(const float* unit, int f, float cx, float cy, float cz,
+                                         float radius, float (&tri)[kTriFloats]) {
+  const float* u = unit + kTriFloats * f;
+  tri[0] = __ldg(u) * radius + cx;
+  tri[1] = __ldg(u + 1) * radius + cy;
+  tri[2] = __ldg(u + 2) * radius + cz;
+#pragma unroll
+  for (int k = 3; k < kTriFloats; ++k) tri[k] = __ldg(u + k) * radius;
+}
+
 // The icosphere receiver's closest hit t, shared by the 32 lanes of a warp,
 // which all call it with the same arguments: over the faces (ico_face) of
 // the icosphere about (cx, cy, cz). Lane l tests faces l, l + 32 and l + 64,

@@ -5,7 +5,10 @@
 // fused_trace_planes. Per bounce and per ray:
 //   1. closest hit over the flat BVH: rfx::bvh_closest_hit (bvh_walk.cuh),
 //      the walk the per-query kernel (closest_hit.cu) runs too;
-//   2. analytic receiver sphere and the capture rule
+//   2. the receiver, chosen at compile time (a template policy, no runtime
+//      branch in the walk): the analytic sphere of the TPU kernel, or the
+//      reference's 80-face icosphere (rfx/tracer.py:87-104, which the TPU
+//      path ran only in the scan tracer); then the capture rule
 //      alive & t_rx < 1e29 & t_env > t_rx (:509-523);
 //   3. specular reflection and the algebraic s-pol Fresnel factor
 //      (:535-549). A ray that is captured or escapes leaves the loop; its
@@ -64,6 +67,24 @@
 // are deterministic. The uncounted kernel instantiates `bounce` with NoCount
 // and has no vote, no atomic and no shared memory: its trace is what it was.
 //
+// The icosphere receiver (rfx_fused_trace_ico): each bounce first runs the
+// bounding-sphere cull of the brute closest hit (brute_hit.cuh:cull_pass,
+// center rx and radius r), about 30 operations; only a ray that passes it runs
+// the 80 Moller-Trumbore tests (brute_hit.cuh:mt_t, t window (1e-4, 1e6)) in
+// ascending face order and keeps the smallest t, the t of the brute closest
+// hit's first smallest face (rfx_torch.ops.intersect.ray_mesh_closest_hit_brute).
+// Face f is formed in the kernel from the unit table
+// (rfx_torch.ops.intersect.unit_icosphere_tris, (80, 9), read through the
+// read-only path) as icosphere_tris forms it: v0 = unit_v0 * r + rx, e1 =
+// unit_e1 * r, e2 = unit_e2 * r, the same bits without contraction. Of the
+// bench request's 5,242,880 rays 4,095 pass the cull of its 1.0-m receiver at
+// the first bounce (fewer at the CIR cells' 0.1 m), and in direction-cell
+// order those rays share few warps, so the tests run in a function of their
+// own (__noinline__) and the walk keeps its registers (48, as the analytic
+// instantiation's); lanes that pass nothing wait at the call, and no vote is
+// taken, since lanes of one warp are at different bounces or have left the
+// loop.
+//
 // Rounding: the source is built with -fmad=false (rfx_torch/ops/_build.py),
 // so every product and sum rounds as PyTorch's elementwise operations do in
 // the plain version (rfx_torch/ops/fused.py:fused_trace_plain); a contracted
@@ -72,6 +93,7 @@
 
 #include <cuda_runtime.h>
 
+#include "brute_hit.cuh"
 #include "bvh_walk.cuh"
 
 namespace {
@@ -93,7 +115,7 @@ struct Scene {
   int n_nodes;
   const float4* tris;
   const int* tri_face;
-  float rx0, rx1, rx2, r2, n1, n2;
+  float n1, n2;
 };
 
 struct Ray {
@@ -104,27 +126,66 @@ struct Ray {
   int nb = 0;
 };
 
+// The receivers: t_rx(r), the ray's t at the receiver, kMiss on a miss.
+
+// The analytic receiver sphere (rfx.ops.intersect.ray_sphere_hit) about
+// (cx, cy, cz), r2 its radius squared in f32.
+struct AnalyticSphere {
+  float cx, cy, cz, r2;
+
+  __device__ __forceinline__ float t_rx(const Ray& r) const {
+    const float ocx = r.ox - cx, ocy = r.oy - cy, ocz = r.oz - cz;
+    const float bq = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+    const float cq = ocx * ocx + ocy * ocy + ocz * ocz - r2;
+    const float disc = bq * bq - cq;
+    float t = kMiss;
+    if (disc > 0.0f) {
+      const float sq = sqrtf(disc);
+      const float t0 = -bq - sq;
+      const float t1 = -bq + sq;
+      t = t0 > kTMin ? t0 : (t1 > kTMin ? t1 : kMiss);
+    }
+    return t;
+  }
+};
+
+// The smallest t of the ray over the 80 faces of the icosphere of radius
+// `radius` about (cx, cy, cz), formed from the unit faces `unit` ((80, 9):
+// v0, e1, e2) by ico_face, in ascending face order; kMiss where no face is
+// hit.
+__device__ __noinline__ float icosphere_t(const rfx_brute::Ray q, const float* unit, float cx,
+                                          float cy, float cz, float radius) {
+  float best = kMiss;
+  for (int f = 0; f < rfx_brute::kIcoFaces; ++f) {
+    float tri[rfx_brute::kTriFloats];
+    rfx_brute::ico_face(unit, f, cx, cy, cz, radius, tri);
+    best = fminf(best, rfx_brute::mt_t(q, tri, rfx_brute::kTMin, rfx_brute::kTMax));
+  }
+  return best;
+}
+
+// The reference's 80-face icosphere receiver about (cx, cy, cz): the cull,
+// then, where the ray passes it, the 80 tests (icosphere_t).
+struct Icosphere {
+  const float* unit;  // (80, 9) f32, the unit icosphere's faces
+  float cx, cy, cz, radius;
+
+  __device__ __forceinline__ float t_rx(const Ray& r) const {
+    const rfx_brute::Ray q{r.ox, r.oy, r.oz, r.dx, r.dy, r.dz};
+    if (!rfx_brute::cull_pass(q, cx, cy, cz, radius)) return kMiss;
+    return icosphere_t(q, unit, cx, cy, cz, radius);
+  }
+};
+
 // One bounce of one ray; false when the ray is captured or escapes. `faces`
 // is null unless the face record is asked for.
-template <class Counter>
-__device__ __forceinline__ bool bounce(Ray& r, const Scene& s, int b, int ray, int n,
-                                       int* __restrict__ faces, Counter& counter) {
+template <class Counter, class Receiver>
+__device__ __forceinline__ bool bounce(Ray& r, const Scene& s, const Receiver& rx, int b, int ray,
+                                       int n, int* __restrict__ faces, Counter& counter) {
   int best;
   const float t_best = rfx::bvh_closest_hit(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, s.nodes,
                                             s.n_nodes, s.tris, &best, counter);
-
-  // Analytic receiver sphere (rfx.ops.intersect.ray_sphere_hit).
-  const float ocx = r.ox - s.rx0, ocy = r.oy - s.rx1, ocz = r.oz - s.rx2;
-  const float bq = ocx * r.dx + ocy * r.dy + ocz * r.dz;
-  const float cq = ocx * ocx + ocy * ocy + ocz * ocz - s.r2;
-  const float disc = bq * bq - cq;
-  float t_rx = kMiss;
-  if (disc > 0.0f) {
-    const float sq = sqrtf(disc);
-    const float t0 = -bq - sq;
-    const float t1 = -bq + sq;
-    t_rx = t0 > kTMin ? t0 : (t1 > kTMin ? t1 : kMiss);
-  }
+  const float t_rx = rx.t_rx(r);
 
   if (t_rx < kMissThreshold && t_best > t_rx) {  // the receiver wins
     r.capt = true;
@@ -196,25 +257,25 @@ __device__ __forceinline__ void store(const Ray& r, int ray, int n, int max_boun
   num_bounces[ray] = r.nb;
 }
 
+template <class Receiver>
 __global__ void __launch_bounds__(kThreads) fused_trace_kernel(
     const float* __restrict__ dirs, int n,
     const float4* __restrict__ nodes, int n_nodes, const float4* __restrict__ tris,
     const int* __restrict__ tri_face,
-    float tx0, float tx1, float tx2, float rx0, float rx1, float rx2,
-    float r2, float n1, float n2, int max_bounces,
+    float tx0, float tx1, float tx2, const Receiver rx, float n1, float n2, int max_bounces,
     bool* __restrict__ captured, float* __restrict__ cap_amp,
     float* __restrict__ cap_dist, int* __restrict__ num_bounces, int* __restrict__ faces,
     const int* __restrict__ order, float4* __restrict__ walked) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int ray = order != nullptr ? order[i] : i;
-  const Scene scene{nodes, n_nodes, tris, tri_face, rx0, rx1, rx2, r2, n1, n2};
+  const Scene scene{nodes, n_nodes, tris, tri_face, n1, n2};
   Ray r = ray_from(dirs, ray, tx0, tx1, tx2);
   rfx::NoCount counter;
   // The face record goes to slot i: the ray's own index in the caller's
   // order, the walk's scratch in cell order.
   for (int b = 0; b < max_bounces; ++b) {
-    if (!bounce(r, scene, b, i, n, faces, counter)) break;
+    if (!bounce(r, scene, rx, b, i, n, faces, counter)) break;
   }
   if (walked == nullptr) {
     store(r, i, n, max_bounces, captured, cap_amp, cap_dist, num_bounces, faces);
@@ -266,12 +327,13 @@ __global__ void __launch_bounds__(kThreads) fused_trace_counted_kernel(
   // No lane returns early: every vote below names all 32 lanes of the warp.
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
   bool live = ray < n;
-  const Scene scene{nodes, n_nodes, tris, tri_face, rx0, rx1, rx2, r2, n1, n2};
+  const Scene scene{nodes, n_nodes, tris, tri_face, n1, n2};
+  const AnalyticSphere rx{rx0, rx1, rx2, r2};
   Ray r;
   if (live) r = ray_from(dirs, ray, tx0, tx1, tx2);
   for (int b = 0; b < max_bounces; ++b) {
     rfx::WalkCount counter;
-    if (live) live = bounce(r, scene, b, ray, n, faces, counter);
+    if (live) live = bounce(r, scene, rx, b, ray, n, faces, counter);
     const unsigned nodes = __reduce_add_sync(kFullWarp, counter.nodes);
     const unsigned leaves = __reduce_add_sync(kFullWarp, counter.leaves);
     const unsigned tris = __reduce_add_sync(kFullWarp, counter.tris);
@@ -292,29 +354,22 @@ __global__ void __launch_bounds__(kThreads) fused_trace_counted_kernel(
   if (ray < n) store(r, ray, n, max_bounces, captured, cap_amp, cap_dist, num_bounces, faces);
 }
 
-}  // namespace
-
-// tri_face and faces may be null (no face record); faces is (max_bounces, n).
-// order and rank may be null (the caller's order), or an (n,) int32
-// permutation and its inverse (rfx_ray_order): thread i then traces ray
-// order[i] into slot i of walked, (n,) float4 records (amplitude, distance,
-// bounces, captured), and of walked_faces, (max_bounces, n) int32 where faces
-// are recorded, and walk_put_back_kernel puts them back at each ray's index.
-extern "C" int rfx_fused_trace(
-    const void* dirs, int n, const void* nodes, int n_nodes, const void* tris,
-    const void* tri_face, float tx0, float tx1, float tx2,
-    float rx0, float rx1, float rx2, float r2, float n1, float n2,
-    int max_bounces, void* captured, void* cap_amp, void* cap_dist,
-    void* num_bounces, void* faces, const void* order, const void* rank, void* walked,
-    void* walked_faces, void* stream) {
+// The launch of fused_trace_kernel with the receiver rx, then, in cell
+// order, of walk_put_back_kernel.
+template <class Receiver>
+int launch(const void* dirs, int n, const void* nodes, int n_nodes, const void* tris,
+           const void* tri_face, float tx0, float tx1, float tx2, const Receiver& rx, float n1,
+           float n2, int max_bounces, void* captured, void* cap_amp, void* cap_dist,
+           void* num_bounces, void* faces, const void* order, const void* rank, void* walked,
+           void* walked_faces, void* stream) {
   if (n > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool ordered = order != nullptr;
     const int blocks = (n + kThreads - 1) / kThreads;
-    fused_trace_kernel<<<blocks, kThreads, 0, s>>>(
+    fused_trace_kernel<Receiver><<<blocks, kThreads, 0, s>>>(
         static_cast<const float*>(dirs), n, static_cast<const float4*>(nodes), n_nodes,
-        static_cast<const float4*>(tris), static_cast<const int*>(tri_face), tx0, tx1, tx2, rx0,
-        rx1, rx2, r2, n1, n2, max_bounces, static_cast<bool*>(captured),
+        static_cast<const float4*>(tris), static_cast<const int*>(tri_face), tx0, tx1, tx2, rx,
+        n1, n2, max_bounces, static_cast<bool*>(captured),
         static_cast<float*>(cap_amp), static_cast<float*>(cap_dist),
         static_cast<int*>(num_bounces), static_cast<int*>(ordered ? walked_faces : faces),
         static_cast<const int*>(order), ordered ? static_cast<float4*>(walked) : nullptr);
@@ -327,6 +382,44 @@ extern "C" int rfx_fused_trace(
     }
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// tri_face and faces may be null (no face record); faces is (max_bounces, n).
+// order and rank may be null (the caller's order), or an (n,) int32
+// permutation and its inverse (rfx_ray_order): thread i then traces ray
+// order[i] into slot i of walked, (n,) float4 records (amplitude, distance,
+// bounces, captured), and of walked_faces, (max_bounces, n) int32 where faces
+// are recorded, and walk_put_back_kernel puts them back at each ray's index.
+// The receiver is the analytic sphere about (rx0, rx1, rx2), r2 its radius
+// squared.
+extern "C" int rfx_fused_trace(
+    const void* dirs, int n, const void* nodes, int n_nodes, const void* tris,
+    const void* tri_face, float tx0, float tx1, float tx2,
+    float rx0, float rx1, float rx2, float r2, float n1, float n2,
+    int max_bounces, void* captured, void* cap_amp, void* cap_dist,
+    void* num_bounces, void* faces, const void* order, const void* rank, void* walked,
+    void* walked_faces, void* stream) {
+  return launch(dirs, n, nodes, n_nodes, tris, tri_face, tx0, tx1, tx2,
+                AnalyticSphere{rx0, rx1, rx2, r2}, n1, n2, max_bounces, captured, cap_amp,
+                cap_dist, num_bounces, faces, order, rank, walked, walked_faces, stream);
+}
+
+// rfx_fused_trace with the reference's 80-face icosphere receiver of radius
+// `radius` about (rx0, rx1, rx2): unit is the (80, 9) f32 unit icosphere on
+// the device (rfx_torch.ops.intersect.unit_icosphere_tris).
+extern "C" int rfx_fused_trace_ico(
+    const void* dirs, int n, const void* nodes, int n_nodes, const void* tris,
+    const void* tri_face, float tx0, float tx1, float tx2,
+    float rx0, float rx1, float rx2, float radius, float n1, float n2,
+    int max_bounces, void* captured, void* cap_amp, void* cap_dist,
+    void* num_bounces, void* faces, const void* order, const void* rank, void* walked,
+    void* walked_faces, const void* unit, void* stream) {
+  return launch(dirs, n, nodes, n_nodes, tris, tri_face, tx0, tx1, tx2,
+                Icosphere{static_cast<const float*>(unit), rx0, rx1, rx2, radius}, n1, n2,
+                max_bounces, captured, cap_amp, cap_dist, num_bounces, faces, order, rank, walked,
+                walked_faces, stream);
 }
 
 // The counted instantiation: as rfx_fused_trace, and adds each bounce's
@@ -357,5 +450,9 @@ extern "C" const char* rfx_fused_trace_error_string(int err) {
 }
 
 extern "C" const char* rfx_fused_trace_counted_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+extern "C" const char* rfx_fused_trace_ico_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

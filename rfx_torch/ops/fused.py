@@ -4,9 +4,14 @@ rfx/ops/pallas_fused.py).
 `fused_trace` runs the whole bounce loop of every ray in one CUDA kernel
 (rfx_torch/csrc/fused_trace.cu) on a CUDA tensor, and its plain PyTorch
 version `fused_trace_plain` on a CPU tensor. The receiver is the analytic
-sphere. Semantics are those of rfx.tracer.trace_to_rx(rx_mode="analytic"),
-with the algebraic s-pol Fresnel factor of the TPU kernel (no arccos or
-arcsin), equal to rfx.physics.fresnel_bounce_amplitude within f32 rounding.
+sphere (`rx_mode="analytic"`, the TPU kernel's) or the reference's 80-face
+icosphere (`rx_mode="icosphere"`: the brute closest hit's cull, then its 80
+Moller-Trumbore tests where the ray passes it, the faces formed from the
+cached unit table as `intersect.icosphere_tris` forms them), chosen when the
+kernel is compiled: two instantiations, one C entry point each. Semantics
+are those of rfx.tracer.trace_to_rx with the same `rx_mode`, with the
+algebraic s-pol Fresnel factor of the TPU kernel (no arccos or arcsin),
+equal to rfx.physics.fresnel_bounce_amplitude within f32 rounding.
 With `record_faces` it also returns the (B, N) int32 table of the original
 face each ray hit at each bounce where it env-bounced (-1 elsewhere).
 
@@ -20,12 +25,12 @@ its own direction, the scene and the scalars, so every output keeps the
 bits of the caller's order; what changes is that a warp's 32 walks leave
 the transmitter inside one small cone. Every call orders its own rays. The
 counted instantiation keeps the caller's order, since its `warp_steps` is
-defined over 32 consecutive caller rays.
+defined over 32 consecutive caller rays, and it is analytic only.
 
-`make_diff_fused_tracer` is the differentiable fused path: the forward is
-the kernel with `record_faces`, the backward replays the captured rays on
-their recorded faces in closed form (`replay_from_faces`, plain PyTorch
-under autograd), with no BVH walk.
+`make_diff_fused_tracer` is the differentiable fused path (analytic
+receiver): the forward is the kernel with `record_faces`, the backward
+replays the captured rays on their recorded faces in closed form
+(`replay_from_faces`, plain PyTorch under autograd), with no BVH walk.
 
 With `count_stats` it also returns the walk counters, a (B, 4) int64 tensor
 whose row b sums over the rays of bounce b: `nodes` (iterations of the
@@ -57,12 +62,18 @@ from rfx_torch.ops.bvh_trace import padded_closest_hit
 from rfx_torch.ops.bvh_traverse import walk_closest_hit
 from rfx_torch.ops.intersect import (
     MISS_THRESHOLD,
+    T_MAX,
+    T_MIN_EPS,
+    _brute_forward,
     closed_form_t,
     cross3,
     dot3,
+    icosphere_soa,
     ray_sphere_hit,
     sphere_t,
+    unit_icosphere_tris,
 )
+from rfx_torch.ops.map_capture import RX_MODES
 from rfx_torch.ops.ray_order import ray_order
 from rfx_torch.tracer import TraceResult
 from rfx_torch.utils import profiling
@@ -70,12 +81,17 @@ from rfx_torch.utils.profiling import spanned
 
 __all__ = ["FusedTracer", "make_fused_tracer", "fused_trace", "fused_trace_plain",
            "fused_trace_walk_plain", "replay_from_faces", "make_diff_fused_tracer",
-           "FUSED_TRACE_KERNEL", "FUSED_TRACE_COUNTED_KERNEL", "WARP", "ORDER_MIN_RAYS"]
+           "FUSED_TRACE_KERNEL", "FUSED_TRACE_ICO_KERNEL", "FUSED_TRACE_COUNTED_KERNEL", "WARP",
+           "ORDER_MIN_RAYS"]
 
 _TRACE_ARGS = [P, I, P, I, P, P, F, F, F, F, F, F, F, F, F, I, P, P, P, P, P]
 # The arguments, then the cell order, its rank, the walk's (N, 4) records and
 # (B, N) faces (all null in the caller's order), and the stream.
 FUSED_TRACE_KERNEL = CudaKernel("fused_trace.cu", "rfx_fused_trace", [*_TRACE_ARGS, P, P, P, P, P])
+# The icosphere instantiation: the radius in r^2's place, and the unit
+# icosphere's (80, 9) faces before the stream.
+FUSED_TRACE_ICO_KERNEL = CudaKernel("fused_trace.cu", "rfx_fused_trace_ico",
+                                    [*_TRACE_ARGS, P, P, P, P, P, P])
 # The counted instantiation: the same arguments, then the (B, 4) counters.
 FUSED_TRACE_COUNTED_KERNEL = CudaKernel("fused_trace.cu", "rfx_fused_trace_counted",
                                         [*_TRACE_ARGS, P, P])
@@ -95,13 +111,26 @@ ORDER_MIN_RAYS = 393_216
 
 
 def _scalars(tx_pos, rx_pos, rx_radius, n1, n2):
-    """The kernel's f32 scalars: tx (3), rx (3), r^2, n1, n2, with r^2
+    """The kernel's f32 scalars: tx (3), rx (3), r, r^2, n1, n2, with r^2
     rounded in f32 as the reference computes it."""
     host = lambda a: torch.as_tensor(a, dtype=torch.float32).detach().cpu().numpy()  # noqa: E731
     tx = host(tx_pos).reshape(3)
     rx = host(rx_pos).reshape(3)
     r = np.float32(host(rx_radius))
-    return tx, rx, np.float32(r * r), np.float32(n1), np.float32(n2)
+    return tx, rx, r, np.float32(r * r), np.float32(n1), np.float32(n2)
+
+
+def _receiver_plain(rx_mode: str, rx: torch.Tensor, r, r2: torch.Tensor):
+    """t_rx(o, d) of the fused kernel's receiver in plain PyTorch, on either
+    device: the analytic sphere (`sphere_t`), or the plain brute closest
+    hit's t on the icosphere's faces (`icosphere_soa`), every ray tested (the
+    kernel's cull drops none of its hits)."""
+    if rx_mode == "analytic":
+        return lambda o, d: sphere_t(o, d, rx, r2)
+    if rx_mode != "icosphere":
+        raise ValueError(f"unknown rx_mode: {rx_mode}")
+    v0, e1, e2 = icosphere_soa(rx, float(r))
+    return lambda o, d: _brute_forward(o, d, v0, e1, e2, T_MIN_EPS, T_MAX, None)[0]
 
 
 def _fresnel_algebraic(w, n1, n2):
@@ -127,17 +156,19 @@ def _extras(result, faces, stats):
 
 
 def _bounce_loop_plain(bvh, directions, tx_pos, rx_pos, rx_radius, n1, n2, max_bounces,
-                       closest):
+                       closest, rx_mode="analytic"):
     """The fused kernel's bounce loop in plain PyTorch over `closest(o, d) ->
-    (t, padded index, per-ray walk counts (A, 3) or None)`: the same receiver
-    sphere, capture fold, reflection and algebraic Fresnel, one Python
-    iteration per bounce over the rays still alive. Returns (TraceResult,
-    (B, N) int32 faces, (B, 4) int64 counters)."""
+    (t, padded index, per-ray walk counts (A, 3) or None)` and the receiver
+    of `rx_mode` (`_receiver_plain`): the same capture fold, reflection and
+    algebraic Fresnel, one Python iteration per bounce over the rays still
+    alive. Returns (TraceResult, (B, N) int32 faces, (B, 4) int64
+    counters)."""
     dev = directions.device
     f32 = torch.float32
-    tx, rx, r2, n1s, n2s = _scalars(tx_pos, rx_pos, rx_radius, n1, n2)
+    tx, rx, r, r2, n1s, n2s = _scalars(tx_pos, rx_pos, rx_radius, n1, n2)
     as_dev = lambda a: torch.as_tensor(a, dtype=f32, device=dev)  # noqa: E731
-    rx_t, r2_t, n1_t, n2_t = as_dev(rx), as_dev(r2), as_dev(n1s), as_dev(n2s)
+    n1_t, n2_t = as_dev(n1s), as_dev(n2s)
+    t_rx_of = _receiver_plain(rx_mode, as_dev(rx), r, as_dev(r2))
     n = directions.shape[0]
     tri = bvh.tri
 
@@ -163,7 +194,7 @@ def _bounce_loop_plain(bvh, directions, tx_pos, rx_pos, rx_radius, n1, n2, max_b
             nodes = torch.zeros(-(-n // WARP) * WARP, dtype=torch.int64, device=dev)
             nodes[alive] = walked[:, 0]
             stats[b, 3] = nodes.view(-1, WARP).amax(dim=1).sum()
-        t_rx = sphere_t(oa, da, rx_t, r2_t)
+        t_rx = t_rx_of(oa, da)
         rx_win = (t_rx < MISS_THRESHOLD) & (t_env > t_rx)
         env_b = ~rx_win & (t_env < MISS_THRESHOLD)
 
@@ -191,24 +222,27 @@ def _bounce_loop_plain(bvh, directions, tx_pos, rx_pos, rx_radius, n1, n2, max_b
 
 
 def fused_trace_plain(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, rx_radius,
-                      n1=5.0, n2=1.0, *, max_bounces: int, record_faces: bool = False):
+                      n1=5.0, n2=1.0, *, max_bounces: int, record_faces: bool = False,
+                      rx_mode: str = "analytic"):
     """Plain PyTorch version of the fused kernel: brute-force closest hit over
     the packed triangles in padded order (ties to the lowest index, as the
     kernel's preorder walk gives them), chunked over rays to bound the
-    intermediates. Returns a TraceResult, or (TraceResult, (B, N) int32
-    faces) with `record_faces`. It cannot count: see `fused_trace_walk_plain`."""
+    intermediates, and the receiver of `rx_mode`. Returns a TraceResult, or
+    (TraceResult, (B, N) int32 faces) with `record_faces`. It cannot count:
+    see `fused_trace_walk_plain`."""
     result, faces, _ = _bounce_loop_plain(
         bvh, directions, tx_pos, rx_pos, rx_radius, n1, n2, max_bounces,
-        lambda o, d: (*padded_closest_hit(o, d, bvh.tri), None))
+        lambda o, d: (*padded_closest_hit(o, d, bvh.tri), None), rx_mode)
     return _extras(result, faces if record_faces else None, None)
 
 
 def fused_trace_walk_plain(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, rx_radius,
                            n1=5.0, n2=1.0, *, max_bounces: int, record_faces: bool = False,
                            count_stats: bool = False):
-    """Plain PyTorch version of the counted fused kernel: the same bounce
-    loop on the plain stackless walk (rfx_torch.ops.bvh_traverse), which
-    visits the nodes the kernel's walk visits in the same order. Returns
+    """Plain PyTorch version of the counted fused kernel (analytic
+    receiver): the same bounce loop on the plain stackless walk
+    (rfx_torch.ops.bvh_traverse), which visits the nodes the kernel's walk
+    visits in the same order. Returns
     (TraceResult[, (B, N) int32 faces][, (B, 4) int64 counters]); the trace
     equals `fused_trace_plain`'s."""
     result, faces, stats = _bounce_loop_plain(
@@ -219,15 +253,21 @@ def fused_trace_walk_plain(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_
 
 def fused_trace(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, rx_radius,
                 n1=5.0, n2=1.0, *, max_bounces: int, record_faces: bool = False,
-                count_stats: bool = False):
+                count_stats: bool = False, rx_mode: str = "analytic"):
     """Trace (N, 3) f32 directions from tx_pos through `max_bounces` bounces
-    against the packed scene: TraceResult of (N,) captured, amplitude,
-    distance, num_bounces; with `record_faces` also the (B, N) int32
-    per-bounce face table; with `count_stats` also the (B, 4) int64 walk
+    against the packed scene to the receiver of `rx_mode` ("analytic" or "icosphere"):
+    TraceResult of (N,) captured, amplitude, distance, num_bounces; with
+    `record_faces` also the (B, N) int32 per-bounce face table; with
+    `count_stats` (analytic receiver only) also the (B, 4) int64 walk
     counters (nodes, leaves, tris, warp_steps per bounce). A CPU tensor runs
     the plain versions (`fused_trace_plain`, or `fused_trace_walk_plain` to
-    count); a CUDA tensor launches the kernel, or its counted instantiation,
-    or raises. No autograd: see `make_diff_fused_tracer`."""
+    count); a CUDA tensor launches the kernel of the receiver, or the
+    counted instantiation, or raises. No autograd: see
+    `make_diff_fused_tracer`."""
+    if rx_mode not in RX_MODES:
+        raise ValueError(f"unknown rx_mode: {rx_mode}")
+    if count_stats and rx_mode != "analytic":
+        raise ValueError("count_stats counts the analytic receiver's trace only")
     dev = directions.device
     if directions.ndim != 2 or directions.shape[1] != 3:
         raise ValueError(f"directions must be (N, 3), got {tuple(directions.shape)}")
@@ -241,20 +281,22 @@ def fused_trace(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, rx_rad
                                           max_bounces=max_bounces, record_faces=record_faces,
                                           count_stats=True)
         return fused_trace_plain(bvh, directions, tx_pos, rx_pos, rx_radius, n1, n2,
-                                 max_bounces=max_bounces, record_faces=record_faces)
+                                 max_bounces=max_bounces, record_faces=record_faces,
+                                 rx_mode=rx_mode)
     if dev.type != "cuda":
         raise ValueError(f"no fused trace for device {dev}")
     return _fused_launch(bvh, directions, tx_pos, rx_pos, rx_radius, n1, n2,
                          max_bounces=max_bounces, record_faces=record_faces,
-                         count_stats=count_stats)
+                         count_stats=count_stats, rx_mode=rx_mode)
 
 
 @spanned("rfx.tracer.fused")
 def _fused_launch(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, rx_radius, n1, n2, *,
-                  max_bounces: int, record_faces: bool, count_stats: bool):
+                  max_bounces: int, record_faces: bool, count_stats: bool, rx_mode: str):
     """`fused_trace`'s CUDA branch: the kernel's arguments and its launch."""
     dev = directions.device
-    tx, rx, r2, n1s, n2s = _scalars(tx_pos, rx_pos, rx_radius, n1, n2)
+    tx, rx, r, r2, n1s, n2s = _scalars(tx_pos, rx_pos, rx_radius, n1, n2)
+    ico = rx_mode == "icosphere"
     d = directions.contiguous()
     n = d.shape[0]
     if n >= 2**31:
@@ -278,35 +320,42 @@ def _fused_launch(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, rx_r
     ordered = not count_stats and n >= ORDER_MIN_RAYS
     profiling.tally("rays_fused", n)
     profiling.tally("rays_ordered", n if ordered else 0)
+    profiling.tally("rays_fused_ico", n if ico else 0)
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         args = (d.data_ptr(), n, bvh.nodes.data_ptr(), bvh.n_nodes, bvh.tri.data_ptr(),
                 ptr(bvh.tri_face if record_faces else None),
-                *map(float, tx), *map(float, rx), float(r2), float(n1s), float(n2s),
-                int(max_bounces), captured.data_ptr(), cap_amp.data_ptr(), cap_dist.data_ptr(),
-                nb.data_ptr(), ptr(faces))
+                *map(float, tx), *map(float, rx), float(r if ico else r2), float(n1s),
+                float(n2s), int(max_bounces), captured.data_ptr(), cap_amp.data_ptr(),
+                cap_dist.data_ptr(), nb.data_ptr(), ptr(faces))
         if count_stats:
             FUSED_TRACE_COUNTED_KERNEL.launch(*args, stats.data_ptr(), stream)
-        elif ordered:
+            return _extras(result, faces, stats)
+        walk = (None, None, None, None)
+        if ordered:
             cells = ray_order(d)
             walked = torch.empty((n, 4), dtype=torch.float32, device=dev)
             walked_faces = torch.empty_like(faces) if record_faces else None
-            FUSED_TRACE_KERNEL.launch(*args, cells.order.data_ptr(), cells.rank.data_ptr(),
-                                      walked.data_ptr(), ptr(walked_faces), stream)
+            walk = (cells.order.data_ptr(), cells.rank.data_ptr(), walked.data_ptr(),
+                    ptr(walked_faces))
+        if ico:
+            FUSED_TRACE_ICO_KERNEL.launch(*args, *walk, unit_icosphere_tris(dev).data_ptr(),
+                                          stream)
         else:
-            FUSED_TRACE_KERNEL.launch(*args, None, None, None, None, stream)
+            FUSED_TRACE_KERNEL.launch(*args, *walk, stream)
     return _extras(result, faces, stats)
 
 
 class FusedTracer:
     """Fused tracer bound to one scene's BVH on one device.
 
-    fused(directions (N, 3), tx (3,), rx (3,), rx_radius, n1, n2)
+    fused(directions (N, 3), tx (3,), rx (3,), rx_radius, n1, n2, rx_mode=)
       -> TraceResult (captured, amplitude, distance, num_bounces), each (N,);
     with record_faces=True, (TraceResult, (B, N) int32 face table); built
     with count_stats=True, the (B, 4) int64 walk counters come last, as
-    rfx.ops.pallas_fused.FusedTracer returns its own.
+    rfx.ops.pallas_fused.FusedTracer returns its own (analytic receiver
+    only). `rx_mode` is "analytic" (default) or "icosphere".
     """
 
     def __init__(self, flat, *, max_bounces: int, count_stats: bool = False, device="cuda"):
@@ -316,11 +365,11 @@ class FusedTracer:
         self.count_stats = bool(count_stats)
 
     def __call__(self, directions, tx_pos, rx_pos, rx_radius, n1=5.0, n2=1.0,
-                 record_faces: bool = False):
+                 record_faces: bool = False, rx_mode: str = "analytic"):
         d = torch.as_tensor(directions, dtype=torch.float32, device=self.device)
         return fused_trace(self.bvh, d, tx_pos, rx_pos, rx_radius, n1, n2,
                            max_bounces=self.max_bounces, record_faces=record_faces,
-                           count_stats=self.count_stats)
+                           count_stats=self.count_stats, rx_mode=rx_mode)
 
 
 def make_fused_tracer(mesh_or_flat, *, max_bounces: int, leaf_size: int = 8,

@@ -38,8 +38,9 @@ kernel or once a ray, and no counter reads the device. The spans:
 `rfx.wait.*` sites, `bytes_to_host` and `bytes_to_device`, and of those the
 bytes that crossed through page-locked host memory, `bytes_pinned_to_host`
 and `bytes_pinned_to_device`; the rays the fused kernel walked on the card,
-`rays_fused`, and of those the rays it walked in direction-cell order,
-`rays_ordered` (rfx_torch/ops/fused.py); all counted only while a profiler
+`rays_fused`, of those the rays it walked in direction-cell order,
+`rays_ordered`, and the rays it walked with the icosphere receiver,
+`rays_fused_ico` (rfx_torch/ops/fused.py); all counted only while a profiler
 records: in a benchmark's traced run, exactly its traced units. Gauges of the last BVH
 set-up, set whether or not a profiler records (set-up runs before one
 starts), and absent until the first build: `bvh_build_s`, the host seconds
@@ -90,7 +91,7 @@ _profiler_enabled = torch._C._autograd._profiler_enabled
 
 _COUNTERS = {"bytes_to_host": 0, "bytes_to_device": 0,
              "bytes_pinned_to_host": 0, "bytes_pinned_to_device": 0,
-             "rays_fused": 0, "rays_ordered": 0}
+             "rays_fused": 0, "rays_ordered": 0, "rays_fused_ico": 0}
 _GAUGES = {}
 
 #: Payloads of at least this many bytes cross through page-locked memory:
@@ -183,7 +184,8 @@ def set_gauge(name: str, value) -> None:
 def counters() -> dict:
     """A copy of the counters: the tallies bytes_to_host, bytes_to_device,
     bytes_pinned_to_host, bytes_pinned_to_device, rays_fused, rays_ordered,
-    and the gauges set so far (bvh_build_s, bvh_native, bvh_table_bytes)."""
+    rays_fused_ico, and the gauges set so far (bvh_build_s, bvh_native,
+    bvh_table_bytes)."""
     return {**_COUNTERS, **_GAUGES}
 
 

@@ -2,7 +2,7 @@
 """Time the port's hand-written kernels at the shapes of their main paths on
 one NVIDIA GPU, and hold them against another checkout's kernels.
 
-    python3 scripts/torch_bench_kernels.py [--other DIR] [--only k1,order,k3,kf,ks,ksb,...]
+    python3 scripts/torch_bench_kernels.py [--other DIR] [--only k1,k1i,order,k3,kf,ks,...]
                                            [--reps N]
                                            [--out build/bench_kernels.json]
 
@@ -19,6 +19,13 @@ events, the mean of `--reps` calls after one warm-up):
   and in the caller's (`iid_caller_ms`), whether the two give the same bits,
   and the same two ways with the face record at the scan gradient's
   2,621,440 i.i.d. rays (`faces_iid_ms`, `faces_iid_caller_ms`);
+- K1 with the icosphere receiver (`k1i`): the CIR cells' 5,242,880 i.i.d.
+  rays on the bench terrain in direction-cell order, radius 0.1 and 1.0,
+  each kernel's device time beside the analytic receiver's on the same
+  rays, the caller's order, the bound, the plain version on 65,536 of the
+  rays (bit for bit), the scan tracer with the icosphere receiver on the
+  same rays, and the facade's request through each (a checkout without the
+  icosphere K1 times only the scan tracer and its request);
 - the direction-cell order (`order`, a checkout without it skips the row):
   the ordering kernels alone at 5,242,880 i.i.d. rays on each lattice of 6
   to 10 bits a side (keys and counts against the plain version, the device
@@ -319,6 +326,69 @@ def run_k1(w: Workloads, reps: int, keep: dict) -> dict:
                 lambda: fused_trace(*gargs, record_faces=True, **kw), reps)
         out[name]["faces_iid_equal_caller"] = all(
             map(torch.equal, [*gres[:4], gfaces], [*cres[:4], cfaces]))
+    return out
+
+
+def run_k1i(w: Workloads, reps: int) -> dict:
+    """K1 with the icosphere receiver (a checkout without it times only the
+    scan tracer) on the bench terrain at the CIR cells' 5,242,880 i.i.d. rays
+    in direction-cell order, radius 0.1 (the cells') and 1.0: the call
+    (`ms`), each kernel's device time (`device_ms`), the call in the caller's
+    order (`caller_ms`) and whether it gives the same bits, the analytic
+    receiver's call and device times on the same rays, the bound
+    (chip_smoke.py's `fused_ico_bound`), the plain version's time on the
+    first 65,536 of the rays and whether the kernel equals it bit for bit
+    (`plain_equal`), the scan tracer with the icosphere receiver (K2, K-B:
+    what recorded paths run) on the same rays (`scan_ms`), and the facade's
+    request (`compute_cir` without recorded paths, the histogram included)
+    through each (`request_ms`, `scan_request_ms`)."""
+    import torch
+
+    from rfx_torch.api import Tracer
+    from rfx_torch.ops import fused
+    from rfx_torch.ops.bvh_trace import make_kernel_env_hit
+    from rfx_torch.tracer import Scene, trace_to_rx
+
+    bvh, s = w.bvh["bench"], SCENES["bench"]
+    iid = w.iid(smoke.N_RAYS)
+    sub = iid[:smoke.SUBSET].contiguous()
+    kw = dict(max_bounces=smoke.BOUNCES)
+    has_ico = hasattr(fused, "FUSED_TRACE_ICO_KERNEL")
+    scene = Scene.from_mesh(w.meshes["bench"], w.dev)
+    env_hit = make_kernel_env_hit(bvh)
+    tracer = Tracer(w.meshes["bench"], smoke.C, smoke.RATE, smoke.WINDOW,
+                    max_bounces=smoke.BOUNCES, tx_num_rays=smoke.N_RAYS, rx_mode="icosphere",
+                    device=w.dev)
+    out = {}
+    for radius in (0.1, 1.0):
+        args = (s["tx"], s["rx"], radius, 5.0, 1.0)
+        row = out[f"r{radius:g}"] = {}
+
+        def scan():
+            return trace_to_rx(scene, s["tx"], iid, s["rx"], radius, rx_mode="icosphere",
+                               env_hit=env_hit, **kw)
+
+        with torch.no_grad():
+            _, row["scan_ms"] = _ms(scan, reps)
+            _, row["scan_request_ms"] = _ms(lambda: tracer._cir(scan(), 1.0).cpu(), reps)
+        _, row["request_ms"] = _ms(lambda: tracer.compute_cir(
+            s["tx"], 1.0, s["rx"], radius, directions=iid, record_paths=False), reps)
+        if not has_ico:
+            continue
+        ico = dict(kw, rx_mode="icosphere")
+        res, row["ms"] = _ms(lambda: fused.fused_trace(bvh, iid, *args, **ico), reps)
+        row["device_ms"] = _device_ops(lambda: fused.fused_trace(bvh, iid, *args, **ico), reps)
+        with _order_from(CALLER):
+            cres, row["caller_ms"] = _ms(lambda: fused.fused_trace(bvh, iid, *args, **ico), reps)
+        row["equal_caller"] = all(map(torch.equal, res[:4], cres[:4]))
+        _, row["analytic_ms"] = _ms(lambda: fused.fused_trace(bvh, iid, *args, **kw), reps)
+        row["analytic_device_ms"] = _device_ops(lambda: fused.fused_trace(bvh, iid, *args, **kw),
+                                                reps)
+        row["bound"] = smoke.fused_ico_bound(bvh, iid, s["tx"], s["rx"], radius)
+        p, row["plain_ms"] = _ms(lambda: fused.fused_trace_plain(bvh, sub, *args, **ico), 1)
+        k = fused.fused_trace(bvh, sub, *args, **ico)
+        row["plain_equal"] = all(map(torch.equal, k[:4], p[:4]))
+        row["captured"], row["digest"] = int(res.captured.sum()), _digest(res[:4])
     return out
 
 
@@ -894,15 +964,16 @@ def run_ksbi(w: Workloads, reps: int, keep: dict) -> dict:
     return out
 
 
-ROWS = ("k1", "order", "k2", "k3", "kh", "kp", "kf", "kpb", "kfb", "ks", "ksb", "ksi", "khi", "kb",
-        "ksbi")
+ROWS = ("k1", "k1i", "order", "k2", "k3", "kh", "kp", "kf", "kpb", "kfb", "ks", "ksb", "ksi",
+        "khi", "kb", "ksbi")
 KS_ROWS = ("ks", "ksb", "ksi", "khi", "kb", "ksbi")  # printed whole
 
 
 def _run_all(w: Workloads, reps: int, keep: dict, only=ROWS) -> dict:
     """The rows named in `only` (K-P's rows and its backward's take K3's IRs:
     "kp" and "kpb" run "k3")."""
-    runs = {"k1": lambda: run_k1(w, reps, keep), "order": lambda: run_order(w, reps),
+    runs = {"k1": lambda: run_k1(w, reps, keep), "k1i": lambda: run_k1i(w, reps),
+            "order": lambda: run_order(w, reps),
             "k2": lambda: run_k2(w, reps),
             "k3": lambda: run_k3(w, reps, keep), "kh": lambda: run_kh(w, reps, keep),
             "kp": lambda: run_kp(w, reps, keep), "kf": lambda: run_kf(w, reps, keep),
@@ -1048,6 +1119,8 @@ def main(argv=None) -> int:
                                                                                  "morton"))}
                                  for s, t in out["here"].get("k1", {}).items()},
                       "order": out["here"].get("order"),
+                      "k1i": out["here"].get("k1i"), "k1i_other": out.get("other_first", {}).get(
+                          "k1i"),
                       "kp_kf": {k: {s: {f: v for f, v in t.items() if f != "digest"}
                                     for s, t in out["here"].get(k, {}).items()}
                                 for k in ("kp", "kf", "kpb", "kfb")},

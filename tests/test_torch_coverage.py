@@ -137,13 +137,18 @@ def test_fused_backend_records_paths_through_the_kernel():
 
     ico = Tracer(mesh, C, RATE, WINDOW, max_bounces=3, tx_num_rays=n, rx_mode="icosphere",
                  backend="fused", device="cpu")
-    assert ico.backend == "fused" and ico._fused is None
+    # The fused trace has the icosphere too; recorded paths still take the
+    # scan tracer on the per-query kernel's tables.
+    assert ico.backend == "fused" and ico._fused is not None
     paths_i, ir_i = ico.compute_cir(TX, 1.0, RX, 1.5, directions=dirs)
     jt_i = JTracer(mesh, C, RATE, WINDOW, max_bounces=3, tx_num_rays=n, backend="brute",
                    rx_mode="icosphere")
     j_paths_i, j_ir_i = jt_i.compute_cir(TX, 1.0, RX, 1.5, directions=dirs, record_paths=True)
     assert len(paths_i) == len(j_paths_i) > 0
     np.testing.assert_allclose(ir_i, j_ir_i, rtol=1e-4, atol=1e-9)
+    _, ir_fused_i = ico.compute_cir(TX, 1.0, RX, 1.5, directions=dirs, record_paths=False)
+    np.testing.assert_array_equal(ir_fused_i != 0, ir_i != 0)
+    np.testing.assert_allclose(ir_fused_i, j_ir_i, rtol=1e-4, atol=1e-9)
 
 
 def test_fused_backend_compute_coverage_matches_rfx():

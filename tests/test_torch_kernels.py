@@ -395,6 +395,115 @@ def test_fused_kernel_counts_the_rays_it_walks_in_cell_order(cuda):
                                                             before["rays_ordered"])
 
 
+@pytest.mark.parametrize("radius", [0.1, 1.0])
+@pytest.mark.parametrize("n", [fused.ORDER_MIN_RAYS, 65_537])
+def test_icosphere_fused_kernel_matches_plain(cuda, bench_terrain, n, radius):
+    """K1 with the icosphere receiver on the bench terrain's i.i.d. rays, in
+    direction-cell order at `ORDER_MIN_RAYS` rays and in the caller's order
+    below it, at the CIR cells' radius 0.1 and at 1.0: the four outputs and
+    the face record == fused_trace_plain(rx_mode="icosphere")'s bit for bit
+    (max |d| 0), and the same bits on a second call; one launch of the
+    icosphere entry point a call (and of the order where it orders), none
+    of the analytic one or of K-B."""
+    ft = bench_terrain
+    dirs = _iid(n, cuda, seed=int(radius * 10))
+    args = ([10.0, 0.0, 25.0], [-10.0, 0.0, 8.0], radius)
+    kw = dict(max_bounces=4, rx_mode="icosphere")
+    kernels = (fused.FUSED_TRACE_ICO_KERNEL, fused.FUSED_TRACE_KERNEL, intersect.BRUTE_HIT_KERNEL,
+               ray_order.RAY_ORDER_KERNEL)
+    counts = lambda: tuple(k.launches for k in kernels)  # noqa: E731
+    before = counts()
+    k = fused.fused_trace(ft.bvh, dirs, *args, **kw)
+    assert counts() == (before[0] + 1, before[1], before[2],
+                        before[3] + int(n >= fused.ORDER_MIN_RAYS))
+    kf = fused.fused_trace(ft.bvh, dirs, *args, record_faces=True, **kw)
+    p, pf = fused.fused_trace_plain(ft.bvh, dirs, *args, record_faces=True, **kw)
+    torch.cuda.synchronize()
+    if radius == 1.0:
+        assert int(p.captured.sum()) > 0
+    for a, b, c in zip(k[:4], p[:4], kf[0][:4]):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(kf[1], pf)
+
+
+def test_icosphere_fused_kernel_keeps_the_bits_of_the_caller_s_order(cuda, bench_terrain,
+                                                                     monkeypatch):
+    """At the CIR cells' 5,242,880 i.i.d. rays and radius 0.1, K1 with the
+    icosphere receiver walking the direction-cell order gives the caller's
+    order's four outputs bit for bit; and the icosphere's trace differs from
+    the analytic sphere's."""
+    ft = bench_terrain
+    dirs = _iid(5_242_880, cuda)
+    args = ([10.0, 0.0, 25.0], [-10.0, 0.0, 8.0], 0.1)
+    ordered = fused.fused_trace(ft.bvh, dirs, *args, max_bounces=4, rx_mode="icosphere")
+    analytic = fused.fused_trace(ft.bvh, dirs, *args, max_bounces=4)
+    monkeypatch.setattr(fused, "ORDER_MIN_RAYS", 2**31)
+    caller = fused.fused_trace(ft.bvh, dirs, *args, max_bounces=4, rx_mode="icosphere")
+    torch.cuda.synchronize()
+    assert int(caller.captured.sum()) > 0
+    for a, b in zip(ordered[:4], caller[:4]):
+        assert torch.equal(a, b)
+    assert not all(torch.equal(a, b) for a, b in zip(ordered[:4], analytic[:4]))
+
+
+def test_fused_kernel_counts_the_rays_it_walks_with_the_icosphere(cuda):
+    """Under a profiler `rays_fused_ico` counts the rays of an icosphere
+    launch, in either order, and none of an analytic one; with no profiler it
+    does not move."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ft = fused.make_fused_tracer(make_terrain(grid=48, extent=40.0, seed=3), max_bounces=4,
+                                 device=cuda)
+    args = ([2.0, 1.0, 12.0], [-5.0, 2.0, 6.0], 2.0)
+    big, small = fused.ORDER_MIN_RAYS, 1000
+
+    def moved(n, rx_mode):
+        dirs = _iid(n, cuda)
+        before = profiling.counters()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            fused.fused_trace(ft.bvh, dirs, *args, max_bounces=4, rx_mode=rx_mode)
+            torch.cuda.synchronize()
+        after = profiling.counters()
+        return after["rays_fused_ico"] - before["rays_fused_ico"], after["rays_fused"] - before[
+            "rays_fused"]
+
+    assert moved(big, "icosphere") == (big, big)
+    assert moved(small, "icosphere") == (small, small)
+    assert moved(big, "analytic") == (0, big)
+    before = profiling.counters()["rays_fused_ico"]
+    fused.fused_trace(ft.bvh, _iid(big, cuda), *args, max_bounces=4, rx_mode="icosphere")
+    assert profiling.counters()["rays_fused_ico"] == before
+
+
+def test_icosphere_facade_on_card_takes_the_fused_kernel(cuda):
+    """Tracer(rx_mode="icosphere") on the card answers a request without
+    recorded paths with one launch of K1's icosphere entry point, none of
+    K-B or K2, and its IR matches the CPU facade's (the scan tracer on the
+    plain walk) within the facade tests' tolerances; with recorded paths it
+    runs the scan tracer (K-B for the receiver)."""
+    mesh = make_terrain(grid=48, extent=40.0, seed=3)
+    dirs = morton_sphere_directions(100_000, generator=torch.Generator().manual_seed(2),
+                                    device="cpu")
+    kw = dict(max_bounces=3, tx_num_rays=100_000, rx_mode="icosphere")
+    req = ([2.0, 1.0, 12.0], 1.0, [-5.0, 2.0, 6.0], 2.0)
+    _, ir_cpu = Tracer(mesh, device="cpu", **kw).compute_cir(*req, directions=dirs,
+                                                            record_paths=False)
+    t = Tracer(mesh, device=cuda, **kw)
+    assert t.backend == "fused" and t._fused is not None
+    kernels = (fused.FUSED_TRACE_ICO_KERNEL, fused.FUSED_TRACE_KERNEL,
+               intersect.BRUTE_HIT_KERNEL, bvh_trace.CLOSEST_HIT_KERNEL)
+    before = [k.launches for k in kernels]
+    _, ir_gpu = t.compute_cir(*req, directions=dirs, record_paths=False)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 0, 0, 0]
+    assert ir_cpu.sum() > 0
+    np.testing.assert_array_equal(ir_gpu != 0, ir_cpu != 0)
+    np.testing.assert_allclose(ir_gpu, ir_cpu, rtol=1e-4, atol=1e-9)
+    before = [k.launches for k in kernels]
+    paths, _ = t.compute_cir(*req, directions=dirs[:4096], record_paths=True)
+    moved = [k.launches - b for k, b in zip(kernels, before)]
+    assert moved[:3] == [0, 0, 3] and moved[3] > 0 and len(paths) > 0
+
+
 @pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
 def test_histogram_backward_on_card_matches_plain(cuda, soft):
     g = np.random.default_rng(18)
@@ -1897,13 +2006,14 @@ def _is_sync(name: str) -> bool:
     return name in _SYNCS or (name.startswith("cudaMemcpy") and "Async" not in name)
 
 
-@pytest.mark.parametrize("unit", ["analytic", "icosphere", "sweep"])
+@pytest.mark.parametrize("unit", ["analytic", "icosphere", "icosphere_paths", "sweep"])
 def test_every_host_wait_of_a_unit_is_named(cuda, unit):
     """Under the profiler, each synchronize and synchronous copy of the
     runtime inside the facade's spans lies inside an `rfx.wait.*` span, and
     no device record carries an `rfx.*` name: one CIR request with each
-    receiver (the fused trace; the scan tracer on K2 and K-B) and one exact
-    sweep (K-B, K3, the batched K-P), each warmed up first."""
+    receiver (the fused trace, with either receiver), one with the icosphere
+    and recorded paths (the scan tracer on K2 and K-B) and one exact sweep
+    (K-B, K3, the batched K-P), each warmed up first."""
     from torch.profiler import ProfilerActivity, profile
 
     dirs = morton_sphere_directions(65_536, generator=torch.Generator(cuda).manual_seed(5),
@@ -1917,11 +2027,11 @@ def test_every_host_wait_of_a_unit_is_named(cuda, unit):
                                               directions=dirs))
     else:
         t = Tracer(make_terrain(grid=48, extent=40.0, seed=3), 2.998e8, 100e9, 200e-9, 4,
-                   65_536, rx_mode=unit, device=cuda)
+                   65_536, rx_mode=unit.removesuffix("_paths"), device=cuda)
 
         def request():
             _, ir = t.compute_cir((2.0, 1.0, 12.0), 1.0, (-5.0, 2.0, 6.0), 1.0,
-                                  directions=dirs, record_paths=False)
+                                  directions=dirs, record_paths=unit.endswith("_paths"))
             t.rx_power_dbm(ir)
 
     request()
@@ -1939,8 +2049,8 @@ def test_every_host_wait_of_a_unit_is_named(cuda, unit):
     inside = lambda e, spans: any(a <= e[0] and e[1] <= b for a, b, *_ in spans)  # noqa: E731
     syncs = [e for e in host if _is_sync(e[2]) and inside(e, facade)]
     assert len(facade) == 2 and syncs and waits
-    layer = {"analytic": "rfx.tracer.fused", "icosphere": "rfx.ops.rx_hit",
-             "sweep": "rfx.coverage.hist"}[unit]
+    layer = {"analytic": "rfx.tracer.fused", "icosphere": "rfx.tracer.fused",
+             "icosphere_paths": "rfx.ops.rx_hit", "sweep": "rfx.coverage.hist"}[unit]
     assert layer in {e[2] for e in host}
     assert [e[2] for e in syncs if not inside(e, waits)] == []
     assert [e[2] for e in events if "CUDA" in e[3] and e[2].startswith("rfx.")] == []

@@ -215,6 +215,30 @@ def test_pinned_share_reads_nothing_where_the_program_or_trace_has_nothing(progr
     assert load_metric("pinned_pct.sweep").read(trace, None) is None
 
 
+@pytest.mark.parametrize("program, expected", [
+    ("every_ray", 100.0), ("half_the_rays", 50.0), ("no_tally", 0.0), ("no_counters", None),
+    ("no_units", None)])
+def test_icosphere_fused_share_reads_the_rays_walked_with_the_icosphere(program, expected,
+                                                                        monkeypatch):
+    """`ico_fused_pct.cir`: 100 x `rays_fused_ico` over the cell's rays a unit
+    times the traced units; 0 where the program has no such tally (its
+    icosphere requests take another path), None without counters or units."""
+    trace = _synthetic_trace()
+    trace.shapes = {"rays": 1000}
+    counters = {"bytes_to_host": 0, "bytes_to_device": 0}
+    if program == "every_ray":
+        counters["rays_fused_ico"] = 2000
+    elif program == "half_the_rays":
+        counters["rays_fused_ico"] = 1000
+    elif program == "no_units":
+        trace.units = []
+    monkeypatch.setattr(profiling, "_COUNTERS", counters)
+    if program == "no_counters":
+        monkeypatch.delattr(profiling, "counters")
+    got = load_metric("ico_fused_pct.cir").read(trace, None)
+    assert got == (None if expected is None else pytest.approx(expected))
+
+
 def test_span_readers_read_nothing_without_the_program_s_spans(monkeypatch):
     trace = _synthetic_trace()
     trace.host = [h for h in trace.host if not h[2].startswith("rfx.")]
