@@ -188,6 +188,7 @@ class Tracer:
                     tx_power=tx_power, n1=self.n1, n2=self.n2, rx_batch=rx_batch,
                     env_hit=self.env_hit)
 
+    @spanned("rfx.api.compute_coverage_dbm_fast")
     def compute_coverage_dbm_fast(self, tx_pos, tx_power, rx_centers, rx_radius, *,
                                   carrier_hz: float = 2.4e9, directions=None,
                                   rx_batch: int = 64):
@@ -196,8 +197,9 @@ class Tracer:
         rfx_torch.coverage.coverage_dbm_fast for its accuracy)."""
         dbm = coverage_dbm_fast(self.scene, tx_pos, self._directions(directions), rx_centers,
                                 rx_radius, **self._coverage_kw(tx_power, carrier_hz, rx_batch))
-        return dbm.cpu().numpy()
+        return to_host("dbm_to_host", dbm).numpy()
 
+    @spanned("rfx.api.compute_coverage_dbm_hybrid")
     def compute_coverage_dbm_hybrid(self, tx_pos, tx_power, rx_centers, rx_radius, *,
                                     carrier_hz: float = 2.4e9, directions=None,
                                     rx_batch: int = 64, cancel_threshold: float = 0.5,
@@ -212,7 +214,7 @@ class Tracer:
             cancel_threshold=cancel_threshold, spread_threshold_s=spread_threshold_s,
             exact_fallback_frac=exact_fallback_frac,
             **self._coverage_kw(tx_power, carrier_hz, rx_batch))
-        return dbm.cpu().numpy(), n_flagged
+        return to_host("dbm_to_host", dbm).numpy(), n_flagged
 
     @spanned("rfx.api.rx_power_dbm")
     def rx_power_dbm(self, impulse_response, carrier_hz: float = 2.4e9):

@@ -174,13 +174,14 @@ def _dbm_cancel_from_segments(segs: EnvSegments, rx_centers, rx_radius, *, num_r
     autograd); a CUDA tensor the phasor kernel, whose autograd Function's
     backward is the phasor backward kernel."""
     dev = segs.t_env.device
+    centers = to_device("centers_to_device", rx_centers, dev).reshape(-1, 3)
     if dev.type == "cpu":
-        return _dbm_cancel_plain(segs, rx_centers, rx_radius, num_rays=num_rays,
+        return _dbm_cancel_plain(segs, centers, rx_radius, num_rays=num_rays,
                                  sample_window_s=sample_window_s, sample_rate_hz=sample_rate_hz,
                                  carrier_hz=carrier_hz, light_speed_mps=light_speed_mps,
                                  tx_power=tx_power, rx_batch=rx_batch)
     scaled = segs._replace(amplitude=segs.amplitude * _amp_scale(tx_power, num_rays, dev))
-    return coverage_phasor(scaled, rx_centers, rx_radius,
+    return coverage_phasor(scaled, centers, rx_radius,
                            nbins=int(sample_window_s * sample_rate_hz),
                            light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz,
                            sample_window_s=sample_window_s, carrier_hz=carrier_hz)
@@ -251,7 +252,7 @@ def coverage_dbm_hybrid(scene: Scene, tx_pos, directions, rx_centers, rx_radius,
     segs = trace_env(scene, tx_pos, directions, max_bounces=max_bounces, n1=n1, n2=n2,
                      env_hit=env_hit, active=active)
     dev = segs.t_env.device
-    centers = torch.as_tensor(rx_centers, dtype=torch.float32, device=dev).reshape(-1, 3)
+    centers = to_device("centers_to_device", rx_centers, dev).reshape(-1, 3)
     kw = dict(num_rays=num_rays, light_speed_mps=light_speed_mps, sample_rate_hz=sample_rate_hz,
               tx_power=tx_power, rx_batch=rx_batch)
     dbm, ratio, spread = _dbm_cancel_from_segments(

@@ -54,7 +54,7 @@ from rfx_torch.cir import _DB_PER_POWER, phasor_metric
 from rfx_torch.ops._build import CudaKernel, F, I, P
 from rfx_torch.ops.intersect import is_hit, sphere_t
 from rfx_torch.tracer import EnvSegments
-from rfx_torch.utils.profiling import spanned
+from rfx_torch.utils.profiling import spanned, tally
 
 __all__ = ["COVERAGE_HIST_KERNEL", "COVERAGE_PHASOR_KERNEL", "COVERAGE_REDUCE_KERNEL",
            "COVERAGE_SPREAD_KERNEL", "PHASOR_BACKWARD_KERNEL", "PHASOR_TABLE_KERNEL", "PhasorWalk",
@@ -352,7 +352,8 @@ def _phasor_sums(segs: EnvSegments, centers: torch.Tensor, rx_radius, *, nbins: 
     `_phasor_spread`). One launch of the table, then one of
     `rfx_coverage_phasor` a group of receivers: each receiver's sums per
     slab, the slabs combined in slab order, and its captures' (w^2, t_k) in
-    each slab's walk order."""
+    each slab's walk order. The receivers walked go to the tally `rx_phasor`
+    of rfx_torch.utils.profiling.counters()."""
     dev = segs.t_env.device
     if dev.type != "cuda":
         raise ValueError(f"the phasor kernel runs on CUDA tensors, got {dev}; the metric's plain "
@@ -365,6 +366,7 @@ def _phasor_sums(segs: EnvSegments, centers: torch.Tensor, rx_radius, *, nbins: 
     sums = torch.zeros((m, len(PHASOR_FIELDS)), dtype=torch.float32, device=dev)
     if not (m and n and b):
         return sums, []
+    tally("rx_phasor", m)
     step, omega = _phasor_constants(nbins, sample_window_s, carrier_hz)
     table = phasor_table(nbins, step, omega, dev)
     n_slabs = coverage_slabs(n)
@@ -605,6 +607,7 @@ class _Phasor(torch.autograd.Function):
         return g_amp, None, None, None, None
 
 
+@spanned("rfx.coverage.phasor")
 def coverage_phasor(segs: EnvSegments, rx_centers, rx_radius, *, nbins: int,
                     light_speed_mps: float, sample_rate_hz: float, sample_window_s: float,
                     carrier_hz: float = 2.4e9):

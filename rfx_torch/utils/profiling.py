@@ -15,8 +15,9 @@ microsecond each where no profiler records). Tracing is on exactly while a
 runs); there is no switch of its own. No span or counter runs inside a
 kernel or once a ray, and no counter reads the device. The spans:
 
-- `rfx.api.compute_cir`, `rfx.api.compute_coverage`, `rfx.api.rx_power_dbm`:
-  the facade's calls (`rfx_torch.api.Tracer`);
+- `rfx.api.compute_cir`, `rfx.api.compute_coverage`,
+  `rfx.api.compute_coverage_dbm_fast`, `rfx.api.compute_coverage_dbm_hybrid`,
+  `rfx.api.rx_power_dbm`: the facade's calls (`rfx_torch.api.Tracer`);
 - `rfx.tracer.fused` (the fused trace's CUDA branch: its arguments and the
   launch), `rfx.tracer.scan` (`trace_to_rx`), `rfx.tracer.env`
   (`trace_env`): the tracers;
@@ -25,7 +26,8 @@ kernel or once a ray, and no counter reads the device. The spans:
   the kernels' host wrappers;
 - `rfx.cir.histogram` (`bin_impulse_response`), `rfx.cir.rx_power`
   (`rx_power_dbm`), `rfx.coverage.hist` (`coverage_hist` and its slab
-  reduction);
+  reduction), `rfx.coverage.phasor` (`coverage_phasor`: the phasor kernel's
+  table, walk and spread);
 - `rfx.wait.<site>`: each place on those paths where the host blocks on a
   card (a copy between host data and the device, or an index the host must
   read), each site under a name of its own (`to_device`, `to_host`). They open on every device, the CPU too,
@@ -40,8 +42,10 @@ bytes that crossed through page-locked host memory, `bytes_pinned_to_host`
 and `bytes_pinned_to_device`; the rays the fused kernel walked on the card,
 `rays_fused`, of those the rays it walked in direction-cell order,
 `rays_ordered`, and the rays it walked with the icosphere receiver,
-`rays_fused_ico` (rfx_torch/ops/fused.py); all counted only while a profiler
-records: in a benchmark's traced run, exactly its traced units. Gauges of the last BVH
+`rays_fused_ico` (rfx_torch/ops/fused.py); the receivers whose sums the
+phasor kernel's walk computed, `rx_phasor` (rfx_torch/ops/coverage_hist.py);
+all counted only while a profiler records: in a benchmark's traced run,
+exactly its traced units. Gauges of the last BVH
 set-up, set whether or not a profiler records (set-up runs before one
 starts), and absent until the first build: `bvh_build_s`, the host seconds
 of the last `build_bvh`; `bvh_native`, 1 if the native builder made that
@@ -91,7 +95,7 @@ _profiler_enabled = torch._C._autograd._profiler_enabled
 
 _COUNTERS = {"bytes_to_host": 0, "bytes_to_device": 0,
              "bytes_pinned_to_host": 0, "bytes_pinned_to_device": 0,
-             "rays_fused": 0, "rays_ordered": 0, "rays_fused_ico": 0}
+             "rays_fused": 0, "rays_ordered": 0, "rays_fused_ico": 0, "rx_phasor": 0}
 _GAUGES = {}
 
 #: Payloads of at least this many bytes cross through page-locked memory:
@@ -184,7 +188,7 @@ def set_gauge(name: str, value) -> None:
 def counters() -> dict:
     """A copy of the counters: the tallies bytes_to_host, bytes_to_device,
     bytes_pinned_to_host, bytes_pinned_to_device, rays_fused, rays_ordered,
-    rays_fused_ico, and the gauges set so far (bvh_build_s, bvh_native,
+    rays_fused_ico, rx_phasor, and the gauges set so far (bvh_build_s, bvh_native,
     bvh_table_bytes)."""
     return {**_COUNTERS, **_GAUGES}
 

@@ -2137,3 +2137,52 @@ def test_only_payloads_of_a_mebibyte_cross_through_page_locked_memory(cuda):
     assert ir.nbytes == 80_000 and not torch.from_numpy(ir).is_pinned()
     assert moved["bytes_to_host"] > ir.nbytes and moved["bytes_to_device"] > ir.nbytes
     assert moved["bytes_pinned_to_host"] == moved["bytes_pinned_to_device"] == 0
+
+
+def test_fast_coverage_keeps_its_bits_under_the_profiler(cuda):
+    """The fast coverage cell's sizes (1,048,576 i.i.d. room rays x 2
+    bounces, the 2,048-receiver grid of radius 0.5, 10,000 bins): the
+    facade's dBm under a profiler equals, bit for bit, its dBm without one and
+    `coverage_phasor`'s called directly on the same segments; the traced
+    sweep tallies its 2,048 receivers as walked; every synchronize inside the
+    facade's span lies in a named wait, and the phasor span opens."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 1 << 20
+    dirs = sphere_directions(n, generator=torch.Generator(cuda).manual_seed(25), device=cuda)
+    axis = np.arange(-15.0, 16.0, 2.0)
+    grid = coverage.make_grid(axis, axis, np.arange(0.0, 15.0, 2.0))
+    assert grid.shape == (2048, 3)
+    t = Tracer(make_room(), 2.998e8, 100e9, 100e-9, 2, n, device=cuda)
+    tx = (3.0, 2.0, 2.0)
+    plain = t.compute_coverage_dbm_fast(tx, 1.0, grid, 0.5, directions=dirs)
+    torch.cuda.synchronize()
+    before = profiling.counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced = t.compute_coverage_dbm_fast(tx, 1.0, grid, 0.5, directions=dirs)
+        torch.cuda.synchronize()
+    moved = {k: v - before.get(k, 0) for k, v in profiling.counters().items()}
+    assert moved["rx_phasor"] == 2048
+    assert moved["bytes_to_host"] == 4 * 2048
+    assert moved["bytes_to_device"] == 4 * (3 + 3 * 2048 + 1)
+    segs = trace_env(t.scene, tx, dirs, max_bounces=2, n1=t.n1, n2=t.n2, env_hit=t.env_hit)
+    scaled = segs._replace(amplitude=segs.amplitude * coverage._amp_scale(1.0, n, cuda))
+    direct = coverage_hist.coverage_phasor(scaled, torch.from_numpy(grid).to(cuda), 0.5,
+                                           nbins=10_000, light_speed_mps=2.998e8,
+                                           sample_rate_hz=100e9, sample_window_s=100e-9)[0]
+    direct = direct.cpu().numpy()
+    assert np.isfinite(plain).sum() > 2000
+    assert np.array_equal(_bits(traced), _bits(plain))
+    assert np.array_equal(_bits(direct), _bits(plain))
+    events = [(e.time_range.start, e.time_range.end, e.name, str(e.device_type))
+              for e in prof.events()]
+    host = [e for e in events if "CUDA" not in e[3]]
+    facade = [e for e in host if e[2].startswith("rfx.api.")]
+    waits = [e for e in host if e[2].startswith("rfx.wait.")]
+    inside = lambda e, spans: any(a <= e[0] and e[1] <= b for a, b, *_ in spans)  # noqa: E731
+    syncs = [e for e in host if _is_sync(e[2]) and inside(e, facade)]
+    assert [e[2] for e in facade] == ["rfx.api.compute_coverage_dbm_fast"]
+    assert syncs and [e[2] for e in syncs if not inside(e, waits)] == []
+    assert {e[2] for e in waits} == {"rfx.wait.env_tx_to_device", "rfx.wait.centers_to_device",
+                                     "rfx.wait.scale_to_device", "rfx.wait.dbm_to_host"}
+    assert "rfx.coverage.phasor" in {e[2] for e in host}
