@@ -77,16 +77,14 @@ class FlatBVH:
         return out
 
     def max_depth(self) -> int:
-        # Recover depth from the preorder/skip structure (arity-agnostic).
-        depth = 0
-        stack = [(0, 1)]
-        while stack:
-            i, d = stack.pop()
-            depth = max(depth, d)
-            if self.tri_count[i] == 0:
-                for c in self.children(i):
-                    stack.append((c, d + 1))
-        return depth
+        """Levels of the tree, the root's included, for any arity, without a
+        walk: internal node j is an ancestor of nodes j+1 .. skip[j]-1, so a
+        node's ancestors are a running sum of +1 at j+1 and -1 at skip[j]."""
+        skip = np.asarray(self.skip, np.int64)
+        n = skip.shape[0]
+        j = np.flatnonzero(np.asarray(self.tri_count) == 0)
+        step = np.bincount(j + 1, minlength=n + 1) - np.bincount(skip[j], minlength=n + 1)
+        return 1 + int(np.cumsum(step[:n]).max())
 
 
 def _centroid_split(order, lo, hi, centroids, bounds_min, bounds_max):

@@ -3,8 +3,12 @@
 //
 // Replaces rfx/ops/pallas_fused.py:_fused_kernel, the TPU kernel launched by
 // fused_trace_planes. Per bounce and per ray:
-//   1. closest hit over the flat BVH: rfx::bvh_closest_hit (bvh_walk.cuh),
-//      the walk the per-query kernel (closest_hit.cu) runs too;
+//   1. closest hit over the BVH (bvh_walk.cuh): the near-first walk over the
+//      child-pair table where the launch is given one (a binary tree that
+//      fits the walk's stack: rfx_torch.ops.bvh_pack.PackedBVH.near_first),
+//      else the preorder walk the per-query kernel (closest_hit.cu) runs
+//      too; a template policy each (NearFirstWalk, PreorderWalk), chosen
+//      for the whole launch;
 //   2. the receiver, chosen at compile time (a template policy, no runtime
 //      branch in the walk): the analytic sphere of the TPU kernel, or the
 //      reference's 80-face icosphere (rfx/tracer.py:87-104, which the TPU
@@ -28,8 +32,10 @@
 // of triangles, far inside the 50 MB L2, and even the 1,045,458-triangle
 // terrain's 10.9 MB of nodes are, so the walk is bound by load latency and by
 // the lanes of a warp that wait for each other, not by DRAM bandwidth. What
-// the design does about it: the walk of bvh_walk.cuh (a node is one 32-byte
-// sector, lanes step through boxes together and test leaves together);
+// the design does about it: the near-first walk of bvh_walk.cuh (both
+// children's boxes in one 64-byte record, the nearer child first, so a near
+// hit found early cuts the far subtrees; lanes step through boxes together
+// and test leaves together);
 // the rays are walked in direction-cell order, so the 32 walks of a warp
 // stay coherent whatever order the caller's rays come in: the wrapper sorts
 // the ray indices by the octahedral cell of each direction (ray_order.cu, a
@@ -109,10 +115,12 @@ constexpr int kStatsPerBounce = 4;  // nodes, leaves, tris, warp_steps
 
 // What every ray of a launch shares, gathered from the kernel's arguments
 // (which stay `const __restrict__` pointers, so the tables' loads can take the
-// read-only path). tri_face is null unless the face record is asked for.
+// read-only path). tri_face is null unless the face record is asked for;
+// pairs is null where the launch walks in preorder.
 struct Scene {
   const float4* nodes;
   int n_nodes;
+  const float4* pairs;
   const float4* tris;
   const int* tri_face;
   float n1, n2;
@@ -177,14 +185,35 @@ struct Icosphere {
   }
 };
 
+// The walks: the closest hit's t of the ray over the scene, and its padded
+// triangle in *best.
+
+// The preorder walk over the preorder table, counted by `counter`.
+struct PreorderWalk {
+  template <class Counter>
+  __device__ __forceinline__ static float closest_hit(const Ray& r, const Scene& s, int* best,
+                                                      Counter& counter) {
+    return rfx::bvh_closest_hit(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, s.nodes, s.n_nodes, s.tris,
+                                best, counter);
+  }
+};
+
+// The near-first walk over the child-pair table (uncounted).
+struct NearFirstWalk {
+  __device__ __forceinline__ static float closest_hit(const Ray& r, const Scene& s, int* best,
+                                                      rfx::NoCount&) {
+    return rfx::bvh_closest_hit_near_first(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, s.pairs, s.tris,
+                                           best);
+  }
+};
+
 // One bounce of one ray; false when the ray is captured or escapes. `faces`
 // is null unless the face record is asked for.
-template <class Counter, class Receiver>
+template <class Walk, class Counter, class Receiver>
 __device__ __forceinline__ bool bounce(Ray& r, const Scene& s, const Receiver& rx, int b, int ray,
                                        int n, int* __restrict__ faces, Counter& counter) {
   int best;
-  const float t_best = rfx::bvh_closest_hit(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, s.nodes,
-                                            s.n_nodes, s.tris, &best, counter);
+  const float t_best = Walk::closest_hit(r, s, &best, counter);
   const float t_rx = rx.t_rx(r);
 
   if (t_rx < kMissThreshold && t_best > t_rx) {  // the receiver wins
@@ -257,11 +286,11 @@ __device__ __forceinline__ void store(const Ray& r, int ray, int n, int max_boun
   num_bounces[ray] = r.nb;
 }
 
-template <class Receiver>
+template <class Receiver, class Walk>
 __global__ void __launch_bounds__(kThreads) fused_trace_kernel(
     const float* __restrict__ dirs, int n,
-    const float4* __restrict__ nodes, int n_nodes, const float4* __restrict__ tris,
-    const int* __restrict__ tri_face,
+    const float4* __restrict__ nodes, int n_nodes, const float4* __restrict__ pairs,
+    const float4* __restrict__ tris, const int* __restrict__ tri_face,
     float tx0, float tx1, float tx2, const Receiver rx, float n1, float n2, int max_bounces,
     bool* __restrict__ captured, float* __restrict__ cap_amp,
     float* __restrict__ cap_dist, int* __restrict__ num_bounces, int* __restrict__ faces,
@@ -269,13 +298,13 @@ __global__ void __launch_bounds__(kThreads) fused_trace_kernel(
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int ray = order != nullptr ? order[i] : i;
-  const Scene scene{nodes, n_nodes, tris, tri_face, n1, n2};
+  const Scene scene{nodes, n_nodes, pairs, tris, tri_face, n1, n2};
   Ray r = ray_from(dirs, ray, tx0, tx1, tx2);
   rfx::NoCount counter;
   // The face record goes to slot i: the ray's own index in the caller's
   // order, the walk's scratch in cell order.
   for (int b = 0; b < max_bounces; ++b) {
-    if (!bounce(r, scene, rx, b, i, n, faces, counter)) break;
+    if (!bounce<Walk>(r, scene, rx, b, i, n, faces, counter)) break;
   }
   if (walked == nullptr) {
     store(r, i, n, max_bounces, captured, cap_amp, cap_dist, num_bounces, faces);
@@ -327,13 +356,13 @@ __global__ void __launch_bounds__(kThreads) fused_trace_counted_kernel(
   // No lane returns early: every vote below names all 32 lanes of the warp.
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
   bool live = ray < n;
-  const Scene scene{nodes, n_nodes, tris, tri_face, n1, n2};
+  const Scene scene{nodes, n_nodes, nullptr, tris, tri_face, n1, n2};
   const AnalyticSphere rx{rx0, rx1, rx2, r2};
   Ray r;
   if (live) r = ray_from(dirs, ray, tx0, tx1, tx2);
   for (int b = 0; b < max_bounces; ++b) {
     rfx::WalkCount counter;
-    if (live) live = bounce(r, scene, rx, b, ray, n, faces, counter);
+    if (live) live = bounce<PreorderWalk>(r, scene, rx, b, ray, n, faces, counter);
     const unsigned nodes = __reduce_add_sync(kFullWarp, counter.nodes);
     const unsigned leaves = __reduce_add_sync(kFullWarp, counter.leaves);
     const unsigned tris = __reduce_add_sync(kFullWarp, counter.tris);
@@ -354,23 +383,26 @@ __global__ void __launch_bounds__(kThreads) fused_trace_counted_kernel(
   if (ray < n) store(r, ray, n, max_bounces, captured, cap_amp, cap_dist, num_bounces, faces);
 }
 
-// The launch of fused_trace_kernel with the receiver rx, then, in cell
-// order, of walk_put_back_kernel.
+// The launch of fused_trace_kernel with the receiver rx and the walk the
+// tables allow (near-first where pairs is given), then, in cell order, of
+// walk_put_back_kernel.
 template <class Receiver>
 int launch(const void* dirs, int n, const void* nodes, int n_nodes, const void* tris,
            const void* tri_face, float tx0, float tx1, float tx2, const Receiver& rx, float n1,
            float n2, int max_bounces, void* captured, void* cap_amp, void* cap_dist,
            void* num_bounces, void* faces, const void* order, const void* rank, void* walked,
-           void* walked_faces, void* stream) {
+           void* walked_faces, const void* pairs, void* stream) {
   if (n > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool ordered = order != nullptr;
     const int blocks = (n + kThreads - 1) / kThreads;
-    fused_trace_kernel<Receiver><<<blocks, kThreads, 0, s>>>(
+    auto trace = pairs != nullptr ? &fused_trace_kernel<Receiver, NearFirstWalk>
+                                  : &fused_trace_kernel<Receiver, PreorderWalk>;
+    trace<<<blocks, kThreads, 0, s>>>(
         static_cast<const float*>(dirs), n, static_cast<const float4*>(nodes), n_nodes,
-        static_cast<const float4*>(tris), static_cast<const int*>(tri_face), tx0, tx1, tx2, rx,
-        n1, n2, max_bounces, static_cast<bool*>(captured),
-        static_cast<float*>(cap_amp), static_cast<float*>(cap_dist),
+        static_cast<const float4*>(pairs), static_cast<const float4*>(tris),
+        static_cast<const int*>(tri_face), tx0, tx1, tx2, rx, n1, n2, max_bounces,
+        static_cast<bool*>(captured), static_cast<float*>(cap_amp), static_cast<float*>(cap_dist),
         static_cast<int*>(num_bounces), static_cast<int*>(ordered ? walked_faces : faces),
         static_cast<const int*>(order), ordered ? static_cast<float4*>(walked) : nullptr);
     if (ordered) {
@@ -392,34 +424,36 @@ int launch(const void* dirs, int n, const void* nodes, int n_nodes, const void* 
 // order[i] into slot i of walked, (n,) float4 records (amplitude, distance,
 // bounces, captured), and of walked_faces, (max_bounces, n) int32 where faces
 // are recorded, and walk_put_back_kernel puts them back at each ray's index.
-// The receiver is the analytic sphere about (rx0, rx1, rx2), r2 its radius
-// squared.
+// pairs is null (the preorder walk over nodes) or the tree's child-pair
+// table, (n_internal, 16) f32, whose tree has at most kNearFirstStack + 1
+// levels (the near-first walk). The receiver is the analytic sphere about
+// (rx0, rx1, rx2), r2 its radius squared.
 extern "C" int rfx_fused_trace(
     const void* dirs, int n, const void* nodes, int n_nodes, const void* tris,
     const void* tri_face, float tx0, float tx1, float tx2,
     float rx0, float rx1, float rx2, float r2, float n1, float n2,
     int max_bounces, void* captured, void* cap_amp, void* cap_dist,
     void* num_bounces, void* faces, const void* order, const void* rank, void* walked,
-    void* walked_faces, void* stream) {
+    void* walked_faces, const void* pairs, void* stream) {
   return launch(dirs, n, nodes, n_nodes, tris, tri_face, tx0, tx1, tx2,
                 AnalyticSphere{rx0, rx1, rx2, r2}, n1, n2, max_bounces, captured, cap_amp,
-                cap_dist, num_bounces, faces, order, rank, walked, walked_faces, stream);
+                cap_dist, num_bounces, faces, order, rank, walked, walked_faces, pairs, stream);
 }
 
 // rfx_fused_trace with the reference's 80-face icosphere receiver of radius
 // `radius` about (rx0, rx1, rx2): unit is the (80, 9) f32 unit icosphere on
-// the device (rfx_torch.ops.intersect.unit_icosphere_tris).
+// the device (rfx_torch.ops.intersect.unit_icosphere_tris); pairs as there.
 extern "C" int rfx_fused_trace_ico(
     const void* dirs, int n, const void* nodes, int n_nodes, const void* tris,
     const void* tri_face, float tx0, float tx1, float tx2,
     float rx0, float rx1, float rx2, float radius, float n1, float n2,
     int max_bounces, void* captured, void* cap_amp, void* cap_dist,
     void* num_bounces, void* faces, const void* order, const void* rank, void* walked,
-    void* walked_faces, const void* unit, void* stream) {
+    void* walked_faces, const void* pairs, const void* unit, void* stream) {
   return launch(dirs, n, nodes, n_nodes, tris, tri_face, tx0, tx1, tx2,
                 Icosphere{static_cast<const float*>(unit), rx0, rx1, rx2, radius}, n1, n2,
                 max_bounces, captured, cap_amp, cap_dist, num_bounces, faces, order, rank, walked,
-                walked_faces, stream);
+                walked_faces, pairs, stream);
 }
 
 // The counted instantiation: as rfx_fused_trace, and adds each bounce's

@@ -7,7 +7,7 @@ and its plain PyTorch version `closest_hit_plain` on a CPU tensor. The
 kernel walks the same BVH with the same function (csrc/bvh_walk.cuh) as the
 fused bounce-loop kernel, and the two share one plain version: brute force
 over the packed triangles in padded order, the first minimum winning, which
-is what the walk's strict `<` in preorder gives.
+is what the walks' update by the smaller (t, padded index) gives.
 
 `make_kernel_env_hit` wraps it as the tracers' `env_hit(o, d, v0, e1, e2)
 -> (t, face, nrm)`, whose backward is the reference's custom VJP

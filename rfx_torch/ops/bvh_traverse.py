@@ -24,6 +24,13 @@ once), so `walk_closest_hit` serves three things:
   per ray, the nodes visited, the leaves whose box was hit and the
   triangles tested, integer for integer what the kernel counts.
 
+`near_first_closest_hit` is the plain version of the fused kernel's other
+walk, the near-first walk over the child-pair table (bvh_walk.cuh): per ray
+the same records, slab tests against the best t widened by `NEAR_SLACK`,
+child order, stack and drops, and the update by the smaller (t, padded
+index), so that a test can hold the kernel's walk to the stackless one and
+to brute force on CPU tensors.
+
 Node boxes are host-built constants: if vertices move, hit selection uses
 the stale bounds while t stays exact for the selected face; rebuild the BVH
 when vertex updates are large.
@@ -44,7 +51,39 @@ from rfx_torch.ops.intersect import (
     hit_normal_from_edges,
 )
 
-__all__ = ["walk_closest_hit", "make_bvh_env_hit"]
+__all__ = ["walk_closest_hit", "near_first_closest_hit", "make_bvh_env_hit", "NEAR_SLACK"]
+
+
+def _inv_dir(d):
+    """1 / d where |d| > 1e-30, MISS elsewhere (bvh_walk.cuh:inv_dir)."""
+    ok = d.abs() > 1e-30
+    return torch.where(ok, 1.0 / torch.where(ok, d, torch.ones_like(d)),
+                       torch.full((), MISS, dtype=d.dtype, device=d.device))
+
+
+def _slab(lo, hi, o, inv_d, t_best):
+    """The walks' slab test of boxes (lo, hi) (C, 3): (t_near, hit), hit
+    where `t_near <= min(t_far, t_best) & t_far >= T_MIN_EPS` (`t_best` the
+    near-first walk's widened best t)."""
+    a = (lo - o) * inv_d
+    b = (hi - o) * inv_d
+    t_near = torch.minimum(a, b).amax(dim=1)
+    t_far = torch.maximum(a, b).amin(dim=1)
+    return t_near, (t_near <= torch.minimum(t_far, t_best)) & (t_far >= T_MIN_EPS)
+
+
+def _leaf_best(bvh: PackedBVH, tri, o, d, packed):
+    """The first smallest t of each ray (C, 3) over its leaf's block of
+    `leaf_size` padded triangles (`packed` (C,): tri_start << COUNT_BITS |
+    tri_count), rows past tri_count masked: (t (C,), padded index (C,))."""
+    lanes = torch.arange(bvh.leaf_size, device=o.device)
+    n_tri = packed & MAX_LEAF_TRIS
+    block = ((packed[:, None] >> COUNT_BITS) + lanes[None, :]).clamp_max(bvh.n_padded_tris - 1)
+    t_leaf = mt_block(o, d, tri[block])
+    t_leaf = torch.where(lanes[None, :] < n_tri[:, None], t_leaf,
+                         torch.full((), MISS, dtype=t_leaf.dtype, device=o.device))
+    arg = torch.argmin(t_leaf, dim=1, keepdim=True)  # first minimum
+    return torch.gather(t_leaf, 1, arg)[:, 0], torch.gather(block, 1, arg)[:, 0]
 
 
 def walk_closest_hit(bvh: PackedBVH, o, d, tri=None, *, count: bool = False):
@@ -57,11 +96,7 @@ def walk_closest_hit(bvh: PackedBVH, o, d, tri=None, *, count: bool = False):
     dev = o.device
     n = o.shape[0]
     n_nodes = bvh.n_nodes
-    lanes = torch.arange(bvh.leaf_size, device=dev)
-    last_row = bvh.n_padded_tris - 1
-    ok = d.abs() > 1e-30
-    inv_d = torch.where(ok, 1.0 / torch.where(ok, d, torch.ones_like(d)),
-                        torch.full((), MISS, dtype=d.dtype, device=dev))
+    inv_d = _inv_dir(d)
     t_best = torch.full((n,), MISS, dtype=o.dtype, device=dev)
     best = torch.full((n,), -1, dtype=torch.int64, device=dev)
     counts = torch.zeros((n, 3), dtype=torch.int64, device=dev) if count else None
@@ -72,27 +107,17 @@ def walk_closest_hit(bvh: PackedBVH, o, d, tri=None, *, count: bool = False):
         node = cursor[act]
         box = bvh.nodes[node]
         packed = box.view(torch.int32)[:, 7].long()  # tri_start << COUNT_BITS | tri_count
-        oa, ia = o[act], inv_d[act]
-        lo = (box[:, 0:3] - oa) * ia
-        hi = (box[:, 4:7] - oa) * ia
-        t_near = torch.minimum(lo, hi).amax(dim=1)
-        t_far = torch.maximum(lo, hi).amin(dim=1)
-        box_hit = (t_near <= torch.minimum(t_far, t_best[act])) & (t_far >= T_MIN_EPS)
+        _, box_hit = _slab(box[:, 0:3], box[:, 4:7], o[act], inv_d[act], t_best[act])
         n_tri = packed & MAX_LEAF_TRIS
         leaf = n_tri > 0
 
         at_leaf = torch.nonzero(box_hit & leaf).flatten()
         if at_leaf.numel() > 0:
             rows = act[at_leaf]
-            block = ((packed[at_leaf, None] >> COUNT_BITS) + lanes[None, :]).clamp_max(last_row)
-            t_leaf = mt_block(o[rows], d[rows], tri[block])
-            t_leaf = torch.where(lanes[None, :] < n_tri[at_leaf, None], t_leaf,
-                                 torch.full((), MISS, dtype=t_leaf.dtype, device=dev))
-            arg = torch.argmin(t_leaf, dim=1, keepdim=True)  # first minimum
-            l_t = torch.gather(t_leaf, 1, arg)[:, 0]
+            l_t, l_idx = _leaf_best(bvh, tri, o[rows], d[rows], packed[at_leaf])
             better = l_t < t_best[rows]
             t_best[rows] = torch.where(better, l_t, t_best[rows])
-            best[rows] = torch.where(better, torch.gather(block, 1, arg)[:, 0], best[rows])
+            best[rows] = torch.where(better, l_idx, best[rows])
             if count:
                 counts[rows, 1] += 1
                 counts[rows, 2] += n_tri[at_leaf]
@@ -103,6 +128,80 @@ def walk_closest_hit(bvh: PackedBVH, o, d, tri=None, *, count: bool = False):
         cursor[act] = nxt
         act = act[nxt < n_nodes]
     return (t_best, best, counts) if count else (t_best, best)
+
+
+_DONE = -1  # bvh_walk.cuh's kWalkDone: no ref
+#: The near-first walk cuts a box only where the ray enters it after the
+#: best t times this (bvh_walk.cuh's kNearSlack, 1 + 2^-16): a box's f32 slab
+#: entry can round above the f32 t of a triangle inside it.
+NEAR_SLACK = 1.0 + 2.0**-16
+
+
+def near_first_closest_hit(bvh: PackedBVH, o, d):
+    """Closest hit of (N, 3) f32 rays by the near-first walk over the
+    child-pair table `bvh.pairs`, each ray's visits in the kernel's order:
+    (t (N,) f32, idx (N,) int64 padded index), MISS and -1 on a miss. The
+    rays step in lockstep, one visit (a record or a leaf) each a step. No
+    autograd, no counters."""
+    if bvh.pairs is None:
+        raise ValueError("the near-first walk needs a child-pair table: a binary tree")
+    dev = o.device
+    n = o.shape[0]
+    pairs = bvh.pairs
+    refs = pairs.view(torch.int32)[:, [3, 11]].long()
+    inv_d = _inv_dir(d)
+    t_best = torch.full((n,), MISS, dtype=o.dtype, device=dev)
+    best = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    depth = max(bvh.max_depth - 1, 1)
+    stack_t = torch.zeros((n, depth), dtype=o.dtype, device=dev)
+    stack_ref = torch.zeros((n, depth), dtype=torch.int64, device=dev)
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    ref = torch.zeros(n, dtype=torch.int64, device=dev)  # the root's record
+    act = torch.arange(n, device=dev)  # the rays still walking
+
+    while act.numel() > 0:
+        r = ref[act]
+        inner = (r & MAX_LEAF_TRIS) == 0
+        pops = [act[~inner]]  # after a leaf, the walk pops
+
+        rows, rec_i = act[inner], r[inner] >> COUNT_BITS
+        if rows.numel() > 0:
+            rec = pairs[rec_i]
+            oa, ia, bound = o[rows], inv_d[rows], t_best[rows] * NEAR_SLACK
+            near0, hit0 = _slab(rec[:, 0:3], rec[:, 4:7], oa, ia, bound)
+            near1, hit1 = _slab(rec[:, 8:11], rec[:, 12:15], oa, ia, bound)
+            ref0, ref1 = refs[rec_i].unbind(1)
+            both = hit0 & hit1
+            left_first = near0 <= near1
+            pushed, top = rows[both], sp[rows[both]]
+            stack_t[pushed, top] = torch.where(left_first, near1, near0)[both]
+            stack_ref[pushed, top] = torch.where(left_first, ref1, ref0)[both]
+            sp[pushed] += 1
+            ref[rows] = torch.where(both, torch.where(left_first, ref0, ref1),
+                                    torch.where(hit0, ref0, ref1))
+            pops.append(rows[~(hit0 | hit1)])
+
+        rows = pops[0]
+        if rows.numel() > 0:
+            l_t, l_idx = _leaf_best(bvh, bvh.tri, o[rows], d[rows], r[~inner])
+            tb, bi = t_best[rows], best[rows]
+            better = (l_t < tb) | ((l_t == tb) & (l_idx < bi))
+            t_best[rows] = torch.where(better, l_t, tb)
+            best[rows] = torch.where(better, l_idx, bi)
+
+        # Pop each: the first entry down the stack whose box the ray enters
+        # at or before its widened best t; _DONE when none is left.
+        popping = torch.cat(pops)
+        ref[popping] = _DONE
+        while popping.numel() > 0:
+            popping = popping[sp[popping] > 0]
+            sp[popping] -= 1
+            top = sp[popping]
+            keep = stack_t[popping, top] <= t_best[popping] * NEAR_SLACK
+            ref[popping[keep]] = stack_ref[popping[keep], top[keep]]
+            popping = popping[~keep]
+        act = act[ref[act] != _DONE]
+    return t_best, best
 
 
 def make_bvh_env_hit(bvh_or_mesh, *, differentiable_tris: bool = False, device="cuda"):

@@ -27,6 +27,18 @@ the transmitter inside one small cone. Every call orders its own rays. The
 counted instantiation keeps the caller's order, since its `warp_steps` is
 defined over 32 consecutive caller rays, and it is analytic only.
 
+On the card the kernel walks the BVH nearer child first over the tree's
+child-pair table (`PackedBVH.pairs`) wherever the tree fits the walk's
+per-thread stack (`PackedBVH.near_first`: a binary tree of at most
+`bvh_pack.STACK_CAPACITY + 1` levels, read when the tree is packed), and in
+preorder otherwise; the counted instantiation always walks in preorder,
+since its counters are defined as the preorder walk's visits. Both keep the
+hit of smallest (t, padded index) among the triangles they test, and the
+near-first walk's cut is widened so that it drops no box holding a triangle
+at the best t: it gives `fused_trace_plain`'s hit also on the rare ray (4 of
+83.9M i.i.d. rays on the 1,045,458-triangle terrain, NVIDIA H100) where the
+preorder walk's exact cut drops the box of the brute-force winner.
+
 `make_diff_fused_tracer` is the differentiable fused path (analytic
 receiver): the forward is the kernel with `record_faces`, the backward
 replays the captured rays on their recorded faces in closed form
@@ -86,12 +98,14 @@ __all__ = ["FusedTracer", "make_fused_tracer", "fused_trace", "fused_trace_plain
 
 _TRACE_ARGS = [P, I, P, I, P, P, F, F, F, F, F, F, F, F, F, I, P, P, P, P, P]
 # The arguments, then the cell order, its rank, the walk's (N, 4) records and
-# (B, N) faces (all null in the caller's order), and the stream.
-FUSED_TRACE_KERNEL = CudaKernel("fused_trace.cu", "rfx_fused_trace", [*_TRACE_ARGS, P, P, P, P, P])
+# (B, N) faces (all null in the caller's order), the child-pair table (null:
+# the preorder walk), and the stream.
+FUSED_TRACE_KERNEL = CudaKernel("fused_trace.cu", "rfx_fused_trace",
+                                [*_TRACE_ARGS, P, P, P, P, P, P])
 # The icosphere instantiation: the radius in r^2's place, and the unit
 # icosphere's (80, 9) faces before the stream.
 FUSED_TRACE_ICO_KERNEL = CudaKernel("fused_trace.cu", "rfx_fused_trace_ico",
-                                    [*_TRACE_ARGS, P, P, P, P, P, P])
+                                    [*_TRACE_ARGS, P, P, P, P, P, P, P])
 # The counted instantiation: the same arguments, then the (B, 4) counters.
 FUSED_TRACE_COUNTED_KERNEL = CudaKernel("fused_trace.cu", "rfx_fused_trace_counted",
                                         [*_TRACE_ARGS, P, P])
@@ -225,8 +239,8 @@ def fused_trace_plain(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, 
                       n1=5.0, n2=1.0, *, max_bounces: int, record_faces: bool = False,
                       rx_mode: str = "analytic"):
     """Plain PyTorch version of the fused kernel: brute-force closest hit over
-    the packed triangles in padded order (ties to the lowest index, as the
-    kernel's preorder walk gives them), chunked over rays to bound the
+    the packed triangles in padded order (ties to the lowest index, as
+    either of the kernel's walks gives them), chunked over rays to bound the
     intermediates, and the receiver of `rx_mode`. Returns a TraceResult, or
     (TraceResult, (B, N) int32 faces) with `record_faces`. It cannot count:
     see `fused_trace_walk_plain`."""
@@ -315,12 +329,15 @@ def _fused_launch(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, rx_r
     result = TraceResult(captured, cap_amp, cap_dist, nb)
     if n == 0:
         return _extras(result, faces, stats)
-    # The counted walk keeps the caller's order: its `warp_steps` is defined
-    # over 32 consecutive caller rays.
+    # The counted walk keeps the caller's order and the preorder walk: its
+    # `warp_steps` is defined over 32 consecutive caller rays, its counters
+    # as the preorder walk's visits.
     ordered = not count_stats and n >= ORDER_MIN_RAYS
+    near_first = not count_stats and bvh.near_first
     profiling.tally("rays_fused", n)
     profiling.tally("rays_ordered", n if ordered else 0)
     profiling.tally("rays_fused_ico", n if ico else 0)
+    profiling.tally("rays_near_first", n if near_first else 0)
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -339,11 +356,12 @@ def _fused_launch(bvh: PackedBVH, directions: torch.Tensor, tx_pos, rx_pos, rx_r
             walked_faces = torch.empty_like(faces) if record_faces else None
             walk = (cells.order.data_ptr(), cells.rank.data_ptr(), walked.data_ptr(),
                     ptr(walked_faces))
+        pairs = ptr(bvh.pairs if near_first else None)
         if ico:
-            FUSED_TRACE_ICO_KERNEL.launch(*args, *walk, unit_icosphere_tris(dev).data_ptr(),
+            FUSED_TRACE_ICO_KERNEL.launch(*args, *walk, pairs, unit_icosphere_tris(dev).data_ptr(),
                                           stream)
         else:
-            FUSED_TRACE_KERNEL.launch(*args, *walk, stream)
+            FUSED_TRACE_KERNEL.launch(*args, *walk, pairs, stream)
     return _extras(result, faces, stats)
 
 

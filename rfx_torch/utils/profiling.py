@@ -41,8 +41,9 @@ kernel or once a ray, and no counter reads the device. The spans:
 bytes that crossed through page-locked host memory, `bytes_pinned_to_host`
 and `bytes_pinned_to_device`; the rays the fused kernel walked on the card,
 `rays_fused`, of those the rays it walked in direction-cell order,
-`rays_ordered`, and the rays it walked with the icosphere receiver,
-`rays_fused_ico` (rfx_torch/ops/fused.py); the receivers whose sums the
+`rays_ordered`, the rays it walked with the icosphere receiver,
+`rays_fused_ico`, and the rays it walked nearer child first over the
+child-pair table, `rays_near_first` (rfx_torch/ops/fused.py); the receivers whose sums the
 phasor kernel's walk computed, `rx_phasor` (rfx_torch/ops/coverage_hist.py);
 all counted only while a profiler records: in a benchmark's traced run,
 exactly its traced units. Gauges of the last BVH
@@ -50,8 +51,8 @@ set-up, set whether or not a profiler records (set-up runs before one
 starts), and absent until the first build: `bvh_build_s`, the host seconds
 of the last `build_bvh`; `bvh_native`, 1 if the native builder made that
 tree, else 0; `bvh_table_bytes`, the bytes of the last `pack_bvh`'s device
-tables (nodes, triangles and face ids, from the tensors' sizes, not read
-from the device).
+tables (the preorder nodes, the child-pair table, triangles and face ids,
+from the tensors' sizes, not read from the device).
 
 Page-locked memory. `to_host` brings a CUDA tensor of at least
 `PINNED_MIN_BYTES` into page-locked memory from PyTorch's caching host
@@ -95,7 +96,8 @@ _profiler_enabled = torch._C._autograd._profiler_enabled
 
 _COUNTERS = {"bytes_to_host": 0, "bytes_to_device": 0,
              "bytes_pinned_to_host": 0, "bytes_pinned_to_device": 0,
-             "rays_fused": 0, "rays_ordered": 0, "rays_fused_ico": 0, "rx_phasor": 0}
+             "rays_fused": 0, "rays_ordered": 0, "rays_fused_ico": 0, "rays_near_first": 0,
+             "rx_phasor": 0}
 _GAUGES = {}
 
 #: Payloads of at least this many bytes cross through page-locked memory:
@@ -188,7 +190,7 @@ def set_gauge(name: str, value) -> None:
 def counters() -> dict:
     """A copy of the counters: the tallies bytes_to_host, bytes_to_device,
     bytes_pinned_to_host, bytes_pinned_to_device, rays_fused, rays_ordered,
-    rays_fused_ico, rx_phasor, and the gauges set so far (bvh_build_s, bvh_native,
+    rays_fused_ico, rays_near_first, rx_phasor, and the gauges set so far (bvh_build_s, bvh_native,
     bvh_table_bytes)."""
     return {**_COUNTERS, **_GAUGES}
 

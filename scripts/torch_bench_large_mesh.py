@@ -116,12 +116,13 @@ def build_scene(dev, *, grid: int = GRID, extent: float = EXTENT, n_rays: int = 
             bvh.skip.cpu().numpy(), flat.skip):
         raise AssertionError(f"the facade's tree is not the {method} builder's "
                              f"(backend {tracer.backend}, {bvh.n_nodes} vs {flat.n_nodes} nodes)")
-    tables = {"tri": bvh.tri, "tri_face": bvh.tri_face, "nodes": bvh.nodes}
+    tables = {"tri": bvh.tri, "tri_face": bvh.tri_face, "nodes": bvh.nodes, "pairs": bvh.pairs}
     info = {"triangles": int(mesh.num_faces), "build_method": method,
             "mesh_seconds": t_mesh, "bvh_build_seconds": t_build,
             "tracer_seconds": t_tracer, "bvh_nodes": int(flat.n_nodes),
             "padded_tris": int(flat.n_padded_tris), "leaf_size": LEAF,
-            "table_bytes": {k: int(v.numel() * v.element_size()) for k, v in tables.items()}}
+            "table_bytes": {k: int(v.numel() * v.element_size()) for k, v in tables.items()
+                            if v is not None}, "bvh_depth": int(bvh.max_depth)}
     info["table_bytes"]["total"] = sum(info["table_bytes"].values())
     return mesh, flat, tracer, info
 

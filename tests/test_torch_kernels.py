@@ -16,8 +16,8 @@ import torch
 from rfx_torch import cir, coverage
 from rfx_torch.api import Tracer
 from rfx_torch.geometry import make_room, make_terrain
-from rfx_torch.ops import (bvh_trace, bvh_traverse, coverage_hist, fused, intersect, map_capture,
-                           micro_vote, ray_order)
+from rfx_torch.ops import (bvh_pack, bvh_trace, bvh_traverse, coverage_hist, fused, intersect,
+                           map_capture, micro_vote, ray_order)
 from rfx_torch.sampler import morton_sphere_directions, sphere_directions
 from rfx_torch.tracer import EnvSegments, Scene, trace_env, trace_to_rx
 from rfx_torch.utils import profiling
@@ -404,8 +404,10 @@ def test_icosphere_fused_kernel_matches_plain(cuda, bench_terrain, n, radius):
     the face record == fused_trace_plain(rx_mode="icosphere")'s bit for bit
     (max |d| 0), and the same bits on a second call; one launch of the
     icosphere entry point a call (and of the order where it orders), none
-    of the analytic one or of K-B."""
+    of the analytic one or of K-B. The bench terrain's tree fits the stack:
+    the kernel walks it nearer child first."""
     ft = bench_terrain
+    assert ft.bvh.near_first
     dirs = _iid(n, cuda, seed=int(radius * 10))
     args = ([10.0, 0.0, 25.0], [-10.0, 0.0, 8.0], radius)
     kw = dict(max_bounces=4, rx_mode="icosphere")
@@ -444,6 +446,151 @@ def test_icosphere_fused_kernel_keeps_the_bits_of_the_caller_s_order(cuda, bench
     for a, b in zip(ordered[:4], caller[:4]):
         assert torch.equal(a, b)
     assert not all(torch.equal(a, b) for a, b in zip(ordered[:4], analytic[:4]))
+
+
+@pytest.fixture(scope="module")
+def large_terrain():
+    """The large-mesh cell's terrain (`ref_main_largemesh`: 1,045,458
+    triangles, the native builder)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: torch.cuda.is_available() is False")
+    return fused.make_fused_tracer(make_terrain(grid=724, extent=120.0, seed=0), max_bounces=4,
+                                   device=torch.device("cuda", 0))
+
+
+def _differing_rays(a, b):
+    """The rays whose four outputs or face record differ between two traces."""
+    (ra, fa), (rb, fb) = a, b
+    diff = (fa != fb).any(dim=0)
+    for x, y in zip(ra[:4], rb[:4]):
+        diff |= x != y
+    return torch.nonzero(diff).flatten()
+
+
+@pytest.mark.parametrize("order", ["cell", "caller"])
+@pytest.mark.parametrize("scene", ["bench", "large"])
+def test_near_first_fused_kernel_keeps_the_preorder_walk_s_bits(cuda, bench_terrain,
+                                                                 large_terrain, scene, order):
+    """K1 walking nearer child first (both cells' trees fit the stack) against
+    the counted instantiation, which walks the same tree in preorder: the
+    CIR cells' 5,242,880 i.i.d. rays in direction-cell order, and
+    ORDER_MIN_RAYS - 1 of them in the caller's order, on the bench terrain and
+    on the large one. The four outputs and the face record keep their bits
+    on every ray but a few, the same bits on a second call; on each ray that
+    differs K1 equals fused_trace_plain (brute force, no cut) bit for bit and
+    the preorder walk does not: there the preorder walk's exact cut dropped a
+    box whose f32 slab entry rounded above the t of the triangle brute force
+    picks, which the near-first walk's widened cut keeps. Measured on the
+    card: 1 such ray of 5,242,880 on the large terrain in cell order, none in
+    the other three cases."""
+    ft = bench_terrain if scene == "bench" else large_terrain
+    assert ft.bvh.near_first and ft.bvh.max_depth - 1 <= bvh_pack.STACK_CAPACITY
+    n = 5_242_880 if order == "cell" else fused.ORDER_MIN_RAYS - 1
+    dirs = _iid(n, cuda, seed=26)
+    args = ([10.0, 0.0, 25.0], [-10.0, 0.0, 8.0], 1.0)
+    kw = dict(max_bounces=4, record_faces=True)
+    near = fused.fused_trace(ft.bvh, dirs, *args, **kw)
+    again = fused.fused_trace(ft.bvh, dirs, *args, **kw)
+    pre, pre_faces, _ = fused.fused_trace(ft.bvh, dirs, *args, count_stats=True, **kw)
+    torch.cuda.synchronize()
+    assert int(near[0].captured.sum()) > 0
+    assert _differing_rays(near, again).numel() == 0
+    rays = _differing_rays(near, (pre, pre_faces))
+    assert rays.numel() <= 4, f"{rays.numel()} of {n} rays differ"
+    if rays.numel() > 0:
+        plain = fused.fused_trace_plain(ft.bvh, dirs[rays].contiguous(), *args, **kw)
+        pick = lambda r: ([x[rays] for x in r[0][:4]], r[1][:, rays])  # noqa: E731
+        assert _differing_rays(pick(near), plain).numel() == 0
+        assert _differing_rays(pick((pre, pre_faces)), plain).numel() == rays.numel()
+
+
+def test_near_first_fused_kernel_breaks_ties_by_the_lower_index(cuda):
+    """On the tie tree (tests/test_torch_near_first.py), where the near-first
+    walk meets a duplicate triangle before the original at the same t, K1
+    records the original's face, as fused_trace_plain does."""
+    from tests.test_torch_near_first import tie_bvh
+
+    ft = fused.FusedTracer(tie_bvh(), max_bounces=1, device=cuda)
+    assert ft.bvh.near_first
+    n = 4096
+    gen = torch.Generator(cuda).manual_seed(5)
+    dirs = torch.nn.functional.normalize(
+        torch.tensor([0.0, 0.0, -1.0], device=cuda) + 0.02 * torch.randn(n, 3, generator=gen,
+                                                                          device=cuda), dim=1)
+    args = ([0.1, 0.2, 10.0], [30.0, 30.0, 30.0], 0.5)
+    k, kf = fused.fused_trace(ft.bvh, dirs, *args, max_bounces=1, record_faces=True)
+    p, pf = fused.fused_trace_plain(ft.bvh, dirs, *args, max_bounces=1, record_faces=True)
+    torch.cuda.synchronize()
+    assert int((kf[0] == 0).sum()) > n // 2 and not bool((kf[0] == 1).any())
+    assert torch.equal(kf, pf)
+    for a, b in zip(k[:4], p[:4]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("extra, near_first", [(1, True), (2, False)])
+@pytest.mark.parametrize("rx_mode", ["analytic", "icosphere"])
+def test_fused_kernel_walks_a_tree_deeper_than_the_stack_in_preorder(cuda, extra, near_first,
+                                                                     rx_mode):
+    """A degenerate chain of STACK_CAPACITY + 1 levels fills the near-first
+    walk's whole stack (rays down the chain from its far end push a leaf at
+    every level); one level more, and the launch walks in preorder. Both
+    give fused_trace_plain's outputs and face record bit for bit, and
+    `rays_near_first` counts the first launch's rays and none of the
+    second's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tests.test_torch_near_first import chain_bvh
+
+    levels = bvh_pack.STACK_CAPACITY + extra
+    ft = fused.FusedTracer(chain_bvh(levels), max_bounces=2, device=cuda)
+    assert ft.bvh.max_depth == levels and ft.bvh.near_first is near_first
+    n = 20_000
+    gen = torch.Generator(cuda).manual_seed(extra)
+    dirs = torch.nn.functional.normalize(
+        torch.tensor([-1.0, 0.0, 0.0], device=cuda) + 0.05 * torch.randn(n, 3, generator=gen,
+                                                                          device=cuda), dim=1)
+    args = ([levels + 1.0, 0.2, 0.3], [levels + 3.0, 0.5, 0.5], 1.5)
+    kw = dict(max_bounces=2, record_faces=True, rx_mode=rx_mode)
+    before = profiling.counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        k, kf = fused.fused_trace(ft.bvh, dirs, *args, **kw)
+        torch.cuda.synchronize()
+    after = profiling.counters()
+    p, pf = fused.fused_trace_plain(ft.bvh, dirs, *args, **kw)
+    assert after["rays_near_first"] - before["rays_near_first"] == (n if near_first else 0)
+    assert after["rays_fused"] - before["rays_fused"] == n
+    assert int((kf[0] == levels - 1).sum()) > n // 2
+    assert torch.equal(kf, pf)
+    for a, b in zip(k[:4], p[:4]):
+        assert torch.equal(a, b)
+
+
+def test_fused_kernel_counts_the_rays_it_walks_nearer_child_first(cuda):
+    """Under a profiler `rays_near_first` counts every ray of a launch on a
+    tree that fits the stack, in either order and with either receiver, and
+    none of the counted walk's; with no profiler it does not move."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ft = fused.make_fused_tracer(make_terrain(grid=48, extent=40.0, seed=3), max_bounces=4,
+                                 device=cuda)
+    args = ([2.0, 1.0, 12.0], [-5.0, 2.0, 6.0], 2.0)
+    big, small = fused.ORDER_MIN_RAYS, 1000
+
+    def moved(n, **kw):
+        dirs = _iid(n, cuda)
+        before = profiling.counters()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            fused.fused_trace(ft.bvh, dirs, *args, max_bounces=4, **kw)
+            torch.cuda.synchronize()
+        after = profiling.counters()
+        return after["rays_near_first"] - before["rays_near_first"]
+
+    assert moved(big) == big and moved(small) == small
+    assert moved(big, rx_mode="icosphere") == big
+    assert moved(small, count_stats=True) == 0
+    before = profiling.counters()["rays_near_first"]
+    fused.fused_trace(ft.bvh, _iid(big, cuda), *args, max_bounces=4)
+    assert profiling.counters()["rays_near_first"] == before
 
 
 def test_fused_kernel_counts_the_rays_it_walks_with_the_icosphere(cuda):
@@ -1249,7 +1396,8 @@ def test_rx_power_kernel_rows_alone_equal_the_batch(cuda, m):
 def test_counted_fused_kernel_matches_plain_walk(cuda, n):
     """The counted instantiation: counters equal the plain walk's integer for
     integer, the trace equals the uncounted kernel's bit for bit (a ragged
-    last warp and block included)."""
+    last warp and block included): the preorder walk against the near-first
+    one."""
     ft = fused.make_fused_tracer(make_terrain(grid=48, extent=40.0, seed=3), max_bounces=4,
                                  count_stats=True, device=cuda)
     dirs = morton_sphere_directions(n, generator=torch.Generator(cuda).manual_seed(4),

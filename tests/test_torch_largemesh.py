@@ -119,8 +119,8 @@ def test_a_tracer_s_set_up_records_the_bvh_spans_and_sets_the_gauges(monkeypatch
     assert names == ["rfx.bvh.build", "rfx.bvh.pack"]
     packed = t._fused.bvh
     c = profiling.counters()
-    assert c["bvh_table_bytes"] == (packed.nodes.nbytes + packed.tri.nbytes
-                                    + packed.tri_face.nbytes)
+    assert c["bvh_table_bytes"] == (packed.nodes.nbytes + packed.pairs.nbytes
+                                    + packed.tri.nbytes + packed.tri_face.nbytes)
     assert c["bvh_native"] == 0 and c["bvh_build_s"] > 0
 
 

@@ -239,6 +239,31 @@ def test_icosphere_fused_share_reads_the_rays_walked_with_the_icosphere(program,
     assert got == (None if expected is None else pytest.approx(expected))
 
 
+@pytest.mark.parametrize("program, expected", [
+    ("every_ray", 100.0), ("a_quarter", 25.0), ("no_tally", 0.0), ("no_fused_rays", None),
+    ("no_counters", None), ("no_units", None)])
+def test_near_first_share_reads_the_rays_walked_nearer_child_first(program, expected,
+                                                                   monkeypatch):
+    """`near_first_pct.cir`: 100 x `rays_near_first` / `rays_fused`; 0 where
+    the program has no such tally (it walks in preorder), None without
+    counters, units or a ray the fused kernel walked."""
+    trace = _synthetic_trace()
+    counters = {"bytes_to_host": 0, "bytes_to_device": 0, "rays_fused": 4000}
+    if program == "every_ray":
+        counters["rays_near_first"] = 4000
+    elif program == "a_quarter":
+        counters["rays_near_first"] = 1000
+    elif program == "no_fused_rays":
+        counters["rays_fused"] = 0
+    elif program == "no_units":
+        trace.units = []
+    monkeypatch.setattr(profiling, "_COUNTERS", counters)
+    if program == "no_counters":
+        monkeypatch.delattr(profiling, "counters")
+    got = load_metric("near_first_pct.cir").read(trace, None)
+    assert got == (None if expected is None else pytest.approx(expected))
+
+
 def test_span_readers_read_nothing_without_the_program_s_spans(monkeypatch):
     trace = _synthetic_trace()
     trace.host = [h for h in trace.host if not h[2].startswith("rfx.")]
