@@ -158,9 +158,10 @@ class Tracer:
         capture kernels). Measured by `chip_smoke.py` phase 17 on an NVIDIA
         H100 80GB HBM3 (700 W), 2,048 receivers x 1,048,576 rays x 2 bounces
         x 10,000 bins: the icosphere sweep 53-72 ms on the room and 51-76 ms
-        on the terrain, against 39-52 ms for the analytic receiver's; the
-        plain composition it replaced took 4.1-4.3 s for 64 of those
-        receivers.
+        on the terrain; the plain composition it replaced took 4.1-4.3 s for
+        64 of those receivers. The analytic receiver's sweeps, as the
+        benchmark's `coverage.*.exact` cells time them on the card, are in
+        PERF.md section 5.
 
         On a CUDA device IRs of at least `PINNED_MIN_BYTES` (1 MiB) come
         back in page-locked memory from PyTorch's caching host allocator

@@ -2334,3 +2334,61 @@ def test_fast_coverage_keeps_its_bits_under_the_profiler(cuda):
     assert {e[2] for e in waits} == {"rfx.wait.env_tx_to_device", "rfx.wait.centers_to_device",
                                      "rfx.wait.scale_to_device", "rfx.wait.dbm_to_host"}
     assert "rfx.coverage.phasor" in {e[2] for e in host}
+
+
+def test_terrain_sweep_s_k2_launches_match_plain_and_keep_their_bits(cuda):
+    """`coverage.terrain.exact`'s sizes (1,048,576 i.i.d. rays x 2 bounces
+    from (10, 0, 25) over the 32,258-triangle bench terrain, the 2,048
+    receivers of radius 0.5 at z 10-24, 10,000 bins) through the facade's
+    fused backend: the environment trace launches K2 once a bounce, and
+    every 16th query of each launch, parked lanes included, is
+    `closest_hit_plain`'s answer bit for bit; a second sweep, under the
+    profiler, gives the same IRs bit for bit, and every synchronize inside
+    the facade's span lies in a named wait."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 1 << 20
+    dirs = sphere_directions(n, generator=torch.Generator(cuda).manual_seed(27), device=cuda)
+    axis = np.arange(-15.0, 16.0, 2.0)
+    grid = coverage.make_grid(axis, axis, np.arange(10.0, 25.0, 2.0))
+    assert grid.shape == (2048, 3)
+    t = Tracer(make_terrain(grid=128, extent=60.0, seed=0), 2.998e8, 100e9, 100e-9, 2, n,
+               device=cuda)
+    assert t.backend == "fused"
+    env, seen = t.env_hit, []
+
+    def recording(o, d, v0, e1, e2):
+        out = env(o, d, v0, e1, e2)
+        seen.append((o, d, out))
+        return out
+
+    t.env_hit = recording
+    tx = (10.0, 0.0, 25.0)
+    before = bvh_trace.CLOSEST_HIT_KERNEL.launches
+    first = t.compute_coverage(tx, 1.0, grid, 0.5, directions=dirs)
+    assert bvh_trace.CLOSEST_HIT_KERNEL.launches == before + 2 and len(seen) == 2
+    pick = slice(0, n, 16)
+    for b, (o, d, (k_t, k_face, k_nrm)) in enumerate(seen):
+        p_t, _idx, p_face, p_nrm = bvh_trace.closest_hit_plain(
+            env.bvh, o[pick].contiguous(), d[pick].contiguous())
+        assert int((p_face >= 0).sum()) > 1_000, b
+        assert torch.equal(k_t[pick], p_t), b
+        assert torch.equal(k_face[pick], p_face), b
+        assert torch.equal(k_nrm[pick], p_nrm), b
+    seen.clear()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        second = t.compute_coverage(tx, 1.0, grid, 0.5, directions=dirs)
+        t.rx_power_dbm(second)
+        torch.cuda.synchronize()
+    assert np.count_nonzero(first) > 0 and np.array_equal(_bits(first), _bits(second))
+    events = [(e.time_range.start, e.time_range.end, e.name, str(e.device_type))
+              for e in prof.events()]
+    host = [e for e in events if "CUDA" not in e[3]]
+    facade = [e for e in host if e[2].startswith("rfx.api.")]
+    waits = [e for e in host if e[2].startswith("rfx.wait.")]
+    inside = lambda e, spans: any(a <= e[0] and e[1] <= b for a, b, *_ in spans)  # noqa: E731
+    syncs = [e for e in host if _is_sync(e[2]) and inside(e, facade)]
+    assert [e[2] for e in facade] == ["rfx.api.compute_coverage", "rfx.api.rx_power_dbm"]
+    assert syncs and [e[2] for e in syncs if not inside(e, waits)] == []
+    assert {"rfx.ops.env_hit", "rfx.coverage.hist"} <= {e[2] for e in host}
